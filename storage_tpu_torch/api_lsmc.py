@@ -1,0 +1,343 @@
+"""LSMC public API: ``three_factor_seasonal_value`` and ``multi_factor_value``
+(counterparts of ``storage_tpu.api_lsmc``), pandas at the boundary and the
+torch engine inside, on the device the caller names.
+
+Accepted: ``sim_data_returned=NONE``, pathwise deltas, ``antithetic=False``,
+no progress or cancel callback, no checkpoint, uniform grids, monomial bases.
+Every other option raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.  Seeds keep the JAX key semantics: ``key(seed)`` for the regression
+sims, ``fold_in(key, 0x5EED)`` for the valuation sims when ``fwd_sim_seed``
+is None, one shared set when the two seeds are equal.
+
+The intrinsic value is not computed yet (ROADMAP Queue 1 item 9, intrinsic
+and tree engines): ``intrinsic_npv`` is NaN and ``intrinsic_profile`` empty.
+"""
+from __future__ import annotations
+
+import logging
+import typing as tp
+
+import numpy as np
+import pandas as pd
+import torch
+
+from . import basis as basis_mod
+from .engines import lsmc as lsmc_engine
+from .facility import CmdtyStorage
+from .models import multi_factor as mf
+from .models import spot_sim
+from .results import (
+    MultiFactorValuationResults,
+    SimulationDataReturned,
+    TriggerPricePoint,
+    TriggerPriceProfile,
+)
+from .utils import discount as dsc
+from .utils import periods as pu
+from .valuation_inputs import prepare_valuation
+
+logger = logging.getLogger("storage_tpu_torch.multi_factor")
+
+DEFAULT_NUM_GRID_POINTS = 100  # reference default (ExcelArg.cs:130, intrinsic.py:48)
+
+
+def three_factor_seasonal_value(
+    cmdty_storage: CmdtyStorage,
+    val_date: pu.PeriodSpec,
+    inventory: float,
+    fwd_curve: pd.Series,
+    interest_rates: tp.Union[float, pd.Series],
+    settlement_rule: tp.Optional[dsc.SettlementRule],
+    spot_mean_reversion: float,
+    spot_vol: float,
+    long_term_vol: float,
+    seasonal_vol: float,
+    num_sims: int,
+    basis_funcs: str,
+    discount_deltas: bool,
+    seed: tp.Optional[int] = None,
+    fwd_sim_seed: tp.Optional[int] = None,
+    extra_decisions: tp.Optional[int] = None,
+    num_inventory_grid_points: int = DEFAULT_NUM_GRID_POINTS,
+    numerical_tolerance: float = 1e-12,
+    on_progress_update=None,
+    sim_data_returned: SimulationDataReturned = SimulationDataReturned.NONE,
+    dtype=torch.float32,
+    antithetic: bool = False,
+    cancellation_poll=None,
+    deltas_method: str = "pathwise",
+    checkpoint_path: tp.Optional[str] = None,
+    grid_calc=None,
+    *,
+    device: tp.Union[str, torch.device],
+    snap_interp: bool = False,
+) -> MultiFactorValuationResults:
+    """3-factor seasonal LSMC valuation (reference ``multi_factor.py:99-135``).
+    Basis functions may name the factors ``x_st``/``x_lt``/``x_sw`` or
+    ``x0``/``x1``/``x2``.  ``device`` (keyword, required) is where the sims
+    and the engine run; ``snap_interp`` rounds interpolation weights to the
+    1/256 grid of the TPU run."""
+    val_period = pu.to_period(val_date, cmdty_storage.start.freqstr)
+    factors, factor_corrs = mf.create_3_factor_seasonal_params(
+        cmdty_storage.freq, spot_mean_reversion, spot_vol, long_term_vol,
+        seasonal_vol, val_period, cmdty_storage.end,
+    )
+    return multi_factor_value(
+        cmdty_storage, val_date, inventory, fwd_curve, interest_rates,
+        settlement_rule, factors, factor_corrs, num_sims, basis_funcs,
+        discount_deltas, seed=seed, fwd_sim_seed=fwd_sim_seed,
+        extra_decisions=extra_decisions,
+        num_inventory_grid_points=num_inventory_grid_points,
+        numerical_tolerance=numerical_tolerance,
+        on_progress_update=on_progress_update,
+        sim_data_returned=sim_data_returned, dtype=dtype, antithetic=antithetic,
+        cancellation_poll=cancellation_poll, deltas_method=deltas_method,
+        checkpoint_path=checkpoint_path, grid_calc=grid_calc, device=device,
+        snap_interp=snap_interp,
+    )
+
+
+def _refuse_unported(sim_data_returned, antithetic, on_progress_update,
+                     cancellation_poll, deltas_method, checkpoint_path, grid_calc):
+    def refuse(option: str, item: str):
+        raise NotImplementedError(
+            f"storage_tpu_torch does not support {option} yet: it waits for "
+            f"ROADMAP Queue 1 item {item}."
+        )
+
+    if SimulationDataReturned.coerce(sim_data_returned) != SimulationDataReturned.NONE:
+        refuse("sim_data_returned other than NONE (per-sim panels)", "5 (value_from_sims and panels)")
+    if antithetic:
+        refuse("antithetic=True", "6 (streamed engine and antithetic draws)")
+    if on_progress_update is not None or cancellation_poll is not None:
+        refuse("progress or cancellation callbacks", "8 (interactive execution)")
+    if checkpoint_path is not None:
+        refuse("checkpoint_path", "8 (interactive execution and checkpoints)")
+    if deltas_method != "pathwise":
+        if deltas_method == "adjoint":
+            refuse("deltas_method='adjoint'", "7 (adjoint deltas)")
+        raise ValueError(
+            f"deltas_method must be 'pathwise' or 'adjoint', got {deltas_method!r}."
+        )
+    if grid_calc is not None:
+        refuse("grid_calc (custom inventory grids)", "9 (intrinsic and tree engines, custom grids)")
+
+
+def multi_factor_value(
+    cmdty_storage: CmdtyStorage,
+    val_date: pu.PeriodSpec,
+    inventory: float,
+    fwd_curve: pd.Series,
+    interest_rates: tp.Union[float, pd.Series],
+    settlement_rule: tp.Optional[dsc.SettlementRule],
+    factors: tp.Collection[mf.FactorType],
+    factor_corrs: mf.FactorCorrsType,
+    num_sims: int,
+    basis_funcs: str,
+    discount_deltas: bool,
+    seed: tp.Optional[int] = None,
+    fwd_sim_seed: tp.Optional[int] = None,
+    extra_decisions: tp.Optional[int] = None,
+    num_inventory_grid_points: int = DEFAULT_NUM_GRID_POINTS,
+    numerical_tolerance: float = 1e-12,
+    on_progress_update=None,
+    sim_data_returned: SimulationDataReturned = SimulationDataReturned.NONE,
+    dtype=torch.float32,
+    antithetic: bool = False,
+    cancellation_poll=None,
+    deltas_method: str = "pathwise",
+    checkpoint_path: tp.Optional[str] = None,
+    grid_calc=None,
+    *,
+    device: tp.Union[str, torch.device],
+    snap_interp: bool = False,
+) -> MultiFactorValuationResults:
+    """General multi-factor LSMC valuation (reference ``multi_factor.py:138-168``)
+    with pathwise deltas (LsmcStorageValuation.cs:513-518)."""
+    # Accepted for API parity, a no-op as in the JAX package: the branchless
+    # kernels snap decisions and interpolate exactly.
+    del numerical_tolerance
+    _refuse_unported(
+        sim_data_returned, antithetic, on_progress_update, cancellation_poll,
+        deltas_method, checkpoint_path, grid_calc,
+    )
+    factor_corrs = mf.validate_multi_factor_params(factors, factor_corrs)
+    device = torch.device(device)
+    if isinstance(fwd_curve, pd.Series) and isinstance(
+        fwd_curve.index, pd.PeriodIndex
+    ) and cmdty_storage.start.freqstr != fwd_curve.index.freqstr:
+        raise ValueError("cmdty_storage and forward_curve have different frequencies.")
+
+    # Expired storage and valuation on the end period (LsmcStorageValuation.cs:64-87).
+    val_period = pu.to_period(val_date, cmdty_storage.start.freqstr)
+    if val_period > cmdty_storage.end:
+        return _degenerate_results(0.0, cmdty_storage.freq)
+    if val_period == cmdty_storage.end:
+        if cmdty_storage.empty_at_end:
+            if inventory > 0:
+                raise ValueError(
+                    "Storage must be empty at end, but inventory is greater than zero."
+                )
+            return _degenerate_results(0.0, cmdty_storage.freq)
+        curve = fwd_curve
+        if not isinstance(curve.index, pd.PeriodIndex):
+            curve = curve.copy()
+            curve.index = pd.PeriodIndex(curve.index, freq=cmdty_storage.start.freqstr)
+        price = float(curve[val_period])
+        return _degenerate_results(
+            float(cmdty_storage.terminal_storage_npv(price, float(inventory))),
+            cmdty_storage.freq,
+        )
+
+    monomials = tuple(basis_mod.coerce_basis_functions(basis_funcs))
+    inputs = prepare_valuation(
+        cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule
+    )
+    if basis_mod.num_factors_required(monomials) > len(factors):
+        raise ValueError(
+            f"Basis functions reference factor x{basis_mod.num_factors_required(monomials) - 1} "
+            f"but only {len(factors)} factors are simulated."
+        )
+
+    pre = mf.simulation_precompute(
+        factors, factor_corrs, inputs.val_day, list(inputs.periods), cmdty_storage.freq
+    )
+    as_t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
+    sim_inputs = [as_t(pre.decay), as_t(pre.chol), as_t(pre.vols), as_t(pre.half_var),
+                  as_t(inputs.fwd)]
+    reg_key = spot_sim.key_from_seed(0 if seed is None else int(seed))
+    if fwd_sim_seed is None:
+        # Independent stream derived from the regression seed.
+        val_key = spot_sim.fold_in(reg_key, 0x5EED)
+    else:
+        val_key = spot_sim.key_from_seed(int(fwd_sim_seed))
+    same_sims = fwd_sim_seed is not None and int(fwd_sim_seed) == int(0 if seed is None else seed)
+    path_ids = torch.arange(num_sims, dtype=torch.int64, device=device)
+    arrays = lsmc_engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow,
+        inputs.inventory_lower, inputs.inventory_upper, num_inventory_grid_points,
+        dtype, device,
+    )
+    terminal_fn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
+
+    with lsmc_engine.full_f32_matmul():
+        logger.info("Simulating price paths on %s.", device)
+        reg = spot_sim.simulate_ou_paths(reg_key, path_ids, *sim_inputs)
+        val = reg if same_sims else spot_sim.simulate_ou_paths(val_key, path_ids, *sim_inputs)
+        logger.info("Calculating LSMC value.")
+        result = lsmc_engine.lsmc_core(
+            arrays, reg.spot, reg.factors, val.spot, val.factors,
+            inputs.starting_inventory, monomials, int(extra_decisions or 0),
+            bool(discount_deltas), terminal_fn, inputs.compiled.ratchet_is_step,
+            snap_interp=snap_interp,
+        )
+    result = {k: v.detach().cpu().numpy() for k, v in result.items()}
+    logger.info(
+        "LSMC complete. Forward NPV %.2f (backward %.2f).",
+        result["npv"], result["backward_npv"],
+    )
+    return _results(inputs.periods, result, len(factors))
+
+
+def profile_data_frame(periods, inventory, inject_withdraw, cmdty_consumed,
+                       inventory_loss, period_pv) -> pd.DataFrame:
+    """Storage-profile frame in the reference column layout (intrinsic.py:88-111);
+    ``net_volume = -inject_withdraw - consumed`` (StorageProfile.cs:28)."""
+    net_volume = -np.asarray(inject_withdraw) - np.asarray(cmdty_consumed)
+    return pd.DataFrame(
+        {
+            "inventory": np.asarray(inventory, dtype=np.float64),
+            "inject_withdraw_volume": np.asarray(inject_withdraw, dtype=np.float64),
+            "cmdty_consumed": np.asarray(cmdty_consumed, dtype=np.float64),
+            "inventory_loss": np.asarray(inventory_loss, dtype=np.float64),
+            "net_volume": net_volume.astype(np.float64),
+            "period_pv": np.asarray(period_pv, dtype=np.float64),
+        },
+        index=periods,
+    )
+
+
+def _results(periods, result, num_factors: int) -> MultiFactorValuationResults:
+    active = periods[:-1]
+    f64 = lambda key: result[key].astype(np.float64)  # noqa: E731
+    trigger_prices = pd.DataFrame(
+        {
+            "inject_volume": f64("max_inject_volume"),
+            "inject_trigger_price": f64("max_inject_trigger_price"),
+            "withdraw_volume": f64("max_withdraw_volume"),
+            "withdraw_trigger_price": f64("max_withdraw_trigger_price"),
+            "withdraw_max_volume_price": f64("withdraw_max_volume_price"),
+        },
+        index=active,
+    )
+
+    def points(volumes, prices):
+        return [
+            TriggerPricePoint(float(v), float(p))
+            for v, p in zip(volumes, prices)
+            if not (np.isnan(v) or np.isnan(p))
+        ]
+
+    trigger_profiles = pd.Series(
+        data=[
+            TriggerPriceProfile(
+                points(result["trigger_inject_volumes"][t], result["trigger_inject_prices"][t]),
+                points(result["trigger_withdraw_volumes"][t], result["trigger_withdraw_prices"][t]),
+            )
+            for t in range(len(active))
+        ],
+        index=active,
+    )
+    no_panels = tuple(pd.DataFrame() for _ in range(num_factors))
+    return MultiFactorValuationResults(
+        npv=float(result["npv"]),
+        val_sim_standard_error=float(result["standard_error"]),
+        deltas=pd.Series(data=f64("deltas"), index=periods),
+        expected_profile=profile_data_frame(
+            periods, result["profile_inventory"], result["profile_inject_withdraw"],
+            result["profile_cmdty_consumed"], result["profile_inventory_loss"],
+            result["profile_pv"],
+        ),
+        intrinsic_npv=float("nan"),
+        intrinsic_profile=pd.DataFrame(),
+        sim_spot_regress=pd.DataFrame(),
+        sim_spot_valuation=pd.DataFrame(),
+        sim_factors_regress=no_panels,
+        sim_factors_valuation=no_panels,
+        sim_inventory=pd.DataFrame(),
+        sim_inject_withdraw=pd.DataFrame(),
+        sim_cmdty_consumed=pd.DataFrame(),
+        sim_inventory_loss=pd.DataFrame(),
+        sim_net_volume=pd.DataFrame(),
+        sim_pv=pd.DataFrame(),
+        trigger_prices=trigger_prices,
+        trigger_profiles=trigger_profiles,
+    )
+
+
+def _degenerate_results(npv: float, freq: str) -> MultiFactorValuationResults:
+    """Zero/terminal-value results with empty series/frames for expired or
+    end-period valuations (LsmcStorageValuationResults.cs:60-105)."""
+    empty_idx = pd.PeriodIndex([], freq=freq)
+    empty_series = pd.Series(index=empty_idx, dtype=np.float64)
+    empty_frame = pd.DataFrame(index=empty_idx)
+    return MultiFactorValuationResults(
+        npv=float(npv),
+        val_sim_standard_error=0.0,
+        deltas=empty_series,
+        expected_profile=empty_frame,
+        intrinsic_npv=float(npv),
+        intrinsic_profile=empty_frame,
+        sim_spot_regress=pd.DataFrame(),
+        sim_spot_valuation=pd.DataFrame(),
+        sim_factors_regress=(),
+        sim_factors_valuation=(),
+        sim_inventory=pd.DataFrame(),
+        sim_inject_withdraw=pd.DataFrame(),
+        sim_cmdty_consumed=pd.DataFrame(),
+        sim_inventory_loss=pd.DataFrame(),
+        sim_net_volume=pd.DataFrame(),
+        sim_pv=pd.DataFrame(),
+        trigger_prices=empty_frame,
+        trigger_profiles=empty_series.copy(),
+    )

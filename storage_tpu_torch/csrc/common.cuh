@@ -1,0 +1,93 @@
+// Shared pieces of the storage_tpu_torch kernels: the monomial basis table,
+// the design row built in registers, and the deterministic second-stage
+// reduction of per-block partial sums.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace stt {
+
+constexpr int kMaxB = 16;  // basis functions
+constexpr int kMaxF = 8;   // Markov factors
+
+// Monomial powers, passed to kernels by value.  pows[b][0] is the spot power,
+// pows[b][1 + f] the power of factor f.
+struct Basis {
+  int nb;
+  int nf;
+  int8_t pows[kMaxB][kMaxF + 1];
+};
+
+// Host: unpack the wrapper's int table [B, (spot, F factor powers) * B].
+static inline bool make_basis(const int* table, int num_factors, Basis* out) {
+  const int nb = table[0];
+  if (nb < 1 || nb > kMaxB || num_factors < 0 || num_factors > kMaxF) return false;
+  out->nb = nb;
+  out->nf = num_factors;
+  for (int b = 0; b < kMaxB; ++b)
+    for (int f = 0; f <= kMaxF; ++f) out->pows[b][f] = 0;
+  for (int b = 0; b < nb; ++b)
+    for (int f = 0; f <= num_factors; ++f)
+      out->pows[b][f] = static_cast<int8_t>(table[1 + b * (num_factors + 1) + f]);
+  return true;
+}
+
+// x**p by repeated multiplication, left to right (p >= 1).
+__device__ __forceinline__ float ipow(float x, int p) {
+  float r = x;
+  for (int i = 1; i < p; ++i) r = __fmul_rn(r, x);
+  return r;
+}
+
+// Standardised design row (x - mean) / std of one sim.  Products in the JAX
+// package's order: spot power first, then factor powers by index.  Loops run
+// to the compile-time maxima so that `row` stays in registers.
+__device__ __forceinline__ void design_row(const Basis& basis, float spot,
+                                           const float* fac, const float* mean,
+                                           const float* stdv, float* row) {
+#pragma unroll
+  for (int b = 0; b < kMaxB; ++b) {
+    if (b < basis.nb) {
+      float v = 1.0f;
+      const int sp = basis.pows[b][0];
+      if (sp) v = __fmul_rn(v, ipow(spot, sp));
+#pragma unroll
+      for (int f = 0; f < kMaxF; ++f) {
+        if (f < basis.nf) {
+          const int fp = basis.pows[b][1 + f];
+          if (fp) v = __fmul_rn(v, ipow(fac[f], fp));
+        }
+      }
+      row[b] = __fdiv_rn(__fsub_rn(v, mean[b]), stdv[b]);
+    } else {
+      row[b] = 0.0f;
+    }
+  }
+}
+
+// out[k] = sum over blocks of partials[k * nblk + blk], one warp per output,
+// lanes striding over blocks then a fixed butterfly: no atomics, so the same
+// inputs give the same bits on every run.
+static __global__ void reduce_partials_kernel(const float* __restrict__ partials,
+                                       int nblk, int nout,
+                                       float* __restrict__ out) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= nout) return;
+  const float* p = partials + static_cast<size_t>(warp) * nblk;
+  float acc = 0.0f;
+  for (int i = lane; i < nblk; i += 32) acc += p[i];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) out[warp] = acc;
+}
+
+static inline void launch_reduce(const float* partials, int nblk, int nout, float* out,
+                          cudaStream_t stream) {
+  const int threads = 256;
+  const int blocks = (nout * 32 + threads - 1) / threads;
+  reduce_partials_kernel<<<blocks, threads, 0, stream>>>(partials, nblk, nout, out);
+}
+
+}  // namespace stt

@@ -1,0 +1,442 @@
+"""Least-Squares Monte Carlo storage valuation engine over materialised path
+panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
+
+* Backward induction runs one decision kernel per step (kernel B,
+  ``ops.decision_kernel``): argmax on REGRESSED values while realising ACTUAL
+  simulated continuations (LsmcStorageValuation.cs:310-336), with the next
+  step's regression moments accumulated in the same pass.  The moments are
+  taken on design columns standardised by each step's exact two-pass stats,
+  computed for all steps before the loop — the JAX XLA path's normal
+  equations, where the TPU's fused path standardises step t−1 by step t's
+  stats and loses near-deterministic columns to cancellation.  Between
+  kernels, tensor code solves the [B, B] system and interpolates the
+  coefficients to each (grid point, decision) target.
+* The forward pass runs one forward kernel per step (kernel C,
+  ``ops.forward_kernel``) on an independent valuation-sim set, re-using the
+  saved regression (the dual-simulation lower-bound estimator,
+  LsmcStorageValuation.cs:352-415), and produces NPV, standard error,
+  pathwise deltas (:513-518), expected profiles and trigger prices (:523-592).
+
+Everything that does not depend on the loop carry — decision sets,
+interpolation indices and weights, immediate-value coefficients, the forward
+kernel's parameter vectors, the trigger prices — is computed for all steps at
+once, outside the 365-step loops, and nothing in the loops reads a value back
+to the host.
+
+Known deviations from the reference are those of the JAX package (see its
+module docstring): threefry draws, linspace grids, each sim's own terminal
+value, the valuation sims' end-period spot for the terminal PV.
+"""
+from __future__ import annotations
+
+import contextlib
+import typing as tp
+
+import numpy as np
+import torch
+
+from .. import grid as gridmod
+from ..basis import Monomial, design_columns, design_matrix
+from ..facility import CompiledStorage
+from ..ops import decision_kernel, forward_kernel, interp
+from ..ops.regression import column_stats, fit_from_moments
+
+NUM_TRIGGER_PRICE_VOLUMES = 10  # LsmcStorageValuation.cs:383
+
+_SCALARS = (
+    "df_settle", "df_flow", "inj_cost", "wdr_cost", "inj_pcnt", "wdr_pcnt",
+    "loss_pcnt", "inv_cost_rate",
+)
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Float32 matrix products in full float32 on the card (no TF32) inside
+    the block — the regression moments are the JAX package's
+    ``Precision.HIGHEST`` — and the caller's settings restored after it.
+    The matmul TF32 flag is restored through the precision it belongs to:
+    restoring the flag itself would mix torch's two precision APIs, which
+    newer versions refuse to read back."""
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+def build_engine_arrays(
+    compiled: CompiledStorage,
+    fwd: np.ndarray,
+    df_settle: np.ndarray,
+    df_flow: np.ndarray,
+    inventory_lower: np.ndarray,
+    inventory_upper: np.ndarray,
+    num_grid_points: int,
+    dtype,
+    device,
+) -> tp.Dict[str, torch.Tensor]:
+    grids = gridmod.inventory_grids(inventory_lower, inventory_upper, num_grid_points)
+    host = {
+        "grids": grids,
+        "fwd": fwd,
+        "lower": inventory_lower,
+        "upper": inventory_upper,
+        "df_settle": df_settle,
+        "df_flow": df_flow,
+        "inj_cost": compiled.inj_cost,
+        "wdr_cost": compiled.wdr_cost,
+        "inj_pcnt": compiled.inj_consumed_pcnt,
+        "wdr_pcnt": compiled.wdr_consumed_pcnt,
+        "loss_pcnt": compiled.loss_pcnt,
+        "inv_cost_rate": compiled.inv_cost_rate,
+        "ratchet_inv": compiled.ratchet_inv,
+        "ratchet_min": compiled.ratchet_min,
+        "ratchet_max": compiled.ratchet_max,
+    }
+    return {
+        k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+        for k, v in host.items()
+    }
+
+
+def _decision_cashflow_coeffs(decisions, x):
+    """Per-decision immediate-PV decomposition pv = a·spot + b; ``x`` holds
+    scalars broadcastable against ``decisions``."""
+    is_inject = decisions > 0.0
+    abs_d = torch.abs(decisions)
+    consumed = torch.where(is_inject, x["inj_pcnt"], x["wdr_pcnt"]) * abs_d
+    cost_npv = torch.where(is_inject, x["inj_cost"], x["wdr_cost"]) * abs_d * x["df_flow"]
+    a = -(decisions + consumed) * x["df_settle"]
+    return a, -cost_npv, consumed
+
+
+def _terminal_values(terminal_fn, spot_end, grid_end, num_grid, num_sims, dtype):
+    """Terminal storage values per (grid point, sim) — LsmcStorageValuation.cs:110-131.
+    The user's terminal function receives tensors and is broadcast to [G, S]."""
+    if terminal_fn is None:
+        return torch.zeros((num_grid, num_sims), dtype=dtype, device=spot_end.device)
+    value = terminal_fn(spot_end[None, :], grid_end[:, None])
+    return torch.as_tensor(value, dtype=dtype, device=spot_end.device).expand(
+        num_grid, num_sims
+    ).contiguous()
+
+
+def _backward_prep_all(arrays, num_extra_decisions: int, ratchet_is_step: bool,
+                       snap_interp: bool):
+    """Coefficient-independent per-step preparation for all N steps at once:
+    interpolation rows/weights of every (step, grid point, decision) target
+    inventory, and the immediate-value coefficients, in the kernel layouts
+    (idx_lo, w_hi [N, G, D]; a, b [N, D, G])."""
+    grids = arrays["grids"]
+    n = grids.shape[0] - 1
+    grid_t, grid_next = grids[:n], grids[1:]
+    col = lambda key: arrays[key][:, None]  # noqa: E731  [N] -> [N, 1]
+    min_rate, max_rate = gridmod.ratchet_rates(
+        arrays["ratchet_inv"][:, None, :], arrays["ratchet_min"][:, None, :],
+        arrays["ratchet_max"][:, None, :], ratchet_is_step, grid_t,
+    )
+    decisions = gridmod.bang_bang_decisions(
+        min_rate, max_rate, grid_t, col("loss_pcnt"), arrays["lower"][1:, None],
+        arrays["upper"][1:, None], num_extra_decisions,
+    )  # [N, G, D]
+    loss = col("loss_pcnt") * grid_t
+    inv_after = grid_t[..., None] + decisions - loss[..., None]
+    idx_lo, w_hi = interp.interp_weights(grid_next, inv_after)
+    if snap_interp:
+        w_hi = decision_kernel.snap_weights(w_hi)
+    scal = {k: arrays[k][:, None, None] for k in _SCALARS}
+    a, b, _ = _decision_cashflow_coeffs(decisions, scal)
+    b = b - (col("inv_cost_rate") * grid_t * col("df_flow"))[..., None]
+    return {
+        "idx_lo": idx_lo.to(torch.int32).contiguous(),
+        "w_hi": w_hi.contiguous(),
+        "a": a.transpose(1, 2).contiguous(),
+        "b": b.transpose(1, 2).contiguous(),
+    }
+
+
+def _interp_coeffs(coeffs, idx_lo, w_hi):
+    """Regressed continuation coefficients at every (grid point, decision)
+    target: linear interpolation commutes with the linear model, so the
+    coefficients are interpolated instead of the fitted values.  Returns
+    [D, G, B] for coeffs [B, G] and idx_lo, w_hi [G, D]."""
+    lo = idx_lo.to(torch.int64)
+    ci = coeffs[:, lo] * (1 - w_hi) + coeffs[:, lo + 1] * w_hi  # [B, G, D]
+    return ci.permute(2, 1, 0).contiguous()
+
+
+def _design_stats(monomials, spot, factors, chunk: int = 16):
+    """Exact two-pass column stats (mean, std) [N, B] of every step's design
+    matrix, ``chunk`` steps at a time.  They depend on the regression panels
+    alone, so they are made before the backward loop; the decision kernel
+    standardises step t−1's moments by them."""
+    n = spot.shape[0]
+    means, stds = [], []
+    for t0 in range(0, n, chunk):
+        # Columns stacked [chunk, B, S] (a contiguous copy) and read through a
+        # [chunk, S, B] view: stacking on the last axis interleaves B-strided
+        # writes, measured ~50 ms per valuation on the card.
+        cols = design_columns(monomials, spot[t0:t0 + chunk], factors[t0:t0 + chunk])
+        m, s = column_stats(torch.stack(cols, dim=-2).transpose(-1, -2))
+        means.append(m)
+        stds.append(s)
+    return torch.cat(means), torch.cat(stds)
+
+
+def _fused_bootstrap(monomials, spot_last, factors_last, v_end, mean_last, std_last):
+    """Moments of the LAST step's standardised design matrix against the
+    terminal values (every earlier step's come out of the decision kernel)."""
+    u0 = (design_matrix(monomials, spot_last, factors_last) - mean_last) / std_last
+    return u0.T @ u0, u0.T @ v_end.T
+
+
+def lsmc_backward(
+    arrays: tp.Dict[str, torch.Tensor],
+    spot_reg: torch.Tensor,  # [N+1, S]
+    factors_reg: torch.Tensor,  # [N+1, F, S]
+    monomials: tp.Tuple[Monomial, ...],
+    num_extra_decisions: int,
+    terminal_fn,
+    ratchet_is_step: bool,
+    snap_interp: bool = False,
+):
+    """Backward induction.  Returns (v0 [G, S], regression payload of stacked
+    per-step mean [N, B], std [N, B], coeffs [N, B, G]).
+
+    ``snap_interp`` rounds the interpolation weights to the 1/256 grid, the
+    quadrature of the TPU run."""
+    grids = arrays["grids"]
+    n = grids.shape[0] - 1
+    num_grid = grids.shape[1]
+    dtype = grids.dtype
+    v = _terminal_values(
+        terminal_fn, spot_reg[n], grids[n], num_grid, spot_reg.shape[1], dtype
+    )
+    prep = _backward_prep_all(arrays, num_extra_decisions, ratchet_is_step, snap_interp)
+    mean, std = _design_stats(monomials, spot_reg[:n], factors_reg[:n])  # [N, B]
+    xtx, xty = _fused_bootstrap(
+        monomials, spot_reg[n - 1], factors_reg[n - 1], v, mean[n - 1], std[n - 1]
+    )
+    coeffs_all = torch.empty((n, len(monomials), num_grid), dtype=dtype, device=grids.device)
+    spare = torch.empty_like(v)
+    for t in range(n - 1, -1, -1):
+        # Step t's moments arrive standardised by its exact stats: the
+        # normal equations of the JAX XLA path, without a second pass over v.
+        coeffs = fit_from_moments(xtx, xty)  # [B, G]
+        ci = _interp_coeffs(coeffs, prep["idx_lo"][t], prep["w_hi"][t])
+        prev = max(t - 1, 0)  # the previous-step slice at t = 0 is step 0
+        best_act, xtx, xty = decision_kernel.decision_update_moments(
+            v, spot_reg[t], factors_reg[t], spot_reg[prev], factors_reg[prev],
+            mean[t], std[t], mean[prev], std[prev], prep["idx_lo"][t],
+            prep["w_hi"][t], ci, prep["a"][t], prep["b"][t], monomials, out=spare,
+        )
+        spare, v = v, best_act
+        coeffs_all[t] = coeffs
+    return v, {"mean": mean, "std": std, "coeffs": coeffs_all}
+
+
+def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
+                     num_extra_decisions: int, dtype):
+    """Trigger prices at the expected inventory (LsmcStorageValuation.cs:523-592)
+    for all N steps at once: ``x`` holds [N]-shaped scalars, [N, R] ratchet
+    tables, coeffs [N, B, G] and grid_next [N, G]; ``xbar`` [N, B] is the
+    cross-sim mean standardised design row."""
+    num_tv = NUM_TRIGGER_PRICE_VOLUMES
+    cbar = torch.einsum("nb,nbg->ng", xbar, x["coeffs"])  # [N, G_next]
+    e_loss = x["loss_pcnt"] * expected_inventory
+    e_min_rate, e_max_rate = gridmod.ratchet_rates(
+        x["ratchet_inv"], x["ratchet_min"], x["ratchet_max"], ratchet_is_step,
+        expected_inventory,
+    )
+    e_decisions = gridmod.bang_bang_decisions(
+        e_min_rate, e_max_rate, expected_inventory, x["loss_pcnt"], x["next_min"],
+        x["next_max"], num_extra_decisions,
+    )  # [N, D]
+    inf = torch.tensor(float("inf"), dtype=dtype, device=e_decisions.device)
+    nan = torch.tensor(float("nan"), dtype=dtype, device=e_decisions.device)
+    col = lambda t: t[:, None]  # noqa: E731
+
+    def pv_parts(volume):  # volume [N, K]
+        is_inject = volume > 0.0
+        abs_v = torch.abs(volume)
+        consumed_v = torch.where(is_inject, col(x["inj_pcnt"]), col(x["wdr_pcnt"])) * abs_v
+        cost_v = (
+            torch.where(is_inject, col(x["inj_cost"]), col(x["wdr_cost"]))
+            * abs_v * col(x["df_flow"])
+        )
+        cont_v = interp.interp_vector(
+            x["grid_next"], cbar,
+            col(expected_inventory) + volume - col(e_loss),
+        )
+        return cont_v, cost_v, consumed_v
+
+    def side(inject: bool):
+        if inject:
+            extreme = torch.max(e_decisions, dim=1).values
+            alternative = torch.min(torch.where(e_decisions >= 0, e_decisions, inf), dim=1).values
+            active = (extreme > 0) & (extreme > alternative)
+        else:
+            extreme = torch.min(e_decisions, dim=1).values
+            alternative = torch.max(torch.where(e_decisions <= 0, e_decisions, -inf), dim=1).values
+            active = (extreme < 0) & (extreme < alternative)
+        alt_cont, alt_cost, alt_consumed = pv_parts(col(alternative))
+        j = torch.arange(1, num_tv + 1, dtype=dtype, device=extreme.device)
+        volumes = col(alternative) + j * col(extreme - alternative) / num_tv
+        cont_v, cost_v, consumed_v = pv_parts(volumes)
+        # Price making the trigger volume indifferent to the alternative
+        # (CalcTriggerPrice, LsmcStorageValuation.cs:704-723).
+        denom = col(x["df_settle"]) * (volumes - col(alternative) + consumed_v - alt_consumed)
+        prices = ((cont_v - alt_cont) - (cost_v - alt_cost)) / denom
+        volumes = torch.where(col(active), volumes, nan)
+        prices = torch.where(col(active), prices, nan)
+        return (
+            volumes, prices,
+            torch.where(active, extreme, nan),
+            torch.where(active, prices[:, -1], nan),  # price at the max volume
+            torch.where(active, prices[:, 0], nan),   # price nearest the alternative
+        )
+
+    inj_volumes, inj_prices, max_inj_vol, max_inj_price, _ = side(True)
+    wdr_volumes, wdr_prices, max_wdr_vol, wdr_maxvol_price, wdr_near_price = side(False)
+    return {
+        "inj_volumes": inj_volumes,
+        "inj_prices": inj_prices,
+        "wdr_volumes": wdr_volumes,
+        "wdr_prices": wdr_prices,
+        "max_inj_vol": max_inj_vol,
+        # Inject: the reference's MaxInjectTriggerPrice is the max-volume
+        # point (LsmcStorageValuation.cs:556).
+        "max_inj_price": max_inj_price,
+        "max_wdr_vol": max_wdr_vol,
+        # Withdraw: the price one increment from the alternative
+        # (LsmcStorageValuation.cs:584); the max-volume price is kept apart.
+        "max_wdr_price": wdr_near_price,
+        "wdr_maxvol_price": wdr_maxvol_price,
+    }
+
+
+def lsmc_forward(
+    arrays: tp.Dict[str, torch.Tensor],
+    spot_val: torch.Tensor,  # [N+1, S]
+    factors_val: torch.Tensor,  # [N+1, F, S]
+    regression: tp.Dict[str, torch.Tensor],
+    starting_inventory,
+    monomials: tp.Tuple[Monomial, ...],
+    num_extra_decisions: int,
+    discount_deltas: bool,
+    terminal_fn,
+    ratchet_is_step: bool,
+):
+    """Forward simulation over materialised valuation panels, one forward
+    kernel per step; the per-step reductions stay on the device until the
+    result dict is read."""
+    grids = arrays["grids"]
+    n = grids.shape[0] - 1
+    dtype = grids.dtype
+    device = grids.device
+    s_count = spot_val.shape[1]
+    grid_next = grids[1:]
+    step = {k: arrays[k] for k in _SCALARS}
+    step.update(next_min=arrays["lower"][1:], next_max=arrays["upper"][1:])
+    params = forward_kernel.pack_params(step, grid_next, dtype=dtype)  # [N, 13]
+    ratchets = [arrays[k].contiguous() for k in ("ratchet_inv", "ratchet_min", "ratchet_max")]
+
+    inventory = torch.full((s_count,), float(starting_inventory), dtype=dtype, device=device)
+    pv = torch.zeros((s_count,), dtype=dtype, device=device)
+    b_dim = len(monomials)
+    sums = torch.empty((n, forward_kernel.NUM_SUMS), dtype=dtype, device=device)
+    xbar = torch.empty((n, b_dim), dtype=dtype, device=device)
+    for t in range(n):
+        inventory, pv, _dec, _cons, sums[t], xbar[t] = forward_kernel.forward_step(
+            params[t], regression["mean"][t], regression["std"][t],
+            ratchets[0][t], ratchets[1][t], ratchets[2][t],
+            spot_val[t], factors_val[t], inventory, pv, regression["coeffs"][t],
+            monomials, num_extra_decisions, ratchet_is_step,
+        )
+    count = float(s_count)
+    xbar = xbar / count
+    expected_inventory = sums[:, forward_kernel._A_INV] / count
+    disc = arrays["df_settle"] if discount_deltas else torch.ones_like(arrays["df_settle"])
+    delta = sums[:, forward_kernel._A_DELTA] / count / arrays["fwd"][:n] * disc
+    trig = {
+        **step, "grid_next": grid_next, "coeffs": regression["coeffs"],
+        "ratchet_inv": ratchets[0], "ratchet_min": ratchets[1], "ratchet_max": ratchets[2],
+    }
+    triggers = _trigger_outputs(
+        trig, xbar, expected_inventory, ratchet_is_step, num_extra_decisions, dtype
+    )
+
+    # Terminal period PV for non-empty storage: each sim's own terminal value.
+    if terminal_fn is not None:
+        terminal_pv = torch.as_tensor(
+            terminal_fn(spot_val[n], inventory), dtype=dtype, device=device
+        ).expand(inventory.shape)
+        pv = pv + terminal_pv
+        end_pv = terminal_pv.mean()
+    else:
+        end_pv = torch.zeros((), dtype=dtype, device=device)
+    npv = pv.mean()
+    # Sample standard error (ddof=1; LsmcStorageValuation.cs:618).
+    standard_error = torch.sqrt(torch.sum((pv - npv) ** 2) / (count - 1.0)) / np.sqrt(count)
+
+    zero = torch.zeros((1,), dtype=dtype, device=device)
+    return {
+        "npv": npv,
+        "standard_error": standard_error,
+        "deltas": torch.cat([delta, zero]),
+        "profile_inventory": torch.cat([expected_inventory, inventory.mean()[None]]),
+        "profile_inject_withdraw": torch.cat([sums[:, forward_kernel._A_DEC] / count, zero]),
+        "profile_cmdty_consumed": torch.cat([sums[:, forward_kernel._A_CONS] / count, zero]),
+        "profile_inventory_loss": torch.cat([sums[:, forward_kernel._A_LOSS] / count, zero]),
+        "profile_pv": torch.cat([sums[:, forward_kernel._A_IMM] / count, end_pv[None]]),
+        "trigger_inject_volumes": triggers["inj_volumes"],
+        "trigger_inject_prices": triggers["inj_prices"],
+        "trigger_withdraw_volumes": triggers["wdr_volumes"],
+        "trigger_withdraw_prices": triggers["wdr_prices"],
+        "max_inject_volume": triggers["max_inj_vol"],
+        "max_inject_trigger_price": triggers["max_inj_price"],
+        "max_withdraw_volume": triggers["max_wdr_vol"],
+        "max_withdraw_trigger_price": triggers["max_wdr_price"],
+        "withdraw_max_volume_price": triggers["wdr_maxvol_price"],
+    }
+
+
+def lsmc_core(
+    arrays: tp.Dict[str, torch.Tensor],
+    spot_reg: torch.Tensor,
+    factors_reg: torch.Tensor,
+    spot_val: torch.Tensor,
+    factors_val: torch.Tensor,
+    starting_inventory,
+    monomials: tp.Tuple[Monomial, ...],
+    num_extra_decisions: int,
+    discount_deltas: bool,
+    terminal_fn,
+    ratchet_is_step: bool,
+    snap_interp: bool = False,
+    return_regression: bool = False,
+) -> tp.Dict[str, torch.Tensor]:
+    """Full LSMC valuation on one device over materialised panels: regression
+    sims drive the backward pass, valuation sims the forward pass.  Results
+    stay on the panels' device."""
+    with full_f32_matmul():
+        v0, regression = lsmc_backward(
+            arrays, spot_reg, factors_reg, monomials, num_extra_decisions,
+            terminal_fn, ratchet_is_step, snap_interp=snap_interp,
+        )
+        result = lsmc_forward(
+            arrays, spot_val, factors_val, regression, starting_inventory, monomials,
+            num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
+        )
+    # Backward (upper-ish) estimate: mean of the first-period values at the
+    # known starting inventory (grid[0] is degenerate) — LsmcStorageValuation.cs:623.
+    result["backward_npv"] = v0[0].mean()
+    if return_regression:
+        result["regression_mean"] = regression["mean"]
+        result["regression_std"] = regression["std"]
+        result["regression_coeffs"] = regression["coeffs"]
+    return result

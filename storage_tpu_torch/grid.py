@@ -1,0 +1,200 @@
+"""Inventory-space reduction, inventory grids, and bang-bang decision sets.
+
+Host side (numpy float64): the forward/backward feasible-band reduction of
+``StorageHelper.CalculateInventorySpace`` (StorageHelper.cs:39-107), a copy of
+the pure-Python path of ``storage_tpu.grid.calculate_inventory_space``, and the
+linspace inventory grids.
+
+Device side (torch): ratchet-rate lookup and the bang-bang decision set of
+``StorageHelper.CalculateBangBangDecisionSet`` (StorageHelper.cs:109-197) as
+branchless tensor code, counterparts of ``storage_tpu.grid.ratchet_rates`` and
+``bang_bang_decisions``.  Both broadcast: a ratchet table ``[..., R]`` is
+looked up at an inventory whose leading dims broadcast against the table's.
+"""
+from __future__ import annotations
+
+import typing as tp
+
+import numpy as np
+import torch
+
+from .facility import CmdtyStorage, InventoryConstraintsCannotBeFulfilledException
+from .utils import periods as pu
+
+
+# ------------------------------------------------------------------ host side
+
+
+def calculate_inventory_space(
+    storage: CmdtyStorage, starting_inventory: float, val_period,
+) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """Feasible inventory band per period after the decision at the previous period.
+
+    Returns (lower, upper) arrays of length num_steps+1: index 0 is the known
+    starting inventory, index t>0 the band for period ``start_active + t``.
+    """
+    val_p = pu.to_period(val_period, storage.start.freqstr)
+    if val_p > storage.end:
+        raise ValueError("Storage has expired.")
+    start_active = max(storage.start, val_p)
+    periods = pu.period_index(start_active, storage.end)
+    num_steps = len(periods) - 1
+    first_step = pu.period_offset(start_active, storage.start)
+
+    fwd_min = np.empty(num_steps)
+    fwd_max = np.empty(num_steps)
+    min_run = max_run = float(starting_inventory)
+    for i in range(num_steps):
+        constraint = storage.constraint_at(first_step + i)
+        loss_pcnt = storage._inventory_loss[first_step + i]
+        next_period = periods[i + 1]
+        rng_min = constraint.get_inject_withdraw_range(min_run)
+        min_run = max(
+            min_run - loss_pcnt * min_run + rng_min.min_inject_withdraw_rate,
+            storage.min_inventory(next_period),
+        )
+        fwd_min[i] = min_run
+        rng_max = constraint.get_inject_withdraw_range(max_run)
+        max_run = min(
+            max_run - loss_pcnt * max_run + rng_max.max_inject_withdraw_rate,
+            storage.max_inventory(next_period),
+        )
+        fwd_max[i] = max_run
+
+    back_min = np.empty(num_steps)
+    back_max = np.empty(num_steps)
+    if storage.empty_at_end:
+        back_min[-1] = back_max[-1] = 0.0
+    else:
+        back_min[-1] = storage.min_inventory(storage.end)
+        back_max[-1] = storage.max_inventory(storage.end)
+    for i in range(num_steps - 2, -1, -1):
+        period = periods[i + 1]  # period whose constraint links band i+1 -> i+2
+        constraint = storage.constraint_at(first_step + i + 1)
+        loss_pcnt = storage._inventory_loss[first_step + i + 1]
+        back_max[i] = constraint.inventory_space_upper_bound(
+            back_min[i + 1],
+            back_max[i + 1],
+            storage.min_inventory(period),
+            storage.max_inventory(period),
+            loss_pcnt,
+        )
+        back_min[i] = constraint.inventory_space_lower_bound(
+            back_min[i + 1],
+            back_max[i + 1],
+            storage.min_inventory(period),
+            storage.max_inventory(period),
+            loss_pcnt,
+        )
+
+    lower = np.empty(num_steps + 1)
+    upper = np.empty(num_steps + 1)
+    lower[0] = upper[0] = starting_inventory
+    for i in range(num_steps):
+        lo = max(fwd_min[i], back_min[i])
+        hi = min(fwd_max[i], back_max[i])
+        if lo > hi:
+            raise InventoryConstraintsCannotBeFulfilledException(
+                "Inventory constraints cannot be fulfilled."
+            )
+        lower[i + 1] = lo
+        upper[i + 1] = hi
+    return lower, upper
+
+
+def inventory_grids(
+    lower: np.ndarray, upper: np.ndarray, num_grid_points: int
+) -> np.ndarray:
+    """Per-period inventory grid [num_steps+1, G], linspace over the feasible
+    band; degenerate bands collapse to a constant grid."""
+    num_periods = len(lower)
+    g = max(int(num_grid_points), 2)
+    grids = np.empty((num_periods, g))
+    for t in range(num_periods):
+        if upper[t] > lower[t]:
+            grids[t] = np.linspace(lower[t], upper[t], g)
+        else:
+            grids[t] = np.full(g, lower[t])
+    return grids
+
+
+# ---------------------------------------------------------------- device side
+
+
+def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[..., idx]`` with ``table`` [..., R] broadcast against ``idx``."""
+    r = table.shape[-1]
+    full = table.expand(*torch.broadcast_shapes(idx.shape + (1,), table.shape)[:-1], r)
+    return torch.gather(full, -1, idx.unsqueeze(-1)).squeeze(-1)
+
+
+def ratchet_rates(ratchet_inv, ratchet_min, ratchet_max, is_step: bool, inventory):
+    """(min_rate, max_rate) at ``inventory``.
+
+    ``ratchet_*`` are node tables [..., R] whose leading dims broadcast against
+    ``inventory``'s (a one-step table [R] serves any inventory shape).  Linear
+    tables lerp between nodes; step tables take the left node
+    (StepInjectWithdrawConstraint.cs:72-79).
+    """
+    inv = torch.minimum(
+        torch.maximum(inventory, ratchet_inv[..., 0]), ratchet_inv[..., -1]
+    )
+    # Segment index by counting interior nodes <= inv (R is tiny).
+    idx = torch.zeros(inv.shape, dtype=torch.int64, device=inv.device)
+    for r in range(1, ratchet_inv.shape[-1] - 1):
+        idx = idx + (inv >= ratchet_inv[..., r]).to(torch.int64)
+    if is_step:
+        return _lookup(ratchet_min, idx), _lookup(ratchet_max, idx)
+    x0 = _lookup(ratchet_inv, idx)
+    x1 = _lookup(ratchet_inv, idx + 1)
+    w = torch.where(
+        x1 > x0, (inv - x0) / torch.where(x1 > x0, x1 - x0, torch.ones_like(x0)),
+        torch.zeros_like(x0),
+    )
+    min_rate = _lookup(ratchet_min, idx) * (1 - w) + _lookup(ratchet_min, idx + 1) * w
+    max_rate = _lookup(ratchet_max, idx) * (1 - w) + _lookup(ratchet_max, idx + 1) * w
+    return min_rate, max_rate
+
+
+def bang_bang_decisions(
+    min_rate,
+    max_rate,
+    inventory,
+    loss_pcnt,
+    next_min,
+    next_max,
+    num_extra_decisions: int,
+):
+    """Fixed-width decision volumes, shape inventory.shape + (D,) with
+    D = 2*num_extra_decisions + 3 (StorageHelper.cs:109-197).  The endpoints
+    are the constrained max-withdrawal / max-injection volumes; a feasible hold
+    (0) sits at the middle slot with extra decisions either side; when a
+    non-zero decision is forced, slot 1 duplicates the withdrawal endpoint and
+    the rest spread to the injection endpoint."""
+    inv_after_loss = inventory - loss_pcnt * inventory
+    w_target = min_rate + inv_after_loss
+    yielded_w = torch.where(
+        w_target > next_max,
+        next_max - inv_after_loss,
+        torch.where(w_target > next_min, min_rate, next_min - inv_after_loss),
+    )
+    i_target = max_rate + inv_after_loss
+    yielded_i = torch.where(
+        i_target < next_min,
+        next_min - inv_after_loss,
+        torch.where(i_target < next_max, max_rate, next_max - inv_after_loss),
+    )
+    has_zero = (yielded_w < 0.0) & (yielded_i > 0.0)
+
+    e = num_extra_decisions
+    d = 2 * e + 3
+    k = torch.arange(d, dtype=yielded_w.dtype, device=yielded_w.device)
+    mid = e + 1
+    w = yielded_w[..., None]
+    i = yielded_i[..., None]
+    frac_lo = k / mid
+    frac_hi = (k - mid) / mid
+    with_zero = torch.where(k <= mid, w * (1.0 - frac_lo), i * frac_hi)
+    frac = torch.clamp(k - 1.0, min=0.0) / (d - 2)
+    without_zero = w + (i - w) * frac
+    return torch.where(has_zero[..., None], with_zero, without_zero)

@@ -1,0 +1,157 @@
+"""Build and bind the hand-written CUDA kernels of ``storage_tpu_torch/csrc``.
+
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
+so a build takes seconds rather than minutes.  The library lands in
+``build/storage_tpu_torch/<source hash>/`` at the repository root, so a
+changed source or flag rebuilds and an unchanged one is reused.  Nothing
+happens at import time: the first wrapper that launches a kernel builds.
+
+Each C entry point returns ``cudaGetLastError()`` after its launches;
+``check`` raises on anything but 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "storage_tpu_torch"
+LIB_NAME = "libstorage_tpu_torch_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+
+# C signature of every entry point: (argtypes), all returning a cudaError_t.
+SIGNATURES = {
+    # k0, k1, b0, nb, S, ids, sign (or NULL), z1, z2, stream
+    "stt_normal_halves": (_U, _U, _U, _I, _I, _P, _P, _P, _P, _P),
+    # k0, k1, b0, nb, S, ids, w1, w2, stream
+    "stt_threefry_words": (_U, _U, _U, _I, _I, _P, _P, _P, _P),
+    # G, S, F, D, basis table (host int[B*(1+F)+1]), v, spot, factors,
+    # spot_prev, factors_prev, mean, std, mean_prev, std_prev, idx_lo, w_hi,
+    # dci, a, b, best_out, partials, moments, stream
+    "stt_decision_update_moments": (
+        _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P,
+    ),
+    # S, F, G, R, E, is_step, basis table, params, mean, std, ratchet_inv,
+    # ratchet_min, ratchet_max, spot, factors, inv, pv, coeffs_t, new_inv,
+    # new_pv, dec, cons, partials, sums, stream
+    "stt_forward_step": (
+        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
+}
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build.")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / _source_hash() / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact source set is already built;
+    returns the library path.  The compiler's register/spill report is kept
+    beside the library as ``ptxas.log``."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    with tempfile.NamedTemporaryFile(dir=lib.parent, suffix=".so", delete=False) as tmp:
+        tmp_path = tmp.name
+    try:
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp_path, *sources],
+            capture_output=True, text=True,
+        )
+        (lib.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        os.replace(tmp_path, lib)
+    finally:
+        if os.path.exists(tmp_path):
+            os.unlink(tmp_path)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The built kernel library with every entry point's argtypes set."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {rc}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> torch.device:
+    """Checks shared by the wrappers: every tensor on one CUDA device,
+    contiguous and of ``dtype`` (``None`` skips the dtype check)."""
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {t.device} and {device}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if device.type != "cuda":
+        raise ValueError(f"{name}: the kernel runs on CUDA tensors, got {device}")
+    return device
+
+
+@functools.lru_cache(maxsize=64)
+def basis_table(monomials, num_factors: int):
+    """Monomial powers as the C ``int`` array the kernels read:
+    ``[B, then per monomial its spot power and F factor powers]``; cached per
+    basis (the kernels only read it)."""
+    vals = [len(monomials)]
+    for m in monomials:
+        powers = dict(m.factor_powers)
+        vals.append(m.spot_power)
+        vals.extend(powers.get(f, 0) for f in range(num_factors))
+    return (ctypes.c_int * len(vals))(*vals)

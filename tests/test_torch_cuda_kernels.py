@@ -1,0 +1,82 @@
+"""The CUDA kernels of storage_tpu_torch against their plain versions, on the
+card, at small and ragged shapes (path counts that fill no whole block).
+Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere.  Run
+them on the card with ``python -m pytest tests/test_torch_cuda_kernels.py``.
+
+Tolerances: the kernels and the plain versions do the decision arithmetic in
+the same order without fused multiply-adds, so per-path outputs match to f32
+rounding; the cross-path sums are taken in another order (1e-5 relative).
+"""
+import pytest
+import torch
+
+from storage_tpu_torch.basis import parse_basis_functions
+from storage_tpu_torch.ops import decision_kernel, forward_kernel, rng_kernel
+
+pytestmark = pytest.mark.cuda
+
+BASIS = "1 + s + x0 + x1 + x0**2 + s*x2"
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("with_sign", [False, True])
+def test_normal_halves(device, with_sign):
+    ids = torch.arange(5, 1005, dtype=torch.int32, device=device)
+    sign = (1.0 - 2.0 * (torch.arange(1000, device=device) % 2)).float() if with_sign else None
+    got = rng_kernel.normal_halves((3, 11), 7, 33, ids, sign)
+    want = rng_kernel.normal_halves_plain((3, 11), 7, 33, ids, sign)
+    for g, w in zip(got, want):
+        assert int((g.view(torch.int32).long() - w.view(torch.int32).long()).abs().max()) <= 4
+    w1, _ = rng_kernel.threefry_words((3, 11), 7, 33, ids)
+    p1, _ = rng_kernel.threefry2x32(3, 11, ids.long()[None, :], 7 + torch.arange(33, device=device)[:, None])
+    assert torch.equal(w1.long() & rng_kernel.MASK32, p1)
+
+
+def test_decision_update_moments(device):
+    gen = torch.Generator(device=device).manual_seed(3)
+    g, s, d, f = 11, 300, 5, 3
+    monomials = tuple(parse_basis_functions(BASIS))
+    b = len(monomials)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    args = (100.0 + 30.0 * rnd(g, s), 30.0 + 5.0 * rnd(s), rnd(f, s), 30.0 + 5.0 * rnd(s),
+            rnd(f, s), 0.3 * rnd(b), 1.0 + 0.2 * rnd(b).abs(), 0.3 * rnd(b), 1.0 + 0.2 * rnd(b).abs(),
+            torch.randint(0, g - 1, (g, d), generator=gen, device=device, dtype=torch.int32),
+            torch.rand((g, d), generator=gen, device=device), 20.0 * rnd(d, g, b), 2.0 * rnd(d, g),
+            20.0 * rnd(d, g), monomials)
+    got = decision_kernel.decision_update_moments(*args)
+    want = decision_kernel.decision_update_moments_plain(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-4)
+    for k in (1, 2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5 * float(want[k].abs().max()))
+
+
+@pytest.mark.parametrize("is_step", [False, True])
+def test_forward_step(device, is_step):
+    gen = torch.Generator(device=device).manual_seed(4)
+    s, g, f = 300, 13, 3
+    monomials = tuple(parse_basis_functions(BASIS))
+    b = len(monomials)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    grid_next = torch.linspace(0.0, 1100.0, g, device=device)
+    scalars = {k: torch.tensor(v, device=device) for k, v in dict(
+        df_settle=0.97, df_flow=0.95, inj_cost=1.2, wdr_cost=0.9, inj_pcnt=0.015, wdr_pcnt=0.01,
+        loss_pcnt=0.02, inv_cost_rate=0.03, next_min=0.0, next_max=1100.0).items()}
+    params = forward_kernel.pack_params(scalars, grid_next)
+    args = (params, 0.3 * rnd(b), 1.0 + 0.2 * rnd(b).abs(),
+            torch.tensor([0.0, 500.0, 1000.0], device=device),
+            torch.tensor([-30.0, -80.0, -140.0], device=device),
+            torch.tensor([150.0, 90.0, 40.0], device=device), 30.0 + 5.0 * rnd(s), rnd(f, s),
+            1000.0 * torch.rand(s, generator=gen, device=device), 100.0 * rnd(s), 20.0 * rnd(b, g),
+            monomials, 1, is_step)
+    got = forward_kernel.forward_step(*args)
+    want = forward_kernel.forward_step_plain(*args)
+    for k in range(4):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-3)
+    for k in (4, 5):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5 * float(want[k].abs().max()))

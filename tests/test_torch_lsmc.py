@@ -1,0 +1,260 @@
+"""The LSMC slice of storage_tpu_torch against the JAX package.
+
+* The engine (``lsmc_core``) on panels the JAX package simulated, carried over
+  with ``convert``, against the JAX engine's XLA path in f64, with and
+  without the 1/256 interpolation snap.  Both regress each step on exactly
+  standardised design columns and run the same argmax, so every output
+  agrees to f64 rounding.
+* The public API (``three_factor_seasonal_value``) of both packages on a
+  small case with the same seeds: the same threefry draws, hence the same
+  valuation.
+* The port imports without JAX, and refuses the options it does not port.
+"""
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+import storage_tpu as jpkg
+import storage_tpu_torch as tpkg
+from storage_tpu.engines import lsmc as jax_lsmc
+from storage_tpu.models.spot_sim import simulate_ou_paths as jax_simulate
+from storage_tpu_torch import convert
+from storage_tpu_torch.basis import parse_basis_functions
+from storage_tpu_torch.engines import lsmc as torch_lsmc
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+BASIS = "1 + x_st + x_lt + x_sw + x_st**2 + x_lt**2 + x_sw**2 + s + s**2"
+RTOL = 1e-9  # f64: the same arithmetic up to summation order
+
+
+def _case(pkg, num_steps=20):
+    """The bench facility (``__graft_entry__._build_case``) cut to 20 days."""
+    start = pd.Period("2021-01-01", freq="D")
+    storage = pkg.CmdtyStorage(
+        "D", start, start + num_steps, 0.9, 0.7,
+        ratchets=[
+            (start, [(0.0, -200.0, 300.0), (2500.0, -250.0, 250.0), (5000.0, -300.0, 200.0)]),
+        ],
+        ratchet_interp=pkg.RatchetInterp.LINEAR,
+        terminal_storage_npv=lambda price, inv: price * inv,
+    )
+    idx = pd.period_range(start, storage.end, freq="D")
+    i = np.arange(len(idx))
+    fwd = pd.Series(index=idx, data=30.0 + 6 * np.sin(2 * np.pi * i / 365.0) + 0.4 * np.cos(i))
+    return storage, start, fwd
+
+
+def _assert_results_close(got, want):
+    for key in want:
+        w = np.asarray(want[key], dtype=np.float64)
+        g = np.asarray(got[key], dtype=np.float64)
+        assert g.shape == w.shape, key
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=key)
+        mask = ~np.isnan(w)
+        scale = max(1.0, float(np.abs(w[mask]).max())) if mask.any() else 1.0
+        np.testing.assert_allclose(g[mask], w[mask], rtol=RTOL, atol=RTOL * scale, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def jax_panels():
+    from __graft_entry__ import _build_case
+
+    inputs, arrays, sim_inputs, monomials = _build_case(20, 10, 512, jnp.float64)
+    sim = [sim_inputs[k] for k in ("decay", "chol", "vols", "half_var", "fwd")]
+    reg = jax_simulate(jax.random.key(11), jnp.arange(512), *sim)
+    val = jax_simulate(jax.random.key(13), jnp.arange(512), *sim)
+    return inputs, arrays, monomials, reg, val
+
+
+@pytest.mark.parametrize("snap_interp", [False, True])
+def test_lsmc_core_matches_jax_engine_f64(jax_panels, snap_interp):
+    inputs, arrays, monomials, reg, val = jax_panels
+    terminal_fn = inputs.compiled.terminal_value
+    want = jax_lsmc.lsmc_core(
+        arrays, reg.spot, reg.factors, val.spot, val.factors, jnp.asarray(100.0), monomials,
+        1, True, terminal_fn, False, use_pallas=False, snap_interp=snap_interp,
+        return_regression=True,
+    )
+    f64 = torch.float64
+    got = torch_lsmc.lsmc_core(
+        convert.engine_arrays_from_numpy({k: np.asarray(v) for k, v in arrays.items()}, f64, "cpu"),
+        *convert.panels_from_numpy(reg.spot, reg.factors, f64, "cpu"),
+        *convert.panels_from_numpy(val.spot, val.factors, f64, "cpu"),
+        100.0, tuple(parse_basis_functions(BASIS)), 1, True, terminal_fn, False,
+        snap_interp=snap_interp, return_regression=True,
+    )
+    assert set(got) == set(want)
+    # The regression payload: step 0 is the valuation day, whose factor
+    # columns are near-deterministic, so its coefficients are conditioned
+    # by the ridge alone; compare its predictions through NPV/SE instead.
+    want_reg = {k: np.asarray(want.pop(k)) for k in list(want) if k.startswith("regression_")}
+    got_reg = {k: got.pop(k).numpy() for k in list(got) if k.startswith("regression_")}
+    for key in ("regression_mean", "regression_std"):
+        np.testing.assert_allclose(got_reg[key], want_reg[key], rtol=RTOL, atol=1e-12, err_msg=key)
+    np.testing.assert_allclose(got_reg["regression_coeffs"][1:], want_reg["regression_coeffs"][1:],
+                               rtol=1e-6, atol=1e-6)
+    _assert_results_close({k: v.numpy() for k, v in got.items()}, want)
+
+
+def test_lsmc_forward_on_jax_regression_f64(jax_panels):
+    """The forward pass alone: the JAX engine's regression payload, carried
+    over with ``convert``, drives the port's forward kernel path."""
+    inputs, arrays, monomials, reg, val = jax_panels
+    terminal_fn = inputs.compiled.terminal_value
+    want = jax_lsmc.lsmc_core(
+        arrays, reg.spot, reg.factors, val.spot, val.factors, jnp.asarray(100.0), monomials,
+        0, False, terminal_fn, False, use_pallas=False, return_regression=True,
+    )
+    f64 = torch.float64
+    regression = convert.regression_from_numpy(
+        {k: np.asarray(want.pop(f"regression_{k}")) for k in ("mean", "std", "coeffs")}, f64, "cpu"
+    )
+    want.pop("backward_npv")
+    got = torch_lsmc.lsmc_forward(
+        convert.engine_arrays_from_numpy({k: np.asarray(v) for k, v in arrays.items()}, f64, "cpu"),
+        *convert.panels_from_numpy(val.spot, val.factors, f64, "cpu"), regression, 100.0,
+        tuple(parse_basis_functions(BASIS)), 0, False, terminal_fn, False,
+    )
+    _assert_results_close({k: v.numpy() for k, v in got.items()}, want)
+
+
+@pytest.mark.parametrize("seeds", [(11, 13), (11, None), (5, 5)], ids=["two-seeds", "fold-in", "same-sims"])
+def test_three_factor_seasonal_value_matches_jax(seeds):
+    seed, fwd_seed = seeds
+    kwargs = dict(
+        inventory=100.0, interest_rates=0.02, settlement_rule=None, spot_mean_reversion=14.5,
+        spot_vol=1.1, long_term_vol=0.19, seasonal_vol=0.23, num_sims=512, basis_funcs=BASIS,
+        discount_deltas=True, seed=seed, fwd_sim_seed=fwd_seed, extra_decisions=1,
+        num_inventory_grid_points=10,
+    )
+    storage, start, fwd = _case(jpkg)
+    want = jpkg.three_factor_seasonal_value(storage, start, fwd_curve=fwd, dtype=jnp.float64, **kwargs)
+    storage, start, fwd = _case(tpkg)
+    got = tpkg.three_factor_seasonal_value(storage, start, fwd_curve=fwd, dtype=torch.float64,
+                                           device="cpu", **kwargs)
+    assert got.npv == pytest.approx(want.npv, rel=RTOL)
+    assert got.val_sim_standard_error == pytest.approx(want.val_sim_standard_error, rel=RTOL)
+    pd.testing.assert_index_equal(got.deltas.index, want.deltas.index)
+    np.testing.assert_allclose(got.deltas, want.deltas, rtol=RTOL, atol=1e-7)
+    pd.testing.assert_frame_equal(got.expected_profile, want.expected_profile, rtol=RTOL, atol=1e-7)
+    pd.testing.assert_frame_equal(got.trigger_prices, want.trigger_prices, rtol=1e-7, atol=1e-7)
+    assert len(got.trigger_profiles) == len(want.trigger_profiles)
+    for g, w in zip(got.trigger_profiles, want.trigger_profiles):
+        for gs, ws in ((g.inject_triggers, w.inject_triggers), (g.withdraw_triggers, w.withdraw_triggers)):
+            np.testing.assert_allclose(np.asarray(gs).reshape(-1, 2), np.asarray(ws).reshape(-1, 2),
+                                       rtol=1e-7, atol=1e-7)
+    assert np.isnan(got.intrinsic_npv)  # the intrinsic engine is not ported yet
+
+
+def test_f32_valuation_close_to_jax():
+    """In f32 both packages draw the same paths to a few ULP, but the
+    regressions round differently and this small case has many near-tie
+    decisions: the JAX package's own f32 NPV moves by ~0.1 standard error
+    between one and eight devices here.  The NPVs agree within half a
+    standard error."""
+    kwargs = dict(
+        inventory=100.0, interest_rates=0.02, settlement_rule=None, spot_mean_reversion=14.5,
+        spot_vol=1.1, long_term_vol=0.19, seasonal_vol=0.23, num_sims=1024, basis_funcs=BASIS,
+        discount_deltas=False, seed=11, fwd_sim_seed=13, num_inventory_grid_points=20,
+    )
+    storage, start, fwd = _case(jpkg)
+    want = jpkg.three_factor_seasonal_value(storage, start, fwd_curve=fwd, dtype=jnp.float32, **kwargs)
+    storage, start, fwd = _case(tpkg)
+    got = tpkg.three_factor_seasonal_value(storage, start, fwd_curve=fwd, dtype=torch.float32,
+                                           device="cpu", **kwargs)
+    assert abs(got.npv - want.npv) < 0.5 * want.val_sim_standard_error
+    assert got.val_sim_standard_error == pytest.approx(want.val_sim_standard_error, rel=1e-2)
+
+
+@pytest.mark.parametrize(
+    "option",
+    [
+        dict(sim_data_returned=tpkg.SimulationDataReturned.ALL),
+        dict(antithetic=True),
+        dict(on_progress_update=lambda x: None),
+        dict(cancellation_poll=lambda: False),
+        dict(checkpoint_path="checkpoint.npz"),
+        dict(deltas_method="adjoint"),
+        dict(grid_calc=lambda lo, hi: np.linspace(lo, hi, 5)),
+        dict(basis_funcs=[lambda s, x: s]),
+    ],
+    ids=["sim-data", "antithetic", "progress", "cancel", "checkpoint", "adjoint", "grid-calc",
+         "generic-basis"],
+)
+def test_unported_options_raise(option):
+    storage, start, fwd = _case(tpkg)
+    kwargs = dict(basis_funcs=BASIS)
+    kwargs.update(option)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        tpkg.three_factor_seasonal_value(
+            storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, 64,
+            discount_deltas=False, device="cpu", **kwargs,
+        )
+
+
+def test_degenerate_valuation_dates():
+    storage, start, fwd = _case(tpkg)
+    args = (100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, 64, BASIS, False)
+    expired = tpkg.three_factor_seasonal_value(storage, storage.end + 1, *args, device="cpu")
+    assert expired.npv == 0.0 and expired.deltas.empty
+    at_end = tpkg.three_factor_seasonal_value(storage, storage.end, *args, device="cpu")
+    assert at_end.npv == pytest.approx(float(fwd[storage.end]) * 100.0)
+
+
+def test_imports_without_jax():
+    script = textwrap.dedent(
+        """
+        import sys
+
+        class BlockJax:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "storage_tpu"):
+                    raise ImportError("blocked: " + name)
+
+        sys.meta_path.insert(0, BlockJax())
+        import storage_tpu_torch
+        import storage_tpu_torch.api_lsmc, storage_tpu_torch.convert, storage_tpu_torch.engines.lsmc
+        from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel, rng_kernel
+        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "storage_tpu")]
+        print("ok")
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_device_is_required():
+    storage, start, fwd = _case(tpkg)
+    with pytest.raises(TypeError, match="device"):
+        tpkg.three_factor_seasonal_value(storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19,
+                                         0.23, 64, BASIS, False)
+
+
+@pytest.mark.parametrize("precision", ["medium", "high"])
+def test_matmul_precision_restored(precision):
+    """The engine keeps its products in full f32 and leaves the caller's
+    settings as they were."""
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision(precision)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch_lsmc.full_f32_matmul():
+            assert torch.get_float32_matmul_precision() == "highest"
+            assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+        assert torch.get_float32_matmul_precision() == precision
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
