@@ -6,8 +6,10 @@
    build time and the compiler's register/spill report.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes (S=262,144 paths, G=100 grid points, D=3 decisions,
-   B=9 basis functions, F=3 factors, R=3 ratchet nodes), and times both with
-   CUDA events.
+   B=9 basis functions and F=3 factors; B=4 and no factor for kernel D, R=3
+   ratchet nodes), times both with CUDA events, and computes each kernel's
+   bound (the least time the card could take for the same bytes and
+   operations).
 4. Values the repository's headline daily case through the public API —
    a 365-day ratcheted facility, 3-factor seasonal model, 9-term basis,
    262,144 paths per set, f32, seeds 11/13 — once to warm up, then five
@@ -17,20 +19,36 @@
    and that kernel A ran for both path sets, kernel B once per backward step
    and kernel C once per forward step.  Then the same valuation with the
    port's default ``snap_interp=False`` (held to the same bounds) and with
-   the TPU run's numerics (held within 0.1 SE of the record), a phase
-   breakdown (host preparation, simulate, backward, forward) and one
+   the TPU run's numerics (held within 0.1 SE of the record).
+5. The round trip: the headline valuation with every per-sim panel
+   (``sim_data_returned=ALL``), then ``value_from_sims`` fed its four path
+   panels with the same flags must reproduce its NPV, SE and deltas to the
+   bit; the per-sim PV and inventory panels must add up to the NPV and the
+   expected profile.
+6. ``value_from_sims`` on the headline's spot panels alone (basis
+   1 + s + s² + s³): kernel D once per backward step, the NPV within 0.1 SE
+   of the same valuation in f64.
+7. The full-step backward (``lsmc_core(fullstep=True)``): kernel E once per
+   backward step and no kernel B, the NPV within 0.05 SE of the main path's;
+   its backward seconds beside the kernel-B-plus-glue backward.
+8. A phase breakdown (host preparation, simulate, backward, forward) and one
    valuation under torch.profiler (device busy share, kernels by time).
 
-The line before the last is the card; the one before it the kernels' JSON
-summary; the last line is ``{"ok": true, "device": {...}}``.  A fuller
-report goes to ``build/chip_smoke/`` (``chip_smoke.json``, ``profile.txt``,
-``ptxas.log``).  Exits non-zero, printing no result, without a CUDA device,
-outside the repository, or when any phase fails.
+Every path runs with the launch counters set to 0 just before it and read
+just after.  The line before the last is the card; the one before it the
+kernels' JSON summary; the last line is ``{"ok": true, "device": {...}}``.  A
+fuller report goes to ``build/chip_smoke/`` (``chip_smoke.json``,
+``profile.txt``, ``ptxas.log``).  Exits non-zero, printing no result, without
+a CUDA device, outside the repository, or when any phase fails.
 
 Run from the repository root:  python3 chip_smoke.py
+``python3 chip_smoke.py --f64`` instead measures the f64 answers pinned below
+(the kernels' plain versions in f64 on the card, on the f32 draws) and prints
+them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -43,10 +61,14 @@ REFERENCE_NPV = 114_941.8  # BENCH_r05.json: 262,144 x 365 x 100, seeds 11/13
 # kernels' plain versions on an H100), by snap_interp: what the f32 run
 # should reproduce up to f32 rounding of the regressions.
 F64_NPV = {True: 115_080.6957706275, False: 115_079.00662445562}
+# The spot-only valuation of the headline's spot panels (SPOT_BASIS,
+# snap_interp=True) in f64 the same way (``--f64``, NVIDIA H100 80GB HBM3).
+F64_SPOT_NPV = 97_296.88404629874
 NUM_SIMS = 262_144
 NUM_STEPS = 365
 NUM_GRID = 100
 BASIS = "1 + x_st + x_lt + x_sw + x_st**2 + x_lt**2 + x_sw**2 + s + s**2"
+SPOT_BASIS = "1 + s + s**2 + s**3"
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "build" / "chip_smoke"
 SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
@@ -55,7 +77,22 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                                 "storage_tpu/ops/decision_kernel.py:381"),
     "forward_step": ("storage_tpu_torch/csrc/forward_kernel.cu",
                      "storage_tpu/ops/forward_kernel.py:372"),
+    "decision_update": ("storage_tpu_torch/csrc/decision_update_kernel.cu",
+                        "storage_tpu/ops/decision_kernel.py:308"),
+    "decision_update_fullstep": ("storage_tpu_torch/csrc/fullstep_kernel.cu",
+                                 "storage_tpu/ops/decision_kernel.py:712"),
 }
+# The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
+# memory bandwidth, and float32 outside the tensor cores.  The kernels'
+# integer operations (kernel A's hashing) are counted against the f32 rate:
+# the table has no integer row outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Kernel A's operations per (row, path) pair, counted from csrc/rng_kernel.cu:
+# 20 threefry rounds of add/rotate/xor and 17 key-injection adds, and per
+# word ~50 for the mantissa trick, log1p and a 9-term polynomial.
+THREEFRY_OPS = 77
+NORMAL_OPS = 50
 
 
 def log(*args):
@@ -90,7 +127,7 @@ def bench_case(pkg):
     return storage, start, fwd
 
 
-def value(pkg, device, snap_interp):
+def value(pkg, device, snap_interp, **kwargs):
     """The headline valuation through the public API."""
     import torch
 
@@ -99,8 +136,65 @@ def value(pkg, device, snap_interp):
         storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23,
         NUM_SIMS, BASIS, False, seed=11, fwd_sim_seed=13,
         num_inventory_grid_points=NUM_GRID, dtype=torch.float32, device=device,
-        snap_interp=snap_interp,
+        snap_interp=snap_interp, **kwargs,
     )
+
+
+def value_from_frames(pkg, device, spot_reg, spot_val, basis, **kwargs):
+    """The headline facility valued on user panels through ``value_from_sims``."""
+    import torch
+
+    storage, start, fwd = bench_case(pkg)
+    return pkg.value_from_sims(
+        storage, start, 100.0, fwd, 0.02, None, spot_reg, spot_val, basis, False,
+        num_inventory_grid_points=NUM_GRID, dtype=torch.float32, device=device,
+        snap_interp=True, **kwargs,
+    )
+
+
+def bound(num_bytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the f32 rate."""
+    t_bytes, t_ops = num_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=num_bytes, ops=ops)
+
+
+def decision_work(g, s, d, b, f, moments: bool, design_in_memory: bool = False):
+    """(bytes, f32 operations) of one backward decision step, each input read
+    once and each output written once: v [G, S] in and best_act [G, S] out,
+    the step's spot (and, with moments, both steps' spot and factors or,
+    for kernel D, the design [B, S]), the small tables.  Operations per sim:
+    per grid point 7 for decision 0 and 2B + 7 for each other; with moments
+    the design rows of two steps (~5B each) and 2(B² + GB) for XᵀX and Xᵀv."""
+    rows = 2 * g + 1 + (b if design_in_memory else 0) + ((2 + 2 * f - 1) if moments else 0)
+    tables = d * g * b + 4 * d * g + 4 * b + (b * b + g * b if moments else 0)
+    per_sim = g * (7 + (d - 1) * (2 * b + 7))
+    if moments:
+        per_sim += 10 * b + 2 * (b * b + g * b)
+    return 4.0 * (rows * s + tables), float(per_sim) * s
+
+
+def near_tie_flips(got, want, regressed_sets):
+    """Values beyond f32 rounding of the plain version's (1e-6 of its largest)
+    are argmax flips; each must sit on a near-tie — the best two regressed
+    values within 1e-5 of the largest — under one of the given sets of
+    regressed values [D, G, S].  Returns (flips, unexplained, max abs err)."""
+    import torch
+
+    tol = 1e-6 * float(want.abs().max())
+    mismatch = ~((got - want).abs() <= tol)
+    near_tie = torch.zeros_like(mismatch)
+    for regressed in regressed_sets:
+        top2 = regressed.topk(2, dim=0).values
+        near_tie |= (top2[0] - top2[1]) <= 1e-5 * float(regressed.abs().max())
+    return (int(mismatch.sum()), int((mismatch & ~near_tie).sum()),
+            float((got - want).abs().max()))
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
 def engine_inputs(pkg, device):
@@ -157,12 +251,14 @@ def cuda_ms(fn, repeats: int) -> float:
 
 
 def check_kernels(pkg, device):
-    """Each kernel against its plain version on the card at main-path shapes."""
+    """Each kernel against its plain version on the card at main-path shapes,
+    with its time, its plain version's and its bound."""
     import torch
 
+    from storage_tpu_torch.basis import parse_basis_functions
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.models import spot_sim
-    from storage_tpu_torch.ops import decision_kernel, forward_kernel, rng_kernel
+    from storage_tpu_torch.ops import decision_kernel, forward_kernel, interp, rng_kernel
 
     s, f = NUM_SIMS, 3
     results = {}
@@ -190,108 +286,186 @@ def check_kernels(pkg, device):
     del z1, z2, q1, q2
     ms = cuda_ms(lambda: rng_kernel.normal_halves(key, 0, nb, ids), 20)
     plain_ms = cuda_ms(lambda: rng_kernel.normal_halves_plain(key, 0, nb, ids), 3)
+    bnd = bound(4.0 * s + 8.0 * nb * s, float(nb) * s * (THREEFRY_OPS + 2 * NORMAL_OPS))
     log(f"kernel A normal_halves [{nb} x {s}]: words bit-identical={words_equal}, "
         f"normals max {ulp} ULP (tolerance 4), bit-identical share {identical:.6f}, "
-        f"max abs err {err_a:.3e}; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        f"max abs err {err_a:.3e}; {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+        f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
     if not words_equal or ulp > 4:
         raise AssertionError("kernel A disagrees with its plain version")
     results["normal_halves"] = dict(max_abs_err=err_a, ms=ms, plain_ms=plain_ms,
-                                    max_ulp=ulp, words_bit_identical=words_equal)
+                                    max_ulp=ulp, words_bit_identical=words_equal, **bnd)
 
     # One step of the main path: the headline facility's arrays, a simulated
     # regression panel, random values and coefficients of realistic size.
     inputs, sim_in, arrays, monomials = engine_inputs(pkg, device)
     sims = spot_sim.simulate_ou_paths(key, torch.arange(s, device=device), *sim_in)
     b_dim = len(monomials)
-    t = 180
+    t = min(180, NUM_STEPS // 2)
     gen = torch.Generator(device=device).manual_seed(5)
 
     # ---- B: the backward step at step t.
     prep = engine._backward_prep_all(arrays, 0, False, snap_interp=True)
+    step = dict(idx_lo=prep["idx_lo"][t], w_hi=prep["w_hi"][t], a=prep["a"][t], b=prep["b"][t])
     mean, std = engine._design_stats(monomials, sims.spot[t - 1:t + 1], sims.factors[t - 1:t + 1])
     grid_next = arrays["grids"][t + 1]
     v = (grid_next[:, None] * sims.spot[t + 1][None, :]
          + 40.0 * torch.randn((NUM_GRID, s), generator=gen, device=device)).contiguous()
     coeffs = torch.randn((b_dim, NUM_GRID), generator=gen, device=device) * 50.0
     coeffs[0] = grid_next * 30.0
-    ci = engine._interp_coeffs(coeffs, prep["idx_lo"][t], prep["w_hi"][t])
+    ci = interp.interp_coeffs(coeffs, step["idx_lo"], step["w_hi"])
     args_b = (v, sims.spot[t], sims.factors[t], sims.spot[t - 1], sims.factors[t - 1],
-              mean[1], std[1], mean[0], std[0], prep["idx_lo"][t], prep["w_hi"][t], ci,
-              prep["a"][t], prep["b"][t], monomials)
+              mean[1], std[1], mean[0], std[0], step["idx_lo"], step["w_hi"], ci,
+              step["a"], step["b"], monomials)
     out = torch.empty_like(v)
     got = decision_kernel.decision_update_moments(*args_b, out=out)
     want = decision_kernel.decision_update_moments_plain(*args_b)
     # The kernel does the plain version's arithmetic in the same order, so a
     # best_act value may differ beyond f32 rounding only where the argmax
-    # flipped, and it may flip only on a near-tie of the regressed values:
-    # the best two within 100 f32 ULP of the largest regressed value.
-    tol = 1e-6 * float(want[0].abs().max())
-    mismatch = ~((got[0] - want[0]).abs() <= tol)
+    # flipped, and it may flip only on a near-tie of the regressed values.
     regressed = torch.stack([r for r, _ in decision_kernel.decision_values(
         *args_b[:3], *args_b[5:7], *args_b[9:])])  # [D, G, S]
-    top2 = regressed.topk(2, dim=0).values
-    near_tie = (top2[0] - top2[1]) <= 1e-5 * float(regressed.abs().max())
-    flips = int(mismatch.sum())
-    unexplained = int((mismatch & ~near_tie).sum())
-    del regressed, top2, near_tie
-    err_b = float((got[0] - want[0]).abs().max())
-    mom_err = max(
-        float(((got[i] - want[i]).abs().max() / want[i].abs().max())) for i in (1, 2)
-    )
+    flips, unexplained, err_b = near_tie_flips(got[0], want[0], [regressed])
+    del regressed
+    mom_err = max(rel_err(got[i], want[i]) for i in (1, 2))
     ms = cuda_ms(lambda: decision_kernel.decision_update_moments(*args_b, out=out), 20)
     plain_ms = cuda_ms(lambda: decision_kernel.decision_update_moments_plain(*args_b), 5)
+    bnd = bound(*decision_work(NUM_GRID, s, 3, b_dim, f, moments=True))
     log(f"kernel B decision_update_moments [G={NUM_GRID}, S={s}, D=3, B={b_dim}]: "
-        f"best_act max abs err {err_b:.3e}; {flips} of {v.numel()} beyond {tol:.2e} "
+        f"best_act max abs err {err_b:.3e}; {flips} of {v.numel()} beyond f32 rounding "
         f"(argmax flips), {unexplained} of them off a near-tie (tolerance 0); "
         f"moments max rel err {mom_err:.3e} "
         f"(tolerance 1e-4: f32 sums over {s} sims in another order); "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
     if unexplained or flips > 1e-5 * v.numel() or mom_err > 1e-4:
         raise AssertionError("kernel B disagrees with its plain version")
     results["decision_update_moments"] = dict(
-        max_abs_err=err_b, ms=ms, plain_ms=plain_ms, flips=flips, moments_max_rel_err=mom_err)
-    del v, out, got, want, mismatch
+        max_abs_err=err_b, ms=ms, plain_ms=plain_ms, flips=flips, moments_max_rel_err=mom_err,
+        **bnd)
+    del got, want
+
+    # ---- D: the same step on spot-only panels (basis 1 + s + s² + s³): the
+    # design [B, S] standardised by the step's exact stats, as the engine's
+    # spot-only backward passes it.
+    spot_monomials = tuple(parse_basis_functions(SPOT_BASIS))
+    no_factors = sims.factors[t][:0]
+    m_s, s_s = engine._design_stats(spot_monomials, sims.spot[t:t + 1], no_factors[None])
+    dm_t = engine._standardised_design_t(spot_monomials, sims.spot[t], no_factors, m_s[0], s_s[0])
+    coeffs_s = torch.randn((len(spot_monomials), NUM_GRID), generator=gen, device=device) * 50.0
+    coeffs_s[0] = grid_next * 30.0
+    ci_s = interp.interp_coeffs(coeffs_s, step["idx_lo"], step["w_hi"])
+    args_d = (v, dm_t, sims.spot[t], step["idx_lo"], step["w_hi"], ci_s, step["a"], step["b"])
+    got = decision_kernel.decision_update(*args_d, out=out)
+    want = decision_kernel.decision_update_plain(*args_d)
+    regressed = torch.stack([r for r, _ in decision_kernel.decision_values_on_design(
+        v, dm_t.T, *args_d[2:])])
+    flips_d, unexplained_d, err_d = near_tie_flips(got, want, [regressed])
+    del regressed, got, want
+    ms = cuda_ms(lambda: decision_kernel.decision_update(*args_d, out=out), 20)
+    plain_ms = cuda_ms(lambda: decision_kernel.decision_update_plain(*args_d), 5)
+    bnd = bound(*decision_work(NUM_GRID, s, 3, len(spot_monomials), 0, moments=False,
+                               design_in_memory=True))
+    log(f"kernel D decision_update [G={NUM_GRID}, S={s}, D=3, B={len(spot_monomials)}]: "
+        f"best_act max abs err {err_d:.3e}; {flips_d} beyond f32 rounding (argmax flips), "
+        f"{unexplained_d} of them off a near-tie (tolerance 0); "
+        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    if unexplained_d or flips_d > 1e-5 * v.numel():
+        raise AssertionError("kernel D disagrees with its plain version")
+    results["decision_update"] = dict(max_abs_err=err_d, ms=ms, plain_ms=plain_ms, flips=flips_d,
+                                      **bnd)
+
+    # ---- E: the whole step from step t's moments against v, centred by its
+    # exact stats, with step t-1's stats for the next moments (as the engine).
+    dm = decision_kernel._standardised_design(monomials, sims.spot[t], sims.factors[t], mean[1],
+                                              std[1])
+    xtx, xty = dm.T @ dm, dm.T @ v.T
+    del dm
+    args_e = (v, sims.spot[t], sims.factors[t], sims.spot[t - 1], sims.factors[t - 1], xtx, xty,
+              mean[1], std[1], step["idx_lo"], step["w_hi"], step["a"], step["b"], monomials)
+    prev = dict(mean_prev=mean[0], std_prev=std[0])
+    got = decision_kernel.decision_update_fullstep(*args_e, **prev, out=out)
+    want = decision_kernel.decision_update_fullstep_plain(*args_e, **prev)
+    # The regression: the kernel solves in double, the plain version in f32.
+    reg_err = max(rel_err(got[i], want[i]) for i in (3, 4, 5))
+    mom_err_e = max(rel_err(got[i], want[i]) for i in (1, 2))
+    # The step is kernel B on E's own regression, to the bit.
+    ci_k = interp.interp_coeffs(got[5], step["idx_lo"], step["w_hi"])
+    same = decision_kernel.decision_update_moments(
+        v, *args_e[1:5], got[3], got[4], mean[0], std[0], step["idx_lo"], step["w_hi"], ci_k,
+        step["a"], step["b"], monomials)
+    bit_identical = all(torch.equal(got[i], same[i]) for i in range(3))
+    ci_p = interp.interp_coeffs(want[5], step["idx_lo"], step["w_hi"])
+    regressed = [torch.stack([r for r, _ in decision_kernel.decision_values(
+        v, sims.spot[t], sims.factors[t], m_, s_, step["idx_lo"], step["w_hi"], c_, step["a"],
+        step["b"], monomials)]) for m_, s_, c_ in ((want[3], want[4], ci_p), (got[3], got[4], ci_k))]
+    flips_e, unexplained_e, err_e = near_tie_flips(got[0], want[0], regressed)
+    del regressed, same, got, want
+    ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep(*args_e, **prev, out=out), 20)
+    plain_ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep_plain(*args_e, **prev), 5)
+    bnd = bound(*decision_work(NUM_GRID, s, 3, b_dim, f, moments=True))
+    log(f"kernel E decision_update_fullstep [G={NUM_GRID}, S={s}, D=3, B={b_dim}, F={f}]: "
+        f"mean/std/coeffs max rel err {reg_err:.3e} (tolerance 1e-4: the kernel's Cholesky "
+        f"rounds otherwise than torch.linalg's); step bit-identical to kernel B on its own "
+        f"regression: {bit_identical}; best_act max abs err {err_e:.3e}, {flips_e} argmax flips, "
+        f"{unexplained_e} off a near-tie (tolerance 0); moments max rel err {mom_err_e:.3e} "
+        f"(tolerance 1e-4); {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    if (reg_err > 1e-4 or mom_err_e > 1e-4 or not bit_identical or unexplained_e
+            or flips_e > 1e-5 * v.numel()):
+        raise AssertionError("kernel E disagrees with its plain version")
+    results["decision_update_fullstep"] = dict(
+        max_abs_err=err_e, ms=ms, plain_ms=plain_ms, flips=flips_e, regression_max_rel_err=reg_err,
+        moments_max_rel_err=mom_err_e, **bnd)
+    del v, out
 
     # ---- C: the forward step at step t.
-    step = {k: arrays[k] for k in engine._SCALARS}
-    step.update(next_min=arrays["lower"][1:], next_max=arrays["upper"][1:])
-    params = forward_kernel.pack_params(step, arrays["grids"][1:])[t].contiguous()
+    step_c = {k: arrays[k] for k in engine._SCALARS}
+    step_c.update(next_min=arrays["lower"][1:], next_max=arrays["upper"][1:])
+    params = forward_kernel.pack_params(step_c, arrays["grids"][1:])[t].contiguous()
     lo_b, hi_b = float(inputs.inventory_lower[t]), float(inputs.inventory_upper[t])
     inventory = lo_b + (hi_b - lo_b) * torch.rand(s, generator=gen, device=device)
     pv = 100.0 * torch.randn(s, generator=gen, device=device)
     args_c = (params, mean[1], std[1], arrays["ratchet_inv"][t], arrays["ratchet_min"][t],
               arrays["ratchet_max"][t], sims.spot[t], sims.factors[t], inventory, pv,
               coeffs, monomials, 0, False)
-    got = forward_kernel.forward_step(*args_c)
-    want = forward_kernel.forward_step_plain(*args_c)
-    # As in B: new inventory, PV, volume and fuel within f32 rounding of the
-    # plain version, except on sims whose argmax flipped on a near-tie of the
-    # decisions' total values.
+    imm, imm_plain = torch.empty_like(pv), torch.empty_like(pv)
+    got = forward_kernel.forward_step(*args_c, imm_out=imm)
+    want = forward_kernel.forward_step_plain(*args_c, imm_out=imm_plain)
+    # As in B: new inventory, PV, volume, fuel and immediate PV within f32
+    # rounding of the plain version, except on sims whose argmax flipped on a
+    # near-tie of the decisions' total values.
     mismatch = torch.zeros(s, dtype=torch.bool, device=device)
-    for i in range(4):
-        tol_i = 1e-6 * max(float(want[i].abs().max()), 1.0)
-        mismatch |= ~((got[i] - want[i]).abs() <= tol_i)
+    for g_i, w_i in (*zip(got[:4], want[:4]), (imm, imm_plain)):
+        tol_i = 1e-6 * max(float(w_i.abs().max()), 1.0)
+        mismatch |= ~((g_i - w_i).abs() <= tol_i)
     candidates, _, _ = forward_kernel.decision_candidates(*args_c[:9], *args_c[10:])
     totals = torch.stack([total for total, _ in candidates])  # [D, S]
     top2 = totals.topk(2, dim=0).values
     near_tie = (top2[0] - top2[1]) <= 1e-5 * float(totals.abs().max())
     flips_c = int(mismatch.sum())
     unexplained_c = int((mismatch & ~near_tie).sum())
-    err_c = max(float((got[i] - want[i]).abs().max()) for i in range(4))
+    err_c = max(float((g_i - w_i).abs().max()) for g_i, w_i in (*zip(got[:4], want[:4]),
+                                                                (imm, imm_plain)))
     sums_err = max(
         float(((got[i] - want[i]).abs().max() / want[i].abs().max().clamp(min=1.0))) for i in (4, 5)
     )
     ms = cuda_ms(lambda: forward_kernel.forward_step(*args_c), 50)
     plain_ms = cuda_ms(lambda: forward_kernel.forward_step_plain(*args_c), 10)
+    # Per sim: spot, inventory, pv and F factors in; inventory, pv, volume
+    # and fuel out.  Operations: the design row (~5B), per decision the
+    # continuation at two rows (4B) and ~25 more.
+    bnd = bound(4.0 * ((3 + f + 4) * s + b_dim * NUM_GRID),
+                float(s) * (5 * b_dim + 3 * (4 * b_dim + 25)))
     log(f"kernel C forward_step [S={s}, G={NUM_GRID}, D=3, B={b_dim}, R=3]: per-sim "
-        f"(inventory, PV, volume, fuel) max abs err {err_c:.3e}; {flips_c} sims beyond "
-        f"1e-6 relative (argmax flips), {unexplained_c} of them off a near-tie (tolerance 0); "
-        f"sums/xbar max rel err {sums_err:.3e} (tolerance 1e-4); "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        f"(inventory, PV, volume, fuel, immediate PV) max abs err {err_c:.3e}; {flips_c} sims "
+        f"beyond 1e-6 relative (argmax flips), {unexplained_c} of them off a near-tie "
+        f"(tolerance 0); sums/xbar max rel err {sums_err:.3e} (tolerance 1e-4); "
+        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
     if unexplained_c or flips_c > 1e-5 * s or sums_err > 1e-4:
         raise AssertionError("kernel C disagrees with its plain version")
     results["forward_step"] = dict(
-        max_abs_err=err_c, ms=ms, plain_ms=plain_ms, flips=flips_c, sums_max_rel_err=sums_err)
+        max_abs_err=err_c, ms=ms, plain_ms=plain_ms, flips=flips_c, sums_max_rel_err=sums_err,
+        **bnd)
     torch.cuda.synchronize()
     return results
 
@@ -314,7 +488,7 @@ def tpu_numerics_valuation(pkg, device):
 
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.models import spot_sim
-    from storage_tpu_torch.ops import decision_kernel
+    from storage_tpu_torch.ops import decision_kernel, interp
     from storage_tpu_torch.ops.regression import fit_from_moments, standardise_moments
 
     def bf16(t):
@@ -343,7 +517,7 @@ def tpu_numerics_valuation(pkg, device):
         m, rhs, mu_u, sig_u = standardise_moments(xtx, xty)
         mean, std = mean + std * mu_u, std * sig_u
         coeffs = fit_from_moments(m, rhs)
-        ci = engine._interp_coeffs(coeffs, prep["idx_lo"][t], prep["w_hi"][t])
+        ci = interp.interp_coeffs(coeffs, prep["idx_lo"][t], prep["w_hi"][t])
         prev = max(t - 1, 0)
         best_act, xtx, xty = decision_kernel.decision_update_moments(
             v, spot[t], factors[t], spot[prev], factors[prev], mean, std, mean, std,
@@ -393,6 +567,234 @@ def phase_breakdown(pkg, device):
     return times
 
 
+@contextlib.contextmanager
+def api_timers(times):
+    """Seconds spent, inside the API calls of the block, in the engine
+    (``lsmc_core``, ended by a synchronize: the device work and its
+    launches), in building the result's per-sim frames (``_results``) and in
+    reading user frames into arrays (``_frames_to_sims``)."""
+    from unittest import mock
+
+    import torch
+
+    from storage_tpu_torch import api_lsmc
+
+    def timed(name, fn, sync):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    with mock.patch.object(api_lsmc.lsmc_engine, "lsmc_core",
+                           timed("engine_s", api_lsmc.lsmc_engine.lsmc_core, True)), \
+            mock.patch.object(api_lsmc, "_results",
+                              timed("panel_assembly_s", api_lsmc._results, False)), \
+            mock.patch.object(api_lsmc, "_frames_to_sims",
+                              timed("frames_to_arrays_s", api_lsmc._frames_to_sims, False)):
+        yield
+
+
+def round_trip(pkg, device, counts, main_npv):
+    """The headline valuation with every per-sim panel, then value_from_sims
+    on its four path panels with the same flags: the same NPV, SE and deltas
+    to the bit (deterministic kernels, lossless f32 -> f64 -> f32 frames).
+    Returns the source result (its spot panels feed the spot-only phase)."""
+    import numpy as np
+    import torch
+
+    flags = pkg.SimulationDataReturned.ALL
+    report = {}
+    for name in ("source", "from_sims"):
+        times = {}
+        counts.reset()
+        t0 = time.perf_counter()
+        with api_timers(times):
+            if name == "source":
+                res = value(pkg, device, True, sim_data_returned=flags)
+            else:
+                res = value_from_frames(
+                    pkg, device, src.sim_spot_regress, src.sim_spot_valuation, BASIS,
+                    sim_factors_regress=src.sim_factors_regress,
+                    sim_factors_valuation=src.sim_factors_valuation, sim_data_returned=flags)
+        torch.cuda.synchronize()
+        times["wall_s"] = time.perf_counter() - t0
+        launches = counts.read()
+        expected = counts.expect(normal_halves=2 if name == "source" else 0,
+                                 decision_update_moments=NUM_STEPS, forward_step=NUM_STEPS)
+        log(f"round trip, {name}: NPV {res.npv!r} SE {res.val_sim_standard_error!r}; wall "
+            f"{times['wall_s']:.3f} s, of it engine (device work, synchronized) "
+            f"{times['engine_s']:.3f} s, per-sim frames {times['panel_assembly_s']:.3f} s, user "
+            f"frames to arrays {times.get('frames_to_arrays_s', 0.0):.3f} s; launches {launches}")
+        if launches != expected:
+            raise AssertionError(f"launch counts {launches}, expected {expected}")
+        report[name] = dict(npv=res.npv, se=res.val_sim_standard_error, launches=launches, **times)
+        if name == "source":
+            src = res
+            if res.npv != main_npv:
+                raise AssertionError(f"panels changed the NPV: {res.npv} vs {main_npv}")
+    same = (res.npv == src.npv and res.val_sim_standard_error == src.val_sim_standard_error
+            and np.array_equal(res.deltas.to_numpy(), src.deltas.to_numpy()))
+    # Per-sim consistency: the PV panel sums to each sim's PV, whose mean is
+    # the NPV; the inventory panel's mean is the expected profile (f32 sums
+    # in another order: 1e-5 relative).
+    pv_mean = float(src.sim_pv.to_numpy().sum(axis=0).mean())
+    pv_off = abs(pv_mean - src.npv) / abs(src.npv)
+    inv = src.expected_profile["inventory"].to_numpy()
+    inv_off = float(np.abs(src.sim_inventory.to_numpy().mean(axis=1) - inv).max() / np.abs(inv).max())
+    shapes_ok = (src.sim_pv.shape == (NUM_STEPS + 1, NUM_SIMS)
+                 and src.sim_inject_withdraw.shape == (NUM_STEPS, NUM_SIMS)
+                 and len(src.sim_factors_valuation) == 3)
+    log(f"round trip: NPV, SE and deltas bit-identical: {same}; mean over sims of the summed "
+        f"sim_pv {pv_mean!r} vs NPV {src.npv!r} (rel {pv_off:.2e}, tolerance 1e-5); sim_inventory "
+        f"mean vs expected profile max rel {inv_off:.2e} (tolerance 1e-5); panel shapes ok: "
+        f"{shapes_ok}")
+    if not (same and pv_off <= 1e-5 and inv_off <= 1e-5 and shapes_ok):
+        raise AssertionError("the round trip does not reproduce its source")
+    report.update(bit_identical=same, sim_pv_rel=pv_off, sim_inventory_rel=inv_off)
+    return src, report
+
+
+def spot_only_valuation(pkg, device, counts, src, main):
+    """value_from_sims on the headline's spot panels alone: the spot-only
+    backward (kernel D) and forward (kernel C), held within 0.1 SE of the
+    same valuation in f64 on the same panels."""
+    import torch
+
+    counts.reset()
+    t0 = time.perf_counter()
+    res = value_from_frames(pkg, device, src.sim_spot_regress, src.sim_spot_valuation, SPOT_BASIS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    expected = counts.expect(decision_update=NUM_STEPS, forward_step=NUM_STEPS)
+    se = res.val_sim_standard_error
+    off = (res.npv - F64_SPOT_NPV) / se
+    gap = (res.npv - main.npv) / main.val_sim_standard_error
+    log(f"spot-only value_from_sims ({SPOT_BASIS}): NPV {res.npv!r} SE {se!r}, "
+        f"{off:+.4f} SE from its f64 answer {F64_SPOT_NPV} (tolerance 0.1), {gap:+.3f} SE from "
+        f"the 3-factor NPV {main.npv!r}; wall {wall:.3f} s; launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    if not abs(off) <= 0.1:
+        raise AssertionError(f"spot-only NPV {res.npv} is not within 0.1 SE of {F64_SPOT_NPV}")
+    return dict(npv=res.npv, se=se, off_f64_se=off, gap_to_3f_se=gap, wall_s=wall,
+                launches=launches)
+
+
+def fullstep_valuation(pkg, device, counts, main):
+    """The headline case through lsmc_core(fullstep=True): kernel E alone per
+    backward step; its backward seconds beside the kernel-B-plus-glue
+    backward, in turns (B, E, E, B)."""
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+
+    inputs, sim_in, arrays, monomials = engine_inputs(pkg, device)
+    tfn = inputs.compiled.terminal_value
+    ids = torch.arange(NUM_SIMS, device=device)
+    reg = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11), ids, *sim_in)
+    val = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(13), ids, *sim_in)
+    counts.reset()
+    out = engine.lsmc_core(arrays, reg.spot, reg.factors, val.spot, val.factors, 100.0, monomials,
+                           0, False, tfn, False, snap_interp=True, fullstep=True)
+    npv, se = float(out["npv"]), float(out["standard_error"])
+    launches = counts.read()
+    expected = counts.expect(decision_update_fullstep=NUM_STEPS, forward_step=NUM_STEPS)
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    z = check_npv(npv, se, snap_interp=True)
+    off = (npv - main.npv) / main.val_sim_standard_error
+    backward = {False: [], True: []}
+    with engine.full_f32_matmul():
+        for fullstep in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.lsmc_backward(arrays, reg.spot, reg.factors, monomials, 0, tfn, False,
+                                 snap_interp=True, fullstep=fullstep)
+            torch.cuda.synchronize()
+            backward[fullstep].append(time.perf_counter() - t0)
+    log(f"fullstep: NPV {npv!r} SE {se!r} (z = {z:+.3f}), {off:+.4f} SE from the main path's "
+        f"NPV (tolerance 0.05); launches {launches}; backward {backward[True]} s with kernel E "
+        f"vs {backward[False]} s with kernel B and the glue")
+    if not abs(off) <= 0.05:
+        raise AssertionError(f"fullstep NPV {npv} is not within 0.05 SE of {main.npv}")
+    return dict(npv=npv, se=se, off_main_se=off, launches=launches,
+                backward_fullstep_s=backward[True], backward_b_glue_s=backward[False])
+
+
+def measure_f64(pkg, device):
+    """The pinned f64 answers: the kernels' plain versions in f64 on the
+    card, on the f32 draws of the headline case cast to f64."""
+    from unittest import mock
+
+    import torch
+
+    from storage_tpu_torch.basis import parse_basis_functions
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import decision_kernel, forward_kernel
+
+    inputs, sim_in, _, monomials = engine_inputs(pkg, device)
+    arrays = engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow, inputs.inventory_lower,
+        inputs.inventory_upper, NUM_GRID, torch.float64, device,
+    )
+    tfn = inputs.compiled.terminal_value
+    ids = torch.arange(NUM_SIMS, device=device)
+    reg, val = (spot_sim.simulate_ou_paths(spot_sim.key_from_seed(k), ids, *sim_in)
+                for k in (11, 13))
+    f64 = lambda x: x.to(torch.float64)  # noqa: E731
+    plain = [
+        mock.patch.object(decision_kernel, "decision_update_moments",
+                          lambda *a, out=None: decision_kernel.decision_update_moments_plain(*a)),
+        mock.patch.object(decision_kernel, "decision_update",
+                          lambda *a, out=None: decision_kernel.decision_update_plain(*a)),
+        mock.patch.object(forward_kernel, "forward_step",
+                          lambda *a, out=None, imm_out=None: forward_kernel.forward_step_plain(*a)),
+    ]
+    for patch in plain:
+        patch.start()
+    try:
+        npvs = {}
+        for snap in (True, False):
+            out = engine.lsmc_core(arrays, f64(reg.spot), f64(reg.factors), f64(val.spot),
+                                   f64(val.factors), 100.0, monomials, 0, False, tfn, False,
+                                   snap_interp=snap)
+            npvs[f"F64_NPV[{snap}]"] = float(out["npv"])
+        spot_monomials = tuple(parse_basis_functions(SPOT_BASIS))
+        out = engine.lsmc_core(arrays, f64(reg.spot), f64(reg.factors[:, :0]), f64(val.spot),
+                               f64(val.factors[:, :0]), 100.0, spot_monomials, 0, False, tfn,
+                               False, snap_interp=True)
+        npvs["F64_SPOT_NPV"] = float(out["npv"])
+    finally:
+        for patch in plain:
+            patch.stop()
+    return npvs
+
+
+class LaunchCounts:
+    """The kernels' launch counters: reset, read, and the expected counts of
+    a path (every kernel it does not name at 0)."""
+
+    def __init__(self, fns):
+        self.fns = fns
+
+    def reset(self):
+        for fn in self.fns:
+            fn.launches = 0
+
+    def read(self):
+        return {fn.__name__: fn.launches for fn in self.fns}
+
+    def expect(self, **counts):
+        return {fn.__name__: counts.get(fn.__name__, 0) for fn in self.fns}
+
+
 def profile_valuation(pkg, device, card):
     """One headline valuation under torch.profiler: the device busy share and
     the device-side events by time, written to build/chip_smoke/profile.txt."""
@@ -424,7 +826,7 @@ def profile_valuation(pkg, device, card):
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in events[:30]])
 
 
-def main() -> int:
+def main(argv) -> int:
     try:
         import torch
     except ImportError:
@@ -464,23 +866,30 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     torch.cuda.synchronize()
 
+    if argv[1:] == ["--f64"]:
+        log(json.dumps(measure_f64(stt, device)))
+        return 0
+    if argv[1:]:
+        print(f"chip_smoke: unknown arguments {argv[1:]}", file=sys.stderr)
+        return 2
+
     # ---- kernels against their plain versions.
     with engine.full_f32_matmul():
         kernels = check_kernels(stt, device)
     report["kernels"] = kernels
 
     # ---- the main path through the public API.
+    counts = LaunchCounts((rng_kernel.normal_halves, decision_kernel.decision_update_moments,
+                           forward_kernel.forward_step, decision_kernel.decision_update,
+                           decision_kernel.decision_update_fullstep))
     value(stt, device, snap_interp=True)  # warm-up
     torch.cuda.synchronize()
-    counted = (rng_kernel.normal_halves, decision_kernel.decision_update_moments,
-               forward_kernel.forward_step)
-    for fn in counted:
-        fn.launches = 0
+    counts.reset()
     t0 = time.perf_counter()
     res = value(stt, device, snap_interp=True)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = counts.read()
     for _ in range(4):  # more timed valuations, for the spread
         t0 = time.perf_counter()
         value(stt, device, snap_interp=True)
@@ -493,7 +902,8 @@ def main() -> int:
         f"(reference {REFERENCE_NPV}, z = {z:+.3f}); wall median {wall:.4f} s of "
         f"{[round(w, 4) for w in walls]} = {rate:.1f} paths*steps/s; launches {launches} "
         f"[{card}]")
-    expected = {"normal_halves": 2, "decision_update_moments": NUM_STEPS, "forward_step": NUM_STEPS}
+    expected = counts.expect(normal_halves=2, decision_update_moments=NUM_STEPS,
+                             forward_step=NUM_STEPS)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
     deltas = res.deltas.to_numpy()
@@ -523,6 +933,15 @@ def main() -> int:
         raise AssertionError(f"NPV {npv_t} is not within 0.1 SE of {REFERENCE_NPV}")
     report["tpu_numerics"] = dict(npv=npv_t, se=se_t, z_vs_reference=z_t)
 
+    # ---- user-supplied simulations and the full-step backward.
+    src, report["round_trip"] = round_trip(stt, device, counts, res.npv)
+    report["spot_only"] = spot_only_valuation(stt, device, counts, src, res)
+    launches.update(decision_update=report["spot_only"]["launches"]["decision_update"])
+    del src
+    report["fullstep"] = fullstep_valuation(stt, device, counts, res)
+    launches.update(
+        decision_update_fullstep=report["fullstep"]["launches"]["decision_update_fullstep"])
+
     phases = phase_breakdown(stt, device)
     log(f"phases: host prep {phases['host_prep_s']:.4f} s, simulate {phases['simulate_s']:.4f} s, "
         f"backward {phases['backward_s']:.4f} s, "
@@ -531,11 +950,13 @@ def main() -> int:
     report["phases"] = phases
     report["profile"] = profile_valuation(stt, device, card)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
-        for name, (src, rep) in SOURCES.items()
+        {"name": name, "route": "cuda", "source": src_file, "replaces": rep,
+         "launches": launches[name], **{k: kernels[name][k] for k in keys},
+         # No single PyTorch call computes any of these functions.
+         "library_ms": None}
+        for name, (src_file, rep) in SOURCES.items()
     ]}
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
     print(json.dumps(summary))
@@ -546,4 +967,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

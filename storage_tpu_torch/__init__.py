@@ -2,10 +2,13 @@
 hand-written CUDA kernels for one NVIDIA H100.
 
 The port of ``storage_tpu`` (JAX on a TPU), which stays beside it as the
-reference.  This slice carries the 3-factor seasonal LSMC main path: facility
-model, path simulation, backward induction and forward pass, with the draw,
-the backward decision step and the forward step as CUDA kernels
-(``csrc/``).  CPU tensors run the kernels' plain tensor versions.
+reference.  It carries the LSMC valuation on one card: facility model, path
+simulation, backward induction and forward pass, on simulated paths
+(``three_factor_seasonal_value``, ``multi_factor_value``) or on the user's
+own (``value_from_sims``), with per-sim panels.  The draw, the backward
+decision steps and the forward step are CUDA kernels (``csrc/``); entry
+points run on CUDA unless the caller passes ``device="cpu"``, where the
+kernels' plain tensor versions run.
 """
 
 from .facility import (
@@ -22,7 +25,12 @@ from .constraints import (
     PolynomialInjectWithdrawConstraint,
     StepInjectWithdrawConstraint,
 )
-from .api_lsmc import three_factor_seasonal_value, multi_factor_value
+from .api_lsmc import (
+    multi_factor_value,
+    three_factor_seasonal_value,
+    value_from_sims,
+    value_from_sims_host_local,
+)
 from .basis import Monomial, parse_basis_functions
 from .results import (
     MultiFactorValuationResults,
@@ -46,6 +54,8 @@ __all__ = [
     "InjectWithdrawRangeByInventoryAndPeriod",
     "three_factor_seasonal_value",
     "multi_factor_value",
+    "value_from_sims",
+    "value_from_sims_host_local",
     "Monomial",
     "parse_basis_functions",
     "MultiFactorValuationResults",

@@ -1,13 +1,17 @@
-"""LSMC public API: ``three_factor_seasonal_value`` and ``multi_factor_value``
-(counterparts of ``storage_tpu.api_lsmc``), pandas at the boundary and the
-torch engine inside, on the device the caller names.
+"""LSMC public API: ``three_factor_seasonal_value``, ``multi_factor_value``
+and ``value_from_sims`` (counterparts of ``storage_tpu.api_lsmc``), pandas at
+the boundary and the torch engine inside.  Everything runs on CUDA unless
+the caller passes ``device="cpu"``; without a CUDA device a call that names
+none raises.
 
-Accepted: ``sim_data_returned=NONE``, pathwise deltas, ``antithetic=False``,
-no progress or cancel callback, no checkpoint, uniform grids, monomial bases.
-Every other option raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.  Seeds keep the JAX key semantics: ``key(seed)`` for the regression
-sims, ``fold_in(key, 0x5EED)`` for the valuation sims when ``fwd_sim_seed``
-is None, one shared set when the two seeds are equal.
+Accepted: every ``sim_data_returned`` flag (per-sim panels of paths held on
+the card), pathwise deltas, ``antithetic=False``, no progress or cancel
+callback, no checkpoint, uniform grids, monomial bases.  Every other option,
+user panels too large for the card and ``value_from_sims_host_local`` raise
+``NotImplementedError`` naming the ROADMAP item that ports them.  Seeds keep
+the JAX key semantics: ``key(seed)`` for the regression sims,
+``fold_in(key, 0x5EED)`` for the valuation sims when ``fwd_sim_seed`` is
+None, one shared set when the two seeds are equal.
 
 The intrinsic value is not computed yet (ROADMAP Queue 1 item 9, intrinsic
 and tree engines): ``intrinsic_npv`` is NaN and ``intrinsic_profile`` empty.
@@ -37,6 +41,8 @@ from .utils import periods as pu
 from .valuation_inputs import prepare_valuation
 
 logger = logging.getLogger("storage_tpu_torch.multi_factor")
+
+Device = tp.Union[str, torch.device]
 
 DEFAULT_NUM_GRID_POINTS = 100  # reference default (ExcelArg.cs:130, intrinsic.py:48)
 
@@ -69,14 +75,14 @@ def three_factor_seasonal_value(
     checkpoint_path: tp.Optional[str] = None,
     grid_calc=None,
     *,
-    device: tp.Union[str, torch.device],
+    device: Device = "cuda",
     snap_interp: bool = False,
 ) -> MultiFactorValuationResults:
     """3-factor seasonal LSMC valuation (reference ``multi_factor.py:99-135``).
     Basis functions may name the factors ``x_st``/``x_lt``/``x_sw`` or
-    ``x0``/``x1``/``x2``.  ``device`` (keyword, required) is where the sims
-    and the engine run; ``snap_interp`` rounds interpolation weights to the
-    1/256 grid of the TPU run."""
+    ``x0``/``x1``/``x2``.  ``device`` is where the sims and the engine run
+    (CUDA unless the caller asks for the CPU); ``snap_interp`` rounds
+    interpolation weights to the 1/256 grid of the TPU run."""
     val_period = pu.to_period(val_date, cmdty_storage.start.freqstr)
     factors, factor_corrs = mf.create_3_factor_seasonal_params(
         cmdty_storage.freq, spot_mean_reversion, spot_vol, long_term_vol,
@@ -97,30 +103,41 @@ def three_factor_seasonal_value(
     )
 
 
-def _refuse_unported(sim_data_returned, antithetic, on_progress_update,
-                     cancellation_poll, deltas_method, checkpoint_path, grid_calc):
-    def refuse(option: str, item: str):
-        raise NotImplementedError(
-            f"storage_tpu_torch does not support {option} yet: it waits for "
-            f"ROADMAP Queue 1 item {item}."
-        )
+def _refuse(option: str, item: str):
+    raise NotImplementedError(
+        f"storage_tpu_torch does not support {option} yet: it waits for "
+        f"ROADMAP Queue 1 item {item}."
+    )
 
-    if SimulationDataReturned.coerce(sim_data_returned) != SimulationDataReturned.NONE:
-        refuse("sim_data_returned other than NONE (per-sim panels)", "5 (value_from_sims and panels)")
+
+def _resolve_device(device: Device) -> torch.device:
+    """The device of a valuation: CUDA unless the caller names another.  A
+    CUDA device on a host without one raises rather than running elsewhere."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "storage_tpu_torch runs on a CUDA device, and this host has none; "
+            "pass device='cpu' to run the kernels' plain versions on the CPU."
+        )
+    return device
+
+
+def _refuse_unported(antithetic, on_progress_update, cancellation_poll, deltas_method,
+                     checkpoint_path, grid_calc):
     if antithetic:
-        refuse("antithetic=True", "6 (streamed engine and antithetic draws)")
+        _refuse("antithetic=True", "6 (streamed engine and antithetic draws)")
     if on_progress_update is not None or cancellation_poll is not None:
-        refuse("progress or cancellation callbacks", "8 (interactive execution)")
+        _refuse("progress or cancellation callbacks", "8 (interactive execution)")
     if checkpoint_path is not None:
-        refuse("checkpoint_path", "8 (interactive execution and checkpoints)")
+        _refuse("checkpoint_path", "8 (interactive execution and checkpoints)")
     if deltas_method != "pathwise":
         if deltas_method == "adjoint":
-            refuse("deltas_method='adjoint'", "7 (adjoint deltas)")
+            _refuse("deltas_method='adjoint'", "7 (adjoint deltas)")
         raise ValueError(
             f"deltas_method must be 'pathwise' or 'adjoint', got {deltas_method!r}."
         )
     if grid_calc is not None:
-        refuse("grid_calc (custom inventory grids)", "9 (intrinsic and tree engines, custom grids)")
+        _refuse("grid_calc (custom inventory grids)", "9 (intrinsic and tree engines, custom grids)")
 
 
 def multi_factor_value(
@@ -149,20 +166,183 @@ def multi_factor_value(
     checkpoint_path: tp.Optional[str] = None,
     grid_calc=None,
     *,
-    device: tp.Union[str, torch.device],
+    device: Device = "cuda",
     snap_interp: bool = False,
 ) -> MultiFactorValuationResults:
     """General multi-factor LSMC valuation (reference ``multi_factor.py:138-168``)
-    with pathwise deltas (LsmcStorageValuation.cs:513-518)."""
-    # Accepted for API parity, a no-op as in the JAX package: the branchless
-    # kernels snap decisions and interpolate exactly.
-    del numerical_tolerance
-    _refuse_unported(
-        sim_data_returned, antithetic, on_progress_update, cancellation_poll,
-        deltas_method, checkpoint_path, grid_calc,
-    )
+    with pathwise deltas (LsmcStorageValuation.cs:513-518).
+    ``sim_data_returned`` selects the per-sim panels returned (path panels,
+    inventory, volumes, fuel, loss, net volume, PV); it never changes the
+    numbers."""
+    del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
+    device = _resolve_device(device)
+    _refuse_unported(antithetic, on_progress_update, cancellation_poll, deltas_method,
+                     checkpoint_path, grid_calc)
     factor_corrs = mf.validate_multi_factor_params(factors, factor_corrs)
-    device = torch.device(device)
+
+    def sims_provider(inputs):
+        pre = mf.simulation_precompute(
+            factors, factor_corrs, inputs.val_day, list(inputs.periods), cmdty_storage.freq
+        )
+        as_t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
+        sim_inputs = [as_t(pre.decay), as_t(pre.chol), as_t(pre.vols), as_t(pre.half_var),
+                      as_t(inputs.fwd)]
+        reg_key = spot_sim.key_from_seed(0 if seed is None else int(seed))
+        if fwd_sim_seed is None:
+            # Independent stream derived from the regression seed.
+            val_key = spot_sim.fold_in(reg_key, 0x5EED)
+        else:
+            val_key = spot_sim.key_from_seed(int(fwd_sim_seed))
+        same_sims = fwd_sim_seed is not None and int(fwd_sim_seed) == int(0 if seed is None else seed)
+        path_ids = torch.arange(num_sims, dtype=torch.int64, device=device)
+        with lsmc_engine.full_f32_matmul():
+            logger.info("Simulating price paths on %s.", device)
+            reg = spot_sim.simulate_ou_paths(reg_key, path_ids, *sim_inputs)
+            val = reg if same_sims else spot_sim.simulate_ou_paths(val_key, path_ids, *sim_inputs)
+        return (reg.spot, reg.factors), (val.spot, val.factors)
+
+    return _lsmc_calc(
+        cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
+        sims_provider, basis_funcs, discount_deltas, extra_decisions,
+        num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
+    )
+
+
+def value_from_sims(
+    cmdty_storage: CmdtyStorage,
+    val_date: pu.PeriodSpec,
+    inventory: float,
+    fwd_curve: pd.Series,
+    interest_rates: tp.Union[float, pd.Series],
+    settlement_rule: tp.Optional[dsc.SettlementRule],
+    sim_spot_regress: pd.DataFrame,
+    sim_spot_valuation: pd.DataFrame,
+    basis_funcs: str,
+    discount_deltas: bool,
+    sim_factors_regress: tp.Optional[tp.Iterable[pd.DataFrame]] = None,
+    sim_factors_valuation: tp.Optional[tp.Iterable[pd.DataFrame]] = None,
+    extra_decisions: tp.Optional[int] = None,
+    num_inventory_grid_points: int = DEFAULT_NUM_GRID_POINTS,
+    numerical_tolerance: float = 1e-12,
+    on_progress_update=None,
+    sim_data_returned: SimulationDataReturned = SimulationDataReturned.NONE,
+    dtype=torch.float32,
+    cancellation_poll=None,
+    deltas_method: str = "pathwise",
+    checkpoint_path: tp.Optional[str] = None,
+    grid_calc=None,
+    *,
+    device: Device = "cuda",
+    snap_interp: bool = False,
+) -> MultiFactorValuationResults:
+    """Valuation from user-supplied spot/factor simulations (reference
+    ``multi_factor.py:171-208`` / ``SpotSimResultsFromPanels.cs:36-117``).
+    DataFrames are period-indexed [periods x sims] and must cover the active
+    storage window; spot-only panels (no factor frames) take the engine's
+    spot-only backward (kernel D).  The panels are held on ``device``; panels
+    larger than its free memory wait for the host-streamed engine."""
+    del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
+    device = _resolve_device(device)
+    _refuse_unported(False, on_progress_update, cancellation_poll, deltas_method,
+                     checkpoint_path, grid_calc)
+    wants_sim_data = _wants_sim_data(SimulationDataReturned.coerce(sim_data_returned))
+
+    def sims_provider(inputs):
+        reg = _frames_to_sims(sim_spot_regress, sim_factors_regress, inputs, "regress", dtype)
+        val = _frames_to_sims(sim_spot_valuation, sim_factors_valuation, inputs, "valuation", dtype)
+        if reg[0].shape[1] != val[0].shape[1]:
+            raise ValueError(
+                "Regression and valuation simulations must have the same number of sims."
+            )
+        _require_panels_fit(reg, num_inventory_grid_points, wants_sim_data, dtype, device)
+        return tuple((torch.tensor(spot, device=device), torch.tensor(fac, device=device))
+                     for spot, fac in (reg, val))
+
+    return _lsmc_calc(
+        cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
+        sims_provider, basis_funcs, discount_deltas, extra_decisions,
+        num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
+    )
+
+
+def value_from_sims_host_local(*args, **kwargs) -> MultiFactorValuationResults:
+    """Multi-host ``value_from_sims`` (each process's block of paths): not
+    ported yet."""
+    _refuse("value_from_sims_host_local (multi-process panels)", "10 (multi-GPU)")
+
+
+def _frames_to_sims(spot_frame, factor_frames, inputs, label, dtype):
+    """User panels as host numpy arrays of ``dtype``: spot [P, S] and
+    factors [P, F, S] (F = 0 for spot-only panels)."""
+    periods = inputs.periods
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    spot = _align_frame(spot_frame, periods, f"sim_spot_{label}")
+    factors = [
+        _align_frame(f, periods, f"sim_factors_{label}[{i}]")
+        for i, f in enumerate(factor_frames if factor_frames is not None else [])
+    ]
+    spot_arr = np.asarray(spot, np_dtype)
+    if factors:
+        fac_arr = np.asarray(np.stack(factors, axis=1), np_dtype)  # [P, F, S]
+    else:
+        fac_arr = np.zeros((spot_arr.shape[0], 0, spot_arr.shape[1]), np_dtype)
+    return spot_arr, fac_arr
+
+
+def _align_frame(frame: pd.DataFrame, periods: pd.PeriodIndex, name: str) -> np.ndarray:
+    if not isinstance(frame.index, pd.PeriodIndex):
+        frame = frame.copy()
+        frame.index = pd.PeriodIndex(frame.index, freq=periods.freqstr)
+    missing = periods.difference(frame.index)
+    if len(missing) > 0:
+        raise ValueError(f"{name} does not contain a row for period {missing[0]}.")
+    return frame.reindex(periods).to_numpy(dtype=np.float64)
+
+
+def _require_panels_fit(reg, num_grid: int, wants_sim_data: bool, dtype, device) -> None:
+    """User panels held on the card: both path sets, the engine's two value
+    panels and the per-sim output panels must fit its free memory."""
+    if device.type != "cuda":
+        return
+    spot, factors = reg
+    periods, sims = spot.shape
+    rows = 2 * (1 + factors.shape[1]) * periods + 2 * num_grid + (6 * periods if wants_sim_data else 0)
+    need = rows * sims * torch.finfo(dtype).bits // 8
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        _refuse(f"user panels larger than the card's free memory ({need / 1e9:.1f} GB needed, "
+                f"{free / 1e9:.1f} GB free; the host-streamed engine)",
+                "6 (streamed engine)")
+
+
+def _wants_sim_data(flags: SimulationDataReturned) -> bool:
+    return bool(flags & (
+        SimulationDataReturned.INVENTORY | SimulationDataReturned.INJECT_WITHDRAW_VOLUME
+        | SimulationDataReturned.CMDTY_CONSUMED | SimulationDataReturned.INVENTORY_LOSS
+        | SimulationDataReturned.NET_VOLUME | SimulationDataReturned.PV
+    ))
+
+
+def _lsmc_calc(
+    cmdty_storage: CmdtyStorage,
+    val_date,
+    inventory,
+    fwd_curve,
+    interest_rates,
+    settlement_rule,
+    sims_provider,
+    basis_funcs,
+    discount_deltas: bool,
+    extra_decisions,
+    num_grid_points: int,
+    sim_data_returned,
+    dtype,
+    device: torch.device,
+    snap_interp: bool,
+) -> MultiFactorValuationResults:
+    """The valuation shared by the entry points: ``sims_provider(inputs)``
+    returns ((spot_reg, factors_reg), (spot_val, factors_val)) on ``device``."""
+    sim_data_returned = SimulationDataReturned.coerce(sim_data_returned)
     if isinstance(fwd_curve, pd.Series) and isinstance(
         fwd_curve.index, pd.PeriodIndex
     ) and cmdty_storage.start.freqstr != fwd_curve.index.freqstr:
@@ -193,50 +373,33 @@ def multi_factor_value(
     inputs = prepare_valuation(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule
     )
-    if basis_mod.num_factors_required(monomials) > len(factors):
+
+    (spot_reg, factors_reg), (spot_val, factors_val) = sims_provider(inputs)
+    if basis_mod.num_factors_required(monomials) > factors_reg.shape[1]:
         raise ValueError(
             f"Basis functions reference factor x{basis_mod.num_factors_required(monomials) - 1} "
-            f"but only {len(factors)} factors are simulated."
+            f"but only {factors_reg.shape[1]} factors are simulated."
         )
-
-    pre = mf.simulation_precompute(
-        factors, factor_corrs, inputs.val_day, list(inputs.periods), cmdty_storage.freq
-    )
-    as_t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
-    sim_inputs = [as_t(pre.decay), as_t(pre.chol), as_t(pre.vols), as_t(pre.half_var),
-                  as_t(inputs.fwd)]
-    reg_key = spot_sim.key_from_seed(0 if seed is None else int(seed))
-    if fwd_sim_seed is None:
-        # Independent stream derived from the regression seed.
-        val_key = spot_sim.fold_in(reg_key, 0x5EED)
-    else:
-        val_key = spot_sim.key_from_seed(int(fwd_sim_seed))
-    same_sims = fwd_sim_seed is not None and int(fwd_sim_seed) == int(0 if seed is None else seed)
-    path_ids = torch.arange(num_sims, dtype=torch.int64, device=device)
     arrays = lsmc_engine.build_engine_arrays(
         inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow,
-        inputs.inventory_lower, inputs.inventory_upper, num_inventory_grid_points,
-        dtype, device,
+        inputs.inventory_lower, inputs.inventory_upper, num_grid_points, dtype, device,
     )
     terminal_fn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
-
-    with lsmc_engine.full_f32_matmul():
-        logger.info("Simulating price paths on %s.", device)
-        reg = spot_sim.simulate_ou_paths(reg_key, path_ids, *sim_inputs)
-        val = reg if same_sims else spot_sim.simulate_ou_paths(val_key, path_ids, *sim_inputs)
-        logger.info("Calculating LSMC value.")
-        result = lsmc_engine.lsmc_core(
-            arrays, reg.spot, reg.factors, val.spot, val.factors,
-            inputs.starting_inventory, monomials, int(extra_decisions or 0),
-            bool(discount_deltas), terminal_fn, inputs.compiled.ratchet_is_step,
-            snap_interp=snap_interp,
-        )
+    logger.info("Calculating LSMC value.")
+    result = lsmc_engine.lsmc_core(
+        arrays, spot_reg, factors_reg, spot_val, factors_val, inputs.starting_inventory,
+        monomials, int(extra_decisions or 0), bool(discount_deltas), terminal_fn,
+        inputs.compiled.ratchet_is_step, snap_interp=snap_interp,
+        return_sim_data=_wants_sim_data(sim_data_returned),
+    )
     result = {k: v.detach().cpu().numpy() for k, v in result.items()}
     logger.info(
         "LSMC complete. Forward NPV %.2f (backward %.2f).",
         result["npv"], result["backward_npv"],
     )
-    return _results(inputs.periods, result, len(factors))
+    paths = {"spot_regress": spot_reg, "spot_valuation": spot_val,
+             "factors_regress": factors_reg, "factors_valuation": factors_val}
+    return _results(inputs.periods, result, sim_data_returned, paths)
 
 
 def profile_data_frame(periods, inventory, inject_withdraw, cmdty_consumed,
@@ -257,7 +420,10 @@ def profile_data_frame(periods, inventory, inject_withdraw, cmdty_consumed,
     )
 
 
-def _results(periods, result, num_factors: int) -> MultiFactorValuationResults:
+def _results(periods, result, sim_data_returned: SimulationDataReturned,
+             paths) -> MultiFactorValuationResults:
+    """The result container; the per-sim panels the flags ask for become f64
+    frames (periods x sims)."""
     active = periods[:-1]
     f64 = lambda key: result[key].astype(np.float64)  # noqa: E731
     trigger_prices = pd.DataFrame(
@@ -288,7 +454,21 @@ def _results(periods, result, num_factors: int) -> MultiFactorValuationResults:
         ],
         index=active,
     )
-    no_panels = tuple(pd.DataFrame() for _ in range(num_factors))
+    flags = SimulationDataReturned
+
+    def frame(flag, data, index) -> pd.DataFrame:
+        if not (sim_data_returned & flag) or data is None:
+            return pd.DataFrame()
+        if isinstance(data, torch.Tensor):
+            data = data.detach().cpu().numpy()
+        return pd.DataFrame(data=np.asarray(data, dtype=np.float64), index=index, copy=False)
+
+    def factor_frames(flag, factors):
+        if not sim_data_returned & flag:
+            return tuple(pd.DataFrame() for _ in range(factors.shape[1]))
+        host = factors.detach().cpu().numpy()
+        return tuple(frame(flag, host[:, i, :], periods) for i in range(host.shape[1]))
+
     return MultiFactorValuationResults(
         npv=float(result["npv"]),
         val_sim_standard_error=float(result["standard_error"]),
@@ -300,16 +480,17 @@ def _results(periods, result, num_factors: int) -> MultiFactorValuationResults:
         ),
         intrinsic_npv=float("nan"),
         intrinsic_profile=pd.DataFrame(),
-        sim_spot_regress=pd.DataFrame(),
-        sim_spot_valuation=pd.DataFrame(),
-        sim_factors_regress=no_panels,
-        sim_factors_valuation=no_panels,
-        sim_inventory=pd.DataFrame(),
-        sim_inject_withdraw=pd.DataFrame(),
-        sim_cmdty_consumed=pd.DataFrame(),
-        sim_inventory_loss=pd.DataFrame(),
-        sim_net_volume=pd.DataFrame(),
-        sim_pv=pd.DataFrame(),
+        sim_spot_regress=frame(flags.SPOT_REGRESS, paths["spot_regress"], periods),
+        sim_spot_valuation=frame(flags.SPOT_VALUATION, paths["spot_valuation"], periods),
+        sim_factors_regress=factor_frames(flags.FACTORS_REGRESS, paths["factors_regress"]),
+        sim_factors_valuation=factor_frames(flags.FACTORS_VALUATION, paths["factors_valuation"]),
+        sim_inventory=frame(flags.INVENTORY, result.get("sim_inventory"), periods),
+        sim_inject_withdraw=frame(
+            flags.INJECT_WITHDRAW_VOLUME, result.get("sim_inject_withdraw"), active),
+        sim_cmdty_consumed=frame(flags.CMDTY_CONSUMED, result.get("sim_cmdty_consumed"), active),
+        sim_inventory_loss=frame(flags.INVENTORY_LOSS, result.get("sim_inventory_loss"), active),
+        sim_net_volume=frame(flags.NET_VOLUME, result.get("sim_net_volume"), active),
+        sim_pv=frame(flags.PV, result.get("sim_pv"), periods),
         trigger_prices=trigger_prices,
         trigger_profiles=trigger_profiles,
     )

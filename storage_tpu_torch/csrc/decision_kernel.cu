@@ -34,6 +34,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "decision_step.cuh"
 
 namespace {
 
@@ -53,26 +54,16 @@ __global__ void decision_moments_kernel(
   const int B = basis.nb;
   const int F = basis.nf;
   extern __shared__ float smem[];
-  float* dci = smem;                  // [D, G, B]
-  float* a = dci + D * G * B;         // [D, G]
-  float* bb = a + D * G;              // [D, G]
-  float* w_hi = bb + D * G;           // [G, D]
-  float* mean = w_hi + G * D;         // [B]
+  const stt::DecisionTables tab =
+      stt::load_decision_tables(smem, G, D, B, dci_g, a_g, b_g, w_hi_g, idx_lo_g);
+  float* mean = smem + stt::decision_tables_words(G, D, B);  // [B]
   float* stdv = mean + B;             // [B]
   float* mean_prev = stdv + B;        // [B]
   float* std_prev = mean_prev + B;    // [B]
   float* best_tile = std_prev + B;    // [G, kPitch]
   float* dmp_tile = best_tile + G * kPitch;  // [B, kPitch]
-  int* idx_lo = reinterpret_cast<int*>(dmp_tile + B * kPitch);  // [G, D]
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < D * G * B; i += kThreads) dci[i] = dci_g[i];
-  for (int i = tid; i < D * G; i += kThreads) {
-    a[i] = a_g[i];
-    bb[i] = b_g[i];
-    w_hi[i] = w_hi_g[i];
-    idx_lo[i] = idx_lo_g[i];
-  }
   for (int i = tid; i < B; i += kThreads) {
     mean[i] = mean_g[i];
     stdv[i] = std_g[i];
@@ -97,32 +88,7 @@ __global__ void decision_moments_kernel(
   for (int g = 0; g < G; ++g) {
     float best_act = 0.0f;
     if (valid) {
-      const int lo0 = idx_lo[g * D];
-      const float w0 = w_hi[g * D];
-      const float imm0 = __fadd_rn(__fmul_rn(a[g], sp), bb[g]);
-      const float c0 = __fadd_rn(
-          __fmul_rn(v[static_cast<size_t>(lo0) * S + s], __fsub_rn(1.0f, w0)),
-          __fmul_rn(v[static_cast<size_t>(lo0 + 1) * S + s], w0));
-      float best_reg = imm0;
-      best_act = __fadd_rn(c0, imm0);
-      for (int d = 1; d < D; ++d) {
-        const float* c = dci + (d * G + g) * B;
-        float q = __fmul_rn(c[0], dm[0]);
-#pragma unroll
-        for (int k = 1; k < stt::kMaxB; ++k)
-          if (k < B) q = __fadd_rn(q, __fmul_rn(c[k], dm[k]));
-        const float imm = __fadd_rn(__fmul_rn(a[d * G + g], sp), bb[d * G + g]);
-        const int lo = idx_lo[g * D + d];
-        const float w = w_hi[g * D + d];
-        const float cont = __fadd_rn(
-            __fmul_rn(v[static_cast<size_t>(lo) * S + s], __fsub_rn(1.0f, w)),
-            __fmul_rn(v[static_cast<size_t>(lo + 1) * S + s], w));
-        const float vr = __fadd_rn(q, imm);
-        if (vr > best_reg) {
-          best_reg = vr;
-          best_act = __fadd_rn(cont, imm);
-        }
-      }
+      best_act = stt::decide(tab, G, D, B, g, v, S, s, sp, dm);
       best_out[static_cast<size_t>(g) * S + s] = best_act;
     }
     best_tile[g * kPitch + tid] = best_act;
@@ -163,6 +129,34 @@ __global__ void decision_moments_kernel(
 
 }  // namespace
 
+namespace stt {
+
+cudaError_t launch_decision_moments(
+    int G, int S, int D, const Basis& basis, const float* v, const float* spot,
+    const float* factors, const float* spot_prev, const float* factors_prev,
+    const float* mean, const float* stdv, const float* mean_prev,
+    const float* std_prev, const int* idx_lo, const float* w_hi,
+    const float* dci, const float* a, const float* b, float* best_out,
+    float* partials, float* moments, cudaStream_t stream) {
+  const int B = basis.nb;
+  const int nblk = (S + kThreads - 1) / kThreads;
+  const size_t smem = sizeof(float) *
+      (decision_tables_words(G, D, B) + 4 * B + static_cast<size_t>(G + B) * kPitch);
+  cudaError_t err = cudaFuncSetAttribute(
+      decision_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  decision_moments_kernel<<<nblk, kThreads, smem, stream>>>(
+      G, S, D, basis, v, spot, factors, spot_prev, factors_prev, mean, stdv,
+      mean_prev, std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  launch_reduce(partials, nblk, B * B + G * B, moments, stream);
+  return cudaGetLastError();
+}
+
+}  // namespace stt
+
 extern "C" int stt_decision_update_moments(
     int G, int S, int F, int D, const int* basis_table, const void* v,
     const void* spot, const void* factors, const void* spot_prev,
@@ -173,17 +167,7 @@ extern "C" int stt_decision_update_moments(
   stt::Basis basis;
   if (!stt::make_basis(basis_table, F, &basis) || G < 2 || D < 1 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int B = basis.nb;
-  const int nblk = (S + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(D) * G * B + 3 * D * G + 4 * B +
-       static_cast<size_t>(G + B) * kPitch + D * G);
-  cudaError_t err = cudaFuncSetAttribute(
-      decision_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decision_moments_kernel<<<nblk, kThreads, smem, st>>>(
+  return static_cast<int>(stt::launch_decision_moments(
       G, S, D, basis, static_cast<const float*>(v),
       static_cast<const float*>(spot), static_cast<const float*>(factors),
       static_cast<const float*>(spot_prev),
@@ -192,10 +176,6 @@ extern "C" int stt_decision_update_moments(
       static_cast<const float*>(std_prev), static_cast<const int*>(idx_lo),
       static_cast<const float*>(w_hi), static_cast<const float*>(dci),
       static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(best_out), static_cast<float*>(partials));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stt::launch_reduce(static_cast<const float*>(partials), nblk, B * B + G * B,
-                     static_cast<float*>(moments), st);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(best_out), static_cast<float*>(partials),
+      static_cast<float*>(moments), static_cast<cudaStream_t>(stream)));
 }

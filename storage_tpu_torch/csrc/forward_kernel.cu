@@ -9,7 +9,9 @@
 // new inventory and PV and the chosen volume and fuel.  The step's cross-sim
 // sums (inventory, volume, fuel, loss, immediate value, delta numerator) and
 // the summed design row go out as per-block partials, reduced in a fixed order
-// by a second small kernel (no float atomics).
+// by a second small kernel (no float atomics).  Where the caller asks for the
+// per-sim panels it also passes imm_out, and each sim's chosen immediate PV
+// is written there (NULL: not written).
 //
 // Bound on the H100: launch latency.  Per step a sim reads 6 floats and writes
 // 4 (about 10 MB at 262,144 sims, ~3 us of bandwidth), and the arithmetic is
@@ -54,7 +56,8 @@ __global__ void forward_step_kernel(
     const float* __restrict__ inv_in, const float* __restrict__ pv_in,
     const float* __restrict__ coeffs_g, float* __restrict__ inv_out,
     float* __restrict__ pv_out, float* __restrict__ dec_out,
-    float* __restrict__ cons_out, float* __restrict__ partials) {
+    float* __restrict__ cons_out, float* __restrict__ imm_out,
+    float* __restrict__ partials) {
   const int B = basis.nb;
   const int F = basis.nf;
   extern __shared__ float smem[];
@@ -193,6 +196,7 @@ __global__ void forward_step_kernel(
     pv_out[s] = __fadd_rn(pv_in[s], opt_imm);
     dec_out[s] = opt_dec;
     cons_out[s] = opt_cons;
+    if (imm_out) imm_out[s] = opt_imm;
 
     acc[0] = inv;
     acc[1] = opt_dec;
@@ -234,7 +238,7 @@ extern "C" int stt_forward_step(
     const void* ratchet_inv, const void* ratchet_min, const void* ratchet_max,
     const void* spot, const void* factors, const void* inv, const void* pv,
     const void* coeffs, void* new_inv, void* new_pv, void* dec, void* cons,
-    void* partials, void* sums, void* stream) {
+    void* imm, void* partials, void* sums, void* stream) {
   stt::Basis basis;
   if (!stt::make_basis(basis_table, F, &basis) || G < 2 || R < 1 || R > kMaxR ||
       E < 0 || S < 1)
@@ -259,7 +263,7 @@ extern "C" int stt_forward_step(
       static_cast<const float*>(pv), static_cast<const float*>(coeffs),
       static_cast<float*>(new_inv), static_cast<float*>(new_pv),
       static_cast<float*>(dec), static_cast<float*>(cons),
-      static_cast<float*>(partials));
+      static_cast<float*>(imm), static_cast<float*>(partials));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   stt::launch_reduce(static_cast<const float*>(partials), nblk,

@@ -1,0 +1,217 @@
+// Kernel E: the whole backward LSMC step with no tensor glue between steps.
+//
+// Replaces the TPU kernel storage_tpu/ops/decision_kernel.py:
+// decision_update_fullstep_pallas (_kernel_fullstep, _prologue_solve).  The
+// TPU ran the inter-step glue as a prologue on grid tile 0 and kept its
+// results in VMEM scratch for the later tiles: its grid runs in order on one
+// core.  CUDA blocks run in no order and cannot wait for one block's
+// prologue, so the step is three launches on the caller's stream, all CUDA:
+//   1. fullstep_solve_kernel, one block: standardise the carried moments
+//      (ops/regression.standardise_moments), compose the stats
+//      mean = cmean + cstd·μ_u and std = cstd·σ_u, add the trace-scaled ridge,
+//      factor the [B, B] system (Cholesky, B ≤ 16) and solve it for the G
+//      right-hand sides, fall back to the constant-column projection when a
+//      pivot is not positive or a coefficient is not finite (the plain
+//      version's cholesky_ex info ≠ 0 or non-finite test), and interpolate the
+//      coefficients to every (grid point, decision) target as the centred gaps
+//      dci = ci − ci[0] — into device buffers;
+//   2. kernel B's decision-update-and-moments kernel on those buffers
+//      (decision_kernel.cu, launch_decision_moments);
+//   3. B's fixed-order reduce of the moment partials.
+//
+// The factorisation and the substitutions run in double on the f32 system
+// and round the coefficients to f32 once: the [B, B] work is a few hundred
+// operations, and double keeps the kernel's own rounding out of the
+// comparison with the plain version (torch.linalg's f32 Cholesky).  The
+// standardisation, the ridge and the coefficient interpolation keep the plain
+// version's f32 operations in its order.
+//
+// Bound on the H100: device memory, as kernel B — v [G, S] read and best_act
+// written (210 MB at G=100, S=262,144) plus two steps' spot and factors, ~63 us
+// at 3.35 TB/s; the solve kernel adds one block's latency (a few us) and
+// replaces the ~25 small tensor launches of the glue.
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+#include "decision_step.cuh"
+
+namespace {
+
+constexpr int kSolveThreads = 256;
+
+__global__ void fullstep_solve_kernel(
+    int G, int D, int B, float ridge, const float* __restrict__ xtx_g,
+    const float* __restrict__ xty_t_g, const float* __restrict__ cmean_g,
+    const float* __restrict__ cstd_g, const int* __restrict__ idx_lo_g,
+    const float* __restrict__ w_hi_g, float* __restrict__ mean_out,
+    float* __restrict__ std_out, float* __restrict__ coeffs_out,
+    float* __restrict__ dci_out) {
+  extern __shared__ double dsmem[];
+  double* chol = dsmem;                                  // [B, B] lower factor
+  float* m = reinterpret_cast<float*>(chol + B * B);     // [B, B]
+  float* mean_u = m + B * B;                             // [B]
+  float* std_u = mean_u + B;                             // [B]
+  float* xs = std_u + B;                                 // [B, G] standardised Xᵀy
+  float* coef = xs + B * G;                              // [B, G]
+  int* failed = reinterpret_cast<int*>(coef + B * G);    // [1]
+
+  const int tid = threadIdx.x;
+  const float n = xtx_g[0];
+  // standardise_moments: μ = XᵀX[0, :]/n, var = diag/n − μ², column 0 kept.
+  for (int j = tid; j < B; j += blockDim.x) {
+    const float mu = __fdiv_rn(xtx_g[j], n);
+    const float ex2 = __fdiv_rn(xtx_g[j * B + j], n);
+    const float mj = j == 0 ? 0.0f : mu;
+    const float var = __fsub_rn(ex2, __fmul_rn(mj, mj));
+    float sd = sqrtf(fmaxf(var, 0.0f));
+    sd = sd > 0.0f ? sd : 1.0f;
+    if (j == 0) sd = 1.0f;
+    mean_u[j] = mj;
+    std_u[j] = sd;
+  }
+  if (tid == 0) *failed = 0;
+  __syncthreads();
+  for (int p = tid; p < B * B; p += blockDim.x) {
+    const int i = p / B, j = p % B;
+    const float mu_i = __fdiv_rn(xtx_g[i], n);
+    const float mu_j = __fdiv_rn(xtx_g[j], n);
+    m[p] = p == 0 ? n
+                  : __fdiv_rn(__fsub_rn(xtx_g[p], __fmul_rn(__fmul_rn(n, mu_i), mu_j)),
+                              __fmul_rn(std_u[i], std_u[j]));
+  }
+  for (int p = tid; p < B * G; p += blockDim.x) {
+    const int b = p / G, g = p % G;
+    xs[p] = __fdiv_rn(__fsub_rn(xty_t_g[g * B + b], __fmul_rn(mean_u[b], xty_t_g[g * B])),
+                      std_u[b]);
+  }
+  __syncthreads();
+
+  // Trace-scaled ridge (f32, as fit_from_moments), then the Cholesky factor.
+  if (tid == 0) {
+    float trace = m[0];
+    for (int i = 1; i < B; ++i) trace = __fadd_rn(trace, m[i * B + i]);
+    const float jitter = __fdiv_rn(__fmul_rn(trace, ridge), static_cast<float>(B));
+    for (int i = 0; i < B; ++i) m[i * B + i] = __fadd_rn(m[i * B + i], jitter);
+    int bad = 0;
+    for (int j = 0; j < B && !bad; ++j) {
+      double ajj = m[j * B + j];
+      for (int k = 0; k < j; ++k) ajj -= chol[j * B + k] * chol[j * B + k];
+      if (!(ajj > 0.0)) {
+        bad = 1;  // not positive definite, or NaN
+        break;
+      }
+      const double ljj = sqrt(ajj);
+      chol[j * B + j] = ljj;
+      for (int i = j + 1; i < B; ++i) {
+        double aij = m[i * B + j];
+        for (int k = 0; k < j; ++k) aij -= chol[i * B + k] * chol[j * B + k];
+        chol[i * B + j] = aij / ljj;
+      }
+    }
+    *failed = bad;
+  }
+  __syncthreads();
+
+  // Forward then back substitution, one thread per right-hand side.
+  int nonfinite = 0;
+  if (!*failed) {
+    for (int g = tid; g < G; g += blockDim.x) {
+      double y[stt::kMaxB];
+      for (int i = 0; i < B; ++i) {
+        double acc = xs[i * G + g];
+        for (int k = 0; k < i; ++k) acc -= chol[i * B + k] * y[k];
+        y[i] = acc / chol[i * B + i];
+      }
+      for (int i = B - 1; i >= 0; --i) {
+        double acc = y[i];
+        for (int k = i + 1; k < B; ++k) acc -= chol[k * B + i] * y[k];
+        y[i] = acc / chol[i * B + i];
+        const float c = static_cast<float>(y[i]);
+        coef[i * G + g] = c;
+        nonfinite |= !isfinite(c);
+      }
+    }
+  }
+  const bool fallback = __syncthreads_or(nonfinite) || *failed;
+
+  // The constant-column projection (the cross-sim mean) on a failed solve.
+  for (int p = tid; p < B * G; p += blockDim.x) {
+    float c = coef[p];
+    if (fallback) c = p < G ? __fdiv_rn(xs[p], m[0]) : 0.0f;
+    coef[p] = c;
+    coeffs_out[p] = c;
+  }
+  for (int j = tid; j < B; j += blockDim.x) {
+    mean_out[j] = __fadd_rn(cmean_g[j], __fmul_rn(cstd_g[j], mean_u[j]));
+    std_out[j] = __fmul_rn(cstd_g[j], std_u[j]);
+  }
+  __syncthreads();
+
+  // ci[d, g, :] = coeffs[:, lo]·(1 − w) + coeffs[:, lo + 1]·w; dci = ci − ci[0].
+  for (int p = tid; p < D * G * B; p += blockDim.x) {
+    const int d = p / (G * B);
+    const int g = (p / B) % G;
+    const int b = p % B;
+    const float* row = coef + b * G;
+    const int lo0 = idx_lo_g[g * D];
+    const float w0 = w_hi_g[g * D];
+    const float ci0 = __fadd_rn(__fmul_rn(row[lo0], __fsub_rn(1.0f, w0)),
+                                __fmul_rn(row[lo0 + 1], w0));
+    const int lo = idx_lo_g[g * D + d];
+    const float w = w_hi_g[g * D + d];
+    const float ci = __fadd_rn(__fmul_rn(row[lo], __fsub_rn(1.0f, w)),
+                               __fmul_rn(row[lo + 1], w));
+    dci_out[p] = __fsub_rn(ci, ci0);
+  }
+}
+
+}  // namespace
+
+extern "C" int stt_decision_update_fullstep(
+    int G, int S, int F, int D, const int* basis_table, float ridge,
+    const void* v, const void* spot, const void* factors, const void* spot_prev,
+    const void* factors_prev, const void* xtx, const void* xty_t,
+    const void* cmean, const void* cstd, const void* mean_prev,
+    const void* std_prev, const void* idx_lo, const void* w_hi, const void* a,
+    const void* b, void* best_out, void* mean_out, void* std_out,
+    void* coeffs_out, void* dci, void* partials, void* moments, void* stream) {
+  stt::Basis basis;
+  if (!stt::make_basis(basis_table, F, &basis) || G < 2 || D < 1 || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int B = basis.nb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(double) * B * B +
+      sizeof(float) * (static_cast<size_t>(B) * B + 2 * B + 2 * static_cast<size_t>(B) * G) +
+      sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      fullstep_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fullstep_solve_kernel<<<1, kSolveThreads, smem, st>>>(
+      G, D, B, ridge, static_cast<const float*>(xtx),
+      static_cast<const float*>(xty_t), static_cast<const float*>(cmean),
+      static_cast<const float*>(cstd), static_cast<const int*>(idx_lo),
+      static_cast<const float*>(w_hi), static_cast<float*>(mean_out),
+      static_cast<float*>(std_out), static_cast<float*>(coeffs_out),
+      static_cast<float*>(dci));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Without mean_prev/std_prev the step-(t−1) moments are standardised by
+  // the composed stats: the TPU kernel's u-coordinates.
+  const float* mp = mean_prev ? static_cast<const float*>(mean_prev)
+                              : static_cast<const float*>(mean_out);
+  const float* sp = std_prev ? static_cast<const float*>(std_prev)
+                             : static_cast<const float*>(std_out);
+  return static_cast<int>(stt::launch_decision_moments(
+      G, S, D, basis, static_cast<const float*>(v),
+      static_cast<const float*>(spot), static_cast<const float*>(factors),
+      static_cast<const float*>(spot_prev),
+      static_cast<const float*>(factors_prev),
+      static_cast<const float*>(mean_out), static_cast<const float*>(std_out),
+      mp, sp, static_cast<const int*>(idx_lo), static_cast<const float*>(w_hi),
+      static_cast<const float*>(dci), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<float*>(best_out),
+      static_cast<float*>(partials), static_cast<float*>(moments), st));
+}

@@ -1,21 +1,27 @@
 """Least-Squares Monte Carlo storage valuation engine over materialised path
 panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
 
-* Backward induction runs one decision kernel per step (kernel B,
-  ``ops.decision_kernel``): argmax on REGRESSED values while realising ACTUAL
-  simulated continuations (LsmcStorageValuation.cs:310-336), with the next
-  step's regression moments accumulated in the same pass.  The moments are
-  taken on design columns standardised by each step's exact two-pass stats,
-  computed for all steps before the loop — the JAX XLA path's normal
-  equations, where the TPU's fused path standardises step t−1 by step t's
-  stats and loses near-deterministic columns to cancellation.  Between
-  kernels, tensor code solves the [B, B] system and interpolates the
-  coefficients to each (grid point, decision) target.
+* Backward induction runs one decision kernel per step (``ops.decision_kernel``):
+  argmax on REGRESSED values while realising ACTUAL simulated continuations
+  (LsmcStorageValuation.cs:310-336).  With factor panels, kernel B also
+  accumulates the next step's regression moments in the same pass.  The
+  moments are taken on design columns standardised by each step's exact
+  two-pass stats, computed for all steps before the loop — the JAX XLA
+  path's normal equations, where the TPU's fused path standardises step t−1
+  by step t's stats and loses near-deterministic columns to cancellation.
+  Between kernels, tensor code solves the [B, B] system and interpolates the
+  coefficients to each (grid point, decision) target; ``fullstep=True`` runs
+  kernel E instead, which does that solve on the card too, so a step is E's
+  launches alone.  Spot-only panels (no factor, ``value_from_sims``) take the
+  JAX package's plain body: each step regresses v on its standardised design
+  (``fit_continuation``) and runs kernel D on it.
 * The forward pass runs one forward kernel per step (kernel C,
   ``ops.forward_kernel``) on an independent valuation-sim set, re-using the
   saved regression (the dual-simulation lower-bound estimator,
   LsmcStorageValuation.cs:352-415), and produces NPV, standard error,
-  pathwise deltas (:513-518), expected profiles and trigger prices (:523-592).
+  pathwise deltas (:513-518), expected profiles and trigger prices
+  (:523-592); with ``return_sim_data`` kernel C writes its per-sim outputs
+  straight into [N, S] panels.
 
 Everything that does not depend on the loop carry — decision sets,
 interpolation indices and weights, immediate-value coefficients, the forward
@@ -39,7 +45,7 @@ from .. import grid as gridmod
 from ..basis import Monomial, design_columns, design_matrix
 from ..facility import CompiledStorage
 from ..ops import decision_kernel, forward_kernel, interp
-from ..ops.regression import column_stats, fit_from_moments
+from ..ops.regression import column_stats, fit_continuation, fit_from_moments
 
 NUM_TRIGGER_PRICE_VOLUMES = 10  # LsmcStorageValuation.cs:383
 
@@ -159,16 +165,6 @@ def _backward_prep_all(arrays, num_extra_decisions: int, ratchet_is_step: bool,
     }
 
 
-def _interp_coeffs(coeffs, idx_lo, w_hi):
-    """Regressed continuation coefficients at every (grid point, decision)
-    target: linear interpolation commutes with the linear model, so the
-    coefficients are interpolated instead of the fitted values.  Returns
-    [D, G, B] for coeffs [B, G] and idx_lo, w_hi [G, D]."""
-    lo = idx_lo.to(torch.int64)
-    ci = coeffs[:, lo] * (1 - w_hi) + coeffs[:, lo + 1] * w_hi  # [B, G, D]
-    return ci.permute(2, 1, 0).contiguous()
-
-
 def _design_stats(monomials, spot, factors, chunk: int = 16):
     """Exact two-pass column stats (mean, std) [N, B] of every step's design
     matrix, ``chunk`` steps at a time.  They depend on the regression panels
@@ -194,6 +190,13 @@ def _fused_bootstrap(monomials, spot_last, factors_last, v_end, mean_last, std_l
     return u0.T @ u0, u0.T @ v_end.T
 
 
+def _standardised_design_t(monomials, spot, factors, mean, std):
+    """One step's standardised design, transposed: [B, S] contiguous, the
+    layout kernel D reads."""
+    cols = torch.stack(design_columns(monomials, spot, factors))  # [B, S]
+    return (cols - mean[:, None]) / std[:, None]
+
+
 def lsmc_backward(
     arrays: tp.Dict[str, torch.Tensor],
     spot_reg: torch.Tensor,  # [N+1, S]
@@ -203,31 +206,69 @@ def lsmc_backward(
     terminal_fn,
     ratchet_is_step: bool,
     snap_interp: bool = False,
+    fullstep: bool = False,
 ):
     """Backward induction.  Returns (v0 [G, S], regression payload of stacked
     per-step mean [N, B], std [N, B], coeffs [N, B, G]).
 
     ``snap_interp`` rounds the interpolation weights to the 1/256 grid, the
-    quadrature of the TPU run."""
+    quadrature of the TPU run.  Factor panels run kernel B with the tensor
+    glue between steps, or kernel E alone with ``fullstep``; spot-only panels
+    ([N+1, 0, S] factors) run the plain body with kernel D, and refuse
+    ``fullstep`` (kernel E accumulates the moments of factor panels)."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     num_grid = grids.shape[1]
     dtype = grids.dtype
+    spot_only = factors_reg.shape[1] == 0
+    if fullstep and spot_only:
+        raise ValueError("fullstep needs factor panels: spot-only panels run kernel D")
     v = _terminal_values(
         terminal_fn, spot_reg[n], grids[n], num_grid, spot_reg.shape[1], dtype
     )
     prep = _backward_prep_all(arrays, num_extra_decisions, ratchet_is_step, snap_interp)
     mean, std = _design_stats(monomials, spot_reg[:n], factors_reg[:n])  # [N, B]
+    coeffs_all = torch.empty((n, len(monomials), num_grid), dtype=dtype, device=grids.device)
+    spare = torch.empty_like(v)
+    step_args = lambda t: (prep["idx_lo"][t], prep["w_hi"][t])  # noqa: E731
+    if spot_only:
+        for t in range(n - 1, -1, -1):
+            # Regression of the next period's values on this period's
+            # standardised design (the JAX plain body, engines/lsmc.py:306-327).
+            dm_t = _standardised_design_t(monomials, spot_reg[t], factors_reg[t], mean[t], std[t])
+            coeffs = fit_continuation(dm_t.T, v.T)  # [B, G]
+            ci = interp.interp_coeffs(coeffs, *step_args(t))
+            best_act = decision_kernel.decision_update(
+                v, dm_t, spot_reg[t], *step_args(t), ci, prep["a"][t], prep["b"][t], out=spare,
+            )
+            spare, v = v, best_act
+            coeffs_all[t] = coeffs
+        return v, {"mean": mean, "std": std, "coeffs": coeffs_all}
+
     xtx, xty = _fused_bootstrap(
         monomials, spot_reg[n - 1], factors_reg[n - 1], v, mean[n - 1], std[n - 1]
     )
-    coeffs_all = torch.empty((n, len(monomials), num_grid), dtype=dtype, device=grids.device)
-    spare = torch.empty_like(v)
+    if fullstep:
+        # Kernel E solves each step's regression from the carried moments
+        # (centred by the step's exact stats, so it recovers them to
+        # rounding) and writes the payload rows in place: no tensor glue.
+        mean_out, std_out = torch.empty_like(mean), torch.empty_like(std)
+        for t in range(n - 1, -1, -1):
+            prev = max(t - 1, 0)
+            best_act, xtx, xty, _, _, _ = decision_kernel.decision_update_fullstep(
+                v, spot_reg[t], factors_reg[t], spot_reg[prev], factors_reg[prev], xtx, xty,
+                mean[t], std[t], *step_args(t), prep["a"][t], prep["b"][t], monomials,
+                mean_prev=mean[prev], std_prev=std[prev], out=spare,
+                regression_out=(mean_out[t], std_out[t], coeffs_all[t]),
+            )
+            spare, v = v, best_act
+        return v, {"mean": mean_out, "std": std_out, "coeffs": coeffs_all}
+
     for t in range(n - 1, -1, -1):
         # Step t's moments arrive standardised by its exact stats: the
         # normal equations of the JAX XLA path, without a second pass over v.
         coeffs = fit_from_moments(xtx, xty)  # [B, G]
-        ci = _interp_coeffs(coeffs, prep["idx_lo"][t], prep["w_hi"][t])
+        ci = interp.interp_coeffs(coeffs, prep["idx_lo"][t], prep["w_hi"][t])
         prev = max(t - 1, 0)  # the previous-step slice at t = 0 is step 0
         best_act, xtx, xty = decision_kernel.decision_update_moments(
             v, spot_reg[t], factors_reg[t], spot_reg[prev], factors_reg[prev],
@@ -330,10 +371,14 @@ def lsmc_forward(
     discount_deltas: bool,
     terminal_fn,
     ratchet_is_step: bool,
+    return_sim_data: bool = False,
 ):
     """Forward simulation over materialised valuation panels, one forward
     kernel per step; the per-step reductions stay on the device until the
-    result dict is read."""
+    result dict is read.  ``return_sim_data`` adds the per-sim panels of the
+    JAX package's ``_forward_finalise``: inventory and PV [N+1, S] (the last
+    rows the final inventory and the terminal PV), and volume, fuel, loss
+    and net volume [N, S]."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     dtype = grids.dtype
@@ -350,12 +395,23 @@ def lsmc_forward(
     b_dim = len(monomials)
     sums = torch.empty((n, forward_kernel.NUM_SUMS), dtype=dtype, device=device)
     xbar = torch.empty((n, b_dim), dtype=dtype, device=device)
+    if return_sim_data:
+        # Kernel C writes its per-sim outputs into panel rows: no copies.
+        panel = lambda rows: torch.empty((rows, s_count), dtype=dtype, device=device)  # noqa: E731
+        sim_inventory, sim_pv = panel(n + 1), panel(n + 1)
+        sim_dec, sim_cons = panel(n), panel(n)
+        sim_inventory[0] = inventory
+        inventory = sim_inventory[0]
     for t in range(n):
+        out = imm_out = None
+        if return_sim_data:
+            out = (sim_inventory[t + 1], torch.empty_like(pv), sim_dec[t], sim_cons[t])
+            imm_out = sim_pv[t]
         inventory, pv, _dec, _cons, sums[t], xbar[t] = forward_kernel.forward_step(
             params[t], regression["mean"][t], regression["std"][t],
             ratchets[0][t], ratchets[1][t], ratchets[2][t],
             spot_val[t], factors_val[t], inventory, pv, regression["coeffs"][t],
-            monomials, num_extra_decisions, ratchet_is_step,
+            monomials, num_extra_decisions, ratchet_is_step, out=out, imm_out=imm_out,
         )
     count = float(s_count)
     xbar = xbar / count
@@ -378,13 +434,27 @@ def lsmc_forward(
         pv = pv + terminal_pv
         end_pv = terminal_pv.mean()
     else:
+        terminal_pv = torch.zeros_like(pv)
         end_pv = torch.zeros((), dtype=dtype, device=device)
     npv = pv.mean()
     # Sample standard error (ddof=1; LsmcStorageValuation.cs:618).
     standard_error = torch.sqrt(torch.sum((pv - npv) ** 2) / (count - 1.0)) / np.sqrt(count)
 
     zero = torch.zeros((1,), dtype=dtype, device=device)
+    sim_panels = {}
+    if return_sim_data:
+        sim_pv[n] = terminal_pv
+        sim_panels = {
+            "sim_inventory": sim_inventory,
+            "sim_inject_withdraw": sim_dec,
+            "sim_cmdty_consumed": sim_cons,
+            # The kernel's loss, loss_pcnt·inventory, for all steps at once.
+            "sim_inventory_loss": arrays["loss_pcnt"][:, None] * sim_inventory[:n],
+            "sim_net_volume": -sim_dec - sim_cons,
+            "sim_pv": sim_pv,
+        }
     return {
+        **sim_panels,
         "npv": npv,
         "standard_error": standard_error,
         "deltas": torch.cat([delta, zero]),
@@ -419,18 +489,23 @@ def lsmc_core(
     ratchet_is_step: bool,
     snap_interp: bool = False,
     return_regression: bool = False,
+    return_sim_data: bool = False,
+    fullstep: bool = False,
 ) -> tp.Dict[str, torch.Tensor]:
     """Full LSMC valuation on one device over materialised panels: regression
     sims drive the backward pass, valuation sims the forward pass.  Results
-    stay on the panels' device."""
+    stay on the panels' device.  ``return_sim_data`` adds the per-sim panels
+    (``lsmc_forward``); ``fullstep`` runs each backward step as kernel E
+    alone (factor panels only)."""
     with full_f32_matmul():
         v0, regression = lsmc_backward(
             arrays, spot_reg, factors_reg, monomials, num_extra_decisions,
-            terminal_fn, ratchet_is_step, snap_interp=snap_interp,
+            terminal_fn, ratchet_is_step, snap_interp=snap_interp, fullstep=fullstep,
         )
         result = lsmc_forward(
             arrays, spot_val, factors_val, regression, starting_inventory, monomials,
             num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
+            return_sim_data=return_sim_data,
         )
     # Backward (upper-ish) estimate: mean of the first-period values at the
     # known starting inventory (grid[0] is degenerate) — LsmcStorageValuation.cs:623.

@@ -2,7 +2,9 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
 library with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
-so a build takes seconds rather than minutes.  The library lands in
+so a build takes seconds rather than minutes.  Each source compiles in its
+own ``nvcc`` process, all started together, and one more links them.  The
+library lands in
 ``build/storage_tpu_torch/<source hash>/`` at the repository root, so a
 changed source or flag rebuilds and an unchanged one is reused.  Nothing
 happens at import time: the first wrapper that launches a kernel builds.
@@ -26,15 +28,16 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "storage_tpu_torch"
 LIB_NAME = "libstorage_tpu_torch_kernels.so"
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_F = ctypes.c_float
 
 # C signature of every entry point: (argtypes), all returning a cudaError_t.
 SIGNATURES = {
@@ -49,12 +52,22 @@ SIGNATURES = {
         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P,
     ),
+    # G, S, D, B, v, dm_std_t, spot, idx_lo, w_hi, dci, a, b, best_out, stream
+    "stt_decision_update": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # G, S, F, D, basis table, ridge, v, spot, factors, spot_prev,
+    # factors_prev, xtx, xty_t, cmean, cstd, mean_prev (or NULL), std_prev (or
+    # NULL), idx_lo, w_hi, a, b, best_out, mean_out, std_out, coeffs_out, dci,
+    # partials, moments, stream
+    "stt_decision_update_fullstep": (
+        _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
     # S, F, G, R, E, is_step, basis table, params, mean, std, ratchet_inv,
     # ratchet_min, ratchet_max, spot, factors, inv, pv, coeffs_t, new_inv,
-    # new_pv, dec, cons, partials, sums, stream
+    # new_pv, dec, cons, imm (or NULL), partials, sums, stream
     "stt_forward_step": (
         _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
 }
 
@@ -71,7 +84,7 @@ def find_nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -90,21 +103,30 @@ def build() -> Path:
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    with tempfile.NamedTemporaryFile(dir=lib.parent, suffix=".so", delete=False) as tmp:
-        tmp_path = tmp.name
-    try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp_path, *sources],
+    nvcc = find_nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objects = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objects)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        (lib.parent / "ptxas.log").write_text("".join(logs))
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log[-8000:]}")
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp_lib), *map(str, objects)],
             capture_output=True, text=True,
         )
-        (lib.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-        os.replace(tmp_path, lib)
-    finally:
-        if os.path.exists(tmp_path):
-            os.unlink(tmp_path)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-8000:]}")
+        os.replace(tmp_lib, lib)
     return lib
 
 

@@ -1,7 +1,11 @@
-"""The backward LSMC step's decision update with next-step moments (kernel B).
+"""The backward LSMC step's decision update: with next-step moments
+(kernel B), on a precomputed design without moments (kernel D), and with the
+inter-step regression folded in (kernel E).
 
-Counterpart of ``storage_tpu.ops.decision_kernel.decision_update_moments_pallas``.
-For every inventory grid point g and sim s it evaluates, per decision d,
+Counterparts of ``storage_tpu.ops.decision_kernel``'s
+``decision_update_moments_pallas`` (B), ``decision_update_pallas`` (D) and
+``decision_update_fullstep_pallas`` (E).  For every inventory grid point g
+and sim s each evaluates, per decision d,
 
     val_reg[g,d,s] = imm[g,d](spot[s]) + regressed continuation gap (vs d = 0)
     val_act[g,d,s] = imm[g,d](spot[s]) + actual continuation
@@ -19,8 +23,17 @@ valuation day's factors, ~1e-9) from cancelling in the moments.
 The actual continuation interpolates ``v`` between rows ``idx_lo[g, d]`` and
 ``idx_lo[g, d] + 1`` with weight ``w_hi[g, d]``: a two-row gather, not the
 TPU's dense hat matmul, and plain f32 (the JAX kernel's ``pred_passes=1``).
-``csrc/decision_kernel.cu`` is the kernel; ``decision_update_moments_plain``
-is the same function in tensor code, used for CPU tensors.
+Kernel D reads the standardised design rows from the caller's ``dm_std_t``
+[B, S] (the engine's backward step on spot-only panels, whose regression is
+fitted outside the kernel).  Kernel E takes the raw moments the previous
+step's B accumulated and solves the regression itself: standardise the
+moments, compose the stats, trace-ridge Cholesky solve with the constant-
+column fallback, interpolate the coefficients — then B's update.
+
+The kernels are ``csrc/decision_kernel.cu`` (B), ``csrc/decision_update_kernel.cu``
+(D) and ``csrc/fullstep_kernel.cu`` (E, which launches B's kernel after its
+solve); each ``*_plain`` function is the same function in tensor code, used
+for CPU tensors.
 """
 from __future__ import annotations
 
@@ -30,6 +43,8 @@ import torch
 
 from ..basis import Monomial, design_matrix
 from . import _build
+from .interp import interp_coeffs
+from .regression import fit_from_moments, ridge_for, standardise_moments
 
 
 def snap_weights(w):
@@ -47,6 +62,11 @@ def decision_values(v, spot, factors, mean, std, idx_lo, w_hi, ci, a, b, monomia
     arithmetic order: the regressed one is the centred gap to decision 0 plus
     the immediate value."""
     dm = _standardised_design(monomials, spot, factors, mean, std)  # [S, B]
+    return decision_values_on_design(v, dm, spot, idx_lo, w_hi, ci, a, b)
+
+
+def decision_values_on_design(v, dm, spot, idx_lo, w_hi, ci, a, b):
+    """``decision_values`` on a given standardised design ``dm`` [S, B]."""
     dci = ci - ci[0:1]  # [D, G, B]
     lo = idx_lo.to(torch.int64)
     for d in range(ci.shape[0]):
@@ -62,18 +82,30 @@ def decision_values(v, spot, factors, mean, std, idx_lo, w_hi, ci, a, b, monomia
         yield q + imm, actual + imm
 
 
-def decision_update_moments_plain(v, spot, factors, spot_prev, factors_prev,
-                                  mean, std, mean_prev, std_prev, idx_lo, w_hi,
-                                  ci, a, b, monomials):
-    """Tensor-code version of the kernel; any dtype, any device."""
-    values = decision_values(v, spot, factors, mean, std, idx_lo, w_hi, ci, a, b, monomials)
+def _best_actual(values):
+    """The running argmax over decisions: strict >, decision 0 first."""
     best_reg, best_act = next(values)
     for val_reg, val_act in values:
         better = val_reg > best_reg
         best_reg = torch.where(better, val_reg, best_reg)
         best_act = torch.where(better, val_act, best_act)
+    return best_act
+
+
+def decision_update_moments_plain(v, spot, factors, spot_prev, factors_prev,
+                                  mean, std, mean_prev, std_prev, idx_lo, w_hi,
+                                  ci, a, b, monomials):
+    """Tensor-code version of kernel B; any dtype, any device."""
+    best_act = _best_actual(
+        decision_values(v, spot, factors, mean, std, idx_lo, w_hi, ci, a, b, monomials))
     dmp = _standardised_design(monomials, spot_prev, factors_prev, mean_prev, std_prev)
     return best_act, dmp.T @ dmp, dmp.T @ best_act.T
+
+
+def _check_shapes(name: str, shapes) -> None:
+    for arg, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} is {tuple(t.shape)}, want {shape}")
 
 
 def decision_update_moments(
@@ -123,7 +155,7 @@ def decision_update_moments(
         raise ValueError("decision_update_moments: idx_lo on another device")
     if out.data_ptr() == v.data_ptr():
         raise ValueError("decision_update_moments: out must not alias v")
-    shapes = {
+    _check_shapes("decision_update_moments", {
         "spot": (spot, (s,)), "factors": (factors, (f, s)),
         "spot_prev": (spot_prev, (s,)), "factors_prev": (factors_prev, (f, s)),
         "mean": (mean, (bdim,)), "std": (std, (bdim,)),
@@ -131,10 +163,7 @@ def decision_update_moments(
         "idx_lo": (idx_lo, (g, d)), "w_hi": (w_hi, (g, d)),
         "ci": (ci, (d, g, bdim)), "a": (a, (d, g)), "b": (b, (d, g)),
         "out": (out, (g, s)),
-    }
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"decision_update_moments: {name} is {tuple(t.shape)}, want {shape}")
+    })
     nblk = -(-s // 128)
     npairs = bdim * bdim + g * bdim
     partials = torch.empty((npairs, nblk), dtype=torch.float32, device=device)
@@ -157,3 +186,179 @@ def decision_update_moments(
 
 
 decision_update_moments.launches = 0
+
+
+def decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b):
+    """Tensor-code version of kernel D; any dtype, any device."""
+    return _best_actual(
+        decision_values_on_design(v, dm_std_t.T, spot, idx_lo, w_hi, ci, a, b))
+
+
+def decision_update(
+    v: torch.Tensor,         # [G, S] next-period actual values
+    dm_std_t: torch.Tensor,  # [B, S] standardised design of step t, transposed
+    spot: torch.Tensor,      # [S] step-t spot
+    idx_lo: torch.Tensor,    # [G, D] int32 lower interpolation row
+    w_hi: torch.Tensor,      # [G, D] weight of row idx_lo + 1
+    ci: torch.Tensor,        # [D, G, B] interpolated regression coeffs
+    a: torch.Tensor,         # [D, G] immediate-pv spot coefficient
+    b: torch.Tensor,         # [D, G] immediate-pv constant
+    out: tp.Optional[torch.Tensor] = None,
+):
+    """Returns best_act [G, S] (kernel D).
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel and
+    must be f32 and contiguous; ``out`` is the [G, S] buffer for best_act and
+    must not be ``v``.  ``idx_lo`` must lie in [0, G-2], as for kernel B."""
+    if v.device.type == "cpu":
+        return decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b)
+    g, s = v.shape
+    bdim = dm_std_t.shape[0]
+    d = ci.shape[0]
+    dci = (ci - ci[0:1]).contiguous()
+    if out is None:
+        out = torch.empty_like(v)
+    device = _build.require_cuda("decision_update", v, dm_std_t, spot, w_hi, dci, a, b, out)
+    _build.require_cuda("decision_update", idx_lo, dtype=torch.int32)
+    if idx_lo.device != device:
+        raise ValueError("decision_update: idx_lo on another device")
+    if out.data_ptr() == v.data_ptr():
+        raise ValueError("decision_update: out must not alias v")
+    _check_shapes("decision_update", {
+        "dm_std_t": (dm_std_t, (bdim, s)), "spot": (spot, (s,)),
+        "idx_lo": (idx_lo, (g, d)), "w_hi": (w_hi, (g, d)), "ci": (ci, (d, g, bdim)),
+        "a": (a, (d, g)), "b": (b, (d, g)), "out": (out, (g, s)),
+    })
+    rc = _build.library().stt_decision_update(
+        g, s, d, bdim, v.data_ptr(), dm_std_t.data_ptr(), spot.data_ptr(),
+        idx_lo.data_ptr(), w_hi.data_ptr(), dci.data_ptr(), a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), _build.stream_handle(device),
+    )
+    decision_update.launches += 1
+    _build.check(rc, "decision_update")
+    return out
+
+
+decision_update.launches = 0
+
+
+def decision_update_fullstep_plain(v, spot, factors, spot_prev, factors_prev, xtx, xty,
+                                   cmean, cstd, idx_lo, w_hi, a, b, monomials,
+                                   mean_prev=None, std_prev=None):
+    """Tensor-code version of kernel E; any dtype, any device."""
+    m, rhs, mu_u, sig_u = standardise_moments(xtx, xty)
+    mean = cmean + cstd * mu_u
+    std = cstd * sig_u
+    coeffs = fit_from_moments(m, rhs)
+    ci = interp_coeffs(coeffs, idx_lo, w_hi)
+    best_act, xtx_next, xty_next = decision_update_moments_plain(
+        v, spot, factors, spot_prev, factors_prev, mean, std,
+        mean if mean_prev is None else mean_prev, std if std_prev is None else std_prev,
+        idx_lo, w_hi, ci, a, b, monomials,
+    )
+    return best_act, xtx_next, xty_next, mean, std, coeffs
+
+
+def decision_update_fullstep(
+    v: torch.Tensor,             # [G, S] next-period actual values
+    spot: torch.Tensor,          # [S] step-t spot
+    factors: torch.Tensor,       # [F, S] step-t factors
+    spot_prev: torch.Tensor,     # [S] step-(t-1) spot
+    factors_prev: torch.Tensor,  # [F, S] step-(t-1) factors
+    xtx: torch.Tensor,           # [B, B] raw moments of step t's design ...
+    xty: torch.Tensor,           # [B, G] ... against v, centred by (cmean, cstd)
+    cmean: torch.Tensor,         # [B] centre of those moments
+    cstd: torch.Tensor,          # [B] scale of those moments
+    idx_lo: torch.Tensor,        # [G, D] int32 lower interpolation row
+    w_hi: torch.Tensor,          # [G, D] weight of row idx_lo + 1
+    a: torch.Tensor,             # [D, G] immediate-pv spot coefficient
+    b: torch.Tensor,             # [D, G] immediate-pv constant
+    monomials: tp.Sequence[Monomial],
+    mean_prev: tp.Optional[torch.Tensor] = None,  # [B] centre of the step-(t-1) moments
+    std_prev: tp.Optional[torch.Tensor] = None,   # [B] scale of the step-(t-1) moments
+    out: tp.Optional[torch.Tensor] = None,
+    regression_out: tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+):
+    """Returns (best_act [G, S], xtx_next [B, B], xty_next [B, G], mean [B],
+    std [B], coeffs [B, G]) of one whole backward step (kernel E).
+
+    The step's stats are composed from the carried moments' own
+    (``cmean + cstd·μ_u``, ``cstd·σ_u``), and the regression is solved from
+    them.  Without ``mean_prev``/``std_prev`` the next moments are centred by
+    those composed stats (the TPU kernel's u-coordinates); with them, by the
+    stats given.  CPU tensors take the plain version.  CUDA tensors launch the
+    kernels and must be f32 and contiguous, except ``xty``, which may also be
+    the transposed view of a contiguous [G, B] (as the kernel returns it);
+    ``out`` must not be ``v``; ``regression_out`` are optional buffers for
+    (mean, std, coeffs)."""
+    if v.device.type == "cpu":
+        result = decision_update_fullstep_plain(
+            v, spot, factors, spot_prev, factors_prev, xtx, xty, cmean, cstd, idx_lo,
+            w_hi, a, b, monomials, mean_prev, std_prev,
+        )
+        if out is not None:
+            out.copy_(result[0])
+            result = (out, *result[1:])
+        if regression_out is not None:
+            for buf, val in zip(regression_out, result[3:]):
+                buf.copy_(val)
+            result = (*result[:3], *regression_out)
+        return result
+    g, s = v.shape
+    f = factors.shape[0]
+    d = idx_lo.shape[1]
+    bdim = len(monomials)
+    if (mean_prev is None) != (std_prev is None):
+        raise ValueError("decision_update_fullstep: pass both mean_prev and std_prev, or neither")
+    xty_t = xty.T if xty.T.is_contiguous() else xty.T.contiguous()  # [G, B]
+    if out is None:
+        out = torch.empty_like(v)
+    if regression_out is None:
+        regression_out = (torch.empty(bdim, dtype=v.dtype, device=v.device),
+                          torch.empty(bdim, dtype=v.dtype, device=v.device),
+                          torch.empty((bdim, g), dtype=v.dtype, device=v.device))
+    mean, std, coeffs = regression_out
+    prev = () if mean_prev is None else (mean_prev, std_prev)
+    device = _build.require_cuda(
+        "decision_update_fullstep", v, spot, factors, spot_prev, factors_prev, xtx, xty_t,
+        cmean, cstd, w_hi, a, b, out, mean, std, coeffs, *prev,
+    )
+    _build.require_cuda("decision_update_fullstep", idx_lo, dtype=torch.int32)
+    if idx_lo.device != device:
+        raise ValueError("decision_update_fullstep: idx_lo on another device")
+    if out.data_ptr() == v.data_ptr():
+        raise ValueError("decision_update_fullstep: out must not alias v")
+    shapes = {
+        "spot": (spot, (s,)), "factors": (factors, (f, s)), "spot_prev": (spot_prev, (s,)),
+        "factors_prev": (factors_prev, (f, s)), "xtx": (xtx, (bdim, bdim)),
+        "xty": (xty, (bdim, g)), "cmean": (cmean, (bdim,)), "cstd": (cstd, (bdim,)),
+        "idx_lo": (idx_lo, (g, d)), "w_hi": (w_hi, (g, d)), "a": (a, (d, g)),
+        "b": (b, (d, g)), "out": (out, (g, s)), "mean": (mean, (bdim,)),
+        "std": (std, (bdim,)), "coeffs": (coeffs, (bdim, g)),
+    }
+    if prev:
+        shapes.update(mean_prev=(mean_prev, (bdim,)), std_prev=(std_prev, (bdim,)))
+    _check_shapes("decision_update_fullstep", shapes)
+    nblk = -(-s // 128)
+    npairs = bdim * bdim + g * bdim
+    dci = torch.empty((d, g, bdim), dtype=torch.float32, device=device)
+    partials = torch.empty((npairs, nblk), dtype=torch.float32, device=device)
+    moments = torch.empty((npairs,), dtype=torch.float32, device=device)
+    rc = _build.library().stt_decision_update_fullstep(
+        g, s, f, d, _build.basis_table(tuple(monomials), f), ridge_for(torch.float32),
+        v.data_ptr(), spot.data_ptr(), factors.data_ptr(), spot_prev.data_ptr(),
+        factors_prev.data_ptr(), xtx.data_ptr(), xty_t.data_ptr(), cmean.data_ptr(),
+        cstd.data_ptr(), mean_prev.data_ptr() if prev else None,
+        std_prev.data_ptr() if prev else None, idx_lo.data_ptr(), w_hi.data_ptr(),
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), mean.data_ptr(), std.data_ptr(),
+        coeffs.data_ptr(), dci.data_ptr(), partials.data_ptr(), moments.data_ptr(),
+        _build.stream_handle(device),
+    )
+    decision_update_fullstep.launches += 1
+    _build.check(rc, "decision_update_fullstep")
+    xtx_next = moments[: bdim * bdim].view(bdim, bdim)
+    xty_next = moments[bdim * bdim:].view(g, bdim).T
+    return out, xtx_next, xty_next, mean, std, coeffs
+
+
+decision_update_fullstep.launches = 0

@@ -172,8 +172,9 @@ def decision_candidates(params, mean, std, ratchet_inv, ratchet_min, ratchet_max
 
 def forward_step_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max,
                        spot, factors, inventory, pv, coeffs, monomials,
-                       num_extra_decisions: int, ratchet_is_step: bool):
-    """Tensor-code version of the kernel; any dtype, any device."""
+                       num_extra_decisions: int, ratchet_is_step: bool, imm_out=None):
+    """Tensor-code version of the kernel; any dtype, any device.  The chosen
+    immediate PV per sim goes to ``imm_out`` where one is given."""
     candidates, dm, loss = decision_candidates(
         params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, factors,
         inventory, coeffs, monomials, num_extra_decisions, ratchet_is_step,
@@ -188,6 +189,8 @@ def forward_step_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max,
         inventory.sum(), opt["dec"].sum(), opt["cons"].sum(), loss.sum(),
         opt["imm"].sum(), (-(opt["dec"] + opt["cons"]) * spot).sum(), zero, zero,
     ])
+    if imm_out is not None:
+        imm_out.copy_(opt["imm"])
     return opt["inv"], pv + opt["imm"], opt["dec"], opt["cons"], sums, dm.sum(dim=0)
 
 
@@ -206,38 +209,52 @@ def forward_step(
     monomials: tp.Sequence[Monomial],
     num_extra_decisions: int,
     ratchet_is_step: bool,
+    out: tp.Optional[tp.Sequence[torch.Tensor]] = None,
+    imm_out: tp.Optional[torch.Tensor] = None,
 ):
     """Returns (new_inventory [S], new_pv [S], opt_decision [S],
     opt_consumed [S], sums [8], xbar_sum [B]).
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel and
-    must be f32 and contiguous."""
+    ``out`` optionally holds four [S] buffers for the first four results (a
+    row of a per-sim panel each, say); ``imm_out`` an [S] buffer that
+    receives each sim's chosen immediate PV.  CPU tensors take the plain
+    version.  CUDA tensors launch the kernel and must be f32 and contiguous
+    (``factors`` may be [0, S]: the kernel reads no factor then)."""
     if spot.device.type == "cpu":
-        return forward_step_plain(
+        result = forward_step_plain(
             params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
             factors, inventory, pv, coeffs, monomials, num_extra_decisions,
-            ratchet_is_step,
+            ratchet_is_step, imm_out,
         )
+        if out is None:
+            return result
+        for buf, val in zip(out, result[:4]):
+            buf.copy_(val)
+        return (*out, *result[4:])
     s = spot.shape[0]
     f = factors.shape[0]
     bdim, g = coeffs.shape
     r = ratchet_inv.shape[0]
+    outs = list(out) if out is not None else [
+        torch.empty(s, dtype=torch.float32, device=spot.device) for _ in range(4)]
+    extra = () if imm_out is None else (imm_out,)
     device = _build.require_cuda(
         "forward_step", params, mean, std, ratchet_inv, ratchet_min,
-        ratchet_max, spot, factors, inventory, pv, coeffs,
+        ratchet_max, spot, factors, inventory, pv, coeffs, *outs, *extra,
     )
     shapes = {
         "params": (params, (NUM_PARAMS,)), "mean": (mean, (bdim,)),
         "std": (std, (bdim,)), "ratchet_min": (ratchet_min, (r,)),
         "ratchet_max": (ratchet_max, (r,)), "factors": (factors, (f, s)),
         "inventory": (inventory, (s,)), "pv": (pv, (s,)),
+        **{f"out[{i}]": (o, (s,)) for i, o in enumerate(outs)},
+        **({"imm_out": (imm_out, (s,))} if imm_out is not None else {}),
     }
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"forward_step: {name} is {tuple(t.shape)}, want {shape}")
     if len(monomials) != bdim:
         raise ValueError("forward_step: coeffs rows must match the basis")
-    outs = [torch.empty(s, dtype=torch.float32, device=device) for _ in range(4)]
     nblk = -(-s // 256)
     partials = torch.empty((NUM_SUMS + bdim, nblk), dtype=torch.float32, device=device)
     totals = torch.empty((NUM_SUMS + bdim,), dtype=torch.float32, device=device)
@@ -248,7 +265,8 @@ def forward_step(
         std.data_ptr(), ratchet_inv.data_ptr(), ratchet_min.data_ptr(),
         ratchet_max.data_ptr(), spot.data_ptr(), factors.data_ptr(),
         inventory.data_ptr(), pv.data_ptr(), coeffs.data_ptr(),
-        *(o.data_ptr() for o in outs), partials.data_ptr(), totals.data_ptr(),
+        *(o.data_ptr() for o in outs), imm_out.data_ptr() if imm_out is not None else None,
+        partials.data_ptr(), totals.data_ptr(),
         _build.stream_handle(device),
     )
     forward_step.launches += 1

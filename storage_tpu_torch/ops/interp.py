@@ -68,3 +68,13 @@ def interp_per_sim(grid, values, x):
     lo_vals = torch.gather(values, 1, idx_lo)
     hi_vals = torch.gather(values, 1, idx_lo + 1)
     return lo_vals * (1 - w_hi) + hi_vals * w_hi
+
+
+def interp_coeffs(coeffs, idx_lo, w_hi):
+    """Regression coefficients [B, G] interpolated to every (grid point,
+    decision) target of one step, ``idx_lo``/``w_hi`` [G, D]: linear
+    interpolation commutes with the linear model, so the coefficients are
+    interpolated instead of the fitted values.  Returns [D, G, B]."""
+    lo = idx_lo.to(torch.int64)
+    ci = coeffs[:, lo] * (1 - w_hi) + coeffs[:, lo + 1] * w_hi  # [B, G, D]
+    return ci.permute(2, 1, 0).contiguous()

@@ -70,6 +70,20 @@ def standardise_moments(xtx_raw, xty_raw):
     return m, xty, mean, std
 
 
+def ridge_for(dtype) -> float:
+    """The trace-scaled ridge of ``fit_from_moments``: larger in f32, where
+    the valuation day's design columns are collinear to f32 resolution."""
+    return 1e-5 if dtype == torch.float32 else 1e-7
+
+
+def fit_continuation(x_std, y, ridge: tp.Optional[float] = None):
+    """Regression coefficients [B, G] of ``y`` [S, G] on the standardised
+    design ``x_std`` [S, B]: the normal equations in full precision (the
+    JAX package's ``Precision.HIGHEST``; the caller keeps TF32 off, see
+    ``engines.lsmc.full_f32_matmul``), then ``fit_from_moments``."""
+    return fit_from_moments(x_std.T @ x_std, x_std.T @ y, ridge)
+
+
 def fit_from_moments(m, xty, ridge: tp.Optional[float] = None):
     """Solve the standardised normal equations (``m = X̃ᵀX̃`` [B, B],
     ``xty = X̃ᵀY`` [B, G]) with a trace-scaled ridge (1e-5 in f32, 1e-7 in
@@ -80,7 +94,7 @@ def fit_from_moments(m, xty, ridge: tp.Optional[float] = None):
     factorisation is ``cholesky_ex`` and its ``info`` joins the non-finite
     check in the fallback condition."""
     if ridge is None:
-        ridge = 1e-5 if m.dtype == torch.float32 else 1e-7
+        ridge = ridge_for(m.dtype)
     b = m.shape[0]
     jitter = ridge * torch.trace(m) / b
     m = m + jitter * torch.eye(b, dtype=m.dtype, device=m.device)

@@ -6,12 +6,15 @@ them on the card with ``python -m pytest tests/test_torch_cuda_kernels.py``.
 Tolerances: the kernels and the plain versions do the decision arithmetic in
 the same order without fused multiply-adds, so per-path outputs match to f32
 rounding; the cross-path sums are taken in another order (1e-5 relative).
+Kernel E solves its [B, B] system in double where the plain version factors
+in f32 (torch.linalg), so its coefficients, and the values and moments that
+follow from them, agree to 1e-4 relative.
 """
 import pytest
 import torch
 
 from storage_tpu_torch.basis import parse_basis_functions
-from storage_tpu_torch.ops import decision_kernel, forward_kernel, rng_kernel
+from storage_tpu_torch.ops import decision_kernel, forward_kernel, interp, rng_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -38,17 +41,23 @@ def test_normal_halves(device, with_sign):
     assert torch.equal(w1.long() & rng_kernel.MASK32, p1)
 
 
-def test_decision_update_moments(device):
-    gen = torch.Generator(device=device).manual_seed(3)
-    g, s, d, f = 11, 300, 5, 3
-    monomials = tuple(parse_basis_functions(BASIS))
+def _decision_args(device, g, s, d, f, basis=BASIS, seed=3):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    monomials = tuple(parse_basis_functions(basis))
     b = len(monomials)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
-    args = (100.0 + 30.0 * rnd(g, s), 30.0 + 5.0 * rnd(s), rnd(f, s), 30.0 + 5.0 * rnd(s),
+    return (100.0 + 30.0 * rnd(g, s), 30.0 + 5.0 * rnd(s), rnd(f, s), 30.0 + 5.0 * rnd(s),
             rnd(f, s), 0.3 * rnd(b), 1.0 + 0.2 * rnd(b).abs(), 0.3 * rnd(b), 1.0 + 0.2 * rnd(b).abs(),
             torch.randint(0, g - 1, (g, d), generator=gen, device=device, dtype=torch.int32),
             torch.rand((g, d), generator=gen, device=device), 20.0 * rnd(d, g, b), 2.0 * rnd(d, g),
             20.0 * rnd(d, g), monomials)
+
+
+@pytest.mark.parametrize("f", [3, 0], ids=["factors", "spot-only"])
+def test_decision_update_moments(device, f):
+    """Kernel B, also on spot-only panels: an empty [0, S] factor tensor (its
+    data pointer may be null) is never read."""
+    args = _decision_args(device, 11, 300, 5, f, basis=BASIS if f else "1 + s + s**2")
     got = decision_kernel.decision_update_moments(*args)
     want = decision_kernel.decision_update_moments_plain(*args)
     torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-4)
@@ -56,11 +65,44 @@ def test_decision_update_moments(device):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5 * float(want[k].abs().max()))
 
 
-@pytest.mark.parametrize("is_step", [False, True])
-def test_forward_step(device, is_step):
+def test_decision_update(device):
+    """Kernel D on a standardised design [B, S] read from memory."""
+    v, spot, _, _, _, _, _, _, _, idx_lo, w_hi, ci, a, b, _ = _decision_args(device, 11, 300, 5, 0)
+    gen = torch.Generator(device=device).manual_seed(8)
+    dm_std_t = torch.randn((ci.shape[2], 300), generator=gen, device=device)
+    got = decision_kernel.decision_update(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b)
+    want = decision_kernel.decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("prev", [False, True], ids=["u-coordinates", "given-stats"])
+def test_decision_update_fullstep(device, prev):
+    """Kernel E from moments of a random design against random values."""
+    args = _decision_args(device, 11, 300, 5, 3)
+    v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, _, a, b, mono = args
+    dm = (decision_kernel._standardised_design(mono, spot, factors, mean, std))
+    xtx, xty = dm.T @ dm, dm.T @ (v.T * 0.9)
+    kwargs = dict(mean_prev=mean_p, std_prev=std_p) if prev else {}
+    fargs = (v, spot, factors, spot_prev, factors_prev, xtx, xty, mean, std, idx_lo, w_hi, a, b, mono)
+    got = decision_kernel.decision_update_fullstep(*fargs, **kwargs)
+    want = decision_kernel.decision_update_fullstep_plain(*fargs, **kwargs)
+    for k in (3, 4, 5):  # mean, std, coeffs
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4 * float(want[k].abs().max()))
+    # The step itself is kernel B on E's own regression: to the bit.
+    ci = interp.interp_coeffs(got[5], idx_lo, w_hi)
+    step = decision_kernel.decision_update_moments(
+        v, spot, factors, spot_prev, factors_prev, got[3], got[4],
+        mean_p if prev else got[3], std_p if prev else got[4], idx_lo, w_hi, ci, a, b, mono)
+    for k in range(3):
+        assert torch.equal(got[k], step[k])
+
+
+@pytest.mark.parametrize("is_step,f", [(False, 3), (True, 3), (False, 0)],
+                         ids=["linear", "step", "spot-only"])
+def test_forward_step(device, is_step, f):
     gen = torch.Generator(device=device).manual_seed(4)
-    s, g, f = 300, 13, 3
-    monomials = tuple(parse_basis_functions(BASIS))
+    s, g = 300, 13
+    monomials = tuple(parse_basis_functions(BASIS if f else "1 + s + s**2"))
     b = len(monomials)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
     grid_next = torch.linspace(0.0, 1100.0, g, device=device)
@@ -74,8 +116,11 @@ def test_forward_step(device, is_step):
             torch.tensor([150.0, 90.0, 40.0], device=device), 30.0 + 5.0 * rnd(s), rnd(f, s),
             1000.0 * torch.rand(s, generator=gen, device=device), 100.0 * rnd(s), 20.0 * rnd(b, g),
             monomials, 1, is_step)
-    got = forward_kernel.forward_step(*args)
-    want = forward_kernel.forward_step_plain(*args)
+    imm = torch.empty(s, device=device)
+    want_imm = torch.empty(s, device=device)
+    got = forward_kernel.forward_step(*args, imm_out=imm)
+    want = forward_kernel.forward_step_plain(*args, imm_out=want_imm)
+    torch.testing.assert_close(imm, want_imm, rtol=1e-6, atol=1e-3)
     for k in range(4):
         torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-3)
     for k in (4, 5):

@@ -8,7 +8,8 @@
 * The public API (``three_factor_seasonal_value``) of both packages on a
   small case with the same seeds: the same threefry draws, hence the same
   valuation.
-* The port imports without JAX, and refuses the options it does not port.
+* The port imports without JAX, runs on CUDA unless told otherwise, and
+  refuses the options it does not port.
 """
 import subprocess
 import sys
@@ -179,7 +180,6 @@ def test_f32_valuation_close_to_jax():
 @pytest.mark.parametrize(
     "option",
     [
-        dict(sim_data_returned=tpkg.SimulationDataReturned.ALL),
         dict(antithetic=True),
         dict(on_progress_update=lambda x: None),
         dict(cancellation_poll=lambda: False),
@@ -188,7 +188,7 @@ def test_f32_valuation_close_to_jax():
         dict(grid_calc=lambda lo, hi: np.linspace(lo, hi, 5)),
         dict(basis_funcs=[lambda s, x: s]),
     ],
-    ids=["sim-data", "antithetic", "progress", "cancel", "checkpoint", "adjoint", "grid-calc",
+    ids=["antithetic", "progress", "cancel", "checkpoint", "adjoint", "grid-calc",
          "generic-basis"],
 )
 def test_unported_options_raise(option):
@@ -224,7 +224,10 @@ def test_imports_without_jax():
         sys.meta_path.insert(0, BlockJax())
         import storage_tpu_torch
         import storage_tpu_torch.api_lsmc, storage_tpu_torch.convert, storage_tpu_torch.engines.lsmc
+        from storage_tpu_torch import value_from_sims, value_from_sims_host_local
         from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel, rng_kernel
+        from storage_tpu_torch.ops.decision_kernel import decision_update, decision_update_fullstep
+        from storage_tpu_torch.ops.regression import fit_continuation
         assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "storage_tpu")]
         print("ok")
         """
@@ -236,10 +239,30 @@ def test_imports_without_jax():
 
 
 def test_device_is_required():
+    """The entry points run on CUDA unless the caller names the CPU: on a host
+    without CUDA a call that names no device raises, and runs nothing."""
+    import inspect
+
+    for fn in (tpkg.three_factor_seasonal_value, tpkg.multi_factor_value, tpkg.value_from_sims):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     storage, start, fwd = _case(tpkg)
-    with pytest.raises(TypeError, match="device"):
-        tpkg.three_factor_seasonal_value(storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19,
-                                         0.23, 64, BASIS, False)
+    frame = pd.DataFrame(np.full((21, 8), 30.0), index=pd.period_range(start, storage.end))
+    calls = [
+        lambda: tpkg.three_factor_seasonal_value(storage, start, 100.0, fwd, 0.02, None, 14.5,
+                                                 1.1, 0.19, 0.23, 64, BASIS, False),
+        lambda: tpkg.value_from_sims(storage, start, 100.0, fwd, 0.02, None, frame, frame,
+                                     "1 + s", False),
+    ]
+    for call in calls:
+        if torch.cuda.is_available():
+            pytest.skip("this host has a CUDA device")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_host_local_panels_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        tpkg.value_from_sims_host_local()
 
 
 @pytest.mark.parametrize("precision", ["medium", "high"])

@@ -98,6 +98,31 @@ def test_fit_from_moments(case):
     np.testing.assert_allclose(got, want, rtol=1e-6 if case == "collinear" else 1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("case", ["regular", "collinear"])
+def test_fit_continuation(case):
+    """Normal equations of a materialised standardised design, then the
+    solve; exactly collinear columns with no ridge take the fallback (the
+    JAX package's own singular case)."""
+    rng = np.random.default_rng(3)
+    s, g = 64, 4
+    if case == "collinear":  # tests/test_decision_kernel.py:153-169
+        col = rng.normal(0.0, 1.0, s)
+        x, ridge = np.stack([np.ones(s), col, col], axis=1), 0.0
+    y = rng.normal(50.0, 10.0, (s, g))
+    if case != "collinear":
+        spot, factors = _design(3, s)
+        dm = np.asarray(jax_design_matrix(tuple(jax_parse(BASIS)), jnp.asarray(spot),
+                                          jnp.asarray(factors)))
+        mean, std = (np.asarray(a) for a in jreg.column_stats(jnp.asarray(dm)))
+        x, ridge = (dm - mean) / std, None
+    want = np.asarray(jreg.fit_continuation(jnp.asarray(x), jnp.asarray(y), ridge=ridge))
+    got = treg.fit_continuation(_t(x), _t(y), ridge=ridge).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+    if case == "collinear":
+        np.testing.assert_allclose(got[0], y.mean(axis=0), rtol=1e-12)
+        np.testing.assert_array_equal(got[1:], 0.0)
+
+
 def _ratchet():
     return (np.array([0.0, 2500.0, 5000.0]), np.array([-200.0, -250.0, -300.0]),
             np.array([300.0, 250.0, 200.0]))
