@@ -9,7 +9,10 @@
    B=9 basis functions and F=3 factors; B=4 and no factor for kernel D, R=3
    ratchet nodes), times both with CUDA events, and computes each kernel's
    bound (the least time the card could take for the same bytes and
-   operations).
+   operations).  Kernels B and E are also held against their plain versions
+   at G=1,000 (S=65,536, random inputs), B's outputs must be the same bits
+   over two launches, and B's launch report (shared memory, blocks per SM,
+   registers) is printed beside kernel D's.
 4. Values the repository's headline daily case through the public API —
    a 365-day ratcheted facility, 3-factor seasonal model, 9-term basis,
    262,144 paths per set, f32, seeds 11/13 — once to warm up, then five
@@ -67,6 +70,10 @@ F64_SPOT_NPV = 97_296.88404629874
 NUM_SIMS = 262_144
 NUM_STEPS = 365
 NUM_GRID = 100
+# Kernels B and E are also held against their plain versions at a grid
+# beyond the 338 points their first design could take (D=3, B=9).
+BIG_GRID = 1_000
+BIG_SIMS = 65_536
 BASIS = "1 + x_st + x_lt + x_sw + x_st**2 + x_lt**2 + x_sw**2 + s + s**2"
 SPOT_BASIS = "1 + s + s**2 + s**3"
 REPO = Path(__file__).resolve().parent
@@ -250,15 +257,152 @@ def cuda_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def check_kernels(pkg, device):
-    """Each kernel against its plain version on the card at main-path shapes,
-    with its time, its plain version's and its bound."""
+def backward_step_inputs(pkg, device):
+    """One backward step (t = 180) of the main path: the headline facility's
+    arrays, a simulated regression panel, random values and coefficients of
+    realistic size; the arguments of kernel B (``args_b``) and of kernel D on
+    the step's spot-only design (``args_d``, basis ``SPOT_BASIS``)."""
+    import types
+
     import torch
 
     from storage_tpu_torch.basis import parse_basis_functions
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.models import spot_sim
-    from storage_tpu_torch.ops import decision_kernel, forward_kernel, interp, rng_kernel
+    from storage_tpu_torch.ops import interp
+
+    s = NUM_SIMS
+    inputs, sim_in, arrays, monomials = engine_inputs(pkg, device)
+    sims = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11), torch.arange(s, device=device),
+                                      *sim_in)
+    t = min(180, NUM_STEPS // 2)
+    gen = torch.Generator(device=device).manual_seed(5)
+    prep = engine._backward_prep_all(arrays, 0, False, snap_interp=True)
+    step = dict(idx_lo=prep["idx_lo"][t], w_hi=prep["w_hi"][t], a=prep["a"][t], b=prep["b"][t])
+    mean, std = engine._design_stats(monomials, sims.spot[t - 1:t + 1], sims.factors[t - 1:t + 1])
+    grid_next = arrays["grids"][t + 1]
+    v = (grid_next[:, None] * sims.spot[t + 1][None, :]
+         + 40.0 * torch.randn((NUM_GRID, s), generator=gen, device=device)).contiguous()
+    coeffs = torch.randn((len(monomials), NUM_GRID), generator=gen, device=device) * 50.0
+    coeffs[0] = grid_next * 30.0
+    ci = interp.interp_coeffs(coeffs, step["idx_lo"], step["w_hi"])
+    args_b = (v, sims.spot[t], sims.factors[t], sims.spot[t - 1], sims.factors[t - 1],
+              mean[1], std[1], mean[0], std[0], step["idx_lo"], step["w_hi"], ci,
+              step["a"], step["b"], monomials)
+    spot_monomials = tuple(parse_basis_functions(SPOT_BASIS))
+    no_factors = sims.factors[t][:0]
+    m_s, s_s = engine._design_stats(spot_monomials, sims.spot[t:t + 1], no_factors[None])
+    dm_t = engine._standardised_design_t(spot_monomials, sims.spot[t], no_factors, m_s[0], s_s[0])
+    coeffs_s = torch.randn((len(spot_monomials), NUM_GRID), generator=gen, device=device) * 50.0
+    coeffs_s[0] = grid_next * 30.0
+    ci_s = interp.interp_coeffs(coeffs_s, step["idx_lo"], step["w_hi"])
+    args_d = (v, dm_t, sims.spot[t], step["idx_lo"], step["w_hi"], ci_s, step["a"], step["b"])
+    return types.SimpleNamespace(
+        inputs=inputs, arrays=arrays, monomials=monomials, sims=sims, t=t, gen=gen, step=step,
+        mean=mean, std=std, v=v, coeffs=coeffs, args_b=args_b,
+        spot_monomials=spot_monomials, args_d=args_d)
+
+
+def random_step(device, g, s, seed):
+    """Kernel B's arguments at G grid points, S sims, D=3 and the headline
+    basis, from a seed: random values, paths, stats, interpolation rows and
+    coefficients (the grid-limit checks, beyond the headline's G)."""
+    import torch
+
+    from storage_tpu_torch.basis import parse_basis_functions
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    monomials = tuple(parse_basis_functions(BASIS))
+    b, d, f = len(monomials), 3, 3
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    return (100.0 + 30.0 * rnd(g, s), 30.0 + 5.0 * rnd(s), rnd(f, s), 30.0 + 5.0 * rnd(s),
+            rnd(f, s), 0.3 * rnd(b), 1.0 + 0.2 * rnd(b).abs(), 0.3 * rnd(b),
+            1.0 + 0.2 * rnd(b).abs(),
+            torch.randint(0, g - 1, (g, d), generator=gen, device=device, dtype=torch.int32),
+            torch.rand((g, d), generator=gen, device=device), 20.0 * rnd(d, g, b),
+            2.0 * rnd(d, g), 20.0 * rnd(d, g), monomials)
+
+
+def compare_b(args_b) -> dict:
+    """Kernel B against its plain version on ``args_b``, and against itself
+    over two launches.  The kernel does the plain version's arithmetic in the
+    same order, so a best_act value may differ beyond f32 rounding only where
+    the argmax flipped, and it may flip only on a near-tie of the regressed
+    values; the moments are f32 sums in another order (1e-4 relative), and
+    the same bits on every launch."""
+    import torch
+
+    from storage_tpu_torch.ops import decision_kernel
+
+    got = [x.clone() for x in decision_kernel.decision_update_moments(*args_b)]
+    again = decision_kernel.decision_update_moments(*args_b)
+    repeat_same = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    want = decision_kernel.decision_update_moments_plain(*args_b)
+    regressed = torch.stack([r for r, _ in decision_kernel.decision_values(
+        *args_b[:3], *args_b[5:7], *args_b[9:])])  # [D, G, S]
+    flips, unexplained, err = near_tie_flips(got[0], want[0], [regressed])
+    del regressed
+    mom_err = max(rel_err(got[i], want[i]) for i in (1, 2))
+    n = got[0].numel()
+    ok = not unexplained and flips <= 1e-5 * n and mom_err <= 1e-4 and repeat_same
+    text = (f"best_act max abs err {err:.3e}; {flips} of {n} beyond f32 rounding (argmax "
+            f"flips), {unexplained} of them off a near-tie (tolerance 0); moments max rel err "
+            f"{mom_err:.3e} (tolerance 1e-4: f32 sums over the sims in another order); "
+            f"best_act, XtX and Xtv bit-identical over two launches: {repeat_same}")
+    return dict(ok=ok, text=text, max_abs_err=err, flips=flips, unexplained_flips=unexplained,
+                moments_max_rel_err=mom_err, bit_identical_over_two_launches=repeat_same)
+
+
+def compare_e(args_e, prev) -> dict:
+    """Kernel E against its plain version on ``args_e`` (with ``prev``, the
+    stats of the next moments): the regression within 1e-4 relative (the
+    kernel solves in double, the plain version in f32 with torch.linalg),
+    the step bit-identical to kernel B run on E's own regression, argmax
+    flips only on near-ties of either regression's values, the moments
+    within 1e-4 relative."""
+    import torch
+
+    from storage_tpu_torch.ops import decision_kernel, interp
+
+    v, spot, factors, spot_prev, factors_prev, _, _, _, _, idx_lo, w_hi, a, b, monomials = args_e
+    got = decision_kernel.decision_update_fullstep(*args_e, **prev)
+    want = decision_kernel.decision_update_fullstep_plain(*args_e, **prev)
+    reg_err = max(rel_err(got[i], want[i]) for i in (3, 4, 5))
+    mom_err = max(rel_err(got[i], want[i]) for i in (1, 2))
+    ci_k = interp.interp_coeffs(got[5], idx_lo, w_hi)
+    same = decision_kernel.decision_update_moments(
+        v, spot, factors, spot_prev, factors_prev, got[3], got[4], prev["mean_prev"],
+        prev["std_prev"], idx_lo, w_hi, ci_k, a, b, monomials)
+    bit_identical = all(torch.equal(got[i], same[i]) for i in range(3))
+    del same
+    ci_p = interp.interp_coeffs(want[5], idx_lo, w_hi)
+    regressed = [torch.stack([r for r, _ in decision_kernel.decision_values(
+        v, spot, factors, m_, s_, idx_lo, w_hi, c_, a, b, monomials)])
+        for m_, s_, c_ in ((want[3], want[4], ci_p), (got[3], got[4], ci_k))]
+    flips, unexplained, err = near_tie_flips(got[0], want[0], regressed)
+    del regressed
+    n = got[0].numel()
+    ok = (reg_err <= 1e-4 and mom_err <= 1e-4 and bit_identical and not unexplained
+          and flips <= 1e-5 * n)
+    text = (f"mean/std/coeffs max rel err {reg_err:.3e} (tolerance 1e-4: the kernel's Cholesky "
+            f"rounds otherwise than torch.linalg's); step bit-identical to kernel B on its own "
+            f"regression: {bit_identical}; best_act max abs err {err:.3e}, {flips} argmax flips, "
+            f"{unexplained} off a near-tie (tolerance 0); moments max rel err {mom_err:.3e} "
+            f"(tolerance 1e-4)")
+    return dict(ok=ok, text=text, max_abs_err=err, flips=flips, unexplained_flips=unexplained,
+                regression_max_rel_err=reg_err, moments_max_rel_err=mom_err,
+                bit_identical_to_b=bit_identical)
+
+
+def check_kernels(pkg, device):
+    """Each kernel against its plain version on the card at main-path shapes,
+    with its time, its plain version's and its bound."""
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import decision_kernel, forward_kernel, rng_kernel
 
     s, f = NUM_SIMS, 3
     results = {}
@@ -296,65 +440,48 @@ def check_kernels(pkg, device):
     results["normal_halves"] = dict(max_abs_err=err_a, ms=ms, plain_ms=plain_ms,
                                     max_ulp=ulp, words_bit_identical=words_equal, **bnd)
 
-    # One step of the main path: the headline facility's arrays, a simulated
-    # regression panel, random values and coefficients of realistic size.
-    inputs, sim_in, arrays, monomials = engine_inputs(pkg, device)
-    sims = spot_sim.simulate_ou_paths(key, torch.arange(s, device=device), *sim_in)
+    st = backward_step_inputs(pkg, device)
+    inputs, arrays, monomials, sims, t, gen = st.inputs, st.arrays, st.monomials, st.sims, st.t, st.gen
+    step, mean, std, v, coeffs = st.step, st.mean, st.std, st.v, st.coeffs
     b_dim = len(monomials)
-    t = min(180, NUM_STEPS // 2)
-    gen = torch.Generator(device=device).manual_seed(5)
+    args_b = st.args_b
 
-    # ---- B: the backward step at step t.
-    prep = engine._backward_prep_all(arrays, 0, False, snap_interp=True)
-    step = dict(idx_lo=prep["idx_lo"][t], w_hi=prep["w_hi"][t], a=prep["a"][t], b=prep["b"][t])
-    mean, std = engine._design_stats(monomials, sims.spot[t - 1:t + 1], sims.factors[t - 1:t + 1])
-    grid_next = arrays["grids"][t + 1]
-    v = (grid_next[:, None] * sims.spot[t + 1][None, :]
-         + 40.0 * torch.randn((NUM_GRID, s), generator=gen, device=device)).contiguous()
-    coeffs = torch.randn((b_dim, NUM_GRID), generator=gen, device=device) * 50.0
-    coeffs[0] = grid_next * 30.0
-    ci = interp.interp_coeffs(coeffs, step["idx_lo"], step["w_hi"])
-    args_b = (v, sims.spot[t], sims.factors[t], sims.spot[t - 1], sims.factors[t - 1],
-              mean[1], std[1], mean[0], std[0], step["idx_lo"], step["w_hi"], ci,
-              step["a"], step["b"], monomials)
+    # ---- B: the backward step at step t, then at G=1,000 grid points (beyond
+    # the 338 of its first design); its launch report beside kernel D's.
     out = torch.empty_like(v)
-    got = decision_kernel.decision_update_moments(*args_b, out=out)
-    want = decision_kernel.decision_update_moments_plain(*args_b)
-    # The kernel does the plain version's arithmetic in the same order, so a
-    # best_act value may differ beyond f32 rounding only where the argmax
-    # flipped, and it may flip only on a near-tie of the regressed values.
-    regressed = torch.stack([r for r, _ in decision_kernel.decision_values(
-        *args_b[:3], *args_b[5:7], *args_b[9:])])  # [D, G, S]
-    flips, unexplained, err_b = near_tie_flips(got[0], want[0], [regressed])
-    del regressed
-    mom_err = max(rel_err(got[i], want[i]) for i in (1, 2))
+    cmp_b = compare_b(args_b)
     ms = cuda_ms(lambda: decision_kernel.decision_update_moments(*args_b, out=out), 20)
     plain_ms = cuda_ms(lambda: decision_kernel.decision_update_moments_plain(*args_b), 5)
     bnd = bound(*decision_work(NUM_GRID, s, 3, b_dim, f, moments=True))
-    log(f"kernel B decision_update_moments [G={NUM_GRID}, S={s}, D=3, B={b_dim}]: "
-        f"best_act max abs err {err_b:.3e}; {flips} of {v.numel()} beyond f32 rounding "
-        f"(argmax flips), {unexplained} of them off a near-tie (tolerance 0); "
-        f"moments max rel err {mom_err:.3e} "
-        f"(tolerance 1e-4: f32 sums over {s} sims in another order); "
+    log(f"kernel B decision_update_moments [G={NUM_GRID}, S={s}, D=3, B={b_dim}]: {cmp_b['text']}; "
         f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    if unexplained or flips > 1e-5 * v.numel() or mom_err > 1e-4:
-        raise AssertionError("kernel B disagrees with its plain version")
+    big = random_step(device, BIG_GRID, BIG_SIMS, seed=7)
+    cmp_big = compare_b(big)
+    log(f"kernel B decision_update_moments [G={BIG_GRID}, S={BIG_SIMS}, D=3, B={b_dim}, random "
+        f"inputs]: {cmp_big['text']}")
+    launch = {name: decision_kernel.kernel_info(kind, NUM_GRID, 3, bd, device)
+              for name, kind, bd in (("B", "moments", b_dim), ("D", "update", b_dim),
+                                     ("D_spot_only", "update", len(st.spot_monomials)))}
+    log("launch reports (kernel at G=100, D=3): " + "; ".join(
+        f"{name} at B={bd}: {r['smem_bytes']} bytes of shared memory per block (limit "
+        f"{r['smem_limit']}, so G <= {r['max_grid']}), {r['blocks_per_sm']} blocks of "
+        f"{r['sims_per_block']} threads per SM, {r['registers']} registers"
+        for (name, r), bd in zip(launch.items(), (b_dim, b_dim, len(st.spot_monomials)))))
+    for c in (cmp_b, cmp_big):
+        if not c["ok"]:
+            raise AssertionError(f"kernel B disagrees with its plain version: {c['text']}")
     results["decision_update_moments"] = dict(
-        max_abs_err=err_b, ms=ms, plain_ms=plain_ms, flips=flips, moments_max_rel_err=mom_err,
-        **bnd)
-    del got, want
+        max_abs_err=cmp_b["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        **{k: v_ for k, v_ in cmp_b.items() if k not in ("text", "max_abs_err")},
+        big_grid=dict(G=BIG_GRID, S=BIG_SIMS, **{k: v_ for k, v_ in cmp_big.items() if k != "text"}),
+        launch=launch, **bnd)
 
     # ---- D: the same step on spot-only panels (basis 1 + s + s² + s³): the
     # design [B, S] standardised by the step's exact stats, as the engine's
     # spot-only backward passes it.
-    spot_monomials = tuple(parse_basis_functions(SPOT_BASIS))
-    no_factors = sims.factors[t][:0]
-    m_s, s_s = engine._design_stats(spot_monomials, sims.spot[t:t + 1], no_factors[None])
-    dm_t = engine._standardised_design_t(spot_monomials, sims.spot[t], no_factors, m_s[0], s_s[0])
-    coeffs_s = torch.randn((len(spot_monomials), NUM_GRID), generator=gen, device=device) * 50.0
-    coeffs_s[0] = grid_next * 30.0
-    ci_s = interp.interp_coeffs(coeffs_s, step["idx_lo"], step["w_hi"])
-    args_d = (v, dm_t, sims.spot[t], step["idx_lo"], step["w_hi"], ci_s, step["a"], step["b"])
+    spot_monomials = st.spot_monomials
+    args_d = st.args_d
+    dm_t = args_d[1]
     got = decision_kernel.decision_update(*args_d, out=out)
     want = decision_kernel.decision_update_plain(*args_d)
     regressed = torch.stack([r for r, _ in decision_kernel.decision_values_on_design(
@@ -375,7 +502,8 @@ def check_kernels(pkg, device):
                                       **bnd)
 
     # ---- E: the whole step from step t's moments against v, centred by its
-    # exact stats, with step t-1's stats for the next moments (as the engine).
+    # exact stats, with step t-1's stats for the next moments (as the engine);
+    # then at G=1,000 grid points on random inputs.
     dm = decision_kernel._standardised_design(monomials, sims.spot[t], sims.factors[t], mean[1],
                                               std[1])
     xtx, xty = dm.T @ dm, dm.T @ v.T
@@ -383,39 +511,32 @@ def check_kernels(pkg, device):
     args_e = (v, sims.spot[t], sims.factors[t], sims.spot[t - 1], sims.factors[t - 1], xtx, xty,
               mean[1], std[1], step["idx_lo"], step["w_hi"], step["a"], step["b"], monomials)
     prev = dict(mean_prev=mean[0], std_prev=std[0])
-    got = decision_kernel.decision_update_fullstep(*args_e, **prev, out=out)
-    want = decision_kernel.decision_update_fullstep_plain(*args_e, **prev)
-    # The regression: the kernel solves in double, the plain version in f32.
-    reg_err = max(rel_err(got[i], want[i]) for i in (3, 4, 5))
-    mom_err_e = max(rel_err(got[i], want[i]) for i in (1, 2))
-    # The step is kernel B on E's own regression, to the bit.
-    ci_k = interp.interp_coeffs(got[5], step["idx_lo"], step["w_hi"])
-    same = decision_kernel.decision_update_moments(
-        v, *args_e[1:5], got[3], got[4], mean[0], std[0], step["idx_lo"], step["w_hi"], ci_k,
-        step["a"], step["b"], monomials)
-    bit_identical = all(torch.equal(got[i], same[i]) for i in range(3))
-    ci_p = interp.interp_coeffs(want[5], step["idx_lo"], step["w_hi"])
-    regressed = [torch.stack([r for r, _ in decision_kernel.decision_values(
-        v, sims.spot[t], sims.factors[t], m_, s_, step["idx_lo"], step["w_hi"], c_, step["a"],
-        step["b"], monomials)]) for m_, s_, c_ in ((want[3], want[4], ci_p), (got[3], got[4], ci_k))]
-    flips_e, unexplained_e, err_e = near_tie_flips(got[0], want[0], regressed)
-    del regressed, same, got, want
+    cmp_e = compare_e(args_e, prev)
     ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep(*args_e, **prev, out=out), 20)
     plain_ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep_plain(*args_e, **prev), 5)
     bnd = bound(*decision_work(NUM_GRID, s, 3, b_dim, f, moments=True))
     log(f"kernel E decision_update_fullstep [G={NUM_GRID}, S={s}, D=3, B={b_dim}, F={f}]: "
-        f"mean/std/coeffs max rel err {reg_err:.3e} (tolerance 1e-4: the kernel's Cholesky "
-        f"rounds otherwise than torch.linalg's); step bit-identical to kernel B on its own "
-        f"regression: {bit_identical}; best_act max abs err {err_e:.3e}, {flips_e} argmax flips, "
-        f"{unexplained_e} off a near-tie (tolerance 0); moments max rel err {mom_err_e:.3e} "
-        f"(tolerance 1e-4); {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+        f"{cmp_e['text']}; {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
         f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    if (reg_err > 1e-4 or mom_err_e > 1e-4 or not bit_identical or unexplained_e
-            or flips_e > 1e-5 * v.numel()):
-        raise AssertionError("kernel E disagrees with its plain version")
+    del args_e
+    v_b, spot_b, fac_b, spot_pb, fac_pb, mean_b, std_b, mean_pb, std_pb, idx_b, w_b, _, a_b, b_b, \
+        _ = big
+    dm = decision_kernel._standardised_design(monomials, spot_b, fac_b, mean_b, std_b)
+    args_big = (v_b, spot_b, fac_b, spot_pb, fac_pb, dm.T @ dm, dm.T @ (0.9 * v_b.T), mean_b,
+                std_b, idx_b, w_b, a_b, b_b, monomials)
+    del dm
+    cmp_e_big = compare_e(args_big, dict(mean_prev=mean_pb, std_prev=std_pb))
+    log(f"kernel E decision_update_fullstep [G={BIG_GRID}, S={BIG_SIMS}, D=3, B={b_dim}, random "
+        f"inputs]: {cmp_e_big['text']}")
+    for c in (cmp_e, cmp_e_big):
+        if not c["ok"]:
+            raise AssertionError(f"kernel E disagrees with its plain version: {c['text']}")
     results["decision_update_fullstep"] = dict(
-        max_abs_err=err_e, ms=ms, plain_ms=plain_ms, flips=flips_e, regression_max_rel_err=reg_err,
-        moments_max_rel_err=mom_err_e, **bnd)
+        max_abs_err=cmp_e["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        **{k: v_ for k, v_ in cmp_e.items() if k not in ("text", "max_abs_err")},
+        big_grid=dict(G=BIG_GRID, S=BIG_SIMS, **{k: v_ for k, v_ in cmp_e_big.items() if k != "text"}),
+        **bnd)
+    del big, args_big
     del v, out
 
     # ---- C: the forward step at step t.

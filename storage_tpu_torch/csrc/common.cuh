@@ -90,4 +90,42 @@ static inline void launch_reduce(const float* partials, int nblk, int nout, floa
   reduce_partials_kernel<<<blocks, threads, 0, stream>>>(partials, nblk, nout, out);
 }
 
+// Launch report of a kernel whose dynamic shared memory is
+// fixed_words + words_per_grid_point·G floats, on the current device, into
+// out[6]: sims (threads) per block, the shared memory bytes of a block at G
+// (static and dynamic), the device's limit per block, the largest G within
+// that limit, blocks per SM at G (0 where G does not fit), registers per
+// thread.
+template <typename Kernel>
+static inline cudaError_t kernel_info(Kernel kernel, int threads, size_t fixed_words,
+                                      size_t words_per_grid_point, int G, int* out) {
+  int dev = 0;
+  int limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const size_t dynamic = sizeof(float) * (fixed_words + words_per_grid_point * G);
+  const size_t total = attr.sharedSizeBytes + dynamic;
+  const size_t room = static_cast<size_t>(limit) - attr.sharedSizeBytes;
+  int blocks = 0;
+  if (total <= static_cast<size_t>(limit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dynamic));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dynamic);
+    if (err != cudaSuccess) return err;
+  }
+  out[0] = threads;
+  out[1] = static_cast<int>(total);
+  out[2] = limit;
+  out[3] = room / sizeof(float) < fixed_words
+               ? 0 : static_cast<int>((room / sizeof(float) - fixed_words) / words_per_grid_point);
+  out[4] = blocks;
+  out[5] = attr.numRegs;
+  return cudaSuccess;
+}
+
 }  // namespace stt

@@ -76,3 +76,11 @@ extern "C" int stt_decision_update(
       static_cast<float*>(best_out));
   return static_cast<int>(cudaGetLastError());
 }
+
+// Kernel D's launch report at (G, D, B) on the current device (common.cuh:
+// kernel_info).
+extern "C" int stt_decision_update_info(int G, int D, int B, int* out) {
+  if (G < 0 || D < 1 || B < 1 || B > stt::kMaxB) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(stt::kernel_info(decision_update_kernel, kThreads, 0,
+                                           stt::decision_tables_words(1, D, B), G, out));
+}

@@ -52,6 +52,9 @@ SIGNATURES = {
         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P,
     ),
+    # G, D, B, out int[6] (the launch report of kernel B or D)
+    "stt_decision_update_moments_info": (_I, _I, _I, _P),
+    "stt_decision_update_info": (_I, _I, _I, _P),
     # G, S, D, B, v, dm_std_t, spot, idx_lo, w_hi, dci, a, b, best_out, stream
     "stt_decision_update": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # G, S, F, D, basis table, ridge, v, spot, factors, spot_prev,

@@ -33,10 +33,14 @@ column fallback, interpolate the coefficients — then B's update.
 The kernels are ``csrc/decision_kernel.cu`` (B), ``csrc/decision_update_kernel.cu``
 (D) and ``csrc/fullstep_kernel.cu`` (E, which launches B's kernel after its
 solve); each ``*_plain`` function is the same function in tensor code, used
-for CPU tensors.
+for CPU tensors.  B's kernel keeps only the step tables and two fixed tiles
+in shared memory, so B and E take any grid whose tables fit the card
+(``kernel_info`` gives the largest) and raise ``ValueError`` beyond it.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import typing as tp
 
 import torch
@@ -108,6 +112,54 @@ def _check_shapes(name: str, shapes) -> None:
             raise ValueError(f"{name}: {arg} is {tuple(t.shape)}, want {shape}")
 
 
+_INFO_FIELDS = ("sims_per_block", "smem_bytes", "smem_limit", "max_grid", "blocks_per_sm",
+                "registers")
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_info(entry: str, g: int, d: int, bdim: int, device_index: int) -> dict:
+    out = (ctypes.c_int * len(_INFO_FIELDS))()
+    lib = _build.library()
+    with torch.cuda.device(device_index):
+        _build.check(getattr(lib, entry)(g, d, bdim, out), entry)
+    return dict(zip(_INFO_FIELDS, out))
+
+
+def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device) -> dict:
+    """Launch report of kernel B (``"moments"``, also run by kernel E) or
+    kernel D (``"update"``) at G grid points, D decisions and B basis
+    functions on a CUDA device: sims per block, shared memory bytes per block
+    (static and dynamic), the device's limit per block, the largest G within
+    it at this D and B, blocks per SM (0 where G does not fit) and registers
+    per thread."""
+    entry = {"moments": "stt_decision_update_moments_info",
+             "update": "stt_decision_update_info"}[kernel]
+    return _kernel_info(entry, g, d, bdim, torch.device(device).index or 0)
+
+
+def moments_scratch(name: str, g: int, d: int, bdim: int, s: int, device: torch.device):
+    """The scratch of kernel B's moments, for B and for E, which launches
+    B's kernel: the per-block partials [nblk, B·B + G·B], one contiguous row
+    per block of sims, and the reduced moments [B·B + G·B]: XᵀX, then
+    (Xᵀ·best_act)ᵀ as [G, B].  Raises ``ValueError`` where the step tables
+    of G grid points do not fit the card's shared memory."""
+    info = kernel_info("moments", g, d, bdim, device)
+    if info["smem_bytes"] > info["smem_limit"]:
+        raise ValueError(
+            f"{name}: G={g} grid points at D={d} decisions and B={bdim} basis functions need "
+            f"{info['smem_bytes']} bytes of shared memory per block (the step tables grow with "
+            f"G); this card allows {info['smem_limit']}, so at most G={info['max_grid']}")
+    nblk = -(-s // info["sims_per_block"])
+    npairs = bdim * bdim + g * bdim
+    return (torch.empty((nblk, npairs), dtype=torch.float32, device=device),
+            torch.empty((npairs,), dtype=torch.float32, device=device))
+
+
+def _split_moments(moments, g: int, bdim: int):
+    """(xtx [B, B], xty [B, G]) as views of the reduced moments."""
+    return moments[: bdim * bdim].view(bdim, bdim), moments[bdim * bdim:].view(g, bdim).T
+
+
 def decision_update_moments(
     v: torch.Tensor,             # [G, S] next-period actual values
     spot: torch.Tensor,          # [S] step-t spot
@@ -164,12 +216,8 @@ def decision_update_moments(
         "ci": (ci, (d, g, bdim)), "a": (a, (d, g)), "b": (b, (d, g)),
         "out": (out, (g, s)),
     })
-    nblk = -(-s // 128)
-    npairs = bdim * bdim + g * bdim
-    partials = torch.empty((npairs, nblk), dtype=torch.float32, device=device)
-    moments = torch.empty((npairs,), dtype=torch.float32, device=device)
-    lib = _build.library()
-    rc = lib.stt_decision_update_moments(
+    partials, moments = moments_scratch("decision_update_moments", g, d, bdim, s, device)
+    rc = _build.library().stt_decision_update_moments(
         g, s, f, d, _build.basis_table(tuple(monomials), f), v.data_ptr(),
         spot.data_ptr(), factors.data_ptr(), spot_prev.data_ptr(),
         factors_prev.data_ptr(), mean.data_ptr(), std.data_ptr(),
@@ -180,9 +228,7 @@ def decision_update_moments(
     )
     decision_update_moments.launches += 1
     _build.check(rc, "decision_update_moments")
-    xtx = moments[: bdim * bdim].view(bdim, bdim)
-    xty = moments[bdim * bdim:].view(g, bdim).T
-    return out, xtx, xty
+    return (out, *_split_moments(moments, g, bdim))
 
 
 decision_update_moments.launches = 0
@@ -339,11 +385,8 @@ def decision_update_fullstep(
     if prev:
         shapes.update(mean_prev=(mean_prev, (bdim,)), std_prev=(std_prev, (bdim,)))
     _check_shapes("decision_update_fullstep", shapes)
-    nblk = -(-s // 128)
-    npairs = bdim * bdim + g * bdim
+    partials, moments = moments_scratch("decision_update_fullstep", g, d, bdim, s, device)
     dci = torch.empty((d, g, bdim), dtype=torch.float32, device=device)
-    partials = torch.empty((npairs, nblk), dtype=torch.float32, device=device)
-    moments = torch.empty((npairs,), dtype=torch.float32, device=device)
     rc = _build.library().stt_decision_update_fullstep(
         g, s, f, d, _build.basis_table(tuple(monomials), f), ridge_for(torch.float32),
         v.data_ptr(), spot.data_ptr(), factors.data_ptr(), spot_prev.data_ptr(),
@@ -356,9 +399,7 @@ def decision_update_fullstep(
     )
     decision_update_fullstep.launches += 1
     _build.check(rc, "decision_update_fullstep")
-    xtx_next = moments[: bdim * bdim].view(bdim, bdim)
-    xty_next = moments[bdim * bdim:].view(g, bdim).T
-    return out, xtx_next, xty_next, mean, std, coeffs
+    return (out, *_split_moments(moments, g, bdim), mean, std, coeffs)
 
 
 decision_update_fullstep.launches = 0

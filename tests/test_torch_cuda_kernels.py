@@ -19,6 +19,7 @@ from storage_tpu_torch.ops import decision_kernel, forward_kernel, interp, rng_k
 pytestmark = pytest.mark.cuda
 
 BASIS = "1 + s + x0 + x1 + x0**2 + s*x2"
+BASIS_9 = "1 + x0 + x1 + x2 + x0**2 + x1**2 + x2**2 + s + s**2"  # the main path's 9 terms
 
 
 @pytest.fixture
@@ -53,16 +54,45 @@ def _decision_args(device, g, s, d, f, basis=BASIS, seed=3):
             20.0 * rnd(d, g), monomials)
 
 
+@pytest.mark.parametrize("g", [11, 400, 1000])
 @pytest.mark.parametrize("f", [3, 0], ids=["factors", "spot-only"])
-def test_decision_update_moments(device, f):
-    """Kernel B, also on spot-only panels: an empty [0, S] factor tensor (its
-    data pointer may be null) is never read."""
-    args = _decision_args(device, 11, 300, 5, f, basis=BASIS if f else "1 + s + s**2")
+def test_decision_update_moments(device, f, g):
+    """Kernel B, also on spot-only panels (an empty [0, S] factor tensor,
+    whose data pointer may be null, is never read) and beyond 338 grid
+    points, where its first design ran out of shared memory at D=3, B=9."""
+    d = 5 if g == 11 else 3
+    basis = (BASIS if g == 11 else BASIS_9) if f else "1 + s + s**2"
+    args = _decision_args(device, g, 300, d, f, basis=basis)
     got = decision_kernel.decision_update_moments(*args)
     want = decision_kernel.decision_update_moments_plain(*args)
     torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-4)
     for k in (1, 2):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5 * float(want[k].abs().max()))
+
+
+def test_decision_update_moments_deterministic(device):
+    """Two launches on the same inputs give the same bits: the moments are
+    summed in a fixed order, with no atomics."""
+    args = _decision_args(device, 100, 5000, 3, 3, basis=BASIS_9)
+    first = [t.clone() for t in decision_kernel.decision_update_moments(*args)]
+    second = decision_kernel.decision_update_moments(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_grid_beyond_shared_memory_raises(device):
+    """Where even the step tables exceed the card's shared memory, kernels B
+    and E refuse with the limit in the message."""
+    info = decision_kernel.kernel_info("moments", 100, 3, 9, device)
+    g = info["max_grid"] + 1
+    args = _decision_args(device, g, 64, 3, 3, basis=BASIS_9)
+    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
+        decision_kernel.decision_update_moments(*args)
+    v, spot, factors, spot_prev, factors_prev, mean, std, _, _, idx_lo, w_hi, _, a, b, mono = args
+    xtx, xty = torch.eye(9, device=device), torch.ones((9, g), device=device)
+    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
+        decision_kernel.decision_update_fullstep(v, spot, factors, spot_prev, factors_prev, xtx,
+                                                 xty, mean, std, idx_lo, w_hi, a, b, mono)
 
 
 def test_decision_update(device):
@@ -75,10 +105,12 @@ def test_decision_update(device):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-4)
 
 
+@pytest.mark.parametrize("g", [11, 400, 1000])
 @pytest.mark.parametrize("prev", [False, True], ids=["u-coordinates", "given-stats"])
-def test_decision_update_fullstep(device, prev):
-    """Kernel E from moments of a random design against random values."""
-    args = _decision_args(device, 11, 300, 5, 3)
+def test_decision_update_fullstep(device, prev, g):
+    """Kernel E from moments of a random design against random values, also
+    beyond the 338 grid points of kernel B's first design."""
+    args = _decision_args(device, g, 300, 5 if g == 11 else 3, 3, basis=BASIS if g == 11 else BASIS_9)
     v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, _, a, b, mono = args
     dm = (decision_kernel._standardised_design(mono, spot, factors, mean, std))
     xtx, xty = dm.T @ dm, dm.T @ (v.T * 0.9)

@@ -52,8 +52,11 @@ def _torch_args(c, mean_prev=None, std_prev=None):
             t["w_hi"], t["ci"], t["a"], t["b"], tuple(parse_basis_functions(BASIS)))
 
 
-@pytest.mark.parametrize("g,s,d,f", [(10, 256, 3, 2), (12, 384, 5, 3)])
+@pytest.mark.parametrize("g,s,d,f", [(10, 256, 3, 2), (12, 384, 5, 3),
+                                     (400, 256, 3, 3), (1000, 256, 3, 3)])
 def test_plain_matches_pallas_kernel(g, s, d, f):
+    """Also beyond 338 grid points, where kernel B's first CUDA design ran
+    out of shared memory at D=3, B=9."""
     c = _case(g + d, g, s, d, f)
     w_mat = jdk.interp_weight_matrix(jnp.asarray(c["idx_lo"]), jnp.asarray(c["w_hi"]), g,
                                      jnp.float32)
