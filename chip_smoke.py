@@ -12,7 +12,13 @@
    operations).  Kernels B and E are also held against their plain versions
    at G=1,000 (S=65,536, random inputs), B's outputs must be the same bits
    over two launches, and B's launch report (shared memory, blocks per SM,
-   registers) is printed beside kernel D's.
+   registers) is printed beside kernel D's.  Kernel C's sweep runs the main
+   path's 365 steps on its real tables (a backward pass) and paths: against
+   its plain version (per-sim paths may part only on a near-tie), against
+   itself with the per-sim panels and against 365 one-step launches (the
+   same bits); then at G=1,000 (8 steps, S=65,536) and on spot-only panels
+   (32 steps), with the panels; its launch report and SASS size are
+   printed.
 4. Values the repository's headline daily case through the public API —
    a 365-day ratcheted facility, 3-factor seasonal model, 9-term basis,
    262,144 paths per set, f32, seeds 11/13 — once to warm up, then five
@@ -20,9 +26,10 @@
    the NPV is within 0.1 SE of the same valuation in f64 on the same draws
    and within 3 SE of the reference record (114,941.8, ``BENCH_r05.json``),
    and that kernel A ran for both path sets, kernel B once per backward step
-   and kernel C once per forward step.  Then the same valuation with the
-   port's default ``snap_interp=False`` (held to the same bounds) and with
-   the TPU run's numerics (held within 0.1 SE of the record).
+   and kernel C once: one forward sweep per valuation.  Then the same
+   valuation with the port's default ``snap_interp=False`` (held to the same
+   bounds) and with the TPU run's numerics (held within 0.1 SE of the
+   record).
 5. The round trip: the headline valuation with every per-sim panel
    (``sim_data_returned=ALL``), then ``value_from_sims`` fed its four path
    panels with the same flags must reproduce its NPV, SE and deltas to the
@@ -82,8 +89,8 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
     "normal_halves": ("storage_tpu_torch/csrc/rng_kernel.cu", "storage_tpu/ops/rng_kernel.py:175"),
     "decision_update_moments": ("storage_tpu_torch/csrc/decision_kernel.cu",
                                 "storage_tpu/ops/decision_kernel.py:381"),
-    "forward_step": ("storage_tpu_torch/csrc/forward_kernel.cu",
-                     "storage_tpu/ops/forward_kernel.py:372"),
+    "forward_sweep": ("storage_tpu_torch/csrc/forward_kernel.cu",
+                      "storage_tpu/ops/forward_kernel.py:372"),
     "decision_update": ("storage_tpu_torch/csrc/decision_update_kernel.cu",
                         "storage_tpu/ops/decision_kernel.py:308"),
     "decision_update_fullstep": ("storage_tpu_torch/csrc/fullstep_kernel.cu",
@@ -441,8 +448,8 @@ def check_kernels(pkg, device):
                                     max_ulp=ulp, words_bit_identical=words_equal, **bnd)
 
     st = backward_step_inputs(pkg, device)
-    inputs, arrays, monomials, sims, t, gen = st.inputs, st.arrays, st.monomials, st.sims, st.t, st.gen
-    step, mean, std, v, coeffs = st.step, st.mean, st.std, st.v, st.coeffs
+    monomials, sims, t = st.monomials, st.sims, st.t
+    step, mean, std, v = st.step, st.mean, st.std, st.v
     b_dim = len(monomials)
     args_b = st.args_b
 
@@ -539,22 +546,195 @@ def check_kernels(pkg, device):
     del big, args_big
     del v, out
 
-    # ---- C: the forward step at step t.
+    results["forward_sweep"] = check_forward(pkg, device, st)
+    torch.cuda.synchronize()
+    return results
+
+
+def forward_work(n, s, f, b, g, r, d, panels: bool):
+    """(bytes, f32 operations) of a forward sweep of N steps over S sims, each
+    input read once and each output written once: per step and sim its spot
+    and F factor values in; once each sim's starting inventory in and final
+    inventory and PV out; every step's packed tables in and sums and summed
+    design row out; with the panels, four [N, S] rows out.  Operations per sim
+    and step: the design row (~5B) and, per decision, the continuation at two
+    rows (4B) and ~25 more."""
+    from storage_tpu_torch.ops import forward_kernel
+
+    width = forward_kernel.table_layout(b, r, g)[1]
+    num_bytes = 4.0 * ((1 + f) * n * s + 3 * s + n * width + n * (forward_kernel.NUM_SUMS + b)
+                       + (4 * n * s if panels else 0))
+    return num_bytes, float(n) * s * (5 * b + d * (4 * b + 25))
+
+
+def forward_sweep_inputs(pkg, device, st):
+    """The main path's forward sweep: the headline facility's tables, the
+    regression of a backward pass over the regression paths of ``st`` and the
+    valuation paths (seed 13); ``forward_sweep``'s arguments."""
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import forward_kernel
+
+    arrays, monomials, n = st.arrays, st.monomials, NUM_STEPS
+    tfn = st.inputs.compiled.terminal_value
+    _, regression = engine.lsmc_backward(arrays, st.sims.spot, st.sims.factors, monomials, 0, tfn,
+                                         False, snap_interp=True)
+    _, sim_in, _, _ = engine_inputs(pkg, device)
+    val = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(13),
+                                     torch.arange(NUM_SIMS, device=device), *sim_in)
+    step = {k: arrays[k] for k in engine._SCALARS}
+    step.update(next_min=arrays["lower"][1:], next_max=arrays["upper"][1:])
+    params = forward_kernel.pack_params(step, arrays["grids"][1:])
+    return (params, regression["mean"], regression["std"],
+            *(arrays[k][:n].contiguous() for k in ("ratchet_inv", "ratchet_min", "ratchet_max")),
+            val.spot[:n], val.factors[:n], torch.full((NUM_SIMS,), 100.0, device=device), None,
+            regression["coeffs"], monomials, 0, False)
+
+
+def random_sweep(device, n, s, g, f, seed):
+    """``forward_sweep``'s arguments for N steps of random tables that change
+    from step to step (a shrinking band, shifting ratchets, random design
+    stats and coefficients) over random paths: the checks beyond the headline
+    (G = 1,000; spot-only panels)."""
+    import torch
+
+    from storage_tpu_torch.basis import parse_basis_functions
+    from storage_tpu_torch.ops import forward_kernel
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    monomials = tuple(parse_basis_functions(BASIS if f else SPOT_BASIS))
+    b = len(monomials)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    t = torch.arange(n, dtype=torch.float32, device=device)
+    next_min, next_max = 20.0 * t, 5000.0 - 30.0 * t
+    scalars = dict(df_settle=0.99 - 0.001 * t, df_flow=0.99 - 0.001 * t,
+                   inj_cost=0.9 + 0.0 * t, wdr_cost=0.7 + 0.0 * t, inj_pcnt=0.01 + 0.0 * t,
+                   wdr_pcnt=0.005 + 0.0 * t, loss_pcnt=0.001 + 0.0 * t,
+                   inv_cost_rate=0.02 + 0.0 * t, next_min=next_min, next_max=next_max)
+    frac = torch.linspace(0.0, 1.0, g, device=device)
+    grid_next = next_min[:, None] + (next_max - next_min)[:, None] * frac[None, :]
+    params = forward_kernel.pack_params(scalars, grid_next)
+    nodes = torch.tensor([0.0, 2500.0, 5000.0], device=device)[None, :] + 10.0 * t[:, None]
+    coeffs = 50.0 * rnd(n, b, g)
+    coeffs[:, 0] = 30.0 * grid_next
+    return (params, 0.3 * rnd(n, b), 1.0 + 0.2 * rnd(n, b).abs(), nodes.contiguous(),
+            (torch.tensor([-200.0, -250.0, -300.0], device=device) - t[:, None]).contiguous(),
+            (torch.tensor([300.0, 250.0, 200.0], device=device) + t[:, None]).contiguous(),
+            30.0 + 5.0 * rnd(n, s), rnd(n, f, s), 5000.0 * torch.rand(s, generator=gen,
+                                                                    device=device),
+            None, coeffs, monomials, 0, False)
+
+
+def sweep_by_steps(args, panels):
+    """The sweep as N launches of the one-step kernel (``forward_step``, the
+    sweep at N = 1), each writing its panel rows: (inventory, pv, sums, xbar)."""
+    import torch
+
+    from storage_tpu_torch.ops import forward_kernel
+
+    params, mean, std, r_inv, r_min, r_max, spot, factors, inv, pv, coeffs, mono, e, is_step = args
+    pv = torch.zeros_like(inv) if pv is None else pv
+    sums, xbar = [], []
+    for t in range(spot.shape[0]):
+        out = (panels[0][t], torch.empty_like(pv), panels[1][t], panels[2][t])
+        inv, pv, _, _, sums_t, xbar_t = forward_kernel.forward_step(
+            params[t], mean[t], std[t], r_inv[t], r_min[t], r_max[t], spot[t], factors[t], inv,
+            pv, coeffs[t], mono, e, is_step, out=out, imm_out=panels[3][t])
+        sums.append(sums_t)
+        xbar.append(xbar_t)
+    return inv, pv, torch.stack(sums), torch.stack(xbar)
+
+
+def compare_sweep(args, got=None, got_panels=None) -> dict:
+    """The sweep kernel (or ``got``, its result with ``got_panels``) against
+    ``forward_sweep_plain`` on ``args``, both with the per-sim panels.  The
+    kernel does the plain version's arithmetic in the same order, so a sim
+    may differ beyond 1e-6 of the largest value (final PV and inventory, or
+    any panel row) only where its path flipped on a near-tie: at the first
+    step where the two part, the best two of the plain version's totals
+    within 1e-5 of the largest.  At most 1e-5·S such sims; sums and summed
+    design rows within 1e-4 relative (f32 sums in another order)."""
+    import torch
+
+    from storage_tpu_torch.ops import forward_kernel
+
+    (params, mean, std, r_inv, r_min, r_max, spot, factors, inv0, _, coeffs, mono, e,
+     is_step) = args
+    n, s = spot.shape
+    if got is None:
+        got_panels = [torch.empty((n, s), device=spot.device) for _ in range(4)]
+        got = forward_kernel.forward_sweep(*args, panels=got_panels)
+    want_panels = [torch.empty((n, s), device=spot.device) for _ in range(4)]
+    want = forward_kernel.forward_sweep_plain(*args, panels=want_panels)
+
+    def beyond(g_, w_):
+        return ~((g_ - w_).abs() <= 1e-6 * max(float(w_.abs().max()), 1.0))
+
+    pairs = [(got[0], want[0]), (got[1], want[1]), *zip(got_panels, want_panels)]
+    err = max(float((g_ - w_).abs().max()) for g_, w_ in pairs)
+    mismatch = beyond(got[0], want[0]) | beyond(got[1], want[1])
+    for g_, w_ in zip(got_panels, want_panels):
+        mismatch |= beyond(g_, w_).any(dim=0)
+    idx = mismatch.nonzero().flatten()
+    unexplained = 0
+    if idx.numel():
+        parted = torch.stack([beyond(g_[:, idx], w_[:, idx])
+                              for g_, w_ in zip(got_panels, want_panels)]).any(dim=0)
+        first = parted.int().argmax(dim=0)  # the first step where each sim's rows part
+        for t in sorted(set(first.tolist())):
+            cols = idx[first == t]
+            inv_t = inv0[cols] if t == 0 else want_panels[0][t - 1, cols]
+            candidates, _, _ = forward_kernel.decision_candidates(
+                params[t], mean[t], std[t], r_inv[t], r_min[t], r_max[t], spot[t, cols],
+                factors[t][:, cols], inv_t, coeffs[t], mono, e, is_step)
+            totals = torch.stack([total for total, _ in candidates])
+            top2 = totals.topk(2, dim=0).values
+            near = (top2[0] - top2[1]) <= 1e-5 * totals.abs().max(dim=0).values
+            unexplained += int((~near).sum())
+    flips = int(idx.numel())
+    sums_err = max(rel_err(got[2], want[2]), rel_err(got[3], want[3]))
+    pv_err = float(((got[1] - want[1]).abs() / want[1].abs().max()).max())
+    ok = not unexplained and flips <= 1e-5 * s and sums_err <= 1e-4
+    text = (f"final PV max rel err {pv_err:.3e}, per-sim values (final inventory and PV, every "
+            f"panel row) max abs err {err:.3e}; {flips} of {s} sims beyond 1e-6 relative (paths "
+            f"flipped), {unexplained} of them off a near-tie (tolerance 0, at most 1e-5*S); sums/"
+            f"xbar max rel err {sums_err:.3e} (tolerance 1e-4)")
+    return dict(ok=ok, text=text, max_abs_err=err, pv_max_rel_err=pv_err, flips=flips,
+                unexplained_flips=unexplained, sums_max_rel_err=sums_err)
+
+
+def check_forward(pkg, device, st) -> dict:
+    """Kernel C: one step against its plain version at step t of ``st``; the
+    main path's sweep against forward_sweep_plain, against itself with the
+    panels and against N launches of the one-step kernel (the same bits);
+    then at G = 1,000 and on spot-only panels.  Times the sweep, N one-step
+    launches and the plain sweep; the sweep's launch report and SASS size."""
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.ops import _build, forward_kernel
+
+    inputs, arrays, monomials, sims, t, gen = st.inputs, st.arrays, st.monomials, st.sims, st.t, st.gen
+    s, f, b_dim = NUM_SIMS, 3, len(monomials)
+
+    # ---- one step (t of st) against the plain version.
     step_c = {k: arrays[k] for k in engine._SCALARS}
     step_c.update(next_min=arrays["lower"][1:], next_max=arrays["upper"][1:])
     params = forward_kernel.pack_params(step_c, arrays["grids"][1:])[t].contiguous()
     lo_b, hi_b = float(inputs.inventory_lower[t]), float(inputs.inventory_upper[t])
     inventory = lo_b + (hi_b - lo_b) * torch.rand(s, generator=gen, device=device)
     pv = 100.0 * torch.randn(s, generator=gen, device=device)
-    args_c = (params, mean[1], std[1], arrays["ratchet_inv"][t], arrays["ratchet_min"][t],
+    args_c = (params, st.mean[1], st.std[1], arrays["ratchet_inv"][t], arrays["ratchet_min"][t],
               arrays["ratchet_max"][t], sims.spot[t], sims.factors[t], inventory, pv,
-              coeffs, monomials, 0, False)
+              st.coeffs, monomials, 0, False)
     imm, imm_plain = torch.empty_like(pv), torch.empty_like(pv)
     got = forward_kernel.forward_step(*args_c, imm_out=imm)
     want = forward_kernel.forward_step_plain(*args_c, imm_out=imm_plain)
-    # As in B: new inventory, PV, volume, fuel and immediate PV within f32
-    # rounding of the plain version, except on sims whose argmax flipped on a
-    # near-tie of the decisions' total values.
+    # New inventory, PV, volume, fuel and immediate PV within f32 rounding of
+    # the plain version, except on sims whose argmax flipped on a near-tie of
+    # the decisions' total values.
     mismatch = torch.zeros(s, dtype=torch.bool, device=device)
     for g_i, w_i in (*zip(got[:4], want[:4]), (imm, imm_plain)):
         tol_i = 1e-6 * max(float(w_i.abs().max()), 1.0)
@@ -570,25 +750,76 @@ def check_kernels(pkg, device):
     sums_err = max(
         float(((got[i] - want[i]).abs().max() / want[i].abs().max().clamp(min=1.0))) for i in (4, 5)
     )
-    ms = cuda_ms(lambda: forward_kernel.forward_step(*args_c), 50)
-    plain_ms = cuda_ms(lambda: forward_kernel.forward_step_plain(*args_c), 10)
-    # Per sim: spot, inventory, pv and F factors in; inventory, pv, volume
-    # and fuel out.  Operations: the design row (~5B), per decision the
-    # continuation at two rows (4B) and ~25 more.
-    bnd = bound(4.0 * ((3 + f + 4) * s + b_dim * NUM_GRID),
-                float(s) * (5 * b_dim + 3 * (4 * b_dim + 25)))
-    log(f"kernel C forward_step [S={s}, G={NUM_GRID}, D=3, B={b_dim}, R=3]: per-sim "
-        f"(inventory, PV, volume, fuel, immediate PV) max abs err {err_c:.3e}; {flips_c} sims "
-        f"beyond 1e-6 relative (argmax flips), {unexplained_c} of them off a near-tie "
-        f"(tolerance 0); sums/xbar max rel err {sums_err:.3e} (tolerance 1e-4); "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    step_ms = cuda_ms(lambda: forward_kernel.forward_step(*args_c), 50)
+    log(f"kernel C forward_step (the sweep at N=1) [S={s}, G={NUM_GRID}, D=3, B={b_dim}, R=3]: "
+        f"per-sim (inventory, PV, volume, fuel, immediate PV) max abs err {err_c:.3e}; {flips_c} "
+        f"sims beyond 1e-6 relative (argmax flips), {unexplained_c} of them off a near-tie "
+        f"(tolerance 0); sums/xbar max rel err {sums_err:.3e} (tolerance 1e-4); {step_ms:.4f} ms "
+        f"a launch")
     if unexplained_c or flips_c > 1e-5 * s or sums_err > 1e-4:
-        raise AssertionError("kernel C disagrees with its plain version")
-    results["forward_step"] = dict(
-        max_abs_err=err_c, ms=ms, plain_ms=plain_ms, flips=flips_c, sums_max_rel_err=sums_err,
+        raise AssertionError("kernel C's step disagrees with its plain version")
+    del args_c, got, want, candidates, totals, mismatch
+
+    # ---- the main path's sweep: against itself with the panels, against N
+    # one-step launches (the same bits) and against the plain sweep.
+    args = forward_sweep_inputs(pkg, device, st)
+    n = NUM_STEPS
+    bare = [x.clone() for x in forward_kernel.forward_sweep(*args)]
+    panels = [torch.empty((n, s), device=device) for _ in range(4)]
+    with_panels = forward_kernel.forward_sweep(*args, panels=panels)
+    step_panels = [torch.empty((n, s), device=device) for _ in range(4)]
+    by_steps = sweep_by_steps(args, step_panels)
+    same_panels = all(torch.equal(x, y) for x, y in zip(bare, with_panels))
+    same_steps = (all(torch.equal(x, y) for x, y in zip(with_panels, by_steps))
+                  and all(torch.equal(x, y) for x, y in zip(panels, step_panels)))
+    del step_panels, by_steps
+    cmp_main = compare_sweep(args, with_panels, panels)
+    ms = cuda_ms(lambda: forward_kernel.forward_sweep(*args), 20)
+    ms_panels = cuda_ms(lambda: forward_kernel.forward_sweep(*args, panels=panels), 10)
+    steps_ms = cuda_ms(lambda: sweep_by_steps(args, panels), 3)
+    plain_ms = cuda_ms(lambda: forward_kernel.forward_sweep_plain(*args), 1)
+    del panels
+    g_, r_ = args[10].shape[2], args[3].shape[1]
+    bnd = bound(*forward_work(n, s, f, b_dim, g_, r_, 3, panels=False))
+    bnd_panels = bound(*forward_work(n, s, f, b_dim, g_, r_, 3, panels=True))
+    info = forward_kernel.kernel_info(g_, b_dim, r_, f, 0, device)
+    sass = _build.sass_instructions(_build.library_path(), forward_kernel.sass_name(b_dim))
+    log(f"kernel C forward_sweep [N={n}, S={s}, G={g_}, D=3, B={b_dim}, F={f}, R={r_}], the main "
+        f"path's tables and paths: {cmp_main['text']}; bit-identical with the panels on: "
+        f"{same_panels}; bit-identical to {n} one-step launches (final inventory and PV, every "
+        f"panel row, sums, xbar): {same_steps}; {ms:.4f} ms a sweep ({ms_panels:.4f} ms with the "
+        f"panels, bound {bnd_panels['bound_ms']:.4f}) vs {steps_ms:.3f} ms for {n} one-step "
+        f"launches, plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
+        f"launch: {info['smem_bytes']} bytes of shared memory per block (limit "
+        f"{info['smem_limit']}, so G <= {info['max_grid']}), {info['blocks_per_sm']} blocks of "
+        f"{info['sims_per_block']} sims per SM, {info['registers']} registers, {sass} SASS "
+        f"instructions")
+    del args
+
+    # ---- G = 1,000 with a few steps, and spot-only panels, with the panels.
+    checks = {}
+    for name, (n_x, s_x, g_x, f_x) in {"big_grid": (8, BIG_SIMS, BIG_GRID, 3),
+                                       "spot_only": (32, NUM_SIMS, NUM_GRID, 0)}.items():
+        checks[name] = compare_sweep(random_sweep(device, n_x, s_x, g_x, f_x, seed=17))
+        log(f"kernel C forward_sweep [{name}: N={n_x}, S={s_x}, G={g_x}, F={f_x}, random tables, "
+            f"panels on]: {checks[name]['text']}")
+    for c in (cmp_main, *checks.values()):
+        if not c["ok"]:
+            raise AssertionError(f"kernel C's sweep disagrees with its plain version: {c['text']}")
+    if not (same_panels and same_steps):
+        raise AssertionError("kernel C's sweep is not the same bits as its one-step launches")
+    return dict(
+        max_abs_err=cmp_main["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        **{k: v_ for k, v_ in cmp_main.items() if k not in ("text", "max_abs_err", "ok")},
+        ms_with_panels=ms_panels, bound_with_panels_ms=bnd_panels["bound_ms"],
+        steps_ms=steps_ms, step_ms=step_ms, bit_identical_to_steps=same_steps,
+        bit_identical_with_panels=same_panels, smem_bytes=info["smem_bytes"],
+        blocks_per_sm=info["blocks_per_sm"], registers=info["registers"],
+        sims_per_block=info["sims_per_block"], max_grid=info["max_grid"],
+        sass_instructions=sass,
+        step=dict(max_abs_err=err_c, flips=flips_c, sums_max_rel_err=sums_err),
+        **{name: {k: v_ for k, v_ in c.items() if k != "text"} for name, c in checks.items()},
         **bnd)
-    torch.cuda.synchronize()
-    return results
 
 
 def tpu_numerics_valuation(pkg, device):
@@ -745,7 +976,7 @@ def round_trip(pkg, device, counts, main_npv):
         times["wall_s"] = time.perf_counter() - t0
         launches = counts.read()
         expected = counts.expect(normal_halves=2 if name == "source" else 0,
-                                 decision_update_moments=NUM_STEPS, forward_step=NUM_STEPS)
+                                 decision_update_moments=NUM_STEPS, forward_sweep=1)
         log(f"round trip, {name}: NPV {res.npv!r} SE {res.val_sim_standard_error!r}; wall "
             f"{times['wall_s']:.3f} s, of it engine (device work, synchronized) "
             f"{times['engine_s']:.3f} s, per-sim frames {times['panel_assembly_s']:.3f} s, user "
@@ -791,7 +1022,7 @@ def spot_only_valuation(pkg, device, counts, src, main):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
-    expected = counts.expect(decision_update=NUM_STEPS, forward_step=NUM_STEPS)
+    expected = counts.expect(decision_update=NUM_STEPS, forward_sweep=1)
     se = res.val_sim_standard_error
     off = (res.npv - F64_SPOT_NPV) / se
     gap = (res.npv - main.npv) / main.val_sim_standard_error
@@ -825,7 +1056,7 @@ def fullstep_valuation(pkg, device, counts, main):
                            0, False, tfn, False, snap_interp=True, fullstep=True)
     npv, se = float(out["npv"]), float(out["standard_error"])
     launches = counts.read()
-    expected = counts.expect(decision_update_fullstep=NUM_STEPS, forward_step=NUM_STEPS)
+    expected = counts.expect(decision_update_fullstep=NUM_STEPS, forward_sweep=1)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
     z = check_npv(npv, se, snap_interp=True)
@@ -875,8 +1106,7 @@ def measure_f64(pkg, device):
                           lambda *a, out=None: decision_kernel.decision_update_moments_plain(*a)),
         mock.patch.object(decision_kernel, "decision_update",
                           lambda *a, out=None: decision_kernel.decision_update_plain(*a)),
-        mock.patch.object(forward_kernel, "forward_step",
-                          lambda *a, out=None, imm_out=None: forward_kernel.forward_step_plain(*a)),
+        mock.patch.object(forward_kernel, "forward_sweep", forward_kernel.forward_sweep_plain),
     ]
     for patch in plain:
         patch.start()
@@ -1001,7 +1231,7 @@ def main(argv) -> int:
 
     # ---- the main path through the public API.
     counts = LaunchCounts((rng_kernel.normal_halves, decision_kernel.decision_update_moments,
-                           forward_kernel.forward_step, decision_kernel.decision_update,
+                           forward_kernel.forward_sweep, decision_kernel.decision_update,
                            decision_kernel.decision_update_fullstep))
     value(stt, device, snap_interp=True)  # warm-up
     torch.cuda.synchronize()
@@ -1024,7 +1254,7 @@ def main(argv) -> int:
         f"{[round(w, 4) for w in walls]} = {rate:.1f} paths*steps/s; launches {launches} "
         f"[{card}]")
     expected = counts.expect(normal_halves=2, decision_update_moments=NUM_STEPS,
-                             forward_step=NUM_STEPS)
+                             forward_sweep=1)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
     deltas = res.deltas.to_numpy()
@@ -1072,11 +1302,13 @@ def main(argv) -> int:
     report["profile"] = profile_valuation(stt, device, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    # Kernel C's ms is per sweep of all steps; its launch report beside it.
+    extra = {"forward_sweep": ("smem_bytes", "blocks_per_sm", "registers", "sass_instructions")}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src_file, "replaces": rep,
          "launches": launches[name], **{k: kernels[name][k] for k in keys},
          # No single PyTorch call computes any of these functions.
-         "library_ms": None}
+         "library_ms": None, **{k: kernels[name][k] for k in extra.get(name, ())}}
         for name, (src_file, rep) in SOURCES.items()
     ]}
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))

@@ -1,27 +1,57 @@
-// Kernel C: one forward LSMC step per sim.
+// Kernel C: the forward LSMC pass as one sweep over every step.
 //
 // Replaces the TPU kernel storage_tpu/ops/forward_kernel.py:forward_step_pallas
-// (_forward_kernel, _ratchet_rates_smem, _bang_bang).  Per sim: the
-// standardised design row; ratchet rates at the sim's inventory from the
-// R-node table (linear or step); the bang-bang decision set (D = 2e + 3); per
-// decision the fitted continuation at the target inventory, the immediate
-// value with costs, fuel and inventory cost, and a first-max argmax; then the
-// new inventory and PV and the chosen volume and fuel.  The step's cross-sim
-// sums (inventory, volume, fuel, loss, immediate value, delta numerator) and
-// the summed design row go out as per-block partials, reduced in a fixed order
-// by a second small kernel (no float atomics).  Where the caller asks for the
-// per-sim panels it also passes imm_out, and each sim's chosen immediate PV
-// is written there (NULL: not written).
+// (_forward_kernel, _ratchet_rates_smem, _bang_bang), which the JAX engine
+// launches once per step of its forward lax.scan
+// (storage_tpu/engines/lsmc.py).  Here one launch carries every sim through
+// all N steps.  Per sim and step: the standardised design row; ratchet rates
+// at the sim's inventory from the R-node table (linear or step); the
+// bang-bang decision set (D = 2E + 3); per decision the fitted continuation
+// at the target inventory, the immediate value with costs, fuel and
+// inventory cost, and a first-max argmax; then the new inventory and PV, and
+// the chosen volume, fuel and immediate PV.  The fitted continuation is
+// evaluated only at the two grid rows a decision touches — pred =
+// coeffs[:, row]·dm at lo and lo + 1 — where the TPU, lacking a per-lane
+// gather, evaluated all G rows and contracted a hat.  The edges reproduce
+// that hat sum: a degenerate grid (inv_delta = 0) puts weight 1 on row 0; a
+// position at the top edge takes lo = G − 2 with weight 1.
 //
-// Bound on the H100: launch latency.  Per step a sim reads 6 floats and writes
-// 4 (about 10 MB at 262,144 sims, ~3 us of bandwidth), and the arithmetic is
-// a few hundred flops.  Design: one thread per sim, the regression
-// coefficients [B, G] and the ratchet tables staged in shared memory, and the
-// fitted continuation evaluated only at the two grid rows each decision
-// touches — pred = coeffs[:, row]·dm at lo and lo + 1 — where the TPU, lacking
-// a per-lane gather, evaluated all G rows and contracted a hat.  The edges
-// reproduce that hat sum: a degenerate grid (inv_delta = 0) puts weight 1 on
-// row 0; a position at the top edge takes lo = G − 2 with weight 1.
+// Bound on the H100: device memory.  A sim reads its spot and F factor values
+// once a step: 1.53 GB at N = 365, S = 262,144, F = 3, about 0.46 ms at
+// 3.35 TB/s (twice that with the per-sim panels written); the arithmetic,
+// ~230 operations per sim and step, is below that.  What limits the sweep
+// in practice is its instructions, not its bytes: each operation rounded on
+// its own, eleven IEEE divisions and fifteen warp sums per sim and step.  On
+// an NVIDIA H100 80GB HBM3 at 700.00 W it takes about 4.9 ms (PERF.md,
+// tools/torch_forward_probe.py).  Design:
+//   * A block of kThreads threads carries kSims·kThreads sims through the
+//     whole sweep.  A sim's forward path depends only on its own spot and
+//     factor values and on tables known before the sweep, so blocks never
+//     wait on each other; inventory and PV stay in registers and are written
+//     once, at the end.
+//   * The wrapper packs each step's tables — parameters, design mean and
+//     std, ratchets, coefficients [B, G] — into one row of an [N, W] table.
+//     One thread copies row t + 2 into a two-stage ring in shared memory with
+//     a TMA bulk copy that completes on the stage's mbarrier, while the block
+//     computes steps t and t + 1.
+//   * Each thread copies its sims' spot and factor values of step t + 2 into
+//     its own slots of the ring with 4-byte cp.async: two steps of loads in
+//     flight, no registers held for them.
+//   * The kernel is compiled for each basis size B (1 to stt::kMaxB), so the
+//     design row and the B-term dot products are unrolled loops over
+//     registers with no guards for unused terms.  Each entry of the design
+//     row is stt::design_row's arithmetic (the spot power, then the factor
+//     powers by index, each product rounded on its own) over the term's
+//     nonzero powers only, from a per-block term table: small code.
+//   * The decision arithmetic is the one-step kernel's of the JAX package,
+//     every product and sum rounded on its own, so a sim's path is the plain
+//     version's (ops/forward_kernel.py forward_step_plain) to the bit.
+//   * The step's cross-sim sums (inventory, volume, fuel, loss, immediate
+//     value, delta numerator; the design row) go out as one partials row per
+//     step and group of kThreads sims — warp butterflies, then the warps in
+//     order — and one stt::launch_reduce after the sweep sums the N·(8 + B)
+//     rows over the groups in a fixed order: no float atomics, the same bits
+//     on every run and for every kSims.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -29,15 +59,69 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxR = 64;
+constexpr int kThreads = 256;  // threads per block: one partials group
+constexpr int kSims = 1;       // sims per thread (kSims groups per block)
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;     // ring stages: the tables of two steps
 // Parameter slots (ops/forward_kernel.py pack_params).
 enum {
   P_DF_SETTLE, P_DF_FLOW, P_INJ_COST, P_WDR_COST, P_INJ_PCNT, P_WDR_PCNT,
   P_LOSS_PCNT, P_INV_COST, P_NEXT_MIN, P_NEXT_MAX, P_GRID_LO, P_GRID_HI,
   P_GRID_INVDELTA, NUM_PARAMS
 };
-constexpr int kNumSums = 8;  // 6 used, 2 kept zero (the JAX layout)
+constexpr int kNumSums = 8;   // 6 used, 2 kept zero (the JAX layout)
+constexpr int kUsedSums = 6;
+
+// Floats of one step's packed table (ops/forward_kernel.py table_layout):
+// parameters, mean [B], std [B], ratchet inventories, min and max rates [R]
+// each, coefficients [B, G]; padded to whole 16-byte words for the bulk copy.
+__host__ __device__ inline int table_words(int B, int R, int G) {
+  return (NUM_PARAMS + 2 * B + 3 * R + B * G + 3) / 4 * 4;
+}
+// Floats of one stage's per-sim slots: spot and F factor values of the
+// block's sims, as [1 + F][kSims][kThreads].
+__host__ __device__ inline int slot_words(int F) { return (1 + F) * kSims * kThreads; }
+// Dynamic shared memory, in floats: kStages tables (their padding counted at
+// its most) and slots, then the decision fractions [2, D] (D = 2E + 3).
+__host__ __device__ inline size_t smem_fixed_words(int B, int R, int F, int E) {
+  return static_cast<size_t>(kStages) * (NUM_PARAMS + 2 * B + 3 * R + 3 + slot_words(F)) +
+         2 * (2 * static_cast<size_t>(E) + 3);
+}
+__host__ __device__ inline size_t smem_words_per_grid_point(int B) {
+  return static_cast<size_t>(kStages) * B;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// TMA: `bytes` (a multiple of 16) from global to shared memory, completing
+// on `bar`, which is told first how many bytes to expect.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// 4 bytes from global to shared memory, in this thread's open cp.async group.
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
 
 __device__ __forceinline__ float lerp(float x0, float x1, float w) {
   return __fadd_rn(__fmul_rn(x0, __fsub_rn(1.0f, w)), __fmul_rn(x1, w));
@@ -47,226 +131,366 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-__global__ void forward_step_kernel(
-    int S, int G, int R, int E, int is_step, stt::Basis basis,
-    const float* __restrict__ params_g, const float* __restrict__ mean_g,
-    const float* __restrict__ std_g, const float* __restrict__ rinv_g,
-    const float* __restrict__ rmin_g, const float* __restrict__ rmax_g,
-    const float* __restrict__ spot, const float* __restrict__ factors,
-    const float* __restrict__ inv_in, const float* __restrict__ pv_in,
-    const float* __restrict__ coeffs_g, float* __restrict__ inv_out,
-    float* __restrict__ pv_out, float* __restrict__ dec_out,
-    float* __restrict__ cons_out, float* __restrict__ imm_out,
-    float* __restrict__ partials) {
-  const int B = basis.nb;
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// A basis term as the design row reads it: its count of nonzero powers, then
+// each as (source << 8) | power, the spot (source 0) first and then the
+// factors by index (source 1 + f).
+constexpr int kTermWords = stt::kMaxF + 2;
+
+__device__ __forceinline__ void make_term(const stt::Basis& basis, int b, int* term) {
+  int n = 0;
+  for (int src = 0; src <= basis.nf; ++src)
+    if (basis.pows[b][src]) term[1 + n++] = (src << 8) | basis.pows[b][src];
+  term[0] = n;
+}
+
+// Entry b of a sim's standardised design row, stt::design_row's arithmetic
+// (each power's product rounded on its own, the spot first, then the
+// factors by index) over the term's nonzero powers only; source i's value
+// at vals[i * stride].
+__device__ __forceinline__ float design_entry(const int* term, const float* vals, int stride,
+                                              float mean, float stdv) {
+  float x = 1.0f;
+#pragma unroll 1
+  for (int i = 0; i < term[0]; ++i) {
+    const int e = term[1 + i];
+    x = __fmul_rn(x, stt::ipow(vals[(e >> 8) * stride], e & 0xff));
+  }
+  return __fdiv_rn(__fsub_rn(x, mean), stdv);
+}
+
+// One step of one sim from inventory `inv` and spot `sp`, with its design row
+// `dm` (B entries), the step's table at `par` and the
+// decision fractions `frac` [2, D]: those the one-step kernel computed in
+// double for every decision of every sim, computed once per block and rounded
+// to f32 the same way.
+struct StepResult {
+  float inv, dec, cons, imm, loss;
+};
+
+template <int B>
+__device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, int E,
+                                               int is_step, float sp, float inv,
+                                               const float (&dm)[B], const float* frac) {
+  const float* rinv = par + NUM_PARAMS + 2 * B;
+  const float* rmin = rinv + R;
+  const float* rmax = rmin + R;
+  const float* coeffs = rmax + R;  // [B, G]
+
+  // Ratchet rates at the inventory (_ratchet_rates_smem).
+  const float inv_c = clampf(inv, rinv[0], rinv[R - 1]);
+  float min_rate = rmin[0];
+  float max_rate = rmax[0];
+  if (is_step) {
+    for (int r = 1; r < R; ++r) {
+      if (inv_c >= rinv[r]) {
+        min_rate = rmin[r];
+        max_rate = rmax[r];
+      }
+    }
+  } else {
+    for (int r = 0; r + 1 < R; ++r) {
+      const float x0 = rinv[r];
+      const float span = __fsub_rn(rinv[r + 1], x0);
+      const float safe = span > 0.0f ? span : 1.0f;
+      const float w = clampf(__fdiv_rn(__fsub_rn(inv_c, x0), safe), 0.0f, 1.0f);
+      if (r == 0 || inv_c >= x0) {
+        min_rate = lerp(rmin[r], rmin[r + 1], w);
+        max_rate = lerp(rmax[r], rmax[r + 1], w);
+      }
+    }
+  }
+
+  // Bang-bang decision set (_bang_bang).
+  const float loss_pcnt = par[P_LOSS_PCNT];
+  const float next_min = par[P_NEXT_MIN];
+  const float next_max = par[P_NEXT_MAX];
+  const float inv_after_loss = __fsub_rn(inv, __fmul_rn(loss_pcnt, inv));
+  const float w_target = __fadd_rn(min_rate, inv_after_loss);
+  const float yw = w_target > next_max ? __fsub_rn(next_max, inv_after_loss)
+                 : (w_target > next_min ? min_rate : __fsub_rn(next_min, inv_after_loss));
+  const float i_target = __fadd_rn(max_rate, inv_after_loss);
+  const float yi = i_target < next_min ? __fsub_rn(next_min, inv_after_loss)
+                 : (i_target < next_max ? max_rate : __fsub_rn(next_max, inv_after_loss));
+  const bool has_zero = (yw < 0.0f) && (yi > 0.0f);
+  const int D = 2 * E + 3;
+  const int mid = E + 1;
+
+  const float loss = __fmul_rn(loss_pcnt, inv);
+  const float grid_lo = par[P_GRID_LO];
+  const float grid_hi = par[P_GRID_HI];
+  const float inv_delta = par[P_GRID_INVDELTA];
+  const float df_settle = par[P_DF_SETTLE];
+  const float df_flow = par[P_DF_FLOW];
+  const float inv_cost_npv = __fmul_rn(__fmul_rn(par[P_INV_COST], inv), df_flow);
+
+  float best_total = 0.0f;
+  StepResult best{0.0f, 0.0f, 0.0f, 0.0f, loss};
+  for (int k = 0; k < D; ++k) {
+    const float dec = has_zero ? __fmul_rn(k <= mid ? yw : yi, frac[k])
+                               : __fadd_rn(yw, __fmul_rn(__fsub_rn(yi, yw), frac[D + k]));
+    const float inv_after = __fsub_rn(__fadd_rn(inv, dec), loss);
+    const float pos = __fmul_rn(
+        __fsub_rn(clampf(inv_after, grid_lo, grid_hi), grid_lo), inv_delta);
+    const int lo = min(max(static_cast<int>(floorf(pos)), 0), G - 2);
+    const float w = clampf(__fsub_rn(pos, static_cast<float>(lo)), 0.0f, 1.0f);
+    float p_lo = __fmul_rn(coeffs[lo], dm[0]);
+    float p_hi = __fmul_rn(coeffs[lo + 1], dm[0]);
+#pragma unroll
+    for (int b = 1; b < B; ++b) {
+      p_lo = __fadd_rn(p_lo, __fmul_rn(coeffs[b * G + lo], dm[b]));
+      p_hi = __fadd_rn(p_hi, __fmul_rn(coeffs[b * G + lo + 1], dm[b]));
+    }
+    const float cont = lerp(p_lo, p_hi, w);
+    const bool is_inject = dec > 0.0f;
+    const float abs_d = fabsf(dec);
+    const float consumed = __fmul_rn(is_inject ? par[P_INJ_PCNT] : par[P_WDR_PCNT], abs_d);
+    const float cost_npv = __fmul_rn(
+        __fmul_rn(is_inject ? par[P_INJ_COST] : par[P_WDR_COST], abs_d), df_flow);
+    const float imm = __fsub_rn(
+        __fsub_rn(__fmul_rn(__fmul_rn(-__fadd_rn(dec, consumed), df_settle), sp), cost_npv),
+        inv_cost_npv);
+    const float total = __fadd_rn(imm, cont);
+    if (k == 0 || total > best_total) {
+      best_total = total;
+      best.dec = dec;
+      best.cons = consumed;
+      best.imm = imm;
+      best.inv = inv_after;
+    }
+  }
+  return best;
+}
+
+template <int B>
+__global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
+    int N, int S, int G, int R, int E, int is_step, stt::Basis basis,
+    const float* __restrict__ table, const float* __restrict__ spot,
+    const float* __restrict__ factors, const float* __restrict__ inv0,
+    const float* __restrict__ pv0, float* __restrict__ inv_out, float* __restrict__ pv_out,
+    float* __restrict__ inv_rows, float* __restrict__ dec_rows, float* __restrict__ cons_rows,
+    float* __restrict__ imm_rows, float* __restrict__ partials) {
   const int F = basis.nf;
-  extern __shared__ float smem[];
-  float* coeffs = smem;            // [B, G]
-  float* par = coeffs + B * G;     // [NUM_PARAMS]
-  float* mean = par + NUM_PARAMS;  // [B]
-  float* stdv = mean + B;          // [B]
-  float* rinv = stdv + B;          // [R]
-  float* rmin = rinv + R;          // [R]
-  float* rmax = rmin + R;          // [R]
-  float* red = rmax + R;           // [kThreads / 32, kNumSums + B]
+  const int W = table_words(B, R, G);
+  const int nslot = slot_words(F);
+  const int nout = kNumSums + B;
+  const int ngroups = (S + kThreads - 1) / kThreads;
+  __shared__ uint64_t bars[kStages];
+  __shared__ float red[2][kSims][kWarps][kUsedSums + B];  // by parity of the step
+  __shared__ int terms[B][kTermWords];
+  extern __shared__ __align__(128) float smem[];
+  float* ring = smem;                                  // [kStages][W]
+  float* slots = ring + kStages * W;                   // [kStages][nslot]
+  float* frac = slots + kStages * nslot;               // [2, D]
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < B * G; i += kThreads) coeffs[i] = coeffs_g[i];
-  for (int i = tid; i < NUM_PARAMS; i += kThreads) par[i] = params_g[i];
-  for (int i = tid; i < B; i += kThreads) {
-    mean[i] = mean_g[i];
-    stdv[i] = std_g[i];
-  }
-  for (int i = tid; i < R; i += kThreads) {
-    rinv[i] = rinv_g[i];
-    rmin[i] = rmin_g[i];
-    rmax[i] = rmax_g[i];
-  }
-  __syncthreads();
-
-  const int s = blockIdx.x * kThreads + tid;
-  const bool valid = s < S;
-  float acc[kNumSums + stt::kMaxB];
-#pragma unroll
-  for (int k = 0; k < kNumSums + stt::kMaxB; ++k) acc[k] = 0.0f;
-
-  if (valid) {
-    const float sp = spot[s];
-    const float inv = inv_in[s];
-    float fac[stt::kMaxF];
-#pragma unroll
-    for (int f = 0; f < stt::kMaxF; ++f)
-      fac[f] = f < F ? factors[static_cast<size_t>(f) * S + s] : 0.0f;
-    float dm[stt::kMaxB];
-    stt::design_row(basis, sp, fac, mean, stdv, dm);
-
-    // Ratchet rates at the inventory (_ratchet_rates_smem).
-    const float inv_c = clampf(inv, rinv[0], rinv[R - 1]);
-    float min_rate = rmin[0];
-    float max_rate = rmax[0];
-    if (is_step) {
-      for (int r = 1; r < R; ++r) {
-        if (inv_c >= rinv[r]) {
-          min_rate = rmin[r];
-          max_rate = rmax[r];
-        }
-      }
-    } else {
-      for (int r = 0; r + 1 < R; ++r) {
-        const float x0 = rinv[r];
-        const float span = __fsub_rn(rinv[r + 1], x0);
-        const float safe = span > 0.0f ? span : 1.0f;
-        const float w = clampf(__fdiv_rn(__fsub_rn(inv_c, x0), safe), 0.0f, 1.0f);
-        if (r == 0 || inv_c >= x0) {
-          min_rate = lerp(rmin[r], rmin[r + 1], w);
-          max_rate = lerp(rmax[r], rmax[r + 1], w);
-        }
-      }
-    }
-
-    // Bang-bang decision set (_bang_bang).
-    const float loss_pcnt = par[P_LOSS_PCNT];
-    const float next_min = par[P_NEXT_MIN];
-    const float next_max = par[P_NEXT_MAX];
-    const float inv_after_loss = __fsub_rn(inv, __fmul_rn(loss_pcnt, inv));
-    const float w_target = __fadd_rn(min_rate, inv_after_loss);
-    const float yw = w_target > next_max ? __fsub_rn(next_max, inv_after_loss)
-                   : (w_target > next_min ? min_rate : __fsub_rn(next_min, inv_after_loss));
-    const float i_target = __fadd_rn(max_rate, inv_after_loss);
-    const float yi = i_target < next_min ? __fsub_rn(next_min, inv_after_loss)
-                   : (i_target < next_max ? max_rate : __fsub_rn(next_max, inv_after_loss));
-    const bool has_zero = (yw < 0.0f) && (yi > 0.0f);
-    const int D = 2 * E + 3;
-    const int mid = E + 1;
-
-    const float loss = __fmul_rn(loss_pcnt, inv);
-    const float grid_lo = par[P_GRID_LO];
-    const float grid_hi = par[P_GRID_HI];
-    const float inv_delta = par[P_GRID_INVDELTA];
-    const float df_settle = par[P_DF_SETTLE];
-    const float df_flow = par[P_DF_FLOW];
-    const float inv_cost_npv = __fmul_rn(__fmul_rn(par[P_INV_COST], inv), df_flow);
-
-    float best_total = 0.0f, opt_dec = 0.0f, opt_cons = 0.0f, opt_imm = 0.0f,
-          opt_inv = 0.0f;
-    for (int k = 0; k < D; ++k) {
-      float dec;
-      if (has_zero) {
-        dec = k <= mid
-            ? __fmul_rn(yw, static_cast<float>(1.0 - static_cast<double>(k) / mid))
-            : __fmul_rn(yi, static_cast<float>(static_cast<double>(k - mid) / mid));
-      } else {
-        const float frac = static_cast<float>((k > 1 ? k - 1.0 : 0.0) / (D - 2));
-        dec = __fadd_rn(yw, __fmul_rn(__fsub_rn(yi, yw), frac));
-      }
-      const float inv_after = __fsub_rn(__fadd_rn(inv, dec), loss);
-      const float pos = __fmul_rn(
-          __fsub_rn(clampf(inv_after, grid_lo, grid_hi), grid_lo), inv_delta);
-      const int lo = min(max(static_cast<int>(floorf(pos)), 0), G - 2);
-      const float w = clampf(__fsub_rn(pos, static_cast<float>(lo)), 0.0f, 1.0f);
-      float p_lo = __fmul_rn(coeffs[lo], dm[0]);
-      float p_hi = __fmul_rn(coeffs[lo + 1], dm[0]);
-#pragma unroll
-      for (int b = 1; b < stt::kMaxB; ++b) {
-        if (b < B) {
-          p_lo = __fadd_rn(p_lo, __fmul_rn(coeffs[b * G + lo], dm[b]));
-          p_hi = __fadd_rn(p_hi, __fmul_rn(coeffs[b * G + lo + 1], dm[b]));
-        }
-      }
-      const float cont = lerp(p_lo, p_hi, w);
-      const bool is_inject = dec > 0.0f;
-      const float abs_d = fabsf(dec);
-      const float consumed = __fmul_rn(is_inject ? par[P_INJ_PCNT] : par[P_WDR_PCNT], abs_d);
-      const float cost_npv = __fmul_rn(
-          __fmul_rn(is_inject ? par[P_INJ_COST] : par[P_WDR_COST], abs_d), df_flow);
-      const float imm = __fsub_rn(
-          __fsub_rn(__fmul_rn(__fmul_rn(-__fadd_rn(dec, consumed), df_settle), sp),
-                    cost_npv),
-          inv_cost_npv);
-      const float total = __fadd_rn(imm, cont);
-      if (k == 0 || total > best_total) {
-        best_total = total;
-        opt_dec = dec;
-        opt_cons = consumed;
-        opt_imm = imm;
-        opt_inv = inv_after;
-      }
-    }
-    inv_out[s] = opt_inv;
-    pv_out[s] = __fadd_rn(pv_in[s], opt_imm);
-    dec_out[s] = opt_dec;
-    cons_out[s] = opt_cons;
-    if (imm_out) imm_out[s] = opt_imm;
-
-    acc[0] = inv;
-    acc[1] = opt_dec;
-    acc[2] = opt_cons;
-    acc[3] = loss;
-    acc[4] = opt_imm;
-    acc[5] = __fmul_rn(-__fadd_rn(opt_dec, opt_cons), sp);
-#pragma unroll
-    for (int b = 0; b < stt::kMaxB; ++b)
-      if (b < B) acc[kNumSums + b] = dm[b];
-  }
-
-  // Block partials: warp butterflies, then the warps in order.
-  const int nout = kNumSums + B;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  int sim[kSims];
+  bool valid[kSims];
 #pragma unroll
-  for (int k = 0; k < kNumSums + stt::kMaxB; ++k) {
-    if (k < nout) {
-      float x = acc[k];
+  for (int j = 0; j < kSims; ++j) {
+    const int col = (blockIdx.x * kSims + j) * kThreads + tid;
+    valid[j] = col < S;
+    sim[j] = min(col, S - 1);  // the sims past S compute on sim S − 1 and count as zeros
+  }
+
+  // Starts the copies of step t's table and this thread's values into stage
+  // t % kStages, and closes the thread's cp.async group (empty past N).
+  auto stage = [&](int t) {
+    if (t < N) {
+      const int k = t % kStages;
+      if (tid == 0)
+        bulk_copy(ring + k * W, table + static_cast<size_t>(t) * W,
+                  static_cast<uint32_t>(W * sizeof(float)), &bars[k]);
+      float* slot = slots + k * nslot + tid;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-      if (lane == 0) red[warp * nout + k] = x;
+      for (int j = 0; j < kSims; ++j) {
+        copy4(slot + j * kThreads, spot + static_cast<size_t>(t) * S + sim[j]);
+        for (int f = 0; f < F; ++f)
+          copy4(slot + ((1 + f) * kSims + j) * kThreads,
+                factors + (static_cast<size_t>(t) * F + f) * S + sim[j]);
+      }
     }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  if (tid == 0) {
+    for (int k = 0; k < kStages; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&bars[k])));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (tid < B) make_term(basis, tid, terms[tid]);
+  // The decision fractions of _bang_bang: with a zero decision, decision k of
+  // D = 2E + 3 scales the withdrawal (k <= E + 1) or the injection by frac[k];
+  // without, it lies frac[D + k] of the way from one to the other.
+  const int D = 2 * E + 3;
+  const int mid = E + 1;
+  for (int k = tid; k < D; k += kThreads) {
+    frac[k] = k <= mid ? static_cast<float>(1.0 - static_cast<double>(k) / mid)
+                       : static_cast<float>(static_cast<double>(k - mid) / mid);
+    frac[D + k] = static_cast<float>((k > 1 ? k - 1.0 : 0.0) / (D - 2));
   }
   __syncthreads();
-  if (tid < nout) {
-    float x = 0.0f;
-    for (int w = 0; w < kThreads / 32; ++w) x += red[w * nout + tid];
-    partials[static_cast<size_t>(tid) * gridDim.x + blockIdx.x] = x;
+  for (int t = 0; t < kStages; ++t) stage(t);
+
+  float inv[kSims], pv[kSims];
+#pragma unroll
+  for (int j = 0; j < kSims; ++j) {
+    inv[j] = inv0[sim[j]];
+    pv[j] = pv0 ? pv0[sim[j]] : 0.0f;
+  }
+
+  for (int t = 0; t < N; ++t) {
+    const int k = t % kStages;
+    const float* par = ring + k * W;
+    const float* mean = par + NUM_PARAMS;
+    const float* stdv = mean + B;
+    // This thread's values of step t have landed (step t + 1's may be in
+    // flight), and so has the table.
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    wait_parity(&bars[k], (t / kStages) & 1);
+    const size_t row = static_cast<size_t>(t) * S;
+#pragma unroll
+    for (int j = 0; j < kSims; ++j) {
+      const float* vals = slots + k * nslot + j * kThreads + tid;
+      const float sp = vals[0];
+      float dm[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b)
+        dm[b] = design_entry(terms[b], vals, kSims * kThreads, mean[b], stdv[b]);
+
+      const StepResult r = step_sim<B>(par, R, G, E, is_step, sp, inv[j], dm, frac);
+      float acc[kUsedSums] = {inv[j], r.dec, r.cons, r.loss, r.imm,
+                              __fmul_rn(-__fadd_rn(r.dec, r.cons), sp)};
+      inv[j] = r.inv;
+      pv[j] = __fadd_rn(pv[j], r.imm);
+      if (valid[j]) {
+        const size_t at = row + sim[j];
+        if (inv_rows) inv_rows[at] = r.inv;
+        if (dec_rows) dec_rows[at] = r.dec;
+        if (cons_rows) cons_rows[at] = r.cons;
+        if (imm_rows) imm_rows[at] = r.imm;
+      }
+      float* red_w = red[t & 1][j][warp];
+#pragma unroll
+      for (int c = 0; c < kUsedSums; ++c) {
+        const float x = warp_sum(valid[j] ? acc[c] : 0.0f);
+        if (lane == 0) red_w[c] = x;
+      }
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const float x = warp_sum(valid[j] ? dm[b] : 0.0f);
+        if (lane == 0) red_w[kUsedSums + b] = x;
+      }
+    }
+    __syncthreads();
+    // Every thread is past step t: its stage takes step t + kStages.
+    stage(t + kStages);
+    // The step's partials row of each group: the warps in order.
+    if (tid < kSims * nout) {
+      const int j = tid / nout;
+      const int c = tid % nout;
+      float x = 0.0f;
+      if (c < kUsedSums || c >= kNumSums) {
+        const int col = c < kUsedSums ? c : c - (kNumSums - kUsedSums);
+        for (int w = 0; w < kWarps; ++w) x += red[t & 1][j][w][col];
+      }
+      const int group = blockIdx.x * kSims + j;
+      if (group < ngroups)
+        partials[(static_cast<size_t>(t) * nout + c) * ngroups + group] = x;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSims; ++j) {
+    if (valid[j]) {
+      inv_out[sim[j]] = inv[j];
+      pv_out[sim[j]] = pv[j];
+    }
+  }
+}
+
+using SweepKernel = decltype(&forward_sweep_kernel<1>);
+
+// The sweep compiled for basis size B, or NULL beyond stt::kMaxB.
+SweepKernel sweep_kernel(int B) {
+  static_assert(stt::kMaxB == 16, "one case per basis size");
+  switch (B) {
+    case 1: return forward_sweep_kernel<1>;
+    case 2: return forward_sweep_kernel<2>;
+    case 3: return forward_sweep_kernel<3>;
+    case 4: return forward_sweep_kernel<4>;
+    case 5: return forward_sweep_kernel<5>;
+    case 6: return forward_sweep_kernel<6>;
+    case 7: return forward_sweep_kernel<7>;
+    case 8: return forward_sweep_kernel<8>;
+    case 9: return forward_sweep_kernel<9>;
+    case 10: return forward_sweep_kernel<10>;
+    case 11: return forward_sweep_kernel<11>;
+    case 12: return forward_sweep_kernel<12>;
+    case 13: return forward_sweep_kernel<13>;
+    case 14: return forward_sweep_kernel<14>;
+    case 15: return forward_sweep_kernel<15>;
+    case 16: return forward_sweep_kernel<16>;
+    default: return nullptr;
   }
 }
 
 }  // namespace
 
-extern "C" int stt_forward_step(
-    int S, int F, int G, int R, int E, int is_step, const int* basis_table,
-    const void* params, const void* mean, const void* stdv,
-    const void* ratchet_inv, const void* ratchet_min, const void* ratchet_max,
-    const void* spot, const void* factors, const void* inv, const void* pv,
-    const void* coeffs, void* new_inv, void* new_pv, void* dec, void* cons,
-    void* imm, void* partials, void* sums, void* stream) {
+// The sweep: N steps of S sims from inventory inv0 (and PV pv0, or 0 where
+// NULL) on the packed tables [N, W] (16-byte aligned); spot [N, S], factors
+// [N, F, S].  Writes the final inventory and PV, and, where given (else
+// NULL), the rows [N, S] of inventory after each step, volume, fuel and
+// immediate PV; partials [N, 8 + B, ceil(S / 256)] are scratch, and totals
+// [N, 8 + B] receive each step's sums, then its summed design row.
+extern "C" int stt_forward_sweep(
+    int N, int S, int F, int G, int R, int E, int is_step, const int* basis_table,
+    const void* table, const void* spot, const void* factors, const void* inv0,
+    const void* pv0, void* inv_out, void* pv_out, void* inv_rows, void* dec_rows,
+    void* cons_rows, void* imm_rows, void* partials, void* totals, void* stream) {
   stt::Basis basis;
-  if (!stt::make_basis(basis_table, F, &basis) || G < 2 || R < 1 || R > kMaxR ||
-      E < 0 || S < 1)
+  if (!stt::make_basis(basis_table, F, &basis) || N < 1 || S < 1 || G < 2 || R < 1 || E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(table) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int B = basis.nb;
-  const int nblk = (S + kThreads - 1) / kThreads;
+  const SweepKernel kernel = sweep_kernel(B);
   const size_t smem = sizeof(float) *
-      (static_cast<size_t>(B) * G + NUM_PARAMS + 2 * B + 3 * R +
-       (kThreads / 32) * (kNumSums + B));
+      (smem_fixed_words(B, R, F, E) + smem_words_per_grid_point(B) * G);
   cudaError_t err = cudaFuncSetAttribute(
-      forward_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  forward_step_kernel<<<nblk, kThreads, smem, st>>>(
-      S, G, R, E, is_step, basis, static_cast<const float*>(params),
-      static_cast<const float*>(mean), static_cast<const float*>(stdv),
-      static_cast<const float*>(ratchet_inv),
-      static_cast<const float*>(ratchet_min),
-      static_cast<const float*>(ratchet_max), static_cast<const float*>(spot),
-      static_cast<const float*>(factors), static_cast<const float*>(inv),
-      static_cast<const float*>(pv), static_cast<const float*>(coeffs),
-      static_cast<float*>(new_inv), static_cast<float*>(new_pv),
-      static_cast<float*>(dec), static_cast<float*>(cons),
-      static_cast<float*>(imm), static_cast<float*>(partials));
+  const int nblk = (S + kSims * kThreads - 1) / (kSims * kThreads);
+  kernel<<<nblk, kThreads, smem, st>>>(
+      N, S, G, R, E, is_step, basis, static_cast<const float*>(table),
+      static_cast<const float*>(spot), static_cast<const float*>(factors),
+      static_cast<const float*>(inv0), static_cast<const float*>(pv0),
+      static_cast<float*>(inv_out), static_cast<float*>(pv_out),
+      static_cast<float*>(inv_rows), static_cast<float*>(dec_rows),
+      static_cast<float*>(cons_rows), static_cast<float*>(imm_rows),
+      static_cast<float*>(partials));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  stt::launch_reduce(static_cast<const float*>(partials), nblk,
-                     kNumSums + B, static_cast<float*>(sums), st);
+  stt::launch_reduce(static_cast<const float*>(partials), (S + kThreads - 1) / kThreads,
+                     N * (kNumSums + B), static_cast<float*>(totals), st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The sweep's launch report at (G, B, R, F, E) on the current device
+// (common.cuh kernel_info), with out[0] the sims of a block.
+extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int* out) {
+  if (G < 0 || B < 1 || B > stt::kMaxB || R < 1 || F < 0 || F > stt::kMaxF || E < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = stt::kernel_info(sweep_kernel(B), kThreads,
+                                           smem_fixed_words(B, R, F, E),
+                                           smem_words_per_grid_point(B), G, out);
+  out[0] = kSims * kThreads;
+  return static_cast<int>(err);
 }

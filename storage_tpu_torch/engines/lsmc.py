@@ -15,7 +15,7 @@ panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
   launches alone.  Spot-only panels (no factor, ``value_from_sims``) take the
   JAX package's plain body: each step regresses v on its standardised design
   (``fit_continuation``) and runs kernel D on it.
-* The forward pass runs one forward kernel per step (kernel C,
+* The forward pass runs one forward sweep over all steps (kernel C,
   ``ops.forward_kernel``) on an independent valuation-sim set, re-using the
   saved regression (the dual-simulation lower-bound estimator,
   LsmcStorageValuation.cs:352-415), and produces NPV, standard error,
@@ -26,8 +26,8 @@ panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
 Everything that does not depend on the loop carry — decision sets,
 interpolation indices and weights, immediate-value coefficients, the forward
 kernel's parameter vectors, the trigger prices — is computed for all steps at
-once, outside the 365-step loops, and nothing in the loops reads a value back
-to the host.
+once, outside the backward's 365-step loop, and nothing in that loop or in the
+forward sweep reads a value back to the host.
 
 Known deviations from the reference are those of the JAX package (see its
 module docstring): threefry draws, linspace grids, each sim's own terminal
@@ -374,7 +374,7 @@ def lsmc_forward(
     return_sim_data: bool = False,
 ):
     """Forward simulation over materialised valuation panels, one forward
-    kernel per step; the per-step reductions stay on the device until the
+    sweep for all steps; the per-step reductions stay on the device until the
     result dict is read.  ``return_sim_data`` adds the per-sim panels of the
     JAX package's ``_forward_finalise``: inventory and PV [N+1, S] (the last
     rows the final inventory and the terminal PV), and volume, fuel, loss
@@ -391,28 +391,19 @@ def lsmc_forward(
     ratchets = [arrays[k].contiguous() for k in ("ratchet_inv", "ratchet_min", "ratchet_max")]
 
     inventory = torch.full((s_count,), float(starting_inventory), dtype=dtype, device=device)
-    pv = torch.zeros((s_count,), dtype=dtype, device=device)
-    b_dim = len(monomials)
-    sums = torch.empty((n, forward_kernel.NUM_SUMS), dtype=dtype, device=device)
-    xbar = torch.empty((n, b_dim), dtype=dtype, device=device)
+    panels = None
     if return_sim_data:
         # Kernel C writes its per-sim outputs into panel rows: no copies.
         panel = lambda rows: torch.empty((rows, s_count), dtype=dtype, device=device)  # noqa: E731
         sim_inventory, sim_pv = panel(n + 1), panel(n + 1)
         sim_dec, sim_cons = panel(n), panel(n)
         sim_inventory[0] = inventory
-        inventory = sim_inventory[0]
-    for t in range(n):
-        out = imm_out = None
-        if return_sim_data:
-            out = (sim_inventory[t + 1], torch.empty_like(pv), sim_dec[t], sim_cons[t])
-            imm_out = sim_pv[t]
-        inventory, pv, _dec, _cons, sums[t], xbar[t] = forward_kernel.forward_step(
-            params[t], regression["mean"][t], regression["std"][t],
-            ratchets[0][t], ratchets[1][t], ratchets[2][t],
-            spot_val[t], factors_val[t], inventory, pv, regression["coeffs"][t],
-            monomials, num_extra_decisions, ratchet_is_step, out=out, imm_out=imm_out,
-        )
+        panels = (sim_inventory[1:], sim_dec, sim_cons, sim_pv[:n])
+    inventory, pv, sums, xbar = forward_kernel.forward_sweep(
+        params, regression["mean"], regression["std"], *(r[:n] for r in ratchets),
+        spot_val[:n], factors_val[:n], inventory, None, regression["coeffs"], monomials,
+        num_extra_decisions, ratchet_is_step, panels=panels,
+    )
     count = float(s_count)
     xbar = xbar / count
     expected_inventory = sums[:, forward_kernel._A_INV] / count

@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -65,13 +66,15 @@ SIGNATURES = {
         _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
-    # S, F, G, R, E, is_step, basis table, params, mean, std, ratchet_inv,
-    # ratchet_min, ratchet_max, spot, factors, inv, pv, coeffs_t, new_inv,
-    # new_pv, dec, cons, imm (or NULL), partials, sums, stream
-    "stt_forward_step": (
-        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # N, S, F, G, R, E, is_step, basis table, packed tables, spot, factors,
+    # inv0, pv0 (or NULL), inv_out, pv_out, then (each or NULL) the rows of
+    # inventory, volume, fuel and immediate PV, partials, totals, stream
+    "stt_forward_sweep": (
+        _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P,
     ),
+    # G, B, R, F, E, out int[6] (the sweep's launch report)
+    "stt_forward_sweep_info": (_I, _I, _I, _I, _I, _P),
 }
 
 
@@ -131,6 +134,21 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-8000:]}")
         os.replace(tmp_lib, lib)
     return lib
+
+
+def sass_instructions(lib: Path, kernel: str) -> int:
+    """Instructions in the SASS of the kernels of ``lib`` whose name holds
+    ``kernel`` (``cuobjdump`` of the toolkit that built it)."""
+    cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            count += 1
+    return count
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,20 +1,25 @@
-"""One forward LSMC step per sim (kernel C).
+"""The forward LSMC pass per sim (kernel C), as one sweep over every step.
 
-Counterpart of ``storage_tpu.ops.forward_kernel.forward_step_pallas``: the
-design row, the fitted continuation at each candidate decision's target
-inventory, ratchet lookup, the bang-bang decision set, the immediate value
-and a first-max argmax, then the new inventory/PV, the chosen volume/fuel and
-the step's cross-sim sums.  The fitted continuation is evaluated only at the
-two grid rows each decision touches (``coeffs[:, row]·dm`` at lo and lo + 1),
-in plain f32 — the JAX kernel's ``pred_passes=1`` arithmetic.
+Counterpart of ``storage_tpu.ops.forward_kernel.forward_step_pallas``, which
+the JAX engine runs once per step of its forward scan: the design row, the
+fitted continuation at each candidate decision's target inventory, ratchet
+lookup, the bang-bang decision set, the immediate value and a first-max
+argmax, then the new inventory/PV, the chosen volume/fuel and the step's
+cross-sim sums.  The fitted continuation is evaluated only at the two grid
+rows each decision touches (``coeffs[:, row]·dm`` at lo and lo + 1), in plain
+f32 — the JAX kernel's ``pred_passes=1`` arithmetic.
 
-``csrc/forward_kernel.cu`` is the kernel; ``forward_step_plain`` is the same
-function in tensor code, used for CPU tensors.  The ratchet lookup and the
-decision fractions follow the TPU kernel (``_ratchet_rates_smem``,
-``_bang_bang``), so the plain version agrees with it term for term.
+``csrc/forward_kernel.cu`` is the kernel: ``forward_sweep`` launches it once
+for all N steps (``forward_step`` is the sweep at N = 1).  ``forward_step_plain``
+is one step in tensor code and ``forward_sweep_plain`` its loop over the
+steps, used for CPU tensors.  The ratchet lookup and the decision fractions
+follow the TPU kernel (``_ratchet_rates_smem``, ``_bang_bang``), so the plain
+version agrees with it term for term.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import typing as tp
 
 import torch
@@ -194,6 +199,180 @@ def forward_step_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max,
     return opt["inv"], pv + opt["imm"], opt["dec"], opt["cons"], sums, dm.sum(dim=0)
 
 
+
+
+def forward_sweep_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
+                        factors, inventory, pv, coeffs, monomials, num_extra_decisions: int,
+                        ratchet_is_step: bool, panels=None, out=None):
+    """Tensor-code version of the sweep: ``forward_step_plain`` once per step;
+    any dtype, any device.  Arguments and results as ``forward_sweep``'s."""
+    rows = list(panels) if panels is not None else [None] * 4
+    pv = torch.zeros_like(inventory) if pv is None else pv
+    sums, xbar = [], []
+    for t in range(spot.shape[0]):
+        inventory, pv, dec, cons, sums_t, xbar_t = forward_step_plain(
+            params[t], mean[t], std[t], ratchet_inv[t], ratchet_min[t], ratchet_max[t],
+            spot[t], factors[t], inventory, pv, coeffs[t], monomials, num_extra_decisions,
+            ratchet_is_step, None if rows[3] is None else rows[3][t],
+        )
+        for buf, val in zip(rows[:3], (inventory, dec, cons)):
+            if buf is not None:
+                buf[t].copy_(val)
+        sums.append(sums_t)
+        xbar.append(xbar_t)
+    if out is not None:
+        out[0].copy_(inventory)
+        out[1].copy_(pv)
+        inventory, pv = out
+    return inventory, pv, torch.stack(sums), torch.stack(xbar)
+
+
+# The kernel's sums go out per group of this many sims (csrc/forward_kernel.cu
+# kThreads): the partials scratch has one row per step, sum and group.
+_GROUP = 256
+_TABLE_PARTS = ("params", "mean", "std", "ratchet_inv", "ratchet_min", "ratchet_max", "coeffs")
+
+
+def table_layout(bdim: int, r: int, g: int):
+    """Offsets (in floats) of each part of one step's packed table, and its
+    width W: the parameters, mean [B], std [B], ratchet inventories, min and
+    max rates [R] each, coefficients [B, G] row by row, padded with zeros to a
+    multiple of 4 floats (whole 16-byte words for the kernel's bulk copy)."""
+    sizes = (NUM_PARAMS, bdim, bdim, r, r, r, bdim * g)
+    offsets, pos = {}, 0
+    for name, n in zip(_TABLE_PARTS, sizes):
+        offsets[name] = pos
+        pos += n
+    return offsets, -(-pos // 4) * 4
+
+
+def pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs):
+    """Every step's tables as the kernel reads them, one row of W floats a
+    step: [N, W] f32 (``table_layout``)."""
+    n, bdim, g = coeffs.shape
+    _, width = table_layout(bdim, ratchet_inv.shape[1], g)
+    parts = [params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs.reshape(n, bdim * g)]
+    table = torch.cat([p.to(torch.float32) for p in parts], dim=1)
+    return torch.nn.functional.pad(table, (0, width - table.shape[1])).contiguous()
+
+
+_INFO_FIELDS = ("sims_per_block", "smem_bytes", "smem_limit", "max_grid", "blocks_per_sm",
+                "registers")
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_info(g: int, bdim: int, r: int, f: int, e: int, device_index: int) -> dict:
+    out = (ctypes.c_int * len(_INFO_FIELDS))()
+    with torch.cuda.device(device_index):
+        _build.check(_build.library().stt_forward_sweep_info(g, bdim, r, f, e, out),
+                     "stt_forward_sweep_info")
+    return dict(zip(_INFO_FIELDS, out))
+
+
+def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device) -> dict:
+    """Launch report of the sweep kernel at G grid points, B basis functions,
+    R ratchet nodes, F factors and E extra decisions on a CUDA device: sims
+    per block, shared memory bytes per block (static and dynamic: the
+    two-stage ring of step tables and per-sim values, and the decision
+    fractions), the device's limit per block, the largest G
+    within it, blocks per SM (0 where G does not fit) and registers per
+    thread."""
+    return _kernel_info(g, bdim, r, f, e, torch.device(device).index or 0)
+
+
+def sass_name(bdim: int) -> str:
+    """What the mangled name of the sweep kernel compiled for B basis
+    functions holds (for ``_build.sass_instructions``)."""
+    return f"forward_sweep_kernelILi{bdim}EE"
+
+
+def forward_sweep(
+    params: torch.Tensor,       # [N, 13] step scalars (pack_params)
+    mean: torch.Tensor,         # [N, B]
+    std: torch.Tensor,          # [N, B]
+    ratchet_inv: torch.Tensor,  # [N, R]
+    ratchet_min: torch.Tensor,  # [N, R]
+    ratchet_max: torch.Tensor,  # [N, R]
+    spot: torch.Tensor,         # [N, S]
+    factors: torch.Tensor,      # [N, F, S]
+    inventory: torch.Tensor,    # [S] before step 0
+    pv: tp.Optional[torch.Tensor],  # [S] before step 0, or None for zeros
+    coeffs: torch.Tensor,       # [N, B, G]
+    monomials: tp.Sequence[Monomial],
+    num_extra_decisions: int,
+    ratchet_is_step: bool,
+    panels: tp.Optional[tp.Sequence[tp.Optional[torch.Tensor]]] = None,
+    out: tp.Optional[tp.Sequence[torch.Tensor]] = None,
+):
+    """The forward pass over N steps: returns (inventory [S], pv [S], sums
+    [N, 8], xbar_sum [N, B]), the final inventory and PV and each step's
+    cross-sim sums and summed design row.
+
+    ``panels`` optionally holds four [N, S] buffers, each of which may be
+    None: per step, each sim's inventory after the step, its volume, its fuel
+    and its immediate PV.  ``out`` optionally holds two [S] buffers for the
+    final inventory and PV.  CPU tensors take the plain version.  CUDA tensors
+    launch the sweep kernel, once for all N steps, and must be f32 and
+    contiguous (``factors`` may be [N, 0, S]: the kernel reads no factor
+    then); beyond the grid the card's shared memory takes (``kernel_info``)
+    it raises ``ValueError``."""
+    if spot.device.type == "cpu":
+        return forward_sweep_plain(
+            params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, factors, inventory,
+            pv, coeffs, monomials, num_extra_decisions, ratchet_is_step, panels, out,
+        )
+    n, s = spot.shape
+    f = factors.shape[1]
+    bdim, g = coeffs.shape[1:]
+    r = ratchet_inv.shape[1]
+    rows = list(panels) if panels is not None else [None] * 4
+    outs = list(out) if out is not None else [
+        torch.empty(s, dtype=torch.float32, device=spot.device) for _ in range(2)]
+    given = [t for t in (pv, *rows) if t is not None]
+    device = _build.require_cuda(
+        "forward_sweep", params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
+        factors, inventory, coeffs, *outs, *given,
+    )
+    shapes = {
+        "params": (params, (n, NUM_PARAMS)), "mean": (mean, (n, bdim)), "std": (std, (n, bdim)),
+        "ratchet_min": (ratchet_min, (n, r)), "ratchet_max": (ratchet_max, (n, r)),
+        "factors": (factors, (n, f, s)), "coeffs": (coeffs, (n, bdim, g)),
+        "inventory": (inventory, (s,)), **({"pv": (pv, (s,))} if pv is not None else {}),
+        **{f"out[{i}]": (o, (s,)) for i, o in enumerate(outs)},
+        **{f"panels[{i}]": (p, (n, s)) for i, p in enumerate(rows) if p is not None},
+    }
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"forward_sweep: {name} is {tuple(t.shape)}, want {shape}")
+    if len(monomials) != bdim:
+        raise ValueError("forward_sweep: coeffs rows must match the basis")
+    info = kernel_info(g, bdim, r, f, num_extra_decisions, device)
+    if info["smem_bytes"] > info["smem_limit"]:
+        raise ValueError(
+            f"forward_sweep: G={g} grid points at B={bdim} basis functions, R={r} ratchet nodes, "
+            f"F={f} factors and E={num_extra_decisions} extra decisions need {info['smem_bytes']} bytes of shared memory per block (two "
+            f"steps' tables grow with G); this card allows {info['smem_limit']}, so at most "
+            f"G={info['max_grid']}")
+    table = pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs)
+    nout = NUM_SUMS + bdim
+    partials = torch.empty((n * nout * -(-s // _GROUP),), dtype=torch.float32, device=device)
+    totals = torch.empty((n, nout), dtype=torch.float32, device=device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = _build.library().stt_forward_sweep(
+        n, s, f, g, r, num_extra_decisions, int(ratchet_is_step),
+        _build.basis_table(tuple(monomials), f), table.data_ptr(), spot.data_ptr(),
+        factors.data_ptr(), inventory.data_ptr(), ptr(pv), outs[0].data_ptr(),
+        outs[1].data_ptr(), *(ptr(p) for p in rows), partials.data_ptr(), totals.data_ptr(),
+        _build.stream_handle(device),
+    )
+    forward_sweep.launches += 1
+    _build.check(rc, "forward_sweep")
+    return outs[0], outs[1], totals[:, :NUM_SUMS], totals[:, NUM_SUMS:]
+
+
+forward_sweep.launches = 0
+
+
 def forward_step(
     params: torch.Tensor,       # [13] f32 step scalars (pack_params)
     mean: torch.Tensor,         # [B]
@@ -212,66 +391,19 @@ def forward_step(
     out: tp.Optional[tp.Sequence[torch.Tensor]] = None,
     imm_out: tp.Optional[torch.Tensor] = None,
 ):
-    """Returns (new_inventory [S], new_pv [S], opt_decision [S],
-    opt_consumed [S], sums [8], xbar_sum [B]).
+    """One forward step: the sweep at N = 1.  Returns (new_inventory [S],
+    new_pv [S], opt_decision [S], opt_consumed [S], sums [8], xbar_sum [B]).
 
     ``out`` optionally holds four [S] buffers for the first four results (a
     row of a per-sim panel each, say); ``imm_out`` an [S] buffer that
     receives each sim's chosen immediate PV.  CPU tensors take the plain
-    version.  CUDA tensors launch the kernel and must be f32 and contiguous
-    (``factors`` may be [0, S]: the kernel reads no factor then)."""
-    if spot.device.type == "cpu":
-        result = forward_step_plain(
-            params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
-            factors, inventory, pv, coeffs, monomials, num_extra_decisions,
-            ratchet_is_step, imm_out,
-        )
-        if out is None:
-            return result
-        for buf, val in zip(out, result[:4]):
-            buf.copy_(val)
-        return (*out, *result[4:])
-    s = spot.shape[0]
-    f = factors.shape[0]
-    bdim, g = coeffs.shape
-    r = ratchet_inv.shape[0]
-    outs = list(out) if out is not None else [
-        torch.empty(s, dtype=torch.float32, device=spot.device) for _ in range(4)]
-    extra = () if imm_out is None else (imm_out,)
-    device = _build.require_cuda(
-        "forward_step", params, mean, std, ratchet_inv, ratchet_min,
-        ratchet_max, spot, factors, inventory, pv, coeffs, *outs, *extra,
+    version, CUDA tensors launch the sweep kernel (``forward_sweep``)."""
+    outs = list(out) if out is not None else [torch.empty_like(spot) for _ in range(4)]
+    row = lambda t: None if t is None else t[None]  # noqa: E731
+    _, _, sums, xbar = forward_sweep(
+        *(x[None] for x in (params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
+                            factors)),
+        inventory, pv, coeffs[None], monomials, num_extra_decisions, ratchet_is_step,
+        panels=(None, outs[2][None], outs[3][None], row(imm_out)), out=outs[:2],
     )
-    shapes = {
-        "params": (params, (NUM_PARAMS,)), "mean": (mean, (bdim,)),
-        "std": (std, (bdim,)), "ratchet_min": (ratchet_min, (r,)),
-        "ratchet_max": (ratchet_max, (r,)), "factors": (factors, (f, s)),
-        "inventory": (inventory, (s,)), "pv": (pv, (s,)),
-        **{f"out[{i}]": (o, (s,)) for i, o in enumerate(outs)},
-        **({"imm_out": (imm_out, (s,))} if imm_out is not None else {}),
-    }
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"forward_step: {name} is {tuple(t.shape)}, want {shape}")
-    if len(monomials) != bdim:
-        raise ValueError("forward_step: coeffs rows must match the basis")
-    nblk = -(-s // 256)
-    partials = torch.empty((NUM_SUMS + bdim, nblk), dtype=torch.float32, device=device)
-    totals = torch.empty((NUM_SUMS + bdim,), dtype=torch.float32, device=device)
-    lib = _build.library()
-    rc = lib.stt_forward_step(
-        s, f, g, r, num_extra_decisions, int(ratchet_is_step),
-        _build.basis_table(tuple(monomials), f), params.data_ptr(), mean.data_ptr(),
-        std.data_ptr(), ratchet_inv.data_ptr(), ratchet_min.data_ptr(),
-        ratchet_max.data_ptr(), spot.data_ptr(), factors.data_ptr(),
-        inventory.data_ptr(), pv.data_ptr(), coeffs.data_ptr(),
-        *(o.data_ptr() for o in outs), imm_out.data_ptr() if imm_out is not None else None,
-        partials.data_ptr(), totals.data_ptr(),
-        _build.stream_handle(device),
-    )
-    forward_step.launches += 1
-    _build.check(rc, "forward_step")
-    return (*outs, totals[:NUM_SUMS], totals[NUM_SUMS:])
-
-
-forward_step.launches = 0
+    return (*outs, sums[0], xbar[0])

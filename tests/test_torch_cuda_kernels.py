@@ -157,3 +157,71 @@ def test_forward_step(device, is_step, f):
         torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-3)
     for k in (4, 5):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5 * float(want[k].abs().max()))
+
+
+def _sweep_args(device, n, s, g, f, is_step=False, e=1, seed=6):
+    """``forward_sweep``'s arguments: N steps of tables that change from step
+    to step over random paths (``factors`` [N, 0, S] where F = 0)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    monomials = tuple(parse_basis_functions(BASIS_9 if f else "1 + s + s**2"))
+    b = len(monomials)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    t = torch.arange(n, dtype=torch.float32, device=device)
+    next_min, next_max = 20.0 * t, 1100.0 - 30.0 * t
+    scalars = dict(df_settle=0.97 - 0.01 * t, df_flow=0.95 - 0.01 * t, inj_cost=1.2 + 0.1 * t,
+                   wdr_cost=0.9 + 0.0 * t, inj_pcnt=0.015 + 0.0 * t, wdr_pcnt=0.01 + 0.0 * t,
+                   loss_pcnt=0.02 + 0.0 * t, inv_cost_rate=0.03 + 0.0 * t, next_min=next_min,
+                   next_max=next_max)
+    frac = torch.linspace(0.0, 1.0, g, device=device)
+    params = forward_kernel.pack_params(
+        scalars, next_min[:, None] + (next_max - next_min)[:, None] * frac[None, :])
+    shift = 10.0 * t[:, None]
+    return (params, 0.3 * rnd(n, b), 1.0 + 0.2 * rnd(n, b).abs(),
+            (torch.tensor([0.0, 500.0, 1000.0], device=device) + shift).contiguous(),
+            (torch.tensor([-30.0, -80.0, -140.0], device=device) - shift).contiguous(),
+            (torch.tensor([150.0, 90.0, 40.0], device=device) + shift).contiguous(),
+            30.0 + 5.0 * rnd(n, s), rnd(n, f, s), 1000.0 * torch.rand(s, generator=gen, device=device),
+            100.0 * rnd(s), 20.0 * rnd(n, b, g), monomials, e, is_step)
+
+
+@pytest.mark.parametrize("is_step,f,g,n", [(False, 3, 13, 9), (True, 3, 13, 9), (False, 0, 13, 9),
+                                           (False, 3, 1000, 3)],
+                         ids=["linear", "step", "spot-only", "G=1000"])
+def test_forward_sweep(device, is_step, f, g, n):
+    """The sweep against its plain version over N steps, with the per-sim
+    panels, and against N launches of the one-step kernel: the same bits."""
+    s = 300
+    args = _sweep_args(device, n, s, g, f, is_step)
+    panels = [torch.empty((n, s), device=device) for _ in range(4)]
+    want_panels = [torch.empty((n, s), device=device) for _ in range(4)]
+    got = forward_kernel.forward_sweep(*args, panels=panels)
+    want = forward_kernel.forward_sweep_plain(*args, panels=want_panels)
+    for k in range(2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-3)
+    for row, want_row in zip(panels, want_panels):
+        torch.testing.assert_close(row, want_row, rtol=1e-6, atol=1e-3)
+    for k in (2, 3):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                   atol=1e-5 * float(want[k].abs().max()))
+    bare = forward_kernel.forward_sweep(*args)
+    for x, y in zip(got, bare):
+        assert torch.equal(x, y)
+    params, mean, std, r_inv, r_min, r_max, spot, factors, inv, pv, coeffs, mono, e, step = args
+    for t in range(n):
+        imm = torch.empty(s, device=device)
+        inv, pv, dec, cons, sums, xbar = forward_kernel.forward_step(
+            params[t], mean[t], std[t], r_inv[t], r_min[t], r_max[t], spot[t], factors[t], inv,
+            pv, coeffs[t], mono, e, step, imm_out=imm)
+        for row, x in zip(panels, (inv, dec, cons, imm)):
+            assert torch.equal(row[t], x)
+        assert torch.equal(got[2][t], sums) and torch.equal(got[3][t], xbar)
+    assert torch.equal(got[0], inv) and torch.equal(got[1], pv)
+
+
+def test_forward_sweep_grid_beyond_shared_memory_raises(device):
+    """Where two steps' tables exceed the card's shared memory, the sweep
+    refuses with the limit in the message."""
+    info = forward_kernel.kernel_info(100, 9, 3, 3, 1, device)
+    g = info["max_grid"] + 1
+    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
+        forward_kernel.forward_sweep(*_sweep_args(device, 2, 64, g, 3))

@@ -76,7 +76,8 @@ def test_plain_matches_pallas_kernel(kwargs):
         tparams, *(torch.tensor(a) for a in _args(c)),
         tuple(parse_basis_functions(BASIS)), c["e"], c["is_step"],
     )
-    assert tfk.forward_step.launches == 0  # CPU tensors take the plain version
+    # CPU tensors take the plain version (forward_step is the sweep at N = 1).
+    assert tfk.forward_sweep.launches == 0
     s = c["spot"].shape[0]
     for name, g_arr, w_arr in zip(("inventory", "pv", "decision", "consumed"), got[:4], want[:4]):
         np.testing.assert_allclose(g_arr.numpy(), np.asarray(w_arr), rtol=1e-5, atol=1e-3,

@@ -41,7 +41,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -168,19 +167,6 @@ def patched_source(csrc: Path, name: str, pad: int) -> str:
             + _QUERY.replace("%(smem)s", smem).replace("%(kernel)s", kernel_name(file)))
 
 
-def sass_instructions(nvcc: str, lib: Path, kernel: str) -> int:
-    """Instructions of ``kernel``'s SASS in ``lib`` (cuobjdump)."""
-    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
-    count, inside = 0, False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = kernel in line
-        elif inside and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            count += 1
-    return count
-
-
 def build_all(csrc: dict, pads: dict):
     from storage_tpu_torch.ops import _build
 
@@ -208,7 +194,7 @@ def build_all(csrc: dict, pads: dict):
         lib.probe_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.probe_occupancy.restype = ctypes.c_int
         libs[name] = lib
-        sass[name] = sass_instructions(nvcc, OUT / name / "lib.so", kernel_name(VARIANTS[name][1]))
+        sass[name] = _build.sass_instructions(OUT / name / "lib.so", kernel_name(VARIANTS[name][1]))
     return libs, ptxas, sass
 
 
