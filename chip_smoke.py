@@ -12,7 +12,11 @@
    operations).  Kernels B and E are also held against their plain versions
    at G=1,000 (S=65,536, random inputs), B's outputs must be the same bits
    over two launches, and B's launch report (shared memory, blocks per SM,
-   registers) is printed beside kernel D's.  Kernel C's sweep runs the main
+   registers) is printed beside kernel D's.  Kernel D must give its plain
+   version's bits (no error, no flipped argmax), also at G=1,000 (S=65,536)
+   on rows following g and on random rows spanning the whole grid, and the
+   same bits over two launches.
+   Kernel C's sweep runs the main
    path's 365 steps on its real tables (a backward pass) and paths: against
    its plain version (per-sim paths may part only on a near-tie), against
    itself with the per-sim panels and against 365 one-step launches (the
@@ -37,7 +41,8 @@
    expected profile.
 6. ``value_from_sims`` on the headline's spot panels alone (basis
    1 + s + s² + s³): kernel D once per backward step, the NPV within 0.1 SE
-   of the same valuation in f64.
+   of the same valuation in f64, and the NPV and SE the bits pinned below
+   (kernel D's first design gave them).
 7. The full-step backward (``lsmc_core(fullstep=True)``): kernel E once per
    backward step and no kernel B, the NPV within 0.05 SE of the main path's;
    its backward seconds beside the kernel-B-plus-glue backward.
@@ -74,6 +79,9 @@ F64_NPV = {True: 115_080.6957706275, False: 115_079.00662445562}
 # The spot-only valuation of the headline's spot panels (SPOT_BASIS,
 # snap_interp=True) in f64 the same way (``--f64``, NVIDIA H100 80GB HBM3).
 F64_SPOT_NPV = 97_296.88404629874
+# Its NPV and SE in f32 as kernel D's first design gave them (NVIDIA H100
+# 80GB HBM3): the same arithmetic in any design keeps these bits.
+SPOT_NPV, SPOT_SE = 97_299.15625, 105.01274108886719
 NUM_SIMS = 262_144
 NUM_STEPS = 365
 NUM_GRID = 100
@@ -330,6 +338,50 @@ def random_step(device, g, s, seed):
             2.0 * rnd(d, g), 20.0 * rnd(d, g), monomials)
 
 
+def random_update(device, g, s, seed, monotone: bool):
+    """Kernel D's arguments at G grid points, S sims, D=3 and B=4 from a
+    seed: random values, design, spot and coefficients, with interpolation
+    rows either following g in a band of ±5 ("monotone", as interpolated
+    targets give) or random in [0, G−2], spanning the whole grid (rows 0 and
+    G−2 at every grid point)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    b, d = 4, 3
+    if monotone:
+        idx_lo = (torch.arange(g, device=device)[:, None]
+                  + torch.tensor([-5, 0, 5], device=device)[None, :]).clamp(0, g - 2)
+    else:
+        idx_lo = torch.randint(0, g - 1, (g, d), generator=gen, device=device)
+        idx_lo[:, 0], idx_lo[:, -1] = 0, g - 2
+    return (100.0 + 30.0 * rnd(g, s), rnd(b, s), 30.0 + 5.0 * rnd(s),
+            idx_lo.to(torch.int32).contiguous(), torch.rand((g, d), generator=gen, device=device),
+            20.0 * rnd(d, g, b), 2.0 * rnd(d, g), 20.0 * rnd(d, g))
+
+
+def compare_d(args_d) -> dict:
+    """Kernel D against its plain version on ``args_d``, and against itself
+    over two launches.  The kernel does the plain version's arithmetic in the
+    same order, so every best_act value must be the same bits: no error and
+    no flipped argmax."""
+    import torch
+
+    from storage_tpu_torch.ops import decision_kernel
+
+    got = decision_kernel.decision_update(*args_d).clone()
+    repeat_same = bool(torch.equal(got, decision_kernel.decision_update(*args_d)))
+    want = decision_kernel.decision_update_plain(*args_d)
+    err = float((got - want).abs().max())
+    differ = int((got != want).sum())
+    ok = differ == 0 and repeat_same
+    text = (f"best_act max abs err {err:.3e}, {differ} of {got.numel()} values differ "
+            f"(tolerance 0: no error, no flipped argmax); bit-identical over two launches: "
+            f"{repeat_same}")
+    return dict(ok=ok, text=text, max_abs_err=err, flips=differ,
+                bit_identical_over_two_launches=repeat_same)
+
+
 def compare_b(args_b) -> dict:
     """Kernel B against its plain version on ``args_b``, and against itself
     over two launches.  The kernel does the plain version's arithmetic in the
@@ -472,7 +524,7 @@ def check_kernels(pkg, device):
     log("launch reports (kernel at G=100, D=3): " + "; ".join(
         f"{name} at B={bd}: {r['smem_bytes']} bytes of shared memory per block (limit "
         f"{r['smem_limit']}, so G <= {r['max_grid']}), {r['blocks_per_sm']} blocks of "
-        f"{r['sims_per_block']} threads per SM, {r['registers']} registers"
+        f"{r['sims_per_block']} sims per SM, {r['registers']} registers"
         for (name, r), bd in zip(launch.items(), (b_dim, b_dim, len(st.spot_monomials)))))
     for c in (cmp_b, cmp_big):
         if not c["ok"]:
@@ -485,28 +537,35 @@ def check_kernels(pkg, device):
 
     # ---- D: the same step on spot-only panels (basis 1 + s + s² + s³): the
     # design [B, S] standardised by the step's exact stats, as the engine's
-    # spot-only backward passes it.
+    # spot-only backward passes it; then at G=1,000 on rows following g and
+    # on random rows spanning the whole grid.  Every value the plain
+    # version's bits.
     spot_monomials = st.spot_monomials
     args_d = st.args_d
-    dm_t = args_d[1]
-    got = decision_kernel.decision_update(*args_d, out=out)
-    want = decision_kernel.decision_update_plain(*args_d)
-    regressed = torch.stack([r for r, _ in decision_kernel.decision_values_on_design(
-        v, dm_t.T, *args_d[2:])])
-    flips_d, unexplained_d, err_d = near_tie_flips(got, want, [regressed])
-    del regressed, got, want
+    cmp_d = compare_d(args_d)
     ms = cuda_ms(lambda: decision_kernel.decision_update(*args_d, out=out), 20)
     plain_ms = cuda_ms(lambda: decision_kernel.decision_update_plain(*args_d), 5)
     bnd = bound(*decision_work(NUM_GRID, s, 3, len(spot_monomials), 0, moments=False,
                                design_in_memory=True))
     log(f"kernel D decision_update [G={NUM_GRID}, S={s}, D=3, B={len(spot_monomials)}]: "
-        f"best_act max abs err {err_d:.3e}; {flips_d} beyond f32 rounding (argmax flips), "
-        f"{unexplained_d} of them off a near-tie (tolerance 0); "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    if unexplained_d or flips_d > 1e-5 * v.numel():
-        raise AssertionError("kernel D disagrees with its plain version")
-    results["decision_update"] = dict(max_abs_err=err_d, ms=ms, plain_ms=plain_ms, flips=flips_d,
-                                      **bnd)
+        f"{cmp_d['text']}; {ms:.4f} ms vs plain {plain_ms:.3f} ms, "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    big_d = {}
+    for kind, monotone in (("monotone", True), ("whole-grid", False)):
+        args_big = random_update(device, BIG_GRID, BIG_SIMS, seed=9, monotone=monotone)
+        big_d[kind] = compare_d(args_big)
+        log(f"kernel D decision_update [G={BIG_GRID}, S={BIG_SIMS}, D=3, B=4, {kind} rows]: "
+            f"{big_d[kind]['text']}")
+        del args_big
+    for c in (cmp_d, *big_d.values()):
+        if not c["ok"]:
+            raise AssertionError(f"kernel D disagrees with its plain version: {c['text']}")
+    results["decision_update"] = dict(
+        max_abs_err=cmp_d["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        **{k: v_ for k, v_ in cmp_d.items() if k not in ("text", "max_abs_err")},
+        big_grid={kind: dict(G=BIG_GRID, S=BIG_SIMS, **{k: v_ for k, v_ in c.items() if k != "text"})
+                  for kind, c in big_d.items()},
+        launch=launch["D_spot_only"], **bnd)
 
     # ---- E: the whole step from step t's moments against v, centred by its
     # exact stats, with step t-1's stats for the next moments (as the engine);
@@ -1028,11 +1087,15 @@ def spot_only_valuation(pkg, device, counts, src, main):
     gap = (res.npv - main.npv) / main.val_sim_standard_error
     log(f"spot-only value_from_sims ({SPOT_BASIS}): NPV {res.npv!r} SE {se!r}, "
         f"{off:+.4f} SE from its f64 answer {F64_SPOT_NPV} (tolerance 0.1), {gap:+.3f} SE from "
-        f"the 3-factor NPV {main.npv!r}; wall {wall:.3f} s; launches {launches}")
+        f"the 3-factor NPV {main.npv!r}; the pinned bits {SPOT_NPV!r} SE {SPOT_SE!r}: "
+        f"{(res.npv, se) == (SPOT_NPV, SPOT_SE)}; wall {wall:.3f} s; launches {launches}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
     if not abs(off) <= 0.1:
         raise AssertionError(f"spot-only NPV {res.npv} is not within 0.1 SE of {F64_SPOT_NPV}")
+    if (res.npv, se) != (SPOT_NPV, SPOT_SE):
+        raise AssertionError(f"spot-only NPV {res.npv!r} SE {se!r}: not the bits {SPOT_NPV!r} "
+                             f"SE {SPOT_SE!r} of the same arithmetic")
     return dict(npv=res.npv, se=se, off_f64_se=off, gap_to_3f_se=gap, wall_s=wall,
                 launches=launches)
 
@@ -1302,8 +1365,10 @@ def main(argv) -> int:
     report["profile"] = profile_valuation(stt, device, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    # Kernel C's ms is per sweep of all steps; its launch report beside it.
-    extra = {"forward_sweep": ("smem_bytes", "blocks_per_sm", "registers", "sass_instructions")}
+    # Kernel C's ms is per sweep of all steps; its launch report beside it,
+    # and kernel D's.
+    extra = {"forward_sweep": ("smem_bytes", "blocks_per_sm", "registers", "sass_instructions"),
+             "decision_update": ("launch",)}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src_file, "replaces": rep,
          "launches": launches[name], **{k: kernels[name][k] for k in keys},

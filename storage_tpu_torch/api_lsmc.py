@@ -8,13 +8,16 @@ Accepted: every ``sim_data_returned`` flag (per-sim panels of paths held on
 the card), pathwise deltas, ``antithetic=False``, no progress or cancel
 callback, no checkpoint, uniform grids, monomial bases.  Every other option,
 user panels too large for the card and ``value_from_sims_host_local`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.  Seeds keep
+``NotImplementedError`` naming, by its title, the ROADMAP item that ports
+them.  On CUDA a basis of more than 16 terms or a model of more than 8
+factors raises ``ValueError`` before anything runs: the kernels' caps
+(``ops._build.limits``); ``device="cpu"`` takes any size.  Seeds keep
 the JAX key semantics: ``key(seed)`` for the regression sims,
 ``fold_in(key, 0x5EED)`` for the valuation sims when ``fwd_sim_seed`` is
 None, one shared set when the two seeds are equal.
 
-The intrinsic value is not computed yet (ROADMAP Queue 1 item 9, intrinsic
-and tree engines): ``intrinsic_npv`` is NaN and ``intrinsic_profile`` empty.
+The intrinsic value is not computed yet (ROADMAP Queue 1, the intrinsic
+engine): ``intrinsic_npv`` is NaN and ``intrinsic_profile`` empty.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from .engines import lsmc as lsmc_engine
 from .facility import CmdtyStorage
 from .models import multi_factor as mf
 from .models import spot_sim
+from .ops import _build
 from .results import (
     MultiFactorValuationResults,
     SimulationDataReturned,
@@ -104,9 +108,10 @@ def three_factor_seasonal_value(
 
 
 def _refuse(option: str, item: str):
+    """``item`` is the title of the ROADMAP Queue 1 item that ports ``option``."""
     raise NotImplementedError(
         f"storage_tpu_torch does not support {option} yet: it waits for "
-        f"ROADMAP Queue 1 item {item}."
+        f"ROADMAP Queue 1, {item}."
     )
 
 
@@ -125,19 +130,19 @@ def _resolve_device(device: Device) -> torch.device:
 def _refuse_unported(antithetic, on_progress_update, cancellation_poll, deltas_method,
                      checkpoint_path, grid_calc):
     if antithetic:
-        _refuse("antithetic=True", "6 (streamed engine and antithetic draws)")
+        _refuse("antithetic=True", "antithetic draws on materialised panels")
     if on_progress_update is not None or cancellation_poll is not None:
-        _refuse("progress or cancellation callbacks", "8 (interactive execution)")
+        _refuse("progress or cancellation callbacks", "interactive execution and checkpoints")
     if checkpoint_path is not None:
-        _refuse("checkpoint_path", "8 (interactive execution and checkpoints)")
+        _refuse("checkpoint_path", "interactive execution and checkpoints")
     if deltas_method != "pathwise":
         if deltas_method == "adjoint":
-            _refuse("deltas_method='adjoint'", "7 (adjoint deltas)")
+            _refuse("deltas_method='adjoint'", "adjoint deltas")
         raise ValueError(
             f"deltas_method must be 'pathwise' or 'adjoint', got {deltas_method!r}."
         )
     if grid_calc is not None:
-        _refuse("grid_calc (custom inventory grids)", "9 (intrinsic and tree engines, custom grids)")
+        _refuse("grid_calc (custom inventory grids)", "the tree engine and custom grids")
 
 
 def multi_factor_value(
@@ -203,7 +208,7 @@ def multi_factor_value(
 
     return _lsmc_calc(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
-        sims_provider, basis_funcs, discount_deltas, extra_decisions,
+        sims_provider, len(factors), basis_funcs, discount_deltas, extra_decisions,
         num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
     )
 
@@ -246,6 +251,8 @@ def value_from_sims(
     _refuse_unported(False, on_progress_update, cancellation_poll, deltas_method,
                      checkpoint_path, grid_calc)
     wants_sim_data = _wants_sim_data(SimulationDataReturned.coerce(sim_data_returned))
+    sim_factors_regress, sim_factors_valuation = (
+        None if f is None else list(f) for f in (sim_factors_regress, sim_factors_valuation))
 
     def sims_provider(inputs):
         reg = _frames_to_sims(sim_spot_regress, sim_factors_regress, inputs, "regress", dtype)
@@ -258,9 +265,10 @@ def value_from_sims(
         return tuple((torch.tensor(spot, device=device), torch.tensor(fac, device=device))
                      for spot, fac in (reg, val))
 
+    num_factors = max(len(f or ()) for f in (sim_factors_regress, sim_factors_valuation))
     return _lsmc_calc(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
-        sims_provider, basis_funcs, discount_deltas, extra_decisions,
+        sims_provider, num_factors, basis_funcs, discount_deltas, extra_decisions,
         num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
     )
 
@@ -268,7 +276,7 @@ def value_from_sims(
 def value_from_sims_host_local(*args, **kwargs) -> MultiFactorValuationResults:
     """Multi-host ``value_from_sims`` (each process's block of paths): not
     ported yet."""
-    _refuse("value_from_sims_host_local (multi-process panels)", "10 (multi-GPU)")
+    _refuse("value_from_sims_host_local (multi-process panels)", "multi-GPU")
 
 
 def _frames_to_sims(spot_frame, factor_frames, inputs, label, dtype):
@@ -312,7 +320,7 @@ def _require_panels_fit(reg, num_grid: int, wants_sim_data: bool, dtype, device)
     if need > free:
         _refuse(f"user panels larger than the card's free memory ({need / 1e9:.1f} GB needed, "
                 f"{free / 1e9:.1f} GB free; the host-streamed engine)",
-                "6 (streamed engine)")
+                "the streamed engine")
 
 
 def _wants_sim_data(flags: SimulationDataReturned) -> bool:
@@ -331,6 +339,7 @@ def _lsmc_calc(
     interest_rates,
     settlement_rule,
     sims_provider,
+    num_factors: int,
     basis_funcs,
     discount_deltas: bool,
     extra_decisions,
@@ -341,7 +350,8 @@ def _lsmc_calc(
     snap_interp: bool,
 ) -> MultiFactorValuationResults:
     """The valuation shared by the entry points: ``sims_provider(inputs)``
-    returns ((spot_reg, factors_reg), (spot_val, factors_val)) on ``device``."""
+    returns ((spot_reg, factors_reg), (spot_val, factors_val)) on ``device``,
+    with ``num_factors`` factor panels each."""
     sim_data_returned = SimulationDataReturned.coerce(sim_data_returned)
     if isinstance(fwd_curve, pd.Series) and isinstance(
         fwd_curve.index, pd.PeriodIndex
@@ -370,6 +380,8 @@ def _lsmc_calc(
         )
 
     monomials = tuple(basis_mod.coerce_basis_functions(basis_funcs))
+    if device.type == "cuda":
+        _build.require_caps("storage_tpu_torch", len(monomials), num_factors)
     inputs = prepare_valuation(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule
     )

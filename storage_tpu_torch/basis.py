@@ -4,8 +4,8 @@ The string mini-DSL of the reference (``"1 + x_st + s*x0**2"``,
 ``BasisFunctionsBuilder.cs:90-129``) parsed into plain monomial descriptors
 ``(spot_power, ((factor_index, power), ...))`` and evaluated as a design
 matrix on tensors — the counterpart of ``storage_tpu.basis``.  Only monomials
-are ported; generic callables and the combinator DSL wait for the service
-layer (ROADMAP Queue 1 item 11).
+are ported; generic callables and the combinator DSL wait for ROADMAP Queue
+1, the rest of the host layer.
 """
 from __future__ import annotations
 
@@ -85,7 +85,7 @@ def coerce_basis_functions(value) -> tp.List[Monomial]:
     raise NotImplementedError(
         "storage_tpu_torch takes basis functions as a DSL string or a list of "
         "Monomial; generic callables and the combinator DSL wait for ROADMAP "
-        "Queue 1 item 11 (service layer and generic basis callables)."
+        "Queue 1, the rest of the host layer."
     )
 
 

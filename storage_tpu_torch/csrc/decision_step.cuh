@@ -1,6 +1,7 @@
-// The backward step's decision update for one sim column, shared by kernel B
-// (decision_kernel.cu), kernel D (decision_update_kernel.cu) and, through
-// B's kernel, kernel E (fullstep_kernel.cu).
+// The backward step's decision update for one sim column, run by kernel B
+// (decision_kernel.cu) and, through B's kernel, kernel E (fullstep_kernel.cu);
+// kernel D (decision_update_kernel.cu) does the same arithmetic in its own
+// loop.
 //
 // For inventory grid point g of sim s it takes the decision whose REGRESSED
 // value is largest (strict >, decision 0 first, so ties keep the earlier

@@ -7,18 +7,35 @@
 // (value_from_sims on spot-only panels): there the design rows come from the
 // caller's standardised design dm_std_t [B, S] instead of being built from
 // spot and factors, and the regression is fitted outside the kernel, so no
-// moments are accumulated.  The decision arithmetic is kernel B's
-// (decision_step.cuh: strict >, decision 0 first, centred gaps, two-row
-// gather of v).
+// moments are accumulated.
 //
 // Bound on the H100: device memory.  Per step it must read v [G, S] (105 MB at
 // G=100, S=262,144), dm_std_t [B, S] and spot, and write best_act [G, S]:
-// about 215 MB, ~64 us at 3.35 TB/s; the arithmetic (~G·(D·6 + (D−1)·2B)
-// flops per sim) is far below the card's rate.  Design, as simple as B's:
-//   * one thread per sim column, 128 sims per block; the B design entries of
-//     the column are read coalesced from dm_std_t into registers;
-//   * the per-step tables (dci, a, b, idx_lo, w_hi) go to shared memory once
-//     per block;
+// about 215 MB, ~64 us at 3.35 TB/s; the arithmetic, ~G·(D·6 + (D−1)·2B) flops
+// per sim, is below that at the card's f32 rate.  What held the first design
+// back (0.315 ms, PERF.md) was latency: six dependent gathers of v per sim
+// and grid point from device memory, one grid point at a time.  Design:
+//   * The argmax runs first, on the regressed values, which need no v; then
+//     only the chosen decision's two rows are read: 2 reads per sim and grid
+//     point, not 2D.  They go through L1, where the rows of the few grid
+//     points in flight stay: staging the block's slice of v in shared
+//     memory costs blocks per SM and was 16% slower
+//     (tools/torch_update_probe.py, PERF.md).
+//   * The grid points go in groups of kGroup, decided together: kGroup
+//     independent chains per thread.
+//   * The step tables are repacked per grid point in shared memory: per
+//     decision one 16-byte entry {a, b, w_hi, idx_lo}, then for d > 0 its
+//     centred coefficients (dci, zero-padded to whole float4s), all read at
+//     warp-uniform addresses.
+//   * The kernel is compiled per basis size padded to a multiple of 4, so
+//     the design entries and the dot products are unrolled over registers
+//     (one kernel for every B, at 16 terms or with a loop over B, was 32–41%
+//     slower at B=4); the padded terms add 0·0 to a regressed value, which
+//     moves no argmax.
+//   * The arithmetic is stt::decide's (decision_step.cuh), every product and
+//     sum rounded on its own: strict >, decision 0 first, centred gaps, the
+//     winner's actual value v[lo]·(1 − w) + v[lo + 1]·w plus its immediate
+//     value.  So best_act is the plain version's to the bit.
 //   * best_act goes to a separate buffer (the engine's spare [G, S] panel),
 //     never over v: a later g of the same column still reads v rows that an
 //     in-place write (the TPU's input_output_aliases) would have replaced.
@@ -26,32 +43,128 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-#include "decision_step.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;  // sims per block, one a thread
+constexpr int kGroup = 4;      // grid points decided together
 
-__global__ void decision_update_kernel(
+__host__ __device__ inline int padded_basis(int B) { return (B + 3) & ~3; }
+// Floats of one grid point's table record: {a, b, w_hi, idx_lo} per decision,
+// and after each of decisions 1..D−1 its padded centred coefficients.
+__host__ __device__ inline int record_words(int D, int Bp) { return 4 + (D - 1) * (4 + Bp); }
+__host__ __device__ inline int record_offset(int d, int Bp) {
+  return d == 0 ? 0 : 4 + (d - 1) * (4 + Bp);
+}
+
+// best_act of grid points [c·kGroup, c·kGroup + kGroup) for sim s, whose
+// spot is sp and design row dm (Bp entries, zero beyond B).
+template <int Bp>
+__device__ __forceinline__ void decide_group(int c, int G, int S, int D, const float* tab,
+                                             const float* __restrict__ v, int s, bool valid,
+                                             float sp, const float (&dm)[Bp],
+                                             float* __restrict__ best_out) {
+  const int rec = record_words(D, Bp);
+  const float* r[kGroup];
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) r[i] = tab + min(c * kGroup + i, G - 1) * rec;
+  float best_reg[kGroup], best_imm[kGroup], best_w[kGroup];
+  int best_lo[kGroup];
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const float4 e = *reinterpret_cast<const float4*>(r[i]);
+    best_reg[i] = best_imm[i] = __fadd_rn(__fmul_rn(e.x, sp), e.y);
+    best_w[i] = e.z;
+    best_lo[i] = __float_as_int(e.w);
+  }
+#pragma unroll 1
+  for (int d = 1; d < D; ++d) {
+    const int off = record_offset(d, Bp);
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const float* p = r[i] + off;
+      const float4 e = *reinterpret_cast<const float4*>(p);
+      float cf[Bp];
+#pragma unroll
+      for (int k = 0; k < Bp; k += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(p + 4 + k);
+        cf[k] = q4.x;
+        cf[k + 1] = q4.y;
+        cf[k + 2] = q4.z;
+        cf[k + 3] = q4.w;
+      }
+      float q = __fmul_rn(cf[0], dm[0]);
+#pragma unroll
+      for (int k = 1; k < Bp; ++k) q = __fadd_rn(q, __fmul_rn(cf[k], dm[k]));
+      const float imm = __fadd_rn(__fmul_rn(e.x, sp), e.y);
+      const float vr = __fadd_rn(q, imm);
+      if (vr > best_reg[i]) {
+        best_reg[i] = vr;
+        best_imm[i] = imm;
+        best_w[i] = e.z;
+        best_lo[i] = __float_as_int(e.w);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const int g = c * kGroup + i;
+    const float* x = v + static_cast<size_t>(best_lo[i]) * S + s;
+    const float w = best_w[i];
+    const float cont =
+        __fadd_rn(__fmul_rn(__ldg(x), __fsub_rn(1.0f, w)), __fmul_rn(__ldg(x + S), w));
+    if (g < G && valid) best_out[static_cast<size_t>(g) * S + s] = __fadd_rn(cont, best_imm[i]);
+  }
+}
+
+template <int Bp>
+__global__ void __launch_bounds__(kThreads) decision_update_kernel(
     int G, int S, int D, int B, const float* __restrict__ v,
     const float* __restrict__ dm_std_t, const float* __restrict__ spot,
     const int* __restrict__ idx_lo_g, const float* __restrict__ w_hi_g,
     const float* __restrict__ dci_g, const float* __restrict__ a_g,
     const float* __restrict__ b_g, float* __restrict__ best_out) {
-  extern __shared__ float smem[];
-  const stt::DecisionTables tab =
-      stt::load_decision_tables(smem, G, D, B, dci_g, a_g, b_g, w_hi_g, idx_lo_g);
+  extern __shared__ __align__(16) float tab[];
+  const int rec = record_words(D, Bp);
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int d = i / G;
+    const int g = i - d * G;
+    float* out = tab + g * rec + record_offset(d, Bp);
+    out[0] = a_g[i];
+    out[1] = b_g[i];
+    out[2] = w_hi_g[g * D + d];
+    out[3] = __int_as_float(idx_lo_g[g * D + d]);
+    if (d > 0)
+      for (int k = 0; k < Bp; ++k)
+        out[4 + k] = k < B ? dci_g[static_cast<size_t>(i) * B + k] : 0.0f;
+  }
+  // Past the end a thread decides for sim S − 1 and stores nothing.
+  const int col = blockIdx.x * kThreads + threadIdx.x;
+  const bool valid = col < S;
+  const int s = min(col, S - 1);
+  const float sp = spot[s];
+  float dm[Bp];
+#pragma unroll
+  for (int k = 0; k < Bp; ++k) dm[k] = k < B ? dm_std_t[static_cast<size_t>(k) * S + s] : 0.0f;
   __syncthreads();
 
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= S) return;
-  const float sp = spot[s];
-  float dm[stt::kMaxB];
-#pragma unroll
-  for (int k = 0; k < stt::kMaxB; ++k)
-    dm[k] = k < B ? dm_std_t[static_cast<size_t>(k) * S + s] : 0.0f;
-  for (int g = 0; g < G; ++g)
-    best_out[static_cast<size_t>(g) * S + s] = stt::decide(tab, G, D, B, g, v, S, s, sp, dm);
+  const int ngroups = (G + kGroup - 1) / kGroup;
+  for (int c = 0; c < ngroups; ++c)
+    decide_group<Bp>(c, G, S, D, tab, v, s, valid, sp, dm, best_out);
+}
+
+using UpdateKernel = decltype(&decision_update_kernel<4>);
+
+// The kernel compiled for basis size B, or NULL beyond stt::kMaxB.
+UpdateKernel update_kernel(int B) {
+  static_assert(stt::kMaxB == 16, "one case per padded basis size");
+  switch (padded_basis(B)) {
+    case 4: return decision_update_kernel<4>;
+    case 8: return decision_update_kernel<8>;
+    case 12: return decision_update_kernel<12>;
+    case 16: return decision_update_kernel<16>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -62,13 +175,13 @@ extern "C" int stt_decision_update(
     const void* a, const void* b, void* best_out, void* stream) {
   if (G < 2 || D < 1 || S < 1 || B < 1 || B > stt::kMaxB)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nblk = (S + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(float) * stt::decision_tables_words(G, D, B);
-  cudaError_t err = cudaFuncSetAttribute(
-      decision_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const UpdateKernel kernel = update_kernel(B);
+  const size_t smem = sizeof(float) * static_cast<size_t>(G) * record_words(D, padded_basis(B));
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  decision_update_kernel<<<nblk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int nblk = (S + kThreads - 1) / kThreads;
+  kernel<<<nblk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       G, S, D, B, static_cast<const float*>(v), static_cast<const float*>(dm_std_t),
       static_cast<const float*>(spot), static_cast<const int*>(idx_lo),
       static_cast<const float*>(w_hi), static_cast<const float*>(dci),
@@ -81,6 +194,6 @@ extern "C" int stt_decision_update(
 // kernel_info).
 extern "C" int stt_decision_update_info(int G, int D, int B, int* out) {
   if (G < 0 || D < 1 || B < 1 || B > stt::kMaxB) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(stt::kernel_info(decision_update_kernel, kThreads, 0,
-                                           stt::decision_tables_words(1, D, B), G, out));
+  return static_cast<int>(stt::kernel_info(update_kernel(B), kThreads, 0,
+                                           record_words(D, padded_basis(B)), G, out));
 }

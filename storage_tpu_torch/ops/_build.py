@@ -53,9 +53,11 @@ SIGNATURES = {
         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P,
     ),
-    # G, D, B, out int[6] (the launch report of kernel B or D)
+    # G, D, B, out int[6] (kernel B's launch report) or int[9] (kernel D's)
     "stt_decision_update_moments_info": (_I, _I, _I, _P),
     "stt_decision_update_info": (_I, _I, _I, _P),
+    # out int[2]: the most basis functions and factors a kernel takes
+    "stt_limits": (_P,),
     # G, S, D, B, v, dm_std_t, spot, idx_lo, w_hi, dci, a, b, best_out, stream
     "stt_decision_update": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # G, S, F, D, basis table, ridge, v, spot, factors, spot_prev,
@@ -169,6 +171,26 @@ def stream_handle(device: torch.device) -> int:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {rc}")
+
+
+@functools.lru_cache(maxsize=1)
+def limits() -> dict:
+    """The most basis functions and factors the kernels take (``kMaxB`` and
+    ``kMaxF`` of ``csrc/common.cuh``, read from the built library)."""
+    out = (ctypes.c_int * 2)()
+    check(library().stt_limits(out), "stt_limits")
+    return {"max_basis": out[0], "max_factors": out[1]}
+
+
+def require_caps(name: str, num_basis: int, num_factors: int) -> None:
+    """Raises ``ValueError`` before any launch where a basis or a factor
+    count exceeds the kernels' caps (``limits``)."""
+    caps = limits()
+    if num_basis > caps["max_basis"] or num_factors > caps["max_factors"]:
+        raise ValueError(
+            f"{name}: {num_basis} basis functions and {num_factors} factors; the CUDA kernels "
+            f"take at most {caps['max_basis']} basis functions and {caps['max_factors']} factors "
+            f"(csrc/common.cuh kMaxB, kMaxF); device='cpu' takes any size")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> torch.device:

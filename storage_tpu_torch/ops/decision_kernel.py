@@ -34,8 +34,11 @@ The kernels are ``csrc/decision_kernel.cu`` (B), ``csrc/decision_update_kernel.c
 (D) and ``csrc/fullstep_kernel.cu`` (E, which launches B's kernel after its
 solve); each ``*_plain`` function is the same function in tensor code, used
 for CPU tensors.  B's kernel keeps only the step tables and two fixed tiles
-in shared memory, so B and E take any grid whose tables fit the card
-(``kernel_info`` gives the largest) and raise ``ValueError`` beyond it.
+in shared memory, D's only the step tables.  Each takes any grid whose tables
+fit the card (``kernel_info`` gives the largest) and raises ``ValueError``
+beyond it, and any basis and factor count within the kernels' caps
+(``_build.limits``: 16 basis functions, 8 factors), raising ``ValueError``
+beyond them.
 """
 from __future__ import annotations
 
@@ -131,7 +134,7 @@ def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device) ->
     functions on a CUDA device: sims per block, shared memory bytes per block
     (static and dynamic), the device's limit per block, the largest G within
     it at this D and B, blocks per SM (0 where G does not fit) and registers
-    per thread."""
+    per thread.  B must be within the basis cap (``_build.limits``)."""
     entry = {"moments": "stt_decision_update_moments_info",
              "update": "stt_decision_update_info"}[kernel]
     return _kernel_info(entry, g, d, bdim, torch.device(device).index or 0)
@@ -207,6 +210,7 @@ def decision_update_moments(
         raise ValueError("decision_update_moments: idx_lo on another device")
     if out.data_ptr() == v.data_ptr():
         raise ValueError("decision_update_moments: out must not alias v")
+    _build.require_caps("decision_update_moments", bdim, f)
     _check_shapes("decision_update_moments", {
         "spot": (spot, (s,)), "factors": (factors, (f, s)),
         "spot_prev": (spot_prev, (s,)), "factors_prev": (factors_prev, (f, s)),
@@ -255,7 +259,9 @@ def decision_update(
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel and
     must be f32 and contiguous; ``out`` is the [G, S] buffer for best_act and
-    must not be ``v``.  ``idx_lo`` must lie in [0, G-2], as for kernel B."""
+    must not be ``v``.  ``idx_lo`` must lie in [0, G-2], as for kernel B, in
+    any order.  Beyond the largest G of ``kernel_info("update", ...)`` it
+    raises ``ValueError``."""
     if v.device.type == "cpu":
         return decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b)
     g, s = v.shape
@@ -270,11 +276,18 @@ def decision_update(
         raise ValueError("decision_update: idx_lo on another device")
     if out.data_ptr() == v.data_ptr():
         raise ValueError("decision_update: out must not alias v")
+    _build.require_caps("decision_update", bdim, 0)
     _check_shapes("decision_update", {
         "dm_std_t": (dm_std_t, (bdim, s)), "spot": (spot, (s,)),
         "idx_lo": (idx_lo, (g, d)), "w_hi": (w_hi, (g, d)), "ci": (ci, (d, g, bdim)),
         "a": (a, (d, g)), "b": (b, (d, g)), "out": (out, (g, s)),
     })
+    info = kernel_info("update", g, d, bdim, device)
+    if g > info["max_grid"]:
+        raise ValueError(
+            f"decision_update: G={g} grid points at D={d} decisions and B={bdim} basis functions "
+            f"need {info['smem_bytes']} bytes of shared memory per block (the step tables grow "
+            f"with G); this card allows {info['smem_limit']}, so at most G={info['max_grid']}")
     rc = _build.library().stt_decision_update(
         g, s, d, bdim, v.data_ptr(), dm_std_t.data_ptr(), spot.data_ptr(),
         idx_lo.data_ptr(), w_hi.data_ptr(), dci.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -374,6 +387,7 @@ def decision_update_fullstep(
         raise ValueError("decision_update_fullstep: idx_lo on another device")
     if out.data_ptr() == v.data_ptr():
         raise ValueError("decision_update_fullstep: out must not alias v")
+    _build.require_caps("decision_update_fullstep", bdim, f)
     shapes = {
         "spot": (spot, (s,)), "factors": (factors, (f, s)), "spot_prev": (spot_prev, (s,)),
         "factors_prev": (factors_prev, (f, s)), "xtx": (xtx, (bdim, bdim)),

@@ -276,7 +276,7 @@ def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device) -> dict:
     two-stage ring of step tables and per-sim values, and the decision
     fractions), the device's limit per block, the largest G
     within it, blocks per SM (0 where G does not fit) and registers per
-    thread."""
+    thread.  B and F must be within the kernels' caps (``_build.limits``)."""
     return _kernel_info(g, bdim, r, f, e, torch.device(device).index or 0)
 
 
@@ -346,6 +346,7 @@ def forward_sweep(
             raise ValueError(f"forward_sweep: {name} is {tuple(t.shape)}, want {shape}")
     if len(monomials) != bdim:
         raise ValueError("forward_sweep: coeffs rows must match the basis")
+    _build.require_caps("forward_sweep", bdim, f)
     info = kernel_info(g, bdim, r, f, num_extra_decisions, device)
     if info["smem_bytes"] > info["smem_limit"]:
         raise ValueError(

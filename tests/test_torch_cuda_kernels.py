@@ -95,14 +95,96 @@ def test_grid_beyond_shared_memory_raises(device):
                                                  xty, mean, std, idx_lo, w_hi, a, b, mono)
 
 
-def test_decision_update(device):
-    """Kernel D on a standardised design [B, S] read from memory."""
-    v, spot, _, _, _, _, _, _, _, idx_lo, w_hi, ci, a, b, _ = _decision_args(device, 11, 300, 5, 0)
-    gen = torch.Generator(device=device).manual_seed(8)
-    dm_std_t = torch.randn((ci.shape[2], 300), generator=gen, device=device)
-    got = decision_kernel.decision_update(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b)
-    want = decision_kernel.decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-4)
+def _update_args(device, g, s, d, kind, basis="1 + s + s**2 + s**3", seed=3):
+    """Kernel D's arguments on a standardised design [B, S] read from memory,
+    with interpolation rows of the given kind: random in [0, G−2] (spans as
+    wide as the grid, in no order), "whole-grid" (every grid point reaching
+    from row 0 to row G−2), "non-monotone" (rows falling as g rises) or
+    "monotone" (a band of rows following g, as interpolated targets give)."""
+    v, spot, _, _, _, _, _, _, _, idx_lo, w_hi, ci, a, b, _ = _decision_args(
+        device, g, s, d, 0, basis=basis, seed=seed)
+    gi = torch.arange(g, device=device)[:, None]
+    band = torch.arange(d, device=device)[None, :] * (10 // max(d - 1, 1)) - 5
+    if kind == "whole-grid":
+        idx_lo[:, 0], idx_lo[:, -1] = 0, g - 2
+    elif kind == "non-monotone":
+        idx_lo = (g - 2 - gi + band + idx_lo % 5 - 2).clamp(0, g - 2).to(torch.int32)
+    elif kind == "monotone":
+        idx_lo = (gi + band).clamp(0, g - 2).to(torch.int32)
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    dm_std_t = torch.randn((ci.shape[2], s), generator=gen, device=device)
+    return v, dm_std_t, spot, idx_lo.contiguous(), w_hi, ci, a, b
+
+
+@pytest.mark.parametrize("kind", ["random", "whole-grid", "non-monotone", "monotone"])
+@pytest.mark.parametrize("g,s", [(11, 300), (100, 300), (100, 1001), (1000, 300)])
+def test_decision_update(device, g, s, kind):
+    """Kernel D against its plain version to the bit (no error, no flipped
+    argmax) on rows in any order and span, at S a multiple of 4 or not, and
+    on blocks of sims that S does not fill."""
+    args = _update_args(device, g, s, 5 if g == 11 else 3, kind)
+    got = decision_kernel.decision_update(*args)
+    want = decision_kernel.decision_update_plain(*args)
+    assert torch.equal(got, want)
+
+
+def test_decision_update_deterministic(device):
+    """Two launches of kernel D on the same inputs give the same bits."""
+    args = _update_args(device, 100, 5000, 3, "monotone")
+    first = decision_kernel.decision_update(*args).clone()
+    assert torch.equal(first, decision_kernel.decision_update(*args))
+
+
+def test_decision_update_grid_beyond_shared_memory_raises(device):
+    """Kernel D takes every grid its first design took at D=3, B=4 (2,421
+    points on an H100) and refuses beyond its own limit, naming it."""
+    info = decision_kernel.kernel_info("update", 100, 3, 4, device)
+    assert info["max_grid"] >= info["smem_limit"] // 96  # the first design: 96 B a grid point
+    args = _update_args(device, info["max_grid"], 64, 3, "monotone")
+    got = decision_kernel.decision_update(*args)
+    assert torch.equal(got, decision_kernel.decision_update_plain(*args))
+    args = _update_args(device, info["max_grid"] + 1, 64, 3, "monotone")
+    with pytest.raises(ValueError, match=f"at most G={info['max_grid']}"):
+        decision_kernel.decision_update(*args)
+
+
+BASIS_17 = BASIS_9 + " + s**3 + s**4 + s*x0 + s*x1 + s*x2 + x0*x1 + x0*x2 + x1*x2"
+
+
+@pytest.mark.parametrize("wrapper,case", [
+    ("moments", "17-terms"), ("moments", "9-factors"), ("update", "17-terms"),
+    ("fullstep", "17-terms"), ("fullstep", "9-factors"), ("sweep", "17-terms"),
+    ("sweep", "9-factors")])
+def test_caps_raise_value_error(device, wrapper, case):
+    """Past the kernels' 16 basis functions or 8 factors each wrapper raises
+    ValueError naming both caps before it launches (kernel D reads a design
+    [B, S] and has no factor count)."""
+    basis, f = (BASIS_17, 3) if case == "17-terms" else ("1 + s + x8", 9)
+    g, s, d = 11, 64, 3
+    v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, ci, a, b, \
+        mono = _decision_args(device, g, s, d, f, basis=basis)
+    before = [fn.launches for fn in (decision_kernel.decision_update_moments,
+                                     decision_kernel.decision_update,
+                                     decision_kernel.decision_update_fullstep,
+                                     forward_kernel.forward_sweep)]
+    bdim = len(mono)
+    calls = {
+        "moments": lambda: decision_kernel.decision_update_moments(
+            v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi,
+            ci, a, b, mono),
+        "update": lambda: decision_kernel.decision_update(
+            v, torch.ones((bdim, s), device=device), spot, idx_lo, w_hi, ci, a, b),
+        "fullstep": lambda: decision_kernel.decision_update_fullstep(
+            v, spot, factors, spot_prev, factors_prev, torch.eye(bdim, device=device),
+            torch.ones((bdim, g), device=device), mean, std, idx_lo, w_hi, a, b, mono),
+        "sweep": lambda: forward_kernel.forward_sweep(*_sweep_args(device, 2, s, g, f, basis=basis)),
+    }
+    with pytest.raises(ValueError, match="at most 16 basis functions and 8 factors"):
+        calls[wrapper]()
+    assert before == [fn.launches for fn in (decision_kernel.decision_update_moments,
+                                             decision_kernel.decision_update,
+                                             decision_kernel.decision_update_fullstep,
+                                             forward_kernel.forward_sweep)]
 
 
 @pytest.mark.parametrize("g", [11, 400, 1000])
@@ -159,11 +241,11 @@ def test_forward_step(device, is_step, f):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5 * float(want[k].abs().max()))
 
 
-def _sweep_args(device, n, s, g, f, is_step=False, e=1, seed=6):
+def _sweep_args(device, n, s, g, f, is_step=False, e=1, seed=6, basis=None):
     """``forward_sweep``'s arguments: N steps of tables that change from step
     to step over random paths (``factors`` [N, 0, S] where F = 0)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    monomials = tuple(parse_basis_functions(BASIS_9 if f else "1 + s + s**2"))
+    monomials = tuple(parse_basis_functions(basis or (BASIS_9 if f else "1 + s + s**2")))
     b = len(monomials)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
     t = torch.arange(n, dtype=torch.float32, device=device)

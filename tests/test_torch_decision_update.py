@@ -59,6 +59,45 @@ def test_plain_matches_pallas_kernel(g, s, d, b_dim):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2.0**-15 * scale)
 
 
+def _row_span_tables(kind, g, d, rng):
+    """(idx_lo, w_hi) whose rows cover the grid otherwise than interpolated
+    targets do: every grid point reaching from row 0 to row G−2 ("whole-grid"),
+    rows falling as g rises ("non-monotone"), or a band of rows following g
+    ("monotone")."""
+    gi = np.arange(g)[:, None]
+    if kind == "whole-grid":
+        idx_lo = np.concatenate([np.zeros((g, 1)), rng.integers(0, g - 1, (g, d - 2)),
+                                 np.full((g, 1), g - 2)], axis=1)
+    elif kind == "non-monotone":
+        idx_lo = (g - 2 - gi) + np.array([-3, 0, 3])[None, :d] + rng.integers(-2, 3, (g, d))
+    else:
+        idx_lo = gi + np.array([-5, 0, 5])[None, :d]
+    idx_lo = np.clip(idx_lo, 0, g - 2).astype(np.int32)
+    w_hi = np.round(rng.uniform(0.0, 1.0, (g, d)) * 256.0) / 256.0
+    return idx_lo, w_hi.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,g", [("whole-grid", 20), ("non-monotone", 24), ("monotone", 40)])
+def test_plain_matches_pallas_kernel_on_row_spans(kind, g):
+    """Row tables that kernel D takes in any order: rows spanning the whole
+    grid, rows that fall as g rises, and a band of rows following g.
+    Against the Pallas kernel in interpret mode, as above."""
+    s, d, b_dim = 256, 3, 4
+    c = _case(g + 100, g, s, d, b_dim)
+    c["idx_lo"], c["w_hi"] = _row_span_tables(kind, g, d, np.random.default_rng(g))
+    w_mat = jdk.interp_weight_matrix(jnp.asarray(c["idx_lo"]), jnp.asarray(c["w_hi"]), g,
+                                     jnp.float32)
+    j = {k: jnp.asarray(v) for k, v in c.items()}
+    want = jdk.decision_update_pallas(
+        j["v"], j["dm_std_t"], j["spot"], w_mat, j["ci"], j["a"], j["b"], sim_tile=128,
+        interpret=True, pred_passes=1,
+    )
+    got = tdk.decision_update(*_torch_args(c))
+    assert tdk.decision_update.launches == 0
+    scale = float(np.abs(c["v"]).max())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2.0**-15 * scale)
+
+
 def test_plain_matches_exact_xla_formula_f64():
     """The JAX engine's plain backward body (engines/lsmc.py:329-351): the
     UNcentred regressed values imm + pred[d] with a strict-> running argmax

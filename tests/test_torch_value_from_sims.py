@@ -275,7 +275,7 @@ def test_panels_larger_than_the_card_raise(monkeypatch):
     spot = np.zeros((366, 1000), np.float32)
     factors = np.zeros((366, 3, 1000), np.float32)
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device: (10_000_000, 80_000_000_000))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the streamed engine"):
         api_lsmc._require_panels_fit((spot, factors), 100, False, torch.float32,
                                      torch.device("cuda"))
     api_lsmc._require_panels_fit((spot, factors[:, :0]), 100, False, torch.float32,

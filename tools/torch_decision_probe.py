@@ -24,8 +24,9 @@ the repository's kernel B (``storage_tpu_torch/csrc``):
   Bnew            as it is;
   Bnew_noprod     without the per-chunk moment products (timing only);
   Bnew_designrow  building its design rows with the unrolled stt::design_row;
-  Bnew_7blocks    with registers capped for 7 blocks per SM instead of 9;
-  Dnew_padB       the repository's kernel D padded to B's shared memory.
+  Bnew_7blocks    with registers capped for 7 blocks per SM instead of 9.
+
+(Kernel D as redesigned since has its own probe, ``tools/torch_update_probe.py``.)
 
 For each it prints blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
 shared memory per block, registers, local (spill) bytes, the kernel's SASS
@@ -120,7 +121,6 @@ VARIANTS = {
     "Bnew_noprod": ("new", "decision_kernel.cu", [(_N_PROD, "")]),
     "Bnew_designrow": ("new", "decision_kernel.cu", [(_N_DESIGN, _N_DESIGN_ROW)]),
     "Bnew_7blocks": ("new", "decision_kernel.cu", [(_N_BLOCKS, "constexpr int kMinBlocks = 7;")]),
-    "Dnew_padB": ("new", "decision_update_kernel.cu", [(_D_SMEM, _D_SMEM[:-1] + " + kProbePad;")]),
 }
 
 # The occupancy query appended to each variant: blocks per SM, shared memory
