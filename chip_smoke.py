@@ -12,7 +12,12 @@
    operations).  Kernels B and E are also held against their plain versions
    at G=1,000 (S=65,536, random inputs), B's outputs must be the same bits
    over two launches, and B's launch report (shared memory, blocks per SM,
-   registers) is printed beside kernel D's.  Kernel D must give its plain
+   registers) is printed beside kernel D's.  The simulation sweep (kernel A
+   fused with the OU steps and the spot) must give its plain version's
+   factors and spot to the bit on the headline's tables (P=366, F=3) at seeds
+   11 and 13, and at S=1,000 over F = 1, 2, 3, 8, odd and even P, with and
+   without antithetic signs; kernel A's draw-only entry keeps its threefry
+   words bit-identical and its normals within 4 ULP.  Kernel D must give its plain
    version's bits (no error, no flipped argmax), also at G=1,000 (S=65,536)
    on rows following g and on random rows spanning the whole grid, and the
    same bits over two launches.
@@ -29,11 +34,13 @@
    timed runs (the launch counters reset before the first); checks that
    the NPV is within 0.1 SE of the same valuation in f64 on the same draws
    and within 3 SE of the reference record (114,941.8, ``BENCH_r05.json``),
-   and that kernel A ran for both path sets, kernel B once per backward step
-   and kernel C once: one forward sweep per valuation.  Then the same
-   valuation with the port's default ``snap_interp=False`` (held to the same
-   bounds) and with the TPU run's numerics (held within 0.1 SE of the
-   record).
+   and that the simulation sweep ran once for each path set (kernel A's
+   draw-only entry never), kernel B once per backward step and kernel C once:
+   one forward sweep per valuation.  Then the same valuation with the port's
+   default ``snap_interp=False`` (held to the same bounds), with the TPU
+   run's numerics (kernel A's draws rounded to bf16 with L, stepped by the
+   sweep's plain loop; held within 0.1 SE of the record) and with antithetic
+   draws (within 3 SE of the main path's NPV).
 5. The round trip: the headline valuation with every per-sim panel
    (``sim_data_returned=ALL``), then ``value_from_sims`` fed its four path
    panels with the same flags must reproduce its NPV, SE and deltas to the
@@ -41,8 +48,7 @@
    expected profile.
 6. ``value_from_sims`` on the headline's spot panels alone (basis
    1 + s + s² + s³): kernel D once per backward step, the NPV within 0.1 SE
-   of the same valuation in f64, and the NPV and SE the bits pinned below
-   (kernel D's first design gave them).
+   of the same valuation in f64, and the NPV and SE the bits pinned below.
 7. The full-step backward (``lsmc_core(fullstep=True)``): kernel E once per
    backward step and no kernel B, the NPV within 0.05 SE of the main path's;
    its backward seconds beside the kernel-B-plus-glue backward.
@@ -75,13 +81,14 @@ REFERENCE_NPV = 114_941.8  # BENCH_r05.json: 262,144 x 365 x 100, seeds 11/13
 # The same valuation in f64 on these draws (the f32 paths cast to f64, the
 # kernels' plain versions on an H100), by snap_interp: what the f32 run
 # should reproduce up to f32 rounding of the regressions.
-F64_NPV = {True: 115_080.6957706275, False: 115_079.00662445562}
+F64_NPV = {True: 115_081.34206797711, False: 115_078.63334233503}
 # The spot-only valuation of the headline's spot panels (SPOT_BASIS,
 # snap_interp=True) in f64 the same way (``--f64``, NVIDIA H100 80GB HBM3).
-F64_SPOT_NPV = 97_296.88404629874
-# Its NPV and SE in f32 as kernel D's first design gave them (NVIDIA H100
-# 80GB HBM3): the same arithmetic in any design keeps these bits.
-SPOT_NPV, SPOT_SE = 97_299.15625, 105.01274108886719
+F64_SPOT_NPV = 97_297.10184581533
+# Its NPV and SE in f32 on the simulation sweep's paths (NVIDIA H100 80GB
+# HBM3): the same arithmetic in any design of kernels C and D keeps these
+# bits.
+SPOT_NPV, SPOT_SE = 97_298.28125, 105.01128387451172
 NUM_SIMS = 262_144
 NUM_STEPS = 365
 NUM_GRID = 100
@@ -94,6 +101,7 @@ SPOT_BASIS = "1 + s + s**2 + s**3"
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "build" / "chip_smoke"
 SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
+    "simulate_sweep": ("storage_tpu_torch/csrc/sim_sweep.cu", "storage_tpu/ops/rng_kernel.py:175"),
     "normal_halves": ("storage_tpu_torch/csrc/rng_kernel.cu", "storage_tpu/ops/rng_kernel.py:175"),
     "decision_update_moments": ("storage_tpu_torch/csrc/decision_kernel.cu",
                                 "storage_tpu/ops/decision_kernel.py:381"),
@@ -105,16 +113,29 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                                  "storage_tpu/ops/decision_kernel.py:712"),
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
-# memory bandwidth, and float32 outside the tensor cores.  The kernels'
-# integer operations (kernel A's hashing) are counted against the f32 rate:
-# the table has no integer row outside the tensor cores.
+# memory bandwidth, and float32 outside the tensor cores, which counts a
+# fused multiply-add as two operations (128 lanes x 132 SMs x 1.98 GHz x 2).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Kernel A's operations per (row, path) pair, counted from csrc/rng_kernel.cu:
-# 20 threefry rounds of add/rotate/xor and 17 key-injection adds, and per
-# word ~50 for the mantissa trick, log1p and a 9-term polynomial.
-THREEFRY_OPS = 77
-NORMAL_OPS = 50
+# Each SM sub-partition issues one warp instruction a clock: 32 lanes of
+# f32, so one explicitly rounded (unfused) multiply or add a lane and clock,
+# half the FMA-doubled rate.  This is also the rate at which instructions of
+# every class together can issue.  32-bit integer add, shift and logic run
+# on 16 lanes a sub-partition (64 per SM and clock on sm_90, CUDA C++
+# Programming Guide, arithmetic instruction throughput), so an integer warp
+# instruction holds its pipe two clocks while f32 ones go on issuing: the
+# integer pipe alone runs at a quarter of the FMA-doubled rate.
+F32_UNFUSED_OPS_PER_S = F32_OPS_PER_S / 2
+INT32_OPS_PER_S = F32_OPS_PER_S / 4
+# The draw's operations, counted from csrc/threefry.cuh: per threefry block
+# 20 rounds of add/rotate/xor and 17 key-injection adds (integer); per
+# normal 2 integer operations (the mantissa trick) and ~48 unfused f32 ones
+# (log1p, a 9-term polynomial of separate multiplies and adds, the scaling).
+THREEFRY_INT_OPS = 77
+NORMAL_INT_OPS = 2
+NORMAL_F32_OPS = 48
+# expf, per spot value (its range reduction, polynomial and scaling).
+EXP_F32_OPS = 8
 
 
 def log(*args):
@@ -174,13 +195,42 @@ def value_from_frames(pkg, device, spot_reg, spot_val, basis, **kwargs):
     )
 
 
-def bound(num_bytes: float, ops: float) -> dict:
+def bound(num_bytes: float, ops: float, unfused_ops: float = 0.0, int_ops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the f32 rate."""
-    t_bytes, t_ops = num_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    memory rate and the operations' issue time.  ``ops`` are f32 operations
+    counting a multiply-add as two, ``unfused_ops`` unfused f32 multiplies
+    and adds, ``int_ops`` 32-bit integer operations.  Every instruction takes
+    one issue slot (``ops``/2 + ``unfused_ops`` + ``int_ops`` lane-operations
+    at the unfused rate), and the integer ones also take the integer pipe,
+    which is half as wide: the operations' time is the larger of the two."""
+    t_bytes = num_bytes / HBM_BYTES_PER_S
+    t_ops = max((ops / 2 + unfused_ops + int_ops) / F32_UNFUSED_OPS_PER_S,
+                int_ops / INT32_OPS_PER_S)
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=num_bytes, ops=ops)
+                bytes=num_bytes, ops=ops, unfused_ops=unfused_ops, int_ops=int_ops)
+
+
+def draw_work(nb: int, s: int) -> tuple:
+    """(bytes, unfused f32 operations, integer operations) of kernel A on nb
+    block rows of S paths: ids in, two normals a pair out."""
+    pairs = float(nb) * s
+    return (4.0 * s + 8.0 * pairs, pairs * 2 * NORMAL_F32_OPS,
+            pairs * (THREEFRY_INT_OPS + 2 * NORMAL_INT_OPS))
+
+
+def sweep_work(p: int, f: int, s: int, antithetic: bool) -> tuple:
+    """(bytes, unfused f32 operations, integer operations) of the simulation
+    sweep: ids (and signs) and the step tables in, factors [P, F, S] and spot
+    [P, S] out.  Per path: ceil(P·F/2) threefry blocks and P·F normals (times
+    the sign when antithetic); per path and step the OU step (F·(2F−1) for
+    L·z, 2F for the decay), the spot (2F) and one expf."""
+    words = p * f
+    num_bytes = 4.0 * ((2 if antithetic else 1) * s + (f + 1) * p * s + p * (2 * f + f * f + 1))
+    per_step = f * (2 * f - 1) + 2 * f + 2 * f + EXP_F32_OPS
+    unfused = float(s) * (words * (NORMAL_F32_OPS + (1 if antithetic else 0)) + p * per_step)
+    ints = float(s) * (-(-words // 2) * THREEFRY_INT_OPS + words * NORMAL_INT_OPS)
+    return num_bytes, unfused, ints
 
 
 def decision_work(g, s, d, b, f, moments: bool, design_in_memory: bool = False):
@@ -415,8 +465,9 @@ def compare_b(args_b) -> dict:
 
 def compare_e(args_e, prev) -> dict:
     """Kernel E against its plain version on ``args_e`` (with ``prev``, the
-    stats of the next moments): the regression within 1e-4 relative (the
-    kernel solves in double, the plain version in f32 with torch.linalg),
+    stats of the next moments): the regression within 1e-4 relative (both
+    factor the f32 system in double, the kernel by its own loop, the plain
+    version with torch.linalg),
     the step bit-identical to kernel B run on E's own regression, argmax
     flips only on near-ties of either regression's values, the moments
     within 1e-4 relative."""
@@ -444,14 +495,132 @@ def compare_e(args_e, prev) -> dict:
     n = got[0].numel()
     ok = (reg_err <= 1e-4 and mom_err <= 1e-4 and bit_identical and not unexplained
           and flips <= 1e-5 * n)
-    text = (f"mean/std/coeffs max rel err {reg_err:.3e} (tolerance 1e-4: the kernel's Cholesky "
-            f"rounds otherwise than torch.linalg's); step bit-identical to kernel B on its own "
+    text = (f"mean/std/coeffs max rel err {reg_err:.3e} (tolerance 1e-4: the kernel's double "
+            f"Cholesky rounds otherwise than torch.linalg's); step bit-identical to kernel B on its own "
             f"regression: {bit_identical}; best_act max abs err {err:.3e}, {flips} argmax flips, "
             f"{unexplained} off a near-tie (tolerance 0); moments max rel err {mom_err:.3e} "
             f"(tolerance 1e-4)")
     return dict(ok=ok, text=text, max_abs_err=err, flips=flips, unexplained_flips=unexplained,
                 regression_max_rel_err=reg_err, moments_max_rel_err=mom_err,
                 bit_identical_to_b=bit_identical)
+
+
+# SASS opcodes by class, for the launch reports of kernel A and the sweep.
+SASS_CLASSES = {
+    "int32": ("IADD3", "IADD", "LOP3", "SHF", "SHL", "SHR", "IMAD", "IMUL", "ISETP", "LEA", "IABS",
+              "IMNMX", "SEL", "PRMT", "POPC", "FLO", "BREV"),
+    "f32": ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK", "FSET", "FRND"),
+    "mufu": ("MUFU",),
+    "memory": ("LDG", "STG", "LDC", "ULDC", "LDS", "STS", "LD", "ST", "LDL", "STL"),
+}
+
+
+def sass_classes(kernel: str) -> dict:
+    """Static SASS instructions of the built kernel(s) whose name holds
+    ``kernel``, by class (every opcode of no class under "other")."""
+    from storage_tpu_torch.ops import _build
+
+    opcodes = _build.sass_opcodes(_build.library_path(), kernel)
+    out = {name: sum(opcodes[o] for o in ops) for name, ops in SASS_CLASSES.items()}
+    out["other"] = sum(opcodes.values()) - sum(out.values())
+    out["total"] = sum(opcodes.values())
+    return out
+
+
+def ulp_diff(got, want) -> int:
+    """Largest distance in units in the last place between two f32 tensors
+    (0: the same bits)."""
+    import torch
+
+    a, b = got.view(torch.int32).to(torch.int64), want.view(torch.int32).to(torch.int64)
+    return int((a - b).abs().max())
+
+
+def compare_paths(got, want) -> dict:
+    """The sweep's (factors, spot) against its plain version's: the kernel
+    does the plain version's operations in its order, with the same expf, so
+    both must be the same bits."""
+    import torch
+
+    same = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return dict(bit_identical=same, max_abs_err=err, factors_max_ulp=ulp_diff(got[0], want[0]),
+                spot_max_ulp=ulp_diff(got[1], want[1]))
+
+
+def sweep_tables(device, p, f, seed):
+    """Random OU step tables over P steps at F factors (decay, chol, vols, c)
+    from a seed: the checks beyond the headline's F = 3."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    decay = 0.6 + 0.4 * torch.rand((p, f), generator=gen, device=device)
+    chol = torch.tril(0.1 * torch.randn((p, f, f), generator=gen, device=device)).contiguous()
+    vols = 0.5 + torch.rand((p, f), generator=gen, device=device)
+    c = 3.4 + 0.1 * torch.randn(p, generator=gen, device=device)
+    return decay, chol, vols, c
+
+
+def check_sweep(pkg, device) -> dict:
+    """The simulation sweep against ``simulate_sweep_plain`` on the headline's
+    step tables (P=366, F=3, S=262,144) at seeds 11 and 13, then at S=1,000
+    over F = 1, 2, 3 and 8, odd and even P, with and without antithetic
+    signs: every factor and spot value the same bits.  Times the sweep (20
+    calls) and its plain version; its bound, launch report and SASS."""
+    import torch
+
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import rng_kernel
+
+    _, sim_in, _, _ = engine_inputs(pkg, device)
+    decay, chol, vols, half_var, fwd = sim_in
+    c = torch.log(fwd) - half_var
+    p, f = decay.shape
+    s = NUM_SIMS
+    ids = torch.arange(s, dtype=torch.int32, device=device)
+    checks = {}
+    for seed in (11, 13):
+        key = spot_sim.key_from_seed(seed)
+        got = rng_kernel.simulate_sweep(key, ids, None, decay, chol, vols, c)
+        want = rng_kernel.simulate_sweep_plain(key, ids, None, decay, chol, vols, c)
+        checks[f"main_seed_{seed}"] = compare_paths(got, want)
+        del got, want
+    path_ids = torch.arange(1000, device=device) + 77
+    for f_x, p_x in ((1, 9), (2, 9), (3, 7), (3, 8), (8, 9), (8, 366)):
+        for antithetic in (False, True):
+            ids_x = (path_ids // 2 if antithetic else path_ids).to(torch.int32)
+            sign = (1.0 - 2.0 * (path_ids % 2)).float() if antithetic else None
+            tables = sweep_tables(device, p_x, f_x, seed=f_x + p_x)
+            got = rng_kernel.simulate_sweep((5, 7), ids_x, sign, *tables)
+            want = rng_kernel.simulate_sweep_plain((5, 7), ids_x, sign, *tables)
+            checks[f"F={f_x},P={p_x}{',antithetic' if antithetic else ''}"] = compare_paths(got, want)
+    key = spot_sim.key_from_seed(11)
+    ms = cuda_ms(lambda: rng_kernel.simulate_sweep(key, ids, None, decay, chol, vols, c), 20)
+    plain_ms = cuda_ms(lambda: rng_kernel.simulate_sweep_plain(key, ids, None, decay, chol, vols, c),
+                       1)
+    num_bytes, unfused, ints = sweep_work(p, f, s, antithetic=False)
+    bnd = bound(num_bytes, 0.0, unfused, ints)
+    info = rng_kernel.sweep_info(f, device)
+    sass = sass_classes(rng_kernel.sweep_sass_name(f))
+    sass_a = sass_classes("normal_halves_kernel")
+    main = [checks[f"main_seed_{seed}"] for seed in (11, 13)]
+    log(f"simulation sweep [P={p}, F={f}, S={s}], the headline's tables, seeds 11 and 13: factors "
+        f"and spot bit-identical to simulate_sweep_plain: {[c_['bit_identical'] for c_ in main]} "
+        f"(tolerance: the same bits; max {max(c_['factors_max_ulp'] for c_ in main)} ULP in the "
+        f"factors, {max(c_['spot_max_ulp'] for c_ in main)} in the spot); {ms:.4f} ms a path set "
+        f"vs plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; bytes "
+        f"{1e3 * bnd['bytes'] / HBM_BYTES_PER_S:.4f} ms); launch: {info['paths_per_block']} paths "
+        f"a block, {info['smem_bytes']} bytes of shared memory, {info['blocks_per_sm']} blocks per "
+        f"SM, {info['registers']} registers; static SASS {sass}; kernel A's static SASS {sass_a}")
+    small = {k: v_ for k, v_ in checks.items() if not k.startswith("main")}
+    log("simulation sweep at S=1,000 (random tables): " + "; ".join(
+        f"{k}: {'same bits' if v_['bit_identical'] else 'DIFFERS: ' + repr(v_)}"
+        for k, v_ in small.items()))
+    bad = [k for k, v_ in checks.items() if not v_["bit_identical"]]
+    if bad:
+        raise AssertionError(f"the simulation sweep disagrees with its plain version: {bad}")
+    return dict(max_abs_err=max(c_["max_abs_err"] for c_ in main), ms=ms, plain_ms=plain_ms,
+                checks=checks, launch=info, sass=sass, sass_normal_halves=sass_a, **bnd)
 
 
 def check_kernels(pkg, device):
@@ -480,16 +649,14 @@ def check_kernels(pkg, device):
     del w1, w2, p1, p2
     z1, z2 = rng_kernel.normal_halves(key, 0, nb, ids)
     q1, q2 = rng_kernel.normal_halves_plain(key, 0, nb, ids)
-    ulp = max(
-        int((a.view(torch.int32).to(torch.int64) - b.view(torch.int32).to(torch.int64)).abs().max())
-        for a, b in ((z1, q1), (z2, q2))
-    )
+    ulp = max(ulp_diff(z1, q1), ulp_diff(z2, q2))
     identical = float(((z1 == q1).float().mean() + (z2 == q2).float().mean()) / 2)
     err_a = float(torch.maximum((z1 - q1).abs().max(), (z2 - q2).abs().max()))
     del z1, z2, q1, q2
     ms = cuda_ms(lambda: rng_kernel.normal_halves(key, 0, nb, ids), 20)
     plain_ms = cuda_ms(lambda: rng_kernel.normal_halves_plain(key, 0, nb, ids), 3)
-    bnd = bound(4.0 * s + 8.0 * nb * s, float(nb) * s * (THREEFRY_OPS + 2 * NORMAL_OPS))
+    num_bytes, unfused, ints = draw_work(nb, s)
+    bnd = bound(num_bytes, 0.0, unfused, ints)
     log(f"kernel A normal_halves [{nb} x {s}]: words bit-identical={words_equal}, "
         f"normals max {ulp} ULP (tolerance 4), bit-identical share {identical:.6f}, "
         f"max abs err {err_a:.3e}; {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
@@ -498,6 +665,7 @@ def check_kernels(pkg, device):
         raise AssertionError("kernel A disagrees with its plain version")
     results["normal_halves"] = dict(max_abs_err=err_a, ms=ms, plain_ms=plain_ms,
                                     max_ulp=ulp, words_bit_identical=words_equal, **bnd)
+    results["simulate_sweep"] = check_sweep(pkg, device)
 
     st = backward_step_inputs(pkg, device)
     monomials, sims, t = st.monomials, st.sims, st.t
@@ -881,39 +1049,47 @@ def check_forward(pkg, device, st) -> dict:
         **bnd)
 
 
-def tpu_numerics_valuation(pkg, device):
+def tpu_numerics_valuation(pkg, device, counts):
     """The headline valuation with the TPU run's numerics, to hold the port
     against the reference record itself:
 
     * the OU step's L_k·z_k with its inputs rounded to bf16: the JAX
       package's ``ou_step`` sets no matmul precision, and XLA on a TPU
-      multiplies f32 inputs at bf16 by default;
+      multiplies f32 inputs at bf16 by default.  The draws come from kernel A
+      (materialised, so that they can be rounded) and the steps from the
+      sweep's plain step loop on the card; the main path runs neither: its
+      paths come from the sweep kernel;
     * the fused backward's moments (``storage_tpu/engines/lsmc.py:277-301``):
       step t−1's moments standardised by step t's stats inside kernel B,
       the exact system recovered with ``standardise_moments``.
 
-    Returns (npv, standard error)."""
-    from unittest import mock
-
+    Returns (npv, standard error, launch counts)."""
     import torch
 
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.models import spot_sim
-    from storage_tpu_torch.ops import decision_kernel, interp
+    from storage_tpu_torch.ops import decision_kernel, interp, rng_kernel
     from storage_tpu_torch.ops.regression import fit_from_moments, standardise_moments
 
     def bf16(t):
         return t.to(torch.bfloat16).to(torch.float32)
 
-    def tpu_ou_step(x, z, decay_k, chol_k):
-        return x * decay_k[:, None] + bf16(chol_k) @ bf16(z)
-
     inputs, sim_in, arrays, monomials = engine_inputs(pkg, device)
+    decay, chol, vols, half_var, fwd = sim_in
+    c = torch.log(fwd) - half_var
+    p, f = decay.shape
     tfn = inputs.compiled.terminal_value
     ids = torch.arange(NUM_SIMS, device=device)
-    with mock.patch.object(spot_sim, "ou_step", tpu_ou_step):
-        reg = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11), ids, *sim_in)
-        val = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(13), ids, *sim_in)
+    counts.reset()
+
+    def tpu_paths(seed):
+        z1, z2, _ = spot_sim.draw_normal_halves(spot_sim.key_from_seed(seed), 0, p, ids, f, False)
+        z = bf16(rng_kernel.normals_by_step(z1, z2, p, f))
+        del z1, z2
+        factors, spot = rng_kernel.ou_sweep_plain(z, decay, bf16(chol), vols, c)
+        return spot_sim.SpotSimResults(spot=spot, factors=factors)
+
+    reg, val = tpu_paths(11), tpu_paths(13)
     n, spot, factors = NUM_STEPS, reg.spot, reg.factors
     v = engine._terminal_values(tfn, spot[n], arrays["grids"][n], NUM_GRID, NUM_SIMS, torch.float32)
     prep = engine._backward_prep_all(arrays, 0, False, snap_interp=True)
@@ -939,7 +1115,12 @@ def tpu_numerics_valuation(pkg, device):
         regression["mean"][t], regression["std"][t], regression["coeffs"][t] = mean, std, coeffs
     out = engine.lsmc_forward(arrays, val.spot, val.factors, regression, 100.0, monomials, 0,
                               False, tfn, False)
-    return float(out["npv"]), float(out["standard_error"])
+    npv, se = float(out["npv"]), float(out["standard_error"])
+    launches = counts.read()
+    expected = counts.expect(normal_halves=2, decision_update_moments=NUM_STEPS, forward_sweep=1)
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    return npv, se, launches
 
 
 def phase_breakdown(pkg, device):
@@ -1034,7 +1215,7 @@ def round_trip(pkg, device, counts, main_npv):
         torch.cuda.synchronize()
         times["wall_s"] = time.perf_counter() - t0
         launches = counts.read()
-        expected = counts.expect(normal_halves=2 if name == "source" else 0,
+        expected = counts.expect(simulate_sweep=2 if name == "source" else 0,
                                  decision_update_moments=NUM_STEPS, forward_sweep=1)
         log(f"round trip, {name}: NPV {res.npv!r} SE {res.val_sim_standard_error!r}; wall "
             f"{times['wall_s']:.3f} s, of it engine (device work, synchronized) "
@@ -1067,6 +1248,30 @@ def round_trip(pkg, device, counts, main_npv):
         raise AssertionError("the round trip does not reproduce its source")
     report.update(bit_identical=same, sim_pv_rel=pv_off, sim_inventory_rel=inv_off)
     return src, report
+
+
+def antithetic_valuation(pkg, device, counts, main):
+    """The headline valuation with antithetic draws (path 2m+1 the negated
+    normals of path 2m, in the sweep): its NPV within 3 SE of the main path's,
+    through the same kernels."""
+    import torch
+
+    counts.reset()
+    t0 = time.perf_counter()
+    res = value(pkg, device, True, antithetic=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS, forward_sweep=1)
+    gap = (res.npv - main.npv) / main.val_sim_standard_error
+    log(f"antithetic: NPV {res.npv!r} SE {res.val_sim_standard_error!r}, {gap:+.3f} SE from the "
+        f"main path's NPV (tolerance 3); wall {wall:.3f} s; launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    if not (math.isfinite(res.npv) and abs(gap) <= 3.0):
+        raise AssertionError(f"antithetic NPV {res.npv} is not within 3 SE of {main.npv}")
+    return dict(npv=res.npv, se=res.val_sim_standard_error, gap_to_main_se=gap, wall_s=wall,
+                launches=launches)
 
 
 def spot_only_valuation(pkg, device, counts, src, main):
@@ -1293,7 +1498,8 @@ def main(argv) -> int:
     report["kernels"] = kernels
 
     # ---- the main path through the public API.
-    counts = LaunchCounts((rng_kernel.normal_halves, decision_kernel.decision_update_moments,
+    counts = LaunchCounts((rng_kernel.simulate_sweep, rng_kernel.normal_halves,
+                           decision_kernel.decision_update_moments,
                            forward_kernel.forward_sweep, decision_kernel.decision_update,
                            decision_kernel.decision_update_fullstep))
     value(stt, device, snap_interp=True)  # warm-up
@@ -1316,7 +1522,7 @@ def main(argv) -> int:
         f"(reference {REFERENCE_NPV}, z = {z:+.3f}); wall median {wall:.4f} s of "
         f"{[round(w, 4) for w in walls]} = {rate:.1f} paths*steps/s; launches {launches} "
         f"[{card}]")
-    expected = counts.expect(normal_halves=2, decision_update_moments=NUM_STEPS,
+    expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS,
                              forward_sweep=1)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
@@ -1338,14 +1544,16 @@ def main(argv) -> int:
     report["main_path_default"] = dict(npv=res_default.npv, se=res_default.val_sim_standard_error)
 
     with engine.full_f32_matmul():
-        npv_t, se_t = tpu_numerics_valuation(stt, device)
+        npv_t, se_t, launches_t = tpu_numerics_valuation(stt, device, counts)
     torch.cuda.synchronize()
     z_t = (npv_t - REFERENCE_NPV) / se_t
     log(f"with the TPU run's numerics (bf16 inputs of L·z, u-coordinate moments): "
-        f"NPV {npv_t!r} SE {se_t!r} (reference {REFERENCE_NPV}, z = {z_t:+.4f}, tolerance 0.1)")
+        f"NPV {npv_t!r} SE {se_t!r} (reference {REFERENCE_NPV}, z = {z_t:+.4f}, tolerance 0.1); "
+        f"launches {launches_t}")
     if not (math.isfinite(npv_t) and abs(z_t) <= 0.1):
         raise AssertionError(f"NPV {npv_t} is not within 0.1 SE of {REFERENCE_NPV}")
-    report["tpu_numerics"] = dict(npv=npv_t, se=se_t, z_vs_reference=z_t)
+    report["tpu_numerics"] = dict(npv=npv_t, se=se_t, z_vs_reference=z_t, launches=launches_t)
+    report["antithetic"] = antithetic_valuation(stt, device, counts, res)
 
     # ---- user-supplied simulations and the full-step backward.
     src, report["round_trip"] = round_trip(stt, device, counts, res.npv)
@@ -1355,6 +1563,13 @@ def main(argv) -> int:
     report["fullstep"] = fullstep_valuation(stt, device, counts, res)
     launches.update(
         decision_update_fullstep=report["fullstep"]["launches"]["decision_update_fullstep"])
+    # Each kernel's launches on the path that runs it: kernel A's draw-only
+    # entry feeds the TPU-numerics emulation alone (the sweep draws for the
+    # main path).
+    launches.update(normal_halves=launches_t["normal_halves"])
+    paths = dict(simulate_sweep="main", normal_halves="tpu_numerics",
+                 decision_update_moments="main", forward_sweep="main",
+                 decision_update="spot_only", decision_update_fullstep="fullstep")
 
     phases = phase_breakdown(stt, device)
     log(f"phases: host prep {phases['host_prep_s']:.4f} s, simulate {phases['simulate_s']:.4f} s, "
@@ -1365,13 +1580,13 @@ def main(argv) -> int:
     report["profile"] = profile_valuation(stt, device, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    # Kernel C's ms is per sweep of all steps; its launch report beside it,
-    # and kernel D's.
+    # Kernel C's ms is per sweep of all steps, the simulation sweep's per path
+    # set; their launch reports beside them, and kernel D's.
     extra = {"forward_sweep": ("smem_bytes", "blocks_per_sm", "registers", "sass_instructions"),
-             "decision_update": ("launch",)}
+             "decision_update": ("launch",), "simulate_sweep": ("launch",)}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src_file, "replaces": rep,
-         "launches": launches[name], **{k: kernels[name][k] for k in keys},
+         "launches": launches[name], "path": paths[name], **{k: kernels[name][k] for k in keys},
          # No single PyTorch call computes any of these functions.
          "library_ms": None, **{k: kernels[name][k] for k in extra.get(name, ())}}
         for name, (src_file, rep) in SOURCES.items()

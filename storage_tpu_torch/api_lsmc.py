@@ -5,8 +5,9 @@ the caller passes ``device="cpu"``; without a CUDA device a call that names
 none raises.
 
 Accepted: every ``sim_data_returned`` flag (per-sim panels of paths held on
-the card), pathwise deltas, ``antithetic=False``, no progress or cancel
-callback, no checkpoint, uniform grids, monomial bases.  Every other option,
+the card), pathwise deltas, antithetic draws (path 2m+1 takes the negated
+draws of path 2m, as in the JAX package), no progress or cancel callback, no
+checkpoint, uniform grids, monomial bases.  Every other option,
 user panels too large for the card and ``value_from_sims_host_local`` raise
 ``NotImplementedError`` naming, by its title, the ROADMAP item that ports
 them.  On CUDA a basis of more than 16 terms or a model of more than 8
@@ -127,10 +128,8 @@ def _resolve_device(device: Device) -> torch.device:
     return device
 
 
-def _refuse_unported(antithetic, on_progress_update, cancellation_poll, deltas_method,
-                     checkpoint_path, grid_calc):
-    if antithetic:
-        _refuse("antithetic=True", "antithetic draws on materialised panels")
+def _refuse_unported(on_progress_update, cancellation_poll, deltas_method, checkpoint_path,
+                     grid_calc):
     if on_progress_update is not None or cancellation_poll is not None:
         _refuse("progress or cancellation callbacks", "interactive execution and checkpoints")
     if checkpoint_path is not None:
@@ -181,8 +180,8 @@ def multi_factor_value(
     numbers."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
     device = _resolve_device(device)
-    _refuse_unported(antithetic, on_progress_update, cancellation_poll, deltas_method,
-                     checkpoint_path, grid_calc)
+    _refuse_unported(on_progress_update, cancellation_poll, deltas_method, checkpoint_path,
+                     grid_calc)
     factor_corrs = mf.validate_multi_factor_params(factors, factor_corrs)
 
     def sims_provider(inputs):
@@ -202,8 +201,10 @@ def multi_factor_value(
         path_ids = torch.arange(num_sims, dtype=torch.int64, device=device)
         with lsmc_engine.full_f32_matmul():
             logger.info("Simulating price paths on %s.", device)
-            reg = spot_sim.simulate_ou_paths(reg_key, path_ids, *sim_inputs)
-            val = reg if same_sims else spot_sim.simulate_ou_paths(val_key, path_ids, *sim_inputs)
+            reg = spot_sim.simulate_ou_paths(reg_key, path_ids, *sim_inputs,
+                                             antithetic=antithetic)
+            val = reg if same_sims else spot_sim.simulate_ou_paths(
+                val_key, path_ids, *sim_inputs, antithetic=antithetic)
         return (reg.spot, reg.factors), (val.spot, val.factors)
 
     return _lsmc_calc(
@@ -248,8 +249,8 @@ def value_from_sims(
     larger than its free memory wait for the host-streamed engine."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
     device = _resolve_device(device)
-    _refuse_unported(False, on_progress_update, cancellation_poll, deltas_method,
-                     checkpoint_path, grid_calc)
+    _refuse_unported(on_progress_update, cancellation_poll, deltas_method, checkpoint_path,
+                     grid_calc)
     wants_sim_data = _wants_sim_data(SimulationDataReturned.coerce(sim_data_returned))
     sim_factors_regress, sim_factors_valuation = (
         None if f is None else list(f) for f in (sim_factors_regress, sim_factors_valuation))

@@ -21,8 +21,8 @@
 //
 // The factorisation and the substitutions run in double on the f32 system
 // and round the coefficients to f32 once: the [B, B] work is a few hundred
-// operations, and double keeps the kernel's own rounding out of the
-// comparison with the plain version (torch.linalg's f32 Cholesky).  The
+// operations.  The plain version factors in double too (torch.linalg), so
+// the two differ only where double rounding moves a coefficient's f32.  The
 // standardisation, the ridge and the coefficient interpolation keep the plain
 // version's f32 operations in its order.
 //

@@ -9,8 +9,12 @@ threefry word pairs ``(k0, k1)``; ``key_from_seed`` and ``fold_in`` derive
 them as ``jax.random.key`` and ``jax.random.fold_in`` do, so both packages
 simulate the same paths from the same seeds.
 
-In f32 the bulk draw runs through kernel A (``ops.rng_kernel.normal_halves``)
-on the card.
+``simulate_ou_paths`` runs in f32 as one launch of the simulation sweep on
+the card (``ops.rng_kernel.simulate_sweep``): it draws, steps the factors and
+builds the spot in registers, and writes only the factors and the spot.
+``draw_normal_halves`` materialises the f32 draws themselves (kernel A,
+``ops.rng_kernel.normal_halves``, on the card); the package's paths do not
+call it: the tests and ``chip_smoke.py``'s TPU-numerics emulation do.
 """
 from __future__ import annotations
 
@@ -78,7 +82,8 @@ def draw_normal_halves(key: Key, start_step: int, num_steps: int, path_ids,
 
 def step_z_from_halves(z1, z2, b0: int, step: int, num_factors: int):
     """Step ``step``'s [F, S] draws: word W = step·F + i lives at block row
-    W//2 − b0, half W%2."""
+    W//2 − b0, half W%2.  A JAX-parity reference for the tests; the package's
+    paths do not call it."""
     words = []
     for i in range(num_factors):
         w = step * num_factors + i
@@ -114,6 +119,9 @@ def multi_step_normals(key: Key, start_step: int, num_steps: int, path_ids,
 
 def ou_step(x, z, decay_k, chol_k):
     """One exact OU transition in the [F, S] layout: x_k = decay_k ⊙ x_{k-1} + L_k z_k.
+    The package's own paths do not call it (``simulate_ou_paths`` takes
+    whole paths from the sweep); it stays as the JAX package's one-step form,
+    held against it by the tests.
 
     L_k z_k is a full-f32 product.  The JAX package leaves its precision to
     the backend, and a TPU then multiplies bf16-rounded inputs: that alone
@@ -122,7 +130,8 @@ def ou_step(x, z, decay_k, chol_k):
 
 
 def spot_from_state(x, fwd_k, half_var_k, vols_k):
-    """ln S_k = ln F_k − half_var_k + vols_k·x, per path ([F, S] → [S])."""
+    """ln S_k = ln F_k − half_var_k + vols_k·x, per path ([F, S] → [S]); as
+    ``ou_step``, a JAX-parity reference that the package's paths do not call."""
     return torch.exp(torch.log(fwd_k) - half_var_k + vols_k @ x)
 
 
@@ -142,24 +151,20 @@ def simulate_ou_paths(
     x_i(t_k) = decay[k,i]·x_i(t_{k-1}) + (L_k z_k)_i,  z_k ~ N(0, I);
     ln S_k = ln F_k − half_var[k] + Σ_i vols[k,i]·x_i(t_k).
 
-    All draws are made up front (kernel A in f32 on the card), then the OU
-    steps run one per period into a preallocated [P, F, S] panel."""
+    f32 goes through the simulation sweep (one kernel launch on the card, its
+    plain version on the CPU); f64 draws in its own layout
+    (``multi_step_normals``) and steps them by the sweep's plain loop: no
+    kernel in either package.  With ``antithetic`` path 2m+1 takes the
+    negated draws of path 2m."""
     p, f = decay.shape
-    dtype = decay.dtype
-    s = path_ids.shape[0]
-    if dtype == torch.float64:
-        zs = multi_step_normals(key, 0, p, path_ids, f, antithetic, dtype)
-        step_z = lambda k: zs[k]  # noqa: E731
+    c = torch.log(fwd) - half_var
+    if decay.dtype == torch.float32:
+        ids = _path_ids(path_ids, antithetic)
+        if ids.device.type == "cuda":
+            ids = ids.to(torch.int32)
+        sign = _antithetic_sign(path_ids, decay.dtype) if antithetic else None
+        factors, spot = rng_kernel.simulate_sweep(key, ids, sign, decay, chol, vols, c)
     else:
-        z1, z2, b0 = draw_normal_halves(key, 0, p, path_ids, f, antithetic, dtype)
-        step_z = lambda k: step_z_from_halves(z1, z2, b0, k, f)  # noqa: E731
-    factors = torch.empty((p, f, s), dtype=dtype, device=decay.device)
-    x = torch.zeros((f, s), dtype=dtype, device=decay.device)
-    for k in range(p):
-        x = ou_step(x, step_z(k), decay[k], chol[k])
-        factors[k] = x
-    log_spot = (
-        torch.log(fwd)[:, None] - half_var[:, None]
-        + torch.einsum("pfs,pf->ps", factors, vols)
-    )
-    return SpotSimResults(spot=torch.exp(log_spot), factors=factors)
+        z = multi_step_normals(key, 0, p, path_ids, f, antithetic, decay.dtype)
+        factors, spot = rng_kernel.ou_sweep_plain(z, decay, chol, vols, c)
+    return SpotSimResults(spot=spot, factors=factors)

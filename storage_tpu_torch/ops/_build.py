@@ -14,6 +14,7 @@ Each C entry point returns ``cudaGetLastError()`` after its launches;
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -46,6 +47,10 @@ SIGNATURES = {
     "stt_normal_halves": (_U, _U, _U, _I, _I, _P, _P, _P, _P, _P),
     # k0, k1, b0, nb, S, ids, w1, w2, stream
     "stt_threefry_words": (_U, _U, _U, _I, _I, _P, _P, _P, _P),
+    # k0, k1, P, F, S, ids, sign (or NULL), decay, chol, vols, c, factors, spot, stream
+    "stt_simulate_sweep": (_U, _U, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # F, out int[6] (the sweep's launch report)
+    "stt_simulate_sweep_info": (_I, _P),
     # G, S, F, D, basis table (host int[B*(1+F)+1]), v, spot, factors,
     # spot_prev, factors_prev, mean, std, mean_prev, std_prev, idx_lo, w_hi,
     # dci, a, b, best_out, partials, moments, stream
@@ -138,19 +143,28 @@ def build() -> Path:
     return lib
 
 
-def sass_instructions(lib: Path, kernel: str) -> int:
-    """Instructions in the SASS of the kernels of ``lib`` whose name holds
-    ``kernel`` (``cuobjdump`` of the toolkit that built it)."""
+def sass_opcodes(lib: Path, kernel: str) -> collections.Counter:
+    """Instructions by opcode (``FMUL.FTZ`` counts as ``FMUL``) in the SASS of
+    the kernels of ``lib`` whose name holds ``kernel`` (``cuobjdump`` of the
+    toolkit that built it)."""
     cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    count, inside = 0, False
+    counts, inside = collections.Counter(), False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = kernel in line
-        elif inside and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            count += 1
-    return count
+        elif inside:
+            m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                counts[m.group(1)] += 1
+    return counts
+
+
+def sass_instructions(lib: Path, kernel: str) -> int:
+    """Instructions in the SASS of the kernels of ``lib`` whose name holds
+    ``kernel``."""
+    return sum(sass_opcodes(lib, kernel).values())
 
 
 @functools.lru_cache(maxsize=1)

@@ -304,11 +304,13 @@ decision_update.launches = 0
 def decision_update_fullstep_plain(v, spot, factors, spot_prev, factors_prev, xtx, xty,
                                    cmean, cstd, idx_lo, w_hi, a, b, monomials,
                                    mean_prev=None, std_prev=None):
-    """Tensor-code version of kernel E; any dtype, any device."""
+    """Tensor-code version of kernel E; any dtype, any device.  As the
+    kernel, it factors the standardised system in double and rounds the
+    coefficients to the working dtype once."""
     m, rhs, mu_u, sig_u = standardise_moments(xtx, xty)
     mean = cmean + cstd * mu_u
     std = cstd * sig_u
-    coeffs = fit_from_moments(m, rhs)
+    coeffs = fit_from_moments(m, rhs, solve_dtype=torch.float64)
     ci = interp_coeffs(coeffs, idx_lo, w_hi)
     best_act, xtx_next, xty_next = decision_update_moments_plain(
         v, spot, factors, spot_prev, factors_prev, mean, std,

@@ -84,11 +84,13 @@ def fit_continuation(x_std, y, ridge: tp.Optional[float] = None):
     return fit_from_moments(x_std.T @ x_std, x_std.T @ y, ridge)
 
 
-def fit_from_moments(m, xty, ridge: tp.Optional[float] = None):
+def fit_from_moments(m, xty, ridge: tp.Optional[float] = None, solve_dtype=None):
     """Solve the standardised normal equations (``m = X̃ᵀX̃`` [B, B],
     ``xty = X̃ᵀY`` [B, G]) with a trace-scaled ridge (1e-5 in f32, 1e-7 in
     f64) and fall back to the projection on the constant column — the
-    cross-sim mean — where the factorisation fails.
+    cross-sim mean — where the factorisation fails.  The ridge is added in
+    m's dtype; the factorisation and the substitutions run in
+    ``solve_dtype`` (default m's) and the coefficients come back in m's.
 
     ``torch.linalg.cholesky`` raises where JAX returns NaN, so the
     factorisation is ``cholesky_ex`` and its ``info`` joins the non-finite
@@ -98,8 +100,9 @@ def fit_from_moments(m, xty, ridge: tp.Optional[float] = None):
     b = m.shape[0]
     jitter = ridge * torch.trace(m) / b
     m = m + jitter * torch.eye(b, dtype=m.dtype, device=m.device)
-    chol, info = torch.linalg.cholesky_ex(m)
-    coeffs = torch.cholesky_solve(xty, chol)
+    solve_dtype = m.dtype if solve_dtype is None else solve_dtype
+    chol, info = torch.linalg.cholesky_ex(m.to(solve_dtype))
+    coeffs = torch.cholesky_solve(xty.to(solve_dtype), chol).to(m.dtype)
     # m[0, 0] is the constant column's sum of squares = the sim count.
     mean_y = xty[0:1] / m[0, 0]
     fallback = torch.cat([mean_y, torch.zeros_like(xty[1:])], dim=0)

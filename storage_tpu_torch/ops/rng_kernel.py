@@ -1,4 +1,5 @@
-"""Threefry-2x32 counter normals in block halves (kernel A).
+"""Threefry-2x32 counter normals (kernel A) and the simulation sweep built on
+them.
 
 Counterpart of ``storage_tpu.ops.rng_kernel.normal_halves_pallas``: for each
 block row r and path s, the counter pair (ids[s], b0 + r) is hashed under a
@@ -7,6 +8,14 @@ z1[r, s] and z2[r, s].  The CUDA kernel is ``csrc/rng_kernel.cu``; the plain
 version below is the same function in tensor code and is what runs for CPU
 tensors.
 
+The valuation's paths do not go through those panels of normals: the
+simulation sweep (``simulate_sweep``, ``csrc/sim_sweep.cu``) draws the same
+words in registers, takes the exact OU steps and builds the spot, and writes
+only the factors and the spot (the JAX package's ``simulate_ou_paths``: the
+Pallas draw, a ``lax.scan`` of OU steps and one spot pass).
+``simulate_sweep_plain`` is the same function in tensor code, in the kernel's
+order of operations.
+
 torch has no uint32 ``add`` or shifts on the CPU, so the plain threefry hashes
 in int64 masked to 32 bits.  ``erfinv`` is a transcription of XLA's
 ``erf_inv`` polynomials (Giles) in f32 and f64, not ``torch.special.erfinv``:
@@ -14,6 +23,8 @@ the RNG identity with the JAX package is part of the reference contract.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import typing as tp
 
 import numpy as np
@@ -205,3 +216,122 @@ def threefry_words(key: tp.Tuple[int, int], b0: int, nb: int, ids):
     )
     _build.check(rc, "threefry_words")
     return w1, w2
+
+
+def normals_by_step(z1, z2, num_steps: int, num_factors: int):
+    """The f32 draws of steps 0..P-1 as [P, F, S] from the halves (z1, z2) of
+    blocks 0.. (``normal_halves``): word W = k·F + i is row W//2 of z1 when W
+    is even, of z2 when odd."""
+    p, f, s = int(num_steps), int(num_factors), z1.shape[1]
+    return torch.stack([z1, z2], dim=1).reshape(-1, s)[:p * f].reshape(p, f, s)
+
+
+def sweep_normals_plain(key: tp.Tuple[int, int], ids, sign, num_steps: int, num_factors: int):
+    """The f32 draws of steps 0..P-1 as [P, F, S] in tensor code, as the sweep
+    kernel addresses them: word W = k·F + i is half W%2 of the block of
+    counter (ids[s], W//2).  Each normal times ``sign`` [S] where given."""
+    p, f = int(num_steps), int(num_factors)
+    z1, z2 = normal_halves_plain(key, 0, (p * f) // 2 + 1, ids, sign)
+    return normals_by_step(z1, z2, p, f)
+
+
+def ou_sweep_plain(z, decay, chol, vols, c):
+    """The sweep kernel's steps in tensor code, elementwise and in its order:
+    x_k = decay_k ⊙ x_{k-1} + L_k z_k with L_k z_k summed over j left to right,
+    ln S_k = (Σ_i vols_k,i·x_k,i, i left to right) + c_k, S_k = exp(ln S_k).
+    z [P, F, S]; returns (factors [P, F, S], spot [P, S])."""
+    p, f, s = z.shape
+    factors = torch.empty_like(z)
+    log_spot = torch.empty((p, s), dtype=z.dtype, device=z.device)
+    x = torch.zeros((f, s), dtype=z.dtype, device=z.device)
+    for k in range(p):
+        lz = chol[k, :, 0, None] * z[k, 0]
+        for j in range(1, f):
+            lz = lz + chol[k, :, j, None] * z[k, j]
+        x = x * decay[k, :, None] + lz
+        factors[k] = x
+        ln_s = vols[k, 0] * x[0]
+        for i in range(1, f):
+            ln_s = ln_s + vols[k, i] * x[i]
+        log_spot[k] = ln_s + c[k]
+    return factors, torch.exp(log_spot)
+
+
+def simulate_sweep_plain(key: tp.Tuple[int, int], ids, sign, decay, chol, vols, c):
+    """(factors [P, F, S], spot [P, S]) of the paths ``ids`` in tensor code,
+    f32: the sweep kernel's plain version (``sweep_normals_plain``, then
+    ``ou_sweep_plain``)."""
+    p, f = decay.shape
+    return ou_sweep_plain(sweep_normals_plain(key, ids, sign, p, f), decay, chol, vols, c)
+
+
+def simulate_sweep(key: tp.Tuple[int, int], ids, sign, decay, chol, vols, c):
+    """(factors [P, F, S], spot [P, S]) of the paths ``ids`` (the identities
+    of their counters: path ids, halved when antithetic), with each normal
+    times ``sign`` [S] where given, from the step tables decay [P, F], chol
+    [P, F, F], vols [P, F] and c [P] = ln F − half_var.
+
+    CPU tensors take the plain version; CUDA tensors launch the sweep kernel
+    once (ids int32 holding the uint32 identities, everything else f32, F
+    within the kernels' cap ``_build.limits``)."""
+    if decay.device.type == "cpu":
+        return simulate_sweep_plain(key, ids, sign, decay, chol, vols, c)
+    if decay.dim() != 2:
+        raise ValueError("simulate_sweep: decay must be [P, F]")
+    p, f = decay.shape
+    if (chol.shape != (p, f, f) or vols.shape != (p, f) or c.shape != (p,) or ids.dim() != 1
+            or ids.shape[0] < 1 or f < 1):
+        raise ValueError("simulate_sweep: expected decay [P, F], chol [P, F, F], vols [P, F], "
+                         "c [P] and ids [S] with F >= 1 and S >= 1")
+    device = _build.require_cuda("simulate_sweep", decay, chol, vols, c)
+    tensors = (ids,) if sign is None else (ids, sign)
+    if any(t.device != device for t in tensors):
+        raise ValueError("simulate_sweep: ids and sign must lie beside the step tables")
+    _build.require_cuda("simulate_sweep", ids, dtype=torch.int32)
+    if sign is not None:
+        _build.require_cuda("simulate_sweep", sign)
+        if sign.shape != ids.shape:
+            raise ValueError("simulate_sweep: sign must be f32 [S] beside ids")
+    _build.require_caps("simulate_sweep", 0, f)
+    s = ids.shape[0]
+    factors = torch.empty((p, f, s), dtype=torch.float32, device=device)
+    spot = torch.empty((p, s), dtype=torch.float32, device=device)
+    rc = _build.library().stt_simulate_sweep(
+        int(key[0]) & MASK32, int(key[1]) & MASK32, p, f, s, ids.data_ptr(),
+        None if sign is None else sign.data_ptr(), decay.data_ptr(), chol.data_ptr(),
+        vols.data_ptr(), c.data_ptr(), factors.data_ptr(), spot.data_ptr(),
+        _build.stream_handle(device),
+    )
+    simulate_sweep.launches += 1
+    _build.check(rc, "simulate_sweep")
+    return factors, spot
+
+
+simulate_sweep.launches = 0
+
+_INFO_FIELDS = ("paths_per_block", "smem_bytes", "smem_limit", "max_grid", "blocks_per_sm",
+                "registers")
+
+
+@functools.lru_cache(maxsize=16)
+def _sweep_info(f: int, device_index: int) -> dict:
+    out = (ctypes.c_int * len(_INFO_FIELDS))()
+    with torch.cuda.device(device_index):
+        _build.check(_build.library().stt_simulate_sweep_info(f, out), "stt_simulate_sweep_info")
+    info = dict(zip(_INFO_FIELDS, out))
+    del info["max_grid"], info["smem_limit"]  # the sweep takes no dynamic shared memory
+    return info
+
+
+def sweep_info(f: int, device) -> dict:
+    """Launch report of the sweep kernel at F factors on a CUDA device: paths
+    per block, shared memory bytes per block, blocks per SM and registers per
+    thread."""
+    _build.require_caps("sweep_info", 0, f)
+    return _sweep_info(int(f), torch.device(device).index or 0)
+
+
+def sweep_sass_name(f: int) -> str:
+    """What the mangled name of the sweep kernel at F factors holds (for
+    ``_build.sass_instructions``)."""
+    return f"sim_sweep_kernelILi{f}EE"

@@ -6,9 +6,9 @@ them on the card with ``python -m pytest tests/test_torch_cuda_kernels.py``.
 Tolerances: the kernels and the plain versions do the decision arithmetic in
 the same order without fused multiply-adds, so per-path outputs match to f32
 rounding; the cross-path sums are taken in another order (1e-5 relative).
-Kernel E solves its [B, B] system in double where the plain version factors
-in f32 (torch.linalg), so its coefficients, and the values and moments that
-follow from them, agree to 1e-4 relative.
+Kernel E factors its [B, B] system in double by its own loop, the plain
+version in double with torch.linalg, so its coefficients, and the values and
+moments that follow from them, agree to 1e-4 relative.
 """
 import pytest
 import torch
@@ -40,6 +40,65 @@ def test_normal_halves(device, with_sign):
     w1, _ = rng_kernel.threefry_words((3, 11), 7, 33, ids)
     p1, _ = rng_kernel.threefry2x32(3, 11, ids.long()[None, :], 7 + torch.arange(33, device=device)[:, None])
     assert torch.equal(w1.long() & rng_kernel.MASK32, p1)
+
+
+def _sweep_tables(device, p, f, seed=3):
+    """OU step tables over P steps at F factors (decay, chol, vols, c)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    decay = 0.6 + 0.4 * torch.rand((p, f), generator=gen, device=device)
+    chol = torch.tril(0.1 * torch.randn((p, f, f), generator=gen, device=device))
+    vols = 0.5 + torch.rand((p, f), generator=gen, device=device)
+    c = 3.4 + 0.1 * torch.randn(p, generator=gen, device=device)
+    return decay, chol.contiguous(), vols, c
+
+
+def _ulp(a, b) -> int:
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+@pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
+@pytest.mark.parametrize("f,p", [(1, 9), (2, 9), (3, 366), (3, 7), (8, 9)])
+def test_simulate_sweep(device, f, p, antithetic):
+    """The simulation sweep against its plain version at F = 1, 2, 3 and 8
+    over odd and even step counts (the word parity changes across steps when F
+    is odd), with and without antithetic signs, on paths that fill no whole
+    block: the factors to the bit, the spot to the bit (the same expf)."""
+    s = 1000
+    path_ids = torch.arange(s, device=device) + 77
+    ids = (path_ids // 2 if antithetic else path_ids).to(torch.int32)
+    sign = (1.0 - 2.0 * (path_ids % 2)).float() if antithetic else None
+    tables = _sweep_tables(device, p, f)
+    before = rng_kernel.simulate_sweep.launches
+    factors, spot = rng_kernel.simulate_sweep((3, 11), ids, sign, *tables)
+    assert rng_kernel.simulate_sweep.launches == before + 1
+    want_f, want_s = rng_kernel.simulate_sweep_plain((3, 11), ids, sign, *tables)
+    assert factors.shape == (p, f, s) and spot.shape == (p, s)
+    assert torch.equal(factors, want_f)
+    assert _ulp(spot, want_s) == 0
+
+
+def test_simulate_sweep_raises(device):
+    """Past the kernels' 8 factors the sweep raises ValueError naming the cap,
+    before any launch; a wrong dtype or shape raises too."""
+    ids = torch.arange(64, dtype=torch.int32, device=device)
+    before = rng_kernel.simulate_sweep.launches
+    with pytest.raises(ValueError, match="at most 16 basis functions and 8 factors"):
+        rng_kernel.simulate_sweep((3, 11), ids, None, *_sweep_tables(device, 5, 9))
+    with pytest.raises(TypeError):
+        rng_kernel.simulate_sweep((3, 11), ids.long(), None, *_sweep_tables(device, 5, 3))
+    decay, chol, vols, c = _sweep_tables(device, 5, 3)
+    with pytest.raises(ValueError):
+        rng_kernel.simulate_sweep((3, 11), ids, None, decay, chol[:4], vols, c)
+    assert rng_kernel.simulate_sweep.launches == before
+
+
+def test_simulate_sweep_launch_report(device):
+    """The sweep's launch report: 256 paths a block, no shared memory, and
+    whole blocks resident on an SM at every F."""
+    for f in (1, 3, 8):
+        info = rng_kernel.sweep_info(f, device)
+        assert info["paths_per_block"] == 256 and info["smem_bytes"] == 0
+        assert info["blocks_per_sm"] >= 1 and 0 < info["registers"] <= 255
 
 
 def _decision_args(device, g, s, d, f, basis=BASIS, seed=3):

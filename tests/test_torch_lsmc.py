@@ -157,6 +157,36 @@ def test_three_factor_seasonal_value_matches_jax(seeds):
     assert np.isnan(got.intrinsic_npv)  # the intrinsic engine is not ported yet
 
 
+@pytest.mark.parametrize("entry", ["three-factor", "multi-factor"])
+def test_antithetic_matches_jax(entry):
+    """Antithetic draws (path 2m+1 takes the negated normals of path 2m) on
+    materialised panels: the same valuation as the JAX package's XLA engine
+    in f64 on the same seeds, through both entry points."""
+    kwargs = dict(inventory=100.0, interest_rates=0.02, settlement_rule=None, num_sims=512,
+                  discount_deltas=False, seed=11, fwd_sim_seed=13, num_inventory_grid_points=10)
+
+    def value(pkg, antithetic, **dtype_device):
+        storage, start, fwd = _case(pkg)
+        if entry == "three-factor":
+            return pkg.three_factor_seasonal_value(
+                storage, start, fwd_curve=fwd, spot_mean_reversion=14.5, spot_vol=1.1,
+                long_term_vol=0.19, seasonal_vol=0.23, basis_funcs=BASIS, antithetic=antithetic,
+                **kwargs, **dtype_device)
+        factors = [(12.0, pd.Series(0.9, index=fwd.index)), (0.5, pd.Series(0.2, index=fwd.index))]
+        return pkg.multi_factor_value(
+            storage, start, fwd_curve=fwd, factors=factors,
+            factor_corrs=np.array([[1.0, 0.3], [0.3, 1.0]]), basis_funcs="1 + s + s**2 + x0 + x1",
+            antithetic=antithetic, **kwargs, **dtype_device)
+
+    want = value(jpkg, True, dtype=jnp.float64)
+    got = value(tpkg, True, dtype=torch.float64, device="cpu")
+    assert got.npv == pytest.approx(want.npv, rel=RTOL)
+    assert got.val_sim_standard_error == pytest.approx(want.val_sim_standard_error, rel=RTOL)
+    np.testing.assert_allclose(got.deltas, want.deltas, rtol=RTOL, atol=1e-7)
+    pd.testing.assert_frame_equal(got.expected_profile, want.expected_profile, rtol=RTOL, atol=1e-7)
+    assert got.npv != value(tpkg, False, dtype=torch.float64, device="cpu").npv
+
+
 def test_f32_valuation_close_to_jax():
     """In f32 both packages draw the same paths to a few ULP, but the
     regressions round differently and this small case has many near-tie
@@ -180,7 +210,6 @@ def test_f32_valuation_close_to_jax():
 @pytest.mark.parametrize(
     "option,item",
     [
-        (dict(antithetic=True), "antithetic draws on materialised panels"),
         (dict(on_progress_update=lambda x: None), "interactive execution and checkpoints"),
         (dict(cancellation_poll=lambda: False), "interactive execution and checkpoints"),
         (dict(checkpoint_path="checkpoint.npz"), "interactive execution and checkpoints"),
@@ -188,7 +217,7 @@ def test_f32_valuation_close_to_jax():
         (dict(grid_calc=lambda lo, hi: np.linspace(lo, hi, 5)), "the tree engine and custom grids"),
         (dict(basis_funcs=[lambda s, x: s]), "the rest of the host layer"),
     ],
-    ids=["antithetic", "progress", "cancel", "checkpoint", "adjoint", "grid-calc",
+    ids=["progress", "cancel", "checkpoint", "adjoint", "grid-calc",
          "generic-basis"],
 )
 def test_unported_options_raise(option, item):
@@ -275,7 +304,7 @@ def _launch_counts():
     from storage_tpu_torch.ops import decision_kernel, forward_kernel, rng_kernel
 
     return [fn.launches for fn in (
-        rng_kernel.normal_halves, decision_kernel.decision_update_moments,
+        rng_kernel.normal_halves, rng_kernel.simulate_sweep, decision_kernel.decision_update_moments,
         decision_kernel.decision_update, decision_kernel.decision_update_fullstep,
         forward_kernel.forward_sweep)]
 
@@ -319,7 +348,7 @@ def test_basis_and_factor_caps_raise_before_any_launch(monkeypatch, entry):
     with pytest.raises(ValueError, match=r"at most 16 basis functions and 8 factors.*"
                                          r"device='cpu' takes any size"):
         calls[entry]()
-    assert _launch_counts() == before == [0] * 5
+    assert _launch_counts() == before == [0] * 6
 
 
 def test_cpu_takes_any_basis():
