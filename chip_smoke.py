@@ -27,7 +27,16 @@
    itself with the per-sim panels and against 365 one-step launches (the
    same bits); then at G=1,000 (8 steps, S=65,536) and on spot-only panels
    (32 steps), with the panels; its launch report and SASS size are
-   printed.
+   printed.  The intrinsic DP kernel (one launch a valuation) is held in
+   f64 and f32 against its plain version in f64 on the headline's tables
+   (N=365, G=100, linear), the 2F pin facility on fixed spacing and with
+   cubic interpolation, a custom grid, G=1,000 and one extra decision (f64:
+   NPV within 1e-10 relative, profile within 1e-6, a decision flip only on a
+   near-tie within 1e-9; f32: NPV within 1e-5 of the f64 answer), timed in
+   f32 and f64 at G=100 and G=1,000 beside its bound and its launch report;
+   then ``intrinsic_value(device="cuda")`` in f64 must hit the pins
+   1,705,564.2806059965 (linspace) and 1,703,773.0757192627 (fixed spacing)
+   within 1e-9 and the C# sample's 10,827.21 within 1e-3.
 4. Values the repository's headline daily case through the public API —
    a 365-day ratcheted facility, 3-factor seasonal model, 9-term basis,
    262,144 paths per set, f32, seeds 11/13 — once to warm up, then five
@@ -35,8 +44,9 @@
    the NPV is within 0.1 SE of the same valuation in f64 on the same draws
    and within 3 SE of the reference record (114,941.8, ``BENCH_r05.json``),
    and that the simulation sweep ran once for each path set (kernel A's
-   draw-only entry never), kernel B once per backward step and kernel C once:
-   one forward sweep per valuation.  Then the same valuation with the port's
+   draw-only entry never), kernel B once per backward step, kernel C once
+   (one forward sweep per valuation) and the intrinsic DP once, its
+   ``intrinsic_npv`` within 1e-5 of the pinned f64 answer.  Then the same valuation with the port's
    default ``snap_interp=False`` (held to the same bounds), with the TPU
    run's numerics (kernel A's draws rounded to bf16 with L, stepped by the
    sweep's plain loop; held within 0.1 SE of the record) and with antithetic
@@ -52,8 +62,9 @@
 7. The full-step backward (``lsmc_core(fullstep=True)``): kernel E once per
    backward step and no kernel B, the NPV within 0.05 SE of the main path's;
    its backward seconds beside the kernel-B-plus-glue backward.
-8. A phase breakdown (host preparation, simulate, backward, forward) and one
-   valuation under torch.profiler (device busy share, kernels by time).
+8. A phase breakdown (host preparation, simulate, intrinsic, backward,
+   forward) and one valuation under torch.profiler (device busy share,
+   kernels by time).
 
 Every path runs with the launch counters set to 0 just before it and read
 just after.  The line before the last is the card; the one before it the
@@ -89,6 +100,16 @@ F64_SPOT_NPV = 97_297.10184581533
 # HBM3): the same arithmetic in any design of kernels C and D keeps these
 # bits.
 SPOT_NPV, SPOT_SE = 97_298.28125, 105.01128387451172
+# The headline's intrinsic value in f64 (the DP's plain version on the card,
+# ``--f64``): the f32 kernel of every valuation lands within 1e-5 of it.
+F64_INTRINSIC_NPV = 46_977.992957453476
+# The intrinsic pins (BASELINE.md): the 2F regression facility of
+# tests/test_lsmc.py on linspace rows (tests/test_goldens.py:81) and on the
+# reference's fixed spacing (its own pinned value, test_multi_factor.py:102),
+# and the reference's C# intrinsic sample (README.md:404-440).
+PIN_LINSPACE = 1_705_564.2806059965
+PIN_FIXED_SPACING = 1_703_773.0757192627
+PIN_CSHARP = 10_827.21
 NUM_SIMS = 262_144
 NUM_STEPS = 365
 NUM_GRID = 100
@@ -111,6 +132,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                         "storage_tpu/ops/decision_kernel.py:308"),
     "decision_update_fullstep": ("storage_tpu_torch/csrc/fullstep_kernel.cu",
                                  "storage_tpu/ops/decision_kernel.py:712"),
+    # No Pallas kernel: the intrinsic DP's backward lax.scan (and the forward
+    # one at :211).
+    "intrinsic_dp": ("storage_tpu_torch/csrc/intrinsic_kernel.cu",
+                     "storage_tpu/engines/intrinsic.py:193"),
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bandwidth, and float32 outside the tensor cores, which counts a
@@ -136,6 +161,14 @@ NORMAL_INT_OPS = 2
 NORMAL_F32_OPS = 48
 # expf, per spot value (its range reduction, polynomial and scaling).
 EXP_F32_OPS = 8
+# The intrinsic DP's unfused operations per decision at one inventory,
+# counted from csrc/intrinsic_kernel.cu decide(): the volume (~3), its fuel,
+# cash flows and PV (~11), the inventory after it (2), the linear
+# continuation (~13: position, clamps, floor, weight, lerp) and the argmax
+# (2); per inventory, the ratchet lookup (~10 + R) and the bang-bang ends
+# (~12).
+DP_OPS_PER_DECISION = 31
+DP_OPS_PER_INVENTORY = 22
 
 
 def log(*args):
@@ -1124,11 +1157,13 @@ def tpu_numerics_valuation(pkg, device, counts):
 
 
 def phase_breakdown(pkg, device):
-    """Host preparation / simulate / backward / forward seconds of the
-    headline case, each ended by a synchronize, through the calls the API
-    makes."""
+    """Host preparation / simulate / intrinsic / backward / forward seconds
+    of the headline case, each ended by a synchronize, through the calls the
+    API makes."""
     import torch
 
+    from storage_tpu_torch.api import engine_profile
+    from storage_tpu_torch.engines import intrinsic as ie
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.models import spot_sim
 
@@ -1145,6 +1180,13 @@ def phase_breakdown(pkg, device):
     val = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(13), ids, *sim_in)
     torch.cuda.synchronize()
     times["simulate_s"] = time.perf_counter() - t0
+    # The intrinsic value as the API takes it: the DP kernel on the engine's
+    # tables, read back with its profile frame.
+    t0 = time.perf_counter()
+    intrinsic = ie.intrinsic_core(arrays, 100.0, 0, tfn, False)
+    engine_profile(inputs.periods, intrinsic)
+    times["intrinsic_npv"] = float(intrinsic.npv)
+    times["intrinsic_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, regression = engine.lsmc_backward(arrays, reg.spot, reg.factors, monomials, 0, tfn, False,
                                          snap_interp=True)
@@ -1216,7 +1258,8 @@ def round_trip(pkg, device, counts, main_npv):
         times["wall_s"] = time.perf_counter() - t0
         launches = counts.read()
         expected = counts.expect(simulate_sweep=2 if name == "source" else 0,
-                                 decision_update_moments=NUM_STEPS, forward_sweep=1)
+                                 decision_update_moments=NUM_STEPS, forward_sweep=1,
+                                 intrinsic_dp=1)
         log(f"round trip, {name}: NPV {res.npv!r} SE {res.val_sim_standard_error!r}; wall "
             f"{times['wall_s']:.3f} s, of it engine (device work, synchronized) "
             f"{times['engine_s']:.3f} s, per-sim frames {times['panel_assembly_s']:.3f} s, user "
@@ -1262,7 +1305,8 @@ def antithetic_valuation(pkg, device, counts, main):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
-    expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS, forward_sweep=1)
+    expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS, forward_sweep=1,
+                             intrinsic_dp=1)
     gap = (res.npv - main.npv) / main.val_sim_standard_error
     log(f"antithetic: NPV {res.npv!r} SE {res.val_sim_standard_error!r}, {gap:+.3f} SE from the "
         f"main path's NPV (tolerance 3); wall {wall:.3f} s; launches {launches}")
@@ -1286,7 +1330,7 @@ def spot_only_valuation(pkg, device, counts, src, main):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
-    expected = counts.expect(decision_update=NUM_STEPS, forward_sweep=1)
+    expected = counts.expect(decision_update=NUM_STEPS, forward_sweep=1, intrinsic_dp=1)
     se = res.val_sim_standard_error
     off = (res.npv - F64_SPOT_NPV) / se
     gap = (res.npv - main.npv) / main.val_sim_standard_error
@@ -1347,6 +1391,218 @@ def fullstep_valuation(pkg, device, counts, main):
                 backward_fullstep_s=backward[True], backward_b_glue_s=backward[False])
 
 
+def reg_case(pkg):
+    """The 2F regression facility and market of tests/test_lsmc.py (the
+    intrinsic pins'): (storage, valuation date, forward curve, rates,
+    settlement rule)."""
+    import pandas as pd
+
+    storage = pkg.CmdtyStorage(
+        "D", "2019-12-01", "2020-04-01", 1.23, 0.98, min_inventory=0.0, max_inventory=100_000.0,
+        max_injection_rate=700.0, max_withdrawal_rate=700.0)
+    val_date = "2019-08-29"
+    idx = pd.period_range(val_date, "2020-04-01", freq="D")
+    fwd = pd.Series([23.87 if p < pd.Period("2020-03-12", freq="D") else 150.32 for p in idx],
+                    index=idx)
+    rates = pd.Series(0.03, index=pd.period_range(val_date, "2020-06-01", freq="D"))
+
+    def settle(period):
+        return (period.asfreq("M").asfreq("D", "end") + 20).start_time.date()
+
+    return storage, val_date, fwd, rates, settle
+
+
+def custom_grid(lower, upper):
+    """A user grid for the custom-grid case: points bunched toward the lower
+    bound, more of them on wider bands (rows padded to one width)."""
+    import numpy as np
+
+    if upper <= lower:
+        return np.array([lower])
+    return lower + (upper - lower) * np.linspace(0.0, 1.0, 60 + int((upper - lower) // 250.0)) ** 1.3
+
+
+def intrinsic_case(pkg, device, case: str, scheme: str, g: int):
+    """The DP's tables of the headline facility or the 2F pin facility
+    (``case``) on ``device`` in f64 and f32, on linspace, fixed-spacing or
+    custom rows: (valuation inputs, {dtype: arrays})."""
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch import grid as gridmod
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.valuation_inputs import prepare_valuation
+
+    if case == "headline":
+        storage, start, fwd = bench_case(pkg)
+        inputs = prepare_valuation(storage, start, 100.0, fwd, 0.02, None)
+    else:
+        storage, val_date, fwd, rates, settle = reg_case(pkg)
+        inputs = prepare_valuation(storage, val_date, 0.0, fwd, rates, settle)
+    lo, hi = inputs.inventory_lower, inputs.inventory_upper
+    if scheme == "linspace":
+        grids = gridmod.inventory_grids(lo, hi, g)
+    elif scheme == "fixed_spacing":
+        grids = gridmod.inventory_grids_fixed_spacing(
+            lo, hi, float(np.min(inputs.compiled.min_inv)), float(np.max(inputs.compiled.max_inv)), g)
+    else:
+        grids = gridmod.inventory_grids_custom(lo, hi, custom_grid)
+    arrays = {dt: engine.build_engine_arrays(inputs.compiled, inputs.fwd, inputs.df_settle,
+                                             inputs.df_flow, lo, hi, g, dt, device, grids)
+              for dt in (torch.float64, torch.float32)}
+    return inputs, arrays
+
+
+def compare_intrinsic(inputs, arrays, e: int, interpolation: str, uniform: bool) -> dict:
+    """The DP kernel in f64 and f32 against ``intrinsic_plain`` in f64 on the
+    card.  f64: the NPV within 1e-10 relative and every profile column
+    within 1e-6 absolute; a decision may differ only where the plain
+    version's two best totals at that step lie within 1e-9 relative (at the
+    first step where the paths part).  f32: the NPV within 1e-5 relative of
+    the f64 answer."""
+    import torch
+
+    from storage_tpu_torch.engines import intrinsic as ie
+
+    f64 = arrays[torch.float64]
+    tfn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
+    args = (inputs.starting_inventory, e, tfn, inputs.compiled.ratchet_is_step, interpolation,
+            uniform)
+    want = ie.intrinsic_plain(f64, *args)
+    got = ie.intrinsic_core(f64, *args)
+    got32 = ie.intrinsic_core(arrays[torch.float32], *args)
+    npv = float(want.npv)
+    rel64 = abs(float(got.npv) - npv) / abs(npv)
+    rel32 = abs(float(got32.npv) - npv) / abs(npv)
+    prof_err = max(float((getattr(got, k) - getattr(want, k)).abs().max())
+                   for k in ie.IntrinsicEngineResult._fields[1:])
+    dec_g, dec_w = got.inject_withdraw, want.inject_withdraw
+    parted = ((dec_g - dec_w).abs() > 1e-6 * dec_w.abs().clamp(min=1.0)).nonzero().flatten()
+    flips, near = int(parted.numel()), True
+    if flips:
+        t = int(parted[0])
+        vs, moments = ie.backward_values(f64, e, tfn, inputs.compiled.ratchet_is_step,
+                                         interpolation, uniform)
+        inv = want.inventory[t - 1:t] if t else torch.full_like(want.inventory[:1], args[0])
+        total = ie.decision_totals(ie.step_tables(f64, t), inv, vs[t + 1], moments[t + 1], e,
+                                   inputs.compiled.ratchet_is_step, interpolation, uniform)[0][0]
+        top2 = total.topk(2).values
+        near = bool(top2[0] - top2[1] <= 1e-9 * top2[0].abs())
+    ok = rel64 <= 1e-10 and rel32 <= 1e-5 and (prof_err <= 1e-6 if not flips else near)
+    return dict(ok=ok, npv_f64_plain=npv, npv_f64=float(got.npv), npv_f32=float(got32.npv),
+                npv_rel_err_f64=rel64, npv_rel_err_f32=rel32, profile_max_abs_err_f64=prof_err,
+                decision_flips_f64=flips, first_flip_on_near_tie=near)
+
+
+def intrinsic_work(n: int, g: int, r: int, d: int, itemsize: int) -> tuple:
+    """(bytes, unfused operations) of one DP: each input read once (the step
+    scalars [N, 11], ratchets [N, R] x 3, grids [N+1, G], terminal values
+    [G]) and each output written once ([5N + 1]); the backward decides at
+    (N-1)·G inventories and the forward at N, each over D decisions."""
+    num_bytes = itemsize * (11 * n + 3 * n * r + (n + 1) * g + g + 5 * n + 1)
+    ops = float((n - 1) * g + n) * (DP_OPS_PER_INVENTORY + r + d * DP_OPS_PER_DECISION)
+    return num_bytes, ops
+
+
+def check_intrinsic(pkg, device) -> dict:
+    """The DP kernel against its plain version on the card in f64 and f32:
+    the headline's tables (N=365, G=100, linear), the 2F facility on fixed
+    spacing and with cubic interpolation, a custom grid, G=1,000 and E=1;
+    its times (CUDA events, f32 and f64, at the headline and at G=1,000),
+    its bound, its plain version's time and its launch report; then the
+    pins through ``intrinsic_value(device="cuda")`` in f64."""
+    import torch
+
+    from storage_tpu_torch.engines import intrinsic as ie
+    from storage_tpu_torch.ops import intrinsic_kernel
+
+    cases = {
+        "headline": ("headline", "linspace", NUM_GRID, 0, "linear"),
+        "2F_fixed_spacing": ("2F", "fixed_spacing", NUM_GRID, 0, "linear"),
+        "2F_cubic": ("2F", "linspace", NUM_GRID, 0, "cubic"),
+        "custom_grid": ("2F", "custom", NUM_GRID, 0, "linear"),
+        "G=1000": ("headline", "linspace", BIG_GRID, 0, "linear"),
+        "E=1": ("2F", "linspace", NUM_GRID, 1, "linear"),
+    }
+    checks, timing = {}, {}
+    for name, (case, scheme, g, e, interpolation) in cases.items():
+        inputs, arrays = intrinsic_case(pkg, device, case, scheme, g)
+        uniform = scheme == "linspace"
+        checks[name] = c = compare_intrinsic(inputs, arrays, e, interpolation, uniform)
+        width = arrays[torch.float64]["grids"].shape[1]
+        log(f"intrinsic DP [{name}: N={inputs.num_steps}, G={width}, E={e}, {interpolation}, "
+            f"{scheme}]: f64 NPV {c['npv_f64']!r} vs plain {c['npv_f64_plain']!r} (rel "
+            f"{c['npv_rel_err_f64']:.2e}, tolerance 1e-10), profile max abs err "
+            f"{c['profile_max_abs_err_f64']:.2e} (tolerance 1e-6), {c['decision_flips_f64']} "
+            f"decision flips (first on a near-tie: {c['first_flip_on_near_tie']}); f32 NPV "
+            f"{c['npv_f32']!r} (rel {c['npv_rel_err_f32']:.2e}, tolerance 1e-5)")
+        if name in ("headline", "G=1000"):
+            tfn = inputs.compiled.terminal_value
+            n, r = inputs.num_steps, arrays[torch.float32]["ratchet_inv"].shape[1]
+            row = {}
+            for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+                row[f"ms_{label}"] = cuda_ms(lambda: ie.intrinsic_core(arrays[dt], 100.0, 0, tfn,
+                                                                       False), 20)
+            row["plain_ms"] = cuda_ms(lambda: ie.intrinsic_plain(arrays[torch.float32], 100.0, 0,
+                                                                 tfn, False), 1)
+            num_bytes, ops = intrinsic_work(n, g, r, 3, 4)
+            row.update(bound(num_bytes, 0.0, ops))
+            row["ms_per_step_f32"] = row["ms_f32"] / (2 * n - 1)
+            timing[name] = row
+            log(f"intrinsic DP [{name}] times: {row['ms_f32']:.4f} ms f32, {row['ms_f64']:.4f} ms "
+                f"f64 a DP (one launch; {row['ms_per_step_f32'] * 1e3:.3f} us a step of the "
+                f"{2 * n - 1}-step chain in f32), plain {row['plain_ms']:.1f} ms (f32), bound "
+                f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+        del arrays
+    info = {label: intrinsic_kernel.intrinsic_info(dt, device)
+            for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
+    log("intrinsic DP launch report: " + "; ".join(
+        f"{label}: one block of {r_['threads']} threads, {r_['registers']} registers, "
+        f"{r_['local_bytes']} bytes local (spills), {r_['smem_bytes']} bytes shared, "
+        f"{r_['blocks_per_sm']} blocks/SM" for label, r_ in info.items()))
+    pins = check_pins(pkg, device)
+    bad = [name for name, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"the intrinsic DP kernel disagrees with its plain version: {bad}")
+    head = timing["headline"]
+    return dict(max_abs_err=checks["headline"]["profile_max_abs_err_f64"], ms=head["ms_f32"],
+                ms_f64=head["ms_f64"], ms_per_step=head["ms_per_step_f32"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                big_grid=timing["G=1000"], checks=checks, launch=info, pins=pins)
+
+
+def check_pins(pkg, device) -> dict:
+    """The intrinsic pins through ``intrinsic_value(device="cuda")`` in f64:
+    the 2F facility on linspace and fixed-spacing rows within 1e-9 relative,
+    the C# sample within 1e-3."""
+    import pandas as pd
+    import torch
+
+    storage, val_date, fwd, rates, settle = reg_case(pkg)
+    got = {}
+    for scheme, pin in (("linspace", PIN_LINSPACE), ("fixed_spacing", PIN_FIXED_SPACING)):
+        got[scheme] = (pkg.intrinsic_value(storage, val_date, 0.0, fwd, rates, settle,
+                                           dtype=torch.float64, grid_scheme=scheme,
+                                           device=device).npv, pin, 1e-9)
+    csharp = pkg.CmdtyStorage("D", "2019-09-01", "2019-10-01", 0.48, 0.74, min_inventory=0.0,
+                              max_inventory=1100.74, max_injection_rate=5.26,
+                              max_withdrawal_rate=14.74)
+    idx = pd.period_range("2019-09-15", "2019-10-01", freq="D")
+    step_curve = pd.Series([56.6 if p < pd.Period("2019-09-23", freq="D") else 144.41 for p in idx],
+                           index=idx)
+    got["csharp"] = (pkg.intrinsic_value(csharp, "2019-09-15", 50.0, step_curve, 0.0, None,
+                                         num_inventory_grid_points=101, dtype=torch.float64,
+                                         device=device).npv, PIN_CSHARP, 1e-3)
+    log("intrinsic pins, intrinsic_value(device='cuda', f64): " + "; ".join(
+        f"{name} {npv!r} vs {pin!r} (rel {abs(npv - pin) / pin:.2e}, tolerance {tol:g})"
+        for name, (npv, pin, tol) in got.items()))
+    bad = [name for name, (npv, pin, tol) in got.items() if not abs(npv - pin) <= tol * pin]
+    if bad:
+        raise AssertionError(f"intrinsic pins missed: {bad}")
+    return {name: dict(npv=npv, pin=pin, rel_err=abs(npv - pin) / pin)
+            for name, (npv, pin, _) in got.items()}
+
+
 def measure_f64(pkg, device):
     """The pinned f64 answers: the kernels' plain versions in f64 on the
     card, on the f32 draws of the headline case cast to f64."""
@@ -1356,6 +1612,7 @@ def measure_f64(pkg, device):
 
     from storage_tpu_torch.basis import parse_basis_functions
     from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.engines.intrinsic import intrinsic_plain
     from storage_tpu_torch.models import spot_sim
     from storage_tpu_torch.ops import decision_kernel, forward_kernel
 
@@ -1390,6 +1647,7 @@ def measure_f64(pkg, device):
                                f64(val.factors[:, :0]), 100.0, spot_monomials, 0, False, tfn,
                                False, snap_interp=True)
         npvs["F64_SPOT_NPV"] = float(out["npv"])
+        npvs["F64_INTRINSIC_NPV"] = float(intrinsic_plain(arrays, 100.0, 0, tfn, False).npv)
     finally:
         for patch in plain:
             patch.stop()
@@ -1463,7 +1721,8 @@ def main(argv) -> int:
 
     import storage_tpu_torch as stt
     from storage_tpu_torch.engines import lsmc as engine
-    from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel, rng_kernel
+    from storage_tpu_torch.ops import (_build, decision_kernel, forward_kernel, intrinsic_kernel,
+                                       rng_kernel)
 
     device = torch.device("cuda", 0)
     OUT.mkdir(parents=True, exist_ok=True)
@@ -1495,13 +1754,14 @@ def main(argv) -> int:
     # ---- kernels against their plain versions.
     with engine.full_f32_matmul():
         kernels = check_kernels(stt, device)
+    kernels["intrinsic_dp"] = check_intrinsic(stt, device)
     report["kernels"] = kernels
 
     # ---- the main path through the public API.
     counts = LaunchCounts((rng_kernel.simulate_sweep, rng_kernel.normal_halves,
                            decision_kernel.decision_update_moments,
                            forward_kernel.forward_sweep, decision_kernel.decision_update,
-                           decision_kernel.decision_update_fullstep))
+                           decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp))
     value(stt, device, snap_interp=True)  # warm-up
     torch.cuda.synchronize()
     counts.reset()
@@ -1523,9 +1783,19 @@ def main(argv) -> int:
         f"{[round(w, 4) for w in walls]} = {rate:.1f} paths*steps/s; launches {launches} "
         f"[{card}]")
     expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS,
-                             forward_sweep=1)
+                             forward_sweep=1, intrinsic_dp=1)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
+    intrinsic_rel = abs(res.intrinsic_npv - F64_INTRINSIC_NPV) / F64_INTRINSIC_NPV
+    log(f"main path intrinsic value: {res.intrinsic_npv!r} (f64 plain answer {F64_INTRINSIC_NPV!r}, "
+        f"rel {intrinsic_rel:.2e}, tolerance 1e-5); the DP kernel launched "
+        f"{launches['intrinsic_dp']} time(s) in the valuation")
+    if not intrinsic_rel <= 1e-5:
+        raise AssertionError(f"intrinsic NPV {res.intrinsic_npv} is not within 1e-5 of "
+                             f"{F64_INTRINSIC_NPV}")
+    if res.intrinsic_profile.shape != (NUM_STEPS + 1, 6) or not np.isfinite(
+            res.intrinsic_profile.to_numpy()).all():
+        raise AssertionError("the intrinsic profile does not match the facility")
     deltas = res.deltas.to_numpy()
     profile = res.expected_profile.to_numpy()
     if deltas.shape != (NUM_STEPS + 1,) or profile.shape != (NUM_STEPS + 1, 6):
@@ -1534,7 +1804,8 @@ def main(argv) -> int:
         raise AssertionError("non-finite deltas or profile")
     report["main_path"] = dict(npv=res.npv, se=res.val_sim_standard_error, wall_s=wall,
                                walls_s=walls, paths_steps_per_s=rate, z_vs_reference=z,
-                               launches=launches)
+                               launches=dict(launches), intrinsic_npv=res.intrinsic_npv,
+                               intrinsic_rel_err=intrinsic_rel)
 
     res_default = value(stt, device, snap_interp=False)
     torch.cuda.synchronize()
@@ -1569,11 +1840,12 @@ def main(argv) -> int:
     launches.update(normal_halves=launches_t["normal_halves"])
     paths = dict(simulate_sweep="main", normal_halves="tpu_numerics",
                  decision_update_moments="main", forward_sweep="main",
-                 decision_update="spot_only", decision_update_fullstep="fullstep")
+                 decision_update="spot_only", decision_update_fullstep="fullstep",
+                 intrinsic_dp="main")
 
     phases = phase_breakdown(stt, device)
     log(f"phases: host prep {phases['host_prep_s']:.4f} s, simulate {phases['simulate_s']:.4f} s, "
-        f"backward {phases['backward_s']:.4f} s, "
+        f"intrinsic {phases['intrinsic_s']:.4f} s, backward {phases['backward_s']:.4f} s, "
         f"forward {phases['forward_s']:.4f} s, peak device memory {phases['peak_memory_gb']:.2f} GB "
         f"[{card}]")
     report["phases"] = phases
@@ -1583,7 +1855,8 @@ def main(argv) -> int:
     # Kernel C's ms is per sweep of all steps, the simulation sweep's per path
     # set; their launch reports beside them, and kernel D's.
     extra = {"forward_sweep": ("smem_bytes", "blocks_per_sm", "registers", "sass_instructions"),
-             "decision_update": ("launch",), "simulate_sweep": ("launch",)}
+             "decision_update": ("launch",), "simulate_sweep": ("launch",),
+             "intrinsic_dp": ("ms_f64", "ms_per_step", "launch")}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src_file, "replaces": rep,
          "launches": launches[name], "path": paths[name], **{k: kernels[name][k] for k in keys},

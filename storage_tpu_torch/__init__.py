@@ -5,10 +5,11 @@ The port of ``storage_tpu`` (JAX on a TPU), which stays beside it as the
 reference.  It carries the LSMC valuation on one card: facility model, path
 simulation, backward induction and forward pass, on simulated paths
 (``three_factor_seasonal_value``, ``multi_factor_value``) or on the user's
-own (``value_from_sims``), with per-sim panels.  The draw, the backward
-decision steps and the forward step are CUDA kernels (``csrc/``); entry
-points run on CUDA unless the caller passes ``device="cpu"``, where the
-kernels' plain tensor versions run.
+own (``value_from_sims``), with per-sim panels, and the intrinsic valuation
+(``intrinsic_value``, also in every LSMC result).  The simulation sweep, the
+backward decision steps, the forward sweep and the intrinsic DP are CUDA
+kernels (``csrc/``); entry points run on CUDA unless the caller passes
+``device="cpu"``, where the kernels' plain tensor versions run.
 """
 
 from .facility import (
@@ -25,6 +26,7 @@ from .constraints import (
     PolynomialInjectWithdrawConstraint,
     StepInjectWithdrawConstraint,
 )
+from .api import IntrinsicValuationResults, intrinsic_value
 from .api_lsmc import (
     multi_factor_value,
     three_factor_seasonal_value,
@@ -52,6 +54,8 @@ __all__ = [
     "StepInjectWithdrawConstraint",
     "InjectWithdrawRangeByInventory",
     "InjectWithdrawRangeByInventoryAndPeriod",
+    "intrinsic_value",
+    "IntrinsicValuationResults",
     "three_factor_seasonal_value",
     "multi_factor_value",
     "value_from_sims",

@@ -17,8 +17,10 @@ the JAX key semantics: ``key(seed)`` for the regression sims,
 ``fold_in(key, 0x5EED)`` for the valuation sims when ``fwd_sim_seed`` is
 None, one shared set when the two seeds are equal.
 
-The intrinsic value is not computed yet (ROADMAP Queue 1, the intrinsic
-engine): ``intrinsic_npv`` is NaN and ``intrinsic_profile`` empty.
+Every result carries the intrinsic value and profile, as the JAX package's
+do: the intrinsic DP (``engines.intrinsic``) on the valuation's own linspace
+tables, in its dtype, with no extra decision, run after the simulation and
+before the LSMC engine (on the card, one launch of the DP kernel).
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ import pandas as pd
 import torch
 
 from . import basis as basis_mod
+from .api import Device, engine_profile, profile_data_frame, resolve_device
+from .engines import intrinsic as intrinsic_engine
 from .engines import lsmc as lsmc_engine
 from .facility import CmdtyStorage
 from .models import multi_factor as mf
@@ -46,8 +50,6 @@ from .utils import periods as pu
 from .valuation_inputs import prepare_valuation
 
 logger = logging.getLogger("storage_tpu_torch.multi_factor")
-
-Device = tp.Union[str, torch.device]
 
 DEFAULT_NUM_GRID_POINTS = 100  # reference default (ExcelArg.cs:130, intrinsic.py:48)
 
@@ -116,18 +118,6 @@ def _refuse(option: str, item: str):
     )
 
 
-def _resolve_device(device: Device) -> torch.device:
-    """The device of a valuation: CUDA unless the caller names another.  A
-    CUDA device on a host without one raises rather than running elsewhere."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "storage_tpu_torch runs on a CUDA device, and this host has none; "
-            "pass device='cpu' to run the kernels' plain versions on the CPU."
-        )
-    return device
-
-
 def _refuse_unported(on_progress_update, cancellation_poll, deltas_method, checkpoint_path,
                      grid_calc):
     if on_progress_update is not None or cancellation_poll is not None:
@@ -179,7 +169,7 @@ def multi_factor_value(
     inventory, volumes, fuel, loss, net volume, PV); it never changes the
     numbers."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
-    device = _resolve_device(device)
+    device = resolve_device(device)
     _refuse_unported(on_progress_update, cancellation_poll, deltas_method, checkpoint_path,
                      grid_calc)
     factor_corrs = mf.validate_multi_factor_params(factors, factor_corrs)
@@ -248,7 +238,7 @@ def value_from_sims(
     spot-only backward (kernel D).  The panels are held on ``device``; panels
     larger than its free memory wait for the host-streamed engine."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
-    device = _resolve_device(device)
+    device = resolve_device(device)
     _refuse_unported(on_progress_update, cancellation_poll, deltas_method, checkpoint_path,
                      grid_calc)
     wants_sim_data = _wants_sim_data(SimulationDataReturned.coerce(sim_data_returned))
@@ -398,6 +388,9 @@ def _lsmc_calc(
         inputs.inventory_lower, inputs.inventory_upper, num_grid_points, dtype, device,
     )
     terminal_fn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
+    logger.info("Calculating intrinsic value.")
+    intrinsic = intrinsic_engine.intrinsic_core(
+        arrays, inputs.starting_inventory, 0, terminal_fn, inputs.compiled.ratchet_is_step)
     logger.info("Calculating LSMC value.")
     result = lsmc_engine.lsmc_core(
         arrays, spot_reg, factors_reg, spot_val, factors_val, inputs.starting_inventory,
@@ -412,31 +405,15 @@ def _lsmc_calc(
     )
     paths = {"spot_regress": spot_reg, "spot_valuation": spot_val,
              "factors_regress": factors_reg, "factors_valuation": factors_val}
-    return _results(inputs.periods, result, sim_data_returned, paths)
-
-
-def profile_data_frame(periods, inventory, inject_withdraw, cmdty_consumed,
-                       inventory_loss, period_pv) -> pd.DataFrame:
-    """Storage-profile frame in the reference column layout (intrinsic.py:88-111);
-    ``net_volume = -inject_withdraw - consumed`` (StorageProfile.cs:28)."""
-    net_volume = -np.asarray(inject_withdraw) - np.asarray(cmdty_consumed)
-    return pd.DataFrame(
-        {
-            "inventory": np.asarray(inventory, dtype=np.float64),
-            "inject_withdraw_volume": np.asarray(inject_withdraw, dtype=np.float64),
-            "cmdty_consumed": np.asarray(cmdty_consumed, dtype=np.float64),
-            "inventory_loss": np.asarray(inventory_loss, dtype=np.float64),
-            "net_volume": net_volume.astype(np.float64),
-            "period_pv": np.asarray(period_pv, dtype=np.float64),
-        },
-        index=periods,
-    )
+    return _results(inputs.periods, result, sim_data_returned, paths,
+                    intrinsic=(float(intrinsic.npv), engine_profile(inputs.periods, intrinsic)))
 
 
 def _results(periods, result, sim_data_returned: SimulationDataReturned,
-             paths) -> MultiFactorValuationResults:
-    """The result container; the per-sim panels the flags ask for become f64
-    frames (periods x sims)."""
+             paths, intrinsic) -> MultiFactorValuationResults:
+    """The result container; ``intrinsic`` is the intrinsic (NPV, profile
+    frame); the per-sim panels the flags ask for become f64 frames (periods x
+    sims)."""
     active = periods[:-1]
     f64 = lambda key: result[key].astype(np.float64)  # noqa: E731
     trigger_prices = pd.DataFrame(
@@ -491,8 +468,8 @@ def _results(periods, result, sim_data_returned: SimulationDataReturned,
             result["profile_cmdty_consumed"], result["profile_inventory_loss"],
             result["profile_pv"],
         ),
-        intrinsic_npv=float("nan"),
-        intrinsic_profile=pd.DataFrame(),
+        intrinsic_npv=intrinsic[0],
+        intrinsic_profile=intrinsic[1],
         sim_spot_regress=frame(flags.SPOT_REGRESS, paths["spot_regress"], periods),
         sim_spot_valuation=frame(flags.SPOT_VALUATION, paths["spot_valuation"], periods),
         sim_factors_regress=factor_frames(flags.FACTORS_REGRESS, paths["factors_regress"]),

@@ -84,8 +84,13 @@ def build_engine_arrays(
     num_grid_points: int,
     dtype,
     device,
+    grids: tp.Optional[np.ndarray] = None,
 ) -> tp.Dict[str, torch.Tensor]:
-    grids = gridmod.inventory_grids(inventory_lower, inventory_upper, num_grid_points)
+    """The engines' per-step tables on ``device`` in ``dtype``: the inventory
+    grids [N+1, G] (``grids``, or linspace rows of ``num_grid_points``), the
+    curve, bands and discount factors, the facility's costs and ratchets."""
+    if grids is None:
+        grids = gridmod.inventory_grids(inventory_lower, inventory_upper, num_grid_points)
     host = {
         "grids": grids,
         "fwd": fwd,

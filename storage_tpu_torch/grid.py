@@ -3,7 +3,8 @@
 Host side (numpy float64): the forward/backward feasible-band reduction of
 ``StorageHelper.CalculateInventorySpace`` (StorageHelper.cs:39-107), a copy of
 the pure-Python path of ``storage_tpu.grid.calculate_inventory_space``, and the
-linspace inventory grids.
+inventory grids: linspace, the reference's fixed spacing and the user's own
+(``grid_calc``).
 
 Device side (torch): ratchet-rate lookup and the bang-bang decision set of
 ``StorageHelper.CalculateBangBangDecisionSet`` (StorageHelper.cs:109-197) as
@@ -115,6 +116,90 @@ def inventory_grids(
             grids[t] = np.linspace(lower[t], upper[t], g)
         else:
             grids[t] = np.full(g, lower[t])
+    return grids
+
+
+def inventory_grids_custom(
+    lower: np.ndarray, upper: np.ndarray, grid_calc
+) -> np.ndarray:
+    """Per-period grids from a user ``grid_calc(lower, upper)`` callable (the
+    reference's ``IDoubleStateSpaceGridCalc.GetGridPoints`` extension point,
+    IDoubleStateSpaceGridCalc.cs:32), or from a pre-built array [periods, G]
+    or sequence of per-period point arrays.  Rows may differ in length and
+    are padded to one width by repeating their last point (zero-span
+    segments, which the interpolation gives their left node's value).  Points
+    are checked sorted and within [lower, upper]."""
+    num_periods = len(lower)
+    if not callable(grid_calc):
+        supplied = [np.asarray(row, dtype=np.float64) for row in grid_calc]
+        if len(supplied) != num_periods:
+            raise ValueError(
+                f"grid array must have one row per period ({num_periods}), "
+                f"got {len(supplied)}."
+            )
+        grid_calc = lambda lo, hi, _it=iter(supplied): next(_it)  # noqa: E731
+    rows = []
+    for t in range(num_periods):
+        pts = np.asarray(grid_calc(float(lower[t]), float(upper[t])), dtype=np.float64)
+        if pts.ndim != 1 or pts.size < 1:
+            raise ValueError(
+                f"grid_calc must return a 1-D array of at least one point "
+                f"(period {t}: shape {pts.shape})."
+            )
+        if np.any(np.diff(pts) < 0):
+            raise ValueError(f"grid_calc points must be sorted (period {t}).")
+        eps = 1e-9 * max(1.0, abs(upper[t] - lower[t]))
+        if pts[0] < lower[t] - eps or pts[-1] > upper[t] + eps:
+            raise ValueError(
+                f"grid_calc points must lie within the feasible band "
+                f"[{lower[t]}, {upper[t]}] (period {t})."
+            )
+        rows.append(pts)
+    width = max(2, max(len(r) for r in rows))
+    grids = np.empty((num_periods, width))
+    for t, pts in enumerate(rows):
+        grids[t, : len(pts)] = pts
+        grids[t, len(pts):] = pts[-1]
+    return grids
+
+
+def rows_uniform(grids) -> bool:
+    """True when every grid row is evenly spaced, within f32-scale tolerance
+    (such rows take the arithmetic-position interpolation)."""
+    g = np.asarray(grids, dtype=np.float64)
+    if g.shape[1] < 3:
+        return True
+    d = np.diff(g, axis=1)
+    span = g[:, -1] - g[:, 0]
+    tol = 1e-6 * np.maximum(1.0, np.abs(span))[:, None]
+    return bool(np.all(np.abs(d - d[:, :1]) <= tol))
+
+
+def inventory_grids_fixed_spacing(
+    lower: np.ndarray,
+    upper: np.ndarray,
+    global_min: float,
+    global_max: float,
+    num_grid_points: int,
+) -> np.ndarray:
+    """Per-period grids of the reference's ``FixedSpacingStateSpaceGridCalc``
+    (FixedSpacingStateSpaceGridCalc.cs:45-63): spacing global_range/(G-1),
+    each period's points lower, lower+h, ... capped at upper, rows padded to
+    one width by repeating the upper bound."""
+    g = max(int(num_grid_points), 2)
+    h = (float(global_max) - float(global_min)) / (g - 1)
+    if h <= 0:
+        return np.tile(lower[:, None], (1, 2))
+    # Width: enough slots for the widest band (ceil(span/h) + 1), plus the
+    # capped point at the band's upper bound.
+    spans = np.asarray(upper, dtype=np.float64) - np.asarray(lower, dtype=np.float64)
+    width = int(np.ceil(spans.max() / h - 1e-12)) + 1 if spans.max() > 0 else 1
+    width = max(width + 1, 2)
+    num_periods = len(lower)
+    grids = np.empty((num_periods, width))
+    for t in range(num_periods):
+        pts = lower[t] + h * np.arange(width)
+        grids[t] = np.minimum(pts, upper[t])
     return grids
 
 

@@ -40,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # C signature of every entry point: (argtypes), all returning a cudaError_t.
 SIGNATURES = {
@@ -82,6 +83,17 @@ SIGNATURES = {
     ),
     # G, B, R, F, E, out int[6] (the sweep's launch report)
     "stt_forward_sweep_info": (_I, _I, _I, _I, _I, _P),
+    # N, G, R, E, is_step, mode, steps, ratchet inv/min/max, grids, v_end,
+    # solver (or NULL), starting inventory, vs, moments (or NULL), rhs (or
+    # NULL), out, stream
+    "stt_intrinsic_dp_f32": (
+        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P, _P,
+    ),
+    "stt_intrinsic_dp_f64": (
+        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P, _P,
+    ),
+    # is_double, out int[5] (the DP kernel's launch report)
+    "stt_intrinsic_dp_info": (_I, _P),
 }
 
 

@@ -1,13 +1,16 @@
-"""Linear interpolation over uniform inventory grids (counterpart of the
-uniform functions of ``storage_tpu.ops.interp``).
+"""Interpolation over inventory grids (counterpart of
+``storage_tpu.ops.interp``).
 
-Grid positions come from arithmetic on the linspace grids, not a search.
-Every function takes a grid ``[..., G]`` whose leading dims broadcast against
-the leading dims of the query ``x``, so one call serves one step (grid [G])
-or all steps at once (grid [N, G], x [N, ...]).
+On uniform (linspace) grids, positions come from arithmetic, not a search,
+and every function takes a grid ``[..., G]`` whose leading dims broadcast
+against the leading dims of the query ``x``, so one call serves one step
+(grid [G]) or all steps at once (grid [N, G], x [N, ...]).  The general
+(non-uniform) and natural-cubic functions of the intrinsic engine take one
+step's 1-D grid [G].
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -78,3 +81,74 @@ def interp_coeffs(coeffs, idx_lo, w_hi):
     lo = idx_lo.to(torch.int64)
     ci = coeffs[:, lo] * (1 - w_hi) + coeffs[:, lo + 1] * w_hi  # [B, G, D]
     return ci.permute(2, 1, 0).contiguous()
+
+
+def interp_weights_general(grid, x):
+    """(idx_lo, w_hi) for ``x`` on a non-uniform, non-decreasing 1-D grid
+    [G], clamped: the lower node is the count of interior nodes <= x, so a
+    zero-span segment (the padding of fixed-spacing and custom grids) gives
+    weight 0 on its left node."""
+    g = grid.shape[0]
+    x_c = torch.minimum(torch.maximum(x, grid[0]), grid[g - 1])
+    idx = torch.searchsorted(grid[1:g - 1].contiguous(), x_c.contiguous(), right=True)
+    x0 = grid[idx]
+    x1 = grid[idx + 1]
+    span = x1 - x0
+    w = torch.where(span > 0, (x_c - x0) / torch.where(span > 0, span, torch.ones_like(span)),
+                    torch.zeros_like(span))
+    return idx, w
+
+
+def interp_vector_general(grid, values, x):
+    """Linear interpolation of ``values`` [G] at ``x`` [...] on a non-uniform,
+    non-decreasing 1-D grid [G] (clamped; zero-span segments take their left
+    node's value)."""
+    idx, w = interp_weights_general(grid, x)
+    return values[idx] * (1 - w) + values[idx + 1] * w
+
+
+def natural_cubic_solver(num_points: int, dtype=torch.float64, device=None) -> torch.Tensor:
+    """Inverse [G-2, G-2] of the natural-cubic-spline system of a uniform grid
+    of G nodes (M_{i-1} + 4 M_i + M_{i+1} = rhs_i for the interior moments),
+    inverted once in f64 and cast to ``dtype``."""
+    n = num_points - 2
+    if n <= 0:
+        return torch.zeros((0, 0), dtype=dtype, device=device)
+    t = np.zeros((n, n))
+    for i in range(n):
+        t[i, i] = 4.0
+        if i > 0:
+            t[i, i - 1] = 1.0
+        if i + 1 < n:
+            t[i, i + 1] = 1.0
+    return torch.tensor(np.linalg.inv(t), dtype=dtype, device=device)
+
+
+def cubic_moments(grid, values, solver):
+    """Second-derivative moments [G] of the natural cubic spline through
+    (grid, values) on a uniform 1-D grid; ``solver`` from
+    ``natural_cubic_solver(G)``.  A degenerate grid gives zero moments."""
+    g = grid.shape[0]
+    h = (grid[g - 1] - grid[0]) / (g - 1)
+    safe_h = torch.where(h > 0, h, torch.ones_like(h))
+    rhs = 6.0 * (values[2:] - 2.0 * values[1:-1] + values[:-2]) / (safe_h * safe_h)
+    interior = torch.where(h > 0, solver.to(values.dtype) @ rhs, torch.zeros_like(rhs))
+    zero = torch.zeros((1,), dtype=values.dtype, device=values.device)
+    return torch.cat([zero, interior, zero])
+
+
+def interp_vector_cubic(grid, values, moments, x):
+    """Natural-cubic-spline evaluation of ``values`` [G] at ``x`` [...] on a
+    uniform 1-D grid, clamped (the reference's
+    NaturalCubicSplineInterpolatorFactory, IInterpolatorFactory.cs:33-37)."""
+    g = grid.shape[0]
+    h = (grid[g - 1] - grid[0]) / (g - 1)
+    idx_lo, t = interp_weights(grid, x)
+    v_lo = values[idx_lo]
+    v_hi = values[idx_lo + 1]
+    m_lo = moments[idx_lo]
+    m_hi = moments[idx_lo + 1]
+    u = 1.0 - t
+    linear = v_lo * u + v_hi * t
+    curvature = (h * h / 6.0) * ((u * u * u - u) * m_lo + (t * t * t - t) * m_hi)
+    return linear + torch.where(h > 0, curvature, torch.zeros_like(curvature))

@@ -8,13 +8,23 @@ the same order without fused multiply-adds, so per-path outputs match to f32
 rounding; the cross-path sums are taken in another order (1e-5 relative).
 Kernel E factors its [B, B] system in double by its own loop, the plain
 version in double with torch.linalg, so its coefficients, and the values and
-moments that follow from them, agree to 1e-4 relative.
+moments that follow from them, agree to 1e-4 relative.  The intrinsic DP
+kernel does its plain version's arithmetic operation by operation; the
+sums (the NPV, the cubic moments' matvec) go in another order: f64 within
+1e-10 relative, f32 within 1e-5 of the f64 answer.
 """
+import numpy as np
+import pandas as pd
 import pytest
 import torch
 
+import storage_tpu_torch as tpkg
+from storage_tpu_torch import grid as gridmod
 from storage_tpu_torch.basis import parse_basis_functions
-from storage_tpu_torch.ops import decision_kernel, forward_kernel, interp, rng_kernel
+from storage_tpu_torch.engines import intrinsic as intrinsic_engine
+from storage_tpu_torch.engines import lsmc as lsmc_engine
+from storage_tpu_torch.ops import decision_kernel, forward_kernel, interp, intrinsic_kernel, rng_kernel
+from storage_tpu_torch.valuation_inputs import prepare_valuation
 
 pytestmark = pytest.mark.cuda
 
@@ -366,3 +376,100 @@ def test_forward_sweep_grid_beyond_shared_memory_raises(device):
     g = info["max_grid"] + 1
     with pytest.raises(ValueError, match=f"at most G={g - 1}"):
         forward_kernel.forward_sweep(*_sweep_args(device, 2, 64, g, 3))
+
+
+def _reg_market():
+    """The 2F regression facility and market of tests/test_lsmc.py, whose
+    intrinsic value moves with the grid and the interpolation."""
+    storage = tpkg.CmdtyStorage(
+        "D", "2019-12-01", "2020-04-01", 1.23, 0.98, min_inventory=0.0, max_inventory=100_000.0,
+        max_injection_rate=700.0, max_withdrawal_rate=700.0)
+    idx = pd.period_range("2019-08-29", "2020-04-01", freq="D")
+    fwd = pd.Series([23.87 if p < pd.Period("2020-03-12", freq="D") else 150.32 for p in idx],
+                    index=idx)
+    rates = pd.Series(0.03, index=pd.period_range("2019-08-29", "2020-06-01", freq="D"))
+
+    def settle(period):
+        return (period.asfreq("M").asfreq("D", "end") + 20).start_time.date()
+
+    return storage, fwd, rates, settle
+
+
+def _intrinsic_case(device, dtype, mode, g, n):
+    """The DP's tables of the 2F facility on ``device``, valued from the
+    valuation date of its pins (n = None) or over its last n steps, on
+    linspace rows ("linear", "cubic") or fixed-spacing rows ("general")."""
+    storage, fwd, rates, settle = _reg_market()
+    val_date = "2019-08-29" if n is None else storage.end - n
+    inputs = prepare_valuation(storage, val_date, 0.0 if n is None else 100.0 * n, fwd, rates,
+                               settle)
+    lo, hi = inputs.inventory_lower, inputs.inventory_upper
+    grids = (gridmod.inventory_grids_fixed_spacing(lo, hi, 0.0, 100_000.0, g) if mode == "general"
+             else gridmod.inventory_grids(lo, hi, g))
+    arrays = lsmc_engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow, lo, hi, g, dtype, device,
+        grids)
+    return inputs, arrays
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["linear", "general", "cubic"])
+@pytest.mark.parametrize("g,n", [(1000, None), (15, 1)], ids=["G=1000", "N=1"])
+def test_intrinsic_dp(device, dtype, mode, g, n):
+    """The DP kernel, one launch, against intrinsic_plain in f64 on the card
+    (one extra decision: volumes off the grid points)."""
+    inputs, arrays = _intrinsic_case(device, dtype, mode, g, n)
+    args = (inputs.starting_inventory, 1, None, False, "cubic" if mode == "cubic" else "linear",
+            mode != "general")
+    before = intrinsic_kernel.intrinsic_dp.launches
+    got = intrinsic_engine.intrinsic_core(arrays, *args)
+    assert intrinsic_kernel.intrinsic_dp.launches == before + 1
+    want = intrinsic_engine.intrinsic_plain(
+        {k: v.to(torch.float64) for k, v in arrays.items()}, *args)
+    assert got.npv.dtype == dtype and got.inventory.shape == (arrays["grids"].shape[0],)
+    rel = 1e-10 if dtype == torch.float64 else 1e-5
+    assert float(got.npv) == pytest.approx(float(want.npv), rel=rel)
+    if dtype == torch.float64:
+        for name in intrinsic_engine.IntrinsicEngineResult._fields[1:]:
+            torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-6)
+
+
+def test_intrinsic_dp_refuses_cpu_tensors_and_other_dtypes(device):
+    _, arrays = _intrinsic_case("cpu", torch.float64, "linear", 11, 1)
+    v_end = torch.zeros(11, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        intrinsic_kernel.intrinsic_dp(arrays, v_end, 100.0, 0, False, "linear")
+    _, arrays = _intrinsic_case(device, torch.float16, "linear", 11, 1)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        intrinsic_kernel.intrinsic_dp(arrays, v_end.to(device), 100.0, 0, False, "linear")
+
+
+def test_intrinsic_value_pins_on_the_card(device):
+    """The 2F facility's pins through intrinsic_value(device="cuda") in f64."""
+    storage, fwd, rates, settle = _reg_market()
+    for scheme, pin in (("linspace", 1_705_564.2806059965), ("fixed_spacing", 1_703_773.0757192627)):
+        res = tpkg.intrinsic_value(storage, "2019-08-29", 0.0, fwd, rates, settle,
+                                   dtype=torch.float64, grid_scheme=scheme, device=device)
+        assert res.npv == pytest.approx(pin, rel=1e-9)
+
+
+def test_intrinsic_launches_once_per_lsmc_valuation(device):
+    """Every LSMC valuation on the card runs the DP kernel once, in its
+    dtype, and its intrinsic value is the plain version's on the CPU."""
+    start = pd.Period("2021-01-01", freq="D")
+    storage = tpkg.CmdtyStorage(
+        "D", start, start + 20, 0.9, 0.7,
+        ratchets=[(start, [(0.0, -200.0, 300.0), (2500.0, -250.0, 250.0),
+                           (5000.0, -300.0, 200.0)])],
+        ratchet_interp=tpkg.RatchetInterp.LINEAR, terminal_storage_npv=lambda p, inv: p * inv)
+    fwd = pd.Series(30.0 + 6 * np.sin(np.arange(21) / 3.0),
+                    index=pd.period_range(start, start + 20, freq="D"))
+    args = (storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, 1000, BASIS_9, False)
+    before = intrinsic_kernel.intrinsic_dp.launches
+    got = tpkg.three_factor_seasonal_value(*args, seed=3, num_inventory_grid_points=20,
+                                           device=device)
+    assert intrinsic_kernel.intrinsic_dp.launches == before + 1
+    want = tpkg.three_factor_seasonal_value(*args, seed=3, num_inventory_grid_points=20,
+                                            dtype=torch.float64, device="cpu")
+    assert got.intrinsic_npv == pytest.approx(want.intrinsic_npv, rel=1e-5)
+    assert got.intrinsic_profile.shape == (21, 6)

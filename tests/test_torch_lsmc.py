@@ -154,7 +154,8 @@ def test_three_factor_seasonal_value_matches_jax(seeds):
         for gs, ws in ((g.inject_triggers, w.inject_triggers), (g.withdraw_triggers, w.withdraw_triggers)):
             np.testing.assert_allclose(np.asarray(gs).reshape(-1, 2), np.asarray(ws).reshape(-1, 2),
                                        rtol=1e-7, atol=1e-7)
-    assert np.isnan(got.intrinsic_npv)  # the intrinsic engine is not ported yet
+    assert got.intrinsic_npv == pytest.approx(want.intrinsic_npv, rel=1e-10)
+    pd.testing.assert_frame_equal(got.intrinsic_profile, want.intrinsic_profile, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("entry", ["three-factor", "multi-factor"])
@@ -255,8 +256,10 @@ def test_imports_without_jax():
         sys.meta_path.insert(0, BlockJax())
         import storage_tpu_torch
         import storage_tpu_torch.api_lsmc, storage_tpu_torch.convert, storage_tpu_torch.engines.lsmc
-        from storage_tpu_torch import value_from_sims, value_from_sims_host_local
+        import storage_tpu_torch.api, storage_tpu_torch.engines.intrinsic
+        from storage_tpu_torch import intrinsic_value, value_from_sims, value_from_sims_host_local
         from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel, rng_kernel
+        from storage_tpu_torch.ops import interp, intrinsic_kernel
         from storage_tpu_torch.ops.decision_kernel import decision_update, decision_update_fullstep
         from storage_tpu_torch.ops.regression import fit_continuation
         assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "storage_tpu")]

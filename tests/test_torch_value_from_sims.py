@@ -167,6 +167,8 @@ def test_value_from_sims_matches_jax(jax_frames, with_factors):
     got = tpkg.value_from_sims(storage, start, 100.0, fwd, 0.02, None, dtype=torch.float64,
                                device="cpu", **kwargs)
     _assert_valuations_close(got, want)
+    assert got.intrinsic_npv == pytest.approx(want.intrinsic_npv, rel=1e-10)
+    pd.testing.assert_frame_equal(got.intrinsic_profile, want.intrinsic_profile, rtol=0, atol=1e-6)
 
 
 def _reg_case(pkg):
