@@ -36,7 +36,25 @@
    f32 and f64 at G=100 and G=1,000 beside its bound and its launch report;
    then ``intrinsic_value(device="cuda")`` in f64 must hit the pins
    1,705,564.2806059965 (linspace) and 1,703,773.0757192627 (fixed spacing)
-   within 1e-9 and the C# sample's 10,827.21 within 1e-3.
+   within 1e-9 and the C# sample's 10,827.21 within 1e-3.  The trinomial
+   tree's DP kernel (one launch a step, one block a node row) is held in
+   f64 and f32 against ``tree_plain`` in f64 on the reference's C# tree
+   sample (T1: 16 steps, M=99, G=101), the two LSMC-against-tree oracle
+   facilities (T2: 216 steps, M=45, G=500), the headline facility on a
+   1-factor tree at a = 5.5 (T3: 365 steps, M=99) and at a = 1.5 (T4, the
+   widest lattice: M=361), T2 with cubic interpolation and with a custom
+   grid, and T3 at E=1 (f64: NPV within 1e-10 relative, values within 1e-9
+   of their row's scale, decisions along the centre, up and down branch
+   paths parting only on a 1e-9 near-tie; f32: NPV within 1e-5 of the f64
+   answer), timed at T3 and T4 beside its bound; then through the API, each
+   path with the launch counters reset just before it:
+   ``trinomial_value(device="cuda")`` in f64 must hit the C# sample's
+   24,799.09 within 5e-4, the port's 1-factor LSMC on the card (f32, 65,536
+   sims) must land within 3e-3 of the f64 tree on both T2 facilities, T3
+   is valued five times warm in f32 and f64 (T4 once) and T3's deltas taken
+   over its 12 monthly contracts; every tree path launches the tree kernel
+   once a step and nothing else.  The host time of T4's lattice is printed
+   beside that of the [N, M, M] copy the JAX package makes of it.
 4. Values the repository's headline daily case through the public API —
    a 365-day ratcheted facility, 3-factor seasonal model, 9-term basis,
    262,144 paths per set, f32, seeds 11/13 — once to warm up, then five
@@ -136,6 +154,8 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
     # one at :211).
     "intrinsic_dp": ("storage_tpu_torch/csrc/intrinsic_kernel.cu",
                      "storage_tpu/engines/intrinsic.py:193"),
+    # No Pallas kernel: the tree's backward lax.scan (its step's dense dot at :125).
+    "tree_dp": ("storage_tpu_torch/csrc/tree_kernel.cu", "storage_tpu/engines/tree.py:165"),
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bandwidth, and float32 outside the tensor cores, which counts a
@@ -1603,6 +1623,390 @@ def check_pins(pkg, device) -> dict:
             for name, (npv, pin, _) in got.items()}
 
 
+# The trinomial tree (T1-T4 of PERF.md section 4).
+TREE_PIN = 24_799.09  # the reference's C# trinomial sample (tests/test_reference_goldens.py:352)
+TREE_ORACLE_SIMS = 65_536
+
+
+def csharp_tree_case(pkg) -> dict:
+    """T1: the reference's C# trinomial sample (tests/test_reference_goldens.py:
+    268-352): 16 daily steps, ratchets, a = 5.5, G = 101."""
+    import pandas as pd
+
+    ratchets = [
+        ("2019-09-01", [(0.0, -44.85, 56.8), (100.0, -45.01, 54.5), (300.0, -45.78, 52.01),
+                        (600.0, -46.17, 51.9), (800.0, -46.99, 50.8), (1000.0, -47.12, 50.01)]),
+        ("2019-09-20", [(0.0, -31.41, 48.33), (100.0, -31.85, 43.05), (300.0, -31.68, 41.22),
+                        (600.0, -32.78, 40.08), (800.0, -33.05, 39.74), (1000.0, -34.80, 38.51)]),
+    ]
+    storage = pkg.CmdtyStorage("D", "2019-09-01", "2019-10-01", 0.48, 0.74, ratchets=ratchets,
+                               ratchet_interp=pkg.RatchetInterp.LINEAR)
+    idx = pd.period_range("2019-09-15", "2019-10-01", freq="D")
+    fwd = pd.Series([56.6 if p <= pd.Period("2019-09-22", freq="D") else 56.6 + 87.81 for p in idx],
+                    index=idx)
+    vols = pd.Series([0.975, 0.97, 0.96, 0.91, 0.89, 0.895, 0.891, 0.89, 0.875, 0.872, 0.871,
+                      0.870, 0.869, 0.868, 0.867, 0.866, 0.8655], index=idx)
+    return dict(storage=storage, val_date="2019-09-15", inventory=50.0, fwd=fwd, vols=vols,
+                a=5.5, rates=0.025, settle=lambda period: pd.Timestamp("2019-10-20").date(),
+                g=101)
+
+
+def oracle_tree_case(pkg, ratcheted: bool) -> dict:
+    """T2: the LSMC-against-tree oracle facilities (tests/test_tree_oracles.py:
+    44-126): 216 daily steps, a = 12.5, spot vol 0.95, G = 500."""
+    import numpy as np
+    import pandas as pd
+
+    start, end, val_date = "2019-08-03", "2020-04-01", "2019-08-29"
+    if ratcheted:
+        storage = pkg.CmdtyStorage("D", start, end, 1.25, 0.93, ratchets=[
+            (start, [(0.0, -702.7, 650.0), (15_000.0, -785.0, 552.5), (30_000.0, -790.6, 512.8),
+                     (40_000.0, -825.6, 498.6), (52_500.0, -850.4, 480.0)]),
+            ("2020-02-01", [(0.0, -645.35, 650.0), (13_000.0, -656.0, 552.5),
+                            (28_000.0, -689.6, 512.8), (42_000.0, -701.06, 498.6),
+                            (52_500.0, -718.04, 480.0)]),
+        ], ratchet_interp=pkg.RatchetInterp.LINEAR)
+    else:
+        storage = pkg.CmdtyStorage("D", start, end, 1.25, 0.93, min_inventory=0.0,
+                                   max_inventory=52_500.0, max_injection_rate=625.0,
+                                   max_withdrawal_rate=850.0)
+    idx = pd.period_range(val_date, end, freq="D")
+    fwd = pd.Series(53.5 + np.sin(2 * np.pi / 365.0 * np.arange(len(idx))) * 24.6, index=idx)
+
+    def settle(period):
+        return (period.asfreq("M").asfreq("D", "end") + 20).start_time.date()
+
+    return dict(storage=storage, val_date=val_date, inventory=5_685.0, fwd=fwd,
+                vols=pd.Series(0.95, index=idx), a=12.5, rates=0.055, settle=settle, g=500)
+
+
+def headline_tree_case(pkg, a: float) -> dict:
+    """T3 (a = 5.5) and T4 (a = 1.5, the widest lattice that builds): the
+    headline facility (365 daily steps, ratchets, terminal price·inventory)
+    on a 1-factor tree with flat spot vol 0.95, G = 100."""
+    import pandas as pd
+
+    storage, start, fwd = bench_case(pkg)
+    return dict(storage=storage, val_date=start, inventory=100.0, fwd=fwd,
+                vols=pd.Series(0.95, index=fwd.index), a=a, rates=0.02, settle=None, g=NUM_GRID)
+
+
+def tree_steps(case: dict) -> int:
+    """The DP's steps: the active window from the valuation date (or the
+    facility's start) to its end."""
+    import pandas as pd
+
+    storage = case["storage"]
+    return (storage.end - max(pd.Period(case["val_date"], freq="D"), storage.start)).n
+
+
+def tree_value(pkg, case: dict, device, dtype, **kwargs) -> float:
+    """``trinomial_value`` of a tree case."""
+    return pkg.trinomial_value(case["storage"], case["val_date"], case["inventory"], case["fwd"],
+                               case["vols"], case["a"], 1 / 365.0, case["rates"], case["settle"],
+                               num_inventory_grid_points=case["g"], dtype=dtype, device=device,
+                               **kwargs)
+
+
+def tree_tables(pkg, device, case: dict, grid_calc=None):
+    """A tree case's DP tables on ``device`` in f64 and f32, as
+    ``trinomial_value`` builds them: (valuation inputs, {dtype: (arrays,
+    lattice)}, uniform rows)."""
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch import grid as gridmod
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.engines import tree as te
+    from storage_tpu_torch.models import trinomial_tree as tt
+    from storage_tpu_torch.utils import periods as pu
+    from storage_tpu_torch.valuation_inputs import prepare_valuation
+
+    inputs = prepare_valuation(case["storage"], case["val_date"], case["inventory"], case["fwd"],
+                               case["rates"], case["settle"])
+    val_period = pu.to_period(case["val_date"], "D")
+    horizon = pu.period_index(val_period, case["storage"].end)
+    tree = tt.build_tree(case["fwd"].reindex(horizon).to_numpy(np.float64),
+                         case["vols"].reindex(horizon).to_numpy(np.float64), case["a"], 1 / 365.0)
+    offset = pu.period_offset(inputs.periods[0], val_period)
+    lo, hi = inputs.inventory_lower, inputs.inventory_upper
+    grids = (gridmod.inventory_grids(lo, hi, case["g"]) if grid_calc is None
+             else gridmod.inventory_grids_custom(lo, hi, grid_calc))
+    tables = {dt: (engine.build_engine_arrays(inputs.compiled, inputs.fwd, inputs.df_settle,
+                                              inputs.df_flow, lo, hi, case["g"], dt, device, grids),
+                   te.tree_arrays(tree, offset, inputs.num_steps, dt, device))
+              for dt in (torch.float64, torch.float32)}
+    return inputs, tables, gridmod.rows_uniform(grids)
+
+
+def compare_tree(inputs, tables, e: int, interpolation: str, uniform: bool) -> dict:
+    """The tree DP kernel in f64 and f32 against ``tree_plain`` in f64 on the
+    card.  f64: the NPV within 1e-10 relative and every value within 1e-9
+    of its row's scale (the largest magnitude of its (t, node) row, at least
+    1); along the centre, up and down branch paths the decisions read from
+    the kernel's values may differ from those read from the plain version's
+    only where the plain version's two best totals at that step lie within
+    1e-9 relative (at the first step where the paths part).  f32: the NPV
+    within 1e-5 relative of the f64 answer."""
+    import torch
+
+    from storage_tpu_torch.engines import tree as te
+
+    arrays, lattice = tables[torch.float64]
+    tfn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
+    args = (e, tfn, inputs.compiled.ratchet_is_step, interpolation, uniform)
+    want = te.tree_plain(arrays, lattice, *args)
+    got = te.tree_core(arrays, lattice, *args)
+    got32 = te.tree_core(*tables[torch.float32], *args)
+    npv = float(want.npv)
+    rel64 = abs(float(got.npv) - npv) / abs(npv)
+    rel32 = abs(float(got32.npv) - npv) / abs(npv)
+    scale = want.values.abs().amax(dim=-1).clamp(min=1.0)
+    values_err = float(((got.values - want.values).abs().amax(dim=-1) / scale).max())
+    n = inputs.num_steps
+    flips, near = 0, True
+    for branch in (1, 2, 0):
+        path = [branch] * n
+        sims = [te.simulate_tree_decisions(arrays, lattice, r.values, path,
+                                           inputs.starting_inventory, *args) for r in (got, want)]
+        dec_g, dec_w = sims[0].decisions, sims[1].decisions
+        parted = ((dec_g - dec_w).abs() > 1e-6 * dec_w.abs().clamp(min=1.0)).nonzero().flatten()
+        if parted.numel():
+            flips += 1
+            t = int(parted[0])
+            inv = (sims[1].inventory[t - 1:t] if t else
+                   torch.full_like(sims[1].inventory[:1], inputs.starting_inventory))
+            total = te.node_totals(arrays, lattice, want.values, t, int(sims[1].node_path[t]), inv,
+                                   e, inputs.compiled.ratchet_is_step, interpolation, uniform)[0][0]
+            top2 = total.topk(2).values
+            near &= bool(top2[0] - top2[1] <= 1e-9 * top2[0].abs())
+    ok = rel64 <= 1e-10 and values_err <= 1e-9 and rel32 <= 1e-5 and near
+    return dict(ok=ok, npv_f64_plain=npv, npv_f64=float(got.npv), npv_f32=float(got32.npv),
+                npv_rel_err_f64=rel64, npv_rel_err_f32=rel32, values_rel_err_f64=values_err,
+                values_max_abs_err_f64=float((got.values - want.values).abs().max()),
+                paths_parted=flips, first_parting_on_near_tie=near)
+
+
+def tree_work(n: int, m: int, g: int, w: int, r: int, d: int, itemsize: int) -> tuple:
+    """(bytes, unfused operations) of one tree DP (linear interpolation):
+    each input read once (step scalars [N, 11], ratchets [N, R] x 3, grids
+    [N+1, G], spot [N+1, M], band [N, M, W] and its int64 first columns
+    [N, M], terminal values [M, G]) and the values [N+1, M, G] written once;
+    each of the N·M rows sums its band (2·W·G) and decides at G inventories
+    over D decisions (``intrinsic_work``'s counts)."""
+    num_bytes = (itemsize * (11 * n + 3 * n * r + (n + 1) * g + (n + 1) * m + n * m * w + m * g
+                             + (n + 1) * m * g) + 8 * n * m)
+    ops = float(n * m) * (2 * w * g + g * (DP_OPS_PER_INVENTORY + r + d * DP_OPS_PER_DECISION))
+    return num_bytes, ops
+
+
+def kernel_busy_ms(fn, name: str) -> tuple:
+    """(device ms, launches) of the kernels whose name holds ``name`` in one
+    call of ``fn`` under torch.profiler: the kernels' own time, without the
+    gaps between launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+    return (sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events))
+
+
+def api_walls(fn, count: int) -> list:
+    """Host seconds of ``count`` calls of ``fn`` (each reads its result back)."""
+    walls = []
+    for _ in range(count):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def check_tree(pkg, device, counts) -> dict:
+    """T4's lattice timed on the host.  The tree DP kernel against
+    ``tree_plain`` on the card in f64 and f32 (``compare_tree``) on T1-T4
+    and on T2's simple facility with cubic interpolation and with a custom
+    grid, and T3 at E=1; its times (CUDA events, f32 and f64, at T3 and T4;
+    the step kernels' own device time under the profiler), bound, plain
+    time and launch report.  Then the
+    paths through the API, each with the launch counters reset just before
+    it: T1's pin (24,799.09 within 5e-4, f64), T2's LSMC-against-tree gate
+    (the port's 1-factor ``multi_factor_value`` on the card, f32, 65,536
+    sims, seeds 11/22, basis 1 + s + s² + s³, within 3e-3 of the f64 tree),
+    T3's ``trinomial_value`` (median of 5 warm calls, f32 and f64; T4 one)
+    and T3's ``trinomial_deltas`` over its 12 monthly contracts (24
+    valuations).  Every ``trinomial_value`` launches the kernel once a step
+    and no other kernel of the port."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from storage_tpu_torch.engines import tree as te
+    from storage_tpu_torch.ops import tree_kernel
+
+    from storage_tpu_torch.models import trinomial_tree as tt
+
+    t1, t3, t4 = csharp_tree_case(pkg), headline_tree_case(pkg, 5.5), headline_tree_case(pkg, 1.5)
+    t2 = {name: oracle_tree_case(pkg, name == "ratcheted") for name in ("simple", "ratcheted")}
+    t_checks = time.perf_counter()
+    # The lattice on the host at T4: build_tree (its transition a broadcast
+    # view), and the [N, M, M] copy the JAX package makes of it.
+    lattice_s = {}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tree = tt.build_tree(t4["fwd"].to_numpy(), t4["vols"].to_numpy(), t4["a"], 1 / 365.0)
+        t_view = time.perf_counter()
+        copy = np.array(tree.transition)
+        lattice_s = dict(build_tree_s=t_view - t0, copy_s=time.perf_counter() - t_view,
+                         copy_bytes=copy.nbytes)
+        del tree, copy
+    log(f"T4 lattice on the host: build_tree {lattice_s['build_tree_s']:.4f} s (transition a "
+        f"broadcast view); the JAX package's copy of it {lattice_s['copy_s']:.4f} s more, "
+        f"{lattice_s['copy_bytes'] / 1e6:.1f} MB (the third of three runs)")
+    cases = {  # name: (case, E, interpolation, grid_calc)
+        "T1": (t1, 0, "linear", None),
+        "T2_simple": (t2["simple"], 0, "linear", None),
+        "T2_ratcheted": (t2["ratcheted"], 0, "linear", None),
+        "T3": (t3, 0, "linear", None),
+        "T4": (t4, 0, "linear", None),
+        "T2_cubic": (t2["simple"], 0, "cubic", None),
+        "T2_custom_grid": (t2["simple"], 0, "linear", custom_grid),
+        "T3_E=1": (t3, 1, "linear", None),
+    }
+    checks, timing = {}, {}
+    for name, (case, e, interpolation, grid_calc) in cases.items():
+        inputs, tables, uniform = tree_tables(pkg, device, case, grid_calc)
+        checks[name] = c = compare_tree(inputs, tables, e, interpolation, uniform)
+        arrays, lattice = tables[torch.float32]
+        n, g = inputs.num_steps, arrays["grids"].shape[1]
+        m, w = lattice["band"].shape[1:]
+        log(f"tree DP [{name}: N={n}, M={m}, W={w}, G={g}, E={e}, {interpolation}, "
+            f"{'uniform' if uniform else 'custom'} rows]: f64 NPV {c['npv_f64']!r} vs plain "
+            f"{c['npv_f64_plain']!r} (rel {c['npv_rel_err_f64']:.2e}, tolerance 1e-10), values "
+            f"{c['values_rel_err_f64']:.2e} of their rows' scale (tolerance 1e-9), "
+            f"{c['paths_parted']} of 3 branch paths parted (first on a near-tie: "
+            f"{c['first_parting_on_near_tie']}); f32 NPV {c['npv_f32']!r} (rel "
+            f"{c['npv_rel_err_f32']:.2e}, tolerance 1e-5)")
+        if name in ("T3", "T4"):
+            tfn = inputs.compiled.terminal_value
+            row = {}
+            for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+                arrays_dt, lattice_dt = tables[dt]
+                run = lambda: te.tree_core(arrays_dt, lattice_dt, 0, tfn, False)  # noqa: E731
+                row[f"ms_{label}"] = cuda_ms(run, 10)
+                row[f"kernel_busy_ms_{label}"], row[f"profiled_launches_{label}"] = kernel_busy_ms(
+                    run, "tree_step_kernel")
+            row["plain_ms"] = cuda_ms(lambda: te.tree_plain(arrays, lattice, 0, tfn, False), 1)
+            num_bytes, ops = tree_work(n, m, g, w, arrays["ratchet_inv"].shape[1], 3, 4)
+            row.update(bound(num_bytes, 0.0, ops))
+            row["us_per_step_f32"] = 1e3 * row["ms_f32"] / n
+            row["launch"] = {label: tree_kernel.kernel_info(g, dt, "linear", device)
+                             for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
+            timing[name] = row
+            log(f"tree DP [{name}] times: {row['ms_f32']:.4f} ms f32, {row['ms_f64']:.4f} ms f64 a "
+                f"valuation ({n} launches; {row['us_per_step_f32']:.2f} us a step in f32), of it "
+                f"the step kernels' own device time {row['kernel_busy_ms_f32']:.4f} ms f32 / "
+                f"{row['kernel_busy_ms_f64']:.4f} ms f64 ({row['profiled_launches_f32']} "
+                f"launches profiled); plain {row['plain_ms']:.1f} ms (f32), bound "
+                f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+            log("tree DP launch report: " + "; ".join(
+                f"{label}: {r_['threads']} threads a block, {r_['registers']} registers, "
+                f"{r_['local_bytes']} bytes local (spills), {r_['smem_bytes']} bytes shared at "
+                f"G={g}, {r_['blocks_per_sm']} blocks/SM, G up to {r_['max_grid']}"
+                for label, r_ in row["launch"].items()))
+        del tables
+    bad = [name for name, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"the tree DP kernel disagrees with its plain version: {bad}")
+    checks_s = time.perf_counter() - t_checks
+    t_paths = time.perf_counter()
+
+    def on_path(expected_steps, fn):
+        counts.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = counts.read()
+        if launches != counts.expect(tree_dp=expected_steps):
+            raise AssertionError(f"tree path launches {launches}, expected {expected_steps} tree "
+                                 f"steps and no other kernel")
+        return out, launches["tree_dp"]
+
+    paths = {}
+    # T1: the C# sample's pin.
+    npv, launches = on_path(tree_steps(t1), lambda: tree_value(pkg, t1, device, torch.float64))
+    paths["T1_pin"] = dict(npv=npv, pin=TREE_PIN, rel_err=abs(npv - TREE_PIN) / TREE_PIN,
+                           launches=launches)
+    log(f"tree pin, trinomial_value(device='cuda', f64) on T1: {npv!r} vs {TREE_PIN!r} (rel "
+        f"{paths['T1_pin']['rel_err']:.2e}, tolerance 5e-4); {launches} tree launches")
+    if not paths["T1_pin"]["rel_err"] <= 5e-4:
+        raise AssertionError(f"the trinomial pin missed: {npv} against {TREE_PIN}")
+    # T2: the LSMC-against-tree oracle.
+    for name, case in t2.items():
+        tree_npv, launches = on_path(tree_steps(case),
+                                     lambda: tree_value(pkg, case, device, torch.float64))
+        counts.reset()
+        lsmc = pkg.multi_factor_value(
+            case["storage"], case["val_date"], case["inventory"], case["fwd"], case["rates"],
+            case["settle"], [(case["a"], case["vols"])], None, TREE_ORACLE_SIMS,
+            "1 + s + s**2 + s**3", False, seed=11, fwd_sim_seed=22, num_inventory_grid_points=100,
+            dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+        lsmc_launches = counts.read()
+        rel = abs(lsmc.npv - tree_npv) / tree_npv
+        z = (lsmc.npv - tree_npv) / lsmc.val_sim_standard_error
+        paths[f"T2_{name}"] = dict(tree_npv=tree_npv, lsmc_npv=lsmc.npv,
+                                   lsmc_se=lsmc.val_sim_standard_error, rel=rel, z=z,
+                                   tree_launches=launches, lsmc_launches=lsmc_launches)
+        log(f"tree oracle T2 {name}: LSMC {lsmc.npv!r} (SE {lsmc.val_sim_standard_error!r}, f32, "
+            f"{TREE_ORACLE_SIMS} sims) vs tree {tree_npv!r} (f64, G=500): rel {rel:.2e} "
+            f"(tolerance 3e-3), z = {z:+.3f}; {launches} tree launches, the LSMC's {lsmc_launches}")
+        if not (rel < 3e-3 and lsmc_launches["tree_dp"] == 0 and lsmc_launches["intrinsic_dp"] == 1):
+            raise AssertionError(f"the LSMC-against-tree oracle failed on {name}")
+    # T3 (the timed case: five warm calls) and T4 (one) through the API; T3's deltas.
+    for name, case, timed in (("T3", t3, 5), ("T4", t4, 1)):
+        for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+            run = lambda: tree_value(pkg, case, device, dt)  # noqa: E731
+            run()  # warm-up
+            npv, launches = on_path(tree_steps(case), run)
+            walls = api_walls(run, timed)
+            paths[f"{name}_{label}"] = dict(npv=npv, launches=launches, walls_s=walls,
+                                            wall_s=float(np.median(walls)))
+            log(f"trinomial_value {name} {label}: NPV {npv!r}; wall median "
+                f"{paths[f'{name}_{label}']['wall_s']:.4f} s of {[round(x, 4) for x in walls]}; "
+                f"{launches} tree launches")
+        if not math.isclose(paths[f"{name}_f32"]["npv"], paths[f"{name}_f64"]["npv"], rel_tol=1e-5):
+            raise AssertionError(f"{name}: the f32 NPV is not within 1e-5 of the f64 NPV")
+    months = pd.period_range(t3["storage"].start.asfreq("M"), periods=12, freq="M")
+    contracts = [(month.asfreq("D", "start"), month.asfreq("D", "end")) for month in months]
+    t0 = time.perf_counter()
+    deltas, launches = on_path(2 * len(contracts) * tree_steps(t3), lambda: pkg.trinomial_deltas(
+        t3["storage"], t3["val_date"], t3["inventory"], t3["fwd"], t3["vols"], t3["a"], 1 / 365.0,
+        t3["rates"], t3["settle"], contracts, num_inventory_grid_points=NUM_GRID, device=device))
+    deltas_s = time.perf_counter() - t0
+    paths["T3_deltas"] = dict(deltas=deltas, wall_s=deltas_s, launches=launches)
+    log(f"trinomial_deltas T3 f32 over {len(contracts)} monthly contracts: {deltas_s:.3f} s for "
+        f"{2 * len(contracts)} valuations, {launches} tree launches; deltas "
+        f"{[round(d, 3) for d in deltas]}")
+    if not (len(deltas) == 12 and np.isfinite(deltas).all()):
+        raise AssertionError("trinomial_deltas gave no finite delta per contract")
+    paths_s = time.perf_counter() - t_paths
+    log(f"tree phase: the kernel checks and timings {checks_s:.1f} s, the API paths "
+        f"{paths_s:.1f} s")
+    head = timing["T3"]
+    return dict(max_abs_err=checks["T3"]["values_max_abs_err_f64"], ms=head["ms_f32"],
+                ms_f64=head["ms_f64"], kernel_busy_ms=head["kernel_busy_ms_f32"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                launches=paths["T3_f32"]["launches"], widest=timing["T4"], checks=checks,
+                launch=head["launch"], paths=paths, lattice=lattice_s, checks_s=checks_s,
+                paths_s=paths_s)
+
+
 def measure_f64(pkg, device):
     """The pinned f64 answers: the kernels' plain versions in f64 on the
     card, on the f32 draws of the headline case cast to f64."""
@@ -1722,7 +2126,7 @@ def main(argv) -> int:
     import storage_tpu_torch as stt
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.ops import (_build, decision_kernel, forward_kernel, intrinsic_kernel,
-                                       rng_kernel)
+                                       rng_kernel, tree_kernel)
 
     device = torch.device("cuda", 0)
     OUT.mkdir(parents=True, exist_ok=True)
@@ -1751,17 +2155,24 @@ def main(argv) -> int:
         print(f"chip_smoke: unknown arguments {argv[1:]}", file=sys.stderr)
         return 2
 
+    counts = LaunchCounts((rng_kernel.simulate_sweep, rng_kernel.normal_halves,
+                           decision_kernel.decision_update_moments,
+                           forward_kernel.forward_sweep, decision_kernel.decision_update,
+                           decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp,
+                           tree_kernel.tree_dp))
+
     # ---- kernels against their plain versions.
     with engine.full_f32_matmul():
         kernels = check_kernels(stt, device)
     kernels["intrinsic_dp"] = check_intrinsic(stt, device)
+    # The tree: its kernel checks, then its paths through the API.
+    t0 = time.perf_counter()
+    kernels["tree_dp"] = check_tree(stt, device, counts)
+    report["tree_phase_s"] = time.perf_counter() - t0
+    log(f"tree phase: {report['tree_phase_s']:.1f} s")
     report["kernels"] = kernels
 
     # ---- the main path through the public API.
-    counts = LaunchCounts((rng_kernel.simulate_sweep, rng_kernel.normal_halves,
-                           decision_kernel.decision_update_moments,
-                           forward_kernel.forward_sweep, decision_kernel.decision_update,
-                           decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp))
     value(stt, device, snap_interp=True)  # warm-up
     torch.cuda.synchronize()
     counts.reset()
@@ -1837,11 +2248,12 @@ def main(argv) -> int:
     # Each kernel's launches on the path that runs it: kernel A's draw-only
     # entry feeds the TPU-numerics emulation alone (the sweep draws for the
     # main path).
-    launches.update(normal_halves=launches_t["normal_halves"])
+    launches.update(normal_halves=launches_t["normal_halves"],
+                    tree_dp=kernels["tree_dp"]["launches"])
     paths = dict(simulate_sweep="main", normal_halves="tpu_numerics",
                  decision_update_moments="main", forward_sweep="main",
                  decision_update="spot_only", decision_update_fullstep="fullstep",
-                 intrinsic_dp="main")
+                 intrinsic_dp="main", tree_dp="tree_T3")
 
     phases = phase_breakdown(stt, device)
     log(f"phases: host prep {phases['host_prep_s']:.4f} s, simulate {phases['simulate_s']:.4f} s, "
@@ -1856,7 +2268,8 @@ def main(argv) -> int:
     # set; their launch reports beside them, and kernel D's.
     extra = {"forward_sweep": ("smem_bytes", "blocks_per_sm", "registers", "sass_instructions"),
              "decision_update": ("launch",), "simulate_sweep": ("launch",),
-             "intrinsic_dp": ("ms_f64", "ms_per_step", "launch")}
+             "intrinsic_dp": ("ms_f64", "ms_per_step", "launch"),
+             "tree_dp": ("ms_f64", "kernel_busy_ms", "launch")}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src_file, "replaces": rep,
          "launches": launches[name], "path": paths[name], **{k: kernels[name][k] for k in keys},

@@ -5,11 +5,13 @@ The port of ``storage_tpu`` (JAX on a TPU), which stays beside it as the
 reference.  It carries the LSMC valuation on one card: facility model, path
 simulation, backward induction and forward pass, on simulated paths
 (``three_factor_seasonal_value``, ``multi_factor_value``) or on the user's
-own (``value_from_sims``), with per-sim panels, and the intrinsic valuation
-(``intrinsic_value``, also in every LSMC result).  The simulation sweep, the
-backward decision steps, the forward sweep and the intrinsic DP are CUDA
-kernels (``csrc/``); entry points run on CUDA unless the caller passes
-``device="cpu"``, where the kernels' plain tensor versions run.
+own (``value_from_sims``), with per-sim panels, the intrinsic valuation
+(``intrinsic_value``, also in every LSMC result) and the one-factor
+trinomial tree (``trinomial_value``, ``trinomial_deltas``).  The simulation
+sweep, the backward decision steps, the forward sweep, the intrinsic DP and
+the tree's backward induction are CUDA kernels (``csrc/``); entry points run
+on CUDA unless the caller passes ``device="cpu"``, where the kernels' plain
+tensor versions run.
 """
 
 from .facility import (
@@ -26,7 +28,12 @@ from .constraints import (
     PolynomialInjectWithdrawConstraint,
     StepInjectWithdrawConstraint,
 )
-from .api import IntrinsicValuationResults, intrinsic_value
+from .api import (
+    IntrinsicValuationResults,
+    intrinsic_value,
+    trinomial_deltas,
+    trinomial_value,
+)
 from .api_lsmc import (
     multi_factor_value,
     three_factor_seasonal_value,
@@ -56,6 +63,8 @@ __all__ = [
     "InjectWithdrawRangeByInventoryAndPeriod",
     "intrinsic_value",
     "IntrinsicValuationResults",
+    "trinomial_value",
+    "trinomial_deltas",
     "three_factor_seasonal_value",
     "multi_factor_value",
     "value_from_sims",

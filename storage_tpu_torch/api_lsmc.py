@@ -131,7 +131,8 @@ def _refuse_unported(on_progress_update, cancellation_poll, deltas_method, check
             f"deltas_method must be 'pathwise' or 'adjoint', got {deltas_method!r}."
         )
     if grid_calc is not None:
-        _refuse("grid_calc (custom inventory grids)", "the tree engine and custom grids")
+        _refuse("grid_calc (custom inventory grids)",
+                "custom inventory grids in the LSMC engine")
 
 
 def multi_factor_value(

@@ -1,6 +1,6 @@
 """Carry the JAX package's state into this package as numpy arrays, so that
 both compute on identical inputs: engine arrays, simulation inputs, regression
-payloads, path panels and raw threefry keys.  Nothing here imports JAX; the
+payloads, path panels, raw threefry keys and trinomial lattices.  Nothing here imports JAX; the
 caller hands over ``np.asarray`` of its arrays."""
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ import typing as tp
 
 import numpy as np
 import torch
+
+from .models.trinomial_tree import TrinomialTree
 
 Device = tp.Union[str, torch.device]
 
@@ -48,3 +50,9 @@ def key_words(key_data) -> tp.Tuple[int, int]:
     if words.shape != (2,):
         raise ValueError(f"expected two uint32 key words, got shape {words.shape}")
     return int(words[0]), int(words[1])
+
+
+def tree_from_numpy(tree) -> TrinomialTree:
+    """A lattice the JAX package built (its ``TrinomialTree`` of numpy
+    arrays) as this package's ``TrinomialTree``, field by field."""
+    return TrinomialTree(**{k: np.asarray(getattr(tree, k)) for k in TrinomialTree._fields})

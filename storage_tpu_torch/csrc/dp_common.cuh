@@ -1,0 +1,233 @@
+// Device functions shared by the DP kernels on the inventory grid: the
+// intrinsic DP (intrinsic_kernel.cu) and the trinomial tree's backward
+// induction (tree_kernel.cu).
+//
+// One function, decide(), values every decision of one step at one
+// inventory and keeps the first best, as decision_totals / decision_values of
+// engines/intrinsic.py do: the ratchet rates at the inventory (the interior
+// nodes 1..R-2 counted, as grid.ratchet_rates), the bang-bang set of
+// D = 2E + 3 volumes, each one's immediate PV and fuel at the given price,
+// the loss, the inventory after the decision, the continuation interpolated
+// on the next step's grid, and the first maximum over d (strict > in
+// ascending d, as jnp.argmax takes it).  Every product and sum is rounded on
+// its own (no contraction to FMA), so the arithmetic is the plain version's
+// operation by operation.
+//
+// The continuation comes in three modes:
+//   0 uniform linear: the arithmetic position on a linspace row;
+//   1 general linear: the lower node is the count of interior nodes <= x (a
+//     binary search), so a zero-span segment of a fixed-spacing or custom
+//     row's padding takes its left node's value;
+//   2 natural cubic: the row's moments M = solver @ rhs (block_moments, a
+//     block matvec over the dense [G-2, G-2] inverse, as the JAX package
+//     does).  A degenerate row (h = 0) has zero moments and zero curvature.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace stt_dp {
+
+// Step scalar slots (ops/intrinsic_kernel.py pack_steps).
+enum {
+  S_FWD, S_DF_SETTLE, S_DF_FLOW, S_INJ_COST, S_WDR_COST, S_INJ_PCNT, S_WDR_PCNT,
+  S_LOSS_PCNT, S_INV_COST, S_NEXT_MIN, S_NEXT_MAX, NUM_STEP_SCALARS
+};
+enum { MODE_UNIFORM = 0, MODE_GENERAL = 1, MODE_CUBIC = 2 };
+
+// Rounded arithmetic: one rounding per operation, never an FMA.
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double dvd(double a, double b) { return __ddiv_rn(a, b); }
+
+template <typename T>
+__device__ __forceinline__ T clamp_to(T x, T lo, T hi) {
+  // torch.minimum(torch.maximum(x, lo), hi)
+  const T m = x > lo ? x : lo;
+  return m < hi ? m : hi;
+}
+
+// Uniform-row lower node and weight (ops/interp.py interp_weights).
+template <typename T>
+__device__ __forceinline__ void uniform_weights(const T* grid, int G, T x, int* idx, T* w) {
+  const T lo = grid[0], hi = grid[G - 1];
+  const T delta = dvd(sub(hi, lo), static_cast<T>(G - 1));
+  const T safe = delta > T(0) ? delta : T(1);
+  T pos = dvd(sub(clamp_to(x, lo, hi), lo), safe);
+  if (!(delta > T(0))) pos = T(0);
+  int i = static_cast<int>(floor(pos));
+  i = i < 0 ? 0 : (i > G - 2 ? G - 2 : i);
+  *idx = i;
+  *w = clamp_to(sub(pos, static_cast<T>(i)), T(0), T(1));
+}
+
+// The continuation at inventory x on the next step's row: values v and (cubic)
+// moments m on grid, in device or shared memory.
+template <typename T>
+__device__ __forceinline__ T continuation(const T* grid, const T* v, const T* m, int G,
+                                          int mode, T x) {
+  if (mode == MODE_GENERAL) {
+    // ops/interp.py interp_vector_general: idx = #{r in 1..G-2 : grid[r] <= x}.
+    const T xc = clamp_to(x, grid[0], grid[G - 1]);
+    int lo = 1, hi = G - 1;  // first r in [1, G-1) with grid[r] > xc
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (grid[mid] <= xc) lo = mid + 1; else hi = mid;
+    }
+    const int idx = lo - 1;
+    const T x0 = grid[idx], x1 = grid[idx + 1];
+    const T span = sub(x1, x0);
+    const T w = span > T(0) ? dvd(sub(xc, x0), span) : T(0);
+    return add(mul(v[idx], sub(T(1), w)), mul(v[idx + 1], w));
+  }
+  int idx;
+  T w;
+  uniform_weights(grid, G, x, &idx, &w);
+  const T v_lo = v[idx], v_hi = v[idx + 1];
+  if (mode == MODE_UNIFORM) return add(v_lo, mul(sub(v_hi, v_lo), w));
+  // ops/interp.py interp_vector_cubic.
+  const T h = dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
+  const T u = sub(T(1), w);
+  const T linear = add(mul(v_lo, u), mul(v_hi, w));
+  if (!(h > T(0))) return linear;
+  const T cu = sub(mul(mul(u, u), u), u);
+  const T cw = sub(mul(mul(w, w), w), w);
+  const T curvature = mul(dvd(mul(h, h), T(6)), add(mul(cu, m[idx]), mul(cw, m[idx + 1])));
+  return add(linear, curvature);
+}
+
+// Ratchet rates at inventory inv (grid.ratchet_rates: the interior nodes
+// 1..R-2 counted; step tables take the left node, linear ones lerp).
+template <typename T>
+__device__ __forceinline__ void ratchet_rates(const T* r_inv, const T* r_min, const T* r_max,
+                                              int R, int is_step, T inv, T* min_rate,
+                                              T* max_rate) {
+  const T inv_c = clamp_to(inv, r_inv[0], r_inv[R - 1]);
+  int idx = 0;
+  for (int r = 1; r < R - 1; ++r) idx += inv_c >= r_inv[r];
+  if (is_step) {
+    *min_rate = r_min[idx];
+    *max_rate = r_max[idx];
+  } else {
+    const int hi = idx + 1 < R ? idx + 1 : R - 1;
+    const T x0 = r_inv[idx], x1 = r_inv[hi];
+    const T w = x1 > x0 ? dvd(sub(inv_c, x0), sub(x1, x0)) : T(0);
+    const T omw = sub(T(1), w);
+    *min_rate = add(mul(r_min[idx], omw), mul(r_min[hi], w));
+    *max_rate = add(mul(r_max[idx], omw), mul(r_max[hi], w));
+  }
+}
+
+// The bang-bang decision set (grid.bang_bang_decisions): its two constrained
+// ends, and whether holding (0) is feasible between them.
+template <typename T>
+struct BangBang {
+  T yw, yi;
+  bool has_zero;
+  int nd, mid;
+
+  __device__ __forceinline__ BangBang(T min_rate, T max_rate, T after_loss, T next_min,
+                                      T next_max, int E) {
+    const T w_target = add(min_rate, after_loss);
+    yw = w_target > next_max ? sub(next_max, after_loss)
+                             : (w_target > next_min ? min_rate : sub(next_min, after_loss));
+    const T i_target = add(max_rate, after_loss);
+    yi = i_target < next_min ? sub(next_min, after_loss)
+                             : (i_target < next_max ? max_rate : sub(next_max, after_loss));
+    has_zero = yw < T(0) && yi > T(0);
+    nd = 2 * E + 3;
+    mid = E + 1;
+  }
+
+  // Volume k of the D = 2E + 3.
+  __device__ __forceinline__ T volume(int k) const {
+    if (has_zero)
+      return k <= mid ? mul(yw, sub(T(1), dvd(static_cast<T>(k), static_cast<T>(mid))))
+                      : mul(yi, dvd(static_cast<T>(k - mid), static_cast<T>(mid)));
+    const T frac = dvd(static_cast<T>(k > 1 ? k - 1 : 0), static_cast<T>(nd - 2));
+    return add(yw, mul(sub(yi, yw), frac));
+  }
+};
+
+// One step's tables as decide() reads them.
+template <typename T>
+struct StepView {
+  const T* s;          // the step's scalars [NUM_STEP_SCALARS]
+  const T* r_inv;      // the step's ratchet inventories [R]
+  const T* r_min;      // its min rates [R]
+  const T* r_max;      // its max rates [R]
+  int R, is_step, E, G, mode;
+  const T* grid_next;  // the next step's grid [G]
+  const T* v_next;     // the continuation values on it [G]
+  const T* m_next;     // their moments [G] (cubic) or null
+};
+
+template <typename T>
+struct Choice {
+  T total, decision, consumed, pv;
+};
+
+// The best decision at inventory inv against the price (the forward in the
+// intrinsic DP, a node's spot in the tree).
+template <typename T>
+__device__ Choice<T> decide(const StepView<T>& st, T price, T inv) {
+  const T* s = st.s;
+  T min_rate, max_rate;
+  ratchet_rates(st.r_inv, st.r_min, st.r_max, st.R, st.is_step, inv, &min_rate, &max_rate);
+  const T loss = mul(s[S_LOSS_PCNT], inv);
+  const BangBang<T> bb(min_rate, max_rate, sub(inv, loss), s[S_NEXT_MIN], s[S_NEXT_MAX], st.E);
+
+  const T df_settle = s[S_DF_SETTLE], df_flow = s[S_DF_FLOW];
+  const T inv_cost_npv = mul(mul(s[S_INV_COST], inv), df_flow);
+
+  Choice<T> best{T(0), T(0), T(0), T(0)};
+  for (int k = 0; k < bb.nd; ++k) {
+    const T dec = bb.volume(k);
+    // immediate_pv: ((iw - cost) + fuel) - inventory cost.
+    const bool inject = dec > T(0);
+    const T abs_dec = fabs(dec);
+    const T consumed = mul(inject ? s[S_INJ_PCNT] : s[S_WDR_PCNT], abs_dec);
+    const T iw = mul(mul(-dec, price), df_settle);
+    const T cost = mul(mul(inject ? s[S_INJ_COST] : s[S_WDR_COST], abs_dec), df_flow);
+    const T fuel = mul(mul(-consumed, price), df_settle);
+    const T pv = sub(add(sub(iw, cost), fuel), inv_cost_npv);
+    const T inv_after = sub(add(inv, dec), loss);
+    const T total =
+        add(pv, continuation(st.grid_next, st.v_next, st.m_next, st.G, st.mode, inv_after));
+    if (k == 0 || total > best.total) best = Choice<T>{total, dec, consumed, pv};
+  }
+  return best;
+}
+
+// Natural-cubic moments m [G] of the row v [G] on a uniform grid: rhs [G-2]
+// into scratch, then the matvec with the dense inverse, rows strided over the
+// block, summed in ascending j.  Ends with a barrier.
+template <typename T>
+__device__ void block_moments(const T* grid, const T* v, const T* solver, T* rhs, T* m, int G) {
+  const int n = G - 2;
+  const T h = dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
+  const T safe_h = h > T(0) ? h : T(1);
+  const T hh = mul(safe_h, safe_h);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    rhs[i] = dvd(mul(T(6), add(sub(v[i + 2], mul(T(2), v[i + 1])), v[i])), hh);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    T acc = T(0);
+    if (h > T(0)) {
+      const T* row = solver + static_cast<size_t>(i) * n;
+      for (int j = 0; j < n; ++j) acc = add(acc, mul(row[j], rhs[j]));
+    }
+    m[i + 1] = acc;
+  }
+  if (threadIdx.x == 0) {
+    m[0] = T(0);
+    m[G - 1] = T(0);
+  }
+  __syncthreads();
+}
+
+}  // namespace stt_dp

@@ -9,26 +9,13 @@
 // a backward step, a block barrier between steps, and then one thread walks
 // the forward from the starting inventory.
 //
-// Per grid point (backward) or for the path's inventory (forward), one
-// device function, decide(), mirrors decision_values of the JAX package and
-// of engines/intrinsic.py: ratchet rates at the inventory (the interior nodes
-// 1..R-2 counted, as grid.ratchet_rates: not kernel C's loop over 1..R-1),
-// the bang-bang set of D = 2E + 3 volumes, each one's immediate PV and fuel,
-// the loss, the inventory after the decision, the continuation interpolated
-// on the next step's grid, and the first maximum over d (strict > in
-// ascending d, as jnp.argmax takes it).  Every product and sum is rounded on
-// its own (no contraction to FMA), so the arithmetic is the plain version's
-// (engines/intrinsic.py intrinsic_plain) operation by operation.
-//
-// The continuation comes in three modes, all here:
-//   0 uniform linear: the arithmetic position on a linspace row;
-//   1 general linear: the lower node is the count of interior nodes <= x (a
-//     binary search), so a zero-span segment of a fixed-spacing or custom
-//     row's padding takes its left node's value;
-//   2 natural cubic: each step's moments M = solver @ rhs, a block matvec
-//     over the dense [G-2, G-2] inverse (as the JAX package does), kept in
-//     a [N+1, G] buffer beside the values, so that the forward reads them.
-//     A degenerate row (h = 0) has zero moments and zero curvature.
+// Per grid point (backward) or for the path's inventory (forward), the
+// decision is dp_common.cuh's decide() against the step's forward price, in
+// any of its three continuation modes; in cubic mode each step's moments are
+// kept in a [N+1, G] buffer beside the values, so that the forward reads
+// them.  Every operation is rounded on its own, so the arithmetic is the
+// plain version's (engines/intrinsic.py intrinsic_plain) operation by
+// operation.
 //
 // The values vs [N+1, G] live in device memory and are read through L1:
 // any G works, with no shared memory at all.
@@ -41,33 +28,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dp_common.cuh"
+
 namespace {
 
+using namespace stt_dp;
+
 constexpr int kThreads = 256;
-
-// Step scalar slots (ops/intrinsic_kernel.py pack_steps).
-enum {
-  S_FWD, S_DF_SETTLE, S_DF_FLOW, S_INJ_COST, S_WDR_COST, S_INJ_PCNT, S_WDR_PCNT,
-  S_LOSS_PCNT, S_INV_COST, S_NEXT_MIN, S_NEXT_MAX, NUM_STEP_SCALARS
-};
-enum { MODE_UNIFORM = 0, MODE_GENERAL = 1, MODE_CUBIC = 2 };
-
-// Rounded arithmetic: one rounding per operation, never an FMA.
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double dvd(double a, double b) { return __ddiv_rn(a, b); }
-
-template <typename T>
-__device__ __forceinline__ T clamp_to(T x, T lo, T hi) {
-  // torch.minimum(torch.maximum(x, lo), hi)
-  const T m = x > lo ? x : lo;
-  return m < hi ? m : hi;
-}
 
 template <typename T>
 struct Problem {
@@ -86,158 +53,23 @@ struct Problem {
   T* out;            // [5 * N + 1]: inventory, volume, fuel, loss, PV rows; final inventory
 };
 
-template <typename T>
-struct Choice {
-  T total, decision, consumed, pv;
-};
-
-// Uniform-row lower node and weight (ops/interp.py interp_weights).
-template <typename T>
-__device__ __forceinline__ void uniform_weights(const T* grid, int G, T x, int* idx, T* w) {
-  const T lo = grid[0], hi = grid[G - 1];
-  const T delta = dvd(sub(hi, lo), static_cast<T>(G - 1));
-  const T safe = delta > T(0) ? delta : T(1);
-  T pos = dvd(sub(clamp_to(x, lo, hi), lo), safe);
-  if (!(delta > T(0))) pos = T(0);
-  int i = static_cast<int>(floor(pos));
-  i = i < 0 ? 0 : (i > G - 2 ? G - 2 : i);
-  *idx = i;
-  *w = clamp_to(sub(pos, static_cast<T>(i)), T(0), T(1));
-}
-
-// The continuation at inventory x on the next step's row.
-template <typename T>
-__device__ __forceinline__ T continuation(const T* grid, const T* v, const T* m, int G,
-                                          int mode, T x) {
-  if (mode == MODE_GENERAL) {
-    // ops/interp.py interp_vector_general: idx = #{r in 1..G-2 : grid[r] <= x}.
-    const T xc = clamp_to(x, grid[0], grid[G - 1]);
-    int lo = 1, hi = G - 1;  // first r in [1, G-1) with grid[r] > xc
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (grid[mid] <= xc) lo = mid + 1; else hi = mid;
-    }
-    const int idx = lo - 1;
-    const T x0 = grid[idx], x1 = grid[idx + 1];
-    const T span = sub(x1, x0);
-    const T w = span > T(0) ? dvd(sub(xc, x0), span) : T(0);
-    return add(mul(v[idx], sub(T(1), w)), mul(v[idx + 1], w));
-  }
-  int idx;
-  T w;
-  uniform_weights(grid, G, x, &idx, &w);
-  const T v_lo = v[idx], v_hi = v[idx + 1];
-  if (mode == MODE_UNIFORM) return add(v_lo, mul(sub(v_hi, v_lo), w));
-  // ops/interp.py interp_vector_cubic.
-  const T h = dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
-  const T u = sub(T(1), w);
-  const T linear = add(mul(v_lo, u), mul(v_hi, w));
-  if (!(h > T(0))) return linear;
-  const T cu = sub(mul(mul(u, u), u), u);
-  const T cw = sub(mul(mul(w, w), w), w);
-  const T curvature = mul(dvd(mul(h, h), T(6)), add(mul(cu, m[idx]), mul(cw, m[idx + 1])));
-  return add(linear, curvature);
-}
-
 // decision_values of engines/intrinsic.py at one inventory of step t.
 template <typename T>
-__device__ Choice<T> decide(const Problem<T>& p, int t, T inv) {
+__device__ Choice<T> decide_step(const Problem<T>& p, int t, T inv) {
   const T* s = p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS;
-  const T* r_inv = p.r_inv + static_cast<size_t>(t) * p.R;
-  const T* r_min = p.r_min + static_cast<size_t>(t) * p.R;
-  const T* r_max = p.r_max + static_cast<size_t>(t) * p.R;
+  const size_t row = static_cast<size_t>(t) * p.R;
   const size_t next = static_cast<size_t>(t + 1) * p.G;
-
-  // Ratchet rates (grid.ratchet_rates: the interior nodes 1..R-2 counted).
-  const T inv_c = clamp_to(inv, r_inv[0], r_inv[p.R - 1]);
-  int idx = 0;
-  for (int r = 1; r < p.R - 1; ++r) idx += inv_c >= r_inv[r];
-  T min_rate, max_rate;
-  if (p.is_step) {
-    min_rate = r_min[idx];
-    max_rate = r_max[idx];
-  } else {
-    const int hi = idx + 1 < p.R ? idx + 1 : p.R - 1;
-    const T x0 = r_inv[idx], x1 = r_inv[hi];
-    const T w = x1 > x0 ? dvd(sub(inv_c, x0), sub(x1, x0)) : T(0);
-    const T omw = sub(T(1), w);
-    min_rate = add(mul(r_min[idx], omw), mul(r_min[hi], w));
-    max_rate = add(mul(r_max[idx], omw), mul(r_max[hi], w));
-  }
-
-  // Bang-bang decision set (grid.bang_bang_decisions).
-  const T loss = mul(s[S_LOSS_PCNT], inv);
-  const T after_loss = sub(inv, loss);
-  const T next_min = s[S_NEXT_MIN], next_max = s[S_NEXT_MAX];
-  const T w_target = add(min_rate, after_loss);
-  const T yw = w_target > next_max ? sub(next_max, after_loss)
-                                   : (w_target > next_min ? min_rate : sub(next_min, after_loss));
-  const T i_target = add(max_rate, after_loss);
-  const T yi = i_target < next_min ? sub(next_min, after_loss)
-                                   : (i_target < next_max ? max_rate : sub(next_max, after_loss));
-  const bool has_zero = yw < T(0) && yi > T(0);
-  const int nd = 2 * p.E + 3;
-  const int mid = p.E + 1;
-
-  const T price = s[S_FWD], df_settle = s[S_DF_SETTLE], df_flow = s[S_DF_FLOW];
-  const T inv_cost_npv = mul(mul(s[S_INV_COST], inv), df_flow);
-  const T* grid_next = p.grids + next;
-  const T* v_next = p.vs + next;
-  const T* m_next = p.moments ? p.moments + next : nullptr;
-
-  Choice<T> best{T(0), T(0), T(0), T(0)};
-  for (int k = 0; k < nd; ++k) {
-    T dec;
-    if (has_zero) {
-      dec = k <= mid ? mul(yw, sub(T(1), dvd(static_cast<T>(k), static_cast<T>(mid))))
-                     : mul(yi, dvd(static_cast<T>(k - mid), static_cast<T>(mid)));
-    } else {
-      const T frac = dvd(static_cast<T>(k > 1 ? k - 1 : 0), static_cast<T>(nd - 2));
-      dec = add(yw, mul(sub(yi, yw), frac));
-    }
-    // immediate_pv: ((iw - cost) + fuel) - inventory cost.
-    const bool inject = dec > T(0);
-    const T abs_dec = fabs(dec);
-    const T consumed = mul(inject ? s[S_INJ_PCNT] : s[S_WDR_PCNT], abs_dec);
-    const T iw = mul(mul(-dec, price), df_settle);
-    const T cost = mul(mul(inject ? s[S_INJ_COST] : s[S_WDR_COST], abs_dec), df_flow);
-    const T fuel = mul(mul(-consumed, price), df_settle);
-    const T pv = sub(add(sub(iw, cost), fuel), inv_cost_npv);
-    const T inv_after = sub(add(inv, dec), loss);
-    const T total = add(pv, continuation(grid_next, v_next, m_next, p.G, p.mode, inv_after));
-    if (k == 0 || total > best.total) best = Choice<T>{total, dec, consumed, pv};
-  }
-  return best;
+  const StepView<T> st{s, p.r_inv + row, p.r_min + row, p.r_max + row, p.R, p.is_step, p.E,
+                       p.G, p.mode, p.grids + next, p.vs + next,
+                       p.moments ? p.moments + next : nullptr};
+  return decide(st, s[S_FWD], inv);
 }
 
-// Moments of row t (values vs[t] on grids[t]): rhs into scratch, then the
-// matvec with the dense inverse, rows strided over the block.  Ends with a
-// barrier.
+// Moments of row t (values vs[t] on grids[t]), through the [G] scratch.
 template <typename T>
 __device__ void moments_row(const Problem<T>& p, int t) {
-  const int G = p.G, n = G - 2;
-  const T* grid = p.grids + static_cast<size_t>(t) * G;
-  const T* v = p.vs + static_cast<size_t>(t) * G;
-  T* m = p.moments + static_cast<size_t>(t) * G;
-  const T h = dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
-  const T safe_h = h > T(0) ? h : T(1);
-  const T hh = mul(safe_h, safe_h);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    p.rhs[i] = dvd(mul(T(6), add(sub(v[i + 2], mul(T(2), v[i + 1])), v[i])), hh);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    T acc = T(0);
-    if (h > T(0)) {
-      const T* row = p.solver + static_cast<size_t>(i) * n;
-      for (int j = 0; j < n; ++j) acc = add(acc, mul(row[j], p.rhs[j]));
-    }
-    m[i + 1] = acc;
-  }
-  if (threadIdx.x == 0) {
-    m[0] = T(0);
-    m[G - 1] = T(0);
-  }
-  __syncthreads();
+  const size_t row = static_cast<size_t>(t) * p.G;
+  block_moments(p.grids + row, p.vs + row, p.solver, p.rhs, p.moments + row, p.G);
 }
 
 template <typename T>
@@ -254,7 +86,7 @@ __global__ void __launch_bounds__(kThreads) intrinsic_dp_kernel(Problem<T> p) {
   for (int t = N - 1; t >= 1; --t) {
     const T* grid = p.grids + static_cast<size_t>(t) * G;
     T* v = p.vs + static_cast<size_t>(t) * G;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) v[g] = decide(p, t, grid[g]).total;
+    for (int g = threadIdx.x; g < G; g += blockDim.x) v[g] = decide_step(p, t, grid[g]).total;
     __syncthreads();
     if (cubic) moments_row(p, t);
   }
@@ -262,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) intrinsic_dp_kernel(Problem<T> p) {
   if (threadIdx.x == 0) {
     T inv = p.inv0;
     for (int t = 0; t < N; ++t) {
-      const Choice<T> c = decide(p, t, inv);
+      const Choice<T> c = decide_step(p, t, inv);
       const T loss = mul(p.steps[static_cast<size_t>(t) * NUM_STEP_SCALARS + S_LOSS_PCNT], inv);
       inv = sub(add(inv, c.decision), loss);
       p.out[t] = inv;

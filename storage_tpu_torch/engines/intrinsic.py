@@ -64,13 +64,14 @@ def check_interpolation(interpolation: str, uniform_grids: bool) -> None:
 
 
 def terminal_values(terminal_fn, price, inventory) -> torch.Tensor:
-    """The terminal function at ``inventory`` (zeros for a facility that must
-    end empty), broadcast to its shape: user functions may return scalars."""
+    """The terminal function at ``price`` and ``inventory`` (zeros for a
+    facility that must end empty), broadcast to their joint shape: user
+    functions may return scalars."""
+    shape = torch.broadcast_shapes(price.shape, inventory.shape)
     if terminal_fn is None:
-        return torch.zeros_like(inventory)
+        return torch.zeros(shape, dtype=inventory.dtype, device=inventory.device)
     value = terminal_fn(price, inventory)
-    return torch.as_tensor(value, dtype=inventory.dtype, device=inventory.device).expand(
-        inventory.shape)
+    return torch.as_tensor(value, dtype=inventory.dtype, device=inventory.device).expand(shape)
 
 
 def step_tables(arrays, t: int) -> dict:
@@ -86,7 +87,10 @@ def step_tables(arrays, t: int) -> dict:
 def decision_totals(x, inventory, v_next, moments_next, num_extra_decisions: int,
                     ratchet_is_step: bool, interpolation: str, uniform_grids: bool):
     """Every decision of one period at ``inventory`` [K]: (total value,
-    volume, fuel, immediate PV), each [K, D], and the loss [K]."""
+    volume, fuel, immediate PV), each [K, D], and the loss [K].  ``x["fwd"]``
+    is the price; the tree passes rows of continuation values ``v_next``
+    [M, G] (``moments_next`` alike) and their node's spots as prices
+    [M, 1, 1], and the totals and PVs are then [M, K, D]."""
     min_rate, max_rate = gridmod.ratchet_rates(
         x["ratchet_inv"], x["ratchet_min"], x["ratchet_max"], ratchet_is_step, inventory)
     decisions = gridmod.bang_bang_decisions(
@@ -98,6 +102,7 @@ def decision_totals(x, inventory, v_next, moments_next, num_extra_decisions: int
         x["wdr_cost"], x["inj_pcnt"], x["wdr_pcnt"], x["inv_cost_rate"])
     loss = x["loss_pcnt"] * inventory
     inv_after = inventory[:, None] + decisions - loss[:, None]
+    inv_after = inv_after.expand(v_next.shape[:-1] + inv_after.shape)
     if interpolation == "cubic":
         continuation = interp.interp_vector_cubic(x["grid_next"], v_next, moments_next, inv_after)
     elif uniform_grids:
@@ -110,12 +115,18 @@ def decision_totals(x, inventory, v_next, moments_next, num_extra_decisions: int
 def decision_values(x, inventory, v_next, moments_next, num_extra_decisions: int,
                     ratchet_is_step: bool, interpolation: str, uniform_grids: bool):
     """The optimal decision at ``inventory`` [K] for one period: (value,
-    decision, consumed, pv, loss), each [K].  The first maximum over the
-    decisions wins, as ``jnp.argmax`` takes it."""
-    total, decisions, consumed, pv, loss = decision_totals(
+    decision, consumed, pv, loss), each [K] (``first_best`` of
+    ``decision_totals``)."""
+    return first_best(*decision_totals(
         x, inventory, v_next, moments_next, num_extra_decisions, ratchet_is_step, interpolation,
-        uniform_grids)
-    best_total, best = total[:, 0], torch.zeros_like(inventory, dtype=torch.int64)
+        uniform_grids))
+
+
+def first_best(total, decisions, consumed, pv, loss):
+    """``decision_totals``' best decision at each of its K inventories:
+    (value, decision, consumed, pv, loss), each [K].  The first maximum over
+    the decisions wins, as ``jnp.argmax`` takes it."""
+    best_total, best = total[:, 0], torch.zeros_like(loss, dtype=torch.int64)
     for d in range(1, total.shape[1]):
         better = total[:, d] > best_total
         best_total = torch.where(better, total[:, d], best_total)

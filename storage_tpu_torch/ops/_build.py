@@ -94,6 +94,12 @@ SIGNATURES = {
     ),
     # is_double, out int[5] (the DP kernel's launch report)
     "stt_intrinsic_dp_info": (_I, _P),
+    # N, M, G, W, R, E, is_step, mode, steps, ratchet inv/min/max, grids, spot,
+    # band, band start, solver (or NULL), values, stream
+    "stt_tree_dp_f32": (_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "stt_tree_dp_f64": (_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # is_double, G, mode, out int[6] (the tree step kernel's launch report)
+    "stt_tree_dp_info": (_I, _I, _I, _P),
 }
 
 

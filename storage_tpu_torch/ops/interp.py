@@ -5,8 +5,9 @@ On uniform (linspace) grids, positions come from arithmetic, not a search,
 and every function takes a grid ``[..., G]`` whose leading dims broadcast
 against the leading dims of the query ``x``, so one call serves one step
 (grid [G]) or all steps at once (grid [N, G], x [N, ...]).  The general
-(non-uniform) and natural-cubic functions of the intrinsic engine take one
-step's 1-D grid [G].
+(non-uniform) and natural-cubic functions of the DP engines take one step's
+1-D grid [G] and values [G] or rows of values [..., G] on it (the tree's node
+rows), whose leading dims ``x`` leads with.
 """
 from __future__ import annotations
 
@@ -100,11 +101,11 @@ def interp_weights_general(grid, x):
 
 
 def interp_vector_general(grid, values, x):
-    """Linear interpolation of ``values`` [G] at ``x`` [...] on a non-uniform,
-    non-decreasing 1-D grid [G] (clamped; zero-span segments take their left
-    node's value)."""
+    """Linear interpolation of ``values`` [..., G] at ``x`` [..., *q] on a
+    non-uniform, non-decreasing 1-D grid [G] (clamped; zero-span segments
+    take their left node's value)."""
     idx, w = interp_weights_general(grid, x)
-    return values[idx] * (1 - w) + values[idx + 1] * w
+    return _take_last(values, idx) * (1 - w) + _take_last(values, idx + 1) * w
 
 
 def natural_cubic_solver(num_points: int, dtype=torch.float64, device=None) -> torch.Tensor:
@@ -125,29 +126,31 @@ def natural_cubic_solver(num_points: int, dtype=torch.float64, device=None) -> t
 
 
 def cubic_moments(grid, values, solver):
-    """Second-derivative moments [G] of the natural cubic spline through
-    (grid, values) on a uniform 1-D grid; ``solver`` from
+    """Second-derivative moments [..., G] of the natural cubic spline through
+    (grid, values [..., G]) on a uniform 1-D grid; ``solver`` from
     ``natural_cubic_solver(G)``.  A degenerate grid gives zero moments."""
     g = grid.shape[0]
     h = (grid[g - 1] - grid[0]) / (g - 1)
     safe_h = torch.where(h > 0, h, torch.ones_like(h))
-    rhs = 6.0 * (values[2:] - 2.0 * values[1:-1] + values[:-2]) / (safe_h * safe_h)
-    interior = torch.where(h > 0, solver.to(values.dtype) @ rhs, torch.zeros_like(rhs))
-    zero = torch.zeros((1,), dtype=values.dtype, device=values.device)
-    return torch.cat([zero, interior, zero])
+    rhs = 6.0 * (values[..., 2:] - 2.0 * values[..., 1:-1] + values[..., :-2]) / (safe_h * safe_h)
+    interior = (solver.to(values.dtype) @ rhs[..., None])[..., 0]
+    interior = torch.where(h > 0, interior, torch.zeros_like(rhs))
+    zero = torch.zeros(rhs.shape[:-1] + (1,), dtype=values.dtype, device=values.device)
+    return torch.cat([zero, interior, zero], dim=-1)
 
 
 def interp_vector_cubic(grid, values, moments, x):
-    """Natural-cubic-spline evaluation of ``values`` [G] at ``x`` [...] on a
-    uniform 1-D grid, clamped (the reference's
-    NaturalCubicSplineInterpolatorFactory, IInterpolatorFactory.cs:33-37)."""
+    """Natural-cubic-spline evaluation of ``values`` [..., G] (``moments`` of
+    the same shape) at ``x`` [..., *q] on a uniform 1-D grid, clamped (the
+    reference's NaturalCubicSplineInterpolatorFactory,
+    IInterpolatorFactory.cs:33-37)."""
     g = grid.shape[0]
     h = (grid[g - 1] - grid[0]) / (g - 1)
     idx_lo, t = interp_weights(grid, x)
-    v_lo = values[idx_lo]
-    v_hi = values[idx_lo + 1]
-    m_lo = moments[idx_lo]
-    m_hi = moments[idx_lo + 1]
+    v_lo = _take_last(values, idx_lo)
+    v_hi = _take_last(values, idx_lo + 1)
+    m_lo = _take_last(moments, idx_lo)
+    m_hi = _take_last(moments, idx_lo + 1)
     u = 1.0 - t
     linear = v_lo * u + v_hi * t
     curvature = (h * h / 6.0) * ((u * u * u - u) * m_lo + (t * t * t - t) * m_hi)

@@ -11,7 +11,10 @@ version in double with torch.linalg, so its coefficients, and the values and
 moments that follow from them, agree to 1e-4 relative.  The intrinsic DP
 kernel does its plain version's arithmetic operation by operation; the
 sums (the NPV, the cubic moments' matvec) go in another order: f64 within
-1e-10 relative, f32 within 1e-5 of the f64 answer.
+1e-10 relative, f32 within 1e-5 of the f64 answer.  The tree's DP kernel
+likewise: its expected continuation sums the band where the plain version
+multiplies the dense matrix, so f64 values within 1e-9 of their scale and
+the NPV within 1e-10 relative.
 """
 import numpy as np
 import pandas as pd
@@ -23,7 +26,10 @@ from storage_tpu_torch import grid as gridmod
 from storage_tpu_torch.basis import parse_basis_functions
 from storage_tpu_torch.engines import intrinsic as intrinsic_engine
 from storage_tpu_torch.engines import lsmc as lsmc_engine
-from storage_tpu_torch.ops import decision_kernel, forward_kernel, interp, intrinsic_kernel, rng_kernel
+from storage_tpu_torch.engines import tree as tree_engine
+from storage_tpu_torch.models import trinomial_tree
+from storage_tpu_torch.ops import (decision_kernel, forward_kernel, interp, intrinsic_kernel,
+                                   rng_kernel, tree_kernel)
 from storage_tpu_torch.valuation_inputs import prepare_valuation
 
 pytestmark = pytest.mark.cuda
@@ -473,3 +479,82 @@ def test_intrinsic_launches_once_per_lsmc_valuation(device):
                                             dtype=torch.float64, device="cpu")
     assert got.intrinsic_npv == pytest.approx(want.intrinsic_npv, rel=1e-5)
     assert got.intrinsic_profile.shape == (21, 6)
+
+
+def _tree_case(device, dtype, mode, g, n, a=5.5):
+    """The tree DP's tables on the 2F facility over its last n steps (the
+    tree from the valuation date), on linspace or fixed-spacing rows."""
+    storage, fwd, rates, settle = _reg_market()
+    val_date = storage.end - n
+    inputs = prepare_valuation(storage, val_date, 100.0 * n, fwd, rates, settle)
+    horizon = fwd[val_date:]
+    tree = trinomial_tree.build_tree(horizon.to_numpy(), np.full(len(horizon), 0.9), a, 1 / 365.0)
+    lo, hi = inputs.inventory_lower, inputs.inventory_upper
+    grids = (gridmod.inventory_grids_fixed_spacing(lo, hi, 0.0, 100_000.0, g) if mode == "general"
+             else gridmod.inventory_grids(lo, hi, g))
+    arrays = lsmc_engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow, lo, hi, g, dtype, device,
+        grids)
+    lattice = tree_engine.tree_arrays(tree, 0, inputs.num_steps, dtype, device)
+    return inputs, arrays, lattice
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["linear", "general", "cubic"])
+@pytest.mark.parametrize("g,n,e", [(37, 20, 1), (300, 3, 0), (15, 1, 1)],
+                         ids=["G=37", "G=300", "N=1"])
+def test_tree_dp(device, dtype, mode, g, n, e):
+    """The tree kernel, N launches, against tree_plain in f64 on the card."""
+    inputs, arrays, lattice = _tree_case(device, dtype, mode, g, n)
+    args = (e, None, False, "cubic" if mode == "cubic" else "linear", mode != "general")
+    before = tree_kernel.tree_dp.launches
+    got = tree_engine.tree_core(arrays, lattice, *args)
+    assert tree_kernel.tree_dp.launches == before + n
+    f64 = lambda d: {k: v.to(torch.float64) if v.is_floating_point() else v  # noqa: E731
+                     for k, v in d.items()}
+    want = tree_engine.tree_plain(f64(arrays), f64(lattice), *args)
+    assert got.values.dtype == dtype and got.values.shape == want.values.shape
+    rel = 1e-10 if dtype == torch.float64 else 1e-5
+    assert float(got.npv) == pytest.approx(float(want.npv), rel=rel)
+    if dtype == torch.float64:
+        scale = float(want.values.abs().max())
+        torch.testing.assert_close(got.values, want.values, rtol=0, atol=1e-9 * scale)
+
+
+def test_tree_dp_grid_beyond_shared_memory_raises(device):
+    info = tree_kernel.kernel_info(100, torch.float64, "linear", device)
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+    g = info["max_grid"] + 1
+    assert tree_kernel.kernel_info(g, torch.float64, "linear", device)["blocks_per_sm"] == 0
+    _, arrays, lattice = _tree_case(device, torch.float64, "linear", g, 1)
+    v_end = torch.zeros(lattice["spot"].shape[1], g, dtype=torch.float64, device=device)
+    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
+        tree_kernel.tree_dp(arrays, lattice, v_end, 0, False, "linear")
+
+
+def test_trinomial_value_pin_on_the_card(device):
+    """The C# trinomial sample (24,799.09) through trinomial_value(device="cuda")
+    in f64: 16 launches, the CPU's answer within 1e-10."""
+    ratchets = [
+        ("2019-09-01", [(0.0, -44.85, 56.8), (100.0, -45.01, 54.5), (300.0, -45.78, 52.01),
+                        (600.0, -46.17, 51.9), (800.0, -46.99, 50.8), (1000.0, -47.12, 50.01)]),
+        ("2019-09-20", [(0.0, -31.41, 48.33), (100.0, -31.85, 43.05), (300.0, -31.68, 41.22),
+                        (600.0, -32.78, 40.08), (800.0, -33.05, 39.74), (1000.0, -34.80, 38.51)]),
+    ]
+    storage = tpkg.CmdtyStorage("D", "2019-09-01", "2019-10-01", 0.48, 0.74, ratchets=ratchets,
+                                ratchet_interp=tpkg.RatchetInterp.LINEAR)
+    idx = pd.period_range("2019-09-15", "2019-10-01", freq="D")
+    fwd = pd.Series([56.6 if p <= pd.Period("2019-09-22", freq="D") else 56.6 + 87.81 for p in idx],
+                    index=idx)
+    vols = pd.Series([0.975, 0.97, 0.96, 0.91, 0.89, 0.895, 0.891, 0.89, 0.875, 0.872, 0.871,
+                      0.870, 0.869, 0.868, 0.867, 0.866, 0.8655], index=idx)
+    args = (storage, "2019-09-15", 50.0, fwd, vols, 5.5, 1 / 365.0, 0.025,
+            lambda period: pd.Timestamp("2019-10-20").date())
+    before = tree_kernel.tree_dp.launches
+    got = tpkg.trinomial_value(*args, num_inventory_grid_points=101, dtype=torch.float64,
+                               device=device)
+    assert tree_kernel.tree_dp.launches == before + 16
+    want = tpkg.trinomial_value(*args, num_inventory_grid_points=101, dtype=torch.float64,
+                                device="cpu")
+    assert got == pytest.approx(want, rel=1e-10)
+    assert got == pytest.approx(24_799.09, rel=5e-4)

@@ -215,7 +215,8 @@ def test_f32_valuation_close_to_jax():
         (dict(cancellation_poll=lambda: False), "interactive execution and checkpoints"),
         (dict(checkpoint_path="checkpoint.npz"), "interactive execution and checkpoints"),
         (dict(deltas_method="adjoint"), "adjoint deltas"),
-        (dict(grid_calc=lambda lo, hi: np.linspace(lo, hi, 5)), "the tree engine and custom grids"),
+        (dict(grid_calc=lambda lo, hi: np.linspace(lo, hi, 5)),
+         "custom inventory grids in the LSMC engine"),
         (dict(basis_funcs=[lambda s, x: s]), "the rest of the host layer"),
     ],
     ids=["progress", "cancel", "checkpoint", "adjoint", "grid-calc",
