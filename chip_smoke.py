@@ -80,7 +80,22 @@
 7. The full-step backward (``lsmc_core(fullstep=True)``): kernel E once per
    backward step and no kernel B, the NPV within 0.05 SE of the main path's;
    its backward seconds beside the kernel-B-plus-glue backward.
-8. A phase breakdown (host preparation, simulate, intrinsic, backward,
+8. The public host layer: kernel C's design mode (the forward step of a
+   basis with a user callable, reading each step's raw design from memory)
+   on the main path's tables with its nine monomials written out as the
+   design, against its plain version (flips only on near-ties) and at
+   G=1,000; the nine monomials as generic callables through
+   ``forward_sweep_generic`` (the design built 32 steps at a time, one
+   launch a chunk) the monomial mode's bits; kernel D at B=9 (a generic
+   basis's backward on factor panels) the plain version's bits.  Then,
+   each path with the counters reset: the replicated generic basis through
+   ``three_factor_seasonal_value`` at the headline (within 0.1 SE of the
+   main path's NPV; kernel D 365 launches, kernel B none, the design mode
+   12, the intrinsic DP 1), an exp/indicator generic basis (reported, not
+   gated), ``lsmc_value`` through the builder (the main path's NPV and SE
+   bits at the default ``snap_interp``) and ``MultiFactorSpotSim`` on the
+   card over the headline's model (its spot frame the sweep's bits).
+9. A phase breakdown (host preparation, simulate, intrinsic, backward,
    forward) and one valuation under torch.profiler (device busy share,
    kernels by time).
 
@@ -156,6 +171,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                      "storage_tpu/engines/intrinsic.py:193"),
     # No Pallas kernel: the tree's backward lax.scan (its step's dense dot at :125).
     "tree_dp": ("storage_tpu_torch/csrc/tree_kernel.cu", "storage_tpu/engines/tree.py:165"),
+    # Kernel C's design mode: the forward step of a generic basis, which the
+    # JAX package runs on its XLA path (no Pallas kernel of its own).
+    "forward_sweep_design": ("storage_tpu_torch/csrc/forward_kernel.cu",
+                             "storage_tpu/ops/forward_kernel.py:372"),
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bandwidth, and float32 outside the tensor cores, which counts a
@@ -223,14 +242,14 @@ def bench_case(pkg):
     return storage, start, fwd
 
 
-def value(pkg, device, snap_interp, **kwargs):
+def value(pkg, device, snap_interp, basis=BASIS, **kwargs):
     """The headline valuation through the public API."""
     import torch
 
     storage, start, fwd = bench_case(pkg)
     return pkg.three_factor_seasonal_value(
         storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23,
-        NUM_SIMS, BASIS, False, seed=11, fwd_sim_seed=13,
+        NUM_SIMS, basis, False, seed=11, fwd_sim_seed=13,
         num_inventory_grid_points=NUM_GRID, dtype=torch.float32, device=device,
         snap_interp=snap_interp, **kwargs,
     )
@@ -373,6 +392,38 @@ def cuda_ms(fn, repeats: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def launch_ms(module, name: str, run, repeats: int):
+    """Device milliseconds that the calls ``run`` makes to ``module.name``
+    take, by CUDA events around each call, summed over a run (the mean of
+    ``repeats`` runs after a warm-up run), and the calls a run makes."""
+    import functools
+
+    import torch
+
+    inner, spans = getattr(module, name), []
+
+    @functools.wraps(inner)
+    def timed(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = inner(*a, **k)
+        end.record()
+        spans.append((start, end))
+        return result
+
+    run()
+    setattr(module, name, timed)  # the wrapper counts its launches on ``timed``
+    try:
+        for _ in range(repeats):
+            run()
+    finally:
+        setattr(module, name, inner)
+        if hasattr(inner, "launches"):
+            inner.launches = timed.launches
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / repeats, len(spans) // repeats
 
 
 def backward_step_inputs(pkg, device):
@@ -831,20 +882,22 @@ def check_kernels(pkg, device):
     return results
 
 
-def forward_work(n, s, f, b, g, r, d, panels: bool):
+def forward_work(n, s, f, b, g, r, d, panels: bool, design: bool = False):
     """(bytes, f32 operations) of a forward sweep of N steps over S sims, each
     input read once and each output written once: per step and sim its spot
-    and F factor values in; once each sim's starting inventory in and final
-    inventory and PV out; every step's packed tables in and sums and summed
-    design row out; with the panels, four [N, S] rows out.  Operations per sim
-    and step: the design row (~5B) and, per decision, the continuation at two
-    rows (4B) and ~25 more."""
+    and F factor values in (with ``design``, its B raw design values in their
+    place); once each sim's starting inventory in and final inventory and PV
+    out; every step's packed tables in and sums and summed design row out;
+    with the panels, four [N, S] rows out.  Operations per sim and step: the
+    design row (~5B; standardising a read design, 2B) and, per decision, the
+    continuation at two rows (4B) and ~25 more."""
     from storage_tpu_torch.ops import forward_kernel
 
     width = forward_kernel.table_layout(b, r, g)[1]
-    num_bytes = 4.0 * ((1 + f) * n * s + 3 * s + n * width + n * (forward_kernel.NUM_SUMS + b)
-                       + (4 * n * s if panels else 0))
-    return num_bytes, float(n) * s * (5 * b + d * (4 * b + 25))
+    staged = b if design else f
+    num_bytes = 4.0 * ((1 + staged) * n * s + 3 * s + n * width
+                       + n * (forward_kernel.NUM_SUMS + b) + (4 * n * s if panels else 0))
+    return num_bytes, float(n) * s * ((2 if design else 5) * b + d * (4 * b + 25))
 
 
 def forward_sweep_inputs(pkg, device, st):
@@ -927,9 +980,16 @@ def sweep_by_steps(args, panels):
     return inv, pv, torch.stack(sums), torch.stack(xbar)
 
 
-def compare_sweep(args, got=None, got_panels=None) -> dict:
+def design_args(args, design):
+    """``forward_sweep``'s arguments as ``forward_sweep_design``'s: the raw
+    design [N, B, S] in place of the factors, no monomials."""
+    return (*args[:7], design, *args[8:11], *args[12:])
+
+
+def compare_sweep(args, got=None, got_panels=None, design=None) -> dict:
     """The sweep kernel (or ``got``, its result with ``got_panels``) against
-    ``forward_sweep_plain`` on ``args``, both with the per-sim panels.  The
+    ``forward_sweep_plain`` on ``args``, both with the per-sim panels; with
+    ``design`` [N, B, S], the design mode on it (``design_args``).  The
     kernel does the plain version's arithmetic in the same order, so a sim
     may differ beyond 1e-6 of the largest value (final PV and inventory, or
     any panel row) only where its path flipped on a near-tie: at the first
@@ -945,9 +1005,10 @@ def compare_sweep(args, got=None, got_panels=None) -> dict:
     n, s = spot.shape
     if got is None:
         got_panels = [torch.empty((n, s), device=spot.device) for _ in range(4)]
-        got = forward_kernel.forward_sweep(*args, panels=got_panels)
+        got = (forward_kernel.forward_sweep(*args, panels=got_panels) if design is None else
+               forward_kernel.forward_sweep_design(*design_args(args, design), panels=got_panels))
     want_panels = [torch.empty((n, s), device=spot.device) for _ in range(4)]
-    want = forward_kernel.forward_sweep_plain(*args, panels=want_panels)
+    want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, design=design)
 
     def beyond(g_, w_):
         return ~((g_ - w_).abs() <= 1e-6 * max(float(w_.abs().max()), 1.0))
@@ -968,7 +1029,8 @@ def compare_sweep(args, got=None, got_panels=None) -> dict:
             inv_t = inv0[cols] if t == 0 else want_panels[0][t - 1, cols]
             candidates, _, _ = forward_kernel.decision_candidates(
                 params[t], mean[t], std[t], r_inv[t], r_min[t], r_max[t], spot[t, cols],
-                factors[t][:, cols], inv_t, coeffs[t], mono, e, is_step)
+                factors[t][:, cols], inv_t, coeffs[t], mono, e, is_step,
+                None if design is None else design[t][:, cols])
             totals = torch.stack([total for total, _ in candidates])
             top2 = totals.topk(2, dim=0).values
             near = (top2[0] - top2[1]) <= 1e-5 * totals.abs().max(dim=0).values
@@ -1409,6 +1471,257 @@ def fullstep_valuation(pkg, device, counts, main):
         raise AssertionError(f"fullstep NPV {npv} is not within 0.05 SE of {main.npv}")
     return dict(npv=npv, se=se, off_main_se=off, launches=launches,
                 backward_fullstep_s=backward[True], backward_b_glue_s=backward[False])
+
+
+def replica_basis(pkg):
+    """The headline's nine monomials (``BASIS``) as generic callables: the
+    design they write is the monomials' to the bit (the same products, and
+    1·x is x)."""
+    import torch
+
+    g = pkg.generic
+    return [g(lambda s, x: torch.ones_like(s), label="1"),
+            g(lambda s, x: x[0], 1, "x_st"), g(lambda s, x: x[1], 2, "x_lt"),
+            g(lambda s, x: x[2], 3, "x_sw"), g(lambda s, x: x[0] * x[0], 1, "x_st**2"),
+            g(lambda s, x: x[1] * x[1], 2, "x_lt**2"), g(lambda s, x: x[2] * x[2], 3, "x_sw**2"),
+            g(lambda s, x: s, label="s"), g(lambda s, x: s * s, label="s**2")]
+
+
+def exp_indicator_basis(pkg):
+    """Another nine-term basis: combinator atoms mixed with exponentials of
+    the short-term factor and an indicator of the long-term one."""
+    import torch
+
+    g = pkg.generic
+    return [pkg.ONE, pkg.X_ST, g(lambda s, x: torch.exp(x[0]), 1, "exp(x_st)"),
+            g(lambda s, x: torch.exp(-x[0]), 1, "exp(-x_st)"), pkg.X_LT,
+            g(lambda s, x: (x[1] > 0).to(s.dtype), 2, "1{x_lt>0}"), pkg.X_SW, pkg.S, pkg.S ** 2]
+
+
+def check_design_mode(pkg, device) -> dict:
+    """Kernel C's design mode on the main path's own tables and paths, the
+    headline's nine monomials written out as the design: against its plain
+    version (argmax flips only on near-ties); then at G = 1,000.  The
+    replicated generic basis through ``forward_sweep_generic`` (the design
+    built a chunk of steps at a time) against the monomial mode: the same
+    bits, and the device time of its chunk launches.  Kernel D, which a
+    generic basis runs backward on factor panels, at B = 9 against its plain
+    version.  Times, bounds, launch report."""
+    import torch
+
+    from storage_tpu_torch.basis import coerce_basis_functions, design_columns
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel
+
+    st = backward_step_inputs(pkg, device)
+    # ---- kernel D on the step's nine-term design (factor panels).
+    t, sims, step = st.t, st.sims, st.step
+    dm_t = engine._standardised_design_t(st.monomials, sims.spot[t], sims.factors[t],
+                                         st.mean[1], st.std[1])
+    args_d9 = (st.v, dm_t, sims.spot[t], step["idx_lo"], step["w_hi"], st.args_b[11],
+               step["a"], step["b"])
+    cmp_d9 = compare_d(args_d9)
+    out = torch.empty_like(st.v)
+    d9_ms = cuda_ms(lambda: decision_kernel.decision_update(*args_d9, out=out), 20)
+    d9_plain_ms = cuda_ms(lambda: decision_kernel.decision_update_plain(*args_d9), 5)
+    d9_bnd = bound(*decision_work(NUM_GRID, NUM_SIMS, 3, dm_t.shape[0], 0, moments=False,
+                                  design_in_memory=True))
+    log(f"kernel D decision_update [G={NUM_GRID}, S={NUM_SIMS}, D=3, B={dm_t.shape[0]}: the "
+        f"main path's design, as a generic basis runs it]: {cmp_d9['text']}; {d9_ms:.4f} ms vs "
+        f"plain {d9_plain_ms:.3f} ms, bound {d9_bnd['bound_ms']:.4f} ms ({d9_bnd['bound_by']})")
+    del args_d9, out, dm_t
+
+    # ---- the design mode on the main path's sweep.
+    args = forward_sweep_inputs(pkg, device, st)
+    del st, sims
+    n, s = args[6].shape
+    mono = args[11]
+    b_dim, g_, r_ = len(mono), args[10].shape[2], args[3].shape[1]
+    design = torch.stack(design_columns(mono, args[6], args[7]), dim=1)  # [N, B, S]
+    cmp_main = compare_sweep(args, design=design)
+    d_args = design_args(args, design)
+    ms = cuda_ms(lambda: forward_kernel.forward_sweep_design(*d_args), 10)
+    mono_ms = cuda_ms(lambda: forward_kernel.forward_sweep(*args), 10)
+    plain_ms = cuda_ms(lambda: forward_kernel.forward_sweep_plain(*args, design=design), 1)
+    del d_args, design
+    replica = tuple(coerce_basis_functions(replica_basis(pkg)))
+    panels_g = [torch.empty((n, s), device=device) for _ in range(4)]
+    panels_m = [torch.empty((n, s), device=device) for _ in range(4)]
+    before = forward_kernel.forward_sweep_design.launches
+
+    def generic_sweep(panels=None):
+        return forward_kernel.forward_sweep_generic(*args[:9], args[10], replica, *args[12:],
+                                                    panels=panels)
+
+    got = generic_sweep(panels_g)
+    chunk_launches = forward_kernel.forward_sweep_design.launches - before
+    want = forward_kernel.forward_sweep(*args, panels=panels_m)
+    pairs = list(zip((*got, *panels_g), (*want, *panels_m)))
+    same = all(torch.equal(x, y) for x, y in pairs)
+    largest = max(float((x - y).abs().max()) for x, y in pairs)
+    del panels_g, panels_m, got, want, pairs
+    chunked_ms = cuda_ms(generic_sweep, 3)
+    path_ms, per_run = launch_ms(forward_kernel, "forward_sweep_design", generic_sweep, 3)
+    if per_run != chunk_launches:
+        raise AssertionError(f"timed {per_run} design-mode launches a forward pass, counted "
+                             f"{chunk_launches}")
+    bnd = bound(*forward_work(n, s, 0, b_dim, g_, r_, 3, panels=False, design=True))
+    info = forward_kernel.kernel_info(g_, b_dim, r_, 0, 0, device, design=True)
+    sass = _build.sass_instructions(_build.library_path(),
+                                    forward_kernel.sass_name(b_dim, design=True))
+    chunk = forward_kernel.DESIGN_CHUNK
+    log(f"kernel C forward_sweep_design [N={n}, S={s}, G={g_}, D=3, B={b_dim}, R={r_}], the main "
+        f"path's tables, paths and nine monomials as the design: {cmp_main['text']}; "
+        f"{ms:.4f} ms one launch over all {n} steps (monomial mode {mono_ms:.4f} ms), plain "
+        f"{plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: N*S*(1+B)*4 bytes "
+        f"in and the outputs over 3.35 TB/s); launch: {info['smem_bytes']} bytes of shared memory "
+        f"per block (G <= {info['max_grid']}), {info['blocks_per_sm']} blocks per SM, "
+        f"{info['registers']} registers, {sass} SASS instructions")
+    log(f"kernel C forward_sweep_generic, the replicated generic basis in chunks of {chunk} steps "
+        f"({chunk_launches} launches of the design mode): the monomial mode's bits (final "
+        f"inventory and PV, sums, xbar, every panel row): {same}; largest difference {largest:.3e}; "
+        f"{chunked_ms:.3f} ms a forward pass, the design built on the card included; the "
+        f"{chunk_launches} launches on their own {path_ms:.4f} ms a pass "
+        f"({path_ms / chunk_launches:.4f} ms a launch) against {ms:.4f} ms for one launch over "
+        f"all {n} steps")
+    del args
+    big = random_sweep(device, 8, BIG_SIMS, BIG_GRID, 3, seed=17)
+    big_design = torch.stack(design_columns(big[11], big[6], big[7]), dim=1)
+    cmp_big = compare_sweep(big, design=big_design)
+    log(f"kernel C forward_sweep_design [big_grid: N=8, S={BIG_SIMS}, G={BIG_GRID}, random "
+        f"tables, panels on]: {cmp_big['text']}")
+    del big, big_design
+    for c in (cmp_main, cmp_big):
+        if not c["ok"]:
+            raise AssertionError(f"kernel C's design mode disagrees with its plain version: "
+                                 f"{c['text']}")
+    if not same:
+        raise AssertionError(f"the replicated generic basis is not the monomial mode's bits "
+                             f"(largest difference {largest})")
+    if not cmp_d9["ok"]:
+        raise AssertionError(f"kernel D at B=9 disagrees with its plain version: {cmp_d9['text']}")
+    return dict(
+        max_abs_err=cmp_main["max_abs_err"], ms=path_ms, ms_per_launch=path_ms / chunk_launches,
+        ms_one_launch=ms, plain_ms=plain_ms, monomial_mode_ms=mono_ms,
+        chunk=chunk, chunk_launches=chunk_launches, chunked_ms=chunked_ms,
+        same_bits_as_monomial_mode=same, largest_difference=largest,
+        **{k: v_ for k, v_ in cmp_main.items() if k not in ("text", "max_abs_err", "ok")},
+        big_grid={k: v_ for k, v_ in cmp_big.items() if k != "text"},
+        smem_bytes=info["smem_bytes"], blocks_per_sm=info["blocks_per_sm"],
+        registers=info["registers"], sass_instructions=sass,
+        decision_update_b9=dict(ms=d9_ms, plain_ms=d9_plain_ms, bound_ms=d9_bnd["bound_ms"],
+                                bound_by=d9_bnd["bound_by"],
+                                **{k: v_ for k, v_ in cmp_d9.items() if k != "text"}),
+        **bnd)
+
+
+def host_layer_phase(pkg, device, counts, main, main_default) -> dict:
+    """The public host layer on the card, each path with the launch counters
+    reset just before it: the replicated generic basis at the headline
+    (within 0.1 SE of the main path's NPV: kernel D once a backward step, no
+    kernel B, C's design mode once a chunk of steps, the intrinsic DP once);
+    an exp/indicator basis (another estimator: reported, not gated);
+    ``lsmc_value`` through the builder (the main path's bits at the port's
+    default ``snap_interp``); ``MultiFactorSpotSim`` over the headline's model
+    (its spot frame the simulation sweep's bits)."""
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch.models import multi_factor as mf
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import forward_kernel
+
+    report = {}
+    chunks = -(-NUM_STEPS // forward_kernel.DESIGN_CHUNK)
+    generic_launches = dict(simulate_sweep=2, decision_update=NUM_STEPS,
+                            forward_sweep_design=chunks, intrinsic_dp=1)
+    for name, basis in (("replica", replica_basis(pkg)), ("exp_indicator", exp_indicator_basis(pkg))):
+        counts.reset()
+        t0 = time.perf_counter()
+        res = value(pkg, device, True, basis=basis)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.read()
+        gap = (res.npv - main.npv) / main.val_sim_standard_error
+        log(f"generic basis ({name}) at the headline: NPV {res.npv!r} SE "
+            f"{res.val_sim_standard_error!r}, {gap:+.4f} SE from the main path's NPV "
+            f"{main.npv!r}{' (tolerance 0.1)' if name == 'replica' else ' (not gated)'}; wall "
+            f"{wall:.3f} s; launches {launches}")
+        if launches != counts.expect(**generic_launches):
+            raise AssertionError(f"launch counts {launches}, expected "
+                                 f"{counts.expect(**generic_launches)}")
+        if not (math.isfinite(res.npv) and math.isfinite(res.val_sim_standard_error)):
+            raise AssertionError(f"generic basis ({name}): NPV {res.npv}")
+        if name == "replica" and not abs(gap) <= 0.1:
+            raise AssertionError(f"the replicated generic basis's NPV {res.npv} is not within "
+                                 f"0.1 SE of the main path's {main.npv}")
+        walls = [wall]
+        for _ in range(2 if name == "replica" else 0):  # the generic path's wall, warm
+            t0 = time.perf_counter()
+            value(pkg, device, True, basis=basis)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if len(walls) > 1:
+            log(f"generic basis ({name}): walls {[round(w, 4) for w in walls]} s, median "
+                f"{float(np.median(walls)):.4f} s")
+        report[name] = dict(npv=res.npv, se=res.val_sim_standard_error, gap_to_main_se=gap,
+                            wall_s=float(np.median(walls)), walls_s=walls, launches=launches)
+
+    storage, start, fwd = bench_case(pkg)
+    factors, corrs = mf.create_3_factor_seasonal_params("D", 14.5, 1.1, 0.19, 0.23, start,
+                                                        storage.end)
+    params = (pkg.LsmcValuationParameters.builder()
+              .with_storage(storage).with_val_date(start).with_inventory(100.0)
+              .with_forward_curve(fwd).with_interest_rates(0.02).with_settlement_rule(None)
+              .with_basis_funcs(BASIS).with_grid_points(NUM_GRID).with_dtype(torch.float32)
+              .with_device(device)
+              .simulate_with_multi_factor_model(factors, corrs, NUM_SIMS, seed=11, fwd_sim_seed=13)
+              .build())
+    counts.reset()
+    t0 = time.perf_counter()
+    res = pkg.lsmc_value(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    same = (res.npv, res.val_sim_standard_error) == (main_default.npv,
+                                                      main_default.val_sim_standard_error)
+    log(f"lsmc_value (MultiFactorSimSpec, the builder): NPV {res.npv!r} SE "
+        f"{res.val_sim_standard_error!r}; the main path's bits (snap_interp=False, the port's "
+        f"default): {same}; wall {wall:.3f} s; launches {launches}")
+    expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                             forward_sweep=1, intrinsic_dp=1)
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    if not same:
+        raise AssertionError(f"lsmc_value gave NPV {res.npv!r} SE {res.val_sim_standard_error!r}, "
+                             f"not the main path's {main_default.npv!r} "
+                             f"{main_default.val_sim_standard_error!r}")
+    report["lsmc_value"] = dict(npv=res.npv, se=res.val_sim_standard_error, wall_s=wall,
+                                launches=launches)
+
+    inputs, sim_in, _, _ = engine_inputs(pkg, device)
+    sim = pkg.MultiFactorSpotSim("D", factors, corrs, inputs.val_day, fwd, list(inputs.periods),
+                                 seed=11, device=device)
+    counts.reset()
+    t0 = time.perf_counter()
+    frame = sim.simulate(NUM_SIMS)
+    frame_s = time.perf_counter() - t0
+    launches = counts.read()
+    ids = torch.arange(NUM_SIMS, device=device)
+    want = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11), ids, *sim_in).spot
+    same = (frame.shape == (NUM_STEPS + 1, NUM_SIMS)
+            and np.array_equal(frame.to_numpy(), want.cpu().numpy().astype(np.float64)))
+    kernel_ms = cuda_ms(lambda: spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11), ids,
+                                                           *sim_in), 5)
+    log(f"MultiFactorSpotSim(device='cuda') {NUM_SIMS} sims x {NUM_STEPS + 1} periods, f32: the "
+        f"simulation sweep's bits for key 11: {same}; simulate() {frame_s:.3f} s, of it the "
+        f"sweep {kernel_ms:.4f} ms and the rest building the f64 frame; launches {launches}")
+    if launches != counts.expect(simulate_sweep=1):
+        raise AssertionError(f"launch counts {launches}, expected one simulation sweep")
+    if not same:
+        raise AssertionError("MultiFactorSpotSim's spot frame is not the simulation sweep's")
+    report["spot_sim"] = dict(simulate_s=frame_s, sweep_ms=kernel_ms, launches=launches)
+    return report
 
 
 def reg_case(pkg):
@@ -2159,7 +2472,7 @@ def main(argv) -> int:
                            decision_kernel.decision_update_moments,
                            forward_kernel.forward_sweep, decision_kernel.decision_update,
                            decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp,
-                           tree_kernel.tree_dp))
+                           tree_kernel.tree_dp, forward_kernel.forward_sweep_design))
 
     # ---- kernels against their plain versions.
     with engine.full_f32_matmul():
@@ -2245,6 +2558,16 @@ def main(argv) -> int:
     report["fullstep"] = fullstep_valuation(stt, device, counts, res)
     launches.update(
         decision_update_fullstep=report["fullstep"]["launches"]["decision_update_fullstep"])
+
+    # ---- the public host layer: generic bases, the builder, the simulator.
+    t0 = time.perf_counter()
+    with engine.full_f32_matmul():
+        kernels["forward_sweep_design"] = check_design_mode(stt, device)
+    report["host_layer"] = host_layer_phase(stt, device, counts, res, res_default)
+    report["host_layer_phase_s"] = time.perf_counter() - t0
+    log(f"host-layer phase: {report['host_layer_phase_s']:.1f} s")
+    launches.update(
+        forward_sweep_design=report["host_layer"]["replica"]["launches"]["forward_sweep_design"])
     # Each kernel's launches on the path that runs it: kernel A's draw-only
     # entry feeds the TPU-numerics emulation alone (the sweep draws for the
     # main path).
@@ -2253,7 +2576,7 @@ def main(argv) -> int:
     paths = dict(simulate_sweep="main", normal_halves="tpu_numerics",
                  decision_update_moments="main", forward_sweep="main",
                  decision_update="spot_only", decision_update_fullstep="fullstep",
-                 intrinsic_dp="main", tree_dp="tree_T3")
+                 intrinsic_dp="main", tree_dp="tree_T3", forward_sweep_design="generic")
 
     phases = phase_breakdown(stt, device)
     log(f"phases: host prep {phases['host_prep_s']:.4f} s, simulate {phases['simulate_s']:.4f} s, "
@@ -2264,10 +2587,14 @@ def main(argv) -> int:
     report["profile"] = profile_valuation(stt, device, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    # Kernel C's ms is per sweep of all steps, the simulation sweep's per path
+    # Kernel C's ms is per sweep of all steps, its design mode's the sum of a
+    # generic forward pass's chunk launches, the simulation sweep's per path
     # set; their launch reports beside them, and kernel D's.
     extra = {"forward_sweep": ("smem_bytes", "blocks_per_sm", "registers", "sass_instructions"),
              "decision_update": ("launch",), "simulate_sweep": ("launch",),
+             "forward_sweep_design": ("chunk", "ms_per_launch", "ms_one_launch", "chunked_ms",
+                                      "monomial_mode_ms", "smem_bytes",
+                                      "blocks_per_sm", "registers", "decision_update_b9"),
              "intrinsic_dp": ("ms_f64", "ms_per_step", "launch"),
              "tree_dp": ("ms_f64", "kernel_busy_ms", "launch")}
     summary = {"kernels": [

@@ -7,7 +7,10 @@ simulation, backward induction and forward pass, on simulated paths
 (``three_factor_seasonal_value``, ``multi_factor_value``) or on the user's
 own (``value_from_sims``), with per-sim panels, the intrinsic valuation
 (``intrinsic_value``, also in every LSMC result) and the one-factor
-trinomial tree (``trinomial_value``, ``trinomial_deltas``).  The simulation
+trinomial tree (``trinomial_value``, ``trinomial_deltas``); with the JAX
+package's host layer around them: the basis DSL and its combinators and
+generic callables, the parameter builder (``lsmc_value``), the simulator
+facade (``MultiFactorSpotSim``) and the curve helpers.  The simulation
 sweep, the backward decision steps, the forward sweep, the intrinsic DP and
 the tree's backward induction are CUDA kernels (``csrc/``); entry points run
 on CUDA unless the caller passes ``device="cpu"``, where the kernels' plain
@@ -28,6 +31,7 @@ from .constraints import (
     PolynomialInjectWithdrawConstraint,
     StepInjectWithdrawConstraint,
 )
+from .utils.discount import log_linear_discount_factors
 from .api import (
     IntrinsicValuationResults,
     intrinsic_value,
@@ -40,12 +44,40 @@ from .api_lsmc import (
     value_from_sims,
     value_from_sims_host_local,
 )
-from .basis import Monomial, parse_basis_functions
+from .basis import (
+    Monomial,
+    parse_basis_functions,
+    BasisFunctionList,
+    GenericBasisFunction,
+    generic,
+    MonomialBuilder,
+    ONE,
+    S,
+    X,
+    X0, X1, X2, X3, X4, X5, X6, X7, X8, X9,
+    X_ST, X_LT, X_SW,
+    spot_price_power,
+    markov_factor_power,
+)
+from .lsmc_params import (
+    LsmcValuationParameters,
+    LsmcValuationParametersBuilder,
+    MultiFactorSimSpec,
+    PanelSimSpec,
+    lsmc_value,
+)
+from .curves import interpolate_curve_to_daily
+from .models.multi_factor import MultiFactorModel
+from .models.spot_sim import MultiFactorSpotSim
 from .results import (
+    DomesticCashFlow,
+    InventoryRange,
     MultiFactorValuationResults,
     SimulationDataReturned,
+    StorageProfile,
     TriggerPricePoint,
     TriggerPriceProfile,
+    TriggerPrices,
 )
 
 __version__ = "0.1.0"
@@ -69,11 +101,33 @@ __all__ = [
     "multi_factor_value",
     "value_from_sims",
     "value_from_sims_host_local",
-    "Monomial",
-    "parse_basis_functions",
+    "MultiFactorModel",
+    "MultiFactorSpotSim",
     "MultiFactorValuationResults",
     "SimulationDataReturned",
     "TriggerPricePoint",
     "TriggerPriceProfile",
+    "TriggerPrices",
+    "StorageProfile",
+    "DomesticCashFlow",
+    "InventoryRange",
+    "log_linear_discount_factors",
+    "Monomial",
+    "parse_basis_functions",
+    "GenericBasisFunction",
+    "generic",
+    "BasisFunctionList",
+    "MonomialBuilder",
+    "ONE", "S", "X",
+    "X0", "X1", "X2", "X3", "X4", "X5", "X6", "X7", "X8", "X9",
+    "X_ST", "X_LT", "X_SW",
+    "spot_price_power",
+    "markov_factor_power",
+    "LsmcValuationParameters",
+    "LsmcValuationParametersBuilder",
+    "MultiFactorSimSpec",
+    "PanelSimSpec",
+    "lsmc_value",
+    "interpolate_curve_to_daily",
     "__version__",
 ]

@@ -7,7 +7,10 @@ none raises.
 Accepted: every ``sim_data_returned`` flag (per-sim panels of paths held on
 the card), pathwise deltas, antithetic draws (path 2m+1 takes the negated
 draws of path 2m, as in the JAX package), no progress or cancel callback, no
-checkpoint, uniform grids, monomial bases.  Every other option,
+checkpoint, uniform grids, and any basis the JAX package takes: the DSL
+string, combinators (``ONE + S + X0**2``) and generic callables, which must
+be torch-callable (a generic basis regresses on a design read from memory:
+kernel D backward and kernel C's design mode forward).  Every other option,
 user panels too large for the card and ``value_from_sims_host_local`` raise
 ``NotImplementedError`` naming, by its title, the ROADMAP item that ports
 them.  On CUDA a basis of more than 16 terms or a model of more than 8
@@ -372,6 +375,12 @@ def _lsmc_calc(
         )
 
     monomials = tuple(basis_mod.coerce_basis_functions(basis_funcs))
+    if basis_mod.has_generic(monomials):
+        logger.info(
+            "Generic basis function(s) present (%s): the design is built in memory (kernel D "
+            "backward, kernel C's design mode forward).",
+            ", ".join(str(m) for m in monomials if isinstance(m, basis_mod.GenericBasisFunction)),
+        )
     if device.type == "cuda":
         _build.require_caps("storage_tpu_torch", len(monomials), num_factors)
     inputs = prepare_valuation(

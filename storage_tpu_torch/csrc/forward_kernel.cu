@@ -29,6 +29,13 @@
 //     factor values and on tables known before the sweep, so blocks never
 //     wait on each other; inventory and PV stay in registers and are written
 //     once, at the end.
+//   * Design mode (kDesign, for bases with a user callable, which no kernel
+//     can evaluate): the wrapper writes each step's raw design values
+//     [N, B, S] to device memory, and the ring stages them in place of the
+//     factors: spot + B values a sim and step instead of spot + F.  Each
+//     entry is standardised as design_entry does, and the rest of the step
+//     is the same code, so a design equal to the monomials' gives the
+//     monomial mode's bits.
 //   * The wrapper packs each step's tables — parameters, design mean and
 //     std, ratchets, coefficients [B, G] — into one row of an [N, W] table.
 //     One thread copies row t + 2 into a two-stage ring in shared memory with
@@ -78,13 +85,14 @@ constexpr int kUsedSums = 6;
 __host__ __device__ inline int table_words(int B, int R, int G) {
   return (NUM_PARAMS + 2 * B + 3 * R + B * G + 3) / 4 * 4;
 }
-// Floats of one stage's per-sim slots: spot and F factor values of the
-// block's sims, as [1 + F][kSims][kThreads].
-__host__ __device__ inline int slot_words(int F) { return (1 + F) * kSims * kThreads; }
+// Floats of one stage's per-sim slots: spot and V staged values (the F
+// factors, or the B design values in design mode) of the block's sims, as
+// [1 + V][kSims][kThreads].
+__host__ __device__ inline int slot_words(int V) { return (1 + V) * kSims * kThreads; }
 // Dynamic shared memory, in floats: kStages tables (their padding counted at
 // its most) and slots, then the decision fractions [2, D] (D = 2E + 3).
-__host__ __device__ inline size_t smem_fixed_words(int B, int R, int F, int E) {
-  return static_cast<size_t>(kStages) * (NUM_PARAMS + 2 * B + 3 * R + 3 + slot_words(F)) +
+__host__ __device__ inline size_t smem_fixed_words(int B, int R, int V, int E) {
+  return static_cast<size_t>(kStages) * (NUM_PARAMS + 2 * B + 3 * R + 3 + slot_words(V)) +
          2 * (2 * static_cast<size_t>(E) + 3);
 }
 __host__ __device__ inline size_t smem_words_per_grid_point(int B) {
@@ -267,17 +275,19 @@ __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, i
   return best;
 }
 
-template <int B>
+// `values` is [N, V, S]: the factors (V = F) or, in design mode, the raw
+// design values (V = B).
+template <int B, bool kDesign>
 __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     int N, int S, int G, int R, int E, int is_step, stt::Basis basis,
     const float* __restrict__ table, const float* __restrict__ spot,
-    const float* __restrict__ factors, const float* __restrict__ inv0,
+    const float* __restrict__ values, const float* __restrict__ inv0,
     const float* __restrict__ pv0, float* __restrict__ inv_out, float* __restrict__ pv_out,
     float* __restrict__ inv_rows, float* __restrict__ dec_rows, float* __restrict__ cons_rows,
     float* __restrict__ imm_rows, float* __restrict__ partials) {
-  const int F = basis.nf;
+  const int V = kDesign ? B : basis.nf;
   const int W = table_words(B, R, G);
-  const int nslot = slot_words(F);
+  const int nslot = slot_words(V);
   const int nout = kNumSums + B;
   const int ngroups = (S + kThreads - 1) / kThreads;
   __shared__ uint64_t bars[kStages];
@@ -312,9 +322,9 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
 #pragma unroll
       for (int j = 0; j < kSims; ++j) {
         copy4(slot + j * kThreads, spot + static_cast<size_t>(t) * S + sim[j]);
-        for (int f = 0; f < F; ++f)
+        for (int f = 0; f < V; ++f)
           copy4(slot + ((1 + f) * kSims + j) * kThreads,
-                factors + (static_cast<size_t>(t) * F + f) * S + sim[j]);
+                values + (static_cast<size_t>(t) * V + f) * S + sim[j]);
       }
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
@@ -325,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&bars[k])));
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (tid < B) make_term(basis, tid, terms[tid]);
+  if (!kDesign && tid < B) make_term(basis, tid, terms[tid]);
   // The decision fractions of _bang_bang: with a zero decision, decision k of
   // D = 2E + 3 scales the withdrawal (k <= E + 1) or the injection by frac[k];
   // without, it lies frac[D + k] of the way from one to the other.
@@ -363,7 +373,8 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
       float dm[B];
 #pragma unroll
       for (int b = 0; b < B; ++b)
-        dm[b] = design_entry(terms[b], vals, kSims * kThreads, mean[b], stdv[b]);
+        dm[b] = kDesign ? __fdiv_rn(__fsub_rn(vals[(1 + b) * kSims * kThreads], mean[b]), stdv[b])
+                        : design_entry(terms[b], vals, kSims * kThreads, mean[b], stdv[b]);
 
       const StepResult r = step_sim<B>(par, R, G, E, is_step, sp, inv[j], dm, frac);
       float acc[kUsedSums] = {inv[j], r.dec, r.cons, r.loss, r.imm,
@@ -415,30 +426,64 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
   }
 }
 
-using SweepKernel = decltype(&forward_sweep_kernel<1>);
+using SweepKernel = decltype(&forward_sweep_kernel<1, false>);
 
-// The sweep compiled for basis size B, or NULL beyond stt::kMaxB.
+// The sweep compiled for basis size B in either mode, or NULL beyond
+// stt::kMaxB.
+template <bool kDesign>
 SweepKernel sweep_kernel(int B) {
   static_assert(stt::kMaxB == 16, "one case per basis size");
   switch (B) {
-    case 1: return forward_sweep_kernel<1>;
-    case 2: return forward_sweep_kernel<2>;
-    case 3: return forward_sweep_kernel<3>;
-    case 4: return forward_sweep_kernel<4>;
-    case 5: return forward_sweep_kernel<5>;
-    case 6: return forward_sweep_kernel<6>;
-    case 7: return forward_sweep_kernel<7>;
-    case 8: return forward_sweep_kernel<8>;
-    case 9: return forward_sweep_kernel<9>;
-    case 10: return forward_sweep_kernel<10>;
-    case 11: return forward_sweep_kernel<11>;
-    case 12: return forward_sweep_kernel<12>;
-    case 13: return forward_sweep_kernel<13>;
-    case 14: return forward_sweep_kernel<14>;
-    case 15: return forward_sweep_kernel<15>;
-    case 16: return forward_sweep_kernel<16>;
+    case 1: return forward_sweep_kernel<1, kDesign>;
+    case 2: return forward_sweep_kernel<2, kDesign>;
+    case 3: return forward_sweep_kernel<3, kDesign>;
+    case 4: return forward_sweep_kernel<4, kDesign>;
+    case 5: return forward_sweep_kernel<5, kDesign>;
+    case 6: return forward_sweep_kernel<6, kDesign>;
+    case 7: return forward_sweep_kernel<7, kDesign>;
+    case 8: return forward_sweep_kernel<8, kDesign>;
+    case 9: return forward_sweep_kernel<9, kDesign>;
+    case 10: return forward_sweep_kernel<10, kDesign>;
+    case 11: return forward_sweep_kernel<11, kDesign>;
+    case 12: return forward_sweep_kernel<12, kDesign>;
+    case 13: return forward_sweep_kernel<13, kDesign>;
+    case 14: return forward_sweep_kernel<14, kDesign>;
+    case 15: return forward_sweep_kernel<15, kDesign>;
+    case 16: return forward_sweep_kernel<16, kDesign>;
     default: return nullptr;
   }
+}
+
+// Launches the sweep of either mode (V staged values a sim and step), then
+// the reduce of its partials.
+cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, int E,
+                         int is_step, const stt::Basis& basis, const void* table,
+                         const void* spot, const void* values, const void* inv0,
+                         const void* pv0, void* inv_out, void* pv_out, void* inv_rows,
+                         void* dec_rows, void* cons_rows, void* imm_rows, void* partials,
+                         void* totals, void* stream) {
+  if (reinterpret_cast<uintptr_t>(table) % 16 != 0) return cudaErrorMisalignedAddress;
+  const int B = basis.nb;
+  const size_t smem = sizeof(float) *
+      (smem_fixed_words(B, R, V, E) + smem_words_per_grid_point(B) * G);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nblk = (S + kSims * kThreads - 1) / (kSims * kThreads);
+  kernel<<<nblk, kThreads, smem, st>>>(
+      N, S, G, R, E, is_step, basis, static_cast<const float*>(table),
+      static_cast<const float*>(spot), static_cast<const float*>(values),
+      static_cast<const float*>(inv0), static_cast<const float*>(pv0),
+      static_cast<float*>(inv_out), static_cast<float*>(pv_out),
+      static_cast<float*>(inv_rows), static_cast<float*>(dec_rows),
+      static_cast<float*>(cons_rows), static_cast<float*>(imm_rows),
+      static_cast<float*>(partials));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stt::launch_reduce(static_cast<const float*>(partials), (S + kThreads - 1) / kThreads,
+                     N * (kNumSums + B), static_cast<float*>(totals), st);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -457,40 +502,40 @@ extern "C" int stt_forward_sweep(
   stt::Basis basis;
   if (!stt::make_basis(basis_table, F, &basis) || N < 1 || S < 1 || G < 2 || R < 1 || E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(table) % 16 != 0)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  const int B = basis.nb;
-  const SweepKernel kernel = sweep_kernel(B);
-  const size_t smem = sizeof(float) *
-      (smem_fixed_words(B, R, F, E) + smem_words_per_grid_point(B) * G);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblk = (S + kSims * kThreads - 1) / (kSims * kThreads);
-  kernel<<<nblk, kThreads, smem, st>>>(
-      N, S, G, R, E, is_step, basis, static_cast<const float*>(table),
-      static_cast<const float*>(spot), static_cast<const float*>(factors),
-      static_cast<const float*>(inv0), static_cast<const float*>(pv0),
-      static_cast<float*>(inv_out), static_cast<float*>(pv_out),
-      static_cast<float*>(inv_rows), static_cast<float*>(dec_rows),
-      static_cast<float*>(cons_rows), static_cast<float*>(imm_rows),
-      static_cast<float*>(partials));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stt::launch_reduce(static_cast<const float*>(partials), (S + kThreads - 1) / kThreads,
-                     N * (kNumSums + B), static_cast<float*>(totals), st);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_sweep(
+      sweep_kernel<false>(basis.nb), N, S, F, G, R, E, is_step, basis, table, spot, factors,
+      inv0, pv0, inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows, partials, totals,
+      stream));
+}
+
+// The sweep in design mode: as stt_forward_sweep, with the raw design
+// values [N, B, S] of B basis functions in place of the factors.
+extern "C" int stt_forward_sweep_design(
+    int N, int S, int B, int G, int R, int E, int is_step, const void* table,
+    const void* spot, const void* design, const void* inv0, const void* pv0, void* inv_out,
+    void* pv_out, void* inv_rows, void* dec_rows, void* cons_rows, void* imm_rows,
+    void* partials, void* totals, void* stream) {
+  if (B < 1 || B > stt::kMaxB || N < 1 || S < 1 || G < 2 || R < 1 || E < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  stt::Basis basis{};
+  basis.nb = B;
+  return static_cast<int>(launch_sweep(
+      sweep_kernel<true>(B), N, S, B, G, R, E, is_step, basis, table, spot, design, inv0,
+      pv0, inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows, partials, totals,
+      stream));
 }
 
 // The sweep's launch report at (G, B, R, F, E) on the current device
-// (common.cuh kernel_info), with out[0] the sims of a block.
-extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int* out) {
-  if (G < 0 || B < 1 || B > stt::kMaxB || R < 1 || F < 0 || F > stt::kMaxF || E < 0)
+// (common.cuh kernel_info), with out[0] the sims of a block; with `design`
+// set, the design mode's (F is then not read).
+extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int design, int* out) {
+  if (G < 0 || B < 1 || B > stt::kMaxB || R < 1 || E < 0 ||
+      (!design && (F < 0 || F > stt::kMaxF)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = stt::kernel_info(sweep_kernel(B), kThreads,
-                                           smem_fixed_words(B, R, F, E),
-                                           smem_words_per_grid_point(B), G, out);
+  const int V = design ? B : F;
+  const cudaError_t err = stt::kernel_info(
+      design ? sweep_kernel<true>(B) : sweep_kernel<false>(B), kThreads,
+      smem_fixed_words(B, R, V, E), smem_words_per_grid_point(B), G, out);
   out[0] = kSims * kThreads;
   return static_cast<int>(err);
 }

@@ -12,13 +12,17 @@ panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
   Between kernels, tensor code solves the [B, B] system and interpolates the
   coefficients to each (grid point, decision) target; ``fullstep=True`` runs
   kernel E instead, which does that solve on the card too, so a step is E's
-  launches alone.  Spot-only panels (no factor, ``value_from_sims``) take the
-  JAX package's plain body: each step regresses v on its standardised design
-  (``fit_continuation``) and runs kernel D on it.
+  launches alone.  Spot-only panels (no factor, ``value_from_sims``) and bases
+  with a user callable (``basis.generic``) take the JAX package's plain body:
+  each step regresses v on its standardised design (``fit_continuation``)
+  and runs kernel D on it.
 * The forward pass runs one forward sweep over all steps (kernel C,
   ``ops.forward_kernel``) on an independent valuation-sim set, re-using the
   saved regression (the dual-simulation lower-bound estimator,
-  LsmcStorageValuation.cs:352-415), and produces NPV, standard error,
+  LsmcStorageValuation.cs:352-415); a basis with a user callable runs the
+  sweep's design mode on the design built a chunk of steps at a time
+  (``forward_kernel.forward_sweep_generic``).  The forward pass produces NPV,
+  standard error,
   pathwise deltas (:513-518), expected profiles and trigger prices
   (:523-592); with ``return_sim_data`` kernel C writes its per-sim outputs
   straight into [N, S] panels.
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from .. import grid as gridmod
-from ..basis import Monomial, design_columns, design_matrix
+from ..basis import design_columns, design_matrix, has_generic
 from ..facility import CompiledStorage
 from ..ops import decision_kernel, forward_kernel, interp
 from ..ops.regression import column_stats, fit_continuation, fit_from_moments
@@ -206,7 +210,7 @@ def lsmc_backward(
     arrays: tp.Dict[str, torch.Tensor],
     spot_reg: torch.Tensor,  # [N+1, S]
     factors_reg: torch.Tensor,  # [N+1, F, S]
-    monomials: tp.Tuple[Monomial, ...],
+    monomials: tp.Tuple,
     num_extra_decisions: int,
     terminal_fn,
     ratchet_is_step: bool,
@@ -219,15 +223,17 @@ def lsmc_backward(
     ``snap_interp`` rounds the interpolation weights to the 1/256 grid, the
     quadrature of the TPU run.  Factor panels run kernel B with the tensor
     glue between steps, or kernel E alone with ``fullstep``; spot-only panels
-    ([N+1, 0, S] factors) run the plain body with kernel D, and refuse
-    ``fullstep`` (kernel E accumulates the moments of factor panels)."""
+    ([N+1, 0, S] factors) and bases with a user callable run the plain body
+    with kernel D on the design read from memory, and refuse ``fullstep``
+    (kernels B and E build monomial designs of factor panels on the card)."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     num_grid = grids.shape[1]
     dtype = grids.dtype
-    spot_only = factors_reg.shape[1] == 0
-    if fullstep and spot_only:
-        raise ValueError("fullstep needs factor panels: spot-only panels run kernel D")
+    design_in_memory = factors_reg.shape[1] == 0 or has_generic(monomials)
+    if fullstep and design_in_memory:
+        raise ValueError("fullstep needs factor panels and a monomial basis: spot-only panels "
+                         "and generic bases run kernel D")
     v = _terminal_values(
         terminal_fn, spot_reg[n], grids[n], num_grid, spot_reg.shape[1], dtype
     )
@@ -236,7 +242,7 @@ def lsmc_backward(
     coeffs_all = torch.empty((n, len(monomials), num_grid), dtype=dtype, device=grids.device)
     spare = torch.empty_like(v)
     step_args = lambda t: (prep["idx_lo"][t], prep["w_hi"][t])  # noqa: E731
-    if spot_only:
+    if design_in_memory:
         for t in range(n - 1, -1, -1):
             # Regression of the next period's values on this period's
             # standardised design (the JAX plain body, engines/lsmc.py:306-327).
@@ -371,7 +377,7 @@ def lsmc_forward(
     factors_val: torch.Tensor,  # [N+1, F, S]
     regression: tp.Dict[str, torch.Tensor],
     starting_inventory,
-    monomials: tp.Tuple[Monomial, ...],
+    monomials: tp.Tuple,
     num_extra_decisions: int,
     discount_deltas: bool,
     terminal_fn,
@@ -404,11 +410,18 @@ def lsmc_forward(
         sim_dec, sim_cons = panel(n), panel(n)
         sim_inventory[0] = inventory
         panels = (sim_inventory[1:], sim_dec, sim_cons, sim_pv[:n])
-    inventory, pv, sums, xbar = forward_kernel.forward_sweep(
-        params, regression["mean"], regression["std"], *(r[:n] for r in ratchets),
-        spot_val[:n], factors_val[:n], inventory, None, regression["coeffs"], monomials,
-        num_extra_decisions, ratchet_is_step, panels=panels,
-    )
+    if has_generic(monomials):
+        inventory, pv, sums, xbar = forward_kernel.forward_sweep_generic(
+            params, regression["mean"], regression["std"], *(r[:n] for r in ratchets),
+            spot_val[:n], factors_val[:n], inventory, regression["coeffs"], monomials,
+            num_extra_decisions, ratchet_is_step, panels=panels,
+        )
+    else:
+        inventory, pv, sums, xbar = forward_kernel.forward_sweep(
+            params, regression["mean"], regression["std"], *(r[:n] for r in ratchets),
+            spot_val[:n], factors_val[:n], inventory, None, regression["coeffs"], monomials,
+            num_extra_decisions, ratchet_is_step, panels=panels,
+        )
     count = float(s_count)
     xbar = xbar / count
     expected_inventory = sums[:, forward_kernel._A_INV] / count
@@ -478,7 +491,7 @@ def lsmc_core(
     spot_val: torch.Tensor,
     factors_val: torch.Tensor,
     starting_inventory,
-    monomials: tp.Tuple[Monomial, ...],
+    monomials: tp.Tuple,
     num_extra_decisions: int,
     discount_deltas: bool,
     terminal_fn,
@@ -492,7 +505,7 @@ def lsmc_core(
     sims drive the backward pass, valuation sims the forward pass.  Results
     stay on the panels' device.  ``return_sim_data`` adds the per-sim panels
     (``lsmc_forward``); ``fullstep`` runs each backward step as kernel E
-    alone (factor panels only)."""
+    alone (factor panels and monomial bases only)."""
     with full_f32_matmul():
         v0, regression = lsmc_backward(
             arrays, spot_reg, factors_reg, monomials, num_extra_decisions,

@@ -15,15 +15,22 @@ builds the spot in registers, and writes only the factors and the spot.
 ``draw_normal_halves`` materialises the f32 draws themselves (kernel A,
 ``ops.rng_kernel.normal_halves``, on the card); the package's paths do not
 call it: the tests and ``chip_smoke.py``'s TPU-numerics emulation do.
+
+``MultiFactorSpotSim`` is the facade of the reference's simulator: spot (and
+factor) frames of periods x sims from a model, a forward curve and a seed.
 """
 from __future__ import annotations
 
 import typing as tp
 
+import numpy as np
+import pandas as pd
 import torch
 
 from ..ops import rng_kernel
 from ..ops.rng_kernel import MASK32
+from ..utils import periods as pu
+from . import multi_factor as mf
 
 Key = tp.Tuple[int, int]
 
@@ -168,3 +175,82 @@ def simulate_ou_paths(
         z = multi_step_normals(key, 0, p, path_ids, f, antithetic, decay.dtype)
         factors, spot = rng_kernel.ou_sweep_plain(z, decay, chol, vols, c)
     return SpotSimResults(spot=spot, factors=factors)
+
+
+class MultiFactorSpotSim:
+    """Simulator facade, mirroring the reference ``MultiFactorSpotSim``
+    (multi_factor_spot_sim.py:39-88) and the JAX package's: built from the
+    factors, their correlations, the forward curve and the periods to
+    simulate; ``simulate(num_sims)`` returns the spot prices as a frame of
+    periods x sims, ``simulate_with_factors`` also one frame per factor.
+
+    The paths are the JAX package's for the same seed (``key_from_seed``):
+    threefry counter draws, not the reference's Mersenne Twister.  They are
+    simulated on ``device`` (CUDA unless the caller names another) in
+    ``dtype``: in f32 one launch of the simulation sweep per call, in f64
+    the plain loop.  The frames are f64."""
+
+    def __init__(
+        self,
+        freq: str,
+        factors: tp.Collection[mf.FactorType],
+        factor_corrs: mf.FactorCorrsType,
+        current_date,
+        fwd_curve: tp.Union[pd.Series, tp.Dict],
+        sim_periods: tp.Iterable,
+        seed: tp.Optional[int] = None,
+        antithetic: bool = False,
+        dtype=torch.float32,
+        *,
+        device="cuda",
+    ):
+        from ..api import resolve_device
+
+        pandas_freq = pu.normalise_freq(freq)
+        self._freq = pandas_freq
+        periods = [
+            p if isinstance(p, pd.Period) else pd.Period(p, freq=pandas_freq)
+            for p in sim_periods
+        ]
+        self._periods = periods
+        pre = mf.simulation_precompute(factors, factor_corrs, current_date, periods, freq)
+        if isinstance(fwd_curve, pd.Series):
+            curve = fwd_curve.copy()
+            if not isinstance(curve.index, pd.PeriodIndex):
+                curve.index = pd.PeriodIndex(curve.index, freq=pandas_freq)
+            lookup = {p: float(v) for p, v in curve.items()}
+        else:
+            lookup = {
+                (k if isinstance(k, pd.Period) else pd.Period(k, freq=pandas_freq)): float(v)
+                for k, v in fwd_curve.items()
+            }
+        for p in periods:
+            if p not in lookup:
+                raise ValueError(f"Forward curve has no point for period {p}.")
+        self._device = resolve_device(device)
+        as_t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=self._device)  # noqa: E731
+        self._decay = as_t(pre.decay)
+        self._chol = as_t(pre.chol)
+        self._vols = as_t(pre.vols)
+        self._half_var = as_t(pre.half_var)
+        self._fwd = as_t([lookup[p] for p in periods])
+        self._key = key_from_seed(0 if seed is None else int(seed))
+        self._antithetic = antithetic
+
+    def _simulate(self, num_sims: int) -> SpotSimResults:
+        ids = torch.arange(num_sims, dtype=torch.int64, device=self._device)
+        return simulate_ou_paths(self._key, ids, self._decay, self._chol, self._vols,
+                                 self._half_var, self._fwd, antithetic=self._antithetic)
+
+    def _frame(self, data: torch.Tensor) -> pd.DataFrame:
+        index = pd.PeriodIndex(self._periods, freq=self._freq)
+        return pd.DataFrame(data=data.detach().cpu().numpy().astype(np.float64), index=index)
+
+    def simulate(self, num_sims: int) -> pd.DataFrame:
+        return self._frame(self._simulate(num_sims).spot)
+
+    def simulate_with_factors(self, num_sims: int) -> tp.Tuple[pd.DataFrame, tp.List[pd.DataFrame]]:
+        """Spot frame plus one frame per Markov factor (for ``value_from_sims``)."""
+        res = self._simulate(num_sims)
+        return self._frame(res.spot), [self._frame(res.factors[:, i, :])
+                                       for i in range(res.factors.shape[1])]

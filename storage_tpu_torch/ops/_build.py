@@ -81,8 +81,13 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P,
     ),
-    # G, B, R, F, E, out int[6] (the sweep's launch report)
-    "stt_forward_sweep_info": (_I, _I, _I, _I, _I, _P),
+    # N, S, B, G, R, E, is_step, packed tables, spot, design [N, B, S], then
+    # as stt_forward_sweep from inv0
+    "stt_forward_sweep_design": (
+        _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
+    # G, B, R, F, E, design mode, out int[6] (the sweep's launch report)
+    "stt_forward_sweep_info": (_I, _I, _I, _I, _I, _I, _P),
     # N, G, R, E, is_step, mode, steps, ratchet inv/min/max, grids, v_end,
     # solver (or NULL), starting inventory, vs, moments (or NULL), rhs (or
     # NULL), out, stream

@@ -10,9 +10,13 @@ rows each decision touches (``coeffs[:, row]·dm`` at lo and lo + 1), in plain
 f32 — the JAX kernel's ``pred_passes=1`` arithmetic.
 
 ``csrc/forward_kernel.cu`` is the kernel: ``forward_sweep`` launches it once
-for all N steps (``forward_step`` is the sweep at N = 1).  ``forward_step_plain``
-is one step in tensor code and ``forward_sweep_plain`` its loop over the
-steps, used for CPU tensors.  The ratchet lookup and the decision fractions
+for all N steps (``forward_step`` is the sweep at N = 1).  Its design mode,
+``forward_sweep_design``, reads each step's raw design [B, S] from memory
+instead of building it from monomials: ``forward_sweep_generic`` runs it for
+a basis with user callables, building the design ``DESIGN_CHUNK`` steps at a
+time and launching once per chunk.  ``forward_step_plain`` is one step in
+tensor code and ``forward_sweep_plain`` its loop over the steps, used for
+CPU tensors.  The ratchet lookup and the decision fractions
 follow the TPU kernel (``_ratchet_rates_smem``, ``_bang_bang``), so the plain
 version agrees with it term for term.
 """
@@ -24,7 +28,7 @@ import typing as tp
 
 import torch
 
-from ..basis import Monomial, design_matrix
+from ..basis import design_columns, design_matrix
 from . import _build
 
 # Parameter slots (the JAX kernel's SMEM vector layout).
@@ -133,11 +137,15 @@ def _bang_bang(min_rate, max_rate, inventory, loss_pcnt, next_min, next_max,
 
 def decision_candidates(params, mean, std, ratchet_inv, ratchet_min, ratchet_max,
                         spot, factors, inventory, coeffs, monomials,
-                        num_extra_decisions: int, ratchet_is_step: bool):
+                        num_extra_decisions: int, ratchet_is_step: bool, design=None):
     """Per decision, its total value [S] (immediate plus fitted continuation)
     and the path quantities it would set, in the kernel's arithmetic order;
-    with the standardised design [S, B] and the inventory loss [S]."""
-    dm = (design_matrix(monomials, spot, factors) - mean) / std  # [S, B]
+    with the standardised design [S, B] and the inventory loss [S].  The raw
+    design is ``design`` [B, S] where one is given (design mode), else the
+    monomials' on ``spot`` and ``factors``."""
+    # [S, B] in the monomials' layout, so that the summed row adds alike.
+    raw = design.T.contiguous() if design is not None else design_matrix(monomials, spot, factors)
+    dm = (raw - mean) / std  # [S, B]
     g = coeffs.shape[1]
     par = params.to(spot.dtype)
     min_rate, max_rate = _ratchet_rates(
@@ -177,12 +185,14 @@ def decision_candidates(params, mean, std, ratchet_inv, ratchet_min, ratchet_max
 
 def forward_step_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max,
                        spot, factors, inventory, pv, coeffs, monomials,
-                       num_extra_decisions: int, ratchet_is_step: bool, imm_out=None):
+                       num_extra_decisions: int, ratchet_is_step: bool, imm_out=None,
+                       design=None):
     """Tensor-code version of the kernel; any dtype, any device.  The chosen
-    immediate PV per sim goes to ``imm_out`` where one is given."""
+    immediate PV per sim goes to ``imm_out`` where one is given; ``design``
+    as for ``decision_candidates``."""
     candidates, dm, loss = decision_candidates(
         params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, factors,
-        inventory, coeffs, monomials, num_extra_decisions, ratchet_is_step,
+        inventory, coeffs, monomials, num_extra_decisions, ratchet_is_step, design,
     )
     best, opt = candidates[0]
     for total, cand in candidates[1:]:
@@ -199,21 +209,22 @@ def forward_step_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max,
     return opt["inv"], pv + opt["imm"], opt["dec"], opt["cons"], sums, dm.sum(dim=0)
 
 
-
-
 def forward_sweep_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
                         factors, inventory, pv, coeffs, monomials, num_extra_decisions: int,
-                        ratchet_is_step: bool, panels=None, out=None):
+                        ratchet_is_step: bool, panels=None, out=None, design=None):
     """Tensor-code version of the sweep: ``forward_step_plain`` once per step;
-    any dtype, any device.  Arguments and results as ``forward_sweep``'s."""
+    any dtype, any device.  Arguments and results as ``forward_sweep``'s; with
+    ``design`` [N, B, S] (design mode, ``forward_sweep_design``) the steps read
+    it, and ``factors`` and ``monomials`` are not read."""
     rows = list(panels) if panels is not None else [None] * 4
     pv = torch.zeros_like(inventory) if pv is None else pv
     sums, xbar = [], []
     for t in range(spot.shape[0]):
         inventory, pv, dec, cons, sums_t, xbar_t = forward_step_plain(
             params[t], mean[t], std[t], ratchet_inv[t], ratchet_min[t], ratchet_max[t],
-            spot[t], factors[t], inventory, pv, coeffs[t], monomials, num_extra_decisions,
-            ratchet_is_step, None if rows[3] is None else rows[3][t],
+            spot[t], None if factors is None else factors[t], inventory, pv, coeffs[t],
+            monomials, num_extra_decisions, ratchet_is_step,
+            None if rows[3] is None else rows[3][t], None if design is None else design[t],
         )
         for buf, val in zip(rows[:3], (inventory, dec, cons)):
             if buf is not None:
@@ -261,29 +272,94 @@ _INFO_FIELDS = ("sims_per_block", "smem_bytes", "smem_limit", "max_grid", "block
 
 
 @functools.lru_cache(maxsize=64)
-def _kernel_info(g: int, bdim: int, r: int, f: int, e: int, device_index: int) -> dict:
+def _kernel_info(g: int, bdim: int, r: int, f: int, e: int, design: bool,
+                 device_index: int) -> dict:
     out = (ctypes.c_int * len(_INFO_FIELDS))()
     with torch.cuda.device(device_index):
-        _build.check(_build.library().stt_forward_sweep_info(g, bdim, r, f, e, out),
+        _build.check(_build.library().stt_forward_sweep_info(g, bdim, r, f, e, int(design), out),
                      "stt_forward_sweep_info")
     return dict(zip(_INFO_FIELDS, out))
 
 
-def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device) -> dict:
+def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device, design: bool = False) -> dict:
     """Launch report of the sweep kernel at G grid points, B basis functions,
     R ratchet nodes, F factors and E extra decisions on a CUDA device: sims
     per block, shared memory bytes per block (static and dynamic: the
     two-stage ring of step tables and per-sim values, and the decision
     fractions), the device's limit per block, the largest G
     within it, blocks per SM (0 where G does not fit) and registers per
-    thread.  B and F must be within the kernels' caps (``_build.limits``)."""
-    return _kernel_info(g, bdim, r, f, e, torch.device(device).index or 0)
+    thread.  B and F must be within the kernels' caps (``_build.limits``).
+    ``design`` reports the design mode, which stages B design values a sim
+    in place of the F factors (F is not read)."""
+    return _kernel_info(g, bdim, r, f, e, bool(design), torch.device(device).index or 0)
 
 
-def sass_name(bdim: int) -> str:
+def sass_name(bdim: int, design: bool = False) -> str:
     """What the mangled name of the sweep kernel compiled for B basis
-    functions holds (for ``_build.sass_instructions``)."""
-    return f"forward_sweep_kernelILi{bdim}EE"
+    functions (in design mode with ``design``) holds (for
+    ``_build.sass_instructions``)."""
+    return f"forward_sweep_kernelILi{bdim}ELb{int(design)}EE"
+
+
+def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, values,
+                  inventory, pv, coeffs, monomials, num_extra_decisions, ratchet_is_step, panels,
+                  out):
+    """Checks and launches the sweep in either mode: ``values`` [N, V, S] are
+    the factors (``monomials`` given) or the raw design (``monomials`` None,
+    V = B).  Returns (inventory, pv, sums, xbar_sum) and the C call's code."""
+    design = monomials is None
+    n, s = spot.shape
+    v = values.shape[1]
+    bdim, g = coeffs.shape[1:]
+    f = 0 if design else v
+    r = ratchet_inv.shape[1]
+    rows = list(panels) if panels is not None else [None] * 4
+    outs = list(out) if out is not None else [
+        torch.empty(s, dtype=torch.float32, device=spot.device) for _ in range(2)]
+    given = [t for t in (pv, *rows) if t is not None]
+    device = _build.require_cuda(
+        name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
+        values, inventory, coeffs, *outs, *given,
+    )
+    shapes = {
+        "params": (params, (n, NUM_PARAMS)), "mean": (mean, (n, bdim)), "std": (std, (n, bdim)),
+        "ratchet_min": (ratchet_min, (n, r)), "ratchet_max": (ratchet_max, (n, r)),
+        ("design" if design else "factors"): (values, (n, bdim if design else f, s)),
+        "coeffs": (coeffs, (n, bdim, g)),
+        "inventory": (inventory, (s,)), **({"pv": (pv, (s,))} if pv is not None else {}),
+        **{f"out[{i}]": (o, (s,)) for i, o in enumerate(outs)},
+        **{f"panels[{i}]": (p, (n, s)) for i, p in enumerate(rows) if p is not None},
+    }
+    for key, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} is {tuple(t.shape)}, want {shape}")
+    if not design and len(monomials) != bdim:
+        raise ValueError(f"{name}: coeffs rows must match the basis")
+    _build.require_caps(name, bdim, f)
+    info = kernel_info(g, bdim, r, f, num_extra_decisions, device, design=design)
+    if info["smem_bytes"] > info["smem_limit"]:
+        staged = f"B={bdim} design values" if design else f"F={f} factors"
+        raise ValueError(
+            f"{name}: G={g} grid points at B={bdim} basis functions, R={r} ratchet nodes, "
+            f"{staged} and E={num_extra_decisions} extra decisions need {info['smem_bytes']} bytes "
+            f"of shared memory per block (two steps' tables grow with G); this card allows "
+            f"{info['smem_limit']}, so at most G={info['max_grid']}")
+    table = pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs)
+    nout = NUM_SUMS + bdim
+    partials = torch.empty((n * nout * -(-s // _GROUP),), dtype=torch.float32, device=device)
+    totals = torch.empty((n, nout), dtype=torch.float32, device=device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _build.library()
+    common = (table.data_ptr(), spot.data_ptr(), values.data_ptr(), inventory.data_ptr(),
+              ptr(pv), outs[0].data_ptr(), outs[1].data_ptr(), *(ptr(p) for p in rows),
+              partials.data_ptr(), totals.data_ptr(), _build.stream_handle(device))
+    if design:
+        rc = lib.stt_forward_sweep_design(n, s, bdim, g, r, num_extra_decisions,
+                                          int(ratchet_is_step), *common)
+    else:
+        rc = lib.stt_forward_sweep(n, s, f, g, r, num_extra_decisions, int(ratchet_is_step),
+                                   _build.basis_table(tuple(monomials), f), *common)
+    return (outs[0], outs[1], totals[:, :NUM_SUMS], totals[:, NUM_SUMS:]), rc
 
 
 def forward_sweep(
@@ -298,7 +374,7 @@ def forward_sweep(
     inventory: torch.Tensor,    # [S] before step 0
     pv: tp.Optional[torch.Tensor],  # [S] before step 0, or None for zeros
     coeffs: torch.Tensor,       # [N, B, G]
-    monomials: tp.Sequence[Monomial],
+    monomials: tp.Sequence,
     num_extra_decisions: int,
     ratchet_is_step: bool,
     panels: tp.Optional[tp.Sequence[tp.Optional[torch.Tensor]]] = None,
@@ -321,57 +397,85 @@ def forward_sweep(
             params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, factors, inventory,
             pv, coeffs, monomials, num_extra_decisions, ratchet_is_step, panels, out,
         )
-    n, s = spot.shape
-    f = factors.shape[1]
-    bdim, g = coeffs.shape[1:]
-    r = ratchet_inv.shape[1]
-    rows = list(panels) if panels is not None else [None] * 4
-    outs = list(out) if out is not None else [
-        torch.empty(s, dtype=torch.float32, device=spot.device) for _ in range(2)]
-    given = [t for t in (pv, *rows) if t is not None]
-    device = _build.require_cuda(
+    result, rc = _launch_sweep(
         "forward_sweep", params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
-        factors, inventory, coeffs, *outs, *given,
-    )
-    shapes = {
-        "params": (params, (n, NUM_PARAMS)), "mean": (mean, (n, bdim)), "std": (std, (n, bdim)),
-        "ratchet_min": (ratchet_min, (n, r)), "ratchet_max": (ratchet_max, (n, r)),
-        "factors": (factors, (n, f, s)), "coeffs": (coeffs, (n, bdim, g)),
-        "inventory": (inventory, (s,)), **({"pv": (pv, (s,))} if pv is not None else {}),
-        **{f"out[{i}]": (o, (s,)) for i, o in enumerate(outs)},
-        **{f"panels[{i}]": (p, (n, s)) for i, p in enumerate(rows) if p is not None},
-    }
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"forward_sweep: {name} is {tuple(t.shape)}, want {shape}")
-    if len(monomials) != bdim:
-        raise ValueError("forward_sweep: coeffs rows must match the basis")
-    _build.require_caps("forward_sweep", bdim, f)
-    info = kernel_info(g, bdim, r, f, num_extra_decisions, device)
-    if info["smem_bytes"] > info["smem_limit"]:
-        raise ValueError(
-            f"forward_sweep: G={g} grid points at B={bdim} basis functions, R={r} ratchet nodes, "
-            f"F={f} factors and E={num_extra_decisions} extra decisions need {info['smem_bytes']} bytes of shared memory per block (two "
-            f"steps' tables grow with G); this card allows {info['smem_limit']}, so at most "
-            f"G={info['max_grid']}")
-    table = pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs)
-    nout = NUM_SUMS + bdim
-    partials = torch.empty((n * nout * -(-s // _GROUP),), dtype=torch.float32, device=device)
-    totals = torch.empty((n, nout), dtype=torch.float32, device=device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = _build.library().stt_forward_sweep(
-        n, s, f, g, r, num_extra_decisions, int(ratchet_is_step),
-        _build.basis_table(tuple(monomials), f), table.data_ptr(), spot.data_ptr(),
-        factors.data_ptr(), inventory.data_ptr(), ptr(pv), outs[0].data_ptr(),
-        outs[1].data_ptr(), *(ptr(p) for p in rows), partials.data_ptr(), totals.data_ptr(),
-        _build.stream_handle(device),
-    )
+        factors, inventory, pv, coeffs, monomials, num_extra_decisions, ratchet_is_step,
+        panels, out)
     forward_sweep.launches += 1
     _build.check(rc, "forward_sweep")
-    return outs[0], outs[1], totals[:, :NUM_SUMS], totals[:, NUM_SUMS:]
+    return result
 
 
 forward_sweep.launches = 0
+
+
+def forward_sweep_design(
+    params: torch.Tensor,       # [N, 13] step scalars (pack_params)
+    mean: torch.Tensor,         # [N, B]
+    std: torch.Tensor,          # [N, B]
+    ratchet_inv: torch.Tensor,  # [N, R]
+    ratchet_min: torch.Tensor,  # [N, R]
+    ratchet_max: torch.Tensor,  # [N, R]
+    spot: torch.Tensor,         # [N, S]
+    design: torch.Tensor,       # [N, B, S] raw (unstandardised) design values
+    inventory: torch.Tensor,    # [S] before step 0
+    pv: tp.Optional[torch.Tensor],  # [S] before step 0, or None for zeros
+    coeffs: torch.Tensor,       # [N, B, G]
+    num_extra_decisions: int,
+    ratchet_is_step: bool,
+    panels: tp.Optional[tp.Sequence[tp.Optional[torch.Tensor]]] = None,
+    out: tp.Optional[tp.Sequence[torch.Tensor]] = None,
+):
+    """Kernel C's design mode: ``forward_sweep`` on each step's raw design
+    [B, S], read from memory and standardised by ``mean`` and ``std``, in
+    place of the design that monomials build on the card.  Results,
+    ``panels`` and ``out`` as ``forward_sweep``'s.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel once for all N steps (B up to the
+    kernels' cap; no factor is read, so the factor cap does not apply)."""
+    if spot.device.type == "cpu":
+        return forward_sweep_plain(
+            params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, None, inventory,
+            pv, coeffs, None, num_extra_decisions, ratchet_is_step, panels, out, design=design,
+        )
+    result, rc = _launch_sweep(
+        "forward_sweep_design", params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
+        design, inventory, pv, coeffs, None, num_extra_decisions, ratchet_is_step, panels, out)
+    forward_sweep_design.launches += 1
+    _build.check(rc, "forward_sweep_design")
+    return result
+
+
+forward_sweep_design.launches = 0
+
+# Steps of raw design a launch of the design mode reads: at S = 262,144 and
+# B = 9 a chunk of 32 steps is 302 MB, where the whole 365-step year would be
+# 3.44 GB.
+DESIGN_CHUNK = 32
+
+
+def forward_sweep_generic(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
+                          factors, inventory, coeffs, entries, num_extra_decisions: int,
+                          ratchet_is_step: bool, panels=None):
+    """The forward pass for a basis of any entries, generic callables too:
+    ``DESIGN_CHUNK`` steps at a time, the raw design of the chunk's steps built on
+    the spot's device (``basis.design_columns``, a generic entry called once
+    a step) and swept by ``forward_sweep_design``, the inventory and PV
+    carried from one chunk to the next.  Arguments and results as
+    ``forward_sweep``'s (without ``pv``: the PV starts at zero)."""
+    rows = list(panels) if panels is not None else [None] * 4
+    pv, sums, xbar = None, [], []
+    for t0 in range(0, spot.shape[0], DESIGN_CHUNK):
+        t1 = min(t0 + DESIGN_CHUNK, spot.shape[0])
+        design = torch.stack(design_columns(entries, spot[t0:t1], factors[t0:t1]), dim=1)
+        inventory, pv, sums_c, xbar_c = forward_sweep_design(
+            params[t0:t1], mean[t0:t1], std[t0:t1], ratchet_inv[t0:t1], ratchet_min[t0:t1],
+            ratchet_max[t0:t1], spot[t0:t1], design, inventory, pv, coeffs[t0:t1],
+            num_extra_decisions, ratchet_is_step,
+            panels=[None if p is None else p[t0:t1] for p in rows],
+        )
+        sums.append(sums_c)
+        xbar.append(xbar_c)
+    return inventory, pv, torch.cat(sums), torch.cat(xbar)
 
 
 def forward_step(
@@ -386,7 +490,7 @@ def forward_step(
     inventory: torch.Tensor,    # [S]
     pv: torch.Tensor,           # [S]
     coeffs: torch.Tensor,       # [B, G]
-    monomials: tp.Sequence[Monomial],
+    monomials: tp.Sequence,
     num_extra_decisions: int,
     ratchet_is_step: bool,
     out: tp.Optional[tp.Sequence[torch.Tensor]] = None,

@@ -217,10 +217,8 @@ def test_f32_valuation_close_to_jax():
         (dict(deltas_method="adjoint"), "adjoint deltas"),
         (dict(grid_calc=lambda lo, hi: np.linspace(lo, hi, 5)),
          "custom inventory grids in the LSMC engine"),
-        (dict(basis_funcs=[lambda s, x: s]), "the rest of the host layer"),
     ],
-    ids=["progress", "cancel", "checkpoint", "adjoint", "grid-calc",
-         "generic-basis"],
+    ids=["progress", "cancel", "checkpoint", "adjoint", "grid-calc"],
 )
 def test_unported_options_raise(option, item):
     """Each refusal names its ROADMAP item by title, which a renumbering of

@@ -78,16 +78,16 @@ _DPFRAC = """    float dec;
       const float f_ = static_cast<float>((k > 1 ? k - 1.0 : 0.0) / (D - 2));
       dec = __fadd_rn(yw, __fmul_rn(__fsub_rn(yi, yw), f_));
     }"""
-_POWLOOP = """      {
-        float x = 1.0f;
-        if (basis.pows[b][0]) x = __fmul_rn(x, stt::ipow(sp, basis.pows[b][0]));
+_POWLOOP = """[&] {
+          float x = 1.0f;
+          if (basis.pows[b][0]) x = __fmul_rn(x, stt::ipow(sp, basis.pows[b][0]));
 #pragma unroll 1
-        for (int f = 0; f < F; ++f) {
-          const int fp = basis.pows[b][1 + f];
-          if (fp) x = __fmul_rn(x, stt::ipow(vals[(1 + f) * kSims * kThreads], fp));
-        }
-        dm[b] = __fdiv_rn(__fsub_rn(x, mean[b]), stdv[b]);
-      }"""
+          for (int f = 0; f < V; ++f) {
+            const int fp = basis.pows[b][1 + f];
+            if (fp) x = __fmul_rn(x, stt::ipow(vals[(1 + f) * kSims * kThreads], fp));
+          }
+          return __fdiv_rn(__fsub_rn(x, mean[b]), stdv[b]);
+        }()"""
 _BOUNDS = "__global__ void __launch_bounds__(kThreads) forward_sweep_kernel("
 _BUTTERFLIES = """#pragma unroll
       for (int c = 0; c < kUsedSums; ++c) {
@@ -126,7 +126,8 @@ _GATHER = """    float p_lo = __fmul_rn(coeffs[lo], dm[0]);
       p_hi = __fadd_rn(p_hi, __fmul_rn(coeffs[b * G + lo + 1], dm[b]));
     }"""
 _DIV = "  return __fdiv_rn(__fsub_rn(x, mean), stdv);"
-_DENTRY = "        dm[b] = design_entry(terms[b], vals, kSims * kThreads, mean[b], stdv[b]);"
+# The monomial mode's design entry (the expression after the design mode's).
+_DENTRY = "design_entry(terms[b], vals, kSims * kThreads, mean[b], stdv[b])"
 
 # name: patches (anchor, replacement); each anchor must occur once.
 VARIANTS = {
@@ -146,7 +147,7 @@ VARIANTS = {
                       .replace("coeffs[b * G + lo + 1]", "coeffs[(lo + 1) * B + b]"))],
     "abl_nogather": [(_GATHER, _GATHER.replace("lo]", "k]").replace("lo + 1]", "k + 1]"))],
     "abl_nodiv": [(_DIV, "  return __fmul_rn(__fsub_rn(x, mean), stdv);")],
-    "abl_nodesign": [(_DENTRY, "        dm[b] = mean[b];")],
+    "abl_nodesign": [(_DENTRY, "mean[b]")],
     "abl_d1": [("  const int D = 2 * E + 3;\n  const int mid = E + 1;\n\n  const float loss",
                 "  const int D = 1;\n  const int mid = E + 1;\n\n  const float loss")],
     "sweep_smemsums": [(_BUTTERFLIES, _SMEMSUMS), (_XS_DECL, _XS_DECL + """
@@ -163,7 +164,7 @@ TIMING_ONLY = {"sweep_nosums", "abl_nogather", "abl_nodiv", "abl_nodesign", "abl
 _QUERY = """
 extern "C" int probe_local_bytes(int B, int* out) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, sweep_kernel(B));
+  const cudaError_t err = cudaFuncGetAttributes(&attr, sweep_kernel<false>(B));
   out[0] = static_cast<int>(attr.localSizeBytes);
   return static_cast<int>(err);
 }
