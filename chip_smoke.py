@@ -95,13 +95,31 @@
    gated), ``lsmc_value`` through the builder (the main path's NPV and SE
    bits at the default ``snap_interp``) and ``MultiFactorSpotSim`` on the
    card over the headline's model (its spot frame the sweep's bits).
-9. A phase breakdown (host preparation, simulate, intrinsic, backward,
+9. The service phase: the C++ band reducer against the Python band on the
+   headline and an 8,760-step hourly year (the same f64 bits; medians of
+   5, the hourly Python band timed once) and host prep with each, in turns; an interactive headline valuation
+   (progress and cancel callbacks: the main path's bits, kernel C once a
+   16-step segment, the JAX package's progress fractions), a cancel after
+   the fifth progress call (``JobCancelledError`` in the backward, then the
+   main path's bits again); the main path with ``checkpoint_path`` and
+   forward-only revaluations from its checkpoint (the main path's NPV, one
+   launch of kernel C and no other); ``CalculationService(device="cuda")``
+   (the main path's bits with progress pushed; a second calc cancelled) and
+   two 65,536-sim valuations at once on a two-thread job engine (their
+   serial runs' bits; timed beside the pair one after the other);
+   ``python3 -m storage_tpu_torch three-factor`` in a subprocess at 262,144
+   sims (exit 0, the in-process call's lines and CSVs), and beside it a
+   second one that gets SIGINT after its first progress line (exit 130,
+   "cancelled").
+10. A phase breakdown (host preparation, simulate, intrinsic, backward,
    forward) and one valuation under torch.profiler (device busy share,
    kernels by time).
 
 Every path runs with the launch counters set to 0 just before it and read
 just after.  The line before the last is the card; the one before it the
-kernels' JSON summary; the last line is ``{"ok": true, "device": {...}}``.  A
+kernels' JSON summary (with the host's C++ band reducer as ``native_band``,
+``route: "host"``, no bound); the last line is ``{"ok": true, "device":
+{...}}``.  A
 fuller report goes to ``build/chip_smoke/`` (``chip_smoke.json``,
 ``profile.txt``, ``ptxas.log``).  Exits non-zero, printing no result, without
 a CUDA device, outside the repository, or when any phase fails.
@@ -113,6 +131,7 @@ them.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -222,34 +241,51 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def terminal_npv(price, inventory):
+    """The headline facility's terminal value."""
+    return price * inventory
+
+
+def bench_storage_kwargs(pkg) -> dict:
+    """The headline facility as ``CmdtyStorage`` keywords (the service's
+    ``create_storage`` takes them)."""
+    import pandas as pd
+
+    start = pd.Period("2021-01-01", freq="D")
+    return dict(
+        freq="D", storage_start=start, storage_end=start + NUM_STEPS, injection_cost=0.9,
+        withdrawal_cost=0.7,
+        ratchets=[
+            (start, [(0.0, -200.0, 300.0), (2500.0, -250.0, 250.0), (5000.0, -300.0, 200.0)]),
+        ],
+        ratchet_interp=pkg.RatchetInterp.LINEAR,
+        terminal_storage_npv=terminal_npv,
+    )
+
+
 def bench_case(pkg):
     """The headline daily case of ``__graft_entry__._build_case`` / bench.py."""
     import numpy as np
     import pandas as pd
 
-    start = pd.Period("2021-01-01", freq="D")
-    storage = pkg.CmdtyStorage(
-        "D", start, start + NUM_STEPS, 0.9, 0.7,
-        ratchets=[
-            (start, [(0.0, -200.0, 300.0), (2500.0, -250.0, 250.0), (5000.0, -300.0, 200.0)]),
-        ],
-        ratchet_interp=pkg.RatchetInterp.LINEAR,
-        terminal_storage_npv=lambda price, inv: price * inv,
-    )
+    storage = pkg.CmdtyStorage(**bench_storage_kwargs(pkg))
+    start = storage.start
     idx = pd.period_range(start, storage.end, freq="D")
     i = np.arange(len(idx))
     fwd = pd.Series(index=idx, data=30.0 + 6 * np.sin(2 * np.pi * i / 365.0))
     return storage, start, fwd
 
 
-def value(pkg, device, snap_interp, basis=BASIS, **kwargs):
-    """The headline valuation through the public API."""
+def value(pkg, device, snap_interp, basis=BASIS, num_sims=None, seed=11, fwd_sim_seed=13,
+          **kwargs):
+    """The headline valuation through the public API (``NUM_SIMS`` paths a
+    set unless ``num_sims``)."""
     import torch
 
     storage, start, fwd = bench_case(pkg)
     return pkg.three_factor_seasonal_value(
         storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23,
-        NUM_SIMS, basis, False, seed=11, fwd_sim_seed=13,
+        num_sims or NUM_SIMS, basis, False, seed=seed, fwd_sim_seed=fwd_sim_seed,
         num_inventory_grid_points=NUM_GRID, dtype=torch.float32, device=device,
         snap_interp=snap_interp, **kwargs,
     )
@@ -1710,17 +1746,408 @@ def host_layer_phase(pkg, device, counts, main, main_default) -> dict:
     ids = torch.arange(NUM_SIMS, device=device)
     want = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11), ids, *sim_in).spot
     same = (frame.shape == (NUM_STEPS + 1, NUM_SIMS)
-            and np.array_equal(frame.to_numpy(), want.cpu().numpy().astype(np.float64)))
+            and frame.dtypes.unique().tolist() == [np.float32]
+            and np.array_equal(frame.to_numpy(), want.cpu().numpy()))
     kernel_ms = cuda_ms(lambda: spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11), ids,
                                                            *sim_in), 5)
     log(f"MultiFactorSpotSim(device='cuda') {NUM_SIMS} sims x {NUM_STEPS + 1} periods, f32: the "
-        f"simulation sweep's bits for key 11: {same}; simulate() {frame_s:.3f} s, of it the "
-        f"sweep {kernel_ms:.4f} ms and the rest building the f64 frame; launches {launches}")
+        f"simulation sweep's bits for key 11 in an f32 frame: {same}; simulate() {frame_s:.3f} "
+        f"s, of it the sweep {kernel_ms:.4f} ms and the rest building the frame; launches "
+        f"{launches}")
     if launches != counts.expect(simulate_sweep=1):
         raise AssertionError(f"launch counts {launches}, expected one simulation sweep")
     if not same:
         raise AssertionError("MultiFactorSpotSim's spot frame is not the simulation sweep's")
     report["spot_sim"] = dict(simulate_s=frame_s, sweep_ms=kernel_ms, launches=launches)
+    return report
+
+
+HOURLY_STEPS = 8_760
+
+
+def hourly_case(pkg):
+    """An hourly year of the headline's facility shape (3 linear ratchet
+    nodes, a loss), starting at 100: the band's long horizon."""
+    import pandas as pd
+
+    hour = pd.Period("2021-01-01 00:00", freq="h")
+    storage = pkg.CmdtyStorage(
+        "h", hour, hour + HOURLY_STEPS, 0.9, 0.7,
+        ratchets=[(hour, [(0.0, -8.0, 12.5), (2500.0, -10.0, 10.0), (5000.0, -12.5, 8.0)])],
+        ratchet_interp=pkg.RatchetInterp.LINEAR, inventory_loss=1e-6,
+        terminal_storage_npv=terminal_npv,
+    )
+    return storage, hour
+
+
+def median_s(fn, repeats: int) -> float:
+    """Median host seconds of ``repeats`` calls of ``fn`` (``api_walls``)."""
+    import numpy as np
+
+    return float(np.median(api_walls(fn, repeats)))
+
+
+def progress_marks(num_steps: int, seg_len: int = 16) -> list:
+    """The progress fractions the JAX package's mapping gives an interactive
+    valuation of ``num_steps`` steps (``storage_tpu/api_lsmc.py:547-595``):
+    0.2, 0.3, a tick a segment of each pass, 0.9, 1.0."""
+    total = -(-num_steps // seg_len)
+    ticks = []
+    for phase in ("backward", "forward"):
+        for done in range(1, total + 1):
+            frac = done / max(total, 1)
+            part = 0.4 * frac if phase == "backward" else 0.4 + 0.2 * frac
+            ticks.append(min(0.3 + part, 0.9))
+    return [0.2, 0.3, *ticks, 0.9, 1.0]
+
+
+def same_bits(got, want) -> bool:
+    """NPV, SE, deltas and expected profile to the bit."""
+    return ((got.npv, got.val_sim_standard_error) == (want.npv, want.val_sim_standard_error)
+            and got.deltas.equals(want.deltas)
+            and got.expected_profile.equals(want.expected_profile))
+
+
+def band_checks(pkg, device) -> dict:
+    """The C++ band reducer against the Python band on the headline and an
+    hourly year (the same f64 bits; the C++ band's median of 5, the Python
+    band's of 5 at the headline and its one timed call on the hourly year,
+    which takes seconds), then the host prep of the headline with each, in
+    turns."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch import grid as gridmod
+    from storage_tpu_torch import valuation_inputs
+
+    storage, start, _ = bench_case(pkg)
+    hourly, hour = hourly_case(pkg)
+    report = {}
+    for name, (st, val), repeats in (("headline", (storage, start), 5),
+                                     ("hourly", (hourly, hour), 1)):
+        native = gridmod.calculate_inventory_space(st, 100.0, val, use_native=True)
+        t0 = time.perf_counter()
+        python = gridmod.calculate_inventory_space(st, 100.0, val, use_native=False)
+        python_s = [time.perf_counter() - t0] + api_walls(
+            lambda: gridmod.calculate_inventory_space(st, 100.0, val, use_native=False),
+            repeats - 1)
+        err = max(float(np.max(np.abs(a - b))) for a, b in zip(native, python))
+        same = all(np.array_equal(a, b) for a, b in zip(native, python))
+        native_ms = 1e3 * median_s(
+            lambda: gridmod.calculate_inventory_space(st, 100.0, val, use_native=True), 5)
+        python_ms = 1e3 * float(np.median(python_s))
+        how = "median of 5" if repeats > 1 else "one call"
+        log(f"band ({name}, {len(native[0]) - 1} steps): the C++ reducer {native_ms:.4f} ms "
+            f"(median of 5), the Python band {python_ms:.4f} ms ({how}); the same f64 bits: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"the native band parts from the Python band on {name} by {err}")
+        report[name] = dict(native_ms=native_ms, python_ms=python_ms, max_abs_err=err)
+
+    band = gridmod.calculate_inventory_space
+    python_band = mock.patch.object(valuation_inputs.gridmod, "calculate_inventory_space",
+                                    lambda *a, **k: band(*a, **k, use_native=False))
+    preps = {"native": [], "python": []}
+    for _ in range(5):  # in turns: native, python
+        for which in ("native", "python"):
+            with python_band if which == "python" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                engine_inputs(pkg, device)
+                torch.cuda.synchronize()
+                preps[which].append(time.perf_counter() - t0)
+    report["host_prep_native_s"] = float(np.median(preps["native"]))
+    report["host_prep_python_s"] = float(np.median(preps["python"]))
+    report["host_prep_runs_s"] = preps
+    log(f"host prep (the phase timer's inputs) with the C++ band {report['host_prep_native_s']:.4f} "
+        f"s, with the Python band {report['host_prep_python_s']:.4f} s (medians of 5, in turns)")
+    return report
+
+
+def interactive_checks(pkg, device, counts, main) -> dict:
+    """An interactive headline valuation (the main path's bits, kernel C once
+    a 16-step segment, the JAX mapping's fractions), its wall beside the
+    main path's, and a cancel after the fifth progress call."""
+    import numpy as np
+    import torch
+
+    fractions = []
+    counts.reset()
+    res = value(pkg, device, True, on_progress_update=fractions.append,
+                cancellation_poll=lambda: False)
+    torch.cuda.synchronize()
+    launches = counts.read()
+    segments = -(-NUM_STEPS // 16)
+    expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                             forward_sweep=segments, intrinsic_dp=1)
+    marks = progress_marks(NUM_STEPS)
+    same = same_bits(res, main)
+    log(f"interactive valuation: NPV {res.npv!r} SE {res.val_sim_standard_error!r}, the main "
+        f"path's bits: {same}; {len(fractions)} progress calls, the JAX mapping's list: "
+        f"{fractions == marks}; launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    if fractions != marks:
+        raise AssertionError(f"progress {fractions}, expected {marks}")
+    if not same:
+        raise AssertionError("the interactive valuation is not the main path's bits")
+    walls = api_walls(lambda: value(pkg, device, True, on_progress_update=lambda f: None), 3)
+    log(f"interactive wall median {float(np.median(walls)):.4f} s of "
+        f"{[round(w, 4) for w in walls]}")
+
+    from storage_tpu_torch.jobs import JobCancelledError
+
+    seen, polled = [], {}
+
+    def poll():
+        if len(seen) >= 5:
+            polled.setdefault("t", time.perf_counter())
+            return True
+        return False
+
+    try:
+        value(pkg, device, True, on_progress_update=seen.append, cancellation_poll=poll)
+    except JobCancelledError:
+        latency = time.perf_counter() - polled["t"]
+    else:
+        raise AssertionError("the cancel poll did not stop the valuation")
+    after = value(pkg, device, True)
+    log(f"cancel: raised {1e3 * latency:.3f} ms after the poll turned true, progress seen "
+        f"{[round(f, 4) for f in seen]}; the next valuation is the main path's bits: "
+        f"{same_bits(after, main)}")
+    if any(f > 0.7 for f in seen) or not same_bits(after, main):
+        raise AssertionError("the cancel did not stop the backward, or the next run moved")
+    return dict(launches=launches, progress_calls=len(fractions), wall_s=float(np.median(walls)),
+                walls_s=walls, cancel_latency_ms=1e3 * latency)
+
+
+def checkpoint_checks(pkg, device, counts, main) -> dict:
+    """The main path with ``checkpoint_path``, then forward-only revaluations
+    on its valuation paths, from the checkpoint and from the file read back:
+    the main path's NPV, with one launch of kernel C and no other."""
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch import checkpoint as ckpt
+    from storage_tpu_torch.models import spot_sim
+
+    path = OUT / "checkpoint.npz"
+    t0 = time.perf_counter()
+    res = value(pkg, device, True, checkpoint_path=str(path))
+    full_s = time.perf_counter() - t0
+    if not same_bits(res, main):
+        raise AssertionError("the valuation that wrote the checkpoint is not the main path's bits")
+    _, sim_in, _, _ = engine_inputs(pkg, device)
+    val = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(13),
+                                     torch.arange(NUM_SIMS, device=device), *sim_in)
+    report = {"full_s": full_s}
+    written = ckpt.RegressionCheckpoint.load(str(path))
+    written.save(str(OUT / "checkpoint_again.npz"))
+    again = ckpt.RegressionCheckpoint.load(str(OUT / "checkpoint_again.npz"))
+    for name, source in (("written by the valuation", written), ("saved and read back", again)):
+        counts.reset()
+        out = ckpt.revalue_from_checkpoint(source, val.spot, val.factors,
+                                           terminal_fn=terminal_npv, device=device)
+        npv = float(out["npv"])
+        launches = counts.read()
+        walls = api_walls(lambda: float(ckpt.revalue_from_checkpoint(
+            source, val.spot, val.factors, terminal_fn=terminal_npv, device=device)["npv"]), 3)
+        log(f"checkpoint revaluation ({name}): NPV {npv!r}, the main path's bits: "
+            f"{npv == main.npv}; {float(np.median(walls)):.4f} s (median of 3) beside the full "
+            f"valuation's {full_s:.4f} s; launches {launches}")
+        if launches != counts.expect(forward_sweep=1) or npv != main.npv:
+            raise AssertionError(f"revaluation ({name}): NPV {npv!r}, launches {launches}")
+        report[name.split()[0]] = dict(npv=npv, wall_s=float(np.median(walls)),
+                                              launches=launches)
+    return report
+
+
+def service_checks(pkg, device, main) -> dict:
+    """``CalculationService(device="cuda")`` in async mode: the main path's
+    bits with progress pushed, a second calc cancelled; two valuations at
+    once on a two-thread job engine, each its serial run's bits."""
+    import torch
+
+    storage, start, fwd = bench_case(pkg)
+    kwargs = dict(val_date=start, inventory=100.0, fwd_curve=fwd, interest_rates=0.02,
+                  settlement_rule=None, spot_mean_reversion=14.5, spot_vol=1.1,
+                  long_term_vol=0.19, seasonal_vol=0.23, num_sims=NUM_SIMS, basis_funcs=BASIS,
+                  discount_deltas=False, seed=11, fwd_sim_seed=13,
+                  num_inventory_grid_points=NUM_GRID, dtype=torch.float32, snap_interp=True)
+    report = {}
+    with pkg.CalculationService(device=device) as svc:
+        sh = svc.create_storage("headline", **bench_storage_kwargs(pkg))
+        pushed, statuses = [], []
+        ch = svc.storage_value_three_factor("main", sh, **kwargs)
+        svc.subscribe_progress(ch, pushed.append)
+        svc.subscribe_status(ch, statuses.append)
+        t0 = time.perf_counter()
+        svc.start_pending(ch)
+        res = svc.calc_result(ch)
+        report["calc_s"] = time.perf_counter() - t0
+        deadline = time.time() + 10
+        while time.time() < deadline and pkg.CalcStatus.SUCCESS not in statuses:
+            time.sleep(0.01)
+        status = svc.calc_status(ch)
+        log(f"service: status {status.name}, {len(pushed)} progress pushes (last "
+            f"{pushed[-1] if pushed else None}), the main path's bits: {same_bits(res, main)}; "
+            f"{report['calc_s']:.4f} s; provider {svc.linear_algebra_provider()}")
+        if status != pkg.CalcStatus.SUCCESS or not pushed or not same_bits(res, main):
+            raise AssertionError("the service's calc did not give the main path's bits")
+        ch2 = svc.storage_value_three_factor("cancelled", sh, **kwargs)
+        svc.start_pending(ch2)
+        deadline = time.time() + 60
+        while svc.calc_progress(ch2) < 0.3 and time.time() < deadline:
+            time.sleep(0.001)
+        svc.cancel_running(ch2)
+        while (svc.calc_status(ch2) in (pkg.CalcStatus.PENDING, pkg.CalcStatus.RUNNING)
+               and time.time() < deadline):
+            time.sleep(0.001)
+        log(f"service: the second calc after cancel_running: {svc.calc_status(ch2).name} at "
+            f"progress {svc.calc_progress(ch2):.4f}")
+        if svc.calc_status(ch2) != pkg.CalcStatus.CANCELLED:
+            raise AssertionError(f"the cancelled calc ended {svc.calc_status(ch2)}")
+
+    seeds = ((11, 13), (17, 19))
+
+    def serial_pair():
+        t0 = time.perf_counter()
+        out = [value(pkg, device, True, num_sims=BIG_SIMS, seed=a, fwd_sim_seed=b)
+               for a, b in seeds]
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    serial, serial_s = serial_pair()
+    with pkg.ValuationJobEngine(num_threads=2) as engine:
+        t0 = time.perf_counter()
+        jobs = [engine.submit(lambda ctl, a=a, b=b: value(pkg, device, True, num_sims=BIG_SIMS,
+                                                          seed=a, fwd_sim_seed=b))
+                for a, b in seeds]
+        results = [job.result() for job in jobs]
+        torch.cuda.synchronize()
+        together_s = time.perf_counter() - t0
+    serial_again_s = serial_pair()[1]
+    same = [same_bits(r, w) for r, w in zip(results, serial)]
+    log(f"job engine (2 threads): two {BIG_SIMS}-sim valuations at once in {together_s:.4f} s, "
+        f"one after the other in this thread {serial_s:.4f} s before and {serial_again_s:.4f} s "
+        f"after; each its serial run's bits: {same}")
+    if not all(same):
+        raise AssertionError("a concurrent valuation parted from its serial run")
+    report.update(job_engine_s=together_s, job_engine_serial_s=[serial_s, serial_again_s])
+    return report
+
+
+def cli_checks(pkg, device) -> dict:
+    """``python3 -m storage_tpu_torch three-factor`` on the headline's model
+    and curve at 262,144 sims (a facility that ends empty: JSON holds no
+    terminal value) in a subprocess: exit 0, and its printed lines and CSVs
+    those of the same CLI call in this process; beside it, started at the
+    same time, a run that gets SIGINT once it prints its first progress
+    (20%): exit 130, "cancelled".  Each progress print is timed as it
+    arrives."""
+    import io
+    import os
+    import signal
+
+    from storage_tpu_torch import cli
+
+    storage, start, fwd = bench_case(pkg)
+    folder = OUT / "cli"
+    folder.mkdir(parents=True, exist_ok=True)
+    specs = {
+        "facility": {"freq": "D", "start": str(start), "end": str(storage.end),
+                     "injection_cost": 0.9, "withdrawal_cost": 0.7,
+                     "ratchets": [[str(start), [[0, -200, 300], [2500, -250, 250],
+                                                [5000, -300, 200]]]],
+                     "ratchet_interp": "linear"},
+        "market": {"val_date": str(start), "inventory": 100.0, "interest_rate": 0.02,
+                   "fwd": {str(p): float(v) for p, v in fwd.items()}},
+        "model": {"spot_mean_reversion": 14.5, "spot_vol": 1.1, "long_term_vol": 0.19,
+                  "seasonal_vol": 0.23, "num_sims": NUM_SIMS, "seed": 11, "basis_funcs": BASIS},
+    }
+    for name, spec in specs.items():
+        (folder / f"{name}.json").write_text(json.dumps(spec))
+    args = ["three-factor", *(str(folder / f"{n}.json") for n in ("facility", "market", "model"))]
+    cmd = [sys.executable, "-m", "storage_tpu_torch", *args, "--device", device.type]
+
+    def run(extra, signal_at=None):
+        """The CLI in a subprocess, its stderr read as it comes: (exit code,
+        stdout, stderr, seconds from the start to each progress fraction's
+        first print and to "cancelled", seconds from start to exit).  With
+        ``signal_at`` (a fraction) it gets SIGINT once that fraction is
+        printed; the times are then from the signal."""
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([*cmd, *extra], cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+        err, seen, t_sig = b"", {}, None
+        try:
+            while True:
+                chunk = os.read(proc.stderr.fileno(), 4096)
+                if not chunk:
+                    break
+                err += chunk
+                now = time.perf_counter() - t0
+                for token in err.decode(errors="replace").replace("\n", "\r").split("\r"):
+                    if "cancelled" in token:  # printed after the last progress, no newline
+                        seen.setdefault("cancelled", now)
+                    elif token.strip().endswith("%") and "valuing:" in token:
+                        seen.setdefault(token.split("valuing:")[-1].strip(), now)
+                if signal_at is not None and t_sig is None and signal_at in seen:
+                    proc.send_signal(signal.SIGINT)
+                    t_sig = time.perf_counter() - t0
+            out = proc.communicate(timeout=300)[0]
+            total = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if t_sig is not None:  # times from the signal, of what came after it
+            seen = {k: v - t_sig for k, v in seen.items() if v > t_sig}
+            total -= t_sig
+        return (proc.returncode, out.decode(), err.decode(errors="replace"),
+                {k: round(v, 4) for k, v in seen.items()}, total)
+
+    # The two processes start together: each spends most of its time
+    # starting up on the host, so side by side they take little more than one.
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        full = pool.submit(run, ["--out", str(folder / "subprocess")])
+        stopped = pool.submit(run, [], "20.0%")
+        code, out, err, timeline, sub_s = full.result()
+        sig_code, sig_out, sig_err, after, stop_s = stopped.result()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main([*args, "--device", device.type, "--out", str(folder / "in_process")])
+    csvs = sorted(p.name for p in (folder / "in_process").glob("*.csv"))
+    same_csvs = bool(csvs) and all(
+        (folder / "subprocess" / n).read_bytes() == (folder / "in_process" / n).read_bytes()
+        for n in csvs)
+    marks = {k: v for k, v in timeline.items() if k in ("20.0%", "30.0%", "70.0%", "90.0%",
+                                                        "100.0%")}
+    log(f"CLI three-factor subprocess: exit {code} in {sub_s:.2f} s (progress printed at "
+        f"{marks} s from the start); printed {out.split()[:2]}; the in-process call's lines: "
+        f"{out == printed.getvalue()}, its CSVs {csvs}: {same_csvs}")
+    if code != 0 or rc != 0 or out != printed.getvalue() or not same_csvs:
+        raise AssertionError(f"the CLI run failed or parted from the in-process call:\n"
+                             f"{err[-4000:]}")
+
+    log(f"CLI three-factor with SIGINT once it printed 20% (run beside the first): after the "
+        f"signal, progress printed {after}, exit {sig_code} after {stop_s:.3f} s; no result: "
+        f"{not sig_out.strip()}")
+    if sig_code != 130 or "cancelled" not in sig_err or sig_out.strip():
+        raise AssertionError(f"the SIGINT run ended {sig_code}:\n{sig_err[-4000:]}")
+    return dict(subprocess_s=sub_s, progress_s=timeline, sigint_progress_s=after,
+                sigint_exit_s=stop_s)
+
+
+def service_phase(pkg, device, counts, main) -> dict:
+    """The native host runtime, interactive execution, checkpoints and the
+    service layer on the card at the headline."""
+    report = {"band": band_checks(pkg, device)}
+    report["interactive"] = interactive_checks(pkg, device, counts, main)
+    report["checkpoint"] = checkpoint_checks(pkg, device, counts, main)
+    report["service"] = service_checks(pkg, device, main)
+    report["cli"] = cli_checks(pkg, device)
     return report
 
 
@@ -1745,6 +2172,39 @@ def reg_case(pkg):
     return storage, val_date, fwd, rates, settle
 
 
+def empty_case(pkg):
+    """The 40-day facility of tests/_torch_intrinsic_case.py that must end
+    empty (3 linear ratchet nodes, fuel, loss, inventory cost) and its
+    curve: (storage, valuation date, forward curve).  At E >= 1 its walk
+    withdraws to a band bound and snaps there."""
+    import numpy as np
+    import pandas as pd
+
+    start = pd.Period("2021-03-01", freq="D")
+    storage = pkg.CmdtyStorage(
+        "D", start, start + 40, 0.05, 0.03,
+        ratchets=[(start, [(0.0, -150.0, 250.0), (1500.0, -220.0, 180.0),
+                           (3000.0, -300.0, 120.0)])],
+        ratchet_interp=pkg.RatchetInterp.LINEAR, cmdty_consumed_inject=0.01,
+        cmdty_consumed_withdraw=0.005, inventory_loss=0.0005, inventory_cost=0.002)
+    idx = pd.period_range(start, start + 40, freq="D")
+    i = np.arange(len(idx))
+    return storage, start, pd.Series(20.0 + 4.0 * np.sin(2 * np.pi * i / 17.0) + 0.3 * np.cos(i),
+                                     index=idx)
+
+
+def snapped_steps(result, starting_inventory) -> int:
+    """Steps of an intrinsic forward walk whose inventory is not ``previous +
+    decision - loss`` as rounded in its dtype: where it snapped to a band
+    bound (``engines.intrinsic.snap_to_band``)."""
+    import torch
+
+    inv = result.inventory[:-1]
+    prev = torch.cat([torch.full((1,), float(starting_inventory), dtype=inv.dtype,
+                                 device=inv.device), inv[:-1]])
+    return int((prev + result.inject_withdraw[:-1] - result.inventory_loss[:-1] != inv).sum())
+
+
 def custom_grid(lower, upper):
     """A user grid for the custom-grid case: points bunched toward the lower
     bound, more of them on wider bands (rows padded to one width)."""
@@ -1756,9 +2216,10 @@ def custom_grid(lower, upper):
 
 
 def intrinsic_case(pkg, device, case: str, scheme: str, g: int):
-    """The DP's tables of the headline facility or the 2F pin facility
-    (``case``) on ``device`` in f64 and f32, on linspace, fixed-spacing or
-    custom rows: (valuation inputs, {dtype: arrays})."""
+    """The DP's tables of the headline facility, the 2F pin facility or the
+    40-day facility that must end empty (``case``) on ``device`` in f64 and
+    f32, on linspace, fixed-spacing or custom rows: (valuation inputs,
+    {dtype: arrays})."""
     import numpy as np
     import torch
 
@@ -1769,6 +2230,9 @@ def intrinsic_case(pkg, device, case: str, scheme: str, g: int):
     if case == "headline":
         storage, start, fwd = bench_case(pkg)
         inputs = prepare_valuation(storage, start, 100.0, fwd, 0.02, None)
+    elif case == "empty40":
+        storage, start, fwd = empty_case(pkg)
+        inputs = prepare_valuation(storage, start, 800.0, fwd, 0.03, None)
     else:
         storage, val_date, fwd, rates, settle = reg_case(pkg)
         inputs = prepare_valuation(storage, val_date, 0.0, fwd, rates, settle)
@@ -1786,13 +2250,15 @@ def intrinsic_case(pkg, device, case: str, scheme: str, g: int):
     return inputs, arrays
 
 
-def compare_intrinsic(inputs, arrays, e: int, interpolation: str, uniform: bool) -> dict:
+def compare_intrinsic(inputs, arrays, e: int, interpolation: str, uniform: bool,
+                      must_snap: bool = False) -> dict:
     """The DP kernel in f64 and f32 against ``intrinsic_plain`` in f64 on the
     card.  f64: the NPV within 1e-10 relative and every profile column
     within 1e-6 absolute; a decision may differ only where the plain
     version's two best totals at that step lie within 1e-9 relative (at the
     first step where the paths part).  f32: the NPV within 1e-5 relative of
-    the f64 answer."""
+    the f64 answer.  ``must_snap``: the kernel's walk, f64 and f32, must
+    snap to the band at least once (``snapped_steps``)."""
     import torch
 
     from storage_tpu_torch.engines import intrinsic as ie
@@ -1821,10 +2287,13 @@ def compare_intrinsic(inputs, arrays, e: int, interpolation: str, uniform: bool)
                                    inputs.compiled.ratchet_is_step, interpolation, uniform)[0][0]
         top2 = total.topk(2).values
         near = bool(top2[0] - top2[1] <= 1e-9 * top2[0].abs())
-    ok = rel64 <= 1e-10 and rel32 <= 1e-5 and (prof_err <= 1e-6 if not flips else near)
+    snaps = {"f64": snapped_steps(got, args[0]), "f32": snapped_steps(got32, args[0]),
+             "plain_f64": snapped_steps(want, args[0])}
+    ok = (rel64 <= 1e-10 and rel32 <= 1e-5 and (prof_err <= 1e-6 if not flips else near)
+          and (not must_snap or min(snaps["f64"], snaps["f32"]) >= 1))
     return dict(ok=ok, npv_f64_plain=npv, npv_f64=float(got.npv), npv_f32=float(got32.npv),
                 npv_rel_err_f64=rel64, npv_rel_err_f32=rel32, profile_max_abs_err_f64=prof_err,
-                decision_flips_f64=flips, first_flip_on_near_tie=near)
+                decision_flips_f64=flips, first_flip_on_near_tie=near, snapped_steps=snaps)
 
 
 def intrinsic_work(n: int, g: int, r: int, d: int, itemsize: int) -> tuple:
@@ -1840,8 +2309,9 @@ def intrinsic_work(n: int, g: int, r: int, d: int, itemsize: int) -> tuple:
 def check_intrinsic(pkg, device) -> dict:
     """The DP kernel against its plain version on the card in f64 and f32:
     the headline's tables (N=365, G=100, linear), the 2F facility on fixed
-    spacing and with cubic interpolation, a custom grid, G=1,000 and E=1;
-    its times (CUDA events, f32 and f64, at the headline and at G=1,000),
+    spacing and with cubic interpolation, a custom grid, G=1,000, E=1, and
+    the 40-day facility that must end empty on fixed spacing at E=1 and E=2
+    (its walk must snap to the band in f64 and f32); its times (CUDA events, f32 and f64, at the headline and at G=1,000),
     its bound, its plain version's time and its launch report; then the
     pins through ``intrinsic_value(device="cuda")`` in f64."""
     import torch
@@ -1856,19 +2326,23 @@ def check_intrinsic(pkg, device) -> dict:
         "custom_grid": ("2F", "custom", NUM_GRID, 0, "linear"),
         "G=1000": ("headline", "linspace", BIG_GRID, 0, "linear"),
         "E=1": ("2F", "linspace", NUM_GRID, 1, "linear"),
+        "empty_E=1": ("empty40", "fixed_spacing", 15, 1, "linear"),
+        "empty_E=2": ("empty40", "fixed_spacing", 15, 2, "linear"),
     }
     checks, timing = {}, {}
     for name, (case, scheme, g, e, interpolation) in cases.items():
         inputs, arrays = intrinsic_case(pkg, device, case, scheme, g)
         uniform = scheme == "linspace"
-        checks[name] = c = compare_intrinsic(inputs, arrays, e, interpolation, uniform)
+        checks[name] = c = compare_intrinsic(inputs, arrays, e, interpolation, uniform,
+                                             must_snap=case == "empty40")
         width = arrays[torch.float64]["grids"].shape[1]
         log(f"intrinsic DP [{name}: N={inputs.num_steps}, G={width}, E={e}, {interpolation}, "
             f"{scheme}]: f64 NPV {c['npv_f64']!r} vs plain {c['npv_f64_plain']!r} (rel "
             f"{c['npv_rel_err_f64']:.2e}, tolerance 1e-10), profile max abs err "
             f"{c['profile_max_abs_err_f64']:.2e} (tolerance 1e-6), {c['decision_flips_f64']} "
             f"decision flips (first on a near-tie: {c['first_flip_on_near_tie']}); f32 NPV "
-            f"{c['npv_f32']!r} (rel {c['npv_rel_err_f32']:.2e}, tolerance 1e-5)")
+            f"{c['npv_f32']!r} (rel {c['npv_rel_err_f32']:.2e}, tolerance 1e-5); walk snapped "
+            f"to the band at {c['snapped_steps']} steps")
         if name in ("headline", "G=1000"):
             tfn = inputs.compiled.terminal_value
             n, r = inputs.num_steps, arrays[torch.float32]["ratchet_inv"].shape[1]
@@ -2437,6 +2911,7 @@ def main(argv) -> int:
     import numpy as np
 
     import storage_tpu_torch as stt
+    from storage_tpu_torch import grid as gridmod
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.ops import (_build, decision_kernel, forward_kernel, intrinsic_kernel,
                                        rng_kernel, tree_kernel)
@@ -2489,11 +2964,13 @@ def main(argv) -> int:
     value(stt, device, snap_interp=True)  # warm-up
     torch.cuda.synchronize()
     counts.reset()
+    gridmod._native_inventory_space.launches = 0
     t0 = time.perf_counter()
     res = value(stt, device, snap_interp=True)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = counts.read()
+    native_band_calls = gridmod._native_inventory_space.launches
     for _ in range(4):  # more timed valuations, for the spread
         t0 = time.perf_counter()
         value(stt, device, snap_interp=True)
@@ -2568,6 +3045,12 @@ def main(argv) -> int:
     log(f"host-layer phase: {report['host_layer_phase_s']:.1f} s")
     launches.update(
         forward_sweep_design=report["host_layer"]["replica"]["launches"]["forward_sweep_design"])
+
+    # ---- the native host runtime, interactive runs, checkpoints, the service.
+    t0 = time.perf_counter()
+    report["service"] = service_phase(stt, device, counts, res)
+    report["service_phase_s"] = time.perf_counter() - t0
+    log(f"service phase: {report['service_phase_s']:.1f} s")
     # Each kernel's launches on the path that runs it: kernel A's draw-only
     # entry feeds the TPU-numerics emulation alone (the sweep draws for the
     # main path).
@@ -2604,6 +3087,16 @@ def main(argv) -> int:
          "library_ms": None, **{k: kernels[name][k] for k in extra.get(name, ())}}
         for name, (src_file, rep) in SOURCES.items()
     ]}
+    # The C++ band reducer runs on the host: no device bound, no library call.
+    band = report["service"]["band"]["headline"]
+    summary["kernels"].append({
+        "name": "native_band", "route": "host",
+        "source": "storage_tpu_torch/native/storage_native.cpp",
+        "replaces": "storage_tpu/native/storage_native.cpp:166", "launches": native_band_calls,
+        "path": "main", "max_abs_err": band["max_abs_err"], "ms": band["native_ms"],
+        "plain_ms": band["python_ms"], "bound_ms": None, "bound_by": None, "library_ms": None,
+        "hourly_ms": report["service"]["band"]["hourly"]["native_ms"],
+        "hourly_plain_ms": report["service"]["band"]["hourly"]["python_ms"]})
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
     print(json.dumps(summary))
     print(card)

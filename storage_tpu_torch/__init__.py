@@ -10,7 +10,11 @@ own (``value_from_sims``), with per-sim panels, the intrinsic valuation
 trinomial tree (``trinomial_value``, ``trinomial_deltas``); with the JAX
 package's host layer around them: the basis DSL and its combinators and
 generic callables, the parameter builder (``lsmc_value``), the simulator
-facade (``MultiFactorSpotSim``) and the curve helpers.  The simulation
+facade (``MultiFactorSpotSim``) and the curve helpers; and its host runtime
+and service layer: the C++ inventory-band reducer and job engine
+(``native/``), interactive valuations with progress and cancellation,
+regression checkpoints (``checkpoint``), the asynchronous
+``CalculationService`` and the command line (``python -m storage_tpu_torch``).  The simulation
 sweep, the backward decision steps, the forward sweep, the intrinsic DP and
 the tree's backward induction are CUDA kernels (``csrc/``); entry points run
 on CUDA unless the caller passes ``device="cpu"``, where the kernels' plain
@@ -67,6 +71,8 @@ from .lsmc_params import (
     lsmc_value,
 )
 from .curves import interpolate_curve_to_daily
+from .jobs import Job, JobCancelledError, JobControl, JobStatus, ValuationJobEngine
+from .calc_service import CalcMode, CalcStatus, CalculationService, ObjectCache
 from .models.multi_factor import MultiFactorModel
 from .models.spot_sim import MultiFactorSpotSim
 from .results import (
@@ -128,6 +134,15 @@ __all__ = [
     "MultiFactorSimSpec",
     "PanelSimSpec",
     "lsmc_value",
+    "Job",
+    "JobCancelledError",
+    "JobControl",
+    "JobStatus",
+    "ValuationJobEngine",
+    "CalcMode",
+    "CalcStatus",
+    "CalculationService",
+    "ObjectCache",
     "interpolate_curve_to_daily",
     "__version__",
 ]

@@ -6,11 +6,20 @@ none raises.
 
 Accepted: every ``sim_data_returned`` flag (per-sim panels of paths held on
 the card), pathwise deltas, antithetic draws (path 2m+1 takes the negated
-draws of path 2m, as in the JAX package), no progress or cancel callback, no
-checkpoint, uniform grids, and any basis the JAX package takes: the DSL
+draws of path 2m, as in the JAX package), progress and cancel callbacks,
+a checkpoint of the regression (``checkpoint_path``, with a DSL-string
+basis), uniform grids, and any basis the JAX package takes: the DSL
 string, combinators (``ONE + S + X0**2``) and generic callables, which must
 be torch-callable (a generic basis regresses on a design read from memory:
-kernel D backward and kernel C's design mode forward).  Every other option,
+kernel D backward and kernel C's design mode forward).
+
+With ``on_progress_update`` or ``cancellation_poll`` the valuation is
+interactive, as the JAX package's host-chunked runs: progress at the
+phase marks 0.2 (paths simulated), 0.3 (intrinsic value), 0.9 and 1.0, and
+after every 16-step segment of the backward (0.3 to 0.7) and of the forward
+(0.7 to 0.9); the poll is read before each, and a true poll raises
+``jobs.JobCancelledError``.  An interactive run gives the uninterrupted
+run's bits.  Every other option,
 user panels too large for the card and ``value_from_sims_host_local`` raise
 ``NotImplementedError`` naming, by its title, the ROADMAP item that ports
 them.  On CUDA a basis of more than 16 terms or a model of more than 8
@@ -38,10 +47,13 @@ from . import basis as basis_mod
 from .api import Device, engine_profile, profile_data_frame, resolve_device
 from .engines import intrinsic as intrinsic_engine
 from .engines import lsmc as lsmc_engine
+from .checkpoint import make_checkpoint
 from .facility import CmdtyStorage
+from .jobs import JobCancelledError
 from .models import multi_factor as mf
 from .models import spot_sim
 from .ops import _build
+from .profiling import Stopwatches
 from .results import (
     MultiFactorValuationResults,
     SimulationDataReturned,
@@ -121,12 +133,7 @@ def _refuse(option: str, item: str):
     )
 
 
-def _refuse_unported(on_progress_update, cancellation_poll, deltas_method, checkpoint_path,
-                     grid_calc):
-    if on_progress_update is not None or cancellation_poll is not None:
-        _refuse("progress or cancellation callbacks", "interactive execution and checkpoints")
-    if checkpoint_path is not None:
-        _refuse("checkpoint_path", "interactive execution and checkpoints")
+def _refuse_unported(deltas_method, grid_calc):
     if deltas_method != "pathwise":
         if deltas_method == "adjoint":
             _refuse("deltas_method='adjoint'", "adjoint deltas")
@@ -174,8 +181,7 @@ def multi_factor_value(
     numbers."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
     device = resolve_device(device)
-    _refuse_unported(on_progress_update, cancellation_poll, deltas_method, checkpoint_path,
-                     grid_calc)
+    _refuse_unported(deltas_method, grid_calc)
     factor_corrs = mf.validate_multi_factor_params(factors, factor_corrs)
 
     def sims_provider(inputs):
@@ -205,6 +211,7 @@ def multi_factor_value(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
         sims_provider, len(factors), basis_funcs, discount_deltas, extra_decisions,
         num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
+        on_progress_update, cancellation_poll, checkpoint_path,
     )
 
 
@@ -243,8 +250,7 @@ def value_from_sims(
     larger than its free memory wait for the host-streamed engine."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
     device = resolve_device(device)
-    _refuse_unported(on_progress_update, cancellation_poll, deltas_method, checkpoint_path,
-                     grid_calc)
+    _refuse_unported(deltas_method, grid_calc)
     wants_sim_data = _wants_sim_data(SimulationDataReturned.coerce(sim_data_returned))
     sim_factors_regress, sim_factors_valuation = (
         None if f is None else list(f) for f in (sim_factors_regress, sim_factors_valuation))
@@ -265,6 +271,7 @@ def value_from_sims(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
         sims_provider, num_factors, basis_funcs, discount_deltas, extra_decisions,
         num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
+        on_progress_update, cancellation_poll, checkpoint_path,
     )
 
 
@@ -343,10 +350,18 @@ def _lsmc_calc(
     dtype,
     device: torch.device,
     snap_interp: bool,
+    on_progress_update=None,
+    cancellation_poll=None,
+    checkpoint_path: tp.Optional[str] = None,
 ) -> MultiFactorValuationResults:
     """The valuation shared by the entry points: ``sims_provider(inputs)``
     returns ((spot_reg, factors_reg), (spot_val, factors_val)) on ``device``,
     with ``num_factors`` factor panels each."""
+    if checkpoint_path is not None and not isinstance(basis_funcs, str):
+        raise ValueError(
+            "checkpoint_path requires basis_funcs as a string (checkpoints "
+            "persist the basis DSL, not combinator objects)."
+        )
     sim_data_returned = SimulationDataReturned.coerce(sim_data_returned)
     if isinstance(fwd_curve, pd.Series) and isinstance(
         fwd_curve.index, pd.PeriodIndex
@@ -374,6 +389,24 @@ def _lsmc_calc(
             cmdty_storage.freq,
         )
 
+    def progress(x: float):
+        # Cooperative cancellation, polled at phase and segment boundaries
+        # (the reference's per-step CancellationToken checks,
+        # LsmcStorageValuation.cs:345,521).
+        if cancellation_poll is not None and cancellation_poll():
+            raise JobCancelledError("Valuation cancelled.")
+        if on_progress_update is not None:
+            on_progress_update(x)
+
+    def segment_cb(phase, done, total):
+        # Backward weighted ~2/3 of the compute phase like the reference
+        # (LsmcStorageValuation.cs:48,164,387); capped at the 0.9 phase mark
+        # (f64 rounding).
+        frac = done / max(total, 1)
+        part = 0.4 * frac if phase == "backward" else 0.4 + 0.2 * frac
+        progress(min(0.3 + part, 0.9))
+
+    interactive = on_progress_update is not None or cancellation_poll is not None
     monomials = tuple(basis_mod.coerce_basis_functions(basis_funcs))
     if basis_mod.has_generic(monomials):
         logger.info(
@@ -383,40 +416,64 @@ def _lsmc_calc(
         )
     if device.type == "cuda":
         _build.require_caps("storage_tpu_torch", len(monomials), num_factors)
-    inputs = prepare_valuation(
-        cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule
-    )
+    stopwatches = Stopwatches()
+    with stopwatches.time("prepare_inputs"):
+        inputs = prepare_valuation(
+            cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule
+        )
 
-    (spot_reg, factors_reg), (spot_val, factors_val) = sims_provider(inputs)
+    with stopwatches.time("path_simulation"):
+        (spot_reg, factors_reg), (spot_val, factors_val) = sims_provider(inputs)
     if basis_mod.num_factors_required(monomials) > factors_reg.shape[1]:
         raise ValueError(
             f"Basis functions reference factor x{basis_mod.num_factors_required(monomials) - 1} "
             f"but only {factors_reg.shape[1]} factors are simulated."
         )
+    progress(0.2)
     arrays = lsmc_engine.build_engine_arrays(
         inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow,
         inputs.inventory_lower, inputs.inventory_upper, num_grid_points, dtype, device,
     )
     terminal_fn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
     logger.info("Calculating intrinsic value.")
-    intrinsic = intrinsic_engine.intrinsic_core(
-        arrays, inputs.starting_inventory, 0, terminal_fn, inputs.compiled.ratchet_is_step)
+    with stopwatches.time("intrinsic_valuation"):
+        intrinsic = intrinsic_engine.intrinsic_core(
+            arrays, inputs.starting_inventory, 0, terminal_fn, inputs.compiled.ratchet_is_step)
+        intrinsic_profile = engine_profile(inputs.periods, intrinsic)
+    progress(0.3)
     logger.info("Calculating LSMC value.")
-    result = lsmc_engine.lsmc_core(
-        arrays, spot_reg, factors_reg, spot_val, factors_val, inputs.starting_inventory,
-        monomials, int(extra_decisions or 0), bool(discount_deltas), terminal_fn,
-        inputs.compiled.ratchet_is_step, snap_interp=snap_interp,
-        return_sim_data=_wants_sim_data(sim_data_returned),
-    )
-    result = {k: v.detach().cpu().numpy() for k, v in result.items()}
+    with stopwatches.time("lsmc_backward_forward"):
+        result = lsmc_engine.lsmc_core(
+            arrays, spot_reg, factors_reg, spot_val, factors_val, inputs.starting_inventory,
+            monomials, int(extra_decisions or 0), bool(discount_deltas), terminal_fn,
+            inputs.compiled.ratchet_is_step, snap_interp=snap_interp,
+            return_regression=checkpoint_path is not None,
+            return_sim_data=_wants_sim_data(sim_data_returned),
+            segment_cb=segment_cb if interactive else None,
+        )
+        result = {k: v.detach().cpu().numpy() for k, v in result.items()}
+    if checkpoint_path is not None:
+        # The backward's hand-off to the forward pass, so that a later
+        # forward-only revaluation skips the backward (checkpoint.py).
+        make_checkpoint(
+            arrays, {k: result.pop(f"regression_{k}") for k in ("mean", "std", "coeffs")},
+            basis_funcs, inputs.starting_inventory, int(extra_decisions or 0),
+            bool(discount_deltas), inputs.compiled.ratchet_is_step,
+            must_be_empty_at_end=terminal_fn is None,
+        ).save(checkpoint_path)
     logger.info(
         "LSMC complete. Forward NPV %.2f (backward %.2f).",
         result["npv"], result["backward_npv"],
     )
+    progress(0.9)
     paths = {"spot_regress": spot_reg, "spot_valuation": spot_val,
              "factors_regress": factors_reg, "factors_valuation": factors_val}
-    return _results(inputs.periods, result, sim_data_returned, paths,
-                    intrinsic=(float(intrinsic.npv), engine_profile(inputs.periods, intrinsic)))
+    out = _results(inputs.periods, result, sim_data_returned, paths,
+                   intrinsic=(float(intrinsic.npv), intrinsic_profile))
+    if logger.isEnabledFor(logging.INFO):
+        logger.info("LSMC phase profile:\n%s", stopwatches.report())
+    progress(1.0)
+    return out
 
 
 def _results(periods, result, sim_data_returned: SimulationDataReturned,

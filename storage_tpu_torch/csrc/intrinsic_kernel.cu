@@ -93,10 +93,20 @@ __global__ void __launch_bounds__(kThreads) intrinsic_dp_kernel(Problem<T> p) {
   // Forward walk of the inventory.
   if (threadIdx.x == 0) {
     T inv = p.inv0;
+    // 16 units in the last place (engines/intrinsic.py snap_to_band).
+    const T snap_ulps = ldexp(T(1), sizeof(T) == 4 ? -19 : -48);
     for (int t = 0; t < N; ++t) {
       const Choice<T> c = decide_step(p, t, inv);
-      const T loss = mul(p.steps[static_cast<size_t>(t) * NUM_STEP_SCALARS + S_LOSS_PCNT], inv);
-      inv = sub(add(inv, c.decision), loss);
+      const T* s = p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS;
+      const T loss = mul(s[S_LOSS_PCNT], inv);
+      T next = sub(add(inv, c.decision), loss);
+      // A decision that fills or empties to a bound of the next band lands
+      // on it: snap the rounding residual, whose sign would decide whether
+      // the next decision set holds zero.
+      const T tol = mul(snap_ulps, add(add(fabs(inv), fabs(c.decision)), fabs(loss)));
+      if (fabs(sub(next, s[S_NEXT_MIN])) <= tol) next = s[S_NEXT_MIN];
+      if (fabs(sub(next, s[S_NEXT_MAX])) <= tol) next = s[S_NEXT_MAX];
+      inv = next;
       p.out[t] = inv;
       p.out[N + t] = c.decision;
       p.out[2 * N + t] = c.consumed;

@@ -147,6 +147,21 @@ def _result(inv_path, decisions, consumed, losses, pvs, final_inv, end_pv) -> In
     )
 
 
+def snap_to_band(new_inventory, inventory, decision, loss, next_min, next_max):
+    """The forward walk's next inventory, set to a bound of the next band
+    where it lies within 16 units in the last place of the step's operands
+    from it.  A decision that fills or empties to a bound lands there in
+    exact arithmetic; rounding leaves a residual (~1e-16 of the volumes)
+    whose sign decides whether the next step's decision set holds zero
+    (``grid.bang_bang_decisions``), and so the path.  The DP kernel snaps
+    alike, in the same operations."""
+    tol = 16 * torch.finfo(new_inventory.dtype).eps * (inventory.abs() + decision.abs()
+                                                        + loss.abs())
+    for bound in (next_min, next_max):
+        new_inventory = torch.where((new_inventory - bound).abs() <= tol, bound, new_inventory)
+    return new_inventory
+
+
 def backward_values(arrays, num_extra_decisions: int, terminal_fn, ratchet_is_step: bool,
                     interpolation: str = "linear", uniform_grids: bool = True):
     """The plain backward over t = N−1 .. 1: the values vs [N+1] of [G] rows
@@ -182,7 +197,8 @@ def intrinsic_plain(
 ) -> IntrinsicEngineResult:
     """The DP in tensor code, any dtype and device (``_intrinsic_core`` of the
     JAX package): ``backward_values``, then the forward walk of the inventory
-    from ``starting_inventory``."""
+    from ``starting_inventory``, each step's inventory snapped to a band
+    bound it lands on (``snap_to_band``)."""
     vs, moments = backward_values(arrays, num_extra_decisions, terminal_fn, ratchet_is_step,
                                   interpolation, uniform_grids)
     grids = arrays["grids"]
@@ -190,10 +206,12 @@ def intrinsic_plain(
     inventory = torch.full((1,), float(starting_inventory), dtype=grids.dtype, device=grids.device)
     path = []
     for t in range(n):
+        x = step_tables(arrays, t)
         _, decision, consumed, pv, loss = decision_values(
-            step_tables(arrays, t), inventory, vs[t + 1], moments[t + 1], num_extra_decisions,
-            ratchet_is_step, interpolation, uniform_grids)
-        inventory = inventory + decision - loss
+            x, inventory, vs[t + 1], moments[t + 1], num_extra_decisions, ratchet_is_step,
+            interpolation, uniform_grids)
+        inventory = snap_to_band(inventory + decision - loss, inventory, decision, loss,
+                                 x["next_min"], x["next_max"])
         path.append(torch.stack([inventory[0], decision[0], consumed[0], loss[0], pv[0]]))
     inv_path, decisions, consumed, losses, pvs = torch.stack(path, dim=1)
     end_pv = terminal_values(terminal_fn, arrays["fwd"][n], inventory)[0]

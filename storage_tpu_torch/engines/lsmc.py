@@ -26,6 +26,10 @@ panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
   pathwise deltas (:513-518), expected profiles and trigger prices
   (:523-592); with ``return_sim_data`` kernel C writes its per-sim outputs
   straight into [N, S] panels.
+* An interactive run (``segment_cb``, the JAX package's host-chunked
+  ``lsmc_core_chunked``) calls back after every 16-step segment of both
+  passes: the backward loop between its steps, the forward sweep split into
+  a launch a segment, the inventory and PV carried between launches.
 
 Everything that does not depend on the loop carry — decision sets,
 interpolation indices and weights, immediate-value coefficients, the forward
@@ -52,6 +56,9 @@ from ..ops import decision_kernel, forward_kernel, interp
 from ..ops.regression import column_stats, fit_continuation, fit_from_moments
 
 NUM_TRIGGER_PRICE_VOLUMES = 10  # LsmcStorageValuation.cs:383
+# Steps between progress callbacks of an interactive run (the JAX package's
+# ``lsmc_core_chunked`` default).
+SEG_LEN = 16
 
 _SCALARS = (
     "df_settle", "df_flow", "inj_cost", "wdr_cost", "inj_pcnt", "wdr_pcnt",
@@ -206,6 +213,22 @@ def _standardised_design_t(monomials, spot, factors, mean, std):
     return (cols - mean[:, None]) / std[:, None]
 
 
+def _ticker(segment_cb, phase: str, num_steps: int):
+    """``tick(t)`` to call after step t of a pass: it calls
+    ``segment_cb(phase, done, total)`` at the end of each ``SEG_LEN``-step
+    segment (segments start at multiples of ``SEG_LEN``; the backward ends
+    them at their first step, so a tail shorter than ``SEG_LEN`` comes
+    first, as in the JAX package's ``lsmc_core_chunked``)."""
+    seg_len = max(1, min(SEG_LEN, num_steps))
+    total = -(-num_steps // seg_len)
+
+    def tick(t: int) -> None:
+        if segment_cb is not None and t % seg_len == 0:
+            segment_cb(phase, total - t // seg_len, total)
+
+    return tick
+
+
 def lsmc_backward(
     arrays: tp.Dict[str, torch.Tensor],
     spot_reg: torch.Tensor,  # [N+1, S]
@@ -216,9 +239,14 @@ def lsmc_backward(
     ratchet_is_step: bool,
     snap_interp: bool = False,
     fullstep: bool = False,
+    segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
 ):
     """Backward induction.  Returns (v0 [G, S], regression payload of stacked
     per-step mean [N, B], std [N, B], coeffs [N, B, G]).
+
+    ``segment_cb("backward", done, total)``, where given, is called after
+    each ``SEG_LEN``-step segment, from the last step down (``_ticker``);
+    raising from it stops the pass between segments.
 
     ``snap_interp`` rounds the interpolation weights to the 1/256 grid, the
     quadrature of the TPU run.  Factor panels run kernel B with the tensor
@@ -242,6 +270,7 @@ def lsmc_backward(
     coeffs_all = torch.empty((n, len(monomials), num_grid), dtype=dtype, device=grids.device)
     spare = torch.empty_like(v)
     step_args = lambda t: (prep["idx_lo"][t], prep["w_hi"][t])  # noqa: E731
+    tick = _ticker(segment_cb, "backward", n)
     if design_in_memory:
         for t in range(n - 1, -1, -1):
             # Regression of the next period's values on this period's
@@ -254,6 +283,7 @@ def lsmc_backward(
             )
             spare, v = v, best_act
             coeffs_all[t] = coeffs
+            tick(t)
         return v, {"mean": mean, "std": std, "coeffs": coeffs_all}
 
     xtx, xty = _fused_bootstrap(
@@ -273,6 +303,7 @@ def lsmc_backward(
                 regression_out=(mean_out[t], std_out[t], coeffs_all[t]),
             )
             spare, v = v, best_act
+            tick(t)
         return v, {"mean": mean_out, "std": std_out, "coeffs": coeffs_all}
 
     for t in range(n - 1, -1, -1):
@@ -288,6 +319,7 @@ def lsmc_backward(
         )
         spare, v = v, best_act
         coeffs_all[t] = coeffs
+        tick(t)
     return v, {"mean": mean, "std": std, "coeffs": coeffs_all}
 
 
@@ -383,13 +415,17 @@ def lsmc_forward(
     terminal_fn,
     ratchet_is_step: bool,
     return_sim_data: bool = False,
+    segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
 ):
     """Forward simulation over materialised valuation panels, one forward
     sweep for all steps; the per-step reductions stay on the device until the
-    result dict is read.  ``return_sim_data`` adds the per-sim panels of the
-    JAX package's ``_forward_finalise``: inventory and PV [N+1, S] (the last
-    rows the final inventory and the terminal PV), and volume, fuel, loss
-    and net volume [N, S]."""
+    result dict is read.  With ``segment_cb`` the sweep runs ``SEG_LEN``
+    steps a launch and ``segment_cb("forward", done, total)`` is called after
+    each (the same bits: ``forward_kernel.sweep_in_chunks``); a generic basis
+    then builds its design ``SEG_LEN`` steps at a time.  ``return_sim_data``
+    adds the per-sim panels of the JAX package's ``_forward_finalise``:
+    inventory and PV [N+1, S] (the last rows the final inventory and the
+    terminal PV), and volume, fuel, loss and net volume [N, S]."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     dtype = grids.dtype
@@ -410,18 +446,28 @@ def lsmc_forward(
         sim_dec, sim_cons = panel(n), panel(n)
         sim_inventory[0] = inventory
         panels = (sim_inventory[1:], sim_dec, sim_cons, sim_pv[:n])
+    seg_len = max(1, min(SEG_LEN, n))
+    chunk_cb = None if segment_cb is None else (
+        lambda done, total: segment_cb("forward", done, total))
+    tables = (params, regression["mean"], regression["std"], *(r[:n] for r in ratchets))
     if has_generic(monomials):
         inventory, pv, sums, xbar = forward_kernel.forward_sweep_generic(
-            params, regression["mean"], regression["std"], *(r[:n] for r in ratchets),
-            spot_val[:n], factors_val[:n], inventory, regression["coeffs"], monomials,
+            *tables, spot_val[:n], factors_val[:n], inventory, regression["coeffs"], monomials,
             num_extra_decisions, ratchet_is_step, panels=panels,
+            chunk=None if segment_cb is None else seg_len, chunk_cb=chunk_cb,
         )
     else:
-        inventory, pv, sums, xbar = forward_kernel.forward_sweep(
-            params, regression["mean"], regression["std"], *(r[:n] for r in ratchets),
-            spot_val[:n], factors_val[:n], inventory, None, regression["coeffs"], monomials,
-            num_extra_decisions, ratchet_is_step, panels=panels,
-        )
+        rows = list(panels) if panels is not None else [None] * 4
+
+        def sweep_chunk(t0, t1, inventory, pv):
+            return forward_kernel.forward_sweep(
+                *(x[t0:t1] for x in tables), spot_val[t0:t1], factors_val[t0:t1], inventory, pv,
+                regression["coeffs"][t0:t1], monomials, num_extra_decisions, ratchet_is_step,
+                panels=[None if p is None else p[t0:t1] for p in rows],
+            )
+
+        inventory, pv, sums, xbar = forward_kernel.sweep_in_chunks(
+            n, n if segment_cb is None else seg_len, chunk_cb, sweep_chunk, inventory)
     count = float(s_count)
     xbar = xbar / count
     expected_inventory = sums[:, forward_kernel._A_INV] / count
@@ -500,21 +546,30 @@ def lsmc_core(
     return_regression: bool = False,
     return_sim_data: bool = False,
     fullstep: bool = False,
+    segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
 ) -> tp.Dict[str, torch.Tensor]:
     """Full LSMC valuation on one device over materialised panels: regression
     sims drive the backward pass, valuation sims the forward pass.  Results
     stay on the panels' device.  ``return_sim_data`` adds the per-sim panels
     (``lsmc_forward``); ``fullstep`` runs each backward step as kernel E
-    alone (factor panels and monomial bases only)."""
+    alone (factor panels and monomial bases only).
+
+    ``segment_cb(phase, done, total)`` makes the run interactive, as the JAX
+    package's ``lsmc_core_chunked`` (the same function here): it is called
+    after every ``SEG_LEN``-step segment of the backward (``phase``
+    "backward") and of the forward ("forward", whose sweep then runs a
+    launch a segment), and raising from it aborts the valuation between
+    segments.  An interactive run gives the uninterrupted run's bits."""
     with full_f32_matmul():
         v0, regression = lsmc_backward(
             arrays, spot_reg, factors_reg, monomials, num_extra_decisions,
             terminal_fn, ratchet_is_step, snap_interp=snap_interp, fullstep=fullstep,
+            segment_cb=segment_cb,
         )
         result = lsmc_forward(
             arrays, spot_val, factors_val, regression, starting_inventory, monomials,
             num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
-            return_sim_data=return_sim_data,
+            return_sim_data=return_sim_data, segment_cb=segment_cb,
         )
     # Backward (upper-ish) estimate: mean of the first-period values at the
     # known starting inventory (grid[0] is degenerate) — LsmcStorageValuation.cs:623.
@@ -524,3 +579,8 @@ def lsmc_core(
         result["regression_std"] = regression["std"]
         result["regression_coeffs"] = regression["coeffs"]
     return result
+
+
+# The JAX package's name for its host-chunked engine, which here is
+# ``lsmc_core`` given a ``segment_cb``.
+lsmc_core_chunked = lsmc_core

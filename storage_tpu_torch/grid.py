@@ -2,8 +2,10 @@
 
 Host side (numpy float64): the forward/backward feasible-band reduction of
 ``StorageHelper.CalculateInventorySpace`` (StorageHelper.cs:39-107), a copy of
-the pure-Python path of ``storage_tpu.grid.calculate_inventory_space``, and the
-inventory grids: linspace, the reference's fixed spacing and the user's own
+``storage_tpu.grid.calculate_inventory_space``: the C++ reducer of the native
+host runtime (``native/storage_native.cpp``) for facilities it can take, the
+pure-Python loop for the rest; and the inventory
+grids: linspace, the reference's fixed spacing and the user's own
 (``grid_calc``).
 
 Device side (torch): ratchet-rate lookup and the bang-bang decision set of
@@ -14,6 +16,7 @@ looked up at an inventory whose leading dims broadcast against the table's.
 """
 from __future__ import annotations
 
+import ctypes
 import typing as tp
 
 import numpy as np
@@ -28,11 +31,17 @@ from .utils import periods as pu
 
 def calculate_inventory_space(
     storage: CmdtyStorage, starting_inventory: float, val_period,
+    use_native: tp.Optional[bool] = None,
 ) -> tp.Tuple[np.ndarray, np.ndarray]:
     """Feasible inventory band per period after the decision at the previous period.
 
     Returns (lower, upper) arrays of length num_steps+1: index 0 is the known
     starting inventory, index t>0 the band for period ``start_active + t``.
+
+    ``use_native``: None takes the C++ reducer where the facility fits its
+    tables (constant, piecewise-linear or step ratchets of one node count and
+    one kind) and the pure-Python loop otherwise; True requires the reducer;
+    False takes the loop.  Both give the same float64 bits.
     """
     val_p = pu.to_period(val_period, storage.start.freqstr)
     if val_p > storage.end:
@@ -41,6 +50,17 @@ def calculate_inventory_space(
     periods = pu.period_index(start_active, storage.end)
     num_steps = len(periods) - 1
     first_step = pu.period_offset(start_active, storage.start)
+
+    if use_native is not False:
+        native_result = _native_inventory_space(
+            storage, starting_inventory, first_step, num_steps
+        )
+        if native_result is not None:
+            return native_result
+        if use_native:
+            raise RuntimeError(
+                "Native inventory-space reduction unavailable for this facility."
+            )
 
     fwd_min = np.empty(num_steps)
     fwd_max = np.empty(num_steps)
@@ -101,6 +121,81 @@ def calculate_inventory_space(
         lower[i + 1] = lo
         upper[i + 1] = hi
     return lower, upper
+
+
+def _native_inventory_space(
+    storage: CmdtyStorage, starting_inventory, first_step, num_steps
+) -> tp.Optional[tp.Tuple[np.ndarray, np.ndarray]]:
+    """The band from the C++ reducer (``stpu_inventory_space_reduce``), or
+    None where the facility does not fit its tables: a polynomial constraint
+    (its exact inverse is in the Python path only), node counts that differ
+    between periods, or step and linear ratchets mixed."""
+    from . import constraints as con
+    from . import native
+
+    # Dense per-period bounds straight from the facility's arrays: no pandas
+    # Period per step.
+    min_inv = np.asarray(storage._min_inv, dtype=np.float64)[
+        first_step:first_step + num_steps + 1].copy()
+    max_inv = np.asarray(storage._max_inv, dtype=np.float64)[
+        first_step:first_step + num_steps + 1].copy()
+
+    tables = []
+    is_step_flags = set()
+    # Constraint objects are shared across long stretches of periods: one
+    # table per (constraint, bounds).  The keepalive list pins every cached
+    # constraint so that a recycled id() never aliases another object.
+    table_cache: tp.Dict[tp.Tuple[int, float, float], tp.Any] = {}
+    cache_keepalive: tp.List[tp.Any] = []
+    for t in range(num_steps):
+        constraint = storage.constraint_at(first_step + t)
+        if isinstance(constraint, con.PolynomialInjectWithdrawConstraint):
+            return None
+        key = (id(constraint), min_inv[t], max_inv[t])
+        entry = table_cache.get(key)
+        if entry is None:
+            entry = constraint.table(min_inv[t], max_inv[t])
+            table_cache[key] = entry
+            cache_keepalive.append(constraint)
+        inv, mn, mx, is_step = entry
+        tables.append((inv, mn, mx))
+        is_step_flags.add(is_step)
+    if len(is_step_flags) > 1 or len({len(t[0]) for t in tables}) != 1:
+        return None
+    width = len(tables[0][0])
+
+    node_inv, node_min, node_max = (
+        np.ascontiguousarray([t[k] for t in tables], dtype=np.float64) for k in range(3))
+    if storage.empty_at_end:
+        min_inv[-1] = max_inv[-1] = 0.0
+    loss = np.ascontiguousarray(
+        np.asarray(storage._inventory_loss, dtype=np.float64)[first_step:first_step + num_steps]
+    )
+    lower = np.empty(num_steps + 1)
+    upper = np.empty(num_steps + 1)
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+    _native_inventory_space.launches += 1
+    rc = native.load().stpu_inventory_space_reduce(
+        num_steps, width, int(is_step_flags == {True}),
+        ptr(node_inv), ptr(node_min), ptr(node_max),
+        ptr(min_inv), ptr(max_inv), ptr(loss),
+        float(starting_inventory), ptr(lower), ptr(upper),
+    )
+    if rc == 1:
+        raise InventoryConstraintsCannotBeFulfilledException(
+            "Inventory constraints cannot be fulfilled."
+        )
+    if rc == 2:
+        raise InventoryConstraintsCannotBeFulfilledException(
+            "Storage inventory constraints cannot be satisfied."
+        )
+    return lower, upper
+
+
+_native_inventory_space.launches = 0  # calls of the C++ reducer (read by chip_smoke.py)
 
 
 def inventory_grids(

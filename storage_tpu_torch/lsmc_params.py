@@ -8,8 +8,7 @@ builder that wires either the multi-factor Monte Carlo simulator
 (``Builder.SimulateWithMultiFactorModelAndMersenneTwister``, :185-196 — here a
 threefry counter RNG) or user-supplied simulation panels
 (``Builder.UseSpotSimResults``, :198-216), plus cooperative cancellation and
-progress callbacks, which the port's entry points still refuse with the
-``NotImplementedError`` naming their ROADMAP item.
+progress callbacks and a checkpoint of the regression.
 
 The function API (``three_factor_seasonal_value`` etc.) remains the primary
 entry point; this object form suits job queues, checkpointing and programmatic
@@ -146,8 +145,7 @@ class LsmcValuationParametersBuilder:
         return self._set("on_progress_update", on_progress_update)
 
     def with_cancellation_poll(self, poll: tp.Callable[[], bool]):
-        """Polled at phase boundaries; return True to cancel (the port's entry
-        points refuse it until interactive execution is ported)."""
+        """Polled at phase and segment boundaries; return True to cancel."""
         return self._set("cancellation_poll", poll)
 
     def with_sim_data_returned(self, flags):
@@ -177,8 +175,7 @@ class LsmcValuationParametersBuilder:
 
     def with_checkpoint_path(self, path: str):
         """Persist the backward pass's regression payload to ``path`` after the
-        valuation (refused by the port's entry points until checkpoints are
-        ported)."""
+        valuation (``checkpoint.RegressionCheckpoint``)."""
         return self._set("checkpoint_path", str(path))
 
     def simulate_with_multi_factor_model(

@@ -188,7 +188,8 @@ class MultiFactorSpotSim:
     threefry counter draws, not the reference's Mersenne Twister.  They are
     simulated on ``device`` (CUDA unless the caller names another) in
     ``dtype``: in f32 one launch of the simulation sweep per call, in f64
-    the plain loop.  The frames are f64."""
+    the plain loop.  The frames hold the simulation's dtype, as the JAX
+    package's do."""
 
     def __init__(
         self,
@@ -244,7 +245,7 @@ class MultiFactorSpotSim:
 
     def _frame(self, data: torch.Tensor) -> pd.DataFrame:
         index = pd.PeriodIndex(self._periods, freq=self._freq)
-        return pd.DataFrame(data=data.detach().cpu().numpy().astype(np.float64), index=index)
+        return pd.DataFrame(data=data.detach().cpu().numpy(), index=index)
 
     def simulate(self, num_sims: int) -> pd.DataFrame:
         return self._frame(self._simulate(num_sims).spot)

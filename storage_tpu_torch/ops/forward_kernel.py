@@ -453,29 +453,49 @@ forward_sweep_design.launches = 0
 DESIGN_CHUNK = 32
 
 
+def sweep_in_chunks(num_steps: int, chunk: int, chunk_cb, sweep_chunk, inventory):
+    """A forward pass ``chunk`` steps a launch: ``sweep_chunk(t0, t1,
+    inventory, pv)`` sweeps steps t0..t1−1 from the carried inventory and PV
+    (None for zeros before the first) and returns the sweep's four results;
+    ``chunk_cb(done, total)``, where given, is called after each chunk.
+    Returns the sweep's results over all steps.  Each step's arithmetic is
+    the sweep's, and a launch hands on the f32 inventory and PV that one
+    launch would carry to its next step: the same bits as one launch."""
+    pv, sums, xbar = None, [], []
+    total = -(-num_steps // chunk)
+    for done, t0 in enumerate(range(0, num_steps, chunk), start=1):
+        inventory, pv, sums_c, xbar_c = sweep_chunk(t0, min(t0 + chunk, num_steps), inventory, pv)
+        sums.append(sums_c)
+        xbar.append(xbar_c)
+        if chunk_cb is not None:
+            chunk_cb(done, total)
+    return inventory, pv, torch.cat(sums), torch.cat(xbar)
+
+
 def forward_sweep_generic(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
                           factors, inventory, coeffs, entries, num_extra_decisions: int,
-                          ratchet_is_step: bool, panels=None):
+                          ratchet_is_step: bool, panels=None, chunk: tp.Optional[int] = None,
+                          chunk_cb=None):
     """The forward pass for a basis of any entries, generic callables too:
-    ``DESIGN_CHUNK`` steps at a time, the raw design of the chunk's steps built on
-    the spot's device (``basis.design_columns``, a generic entry called once
-    a step) and swept by ``forward_sweep_design``, the inventory and PV
-    carried from one chunk to the next.  Arguments and results as
-    ``forward_sweep``'s (without ``pv``: the PV starts at zero)."""
+    ``chunk`` steps at a time (``DESIGN_CHUNK`` where None), the raw design
+    of the chunk's steps built on the spot's device (``basis.design_columns``,
+    a generic entry called once a step) and swept by ``forward_sweep_design``,
+    the inventory and PV carried from one chunk to the next, and
+    ``chunk_cb(done, total)`` called after each chunk (``sweep_in_chunks``).
+    Arguments and results as ``forward_sweep``'s (without ``pv``: the PV
+    starts at zero)."""
     rows = list(panels) if panels is not None else [None] * 4
-    pv, sums, xbar = None, [], []
-    for t0 in range(0, spot.shape[0], DESIGN_CHUNK):
-        t1 = min(t0 + DESIGN_CHUNK, spot.shape[0])
+
+    def sweep_chunk(t0, t1, inventory, pv):
         design = torch.stack(design_columns(entries, spot[t0:t1], factors[t0:t1]), dim=1)
-        inventory, pv, sums_c, xbar_c = forward_sweep_design(
+        return forward_sweep_design(
             params[t0:t1], mean[t0:t1], std[t0:t1], ratchet_inv[t0:t1], ratchet_min[t0:t1],
             ratchet_max[t0:t1], spot[t0:t1], design, inventory, pv, coeffs[t0:t1],
             num_extra_decisions, ratchet_is_step,
             panels=[None if p is None else p[t0:t1] for p in rows],
         )
-        sums.append(sums_c)
-        xbar.append(xbar_c)
-    return inventory, pv, torch.cat(sums), torch.cat(xbar)
+
+    return sweep_in_chunks(spot.shape[0], chunk or DESIGN_CHUNK, chunk_cb, sweep_chunk, inventory)
 
 
 def forward_step(

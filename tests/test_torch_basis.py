@@ -16,6 +16,7 @@ JAX package.
   the monomials' design, and the same bits chunked as whole.  The card's
   tests of the kernel are in ``test_torch_cuda_host_layer.py``.
 """
+import gc
 import re
 import time
 
@@ -105,15 +106,21 @@ def test_string_inside_a_list_parses():
 def test_list_coercion_is_linear():
     """Coercing a list takes time linear in its length (the JAX package's
     copy grows the list term by term, which is quadratic): 5,000 entries
-    within 20x of 500, where linear is 10x and quadratic 100x."""
+    within 20x of 500, where linear is 10x and quadratic 100x.  Timed in
+    the process's CPU seconds with the garbage collector off, so that other
+    processes on a loaded host and a collection mid-call do not count."""
 
     def best(n):
         entries = [tbasis.S ** i * tbasis.X0 for i in range(n)]
         times = []
-        for _ in range(7):
-            t0 = time.perf_counter()
-            out = tbasis.coerce_basis_functions(entries)
-            times.append(time.perf_counter() - t0)
+        gc.disable()
+        try:
+            for _ in range(7):
+                t0 = time.process_time()
+                out = tbasis.coerce_basis_functions(entries)
+                times.append(time.process_time() - t0)
+        finally:
+            gc.enable()
         assert len(out) == n
         return min(times)
 

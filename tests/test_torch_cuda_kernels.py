@@ -32,6 +32,8 @@ from storage_tpu_torch.ops import (decision_kernel, forward_kernel, interp, intr
                                    rng_kernel, tree_kernel)
 from storage_tpu_torch.valuation_inputs import prepare_valuation
 
+from _torch_intrinsic_case import START, curve, facility, snapped_steps
+
 pytestmark = pytest.mark.cuda
 
 BASIS = "1 + s + x0 + x1 + x0**2 + s*x2"
@@ -433,6 +435,34 @@ def test_intrinsic_dp(device, dtype, mode, g, n):
     want = intrinsic_engine.intrinsic_plain(
         {k: v.to(torch.float64) for k, v in arrays.items()}, *args)
     assert got.npv.dtype == dtype and got.inventory.shape == (arrays["grids"].shape[0],)
+    rel = 1e-10 if dtype == torch.float64 else 1e-5
+    assert float(got.npv) == pytest.approx(float(want.npv), rel=rel)
+    if dtype == torch.float64:
+        for name in intrinsic_engine.IntrinsicEngineResult._fields[1:]:
+            torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("extra", [1, 2], ids=["E=1", "E=2"])
+def test_intrinsic_dp_snaps_must_end_empty(device, dtype, extra):
+    """The 40-day facility that must end empty, on fixed-spacing rows (G=15)
+    at E >= 1: the kernel's walk snaps to the band (at least one step's
+    inventory is not previous + decision - loss as rounded) and gives its
+    plain version's NPV (f64 1e-10, profile 1e-6; f32 1e-5 of the f64
+    answer), whose walk snaps alike."""
+    inputs = prepare_valuation(facility(tpkg, "linear", False), START, 800.0, curve(), 0.03, None)
+    lo, hi = inputs.inventory_lower, inputs.inventory_upper
+    grids = gridmod.inventory_grids_fixed_spacing(
+        lo, hi, float(np.min(inputs.compiled.min_inv)), float(np.max(inputs.compiled.max_inv)), 15)
+    arrays = lsmc_engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow, lo, hi, 15, dtype, device,
+        grids)
+    args = (inputs.starting_inventory, extra, None, False, "linear", False)
+    got = intrinsic_engine.intrinsic_core(arrays, *args)
+    want = intrinsic_engine.intrinsic_plain(
+        {k: v.to(torch.float64) for k, v in arrays.items()}, *args)
+    assert snapped_steps(got, inputs.starting_inventory) >= 1
+    assert snapped_steps(want, inputs.starting_inventory) >= 1
     rel = 1e-10 if dtype == torch.float64 else 1e-5
     assert float(got.npv) == pytest.approx(float(want.npv), rel=rel)
     if dtype == torch.float64:

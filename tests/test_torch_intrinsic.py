@@ -14,7 +14,14 @@
   one-rounding-per-operation arithmetic give it different signs.  At E = 0
   both decision sets are then {0, 0, max injection}; at E >= 1 they differ
   (the hold's neighbours against a spread from the withdrawal endpoint),
-  and the two paths part.  The LSMC's intrinsic value runs at E = 0.
+  and the two paths part.  The LSMC's intrinsic value runs at E = 0.  The
+  exact answer there is a DP in f64 built from the JAX package's own
+  pieces, each operation rounded on its own, with the walk's residual
+  snapped to the band (``_jax_snapped_dp``): at an inventory of exactly 0
+  the decision set is the spread.  The port's
+  walk snaps each step's inventory to the band bound it lands on
+  (``engines.intrinsic.snap_to_band``) and gives it; the JAX package parts
+  from it (a fault of the reference, which stays as it is).
 * ``intrinsic_value`` frames against ``storage_tpu.intrinsic_value``, its
   degenerate cases and errors, the pins of ``BASELINE.md`` (1,705,564.28 on
   linspace, the reference's 1,703,773.0757192627 on fixed spacing, the C#
@@ -40,38 +47,14 @@ from storage_tpu_torch.engines import lsmc as torch_lsmc
 from storage_tpu_torch.ops import interp as torch_interp
 from storage_tpu_torch.valuation_inputs import prepare_valuation as torch_prepare
 
+from _torch_intrinsic_case import NUM_DAYS, START, snapped_steps
+from _torch_intrinsic_case import curve as _curve
+from _torch_intrinsic_case import facility as _facility
+
 torch.set_num_threads(1)
 
 NPV_RTOL = 1e-10
 PROFILE_ATOL = 1e-6
-NUM_DAYS = 40
-START = pd.Period("2021-03-01", freq="D")
-
-
-def _facility(pkg, ratchets: str, terminal: bool):
-    """A 40-day facility with ratchets (3 linear nodes, or 4 step nodes whose
-    top two agree, as a step table must), costs, fuel, loss and inventory
-    cost; either a terminal value or empty at the end (step ratchets need a
-    terminal value)."""
-    if ratchets == "linear":
-        nodes = [(0.0, -150.0, 250.0), (1500.0, -220.0, 180.0), (3000.0, -300.0, 120.0)]
-    else:
-        nodes = [(0.0, -150.0, 250.0), (1200.0, -220.0, 180.0), (2400.0, -300.0, 120.0),
-                 (3000.0, -300.0, 120.0)]
-    return pkg.CmdtyStorage(
-        "D", START, START + NUM_DAYS, 0.05, 0.03,
-        ratchets=[(START, nodes)],
-        ratchet_interp=pkg.RatchetInterp.LINEAR if ratchets == "linear" else pkg.RatchetInterp.STEP,
-        cmdty_consumed_inject=0.01, cmdty_consumed_withdraw=0.005,
-        inventory_loss=0.0005, inventory_cost=0.002,
-        terminal_storage_npv=(lambda price, inv: 0.9 * price * inv) if terminal else None,
-    )
-
-
-def _curve():
-    idx = pd.period_range(START, START + NUM_DAYS, freq="D")
-    i = np.arange(len(idx))
-    return pd.Series(index=idx, data=20.0 + 4.0 * np.sin(2 * np.pi * i / 17.0) + 0.3 * np.cos(i))
 
 
 def _inputs(pkg, prepare, ratchets="linear", terminal=True, val_offset=0, inventory=800.0):
@@ -152,6 +135,76 @@ def test_engine_matches_jax(scheme, interpolation, extra, ratchets, terminal):
     got, want = _engine_pair(scheme, interpolation, extra, ratchets, terminal)
     assert got.inventory.shape == (NUM_DAYS + 1,)
     _assert_engine_close(got, want)
+
+
+def _jax_snapped_dp(j_arrays, starting_inventory, extra, uniform):
+    """The exact answer of a facility that must end empty, built from the
+    JAX package's own pieces (``grid.ratchet_rates``/``bang_bang_decisions``,
+    ``engines.intrinsic.immediate_pv``, ``ops.interp``), each operation
+    rounded on its own: the backward value tables vs [N+1, G], and the NPV
+    of the forward walk with each step's inventory set to a bound of the
+    next band where it lies within 1e-9 of it (in exact arithmetic a fill or
+    a withdrawal to a bound lands on it)."""
+    grids, n = j_arrays["grids"], j_arrays["grids"].shape[0] - 1
+    lerp = jax_interp.interp_vector if uniform else jax_interp.interp_vector_general
+
+    def decide(t, inventory, v_next):
+        x = {k: j_arrays[k][t] for k in ("fwd", "df_settle", "df_flow", "inj_cost", "wdr_cost",
+                                          "inj_pcnt", "wdr_pcnt", "inv_cost_rate", "loss_pcnt",
+                                          "ratchet_inv", "ratchet_min", "ratchet_max")}
+        lo, hi = j_arrays["lower"][t + 1], j_arrays["upper"][t + 1]
+        rates = jax_grid.ratchet_rates(x["ratchet_inv"], x["ratchet_min"], x["ratchet_max"],
+                                       False, inventory)
+        decisions = jax_grid.bang_bang_decisions(*rates, inventory, x["loss_pcnt"], lo, hi, extra)
+        pv, _ = jax_intrinsic.immediate_pv(
+            decisions, inventory[..., None], x["fwd"], x["df_settle"], x["df_flow"],
+            x["inj_cost"], x["wdr_cost"], x["inj_pcnt"], x["wdr_pcnt"], x["inv_cost_rate"])
+        loss = x["loss_pcnt"] * inventory
+        total = pv + lerp(grids[t + 1], v_next, inventory[..., None] + decisions - loss[..., None])
+        best = jnp.argmax(total, axis=-1)[..., None]
+        take = lambda a: jnp.take_along_axis(a, best, axis=-1)[..., 0]  # noqa: E731
+        return jnp.max(total, axis=-1), take(decisions), take(pv), loss, (lo, hi)
+
+    vs = [jnp.zeros_like(grids[n])] * (n + 1)  # must end empty: no terminal value
+    for t in range(n - 1, 0, -1):
+        vs[t] = decide(t, grids[t], vs[t + 1])[0]
+    inventory, npv = jnp.asarray([starting_inventory], grids.dtype), 0.0
+    for t in range(n):
+        _, decision, pv, loss, bounds = decide(t, inventory, vs[t + 1])
+        inventory = inventory + decision - loss
+        for bound in bounds:
+            inventory = jnp.where(jnp.abs(inventory - bound) <= 1e-9 * max(1.0, abs(float(bound))),
+                                  bound, inventory)
+        npv += float(pv[0])
+    return np.stack([np.asarray(v) for v in vs]), npv
+
+
+@pytest.mark.parametrize("scheme,extra", [("linspace", 1), ("fixed_spacing", 1),
+                                          ("linspace", 2), ("fixed_spacing", 2)])
+def test_must_end_empty_with_extra_decisions_is_exact(scheme, extra):
+    """A facility that must end empty, at E >= 1: the port's DP snaps its
+    walk to the band and gives the exact answer, built from the JAX
+    package's own pieces (``_jax_snapped_dp``; the port's backward value
+    tables equal its tables first), and its walk snapped at least once; the
+    JAX package parts from it in every case (at E = 1 its residual takes the
+    other sign from the port's plain arithmetic: 32,996.16 against
+    32,999.65; at E = 2 on fixed spacing both packages' residual is +3e-16,
+    which the port once kept too)."""
+    t_in = _inputs(tpkg, torch_prepare, "linear", False)
+    grids = _grids(t_in, scheme, 15)
+    arrays = torch_lsmc.build_engine_arrays(
+        t_in.compiled, t_in.fwd, t_in.df_settle, t_in.df_flow, t_in.inventory_lower,
+        t_in.inventory_upper, 15, torch.float64, "cpu", grids)
+    uniform = scheme == "linspace"
+    vs_jax, exact = _jax_snapped_dp({k: jnp.asarray(v.numpy()) for k, v in arrays.items()},
+                                    t_in.starting_inventory, extra, uniform)
+    vs_port, _ = torch_intrinsic.backward_values(arrays, extra, None, False, "linear", uniform)
+    for t in range(1, len(vs_port)):
+        np.testing.assert_allclose(vs_port[t].numpy(), vs_jax[t], rtol=NPV_RTOL, atol=PROFILE_ATOL)
+    got, want = _engine_pair(scheme, "linear", extra, "linear", False)
+    assert float(got.npv) == pytest.approx(exact, rel=NPV_RTOL)
+    assert snapped_steps(got, t_in.starting_inventory) >= 1
+    assert abs(float(want.npv) - exact) > 1e-6 * exact
 
 
 @pytest.mark.parametrize("interpolation", ["linear", "cubic"])

@@ -211,14 +211,11 @@ def test_f32_valuation_close_to_jax():
 @pytest.mark.parametrize(
     "option,item",
     [
-        (dict(on_progress_update=lambda x: None), "interactive execution and checkpoints"),
-        (dict(cancellation_poll=lambda: False), "interactive execution and checkpoints"),
-        (dict(checkpoint_path="checkpoint.npz"), "interactive execution and checkpoints"),
         (dict(deltas_method="adjoint"), "adjoint deltas"),
         (dict(grid_calc=lambda lo, hi: np.linspace(lo, hi, 5)),
          "custom inventory grids in the LSMC engine"),
     ],
-    ids=["progress", "cancel", "checkpoint", "adjoint", "grid-calc"],
+    ids=["adjoint", "grid-calc"],
 )
 def test_unported_options_raise(option, item):
     """Each refusal names its ROADMAP item by title, which a renumbering of

@@ -155,14 +155,11 @@ def test_builder_checks_deltas_method_and_unknown_spec():
 @pytest.mark.parametrize(
     "setter,item",
     [
-        (lambda b: b.with_progress_callback(lambda x: None), "interactive execution and checkpoints"),
-        (lambda b: b.with_cancellation_poll(lambda: False), "interactive execution and checkpoints"),
-        (lambda b: b.with_checkpoint_path("checkpoint.npz"), "interactive execution and checkpoints"),
         (lambda b: b.with_deltas_method("adjoint"), "adjoint deltas"),
         (lambda b: b.with_grid_calc(lambda lo, hi: np.linspace(lo, hi, 5)),
          "custom inventory grids in the LSMC engine"),
     ],
-    ids=["progress", "cancel", "checkpoint", "adjoint", "grid-calc"],
+    ids=["adjoint", "grid-calc"],
 )
 def test_refused_options_raise_through_lsmc_value(setter, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
@@ -186,15 +183,18 @@ def _daily(start, end, value):
     return pd.Series(index=pd.period_range(start, end, freq="D"), data=float(value))
 
 
-def _spot_sim(pkg, seed=7, antithetic=False, curve_as_dict=False):
-    """The facade case of tests/test_multi_factor_model.py."""
+def _spot_sim(pkg, seed=7, antithetic=False, curve_as_dict=False, f64=True):
+    """The facade case of tests/test_multi_factor_model.py (in f32 at the
+    packages' default dtype unless ``f64``)."""
     factors = [(0.0, _daily("2021-01-01", "2021-07-01", 0.2)),
                (6.0, _daily("2021-01-01", "2021-07-01", 0.9))]
     periods = pd.period_range("2021-02-01", "2021-06-01", freq="D")
     fwd = pd.Series(index=periods, data=np.linspace(40.0, 60.0, len(periods)))
     if curve_as_dict:
         fwd = {str(p): v for p, v in fwd.items()}
-    kwargs = dict(dtype=jnp.float64) if pkg is jpkg else dict(dtype=torch.float64, device="cpu")
+    kwargs = {} if pkg is jpkg else dict(device="cpu")
+    if f64:
+        kwargs["dtype"] = jnp.float64 if pkg is jpkg else torch.float64
     return pkg.MultiFactorSpotSim("D", factors, 0.3, "2021-01-01", fwd, list(periods), seed=seed,
                                   antithetic=antithetic, **kwargs)
 
@@ -213,6 +213,17 @@ def test_spot_sim_matches_jax_f64(antithetic, curve_as_dict):
     for g, w in zip(got_fac, want_fac):
         np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-14)
     pd.testing.assert_frame_equal(sim.simulate(96), got_spot, check_exact=True)
+
+
+def test_spot_sim_frames_keep_the_f32_dtype_as_jax():
+    """At the default f32 the frames are float32, as the JAX facade's, and
+    hold the same paths to f32 rounding of the OU recursion."""
+    want_spot, want_fac = _spot_sim(jpkg, f64=False).simulate_with_factors(96)
+    got_spot, got_fac = _spot_sim(tpkg, f64=False).simulate_with_factors(96)
+    for got, want in zip([got_spot, *got_fac], [want_spot, *want_fac]):
+        assert got.dtypes.unique().tolist() == want.dtypes.unique().tolist() == [np.float32]
+        pd.testing.assert_index_equal(got.index, want.index)
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
 
 
 def test_spot_sim_seed_reproducible():
@@ -299,9 +310,8 @@ def test_curve_errors_match_jax():
 
 
 def test_exports_are_the_jax_packages_but_the_service_layer():
-    service = {"Job", "JobCancelledError", "JobControl", "JobStatus", "ValuationJobEngine",
-               "CalcMode", "CalcStatus", "CalculationService", "ObjectCache"}
-    assert set(jpkg.__all__) - set(tpkg.__all__) == service
+    """The service layer is ported too: every JAX name is exported."""
+    assert set(jpkg.__all__) - set(tpkg.__all__) == set()
     assert set(tpkg.__all__) - set(jpkg.__all__) == {"Monomial"}
     for name in tpkg.__all__:
         assert getattr(tpkg, name) is not None
