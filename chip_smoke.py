@@ -111,7 +111,26 @@
    sims (exit 0, the in-process call's lines and CSVs), and beside it a
    second one that gets SIGINT after its first progress line (exit 130,
    "cancelled").
-10. A phase breakdown (host preparation, simulate, intrinsic, backward,
+10. Adjoint deltas and custom grids: the forward sweep's VJP kernel
+   (``csrc/forward_vjp.cu``) against its plain version on the main path's
+   own volume, fuel and spot panels (within 1e-5 of its largest entry), at
+   g = 1/S against kernel C's pathwise-delta sums of the same sweep, at
+   S=1,000 in f32 and f64, timed beside its bound and one einsum; kernel
+   C's general-grid mode against its plain version on the main path's
+   tables on bunched rows (monomial mode), padded rows (design mode) and
+   at G=1,000, timed beside the evenly spaced mode.  Then, each path with
+   the counters reset: the headline with ``deltas_method="adjoint"`` (the
+   main path's NPV, SE, intrinsic value and profile bits, deltas for t < N
+   within 1e-5 of the pathwise ones, the last the terminal value's gradient
+   against its f64 formula on the same paths, one VJP launch; wall median
+   of 3 beside the pathwise one's in turns, peak device memory); the
+   headline on a custom grid (``bunched_grid``: within 0.1 SE of its f64
+   answer ``F64_CUSTOM_NPV``, one general-mode sweep; wall median of 3);
+   evenly spaced rows through ``grid_calc`` (the main path's bits); the
+   adjoint on the custom grid (its pathwise deltas); the replicated generic
+   basis on it (the design mode's general-grid launches); a checkpoint made
+   on it, revalued on the same valuation paths (its NPV bits).
+11. A phase breakdown (host preparation, simulate, intrinsic, backward,
    forward) and one valuation under torch.profiler (device busy share,
    kernels by time).
 
@@ -126,8 +145,8 @@ a CUDA device, outside the repository, or when any phase fails.
 
 Run from the repository root:  python3 chip_smoke.py
 ``python3 chip_smoke.py --f64`` instead measures the f64 answers pinned below
-(the kernels' plain versions in f64 on the card, on the f32 draws) and prints
-them.
+(the kernels' plain versions in f64 on the card, on the f32 draws; the
+custom grid's too) and prints them.
 """
 from __future__ import annotations
 
@@ -152,6 +171,9 @@ F64_SPOT_NPV = 97_297.10184581533
 # HBM3): the same arithmetic in any design of kernels C and D keeps these
 # bits.
 SPOT_NPV, SPOT_SE = 97_298.28125, 105.01128387451172
+# The headline on the custom grid (``bunched_grid``) in f64 the same way
+# (``--f64``): the f32 custom-grid valuation lands within 0.1 SE of it.
+F64_CUSTOM_NPV = 115_081.24657122964
 # The headline's intrinsic value in f64 (the DP's plain version on the card,
 # ``--f64``): the f32 kernel of every valuation lands within 1e-5 of it.
 F64_INTRINSIC_NPV = 46_977.992957453476
@@ -194,6 +216,17 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
     # JAX package runs on its XLA path (no Pallas kernel of its own).
     "forward_sweep_design": ("storage_tpu_torch/csrc/forward_kernel.cu",
                              "storage_tpu/ops/forward_kernel.py:372"),
+    # The adjoint deltas' VJP of the forward sweep: jax.value_and_grad of the
+    # XLA forward pass in the JAX package (no Pallas kernel).
+    "forward_sweep_vjp": ("storage_tpu_torch/csrc/forward_vjp.cu",
+                          "storage_tpu/engines/lsmc.py:1518"),
+    # Kernel C's general-grid mode, in the monomial and the design mode: the
+    # JAX package's XLA forward step with interp_per_sim_general on custom
+    # rows (no Pallas kernel).
+    "forward_sweep_general": ("storage_tpu_torch/csrc/forward_kernel.cu",
+                              "storage_tpu/engines/lsmc.py:990"),
+    "forward_sweep_design_general": ("storage_tpu_torch/csrc/forward_kernel.cu",
+                                     "storage_tpu/engines/lsmc.py:990"),
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bandwidth, and float32 outside the tensor cores, which counts a
@@ -456,8 +489,9 @@ def launch_ms(module, name: str, run, repeats: int):
             run()
     finally:
         setattr(module, name, inner)
-        if hasattr(inner, "launches"):
-            inner.launches = timed.launches
+        for counter in ("launches", "general_launches"):
+            if hasattr(inner, counter):
+                setattr(inner, counter, getattr(timed, counter))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in spans) / repeats, len(spans) // repeats
 
@@ -918,7 +952,8 @@ def check_kernels(pkg, device):
     return results
 
 
-def forward_work(n, s, f, b, g, r, d, panels: bool, design: bool = False):
+def forward_work(n, s, f, b, g, r, d, panels: bool, design: bool = False,
+                 general: bool = False):
     """(bytes, f32 operations) of a forward sweep of N steps over S sims, each
     input read once and each output written once: per step and sim its spot
     and F factor values in (with ``design``, its B raw design values in their
@@ -926,14 +961,16 @@ def forward_work(n, s, f, b, g, r, d, panels: bool, design: bool = False):
     out; every step's packed tables in and sums and summed design row out;
     with the panels, four [N, S] rows out.  Operations per sim and step: the
     design row (~5B; standardising a read design, 2B) and, per decision, the
-    continuation at two rows (4B) and ~25 more."""
+    continuation at two rows (4B) and ~25 more; in the general-grid mode
+    (its tables one grid row longer) the search, ~4·log2(G) more."""
     from storage_tpu_torch.ops import forward_kernel
 
-    width = forward_kernel.table_layout(b, r, g)[1]
+    width = forward_kernel.table_layout(b, r, g, general)[1]
     staged = b if design else f
     num_bytes = 4.0 * ((1 + staged) * n * s + 3 * s + n * width
                        + n * (forward_kernel.NUM_SUMS + b) + (4 * n * s if panels else 0))
-    return num_bytes, float(n) * s * ((2 if design else 5) * b + d * (4 * b + 25))
+    search = 4 * math.ceil(math.log2(max(g - 2, 2))) if general else 0
+    return num_bytes, float(n) * s * ((2 if design else 5) * b + d * (4 * b + 25 + search))
 
 
 def forward_sweep_inputs(pkg, device, st):
@@ -1022,10 +1059,11 @@ def design_args(args, design):
     return (*args[:7], design, *args[8:11], *args[12:])
 
 
-def compare_sweep(args, got=None, got_panels=None, design=None) -> dict:
+def compare_sweep(args, got=None, got_panels=None, design=None, grid=None) -> dict:
     """The sweep kernel (or ``got``, its result with ``got_panels``) against
     ``forward_sweep_plain`` on ``args``, both with the per-sim panels; with
-    ``design`` [N, B, S], the design mode on it (``design_args``).  The
+    ``design`` [N, B, S], the design mode on it (``design_args``); with
+    ``grid`` [N, G], the general-grid mode on those rows.  The
     kernel does the plain version's arithmetic in the same order, so a sim
     may differ beyond 1e-6 of the largest value (final PV and inventory, or
     any panel row) only where its path flipped on a near-tie: at the first
@@ -1041,10 +1079,11 @@ def compare_sweep(args, got=None, got_panels=None, design=None) -> dict:
     n, s = spot.shape
     if got is None:
         got_panels = [torch.empty((n, s), device=spot.device) for _ in range(4)]
-        got = (forward_kernel.forward_sweep(*args, panels=got_panels) if design is None else
-               forward_kernel.forward_sweep_design(*design_args(args, design), panels=got_panels))
+        got = (forward_kernel.forward_sweep(*args, panels=got_panels, grid=grid) if design is None
+               else forward_kernel.forward_sweep_design(*design_args(args, design),
+                                                        panels=got_panels, grid=grid))
     want_panels = [torch.empty((n, s), device=spot.device) for _ in range(4)]
-    want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, design=design)
+    want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, design=design, grid=grid)
 
     def beyond(g_, w_):
         return ~((g_ - w_).abs() <= 1e-6 * max(float(w_.abs().max()), 1.0))
@@ -1066,7 +1105,8 @@ def compare_sweep(args, got=None, got_panels=None, design=None) -> dict:
             candidates, _, _ = forward_kernel.decision_candidates(
                 params[t], mean[t], std[t], r_inv[t], r_min[t], r_max[t], spot[t, cols],
                 factors[t][:, cols], inv_t, coeffs[t], mono, e, is_step,
-                None if design is None else design[t][:, cols])
+                None if design is None else design[t][:, cols],
+                None if grid is None else grid[t])
             totals = torch.stack([total for total, _ in candidates])
             top2 = totals.topk(2, dim=0).values
             near = (top2[0] - top2[1]) <= 1e-5 * totals.abs().max(dim=0).values
@@ -1762,6 +1802,323 @@ def host_layer_phase(pkg, device, counts, main, main_default) -> dict:
     return report
 
 
+def bunched_grid(lower, upper):
+    """The custom-grid headline's rows: ``NUM_GRID`` points bunched toward
+    the lower bound (``custom_grid``'s bunching at one width)."""
+    import numpy as np
+
+    return lower + (upper - lower) * np.linspace(0.0, 1.0, NUM_GRID) ** 1.3
+
+
+def linspace_grid(lower, upper):
+    """Evenly spaced rows through ``grid_calc``: the default grid's."""
+    import numpy as np
+
+    return np.linspace(lower, upper, NUM_GRID)
+
+
+def bunched_rows(params, g: int, real: int):
+    """Rows [N, G] over each step's next band (from the packed parameters):
+    ``real`` points bunched toward the lower bound, then the last repeated
+    (a custom grid padded to one width)."""
+    import torch
+
+    from storage_tpu_torch.ops import forward_kernel
+
+    lo = params[:, forward_kernel._P_GRID_LO]
+    hi = params[:, forward_kernel._P_GRID_HI]
+    u = torch.linspace(0.0, 1.0, real, device=params.device) ** 1.3
+    rows = lo[:, None] + (hi - lo)[:, None] * u
+    return torch.cat([rows, rows[:, -1:].expand(-1, g - real)], dim=1).contiguous()
+
+
+def vjp_work(n: int, s: int) -> tuple:
+    """(bytes, unfused f32 operations) of the forward sweep's VJP: three
+    [N, S] panels and g [S] in, fwd and df_settle in and grad out [N]; per
+    element an add, two multiplies and the sum's add."""
+    return 4.0 * (3 * n * s + s + 3 * n), 4.0 * n * s
+
+
+def check_adjoint_kernels(pkg, device) -> dict:
+    """The forward sweep's VJP and kernel C's general-grid mode against their
+    plain versions on the card.  The VJP on the main path's own volume, fuel
+    and spot panels (relative error within 1e-5 of its largest entry), at
+    g = 1/S against kernel C's pathwise-delta sums of the same sweep (the
+    same tolerance: two independent computations), and at S = 1,000 with a
+    random g in f32 and f64; timed beside its bound and one einsum.  The
+    general-grid mode on the main path's tables on bunched rows (G = 100) in
+    the monomial mode, on padded rows in the design mode, and at G = 1,000:
+    the plain version's per-sim values, flips only on near-ties; timed
+    beside the evenly spaced mode in this call."""
+    import torch
+
+    from storage_tpu_torch.basis import design_columns
+    from storage_tpu_torch.ops import forward_kernel
+
+    st = backward_step_inputs(pkg, device)
+    fwd_all = st.arrays["fwd"]
+    args = forward_sweep_inputs(pkg, device, st)
+    del st
+    n, s = args[6].shape
+    spot, params = args[6], args[0]
+    fwd, df = fwd_all[:n].contiguous(), params[:, forward_kernel._P_DF_SETTLE].contiguous()
+    dec, cons = (torch.empty((n, s), device=device) for _ in range(2))
+    _, _, sums, _ = forward_kernel.forward_sweep(*args, panels=[None, dec, cons, None])
+    g = torch.full((s,), 1.0 / s, device=device)
+    got = forward_kernel.forward_sweep_vjp(dec, cons, spot, fwd, df, g)
+    want = forward_kernel.forward_sweep_vjp_plain(dec, cons, spot, fwd, df, g)
+    pathwise = sums[:, forward_kernel._A_DELTA] / s / fwd * df
+    err_main = rel_err(got, want)
+    err_delta = rel_err(got, pathwise)
+    small = {}
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=device).manual_seed(23)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=device, dtype=dtype)  # noqa: E731,B023
+        cut = lambda x: x[:, :1000].to(dtype).contiguous()  # noqa: E731,B023
+        xs = (cut(dec), cut(cons), cut(spot), fwd.to(dtype), df.to(dtype), rnd(min(1000, s)))
+        small[str(dtype).split(".")[1]] = rel_err(forward_kernel.forward_sweep_vjp(*xs),
+                                                  forward_kernel.forward_sweep_vjp_plain(*xs))
+    ms = cuda_ms(lambda: forward_kernel.forward_sweep_vjp(dec, cons, spot, fwd, df, g), 50)
+    plain_ms = cuda_ms(lambda: forward_kernel.forward_sweep_vjp_plain(dec, cons, spot, fwd, df, g),
+                       10)
+    net = -(dec + cons)
+    library_ms = cuda_ms(lambda: torch.einsum("ts,ts,s->t", net, spot, g), 10)
+    del net
+    vjp_bytes, vjp_ops = vjp_work(n, s)
+    bnd = bound(vjp_bytes, 0.0, vjp_ops)
+    log(f"forward_sweep_vjp [N={n}, S={s}], the main path's volume, fuel and spot panels, g = 1/S: "
+        f"max rel err {err_main:.3e} against its plain version, {err_delta:.3e} against kernel C's "
+        f"pathwise-delta sums (tolerance 1e-5 of the largest entry each); S=1,000, random g: "
+        f"f32 {small['float32']:.3e} (tolerance 1e-5), f64 {small['float64']:.3e} (tolerance "
+        f"1e-12); {ms:.4f} ms vs plain {plain_ms:.3f} ms, einsum('ts,ts,s->t') {library_ms:.4f} "
+        f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    if not (err_main <= 1e-5 and err_delta <= 1e-5 and small["float32"] <= 1e-5
+            and small["float64"] <= 1e-12):
+        raise AssertionError("forward_sweep_vjp disagrees with its plain version or with kernel "
+                             "C's pathwise-delta sums")
+    vjp = dict(max_abs_err=float((got - want).abs().max()), max_rel_err=err_main,
+               rel_err_vs_pathwise_sums=err_delta, small_rel_err=small, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, **bnd)
+    del dec, cons, got, want
+
+    # ---- kernel C's general-grid mode.
+    mono = args[11]
+    b_dim, g_, r_ = len(mono), args[10].shape[2], args[3].shape[1]
+    rows = bunched_rows(params, g_, g_)
+    padded = bunched_rows(params, g_, g_ - 10)
+    cmp_mono = compare_sweep(args, grid=rows)
+    ms_general = cuda_ms(lambda: forward_kernel.forward_sweep(*args, grid=rows), 20)
+    ms_uniform = cuda_ms(lambda: forward_kernel.forward_sweep(*args), 20)
+    plain_general_ms = cuda_ms(lambda: forward_kernel.forward_sweep_plain(*args, grid=rows), 1)
+    design = torch.stack(design_columns(mono, args[6], args[7]), dim=1)  # [N, B, S]
+    cmp_design = compare_sweep(args, design=design, grid=padded)
+    d_args = design_args(args, design)
+    ms_design = cuda_ms(lambda: forward_kernel.forward_sweep_design(*d_args, grid=padded), 10)
+    ms_design_uniform = cuda_ms(lambda: forward_kernel.forward_sweep_design(*d_args), 10)
+    plain_design_ms = cuda_ms(
+        lambda: forward_kernel.forward_sweep_plain(*args, design=design, grid=padded), 1)
+    del d_args, design, args
+    big = random_sweep(device, 8, BIG_SIMS, BIG_GRID, 3, seed=17)
+    cmp_big = compare_sweep(big, grid=bunched_rows(big[0], BIG_GRID, BIG_GRID - 10))
+    del big
+    info = forward_kernel.kernel_info(g_, b_dim, r_, 3, 0, device, general=True)
+    info_d = forward_kernel.kernel_info(g_, b_dim, r_, 0, 0, device, design=True, general=True)
+    bnd_g = bound(*forward_work(n, s, 3, b_dim, g_, r_, 3, panels=False, general=True))
+    bnd_d = bound(*forward_work(n, s, 0, b_dim, g_, r_, 3, panels=False, design=True,
+                                general=True))
+    for name, c in (("bunched rows, monomial mode", cmp_mono),
+                    ("padded rows, design mode", cmp_design)):
+        log(f"kernel C general-grid mode [N={n}, S={s}, G={g_}, D=3, B={b_dim}, R={r_}], the main "
+            f"path's tables and paths on {name}: {c['text']}")
+    log(f"kernel C general-grid mode [big_grid: N=8, S={BIG_SIMS}, G={BIG_GRID}, padded rows]: "
+        f"{cmp_big['text']}")
+    log(f"kernel C general-grid mode: {ms_general:.4f} ms a sweep against {ms_uniform:.4f} ms "
+        f"evenly spaced in this call, plain {plain_general_ms:.1f} ms, bound "
+        f"{bnd_g['bound_ms']:.4f} ms ({bnd_g['bound_by']}); design mode {ms_design:.4f} ms "
+        f"against {ms_design_uniform:.4f} ms, plain {plain_design_ms:.1f} ms, bound "
+        f"{bnd_d['bound_ms']:.4f} ms; launch: {info['smem_bytes']} bytes of shared memory per "
+        f"block (G <= {info['max_grid']}), {info['blocks_per_sm']} blocks per SM, "
+        f"{info['registers']} registers (design mode {info_d['smem_bytes']} bytes, G <= "
+        f"{info_d['max_grid']}, {info_d['registers']} registers)")
+    for c in (cmp_mono, cmp_design, cmp_big):
+        if not c["ok"]:
+            raise AssertionError(f"kernel C's general-grid mode disagrees with its plain version: "
+                                 f"{c['text']}")
+    general = dict(
+        max_abs_err=cmp_mono["max_abs_err"], ms=ms_general, plain_ms=plain_general_ms,
+        uniform_ms=ms_uniform, big_grid={k: v_ for k, v_ in cmp_big.items() if k != "text"},
+        smem_bytes=info["smem_bytes"], blocks_per_sm=info["blocks_per_sm"],
+        registers=info["registers"], max_grid=info["max_grid"],
+        **{k: v_ for k, v_ in cmp_mono.items() if k not in ("text", "max_abs_err", "ok")}, **bnd_g)
+    design_general = dict(
+        max_abs_err=cmp_design["max_abs_err"], ms=ms_design, plain_ms=plain_design_ms,
+        uniform_ms=ms_design_uniform, smem_bytes=info_d["smem_bytes"],
+        blocks_per_sm=info_d["blocks_per_sm"], registers=info_d["registers"],
+        **{k: v_ for k, v_ in cmp_design.items() if k not in ("text", "max_abs_err", "ok")},
+        **bnd_d)
+    return {"forward_sweep_vjp": vjp, "forward_sweep_general": general,
+            "forward_sweep_design_general": design_general}
+
+
+def interleaved_walls(fns: dict, rounds: int) -> dict:
+    """Host seconds of each of ``fns`` called in turns, ``rounds`` times
+    each (every call synchronised): name -> list of walls."""
+    import torch
+
+    walls = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    return walls
+
+
+def adjoint_grid_phase(pkg, device, counts, main) -> dict:
+    """Adjoint deltas and custom grids at the headline, each path with the
+    launch counters reset just before it.  The adjoint valuation: the main
+    path's NPV, SE, intrinsic value and profile bits, its deltas for t < N
+    within 1e-5 of the largest pathwise delta, its last delta the terminal
+    value's gradient (against mean(spot_N·inventory_N)/fwd_N in f64 on the
+    same paths), one VJP launch; its wall (median of 3) beside the pathwise
+    one's in turns, and its peak device memory.  The custom grid
+    (``bunched_grid``): within 0.1 SE of its f64 answer (``F64_CUSTOM_NPV``),
+    one general-mode sweep; evenly spaced rows through ``grid_calc`` the main
+    path's bits; its adjoint deltas its pathwise ones; the replicated
+    generic basis on it (kernel C's design mode in the general-grid mode,
+    within 0.1 SE of the monomial basis); a checkpoint made on it revalued
+    on the same valuation paths to its NPV bits."""
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch import checkpoint as ckpt
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import forward_kernel
+
+    report = {}
+    main_launches = dict(simulate_sweep=2, decision_update_moments=NUM_STEPS, forward_sweep=1,
+                         intrinsic_dp=1)
+
+    def run(expected, **kwargs):
+        counts.reset()
+        res = value(pkg, device, True, **kwargs)
+        torch.cuda.synchronize()
+        launches = counts.read()
+        if launches != counts.expect(**expected):
+            raise AssertionError(f"{kwargs}: launch counts {launches}, expected "
+                                 f"{counts.expect(**expected)}")
+        return res, launches
+
+    # ---- adjoint deltas at the headline.
+    torch.cuda.reset_peak_memory_stats(device)
+    adj, adj_launches = run({**main_launches, "forward_sweep_vjp": 1}, deltas_method="adjoint")
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    d_adj, d_path = adj.deltas.to_numpy(), main.deltas.to_numpy()
+    delta_err = float(np.abs(d_adj[:-1] - d_path[:-1]).max() / np.abs(d_path).max())
+    same = ((adj.npv, adj.val_sim_standard_error, adj.intrinsic_npv)
+            == (main.npv, main.val_sim_standard_error, main.intrinsic_npv)
+            and adj.expected_profile.equals(main.expected_profile))
+    # The terminal gradient's plain formula on the same paths, in f64.
+    inputs, sim_in, arrays, monomials = engine_inputs(pkg, device)
+    ids = torch.arange(NUM_SIMS, device=device)
+    reg, val = (spot_sim.simulate_ou_paths(spot_sim.key_from_seed(k), ids, *sim_in)
+                for k in (11, 13))
+    with engine.full_f32_matmul():
+        out = engine.lsmc_core(arrays, reg.spot, reg.factors, val.spot, val.factors, 100.0,
+                               monomials, 0, False, terminal_npv, False, snap_interp=True,
+                               return_sim_data=True, adjoint=True)
+    end_grad = engine.adjoint_deltas(out.pop("adjoint_tape"))[-1]
+    inv_end = out["sim_inventory"][NUM_STEPS].double()
+    want_end = float((val.spot[NUM_STEPS].double() * inv_end).mean()
+                     / float(arrays["fwd"][NUM_STEPS]))
+    end_err = abs(float(end_grad) - want_end) / abs(want_end)
+    engine_same = float(out["npv"]) == main.npv and float(end_grad) == float(d_adj[-1])
+    del out, reg, val, inv_end
+    walls = interleaved_walls({
+        "adjoint": lambda: value(pkg, device, True, deltas_method="adjoint"),
+        "pathwise": lambda: value(pkg, device, True)}, 3)
+    adj_wall, path_wall = (float(np.median(walls[k])) for k in ("adjoint", "pathwise"))
+    log(f"adjoint deltas at the headline: NPV {adj.npv!r} SE {adj.val_sim_standard_error!r}; the "
+        f"main path's NPV, SE, intrinsic value and profile bits: {same}; deltas[:N] max diff "
+        f"{delta_err:.3e} of the largest pathwise delta (tolerance 1e-5); deltas[N] "
+        f"{float(d_adj[-1])!r}, the terminal gradient mean(spot_N*inv_N)/fwd_N in f64 {want_end!r} "
+        f"(rel {end_err:.2e}, tolerance 1e-5; the engine run's bits: {engine_same}); wall median "
+        f"{adj_wall:.4f} s vs pathwise {path_wall:.4f} s in turns (ratio "
+        f"{adj_wall / path_wall:.3f}); peak device memory {peak_gb:.2f} GB; launches "
+        f"{adj_launches}")
+    if not (same and delta_err <= 1e-5 and end_err <= 1e-5 and engine_same):
+        raise AssertionError("the adjoint valuation disagrees with the pathwise main path")
+    report["adjoint"] = dict(npv=adj.npv, se=adj.val_sim_standard_error, delta_rel_err=delta_err,
+                             terminal_delta=float(d_adj[-1]), terminal_delta_f64=want_end,
+                             terminal_rel_err=end_err, wall_s=adj_wall, pathwise_wall_s=path_wall,
+                             walls_s=walls, wall_ratio=adj_wall / path_wall,
+                             peak_memory_gb=peak_gb, launches=adj_launches)
+
+    # ---- the headline on a custom grid.
+    general = {**main_launches, "forward_sweep_general": 1}
+    custom, custom_launches = run(general, grid_calc=bunched_grid)
+    walls_c = api_walls(lambda: value(pkg, device, True, grid_calc=bunched_grid), 3)
+    custom_wall = float(np.median(walls_c))
+    off = (custom.npv - F64_CUSTOM_NPV) / custom.val_sim_standard_error
+    linspace, _ = run(main_launches, grid_calc=linspace_grid)
+    linspace_same = same_bits(linspace, main) and linspace.intrinsic_npv == main.intrinsic_npv
+    custom_adj, _ = run({**general, "forward_sweep_vjp": 1}, grid_calc=bunched_grid,
+                        deltas_method="adjoint")
+    c_adj, c_path = custom_adj.deltas.to_numpy(), custom.deltas.to_numpy()
+    custom_delta_err = float(np.abs(c_adj[:-1] - c_path[:-1]).max() / np.abs(c_path).max())
+    custom_adj_same = (custom_adj.npv, custom_adj.val_sim_standard_error) == (
+        custom.npv, custom.val_sim_standard_error)
+    chunks = -(-NUM_STEPS // forward_kernel.DESIGN_CHUNK)
+    replica, replica_launches = run(
+        dict(simulate_sweep=2, decision_update=NUM_STEPS, forward_sweep_design=chunks,
+             forward_sweep_design_general=chunks, intrinsic_dp=1),
+        basis=replica_basis(pkg), grid_calc=bunched_grid)
+    replica_gap = (replica.npv - custom.npv) / custom.val_sim_standard_error
+    log(f"custom grid (bunched_grid, {NUM_GRID} points) at the headline: NPV {custom.npv!r} SE "
+        f"{custom.val_sim_standard_error!r}, {off:+.4f} SE from its f64 answer {F64_CUSTOM_NPV!r} "
+        f"(tolerance 0.1); intrinsic {custom.intrinsic_npv!r}; wall median {custom_wall:.4f} s of "
+        f"{[round(w, 4) for w in walls_c]}; launches {custom_launches}; evenly spaced rows "
+        f"through grid_calc give the main path's bits: {linspace_same}; adjoint on the custom "
+        f"grid: the pathwise NPV and SE bits {custom_adj_same}, deltas[:N] max diff "
+        f"{custom_delta_err:.3e} of the largest (tolerance 1e-5); the replicated generic basis "
+        f"on it (C's design mode, general rows): NPV {replica.npv!r}, {replica_gap:+.4f} SE from "
+        f"the monomial basis (tolerance 0.1), launches {replica_launches}")
+    if not (math.isfinite(custom.npv) and abs(off) <= 0.1 and linspace_same and custom_adj_same
+            and custom_delta_err <= 1e-5 and abs(replica_gap) <= 0.1):
+        raise AssertionError("the custom-grid valuations fail their checks")
+
+    path = OUT / "checkpoint_custom.npz"
+    res = value(pkg, device, True, grid_calc=bunched_grid, checkpoint_path=str(path))
+    if not same_bits(res, custom):
+        raise AssertionError("the valuation that wrote the custom-grid checkpoint is not the "
+                             "custom-grid run's bits")
+    _, sim_in, _, _ = engine_inputs(pkg, device)
+    val = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(13),
+                                     torch.arange(NUM_SIMS, device=device), *sim_in)
+    counts.reset()
+    out = ckpt.revalue_from_checkpoint(ckpt.RegressionCheckpoint.load(str(path)), val.spot,
+                                       val.factors, terminal_fn=terminal_npv, device=device)
+    reval_npv = float(out["npv"])
+    reval_launches = counts.read()
+    log(f"custom-grid checkpoint revaluation on the same valuation paths: NPV {reval_npv!r}, the "
+        f"custom-grid run's bits: {reval_npv == custom.npv}; launches {reval_launches}")
+    if reval_npv != custom.npv or reval_launches != counts.expect(forward_sweep=1,
+                                                                  forward_sweep_general=1):
+        raise AssertionError(f"custom-grid revaluation: NPV {reval_npv!r}, launches "
+                             f"{reval_launches}")
+    report["custom_grid"] = dict(
+        npv=custom.npv, se=custom.val_sim_standard_error, z_vs_f64=off,
+        intrinsic_npv=custom.intrinsic_npv, wall_s=custom_wall, walls_s=walls_c,
+        launches=custom_launches, linspace_same_bits=linspace_same,
+        adjoint_delta_rel_err=custom_delta_err, replica_npv=replica.npv,
+        replica_gap_se=replica_gap, replica_launches=replica_launches,
+        checkpoint_npv=reval_npv, checkpoint_launches=reval_launches)
+    return report
+
+
+HOURLY_STEPS = 8_760
 HOURLY_STEPS = 8_760
 
 
@@ -2801,6 +3158,7 @@ def measure_f64(pkg, device):
 
     import torch
 
+    from storage_tpu_torch import grid as gridmod
     from storage_tpu_torch.basis import parse_basis_functions
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.engines.intrinsic import intrinsic_plain
@@ -2839,6 +3197,15 @@ def measure_f64(pkg, device):
                                False, snap_interp=True)
         npvs["F64_SPOT_NPV"] = float(out["npv"])
         npvs["F64_INTRINSIC_NPV"] = float(intrinsic_plain(arrays, 100.0, 0, tfn, False).npv)
+        custom = engine.build_engine_arrays(
+            inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow,
+            inputs.inventory_lower, inputs.inventory_upper, NUM_GRID, torch.float64, device,
+            gridmod.inventory_grids_custom(inputs.inventory_lower, inputs.inventory_upper,
+                                           bunched_grid))
+        out = engine.lsmc_core(custom, f64(reg.spot), f64(reg.factors), f64(val.spot),
+                               f64(val.factors), 100.0, monomials, 0, False, tfn, False,
+                               snap_interp=True, uniform_grids=False)
+        npvs["F64_CUSTOM_NPV"] = float(out["npv"])
     finally:
         for patch in plain:
             patch.stop()
@@ -2847,20 +3214,22 @@ def measure_f64(pkg, device):
 
 class LaunchCounts:
     """The kernels' launch counters: reset, read, and the expected counts of
-    a path (every kernel it does not name at 0)."""
+    a path (every kernel it does not name at 0).  An entry is a wrapper (its
+    ``launches``, under its name) or (name, wrapper, counter attribute)."""
 
     def __init__(self, fns):
-        self.fns = fns
+        self.entries = [fn if isinstance(fn, tuple) else (fn.__name__, fn, "launches")
+                        for fn in fns]
 
     def reset(self):
-        for fn in self.fns:
-            fn.launches = 0
+        for _, fn, attr in self.entries:
+            setattr(fn, attr, 0)
 
     def read(self):
-        return {fn.__name__: fn.launches for fn in self.fns}
+        return {name: getattr(fn, attr) for name, fn, attr in self.entries}
 
     def expect(self, **counts):
-        return {fn.__name__: counts.get(fn.__name__, 0) for fn in self.fns}
+        return {name: counts.get(name, 0) for name, _, _ in self.entries}
 
 
 def profile_valuation(pkg, device, card):
@@ -2947,7 +3316,12 @@ def main(argv) -> int:
                            decision_kernel.decision_update_moments,
                            forward_kernel.forward_sweep, decision_kernel.decision_update,
                            decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp,
-                           tree_kernel.tree_dp, forward_kernel.forward_sweep_design))
+                           tree_kernel.tree_dp, forward_kernel.forward_sweep_design,
+                           forward_kernel.forward_sweep_vjp,
+                           ("forward_sweep_general", forward_kernel.forward_sweep,
+                            "general_launches"),
+                           ("forward_sweep_design_general", forward_kernel.forward_sweep_design,
+                            "general_launches")))
 
     # ---- kernels against their plain versions.
     with engine.full_f32_matmul():
@@ -3046,6 +3420,20 @@ def main(argv) -> int:
     launches.update(
         forward_sweep_design=report["host_layer"]["replica"]["launches"]["forward_sweep_design"])
 
+    # ---- adjoint deltas and custom inventory grids.
+    t0 = time.perf_counter()
+    with engine.full_f32_matmul():
+        kernels.update(check_adjoint_kernels(stt, device))
+    report["adjoint_grid"] = adjoint_grid_phase(stt, device, counts, res)
+    report["adjoint_grid_phase_s"] = time.perf_counter() - t0
+    log(f"adjoint and custom-grid phase: {report['adjoint_grid_phase_s']:.1f} s")
+    phase = report["adjoint_grid"]
+    launches.update(
+        forward_sweep_vjp=phase["adjoint"]["launches"]["forward_sweep_vjp"],
+        forward_sweep_general=phase["custom_grid"]["launches"]["forward_sweep_general"],
+        forward_sweep_design_general=phase["custom_grid"]["replica_launches"][
+            "forward_sweep_design_general"])
+
     # ---- the native host runtime, interactive runs, checkpoints, the service.
     t0 = time.perf_counter()
     report["service"] = service_phase(stt, device, counts, res)
@@ -3059,7 +3447,9 @@ def main(argv) -> int:
     paths = dict(simulate_sweep="main", normal_halves="tpu_numerics",
                  decision_update_moments="main", forward_sweep="main",
                  decision_update="spot_only", decision_update_fullstep="fullstep",
-                 intrinsic_dp="main", tree_dp="tree_T3", forward_sweep_design="generic")
+                 intrinsic_dp="main", tree_dp="tree_T3", forward_sweep_design="generic",
+                 forward_sweep_vjp="adjoint", forward_sweep_general="custom_grid",
+                 forward_sweep_design_general="custom_grid_generic")
 
     phases = phase_breakdown(stt, device)
     log(f"phases: host prep {phases['host_prep_s']:.4f} s, simulate {phases['simulate_s']:.4f} s, "
@@ -3079,12 +3469,17 @@ def main(argv) -> int:
                                       "monomial_mode_ms", "smem_bytes",
                                       "blocks_per_sm", "registers", "decision_update_b9"),
              "intrinsic_dp": ("ms_f64", "ms_per_step", "launch"),
-             "tree_dp": ("ms_f64", "kernel_busy_ms", "launch")}
+             "tree_dp": ("ms_f64", "kernel_busy_ms", "launch"),
+             "forward_sweep_general": ("uniform_ms", "smem_bytes", "blocks_per_sm", "registers"),
+             "forward_sweep_design_general": ("uniform_ms", "smem_bytes", "blocks_per_sm",
+                                              "registers")}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src_file, "replaces": rep,
          "launches": launches[name], "path": paths[name], **{k: kernels[name][k] for k in keys},
-         # No single PyTorch call computes any of these functions.
-         "library_ms": None, **{k: kernels[name][k] for k in extra.get(name, ())}}
+         # No single PyTorch call computes any of these functions but the
+         # VJP's (an einsum).
+         "library_ms": kernels[name].get("library_ms"),
+         **{k: kernels[name][k] for k in extra.get(name, ())}}
         for name, (src_file, rep) in SOURCES.items()
     ]}
     # The C++ band reducer runs on the host: no device bound, no library call.

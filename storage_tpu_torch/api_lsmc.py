@@ -5,10 +5,15 @@ the caller passes ``device="cpu"``; without a CUDA device a call that names
 none raises.
 
 Accepted: every ``sim_data_returned`` flag (per-sim panels of paths held on
-the card), pathwise deltas, antithetic draws (path 2m+1 takes the negated
-draws of path 2m, as in the JAX package), progress and cancel callbacks,
-a checkpoint of the regression (``checkpoint_path``, with a DSL-string
-basis), uniform grids, and any basis the JAX package takes: the DSL
+the card), pathwise and adjoint deltas (``deltas_method="adjoint"``: reverse
+mode through the pricing run's own forward sweep, whose VJP is a kernel;
+NPV, SE, profiles and triggers stay the pricing run's bits), antithetic
+draws (path 2m+1 takes the negated draws of path 2m, as in the JAX package),
+progress and cancel callbacks, a checkpoint of the regression
+(``checkpoint_path``, with a DSL-string basis), custom inventory grids
+(``grid_calc``: rows that are all evenly spaced keep the main path and its
+bits, others take the search placement of both passes, kernel C's
+general-grid mode forward), and any basis the JAX package takes: the DSL
 string, combinators (``ONE + S + X0**2``) and generic callables, which must
 be torch-callable (a generic basis regresses on a design read from memory:
 kernel D backward and kernel C's design mode forward).
@@ -19,10 +24,9 @@ phase marks 0.2 (paths simulated), 0.3 (intrinsic value), 0.9 and 1.0, and
 after every 16-step segment of the backward (0.3 to 0.7) and of the forward
 (0.7 to 0.9); the poll is read before each, and a true poll raises
 ``jobs.JobCancelledError``.  An interactive run gives the uninterrupted
-run's bits.  Every other option,
-user panels too large for the card and ``value_from_sims_host_local`` raise
-``NotImplementedError`` naming, by its title, the ROADMAP item that ports
-them.  On CUDA a basis of more than 16 terms or a model of more than 8
+run's bits.  User panels too large for the card and
+``value_from_sims_host_local`` raise ``NotImplementedError`` naming, by its
+title, the ROADMAP item that ports them.  On CUDA a basis of more than 16 terms or a model of more than 8
 factors raises ``ValueError`` before anything runs: the kernels' caps
 (``ops._build.limits``); ``device="cpu"`` takes any size.  Seeds keep
 the JAX key semantics: ``key(seed)`` for the regression sims,
@@ -30,9 +34,12 @@ the JAX key semantics: ``key(seed)`` for the regression sims,
 None, one shared set when the two seeds are equal.
 
 Every result carries the intrinsic value and profile, as the JAX package's
-do: the intrinsic DP (``engines.intrinsic``) on the valuation's own linspace
+do: the intrinsic DP (``engines.intrinsic``) on the valuation's own grid
 tables, in its dtype, with no extra decision, run after the simulation and
-before the LSMC engine (on the card, one launch of the DP kernel).
+before the LSMC engine (on the card, one launch of the DP kernel).  On custom
+rows that are not evenly spaced it takes its general interpolation, as the
+JAX package does for every ``grid_calc``; evenly spaced custom rows keep
+the linear one here, and with it the main path's bits.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import pandas as pd
 import torch
 
 from . import basis as basis_mod
+from . import grid as gridmod
 from .api import Device, engine_profile, profile_data_frame, resolve_device
 from .engines import intrinsic as intrinsic_engine
 from .engines import lsmc as lsmc_engine
@@ -133,16 +141,11 @@ def _refuse(option: str, item: str):
     )
 
 
-def _refuse_unported(deltas_method, grid_calc):
-    if deltas_method != "pathwise":
-        if deltas_method == "adjoint":
-            _refuse("deltas_method='adjoint'", "adjoint deltas")
+def _check_deltas_method(deltas_method):
+    if deltas_method not in ("pathwise", "adjoint"):
         raise ValueError(
             f"deltas_method must be 'pathwise' or 'adjoint', got {deltas_method!r}."
         )
-    if grid_calc is not None:
-        _refuse("grid_calc (custom inventory grids)",
-                "custom inventory grids in the LSMC engine")
 
 
 def multi_factor_value(
@@ -175,13 +178,14 @@ def multi_factor_value(
     snap_interp: bool = False,
 ) -> MultiFactorValuationResults:
     """General multi-factor LSMC valuation (reference ``multi_factor.py:138-168``)
-    with pathwise deltas (LsmcStorageValuation.cs:513-518).
+    with pathwise deltas (LsmcStorageValuation.cs:513-518) or adjoint ones
+    (``deltas_method="adjoint"``).
     ``sim_data_returned`` selects the per-sim panels returned (path panels,
     inventory, volumes, fuel, loss, net volume, PV); it never changes the
     numbers."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
     device = resolve_device(device)
-    _refuse_unported(deltas_method, grid_calc)
+    _check_deltas_method(deltas_method)
     factor_corrs = mf.validate_multi_factor_params(factors, factor_corrs)
 
     def sims_provider(inputs):
@@ -211,7 +215,7 @@ def multi_factor_value(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
         sims_provider, len(factors), basis_funcs, discount_deltas, extra_decisions,
         num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
-        on_progress_update, cancellation_poll, checkpoint_path,
+        on_progress_update, cancellation_poll, checkpoint_path, deltas_method, grid_calc,
     )
 
 
@@ -250,7 +254,7 @@ def value_from_sims(
     larger than its free memory wait for the host-streamed engine."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
     device = resolve_device(device)
-    _refuse_unported(deltas_method, grid_calc)
+    _check_deltas_method(deltas_method)
     wants_sim_data = _wants_sim_data(SimulationDataReturned.coerce(sim_data_returned))
     sim_factors_regress, sim_factors_valuation = (
         None if f is None else list(f) for f in (sim_factors_regress, sim_factors_valuation))
@@ -271,7 +275,7 @@ def value_from_sims(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
         sims_provider, num_factors, basis_funcs, discount_deltas, extra_decisions,
         num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
-        on_progress_update, cancellation_poll, checkpoint_path,
+        on_progress_update, cancellation_poll, checkpoint_path, deltas_method, grid_calc,
     )
 
 
@@ -353,6 +357,8 @@ def _lsmc_calc(
     on_progress_update=None,
     cancellation_poll=None,
     checkpoint_path: tp.Optional[str] = None,
+    deltas_method: str = "pathwise",
+    grid_calc=None,
 ) -> MultiFactorValuationResults:
     """The valuation shared by the entry points: ``sims_provider(inputs)``
     returns ((spot_reg, factors_reg), (spot_val, factors_val)) on ``device``,
@@ -430,15 +436,21 @@ def _lsmc_calc(
             f"but only {factors_reg.shape[1]} factors are simulated."
         )
     progress(0.2)
+    grids = None if grid_calc is None else gridmod.inventory_grids_custom(
+        inputs.inventory_lower, inputs.inventory_upper, grid_calc)
     arrays = lsmc_engine.build_engine_arrays(
         inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow,
-        inputs.inventory_lower, inputs.inventory_upper, num_grid_points, dtype, device,
+        inputs.inventory_lower, inputs.inventory_upper, num_grid_points, dtype, device, grids,
     )
+    # Custom rows that are all evenly spaced keep the arithmetic placement;
+    # others are placed by search (the JAX package's rule, api_lsmc.py:572).
+    uniform_grids = grids is None or gridmod.rows_uniform(grids)
     terminal_fn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
     logger.info("Calculating intrinsic value.")
     with stopwatches.time("intrinsic_valuation"):
         intrinsic = intrinsic_engine.intrinsic_core(
-            arrays, inputs.starting_inventory, 0, terminal_fn, inputs.compiled.ratchet_is_step)
+            arrays, inputs.starting_inventory, 0, terminal_fn, inputs.compiled.ratchet_is_step,
+            uniform_grids=uniform_grids)
         intrinsic_profile = engine_profile(inputs.periods, intrinsic)
     progress(0.3)
     logger.info("Calculating LSMC value.")
@@ -450,8 +462,14 @@ def _lsmc_calc(
             return_regression=checkpoint_path is not None,
             return_sim_data=_wants_sim_data(sim_data_returned),
             segment_cb=segment_cb if interactive else None,
+            uniform_grids=uniform_grids, adjoint=deltas_method == "adjoint",
         )
-        result = {k: v.detach().cpu().numpy() for k, v in result.items()}
+    if deltas_method == "adjoint":
+        # Reverse mode through the sweep just run: only the deltas change.
+        logger.info("Calculating adjoint (AD) deltas.")
+        with stopwatches.time("adjoint_deltas"):
+            result["deltas"] = lsmc_engine.adjoint_deltas(result.pop("adjoint_tape"))
+    result = {k: v.detach().cpu().numpy() for k, v in result.items()}
     if checkpoint_path is not None:
         # The backward's hand-off to the forward pass, so that a later
         # forward-only revaluation skips the backward (checkpoint.py).

@@ -13,7 +13,11 @@ one launch of the forward sweep (kernel C) and no backward kernel.
 
 The file is the JAX package's (``np.savez_compressed`` with ``arrays.*``,
 ``regression.*`` and ``meta_json``): a checkpoint written by either package
-loads in the other.
+loads in the other.  It stores no grid flag: a revaluation tests the stored
+grid rows and places inventories on rows that are not evenly spaced (custom
+grids) by search, as the pricing run did.  (The JAX package's revaluation
+uses the evenly spaced arithmetic on every checkpoint, so it misplaces them
+on such rows.)
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import typing as tp
 import numpy as np
 import torch
 
+from . import grid as gridmod
 from .api import Device, resolve_device
 from .basis import Monomial, parse_basis_functions
 from .engines import lsmc as lsmc_engine
@@ -146,7 +151,9 @@ def revalue_from_checkpoint(
     """Forward-only re-pricing from a checkpoint against new valuation paths
     spot [N+1, S] and factors [N+1, F, S] (tensors or arrays), on ``device``
     (CUDA unless the caller asks for the CPU) in ``dtype`` (the paths' where
-    None).  Returns ``engines.lsmc.lsmc_forward``'s results on ``device``.
+    None).  Returns ``engines.lsmc.lsmc_forward``'s results on ``device``; on
+    grid rows that are not evenly spaced it takes the general-grid placement
+    (``grid.rows_uniform``), as the pricing run did.
 
     ``terminal_fn`` must be re-supplied for non-empty-at-end storage
     (callables do not persist)."""
@@ -168,4 +175,5 @@ def revalue_from_checkpoint(
             checkpoint.starting_inventory, checkpoint.monomials,
             checkpoint.num_extra_decisions, checkpoint.discount_deltas, terminal_fn,
             checkpoint.ratchet_is_step, return_sim_data=return_sim_data,
+            uniform_grids=gridmod.rows_uniform(checkpoint.arrays["grids"]),
         )

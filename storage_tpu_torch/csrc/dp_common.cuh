@@ -1,6 +1,7 @@
 // Device functions shared by the DP kernels on the inventory grid: the
 // intrinsic DP (intrinsic_kernel.cu) and the trinomial tree's backward
-// induction (tree_kernel.cu).
+// induction (tree_kernel.cu); kernel C (forward_kernel.cu) takes
+// general_weights for its general-grid mode.
 //
 // One function, decide(), values every decision of one step at one
 // inventory and keeps the first best, as decision_totals / decision_values of
@@ -65,23 +66,34 @@ __device__ __forceinline__ void uniform_weights(const T* grid, int G, T x, int* 
   *w = clamp_to(sub(pos, static_cast<T>(i)), T(0), T(1));
 }
 
+// General-row lower node and weight (ops/interp.py interp_weights_general):
+// idx = #{r in 1..G-2 : grid[r] <= x} by binary search on the clamped x, and
+// weight 0 on a zero-span segment.  Also kernel C's general-grid mode
+// (forward_kernel.cu).
+template <typename T>
+__device__ __forceinline__ void general_weights(const T* grid, int G, T x, int* idx, T* w) {
+  const T xc = clamp_to(x, grid[0], grid[G - 1]);
+  int lo = 1, hi = G - 1;  // first r in [1, G-1) with grid[r] > xc
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (grid[mid] <= xc) lo = mid + 1; else hi = mid;
+  }
+  *idx = lo - 1;
+  const T x0 = grid[lo - 1], x1 = grid[lo];
+  const T span = sub(x1, x0);
+  *w = span > T(0) ? dvd(sub(xc, x0), span) : T(0);
+}
+
 // The continuation at inventory x on the next step's row: values v and (cubic)
 // moments m on grid, in device or shared memory.
 template <typename T>
 __device__ __forceinline__ T continuation(const T* grid, const T* v, const T* m, int G,
                                           int mode, T x) {
   if (mode == MODE_GENERAL) {
-    // ops/interp.py interp_vector_general: idx = #{r in 1..G-2 : grid[r] <= x}.
-    const T xc = clamp_to(x, grid[0], grid[G - 1]);
-    int lo = 1, hi = G - 1;  // first r in [1, G-1) with grid[r] > xc
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (grid[mid] <= xc) lo = mid + 1; else hi = mid;
-    }
-    const int idx = lo - 1;
-    const T x0 = grid[idx], x1 = grid[idx + 1];
-    const T span = sub(x1, x0);
-    const T w = span > T(0) ? dvd(sub(xc, x0), span) : T(0);
+    // ops/interp.py interp_vector_general.
+    int idx;
+    T w;
+    general_weights(grid, G, x, &idx, &w);
     return add(mul(v[idx], sub(T(1), w)), mul(v[idx + 1], w));
   }
   int idx;

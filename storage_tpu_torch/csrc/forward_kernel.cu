@@ -53,6 +53,16 @@
 //   * The decision arithmetic is the one-step kernel's of the JAX package,
 //     every product and sum rounded on its own, so a sim's path is the plain
 //     version's (ops/forward_kernel.py forward_step_plain) to the bit.
+//   * General-grid mode (kGeneral, for custom inventory grids whose rows are
+//     not evenly spaced; in both modes above): the JAX package takes its XLA
+//     forward step with interp_per_sim_general there
+//     (storage_tpu/engines/lsmc.py:990-994).  The packed table row carries
+//     the next step's grid row [G] after the coefficients, so the ring
+//     stages it beside them, and each decision's lower row and weight come
+//     from dp_common.cuh's general_weights (the count of interior nodes <=
+//     the clamped inventory by binary search, weight 0 on a zero-span
+//     segment of a padded row) in place of the position arithmetic; the two
+//     predicted values and their lerp are unchanged.
 //   * The step's cross-sim sums (inventory, volume, fuel, loss, immediate
 //     value, delta numerator; the design row) go out as one partials row per
 //     step and group of kThreads sims — warp butterflies, then the warps in
@@ -63,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "dp_common.cuh"
 
 namespace {
 
@@ -81,9 +92,10 @@ constexpr int kUsedSums = 6;
 
 // Floats of one step's packed table (ops/forward_kernel.py table_layout):
 // parameters, mean [B], std [B], ratchet inventories, min and max rates [R]
-// each, coefficients [B, G]; padded to whole 16-byte words for the bulk copy.
-__host__ __device__ inline int table_words(int B, int R, int G) {
-  return (NUM_PARAMS + 2 * B + 3 * R + B * G + 3) / 4 * 4;
+// each, coefficients [B, G], in general-grid mode the next step's grid row
+// [G]; padded to whole 16-byte words for the bulk copy.
+__host__ __device__ inline int table_words(int B, int R, int G, bool general) {
+  return (NUM_PARAMS + 2 * B + 3 * R + (B + (general ? 1 : 0)) * G + 3) / 4 * 4;
 }
 // Floats of one stage's per-sim slots: spot and V staged values (the F
 // factors, or the B design values in design mode) of the block's sims, as
@@ -95,8 +107,8 @@ __host__ __device__ inline size_t smem_fixed_words(int B, int R, int V, int E) {
   return static_cast<size_t>(kStages) * (NUM_PARAMS + 2 * B + 3 * R + 3 + slot_words(V)) +
          2 * (2 * static_cast<size_t>(E) + 3);
 }
-__host__ __device__ inline size_t smem_words_per_grid_point(int B) {
-  return static_cast<size_t>(kStages) * B;
+__host__ __device__ inline size_t smem_words_per_grid_point(int B, bool general) {
+  return static_cast<size_t>(kStages) * (B + (general ? 1 : 0));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -181,14 +193,15 @@ struct StepResult {
   float inv, dec, cons, imm, loss;
 };
 
-template <int B>
+template <int B, bool kGeneral>
 __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, int E,
                                                int is_step, float sp, float inv,
                                                const float (&dm)[B], const float* frac) {
   const float* rinv = par + NUM_PARAMS + 2 * B;
   const float* rmin = rinv + R;
   const float* rmax = rmin + R;
-  const float* coeffs = rmax + R;  // [B, G]
+  const float* coeffs = rmax + R;        // [B, G]
+  const float* grid_next = coeffs + B * G;  // [G], general-grid mode
 
   // Ratchet rates at the inventory (_ratchet_rates_smem).
   const float inv_c = clampf(inv, rinv[0], rinv[R - 1]);
@@ -243,10 +256,16 @@ __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, i
     const float dec = has_zero ? __fmul_rn(k <= mid ? yw : yi, frac[k])
                                : __fadd_rn(yw, __fmul_rn(__fsub_rn(yi, yw), frac[D + k]));
     const float inv_after = __fsub_rn(__fadd_rn(inv, dec), loss);
-    const float pos = __fmul_rn(
-        __fsub_rn(clampf(inv_after, grid_lo, grid_hi), grid_lo), inv_delta);
-    const int lo = min(max(static_cast<int>(floorf(pos)), 0), G - 2);
-    const float w = clampf(__fsub_rn(pos, static_cast<float>(lo)), 0.0f, 1.0f);
+    int lo;
+    float w;
+    if (kGeneral) {
+      stt_dp::general_weights(grid_next, G, inv_after, &lo, &w);
+    } else {
+      const float pos = __fmul_rn(
+          __fsub_rn(clampf(inv_after, grid_lo, grid_hi), grid_lo), inv_delta);
+      lo = min(max(static_cast<int>(floorf(pos)), 0), G - 2);
+      w = clampf(__fsub_rn(pos, static_cast<float>(lo)), 0.0f, 1.0f);
+    }
     float p_lo = __fmul_rn(coeffs[lo], dm[0]);
     float p_hi = __fmul_rn(coeffs[lo + 1], dm[0]);
 #pragma unroll
@@ -277,7 +296,7 @@ __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, i
 
 // `values` is [N, V, S]: the factors (V = F) or, in design mode, the raw
 // design values (V = B).
-template <int B, bool kDesign>
+template <int B, bool kDesign, bool kGeneral>
 __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     int N, int S, int G, int R, int E, int is_step, stt::Basis basis,
     const float* __restrict__ table, const float* __restrict__ spot,
@@ -286,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     float* __restrict__ inv_rows, float* __restrict__ dec_rows, float* __restrict__ cons_rows,
     float* __restrict__ imm_rows, float* __restrict__ partials) {
   const int V = kDesign ? B : basis.nf;
-  const int W = table_words(B, R, G);
+  const int W = table_words(B, R, G, kGeneral);
   const int nslot = slot_words(V);
   const int nout = kNumSums + B;
   const int ngroups = (S + kThreads - 1) / kThreads;
@@ -376,7 +395,7 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
         dm[b] = kDesign ? __fdiv_rn(__fsub_rn(vals[(1 + b) * kSims * kThreads], mean[b]), stdv[b])
                         : design_entry(terms[b], vals, kSims * kThreads, mean[b], stdv[b]);
 
-      const StepResult r = step_sim<B>(par, R, G, E, is_step, sp, inv[j], dm, frac);
+      const StepResult r = step_sim<B, kGeneral>(par, R, G, E, is_step, sp, inv[j], dm, frac);
       float acc[kUsedSums] = {inv[j], r.dec, r.cons, r.loss, r.imm,
                               __fmul_rn(-__fadd_rn(r.dec, r.cons), sp)};
       inv[j] = r.inv;
@@ -426,38 +445,44 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
   }
 }
 
-using SweepKernel = decltype(&forward_sweep_kernel<1, false>);
+using SweepKernel = decltype(&forward_sweep_kernel<1, false, false>);
 
-// The sweep compiled for basis size B in either mode, or NULL beyond
-// stt::kMaxB.
-template <bool kDesign>
+// The sweep compiled for basis size B in either mode, on uniform or general
+// grid rows, or NULL beyond stt::kMaxB.
+template <bool kDesign, bool kGeneral>
 SweepKernel sweep_kernel(int B) {
   static_assert(stt::kMaxB == 16, "one case per basis size");
   switch (B) {
-    case 1: return forward_sweep_kernel<1, kDesign>;
-    case 2: return forward_sweep_kernel<2, kDesign>;
-    case 3: return forward_sweep_kernel<3, kDesign>;
-    case 4: return forward_sweep_kernel<4, kDesign>;
-    case 5: return forward_sweep_kernel<5, kDesign>;
-    case 6: return forward_sweep_kernel<6, kDesign>;
-    case 7: return forward_sweep_kernel<7, kDesign>;
-    case 8: return forward_sweep_kernel<8, kDesign>;
-    case 9: return forward_sweep_kernel<9, kDesign>;
-    case 10: return forward_sweep_kernel<10, kDesign>;
-    case 11: return forward_sweep_kernel<11, kDesign>;
-    case 12: return forward_sweep_kernel<12, kDesign>;
-    case 13: return forward_sweep_kernel<13, kDesign>;
-    case 14: return forward_sweep_kernel<14, kDesign>;
-    case 15: return forward_sweep_kernel<15, kDesign>;
-    case 16: return forward_sweep_kernel<16, kDesign>;
+    case 1: return forward_sweep_kernel<1, kDesign, kGeneral>;
+    case 2: return forward_sweep_kernel<2, kDesign, kGeneral>;
+    case 3: return forward_sweep_kernel<3, kDesign, kGeneral>;
+    case 4: return forward_sweep_kernel<4, kDesign, kGeneral>;
+    case 5: return forward_sweep_kernel<5, kDesign, kGeneral>;
+    case 6: return forward_sweep_kernel<6, kDesign, kGeneral>;
+    case 7: return forward_sweep_kernel<7, kDesign, kGeneral>;
+    case 8: return forward_sweep_kernel<8, kDesign, kGeneral>;
+    case 9: return forward_sweep_kernel<9, kDesign, kGeneral>;
+    case 10: return forward_sweep_kernel<10, kDesign, kGeneral>;
+    case 11: return forward_sweep_kernel<11, kDesign, kGeneral>;
+    case 12: return forward_sweep_kernel<12, kDesign, kGeneral>;
+    case 13: return forward_sweep_kernel<13, kDesign, kGeneral>;
+    case 14: return forward_sweep_kernel<14, kDesign, kGeneral>;
+    case 15: return forward_sweep_kernel<15, kDesign, kGeneral>;
+    case 16: return forward_sweep_kernel<16, kDesign, kGeneral>;
     default: return nullptr;
   }
+}
+
+// The sweep of either grid mode, chosen at run time.
+template <bool kDesign>
+SweepKernel pick_sweep(int B, bool general) {
+  return general ? sweep_kernel<kDesign, true>(B) : sweep_kernel<kDesign, false>(B);
 }
 
 // Launches the sweep of either mode (V staged values a sim and step), then
 // the reduce of its partials.
 cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, int E,
-                         int is_step, const stt::Basis& basis, const void* table,
+                         int is_step, bool general, const stt::Basis& basis, const void* table,
                          const void* spot, const void* values, const void* inv0,
                          const void* pv0, void* inv_out, void* pv_out, void* inv_rows,
                          void* dec_rows, void* cons_rows, void* imm_rows, void* partials,
@@ -465,7 +490,7 @@ cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, 
   if (reinterpret_cast<uintptr_t>(table) % 16 != 0) return cudaErrorMisalignedAddress;
   const int B = basis.nb;
   const size_t smem = sizeof(float) *
-      (smem_fixed_words(B, R, V, E) + smem_words_per_grid_point(B) * G);
+      (smem_fixed_words(B, R, V, E) + smem_words_per_grid_point(B, general) * G);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -489,13 +514,14 @@ cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, 
 }  // namespace
 
 // The sweep: N steps of S sims from inventory inv0 (and PV pv0, or 0 where
-// NULL) on the packed tables [N, W] (16-byte aligned); spot [N, S], factors
-// [N, F, S].  Writes the final inventory and PV, and, where given (else
-// NULL), the rows [N, S] of inventory after each step, volume, fuel and
-// immediate PV; partials [N, 8 + B, ceil(S / 256)] are scratch, and totals
-// [N, 8 + B] receive each step's sums, then its summed design row.
+// NULL) on the packed tables [N, W] (16-byte aligned; with `general`, each
+// row ends with the next step's grid row); spot [N, S], factors [N, F, S].
+// Writes the final inventory and PV, and, where given (else NULL), the rows
+// [N, S] of inventory after each step, volume, fuel and immediate PV;
+// partials [N, 8 + B, ceil(S / 256)] are scratch, and totals [N, 8 + B]
+// receive each step's sums, then its summed design row.
 extern "C" int stt_forward_sweep(
-    int N, int S, int F, int G, int R, int E, int is_step, const int* basis_table,
+    int N, int S, int F, int G, int R, int E, int is_step, int general, const int* basis_table,
     const void* table, const void* spot, const void* factors, const void* inv0,
     const void* pv0, void* inv_out, void* pv_out, void* inv_rows, void* dec_rows,
     void* cons_rows, void* imm_rows, void* partials, void* totals, void* stream) {
@@ -503,15 +529,15 @@ extern "C" int stt_forward_sweep(
   if (!stt::make_basis(basis_table, F, &basis) || N < 1 || S < 1 || G < 2 || R < 1 || E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_sweep(
-      sweep_kernel<false>(basis.nb), N, S, F, G, R, E, is_step, basis, table, spot, factors,
-      inv0, pv0, inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows, partials, totals,
-      stream));
+      pick_sweep<false>(basis.nb, general), N, S, F, G, R, E, is_step, general, basis, table,
+      spot, factors, inv0, pv0, inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows,
+      partials, totals, stream));
 }
 
 // The sweep in design mode: as stt_forward_sweep, with the raw design
 // values [N, B, S] of B basis functions in place of the factors.
 extern "C" int stt_forward_sweep_design(
-    int N, int S, int B, int G, int R, int E, int is_step, const void* table,
+    int N, int S, int B, int G, int R, int E, int is_step, int general, const void* table,
     const void* spot, const void* design, const void* inv0, const void* pv0, void* inv_out,
     void* pv_out, void* inv_rows, void* dec_rows, void* cons_rows, void* imm_rows,
     void* partials, void* totals, void* stream) {
@@ -520,22 +546,24 @@ extern "C" int stt_forward_sweep_design(
   stt::Basis basis{};
   basis.nb = B;
   return static_cast<int>(launch_sweep(
-      sweep_kernel<true>(B), N, S, B, G, R, E, is_step, basis, table, spot, design, inv0,
-      pv0, inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows, partials, totals,
-      stream));
+      pick_sweep<true>(B, general), N, S, B, G, R, E, is_step, general, basis, table, spot,
+      design, inv0, pv0, inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows, partials,
+      totals, stream));
 }
 
 // The sweep's launch report at (G, B, R, F, E) on the current device
 // (common.cuh kernel_info), with out[0] the sims of a block; with `design`
-// set, the design mode's (F is then not read).
-extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int design, int* out) {
+// set, the design mode's (F is then not read); with `general`, the
+// general-grid mode's.
+extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int design, int general,
+                                      int* out) {
   if (G < 0 || B < 1 || B > stt::kMaxB || R < 1 || E < 0 ||
       (!design && (F < 0 || F > stt::kMaxF)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int V = design ? B : F;
   const cudaError_t err = stt::kernel_info(
-      design ? sweep_kernel<true>(B) : sweep_kernel<false>(B), kThreads,
-      smem_fixed_words(B, R, V, E), smem_words_per_grid_point(B), G, out);
+      design ? pick_sweep<true>(B, general) : pick_sweep<false>(B, general), kThreads,
+      smem_fixed_words(B, R, V, E), smem_words_per_grid_point(B, general), G, out);
   out[0] = kSims * kThreads;
   return static_cast<int>(err);
 }

@@ -30,6 +30,16 @@ panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
   ``lsmc_core_chunked``) calls back after every 16-step segment of both
   passes: the backward loop between its steps, the forward sweep split into
   a launch a segment, the inventory and PV carried between launches.
+* Custom grid rows that are not evenly spaced (``uniform_grids=False``, the
+  JAX package's flag) place target inventories by search: the backward's
+  interpolation tables by ``interp.interp_weights_general`` (kernels B, D
+  and E read only the tables), the forward sweep in kernel C's general-grid
+  mode, the trigger prices by ``interp.interp_vector_general``.
+* Adjoint deltas (``adjoint=True``, then ``adjoint_deltas``) differentiate
+  the pricing run's own forward sweep in the forward curve with the
+  regression payload held fixed (``forward_kernel.ForwardSweepFn``, whose
+  backward is the VJP kernel), and the terminal value by autograd: no second
+  backward pass, and NPV, SE, profiles and triggers stay the pricing run's.
 
 Everything that does not depend on the loop carry — decision sets,
 interpolation indices and weights, immediate-value coefficients, the forward
@@ -44,6 +54,7 @@ value, the valuation sims' end-period spot for the terminal PV.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import typing as tp
 
 import numpy as np
@@ -148,10 +159,11 @@ def _terminal_values(terminal_fn, spot_end, grid_end, num_grid, num_sims, dtype)
 
 
 def _backward_prep_all(arrays, num_extra_decisions: int, ratchet_is_step: bool,
-                       snap_interp: bool):
+                       snap_interp: bool, uniform_grids: bool = True):
     """Coefficient-independent per-step preparation for all N steps at once:
     interpolation rows/weights of every (step, grid point, decision) target
-    inventory, and the immediate-value coefficients, in the kernel layouts
+    inventory (by position arithmetic on evenly spaced rows, by search on
+    others), and the immediate-value coefficients, in the kernel layouts
     (idx_lo, w_hi [N, G, D]; a, b [N, D, G])."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
@@ -167,7 +179,8 @@ def _backward_prep_all(arrays, num_extra_decisions: int, ratchet_is_step: bool,
     )  # [N, G, D]
     loss = col("loss_pcnt") * grid_t
     inv_after = grid_t[..., None] + decisions - loss[..., None]
-    idx_lo, w_hi = interp.interp_weights(grid_next, inv_after)
+    weights = interp.interp_weights if uniform_grids else interp.interp_weights_general
+    idx_lo, w_hi = weights(grid_next, inv_after)
     if snap_interp:
         w_hi = decision_kernel.snap_weights(w_hi)
     scal = {k: arrays[k][:, None, None] for k in _SCALARS}
@@ -240,6 +253,7 @@ def lsmc_backward(
     snap_interp: bool = False,
     fullstep: bool = False,
     segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
+    uniform_grids: bool = True,
 ):
     """Backward induction.  Returns (v0 [G, S], regression payload of stacked
     per-step mean [N, B], std [N, B], coeffs [N, B, G]).
@@ -253,7 +267,9 @@ def lsmc_backward(
     glue between steps, or kernel E alone with ``fullstep``; spot-only panels
     ([N+1, 0, S] factors) and bases with a user callable run the plain body
     with kernel D on the design read from memory, and refuse ``fullstep``
-    (kernels B and E build monomial designs of factor panels on the card)."""
+    (kernels B and E build monomial designs of factor panels on the card).
+    ``uniform_grids=False`` places target inventories on the grid rows by
+    search (``_backward_prep_all``)."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     num_grid = grids.shape[1]
@@ -265,7 +281,8 @@ def lsmc_backward(
     v = _terminal_values(
         terminal_fn, spot_reg[n], grids[n], num_grid, spot_reg.shape[1], dtype
     )
-    prep = _backward_prep_all(arrays, num_extra_decisions, ratchet_is_step, snap_interp)
+    prep = _backward_prep_all(arrays, num_extra_decisions, ratchet_is_step, snap_interp,
+                              uniform_grids)
     mean, std = _design_stats(monomials, spot_reg[:n], factors_reg[:n])  # [N, B]
     coeffs_all = torch.empty((n, len(monomials), num_grid), dtype=dtype, device=grids.device)
     spare = torch.empty_like(v)
@@ -324,7 +341,7 @@ def lsmc_backward(
 
 
 def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
-                     num_extra_decisions: int, dtype):
+                     num_extra_decisions: int, dtype, uniform_grids: bool = True):
     """Trigger prices at the expected inventory (LsmcStorageValuation.cs:523-592)
     for all N steps at once: ``x`` holds [N]-shaped scalars, [N, R] ratchet
     tables, coeffs [N, B, G] and grid_next [N, G]; ``xbar`` [N, B] is the
@@ -343,6 +360,7 @@ def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
     inf = torch.tensor(float("inf"), dtype=dtype, device=e_decisions.device)
     nan = torch.tensor(float("nan"), dtype=dtype, device=e_decisions.device)
     col = lambda t: t[:, None]  # noqa: E731
+    interp_fn = interp.interp_vector if uniform_grids else interp.interp_vector_general
 
     def pv_parts(volume):  # volume [N, K]
         is_inject = volume > 0.0
@@ -352,7 +370,7 @@ def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
             torch.where(is_inject, col(x["inj_cost"]), col(x["wdr_cost"]))
             * abs_v * col(x["df_flow"])
         )
-        cont_v = interp.interp_vector(
+        cont_v = interp_fn(
             x["grid_next"], cbar,
             col(expected_inventory) + volume - col(e_loss),
         )
@@ -403,6 +421,20 @@ def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
     }
 
 
+@dataclasses.dataclass
+class AdjointTape:
+    """What ``adjoint_deltas`` differentiates, kept by an ``adjoint=True``
+    forward pass: its NPV with the autograd graph back to the forward
+    curve's rows (``fwd`` [N], through ``forward_kernel.ForwardSweepFn``) and,
+    where the storage has a terminal value, to its last entry (``fwd_end``)."""
+
+    npv: torch.Tensor
+    fwd: torch.Tensor
+    fwd_end: tp.Optional[torch.Tensor]
+    df_settle: torch.Tensor
+    discount_deltas: bool
+
+
 def lsmc_forward(
     arrays: tp.Dict[str, torch.Tensor],
     spot_val: torch.Tensor,  # [N+1, S]
@@ -416,6 +448,8 @@ def lsmc_forward(
     ratchet_is_step: bool,
     return_sim_data: bool = False,
     segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
+    uniform_grids: bool = True,
+    adjoint: bool = False,
 ):
     """Forward simulation over materialised valuation panels, one forward
     sweep for all steps; the per-step reductions stay on the device until the
@@ -425,49 +459,90 @@ def lsmc_forward(
     then builds its design ``SEG_LEN`` steps at a time.  ``return_sim_data``
     adds the per-sim panels of the JAX package's ``_forward_finalise``:
     inventory and PV [N+1, S] (the last rows the final inventory and the
-    terminal PV), and volume, fuel, loss and net volume [N, S]."""
+    terminal PV), and volume, fuel, loss and net volume [N, S].
+    ``uniform_grids=False`` runs kernel C's general-grid mode on the grid
+    rows.  ``adjoint`` adds ``"adjoint_tape"``, an ``AdjointTape`` of this
+    sweep for ``adjoint_deltas`` (the other results are unchanged: the sweep
+    writes its volume and fuel panels, which give the same bits); with a
+    given regression payload this is the forward-only adjoint."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     dtype = grids.dtype
     device = grids.device
     s_count = spot_val.shape[1]
     grid_next = grids[1:]
+    grid_rows = None if uniform_grids else grid_next
     step = {k: arrays[k] for k in _SCALARS}
     step.update(next_min=arrays["lower"][1:], next_max=arrays["upper"][1:])
     params = forward_kernel.pack_params(step, grid_next, dtype=dtype)  # [N, 13]
     ratchets = [arrays[k].contiguous() for k in ("ratchet_inv", "ratchet_min", "ratchet_max")]
 
-    inventory = torch.full((s_count,), float(starting_inventory), dtype=dtype, device=device)
-    panels = None
+    inv0 = torch.full((s_count,), float(starting_inventory), dtype=dtype, device=device)
+    panel = lambda rows: torch.empty((rows, s_count), dtype=dtype, device=device)  # noqa: E731
+    rows = [None] * 4
     if return_sim_data:
         # Kernel C writes its per-sim outputs into panel rows: no copies.
-        panel = lambda rows: torch.empty((rows, s_count), dtype=dtype, device=device)  # noqa: E731
         sim_inventory, sim_pv = panel(n + 1), panel(n + 1)
         sim_dec, sim_cons = panel(n), panel(n)
-        sim_inventory[0] = inventory
-        panels = (sim_inventory[1:], sim_dec, sim_cons, sim_pv[:n])
+        sim_inventory[0] = inv0
+        rows = [sim_inventory[1:], sim_dec, sim_cons, sim_pv[:n]]
+    elif adjoint:
+        rows[1], rows[2] = panel(n), panel(n)  # the volume and fuel the VJP reads
     seg_len = max(1, min(SEG_LEN, n))
     chunk_cb = None if segment_cb is None else (
         lambda done, total: segment_cb("forward", done, total))
     tables = (params, regression["mean"], regression["std"], *(r[:n] for r in ratchets))
-    if has_generic(monomials):
-        inventory, pv, sums, xbar = forward_kernel.forward_sweep_generic(
-            *tables, spot_val[:n], factors_val[:n], inventory, regression["coeffs"], monomials,
-            num_extra_decisions, ratchet_is_step, panels=panels,
-            chunk=None if segment_cb is None else seg_len, chunk_cb=chunk_cb,
-        )
-    else:
-        rows = list(panels) if panels is not None else [None] * 4
+
+    def sweep():
+        if has_generic(monomials):
+            return forward_kernel.forward_sweep_generic(
+                *tables, spot_val[:n], factors_val[:n], inv0, regression["coeffs"],
+                monomials, num_extra_decisions, ratchet_is_step, panels=rows,
+                chunk=None if segment_cb is None else seg_len, chunk_cb=chunk_cb, grid=grid_rows,
+            )
 
         def sweep_chunk(t0, t1, inventory, pv):
             return forward_kernel.forward_sweep(
                 *(x[t0:t1] for x in tables), spot_val[t0:t1], factors_val[t0:t1], inventory, pv,
                 regression["coeffs"][t0:t1], monomials, num_extra_decisions, ratchet_is_step,
                 panels=[None if p is None else p[t0:t1] for p in rows],
+                grid=None if grid_rows is None else grid_rows[t0:t1],
             )
 
-        inventory, pv, sums, xbar = forward_kernel.sweep_in_chunks(
-            n, n if segment_cb is None else seg_len, chunk_cb, sweep_chunk, inventory)
+        return forward_kernel.sweep_in_chunks(
+            n, n if segment_cb is None else seg_len, chunk_cb, sweep_chunk, inv0)
+
+    fwd_rows = fwd_end = None
+    with torch.enable_grad() if adjoint else contextlib.nullcontext():
+        if adjoint:
+            fwd_rows = arrays["fwd"][:n].detach().clone().requires_grad_()
+            pv, inventory, sums, xbar = forward_kernel.ForwardSweepFn.apply(
+                fwd_rows, arrays["df_settle"], spot_val[:n], rows[1], rows[2], sweep)
+        else:
+            inventory, pv, sums, xbar = sweep()
+        # Terminal period PV for non-empty storage: each sim's own terminal value.
+        if terminal_fn is not None:
+            spot_end = spot_val[n]
+            if adjoint:
+                # The same values, with d spot_end / d fwd[N] = spot_end / fwd[N]
+                # (spot = forward x stochastic part); inventory carries no gradient.
+                fwd_end = arrays["fwd"][n].detach().clone().requires_grad_()
+                f_n = arrays["fwd"][n]
+                ratio = torch.where(f_n != 0, spot_end / f_n, torch.zeros_like(spot_end))
+                spot_end = spot_end + (fwd_end - fwd_end.detach()) * ratio
+            terminal_pv = torch.as_tensor(
+                terminal_fn(spot_end, inventory), dtype=dtype, device=device
+            ).expand(inventory.shape)
+            pv = pv + terminal_pv
+            end_pv = terminal_pv.mean()
+        else:
+            terminal_pv = torch.zeros_like(pv)
+            end_pv = torch.zeros((), dtype=dtype, device=device)
+        npv = pv.mean()
+    tape = AdjointTape(npv, fwd_rows, fwd_end, arrays["df_settle"],
+                       discount_deltas) if adjoint else None
+    npv, pv, terminal_pv, end_pv = (t.detach() for t in (npv, pv, terminal_pv, end_pv))
+
     count = float(s_count)
     xbar = xbar / count
     expected_inventory = sums[:, forward_kernel._A_INV] / count
@@ -478,20 +553,9 @@ def lsmc_forward(
         "ratchet_inv": ratchets[0], "ratchet_min": ratchets[1], "ratchet_max": ratchets[2],
     }
     triggers = _trigger_outputs(
-        trig, xbar, expected_inventory, ratchet_is_step, num_extra_decisions, dtype
+        trig, xbar, expected_inventory, ratchet_is_step, num_extra_decisions, dtype,
+        uniform_grids,
     )
-
-    # Terminal period PV for non-empty storage: each sim's own terminal value.
-    if terminal_fn is not None:
-        terminal_pv = torch.as_tensor(
-            terminal_fn(spot_val[n], inventory), dtype=dtype, device=device
-        ).expand(inventory.shape)
-        pv = pv + terminal_pv
-        end_pv = terminal_pv.mean()
-    else:
-        terminal_pv = torch.zeros_like(pv)
-        end_pv = torch.zeros((), dtype=dtype, device=device)
-    npv = pv.mean()
     # Sample standard error (ddof=1; LsmcStorageValuation.cs:618).
     standard_error = torch.sqrt(torch.sum((pv - npv) ** 2) / (count - 1.0)) / np.sqrt(count)
 
@@ -510,6 +574,7 @@ def lsmc_forward(
         }
     return {
         **sim_panels,
+        **({"adjoint_tape": tape} if adjoint else {}),
         "npv": npv,
         "standard_error": standard_error,
         "deltas": torch.cat([delta, zero]),
@@ -530,6 +595,24 @@ def lsmc_forward(
     }
 
 
+def adjoint_deltas(tape: AdjointTape) -> torch.Tensor:
+    """Deltas [N+1] by reverse mode through an ``adjoint=True`` forward pass
+    (the JAX package's ``_forward_value_and_grad`` and
+    ``_undiscount_deltas``): d NPV / d fwd, whose first N entries are the
+    sweep's VJP and whose last is the terminal value's gradient.  They are
+    discounted to the valuation date by construction; without
+    ``discount_deltas`` the first N are divided by the settlement discount
+    factors and the last is left as it is, as in the JAX package."""
+    leaves = [tape.fwd] + ([tape.fwd_end] if tape.fwd_end is not None else [])
+    # A terminal value that ignores the price leaves fwd_end unused: zero.
+    rows, *end = torch.autograd.grad(tape.npv, leaves, allow_unused=True)
+    end = end[0] if end and end[0] is not None else torch.zeros((), dtype=rows.dtype,
+                                                                device=rows.device)
+    if not tape.discount_deltas:
+        rows = rows / tape.df_settle
+    return torch.cat([rows, end.reshape(1)]).detach()
+
+
 def lsmc_core(
     arrays: tp.Dict[str, torch.Tensor],
     spot_reg: torch.Tensor,
@@ -547,12 +630,17 @@ def lsmc_core(
     return_sim_data: bool = False,
     fullstep: bool = False,
     segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
+    uniform_grids: bool = True,
+    adjoint: bool = False,
 ) -> tp.Dict[str, torch.Tensor]:
     """Full LSMC valuation on one device over materialised panels: regression
     sims drive the backward pass, valuation sims the forward pass.  Results
     stay on the panels' device.  ``return_sim_data`` adds the per-sim panels
     (``lsmc_forward``); ``fullstep`` runs each backward step as kernel E
-    alone (factor panels and monomial bases only).
+    alone (factor panels and monomial bases only).  ``uniform_grids=False``
+    takes grid rows that are not evenly spaced (the search placement of
+    both passes); ``adjoint`` adds the forward sweep's ``"adjoint_tape"``
+    for ``adjoint_deltas``.
 
     ``segment_cb(phase, done, total)`` makes the run interactive, as the JAX
     package's ``lsmc_core_chunked`` (the same function here): it is called
@@ -564,12 +652,13 @@ def lsmc_core(
         v0, regression = lsmc_backward(
             arrays, spot_reg, factors_reg, monomials, num_extra_decisions,
             terminal_fn, ratchet_is_step, snap_interp=snap_interp, fullstep=fullstep,
-            segment_cb=segment_cb,
+            segment_cb=segment_cb, uniform_grids=uniform_grids,
         )
         result = lsmc_forward(
             arrays, spot_val, factors_val, regression, starting_inventory, monomials,
             num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
             return_sim_data=return_sim_data, segment_cb=segment_cb,
+            uniform_grids=uniform_grids, adjoint=adjoint,
         )
     # Backward (upper-ish) estimate: mean of the first-period values at the
     # known starting inventory (grid[0] is degenerate) — LsmcStorageValuation.cs:623.
@@ -584,3 +673,34 @@ def lsmc_core(
 # The JAX package's name for its host-chunked engine, which here is
 # ``lsmc_core`` given a ``segment_cb``.
 lsmc_core_chunked = lsmc_core
+
+
+def lsmc_npv_and_ad_deltas(
+    arrays: tp.Dict[str, torch.Tensor],
+    stoch_reg: torch.Tensor,  # [N+1, S] spot / forward (the stochastic part)
+    factors_reg: torch.Tensor,
+    stoch_val: torch.Tensor,
+    factors_val: torch.Tensor,
+    starting_inventory,
+    monomials: tp.Tuple,
+    num_extra_decisions: int,
+    discount_deltas: bool,
+    terminal_fn,
+    ratchet_is_step: bool,
+    uniform_grids: bool = True,
+    snap_interp: bool = False,
+    segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
+):
+    """NPV and deltas [N+1] by reverse mode (the JAX package's function of
+    the same name): the spot is fwd x stoch, one backward pass builds the
+    regression, and ``adjoint_deltas`` differentiates that valuation's own
+    forward sweep in the curve — the JAX package runs the backward again
+    inside its differentiated function, to the same payload."""
+    fwd = arrays["fwd"][:, None]
+    result = lsmc_core(
+        arrays, fwd * stoch_reg, factors_reg, fwd * stoch_val, factors_val, starting_inventory,
+        monomials, num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
+        snap_interp=snap_interp, segment_cb=segment_cb, uniform_grids=uniform_grids,
+        adjoint=True,
+    )
+    return result["npv"], adjoint_deltas(result["adjoint_tape"])

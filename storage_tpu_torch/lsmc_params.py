@@ -159,9 +159,8 @@ class LsmcValuationParametersBuilder:
         return self._set("device", device)
 
     def with_deltas_method(self, deltas_method: str):
-        """'pathwise' (reference formula) or 'adjoint' (reverse-mode AD of the
-        whole valuation wrt the forward curve; refused by the port's entry
-        points until adjoint deltas are ported)."""
+        """'pathwise' (reference formula) or 'adjoint' (reverse mode through
+        the valuation's forward sweep in the forward curve)."""
         if deltas_method not in ("pathwise", "adjoint"):
             raise ValueError(
                 f"deltas_method must be 'pathwise' or 'adjoint', got {deltas_method!r}."

@@ -74,20 +74,27 @@ SIGNATURES = {
         _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
-    # N, S, F, G, R, E, is_step, basis table, packed tables, spot, factors,
-    # inv0, pv0 (or NULL), inv_out, pv_out, then (each or NULL) the rows of
-    # inventory, volume, fuel and immediate PV, partials, totals, stream
+    # N, S, F, G, R, E, is_step, general grids, basis table, packed tables,
+    # spot, factors, inv0, pv0 (or NULL), inv_out, pv_out, then (each or
+    # NULL) the rows of inventory, volume, fuel and immediate PV, partials,
+    # totals, stream
     "stt_forward_sweep": (
-        _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P,
     ),
-    # N, S, B, G, R, E, is_step, packed tables, spot, design [N, B, S], then
-    # as stt_forward_sweep from inv0
+    # N, S, B, G, R, E, is_step, general grids, packed tables, spot, design
+    # [N, B, S], then as stt_forward_sweep from inv0
     "stt_forward_sweep_design": (
-        _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P,
     ),
-    # G, B, R, F, E, design mode, out int[6] (the sweep's launch report)
-    "stt_forward_sweep_info": (_I, _I, _I, _I, _I, _I, _P),
+    # G, B, R, F, E, design mode, general grids, out int[6] (the sweep's
+    # launch report)
+    "stt_forward_sweep_info": (_I, _I, _I, _I, _I, _I, _I, _P),
+    # N, S, is_double, dec, cons, spot, g, fwd, df_settle, partials, grad, stream
+    "stt_forward_sweep_vjp": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # out int[1]: the sims one block of the VJP's first pass sums
+    "stt_forward_sweep_vjp_chunk": (_P,),
     # N, G, R, E, is_step, mode, steps, ratchet inv/min/max, grids, v_end,
     # solver (or NULL), starting inventory, vs, moments (or NULL), rhs (or
     # NULL), out, stream

@@ -14,11 +14,17 @@ for all N steps (``forward_step`` is the sweep at N = 1).  Its design mode,
 ``forward_sweep_design``, reads each step's raw design [B, S] from memory
 instead of building it from monomials: ``forward_sweep_generic`` runs it for
 a basis with user callables, building the design ``DESIGN_CHUNK`` steps at a
-time and launching once per chunk.  ``forward_step_plain`` is one step in
-tensor code and ``forward_sweep_plain`` its loop over the steps, used for
-CPU tensors.  The ratchet lookup and the decision fractions
-follow the TPU kernel (``_ratchet_rates_smem``, ``_bang_bang``), so the plain
-version agrees with it term for term.
+time and launching once per chunk.  Either mode places target inventories
+on evenly spaced grid rows by arithmetic or, given the rows (``grid``), on
+custom rows by search: the general-grid mode.  ``forward_step_plain`` is one
+step in tensor code and ``forward_sweep_plain`` its loop over the steps, used
+for CPU tensors.  The ratchet lookup and the decision fractions follow the
+TPU kernel (``_ratchet_rates_smem``, ``_bang_bang``), so the plain version
+agrees with it term for term.
+
+Adjoint deltas differentiate the pricing run's own sweep in the forward
+curve: ``ForwardSweepFn``, whose backward is ``forward_sweep_vjp``
+(``csrc/forward_vjp.cu``) on the volume and fuel panels the sweep wrote.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import typing as tp
 import torch
 
 from ..basis import design_columns, design_matrix
-from . import _build
+from . import _build, interp
 
 # Parameter slots (the JAX kernel's SMEM vector layout).
 _P_DF_SETTLE = 0
@@ -137,12 +143,16 @@ def _bang_bang(min_rate, max_rate, inventory, loss_pcnt, next_min, next_max,
 
 def decision_candidates(params, mean, std, ratchet_inv, ratchet_min, ratchet_max,
                         spot, factors, inventory, coeffs, monomials,
-                        num_extra_decisions: int, ratchet_is_step: bool, design=None):
+                        num_extra_decisions: int, ratchet_is_step: bool, design=None,
+                        grid=None):
     """Per decision, its total value [S] (immediate plus fitted continuation)
     and the path quantities it would set, in the kernel's arithmetic order;
     with the standardised design [S, B] and the inventory loss [S].  The raw
     design is ``design`` [B, S] where one is given (design mode), else the
-    monomials' on ``spot`` and ``factors``."""
+    monomials' on ``spot`` and ``factors``.  With ``grid``, the next step's
+    grid row [G] (general-grid mode), a target inventory's rows and weight
+    are ``interp.interp_weights_general``'s on it; without, the position
+    arithmetic of an evenly spaced row from ``params``."""
     # [S, B] in the monomials' layout, so that the summed row adds alike.
     raw = design.T.contiguous() if design is not None else design_matrix(monomials, spot, factors)
     dm = (raw - mean) / std  # [S, B]
@@ -169,10 +179,13 @@ def decision_candidates(params, mean, std, ratchet_inv, ratchet_min, ratchet_max
     candidates = []
     for dec in decisions:
         inv_after = inventory + dec - loss
-        clipped = torch.minimum(torch.maximum(inv_after, par[_P_GRID_LO]), par[_P_GRID_HI])
-        pos = (clipped - par[_P_GRID_LO]) * par[_P_GRID_INVDELTA]
-        lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, g - 2)
-        w = torch.clamp(pos - lo.to(pos.dtype), 0.0, 1.0)
+        if grid is not None:
+            lo, w = interp.interp_weights_general(grid, inv_after)
+        else:
+            clipped = torch.minimum(torch.maximum(inv_after, par[_P_GRID_LO]), par[_P_GRID_HI])
+            pos = (clipped - par[_P_GRID_LO]) * par[_P_GRID_INVDELTA]
+            lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, g - 2)
+            w = torch.clamp(pos - lo.to(pos.dtype), 0.0, 1.0)
         cont = pred_at(lo) * (1 - w) + pred_at(lo + 1) * w
         is_inject = dec > 0.0
         abs_d = torch.abs(dec)
@@ -186,13 +199,13 @@ def decision_candidates(params, mean, std, ratchet_inv, ratchet_min, ratchet_max
 def forward_step_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max,
                        spot, factors, inventory, pv, coeffs, monomials,
                        num_extra_decisions: int, ratchet_is_step: bool, imm_out=None,
-                       design=None):
+                       design=None, grid=None):
     """Tensor-code version of the kernel; any dtype, any device.  The chosen
     immediate PV per sim goes to ``imm_out`` where one is given; ``design``
-    as for ``decision_candidates``."""
+    and ``grid`` as for ``decision_candidates``."""
     candidates, dm, loss = decision_candidates(
         params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, factors,
-        inventory, coeffs, monomials, num_extra_decisions, ratchet_is_step, design,
+        inventory, coeffs, monomials, num_extra_decisions, ratchet_is_step, design, grid,
     )
     best, opt = candidates[0]
     for total, cand in candidates[1:]:
@@ -211,11 +224,12 @@ def forward_step_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max,
 
 def forward_sweep_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
                         factors, inventory, pv, coeffs, monomials, num_extra_decisions: int,
-                        ratchet_is_step: bool, panels=None, out=None, design=None):
+                        ratchet_is_step: bool, panels=None, out=None, design=None, grid=None):
     """Tensor-code version of the sweep: ``forward_step_plain`` once per step;
     any dtype, any device.  Arguments and results as ``forward_sweep``'s; with
     ``design`` [N, B, S] (design mode, ``forward_sweep_design``) the steps read
-    it, and ``factors`` and ``monomials`` are not read."""
+    it, and ``factors`` and ``monomials`` are not read; with ``grid`` [N, G],
+    each step's next grid row, the general-grid mode."""
     rows = list(panels) if panels is not None else [None] * 4
     pv = torch.zeros_like(inventory) if pv is None else pv
     sums, xbar = [], []
@@ -225,6 +239,7 @@ def forward_sweep_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max
             spot[t], None if factors is None else factors[t], inventory, pv, coeffs[t],
             monomials, num_extra_decisions, ratchet_is_step,
             None if rows[3] is None else rows[3][t], None if design is None else design[t],
+            None if grid is None else grid[t],
         )
         for buf, val in zip(rows[:3], (inventory, dec, cons)):
             if buf is not None:
@@ -241,15 +256,17 @@ def forward_sweep_plain(params, mean, std, ratchet_inv, ratchet_min, ratchet_max
 # The kernel's sums go out per group of this many sims (csrc/forward_kernel.cu
 # kThreads): the partials scratch has one row per step, sum and group.
 _GROUP = 256
-_TABLE_PARTS = ("params", "mean", "std", "ratchet_inv", "ratchet_min", "ratchet_max", "coeffs")
+_TABLE_PARTS = ("params", "mean", "std", "ratchet_inv", "ratchet_min", "ratchet_max", "coeffs",
+                "grid")
 
 
-def table_layout(bdim: int, r: int, g: int):
+def table_layout(bdim: int, r: int, g: int, general: bool = False):
     """Offsets (in floats) of each part of one step's packed table, and its
     width W: the parameters, mean [B], std [B], ratchet inventories, min and
-    max rates [R] each, coefficients [B, G] row by row, padded with zeros to a
-    multiple of 4 floats (whole 16-byte words for the kernel's bulk copy)."""
-    sizes = (NUM_PARAMS, bdim, bdim, r, r, r, bdim * g)
+    max rates [R] each, coefficients [B, G] row by row, in general-grid mode
+    the next step's grid row [G], padded with zeros to a multiple of 4 floats
+    (whole 16-byte words for the kernel's bulk copy)."""
+    sizes = (NUM_PARAMS, bdim, bdim, r, r, r, bdim * g, g if general else 0)
     offsets, pos = {}, 0
     for name, n in zip(_TABLE_PARTS, sizes):
         offsets[name] = pos
@@ -257,12 +274,14 @@ def table_layout(bdim: int, r: int, g: int):
     return offsets, -(-pos // 4) * 4
 
 
-def pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs):
+def pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs, grid=None):
     """Every step's tables as the kernel reads them, one row of W floats a
-    step: [N, W] f32 (``table_layout``)."""
+    step: [N, W] f32 (``table_layout``; ``grid`` [N, G] in general-grid
+    mode)."""
     n, bdim, g = coeffs.shape
-    _, width = table_layout(bdim, ratchet_inv.shape[1], g)
-    parts = [params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs.reshape(n, bdim * g)]
+    _, width = table_layout(bdim, ratchet_inv.shape[1], g, grid is not None)
+    parts = [params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs.reshape(n, bdim * g),
+             *([] if grid is None else [grid])]
     table = torch.cat([p.to(torch.float32) for p in parts], dim=1)
     return torch.nn.functional.pad(table, (0, width - table.shape[1])).contiguous()
 
@@ -272,16 +291,18 @@ _INFO_FIELDS = ("sims_per_block", "smem_bytes", "smem_limit", "max_grid", "block
 
 
 @functools.lru_cache(maxsize=64)
-def _kernel_info(g: int, bdim: int, r: int, f: int, e: int, design: bool,
+def _kernel_info(g: int, bdim: int, r: int, f: int, e: int, design: bool, general: bool,
                  device_index: int) -> dict:
     out = (ctypes.c_int * len(_INFO_FIELDS))()
     with torch.cuda.device(device_index):
-        _build.check(_build.library().stt_forward_sweep_info(g, bdim, r, f, e, int(design), out),
+        _build.check(_build.library().stt_forward_sweep_info(g, bdim, r, f, e, int(design),
+                                                              int(general), out),
                      "stt_forward_sweep_info")
     return dict(zip(_INFO_FIELDS, out))
 
 
-def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device, design: bool = False) -> dict:
+def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device, design: bool = False,
+                general: bool = False) -> dict:
     """Launch report of the sweep kernel at G grid points, B basis functions,
     R ratchet nodes, F factors and E extra decisions on a CUDA device: sims
     per block, shared memory bytes per block (static and dynamic: the
@@ -290,24 +311,29 @@ def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device, design: bool 
     within it, blocks per SM (0 where G does not fit) and registers per
     thread.  B and F must be within the kernels' caps (``_build.limits``).
     ``design`` reports the design mode, which stages B design values a sim
-    in place of the F factors (F is not read)."""
-    return _kernel_info(g, bdim, r, f, e, bool(design), torch.device(device).index or 0)
+    in place of the F factors (F is not read); ``general`` the general-grid
+    mode, whose tables hold one more row of G a step."""
+    return _kernel_info(g, bdim, r, f, e, bool(design), bool(general),
+                        torch.device(device).index or 0)
 
 
-def sass_name(bdim: int, design: bool = False) -> str:
+def sass_name(bdim: int, design: bool = False, general: bool = False) -> str:
     """What the mangled name of the sweep kernel compiled for B basis
-    functions (in design mode with ``design``) holds (for
-    ``_build.sass_instructions``)."""
-    return f"forward_sweep_kernelILi{bdim}ELb{int(design)}EE"
+    functions (in design mode with ``design``, general-grid mode with
+    ``general``) holds (for ``_build.sass_instructions``)."""
+    return f"forward_sweep_kernelILi{bdim}ELb{int(design)}ELb{int(general)}EE"
 
 
 def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, values,
                   inventory, pv, coeffs, monomials, num_extra_decisions, ratchet_is_step, panels,
-                  out):
+                  out, grid):
     """Checks and launches the sweep in either mode: ``values`` [N, V, S] are
     the factors (``monomials`` given) or the raw design (``monomials`` None,
-    V = B).  Returns (inventory, pv, sums, xbar_sum) and the C call's code."""
+    V = B); ``grid`` [N, G] the next steps' grid rows of the general-grid
+    mode, or None.  Returns (inventory, pv, sums, xbar_sum) and the C call's
+    code."""
     design = monomials is None
+    general = grid is not None
     n, s = spot.shape
     v = values.shape[1]
     bdim, g = coeffs.shape[1:]
@@ -316,7 +342,7 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
     rows = list(panels) if panels is not None else [None] * 4
     outs = list(out) if out is not None else [
         torch.empty(s, dtype=torch.float32, device=spot.device) for _ in range(2)]
-    given = [t for t in (pv, *rows) if t is not None]
+    given = [t for t in (pv, *rows, grid) if t is not None]
     device = _build.require_cuda(
         name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
         values, inventory, coeffs, *outs, *given,
@@ -325,7 +351,7 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
         "params": (params, (n, NUM_PARAMS)), "mean": (mean, (n, bdim)), "std": (std, (n, bdim)),
         "ratchet_min": (ratchet_min, (n, r)), "ratchet_max": (ratchet_max, (n, r)),
         ("design" if design else "factors"): (values, (n, bdim if design else f, s)),
-        "coeffs": (coeffs, (n, bdim, g)),
+        "coeffs": (coeffs, (n, bdim, g)), **({"grid": (grid, (n, g))} if general else {}),
         "inventory": (inventory, (s,)), **({"pv": (pv, (s,))} if pv is not None else {}),
         **{f"out[{i}]": (o, (s,)) for i, o in enumerate(outs)},
         **{f"panels[{i}]": (p, (n, s)) for i, p in enumerate(rows) if p is not None},
@@ -336,15 +362,17 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
     if not design and len(monomials) != bdim:
         raise ValueError(f"{name}: coeffs rows must match the basis")
     _build.require_caps(name, bdim, f)
-    info = kernel_info(g, bdim, r, f, num_extra_decisions, device, design=design)
+    info = kernel_info(g, bdim, r, f, num_extra_decisions, device, design=design,
+                       general=general)
     if info["smem_bytes"] > info["smem_limit"]:
         staged = f"B={bdim} design values" if design else f"F={f} factors"
+        rows = " and the grid rows" if general else ""
         raise ValueError(
             f"{name}: G={g} grid points at B={bdim} basis functions, R={r} ratchet nodes, "
             f"{staged} and E={num_extra_decisions} extra decisions need {info['smem_bytes']} bytes "
-            f"of shared memory per block (two steps' tables grow with G); this card allows "
+            f"of shared memory per block (two steps' tables{rows} grow with G); this card allows "
             f"{info['smem_limit']}, so at most G={info['max_grid']}")
-    table = pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs)
+    table = pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs, grid)
     nout = NUM_SUMS + bdim
     partials = torch.empty((n * nout * -(-s // _GROUP),), dtype=torch.float32, device=device)
     totals = torch.empty((n, nout), dtype=torch.float32, device=device)
@@ -355,10 +383,10 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
               partials.data_ptr(), totals.data_ptr(), _build.stream_handle(device))
     if design:
         rc = lib.stt_forward_sweep_design(n, s, bdim, g, r, num_extra_decisions,
-                                          int(ratchet_is_step), *common)
+                                          int(ratchet_is_step), int(general), *common)
     else:
         rc = lib.stt_forward_sweep(n, s, f, g, r, num_extra_decisions, int(ratchet_is_step),
-                                   _build.basis_table(tuple(monomials), f), *common)
+                                   int(general), _build.basis_table(tuple(monomials), f), *common)
     return (outs[0], outs[1], totals[:, :NUM_SUMS], totals[:, NUM_SUMS:]), rc
 
 
@@ -379,6 +407,7 @@ def forward_sweep(
     ratchet_is_step: bool,
     panels: tp.Optional[tp.Sequence[tp.Optional[torch.Tensor]]] = None,
     out: tp.Optional[tp.Sequence[torch.Tensor]] = None,
+    grid: tp.Optional[torch.Tensor] = None,  # [N, G] next grid rows: general-grid mode
 ):
     """The forward pass over N steps: returns (inventory [S], pv [S], sums
     [N, 8], xbar_sum [N, B]), the final inventory and PV and each step's
@@ -387,26 +416,30 @@ def forward_sweep(
     ``panels`` optionally holds four [N, S] buffers, each of which may be
     None: per step, each sim's inventory after the step, its volume, its fuel
     and its immediate PV.  ``out`` optionally holds two [S] buffers for the
-    final inventory and PV.  CPU tensors take the plain version.  CUDA tensors
-    launch the sweep kernel, once for all N steps, and must be f32 and
-    contiguous (``factors`` may be [N, 0, S]: the kernel reads no factor
-    then); beyond the grid the card's shared memory takes (``kernel_info``)
-    it raises ``ValueError``."""
+    final inventory and PV.  ``grid``, where given, holds each step's next
+    grid row for rows that are not evenly spaced: each target inventory is
+    placed on it by search (``decision_candidates``).  CPU tensors take the
+    plain version.  CUDA tensors launch the sweep kernel, once for all N
+    steps, and must be f32 and contiguous (``factors`` may be [N, 0, S]: the
+    kernel reads no factor then); beyond the grid the card's shared memory
+    takes (``kernel_info``) it raises ``ValueError``."""
     if spot.device.type == "cpu":
         return forward_sweep_plain(
             params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, factors, inventory,
-            pv, coeffs, monomials, num_extra_decisions, ratchet_is_step, panels, out,
+            pv, coeffs, monomials, num_extra_decisions, ratchet_is_step, panels, out, grid=grid,
         )
     result, rc = _launch_sweep(
         "forward_sweep", params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
         factors, inventory, pv, coeffs, monomials, num_extra_decisions, ratchet_is_step,
-        panels, out)
+        panels, out, grid)
     forward_sweep.launches += 1
+    forward_sweep.general_launches += grid is not None
     _build.check(rc, "forward_sweep")
     return result
 
 
 forward_sweep.launches = 0
+forward_sweep.general_launches = 0  # those of the general-grid mode, counted in launches too
 
 
 def forward_sweep_design(
@@ -425,27 +458,33 @@ def forward_sweep_design(
     ratchet_is_step: bool,
     panels: tp.Optional[tp.Sequence[tp.Optional[torch.Tensor]]] = None,
     out: tp.Optional[tp.Sequence[torch.Tensor]] = None,
+    grid: tp.Optional[torch.Tensor] = None,  # [N, G] next grid rows: general-grid mode
 ):
     """Kernel C's design mode: ``forward_sweep`` on each step's raw design
     [B, S], read from memory and standardised by ``mean`` and ``std``, in
     place of the design that monomials build on the card.  Results,
-    ``panels`` and ``out`` as ``forward_sweep``'s.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel once for all N steps (B up to the
-    kernels' cap; no factor is read, so the factor cap does not apply)."""
+    ``panels``, ``out`` and ``grid`` as ``forward_sweep``'s.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel once for all N steps
+    (B up to the kernels' cap; no factor is read, so the factor cap does not
+    apply)."""
     if spot.device.type == "cpu":
         return forward_sweep_plain(
             params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, None, inventory,
             pv, coeffs, None, num_extra_decisions, ratchet_is_step, panels, out, design=design,
+            grid=grid,
         )
     result, rc = _launch_sweep(
         "forward_sweep_design", params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
-        design, inventory, pv, coeffs, None, num_extra_decisions, ratchet_is_step, panels, out)
+        design, inventory, pv, coeffs, None, num_extra_decisions, ratchet_is_step, panels, out,
+        grid)
     forward_sweep_design.launches += 1
+    forward_sweep_design.general_launches += grid is not None
     _build.check(rc, "forward_sweep_design")
     return result
 
 
 forward_sweep_design.launches = 0
+forward_sweep_design.general_launches = 0
 
 # Steps of raw design a launch of the design mode reads: at S = 262,144 and
 # B = 9 a chunk of 32 steps is 302 MB, where the whole 365-step year would be
@@ -475,7 +514,7 @@ def sweep_in_chunks(num_steps: int, chunk: int, chunk_cb, sweep_chunk, inventory
 def forward_sweep_generic(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
                           factors, inventory, coeffs, entries, num_extra_decisions: int,
                           ratchet_is_step: bool, panels=None, chunk: tp.Optional[int] = None,
-                          chunk_cb=None):
+                          chunk_cb=None, grid=None):
     """The forward pass for a basis of any entries, generic callables too:
     ``chunk`` steps at a time (``DESIGN_CHUNK`` where None), the raw design
     of the chunk's steps built on the spot's device (``basis.design_columns``,
@@ -483,7 +522,7 @@ def forward_sweep_generic(params, mean, std, ratchet_inv, ratchet_min, ratchet_m
     the inventory and PV carried from one chunk to the next, and
     ``chunk_cb(done, total)`` called after each chunk (``sweep_in_chunks``).
     Arguments and results as ``forward_sweep``'s (without ``pv``: the PV
-    starts at zero)."""
+    starts at zero; ``grid`` as there)."""
     rows = list(panels) if panels is not None else [None] * 4
 
     def sweep_chunk(t0, t1, inventory, pv):
@@ -493,6 +532,7 @@ def forward_sweep_generic(params, mean, std, ratchet_inv, ratchet_min, ratchet_m
             ratchet_max[t0:t1], spot[t0:t1], design, inventory, pv, coeffs[t0:t1],
             num_extra_decisions, ratchet_is_step,
             panels=[None if p is None else p[t0:t1] for p in rows],
+            grid=None if grid is None else grid[t0:t1],
         )
 
     return sweep_in_chunks(spot.shape[0], chunk or DESIGN_CHUNK, chunk_cb, sweep_chunk, inventory)
@@ -532,3 +572,79 @@ def forward_step(
         panels=(None, outs[2][None], outs[3][None], row(imm_out)), out=outs[:2],
     )
     return (*outs, sums[0], xbar[0])
+
+
+def forward_sweep_vjp_plain(dec, cons, spot, fwd, df_settle, g):
+    """Tensor-code version of ``forward_sweep_vjp``; any dtype, any device."""
+    return df_settle / fwd * (g[None, :] * (-(dec + cons)) * spot).sum(dim=1)
+
+
+@functools.lru_cache(maxsize=1)
+def _vjp_chunk() -> int:
+    out = (ctypes.c_int * 1)()
+    _build.check(_build.library().stt_forward_sweep_vjp_chunk(out), "stt_forward_sweep_vjp_chunk")
+    return out[0]
+
+
+def forward_sweep_vjp(
+    dec: torch.Tensor,        # [N, S] each sim's chosen volume (the sweep's panel)
+    cons: torch.Tensor,       # [N, S] its fuel
+    spot: torch.Tensor,       # [N, S]
+    fwd: torch.Tensor,        # [N] the forward curve's rows
+    df_settle: torch.Tensor,  # [N]
+    g: torch.Tensor,          # [S] the upstream gradient of each sim's PV
+) -> torch.Tensor:
+    """The forward sweep's vector-Jacobian product in the forward curve with
+    the policy held fixed (``csrc/forward_vjp.cu``): grad [N] with
+    grad[t] = df_settle[t] / fwd[t] · Σ_s g[s]·(−(dec[t,s] + cons[t,s]))·spot[t,s].
+    CPU tensors take the plain version; CUDA tensors launch the kernel (f32
+    or f64, contiguous, one dtype)."""
+    if spot.device.type == "cpu":
+        return forward_sweep_vjp_plain(dec, cons, spot, fwd, df_settle, g)
+    if spot.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"forward_sweep_vjp: expected float32 or float64, got {spot.dtype}")
+    device = _build.require_cuda("forward_sweep_vjp", dec, cons, spot, fwd, df_settle, g,
+                                 dtype=spot.dtype)
+    n, s = spot.shape
+    for key, t, shape in (("dec", dec, (n, s)), ("cons", cons, (n, s)), ("fwd", fwd, (n,)),
+                          ("df_settle", df_settle, (n,)), ("g", g, (s,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"forward_sweep_vjp: {key} is {tuple(t.shape)}, want {shape}")
+    partials = torch.empty((n * -(-s // _vjp_chunk()),), dtype=spot.dtype, device=device)
+    grad = torch.empty((n,), dtype=spot.dtype, device=device)
+    rc = _build.library().stt_forward_sweep_vjp(
+        n, s, int(spot.dtype == torch.float64), dec.data_ptr(), cons.data_ptr(), spot.data_ptr(),
+        g.data_ptr(), fwd.data_ptr(), df_settle.data_ptr(), partials.data_ptr(), grad.data_ptr(),
+        _build.stream_handle(device))
+    forward_sweep_vjp.launches += 1
+    _build.check(rc, "forward_sweep_vjp")
+    return grad
+
+
+forward_sweep_vjp.launches = 0
+
+
+class ForwardSweepFn(torch.autograd.Function):
+    """The pricing run's forward sweep as a function of the forward curve's
+    rows, for adjoint deltas: ``ForwardSweepFn.apply(fwd, df_settle, spot,
+    dec, cons, sweep)`` calls ``sweep()``, which runs kernel C over ``spot``
+    [N, S] (either mode, in one launch or in chunks) writing each sim's
+    chosen volume and fuel into the panels ``dec`` and ``cons`` [N, S], and
+    returns its (inventory, pv, sums, xbar); this returns (pv, inventory,
+    sums, xbar).  Only ``pv`` is differentiable, in ``fwd`` [N] alone: spot is
+    fwd x a stochastic part, and the policy (the argmax) carries no
+    gradient, so the backward is ``forward_sweep_vjp`` on the saved panels.
+    The spot, the regression payload and the inventory are data."""
+
+    @staticmethod
+    def forward(ctx, fwd, df_settle, spot, dec, cons, sweep):
+        inventory, pv, sums, xbar = sweep()
+        ctx.save_for_backward(fwd, df_settle, spot, dec, cons)
+        ctx.mark_non_differentiable(inventory, sums, xbar)
+        return pv, inventory, sums, xbar
+
+    @staticmethod
+    def backward(ctx, grad_pv, *_):
+        fwd, df_settle, spot, dec, cons = ctx.saved_tensors
+        grad = forward_sweep_vjp(dec, cons, spot, fwd, df_settle, grad_pv.contiguous())
+        return grad, None, None, None, None, None

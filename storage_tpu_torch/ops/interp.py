@@ -5,9 +5,10 @@ On uniform (linspace) grids, positions come from arithmetic, not a search,
 and every function takes a grid ``[..., G]`` whose leading dims broadcast
 against the leading dims of the query ``x``, so one call serves one step
 (grid [G]) or all steps at once (grid [N, G], x [N, ...]).  The general
-(non-uniform) and natural-cubic functions of the DP engines take one step's
-1-D grid [G] and values [G] or rows of values [..., G] on it (the tree's node
-rows), whose leading dims ``x`` leads with.
+(non-uniform) functions take one row [G] or rows [N, G] the same way, and,
+on one row, values [G] or rows of values [..., G] on it (the tree's node
+rows), whose leading dims ``x`` leads with; the natural-cubic ones take one
+step's 1-D grid.
 """
 from __future__ import annotations
 
@@ -85,27 +86,41 @@ def interp_coeffs(coeffs, idx_lo, w_hi):
 
 
 def interp_weights_general(grid, x):
-    """(idx_lo, w_hi) for ``x`` on a non-uniform, non-decreasing 1-D grid
-    [G], clamped: the lower node is the count of interior nodes <= x, so a
+    """(idx_lo, w_hi) for ``x`` on non-uniform, non-decreasing grid rows,
+    clamped: the lower node is the count of interior nodes <= x, so a
     zero-span segment (the padding of fixed-spacing and custom grids) gives
-    weight 0 on its left node."""
-    g = grid.shape[0]
-    x_c = torch.minimum(torch.maximum(x, grid[0]), grid[g - 1])
-    idx = torch.searchsorted(grid[1:g - 1].contiguous(), x_c.contiguous(), right=True)
-    x0 = grid[idx]
-    x1 = grid[idx + 1]
+    weight 0 on its left node.  ``grid`` is one row [G] or rows [*lead, G]
+    whose leading dims ``x`` [*lead, *q] leads with (every step at once)."""
+    g = grid.shape[-1]
+    lead = grid.shape[:-1]
+    flat = x.reshape(lead + (-1,))
+    x_c = torch.minimum(torch.maximum(flat, grid[..., :1]), grid[..., g - 1:])
+    idx = torch.searchsorted(grid[..., 1:g - 1].contiguous(), x_c.contiguous(), right=True)
+    x0 = torch.gather(grid, -1, idx)
+    x1 = torch.gather(grid, -1, idx + 1)
     span = x1 - x0
     w = torch.where(span > 0, (x_c - x0) / torch.where(span > 0, span, torch.ones_like(span)),
                     torch.zeros_like(span))
-    return idx, w
+    return idx.reshape(x.shape), w.reshape(x.shape)
 
 
 def interp_vector_general(grid, values, x):
-    """Linear interpolation of ``values`` [..., G] at ``x`` [..., *q] on a
-    non-uniform, non-decreasing 1-D grid [G] (clamped; zero-span segments
-    take their left node's value)."""
+    """Linear interpolation of ``values`` [..., G] at ``x`` [..., *q] on
+    non-uniform, non-decreasing grid rows (``interp_weights_general``'s
+    layouts; clamped; zero-span segments take their left node's value)."""
     idx, w = interp_weights_general(grid, x)
     return _take_last(values, idx) * (1 - w) + _take_last(values, idx + 1) * w
+
+
+def interp_per_sim_general(grid, values, x):
+    """``interp_per_sim`` on a non-uniform grid [G]: per-sim rows ``values``
+    [S, G] at per-sim queries ``x`` [S, D], a gather of the two nodes of
+    ``interp_weights_general`` and a lerp (the JAX package contracts a dense
+    hat over G)."""
+    idx_lo, w_hi = interp_weights_general(grid, x)
+    lo_vals = torch.gather(values, 1, idx_lo)
+    hi_vals = torch.gather(values, 1, idx_lo + 1)
+    return lo_vals * (1 - w_hi) + hi_vals * w_hi
 
 
 def natural_cubic_solver(num_points: int, dtype=torch.float64, device=None) -> torch.Tensor:

@@ -12,6 +12,9 @@ package simulates.
   the JAX package's revaluation of the port's file on the same paths agrees
   with the port's within 1e-9 relative (the tolerance of
   tests/test_torch_value_from_sims.py).
+* A checkpoint made on a custom grid whose rows are not evenly spaced
+  revalues to the valuation's bits (the JAX package's revaluation places
+  inventories by the evenly spaced arithmetic there).
 * A checkpoint of a facility with a terminal value needs ``terminal_fn``;
   ``checkpoint_path`` needs the basis as a DSL string.
 """
@@ -31,6 +34,7 @@ from storage_tpu.models.spot_sim import simulate_ou_paths
 from storage_tpu.parallel.mesh import sim_inputs_from_precompute
 from storage_tpu.valuation_inputs import prepare_valuation as jax_prepare
 from storage_tpu_torch import checkpoint as ckpt
+from storage_tpu_torch import grid as gridmod
 from storage_tpu_torch.basis import parse_basis_functions
 from storage_tpu_torch.engines import lsmc as torch_lsmc
 
@@ -175,6 +179,33 @@ def test_api_checkpoint_revalues_to_the_valuations_bits(tmp_path):
     out = ckpt.revalue_from_checkpoint(loaded, spot, factors, terminal_fn=terminal_npv, device="cpu")
     assert float(out["npv"]) == res.npv
     assert float(out["standard_error"]) == res.val_sim_standard_error
+
+
+def test_custom_grid_checkpoint_revalues_to_the_valuations_bits(tmp_path):
+    """A checkpoint made on a ``dense_near_bottom`` grid (rows not evenly
+    spaced) revalues on the valuation's own paths to its NPV bits: the
+    revaluation places inventories on the stored rows by search, as the
+    pricing run did.  The evenly spaced arithmetic on those rows (what the
+    JAX package's revaluation does, storage_tpu/checkpoint.py:159-167) is
+    another valuation."""
+    path = str(tmp_path / "custom.npz")
+    flags = (tpkg.SimulationDataReturned.SPOT_VALUATION
+             | tpkg.SimulationDataReturned.FACTORS_VALUATION)
+    res = _three_factor("1 + x_st + x_lt + s", checkpoint_path=path, sim_data_returned=flags,
+                        grid_calc=lambda lo, hi: lo + (hi - lo) * np.linspace(0.0, 1.0, 20) ** 2)
+    loaded = ckpt.RegressionCheckpoint.load(path)
+    assert not gridmod.rows_uniform(loaded.arrays["grids"])
+    spot = torch.tensor(res.sim_spot_valuation.to_numpy())
+    factors = torch.stack([torch.tensor(f.to_numpy()) for f in res.sim_factors_valuation], dim=1)
+    out = ckpt.revalue_from_checkpoint(loaded, spot, factors, terminal_fn=terminal_npv, device="cpu")
+    assert float(out["npv"]) == res.npv
+    assert float(out["standard_error"]) == res.val_sim_standard_error
+    as_t = lambda a: torch.as_tensor(a, dtype=F64)  # noqa: E731
+    arithmetic = torch_lsmc.lsmc_forward(
+        {k: as_t(v) for k, v in loaded.arrays.items()}, spot, factors,
+        {k: as_t(v) for k, v in loaded.regression.items()}, 100.0, loaded.monomials, 0, False,
+        terminal_npv, loaded.ratchet_is_step)
+    assert abs(float(arithmetic["npv"]) - res.npv) > 1e-6 * abs(res.npv)
 
 
 def test_checkpoint_path_needs_a_basis_string(tmp_path):

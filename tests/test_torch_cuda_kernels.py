@@ -14,7 +14,9 @@ sums (the NPV, the cubic moments' matvec) go in another order: f64 within
 1e-10 relative, f32 within 1e-5 of the f64 answer.  The tree's DP kernel
 likewise: its expected continuation sums the band where the plain version
 multiplies the dense matrix, so f64 values within 1e-9 of their scale and
-the NPV within 1e-10 relative.
+the NPV within 1e-10 relative.  Kernel C's general-grid mode does its plain
+version's arithmetic like the uniform one; the forward sweep's VJP sums in
+another order (f32 within 1e-5 of the largest entry, f64 within 1e-12).
 """
 import numpy as np
 import pandas as pd
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 import storage_tpu_torch as tpkg
+from storage_tpu_torch import basis as tbasis
 from storage_tpu_torch import grid as gridmod
 from storage_tpu_torch.basis import parse_basis_functions
 from storage_tpu_torch.engines import intrinsic as intrinsic_engine
@@ -384,6 +387,97 @@ def test_forward_sweep_grid_beyond_shared_memory_raises(device):
     g = info["max_grid"] + 1
     with pytest.raises(ValueError, match=f"at most G={g - 1}"):
         forward_kernel.forward_sweep(*_sweep_args(device, 2, 64, g, 3))
+
+
+def _bunched_rows(params, g):
+    """Each step's next grid row bunched towards its lower bound, the last
+    three points repeated (a custom grid padded to one width): [N, G]."""
+    lo = params[:, forward_kernel._P_GRID_LO]
+    hi = params[:, forward_kernel._P_GRID_HI]
+    u = torch.linspace(0.0, 1.0, g, device=params.device) ** 1.3
+    rows = lo[:, None] + (hi - lo)[:, None] * u
+    rows[:, g - 3:] = rows[:, g - 4:g - 3]
+    return rows.contiguous()
+
+
+@pytest.mark.parametrize("design,g", [(False, 13), (True, 13), (False, 1000)],
+                         ids=["monomial", "design", "G=1000"])
+def test_forward_sweep_general_grid(device, design, g):
+    """Kernel C's general-grid mode (custom rows, zero-span padding) against
+    its plain version, with the per-sim panels, in both modes: the plain
+    version's arithmetic, so per-sim values to f32 rounding."""
+    s, n = 300, 9 if g == 13 else 3
+    args = _sweep_args(device, n, s, g, 3)
+    grid = _bunched_rows(args[0], g)
+    panels = [torch.empty((n, s), device=device) for _ in range(4)]
+    want_panels = [torch.empty((n, s), device=device) for _ in range(4)]
+    if design:
+        raw = torch.stack(tbasis.design_columns(args[11], args[6], args[7]), dim=1)
+        dargs = (*args[:7], raw, *args[8:11], *args[12:])
+        got = forward_kernel.forward_sweep_design(*dargs, panels=panels, grid=grid)
+        want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, design=raw, grid=grid)
+    else:
+        got = forward_kernel.forward_sweep(*args, panels=panels, grid=grid)
+        want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, grid=grid)
+    for k in range(2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-3)
+    for row, want_row in zip(panels, want_panels):
+        torch.testing.assert_close(row, want_row, rtol=1e-6, atol=1e-3)
+    for k in (2, 3):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                   atol=1e-5 * float(want[k].abs().max()))
+    # Another valuation than the evenly spaced placement on the same tables.
+    uniform = forward_kernel.forward_sweep(*args)
+    assert not torch.equal(uniform[1], got[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n,s", [(7, 1000), (3, 300), (2, 5000)])
+def test_forward_sweep_vjp(device, dtype, n, s):
+    """The VJP kernel against its plain version at ragged path counts:
+    within 1e-5 of the largest entry in f32 (sums in another order), 1e-12
+    in f64."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device, dtype=dtype)  # noqa: E731
+    dec, cons, spot = 100.0 * rnd(n, s), rnd(n, s).abs(), 30.0 + 5.0 * rnd(n, s)
+    fwd, df = 30.0 + rnd(n).abs(), 0.9 + 0.01 * rnd(n)
+    g = rnd(s)
+    before = forward_kernel.forward_sweep_vjp.launches
+    got = forward_kernel.forward_sweep_vjp(dec, cons, spot, fwd, df, g)
+    assert forward_kernel.forward_sweep_vjp.launches == before + 1
+    want = forward_kernel.forward_sweep_vjp_plain(dec.double(), cons.double(), spot.double(),
+                                                  fwd.double(), df.double(), g.double())
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=tol * float(want.abs().max()))
+    assert torch.equal(got, forward_kernel.forward_sweep_vjp(dec, cons, spot, fwd, df, g))
+
+
+def test_adjoint_and_custom_grid_valuations_on_the_card(device):
+    """An adjoint valuation on a custom grid launches the sweep once (in its
+    general-grid mode) and the VJP once; its deltas equal the pathwise ones
+    for t < N within f32 rounding of their scale."""
+    storage = tpkg.CmdtyStorage(
+        "D", "2020-01-01", "2020-02-15", 0.6, 0.4, min_inventory=0.0, max_inventory=5000.0,
+        max_injection_rate=400.0, max_withdrawal_rate=450.0)
+    idx = pd.period_range("2020-01-01", "2020-02-15", freq="D")
+    fwd = pd.Series(30.0 + 7.0 * np.sin(2 * np.pi * np.arange(len(idx)) / 46.0), index=idx)
+    factors = [(9.0, pd.Series(0.8, index=pd.period_range("2020-01-01", "2020-03-15")))]
+
+    def value(method):
+        return tpkg.multi_factor_value(
+            storage, "2020-01-01", 800.0, fwd, 0.04, None, factors, None, 4096,
+            "1 + s + x0 + x0**2", True, seed=7, fwd_sim_seed=8, deltas_method=method,
+            grid_calc=lambda lo, hi: lo + (hi - lo) * np.linspace(0.0, 1.0, 40) ** 2,
+            device=device)
+
+    pathwise = value("pathwise")
+    before = (forward_kernel.forward_sweep.launches, forward_kernel.forward_sweep_vjp.launches)
+    adjoint = value("adjoint")
+    assert (forward_kernel.forward_sweep.launches - before[0],
+            forward_kernel.forward_sweep_vjp.launches - before[1]) == (1, 1)
+    assert adjoint.npv == pathwise.npv
+    d_adj, d_path = adjoint.deltas.to_numpy(), pathwise.deltas.to_numpy()
+    np.testing.assert_allclose(d_adj[:-1], d_path[:-1], rtol=0, atol=1e-5 * np.abs(d_path).max())
 
 
 def _reg_market():

@@ -179,22 +179,26 @@ def test_sweep_plain_is_the_step_loop(dtype):
 def test_packed_table_layout(b_dim, r, g):
     """Each part of a step's packed row sits at the offset the kernel reads
     it from, the row is a whole number of 16-byte words and its tail is
-    zero; the kernel's width and group size are the wrapper's."""
+    zero, with and without the general-grid mode's grid row at its end; the
+    kernel's width and group size are the wrapper's."""
     n = 3
     gen = torch.Generator().manual_seed(1)
     parts = dict(params=(n, tfk.NUM_PARAMS), mean=(n, b_dim), std=(n, b_dim), ratchet_inv=(n, r),
                  ratchet_min=(n, r), ratchet_max=(n, r), coeffs=(n, b_dim, g))
     tabs = {k: torch.randn(shape, generator=gen) for k, shape in parts.items()}
-    table = tfk.pack_tables(*tabs.values())
-    offsets, width = tfk.table_layout(b_dim, r, g)
-    used = tfk.NUM_PARAMS + 2 * b_dim + 3 * r + b_dim * g
-    assert table.shape == (n, width) and table.dtype == torch.float32 and table.is_contiguous()
-    assert width % 4 == 0 and used <= width < used + 4
-    assert width == (used + 3) // 4 * 4  # csrc/forward_kernel.cu table_words
-    for name, x in tabs.items():
-        size = x[0].numel()
-        assert torch.equal(table[:, offsets[name]:offsets[name] + size], x.reshape(n, size))
-    assert torch.equal(table[:, used:], torch.zeros((n, width - used)))
+    for general in (False, True):
+        if general:
+            tabs["grid"] = torch.randn((n, g), generator=gen)
+        table = tfk.pack_tables(*tabs.values())
+        offsets, width = tfk.table_layout(b_dim, r, g, general)
+        used = tfk.NUM_PARAMS + 2 * b_dim + 3 * r + (b_dim + general) * g
+        assert table.shape == (n, width) and table.dtype == torch.float32 and table.is_contiguous()
+        assert width % 4 == 0 and used <= width < used + 4
+        assert width == (used + 3) // 4 * 4  # csrc/forward_kernel.cu table_words
+        for name, x in tabs.items():
+            size = x[0].numel()
+            assert torch.equal(table[:, offsets[name]:offsets[name] + size], x.reshape(n, size))
+        assert torch.equal(table[:, used:], torch.zeros((n, width - used)))
     src = CSRC.read_text()
     assert int(re.search(r"constexpr int kThreads = (\d+);", src).group(1)) == tfk._GROUP
-    assert "(NUM_PARAMS + 2 * B + 3 * R + B * G + 3) / 4 * 4" in src
+    assert "(NUM_PARAMS + 2 * B + 3 * R + (B + (general ? 1 : 0)) * G + 3) / 4 * 4" in src

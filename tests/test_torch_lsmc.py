@@ -9,7 +9,11 @@
   small case with the same seeds: the same threefry draws, hence the same
   valuation.
 * The port imports without JAX, runs on CUDA unless told otherwise, and
-  refuses the options it does not port.
+  refuses an unknown ``deltas_method`` as the JAX package does.
+* The reference's regression pins (``BASELINE.md``, tests/test_lsmc.py
+  ``TestRegressionBaselines``): the 2F and 3F-seasonal facilities at 4,096
+  sims in f64 land within 2 of the reference's standard errors of its NPVs,
+  with the JAX tests' assertions.
 """
 import subprocess
 import sys
@@ -208,25 +212,95 @@ def test_f32_valuation_close_to_jax():
     assert got.val_sim_standard_error == pytest.approx(want.val_sim_standard_error, rel=1e-2)
 
 
-@pytest.mark.parametrize(
-    "option,item",
-    [
-        (dict(deltas_method="adjoint"), "adjoint deltas"),
-        (dict(grid_calc=lambda lo, hi: np.linspace(lo, hi, 5)),
-         "custom inventory grids in the LSMC engine"),
-    ],
-    ids=["adjoint", "grid-calc"],
-)
-def test_unported_options_raise(option, item):
-    """Each refusal names its ROADMAP item by title, which a renumbering of
-    the queue leaves as it is."""
+@pytest.mark.parametrize("entry", ["three-factor", "multi-factor", "value-from-sims"])
+def test_unknown_deltas_method_raises(entry):
+    """``deltas_method`` is 'pathwise' or 'adjoint'; anything else raises
+    ``ValueError`` before any simulation, as in the JAX package."""
     storage, start, fwd = _case(tpkg)
-    kwargs = dict(basis_funcs=BASIS)
-    kwargs.update(option)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
-        tpkg.three_factor_seasonal_value(
-            storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, 64,
-            discount_deltas=False, device="cpu", **kwargs,
+    frame = pd.DataFrame(np.full((21, 8), 30.0), index=pd.period_range(start, storage.end))
+    calls = {
+        "three-factor": lambda: tpkg.three_factor_seasonal_value(
+            storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, 64, BASIS, False,
+            deltas_method="bogus", device="cpu"),
+        "multi-factor": lambda: tpkg.multi_factor_value(
+            storage, start, 100.0, fwd, 0.02, None, [(12.0, pd.Series(0.9, index=fwd.index))],
+            None, 64, "1 + s + x0", False, deltas_method="bogus", device="cpu"),
+        "value-from-sims": lambda: tpkg.value_from_sims(
+            storage, start, 100.0, fwd, 0.02, None, frame, frame, "1 + s", False,
+            deltas_method="bogus", device="cpu"),
+    }
+    with pytest.raises(ValueError, match="deltas_method must be 'pathwise' or 'adjoint'"):
+        calls[entry]()
+
+
+def _reg_storage():
+    """The regression facility of tests/test_lsmc.py (test_multi_factor.py:36-50)."""
+    return tpkg.CmdtyStorage(
+        "D", "2019-12-01", "2020-04-01", 1.23, 0.98,
+        min_inventory=0.0, max_inventory=100_000.0,
+        max_injection_rate=700.0, max_withdrawal_rate=700.0,
+    )
+
+
+def _reg_market():
+    val_date = "2019-08-29"
+    idx = pd.period_range(val_date, "2020-04-01", freq="D")
+    fwd = pd.Series(
+        index=idx,
+        data=[23.87 if p < pd.Period("2020-03-12", freq="D") else 150.32 for p in idx],
+    )
+    rates = pd.Series(index=pd.period_range(val_date, "2020-06-01", freq="D"), data=0.03)
+
+    def settle(period):
+        return (period.asfreq("M").asfreq("D", "end") + 20).start_time.date()
+
+    return val_date, fwd, rates, settle
+
+
+class TestRegressionBaselines:
+    """tests/test_lsmc.py ``TestRegressionBaselines`` on the port: the same
+    calls in f64 at 4,096 sims, the same assertions against the reference's
+    pins (BASELINE.md)."""
+
+    def test_two_factor_within_two_se_of_reference(self):
+        val_date, fwd, rates, settle = _reg_market()
+        vol_idx = pd.period_range(val_date, "2020-06-01", freq="D")
+        factors = [
+            (0.0, pd.Series(index=vol_idx, data=0.14)),
+            (16.2, pd.Series(index=vol_idx.copy(), data=1.15)),
+        ]
+        progresses = []
+        res = tpkg.multi_factor_value(
+            _reg_storage(), val_date, 0.0, fwd, rates, settle, factors, 0.64,
+            4096, "1 + x0 + x0**2 + x1 + x1*x1", False, seed=11, fwd_sim_seed=11,
+            dtype=torch.float64, on_progress_update=progresses.append,
+            sim_data_returned=tpkg.SimulationDataReturned.ALL, device="cpu",
+        )
+        assert abs(res.npv - 1_780_380.7581833513) < 2 * 21_405.34
+        assert res.val_sim_standard_error == pytest.approx(
+            21_405.34 * (500 / 4096) ** 0.5, rel=0.25
+        )
+        assert res.intrinsic_npv == pytest.approx(1_703_773.0757192627, rel=2e-3)
+        assert res.extrinsic_npv > 0
+        assert progresses[-1] == 1.0
+        assert res.sim_spot_regress.shape == (123, 4096)
+        assert res.sim_inventory.shape == (123, 4096)
+        assert res.sim_inject_withdraw.shape == (122, 4096)
+        assert len(res.sim_factors_regress) == 2
+        assert res.npv >= res.intrinsic_npv - 2 * res.val_sim_standard_error
+
+    def test_three_factor_seasonal_within_two_se_of_reference(self):
+        val_date, fwd, rates, settle = _reg_market()
+        res = tpkg.three_factor_seasonal_value(
+            _reg_storage(), val_date, 0.0, fwd, rates, settle,
+            spot_mean_reversion=16.2, spot_vol=1.15, long_term_vol=0.14,
+            seasonal_vol=0.18, num_sims=4096,
+            basis_funcs="1 + x_st + x_sw + x_lt + x_st**2 + x_sw**2 + x_lt**2",
+            discount_deltas=False, seed=11, fwd_sim_seed=11, dtype=torch.float64, device="cpu",
+        )
+        assert abs(res.npv - 1_766_460.137569665) < 2 * 18_459.70
+        assert res.val_sim_standard_error == pytest.approx(
+            18_459.70 * (500 / 4096) ** 0.5, rel=0.25
         )
 
 

@@ -152,18 +152,33 @@ def test_builder_checks_deltas_method_and_unknown_spec():
         tpkg.lsmc_value(tpkg.LsmcValuationParameters(**{**vars(params), "sim_spec": object()}))
 
 
+def _dense_near_bottom(lo, hi):
+    return lo + (hi - lo) * np.linspace(0.0, 1.0, 20) ** 2
+
+
 @pytest.mark.parametrize(
-    "setter,item",
-    [
-        (lambda b: b.with_deltas_method("adjoint"), "adjoint deltas"),
-        (lambda b: b.with_grid_calc(lambda lo, hi: np.linspace(lo, hi, 5)),
-         "custom inventory grids in the LSMC engine"),
-    ],
+    "option",
+    [dict(deltas_method="adjoint"), dict(grid_calc=_dense_near_bottom)],
     ids=["adjoint", "grid-calc"],
 )
-def test_refused_options_raise_through_lsmc_value(setter, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
-        tpkg.lsmc_value(setter(_builder(tpkg, num_sims=64)).build())
+def test_lsmc_value_routes_deltas_method_and_grid_calc(option):
+    """``with_deltas_method("adjoint")`` and ``with_grid_calc(...)`` reach the
+    entry point: ``lsmc_value`` gives the direct call's bits."""
+    val_date, fwd, rates, settle, factors = _market()
+    want = tpkg.multi_factor_value(
+        _storage(tpkg), val_date, 0.0, fwd, rates, settle, factors, 0.64, 512,
+        "1 + x0 + x0**2 + x1 + x1*x1", True, seed=11, fwd_sim_seed=13, extra_decisions=1,
+        num_inventory_grid_points=20, dtype=torch.float64, device="cpu", **option)
+    builder = _builder(tpkg)
+    builder = (builder.with_deltas_method("adjoint") if "deltas_method" in option
+               else builder.with_grid_calc(_dense_near_bottom))
+    _same_bits(tpkg.lsmc_value(builder.build()), want)
+    plain = tpkg.lsmc_value(_builder(tpkg).build())
+    if "deltas_method" in option:  # the same valuation; the deltas by another route
+        assert plain.npv == want.npv and not plain.deltas.equals(want.deltas)
+        np.testing.assert_allclose(want.deltas, plain.deltas, rtol=RTOL, atol=1e-9)
+    else:
+        assert plain.npv != want.npv
 
 
 def test_lsmc_value_runs_on_the_card_unless_told():

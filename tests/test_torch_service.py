@@ -176,6 +176,29 @@ def test_blocking_mode_and_trinomial_and_intrinsic_match_jax():
     np.testing.assert_allclose(got, want, rtol=RTOL)
 
 
+def _bunched(lo, hi):
+    return lo + (hi - lo) * np.linspace(0.0, 1.0, 30) ** 1.5
+
+
+@pytest.mark.parametrize("option", [dict(deltas_method="adjoint"), dict(grid_calc=_bunched)],
+                         ids=["adjoint", "grid-calc"])
+def test_three_factor_calc_options_match_jax(option):
+    """``deltas_method="adjoint"`` and ``grid_calc`` pass through the
+    service's three-factor calc unchanged: its result is the JAX service's
+    within 1e-9."""
+    with jax_service.CalculationService(calc_mode=jax_service.CalcMode.BLOCKING) as jsvc:
+        want = jsvc.calc_result(jsvc.storage_value_three_factor(
+            "calc", jsvc.create_storage("fac", **_storage_kwargs()),
+            **_three_factor_kwargs(jax=True), **option))
+    with CalculationService(calc_mode=CalcMode.BLOCKING, device="cpu") as svc:
+        got = svc.calc_result(svc.storage_value_three_factor(
+            "calc", svc.create_storage("fac", **_storage_kwargs()),
+            **_three_factor_kwargs(jax=False), **option))
+    assert got.npv == pytest.approx(want.npv, rel=RTOL)
+    np.testing.assert_allclose(got.deltas, want.deltas, rtol=RTOL,
+                               atol=RTOL * np.abs(want.deltas.to_numpy()).max())
+
+
 # ---------------------------------------------------------------- the CLI
 
 
@@ -304,6 +327,30 @@ def test_cli_three_factor_csvs_match_jax_in_f64(specs, capsys, monkeypatch):
         ours, theirs = _csvs(specs, name)
         pd.testing.assert_frame_equal(ours, theirs, rtol=rtol, atol=1e-6 if rtol == 0 else 1e-7,
                                       check_exact=False, obj=name)
+
+
+def test_cli_adjoint_deltas_match_jax_in_f64(specs, capsys, monkeypatch):
+    """The model spec's ``deltas_method`` key: both CLIs' adjoint deltas in
+    f64 (the patch of ``test_cli_three_factor_csvs_match_jax_in_f64``) agree
+    within 1e-9, and equal the port's pathwise ones for t < N."""
+    from storage_tpu import api_lsmc as jax_api_lsmc
+    from storage_tpu_torch import api_lsmc as torch_api_lsmc
+
+    for module, dtype in ((jax_api_lsmc, jnp.float64), (torch_api_lsmc, torch.float64)):
+        value = module.three_factor_seasonal_value
+        monkeypatch.setattr(module, "three_factor_seasonal_value",
+                            lambda *a, _value=value, _dtype=dtype, **k: _value(*a, dtype=_dtype, **k))
+    args = ["three-factor", specs["facility"], specs["market"], specs["model"], "--quiet",
+            "--grid-points", "40"]
+    assert cli.main([*args, "--out", specs["out"], "--device", "cpu"]) == 0
+    pathwise = pd.read_csv(os.path.join(specs["out"], "deltas.csv"), index_col=0)
+    model = json.loads(Path(specs["model"]).read_text())
+    Path(specs["model"]).write_text(json.dumps({**model, "deltas_method": "adjoint"}))
+    _both(capsys, args, out=(specs["out"], specs["jax_out"]))
+    ours, theirs = _csvs(specs, "deltas.csv")
+    pd.testing.assert_frame_equal(ours, theirs, rtol=RTOL, atol=1e-7, check_exact=False)
+    np.testing.assert_allclose(ours.to_numpy()[:-1], pathwise.to_numpy()[:-1], rtol=RTOL,
+                               atol=1e-7)
 
 
 def test_cli_trinomial_matches_jax(specs, capsys):
