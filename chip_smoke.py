@@ -36,24 +36,33 @@
    f32 and f64 at G=100 and G=1,000 beside its bound and its launch report;
    then ``intrinsic_value(device="cuda")`` in f64 must hit the pins
    1,705,564.2806059965 (linspace) and 1,703,773.0757192627 (fixed spacing)
-   within 1e-9 and the C# sample's 10,827.21 within 1e-3.  The trinomial
-   tree's DP kernel (one launch a step, one block a node row) is held in
-   f64 and f32 against ``tree_plain`` in f64 on the reference's C# tree
-   sample (T1: 16 steps, M=99, G=101), the two LSMC-against-tree oracle
-   facilities (T2: 216 steps, M=45, G=500), the headline facility on a
-   1-factor tree at a = 5.5 (T3: 365 steps, M=99) and at a = 1.5 (T4, the
-   widest lattice: M=361), T2 with cubic interpolation and with a custom
-   grid, and T3 at E=1 (f64: NPV within 1e-10 relative, values within 1e-9
-   of their row's scale, decisions along the centre, up and down branch
-   paths parting only on a 1e-9 near-tie; f32: NPV within 1e-5 of the f64
-   answer), timed at T3 and T4 beside its bound; then through the API, each
-   path with the launch counters reset just before it:
-   ``trinomial_value(device="cuda")`` in f64 must hit the C# sample's
-   24,799.09 within 5e-4, the port's 1-factor LSMC on the card (f32, 65,536
-   sims) must land within 3e-3 of the f64 tree on both T2 facilities, T3
-   is valued five times warm in f32 and f64 (T4 once) and T3's deltas taken
-   over its 12 monthly contracts; every tree path launches the tree kernel
-   once a step and nothing else.  The host time of T4's lattice is printed
+   within 1e-9 and the C# sample's 10,827.21 within 1e-3; its chain floor
+   (2N - 1 links of a block barrier and a shared-memory read) and its
+   largest G in each mode (at least 8,192 in f64 on linear rows) are
+   printed.  The trinomial tree's DP kernel (the cluster route: one launch
+   a valuation of one thread-block cluster; the large-slab route: one launch
+   a step, one block a node row) is held in f64 and f32 against
+   ``tree_plain`` in f64 on the reference's C# tree sample (T1: 16 steps,
+   M=99, G=101), the two LSMC-against-tree oracle facilities (T2: 216
+   steps, M=45, G=500), the headline facility on a 1-factor tree at a = 5.5
+   (T3: 365 steps, M=99) and at a = 1.5 (T4, the widest lattice: M=361), T2
+   with cubic interpolation and with a custom grid, T3 at E=1 (each on the
+   cluster route, the large-slab route giving the same bits) and T1 at
+   G=2,000 (T5: a slab the cluster cannot hold, the large-slab route) (f64:
+   NPV within 1e-10 relative, values within 1e-9 of their row's scale,
+   decisions along the centre, up and down branch paths parting only on a
+   1e-9 near-tie; f32: NPV within 1e-5 of the f64 answer), timed at T3, T4
+   and T5 beside its bound, its chain floor (N links of a cluster barrier
+   and a read of another CTA's shared memory) and the large-slab route on
+   the same tables; then through the API, each path with the launch
+   counters reset just before it: ``trinomial_value(device="cuda")`` in f64
+   must hit the C# sample's 24,799.09 within 5e-4, the port's 1-factor LSMC
+   on the card (f32, 65,536 sims) must land within 3e-3 of the f64 tree on
+   both T2 facilities, T3 is valued five times warm in f32 and f64 (T4
+   once; T3's host phases timed apart) and T3's deltas taken over its 12
+   monthly contracts; every tree path on the cluster route launches the
+   tree kernel once a valuation and nothing else, T5's path the large-slab
+   route once a step.  The host time of T4's lattice is printed
    beside that of the [N, M, M] copy the JAX package makes of it.
 4. Values the repository's headline daily case through the public API —
    a 365-day ratcheted facility, 3-factor seasonal model, 9-term basis,
@@ -210,8 +219,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
     # one at :211).
     "intrinsic_dp": ("storage_tpu_torch/csrc/intrinsic_kernel.cu",
                      "storage_tpu/engines/intrinsic.py:193"),
-    # No Pallas kernel: the tree's backward lax.scan (its step's dense dot at :125).
+    # No Pallas kernel: the tree's backward lax.scan (its step's dense dot at
+    # :125), on the cluster route and on the large-slab route.
     "tree_dp": ("storage_tpu_torch/csrc/tree_kernel.cu", "storage_tpu/engines/tree.py:165"),
+    "tree_dp_steps": ("storage_tpu_torch/csrc/tree_kernel.cu", "storage_tpu/engines/tree.py:165"),
     # Kernel C's design mode: the forward step of a generic basis, which the
     # JAX package runs on its XLA path (no Pallas kernel of its own).
     "forward_sweep_design": ("storage_tpu_torch/csrc/forward_kernel.cu",
@@ -2674,7 +2685,7 @@ def check_intrinsic(pkg, device) -> dict:
     import torch
 
     from storage_tpu_torch.engines import intrinsic as ie
-    from storage_tpu_torch.ops import intrinsic_kernel
+    from storage_tpu_torch.ops import intrinsic_kernel, tree_kernel
 
     cases = {
         "headline": ("headline", "linspace", NUM_GRID, 0, "linear"),
@@ -2707,23 +2718,46 @@ def check_intrinsic(pkg, device) -> dict:
             for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
                 row[f"ms_{label}"] = cuda_ms(lambda: ie.intrinsic_core(arrays[dt], 100.0, 0, tfn,
                                                                        False), 20)
+            for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+                row[f"kernel_ms_{label}"] = kernel_busy_ms(
+                    lambda: ie.intrinsic_core(arrays[dt], 100.0, 0, tfn, False),
+                    "intrinsic_dp_kernel")[0]
             row["plain_ms"] = cuda_ms(lambda: ie.intrinsic_plain(arrays[torch.float32], 100.0, 0,
                                                                  tfn, False), 1)
             num_bytes, ops = intrinsic_work(n, g, r, 3, 4)
             row.update(bound(num_bytes, 0.0, ops))
             row["ms_per_step_f32"] = row["ms_f32"] / (2 * n - 1)
+            row["launch"] = {label: intrinsic_kernel.intrinsic_info(dt, device, g, r, 0, "linear")
+                             for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
+            # The chain floor: 2N - 1 links of one block barrier and one read
+            # of another thread's shared memory, at the DP's block size.
+            row["chain_step_ns"] = tree_kernel.chain_step_ns(
+                "block", device, row["launch"]["f32"]["threads"])
+            row["chain_floor_ms"] = (2 * n - 1) * row["chain_step_ns"] / 1e6
             timing[name] = row
             log(f"intrinsic DP [{name}] times: {row['ms_f32']:.4f} ms f32, {row['ms_f64']:.4f} ms "
-                f"f64 a DP (one launch; {row['ms_per_step_f32'] * 1e3:.3f} us a step of the "
-                f"{2 * n - 1}-step chain in f32), plain {row['plain_ms']:.1f} ms (f32), bound "
-                f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+                f"f64 a DP through intrinsic_core (one launch; {row['ms_per_step_f32'] * 1e3:.3f} "
+                f"us a step of the {2 * n - 1}-step chain in f32), of it the kernel's own device "
+                f"time {row['kernel_ms_f32']:.4f} / {row['kernel_ms_f64']:.4f} ms; plain "
+                f"{row['plain_ms']:.1f} ms (f32), bound {row['bound_ms']:.6f} ms "
+                f"({row['bound_by']}), chain floor {row['chain_floor_ms']:.4f} ms ({2 * n - 1} x "
+                f"{row['chain_step_ns']:.1f} ns)")
+            log(f"intrinsic DP launch report at G={g}: " + "; ".join(
+                f"{label}: one block of {r_['threads']} threads (step tables "
+                f"{'staged' if r_['stage_table'] else 'read from device memory'}, "
+                f"{r_['walk_lanes']} lanes a forward step, {r_['chunk']} steps staged a chunk), "
+                f"{r_['registers']} registers, {r_['local_bytes']} bytes local (spills), "
+                f"{r_['smem_bytes']} bytes shared, {r_['blocks_per_sm']} blocks/SM, G up to "
+                f"{r_['max_grid']}" for label, r_ in row["launch"].items()))
         del arrays
-    info = {label: intrinsic_kernel.intrinsic_info(dt, device)
-            for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
-    log("intrinsic DP launch report: " + "; ".join(
-        f"{label}: one block of {r_['threads']} threads, {r_['registers']} registers, "
-        f"{r_['local_bytes']} bytes local (spills), {r_['smem_bytes']} bytes shared, "
-        f"{r_['blocks_per_sm']} blocks/SM" for label, r_ in info.items()))
+    limits = {f"{label}_{mode}": intrinsic_kernel.intrinsic_info(dt, device, NUM_GRID, 3, 0,
+                                                                 mode)["max_grid"]
+              for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))
+              for mode in ("linear", "general", "cubic")}
+    log(f"intrinsic DP: the largest G in the block's shared memory (R=3, E=0): {limits}")
+    if limits["f64_linear"] < 8_192:
+        raise AssertionError(f"the intrinsic DP takes G up to {limits['f64_linear']} in f64 on "
+                             f"linear rows, below 8,192")
     pins = check_pins(pkg, device)
     bad = [name for name, c in checks.items() if not c["ok"]]
     if bad:
@@ -2731,8 +2765,10 @@ def check_intrinsic(pkg, device) -> dict:
     head = timing["headline"]
     return dict(max_abs_err=checks["headline"]["profile_max_abs_err_f64"], ms=head["ms_f32"],
                 ms_f64=head["ms_f64"], ms_per_step=head["ms_per_step_f32"],
+                kernel_ms=head["kernel_ms_f32"], chain_floor_ms=head["chain_floor_ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                big_grid=timing["G=1000"], checks=checks, launch=info, pins=pins)
+                big_grid=timing["G=1000"], checks=checks, launch=head["launch"],
+                max_grid=limits, pins=pins)
 
 
 def check_pins(pkg, device) -> dict:
@@ -2835,6 +2871,57 @@ def headline_tree_case(pkg, a: float) -> dict:
                 vols=pd.Series(0.95, index=fwd.index), a=a, rates=0.02, settle=None, g=NUM_GRID)
 
 
+def wide_tree_case(pkg) -> dict:
+    """T5: T1's sample (16 steps, M = 99) at G = 2,000: a slab whose rows,
+    ev and step tables the cluster's shared memory cannot hold, so the tree
+    kernel takes its large-slab route."""
+    return dict(csharp_tree_case(pkg), g=2_000)
+
+
+def tree_phases(pkg, case: dict, device, dtype) -> dict:
+    """One ``trinomial_value`` call split into its host phases, host clock,
+    the device synchronised at the end of each: the valuation inputs
+    (``prepare_valuation``), the lattice (``build_tree``), the tables (the
+    grids, the engine arrays and the lattice tensors on the card), the
+    kernel (``tree_core``: the terminal values, the DP, the NPV's reduce)
+    and the rest (the NPV read back, the API's own checks)."""
+    import collections
+    from unittest import mock
+
+    import torch
+
+    from storage_tpu_torch import api
+    from storage_tpu_torch import grid as gridmod
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.engines import tree as te
+    from storage_tpu_torch.models import trinomial_tree as tt
+
+    spans = collections.defaultdict(float)
+
+    def timed(label, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans[label] += time.perf_counter() - t0
+            return out
+        return run
+
+    phases = ((api, "prepare_valuation", "inputs"), (tt, "build_tree", "lattice"),
+              (gridmod, "inventory_grids", "tables"), (engine, "build_engine_arrays", "tables"),
+              (te, "tree_arrays", "tables"), (te, "tree_core", "kernel"))
+    with contextlib.ExitStack() as stack:
+        for module, name, label in phases:
+            stack.enter_context(mock.patch.object(module, name, timed(label, getattr(module, name))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree_value(pkg, case, device, dtype)
+        wall = time.perf_counter() - t0
+    out = {f"{label}_s": spans[label] for label in ("inputs", "lattice", "tables", "kernel")}
+    out.update(rest_s=wall - sum(spans.values()), wall_s=wall)
+    return out
+
+
 def tree_steps(case: dict) -> int:
     """The DP's steps: the active window from the valuation date (or the
     facility's start) to its end."""
@@ -2891,10 +2978,13 @@ def compare_tree(inputs, tables, e: int, interpolation: str, uniform: bool) -> d
     the kernel's values may differ from those read from the plain version's
     only where the plain version's two best totals at that step lie within
     1e-9 relative (at the first step where the paths part).  f32: the NPV
-    within 1e-5 relative of the f64 answer."""
+    within 1e-5 relative of the f64 answer.  Where the slab takes the
+    cluster route, the large-slab route must give its values' bits in f64
+    and f32."""
     import torch
 
     from storage_tpu_torch.engines import tree as te
+    from storage_tpu_torch.ops import tree_kernel
 
     arrays, lattice = tables[torch.float64]
     tfn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
@@ -2902,6 +2992,15 @@ def compare_tree(inputs, tables, e: int, interpolation: str, uniform: bool) -> d
     want = te.tree_plain(arrays, lattice, *args)
     got = te.tree_core(arrays, lattice, *args)
     got32 = te.tree_core(*tables[torch.float32], *args)
+    m, w = lattice["band"].shape[1:]
+    g, r = arrays["grids"].shape[1], arrays["ratchet_inv"].shape[1]
+    mode = "cubic" if interpolation == "cubic" else "linear" if uniform else "general"
+    route = tree_kernel.kernel_info(g, torch.float64, mode, got.values.device, m, w, e)["route"]
+    steps_same = None
+    if route == "cluster":
+        steps_same = all(
+            torch.equal(te.tree_core(*tables[dt], *args, route="steps").values, res.values)
+            for dt, res in ((torch.float64, got), (torch.float32, got32)))
     npv = float(want.npv)
     rel64 = abs(float(got.npv) - npv) / abs(npv)
     rel32 = abs(float(got32.npv) - npv) / abs(npv)
@@ -2924,11 +3023,13 @@ def compare_tree(inputs, tables, e: int, interpolation: str, uniform: bool) -> d
                                    e, inputs.compiled.ratchet_is_step, interpolation, uniform)[0][0]
             top2 = total.topk(2).values
             near &= bool(top2[0] - top2[1] <= 1e-9 * top2[0].abs())
-    ok = rel64 <= 1e-10 and values_err <= 1e-9 and rel32 <= 1e-5 and near
+    ok = (rel64 <= 1e-10 and values_err <= 1e-9 and rel32 <= 1e-5 and near
+          and steps_same is not False)
     return dict(ok=ok, npv_f64_plain=npv, npv_f64=float(got.npv), npv_f32=float(got32.npv),
                 npv_rel_err_f64=rel64, npv_rel_err_f32=rel32, values_rel_err_f64=values_err,
                 values_max_abs_err_f64=float((got.values - want.values).abs().max()),
-                paths_parted=flips, first_parting_on_near_tie=near)
+                paths_parted=flips, first_parting_on_near_tie=near, route=route,
+                steps_route_same_bits=steps_same)
 
 
 def tree_work(n: int, m: int, g: int, w: int, r: int, d: int, itemsize: int) -> tuple:
@@ -2974,19 +3075,22 @@ def api_walls(fn, count: int) -> list:
 
 def check_tree(pkg, device, counts) -> dict:
     """T4's lattice timed on the host.  The tree DP kernel against
-    ``tree_plain`` on the card in f64 and f32 (``compare_tree``) on T1-T4
-    and on T2's simple facility with cubic interpolation and with a custom
-    grid, and T3 at E=1; its times (CUDA events, f32 and f64, at T3 and T4;
-    the step kernels' own device time under the profiler), bound, plain
-    time and launch report.  Then the
-    paths through the API, each with the launch counters reset just before
-    it: T1's pin (24,799.09 within 5e-4, f64), T2's LSMC-against-tree gate
-    (the port's 1-factor ``multi_factor_value`` on the card, f32, 65,536
-    sims, seeds 11/22, basis 1 + s + s² + s³, within 3e-3 of the f64 tree),
-    T3's ``trinomial_value`` (median of 5 warm calls, f32 and f64; T4 one)
+    ``tree_plain`` on the card in f64 and f32 (``compare_tree``) on T1-T4,
+    T2's simple facility with cubic interpolation and with a custom grid,
+    T3 at E=1 (each on the cluster route, whose bits the large-slab route
+    must give too) and T5 (a slab beyond the cluster: the large-slab route);
+    its times (CUDA events, f32 and f64, at T3 and T4, beside the large-slab
+    route's on the same tables; the kernels' own device time under the
+    profiler; T5), bound, chain floor, plain time and launch reports.  Then
+    the paths through the API, each with the launch counters reset just
+    before it: T1's pin (24,799.09 within 5e-4, f64), T2's LSMC-against-tree
+    gate (the port's 1-factor ``multi_factor_value`` on the card, f32,
+    65,536 sims, seeds 11/22, basis 1 + s + s² + s³, within 3e-3 of the f64
+    tree), T3's ``trinomial_value`` (median of 5 warm calls, f32 and f64; T4
+    one; T3's host phases), T5's (the large-slab route, a launch a step)
     and T3's ``trinomial_deltas`` over its 12 monthly contracts (24
-    valuations).  Every ``trinomial_value`` launches the kernel once a step
-    and no other kernel of the port."""
+    valuations).  Every ``trinomial_value`` on the cluster route launches
+    the kernel once and no other kernel of the port."""
     import numpy as np
     import pandas as pd
     import torch
@@ -2997,6 +3101,7 @@ def check_tree(pkg, device, counts) -> dict:
     from storage_tpu_torch.models import trinomial_tree as tt
 
     t1, t3, t4 = csharp_tree_case(pkg), headline_tree_case(pkg, 5.5), headline_tree_case(pkg, 1.5)
+    t5 = wide_tree_case(pkg)
     t2 = {name: oracle_tree_case(pkg, name == "ratcheted") for name in ("simple", "ratcheted")}
     t_checks = time.perf_counter()
     # The lattice on the host at T4: build_tree (its transition a broadcast
@@ -3022,6 +3127,7 @@ def check_tree(pkg, device, counts) -> dict:
         "T2_cubic": (t2["simple"], 0, "cubic", None),
         "T2_custom_grid": (t2["simple"], 0, "linear", custom_grid),
         "T3_E=1": (t3, 1, "linear", None),
+        "T5": (t5, 0, "linear", None),
     }
     checks, timing = {}, {}
     for name, (case, e, interpolation, grid_calc) in cases.items():
@@ -3030,70 +3136,96 @@ def check_tree(pkg, device, counts) -> dict:
         arrays, lattice = tables[torch.float32]
         n, g = inputs.num_steps, arrays["grids"].shape[1]
         m, w = lattice["band"].shape[1:]
+        r = arrays["ratchet_inv"].shape[1]
         log(f"tree DP [{name}: N={n}, M={m}, W={w}, G={g}, E={e}, {interpolation}, "
-            f"{'uniform' if uniform else 'custom'} rows]: f64 NPV {c['npv_f64']!r} vs plain "
-            f"{c['npv_f64_plain']!r} (rel {c['npv_rel_err_f64']:.2e}, tolerance 1e-10), values "
-            f"{c['values_rel_err_f64']:.2e} of their rows' scale (tolerance 1e-9), "
-            f"{c['paths_parted']} of 3 branch paths parted (first on a near-tie: "
+            f"{'uniform' if uniform else 'custom'} rows; {c['route']} route]: f64 NPV "
+            f"{c['npv_f64']!r} vs plain {c['npv_f64_plain']!r} (rel {c['npv_rel_err_f64']:.2e}, "
+            f"tolerance 1e-10), values {c['values_rel_err_f64']:.2e} of their rows' scale "
+            f"(tolerance 1e-9), {c['paths_parted']} of 3 branch paths parted (first on a near-tie: "
             f"{c['first_parting_on_near_tie']}); f32 NPV {c['npv_f32']!r} (rel "
-            f"{c['npv_rel_err_f32']:.2e}, tolerance 1e-5)")
-        if name in ("T3", "T4"):
+            f"{c['npv_rel_err_f32']:.2e}, tolerance 1e-5); the large-slab route's values the "
+            f"same bits: {c['steps_route_same_bits']}")
+        if name in ("T3", "T4", "T5"):
             tfn = inputs.compiled.terminal_value
             row = {}
             for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
                 arrays_dt, lattice_dt = tables[dt]
-                run = lambda: te.tree_core(arrays_dt, lattice_dt, 0, tfn, False)  # noqa: E731
+                run = lambda route=None: te.tree_core(arrays_dt, lattice_dt, 0, tfn, False,  # noqa: E731
+                                                      route=route)
                 row[f"ms_{label}"] = cuda_ms(run, 10)
                 row[f"kernel_busy_ms_{label}"], row[f"profiled_launches_{label}"] = kernel_busy_ms(
-                    run, "tree_step_kernel")
+                    run, "tree_")
+                if c["route"] == "cluster":
+                    row[f"steps_route_ms_{label}"] = cuda_ms(lambda: run("steps"), 10)
             row["plain_ms"] = cuda_ms(lambda: te.tree_plain(arrays, lattice, 0, tfn, False), 1)
-            num_bytes, ops = tree_work(n, m, g, w, arrays["ratchet_inv"].shape[1], 3, 4)
+            num_bytes, ops = tree_work(n, m, g, w, r, 3, 4)
             row.update(bound(num_bytes, 0.0, ops))
             row["us_per_step_f32"] = 1e3 * row["ms_f32"] / n
-            row["launch"] = {label: tree_kernel.kernel_info(g, dt, "linear", device)
+            row["launch"] = {label: tree_kernel.kernel_info(g, dt, "linear", device, m, w)
                              for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
+            row["route"] = c["route"]
+            if c["route"] == "cluster":
+                # The chain floor: N links of one cluster barrier and one
+                # read of another CTA's shared memory, at the route's shape.
+                f32 = row["launch"]["f32"]
+                row["chain_step_ns"] = tree_kernel.chain_step_ns(
+                    "cluster", device, f32["cluster_threads"], f32["cluster_size"])
+                row["chain_floor_ms"] = n * row["chain_step_ns"] / 1e6
             timing[name] = row
-            log(f"tree DP [{name}] times: {row['ms_f32']:.4f} ms f32, {row['ms_f64']:.4f} ms f64 a "
-                f"valuation ({n} launches; {row['us_per_step_f32']:.2f} us a step in f32), of it "
-                f"the step kernels' own device time {row['kernel_busy_ms_f32']:.4f} ms f32 / "
-                f"{row['kernel_busy_ms_f64']:.4f} ms f64 ({row['profiled_launches_f32']} "
-                f"launches profiled); plain {row['plain_ms']:.1f} ms (f32), bound "
-                f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
-            log("tree DP launch report: " + "; ".join(
-                f"{label}: {r_['threads']} threads a block, {r_['registers']} registers, "
-                f"{r_['local_bytes']} bytes local (spills), {r_['smem_bytes']} bytes shared at "
-                f"G={g}, {r_['blocks_per_sm']} blocks/SM, G up to {r_['max_grid']}"
+            old = (f", the large-slab route {row['steps_route_ms_f32']:.4f} / "
+                   f"{row['steps_route_ms_f64']:.4f} ms on the same tables"
+                   if c["route"] == "cluster" else "")
+            floor = (f", chain floor {row['chain_floor_ms']:.4f} ms ({n} x "
+                     f"{row['chain_step_ns']:.1f} ns)" if c["route"] == "cluster" else "")
+            log(f"tree DP [{name}] times ({c['route']} route): {row['ms_f32']:.4f} ms f32, "
+                f"{row['ms_f64']:.4f} ms f64 a valuation ({row['us_per_step_f32']:.2f} us a step "
+                f"in f32), of it the tree kernels' own device time {row['kernel_busy_ms_f32']:.4f} "
+                f"ms f32 / {row['kernel_busy_ms_f64']:.4f} ms f64 ({row['profiled_launches_f32']} "
+                f"launches profiled){old}; plain {row['plain_ms']:.1f} ms (f32), bound "
+                f"{row['bound_ms']:.6f} ms ({row['bound_by']}){floor}")
+            log(f"tree DP launch report at {name}: " + "; ".join(
+                f"{label}: route {r_['route']}; cluster of {r_['cluster_size']} CTAs of "
+                f"{r_['cluster_threads']} threads, {r_['cluster_registers']} registers, "
+                f"{r_['cluster_local_bytes']} bytes local (spills), {r_['cluster_smem_bytes']} "
+                f"bytes shared a CTA, {r_['cluster_blocks_per_sm']} CTAs/SM, {r_['rows_per_cta']} "
+                f"node rows a CTA, up to {r_['max_rows']} node rows at G={g}; "
+                f"large-slab step kernel {r_['threads']} threads, {r_['registers']} registers, "
+                f"{r_['local_bytes']} bytes local, {r_['smem_bytes']} bytes shared, "
+                f"{r_['blocks_per_sm']} blocks/SM, G up to {r_['max_grid']}"
                 for label, r_ in row["launch"].items()))
         del tables
     bad = [name for name, c in checks.items() if not c["ok"]]
+    routes = {name: c["route"] for name, c in checks.items()}
+    if routes != dict({name: "cluster" for name in checks}, T5="steps"):
+        raise AssertionError(f"tree routes {routes}: T1-T4 take the cluster route, T5 the large "
+                             f"slab")
     if bad:
         raise AssertionError(f"the tree DP kernel disagrees with its plain version: {bad}")
     checks_s = time.perf_counter() - t_checks
     t_paths = time.perf_counter()
 
-    def on_path(expected_steps, fn):
+    def on_path(expected, fn, route="tree_dp"):
         counts.reset()
         out = fn()
         torch.cuda.synchronize()
         launches = counts.read()
-        if launches != counts.expect(tree_dp=expected_steps):
-            raise AssertionError(f"tree path launches {launches}, expected {expected_steps} tree "
-                                 f"steps and no other kernel")
-        return out, launches["tree_dp"]
+        if launches != counts.expect(**{route: expected}):
+            raise AssertionError(f"tree path launches {launches}, expected {expected} of {route} "
+                                 f"and no other kernel")
+        return out, launches[route]
 
     paths = {}
     # T1: the C# sample's pin.
-    npv, launches = on_path(tree_steps(t1), lambda: tree_value(pkg, t1, device, torch.float64))
+    npv, launches = on_path(1, lambda: tree_value(pkg, t1, device, torch.float64))
     paths["T1_pin"] = dict(npv=npv, pin=TREE_PIN, rel_err=abs(npv - TREE_PIN) / TREE_PIN,
                            launches=launches)
     log(f"tree pin, trinomial_value(device='cuda', f64) on T1: {npv!r} vs {TREE_PIN!r} (rel "
-        f"{paths['T1_pin']['rel_err']:.2e}, tolerance 5e-4); {launches} tree launches")
+        f"{paths['T1_pin']['rel_err']:.2e}, tolerance 5e-4); {launches} tree launch(es)")
     if not paths["T1_pin"]["rel_err"] <= 5e-4:
         raise AssertionError(f"the trinomial pin missed: {npv} against {TREE_PIN}")
     # T2: the LSMC-against-tree oracle.
     for name, case in t2.items():
-        tree_npv, launches = on_path(tree_steps(case),
-                                     lambda: tree_value(pkg, case, device, torch.float64))
+        tree_npv, launches = on_path(1, lambda: tree_value(pkg, case, device, torch.float64))
         counts.reset()
         lsmc = pkg.multi_factor_value(
             case["storage"], case["val_date"], case["inventory"], case["fwd"], case["rates"],
@@ -3109,27 +3241,37 @@ def check_tree(pkg, device, counts) -> dict:
                                    tree_launches=launches, lsmc_launches=lsmc_launches)
         log(f"tree oracle T2 {name}: LSMC {lsmc.npv!r} (SE {lsmc.val_sim_standard_error!r}, f32, "
             f"{TREE_ORACLE_SIMS} sims) vs tree {tree_npv!r} (f64, G=500): rel {rel:.2e} "
-            f"(tolerance 3e-3), z = {z:+.3f}; {launches} tree launches, the LSMC's {lsmc_launches}")
-        if not (rel < 3e-3 and lsmc_launches["tree_dp"] == 0 and lsmc_launches["intrinsic_dp"] == 1):
+            f"(tolerance 3e-3), z = {z:+.3f}; {launches} tree launch(es), the LSMC's "
+            f"{lsmc_launches}")
+        if not (rel < 3e-3 and lsmc_launches["tree_dp"] == 0
+                and lsmc_launches["tree_dp_steps"] == 0 and lsmc_launches["intrinsic_dp"] == 1):
             raise AssertionError(f"the LSMC-against-tree oracle failed on {name}")
-    # T3 (the timed case: five warm calls) and T4 (one) through the API; T3's deltas.
+    # T3 (the timed case: five warm calls) and T4 (one) through the API; T3's
+    # host phases and deltas; T5 on the large-slab route.
     for name, case, timed in (("T3", t3, 5), ("T4", t4, 1)):
         for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
             run = lambda: tree_value(pkg, case, device, dt)  # noqa: E731
             run()  # warm-up
-            npv, launches = on_path(tree_steps(case), run)
+            npv, launches = on_path(1, run)
             walls = api_walls(run, timed)
             paths[f"{name}_{label}"] = dict(npv=npv, launches=launches, walls_s=walls,
                                             wall_s=float(np.median(walls)))
             log(f"trinomial_value {name} {label}: NPV {npv!r}; wall median "
                 f"{paths[f'{name}_{label}']['wall_s']:.4f} s of {[round(x, 4) for x in walls]}; "
-                f"{launches} tree launches")
+                f"{launches} tree launch(es)")
         if not math.isclose(paths[f"{name}_f32"]["npv"], paths[f"{name}_f64"]["npv"], rel_tol=1e-5):
             raise AssertionError(f"{name}: the f32 NPV is not within 1e-5 of the f64 NPV")
+    paths["T3_phases"] = phases = tree_phases(pkg, t3, device, torch.float32)
+    log("trinomial_value T3 f32 by phase (host clock, the device synchronised after each): "
+        + ", ".join(f"{k[:-2]} {v:.4f} s" for k, v in phases.items()))
+    npv, launches = on_path(tree_steps(t5), lambda: tree_value(pkg, t5, device, torch.float32),
+                            route="tree_dp_steps")
+    paths["T5_f32"] = dict(npv=npv, launches=launches)
+    log(f"trinomial_value T5 f32 (large-slab route): NPV {npv!r}; {launches} step launches")
     months = pd.period_range(t3["storage"].start.asfreq("M"), periods=12, freq="M")
     contracts = [(month.asfreq("D", "start"), month.asfreq("D", "end")) for month in months]
     t0 = time.perf_counter()
-    deltas, launches = on_path(2 * len(contracts) * tree_steps(t3), lambda: pkg.trinomial_deltas(
+    deltas, launches = on_path(2 * len(contracts), lambda: pkg.trinomial_deltas(
         t3["storage"], t3["val_date"], t3["inventory"], t3["fwd"], t3["vols"], t3["a"], 1 / 365.0,
         t3["rates"], t3["settle"], contracts, num_inventory_grid_points=NUM_GRID, device=device))
     deltas_s = time.perf_counter() - t0
@@ -3142,13 +3284,22 @@ def check_tree(pkg, device, counts) -> dict:
     paths_s = time.perf_counter() - t_paths
     log(f"tree phase: the kernel checks and timings {checks_s:.1f} s, the API paths "
         f"{paths_s:.1f} s")
-    head = timing["T3"]
+    head, wide = timing["T3"], timing["T5"]
+    steps_row = dict(max_abs_err=checks["T5"]["values_max_abs_err_f64"], ms=wide["ms_f32"],
+                     ms_f64=wide["ms_f64"], kernel_busy_ms=wide["kernel_busy_ms_f32"],
+                     plain_ms=wide["plain_ms"], bound_ms=wide["bound_ms"],
+                     bound_by=wide["bound_by"], launches=paths["T5_f32"]["launches"],
+                     launch=wide["launch"], dp_route="steps",
+                     t3_ms=head["steps_route_ms_f32"], t3_ms_f64=head["steps_route_ms_f64"])
     return dict(max_abs_err=checks["T3"]["values_max_abs_err_f64"], ms=head["ms_f32"],
                 ms_f64=head["ms_f64"], kernel_busy_ms=head["kernel_busy_ms_f32"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 launches=paths["T3_f32"]["launches"], widest=timing["T4"], checks=checks,
-                launch=head["launch"], paths=paths, lattice=lattice_s, checks_s=checks_s,
-                paths_s=paths_s)
+                launch=head["launch"], dp_route="cluster",
+                cluster_size=head["launch"]["f32"]["cluster_size"],
+                chain_floor_ms=head["chain_floor_ms"], chain_step_ns=head["chain_step_ns"],
+                paths=paths, lattice=lattice_s, checks_s=checks_s, paths_s=paths_s,
+                steps=steps_row)
 
 
 def measure_f64(pkg, device):
@@ -3316,7 +3467,9 @@ def main(argv) -> int:
                            decision_kernel.decision_update_moments,
                            forward_kernel.forward_sweep, decision_kernel.decision_update,
                            decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp,
-                           tree_kernel.tree_dp, forward_kernel.forward_sweep_design,
+                           tree_kernel.tree_dp,
+                           ("tree_dp_steps", tree_kernel.tree_dp, "step_launches"),
+                           forward_kernel.forward_sweep_design,
                            forward_kernel.forward_sweep_vjp,
                            ("forward_sweep_general", forward_kernel.forward_sweep,
                             "general_launches"),
@@ -3330,6 +3483,7 @@ def main(argv) -> int:
     # The tree: its kernel checks, then its paths through the API.
     t0 = time.perf_counter()
     kernels["tree_dp"] = check_tree(stt, device, counts)
+    kernels["tree_dp_steps"] = kernels["tree_dp"].pop("steps")
     report["tree_phase_s"] = time.perf_counter() - t0
     log(f"tree phase: {report['tree_phase_s']:.1f} s")
     report["kernels"] = kernels
@@ -3443,11 +3597,13 @@ def main(argv) -> int:
     # entry feeds the TPU-numerics emulation alone (the sweep draws for the
     # main path).
     launches.update(normal_halves=launches_t["normal_halves"],
-                    tree_dp=kernels["tree_dp"]["launches"])
+                    tree_dp=kernels["tree_dp"]["launches"],
+                    tree_dp_steps=kernels["tree_dp_steps"]["launches"])
     paths = dict(simulate_sweep="main", normal_halves="tpu_numerics",
                  decision_update_moments="main", forward_sweep="main",
                  decision_update="spot_only", decision_update_fullstep="fullstep",
-                 intrinsic_dp="main", tree_dp="tree_T3", forward_sweep_design="generic",
+                 intrinsic_dp="main", tree_dp="tree_T3", tree_dp_steps="tree_T5",
+                 forward_sweep_design="generic",
                  forward_sweep_vjp="adjoint", forward_sweep_general="custom_grid",
                  forward_sweep_design_general="custom_grid_generic")
 
@@ -3468,8 +3624,10 @@ def main(argv) -> int:
              "forward_sweep_design": ("chunk", "ms_per_launch", "ms_one_launch", "chunked_ms",
                                       "monomial_mode_ms", "smem_bytes",
                                       "blocks_per_sm", "registers", "decision_update_b9"),
-             "intrinsic_dp": ("ms_f64", "ms_per_step", "launch"),
-             "tree_dp": ("ms_f64", "kernel_busy_ms", "launch"),
+             "intrinsic_dp": ("ms_f64", "ms_per_step", "kernel_ms", "chain_floor_ms", "launch"),
+             "tree_dp": ("ms_f64", "kernel_busy_ms", "dp_route", "cluster_size", "chain_floor_ms",
+                         "launch"),
+             "tree_dp_steps": ("ms_f64", "kernel_busy_ms", "dp_route", "t3_ms", "t3_ms_f64"),
              "forward_sweep_general": ("uniform_ms", "smem_bytes", "blocks_per_sm", "registers"),
              "forward_sweep_design_general": ("uniform_ms", "smem_bytes", "blocks_per_sm",
                                               "registers")}

@@ -3,8 +3,8 @@
 ``trinomial_deltas``, pandas in, the torch engines inside.  They run on CUDA
 unless the caller passes ``device="cpu"``: on the card the intrinsic DP is
 one kernel launch (``ops.intrinsic_kernel``) and the tree's backward
-induction one launch a step (``ops.tree_kernel``), on the CPU their plain
-versions.
+induction one launch a valuation (``ops.tree_kernel``; one a step for a
+slab beyond a thread-block cluster), on the CPU their plain versions.
 """
 from __future__ import annotations
 

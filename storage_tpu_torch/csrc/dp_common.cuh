@@ -12,7 +12,12 @@
 // on the next step's grid, and the first maximum over d (strict > in
 // ascending d, as jnp.argmax takes it).  Every product and sum is rounded on
 // its own (no contraction to FMA), so the arithmetic is the plain version's
-// operation by operation.
+// operation by operation.  decide_lanes() spreads the D decisions over a
+// group of lanes and keeps the same first best (FirstBest).  A step's
+// decision table (table_column_fill, entry_total) splits the same
+// operations where the price and the next row's values enter, so that the
+// backward passes, whose inventories are the grid points, do the part
+// before that off their chain.
 //
 // The continuation comes in three modes:
 //   0 uniform linear: the arithmetic position on a linspace row;
@@ -183,36 +188,225 @@ struct Choice {
   T total, decision, consumed, pv;
 };
 
-// The best decision at inventory inv against the price (the forward in the
-// intrinsic DP, a node's spot in the tree).
+// The decision set at inventory inv: the loss, the bang-bang ends from the
+// ratchet rates there, and the step's discounted inventory cost.
 template <typename T>
-__device__ Choice<T> decide(const StepView<T>& st, T price, T inv) {
+struct Candidates {
+  T loss, inv_cost_npv;
+  BangBang<T> bb;
+};
+
+template <typename T>
+__device__ __forceinline__ Candidates<T> candidates(const StepView<T>& st, T inv) {
   const T* s = st.s;
   T min_rate, max_rate;
   ratchet_rates(st.r_inv, st.r_min, st.r_max, st.R, st.is_step, inv, &min_rate, &max_rate);
   const T loss = mul(s[S_LOSS_PCNT], inv);
   const BangBang<T> bb(min_rate, max_rate, sub(inv, loss), s[S_NEXT_MIN], s[S_NEXT_MAX], st.E);
+  return Candidates<T>{loss, mul(mul(s[S_INV_COST], inv), s[S_DF_FLOW]), bb};
+}
 
+// Decision k of the set against the price: its total, volume, fuel and
+// immediate PV.
+template <typename T>
+__device__ __forceinline__ Choice<T> candidate(const StepView<T>& st, const Candidates<T>& c,
+                                               T price, T inv, int k) {
+  const T* s = st.s;
   const T df_settle = s[S_DF_SETTLE], df_flow = s[S_DF_FLOW];
-  const T inv_cost_npv = mul(mul(s[S_INV_COST], inv), df_flow);
+  const T dec = c.bb.volume(k);
+  // immediate_pv: ((iw - cost) + fuel) - inventory cost.
+  const bool inject = dec > T(0);
+  const T abs_dec = fabs(dec);
+  const T consumed = mul(inject ? s[S_INJ_PCNT] : s[S_WDR_PCNT], abs_dec);
+  const T iw = mul(mul(-dec, price), df_settle);
+  const T cost = mul(mul(inject ? s[S_INJ_COST] : s[S_WDR_COST], abs_dec), df_flow);
+  const T fuel = mul(mul(-consumed, price), df_settle);
+  const T pv = sub(add(sub(iw, cost), fuel), c.inv_cost_npv);
+  const T inv_after = sub(add(inv, dec), c.loss);
+  const T total =
+      add(pv, continuation(st.grid_next, st.v_next, st.m_next, st.G, st.mode, inv_after));
+  return Choice<T>{total, dec, consumed, pv};
+}
 
+// The best decision at inventory inv against the price (the forward in the
+// intrinsic DP, a node's spot in the tree).
+template <typename T>
+__device__ __forceinline__ Choice<T> decide(const StepView<T>& st, T price, T inv) {
+  const Candidates<T> c = candidates(st, inv);
   Choice<T> best{T(0), T(0), T(0), T(0)};
-  for (int k = 0; k < bb.nd; ++k) {
-    const T dec = bb.volume(k);
-    // immediate_pv: ((iw - cost) + fuel) - inventory cost.
-    const bool inject = dec > T(0);
-    const T abs_dec = fabs(dec);
-    const T consumed = mul(inject ? s[S_INJ_PCNT] : s[S_WDR_PCNT], abs_dec);
-    const T iw = mul(mul(-dec, price), df_settle);
-    const T cost = mul(mul(inject ? s[S_INJ_COST] : s[S_WDR_COST], abs_dec), df_flow);
-    const T fuel = mul(mul(-consumed, price), df_settle);
-    const T pv = sub(add(sub(iw, cost), fuel), inv_cost_npv);
-    const T inv_after = sub(add(inv, dec), loss);
-    const T total =
-        add(pv, continuation(st.grid_next, st.v_next, st.m_next, st.G, st.mode, inv_after));
-    if (k == 0 || total > best.total) best = Choice<T>{total, dec, consumed, pv};
+  for (int k = 0; k < c.bb.nd; ++k) {
+    const Choice<T> x = candidate(st, c, price, inv, k);
+    if (k == 0 || x.total > best.total) best = x;
   }
   return best;
+}
+
+// What decide()'s scan keeps, the first maximum in ascending k, kept by a
+// group of P adjacent lanes of a warp (P a power of two, 1 to 32; every lane
+// of the warp takes part): each lane offers the totals of its decisions
+// k = lane, lane + P, ... in ascending k, then a butterfly merges the group.
+// A NaN total of decision 0 wins, any other NaN never does, as in the scan.
+template <typename T>
+struct FirstBest {
+  T total;
+  int k;      // -1: none yet
+  bool nan0;  // decision 0's total is NaN
+
+  // True where decision k becomes the lane's best.
+  __device__ __forceinline__ bool offer(T x, int kx) {
+    if (kx == 0) {
+      total = x;
+      k = 0;
+      nan0 = isnan(x);
+      return true;
+    }
+    if (nan0 || isnan(x) || (k >= 0 && !(x > total))) return false;
+    total = x;
+    k = kx;
+    return true;
+  }
+
+  // The group's best on every lane of it.
+  __device__ __forceinline__ void merge(int P) {
+    for (int lane_mask = 1; lane_mask < P; lane_mask <<= 1) {
+      const T o_total = __shfl_xor_sync(0xffffffffu, total, lane_mask);
+      const int o_k = __shfl_xor_sync(0xffffffffu, k, lane_mask);
+      const bool o_nan0 = __shfl_xor_sync(0xffffffffu, static_cast<int>(nan0), lane_mask) != 0;
+      bool take;
+      if (nan0 || o_nan0) take = o_nan0;
+      else if (k < 0 || o_k < 0) take = k < 0;
+      else take = o_total > total || (!(total > o_total) && o_k < k);
+      if (take) {
+        total = o_total;
+        k = o_k;
+        nan0 = o_nan0;
+      }
+    }
+  }
+};
+
+// decide() by a group of P lanes (FirstBest): every lane returns the group's
+// choice, its volume, fuel and PV from the lane that valued it.
+template <typename T>
+__device__ __forceinline__ Choice<T> decide_lanes(const StepView<T>& st, T price, T inv,
+                                                int P) {
+  const Candidates<T> c = candidates(st, inv);
+  FirstBest<T> best{T(0), -1, false};
+  Choice<T> mine{T(0), T(0), T(0), T(0)};
+  for (int k = threadIdx.x & (P - 1); k < c.bb.nd; k += P) {
+    const Choice<T> x = candidate(st, c, price, inv, k);
+    if (best.offer(x.total, k)) mine = x;
+  }
+  best.merge(P);
+  const int owner = (threadIdx.x & 31 & ~(P - 1)) | (best.k & (P - 1));
+  return Choice<T>{best.total, __shfl_sync(0xffffffffu, mine.decision, owner),
+                   __shfl_sync(0xffffffffu, mine.consumed, owner),
+                   __shfl_sync(0xffffffffu, mine.pv, owner)};
+}
+
+// A step's decision table: at every grid point g and decision k, what
+// decide() computes before the price and the continuation's values enter,
+// so that one table serves every node row of the tree.  The entries are the
+// operations of candidate() and continuation(), in their order, split where
+// the price or a value of the next row first enters.  A grid point's column
+// holds the inventory cost's PV, then for each decision its volume, fuel,
+// cost's PV and the continuation's node (as a value of T) and weight.  The
+// table is [table_row(D), G], value-major, so that neighbouring grid points
+// sit in neighbouring words (coalesced, and free of shared-memory bank
+// conflicts); `col` points at grid point g's first value and `stride` is G.
+enum { E_DEC, E_FUEL, E_COST, E_IDX, E_W, NUM_ENTRY_FIELDS };
+
+__host__ __device__ __forceinline__ int table_row(int D) { return 1 + NUM_ENTRY_FIELDS * D; }
+
+// Grid point inv's column of a step's table (st.grid_next is the next
+// step's grid; no value row is read).
+template <typename T>
+__device__ __forceinline__ void table_column_fill(const StepView<T>& st, T inv, T* col,
+                                                  int stride) {
+  const T* s = st.s;
+  const Candidates<T> c = candidates(st, inv);
+  col[0] = c.inv_cost_npv;
+  for (int k = 0; k < c.bb.nd; ++k) {
+    T* e = col + static_cast<size_t>(1 + NUM_ENTRY_FIELDS * k) * stride;
+    const T dec = c.bb.volume(k);
+    const bool inject = dec > T(0);
+    const T abs_dec = fabs(dec);
+    e[E_DEC * stride] = dec;
+    e[E_FUEL * stride] = mul(inject ? s[S_INJ_PCNT] : s[S_WDR_PCNT], abs_dec);
+    e[E_COST * stride] = mul(mul(inject ? s[S_INJ_COST] : s[S_WDR_COST], abs_dec), s[S_DF_FLOW]);
+    const T x = sub(add(inv, dec), c.loss);
+    int idx;
+    T w;
+    if (st.mode == MODE_GENERAL)
+      general_weights(st.grid_next, st.G, x, &idx, &w);
+    else
+      uniform_weights(st.grid_next, st.G, x, &idx, &w);
+    e[E_IDX * stride] = static_cast<T>(idx);
+    e[E_W * stride] = w;
+  }
+}
+
+// The step's cubic curvature factor h^2 / 6 on the next grid, and whether
+// the row is degenerate (h = 0: the continuation is linear).
+template <typename T>
+__device__ __forceinline__ T cubic_factor(const T* grid_next, int G, bool* degenerate) {
+  const T h = dvd(sub(grid_next[G - 1], grid_next[0]), static_cast<T>(G - 1));
+  *degenerate = !(h > T(0));
+  return dvd(mul(h, h), T(6));
+}
+
+// Decision k's total from its grid point's table column against the price
+// on the continuation values v (and cubic moments m) of the next row:
+// decide()'s candidate total, bit for bit.
+template <typename T>
+__device__ __forceinline__ T entry_total(const T* col, int stride, int k, const T* s, int mode,
+                                         T price, const T* v, const T* m, T curvature,
+                                         bool degenerate) {
+  const T* e = col + static_cast<size_t>(1 + NUM_ENTRY_FIELDS * k) * stride;
+  const T iw = mul(mul(-e[E_DEC * stride], price), s[S_DF_SETTLE]);
+  const T fuel = mul(mul(-e[E_FUEL * stride], price), s[S_DF_SETTLE]);
+  const T pv = sub(add(sub(iw, e[E_COST * stride]), fuel), col[0]);
+  const int idx = static_cast<int>(e[E_IDX * stride]);
+  const T w = e[E_W * stride];
+  T cont;
+  if (mode == MODE_GENERAL) {
+    cont = add(mul(v[idx], sub(T(1), w)), mul(v[idx + 1], w));
+  } else if (mode == MODE_UNIFORM) {
+    cont = add(v[idx], mul(sub(v[idx + 1], v[idx]), w));
+  } else {
+    const T u = sub(T(1), w);
+    const T linear = add(mul(v[idx], u), mul(v[idx + 1], w));
+    if (degenerate) {
+      cont = linear;
+    } else {
+      const T cu = sub(mul(mul(u, u), u), u);
+      const T cw = sub(mul(mul(w, w), w), w);
+      cont = add(linear, mul(curvature, add(mul(cu, m[idx]), mul(cw, m[idx + 1]))));
+    }
+  }
+  return add(pv, cont);
+}
+
+// One element (4 or 8 bytes) from device to shared memory by cp.async, in
+// the calling thread's open group; cp_async_wait_all() then waits for all of
+// the thread's copies, and a barrier after it publishes them to the block.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async copies 4 or 8 bytes here");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// n elements from src to dst in shared memory, strided over the block.
+template <typename T>
+__device__ __forceinline__ void stage_copy(T* dst, const T* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async(dst + i, src + i);
 }
 
 // Natural-cubic moments m [G] of the row v [G] on a uniform grid: rhs [G-2]

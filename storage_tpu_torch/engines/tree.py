@@ -14,7 +14,9 @@ m of period t has its non-zeros in W ≤ 2·num_substeps + 1 columns from
 ``band_start[t, m]``), so nothing [N, M, M] is kept on the device.
 ``tree_plain`` rebuilds each step's dense [M, M] matrix and multiplies in
 tensor code; ``tree_core`` runs it on CPU tensors and, on CUDA tensors,
-launches the DP kernel (``ops.tree_kernel.tree_dp``: one launch a step).
+launches the DP kernel (``ops.tree_kernel.tree_dp``: one launch a valuation
+of one thread-block cluster, or one launch a step for a slab beyond the
+cluster's shared memory).
 """
 from __future__ import annotations
 
@@ -105,12 +107,15 @@ def tree_core(
     ratchet_is_step: bool,
     interpolation: str = "linear",
     uniform_grids: bool = True,
+    route: tp.Optional[str] = None,
 ) -> TreeEngineResult:
     """The backward induction on the device of ``arrays`` (the dict of
     ``engines.lsmc.build_engine_arrays``) and ``tree`` (``tree_valuation``'s
-    lattice tensors): CPU tensors run ``tree_plain``, CUDA tensors N launches
-    of the DP kernel (f32 or f64), which reads the terminal values and leaves
-    the values and the NPV on the card."""
+    lattice tensors): CPU tensors run ``tree_plain``, CUDA tensors the DP
+    kernel (f32 or f64; one launch on the cluster route, N on the large-slab
+    route), which reads the terminal values and leaves the values and the
+    NPV on the card.  ``route`` names the kernel's route instead of the one
+    the slab's shape picks (``ops.tree_kernel.choose_route``)."""
     if arrays["grids"].device.type == "cpu":
         return tree_plain(arrays, tree, num_extra_decisions, terminal_fn, ratchet_is_step,
                           interpolation, uniform_grids)
@@ -120,7 +125,7 @@ def tree_core(
     mode = "cubic" if interpolation == "cubic" else "linear" if uniform_grids else "general"
     v_end = _terminal(terminal_fn, tree, grids).contiguous()
     values = tree_kernel.tree_dp(arrays, tree, v_end, num_extra_decisions, ratchet_is_step, mode,
-                                 _solver(grids, interpolation))
+                                 _solver(grids, interpolation), route)
     return TreeEngineResult(npv=(tree["q0"] * values[0, :, 0]).sum(), values=values)
 
 

@@ -96,22 +96,25 @@ SIGNATURES = {
     # out int[1]: the sims one block of the VJP's first pass sums
     "stt_forward_sweep_vjp_chunk": (_P,),
     # N, G, R, E, is_step, mode, steps, ratchet inv/min/max, grids, v_end,
-    # solver (or NULL), starting inventory, vs, moments (or NULL), rhs (or
-    # NULL), out, stream
-    "stt_intrinsic_dp_f32": (
-        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P, _P,
-    ),
-    "stt_intrinsic_dp_f64": (
-        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P, _P,
-    ),
-    # is_double, out int[5] (the DP kernel's launch report)
-    "stt_intrinsic_dp_info": (_I, _P),
+    # solver (or NULL), starting inventory, vs, moments (or NULL), the
+    # decision tables' scratch, out, stream
+    **{f"stt_intrinsic_dp_{bits}": (_I,) * 6 + (_P,) * 7 + (_D,) + (_P,) * 5
+       for bits in ("f32", "f64")},
+    # is_double, G, R, E, mode, out int[9] (the DP kernel's launch report)
+    "stt_intrinsic_dp_info": (_I, _I, _I, _I, _I, _P),
     # N, M, G, W, R, E, is_step, mode, steps, ratchet inv/min/max, grids, spot,
-    # band, band start, solver (or NULL), values, stream
-    "stt_tree_dp_f32": (_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "stt_tree_dp_f64": (_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # is_double, G, mode, out int[6] (the tree step kernel's launch report)
+    # band, band start, solver (or NULL), values, then the cluster route's
+    # decision tables' scratch, stream: the cluster route (one launch) and the
+    # large-slab route (a launch a step, no scratch)
+    **{f"stt_tree_dp_{bits}": (_I,) * 8 + (_P,) * 12 for bits in ("f32", "f64")},
+    **{f"stt_tree_dp_steps_{bits}": (_I,) * 8 + (_P,) * 11 for bits in ("f32", "f64")},
+    # is_double, G, mode, out int[6] (the large-slab route's launch report)
     "stt_tree_dp_info": (_I, _I, _I, _P),
+    # is_double, M, G, W, E, mode, out int[8] (the cluster route's report)
+    "stt_tree_cluster_info": (_I, _I, _I, _I, _I, _I, _P),
+    # kind (0 block, 1 cluster, 2 grid), cluster size, threads, iterations,
+    # stream (the chain floor's timing kernels)
+    "stt_chain_steps": (_I, _I, _I, _I, _P),
 }
 
 

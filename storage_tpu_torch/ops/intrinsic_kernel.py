@@ -2,9 +2,13 @@
 
 No TPU kernel stands behind it: it replaces the backward and forward
 ``lax.scan`` of ``storage_tpu.engines.intrinsic._intrinsic_core``.  One block
-runs the whole DP: its threads value every grid point of a backward step, a
-barrier between steps, then one thread walks the forward from the starting
-inventory.  The plain version is ``engines.intrinsic.intrinsic_plain``, which
+runs the whole DP: it fills every backward step's decision table first (a
+device-memory scratch the wrapper allocates), then values the grid points
+of each backward step from its table on value rows kept in shared memory, a
+barrier between steps, then warp 0 walks the forward from the starting
+inventory through staged chunks of steps.  Shared memory bounds G
+(``intrinsic_info``'s ``max_grid``; the JAX package has no such limit), and
+the wrapper raises ``ValueError`` beyond it.  The plain version is ``engines.intrinsic.intrinsic_plain``, which
 ``engines.intrinsic.intrinsic_core`` runs for CPU tensors; this wrapper
 takes CUDA tensors only, f32 or f64.
 """
@@ -23,6 +27,14 @@ STEP_KEYS = ("fwd", "df_settle", "df_flow", "inj_cost", "wdr_cost", "inj_pcnt", 
              "loss_pcnt", "inv_cost_rate", "next_min", "next_max")
 MODES = {"linear": 0, "general": 1, "cubic": 2}
 _ENTRY = {torch.float32: "stt_intrinsic_dp_f32", torch.float64: "stt_intrinsic_dp_f64"}
+
+
+def table_len(g: int, e: int) -> int:
+    """Values in one step's decision table (``csrc/dp_common.cuh``
+    table_row): at each grid point the inventory cost's PV, then for each of
+    the D = 2E + 3 decisions its volume, fuel, cost's PV and the
+    continuation's node and weight."""
+    return g * (1 + 5 * (2 * e + 3))
 
 
 def pack_steps(arrays: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -51,7 +63,9 @@ def intrinsic_dp(
     (uniform rows, with ``solver`` [G-2, G-2] from
     ``interp.natural_cubic_solver``).  Returns the forward path (inventory
     after each decision, volume, fuel, loss and immediate PV, each [N]) and
-    the final inventory [1], all on the card: nothing is read back."""
+    the final inventory [1], all on the card: nothing is read back.  Raises
+    ``ValueError`` where G is beyond the block's shared memory
+    (``intrinsic_info``)."""
     grids = arrays["grids"]
     n, g = grids.shape[0] - 1, grids.shape[1]
     dtype = grids.dtype
@@ -74,16 +88,21 @@ def intrinsic_dp(
             raise ValueError(f"intrinsic_dp: {name} is {tuple(t.shape)}, want {(n, r)}")
     if tuple(v_end.shape) != (g,):
         raise ValueError(f"intrinsic_dp: v_end is {tuple(v_end.shape)}, want {(g,)}")
+    limit = intrinsic_info(dtype, device, g, r, num_extra_decisions, mode)["max_grid"]
+    if g > limit:
+        raise ValueError(f"intrinsic_dp: G={g} grid points; the kernel holds at most G={limit} "
+                         f"in {dtype} {mode} mode in its block's shared memory")
     empty = lambda *shape: torch.empty(shape, dtype=dtype, device=device)  # noqa: E731
     vs = empty(n + 1, g)
-    moments, rhs = (empty(n + 1, g), empty(g)) if cubic else (None, None)
+    moments = empty(n + 1, g) if cubic else None
+    table = empty(n * table_len(g, num_extra_decisions))
     out = empty(5 * n + 1)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = getattr(_build.library(), _ENTRY[dtype])(
         n, g, r, num_extra_decisions, int(ratchet_is_step), MODES[mode], steps.data_ptr(),
         *(t.data_ptr() for t in ratchets), grids.data_ptr(), v_end.data_ptr(),
         ptr(given[0] if cubic else None), float(starting_inventory), vs.data_ptr(), ptr(moments),
-        ptr(rhs), out.data_ptr(), _build.stream_handle(device),
+        table.data_ptr(), out.data_ptr(), _build.stream_handle(device),
     )
     intrinsic_dp.launches += 1
     _build.check(rc, "intrinsic_dp")
@@ -92,20 +111,28 @@ def intrinsic_dp(
 
 intrinsic_dp.launches = 0
 
-_INFO_FIELDS = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+_INFO_FIELDS = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm",
+                "stage_table", "walk_lanes", "chunk", "max_grid")
 
 
-@functools.lru_cache(maxsize=4)
-def _info(is_double: bool, device_index: int) -> dict:
+@functools.lru_cache(maxsize=32)
+def _info(is_double: bool, g: int, r: int, e: int, mode: int, device_index: int) -> dict:
     out = (ctypes.c_int * len(_INFO_FIELDS))()
     with torch.cuda.device(device_index):
-        _build.check(_build.library().stt_intrinsic_dp_info(int(is_double), out),
+        _build.check(_build.library().stt_intrinsic_dp_info(int(is_double), g, r, e, mode, out),
                      "stt_intrinsic_dp_info")
     return dict(zip(_INFO_FIELDS, out))
 
 
-def intrinsic_info(dtype, device) -> dict:
-    """Launch report of the DP kernel in ``dtype`` on a CUDA device: threads
-    of its one block, registers and local (spill) bytes per thread, static
-    shared memory, blocks per SM."""
-    return _info(dtype == torch.float64, torch.device(device).index or 0)
+def intrinsic_info(dtype, device, g: int = 100, r: int = 3, e: int = 0,
+                   mode: str = "linear") -> dict:
+    """Launch report of the DP kernel in ``dtype`` at G grid points, R
+    ratchet nodes and E extra decisions in ``mode`` on a CUDA device: the
+    threads of its one block, registers and local (spill) bytes a thread,
+    dynamic shared memory, blocks per SM (0 where G does not fit), whether
+    the backward stages each step's decision table in shared memory (1) or
+    reads it from device memory (0), lanes a step in the forward walk,
+    forward steps staged a chunk (at N >= 32) and the largest G the block's
+    shared memory holds (``max_grid``)."""
+    return _info(dtype == torch.float64, int(g), int(r), int(e), MODES[mode],
+                 torch.device(device).index or 0)

@@ -1,5 +1,9 @@
 """The trinomial tree's backward induction as CUDA launches
-(``csrc/tree_kernel.cu``): one launch a step, one block a node row.
+(``csrc/tree_kernel.cu``) on one of two routes: the cluster route, one
+launch a valuation of one thread-block cluster that keeps the node rows in
+its shared memory and decides from step tables it fills first, or, for a
+slab the cluster cannot hold, the large-slab route, one launch a step of one
+block a node row.  Both give the same bits.
 
 No TPU kernel stands behind it: it replaces the ``lax.scan`` of
 ``storage_tpu.engines.tree._tree_core``.  The transition reaches the card as
@@ -19,9 +23,11 @@ import numpy as np
 import torch
 
 from . import _build
-from .intrinsic_kernel import MODES, pack_steps
+from .intrinsic_kernel import MODES, pack_steps, table_len
 
-_ENTRY = {torch.float32: "stt_tree_dp_f32", torch.float64: "stt_tree_dp_f64"}
+_ENTRY = {"cluster": {torch.float32: "stt_tree_dp_f32", torch.float64: "stt_tree_dp_f64"},
+          "steps": {torch.float32: "stt_tree_dp_steps_f32", torch.float64: "stt_tree_dp_steps_f64"}}
+ROUTES = tuple(_ENTRY)
 
 
 def band(transition: np.ndarray) -> tp.Tuple[np.ndarray, np.ndarray]:
@@ -58,6 +64,25 @@ def dense(values: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     return out.scatter_(-1, cols, values)
 
 
+def choose_route(m: int, g: int, info: dict, route: tp.Optional[str] = None) -> str:
+    """The route for an [M, G] slab, from ``kernel_info``'s report at that
+    shape: the cluster route where its CTAs hold the M node rows
+    (``max_rows``), else the large-slab route where a block holds a row's G
+    points (``max_grid``).  ``route`` names one instead.  Raises
+    ``ValueError`` where the chosen route cannot take the slab."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"tree_dp: route must be one of {ROUTES}, got {route!r}")
+    fits = {"cluster": m <= info["max_rows"], "steps": g <= info["max_grid"]}
+    if route is None:
+        route = "cluster" if fits["cluster"] else "steps"
+    if not fits[route]:
+        raise ValueError(
+            f"tree_dp: an [M={m}, G={g}] slab; the cluster route holds at most M="
+            f"{info['max_rows']} node rows at this G, and the large-slab route at most "
+            f"G={info['max_grid']} grid points in a block's shared memory")
+    return route
+
+
 def tree_dp(
     arrays: tp.Dict[str, torch.Tensor],
     tree: tp.Dict[str, torch.Tensor],
@@ -66,20 +91,24 @@ def tree_dp(
     ratchet_is_step: bool,
     mode: str,
     solver: tp.Optional[torch.Tensor] = None,
+    route: tp.Optional[str] = None,
 ) -> torch.Tensor:
     """The backward induction over the tables of ``arrays`` (grids [N+1, G],
     costs, bands, ratchets; ``engines.lsmc.build_engine_arrays``) on the
     lattice of ``tree`` (spot [N+1, M], band [N, M, W], band_start [N, M]),
-    from the terminal values ``v_end`` [M, G]: N launches, t = N−1 .. 0.
-    ``mode`` is "linear" (uniform rows), "general" (any non-decreasing rows)
-    or "cubic" (uniform rows, with ``solver`` [G-2, G-2] from
-    ``interp.natural_cubic_solver``).  Returns the values [N+1, M, G] on the
-    card.  Raises ``ValueError`` where G is beyond the shared memory a block
-    can hold (``kernel_info``)."""
+    from the terminal values ``v_end`` [M, G], t = N−1 .. 0.  ``mode`` is
+    "linear" (uniform rows), "general" (any non-decreasing rows) or "cubic"
+    (uniform rows, with ``solver`` [G-2, G-2] from
+    ``interp.natural_cubic_solver``).  The route is ``choose_route``'s
+    (``route`` forces one): the cluster route counts one launch in
+    ``tree_dp.launches``, the large-slab route N in
+    ``tree_dp.step_launches``.  Returns the values [N+1, M, G] on the card.
+    Raises ``ValueError`` where neither route holds the slab
+    (``kernel_info``)."""
     grids = arrays["grids"].contiguous()
     n, g = grids.shape[0] - 1, grids.shape[1]
     dtype = grids.dtype
-    if dtype not in _ENTRY:
+    if dtype not in _ENTRY["steps"]:
         raise TypeError(f"tree_dp: the kernel takes float32 or float64, got {dtype}")
     if mode not in MODES:
         raise ValueError(f"tree_dp: mode must be one of {sorted(MODES)}, got {mode!r}")
@@ -96,10 +125,8 @@ def tree_dp(
     _build.require_cuda("tree_dp", grids, start, dtype=None)
     if start.dtype != torch.int64:
         raise TypeError(f"tree_dp: band_start must be int64, got {start.dtype}")
-    limit = kernel_info(g, dtype, mode, device)["max_grid"]
-    if g > limit:
-        raise ValueError(f"tree_dp: G={g} grid points; the kernel holds at most G={limit} in "
-                         f"{dtype} {mode} mode in a block's shared memory")
+    route = choose_route(m, g, kernel_info(g, dtype, mode, device, m, w, num_extra_decisions),
+                         route)
     if cubic and (not given or tuple(solver.shape) != (g - 2, g - 2)):
         raise ValueError(f"tree_dp: cubic needs the [{g - 2}, {g - 2}] spline solver")
     want = {"spot": (n + 1, m), "band": (n, m, w), "band_start": (n, m), "v_end": (m, g)}
@@ -109,34 +136,93 @@ def tree_dp(
             raise ValueError(f"tree_dp: {name} is {tuple(t.shape)}, want {want[name]}")
     values = torch.empty((n + 1, m, g), dtype=dtype, device=device)
     values[n].copy_(v_end)
-    rc = getattr(_build.library(), _ENTRY[dtype])(
+    # The cluster route's scratch, every step's decision table, held until
+    # the launch is queued.
+    table = ([torch.empty(n * table_len(g, num_extra_decisions), dtype=dtype, device=device)]
+             if route == "cluster" else [])
+    rc = getattr(_build.library(), _ENTRY[route][dtype])(
         n, m, g, w, r, num_extra_decisions, int(ratchet_is_step), MODES[mode], steps.data_ptr(),
         *(t.data_ptr() for t in ratchets), grids.data_ptr(), spot.data_ptr(),
         values_band.data_ptr(), start.data_ptr(), given[0].data_ptr() if cubic else None,
-        values.data_ptr(), _build.stream_handle(device),
+        values.data_ptr(), *(t.data_ptr() for t in table), _build.stream_handle(device),
     )
-    tree_dp.launches += n  # the C entry launches the step kernel once for each step
-    _build.check(rc, "tree_dp")
+    if route == "cluster":
+        tree_dp.launches += 1
+    else:
+        tree_dp.step_launches += n  # the C entry launches the step kernel once for each step
+    _build.check(rc, f"tree_dp ({route} route)")
     return values
 
 
 tree_dp.launches = 0
+tree_dp.step_launches = 0
 
-_INFO_FIELDS = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm", "max_grid")
+_STEP_FIELDS = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm", "max_grid")
+_CLUSTER_FIELDS = ("cluster_size", "cluster_threads", "cluster_registers", "cluster_local_bytes",
+                   "cluster_smem_bytes", "cluster_blocks_per_sm", "rows_per_cta", "max_rows")
 
 
-@functools.lru_cache(maxsize=32)
-def _info(is_double: bool, g: int, mode: int, device_index: int) -> dict:
-    out = (ctypes.c_int * len(_INFO_FIELDS))()
+@functools.lru_cache(maxsize=64)
+def _info(is_double: bool, m: int, g: int, w: int, e: int, mode: int, device_index: int) -> dict:
+    lib = _build.library()
+    step = (ctypes.c_int * len(_STEP_FIELDS))()
+    cluster = (ctypes.c_int * len(_CLUSTER_FIELDS))()
     with torch.cuda.device(device_index):
-        _build.check(_build.library().stt_tree_dp_info(int(is_double), g, mode, out),
-                     "stt_tree_dp_info")
-    return dict(zip(_INFO_FIELDS, out))
+        _build.check(lib.stt_tree_dp_info(int(is_double), g, mode, step), "stt_tree_dp_info")
+        _build.check(lib.stt_tree_cluster_info(int(is_double), m, g, w, e, mode, cluster),
+                     "stt_tree_cluster_info")
+    return {**dict(zip(_STEP_FIELDS, step)), **dict(zip(_CLUSTER_FIELDS, cluster))}
 
 
-def kernel_info(g: int, dtype, mode: str, device) -> dict:
-    """Launch report of the step kernel at G grid points in ``dtype`` and
-    ``mode`` on a CUDA device: threads a block, registers and local (spill)
-    bytes a thread, dynamic shared memory at G, blocks per SM at G (0 where
-    G does not fit) and the largest G that fits a block's shared memory."""
-    return _info(dtype == torch.float64, int(g), MODES[mode], torch.device(device).index or 0)
+def kernel_info(g: int, dtype, mode: str, device, m: int = 1, w: int = 1, e: int = 0) -> dict:
+    """Launch report of both routes for an [M, G] slab of band width W and E
+    extra decisions in ``dtype`` and ``mode`` on a CUDA device.  The
+    large-slab route's step kernel: threads a block, registers and local
+    (spill) bytes a thread, dynamic shared memory at G, blocks per SM at G
+    (0 where G does not fit) and the largest G a block holds
+    (``max_grid``).  The cluster route: its cluster size (16 CTAs where the
+    card co-schedules them, else 8; 0 where the slab does not fit), threads,
+    registers and local bytes a thread, shared memory a CTA, CTAs per SM,
+    node rows a CTA and the most node rows the cluster holds at this G
+    (``max_rows``).  ``route`` is the one ``tree_dp`` takes for the slab, or
+    None where neither holds it."""
+    info = dict(_info(dtype == torch.float64, int(m), int(g), int(w), int(e), MODES[mode],
+                      torch.device(device).index or 0))
+    try:
+        info["route"] = choose_route(m, g, info)
+    except ValueError:
+        info["route"] = None
+    return info
+
+
+def chain_step_ns(kind: str, device, threads: int = 1024, cluster: int = 16,
+                  iters: int = 20_000) -> float:
+    """Nanoseconds of one link of a DP's chain on the card
+    (``csrc/chain_floor.cu``).  ``kind`` "block": one block of ``threads``
+    threads, each step ended by ``__syncthreads`` and reading a value
+    another thread wrote before it (the intrinsic DP's link); "cluster": one
+    cluster of ``cluster`` CTAs, each step ended by the cluster barrier and
+    reading the next CTA's shared memory (the tree's link); "grid": two CTAs
+    handing a step counter back and forth through device memory, release
+    and acquire at GPU scope, with the block barriers and fence around it
+    (the link of a grid that spans the card).  CUDA events around a launch of ``iters``
+    links less one of none, the median of three.  A timing kernel only: no
+    path launches it."""
+    kinds = {"block": 0, "cluster": 1, "grid": 2}
+    if kind not in kinds:
+        raise ValueError(f"chain_step_ns: kind must be one of {sorted(kinds)}, got {kind!r}")
+    device = torch.device(device)
+    lib, stream = _build.library(), _build.stream_handle(device)
+    samples = []
+    for _ in range(3):
+        ms = []
+        for count in (0, iters):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = lib.stt_chain_steps(kinds[kind], cluster, threads, count, stream)
+            end.record()
+            _build.check(rc, "stt_chain_steps")
+            torch.cuda.synchronize(device)
+            ms.append(start.elapsed_time(end))
+        samples.append(1e6 * (ms[1] - ms[0]) / iters)
+    return sorted(samples)[1]

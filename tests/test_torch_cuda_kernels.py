@@ -516,10 +516,12 @@ def _intrinsic_case(device, dtype, mode, g, n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("mode", ["linear", "general", "cubic"])
-@pytest.mark.parametrize("g,n", [(1000, None), (15, 1)], ids=["G=1000", "N=1"])
+@pytest.mark.parametrize("g,n", [(1000, None), (15, 1), (37, None), (1100, 40)],
+                         ids=["G=1000", "N=1", "G=37", "G=1100"])
 def test_intrinsic_dp(device, dtype, mode, g, n):
     """The DP kernel, one launch, against intrinsic_plain in f64 on the card
-    (one extra decision: volumes off the grid points)."""
+    (one extra decision: volumes off the grid points; G=37 fills no whole
+    warp, G=1100 more grid points than the block's threads)."""
     inputs, arrays = _intrinsic_case(device, dtype, mode, g, n)
     args = (inputs.starting_inventory, 1, None, False, "cubic" if mode == "cubic" else "linear",
             mode != "general")
@@ -562,6 +564,25 @@ def test_intrinsic_dp_snaps_must_end_empty(device, dtype, extra):
     if dtype == torch.float64:
         for name in intrinsic_engine.IntrinsicEngineResult._fields[1:]:
             torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-6)
+
+
+def test_intrinsic_dp_grid_beyond_shared_memory_raises(device):
+    """The block's shared memory bounds G: at least 8,192 points in f64 on
+    linear rows; one point beyond the report's largest G raises before any
+    launch."""
+    _, arrays = _intrinsic_case(device, torch.float64, "linear", 15, 1)
+    r = arrays["ratchet_inv"].shape[1]
+    info = intrinsic_kernel.intrinsic_info(torch.float64, device, 100, r, 0, "linear")
+    assert info["max_grid"] >= 8_192 and info["blocks_per_sm"] >= 1
+    g = info["max_grid"] + 1
+    assert intrinsic_kernel.intrinsic_info(torch.float64, device, g, r, 0, "linear")[
+        "blocks_per_sm"] == 0
+    _, arrays = _intrinsic_case(device, torch.float64, "linear", g, 1)
+    v_end = torch.zeros(g, dtype=torch.float64, device=device)
+    before = intrinsic_kernel.intrinsic_dp.launches
+    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
+        intrinsic_kernel.intrinsic_dp(arrays, v_end, 100.0, 0, False, "linear")
+    assert intrinsic_kernel.intrinsic_dp.launches == before
 
 
 def test_intrinsic_dp_refuses_cpu_tensors_and_other_dtypes(device):
@@ -623,20 +644,30 @@ def _tree_case(device, dtype, mode, g, n, a=5.5):
     return inputs, arrays, lattice
 
 
+def _tree_f64(d):
+    return {k: v.to(torch.float64) if v.is_floating_point() else v for k, v in d.items()}
+
+
+@pytest.mark.parametrize("route", ["cluster", "steps"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("mode", ["linear", "general", "cubic"])
-@pytest.mark.parametrize("g,n,e", [(37, 20, 1), (300, 3, 0), (15, 1, 1)],
-                         ids=["G=37", "G=300", "N=1"])
-def test_tree_dp(device, dtype, mode, g, n, e):
-    """The tree kernel, N launches, against tree_plain in f64 on the card."""
+@pytest.mark.parametrize("g,n,e", [(37, 20, 1), (300, 3, 0), (15, 1, 1), (100, 20, 0)],
+                         ids=["G=37", "G=300", "N=1", "T3-sized"])
+def test_tree_dp(device, dtype, mode, g, n, e, route):
+    """The tree kernel against tree_plain in f64 on the card, on both routes
+    (M = 99 node rows, T3's lattice width): the cluster route one launch a
+    valuation, the large-slab route one a step, the same bits."""
     inputs, arrays, lattice = _tree_case(device, dtype, mode, g, n)
     args = (e, None, False, "cubic" if mode == "cubic" else "linear", mode != "general")
-    before = tree_kernel.tree_dp.launches
-    got = tree_engine.tree_core(arrays, lattice, *args)
-    assert tree_kernel.tree_dp.launches == before + n
-    f64 = lambda d: {k: v.to(torch.float64) if v.is_floating_point() else v  # noqa: E731
-                     for k, v in d.items()}
-    want = tree_engine.tree_plain(f64(arrays), f64(lattice), *args)
+    before = tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches
+    got = tree_engine.tree_core(arrays, lattice, *args, route=route)
+    after = tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        (1, 0) if route == "cluster" else (0, n))
+    other = tree_engine.tree_core(arrays, lattice, *args,
+                                  route="steps" if route == "cluster" else "cluster")
+    assert torch.equal(got.values, other.values)
+    want = tree_engine.tree_plain(_tree_f64(arrays), _tree_f64(lattice), *args)
     assert got.values.dtype == dtype and got.values.shape == want.values.shape
     rel = 1e-10 if dtype == torch.float64 else 1e-5
     assert float(got.npv) == pytest.approx(float(want.npv), rel=rel)
@@ -646,19 +677,69 @@ def test_tree_dp(device, dtype, mode, g, n, e):
 
 
 def test_tree_dp_grid_beyond_shared_memory_raises(device):
-    info = tree_kernel.kernel_info(100, torch.float64, "linear", device)
+    """Both routes' reports: at G=100 the cluster route takes the slab; one
+    grid point beyond the step block's capacity, a row fits neither route's
+    shared memory and tree_dp raises before any launch."""
+    _, arrays, lattice = _tree_case(device, torch.float64, "linear", 100, 1)
+    m, w = lattice["band"].shape[1:]
+    info = tree_kernel.kernel_info(100, torch.float64, "linear", device, m, w)
+    assert info["route"] == "cluster" and info["cluster_size"] in (8, 16)
     assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+    assert info["rows_per_cta"] * info["cluster_size"] >= m and info["max_rows"] >= m
     g = info["max_grid"] + 1
-    assert tree_kernel.kernel_info(g, torch.float64, "linear", device)["blocks_per_sm"] == 0
+    beyond = tree_kernel.kernel_info(g, torch.float64, "linear", device, m, w)
+    assert beyond["blocks_per_sm"] == 0 and beyond["max_rows"] == 0 and beyond["route"] is None
     _, arrays, lattice = _tree_case(device, torch.float64, "linear", g, 1)
     v_end = torch.zeros(lattice["spot"].shape[1], g, dtype=torch.float64, device=device)
+    launches = tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches
     with pytest.raises(ValueError, match=f"at most G={g - 1}"):
         tree_kernel.tree_dp(arrays, lattice, v_end, 0, False, "linear")
+    assert (tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches) == launches
+
+
+def _wide_lattice(device, dtype, m, g, n=2, w=3, seed=5):
+    """A random lattice of m node rows (each row's band of w columns, rows
+    summing to 1) and the 2F facility's tables over its last n steps at g
+    grid points."""
+    inputs, arrays, _ = _tree_case(device, dtype, "linear", g, n)
+    rng = np.random.default_rng(seed)
+    band = rng.uniform(0.1, 1.0, (n, m, w))
+    band /= band.sum(axis=-1, keepdims=True)
+    start = np.clip(np.arange(m) - w // 2, 0, m - w)
+    spot = 20.0 + 10.0 * rng.uniform(size=(n + 1, m))
+    lattice = {"spot": torch.tensor(spot, dtype=dtype, device=device),
+               "band": torch.tensor(band, dtype=dtype, device=device),
+               "band_start": torch.tensor(np.broadcast_to(start, (n, m)).copy(), device=device),
+               "q0": torch.full((m,), 1.0 / m, dtype=dtype, device=device)}
+    return inputs, arrays, lattice
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_tree_route_at_the_cluster_capacity(device, dtype):
+    """A slab of exactly the cluster's capacity in node rows takes the
+    cluster route, one node row more the large-slab route; both against
+    tree_plain in f64."""
+    g = 100
+    m = tree_kernel.kernel_info(g, dtype, "linear", device, 1, 3)["max_rows"]
+    assert m >= 361  # T4's lattice
+    for rows, route in ((m, "cluster"), (m + 1, "steps")):
+        inputs, arrays, lattice = _wide_lattice(device, dtype, rows, g)
+        assert tree_kernel.kernel_info(g, dtype, "linear", device, rows, 3)["route"] == route
+        before = tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches
+        got = tree_engine.tree_core(arrays, lattice, 0, None, False)
+        after = tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches
+        assert (after[0] - before[0], after[1] - before[1]) == (
+            (1, 0) if route == "cluster" else (0, 2))
+        want = tree_engine.tree_plain(_tree_f64(arrays), _tree_f64(lattice), 0, None, False)
+        scale = float(want.values.abs().max())
+        tol = 1e-9 if dtype == torch.float64 else 1e-5
+        torch.testing.assert_close(got.values.to(torch.float64), want.values, rtol=0,
+                                   atol=tol * scale)
 
 
 def test_trinomial_value_pin_on_the_card(device):
     """The C# trinomial sample (24,799.09) through trinomial_value(device="cuda")
-    in f64: 16 launches, the CPU's answer within 1e-10."""
+    in f64: one launch on the cluster route, the CPU's answer within 1e-10."""
     ratchets = [
         ("2019-09-01", [(0.0, -44.85, 56.8), (100.0, -45.01, 54.5), (300.0, -45.78, 52.01),
                         (600.0, -46.17, 51.9), (800.0, -46.99, 50.8), (1000.0, -47.12, 50.01)]),
@@ -674,10 +755,11 @@ def test_trinomial_value_pin_on_the_card(device):
                       0.870, 0.869, 0.868, 0.867, 0.866, 0.8655], index=idx)
     args = (storage, "2019-09-15", 50.0, fwd, vols, 5.5, 1 / 365.0, 0.025,
             lambda period: pd.Timestamp("2019-10-20").date())
-    before = tree_kernel.tree_dp.launches
+    before = tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches
     got = tpkg.trinomial_value(*args, num_inventory_grid_points=101, dtype=torch.float64,
                                device=device)
-    assert tree_kernel.tree_dp.launches == before + 16
+    assert (tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches) == (
+        before[0] + 1, before[1])
     want = tpkg.trinomial_value(*args, num_inventory_grid_points=101, dtype=torch.float64,
                                 device="cpu")
     assert got == pytest.approx(want, rel=1e-10)

@@ -13,6 +13,10 @@
   arithmetic in the same order; only the sums differ.  Facilities that must
   end empty run with no extra decision (see tests/test_torch_intrinsic.py).
 * ``simulate_tree_decisions`` on the centre, up and down branch paths.
+* The DP kernel's route by slab (``ops.tree_kernel.choose_route``): the
+  cluster route while its CTAs hold the node rows, the large-slab route
+  beyond, and a ``ValueError`` where the route asked for, or both, cannot
+  hold it.
 * ``trinomial_value`` and ``trinomial_deltas`` against the JAX API, their
   early returns and errors, the C# example's 24,799.09, and the intrinsic
   tree against ``intrinsic_value``.
@@ -218,6 +222,39 @@ def test_tree_dp_takes_cuda_tensors_only():
     with pytest.raises(TypeError, match="float32 or float64"):
         tree_kernel.tree_dp({**arrays, "grids": arrays["grids"].half()}, lattice, v_end, 0, False,
                             "linear")
+
+
+# A launch report as tree_kernel.kernel_info gives it for some [M, G] slab:
+# the cluster route holds up to 2,976 node rows there, a step block up to
+# 58,112 grid points.
+_INFO = {"max_rows": 2_976, "max_grid": 58_112}
+
+
+@pytest.mark.parametrize("m,g,route,want", [
+    (99, 100, None, "cluster"),              # T3
+    (2_976, 100, None, "cluster"),           # the cluster's capacity
+    (2_977, 100, None, "steps"),             # one row beyond it
+    (2_977, 58_112, None, "steps"),          # the step block's capacity
+    (99, 100, "steps", "steps"),             # forced, within both
+    (2_976, 100, "cluster", "cluster"),
+], ids=["T3", "cluster-full", "just-over", "step-block-full", "forced-steps", "forced-cluster"])
+def test_tree_route_chosen_by_slab(m, g, route, want):
+    """The cluster route where its CTAs hold the M node rows, else the
+    large-slab route where a block holds a row's G points."""
+    assert tree_kernel.choose_route(m, g, _INFO, route) == want
+
+
+@pytest.mark.parametrize("m,g,route,match", [
+    (2_977, 58_113, None, "at most G=58112"),     # beyond both routes
+    (2_977, 100, "cluster", "at most M=2976"),    # the cluster route forced beyond it
+    (99, 58_113, "steps", "at most G=58112"),
+    (99, 100, "one_block", "route must be one of"),
+], ids=["beyond-both", "forced-cluster-over", "forced-steps-over", "unknown-route"])
+def test_tree_route_refuses_what_no_route_holds(m, g, route, match):
+    """Nothing falls back quietly: a slab beyond the route asked for, or
+    beyond both, raises before any launch."""
+    with pytest.raises(ValueError, match=match):
+        tree_kernel.choose_route(m, g, _INFO, route)
 
 
 @pytest.mark.parametrize("interpolation,grid_calc", [
