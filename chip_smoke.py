@@ -139,7 +139,23 @@
    adjoint on the custom grid (its pathwise deltas); the replicated generic
    basis on it (the design mode's general-grid launches); a checkpoint made
    on it, revalued on the same valuation paths (its NPV bits).
-11. A phase breakdown (host preparation, simulate, intrinsic, backward,
+11. The streamed engine (after the spot-only path, on the round trip's
+   frames): the simulation sweep resumed at a start step from its entry
+   state against the sweep from step 0 and its plain version (S=1,000, F =
+   1, 2, 3, 8, odd and even start steps, antithetic on and off: the same
+   bits), a resumed 16-step segment of the hourly tables timed at 393,216
+   paths; the headline through ``lsmc_core_streamed`` against ``lsmc_core``
+   on materialised panels, walls in turns with the peak device memory of
+   each (every output the same bits, the main path's NPV; the sweep 3 x 23
+   launches, kernel C 23) and their adjoints (deltas within 1e-7);
+   ``value_from_sims`` on the round trip's source frames with the threshold
+   lowered, fed from host memory (the device-resident run's bits); the
+   hourly year (8,760 steps, the headline's model, basis and grid) at 65,536
+   paths streamed against materialised (the same bits; the materialised
+   peak beside its footprint) and at 393,216 paths through the API, where
+   the footprint selects streaming (its log line; NPV within 3 combined SE
+   of the 65,536-path one; wall, paths*steps/s and peak memory printed).
+12. A phase breakdown (host preparation, simulate, intrinsic, backward,
    forward) and one valuation under torch.profiler (device busy share,
    kernels by time).
 
@@ -1373,7 +1389,7 @@ def phase_breakdown(pkg, device):
 @contextlib.contextmanager
 def api_timers(times):
     """Seconds spent, inside the API calls of the block, in the engine
-    (``lsmc_core``, ended by a synchronize: the device work and its
+    (``lsmc_core_rows``, ended by a synchronize: the device work and its
     launches), in building the result's per-sim frames (``_results``) and in
     reading user frames into arrays (``_frames_to_sims``)."""
     from unittest import mock
@@ -1392,8 +1408,8 @@ def api_timers(times):
             return out
         return wrapper
 
-    with mock.patch.object(api_lsmc.lsmc_engine, "lsmc_core",
-                           timed("engine_s", api_lsmc.lsmc_engine.lsmc_core, True)), \
+    with mock.patch.object(api_lsmc.lsmc_engine, "lsmc_core_rows",
+                           timed("engine_s", api_lsmc.lsmc_engine.lsmc_core_rows, True)), \
             mock.patch.object(api_lsmc, "_results",
                               timed("panel_assembly_s", api_lsmc._results, False)), \
             mock.patch.object(api_lsmc, "_frames_to_sims",
@@ -1405,7 +1421,8 @@ def round_trip(pkg, device, counts, main_npv):
     """The headline valuation with every per-sim panel, then value_from_sims
     on its four path panels with the same flags: the same NPV, SE and deltas
     to the bit (deterministic kernels, lossless f32 -> f64 -> f32 frames).
-    Returns the source result (its spot panels feed the spot-only phase)."""
+    Returns the source result (its spot panels feed the spot-only phase, its
+    path frames the streaming phase) and the value_from_sims result."""
     import numpy as np
     import torch
 
@@ -1459,7 +1476,7 @@ def round_trip(pkg, device, counts, main_npv):
     if not (same and pv_off <= 1e-5 and inv_off <= 1e-5 and shapes_ok):
         raise AssertionError("the round trip does not reproduce its source")
     report.update(bit_identical=same, sim_pv_rel=pv_off, sim_inventory_rel=inv_off)
-    return src, report
+    return src, res, report
 
 
 def antithetic_valuation(pkg, device, counts, main):
@@ -2519,6 +2536,372 @@ def service_phase(pkg, device, counts, main) -> dict:
     return report
 
 
+# ---- the streamed engine (paths regenerated a segment at a time, or user
+# panels fed from host memory).
+
+HOURLY_SIMS = (65_536, 393_216)
+
+
+def segments(num_steps: int) -> int:
+    """The engine's segments of a pass (``engines.lsmc.SEG_LEN`` steps each)."""
+    from storage_tpu_torch.engines import lsmc as engine
+
+    return -(-num_steps // engine.SEG_LEN)
+
+
+def hourly_fwd(pkg):
+    """The hourly year's facility and a curve with a yearly and a daily shape."""
+    import numpy as np
+    import pandas as pd
+
+    storage, hour = hourly_case(pkg)
+    idx = pd.period_range(hour, storage.end, freq="h")
+    i = np.arange(len(idx))
+    fwd = pd.Series(index=idx, data=30.0 + 6 * np.sin(2 * np.pi * i / HOURLY_STEPS)
+                    + 2 * np.sin(2 * np.pi * i / 24))
+    return storage, hour, fwd
+
+
+def hourly_value(pkg, device, num_sims, **kwargs):
+    """The hourly year through ``three_factor_seasonal_value`` (the
+    headline's model, basis, grid and seeds)."""
+    import torch
+
+    storage, hour, fwd = hourly_fwd(pkg)
+    return pkg.three_factor_seasonal_value(
+        storage, hour, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, num_sims, BASIS, False,
+        seed=11, fwd_sim_seed=13, num_inventory_grid_points=NUM_GRID, dtype=torch.float32,
+        device=device, snap_interp=True, **kwargs)
+
+
+def case_inputs(pkg, device, storage, start, fwd, freq):
+    """A case's engine inputs built the way the API builds them: (valuation
+    inputs, the OU tables by name, engine arrays, monomials)."""
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch.basis import parse_basis_functions
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import multi_factor as mf
+    from storage_tpu_torch.valuation_inputs import prepare_valuation
+
+    inputs = prepare_valuation(storage, start, 100.0, fwd, 0.02, None)
+    factors, corrs = mf.create_3_factor_seasonal_params(freq, 14.5, 1.1, 0.19, 0.23, start,
+                                                        storage.end)
+    pre = mf.simulation_precompute(factors, corrs, inputs.val_day, list(inputs.periods), freq)
+    as_t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    sim_in = {k: as_t(getattr(pre, k)) for k in ("decay", "chol", "vols", "half_var")}
+    sim_in["fwd"] = as_t(inputs.fwd)
+    arrays = engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow,
+        inputs.inventory_lower, inputs.inventory_upper, NUM_GRID, torch.float32, device,
+    )
+    return inputs, sim_in, arrays, tuple(parse_basis_functions(BASIS))
+
+
+def engine_pair(device, case, num_sims, adjoint=False):
+    """The engine on one case two ways, at seeds 11/13 as the API draws them:
+    ``materialised`` (both path sets simulated whole, then ``lsmc_core``) and
+    ``streamed`` (``lsmc_core_streamed``): name -> a callable giving its
+    results."""
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+
+    inputs, sim_in, arrays, monomials = case
+    ids = torch.arange(num_sims, dtype=torch.int64, device=device)
+    keys = spot_sim.key_from_seed(11), spot_sim.key_from_seed(13)
+    tfn = inputs.compiled.terminal_value
+    common = (inputs.starting_inventory, monomials, 0, False, tfn, inputs.compiled.ratchet_is_step)
+    tables = [sim_in[k] for k in ("decay", "chol", "vols", "half_var", "fwd")]
+
+    def materialised():
+        reg, val = (spot_sim.simulate_ou_paths(k, ids, *tables) for k in keys)
+        return engine.lsmc_core(arrays, reg.spot, reg.factors, val.spot, val.factors, *common,
+                                snap_interp=True, adjoint=adjoint)
+
+    def streamed():
+        return engine.lsmc_core_streamed(arrays, sim_in, *keys, ids, *common, snap_interp=True,
+                                         adjoint=adjoint)
+
+    return {"materialised": materialised, "streamed": streamed}
+
+
+def measured(fn, counts):
+    """``fn()`` with the launch counters reset just before it: (its results,
+    launches, host seconds ended by a synchronize, peak device GB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, counts.read(), wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+@contextlib.contextmanager
+def pass_timers(times: dict):
+    """Host seconds, inside the block, of the engine's three passes over a
+    rows source, each ended by a synchronize: the warmup
+    (``_stream_warmup``), the backward after it and the forward."""
+    from unittest import mock
+
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    with mock.patch.object(engine, "_stream_warmup", timed("warmup_s", engine._stream_warmup)), \
+            mock.patch.object(engine, "lsmc_backward_rows",
+                              timed("backward_s", engine.lsmc_backward_rows)), \
+            mock.patch.object(engine, "lsmc_forward_rows",
+                              timed("forward_s", engine.lsmc_forward_rows)):
+        yield
+    times["backward_s"] -= times.get("warmup_s", 0.0)  # the backward after its warmup
+
+
+def engine_same_bits(got: dict, want: dict) -> list:
+    """The result keys whose tensors differ (NaN equal to NaN)."""
+    import torch
+
+    return [k for k in want if k != "adjoint_tape"
+            and not torch.equal(got[k].nan_to_num(), want[k].nan_to_num())]
+
+
+def check_resumed_sweep(pkg, device, card) -> dict:
+    """The simulation sweep resumed at a start step from the state entering
+    it, at S=1,000 over F = 1, 2, 3, 8, odd and even start steps, with and
+    without antithetic signs: against rows start.. of the sweep from step 0
+    and against its plain version resumed alike, the same bits.  Then one
+    16-step segment of the hourly year's tables resumed at step 4,381 from
+    an entry state at 393,216 paths (what every segment of a streamed
+    hourly valuation launches), timed beside its bound."""
+    import torch
+
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import rng_kernel
+
+    checks = {}
+    path_ids = torch.arange(1000, device=device) + 77
+    for f in (1, 2, 3, 8):
+        tables = sweep_tables(device, 11, f, seed=40 + f)
+        for start in (5, 6):
+            for antithetic in (False, True):
+                ids = (path_ids // 2 if antithetic else path_ids).to(torch.int32)
+                sign = (1.0 - 2.0 * (path_ids % 2)).float() if antithetic else None
+                whole = rng_kernel.simulate_sweep((5, 7), ids, sign, *tables)
+                x0 = whole[0][start - 1].contiguous()
+                tail = [t[start:].contiguous() for t in tables]
+                got = rng_kernel.simulate_sweep((5, 7), ids, sign, *tail, start, x0)
+                plain = rng_kernel.simulate_sweep_plain((5, 7), ids, sign, *tail, start, x0)
+                checks[f"F={f},start={start}{',antithetic' if antithetic else ''}"] = all(
+                    torch.equal(g, w) and torch.equal(g, full[start:])
+                    for g, w, full in zip(got, plain, whole))
+    log("resumed simulation sweep at S=1,000 against the sweep from step 0 and its plain "
+        "version resumed alike (tolerance: the same bits): " + "; ".join(
+            f"{k}: {'same bits' if v else 'DIFFERS'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"the resumed sweep parts from the sweep: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    storage, hour, fwd = hourly_fwd(pkg)
+    _, sim_in, _, _ = case_inputs(pkg, device, storage, hour, fwd, "h")
+    c = torch.log(sim_in["fwd"]) - sim_in["half_var"]
+    start, s = (HOURLY_STEPS // 2) | 1, HOURLY_SIMS[1]  # an odd step mid-year
+    ids = torch.arange(s, dtype=torch.int32, device=device)
+    key = spot_sim.key_from_seed(11)
+    seg = [sim_in[k][start:start + 16].contiguous() for k in ("decay", "chol", "vols")]
+    seg.append(c[start:start + 16].contiguous())
+    x0 = 0.1 * torch.randn((3, s), device=device)
+    ms = cuda_ms(lambda: rng_kernel.simulate_sweep(key, ids, None, *seg, start, x0), 20)
+    num_bytes, unfused, ints = sweep_work(16, 3, s, antithetic=False)
+    bnd = bound(num_bytes + 4.0 * 3 * s, 0.0, unfused, ints)  # and the entry state read
+    log(f"resumed sweep, a 16-step segment of the hourly tables at step {start} [P=16, F=3, "
+        f"S={s}]: {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
+    return dict(checks=checks, resumed_ms=ms, resumed_bound_ms=bnd["bound_ms"],
+                resumed_bound_by=bnd["bound_by"])
+
+
+def streaming_phase(pkg, device, counts, main, src, from_sims, card) -> dict:
+    """The streamed engine: the resumed sweep (``check_resumed_sweep``); the
+    headline through ``lsmc_core_streamed`` against ``lsmc_core`` on the
+    materialised panels (the same bits, both the main path's NPV; walls in
+    turns and peak device memory), and their adjoints (deltas within 1e-7 of
+    the largest); ``value_from_sims`` on the round trip's source frames with
+    the threshold lowered (host-fed: the device-resident run's bits); the
+    hourly year at 65,536 paths streamed against materialised (the same
+    bits; the materialised peak beside its footprint) and at 393,216 through
+    the API, where the footprint selects streaming (its log line), within 3
+    combined SE of the 65,536-path NPV."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+
+    report = {"resumed_sweep": check_resumed_sweep(pkg, device, card)}
+    n_seg = segments(NUM_STEPS)
+
+    # The headline, streamed and materialised, pricing then adjoint.
+    storage, start, fwd = bench_case(pkg)
+    headline = case_inputs(pkg, device, storage, start, fwd, "D")
+    runs = {}
+    for adjoint in (False, True):
+        pair = engine_pair(device, headline, NUM_SIMS, adjoint=adjoint)
+        for name in (("materialised", "streamed", "streamed", "materialised") if not adjoint
+                     else ("materialised", "streamed")):
+            out, launches, wall, peak = measured(pair[name], counts)
+            key = (name, adjoint)
+            runs.setdefault(key, dict(walls=[], peaks=[]))
+            runs[key].update(out=out, launches=launches)
+            runs[key]["walls"].append(wall)
+            runs[key]["peaks"].append(peak)
+    mat, st = runs[("materialised", False)], runs[("streamed", False)]
+    differ = engine_same_bits(st["out"], mat["out"])
+    npv_mat = float(mat["out"]["npv"])
+    expect_st = counts.expect(simulate_sweep=3 * n_seg, decision_update_moments=NUM_STEPS,
+                              forward_sweep=n_seg)
+    expect_mat = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                               forward_sweep=1)
+    log(f"headline streamed (lsmc_core_streamed) against materialised (lsmc_core), seeds 11/13: "
+        f"NPV {float(st['out']['npv'])!r} / {npv_mat!r}, SE "
+        f"{float(st['out']['standard_error'])!r}; every output the same bits: {not differ} "
+        f"{differ or ''}(tolerance: the same bits); the materialised NPV is the main path's "
+        f"{main.npv!r}: {npv_mat == main.npv}; walls in turns (mat, str, str, mat) streamed "
+        f"{[round(w, 4) for w in st['walls']]} s, materialised "
+        f"{[round(w, 4) for w in mat['walls']]} s; peak device memory streamed "
+        f"{max(st['peaks']):.2f} GB, materialised {max(mat['peaks']):.2f} GB; launches streamed "
+        f"{st['launches']} [{card}]")
+    if differ or npv_mat != main.npv:
+        raise AssertionError(f"the streamed headline parts from the materialised one: {differ}")
+    for name, run, want in (("streamed", st, expect_st), ("materialised", mat, expect_mat)):
+        if run["launches"] != want:
+            raise AssertionError(f"{name} headline launches {run['launches']}, expected {want}")
+    adj_st, adj_mat = runs[("streamed", True)], runs[("materialised", True)]
+    d_st = engine.adjoint_deltas(adj_st["out"].pop("adjoint_tape"))
+    d_mat = engine.adjoint_deltas(adj_mat["out"].pop("adjoint_tape"))
+    adj_err = float((d_st - d_mat).abs().max() / d_mat.abs().max())
+    adj_same = not engine_same_bits(adj_st["out"], st["out"])
+    log(f"headline adjoint, streamed against materialised: deltas max rel {adj_err:.3e} "
+        f"(tolerance 1e-7), the same bits: {bool(torch.equal(d_st, d_mat))}; pricing outputs the "
+        f"streamed pricing run's bits: {adj_same}; VJP launches "
+        f"{adj_st['launches']['forward_sweep_vjp']} (a segment each) [{card}]")
+    if not (adj_err <= 1e-7 and adj_same
+            and adj_st["launches"]["forward_sweep_vjp"] == n_seg):
+        raise AssertionError("the streamed adjoint parts from the materialised one")
+    report["headline"] = dict(
+        npv=npv_mat, same_bits=not differ, streamed_walls_s=st["walls"],
+        materialised_walls_s=mat["walls"], streamed_peak_gb=max(st["peaks"]),
+        materialised_peak_gb=max(mat["peaks"]), streamed_launches=st["launches"],
+        adjoint_rel_err=adj_err, adjoint_same_bits=bool(torch.equal(d_st, d_mat)),
+        adjoint_launches=adj_st["launches"])
+    del runs, mat, st, adj_st, adj_mat
+
+    # User panels fed from host memory, the threshold lowered below them.
+    saved = engine.stream_threshold
+    engine.stream_threshold = lambda device: 0
+    try:
+        host_fed, launches, wall, peak = measured(lambda: value_from_frames(
+            pkg, device, src.sim_spot_regress, src.sim_spot_valuation, BASIS,
+            sim_factors_regress=src.sim_factors_regress,
+            sim_factors_valuation=src.sim_factors_valuation), counts)
+    finally:
+        engine.stream_threshold = saved
+    same = (same_bits(host_fed, from_sims)
+            and host_fed.trigger_prices.equals(from_sims.trigger_prices))
+    expected = counts.expect(decision_update_moments=NUM_STEPS, forward_sweep=n_seg,
+                             intrinsic_dp=1)
+    log(f"value_from_sims host-fed (the round trip's source frames, threshold 0): NPV "
+        f"{host_fed.npv!r} SE {host_fed.val_sim_standard_error!r}; NPV, SE, deltas, profile and "
+        f"trigger prices the device-resident run's bits: {same} (tolerance: the same bits); wall "
+        f"{wall:.3f} s, peak device memory {peak:.2f} GB; launches {launches} [{card}]")
+    if not same or launches != expected:
+        raise AssertionError(f"host-fed panels part from device-resident ones (launches "
+                             f"{launches}, expected {expected})")
+    report["host_fed"] = dict(npv=host_fed.npv, same_bits=same, wall_s=wall, peak_gb=peak,
+                              launches=launches)
+
+    # The hourly year: both routes at 65,536 paths, then 393,216 by footprint.
+    storage, hour, fwd = hourly_fwd(pkg)
+    hourly = case_inputs(pkg, device, storage, hour, fwd, "h")
+    n_h = segments(HOURLY_STEPS)
+    pair = engine_pair(device, hourly, HOURLY_SIMS[0])
+    passes = {"streamed_65k": {}, "materialised_65k": {}, "streamed_393k": {}}
+    with pass_timers(passes["streamed_65k"]):
+        out_st, l_st, w_st, p_st = measured(pair["streamed"], counts)
+    with pass_timers(passes["materialised_65k"]):
+        out_mat, l_mat, w_mat, p_mat = measured(pair["materialised"], counts)
+    differ = engine_same_bits(out_st, out_mat)
+    footprint = engine.footprint_bytes(HOURLY_STEPS, HOURLY_SIMS[0], 3, NUM_GRID, 4) / 1e9
+    npv_65k, se_65k = float(out_st["npv"]), float(out_st["standard_error"])
+    log(f"hourly year [{HOURLY_STEPS} x {HOURLY_SIMS[0]} x {NUM_GRID}] streamed against "
+        f"materialised: NPV {npv_65k!r} SE {se_65k!r}; every output the same bits: {not differ} "
+        f"{differ or ''}(tolerance: the same bits); walls streamed {w_st:.3f} s, materialised "
+        f"{w_mat:.3f} s; peak device memory streamed {p_st:.2f} GB, materialised {p_mat:.2f} GB "
+        f"against its footprint {footprint:.2f} GB (ratio {p_mat / footprint:.3f}); launches "
+        f"streamed {l_st} [{card}]")
+    if differ or l_st != counts.expect(
+            simulate_sweep=3 * n_h, decision_update_moments=HOURLY_STEPS, forward_sweep=n_h) \
+            or l_mat != counts.expect(simulate_sweep=2, decision_update_moments=HOURLY_STEPS,
+                                      forward_sweep=1):
+        raise AssertionError(f"the streamed hourly year parts from the materialised one: {differ}")
+    del out_st, out_mat, pair
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    api_logger = logging.getLogger("storage_tpu_torch.multi_factor")
+    level = api_logger.level
+    api_logger.addHandler(handler)
+    api_logger.setLevel(logging.INFO)
+    try:
+        with pass_timers(passes["streamed_393k"]):
+            big, l_big, w_big, p_big = measured(
+                lambda: hourly_value(pkg, device, HOURLY_SIMS[1]), counts)
+    finally:
+        api_logger.removeHandler(handler)
+        api_logger.setLevel(level)
+    route = [r for r in records if r.startswith("LSMC execution")]
+    combined = math.sqrt(big.val_sim_standard_error ** 2 + se_65k ** 2)
+    z = (big.npv - npv_65k) / combined
+    rate = HOURLY_SIMS[1] * HOURLY_STEPS / w_big
+    materialised_gb = engine.footprint_bytes(HOURLY_STEPS, HOURLY_SIMS[1], 3, NUM_GRID, 4) / 1e9
+    log(f"hourly year [{HOURLY_STEPS} x {HOURLY_SIMS[1]} x {NUM_GRID}] through the API: {route}; "
+        f"NPV {big.npv!r} SE {big.val_sim_standard_error!r}, {z:+.3f} combined SE from the "
+        f"{HOURLY_SIMS[0]:,}-path NPV (tolerance 3); wall {w_big:.3f} s = {rate:.1f} paths*steps/s; peak "
+        f"device memory {p_big:.2f} GB (materialised it would need {materialised_gb:.1f} GB); "
+        f"launches {l_big} [{card}]")
+    deltas = big.deltas.to_numpy()
+    if not (len(route) == 1 and "paths=streamed" in route[0] and abs(z) <= 3.0
+            and np.isfinite(deltas).all() and deltas.shape == (HOURLY_STEPS + 1,)
+            and l_big == counts.expect(simulate_sweep=3 * n_h,
+                                       decision_update_moments=HOURLY_STEPS,
+                                       forward_sweep=n_h, intrinsic_dp=1)):
+        raise AssertionError("the 393,216-path hourly year did not stream to a sound result")
+    log("hourly year, the engine's passes (host seconds, synchronized): " + "; ".join(
+        f"{name}: " + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in times.items())
+        for name, times in passes.items()) + f" [{card}]")
+    report["hourly"] = dict(
+        npv_65k=npv_65k, se_65k=se_65k, same_bits=not differ, streamed_wall_s=w_st,
+        materialised_wall_s=w_mat, streamed_peak_gb=p_st, materialised_peak_gb=p_mat,
+        materialised_footprint_gb=footprint, npv_393k=big.npv, se_393k=big.val_sim_standard_error,
+        z_combined=z, wall_393k_s=w_big, paths_steps_per_s=rate, peak_393k_gb=p_big,
+        launches_393k=l_big, route=route[0], passes_s=passes)
+    return report
+
+
 def reg_case(pkg):
     """The 2F regression facility and market of tests/test_lsmc.py (the
     intrinsic pins'): (storage, valuation date, forward curve, rates,
@@ -3556,10 +3939,21 @@ def main(argv) -> int:
     report["antithetic"] = antithetic_valuation(stt, device, counts, res)
 
     # ---- user-supplied simulations and the full-step backward.
-    src, report["round_trip"] = round_trip(stt, device, counts, res.npv)
+    src, from_sims, report["round_trip"] = round_trip(stt, device, counts, res.npv)
     report["spot_only"] = spot_only_valuation(stt, device, counts, src, res)
     launches.update(decision_update=report["spot_only"]["launches"]["decision_update"])
-    del src
+
+    # ---- the streamed engine (the round trip's frames feed its host-fed check).
+    t0 = time.perf_counter()
+    report["streaming"] = streaming_phase(stt, device, counts, res, src, from_sims, card)
+    report["streaming_phase_s"] = time.perf_counter() - t0
+    log(f"streaming phase: {report['streaming_phase_s']:.1f} s")
+    del src, from_sims
+    streamed = report["streaming"]["headline"]
+    kernels["simulate_sweep"].update(
+        {k: report["streaming"]["resumed_sweep"][k] for k in ("resumed_ms", "resumed_bound_ms")},
+        streamed_launches=streamed["streamed_launches"]["simulate_sweep"])
+    kernels["forward_sweep"]["streamed_launches"] = streamed["streamed_launches"]["forward_sweep"]
     report["fullstep"] = fullstep_valuation(stt, device, counts, res)
     launches.update(
         decision_update_fullstep=report["fullstep"]["launches"]["decision_update_fullstep"])
@@ -3582,6 +3976,8 @@ def main(argv) -> int:
     report["adjoint_grid_phase_s"] = time.perf_counter() - t0
     log(f"adjoint and custom-grid phase: {report['adjoint_grid_phase_s']:.1f} s")
     phase = report["adjoint_grid"]
+    kernels["forward_sweep_vjp"]["streamed_launches"] = streamed["adjoint_launches"][
+        "forward_sweep_vjp"]
     launches.update(
         forward_sweep_vjp=phase["adjoint"]["launches"]["forward_sweep_vjp"],
         forward_sweep_general=phase["custom_grid"]["launches"]["forward_sweep_general"],
@@ -3619,8 +4015,10 @@ def main(argv) -> int:
     # Kernel C's ms is per sweep of all steps, its design mode's the sum of a
     # generic forward pass's chunk launches, the simulation sweep's per path
     # set; their launch reports beside them, and kernel D's.
-    extra = {"forward_sweep": ("smem_bytes", "blocks_per_sm", "registers", "sass_instructions"),
-             "decision_update": ("launch",), "simulate_sweep": ("launch",),
+    extra = {"forward_sweep": ("smem_bytes", "blocks_per_sm", "registers", "sass_instructions",
+                               "streamed_launches"),
+             "decision_update": ("launch",),
+             "simulate_sweep": ("launch", "resumed_ms", "resumed_bound_ms", "streamed_launches"),
              "forward_sweep_design": ("chunk", "ms_per_launch", "ms_one_launch", "chunked_ms",
                                       "monomial_mode_ms", "smem_bytes",
                                       "blocks_per_sm", "registers", "decision_update_b9"),
@@ -3628,6 +4026,7 @@ def main(argv) -> int:
              "tree_dp": ("ms_f64", "kernel_busy_ms", "dp_route", "cluster_size", "chain_floor_ms",
                          "launch"),
              "tree_dp_steps": ("ms_f64", "kernel_busy_ms", "dp_route", "t3_ms", "t3_ms_f64"),
+             "forward_sweep_vjp": ("streamed_launches",),
              "forward_sweep_general": ("uniform_ms", "smem_bytes", "blocks_per_sm", "registers"),
              "forward_sweep_design_general": ("uniform_ms", "smem_bytes", "blocks_per_sm",
                                               "registers")}

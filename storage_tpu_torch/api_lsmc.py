@@ -24,9 +24,15 @@ phase marks 0.2 (paths simulated), 0.3 (intrinsic value), 0.9 and 1.0, and
 after every 16-step segment of the backward (0.3 to 0.7) and of the forward
 (0.7 to 0.9); the poll is read before each, and a true poll raises
 ``jobs.JobCancelledError``.  An interactive run gives the uninterrupted
-run's bits.  User panels too large for the card and
-``value_from_sims_host_local`` raise ``NotImplementedError`` naming, by its
-title, the ROADMAP item that ports them.  On CUDA a basis of more than 16 terms or a model of more than 8
+run's bits.  A valuation whose materialised panels would exceed the
+streaming threshold (``engines.lsmc.stream_threshold``: a share of the
+card's free memory) streams them, decided from shapes before anything is
+allocated: simulated paths are regenerated a segment at a time
+(``engines.lsmc.StreamedSims``), user panels stay in host memory and are
+copied a segment at a time (``engines.lsmc.HostRows``); both give the
+materialised run's bits.  ``value_from_sims_host_local`` raises
+``NotImplementedError`` naming, by its title, the ROADMAP item that ports
+it.  On CUDA a basis of more than 16 terms or a model of more than 8
 factors raises ``ValueError`` before anything runs: the kernels' caps
 (``ops._build.limits``); ``device="cpu"`` takes any size.  Seeds keep
 the JAX key semantics: ``key(seed)`` for the regression sims,
@@ -188,32 +194,11 @@ def multi_factor_value(
     _check_deltas_method(deltas_method)
     factor_corrs = mf.validate_multi_factor_params(factors, factor_corrs)
 
-    def sims_provider(inputs):
-        pre = mf.simulation_precompute(
-            factors, factor_corrs, inputs.val_day, list(inputs.periods), cmdty_storage.freq
-        )
-        as_t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
-        sim_inputs = [as_t(pre.decay), as_t(pre.chol), as_t(pre.vols), as_t(pre.half_var),
-                      as_t(inputs.fwd)]
-        reg_key = spot_sim.key_from_seed(0 if seed is None else int(seed))
-        if fwd_sim_seed is None:
-            # Independent stream derived from the regression seed.
-            val_key = spot_sim.fold_in(reg_key, 0x5EED)
-        else:
-            val_key = spot_sim.key_from_seed(int(fwd_sim_seed))
-        same_sims = fwd_sim_seed is not None and int(fwd_sim_seed) == int(0 if seed is None else seed)
-        path_ids = torch.arange(num_sims, dtype=torch.int64, device=device)
-        with lsmc_engine.full_f32_matmul():
-            logger.info("Simulating price paths on %s.", device)
-            reg = spot_sim.simulate_ou_paths(reg_key, path_ids, *sim_inputs,
-                                             antithetic=antithetic)
-            val = reg if same_sims else spot_sim.simulate_ou_paths(
-                val_key, path_ids, *sim_inputs, antithetic=antithetic)
-        return (reg.spot, reg.factors), (val.spot, val.factors)
-
+    sims = _SimulatedPaths(factors, factor_corrs, cmdty_storage.freq, num_sims, seed,
+                           fwd_sim_seed, antithetic, dtype, device)
     return _lsmc_calc(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
-        sims_provider, len(factors), basis_funcs, discount_deltas, extra_decisions,
+        sims, basis_funcs, discount_deltas, extra_decisions,
         num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
         on_progress_update, cancellation_poll, checkpoint_path, deltas_method, grid_calc,
     )
@@ -250,30 +235,17 @@ def value_from_sims(
     ``multi_factor.py:171-208`` / ``SpotSimResultsFromPanels.cs:36-117``).
     DataFrames are period-indexed [periods x sims] and must cover the active
     storage window; spot-only panels (no factor frames) take the engine's
-    spot-only backward (kernel D).  The panels are held on ``device``; panels
-    larger than its free memory wait for the host-streamed engine."""
+    spot-only backward (kernel D).  The panels are held on ``device``, or,
+    beyond the streaming threshold, in host memory and fed to it a segment at
+    a time (``sim_data_returned`` then raises ``ValueError``)."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
     device = resolve_device(device)
     _check_deltas_method(deltas_method)
-    wants_sim_data = _wants_sim_data(SimulationDataReturned.coerce(sim_data_returned))
-    sim_factors_regress, sim_factors_valuation = (
-        None if f is None else list(f) for f in (sim_factors_regress, sim_factors_valuation))
-
-    def sims_provider(inputs):
-        reg = _frames_to_sims(sim_spot_regress, sim_factors_regress, inputs, "regress", dtype)
-        val = _frames_to_sims(sim_spot_valuation, sim_factors_valuation, inputs, "valuation", dtype)
-        if reg[0].shape[1] != val[0].shape[1]:
-            raise ValueError(
-                "Regression and valuation simulations must have the same number of sims."
-            )
-        _require_panels_fit(reg, num_inventory_grid_points, wants_sim_data, dtype, device)
-        return tuple((torch.tensor(spot, device=device), torch.tensor(fac, device=device))
-                     for spot, fac in (reg, val))
-
-    num_factors = max(len(f or ()) for f in (sim_factors_regress, sim_factors_valuation))
+    sims = _UserPanels(sim_spot_regress, sim_spot_valuation, sim_factors_regress,
+                       sim_factors_valuation, dtype, device)
     return _lsmc_calc(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
-        sims_provider, num_factors, basis_funcs, discount_deltas, extra_decisions,
+        sims, basis_funcs, discount_deltas, extra_decisions,
         num_inventory_grid_points, sim_data_returned, dtype, device, snap_interp,
         on_progress_update, cancellation_poll, checkpoint_path, deltas_method, grid_calc,
     )
@@ -283,6 +255,88 @@ def value_from_sims_host_local(*args, **kwargs) -> MultiFactorValuationResults:
     """Multi-host ``value_from_sims`` (each process's block of paths): not
     ported yet."""
     _refuse("value_from_sims_host_local (multi-process panels)", "multi-GPU")
+
+
+class _SimulatedPaths:
+    """The paths of a simulated valuation: the regression set from
+    ``key(seed)``, the valuation set from ``fold_in(key, 0x5EED)`` when
+    ``fwd_sim_seed`` is None (one shared set when the two seeds are equal),
+    either simulated whole (``materialise``) or regenerated a segment at a
+    time by the engine (``stream``)."""
+
+    user_panels = False
+
+    def __init__(self, factors, factor_corrs, freq, num_sims, seed, fwd_sim_seed, antithetic,
+                 dtype, device):
+        self.factors, self.factor_corrs, self.freq = factors, factor_corrs, freq
+        self.num_sims, self.num_factors = int(num_sims), len(factors)
+        self.antithetic, self.dtype, self.device = antithetic, dtype, device
+        self.reg_key = spot_sim.key_from_seed(0 if seed is None else int(seed))
+        if fwd_sim_seed is None:
+            # Independent stream derived from the regression seed.
+            self.val_key = spot_sim.fold_in(self.reg_key, 0x5EED)
+        else:
+            self.val_key = spot_sim.key_from_seed(int(fwd_sim_seed))
+        self.same_sims = (fwd_sim_seed is not None
+                          and int(fwd_sim_seed) == int(0 if seed is None else seed))
+        self.num_sets = 1 if self.same_sims else 2
+
+    def _tables(self, inputs):
+        pre = mf.simulation_precompute(
+            self.factors, self.factor_corrs, inputs.val_day, list(inputs.periods), self.freq)
+        as_t = lambda a: torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)  # noqa: E731
+        sim_inputs = {k: as_t(getattr(pre, k)) for k in ("decay", "chol", "vols", "half_var")}
+        sim_inputs["fwd"] = as_t(inputs.fwd)
+        return sim_inputs, torch.arange(self.num_sims, dtype=torch.int64, device=self.device)
+
+    def materialise(self, inputs):
+        sim_inputs, path_ids = self._tables(inputs)
+        args = [sim_inputs[k] for k in ("decay", "chol", "vols", "half_var", "fwd")]
+        logger.info("Simulating price paths on %s.", self.device)
+        reg = spot_sim.simulate_ou_paths(self.reg_key, path_ids, *args, antithetic=self.antithetic)
+        val = reg if self.same_sims else spot_sim.simulate_ou_paths(
+            self.val_key, path_ids, *args, antithetic=self.antithetic)
+        return (reg.spot, reg.factors), (val.spot, val.factors)
+
+    def stream(self, inputs):
+        sim_inputs, path_ids = self._tables(inputs)
+        return lsmc_engine.streamed_sims(sim_inputs, self.reg_key, self.val_key, path_ids,
+                                         self.antithetic, self.same_sims)
+
+
+class _UserPanels:
+    """The paths of ``value_from_sims``: the user's frames as host arrays,
+    copied whole to the device (``materialise``) or kept in host memory and
+    copied a segment at a time (``stream``, ``engines.lsmc.HostRows``)."""
+
+    user_panels = True
+    num_sets = 2
+
+    def __init__(self, spot_regress, spot_valuation, factors_regress, factors_valuation, dtype,
+                 device):
+        self.frames = [(spot_regress, None if factors_regress is None else list(factors_regress)),
+                       (spot_valuation,
+                        None if factors_valuation is None else list(factors_valuation))]
+        self.dtype, self.device = dtype, device
+        self.num_sims = spot_regress.shape[1]
+        self.num_factors = max(len(f or ()) for _, f in self.frames)
+
+    def _host(self, inputs):
+        reg, val = (_frames_to_sims(spot, factors, inputs, label, self.dtype)
+                    for (spot, factors), label in zip(self.frames, ("regress", "valuation")))
+        if reg[0].shape[1] != val[0].shape[1]:
+            raise ValueError(
+                "Regression and valuation simulations must have the same number of sims."
+            )
+        return reg, val
+
+    def materialise(self, inputs):
+        return tuple((torch.tensor(spot, device=self.device),
+                      torch.tensor(fac, device=self.device)) for spot, fac in self._host(inputs))
+
+    def stream(self, inputs):
+        return tuple(lsmc_engine.HostRows(spot, fac, self.device)
+                     for spot, fac in self._host(inputs))
 
 
 def _frames_to_sims(spot_frame, factor_frames, inputs, label, dtype):
@@ -313,20 +367,36 @@ def _align_frame(frame: pd.DataFrame, periods: pd.PeriodIndex, name: str) -> np.
     return frame.reindex(periods).to_numpy(dtype=np.float64)
 
 
-def _require_panels_fit(reg, num_grid: int, wants_sim_data: bool, dtype, device) -> None:
-    """User panels held on the card: both path sets, the engine's two value
-    panels and the per-sim output panels must fit its free memory."""
-    if device.type != "cuda":
-        return
-    spot, factors = reg
-    periods, sims = spot.shape
-    rows = 2 * (1 + factors.shape[1]) * periods + 2 * num_grid + (6 * periods if wants_sim_data else 0)
-    need = rows * sims * torch.finfo(dtype).bits // 8
-    free, _ = torch.cuda.mem_get_info(device)
-    if need > free:
-        _refuse(f"user panels larger than the card's free memory ({need / 1e9:.1f} GB needed, "
-                f"{free / 1e9:.1f} GB free; the host-streamed engine)",
-                "the streamed engine")
+def _route(sims, num_steps: int, num_grid: int, sim_data_returned, grid_calc, dtype,
+           device) -> bool:
+    """Whether the valuation streams its paths, decided from shapes before
+    anything is allocated (the JAX package's rule, storage_tpu/api_lsmc.py:
+    520-528 and parallel/mesh.py:247-259): when the materialised footprint
+    (``engines.lsmc.footprint_bytes``) exceeds ``stream_threshold``.  User
+    panels then stay in host memory, and asking for panels back raises;
+    simulated paths stream only when no path or per-sim panel is asked for
+    and there is no ``grid_calc``.  The route is logged."""
+    flags = SimulationDataReturned
+    wants_panels = _wants_sim_data(sim_data_returned) or bool(sim_data_returned & (
+        flags.SPOT_REGRESS | flags.SPOT_VALUATION | flags.FACTORS_REGRESS
+        | flags.FACTORS_VALUATION))
+    itemsize = torch.finfo(dtype).bits // 8
+    footprint = lsmc_engine.footprint_bytes(num_steps, sims.num_sims, sims.num_factors, num_grid,
+                                            itemsize, sims.num_sets)
+    threshold = lsmc_engine.stream_threshold(device)
+    stream = footprint > threshold
+    if stream and sims.user_panels and wants_panels:
+        raise ValueError(
+            "sim_data_returned panels do not fit device memory at this path count; pass "
+            "SimulationDataReturned.NONE."
+        )
+    stream = stream and (sims.user_panels or (not wants_panels and grid_calc is None))
+    route = ("host-streamed" if sims.user_panels else "streamed") if stream else "materialised"
+    logger.info(
+        "LSMC execution: 1 device (%s), %d sims, paths=%s (%.2f GB of panels, threshold %.2f GB)",
+        device, sims.num_sims, route, footprint / 1e9, threshold / 1e9,
+    )
+    return stream
 
 
 def _wants_sim_data(flags: SimulationDataReturned) -> bool:
@@ -344,8 +414,7 @@ def _lsmc_calc(
     fwd_curve,
     interest_rates,
     settlement_rule,
-    sims_provider,
-    num_factors: int,
+    sims,
     basis_funcs,
     discount_deltas: bool,
     extra_decisions,
@@ -360,9 +429,9 @@ def _lsmc_calc(
     deltas_method: str = "pathwise",
     grid_calc=None,
 ) -> MultiFactorValuationResults:
-    """The valuation shared by the entry points: ``sims_provider(inputs)``
-    returns ((spot_reg, factors_reg), (spot_val, factors_val)) on ``device``,
-    with ``num_factors`` factor panels each."""
+    """The valuation shared by the entry points: ``sims`` (``_SimulatedPaths``
+    or ``_UserPanels``) gives the regression and valuation paths on
+    ``device``, materialised or as rows sources (``_route``)."""
     if checkpoint_path is not None and not isinstance(basis_funcs, str):
         raise ValueError(
             "checkpoint_path requires basis_funcs as a string (checkpoints "
@@ -421,19 +490,30 @@ def _lsmc_calc(
             ", ".join(str(m) for m in monomials if isinstance(m, basis_mod.GenericBasisFunction)),
         )
     if device.type == "cuda":
-        _build.require_caps("storage_tpu_torch", len(monomials), num_factors)
+        _build.require_caps("storage_tpu_torch", len(monomials), sims.num_factors)
     stopwatches = Stopwatches()
     with stopwatches.time("prepare_inputs"):
         inputs = prepare_valuation(
             cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule
         )
 
+    stream = _route(sims, len(inputs.periods) - 1, num_grid_points, sim_data_returned,
+                    grid_calc, dtype, device)
+    paths = dict.fromkeys(("spot_regress", "spot_valuation", "factors_regress",
+                           "factors_valuation"))
     with stopwatches.time("path_simulation"):
-        (spot_reg, factors_reg), (spot_val, factors_val) = sims_provider(inputs)
-    if basis_mod.num_factors_required(monomials) > factors_reg.shape[1]:
+        if stream:
+            reg, val = sims.stream(inputs)
+        else:
+            (spot_reg, factors_reg), (spot_val, factors_val) = sims.materialise(inputs)
+            paths = {"spot_regress": spot_reg, "spot_valuation": spot_val,
+                     "factors_regress": factors_reg, "factors_valuation": factors_val}
+            reg = lsmc_engine.PanelRows(spot_reg, factors_reg)
+            val = lsmc_engine.PanelRows(spot_val, factors_val)
+    if basis_mod.num_factors_required(monomials) > reg.num_factors:
         raise ValueError(
             f"Basis functions reference factor x{basis_mod.num_factors_required(monomials) - 1} "
-            f"but only {factors_reg.shape[1]} factors are simulated."
+            f"but only {reg.num_factors} factors are simulated."
         )
     progress(0.2)
     grids = None if grid_calc is None else gridmod.inventory_grids_custom(
@@ -455,9 +535,8 @@ def _lsmc_calc(
     progress(0.3)
     logger.info("Calculating LSMC value.")
     with stopwatches.time("lsmc_backward_forward"):
-        result = lsmc_engine.lsmc_core(
-            arrays, spot_reg, factors_reg, spot_val, factors_val, inputs.starting_inventory,
-            monomials, int(extra_decisions or 0), bool(discount_deltas), terminal_fn,
+        result = lsmc_engine.lsmc_core_rows(
+            arrays, reg, val, inputs.starting_inventory, monomials, int(extra_decisions or 0), bool(discount_deltas), terminal_fn,
             inputs.compiled.ratchet_is_step, snap_interp=snap_interp,
             return_regression=checkpoint_path is not None,
             return_sim_data=_wants_sim_data(sim_data_returned),
@@ -484,9 +563,7 @@ def _lsmc_calc(
         result["npv"], result["backward_npv"],
     )
     progress(0.9)
-    paths = {"spot_regress": spot_reg, "spot_valuation": spot_val,
-             "factors_regress": factors_reg, "factors_valuation": factors_val}
-    out = _results(inputs.periods, result, sim_data_returned, paths,
+    out = _results(inputs.periods, result, sim_data_returned, paths, reg.num_factors,
                    intrinsic=(float(intrinsic.npv), intrinsic_profile))
     if logger.isEnabledFor(logging.INFO):
         logger.info("LSMC phase profile:\n%s", stopwatches.report())
@@ -495,10 +572,10 @@ def _lsmc_calc(
 
 
 def _results(periods, result, sim_data_returned: SimulationDataReturned,
-             paths, intrinsic) -> MultiFactorValuationResults:
+             paths, num_factors: int, intrinsic) -> MultiFactorValuationResults:
     """The result container; ``intrinsic`` is the intrinsic (NPV, profile
     frame); the per-sim panels the flags ask for become f64 frames (periods x
-    sims)."""
+    sims); ``paths`` holds None for each path panel of a streamed run."""
     active = periods[:-1]
     f64 = lambda key: result[key].astype(np.float64)  # noqa: E731
     trigger_prices = pd.DataFrame(
@@ -539,8 +616,8 @@ def _results(periods, result, sim_data_returned: SimulationDataReturned,
         return pd.DataFrame(data=np.asarray(data, dtype=np.float64), index=index, copy=False)
 
     def factor_frames(flag, factors):
-        if not sim_data_returned & flag:
-            return tuple(pd.DataFrame() for _ in range(factors.shape[1]))
+        if not sim_data_returned & flag or factors is None:
+            return tuple(pd.DataFrame() for _ in range(num_factors))
         host = factors.detach().cpu().numpy()
         return tuple(frame(flag, host[:, i, :], periods) for i in range(host.shape[1]))
 

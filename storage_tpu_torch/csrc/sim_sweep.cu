@@ -15,6 +15,14 @@
 // of the plain version, ops/rng_kernel.py:simulate_sweep_plain, so that both
 // give the same bits.
 //
+// A sweep may resume: it starts at step `start` from the entry state x_in
+// (x_{start-1}, zeros where NULL), its step tables sliced from `start`, its
+// draws the words W = (start + k)*F + i.  Where start*F is odd its first word
+// is the second half of block (start*F)/2: that block is hashed first and its
+// second word kept as the spare.  The state leaving the sweep is its last
+// factor row.  A resumed sweep's rows are those of one long sweep, to the bit
+// (the streamed engine, engines/lsmc.py, regenerates its segments so).
+//
 // Bound on the H100: instruction issue.  Per path and step: F normals and F/2
 // hashes (~190 unfused f32 and ~120 integer operations at F=3) against
 // (F+1)*4 bytes written; the normals never reach device memory.  Design: one
@@ -35,8 +43,8 @@ constexpr int kThreads = 256;
 
 template <int F>
 __global__ void __launch_bounds__(kThreads) sim_sweep_kernel(
-    uint32_t k0, uint32_t k1, int P, int S, const uint32_t* __restrict__ ids,
-    const float* __restrict__ sign, const float* __restrict__ decay,
+    uint32_t k0, uint32_t k1, uint32_t start, int P, int S, const uint32_t* __restrict__ ids,
+    const float* __restrict__ sign, const float* __restrict__ x_in, const float* __restrict__ decay,
     const float* __restrict__ chol, const float* __restrict__ vols,
     const float* __restrict__ c, float* __restrict__ factors, float* __restrict__ spot) {
   const int s = blockIdx.x * kThreads + threadIdx.x;
@@ -45,10 +53,17 @@ __global__ void __launch_bounds__(kThreads) sim_sweep_kernel(
   const float sg = sign != nullptr ? sign[s] : 1.0f;
   float x[F];
 #pragma unroll
-  for (int i = 0; i < F; ++i) x[i] = 0.0f;
-  uint32_t block = 0;  // the counter block of the next word
-  uint32_t spare = 0;  // the second word of `block`, once hashed
-  bool have_spare = false;
+  for (int i = 0; i < F; ++i) x[i] = x_in != nullptr ? x_in[static_cast<size_t>(i) * S + s] : 0.0f;
+  const uint32_t w0 = start * static_cast<uint32_t>(F);
+  uint32_t block = w0 / 2;  // the counter block of the next word
+  uint32_t spare = 0;       // the second word of `block`, once hashed
+  bool have_spare = (w0 & 1u) != 0;
+  if (have_spare) {  // the first word is the second half of its block
+    uint32_t x0 = hi;
+    uint32_t x1 = block;
+    stt::threefry2x32(k0, k1, x0, x1);
+    spare = x1;
+  }
   for (int k = 0; k < P; ++k) {
     float z[F];
 #pragma unroll
@@ -106,19 +121,20 @@ SweepKernel sweep_kernel(int F) {
 
 }  // namespace
 
-// factors [P, F, S] and spot [P, S] of the paths ids [S] (uint32 identities;
-// sign [S] f32 or NULL) from the step tables decay [P, F], chol [P, F, F],
-// vols [P, F] and c [P].
-extern "C" int stt_simulate_sweep(uint32_t k0, uint32_t k1, int P, int F, int S,
-                                  const void* ids, const void* sign, const void* decay,
-                                  const void* chol, const void* vols, const void* c,
-                                  void* factors, void* spot, void* stream) {
+// factors [P, F, S] and spot [P, S] of steps start..start+P-1 of the paths
+// ids [S] (uint32 identities; sign [S] f32 or NULL) from the entry state x_in
+// [F, S] (NULL: zeros) and the step tables of those steps, decay [P, F], chol
+// [P, F, F], vols [P, F] and c [P].
+extern "C" int stt_simulate_sweep(uint32_t k0, uint32_t k1, uint32_t start, int P, int F, int S,
+                                  const void* ids, const void* sign, const void* x_in,
+                                  const void* decay, const void* chol, const void* vols,
+                                  const void* c, void* factors, void* spot, void* stream) {
   const SweepKernel kernel = sweep_kernel(F);
   if (kernel == nullptr || P < 0 || S < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0 || S == 0) return 0;
   kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      k0, k1, P, S, static_cast<const uint32_t*>(ids), static_cast<const float*>(sign),
-      static_cast<const float*>(decay), static_cast<const float*>(chol),
+      k0, k1, start, P, S, static_cast<const uint32_t*>(ids), static_cast<const float*>(sign),
+      static_cast<const float*>(x_in), static_cast<const float*>(decay), static_cast<const float*>(chol),
       static_cast<const float*>(vols), static_cast<const float*>(c),
       static_cast<float*>(factors), static_cast<float*>(spot));
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,14 @@
-"""Least-Squares Monte Carlo storage valuation engine over materialised path
-panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
+"""Least-Squares Monte Carlo storage valuation engine (counterpart of the
+fused and streamed paths of ``storage_tpu.engines.lsmc``).
 
+* Both passes read their paths from a rows source a segment at a time:
+  ``PanelRows`` (materialised panels, views), ``StreamedSims`` (simulated
+  paths never materialised: each ``SEG_LEN``-step segment regenerated by
+  kernel A's resumed sweep from the factor state entering it, which a
+  warmup pass keeps as checkpoints) or ``HostRows`` (user panels in pinned
+  host memory, copied a segment at a time).  Every source of the same
+  paths gives the same bits.  ``footprint_bytes`` and ``stream_threshold``
+  decide, from shapes, when a valuation streams.
 * Backward induction runs one decision kernel per step (``ops.decision_kernel``):
   argmax on REGRESSED values while realising ACTUAL simulated continuations
   (LsmcStorageValuation.cs:310-336).  With factor panels, kernel B also
@@ -16,8 +24,9 @@ panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
   with a user callable (``basis.generic``) take the JAX package's plain body:
   each step regresses v on its standardised design (``fit_continuation``)
   and runs kernel D on it.
-* The forward pass runs one forward sweep over all steps (kernel C,
-  ``ops.forward_kernel``) on an independent valuation-sim set, re-using the
+* The forward pass runs one forward sweep over all steps of materialised
+  panels (kernel C, ``ops.forward_kernel``; a launch a segment on another
+  source) on an independent valuation-sim set, re-using the
   saved regression (the dual-simulation lower-bound estimator,
   LsmcStorageValuation.cs:352-415); a basis with a user callable runs the
   sweep's design mode on the design built a chunk of steps at a time
@@ -37,14 +46,15 @@ panels (counterpart of the fused path of ``storage_tpu.engines.lsmc``).
   mode, the trigger prices by ``interp.interp_vector_general``.
 * Adjoint deltas (``adjoint=True``, then ``adjoint_deltas``) differentiate
   the pricing run's own forward sweep in the forward curve with the
-  regression payload held fixed (``forward_kernel.ForwardSweepFn``, whose
-  backward is the VJP kernel), and the terminal value by autograd: no second
-  backward pass, and NPV, SE, profiles and triggers stay the pricing run's.
+  regression payload held fixed (the VJP kernel on the volume and fuel rows
+  each launch of the sweep wrote), and the terminal value by autograd: no
+  second backward pass, and NPV, SE, profiles and triggers stay the pricing
+  run's.
 
 Everything that does not depend on the loop carry — decision sets,
 interpolation indices and weights, immediate-value coefficients, the forward
 kernel's parameter vectors, the trigger prices — is computed for all steps at
-once, outside the backward's 365-step loop, and nothing in that loop or in the
+once, outside the backward's loop, and nothing in that loop or in the
 forward sweep reads a value back to the host.
 
 Known deviations from the reference are those of the JAX package (see its
@@ -63,18 +73,57 @@ import torch
 from .. import grid as gridmod
 from ..basis import design_columns, design_matrix, has_generic
 from ..facility import CompiledStorage
+from ..models import spot_sim
 from ..ops import decision_kernel, forward_kernel, interp
 from ..ops.regression import column_stats, fit_continuation, fit_from_moments
 
 NUM_TRIGGER_PRICE_VOLUMES = 10  # LsmcStorageValuation.cs:383
 # Steps between progress callbacks of an interactive run (the JAX package's
-# ``lsmc_core_chunked`` default).
+# ``lsmc_core_chunked`` default), and the segment a streamed pass regenerates
+# or copies at a time.
 SEG_LEN = 16
+# A valuation streams its paths (``StreamedSims``, ``HostRows``) when its
+# materialised footprint (``footprint_bytes``) exceeds ``stream_threshold``:
+# on the CPU the JAX package's 4 GiB (storage_tpu/parallel/mesh.py:43), on
+# CUDA a share of the card's free memory at the call.  The rest of a
+# materialised valuation's peak is the regression payload, the step tables
+# and a segment's temporaries: 0.75 leaves room for them and for the
+# caching allocator's slack (PERF.md §5 gives the measured peak beside the
+# footprint at the hourly year).
+STREAM_THRESHOLD_BYTES = 4 << 30
+STREAM_FREE_SHARE = 0.75
 
 _SCALARS = (
     "df_settle", "df_flow", "inj_cost", "wdr_cost", "inj_pcnt", "wdr_pcnt",
     "loss_pcnt", "inv_cost_rate",
 )
+
+
+def panel_bytes(num_steps: int, num_sims: int, num_factors: int, itemsize: int,
+                num_sets: int = 2) -> int:
+    """Bytes of the materialised path panels, spot [N+1, S] and factors
+    [N+1, F, S] a set (two sets, or one when the valuation reuses the
+    regression paths): the JAX package's ``_panel_bytes``."""
+    return num_sets * (num_steps + 1) * num_sims * (num_factors + 1) * itemsize
+
+
+def footprint_bytes(num_steps: int, num_sims: int, num_factors: int, num_grid: int,
+                    itemsize: int, num_sets: int = 2) -> int:
+    """A materialised valuation's device footprint: its path panels and the
+    backward's two [G, S] value panels."""
+    return (panel_bytes(num_steps, num_sims, num_factors, itemsize, num_sets)
+            + 2 * num_grid * num_sims * itemsize)
+
+
+def stream_threshold(device) -> int:
+    """The footprint above which a valuation on ``device`` streams its paths:
+    ``STREAM_FREE_SHARE`` of the card's free memory now, or
+    ``STREAM_THRESHOLD_BYTES`` off the card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return int(STREAM_FREE_SHARE * free)
+    return STREAM_THRESHOLD_BYTES
 
 
 @contextlib.contextmanager
@@ -194,12 +243,14 @@ def _backward_prep_all(arrays, num_extra_decisions: int, ratchet_is_step: bool,
     }
 
 
-def _design_stats(monomials, spot, factors, chunk: int = 16):
+def _design_stats(monomials, spot, factors, chunk: tp.Optional[int] = None):
     """Exact two-pass column stats (mean, std) [N, B] of every step's design
-    matrix, ``chunk`` steps at a time.  They depend on the regression panels
-    alone, so they are made before the backward loop; the decision kernel
-    standardises step t−1's moments by them."""
+    matrix, ``chunk`` steps at a time (``SEG_LEN`` where None: a segment's
+    rows at a time, as the warmup takes them).  They depend on the
+    regression panels alone, so they are made before the backward loop; the
+    decision kernel standardises step t−1's moments by them."""
     n = spot.shape[0]
+    chunk = chunk or SEG_LEN
     means, stds = [], []
     for t0 in range(0, n, chunk):
         # Columns stacked [chunk, B, S] (a contiguous copy) and read through a
@@ -242,10 +293,176 @@ def _ticker(segment_cb, phase: str, num_steps: int):
     return tick
 
 
-def lsmc_backward(
+def _segments(num_steps: int, length: tp.Optional[int] = None):
+    """The segments (t0, t1) of a pass, ``length`` steps each (``SEG_LEN``
+    where None): from step 0 at multiples of it, a shorter tail last (365 =
+    22·16 + 13), as ``_ticker`` counts them."""
+    seg_len = max(1, min(length or SEG_LEN, num_steps))
+    return [(t0, min(t0 + seg_len, num_steps)) for t0 in range(0, num_steps, seg_len)]
+
+
+class PanelRows:
+    """The rows source of materialised panels, spot [N+1, S] and factors
+    [N+1, F, S]: ``rows(a, b)`` are views of rows a..b−1, no copy."""
+
+    whole = True  # a pass may take all its steps at once
+
+    def __init__(self, spot: torch.Tensor, factors: torch.Tensor):
+        self.spot, self.factors = spot, factors
+        self.num_sims, self.num_factors = spot.shape[1], factors.shape[1]
+
+    def plan(self, starts) -> None:
+        pass
+
+    def rows(self, a: int, b: int):
+        return self.spot[a:b], self.factors[a:b]
+
+    def prefetch(self, a: int, b: int) -> None:
+        pass
+
+
+class StreamedSims:
+    """The rows source of a simulated path set that is never materialised
+    (the JAX package's ``StreamedSims``): ``rows(a, b)`` regenerates rows
+    a..b−1 by the resumed simulation (``spot_sim.simulate_ou_segment``, the
+    same bits as one simulation) from the factor state entering step a.  That
+    state is zeros at step 0, the last row of the previous call where that
+    call ended at a, or else a checkpoint: ``plan(starts)`` names the steps
+    whose entry state the next pass keeps as it goes (the warmup keeps every
+    backward segment's), and a checkpoint is dropped once used.
+
+    ``sim_inputs`` holds the OU tables decay [N+1, F], chol [N+1, F, F], vols
+    [N+1, F], half_var [N+1] and fwd [N+1] (``simulation_precompute`` and the
+    curve); ``key`` and ``path_ids`` [S] address the draws, as
+    ``simulate_ou_paths`` does."""
+
+    whole = False
+
+    def __init__(self, sim_inputs: tp.Mapping[str, torch.Tensor], key, path_ids,
+                 antithetic: bool = False):
+        self.decay, self.chol, self.vols = (sim_inputs[k] for k in ("decay", "chol", "vols"))
+        self.c = torch.log(sim_inputs["fwd"]) - sim_inputs["half_var"]
+        self.key, self.path_ids, self.antithetic = key, path_ids, antithetic
+        self.num_sims, self.num_factors = path_ids.shape[0], self.decay.shape[1]
+        self._keep: tp.Set[int] = set()
+        self._entries: tp.Dict[int, torch.Tensor] = {}
+        self._carry: tp.Tuple[int, tp.Optional[torch.Tensor]] = (0, None)
+
+    def plan(self, starts) -> None:
+        self._keep = {int(r) for r in starts if r > 0}
+
+    def rows(self, a: int, b: int):
+        if a == 0:
+            x0 = None
+        elif a == self._carry[0]:
+            x0 = self._carry[1]
+        elif a in self._entries:
+            x0 = self._entries.pop(a)
+        else:
+            raise ValueError(f"StreamedSims: no state enters step {a}; plan() names the steps "
+                             "a later pass starts at")
+        res = spot_sim.simulate_ou_segment(
+            self.key, self.path_ids, self.decay[a:b], self.chol[a:b], self.vols[a:b],
+            self.c[a:b], a, x0, self.antithetic)
+        for r in [r for r in self._keep if a < r <= b]:
+            self._entries[r] = res.factors[r - 1 - a].clone()
+            self._keep.discard(r)
+        self._carry = (b, res.factors[-1])
+        return res.spot, res.factors
+
+    def prefetch(self, a: int, b: int) -> None:
+        pass
+
+
+class HostRows:
+    """The rows source of user panels held in host memory, spot [N+1, S] and
+    factors [N+1, F, S] (numpy): ``rows(a, b)`` copies rows a..b−1 to
+    ``device``.  On CUDA the panels are pinned, and ``prefetch(a, b)`` starts
+    the copy of the next rows on a side stream while the current ones are
+    consumed."""
+
+    whole = False
+
+    def __init__(self, spot: np.ndarray, factors: np.ndarray, device):
+        self.device = torch.device(device)
+        # Read-only arrays (a frame's) are copied: torch tensors are writable.
+        self.spot, self.factors = (torch.from_numpy(np.require(a, requirements=("C", "W")))
+                                   for a in (spot, factors))
+        self._side = None
+        if self.device.type == "cuda":
+            self.spot, self.factors = self.spot.pin_memory(), self.factors.pin_memory()
+            self._side = torch.cuda.Stream(self.device)
+        self.num_sims, self.num_factors = spot.shape[1], factors.shape[1]
+        self._next = None
+
+    def plan(self, starts) -> None:
+        pass
+
+    def _copy(self, a: int, b: int):
+        return (self.spot[a:b].to(self.device, non_blocking=True),
+                self.factors[a:b].to(self.device, non_blocking=True))
+
+    def rows(self, a: int, b: int):
+        if self._next is not None and self._next[0] == (a, b):
+            _, event, out = self._next
+            self._next = None
+            torch.cuda.current_stream(self.device).wait_event(event)
+            return out
+        return self._copy(a, b)
+
+    def prefetch(self, a: int, b: int) -> None:
+        if self._side is None:
+            return
+        current = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._side):
+            out = self._copy(a, b)
+            event = torch.cuda.Event()
+            event.record(self._side)
+        for x in out:
+            x.record_stream(current)  # freed only once the consuming stream is done
+        self._next = ((a, b), event, out)
+
+
+def _each_rows(src, ranges):
+    """``src.rows(a, b)`` of each range in turn, the next range's rows
+    prefetched while the caller consumes these."""
+    for k, (a, b) in enumerate(ranges):
+        rows = src.rows(a, b)
+        if k + 1 < len(ranges):
+            src.prefetch(*ranges[k + 1])
+        yield rows
+
+
+def _stream_warmup(src, monomials, num_steps: int):
+    """One pass over a rows source before the backward: each segment's design
+    stats (``_design_stats`` on the segment's rows, so the same bits as over
+    whole panels) and, for a regenerated source, the checkpoints the backward
+    starts from (the state entering each segment's previous step,
+    ``_backward_ranges``).  The last segment also takes step N.  Returns mean
+    and std [N, B], and spot and factors of step N−1 and the spot of step N
+    (the terminal values and the moments' bootstrap)."""
+    n = num_steps
+    segs = _segments(n)
+    src.plan([a for a, _ in _backward_ranges(n)])
+    ranges = [(t0, t1 + (t1 == n)) for t0, t1 in segs]
+    means, stds = [], []
+    for (t0, t1), (spot, factors) in zip(segs, _each_rows(src, ranges)):
+        m = t1 - t0
+        mean, std = _design_stats(monomials, spot[:m], factors[:m])
+        means.append(mean)
+        stds.append(std)
+    return torch.cat(means), torch.cat(stds), (spot[m - 1], factors[m - 1], spot[m])
+
+
+def _backward_ranges(num_steps: int):
+    """The rows each backward segment reads, last segment first: its steps
+    and the step before (kernels B and E read step t−1; at t = 0 step 0)."""
+    return [(max(t0 - 1, 0), t1) for t0, t1 in reversed(_segments(num_steps))]
+
+
+def lsmc_backward_rows(
     arrays: tp.Dict[str, torch.Tensor],
-    spot_reg: torch.Tensor,  # [N+1, S]
-    factors_reg: torch.Tensor,  # [N+1, F, S]
+    src,
     monomials: tp.Tuple,
     num_extra_decisions: int,
     terminal_fn,
@@ -255,8 +472,13 @@ def lsmc_backward(
     segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
     uniform_grids: bool = True,
 ):
-    """Backward induction.  Returns (v0 [G, S], regression payload of stacked
+    """Backward induction over a rows source (``PanelRows``, ``StreamedSims``
+    or ``HostRows``).  Returns (v0 [G, S], regression payload of stacked
     per-step mean [N, B], std [N, B], coeffs [N, B, G]).
+
+    The warmup (``_stream_warmup``) takes every step's design stats first;
+    then the segments run from the last, each reading its rows and the step
+    before them once: every source gives the same bits.
 
     ``segment_cb("backward", done, total)``, where given, is called after
     each ``SEG_LEN``-step segment, from the last step down (``_ticker``);
@@ -274,70 +496,81 @@ def lsmc_backward(
     n = grids.shape[0] - 1
     num_grid = grids.shape[1]
     dtype = grids.dtype
-    design_in_memory = factors_reg.shape[1] == 0 or has_generic(monomials)
+    design_in_memory = src.num_factors == 0 or has_generic(monomials)
     if fullstep and design_in_memory:
         raise ValueError("fullstep needs factor panels and a monomial basis: spot-only panels "
                          "and generic bases run kernel D")
-    v = _terminal_values(
-        terminal_fn, spot_reg[n], grids[n], num_grid, spot_reg.shape[1], dtype
-    )
+    mean, std, (spot_last, factors_last, spot_end) = _stream_warmup(src, monomials, n)
+    v = _terminal_values(terminal_fn, spot_end, grids[n], num_grid, src.num_sims, dtype)
     prep = _backward_prep_all(arrays, num_extra_decisions, ratchet_is_step, snap_interp,
                               uniform_grids)
-    mean, std = _design_stats(monomials, spot_reg[:n], factors_reg[:n])  # [N, B]
     coeffs_all = torch.empty((n, len(monomials), num_grid), dtype=dtype, device=grids.device)
     spare = torch.empty_like(v)
     step_args = lambda t: (prep["idx_lo"][t], prep["w_hi"][t])  # noqa: E731
     tick = _ticker(segment_cb, "backward", n)
-    if design_in_memory:
-        for t in range(n - 1, -1, -1):
-            # Regression of the next period's values on this period's
-            # standardised design (the JAX plain body, engines/lsmc.py:306-327).
-            dm_t = _standardised_design_t(monomials, spot_reg[t], factors_reg[t], mean[t], std[t])
-            coeffs = fit_continuation(dm_t.T, v.T)  # [B, G]
-            ci = interp.interp_coeffs(coeffs, *step_args(t))
-            best_act = decision_kernel.decision_update(
-                v, dm_t, spot_reg[t], *step_args(t), ci, prep["a"][t], prep["b"][t], out=spare,
-            )
-            spare, v = v, best_act
-            coeffs_all[t] = coeffs
-            tick(t)
-        return v, {"mean": mean, "std": std, "coeffs": coeffs_all}
-
-    xtx, xty = _fused_bootstrap(
-        monomials, spot_reg[n - 1], factors_reg[n - 1], v, mean[n - 1], std[n - 1]
-    )
+    if not design_in_memory:
+        xtx, xty = _fused_bootstrap(monomials, spot_last, factors_last, v, mean[n - 1],
+                                    std[n - 1])
     if fullstep:
-        # Kernel E solves each step's regression from the carried moments
-        # (centred by the step's exact stats, so it recovers them to
-        # rounding) and writes the payload rows in place: no tensor glue.
+        # Kernel E writes the payload rows in place: no tensor glue.
         mean_out, std_out = torch.empty_like(mean), torch.empty_like(std)
-        for t in range(n - 1, -1, -1):
-            prev = max(t - 1, 0)
-            best_act, xtx, xty, _, _, _ = decision_kernel.decision_update_fullstep(
-                v, spot_reg[t], factors_reg[t], spot_reg[prev], factors_reg[prev], xtx, xty,
-                mean[t], std[t], *step_args(t), prep["a"][t], prep["b"][t], monomials,
-                mean_prev=mean[prev], std_prev=std[prev], out=spare,
-                regression_out=(mean_out[t], std_out[t], coeffs_all[t]),
-            )
+    ranges = _backward_ranges(n)
+    segs = reversed(_segments(n))
+    for (t0, t1), (r0, _), (spot, factors) in zip(segs, ranges, _each_rows(src, ranges)):
+        for t in range(t1 - 1, t0 - 1, -1):
+            tq = max(t - 1, 0)  # the previous step; at t = 0 step 0 itself
+            i, prev = t - r0, tq - r0  # their rows in the segment's
+            if design_in_memory:
+                # Regression of the next period's values on this period's
+                # standardised design (the JAX plain body, engines/lsmc.py:306-327).
+                dm_t = _standardised_design_t(monomials, spot[i], factors[i], mean[t], std[t])
+                coeffs = fit_continuation(dm_t.T, v.T)  # [B, G]
+                ci = interp.interp_coeffs(coeffs, *step_args(t))
+                best_act = decision_kernel.decision_update(
+                    v, dm_t, spot[i], *step_args(t), ci, prep["a"][t], prep["b"][t], out=spare,
+                )
+                coeffs_all[t] = coeffs
+            elif fullstep:
+                # Kernel E solves each step's regression from the carried
+                # moments (centred by the step's exact stats, so it recovers
+                # them to rounding).
+                best_act, xtx, xty, _, _, _ = decision_kernel.decision_update_fullstep(
+                    v, spot[i], factors[i], spot[prev], factors[prev], xtx, xty, mean[t], std[t],
+                    *step_args(t), prep["a"][t], prep["b"][t], monomials, mean_prev=mean[tq],
+                    std_prev=std[tq], out=spare,
+                    regression_out=(mean_out[t], std_out[t], coeffs_all[t]),
+                )
+            else:
+                # Step t's moments arrive standardised by its exact stats: the
+                # normal equations of the JAX XLA path, without a second pass
+                # over v.
+                coeffs = fit_from_moments(xtx, xty)  # [B, G]
+                ci = interp.interp_coeffs(coeffs, *step_args(t))
+                best_act, xtx, xty = decision_kernel.decision_update_moments(
+                    v, spot[i], factors[i], spot[prev], factors[prev], mean[t], std[t],
+                    mean[tq], std[tq], *step_args(t), ci, prep["a"][t], prep["b"][t],
+                    monomials, out=spare,
+                )
+                coeffs_all[t] = coeffs
             spare, v = v, best_act
             tick(t)
-        return v, {"mean": mean_out, "std": std_out, "coeffs": coeffs_all}
-
-    for t in range(n - 1, -1, -1):
-        # Step t's moments arrive standardised by its exact stats: the
-        # normal equations of the JAX XLA path, without a second pass over v.
-        coeffs = fit_from_moments(xtx, xty)  # [B, G]
-        ci = interp.interp_coeffs(coeffs, prep["idx_lo"][t], prep["w_hi"][t])
-        prev = max(t - 1, 0)  # the previous-step slice at t = 0 is step 0
-        best_act, xtx, xty = decision_kernel.decision_update_moments(
-            v, spot_reg[t], factors_reg[t], spot_reg[prev], factors_reg[prev],
-            mean[t], std[t], mean[prev], std[prev], prep["idx_lo"][t],
-            prep["w_hi"][t], ci, prep["a"][t], prep["b"][t], monomials, out=spare,
-        )
-        spare, v = v, best_act
-        coeffs_all[t] = coeffs
-        tick(t)
+    if fullstep:
+        mean, std = mean_out, std_out
     return v, {"mean": mean, "std": std, "coeffs": coeffs_all}
+
+
+def lsmc_backward(arrays, spot_reg: torch.Tensor, factors_reg: torch.Tensor, monomials,
+                  num_extra_decisions: int, terminal_fn, ratchet_is_step: bool, **kwargs):
+    """Backward induction over materialised regression panels, spot [N+1, S]
+    and factors [N+1, F, S] (``lsmc_backward_rows`` on ``PanelRows``)."""
+    return lsmc_backward_rows(arrays, PanelRows(spot_reg, factors_reg), monomials,
+                              num_extra_decisions, terminal_fn, ratchet_is_step, **kwargs)
+
+
+# The JAX package's name for the backward with every segment regenerated from
+# its checkpoint: here ``lsmc_backward_rows`` given a ``StreamedSims``, whose
+# results are ``lsmc_backward``'s on the same paths, to the bit.
+lsmc_backward_streamed = lsmc_backward_rows
 
 
 def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
@@ -423,22 +656,22 @@ def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
 
 @dataclasses.dataclass
 class AdjointTape:
-    """What ``adjoint_deltas`` differentiates, kept by an ``adjoint=True``
-    forward pass: its NPV with the autograd graph back to the forward
-    curve's rows (``fwd`` [N], through ``forward_kernel.ForwardSweepFn``) and,
-    where the storage has a terminal value, to its last entry (``fwd_end``)."""
+    """What ``adjoint_deltas`` needs of an ``adjoint=True`` forward pass: the
+    NPV's gradient in the forward curve's rows ``fwd[:N]`` (``rows`` [N],
+    the VJP kernel's, a launch a chunk of the sweep) and, where the storage
+    has a terminal value, the NPV with its autograd graph back to the
+    curve's last entry (``fwd_end``)."""
 
+    rows: torch.Tensor
     npv: torch.Tensor
-    fwd: torch.Tensor
     fwd_end: tp.Optional[torch.Tensor]
     df_settle: torch.Tensor
     discount_deltas: bool
 
 
-def lsmc_forward(
+def lsmc_forward_rows(
     arrays: tp.Dict[str, torch.Tensor],
-    spot_val: torch.Tensor,  # [N+1, S]
-    factors_val: torch.Tensor,  # [N+1, F, S]
+    src,
     regression: tp.Dict[str, torch.Tensor],
     starting_inventory,
     monomials: tp.Tuple,
@@ -451,25 +684,34 @@ def lsmc_forward(
     uniform_grids: bool = True,
     adjoint: bool = False,
 ):
-    """Forward simulation over materialised valuation panels, one forward
-    sweep for all steps; the per-step reductions stay on the device until the
-    result dict is read.  With ``segment_cb`` the sweep runs ``SEG_LEN``
-    steps a launch and ``segment_cb("forward", done, total)`` is called after
-    each (the same bits: ``forward_kernel.sweep_in_chunks``); a generic basis
-    then builds its design ``SEG_LEN`` steps at a time.  ``return_sim_data``
-    adds the per-sim panels of the JAX package's ``_forward_finalise``:
-    inventory and PV [N+1, S] (the last rows the final inventory and the
-    terminal PV), and volume, fuel, loss and net volume [N, S].
-    ``uniform_grids=False`` runs kernel C's general-grid mode on the grid
-    rows.  ``adjoint`` adds ``"adjoint_tape"``, an ``AdjointTape`` of this
-    sweep for ``adjoint_deltas`` (the other results are unchanged: the sweep
-    writes its volume and fuel panels, which give the same bits); with a
-    given regression payload this is the forward-only adjoint."""
+    """Forward simulation over a rows source (``PanelRows``, ``StreamedSims``
+    or ``HostRows``) with a given regression payload.  Materialised panels
+    take one forward sweep for all steps; other sources, and an interactive
+    run (``segment_cb("forward", done, total)`` after each segment), a sweep
+    launch a ``SEG_LEN``-step segment on that segment's rows, the inventory
+    and PV carried between launches (the same bits:
+    ``forward_kernel.sweep_in_chunks``); a generic basis builds its design a
+    chunk of steps at a time (``forward_kernel.forward_sweep_generic``).  The
+    per-step reductions stay on the device until the result dict is read.
+
+    ``return_sim_data`` (materialised panels only) adds the per-sim panels of
+    the JAX package's ``_forward_finalise``: inventory and PV [N+1, S] (the
+    last rows the final inventory and the terminal PV), and volume, fuel,
+    loss and net volume [N, S].  ``uniform_grids=False`` runs kernel C's
+    general-grid mode on the grid rows.  ``adjoint`` adds
+    ``"adjoint_tape"``, an ``AdjointTape`` for ``adjoint_deltas``: after each
+    chunk's sweep the VJP kernel takes that chunk's rows of the NPV's
+    gradient from the chunk's volume, fuel and spot (grad[t] reads row t
+    alone), so no [N, S] tape outlives its chunk; the other results are
+    unchanged.  With a given regression payload this is the forward-only
+    adjoint."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     dtype = grids.dtype
     device = grids.device
-    s_count = spot_val.shape[1]
+    s_count = src.num_sims
+    if return_sim_data and not src.whole:
+        raise ValueError("Per-sim panels require materialised paths; pass return_sim_data=False.")
     grid_next = grids[1:]
     grid_rows = None if uniform_grids else grid_next
     step = {k: arrays[k] for k in _SCALARS}
@@ -486,43 +728,48 @@ def lsmc_forward(
         sim_dec, sim_cons = panel(n), panel(n)
         sim_inventory[0] = inv0
         rows = [sim_inventory[1:], sim_dec, sim_cons, sim_pv[:n]]
-    elif adjoint:
-        rows[1], rows[2] = panel(n), panel(n)  # the volume and fuel the VJP reads
     seg_len = max(1, min(SEG_LEN, n))
+    chunk = n if src.whole and segment_cb is None else seg_len
     chunk_cb = None if segment_cb is None else (
         lambda done, total: segment_cb("forward", done, total))
     tables = (params, regression["mean"], regression["std"], *(r[:n] for r in ratchets))
+    if adjoint:
+        fwd_grad = torch.empty((n,), dtype=dtype, device=device)
+        # d npv / d pv of each sim: autograd's gradient of the mean, 1/S.
+        g = torch.ones((s_count,), dtype=dtype, device=device) / s_count
+    ranges = [(t0, t1 + (t1 == n)) for t0, t1 in _segments(n, chunk)]
+    each_rows = _each_rows(src, ranges)
+    ends = {}
 
-    def sweep():
+    def sweep_chunk(t0, t1, inventory, pv):
+        spot, factors = next(each_rows)
+        if t1 == n:
+            ends["spot"] = spot[t1 - t0]  # the terminal spot, the last range's extra row
+        spot, factors = spot[:t1 - t0], factors[:t1 - t0]
+        panels = [None if p is None else p[t0:t1] for p in rows]
+        if adjoint and panels[1] is None:
+            panels[1], panels[2] = panel(t1 - t0), panel(t1 - t0)  # the volume and fuel the VJP reads
+        grid = None if grid_rows is None else grid_rows[t0:t1]
+        coeffs = regression["coeffs"][t0:t1]
         if has_generic(monomials):
-            return forward_kernel.forward_sweep_generic(
-                *tables, spot_val[:n], factors_val[:n], inv0, regression["coeffs"],
-                monomials, num_extra_decisions, ratchet_is_step, panels=rows,
-                chunk=None if segment_cb is None else seg_len, chunk_cb=chunk_cb, grid=grid_rows,
-            )
-
-        def sweep_chunk(t0, t1, inventory, pv):
-            return forward_kernel.forward_sweep(
-                *(x[t0:t1] for x in tables), spot_val[t0:t1], factors_val[t0:t1], inventory, pv,
-                regression["coeffs"][t0:t1], monomials, num_extra_decisions, ratchet_is_step,
-                panels=[None if p is None else p[t0:t1] for p in rows],
-                grid=None if grid_rows is None else grid_rows[t0:t1],
-            )
-
-        return forward_kernel.sweep_in_chunks(
-            n, n if segment_cb is None else seg_len, chunk_cb, sweep_chunk, inv0)
-
-    fwd_rows = fwd_end = None
-    with torch.enable_grad() if adjoint else contextlib.nullcontext():
-        if adjoint:
-            fwd_rows = arrays["fwd"][:n].detach().clone().requires_grad_()
-            pv, inventory, sums, xbar = forward_kernel.ForwardSweepFn.apply(
-                fwd_rows, arrays["df_settle"], spot_val[:n], rows[1], rows[2], sweep)
+            out = forward_kernel.forward_sweep_generic(
+                *(x[t0:t1] for x in tables), spot, factors, inventory, coeffs, monomials,
+                num_extra_decisions, ratchet_is_step, panels=panels, grid=grid, pv=pv)
         else:
-            inventory, pv, sums, xbar = sweep()
+            out = forward_kernel.forward_sweep(
+                *(x[t0:t1] for x in tables), spot, factors, inventory, pv, coeffs, monomials,
+                num_extra_decisions, ratchet_is_step, panels=panels, grid=grid)
+        if adjoint:
+            fwd_grad[t0:t1] = forward_kernel.forward_sweep_vjp(
+                panels[1], panels[2], spot, arrays["fwd"][t0:t1], arrays["df_settle"][t0:t1], g)
+        return out
+
+    inventory, pv, sums, xbar = forward_kernel.sweep_in_chunks(n, chunk, chunk_cb, sweep_chunk, inv0)
+    spot_end = ends["spot"]
+    fwd_end = None
+    with torch.enable_grad() if adjoint else contextlib.nullcontext():
         # Terminal period PV for non-empty storage: each sim's own terminal value.
         if terminal_fn is not None:
-            spot_end = spot_val[n]
             if adjoint:
                 # The same values, with d spot_end / d fwd[N] = spot_end / fwd[N]
                 # (spot = forward x stochastic part); inventory carries no gradient.
@@ -539,7 +786,7 @@ def lsmc_forward(
             terminal_pv = torch.zeros_like(pv)
             end_pv = torch.zeros((), dtype=dtype, device=device)
         npv = pv.mean()
-    tape = AdjointTape(npv, fwd_rows, fwd_end, arrays["df_settle"],
+    tape = AdjointTape(fwd_grad, npv, fwd_end, arrays["df_settle"],
                        discount_deltas) if adjoint else None
     npv, pv, terminal_pv, end_pv = (t.detach() for t in (npv, pv, terminal_pv, end_pv))
 
@@ -595,6 +842,21 @@ def lsmc_forward(
     }
 
 
+def lsmc_forward(arrays, spot_val: torch.Tensor, factors_val: torch.Tensor, regression,
+                 starting_inventory, monomials, num_extra_decisions: int, discount_deltas: bool,
+                 terminal_fn, ratchet_is_step: bool, **kwargs):
+    """The forward pass over materialised valuation panels, spot [N+1, S] and
+    factors [N+1, F, S] (``lsmc_forward_rows`` on ``PanelRows``)."""
+    return lsmc_forward_rows(arrays, PanelRows(spot_val, factors_val), regression,
+                             starting_inventory, monomials, num_extra_decisions, discount_deltas,
+                             terminal_fn, ratchet_is_step, **kwargs)
+
+
+# The JAX package's name for the forward with each segment simulated from the
+# state the last one left: here ``lsmc_forward_rows`` given a ``StreamedSims``.
+lsmc_forward_streamed = lsmc_forward_rows
+
+
 def adjoint_deltas(tape: AdjointTape) -> torch.Tensor:
     """Deltas [N+1] by reverse mode through an ``adjoint=True`` forward pass
     (the JAX package's ``_forward_value_and_grad`` and
@@ -603,22 +865,21 @@ def adjoint_deltas(tape: AdjointTape) -> torch.Tensor:
     discounted to the valuation date by construction; without
     ``discount_deltas`` the first N are divided by the settlement discount
     factors and the last is left as it is, as in the JAX package."""
-    leaves = [tape.fwd] + ([tape.fwd_end] if tape.fwd_end is not None else [])
-    # A terminal value that ignores the price leaves fwd_end unused: zero.
-    rows, *end = torch.autograd.grad(tape.npv, leaves, allow_unused=True)
-    end = end[0] if end and end[0] is not None else torch.zeros((), dtype=rows.dtype,
-                                                                device=rows.device)
+    rows, end = tape.rows, None
+    if tape.fwd_end is not None and tape.npv.requires_grad:
+        # A terminal value that ignores the price leaves fwd_end unused: zero.
+        (end,) = torch.autograd.grad(tape.npv, [tape.fwd_end], allow_unused=True)
+    if end is None:
+        end = torch.zeros((), dtype=rows.dtype, device=rows.device)
     if not tape.discount_deltas:
         rows = rows / tape.df_settle
     return torch.cat([rows, end.reshape(1)]).detach()
 
 
-def lsmc_core(
+def lsmc_core_rows(
     arrays: tp.Dict[str, torch.Tensor],
-    spot_reg: torch.Tensor,
-    factors_reg: torch.Tensor,
-    spot_val: torch.Tensor,
-    factors_val: torch.Tensor,
+    reg,
+    val,
     starting_inventory,
     monomials: tp.Tuple,
     num_extra_decisions: int,
@@ -633,32 +894,33 @@ def lsmc_core(
     uniform_grids: bool = True,
     adjoint: bool = False,
 ) -> tp.Dict[str, torch.Tensor]:
-    """Full LSMC valuation on one device over materialised panels: regression
-    sims drive the backward pass, valuation sims the forward pass.  Results
-    stay on the panels' device.  ``return_sim_data`` adds the per-sim panels
-    (``lsmc_forward``); ``fullstep`` runs each backward step as kernel E
-    alone (factor panels and monomial bases only).  ``uniform_grids=False``
-    takes grid rows that are not evenly spaced (the search placement of
-    both passes); ``adjoint`` adds the forward sweep's ``"adjoint_tape"``
-    for ``adjoint_deltas``.
+    """Full LSMC valuation on one device over two rows sources: the
+    regression set ``reg`` drives the backward pass, the valuation set
+    ``val`` the forward pass (``PanelRows``, ``StreamedSims`` or
+    ``HostRows``; every source of the same paths gives the same bits).
+    Results stay on the device.  ``return_sim_data`` adds the per-sim panels
+    (materialised panels only, ``lsmc_forward_rows``); ``fullstep`` runs
+    each backward step as kernel E alone (factor panels and monomial bases
+    only).  ``uniform_grids=False`` takes grid rows that are not evenly
+    spaced (the search placement of both passes); ``adjoint`` adds the
+    forward sweep's ``"adjoint_tape"`` for ``adjoint_deltas``.
 
     ``segment_cb(phase, done, total)`` makes the run interactive, as the JAX
-    package's ``lsmc_core_chunked`` (the same function here): it is called
-    after every ``SEG_LEN``-step segment of the backward (``phase``
-    "backward") and of the forward ("forward", whose sweep then runs a
-    launch a segment), and raising from it aborts the valuation between
-    segments.  An interactive run gives the uninterrupted run's bits."""
+    package's ``lsmc_core_chunked``: it is called after every
+    ``SEG_LEN``-step segment of the backward (``phase`` "backward") and of
+    the forward ("forward", whose sweep then runs a launch a segment), and
+    raising from it aborts the valuation between segments.  An interactive
+    run gives the uninterrupted run's bits."""
     with full_f32_matmul():
-        v0, regression = lsmc_backward(
-            arrays, spot_reg, factors_reg, monomials, num_extra_decisions,
-            terminal_fn, ratchet_is_step, snap_interp=snap_interp, fullstep=fullstep,
-            segment_cb=segment_cb, uniform_grids=uniform_grids,
+        v0, regression = lsmc_backward_rows(
+            arrays, reg, monomials, num_extra_decisions, terminal_fn, ratchet_is_step,
+            snap_interp=snap_interp, fullstep=fullstep, segment_cb=segment_cb,
+            uniform_grids=uniform_grids,
         )
-        result = lsmc_forward(
-            arrays, spot_val, factors_val, regression, starting_inventory, monomials,
-            num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
-            return_sim_data=return_sim_data, segment_cb=segment_cb,
-            uniform_grids=uniform_grids, adjoint=adjoint,
+        result = lsmc_forward_rows(
+            arrays, val, regression, starting_inventory, monomials, num_extra_decisions,
+            discount_deltas, terminal_fn, ratchet_is_step, return_sim_data=return_sim_data,
+            segment_cb=segment_cb, uniform_grids=uniform_grids, adjoint=adjoint,
         )
     # Backward (upper-ish) estimate: mean of the first-period values at the
     # known starting inventory (grid[0] is degenerate) — LsmcStorageValuation.cs:623.
@@ -670,9 +932,49 @@ def lsmc_core(
     return result
 
 
+def lsmc_core(arrays, spot_reg: torch.Tensor, factors_reg: torch.Tensor, spot_val: torch.Tensor,
+              factors_val: torch.Tensor, starting_inventory, monomials, num_extra_decisions: int,
+              discount_deltas: bool, terminal_fn, ratchet_is_step: bool, **kwargs):
+    """Full LSMC valuation over materialised panels, spot [N+1, S] and
+    factors [N+1, F, S] of each set (``lsmc_core_rows`` on ``PanelRows``).
+    Given a ``segment_cb`` it is the JAX package's ``lsmc_core_chunked``."""
+    return lsmc_core_rows(arrays, PanelRows(spot_reg, factors_reg),
+                          PanelRows(spot_val, factors_val), starting_inventory, monomials,
+                          num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
+                          **kwargs)
+
+
 # The JAX package's name for its host-chunked engine, which here is
 # ``lsmc_core`` given a ``segment_cb``.
 lsmc_core_chunked = lsmc_core
+
+
+def streamed_sims(sim_inputs, reg_key, val_key, path_ids, antithetic: bool = False,
+                  same_sims: bool = False):
+    """The regression and valuation sets as ``StreamedSims``: ``reg_key``
+    and ``val_key`` address the draws (``same_sims`` reuses the regression
+    stream for both passes, each pass regenerating it)."""
+    return (StreamedSims(sim_inputs, reg_key, path_ids, antithetic),
+            StreamedSims(sim_inputs, reg_key if same_sims else val_key, path_ids, antithetic))
+
+
+def lsmc_core_streamed(arrays, sim_inputs, reg_key, val_key, path_ids, starting_inventory,
+                       monomials, num_extra_decisions: int, discount_deltas: bool, terminal_fn,
+                       ratchet_is_step: bool, antithetic: bool = False, same_sims: bool = False,
+                       **kwargs) -> tp.Dict[str, torch.Tensor]:
+    """Full LSMC valuation with the paths regenerated a segment at a time and
+    never materialised (the JAX package's function of the same name): the
+    simulation's OU tables ``sim_inputs`` (decay, chol, vols, half_var, fwd
+    [N+1, ...]), the keys and path ids [S] of ``simulate_ou_paths``.  Three
+    passes simulate each segment: the warmup (the design stats and the
+    backward's checkpoints, [⌈N/SEG_LEN⌉, F, S]), the backward and the
+    forward.  Besides the [G, S] value panels, the device holds one segment's
+    rows and the checkpoints.  The results are ``lsmc_core``'s on
+    ``simulate_ou_paths``'s panels, to the bit; keywords as
+    ``lsmc_core_rows`` (but ``return_sim_data``)."""
+    reg, val = streamed_sims(sim_inputs, reg_key, val_key, path_ids, antithetic, same_sims)
+    return lsmc_core_rows(arrays, reg, val, starting_inventory, monomials, num_extra_decisions,
+                          discount_deltas, terminal_fn, ratchet_is_step, **kwargs)
 
 
 def lsmc_npv_and_ad_deltas(
@@ -704,3 +1006,47 @@ def lsmc_npv_and_ad_deltas(
         adjoint=True,
     )
     return result["npv"], adjoint_deltas(result["adjoint_tape"])
+
+
+def lsmc_npv_and_ad_deltas_streamed(arrays, sim_inputs, reg_key, val_key, path_ids,
+                                    starting_inventory, monomials, num_extra_decisions: int,
+                                    discount_deltas: bool, terminal_fn, ratchet_is_step: bool,
+                                    antithetic: bool = False, same_sims: bool = False, **kwargs):
+    """NPV and adjoint deltas [N+1] with streamed paths (the JAX package's
+    function of the same name): ``lsmc_core_streamed`` with ``adjoint``, the
+    VJP kernel run on each forward segment's rows as the segment is swept."""
+    result = lsmc_core_streamed(
+        arrays, sim_inputs, reg_key, val_key, path_ids, starting_inventory, monomials,
+        num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
+        antithetic=antithetic, same_sims=same_sims, adjoint=True, **kwargs)
+    return result["npv"], adjoint_deltas(result["adjoint_tape"])
+
+
+def lsmc_ad_deltas_path_chunked(arrays, regression, spot_val: np.ndarray, factors_val: np.ndarray,
+                                starting_inventory, monomials, num_extra_decisions: int,
+                                discount_deltas: bool, terminal_fn, ratchet_is_step: bool,
+                                uniform_grids: bool = True, chunk_sims: int = 65536):
+    """NPV and adjoint deltas [N+1] over host-resident valuation panels (the
+    JAX package's function of the same name): with the regression payload
+    fixed, the NPV is a mean over sims, so each chunk of ``chunk_sims`` paths
+    is copied to the device and its forward pass differentiated
+    (``lsmc_forward(adjoint=True)``), and the chunks' NPVs and gradients are
+    averaged by their path counts."""
+    device, dtype = arrays["grids"].device, arrays["grids"].dtype
+    regression = {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+                  for k, v in regression.items()}
+    total = spot_val.shape[1]
+    npv_sum = grad_sum = 0.0
+    for lo in range(0, total, chunk_sims):
+        hi = min(lo + chunk_sims, total)
+        spot_c, factors_c = (torch.tensor(np.ascontiguousarray(x[..., lo:hi]), dtype=dtype,
+                                          device=device) for x in (spot_val, factors_val))
+        out = lsmc_forward(arrays, spot_c, factors_c, regression, starting_inventory, monomials,
+                           num_extra_decisions, True, terminal_fn, ratchet_is_step,
+                           uniform_grids=uniform_grids, adjoint=True)
+        npv_sum = npv_sum + out["npv"] * float(hi - lo)
+        grad_sum = grad_sum + adjoint_deltas(out["adjoint_tape"]) * float(hi - lo)
+    npv, grad = npv_sum / total, grad_sum / total
+    if not discount_deltas:
+        grad = torch.cat([grad[:-1] / arrays["df_settle"], grad[-1:]])
+    return npv, grad

@@ -12,6 +12,8 @@ simulate the same paths from the same seeds.
 ``simulate_ou_paths`` runs in f32 as one launch of the simulation sweep on
 the card (``ops.rng_kernel.simulate_sweep``): it draws, steps the factors and
 builds the spot in registers, and writes only the factors and the spot.
+``simulate_ou_segment`` resumes it at any step from the factor state entering
+that step: the streamed engine regenerates its segments so.
 ``draw_normal_halves`` materialises the f32 draws themselves (kernel A,
 ``ops.rng_kernel.normal_halves``, on the card); the package's paths do not
 call it: the tests and ``chip_smoke.py``'s TPU-numerics emulation do.
@@ -142,6 +144,36 @@ def spot_from_state(x, fwd_k, half_var_k, vols_k):
     return torch.exp(torch.log(fwd_k) - half_var_k + vols_k @ x)
 
 
+def simulate_ou_segment(
+    key: Key,
+    path_ids,  # [S] global path indices (int64)
+    decay,  # [P, F] the tables of steps start..start+P-1
+    chol,  # [P, F, F]
+    vols,  # [P, F]
+    c,  # [P] ln F - half_var
+    start: int = 0,
+    x0=None,  # [F, S] the state entering step ``start`` (zeros where None)
+    antithetic: bool = False,
+) -> SpotSimResults:
+    """Steps start..start+P−1 of the given paths, resumed from the entry state
+    ``x0`` (the JAX package's ``_regen_segment``): the rows of one simulation
+    from step 0, to the bit.  f32 goes through the resumed simulation sweep
+    (one launch on the card, its plain version on the CPU); f64 draws the
+    steps' words (``multi_step_normals``) and steps them by the sweep's plain
+    loop.  With ``antithetic`` path 2m+1 takes the negated draws of path 2m."""
+    p, f = decay.shape
+    if decay.dtype == torch.float32:
+        ids = _path_ids(path_ids, antithetic)
+        if ids.device.type == "cuda":
+            ids = ids.to(torch.int32)
+        sign = _antithetic_sign(path_ids, decay.dtype) if antithetic else None
+        factors, spot = rng_kernel.simulate_sweep(key, ids, sign, decay, chol, vols, c, start, x0)
+    else:
+        z = multi_step_normals(key, start, p, path_ids, f, antithetic, decay.dtype)
+        factors, spot = rng_kernel.ou_sweep_plain(z, decay, chol, vols, c, x0)
+    return SpotSimResults(spot=spot, factors=factors)
+
+
 def simulate_ou_paths(
     key: Key,
     path_ids,  # [S] global path indices (int64)
@@ -161,20 +193,10 @@ def simulate_ou_paths(
     f32 goes through the simulation sweep (one kernel launch on the card, its
     plain version on the CPU); f64 draws in its own layout
     (``multi_step_normals``) and steps them by the sweep's plain loop: no
-    kernel in either package.  With ``antithetic`` path 2m+1 takes the
-    negated draws of path 2m."""
-    p, f = decay.shape
-    c = torch.log(fwd) - half_var
-    if decay.dtype == torch.float32:
-        ids = _path_ids(path_ids, antithetic)
-        if ids.device.type == "cuda":
-            ids = ids.to(torch.int32)
-        sign = _antithetic_sign(path_ids, decay.dtype) if antithetic else None
-        factors, spot = rng_kernel.simulate_sweep(key, ids, sign, decay, chol, vols, c)
-    else:
-        z = multi_step_normals(key, 0, p, path_ids, f, antithetic, decay.dtype)
-        factors, spot = rng_kernel.ou_sweep_plain(z, decay, chol, vols, c)
-    return SpotSimResults(spot=spot, factors=factors)
+    kernel in either package (``simulate_ou_segment`` from step 0).  With
+    ``antithetic`` path 2m+1 takes the negated draws of path 2m."""
+    return simulate_ou_segment(key, path_ids, decay, chol, vols, torch.log(fwd) - half_var,
+                               antithetic=antithetic)
 
 
 class MultiFactorSpotSim:

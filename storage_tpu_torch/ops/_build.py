@@ -48,8 +48,9 @@ SIGNATURES = {
     "stt_normal_halves": (_U, _U, _U, _I, _I, _P, _P, _P, _P, _P),
     # k0, k1, b0, nb, S, ids, w1, w2, stream
     "stt_threefry_words": (_U, _U, _U, _I, _I, _P, _P, _P, _P),
-    # k0, k1, P, F, S, ids, sign (or NULL), decay, chol, vols, c, factors, spot, stream
-    "stt_simulate_sweep": (_U, _U, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # k0, k1, start, P, F, S, ids, sign (or NULL), x_in (or NULL), decay, chol,
+    # vols, c, factors, spot, stream
+    "stt_simulate_sweep": (_U, _U, _U, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # F, out int[6] (the sweep's launch report)
     "stt_simulate_sweep_info": (_I, _P),
     # G, S, F, D, basis table (host int[B*(1+F)+1]), v, spot, factors,

@@ -23,8 +23,9 @@ TPU kernel (``_ratchet_rates_smem``, ``_bang_bang``), so the plain version
 agrees with it term for term.
 
 Adjoint deltas differentiate the pricing run's own sweep in the forward
-curve: ``ForwardSweepFn``, whose backward is ``forward_sweep_vjp``
-(``csrc/forward_vjp.cu``) on the volume and fuel panels the sweep wrote.
+curve: ``forward_sweep_vjp`` (``csrc/forward_vjp.cu``), run on the volume and
+fuel rows each launch of the sweep wrote (grad[t] reads row t alone, so a
+streamed run takes it a segment at a time).
 """
 from __future__ import annotations
 
@@ -492,15 +493,16 @@ forward_sweep_design.general_launches = 0
 DESIGN_CHUNK = 32
 
 
-def sweep_in_chunks(num_steps: int, chunk: int, chunk_cb, sweep_chunk, inventory):
+def sweep_in_chunks(num_steps: int, chunk: int, chunk_cb, sweep_chunk, inventory, pv=None):
     """A forward pass ``chunk`` steps a launch: ``sweep_chunk(t0, t1,
     inventory, pv)`` sweeps steps t0..t1−1 from the carried inventory and PV
-    (None for zeros before the first) and returns the sweep's four results;
+    (``pv``, None for zeros, before the first) and returns the sweep's four
+    results;
     ``chunk_cb(done, total)``, where given, is called after each chunk.
     Returns the sweep's results over all steps.  Each step's arithmetic is
     the sweep's, and a launch hands on the f32 inventory and PV that one
     launch would carry to its next step: the same bits as one launch."""
-    pv, sums, xbar = None, [], []
+    sums, xbar = [], []
     total = -(-num_steps // chunk)
     for done, t0 in enumerate(range(0, num_steps, chunk), start=1):
         inventory, pv, sums_c, xbar_c = sweep_chunk(t0, min(t0 + chunk, num_steps), inventory, pv)
@@ -514,15 +516,15 @@ def sweep_in_chunks(num_steps: int, chunk: int, chunk_cb, sweep_chunk, inventory
 def forward_sweep_generic(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
                           factors, inventory, coeffs, entries, num_extra_decisions: int,
                           ratchet_is_step: bool, panels=None, chunk: tp.Optional[int] = None,
-                          chunk_cb=None, grid=None):
+                          chunk_cb=None, grid=None, pv=None):
     """The forward pass for a basis of any entries, generic callables too:
     ``chunk`` steps at a time (``DESIGN_CHUNK`` where None), the raw design
     of the chunk's steps built on the spot's device (``basis.design_columns``,
     a generic entry called once a step) and swept by ``forward_sweep_design``,
     the inventory and PV carried from one chunk to the next, and
     ``chunk_cb(done, total)`` called after each chunk (``sweep_in_chunks``).
-    Arguments and results as ``forward_sweep``'s (without ``pv``: the PV
-    starts at zero; ``grid`` as there)."""
+    Arguments and results as ``forward_sweep``'s (``pv`` and ``grid`` as
+    there)."""
     rows = list(panels) if panels is not None else [None] * 4
 
     def sweep_chunk(t0, t1, inventory, pv):
@@ -535,7 +537,8 @@ def forward_sweep_generic(params, mean, std, ratchet_inv, ratchet_min, ratchet_m
             grid=None if grid is None else grid[t0:t1],
         )
 
-    return sweep_in_chunks(spot.shape[0], chunk or DESIGN_CHUNK, chunk_cb, sweep_chunk, inventory)
+    return sweep_in_chunks(spot.shape[0], chunk or DESIGN_CHUNK, chunk_cb, sweep_chunk, inventory,
+                           pv)
 
 
 def forward_step(
@@ -622,29 +625,3 @@ def forward_sweep_vjp(
 
 
 forward_sweep_vjp.launches = 0
-
-
-class ForwardSweepFn(torch.autograd.Function):
-    """The pricing run's forward sweep as a function of the forward curve's
-    rows, for adjoint deltas: ``ForwardSweepFn.apply(fwd, df_settle, spot,
-    dec, cons, sweep)`` calls ``sweep()``, which runs kernel C over ``spot``
-    [N, S] (either mode, in one launch or in chunks) writing each sim's
-    chosen volume and fuel into the panels ``dec`` and ``cons`` [N, S], and
-    returns its (inventory, pv, sums, xbar); this returns (pv, inventory,
-    sums, xbar).  Only ``pv`` is differentiable, in ``fwd`` [N] alone: spot is
-    fwd x a stochastic part, and the policy (the argmax) carries no
-    gradient, so the backward is ``forward_sweep_vjp`` on the saved panels.
-    The spot, the regression payload and the inventory are data."""
-
-    @staticmethod
-    def forward(ctx, fwd, df_settle, spot, dec, cons, sweep):
-        inventory, pv, sums, xbar = sweep()
-        ctx.save_for_backward(fwd, df_settle, spot, dec, cons)
-        ctx.mark_non_differentiable(inventory, sums, xbar)
-        return pv, inventory, sums, xbar
-
-    @staticmethod
-    def backward(ctx, grad_pv, *_):
-        fwd, df_settle, spot, dec, cons = ctx.saved_tensors
-        grad = forward_sweep_vjp(dec, cons, spot, fwd, df_settle, grad_pv.contiguous())
-        return grad, None, None, None, None, None

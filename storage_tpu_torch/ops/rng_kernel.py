@@ -226,24 +226,29 @@ def normals_by_step(z1, z2, num_steps: int, num_factors: int):
     return torch.stack([z1, z2], dim=1).reshape(-1, s)[:p * f].reshape(p, f, s)
 
 
-def sweep_normals_plain(key: tp.Tuple[int, int], ids, sign, num_steps: int, num_factors: int):
-    """The f32 draws of steps 0..P-1 as [P, F, S] in tensor code, as the sweep
-    kernel addresses them: word W = k·F + i is half W%2 of the block of
-    counter (ids[s], W//2).  Each normal times ``sign`` [S] where given."""
+def sweep_normals_plain(key: tp.Tuple[int, int], ids, sign, num_steps: int, num_factors: int,
+                        start: int = 0):
+    """The f32 draws of steps start..start+P-1 as [P, F, S] in tensor code, as
+    the sweep kernel addresses them: word W = k·F + i of step k is half W%2 of
+    the block of counter (ids[s], W//2).  Each normal times ``sign`` [S] where
+    given."""
     p, f = int(num_steps), int(num_factors)
-    z1, z2 = normal_halves_plain(key, 0, (p * f) // 2 + 1, ids, sign)
-    return normals_by_step(z1, z2, p, f)
+    w0 = int(start) * f
+    z1, z2 = normal_halves_plain(key, w0 // 2, (w0 % 2 + p * f) // 2 + 1, ids, sign)
+    words = torch.stack([z1, z2], dim=1).reshape(-1, z1.shape[1])
+    return words[w0 % 2:w0 % 2 + p * f].reshape(p, f, -1)
 
 
-def ou_sweep_plain(z, decay, chol, vols, c):
+def ou_sweep_plain(z, decay, chol, vols, c, x0=None):
     """The sweep kernel's steps in tensor code, elementwise and in its order:
     x_k = decay_k ⊙ x_{k-1} + L_k z_k with L_k z_k summed over j left to right,
     ln S_k = (Σ_i vols_k,i·x_k,i, i left to right) + c_k, S_k = exp(ln S_k).
-    z [P, F, S]; returns (factors [P, F, S], spot [P, S])."""
+    z [P, F, S], the entry state ``x0`` [F, S] (zeros where None); returns
+    (factors [P, F, S], spot [P, S])."""
     p, f, s = z.shape
     factors = torch.empty_like(z)
     log_spot = torch.empty((p, s), dtype=z.dtype, device=z.device)
-    x = torch.zeros((f, s), dtype=z.dtype, device=z.device)
+    x = torch.zeros((f, s), dtype=z.dtype, device=z.device) if x0 is None else x0
     for k in range(p):
         lz = chol[k, :, 0, None] * z[k, 0]
         for j in range(1, f):
@@ -257,50 +262,60 @@ def ou_sweep_plain(z, decay, chol, vols, c):
     return factors, torch.exp(log_spot)
 
 
-def simulate_sweep_plain(key: tp.Tuple[int, int], ids, sign, decay, chol, vols, c):
+def simulate_sweep_plain(key: tp.Tuple[int, int], ids, sign, decay, chol, vols, c, start: int = 0,
+                         x0=None):
     """(factors [P, F, S], spot [P, S]) of the paths ``ids`` in tensor code,
     f32: the sweep kernel's plain version (``sweep_normals_plain``, then
-    ``ou_sweep_plain``)."""
+    ``ou_sweep_plain``), resumed at ``start`` from ``x0`` as the kernel."""
     p, f = decay.shape
-    return ou_sweep_plain(sweep_normals_plain(key, ids, sign, p, f), decay, chol, vols, c)
+    z = sweep_normals_plain(key, ids, sign, p, f, start)
+    return ou_sweep_plain(z, decay, chol, vols, c, x0)
 
 
-def simulate_sweep(key: tp.Tuple[int, int], ids, sign, decay, chol, vols, c):
-    """(factors [P, F, S], spot [P, S]) of the paths ``ids`` (the identities
-    of their counters: path ids, halved when antithetic), with each normal
-    times ``sign`` [S] where given, from the step tables decay [P, F], chol
-    [P, F, F], vols [P, F] and c [P] = ln F − half_var.
+def simulate_sweep(key: tp.Tuple[int, int], ids, sign, decay, chol, vols, c, start: int = 0,
+                   x0=None):
+    """(factors [P, F, S], spot [P, S]) of steps start..start+P−1 of the paths
+    ``ids`` (the identities of their counters: path ids, halved when
+    antithetic), with each normal times ``sign`` [S] where given, from the
+    entry state ``x0`` [F, S] (x_{start−1}; zeros where None) and those steps'
+    tables decay [P, F], chol [P, F, F], vols [P, F] and c [P] = ln F −
+    half_var.  A resumed sweep gives the rows of one sweep from step 0, to
+    the bit; the state it leaves is its last factor row.
 
     CPU tensors take the plain version; CUDA tensors launch the sweep kernel
     once (ids int32 holding the uint32 identities, everything else f32, F
     within the kernels' cap ``_build.limits``)."""
     if decay.device.type == "cpu":
-        return simulate_sweep_plain(key, ids, sign, decay, chol, vols, c)
+        return simulate_sweep_plain(key, ids, sign, decay, chol, vols, c, start, x0)
     if decay.dim() != 2:
         raise ValueError("simulate_sweep: decay must be [P, F]")
     p, f = decay.shape
     if (chol.shape != (p, f, f) or vols.shape != (p, f) or c.shape != (p,) or ids.dim() != 1
-            or ids.shape[0] < 1 or f < 1):
+            or ids.shape[0] < 1 or f < 1 or start < 0):
         raise ValueError("simulate_sweep: expected decay [P, F], chol [P, F, F], vols [P, F], "
-                         "c [P] and ids [S] with F >= 1 and S >= 1")
+                         "c [P] and ids [S] with F >= 1 and S >= 1, and start >= 0")
     device = _build.require_cuda("simulate_sweep", decay, chol, vols, c)
-    tensors = (ids,) if sign is None else (ids, sign)
+    tensors = tuple(t for t in (ids, sign, x0) if t is not None)
     if any(t.device != device for t in tensors):
-        raise ValueError("simulate_sweep: ids and sign must lie beside the step tables")
+        raise ValueError("simulate_sweep: ids, sign and x0 must lie beside the step tables")
     _build.require_cuda("simulate_sweep", ids, dtype=torch.int32)
     if sign is not None:
         _build.require_cuda("simulate_sweep", sign)
         if sign.shape != ids.shape:
             raise ValueError("simulate_sweep: sign must be f32 [S] beside ids")
-    _build.require_caps("simulate_sweep", 0, f)
     s = ids.shape[0]
+    if x0 is not None:
+        _build.require_cuda("simulate_sweep", x0)
+        if x0.shape != (f, s):
+            raise ValueError(f"simulate_sweep: x0 must be f32 [F, S] = [{f}, {s}]")
+    _build.require_caps("simulate_sweep", 0, f)
     factors = torch.empty((p, f, s), dtype=torch.float32, device=device)
     spot = torch.empty((p, s), dtype=torch.float32, device=device)
     rc = _build.library().stt_simulate_sweep(
-        int(key[0]) & MASK32, int(key[1]) & MASK32, p, f, s, ids.data_ptr(),
-        None if sign is None else sign.data_ptr(), decay.data_ptr(), chol.data_ptr(),
-        vols.data_ptr(), c.data_ptr(), factors.data_ptr(), spot.data_ptr(),
-        _build.stream_handle(device),
+        int(key[0]) & MASK32, int(key[1]) & MASK32, int(start), p, f, s, ids.data_ptr(),
+        None if sign is None else sign.data_ptr(), None if x0 is None else x0.data_ptr(),
+        decay.data_ptr(), chol.data_ptr(), vols.data_ptr(), c.data_ptr(), factors.data_ptr(),
+        spot.data_ptr(), _build.stream_handle(device),
     )
     simulate_sweep.launches += 1
     _build.check(rc, "simulate_sweep")

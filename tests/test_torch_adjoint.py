@@ -12,7 +12,8 @@ CPU.
   ``torch.autograd`` through ``forward_sweep_plain`` with spot = fwd x a
   stochastic part, in the monomial, design and general-grid modes (the
   argmax carries no gradient, so the hand-written backward is the true
-  VJP), and ``ForwardSweepFn``'s backward the same.
+  VJP), also taken a segment at a time from each segment's own volume and
+  fuel rows, as the engine's forward takes it.
 * The API: ``multi_factor_value`` and ``value_from_sims`` (with factors and
   spot-only) with ``deltas_method="adjoint"`` against the JAX call, at 500
   sims (a count the conftest's 8 virtual devices do not divide, so the JAX
@@ -136,23 +137,39 @@ def test_vjp_plain_is_autograds_vjp(mode):
 
 
 @pytest.mark.parametrize("mode", ["monomial", "design", "general"])
-def test_forward_sweep_fn_backward(mode):
-    """``ForwardSweepFn`` around the plain sweep (the spot as data): its
-    forward is the sweep's bits and its backward autograd's VJP."""
+def test_segment_vjps_are_autograds_vjp(mode):
+    """The VJP taken a segment at a time, each from the volume and fuel rows
+    its own launch of the sweep wrote (as the engine's forward takes it,
+    ``lsmc_forward_rows``), is autograd's VJP of the whole sweep, and the
+    sweep in segments keeps the one sweep's bits."""
     case, fwd, stoch, g, kwargs = _sweep_inputs(mode)
     want, _, _ = _autograd_vjp(case, fwd, stoch, g, mode, kwargs)
-    n, s = stoch.shape
     spot = fwd[:, None] * stoch
-    dec, cons = torch.empty((n, s), dtype=F64), torch.empty((n, s), dtype=F64)
-    leaf = fwd.clone().requires_grad_()
-    pv, inventory, sums, xbar = forward_kernel.ForwardSweepFn.apply(
-        leaf, case["params"][:, forward_kernel._P_DF_SETTLE], spot, dec, cons,
-        lambda: _plain_sweep(case, spot, mode, kwargs, [None, dec, cons, None]))
-    plain = _plain_sweep(case, spot, mode, kwargs, None)
-    for got_x, want_x in zip((inventory, pv, sums, xbar), plain):
-        assert torch.equal(got_x.detach(), want_x)
-    assert pv.requires_grad and not (inventory.requires_grad or sums.requires_grad)
-    (got,) = torch.autograd.grad((g * pv).sum(), leaf)
+    df_settle = case["params"][:, forward_kernel._P_DF_SETTLE]
+    steps = ("params", "mean", "std", "ratchet_inv", "ratchet_min", "ratchet_max", "factors",
+             "coeffs")
+    got = torch.empty_like(fwd)
+
+    def sweep_chunk(t0, t1, inventory, pv):
+        sub = {**case, **{k: case[k][t0:t1] for k in steps}}
+        dec, cons = (torch.empty((t1 - t0, spot.shape[1]), dtype=F64) for _ in range(2))
+        design = None
+        if mode == "design":
+            design = torch.stack(design_columns(case["entries"], spot[t0:t1], sub["factors"]), dim=1)
+        out = forward_kernel.forward_sweep_plain(
+            sub["params"], sub["mean"], sub["std"], sub["ratchet_inv"], sub["ratchet_min"],
+            sub["ratchet_max"], spot[t0:t1], sub["factors"], inventory, pv, sub["coeffs"],
+            case["entries"], 0, False, panels=[None, dec, cons, None], design=design,
+            **{k: v[t0:t1] for k, v in kwargs.items()})
+        got[t0:t1] = forward_kernel.forward_sweep_vjp(dec, cons, spot[t0:t1], fwd[t0:t1],
+                                                      df_settle[t0:t1], g)
+        return out
+
+    chunked = forward_kernel.sweep_in_chunks(spot.shape[0], 4, None, sweep_chunk,
+                                             case["inventory"])
+    for got_x, want_x in zip(chunked, _plain_sweep(case, spot, mode, kwargs, None)):
+        assert torch.equal(got_x, want_x)
+    assert want.abs().max() > 0
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
 
 

@@ -98,6 +98,31 @@ def test_simulate_sweep(device, f, p, antithetic):
     assert _ulp(spot, want_s) == 0
 
 
+@pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
+@pytest.mark.parametrize("f", [1, 2, 3, 8])
+@pytest.mark.parametrize("start", [5, 6], ids=["odd", "even"])
+def test_resumed_sweep(device, f, start, antithetic):
+    """The sweep resumed at a start step from the state entering it (the
+    streamed engine's segments) against its plain version resumed alike and
+    against rows start.. of one sweep from step 0: the same bits, at odd and
+    even start steps (at odd F and start the first word is the second half
+    of its block)."""
+    s, p = 1000, 11
+    path_ids = torch.arange(s, device=device) + 77
+    ids = (path_ids // 2 if antithetic else path_ids).to(torch.int32)
+    sign = (1.0 - 2.0 * (path_ids % 2)).float() if antithetic else None
+    tables = _sweep_tables(device, p, f)
+    whole = rng_kernel.simulate_sweep((3, 11), ids, sign, *tables)
+    x0 = whole[0][start - 1].contiguous()
+    tail = [t[start:].contiguous() for t in tables]
+    before = rng_kernel.simulate_sweep.launches
+    got = rng_kernel.simulate_sweep((3, 11), ids, sign, *tail, start, x0)
+    assert rng_kernel.simulate_sweep.launches == before + 1
+    want = rng_kernel.simulate_sweep_plain((3, 11), ids, sign, *tail, start, x0)
+    for g, w, full in zip(got, want, whole):
+        assert torch.equal(g, w) and torch.equal(g, full[start:])
+
+
 def test_simulate_sweep_raises(device):
     """Past the kernels' 8 factors the sweep raises ValueError naming the cap,
     before any launch; a wrong dtype or shape raises too."""

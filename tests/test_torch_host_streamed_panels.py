@@ -1,0 +1,207 @@
+"""Streamed valuations through the API of storage_tpu_torch against the JAX
+package, in f64 on the CPU, with the streaming threshold lowered in both
+packages (``engines.lsmc.STREAM_THRESHOLD_BYTES`` and
+``storage_tpu.parallel.mesh.STREAM_THRESHOLD_BYTES``, as
+``tests/test_host_streamed_panels.py`` lowers the JAX one).
+
+* ``value_from_sims`` on panels above the threshold: kept in host memory and
+  fed a segment at a time (``engines.lsmc.HostRows``), the device-resident
+  run's bits, and the JAX host-streamed run's NPV, SE, deltas and profile;
+  ``sim_data_returned`` on them raises the JAX ``ValueError``; their adjoint
+  deltas against the JAX path-chunked adjoint, and
+  ``lsmc_ad_deltas_path_chunked`` against the JAX function on the same
+  payload.
+* ``multi_factor_value`` above the threshold: paths regenerated a segment at
+  a time, the materialised run's bits and the JAX streamed run's values;
+  pathwise and adjoint deltas; a progress callback; a checkpoint written
+  from a streamed run and revalued to its bits.
+
+Every API call values 100 sims, a count the conftest's 8 virtual devices do
+not divide, so the JAX side runs on one device.
+"""
+import logging
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+sys.path.insert(0, __file__.rsplit("/", 1)[0])
+from test_torch_value_from_sims import _reg_case  # noqa: E402
+
+import storage_tpu as jpkg  # noqa: E402
+import storage_tpu_torch as tpkg  # noqa: E402
+from storage_tpu.engines import lsmc as jax_lsmc  # noqa: E402
+from storage_tpu.models.spot_sim import simulate_ou_paths as jax_simulate  # noqa: E402
+from storage_tpu.parallel import mesh as pmesh  # noqa: E402
+from storage_tpu_torch import convert  # noqa: E402
+from storage_tpu_torch.basis import parse_basis_functions  # noqa: E402
+from storage_tpu_torch.engines import lsmc as torch_lsmc  # noqa: E402
+
+torch.set_num_threads(1)
+
+NUM_SIMS = 100
+BASIS = "1 + x0 + x0**2 + x1 + x1*x1"
+F64 = torch.float64
+RTOL = 1e-8  # a streamed run against the JAX package (tests/test_streaming.py)
+_FRAMES = ("sim_spot_regress", "sim_spot_valuation", "sim_factors_regress",
+           "sim_factors_valuation")
+
+
+@pytest.fixture
+def lowered(monkeypatch):
+    """Both packages' thresholds below any panel here."""
+    monkeypatch.setattr(torch_lsmc, "STREAM_THRESHOLD_BYTES", 1024)
+    monkeypatch.setattr(pmesh, "STREAM_THRESHOLD_BYTES", 1024)
+
+
+def _multi_factor(pkg, **kwargs):
+    args, factors = _reg_case(pkg)
+    dtype = dict(dtype=jnp.float64) if pkg is jpkg else dict(dtype=F64, device="cpu")
+    return pkg.multi_factor_value(*args, factors, 0.64, NUM_SIMS, BASIS, False, seed=11,
+                                  fwd_sim_seed=13, **dtype, **kwargs)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    """The port's simulated path panels (seeds 11/13) as DataFrames."""
+    flags = tpkg.SimulationDataReturned
+    res = _multi_factor(tpkg, sim_data_returned=flags.SPOT_ALL | flags.FACTORS_ALL)
+    return {name: getattr(res, name) for name in _FRAMES}
+
+
+def _from_sims(pkg, frames, **kwargs):
+    args, _ = _reg_case(pkg)
+    dtype = dict(dtype=jnp.float64) if pkg is jpkg else dict(dtype=F64, device="cpu")
+    return pkg.value_from_sims(*args, basis_funcs=BASIS, discount_deltas=False, **frames,
+                               **dtype, **kwargs)
+
+
+def _same_bits(got, want):
+    assert got.npv == want.npv
+    assert got.val_sim_standard_error == want.val_sim_standard_error
+    pd.testing.assert_series_equal(got.deltas, want.deltas, check_exact=True)
+    pd.testing.assert_frame_equal(got.expected_profile, want.expected_profile, check_exact=True)
+    pd.testing.assert_frame_equal(got.trigger_prices, want.trigger_prices, check_exact=True)
+
+
+def _close_to_jax(got, want):
+    assert got.npv == pytest.approx(want.npv, rel=RTOL)
+    assert got.val_sim_standard_error == pytest.approx(want.val_sim_standard_error, rel=RTOL)
+    scale = np.abs(want.deltas.to_numpy()).max()
+    np.testing.assert_allclose(got.deltas.to_numpy(), want.deltas.to_numpy(), rtol=RTOL,
+                               atol=RTOL * scale)
+    pd.testing.assert_frame_equal(got.expected_profile, want.expected_profile, rtol=RTOL,
+                                  atol=1e-6)
+
+
+def _routes(caplog):
+    return [r.getMessage().split("paths=")[1].split()[0] for r in caplog.records
+            if "LSMC execution" in r.getMessage()]
+
+
+def test_host_fed_value_from_sims_matches_device_resident_and_jax(frames, lowered, caplog):
+    with caplog.at_level(logging.INFO, logger="storage_tpu_torch.multi_factor"):
+        got = _from_sims(tpkg, frames)
+    assert _routes(caplog) == ["host-streamed"]
+    torch_lsmc.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
+    _same_bits(got, _from_sims(tpkg, frames))
+    # The trigger prices are held against the JAX package's on the device-
+    # resident run (test_torch_value_from_sims.py): on this facility the
+    # withdrawal at the expected inventory of 2020-03-19 sits on a near-tie
+    # with its alternative, which the two packages' rounding settles apart
+    # (the port's trigger active, the JAX package's NaN), streamed or not.
+    _close_to_jax(got, _from_sims(jpkg, frames))
+
+
+def test_host_fed_panels_refuse_sim_data(frames, lowered):
+    with pytest.raises(ValueError, match="do not fit device memory"):
+        _from_sims(tpkg, frames, sim_data_returned=tpkg.SimulationDataReturned.PV)
+
+
+def test_host_fed_adjoint_matches_jax(frames, lowered):
+    """Adjoint deltas on host-fed panels (the VJP a segment at a time)
+    against the JAX path-chunked adjoint; NPV and SE the pricing run's bits."""
+    got = _from_sims(tpkg, frames, deltas_method="adjoint")
+    _close_to_jax(got, _from_sims(jpkg, frames, deltas_method="adjoint"))
+    pathwise = _from_sims(tpkg, frames)
+    assert (got.npv, got.val_sim_standard_error) == (pathwise.npv,
+                                                     pathwise.val_sim_standard_error)
+
+
+def test_path_chunked_adjoint_matches_jax():
+    """``lsmc_ad_deltas_path_chunked`` on host panels in chunks of 37 paths
+    (a ragged last chunk) against the JAX function on the same payload."""
+    from __graft_entry__ import _build_case
+
+    inputs, arrays, sim_inputs, monomials = _build_case(20, 10, NUM_SIMS, jnp.float64)
+    sim = [sim_inputs[k] for k in ("decay", "chol", "vols", "half_var", "fwd")]
+    reg = jax_simulate(jax.random.key(11), jnp.arange(NUM_SIMS), *sim)
+    val = jax_simulate(jax.random.key(13), jnp.arange(NUM_SIMS), *sim)
+    tfn = inputs.compiled.terminal_value
+    payload = jax_lsmc.lsmc_core(arrays, reg.spot, reg.factors, val.spot, val.factors,
+                                 jnp.asarray(100.0), monomials, 0, False, tfn, False,
+                                 return_regression=True)
+    regression = {k: np.asarray(payload[f"regression_{k}"]) for k in ("mean", "std", "coeffs")}
+    spot, factors = np.asarray(val.spot), np.asarray(val.factors)
+    want_npv, want = jax_lsmc.lsmc_ad_deltas_path_chunked(
+        arrays, regression, spot, factors, jnp.asarray(100.0), monomials, 0, False, tfn, False,
+        chunk_sims=37)
+    t_arrays = convert.engine_arrays_from_numpy({k: np.asarray(v) for k, v in arrays.items()},
+                                                F64, "cpu")
+    got_npv, got = torch_lsmc.lsmc_ad_deltas_path_chunked(
+        t_arrays, regression, spot, factors, 100.0,
+        tuple(parse_basis_functions("1 + x_st + x_lt + x_sw + x_st**2 + x_lt**2 + x_sw**2 + s + "
+                                    "s**2")), 0, False, tfn, False, chunk_sims=37)
+    assert float(got_npv) == pytest.approx(float(want_npv), rel=1e-9)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+
+
+def test_streamed_multi_factor_value_matches_materialised_and_jax(lowered, caplog):
+    with caplog.at_level(logging.INFO, logger="storage_tpu_torch.multi_factor"):
+        got = _multi_factor(tpkg)
+    assert _routes(caplog) == ["streamed"]
+    torch_lsmc.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
+    _same_bits(got, _multi_factor(tpkg))
+    assert got.intrinsic_npv == _multi_factor(tpkg).intrinsic_npv
+    _close_to_jax(got, _multi_factor(jpkg))
+
+
+def test_streamed_adjoint_matches_jax(lowered):
+    got = _multi_factor(tpkg, deltas_method="adjoint")
+    _close_to_jax(got, _multi_factor(jpkg, deltas_method="adjoint"))
+    pathwise = _multi_factor(tpkg)
+    assert (got.npv, got.val_sim_standard_error) == (pathwise.npv,
+                                                     pathwise.val_sim_standard_error)
+
+
+def test_streamed_progress_callback(lowered):
+    """Progress on a streamed run: the materialised interactive run's
+    fractions (a mark after each 16-step segment of both passes) and bits."""
+    streamed = []
+    got = _multi_factor(tpkg, on_progress_update=streamed.append)
+    torch_lsmc.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
+    materialised = []
+    want = _multi_factor(tpkg, on_progress_update=materialised.append)
+    assert streamed == materialised
+    assert len(streamed) == 4 + 2 * -(-(len(got.deltas) - 1) // 16) and streamed[-1] == 1.0
+    _same_bits(got, want)
+
+
+def test_streamed_checkpoint_revalues_to_its_bits(lowered, tmp_path):
+    """A checkpoint written by a streamed run, revalued on the valuation
+    paths (the same paths, materialised), gives that run's NPV bits."""
+    path = str(tmp_path / "streamed.npz")
+    res = _multi_factor(tpkg, checkpoint_path=path)
+    torch_lsmc.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
+    flags = tpkg.SimulationDataReturned
+    paths = _multi_factor(tpkg, sim_data_returned=flags.SPOT_VALUATION | flags.FACTORS_VALUATION)
+    spot = np.array(paths.sim_spot_valuation.to_numpy())
+    factors = np.stack([f.to_numpy() for f in paths.sim_factors_valuation], axis=1)
+    out = tpkg.checkpoint.revalue_from_checkpoint(
+        tpkg.checkpoint.RegressionCheckpoint.load(path), spot, factors, device="cpu")
+    assert float(out["npv"]) == res.npv

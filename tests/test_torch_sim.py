@@ -53,7 +53,9 @@ def test_simulate_ou_paths_matches_jax(jdt, tdt, rtol, atol):
 
 
 def test_ou_step_and_spot_from_state():
-    """The single-step forms the streamed engine will use, in f64."""
+    """The JAX package's single-step forms, in f64: its streamed engine steps
+    with them; the port's regenerates a segment by the resumed sweep
+    (``spot_sim.simulate_ou_segment``)."""
     pre, fwd = _precompute(tmf)
     rng = np.random.default_rng(3)
     x = rng.normal(0.0, 0.1, (3, 64))

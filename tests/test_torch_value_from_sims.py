@@ -269,17 +269,24 @@ def test_unequal_sim_counts_raise():
         tpkg.value_from_sims(*args, reg, val, "1 + s", False, dtype=torch.float64, device="cpu")
 
 
-def test_panels_larger_than_the_card_raise(monkeypatch):
-    """User panels that would not fit the card's free memory wait for the
-    host-streamed engine; CPU runs are not limited."""
+def test_panels_larger_than_the_card_are_host_fed(monkeypatch):
+    """User panels whose footprint passes the card's streaming threshold (a
+    share of its free memory) stay in host memory and are fed a segment at a
+    time; asking for panels back from them raises ``ValueError``, as in the
+    JAX package.  Panels that fit, and CPU runs under 4 GiB, are held on the
+    device."""
     from storage_tpu_torch import api_lsmc
 
-    spot = np.zeros((366, 1000), np.float32)
-    factors = np.zeros((366, 3, 1000), np.float32)
+    periods = pd.period_range("2021-01-01", periods=366, freq="D")
+    frame = pd.DataFrame(np.zeros((366, 1000), np.float32), index=periods)
+    big = api_lsmc._UserPanels(frame, frame, [frame] * 3, [frame] * 3, torch.float32, "cuda")
+    small = api_lsmc._UserPanels(frame, frame, None, None, torch.float32, "cuda")
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device: (10_000_000, 80_000_000_000))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the streamed engine"):
-        api_lsmc._require_panels_fit((spot, factors), 100, False, torch.float32,
-                                     torch.device("cuda"))
-    api_lsmc._require_panels_fit((spot, factors[:, :0]), 100, False, torch.float32,
-                                 torch.device("cuda"))  # 3.7 MB: fits
-    api_lsmc._require_panels_fit((spot, factors), 100, True, torch.float32, torch.device("cpu"))
+    route = lambda sims, flags, device: api_lsmc._route(  # noqa: E731
+        sims, 365, 100, flags, None, torch.float32, torch.device(device))
+    none, pv = tpkg.SimulationDataReturned.NONE, tpkg.SimulationDataReturned.PV
+    assert route(big, none, "cuda")  # 12.5 MB over 7.5 MB: host-fed
+    with pytest.raises(ValueError, match="do not fit device memory"):
+        route(big, pv, "cuda")
+    assert not route(small, pv, "cuda")  # 3.7 MB: fits
+    assert not route(big, pv, "cpu")

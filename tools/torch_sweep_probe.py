@@ -73,8 +73,8 @@ _KERNEL_START = "template <int F>\n__global__ void __launch_bounds__(kThreads) s
 _KERNEL_END = "using SweepKernel ="
 _PATHS2 = """template <int F>
 __global__ void __launch_bounds__(kThreads / 2) sim_sweep_kernel(
-    uint32_t k0, uint32_t k1, int P, int S, const uint32_t* __restrict__ ids,
-    const float* __restrict__ sign, const float* __restrict__ decay,
+    uint32_t k0, uint32_t k1, uint32_t start, int P, int S, const uint32_t* __restrict__ ids,
+    const float* __restrict__ sign, const float* __restrict__ x_in, const float* __restrict__ decay,
     const float* __restrict__ chol, const float* __restrict__ vols,
     const float* __restrict__ c, float* __restrict__ factors, float* __restrict__ spot) {
   constexpr int kHalf = kThreads / 2;
@@ -90,11 +90,22 @@ __global__ void __launch_bounds__(kThreads / 2) sim_sweep_kernel(
     hi[q] = live[q] ? ids[s] : 0u;
     sg[q] = sign != nullptr && live[q] ? sign[s] : 1.0f;
 #pragma unroll
-    for (int i = 0; i < F; ++i) x[q][i] = 0.0f;
+    for (int i = 0; i < F; ++i)
+      x[q][i] = x_in != nullptr && live[q] ? x_in[static_cast<size_t>(i) * S + s] : 0.0f;
   }
-  uint32_t block = 0;
+  const uint32_t w0 = start * static_cast<uint32_t>(F);
+  uint32_t block = w0 / 2;
   uint32_t spare[2] = {0u, 0u};
-  bool have_spare = false;
+  bool have_spare = (w0 & 1u) != 0;
+  if (have_spare) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      uint32_t x0 = hi[q];
+      uint32_t x1 = block;
+      stt::threefry2x32(k0, k1, x0, x1);
+      spare[q] = x1;
+    }
+  }
   for (int k = 0; k < P; ++k) {
     float z[2][F];
 #pragma unroll
