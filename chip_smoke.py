@@ -155,7 +155,24 @@
    peak beside its footprint) and at 393,216 paths through the API, where
    the footprint selects streaming (its log line; NPV within 3 combined SE
    of the 65,536-path one; wall, paths*steps/s and peak memory printed).
-12. A phase breakdown (host preparation, simulate, intrinsic, backward,
+12. The paths split over a process group (``parallel.mesh``, right after
+   the streaming phase; "multi-GPU phase: N s" in the log): (a) a one-rank
+   NCCL group in this process, the headline through the API the main
+   path's bits; (b) two ranks in subprocesses (``--rank``; NCCL on two
+   cards where the host has two, else gloo with both on card 0; they load
+   this run's kernel library), a PASS or FAIL line each: the headline at
+   131,072 paths a rank within 0.05 SE of (a), every reduced output the
+   same bits on both ranks (pathwise, adjoint, streamed, host-local), A 2,
+   B 365 and C 1 launches a rank and no plain version, each rank's wall,
+   peak device memory and time in collectives (a run with every collective
+   bracketed by synchronisations); the streamed route (threshold 0) the
+   materialised bits; the ``--f64`` route at 16,384 paths within 1e-9 of
+   one rank's; ``value_from_sims_host_local`` on each rank's half of the
+   round trip's paths (their spot digests those of its frames) within 0.05
+   SE of ``value_from_sims``, and on their spot alone (kernel D) within 0.1
+   SE of the spot-only f64 answer.  Kernels A–D and the VJP are timed at a rank's share
+   (131,072 paths) in this process, alone on the card.
+13. A phase breakdown (host preparation, simulate, intrinsic, backward,
    forward) and one valuation under torch.profiler (device busy share,
    kernels by time).
 
@@ -165,7 +182,8 @@ kernels' JSON summary (with the host's C++ band reducer as ``native_band``,
 ``route: "host"``, no bound); the last line is ``{"ok": true, "device":
 {...}}``.  A
 fuller report goes to ``build/chip_smoke/`` (``chip_smoke.json``,
-``profile.txt``, ``ptxas.log``).  Exits non-zero, printing no result, without
+``profile.txt``, ``ptxas.log``, each rank's ``rank<r>.json`` and
+``rank<r>.log``).  Exits non-zero, printing no result, without
 a CUDA device, outside the repository, or when any phase fails.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -179,6 +197,7 @@ import concurrent.futures
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -494,33 +513,49 @@ def launch_ms(module, name: str, run, repeats: int):
     """Device milliseconds that the calls ``run`` makes to ``module.name``
     take, by CUDA events around each call, summed over a run (the mean of
     ``repeats`` runs after a warm-up run), and the calls a run makes."""
+    return launches_ms([(module, name)], run, repeats)[name]
+
+
+def launches_ms(targets, run, repeats: int) -> dict:
+    """``launch_ms`` of several wrappers, (module, name) each, timed in the
+    same runs: {name: (ms summed over a run, calls a run)}."""
     import functools
 
     import torch
 
-    inner, spans = getattr(module, name), []
+    inners, spans = {name: getattr(module, name) for module, name in targets}, {}
 
-    @functools.wraps(inner)
-    def timed(*a, **k):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        result = inner(*a, **k)
-        end.record()
-        spans.append((start, end))
-        return result
+    def timing(name):
+        inner, spans[name] = inners[name], []
+
+        @functools.wraps(inner)
+        def timed(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            result = inner(*a, **k)
+            end.record()
+            spans[name].append((start, end))
+            return result
+        return timed
 
     run()
-    setattr(module, name, timed)  # the wrapper counts its launches on ``timed``
+    wrappers = {name: timing(name) for _, name in targets}
+    for module, name in targets:
+        setattr(module, name, wrappers[name])  # the wrapper counts its launches on ``timed``
     try:
         for _ in range(repeats):
             run()
     finally:
-        setattr(module, name, inner)
-        for counter in ("launches", "general_launches"):
-            if hasattr(inner, counter):
-                setattr(inner, counter, getattr(timed, counter))
+        for module, name in targets:
+            inner, timed = inners[name], wrappers[name]
+            setattr(module, name, inner)
+            for counter in ("launches", "general_launches"):
+                if hasattr(inner, counter):
+                    setattr(inner, counter, getattr(timed, counter))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in spans) / repeats, len(spans) // repeats
+    return {name: (sum(a.elapsed_time(b) for a, b in spans[name]) / repeats,
+                   len(spans[name]) // repeats) for name in spans}
 
 
 def backward_step_inputs(pkg, device):
@@ -2751,6 +2786,7 @@ def streaming_phase(pkg, device, counts, main, src, from_sims, card) -> dict:
     import torch
 
     from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.parallel import mesh as pmesh
 
     report = {"resumed_sweep": check_resumed_sweep(pkg, device, card)}
     n_seg = segments(NUM_STEPS)
@@ -2811,15 +2847,15 @@ def streaming_phase(pkg, device, counts, main, src, from_sims, card) -> dict:
     del runs, mat, st, adj_st, adj_mat
 
     # User panels fed from host memory, the threshold lowered below them.
-    saved = engine.stream_threshold
-    engine.stream_threshold = lambda device: 0
+    saved = pmesh.stream_threshold
+    pmesh.stream_threshold = lambda device: 0
     try:
         host_fed, launches, wall, peak = measured(lambda: value_from_frames(
             pkg, device, src.sim_spot_regress, src.sim_spot_valuation, BASIS,
             sim_factors_regress=src.sim_factors_regress,
             sim_factors_valuation=src.sim_factors_valuation), counts)
     finally:
-        engine.stream_threshold = saved
+        pmesh.stream_threshold = saved
     same = (same_bits(host_fed, from_sims)
             and host_fed.trigger_prices.equals(from_sims.trigger_prices))
     expected = counts.expect(decision_update_moments=NUM_STEPS, forward_sweep=n_seg,
@@ -2845,7 +2881,7 @@ def streaming_phase(pkg, device, counts, main, src, from_sims, card) -> dict:
     with pass_timers(passes["materialised_65k"]):
         out_mat, l_mat, w_mat, p_mat = measured(pair["materialised"], counts)
     differ = engine_same_bits(out_st, out_mat)
-    footprint = engine.footprint_bytes(HOURLY_STEPS, HOURLY_SIMS[0], 3, NUM_GRID, 4) / 1e9
+    footprint = pmesh.footprint_bytes(HOURLY_STEPS, HOURLY_SIMS[0], 3, NUM_GRID, 4) / 1e9
     npv_65k, se_65k = float(out_st["npv"]), float(out_st["standard_error"])
     log(f"hourly year [{HOURLY_STEPS} x {HOURLY_SIMS[0]} x {NUM_GRID}] streamed against "
         f"materialised: NPV {npv_65k!r} SE {se_65k!r}; every output the same bits: {not differ} "
@@ -2877,7 +2913,7 @@ def streaming_phase(pkg, device, counts, main, src, from_sims, card) -> dict:
     combined = math.sqrt(big.val_sim_standard_error ** 2 + se_65k ** 2)
     z = (big.npv - npv_65k) / combined
     rate = HOURLY_SIMS[1] * HOURLY_STEPS / w_big
-    materialised_gb = engine.footprint_bytes(HOURLY_STEPS, HOURLY_SIMS[1], 3, NUM_GRID, 4) / 1e9
+    materialised_gb = pmesh.footprint_bytes(HOURLY_STEPS, HOURLY_SIMS[1], 3, NUM_GRID, 4) / 1e9
     log(f"hourly year [{HOURLY_STEPS} x {HOURLY_SIMS[1]} x {NUM_GRID}] through the API: {route}; "
         f"NPV {big.npv!r} SE {big.val_sim_standard_error!r}, {z:+.3f} combined SE from the "
         f"{HOURLY_SIMS[0]:,}-path NPV (tolerance 3); wall {w_big:.3f} s = {rate:.1f} paths*steps/s; peak "
@@ -3685,11 +3721,30 @@ def check_tree(pkg, device, counts) -> dict:
                 steps=steps_row)
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Kernels B, D and C replaced by their plain versions inside the block
+    (the route of ``--f64``: f64 on the card)."""
+    from unittest import mock
+
+    from storage_tpu_torch.ops import decision_kernel, forward_kernel
+
+    plain = [
+        mock.patch.object(decision_kernel, "decision_update_moments",
+                          lambda *a, out=None: decision_kernel.decision_update_moments_plain(*a)),
+        mock.patch.object(decision_kernel, "decision_update",
+                          lambda *a, out=None: decision_kernel.decision_update_plain(*a)),
+        mock.patch.object(forward_kernel, "forward_sweep", forward_kernel.forward_sweep_plain),
+    ]
+    with contextlib.ExitStack() as stack:
+        for patch in plain:
+            stack.enter_context(patch)
+        yield
+
+
 def measure_f64(pkg, device):
     """The pinned f64 answers: the kernels' plain versions in f64 on the
     card, on the f32 draws of the headline case cast to f64."""
-    from unittest import mock
-
     import torch
 
     from storage_tpu_torch import grid as gridmod
@@ -3697,7 +3752,6 @@ def measure_f64(pkg, device):
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.engines.intrinsic import intrinsic_plain
     from storage_tpu_torch.models import spot_sim
-    from storage_tpu_torch.ops import decision_kernel, forward_kernel
 
     inputs, sim_in, _, monomials = engine_inputs(pkg, device)
     arrays = engine.build_engine_arrays(
@@ -3709,16 +3763,7 @@ def measure_f64(pkg, device):
     reg, val = (spot_sim.simulate_ou_paths(spot_sim.key_from_seed(k), ids, *sim_in)
                 for k in (11, 13))
     f64 = lambda x: x.to(torch.float64)  # noqa: E731
-    plain = [
-        mock.patch.object(decision_kernel, "decision_update_moments",
-                          lambda *a, out=None: decision_kernel.decision_update_moments_plain(*a)),
-        mock.patch.object(decision_kernel, "decision_update",
-                          lambda *a, out=None: decision_kernel.decision_update_plain(*a)),
-        mock.patch.object(forward_kernel, "forward_sweep", forward_kernel.forward_sweep_plain),
-    ]
-    for patch in plain:
-        patch.start()
-    try:
+    with plain_versions():
         npvs = {}
         for snap in (True, False):
             out = engine.lsmc_core(arrays, f64(reg.spot), f64(reg.factors), f64(val.spot),
@@ -3740,9 +3785,6 @@ def measure_f64(pkg, device):
                                f64(val.factors), 100.0, monomials, 0, False, tfn, False,
                                snap_interp=True, uniform_grids=False)
         npvs["F64_CUSTOM_NPV"] = float(out["npv"])
-    finally:
-        for patch in plain:
-            patch.stop()
     return npvs
 
 
@@ -3797,6 +3839,437 @@ def profile_valuation(pkg, device, card):
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in events[:30]])
 
 
+# The multi-GPU phase: the headline's paths split over a process group, one
+# rank a card (``parallel.mesh``).  A rank's share of the headline, and the
+# f64 path count of the two-rank check.
+MULTI_WORLD = 2
+MULTI_SIMS = NUM_SIMS // MULTI_WORLD
+F64_MULTI_SIMS = 16_384
+# The wall limit of the phase (the two ranks' subprocesses are killed past
+# RANK_TIMEOUT_S).
+MULTI_PHASE_LIMIT_S = 90.0
+RANK_TIMEOUT_S = 240.0
+
+
+def launch_counts():
+    """The kernels' launch counters (``LaunchCounts``) of every path."""
+    from storage_tpu_torch.ops import (decision_kernel, forward_kernel, intrinsic_kernel,
+                                       rng_kernel, tree_kernel)
+
+    return LaunchCounts((rng_kernel.simulate_sweep, rng_kernel.normal_halves,
+                         decision_kernel.decision_update_moments,
+                         forward_kernel.forward_sweep, decision_kernel.decision_update,
+                         decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp,
+                         tree_kernel.tree_dp,
+                         ("tree_dp_steps", tree_kernel.tree_dp, "step_launches"),
+                         forward_kernel.forward_sweep_design,
+                         forward_kernel.forward_sweep_vjp,
+                         ("forward_sweep_general", forward_kernel.forward_sweep,
+                          "general_launches"),
+                         ("forward_sweep_design_general", forward_kernel.forward_sweep_design,
+                          "general_launches")))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def f64_route_npv(pkg, device, num_sims: int, mesh) -> tuple:
+    """(NPV, SE) of the headline by the ``--f64`` route at ``num_sims``
+    paths: the f32 draws of seeds 11/13 cast to f64 and the kernels' plain
+    versions in f64 on the card, over this rank's block of the paths in
+    ``mesh`` (``parallel.mesh.lsmc_core_from_sims``; None: all of them)."""
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.parallel import mesh as pmesh
+
+    inputs, sim_in, _, monomials = engine_inputs(pkg, device)
+    arrays = engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow, inputs.inventory_lower,
+        inputs.inventory_upper, NUM_GRID, torch.float64, device)
+    ids = pmesh.path_ids(num_sims, mesh, device)
+    reg, val = (spot_sim.simulate_ou_paths(spot_sim.key_from_seed(k), ids, *sim_in)
+                for k in (11, 13))
+    f64 = lambda x: x.to(torch.float64)  # noqa: E731
+    with plain_versions():
+        out = pmesh.lsmc_core_from_sims(
+            arrays, f64(reg.spot), f64(reg.factors), f64(val.spot), f64(val.factors), 100.0,
+            monomials, 0, False, inputs.compiled.terminal_value, False, mesh=mesh,
+            snap_interp=True)
+    return float(out["npv"]), float(out["standard_error"])
+
+
+def result_digest(res) -> str:
+    """A digest of a result's reduced outputs: NPV, SE, intrinsic value,
+    deltas, expected profile and trigger prices, as f64 bytes."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (res.npv, res.val_sim_standard_error, res.intrinsic_npv, res.deltas.to_numpy(),
+              res.expected_profile.to_numpy(), res.trigger_prices.to_numpy()):
+        h.update(np.ascontiguousarray(a, dtype=np.float64).tobytes())
+    return h.hexdigest()
+
+
+def panel_digest(panel) -> str:
+    """A digest of a [P, S] panel's f32 values (the frames hold them in
+    f64, exactly)."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(panel, dtype=np.float32).tobytes()).hexdigest()
+
+
+def rank_main(argv) -> int:
+    """One rank of the multi-GPU phase: ``chip_smoke.py --rank r world port
+    backend report.json``.  Forms the group (gloo with every rank on card 0,
+    or NCCL a card a rank), uses the parent's kernel library, and values
+    the headline through the API on its share of the paths: warm-up, three
+    timed runs (the first counted: launches, plain-version calls, peak
+    memory), one with every collective bracketed by synchronisations (its
+    count and seconds), the adjoint, the streamed route (the threshold
+    0), the ``--f64`` route at 16,384 paths, then ``value_from_sims_host_local``
+    on its half of the round trip's paths (regenerated by the sweep: their
+    spot digests go to the parent) with the factors and on the spot alone.
+    Writes its report as JSON; every check across ranks is the parent's."""
+    import datetime
+
+    import numpy as np
+    import pandas as pd
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port, backend, report_path = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    sys.path.insert(0, str(REPO))
+    import storage_tpu_torch as stt
+    from storage_tpu_torch.engines import intrinsic as intrinsic_engine
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel, rng_kernel
+    from storage_tpu_torch.parallel import distributed as pdist
+    from storage_tpu_torch.parallel import mesh as pmesh
+
+    # The host's cores shared between the ranks' intra-op threads.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    prebuilt = _build.library_path().exists()
+    index = rank if backend == "nccl" else 0
+    t_start = time.perf_counter()
+    pdist.initialize(f"localhost:{port}", world, rank, local_device_ids=[index], backend=backend,
+                     timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    device = torch.device("cuda", index)
+    mesh = pmesh.make_mesh()
+    report = dict(rank=rank, backend=backend, device=str(device), library_prebuilt=prebuilt,
+                  group_s=time.perf_counter() - t_start)
+    counts = launch_counts()
+    plain = {}
+    for module, name in ((rng_kernel, "simulate_sweep_plain"),
+                         (decision_kernel, "decision_update_moments_plain"),
+                         (decision_kernel, "decision_update_plain"),
+                         (forward_kernel, "forward_sweep_plain"),
+                         (forward_kernel, "forward_sweep_vjp_plain"),
+                         (intrinsic_engine, "intrinsic_plain")):
+        def counted(*a, _inner=getattr(module, name), _name=name, **k):
+            plain[_name] += 1
+            return _inner(*a, **k)
+
+        plain[name] = 0
+        setattr(module, name, counted)
+
+    def timed_value(**kwargs):
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = value(stt, device, True, **kwargs)
+        torch.cuda.synchronize(device)
+        return res, time.perf_counter() - t0
+
+    value(stt, device, True)  # warm-up: this process's first valuation
+    torch.cuda.synchronize(device)
+    walls = []
+    for i in range(3):
+        if i == 0:
+            counts.reset()
+            plain.update(dict.fromkeys(plain, 0))
+            torch.cuda.reset_peak_memory_stats(device)
+        res, wall = timed_value()
+        walls.append(wall)
+        if i == 0:
+            report.update(launches=counts.read(), plain_calls=dict(plain),
+                          peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    report.update(npv=res.npv, se=res.val_sim_standard_error, walls_s=walls,
+                  wall_s=float(np.median(walls)), digest=result_digest(res))
+    log(f"rank {rank}: group {report['group_s']:.1f} s, headline walls {walls}")
+
+    # Every collective bracketed by synchronisations: their count and time
+    # (waits for the other rank included) beside the run's wall.
+    spans, originals = [], {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "broadcast")}
+
+    def bracketed(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(device)
+            spans.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for n, fn in originals.items():
+        setattr(dist, n, bracketed(fn))
+    try:
+        res_c, wall_c = timed_value()
+    finally:
+        for n, fn in originals.items():
+            setattr(dist, n, fn)
+    report.update(collectives=len(spans), collectives_s=sum(spans), instrumented_wall_s=wall_c,
+                  instrumented_digest=result_digest(res_c))
+
+    counts.reset()
+    res_a, wall_a = timed_value(deltas_method="adjoint")
+    report["adjoint"] = dict(npv=res_a.npv, wall_s=wall_a, launches=counts.read(),
+                             digest=result_digest(res_a))
+
+    saved = pmesh.stream_threshold
+    pmesh.stream_threshold = lambda device: 0
+    try:
+        counts.reset()
+        res_s, wall_s = timed_value()
+    finally:
+        pmesh.stream_threshold = saved
+    report["streamed"] = dict(npv=res_s.npv, wall_s=wall_s, launches=counts.read(),
+                              digest=result_digest(res_s))
+
+    t0 = time.perf_counter()
+    npv64, se64 = f64_route_npv(stt, device, F64_MULTI_SIMS, mesh)
+    report["f64"] = dict(npv=npv64, se=se64, wall_s=time.perf_counter() - t0)
+    log(f"rank {rank}: adjoint {wall_a:.3f} s, streamed {wall_s:.3f} s, f64 route "
+        f"{report['f64']['wall_s']:.3f} s")
+
+    # This rank's half of the round trip's paths as frames, fed to the
+    # host-local entry point (3 factors), then their spot alone.
+    inputs, sim_in, _, _ = engine_inputs(stt, device)
+    ids = pmesh.path_ids(NUM_SIMS, mesh, device)
+    frames, digests = [], []
+    for seed in (11, 13):
+        paths = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(seed), ids, *sim_in)
+        spot, factors = paths.spot.cpu().numpy(), paths.factors.cpu().numpy()
+        digests.append(panel_digest(spot))
+        frames.append((pd.DataFrame(spot, index=inputs.periods),
+                       [pd.DataFrame(factors[:, i], index=inputs.periods) for i in range(3)]))
+        del paths
+    storage, start, fwd = bench_case(stt)
+    for name, basis, with_factors in (("host_local", BASIS, True),
+                                      ("host_local_spot", SPOT_BASIS, False)):
+        counts.reset()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res_h = stt.value_from_sims_host_local(
+            storage, start, 100.0, fwd, 0.02, None, frames[0][0], frames[1][0], basis, False,
+            sim_factors_regress=frames[0][1] if with_factors else None,
+            sim_factors_valuation=frames[1][1] if with_factors else None,
+            num_inventory_grid_points=NUM_GRID, dtype=torch.float32, device=device,
+            snap_interp=True)
+        torch.cuda.synchronize(device)
+        report[name] = dict(npv=res_h.npv, se=res_h.val_sim_standard_error,
+                            wall_s=time.perf_counter() - t0, launches=counts.read(),
+                            digest=result_digest(res_h), spot_digests=digests)
+    dist.barrier()
+    dist.destroy_process_group()
+    report["rank_s"] = time.perf_counter() - t_start
+    Path(report_path).write_text(json.dumps(report, indent=1, default=float))
+    log(f"rank {rank}: done in {report['rank_s']:.1f} s")
+    return 0
+
+
+def rank_share_kernel_ms(pkg, device, src) -> dict:
+    """Each kernel of the sharded path, ms a launch by CUDA events around each
+    launch (``launches_ms``) over a valuation through the API, alone on the
+    card, at a rank's share (131,072 paths) and, measured the same way in
+    the same call, at the whole headline's 262,144: {kernel: {paths: ms}}.
+    A, B, C and the VJP over an adjoint valuation; kernel D's on the
+    spot-only path over the round trip's spot frames (the first half for a
+    rank's share)."""
+    from storage_tpu_torch.ops import decision_kernel, forward_kernel, rng_kernel
+
+    out = {}
+    for sims in (MULTI_SIMS, NUM_SIMS):
+        frames = [frame.iloc[:, :sims] for frame in (src.sim_spot_regress,
+                                                      src.sim_spot_valuation)]
+        timed = launches_ms(
+            [(rng_kernel, "simulate_sweep"), (decision_kernel, "decision_update_moments"),
+             (forward_kernel, "forward_sweep"), (forward_kernel, "forward_sweep_vjp")],
+            lambda: value(pkg, device, True, num_sims=sims, deltas_method="adjoint"), 2)
+        timed.update(launches_ms([(decision_kernel, "decision_update")],
+                                 lambda: value_from_frames(pkg, device, *frames, SPOT_BASIS), 1))
+        for name, (ms, calls) in timed.items():
+            out.setdefault(name, {})[sims] = ms / calls
+    return out
+
+
+def multi_gpu_phase(pkg, device, counts, main, src, from_sims, spot_only, card) -> dict:
+    """(a) A one-rank NCCL group in this process: the headline through the
+    API the main path's bits.  (b) Two ranks in subprocesses (``rank_main``;
+    NCCL on two cards where there are two, else gloo with both on card 0),
+    each PASS or FAIL: the headline within 0.05 SE of (a), every reduced
+    output the same bits on both ranks (pathwise, adjoint, streamed,
+    host-local), A 2 / B 365 / C 1 launches a rank and no plain version;
+    streamed the materialised bits; the ``--f64`` route at 16,384 paths
+    within 1e-9 of one rank's; ``value_from_sims_host_local`` on the round
+    trip's halves (their spot digests checked against its frames) within
+    0.05 SE of the single process's ``value_from_sims``, and on their spot
+    alone (kernel D) within 0.1 SE of the spot-only f64 answer, as the
+    one-process spot-only path.  Kernel times at a rank's
+    share are taken in this process, alone on the card."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from storage_tpu_torch.parallel import distributed as pdist
+
+    t_phase = time.perf_counter()
+    report = {}
+    # (a) A group of one: the reducer takes no collective.
+    pdist.initialize(f"localhost:{free_port()}", 1, 0, local_device_ids=[device.index or 0],
+                     backend="nccl", timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        counts.reset()
+        t0 = time.perf_counter()
+        one = value(pkg, device, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.read()
+    finally:
+        dist.destroy_process_group()
+    same = same_bits(one, main)
+    expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS, forward_sweep=1,
+                             intrinsic_dp=1)
+    log(f"multi-GPU (a), a one-rank NCCL group: NPV {one.npv!r} SE {one.val_sim_standard_error!r}; "
+        f"the main path's NPV, SE, deltas and profile bits: {same}; wall {wall:.4f} s; launches "
+        f"{launches} [{card}]")
+    if not same or launches != expected:
+        raise AssertionError("a group of one parts from the main path")
+    report["group_of_one"] = dict(npv=one.npv, se=one.val_sim_standard_error, same_bits=same,
+                                  wall_s=wall, launches=launches)
+
+    npv64, se64 = f64_route_npv(pkg, device, F64_MULTI_SIMS, None)
+    report["rank_share_ms"] = rank_share_kernel_ms(pkg, device, src)
+    log("multi-GPU kernel ms a launch inside a valuation, alone on the card, at a rank's share "
+        f"({MULTI_SIMS} paths) and at {NUM_SIMS}: " + ", ".join(
+            f"{k} {v[MULTI_SIMS]:.4f} / {v[NUM_SIMS]:.4f}"
+            for k, v in report["rank_share_ms"].items()) + f" [{card}]")
+    want_digests = [[panel_digest(frame.to_numpy()[:, r * MULTI_SIMS:(r + 1) * MULTI_SIMS])
+                     for frame in (src.sim_spot_regress, src.sim_spot_valuation)]
+                    for r in range(MULTI_WORLD)]
+
+    # (b) Two ranks in subprocesses.
+    torch.cuda.empty_cache()
+    backend = "nccl" if torch.cuda.device_count() >= MULTI_WORLD else "gloo"
+    port = free_port()
+    paths = [OUT / f"rank{r}.json" for r in range(MULTI_WORLD)]
+    for p in paths:
+        p.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        logs = [stack.enter_context(open(OUT / f"rank{r}.log", "w")) for r in range(MULTI_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", str(r), str(MULTI_WORLD),
+             str(port), backend, str(paths[r])], stdout=logs[r], stderr=subprocess.STDOUT,
+            cwd=str(REPO)) for r in range(MULTI_WORLD)]
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(1.0, RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+    ranks_s = time.perf_counter() - t0
+    reports, failures = [], []
+    for r, proc in enumerate(procs):
+        if proc.returncode == 0 and paths[r].exists():
+            reports.append(json.loads(paths[r].read_text()))
+        else:
+            reports.append(None)
+            tail = (OUT / f"rank{r}.log").read_text()[-3000:]
+            failures.append(f"rank {r} exited {proc.returncode}:\n{tail}")
+    if failures:
+        for r in range(MULTI_WORLD):
+            log(f"multi-GPU rank {r} ({backend}): FAIL")
+        raise AssertionError("multi-GPU ranks failed: " + "\n".join(failures))
+
+    r0 = reports[0]
+    se_one = one.val_sim_standard_error
+    agree = {key: len({(rep[key] if key == "digest" else rep[key]["digest"]) for rep in reports})
+             == 1 for key in ("digest", "adjoint", "streamed", "host_local", "host_local_spot")}
+    agree["f64"] = len({rep["f64"]["npv"] for rep in reports}) == 1
+    cross = dict(
+        npv_gap_se=(r0["npv"] - one.npv) / se_one,
+        f64_rel=abs(r0["f64"]["npv"] - npv64) / abs(npv64),
+        host_local_gap_se=(r0["host_local"]["npv"] - from_sims.npv)
+        / from_sims.val_sim_standard_error,
+        spot_off_f64_se=(r0["host_local_spot"]["npv"] - F64_SPOT_NPV)
+        / r0["host_local_spot"]["se"],
+        streamed_same=r0["streamed"]["digest"] == r0["digest"],
+        instrumented_same=r0["instrumented_digest"] == r0["digest"],
+        adjoint_npv_same=r0["adjoint"]["npv"] == r0["npv"])
+    cross_ok = (all(agree.values()) and abs(cross["npv_gap_se"]) <= 0.05
+                and cross["f64_rel"] <= 1e-9 and abs(cross["host_local_gap_se"]) <= 0.05
+                and abs(cross["spot_off_f64_se"]) <= 0.1 and cross["streamed_same"]
+                and cross["instrumented_same"] and cross["adjoint_npv_same"])
+    want = dict(main=counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                                   forward_sweep=1, intrinsic_dp=1),
+                adjoint=counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                                      forward_sweep=1, intrinsic_dp=1, forward_sweep_vjp=1),
+                streamed=counts.expect(simulate_sweep=3 * segments(NUM_STEPS),
+                                       decision_update_moments=NUM_STEPS,
+                                       forward_sweep=segments(NUM_STEPS), intrinsic_dp=1),
+                host_local=counts.expect(decision_update_moments=NUM_STEPS, forward_sweep=1,
+                                         intrinsic_dp=1),
+                host_local_spot=counts.expect(decision_update=NUM_STEPS, forward_sweep=1,
+                                              intrinsic_dp=1))
+    ok_all = cross_ok
+    for r, rep in enumerate(reports):
+        rank_ok = (cross_ok and rep["library_prebuilt"] and rep["launches"] == want["main"]
+                   and not any(rep["plain_calls"].values())
+                   and all(rep[k]["launches"] == want[k]
+                           for k in ("adjoint", "streamed", "host_local", "host_local_spot"))
+                   and rep["host_local"]["spot_digests"] == want_digests[r])
+        ok_all = ok_all and rank_ok
+        log(f"multi-GPU rank {r} ({backend}, {rep['device']}): {'PASS' if rank_ok else 'FAIL'}: "
+            f"NPV {rep['npv']!r} SE {rep['se']!r}; wall median {rep['wall_s']:.4f} s of "
+            f"{[round(w, 4) for w in rep['walls_s']]}; peak device memory {rep['peak_gb']:.2f} GB; "
+            f"{rep['collectives']} collectives {rep['collectives_s']:.4f} s of an instrumented "
+            f"wall {rep['instrumented_wall_s']:.4f} s; adjoint {rep['adjoint']['wall_s']:.4f} s, "
+            f"streamed {rep['streamed']['wall_s']:.4f} s, f64 route {rep['f64']['wall_s']:.2f} s, "
+            f"host-local {rep['host_local']['wall_s']:.2f} s; launches {rep['launches']}, plain "
+            f"calls {sum(rep['plain_calls'].values())}; library prebuilt {rep['library_prebuilt']}; "
+            f"spot digests of the round trip's half: "
+            f"{rep['host_local']['spot_digests'] == want_digests[r]} [{card}]")
+    log(f"multi-GPU (b), {MULTI_WORLD} ranks on {backend}: ranks agree {agree}; NPV "
+        f"{cross['npv_gap_se']:+.4f} SE from (a) (tolerance 0.05); f64 route at {F64_MULTI_SIMS} "
+        f"paths {r0['f64']['npv']!r} against one rank's {npv64!r}, rel {cross['f64_rel']:.2e} "
+        f"(tolerance 1e-9); streamed the materialised bits {cross['streamed_same']}; host-local "
+        f"{r0['host_local']['npv']!r}, {cross['host_local_gap_se']:+.4f} SE from value_from_sims "
+        f"{from_sims.npv!r} (tolerance 0.05); spot alone {r0['host_local_spot']['npv']!r}, "
+        f"{cross['spot_off_f64_se']:+.4f} SE from its f64 answer {F64_SPOT_NPV} (tolerance 0.1, "
+        f"the spot-only path's; the one-process run {spot_only['npv']!r}); ranks "
+        f"{ranks_s:.1f} s")
+    phase_s = time.perf_counter() - t_phase
+    log(f"multi-GPU phase: {phase_s:.1f} s (limit {MULTI_PHASE_LIMIT_S:.0f})")
+    if not ok_all:
+        raise AssertionError("the multi-GPU phase failed")
+    report.update(backend=backend, ranks=reports, cross=cross, agree=agree, ranks_s=ranks_s,
+                  phase_s=phase_s, one_rank_f64=dict(npv=npv64, se=se64))
+    return report
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -3810,14 +4283,15 @@ def main(argv) -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if argv[1:2] == ["--rank"]:
+        return rank_main(argv[2:])
 
     import numpy as np
 
     import storage_tpu_torch as stt
     from storage_tpu_torch import grid as gridmod
     from storage_tpu_torch.engines import lsmc as engine
-    from storage_tpu_torch.ops import (_build, decision_kernel, forward_kernel, intrinsic_kernel,
-                                       rng_kernel, tree_kernel)
+    from storage_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
     OUT.mkdir(parents=True, exist_ok=True)
@@ -3846,18 +4320,7 @@ def main(argv) -> int:
         print(f"chip_smoke: unknown arguments {argv[1:]}", file=sys.stderr)
         return 2
 
-    counts = LaunchCounts((rng_kernel.simulate_sweep, rng_kernel.normal_halves,
-                           decision_kernel.decision_update_moments,
-                           forward_kernel.forward_sweep, decision_kernel.decision_update,
-                           decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp,
-                           tree_kernel.tree_dp,
-                           ("tree_dp_steps", tree_kernel.tree_dp, "step_launches"),
-                           forward_kernel.forward_sweep_design,
-                           forward_kernel.forward_sweep_vjp,
-                           ("forward_sweep_general", forward_kernel.forward_sweep,
-                            "general_launches"),
-                           ("forward_sweep_design_general", forward_kernel.forward_sweep_design,
-                            "general_launches")))
+    counts = launch_counts()
 
     # ---- kernels against their plain versions.
     with engine.full_f32_matmul():
@@ -3948,6 +4411,10 @@ def main(argv) -> int:
     report["streaming"] = streaming_phase(stt, device, counts, res, src, from_sims, card)
     report["streaming_phase_s"] = time.perf_counter() - t0
     log(f"streaming phase: {report['streaming_phase_s']:.1f} s")
+    # ---- the paths split over a process group (the round trip's frames
+    # again, for the host-local entry point).
+    report["multi_gpu"] = multi_gpu_phase(stt, device, counts, res, src, from_sims,
+                                          report["spot_only"], card)
     del src, from_sims
     streamed = report["streaming"]["headline"]
     kernels["simulate_sweep"].update(
@@ -4011,6 +4478,19 @@ def main(argv) -> int:
     report["phases"] = phases
     report["profile"] = profile_valuation(stt, device, card)
 
+    # Each kernel of the sharded path: its launches on rank 0 of the
+    # two-rank headline (the adjoint's VJP, the host-local spot-only run's
+    # D) and its ms a launch at a rank's share, alone on the card.
+    rank0 = report["multi_gpu"]["ranks"][0]
+    rank_launches = dict(rank0["launches"],
+                         forward_sweep_vjp=rank0["adjoint"]["launches"]["forward_sweep_vjp"],
+                         decision_update=rank0["host_local_spot"]["launches"]["decision_update"])
+    for name in ("simulate_sweep", "decision_update_moments", "forward_sweep", "decision_update",
+                 "intrinsic_dp", "forward_sweep_vjp"):
+        kernels[name]["rank_launches"] = rank_launches[name]
+        kernels[name]["rank_share_ms"] = report["multi_gpu"]["rank_share_ms"].get(name)
+    # ``rank_share_ms``: {paths: ms a launch inside a valuation}, at a rank's
+    # share and at the headline's paths, measured the same way.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # Kernel C's ms is per sweep of all steps, its design mode's the sum of a
     # generic forward pass's chunk launches, the simulation sweep's per path
@@ -4036,7 +4516,8 @@ def main(argv) -> int:
          # No single PyTorch call computes any of these functions but the
          # VJP's (an einsum).
          "library_ms": kernels[name].get("library_ms"),
-         **{k: kernels[name][k] for k in extra.get(name, ())}}
+         **{k: kernels[name][k] for k in extra.get(name, ())},
+         **{k: kernels[name][k] for k in ("rank_launches", "rank_share_ms") if k in kernels[name]}}
         for name, (src_file, rep) in SOURCES.items()
     ]}
     # The C++ band reducer runs on the host: no device bound, no library call.

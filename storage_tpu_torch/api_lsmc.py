@@ -25,15 +25,28 @@ after every 16-step segment of the backward (0.3 to 0.7) and of the forward
 (0.7 to 0.9); the poll is read before each, and a true poll raises
 ``jobs.JobCancelledError``.  An interactive run gives the uninterrupted
 run's bits.  A valuation whose materialised panels would exceed the
-streaming threshold (``engines.lsmc.stream_threshold``: a share of the
+streaming threshold (``parallel.mesh.stream_threshold``: a share of the
 card's free memory) streams them, decided from shapes before anything is
 allocated: simulated paths are regenerated a segment at a time
 (``engines.lsmc.StreamedSims``), user panels stay in host memory and are
 copied a segment at a time (``engines.lsmc.HostRows``); both give the
-materialised run's bits.  ``value_from_sims_host_local`` raises
-``NotImplementedError`` naming, by its title, the ROADMAP item that ports
-it.  On CUDA a basis of more than 16 terms or a model of more than 8
-factors raises ``ValueError`` before anything runs: the kernels' caps
+materialised run's bits.
+
+Where ``torch.distributed`` is initialised with more than one process
+(``parallel.distributed.initialize``, or ``torchrun``), every entry point
+splits the paths over the world group, one rank a card (``parallel.mesh``):
+rank r simulates, or takes from the user's frames, the global paths
+[r·S/W, (r+1)·S/W), the engine sums across the ranks, and every rank
+returns the same result.  The path count must divide the group's size, no
+per-sim or path panel is returned (a rank holds only its own), the route is
+agreed by every rank, only rank 0 writes a checkpoint, and an interactive
+run polls every rank's ``cancellation_poll`` at each progress mark, so that
+all ranks stop at the same segment.  ``value_from_sims_host_local`` takes
+each process's own block of the user's paths.  A world of one process is
+the single-device run, bit for bit.
+
+On CUDA a basis of more than 16 terms or a model of more than 8 factors
+raises ``ValueError`` before anything runs: the kernels' caps
 (``ops._build.limits``); ``device="cpu"`` takes any size.  Seeds keep
 the JAX key semantics: ``key(seed)`` for the regression sims,
 ``fold_in(key, 0x5EED)`` for the valuation sims when ``fwd_sim_seed`` is
@@ -67,6 +80,9 @@ from .jobs import JobCancelledError
 from .models import multi_factor as mf
 from .models import spot_sim
 from .ops import _build
+from .parallel import distributed as pdist
+from .parallel import mesh as pmesh
+from .parallel import reduce as preduce
 from .profiling import Stopwatches
 from .results import (
     MultiFactorValuationResults,
@@ -139,14 +155,6 @@ def three_factor_seasonal_value(
     )
 
 
-def _refuse(option: str, item: str):
-    """``item`` is the title of the ROADMAP Queue 1 item that ports ``option``."""
-    raise NotImplementedError(
-        f"storage_tpu_torch does not support {option} yet: it waits for "
-        f"ROADMAP Queue 1, {item}."
-    )
-
-
 def _check_deltas_method(deltas_method):
     if deltas_method not in ("pathwise", "adjoint"):
         raise ValueError(
@@ -195,7 +203,7 @@ def multi_factor_value(
     factor_corrs = mf.validate_multi_factor_params(factors, factor_corrs)
 
     sims = _SimulatedPaths(factors, factor_corrs, cmdty_storage.freq, num_sims, seed,
-                           fwd_sim_seed, antithetic, dtype, device)
+                           fwd_sim_seed, antithetic, dtype, device, pmesh.make_mesh())
     return _lsmc_calc(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
         sims, basis_funcs, discount_deltas, extra_decisions,
@@ -237,12 +245,13 @@ def value_from_sims(
     storage window; spot-only panels (no factor frames) take the engine's
     spot-only backward (kernel D).  The panels are held on ``device``, or,
     beyond the streaming threshold, in host memory and fed to it a segment at
-    a time (``sim_data_returned`` then raises ``ValueError``)."""
+    a time (``sim_data_returned`` then raises ``ValueError``).  In a group
+    of processes each rank takes its own block of the frames' columns."""
     del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
     device = resolve_device(device)
     _check_deltas_method(deltas_method)
     sims = _UserPanels(sim_spot_regress, sim_spot_valuation, sim_factors_regress,
-                       sim_factors_valuation, dtype, device)
+                       sim_factors_valuation, dtype, device, pmesh.make_mesh())
     return _lsmc_calc(
         cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
         sims, basis_funcs, discount_deltas, extra_decisions,
@@ -251,10 +260,51 @@ def value_from_sims(
     )
 
 
-def value_from_sims_host_local(*args, **kwargs) -> MultiFactorValuationResults:
-    """Multi-host ``value_from_sims`` (each process's block of paths): not
-    ported yet."""
-    _refuse("value_from_sims_host_local (multi-process panels)", "multi-GPU")
+def value_from_sims_host_local(
+    cmdty_storage: CmdtyStorage,
+    val_date: pu.PeriodSpec,
+    inventory: float,
+    fwd_curve: pd.Series,
+    interest_rates: tp.Union[float, pd.Series],
+    settlement_rule: tp.Optional[dsc.SettlementRule],
+    sim_spot_regress: pd.DataFrame,
+    sim_spot_valuation: pd.DataFrame,
+    basis_funcs: str,
+    discount_deltas: bool,
+    sim_factors_regress: tp.Optional[tp.Iterable[pd.DataFrame]] = None,
+    sim_factors_valuation: tp.Optional[tp.Iterable[pd.DataFrame]] = None,
+    extra_decisions: tp.Optional[int] = None,
+    num_inventory_grid_points: int = DEFAULT_NUM_GRID_POINTS,
+    numerical_tolerance: float = 1e-12,
+    on_progress_update=None,
+    dtype=torch.float32,
+    cancellation_poll=None,
+    deltas_method: str = "pathwise",
+    checkpoint_path: tp.Optional[str] = None,
+    grid_calc=None,
+    *,
+    device: Device = "cuda",
+    snap_interp: bool = False,
+) -> MultiFactorValuationResults:
+    """Multi-process ``value_from_sims``: the frames are THIS process's block
+    of paths, and the blocks of all processes form the global panel (process
+    p owns global sims [p·S_local, (p+1)·S_local)).  Each block is checked
+    as ``value_from_sims`` checks its frames, and every process must hold
+    blocks of one shape (``parallel.distributed.host_local_sims_to_global``).
+    Per-sim panels are not returned (each process holds only its own), so
+    there is no ``sim_data_returned``.  Outside a group of processes, the
+    frames are the whole panel."""
+    del numerical_tolerance  # accepted for API parity; a no-op, as in the JAX package
+    device = resolve_device(device)
+    _check_deltas_method(deltas_method)
+    sims = _UserPanels(sim_spot_regress, sim_spot_valuation, sim_factors_regress,
+                       sim_factors_valuation, dtype, device, pmesh.make_mesh(), host_local=True)
+    return _lsmc_calc(
+        cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
+        sims, basis_funcs, discount_deltas, extra_decisions,
+        num_inventory_grid_points, SimulationDataReturned.NONE, dtype, device, snap_interp,
+        on_progress_update, cancellation_poll, checkpoint_path, deltas_method, grid_calc,
+    )
 
 
 class _SimulatedPaths:
@@ -262,14 +312,17 @@ class _SimulatedPaths:
     ``key(seed)``, the valuation set from ``fold_in(key, 0x5EED)`` when
     ``fwd_sim_seed`` is None (one shared set when the two seeds are equal),
     either simulated whole (``materialise``) or regenerated a segment at a
-    time by the engine (``stream``)."""
+    time by the engine (``stream``): in a group, this rank's block of the
+    global paths (``num_sims`` its share)."""
 
     user_panels = False
 
     def __init__(self, factors, factor_corrs, freq, num_sims, seed, fwd_sim_seed, antithetic,
-                 dtype, device):
+                 dtype, device, group=None):
         self.factors, self.factor_corrs, self.freq = factors, factor_corrs, freq
-        self.num_sims, self.num_factors = int(num_sims), len(factors)
+        self.group, self.total_sims = group, int(num_sims)
+        self.num_sims = pmesh.local_sims(self.total_sims, group)
+        self.num_factors = len(factors)
         self.antithetic, self.dtype, self.device = antithetic, dtype, device
         self.reg_key = spot_sim.key_from_seed(0 if seed is None else int(seed))
         if fwd_sim_seed is None:
@@ -287,7 +340,7 @@ class _SimulatedPaths:
         as_t = lambda a: torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)  # noqa: E731
         sim_inputs = {k: as_t(getattr(pre, k)) for k in ("decay", "chol", "vols", "half_var")}
         sim_inputs["fwd"] = as_t(inputs.fwd)
-        return sim_inputs, torch.arange(self.num_sims, dtype=torch.int64, device=self.device)
+        return sim_inputs, pmesh.path_ids(self.total_sims, self.group, self.device)
 
     def materialise(self, inputs):
         sim_inputs, path_ids = self._tables(inputs)
@@ -307,28 +360,52 @@ class _SimulatedPaths:
 class _UserPanels:
     """The paths of ``value_from_sims``: the user's frames as host arrays,
     copied whole to the device (``materialise``) or kept in host memory and
-    copied a segment at a time (``stream``, ``engines.lsmc.HostRows``)."""
+    copied a segment at a time (``stream``, ``engines.lsmc.HostRows``).  In
+    a group, this rank's block of the frames' columns, or (``host_local``)
+    the frames whole as this rank's block of the global panel."""
 
     user_panels = True
     num_sets = 2
 
     def __init__(self, spot_regress, spot_valuation, factors_regress, factors_valuation, dtype,
-                 device):
+                 device, group=None, host_local: bool = False):
         self.frames = [(spot_regress, None if factors_regress is None else list(factors_regress)),
                        (spot_valuation,
                         None if factors_valuation is None else list(factors_valuation))]
-        self.dtype, self.device = dtype, device
+        self.dtype, self.device, self.group, self.host_local = dtype, device, group, host_local
         self.num_sims = spot_regress.shape[1]
+        if not host_local:
+            self.num_sims = pmesh.local_sims(self.num_sims, group)
         self.num_factors = max(len(f or ()) for _, f in self.frames)
 
     def _host(self, inputs):
-        reg, val = (_frames_to_sims(spot, factors, inputs, label, self.dtype)
-                    for (spot, factors), label in zip(self.frames, ("regress", "valuation")))
-        if reg[0].shape[1] != val[0].shape[1]:
-            raise ValueError(
-                "Regression and valuation simulations must have the same number of sims."
-            )
+        error = None
+        try:
+            reg, val = (self._block(_frames_to_sims(spot, factors, inputs, label, self.dtype))
+                        for (spot, factors), label in zip(self.frames, ("regress", "valuation")))
+            if reg[0].shape[1] != val[0].shape[1]:
+                raise ValueError(
+                    "Regression and valuation simulations must have the same number of sims."
+                )
+        except ValueError as exc:
+            error = exc
+        if preduce.active(self.group) is not None:
+            # A rank whose frames are refused must not leave the others
+            # waiting in a collective; then every rank's blocks are one shape.
+            pdist.raise_if_any_failed(error, self.group)
+            for spot, factors in (reg, val):
+                pdist.host_local_sims_to_global(spot, factors, self.group)
+        elif error is not None:
+            raise error
         return reg, val
+
+    def _block(self, sims):
+        """This rank's columns of the whole panel's arrays (host-local frames
+        are the rank's block already)."""
+        if self.host_local or preduce.active(self.group) is None:
+            return sims
+        lo = preduce.rank(self.group) * self.num_sims
+        return tuple(np.ascontiguousarray(a[..., lo:lo + self.num_sims]) for a in sims)
 
     def materialise(self, inputs):
         return tuple((torch.tensor(spot, device=self.device),
@@ -349,9 +426,11 @@ def _frames_to_sims(spot_frame, factor_frames, inputs, label, dtype):
         _align_frame(f, periods, f"sim_factors_{label}[{i}]")
         for i, f in enumerate(factor_frames if factor_frames is not None else [])
     ]
-    spot_arr = np.asarray(spot, np_dtype)
+    # C order whatever the frames' dtype: an f32 frame's values come out in
+    # Fortran order, and the kernels take contiguous rows.
+    spot_arr = np.ascontiguousarray(spot, np_dtype)
     if factors:
-        fac_arr = np.asarray(np.stack(factors, axis=1), np_dtype)  # [P, F, S]
+        fac_arr = np.ascontiguousarray(np.stack(factors, axis=1), np_dtype)  # [P, F, S]
     else:
         fac_arr = np.zeros((spot_arr.shape[0], 0, spot_arr.shape[1]), np_dtype)
     return spot_arr, fac_arr
@@ -368,23 +447,24 @@ def _align_frame(frame: pd.DataFrame, periods: pd.PeriodIndex, name: str) -> np.
 
 
 def _route(sims, num_steps: int, num_grid: int, sim_data_returned, grid_calc, dtype,
-           device) -> bool:
+           device, group=None) -> bool:
     """Whether the valuation streams its paths, decided from shapes before
     anything is allocated (the JAX package's rule, storage_tpu/api_lsmc.py:
     520-528 and parallel/mesh.py:247-259): when the materialised footprint
-    (``engines.lsmc.footprint_bytes``) exceeds ``stream_threshold``.  User
-    panels then stay in host memory, and asking for panels back raises;
-    simulated paths stream only when no path or per-sim panel is asked for
-    and there is no ``grid_calc``.  The route is logged."""
+    of this rank's paths (``parallel.mesh.footprint_bytes``) exceeds
+    ``stream_threshold``, on any rank of ``group``.  User panels then stay
+    in host memory, and asking for panels back raises; simulated paths
+    stream only when no path or per-sim panel is asked for and there is no
+    ``grid_calc``.  The route is logged."""
     flags = SimulationDataReturned
     wants_panels = _wants_sim_data(sim_data_returned) or bool(sim_data_returned & (
         flags.SPOT_REGRESS | flags.SPOT_VALUATION | flags.FACTORS_REGRESS
         | flags.FACTORS_VALUATION))
     itemsize = torch.finfo(dtype).bits // 8
-    footprint = lsmc_engine.footprint_bytes(num_steps, sims.num_sims, sims.num_factors, num_grid,
-                                            itemsize, sims.num_sets)
-    threshold = lsmc_engine.stream_threshold(device)
-    stream = footprint > threshold
+    footprint = pmesh.footprint_bytes(num_steps, sims.num_sims, sims.num_factors, num_grid,
+                                      itemsize, sims.num_sets)
+    threshold = pmesh.stream_threshold(device)
+    stream = pmesh.streams(footprint, device, group)
     if stream and sims.user_panels and wants_panels:
         raise ValueError(
             "sim_data_returned panels do not fit device memory at this path count; pass "
@@ -393,8 +473,9 @@ def _route(sims, num_steps: int, num_grid: int, sim_data_returned, grid_calc, dt
     stream = stream and (sims.user_panels or (not wants_panels and grid_calc is None))
     route = ("host-streamed" if sims.user_panels else "streamed") if stream else "materialised"
     logger.info(
-        "LSMC execution: 1 device (%s), %d sims, paths=%s (%.2f GB of panels, threshold %.2f GB)",
-        device, sims.num_sims, route, footprint / 1e9, threshold / 1e9,
+        "LSMC execution: %d device(s) (%s), %d sims a device, paths=%s (%.2f GB of panels, "
+        "threshold %.2f GB)", preduce.size(group), device, sims.num_sims, route, footprint / 1e9,
+        threshold / 1e9,
     )
     return stream
 
@@ -431,13 +512,20 @@ def _lsmc_calc(
 ) -> MultiFactorValuationResults:
     """The valuation shared by the entry points: ``sims`` (``_SimulatedPaths``
     or ``_UserPanels``) gives the regression and valuation paths on
-    ``device``, materialised or as rows sources (``_route``)."""
+    ``device``, materialised or as rows sources (``_route``), this rank's
+    block of them in a group (``sims.group``)."""
+    group = preduce.active(sims.group)
     if checkpoint_path is not None and not isinstance(basis_funcs, str):
         raise ValueError(
             "checkpoint_path requires basis_funcs as a string (checkpoints "
             "persist the basis DSL, not combinator objects)."
         )
     sim_data_returned = SimulationDataReturned.coerce(sim_data_returned)
+    if group is not None and sim_data_returned != SimulationDataReturned.NONE:
+        raise ValueError(
+            "Per-sim and path panels are not available in a group of processes: each process "
+            "holds only its own block of the paths. Pass SimulationDataReturned.NONE."
+        )
     if isinstance(fwd_curve, pd.Series) and isinstance(
         fwd_curve.index, pd.PeriodIndex
     ) and cmdty_storage.start.freqstr != fwd_curve.index.freqstr:
@@ -464,11 +552,18 @@ def _lsmc_calc(
             cmdty_storage.freq,
         )
 
+    # Interactive on every rank where any rank asked: each then takes the
+    # same segmented passes and polls at the same marks.
+    interactive = preduce.any_rank(
+        on_progress_update is not None or cancellation_poll is not None, group)
+
     def progress(x: float):
         # Cooperative cancellation, polled at phase and segment boundaries
         # (the reference's per-step CancellationToken checks,
-        # LsmcStorageValuation.cs:345,521).
-        if cancellation_poll is not None and cancellation_poll():
+        # LsmcStorageValuation.cs:345,521); in a group every rank stops
+        # where any rank's poll is true.
+        cancelled = cancellation_poll is not None and cancellation_poll()
+        if interactive and preduce.any_rank(cancelled, group):
             raise JobCancelledError("Valuation cancelled.")
         if on_progress_update is not None:
             on_progress_update(x)
@@ -481,7 +576,6 @@ def _lsmc_calc(
         part = 0.4 * frac if phase == "backward" else 0.4 + 0.2 * frac
         progress(min(0.3 + part, 0.9))
 
-    interactive = on_progress_update is not None or cancellation_poll is not None
     monomials = tuple(basis_mod.coerce_basis_functions(basis_funcs))
     if basis_mod.has_generic(monomials):
         logger.info(
@@ -498,7 +592,7 @@ def _lsmc_calc(
         )
 
     stream = _route(sims, len(inputs.periods) - 1, num_grid_points, sim_data_returned,
-                    grid_calc, dtype, device)
+                    grid_calc, dtype, device, group)
     paths = dict.fromkeys(("spot_regress", "spot_valuation", "factors_regress",
                            "factors_valuation"))
     with stopwatches.time("path_simulation"):
@@ -541,7 +635,7 @@ def _lsmc_calc(
             return_regression=checkpoint_path is not None,
             return_sim_data=_wants_sim_data(sim_data_returned),
             segment_cb=segment_cb if interactive else None,
-            uniform_grids=uniform_grids, adjoint=deltas_method == "adjoint",
+            uniform_grids=uniform_grids, adjoint=deltas_method == "adjoint", group=group,
         )
     if deltas_method == "adjoint":
         # Reverse mode through the sweep just run: only the deltas change.
@@ -549,9 +643,10 @@ def _lsmc_calc(
         with stopwatches.time("adjoint_deltas"):
             result["deltas"] = lsmc_engine.adjoint_deltas(result.pop("adjoint_tape"))
     result = {k: v.detach().cpu().numpy() for k, v in result.items()}
-    if checkpoint_path is not None:
+    if checkpoint_path is not None and preduce.rank(group) == 0:
         # The backward's hand-off to the forward pass, so that a later
-        # forward-only revaluation skips the backward (checkpoint.py).
+        # forward-only revaluation skips the backward (checkpoint.py).  Every
+        # rank holds the same payload; rank 0 alone writes it.
         make_checkpoint(
             arrays, {k: result.pop(f"regression_{k}") for k in ("mean", "std", "coeffs")},
             basis_funcs, inputs.starting_inventory, int(extra_decisions or 0),

@@ -7,8 +7,15 @@ fused and streamed paths of ``storage_tpu.engines.lsmc``).
   kernel A's resumed sweep from the factor state entering it, which a
   warmup pass keeps as checkpoints) or ``HostRows`` (user panels in pinned
   host memory, copied a segment at a time).  Every source of the same
-  paths gives the same bits.  ``footprint_bytes`` and ``stream_threshold``
-  decide, from shapes, when a valuation streams.
+  paths gives the same bits.  ``parallel.mesh.footprint_bytes`` and
+  ``stream_threshold`` decide, from shapes, when a valuation streams.
+* Path-parallel runs (``group``, a ``torch.distributed`` process group with
+  one rank per card, ``parallel.mesh``): each rank runs every pass on its
+  own block of the paths, and every sum over sims is all-reduced across the
+  group (``parallel.reduce``): the design stats, each backward step's
+  moments in one buffer, the forward's sums and means.  Every rank then
+  holds the same reduced outputs; per-sim panels stay the rank's own.
+  Without a group, or in a group of one, nothing is reduced: the same bits.
 * Backward induction runs one decision kernel per step (``ops.decision_kernel``):
   argmax on REGRESSED values while realising ACTUAL simulated continuations
   (LsmcStorageValuation.cs:310-336).  With factor panels, kernel B also
@@ -76,54 +83,18 @@ from ..facility import CompiledStorage
 from ..models import spot_sim
 from ..ops import decision_kernel, forward_kernel, interp
 from ..ops.regression import column_stats, fit_continuation, fit_from_moments
+from ..parallel import reduce as preduce
 
 NUM_TRIGGER_PRICE_VOLUMES = 10  # LsmcStorageValuation.cs:383
 # Steps between progress callbacks of an interactive run (the JAX package's
 # ``lsmc_core_chunked`` default), and the segment a streamed pass regenerates
 # or copies at a time.
 SEG_LEN = 16
-# A valuation streams its paths (``StreamedSims``, ``HostRows``) when its
-# materialised footprint (``footprint_bytes``) exceeds ``stream_threshold``:
-# on the CPU the JAX package's 4 GiB (storage_tpu/parallel/mesh.py:43), on
-# CUDA a share of the card's free memory at the call.  The rest of a
-# materialised valuation's peak is the regression payload, the step tables
-# and a segment's temporaries: 0.75 leaves room for them and for the
-# caching allocator's slack (PERF.md §5 gives the measured peak beside the
-# footprint at the hourly year).
-STREAM_THRESHOLD_BYTES = 4 << 30
-STREAM_FREE_SHARE = 0.75
 
 _SCALARS = (
     "df_settle", "df_flow", "inj_cost", "wdr_cost", "inj_pcnt", "wdr_pcnt",
     "loss_pcnt", "inv_cost_rate",
 )
-
-
-def panel_bytes(num_steps: int, num_sims: int, num_factors: int, itemsize: int,
-                num_sets: int = 2) -> int:
-    """Bytes of the materialised path panels, spot [N+1, S] and factors
-    [N+1, F, S] a set (two sets, or one when the valuation reuses the
-    regression paths): the JAX package's ``_panel_bytes``."""
-    return num_sets * (num_steps + 1) * num_sims * (num_factors + 1) * itemsize
-
-
-def footprint_bytes(num_steps: int, num_sims: int, num_factors: int, num_grid: int,
-                    itemsize: int, num_sets: int = 2) -> int:
-    """A materialised valuation's device footprint: its path panels and the
-    backward's two [G, S] value panels."""
-    return (panel_bytes(num_steps, num_sims, num_factors, itemsize, num_sets)
-            + 2 * num_grid * num_sims * itemsize)
-
-
-def stream_threshold(device) -> int:
-    """The footprint above which a valuation on ``device`` streams its paths:
-    ``STREAM_FREE_SHARE`` of the card's free memory now, or
-    ``STREAM_THRESHOLD_BYTES`` off the card."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return int(STREAM_FREE_SHARE * free)
-    return STREAM_THRESHOLD_BYTES
 
 
 @contextlib.contextmanager
@@ -243,12 +214,13 @@ def _backward_prep_all(arrays, num_extra_decisions: int, ratchet_is_step: bool,
     }
 
 
-def _design_stats(monomials, spot, factors, chunk: tp.Optional[int] = None):
+def _design_stats(monomials, spot, factors, chunk: tp.Optional[int] = None, group=None):
     """Exact two-pass column stats (mean, std) [N, B] of every step's design
     matrix, ``chunk`` steps at a time (``SEG_LEN`` where None: a segment's
-    rows at a time, as the warmup takes them).  They depend on the
-    regression panels alone, so they are made before the backward loop; the
-    decision kernel standardises step t−1's moments by them."""
+    rows at a time, as the warmup takes them), over every rank's sims where
+    ``group`` splits them.  They depend on the regression panels alone, so
+    they are made before the backward loop; the decision kernel
+    standardises step t−1's moments by them."""
     n = spot.shape[0]
     chunk = chunk or SEG_LEN
     means, stds = [], []
@@ -257,7 +229,7 @@ def _design_stats(monomials, spot, factors, chunk: tp.Optional[int] = None):
         # [chunk, S, B] view: stacking on the last axis interleaves B-strided
         # writes, measured ~50 ms per valuation on the card.
         cols = design_columns(monomials, spot[t0:t0 + chunk], factors[t0:t0 + chunk])
-        m, s = column_stats(torch.stack(cols, dim=-2).transpose(-1, -2))
+        m, s = column_stats(torch.stack(cols, dim=-2).transpose(-1, -2), group)
         means.append(m)
         stds.append(s)
     return torch.cat(means), torch.cat(stds)
@@ -265,7 +237,8 @@ def _design_stats(monomials, spot, factors, chunk: tp.Optional[int] = None):
 
 def _fused_bootstrap(monomials, spot_last, factors_last, v_end, mean_last, std_last):
     """Moments of the LAST step's standardised design matrix against the
-    terminal values (every earlier step's come out of the decision kernel)."""
+    terminal values, this rank's sims (every earlier step's come out of the
+    decision kernel; the backward sums each step's over the group)."""
     u0 = (design_matrix(monomials, spot_last, factors_last) - mean_last) / std_last
     return u0.T @ u0, u0.T @ v_end.T
 
@@ -433,14 +406,15 @@ def _each_rows(src, ranges):
         yield rows
 
 
-def _stream_warmup(src, monomials, num_steps: int):
+def _stream_warmup(src, monomials, num_steps: int, group=None):
     """One pass over a rows source before the backward: each segment's design
     stats (``_design_stats`` on the segment's rows, so the same bits as over
     whole panels) and, for a regenerated source, the checkpoints the backward
     starts from (the state entering each segment's previous step,
     ``_backward_ranges``).  The last segment also takes step N.  Returns mean
     and std [N, B], and spot and factors of step N−1 and the spot of step N
-    (the terminal values and the moments' bootstrap)."""
+    (the terminal values and the moments' bootstrap).  The stats are over
+    every rank's sims where ``group`` splits them."""
     n = num_steps
     segs = _segments(n)
     src.plan([a for a, _ in _backward_ranges(n)])
@@ -448,7 +422,7 @@ def _stream_warmup(src, monomials, num_steps: int):
     means, stds = [], []
     for (t0, t1), (spot, factors) in zip(segs, _each_rows(src, ranges)):
         m = t1 - t0
-        mean, std = _design_stats(monomials, spot[:m], factors[:m])
+        mean, std = _design_stats(monomials, spot[:m], factors[:m], group=group)
         means.append(mean)
         stds.append(std)
     return torch.cat(means), torch.cat(stds), (spot[m - 1], factors[m - 1], spot[m])
@@ -471,6 +445,7 @@ def lsmc_backward_rows(
     fullstep: bool = False,
     segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
     uniform_grids: bool = True,
+    group=None,
 ):
     """Backward induction over a rows source (``PanelRows``, ``StreamedSims``
     or ``HostRows``).  Returns (v0 [G, S], regression payload of stacked
@@ -491,7 +466,13 @@ def lsmc_backward_rows(
     with kernel D on the design read from memory, and refuse ``fullstep``
     (kernels B and E build monomial designs of factor panels on the card).
     ``uniform_grids=False`` places target inventories on the grid rows by
-    search (``_backward_prep_all``)."""
+    search (``_backward_prep_all``).
+
+    ``group`` (a process group, ``parallel.reduce``) splits the sims over
+    its ranks: the stats, and each step's two moments in one all-reduce,
+    are summed over it, so every rank solves the same regression.  Kernel E
+    solves on the card from its own moments and takes no group larger than
+    one (the JAX package's ``resolve_fullstep``)."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     num_grid = grids.shape[1]
@@ -500,7 +481,10 @@ def lsmc_backward_rows(
     if fullstep and design_in_memory:
         raise ValueError("fullstep needs factor panels and a monomial basis: spot-only panels "
                          "and generic bases run kernel D")
-    mean, std, (spot_last, factors_last, spot_end) = _stream_warmup(src, monomials, n)
+    if fullstep and preduce.active(group) is not None:
+        raise ValueError("fullstep runs on one device: kernel E solves each step from its own "
+                         "moments, which a path-parallel group sums between steps")
+    mean, std, (spot_last, factors_last, spot_end) = _stream_warmup(src, monomials, n, group)
     v = _terminal_values(terminal_fn, spot_end, grids[n], num_grid, src.num_sims, dtype)
     prep = _backward_prep_all(arrays, num_extra_decisions, ratchet_is_step, snap_interp,
                               uniform_grids)
@@ -524,7 +508,7 @@ def lsmc_backward_rows(
                 # Regression of the next period's values on this period's
                 # standardised design (the JAX plain body, engines/lsmc.py:306-327).
                 dm_t = _standardised_design_t(monomials, spot[i], factors[i], mean[t], std[t])
-                coeffs = fit_continuation(dm_t.T, v.T)  # [B, G]
+                coeffs = fit_continuation(dm_t.T, v.T, group)  # [B, G]
                 ci = interp.interp_coeffs(coeffs, *step_args(t))
                 best_act = decision_kernel.decision_update(
                     v, dm_t, spot[i], *step_args(t), ci, prep["a"][t], prep["b"][t], out=spare,
@@ -543,7 +527,8 @@ def lsmc_backward_rows(
             else:
                 # Step t's moments arrive standardised by its exact stats: the
                 # normal equations of the JAX XLA path, without a second pass
-                # over v.
+                # over v; every rank's, summed in one all-reduce.
+                xtx, xty = preduce.psum_many((xtx, xty), group)
                 coeffs = fit_from_moments(xtx, xty)  # [B, G]
                 ci = interp.interp_coeffs(coeffs, *step_args(t))
                 best_act, xtx, xty = decision_kernel.decision_update_moments(
@@ -660,13 +645,16 @@ class AdjointTape:
     NPV's gradient in the forward curve's rows ``fwd[:N]`` (``rows`` [N],
     the VJP kernel's, a launch a chunk of the sweep) and, where the storage
     has a terminal value, the NPV with its autograd graph back to the
-    curve's last entry (``fwd_end``)."""
+    curve's last entry (``fwd_end``).  In a process group both are this
+    rank's, of its own mean; ``adjoint_deltas`` averages them over
+    ``group``."""
 
     rows: torch.Tensor
     npv: torch.Tensor
     fwd_end: tp.Optional[torch.Tensor]
     df_settle: torch.Tensor
     discount_deltas: bool
+    group: tp.Any = None
 
 
 def lsmc_forward_rows(
@@ -683,6 +671,7 @@ def lsmc_forward_rows(
     segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
     uniform_grids: bool = True,
     adjoint: bool = False,
+    group=None,
 ):
     """Forward simulation over a rows source (``PanelRows``, ``StreamedSims``
     or ``HostRows``) with a given regression payload.  Materialised panels
@@ -704,7 +693,11 @@ def lsmc_forward_rows(
     gradient from the chunk's volume, fuel and spot (grad[t] reads row t
     alone), so no [N, S] tape outlives its chunk; the other results are
     unchanged.  With a given regression payload this is the forward-only
-    adjoint."""
+    adjoint.
+
+    ``group`` splits the sims over its ranks: kernel C's sums, the NPV, the
+    SE's sum of squares and the means are all-reduced across it (the count
+    is every rank's), the tape differentiates this rank's own mean."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     dtype = grids.dtype
@@ -735,7 +728,8 @@ def lsmc_forward_rows(
     tables = (params, regression["mean"], regression["std"], *(r[:n] for r in ratchets))
     if adjoint:
         fwd_grad = torch.empty((n,), dtype=dtype, device=device)
-        # d npv / d pv of each sim: autograd's gradient of the mean, 1/S.
+        # d npv / d pv of each sim: autograd's gradient of this rank's mean,
+        # 1/S (the group then averages the ranks' gradients, ``adjoint_deltas``).
         g = torch.ones((s_count,), dtype=dtype, device=device) / s_count
     ranges = [(t0, t1 + (t1 == n)) for t0, t1 in _segments(n, chunk)]
     each_rows = _each_rows(src, ranges)
@@ -781,16 +775,21 @@ def lsmc_forward_rows(
                 terminal_fn(spot_end, inventory), dtype=dtype, device=device
             ).expand(inventory.shape)
             pv = pv + terminal_pv
-            end_pv = terminal_pv.mean()
         else:
             terminal_pv = torch.zeros_like(pv)
-            end_pv = torch.zeros((), dtype=dtype, device=device)
-        npv = pv.mean()
-    tape = AdjointTape(fwd_grad, npv, fwd_end, arrays["df_settle"],
-                       discount_deltas) if adjoint else None
-    npv, pv, terminal_pv, end_pv = (t.detach() for t in (npv, pv, terminal_pv, end_pv))
+        # The tape differentiates this rank's own mean; no collective is in
+        # its graph.
+        tape = AdjointTape(fwd_grad, pv.mean(), fwd_end, arrays["df_settle"], discount_deltas,
+                           group) if adjoint else None
+    pv, terminal_pv = pv.detach(), terminal_pv.detach()
+    npv = preduce.global_mean_over_sims(pv, group)
+    if terminal_fn is not None:
+        end_pv = preduce.global_mean_over_sims(terminal_pv, group)
+    else:
+        end_pv = torch.zeros((), dtype=dtype, device=device)
 
-    count = float(s_count)
+    count = float(s_count * preduce.size(group))
+    sums, xbar = preduce.psum_many((sums, xbar), group)
     xbar = xbar / count
     expected_inventory = sums[:, forward_kernel._A_INV] / count
     disc = arrays["df_settle"] if discount_deltas else torch.ones_like(arrays["df_settle"])
@@ -804,7 +803,8 @@ def lsmc_forward_rows(
         uniform_grids,
     )
     # Sample standard error (ddof=1; LsmcStorageValuation.cs:618).
-    standard_error = torch.sqrt(torch.sum((pv - npv) ** 2) / (count - 1.0)) / np.sqrt(count)
+    sq_sum = preduce.psum(torch.sum((pv - npv) ** 2), group)
+    standard_error = torch.sqrt(sq_sum / (count - 1.0)) / np.sqrt(count)
 
     zero = torch.zeros((1,), dtype=dtype, device=device)
     sim_panels = {}
@@ -825,7 +825,8 @@ def lsmc_forward_rows(
         "npv": npv,
         "standard_error": standard_error,
         "deltas": torch.cat([delta, zero]),
-        "profile_inventory": torch.cat([expected_inventory, inventory.mean()[None]]),
+        "profile_inventory": torch.cat([expected_inventory,
+                                        preduce.global_mean_over_sims(inventory, group)[None]]),
         "profile_inject_withdraw": torch.cat([sums[:, forward_kernel._A_DEC] / count, zero]),
         "profile_cmdty_consumed": torch.cat([sums[:, forward_kernel._A_CONS] / count, zero]),
         "profile_inventory_loss": torch.cat([sums[:, forward_kernel._A_LOSS] / count, zero]),
@@ -864,16 +865,20 @@ def adjoint_deltas(tape: AdjointTape) -> torch.Tensor:
     sweep's VJP and whose last is the terminal value's gradient.  They are
     discounted to the valuation date by construction; without
     ``discount_deltas`` the first N are divided by the settlement discount
-    factors and the last is left as it is, as in the JAX package."""
+    factors and the last is left as it is, as in the JAX package.  A tape
+    of a process group holds this rank's gradient of its own mean: the
+    ranks' are averaged (equal blocks, so the global mean's), as the JAX
+    package's ``pmean`` after a collective-free gradient."""
     rows, end = tape.rows, None
     if tape.fwd_end is not None and tape.npv.requires_grad:
         # A terminal value that ignores the price leaves fwd_end unused: zero.
         (end,) = torch.autograd.grad(tape.npv, [tape.fwd_end], allow_unused=True)
     if end is None:
         end = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    grad = preduce.pmean(torch.cat([rows, end.detach().reshape(1)]), tape.group)
     if not tape.discount_deltas:
-        rows = rows / tape.df_settle
-    return torch.cat([rows, end.reshape(1)]).detach()
+        grad = torch.cat([grad[:-1] / tape.df_settle, grad[-1:]])
+    return grad.detach()
 
 
 def lsmc_core_rows(
@@ -893,6 +898,7 @@ def lsmc_core_rows(
     segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
     uniform_grids: bool = True,
     adjoint: bool = False,
+    group=None,
 ) -> tp.Dict[str, torch.Tensor]:
     """Full LSMC valuation on one device over two rows sources: the
     regression set ``reg`` drives the backward pass, the valuation set
@@ -910,21 +916,26 @@ def lsmc_core_rows(
     ``SEG_LEN``-step segment of the backward (``phase`` "backward") and of
     the forward ("forward", whose sweep then runs a launch a segment), and
     raising from it aborts the valuation between segments.  An interactive
-    run gives the uninterrupted run's bits."""
+    run gives the uninterrupted run's bits.
+
+    ``group`` (``parallel.reduce``) makes the sources this rank's block of
+    paths and reduces every sum over sims across the group's ranks: the
+    results are the whole panel's on every rank, the per-sim panels the
+    rank's own."""
     with full_f32_matmul():
         v0, regression = lsmc_backward_rows(
             arrays, reg, monomials, num_extra_decisions, terminal_fn, ratchet_is_step,
             snap_interp=snap_interp, fullstep=fullstep, segment_cb=segment_cb,
-            uniform_grids=uniform_grids,
+            uniform_grids=uniform_grids, group=group,
         )
         result = lsmc_forward_rows(
             arrays, val, regression, starting_inventory, monomials, num_extra_decisions,
             discount_deltas, terminal_fn, ratchet_is_step, return_sim_data=return_sim_data,
-            segment_cb=segment_cb, uniform_grids=uniform_grids, adjoint=adjoint,
+            segment_cb=segment_cb, uniform_grids=uniform_grids, adjoint=adjoint, group=group,
         )
     # Backward (upper-ish) estimate: mean of the first-period values at the
     # known starting inventory (grid[0] is degenerate) — LsmcStorageValuation.cs:623.
-    result["backward_npv"] = v0[0].mean()
+    result["backward_npv"] = preduce.global_mean_over_sims(v0[0], group)
     if return_regression:
         result["regression_mean"] = regression["mean"]
         result["regression_std"] = regression["std"]
@@ -992,18 +1003,20 @@ def lsmc_npv_and_ad_deltas(
     uniform_grids: bool = True,
     snap_interp: bool = False,
     segment_cb: tp.Optional[tp.Callable[[str, int, int], None]] = None,
+    group=None,
 ):
     """NPV and deltas [N+1] by reverse mode (the JAX package's function of
     the same name): the spot is fwd x stoch, one backward pass builds the
     regression, and ``adjoint_deltas`` differentiates that valuation's own
     forward sweep in the curve — the JAX package runs the backward again
-    inside its differentiated function, to the same payload."""
+    inside its differentiated function, to the same payload.  ``group``
+    splits the sims (this rank's block), as in ``lsmc_core_rows``."""
     fwd = arrays["fwd"][:, None]
     result = lsmc_core(
         arrays, fwd * stoch_reg, factors_reg, fwd * stoch_val, factors_val, starting_inventory,
         monomials, num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
         snap_interp=snap_interp, segment_cb=segment_cb, uniform_grids=uniform_grids,
-        adjoint=True,
+        adjoint=True, group=group,
     )
     return result["npv"], adjoint_deltas(result["adjoint_tape"])
 

@@ -11,6 +11,11 @@ Cholesky factorisation:
 Nothing here reads a value back to the host: a failed factorisation falls
 back to the constant-column projection through ``torch.where``, so the
 365-step backward loop never waits on the device.
+
+Where the paths are split over a process group (``parallel``), the sums
+over sims are all-reduced across it: the stats' two passes, and the normal
+equations' two moments in one buffer.  Every rank then solves the same
+small system.  Without a group nothing changes.
 """
 from __future__ import annotations
 
@@ -18,14 +23,16 @@ import typing as tp
 
 import torch
 
+from ..parallel.reduce import psum, psum_many, size
 
-def column_stats(x):
-    """Mean/std of design-matrix columns [..., S, B] over the sims (two-pass).
-    The constant column (index 0) keeps mean 0 / std 1 so standardisation
-    leaves it intact."""
-    count = x.shape[-2]
-    mean = torch.sum(x, dim=-2, keepdim=True) / count
-    std = torch.sqrt(torch.sum((x - mean) ** 2, dim=-2) / count)
+
+def column_stats(x, group=None):
+    """Mean/std of design-matrix columns [..., S, B] over the sims (two-pass),
+    over every rank's sims where ``group`` splits them.  The constant column
+    (index 0) keeps mean 0 / std 1 so standardisation leaves it intact."""
+    count = x.shape[-2] * size(group)
+    mean = psum(torch.sum(x, dim=-2, keepdim=True), group) / count
+    std = torch.sqrt(psum(torch.sum((x - mean) ** 2, dim=-2), group) / count)
     mean = mean.squeeze(-2)
     std = torch.where(std > 0, std, torch.ones_like(std))
     first = torch.arange(x.shape[-1], device=x.device) == 0
@@ -76,12 +83,14 @@ def ridge_for(dtype) -> float:
     return 1e-5 if dtype == torch.float32 else 1e-7
 
 
-def fit_continuation(x_std, y, ridge: tp.Optional[float] = None):
+def fit_continuation(x_std, y, group=None, ridge: tp.Optional[float] = None):
     """Regression coefficients [B, G] of ``y`` [S, G] on the standardised
     design ``x_std`` [S, B]: the normal equations in full precision (the
     JAX package's ``Precision.HIGHEST``; the caller keeps TF32 off, see
-    ``engines.lsmc.full_f32_matmul``), then ``fit_from_moments``."""
-    return fit_from_moments(x_std.T @ x_std, x_std.T @ y, ridge)
+    ``engines.lsmc.full_f32_matmul``), summed over ``group``'s ranks in one
+    all-reduce, then ``fit_from_moments``."""
+    m, xty = psum_many([x_std.T @ x_std, x_std.T @ y], group)
+    return fit_from_moments(m, xty, ridge)
 
 
 def fit_from_moments(m, xty, ridge: tp.Optional[float] = None, solve_dtype=None):

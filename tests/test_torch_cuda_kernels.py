@@ -789,3 +789,40 @@ def test_trinomial_value_pin_on_the_card(device):
                                 device="cpu")
     assert got == pytest.approx(want, rel=1e-10)
     assert got == pytest.approx(24_799.09, rel=5e-4)
+
+
+def test_group_of_one_on_the_card_keeps_the_bits(device):
+    """A one-rank NCCL group on the card: a valuation through the API (the
+    reducer then takes no collective) gives the no-group run's bits."""
+    import datetime
+    import socket
+
+    from storage_tpu_torch.parallel import distributed as pdist
+
+    storage = tpkg.CmdtyStorage(
+        "D", "2020-01-01", "2020-02-15", 0.6, 0.4, min_inventory=0.0, max_inventory=5000.0,
+        max_injection_rate=400.0, max_withdrawal_rate=450.0)
+    idx = pd.period_range("2020-01-01", "2020-02-15", freq="D")
+    fwd = pd.Series(30.0 + 7.0 * np.sin(2 * np.pi * np.arange(len(idx)) / 46.0), index=idx)
+    factors = [(9.0, pd.Series(0.8, index=pd.period_range("2020-01-01", "2020-03-15")))]
+
+    def value(method):
+        res = tpkg.multi_factor_value(
+            storage, "2020-01-01", 800.0, fwd, 0.04, None, factors, None, 4096,
+            "1 + s + x0 + x0**2", True, seed=7, fwd_sim_seed=8, deltas_method=method,
+            device=device)
+        return res.npv, res.val_sim_standard_error, res.deltas.to_numpy()
+
+    want = [value(m) for m in ("pathwise", "adjoint")]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    pdist.initialize(f"localhost:{port}", 1, 0, backend="nccl",
+                     timeout=datetime.timedelta(seconds=120))
+    try:
+        got = [value(m) for m in ("pathwise", "adjoint")]
+    finally:
+        torch.distributed.destroy_process_group()
+    for (g_npv, g_se, g_d), (w_npv, w_se, w_d) in zip(got, want):
+        assert (g_npv, g_se) == (w_npv, w_se)
+        np.testing.assert_array_equal(g_d, w_d)

@@ -1,6 +1,6 @@
 """Streamed valuations through the API of storage_tpu_torch against the JAX
 package, in f64 on the CPU, with the streaming threshold lowered in both
-packages (``engines.lsmc.STREAM_THRESHOLD_BYTES`` and
+packages (``storage_tpu_torch.parallel.mesh.STREAM_THRESHOLD_BYTES`` and
 ``storage_tpu.parallel.mesh.STREAM_THRESHOLD_BYTES``, as
 ``tests/test_host_streamed_panels.py`` lowers the JAX one).
 
@@ -40,6 +40,7 @@ from storage_tpu.parallel import mesh as pmesh  # noqa: E402
 from storage_tpu_torch import convert  # noqa: E402
 from storage_tpu_torch.basis import parse_basis_functions  # noqa: E402
 from storage_tpu_torch.engines import lsmc as torch_lsmc  # noqa: E402
+from storage_tpu_torch.parallel import mesh as torch_mesh  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -54,7 +55,7 @@ _FRAMES = ("sim_spot_regress", "sim_spot_valuation", "sim_factors_regress",
 @pytest.fixture
 def lowered(monkeypatch):
     """Both packages' thresholds below any panel here."""
-    monkeypatch.setattr(torch_lsmc, "STREAM_THRESHOLD_BYTES", 1024)
+    monkeypatch.setattr(torch_mesh, "STREAM_THRESHOLD_BYTES", 1024)
     monkeypatch.setattr(pmesh, "STREAM_THRESHOLD_BYTES", 1024)
 
 
@@ -107,7 +108,7 @@ def test_host_fed_value_from_sims_matches_device_resident_and_jax(frames, lowere
     with caplog.at_level(logging.INFO, logger="storage_tpu_torch.multi_factor"):
         got = _from_sims(tpkg, frames)
     assert _routes(caplog) == ["host-streamed"]
-    torch_lsmc.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
+    torch_mesh.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
     _same_bits(got, _from_sims(tpkg, frames))
     # The trigger prices are held against the JAX package's on the device-
     # resident run (test_torch_value_from_sims.py): on this facility the
@@ -165,7 +166,7 @@ def test_streamed_multi_factor_value_matches_materialised_and_jax(lowered, caplo
     with caplog.at_level(logging.INFO, logger="storage_tpu_torch.multi_factor"):
         got = _multi_factor(tpkg)
     assert _routes(caplog) == ["streamed"]
-    torch_lsmc.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
+    torch_mesh.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
     _same_bits(got, _multi_factor(tpkg))
     assert got.intrinsic_npv == _multi_factor(tpkg).intrinsic_npv
     _close_to_jax(got, _multi_factor(jpkg))
@@ -184,7 +185,7 @@ def test_streamed_progress_callback(lowered):
     fractions (a mark after each 16-step segment of both passes) and bits."""
     streamed = []
     got = _multi_factor(tpkg, on_progress_update=streamed.append)
-    torch_lsmc.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
+    torch_mesh.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
     materialised = []
     want = _multi_factor(tpkg, on_progress_update=materialised.append)
     assert streamed == materialised
@@ -197,7 +198,7 @@ def test_streamed_checkpoint_revalues_to_its_bits(lowered, tmp_path):
     paths (the same paths, materialised), gives that run's NPV bits."""
     path = str(tmp_path / "streamed.npz")
     res = _multi_factor(tpkg, checkpoint_path=path)
-    torch_lsmc.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
+    torch_mesh.STREAM_THRESHOLD_BYTES = 4 << 30  # restored by the fixture
     flags = tpkg.SimulationDataReturned
     paths = _multi_factor(tpkg, sim_data_returned=flags.SPOT_VALUATION | flags.FACTORS_VALUATION)
     spot = np.array(paths.sim_spot_valuation.to_numpy())

@@ -364,11 +364,6 @@ def test_device_is_required():
             call()
 
 
-def test_host_local_panels_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, multi-GPU"):
-        tpkg.value_from_sims_host_local()
-
-
 BASIS_17 = ("1 + s + s**2 + s**3 + s**4 + x0 + x1 + x2 + x0**2 + x1**2 + x2**2 + s*x0 + s*x1 "
             "+ s*x2 + x0*x1 + x0*x2 + x1*x2")  # one term past the card's cap
 

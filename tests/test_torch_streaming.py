@@ -35,6 +35,7 @@ from storage_tpu_torch import convert  # noqa: E402
 from storage_tpu_torch.engines import lsmc as torch_lsmc  # noqa: E402
 from storage_tpu_torch.models import spot_sim  # noqa: E402
 from storage_tpu_torch.ops import rng_kernel  # noqa: E402
+from storage_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -229,17 +230,18 @@ def test_resumed_plain_sweep_is_the_unsegmented_sweep(f, start):
 def test_footprint_and_threshold(monkeypatch):
     """The JAX package's footprint rule (tests/test_streaming.py): the
     headline's panels stay under the CPU's 4 GiB, 1,048,576 paths do not; on
-    CUDA the threshold is a share of the free memory."""
-    assert torch_lsmc.STREAM_THRESHOLD_BYTES == 4 << 30
-    assert torch_lsmc.panel_bytes(365, 1_048_576, 3, 4) > torch_lsmc.STREAM_THRESHOLD_BYTES
-    assert torch_lsmc.panel_bytes(365, 262_144, 3, 4) < torch_lsmc.STREAM_THRESHOLD_BYTES
-    assert torch_lsmc.panel_bytes(365, 262_144, 3, 4, num_sets=1) * 2 == \
-        torch_lsmc.panel_bytes(365, 262_144, 3, 4)
-    assert (torch_lsmc.footprint_bytes(365, 1000, 3, 100, 4)
-            == torch_lsmc.panel_bytes(365, 1000, 3, 4) + 2 * 100 * 1000 * 4)
-    assert torch_lsmc.stream_threshold("cpu") == torch_lsmc.STREAM_THRESHOLD_BYTES
+    CUDA the threshold is a share of the free memory (``parallel.mesh``,
+    which applies them to each rank's share of the paths)."""
+    assert pmesh.STREAM_THRESHOLD_BYTES == 4 << 30
+    assert pmesh.panel_bytes(365, 1_048_576, 3, 4) > pmesh.STREAM_THRESHOLD_BYTES
+    assert pmesh.panel_bytes(365, 262_144, 3, 4) < pmesh.STREAM_THRESHOLD_BYTES
+    assert pmesh.panel_bytes(365, 262_144, 3, 4, num_sets=1) * 2 == \
+        pmesh.panel_bytes(365, 262_144, 3, 4)
+    assert (pmesh.footprint_bytes(365, 1000, 3, 100, 4)
+            == pmesh.panel_bytes(365, 1000, 3, 4) + 2 * 100 * 1000 * 4)
+    assert pmesh.stream_threshold("cpu") == pmesh.STREAM_THRESHOLD_BYTES
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device: (40_000_000_000, 8e10))
-    assert torch_lsmc.stream_threshold("cuda") == int(torch_lsmc.STREAM_FREE_SHARE * 4e10)
+    assert pmesh.stream_threshold("cuda") == int(pmesh.STREAM_FREE_SHARE * 4e10)
 
 
 def test_segment_callbacks_and_cancel(case):
