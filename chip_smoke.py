@@ -104,6 +104,23 @@
    gated), ``lsmc_value`` through the builder (the main path's NPV and SE
    bits at the default ``snap_interp``) and ``MultiFactorSpotSim`` on the
    card over the headline's model (its spot frame the sweep's bits).
+8b. The caps phase ("caps phase: N s"): the route's copy of the monomial
+   kernels' caps equals the library's; kernel D at B=20 (compiled) and 36
+   (its wide route), C's design mode at B=20 (its wide route) on evenly
+   spaced rows (365 steps) and bunched rows (64 steps), and the simulation
+   sweep at F=10 (compiled; the 10-factor model's tables) and 13 (its wide
+   route), whole and resumed, each against its plain version (D and the
+   sweep the same bits, C flips only on near-ties), timed beside its bound
+   with its launch report and the compiler's registers and spills (the
+   kernels line's ``b20_*``, ``b36_*``, ``b20_uniform_*``,
+   ``b20_general_*``, ``f10_*`` and ``f13_*`` keys); then, counters reset
+   before each, the headline facility at its full width with a 20-term
+   basis (``three_factor_seasonal_value``) and with a 10-factor model
+   (``multi_factor_value``, pairwise correlation 0.3, 13 terms): each takes
+   the design in memory on materialised paths (the sweep 2, D 365, C's
+   design mode 12, the intrinsic DP 1) and lands within 0.1 SE of its f64
+   answer on the same draws (``F64_CAPS_NPV``), its wall and peak memory
+   printed.  The headline keeps its route and its NPV bits (``MAIN_NPV``).
 9. The service phase: the C++ band reducer against the Python band on the
    headline and an 8,760-step hourly year (the same f64 bits; medians of
    5, the hourly Python band timed once) and host prep with each, in turns; an interactive headline valuation
@@ -215,6 +232,9 @@ F64_SPOT_NPV = 97_297.10184581533
 # HBM3): the same arithmetic in any design of kernels C and D keeps these
 # bits.
 SPOT_NPV, SPOT_SE = 97_298.28125, 105.01128387451172
+# The headline's NPV and SE in f32 (NVIDIA H100 80GB HBM3, since PR 7's
+# paths): a change that keeps its route and arithmetic keeps these bits.
+MAIN_NPV, MAIN_SE = 115_078.703125, 102.64122009277344
 # The headline on the custom grid (``bunched_grid``) in f64 the same way
 # (``--f64``): the f32 custom-grid valuation lands within 0.1 SE of it.
 F64_CUSTOM_NPV = 115_081.24657122964
@@ -1035,17 +1055,18 @@ def forward_work(n, s, f, b, g, r, d, panels: bool, design: bool = False,
     return num_bytes, float(n) * s * ((2 if design else 5) * b + d * (4 * b + 25 + search))
 
 
-def forward_sweep_inputs(pkg, device, st):
+def forward_sweep_inputs(pkg, device, st, monomials=None):
     """The main path's forward sweep: the headline facility's tables, the
     regression of a backward pass over the regression paths of ``st`` and the
-    valuation paths (seed 13); ``forward_sweep``'s arguments."""
+    valuation paths (seed 13); ``forward_sweep``'s arguments.  ``monomials``
+    in place of the headline's basis, where given."""
     import torch
 
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.models import spot_sim
     from storage_tpu_torch.ops import forward_kernel
 
-    arrays, monomials, n = st.arrays, st.monomials, NUM_STEPS
+    arrays, monomials, n = st.arrays, monomials or st.monomials, NUM_STEPS
     tfn = st.inputs.compiled.terminal_value
     _, regression = engine.lsmc_backward(arrays, st.sims.spot, st.sims.factors, monomials, 0, tfn,
                                          False, snap_interp=True)
@@ -1863,6 +1884,339 @@ def host_layer_phase(pkg, device, counts, main, main_default) -> dict:
         raise AssertionError("MultiFactorSpotSim's spot frame is not the simulation sweep's")
     report["spot_sim"] = dict(simulate_s=frame_s, sweep_ms=kernel_ms, launches=launches)
     return report
+
+
+# ---- the caps phase: shapes beyond what the kernels that build the monomial
+# design on the card take (16 terms, 8 factors), on the design-in-memory route.
+# The headline's 3-factor model with a 20-term basis: the full quadratic in the
+# spot and the three factors (15 terms), the four cubes and s**4.
+BASIS_20 = ("1 + s + x_st + x_lt + x_sw + s**2 + x_st**2 + x_lt**2 + x_sw**2 + s*x_st + s*x_lt "
+            "+ s*x_sw + x_st*x_lt + x_st*x_sw + x_lt*x_sw + s**3 + x_st**3 + x_lt**3 + x_sw**3 "
+            "+ s**4")
+
+
+def full_cubic_basis() -> str:
+    """The full cubic in the spot and the three factors (35 terms) and s**4:
+    36 terms, past kernel D's last compiled size (32), for its wide route."""
+    import itertools
+
+    names = ("s", "x_st", "x_lt", "x_sw")
+    terms = ["1"]
+    for degree in (1, 2, 3):
+        for combo in itertools.combinations_with_replacement(range(4), degree):
+            terms.append("*".join(names[i] + (f"**{combo.count(i)}" if combo.count(i) > 1 else "")
+                                  for i in sorted(set(combo))))
+    return " + ".join([*terms, "s**4"])
+
+
+# A 10-factor model on the headline facility: mean reversions from a
+# long-term factor (0) to a fast spot factor, each factor's vol flat, every
+# pair correlated 0.3 (so that the sweep's Cholesky product mixes all ten),
+# and the basis 1 + s + s**2 + x0 + ... + x9 (13 terms).
+TEN_FACTORS = 10
+TEN_MEAN_REVERSIONS = (0.0, 0.5, 1.0, 2.0, 4.0, 7.0, 10.0, 14.5, 20.0, 30.0)
+TEN_VOLS = (0.19, 0.12, 0.12, 0.15, 0.2, 0.25, 0.35, 0.6, 0.45, 0.35)
+TEN_CORRELATION = 0.3
+BASIS_10F = "1 + s + s**2 + " + " + ".join(f"x{i}" for i in range(TEN_FACTORS))
+# The two valuations in f64 on the same f32 draws (``--f64``: the kernels'
+# plain versions in f64 on the card, NVIDIA H100 80GB HBM3): each f32 NPV
+# lands within 0.1 SE of its answer.
+F64_CAPS_NPV = {"basis_20": 115_291.41648232081, "factors_10": 145_000.0596373356}
+
+
+def ten_factor_model(fwd):
+    """The 10-factor model's factors (mean reversion, vol series on the
+    curve's index) and correlation matrix."""
+    import numpy as np
+    import pandas as pd
+
+    factors = [(a, pd.Series(v, index=fwd.index)) for a, v in zip(TEN_MEAN_REVERSIONS, TEN_VOLS)]
+    corrs = np.full((TEN_FACTORS, TEN_FACTORS), TEN_CORRELATION)
+    np.fill_diagonal(corrs, 1.0)
+    return factors, corrs
+
+
+def ten_factor_inputs(pkg, device):
+    """The 10-factor model's valuation inputs and OU simulation tensors
+    (decay, chol, vols, half_var, fwd; f32), built as the API builds them."""
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch.models import multi_factor as mf
+    from storage_tpu_torch.valuation_inputs import prepare_valuation
+
+    storage, start, fwd = bench_case(pkg)
+    inputs = prepare_valuation(storage, start, 100.0, fwd, 0.02, None)
+    factors, corrs = ten_factor_model(fwd)
+    pre = mf.simulation_precompute(factors, corrs, inputs.val_day, list(inputs.periods), "D")
+    return inputs, [torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+                    for a in (pre.decay, pre.chol, pre.vols, pre.half_var, inputs.fwd)]
+
+
+def caps_value(pkg, device, case: str):
+    """One of the caps phase's two valuations through the public API, at the
+    headline's width (262,144 paths a set, 365 steps, G=100, seeds 11/13,
+    f32, snap_interp=True): "basis_20" (``three_factor_seasonal_value``,
+    ``BASIS_20``) or "factors_10" (``multi_factor_value``, the 10-factor
+    model, ``BASIS_10F``)."""
+    import torch
+
+    if case == "basis_20":
+        return value(pkg, device, snap_interp=True, basis=BASIS_20)
+    storage, start, fwd = bench_case(pkg)
+    factors, corrs = ten_factor_model(fwd)
+    return pkg.multi_factor_value(
+        storage, start, 100.0, fwd, 0.02, None, factors, corrs, NUM_SIMS, BASIS_10F, False,
+        seed=11, fwd_sim_seed=13, num_inventory_grid_points=NUM_GRID, dtype=torch.float32,
+        device=device, snap_interp=True)
+
+
+def ptxas_report(fragment: str) -> dict:
+    """Registers, spill bytes and stack frame that the compiler reported for
+    the kernel whose mangled name holds ``fragment`` (the build's
+    ``ptxas.log``)."""
+    import re
+
+    from storage_tpu_torch.ops import _build
+
+    text = (_build.library_path().parent / "ptxas.log").read_text()
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)",
+                      line)
+        if m:
+            current = m.group(1)
+            continue
+        if current is None or fragment not in current:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out["registers"] = int(m.group(1))
+    return out
+
+
+def check_caps(pkg, device) -> dict:
+    """The kernels at the sizes beyond the monomial kernels' caps, on the
+    main path's shapes (S=262,144, G=100, D=3), each against its plain
+    version with the tolerances of its own check: kernel D at B=20 (compiled
+    per padded size) and B=36 (the wide route), the same bits; kernel C's
+    design mode at B=20 (its wide route) on the 20 terms' own backward
+    tables and the valuation paths, over all 365 steps on evenly spaced rows
+    and over 64 steps on bunched rows (the general-grid mode), argmax flips
+    only on near-ties (``compare_sweep``); the simulation sweep at F=10 on
+    the 10-factor model's tables (P=366, seeds 11 and 13) and at F=13 (the
+    wide route; S=65,536), then resumed at F = 10 and 13 (S=1,000, odd and
+    even starts, antithetic on and off): the same bits.  Times, bounds,
+    launch reports and the compiler's registers and spills."""
+    import torch
+
+    from storage_tpu_torch.basis import design_columns, parse_basis_functions
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel, interp, rng_kernel
+
+    limits = _build.limits()
+    if (limits["max_basis"], limits["max_factors"]) != (_build.MAX_BASIS, _build.MAX_FACTORS):
+        raise AssertionError(f"the route's copy of the caps ({_build.MAX_BASIS}, "
+                             f"{_build.MAX_FACTORS}) is not the library's {limits}")
+    s, g = NUM_SIMS, NUM_GRID
+    st = backward_step_inputs(pkg, device)
+    t, sims, step = st.t, st.sims, st.step
+    grid_next = st.arrays["grids"][t + 1]
+    out = {"decision_update": {}, "forward_sweep_design": {}, "simulate_sweep": {}}
+
+    # ---- kernel D at B = 20 and 36 on the step's own design.
+    for label, basis in (("b20", BASIS_20), ("b36", full_cubic_basis())):
+        mono = tuple(parse_basis_functions(basis))
+        b = len(mono)
+        m_, s_ = engine._design_stats(mono, sims.spot[t:t + 1], sims.factors[t:t + 1])
+        dm_t = engine._standardised_design_t(mono, sims.spot[t], sims.factors[t], m_[0], s_[0])
+        coeffs = torch.randn((b, g), generator=st.gen, device=device) * 50.0
+        coeffs[0] = grid_next * 30.0
+        ci = interp.interp_coeffs(coeffs, step["idx_lo"], step["w_hi"])
+        args = (st.v, dm_t, sims.spot[t], step["idx_lo"], step["w_hi"], ci, step["a"], step["b"])
+        cmp = compare_d(args)
+        buf = torch.empty_like(st.v)
+        ms = cuda_ms(lambda: decision_kernel.decision_update(*args, out=buf), 20)
+        plain_ms = cuda_ms(lambda: decision_kernel.decision_update_plain(*args), 3)
+        bnd = bound(*decision_work(g, s, 3, b, 0, moments=False, design_in_memory=True))
+        info = decision_kernel.kernel_info("update", g, 3, b, device)
+        ptx = ptxas_report(f"decision_update_kernelILi{(b + 3) // 4 * 4 if b <= 32 else 0}EE")
+        log(f"caps: kernel D decision_update [G={g}, S={s}, D=3, B={b}, "
+            f"{'compiled' if b <= 32 else 'wide route'}]: {cmp['text']}; {ms:.4f} ms vs plain "
+            f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
+            f"{info['smem_bytes']} bytes of shared memory (G <= {info['max_grid']}), "
+            f"{info['blocks_per_sm']} blocks per SM, {info['registers']} registers, ptxas {ptx}")
+        if not cmp["ok"]:
+            raise AssertionError(f"kernel D at B={b} disagrees with its plain version: "
+                                 f"{cmp['text']}")
+        out["decision_update"][label] = dict(
+            B=b, max_abs_err=cmp["max_abs_err"], flips=cmp["flips"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None,
+            smem_bytes=info["smem_bytes"], max_grid=info["max_grid"],
+            blocks_per_sm=info["blocks_per_sm"], registers=info["registers"], ptxas=ptx)
+        del args, buf, dm_t
+
+    # ---- kernel C's design mode at B = 20 on the 20 terms' own backward.
+    mono20 = tuple(parse_basis_functions(BASIS_20))
+    args = forward_sweep_inputs(pkg, device, st, mono20)
+    del st, sims
+    n = args[6].shape[0]
+    r_ = args[3].shape[1]
+    design = torch.stack(design_columns(mono20, args[6], args[7]), dim=1)  # [N, 20, S]
+    ng = min(64, n)
+    sub = (*(x[:ng] for x in args[:8]), args[8], args[9], args[10][:ng], *args[11:])
+    rows = bunched_rows(sub[0], g, g - 10)
+    for mode, a_, d_, grid, steps in (("uniform", args, design, None, n),
+                                      ("general", sub, design[:ng], rows, ng)):
+        cmp = compare_sweep(a_, design=d_, grid=grid)
+        d_args = design_args(a_, d_)
+        ms = cuda_ms(lambda: forward_kernel.forward_sweep_design(*d_args, grid=grid), 5)
+        plain_ms = cuda_ms(lambda: forward_kernel.forward_sweep_plain(*a_, design=d_, grid=grid),
+                           1)
+        bnd = bound(*forward_work(steps, s, 0, 20, g, r_, 3, panels=False, design=True,
+                                  general=grid is not None))
+        info = forward_kernel.kernel_info(g, 20, r_, 0, 0, device, design=True,
+                                          general=grid is not None)
+        ptx = ptxas_report(forward_kernel.sass_name(0, design=True, general=grid is not None))
+        log(f"caps: kernel C forward_sweep_design [N={steps}, S={s}, G={g}, D=3, B=20, {mode} "
+            f"rows, wide route], the 20 terms' backward tables and the valuation paths: "
+            f"{cmp['text']}; {ms:.4f} ms a launch over all {steps} steps, plain {plain_ms:.1f} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); {info['smem_bytes']} bytes of "
+            f"shared memory (G <= {info['max_grid']}), {info['blocks_per_sm']} blocks per SM, "
+            f"{info['registers']} registers, ptxas {ptx}")
+        if not cmp["ok"]:
+            raise AssertionError(f"kernel C's design mode at B=20 ({mode} rows) disagrees with its "
+                                 f"plain version: {cmp['text']}")
+        out["forward_sweep_design"][f"b20_{mode}"] = dict(
+            N=steps, max_abs_err=cmp["max_abs_err"], flips=cmp["flips"],
+            unexplained_flips=cmp["unexplained_flips"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None,
+            smem_bytes=info["smem_bytes"], max_grid=info["max_grid"],
+            blocks_per_sm=info["blocks_per_sm"], registers=info["registers"], ptxas=ptx)
+    del args, sub, design, rows
+
+    # ---- the simulation sweep at F = 10 (compiled) and 13 (the wide route).
+    _, sim_in = ten_factor_inputs(pkg, device)
+    decay, chol, vols, half_var, fwd = sim_in
+    c = torch.log(fwd) - half_var
+    p = decay.shape[0]
+    thirteen = sweep_tables(device, p, 13, seed=13)  # random tables: the wide route's bits
+    for label, tables, s_f in (("f10", (decay, chol, vols, c), s), ("f13", thirteen, 65_536)):
+        f = tables[0].shape[1]
+        ids = torch.arange(s_f, dtype=torch.int32, device=device)
+        checks = {}
+        for seed in (11, 13):
+            key = spot_sim.key_from_seed(seed)
+            got = rng_kernel.simulate_sweep(key, ids, None, *tables)
+            want = rng_kernel.simulate_sweep_plain(key, ids, None, *tables)
+            checks[f"seed_{seed}"] = compare_paths(got, want)
+            del got, want
+        path_ids = torch.arange(1000, device=device) + 77
+        for start in (5, 6):
+            for antithetic in (False, True):
+                ids_x = (path_ids // 2 if antithetic else path_ids).to(torch.int32)
+                sign = (1.0 - 2.0 * (path_ids % 2)).float() if antithetic else None
+                small = sweep_tables(device, 11, f, seed=f + start)
+                whole = rng_kernel.simulate_sweep((5, 7), ids_x, sign, *small)
+                tail = [x[start:].contiguous() for x in small]
+                x0 = whole[0][start - 1].contiguous()
+                got = rng_kernel.simulate_sweep((5, 7), ids_x, sign, *tail, start, x0)
+                want = rng_kernel.simulate_sweep_plain((5, 7), ids_x, sign, *tail, start, x0)
+                same_whole = all(torch.equal(x, y[start:]) for x, y in zip(got, whole))
+                checks[f"resumed_start{start}{'_antithetic' if antithetic else ''}"] = dict(
+                    compare_paths(got, want), same_as_whole=same_whole)
+        key = spot_sim.key_from_seed(11)
+        ms = cuda_ms(lambda: rng_kernel.simulate_sweep(key, ids, None, *tables), 10)
+        plain_ms = cuda_ms(lambda: rng_kernel.simulate_sweep_plain(key, ids, None, *tables), 1)
+        num_bytes, unfused, ints = sweep_work(p, f, s_f, antithetic=False)
+        bnd = bound(num_bytes, 0.0, unfused, ints)
+        info = rng_kernel.sweep_info(f, device)
+        ptx = ptxas_report(rng_kernel.sweep_sass_name(f))
+        bad = [k for k, v_ in checks.items()
+               if not v_["bit_identical"] or not v_.get("same_as_whole", True)]
+        log(f"caps: simulation sweep [P={p}, F={f}, S={s_f}, "
+            f"{'compiled' if f <= 12 else 'wide route'}], seeds 11 and 13, and resumed at S=1,000 "
+            f"(starts 5 and 6, antithetic on and off): the plain version's bits in every case: "
+            f"{not bad} {bad}; {ms:.4f} ms a path set vs plain {plain_ms:.1f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); {info['smem_bytes']} bytes of shared "
+            f"memory, {info['blocks_per_sm']} blocks per SM, {info['registers']} registers, "
+            f"ptxas {ptx}")
+        if bad:
+            raise AssertionError(f"the simulation sweep at F={f} disagrees with its plain "
+                                 f"version: {bad}")
+        out["simulate_sweep"][label] = dict(
+            F=f, S=s_f, max_abs_err=max(v_["max_abs_err"] for v_ in checks.values()), ms=ms,
+            plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+            library_ms=None, smem_bytes=info["smem_bytes"], blocks_per_sm=info["blocks_per_sm"],
+            registers=info["registers"], ptxas=ptx, checks=checks)
+    return out
+
+
+def caps_valuations(pkg, device, counts, main) -> dict:
+    """The two full-width valuations beyond the caps through the public API,
+    each with the launch counters reset just before it: the route chosen
+    from shapes (the design in memory), its launches (the sweep 2 (one a
+    path set), kernel D 365, C's design mode 12, the intrinsic DP 1, no
+    other), its NPV within 0.1 SE of the f64 answer on the same draws
+    (``F64_CAPS_NPV``), finite deltas and profile, its wall and peak device
+    memory.  The headline's route is printed beside them: it keeps kernel
+    B and C's monomial mode."""
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch.basis import parse_basis_functions
+    from storage_tpu_torch.engines import lsmc as engine
+
+    out = {}
+    head = engine.design_in_memory(tuple(parse_basis_functions(BASIS)), 3)
+    log(f"caps: the headline (9 terms, 3 factors) design in memory: {head}; launches "
+        f"{main['launches']}")
+    if head:
+        raise AssertionError("the headline's shape left the monomial route")
+    for case, terms, factors in (("basis_20", 20, 3), ("factors_10", 13, TEN_FACTORS)):
+        basis = BASIS_20 if case == "basis_20" else BASIS_10F
+        on_design = engine.design_in_memory(tuple(parse_basis_functions(basis)), factors)
+        # The route reads the driver's free memory: hand back the caching
+        # allocator's blocks, so that the valuation is routed (materialised:
+        # its panels fit the card) as it would be in a fresh process.
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        t0 = time.perf_counter()
+        res = caps_value(pkg, device, case)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.read()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        expected = counts.expect(simulate_sweep=2, decision_update=NUM_STEPS,
+                                 forward_sweep_design=-(-NUM_STEPS // 32), intrinsic_dp=1)
+        npv, se = res.npv, res.val_sim_standard_error
+        pin = F64_CAPS_NPV[case]
+        off = (npv - pin) / se
+        finite = bool(np.isfinite(res.deltas.to_numpy()).all()
+                      and np.isfinite(res.expected_profile.to_numpy()).all())
+        paths = "materialised" if launches["simulate_sweep"] == 2 else "streamed"
+        log(f"caps: {case} ({terms} terms on {factors} factors) route: design in memory "
+            f"{on_design}, paths {paths}; NPV {npv!r} SE {se!r} ({off:+.4f} SE from the f64 "
+            f"answer {pin!r}, tolerance 0.1); launches {launches}; wall {wall:.4f} s, peak device "
+            f"memory {peak:.2f} GB; finite deltas and profile {finite}")
+        if not on_design:
+            raise AssertionError(f"{case} did not take the design-in-memory route")
+        if launches != expected:
+            raise AssertionError(f"{case}: launch counts {launches}, expected {expected}")
+        if not (math.isfinite(npv) and abs(off) <= 0.1 and finite):
+            raise AssertionError(f"{case}: NPV {npv} (SE {se}) is {off:+.4f} SE from {pin}, or "
+                                 f"its deltas or profile are not finite")
+        out[case] = dict(terms=terms, factors=factors, route="design_in_memory", npv=npv, se=se,
+                         se_from_f64=off, launches=dict(launches), wall_s=wall, peak_memory_gb=peak)
+    return out
 
 
 def bunched_grid(lower, upper):
@@ -3723,11 +4077,17 @@ def check_tree(pkg, device, counts) -> dict:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Kernels B, D and C replaced by their plain versions inside the block
-    (the route of ``--f64``: f64 on the card)."""
+    """Kernels B, D and C (both modes) replaced by their plain versions
+    inside the block (the route of ``--f64``: f64 on the card)."""
     from unittest import mock
 
     from storage_tpu_torch.ops import decision_kernel, forward_kernel
+
+    def design_plain(params, mean, std, r_inv, r_min, r_max, spot, design, inventory, pv, coeffs,
+                     e, is_step, panels=None, out=None, grid=None):
+        return forward_kernel.forward_sweep_plain(params, mean, std, r_inv, r_min, r_max, spot,
+                                                  None, inventory, pv, coeffs, None, e, is_step,
+                                                  panels, out, design=design, grid=grid)
 
     plain = [
         mock.patch.object(decision_kernel, "decision_update_moments",
@@ -3735,6 +4095,7 @@ def plain_versions():
         mock.patch.object(decision_kernel, "decision_update",
                           lambda *a, out=None: decision_kernel.decision_update_plain(*a)),
         mock.patch.object(forward_kernel, "forward_sweep", forward_kernel.forward_sweep_plain),
+        mock.patch.object(forward_kernel, "forward_sweep_design", design_plain),
     ]
     with contextlib.ExitStack() as stack:
         for patch in plain:
@@ -3785,6 +4146,21 @@ def measure_f64(pkg, device):
                                f64(val.factors), 100.0, monomials, 0, False, tfn, False,
                                snap_interp=True, uniform_grids=False)
         npvs["F64_CUSTOM_NPV"] = float(out["npv"])
+        # The caps phase's valuations: BASIS_20 on the headline's paths, and
+        # the 10-factor model's paths (seeds 11/13) with BASIS_10F; both take
+        # the design in memory.
+        out = engine.lsmc_core(arrays, f64(reg.spot), f64(reg.factors), f64(val.spot),
+                               f64(val.factors), 100.0, tuple(parse_basis_functions(BASIS_20)), 0,
+                               False, tfn, False, snap_interp=True)
+        npvs["F64_CAPS_NPV[basis_20]"] = float(out["npv"])
+        del reg, val
+        _, sim10 = ten_factor_inputs(pkg, device)
+        reg, val = (spot_sim.simulate_ou_paths(spot_sim.key_from_seed(k), ids, *sim10)
+                    for k in (11, 13))
+        out = engine.lsmc_core(arrays, f64(reg.spot), f64(reg.factors), f64(val.spot),
+                               f64(val.factors), 100.0, tuple(parse_basis_functions(BASIS_10F)), 0,
+                               False, tfn, False, snap_interp=True)
+        npvs["F64_CAPS_NPV[factors_10]"] = float(out["npv"])
     return npvs
 
 
@@ -4361,6 +4737,9 @@ def main(argv) -> int:
                              forward_sweep=1, intrinsic_dp=1)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
+    if (res.npv, res.val_sim_standard_error) != (MAIN_NPV, MAIN_SE):
+        raise AssertionError(f"main path NPV {res.npv!r} SE {res.val_sim_standard_error!r}, not "
+                             f"the pinned bits {MAIN_NPV!r} {MAIN_SE!r}")
     intrinsic_rel = abs(res.intrinsic_npv - F64_INTRINSIC_NPV) / F64_INTRINSIC_NPV
     log(f"main path intrinsic value: {res.intrinsic_npv!r} (f64 plain answer {F64_INTRINSIC_NPV!r}, "
         f"rel {intrinsic_rel:.2e}, tolerance 1e-5); the DP kernel launched "
@@ -4434,6 +4813,23 @@ def main(argv) -> int:
     log(f"host-layer phase: {report['host_layer_phase_s']:.1f} s")
     launches.update(
         forward_sweep_design=report["host_layer"]["replica"]["launches"]["forward_sweep_design"])
+
+    # ---- the caps phase: a 20-term basis and a 10-factor model on the
+    # design-in-memory route, the kernels at those sizes.
+    t0 = time.perf_counter()
+    with engine.full_f32_matmul():
+        caps = check_caps(stt, device)
+    report["caps"] = caps_valuations(stt, device, counts, report["main_path"])
+    report["caps_phase_s"] = time.perf_counter() - t0
+    log(f"caps phase: {report['caps_phase_s']:.1f} s")
+    caps_launches = {("decision_update", "b20"): ("basis_20", "decision_update"),
+                     ("forward_sweep_design", "b20_uniform"): ("basis_20", "forward_sweep_design"),
+                     ("simulate_sweep", "f10"): ("factors_10", "simulate_sweep")}
+    for name, sizes in caps.items():
+        for label, row in sizes.items():
+            case = caps_launches.get((name, label))
+            row["launches"] = report["caps"][case[0]]["launches"][case[1]] if case else 0
+    report["caps"]["kernels"] = caps
 
     # ---- adjoint deltas and custom inventory grids.
     t0 = time.perf_counter()
@@ -4517,7 +4913,10 @@ def main(argv) -> int:
          # VJP's (an einsum).
          "library_ms": kernels[name].get("library_ms"),
          **{k: kernels[name][k] for k in extra.get(name, ())},
-         **{k: kernels[name][k] for k in ("rank_launches", "rank_share_ms") if k in kernels[name]}}
+         **{k: kernels[name][k] for k in ("rank_launches", "rank_share_ms") if k in kernels[name]},
+         # The caps phase's sizes (b20_ms, f10_ms, ...: ``check_caps``).
+         **{f"{label}_{k}": v_ for label, row in caps.get(name, {}).items()
+            for k, v_ in row.items() if k != "checks"}}
         for name, (src_file, rep) in SOURCES.items()
     ]}
     # The C++ band reducer runs on the host: no device bound, no library call.

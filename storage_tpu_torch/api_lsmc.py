@@ -45,9 +45,13 @@ all ranks stop at the same segment.  ``value_from_sims_host_local`` takes
 each process's own block of the user's paths.  A world of one process is
 the single-device run, bit for bit.
 
-On CUDA a basis of more than 16 terms or a model of more than 8 factors
-raises ``ValueError`` before anything runs: the kernels' caps
-(``ops._build.limits``); ``device="cpu"`` takes any size.  Seeds keep
+Every entry point takes a basis of any size on a model of any factor count,
+on either device.  The kernels' route is chosen from those shapes before
+anything runs (``engines.lsmc.design_in_memory``): a basis with a user
+callable, or of more than 16 terms, or on more than 8 factors, builds its
+design in memory (kernel D backward, kernel C's design mode forward); any
+other runs kernels B and C's monomial mode, which build it on the card.
+Seeds keep
 the JAX key semantics: ``key(seed)`` for the regression sims,
 ``fold_in(key, 0x5EED)`` for the valuation sims when ``fwd_sim_seed`` is
 None, one shared set when the two seeds are equal.
@@ -79,7 +83,6 @@ from .facility import CmdtyStorage
 from .jobs import JobCancelledError
 from .models import multi_factor as mf
 from .models import spot_sim
-from .ops import _build
 from .parallel import distributed as pdist
 from .parallel import mesh as pmesh
 from .parallel import reduce as preduce
@@ -577,14 +580,15 @@ def _lsmc_calc(
         progress(min(0.3 + part, 0.9))
 
     monomials = tuple(basis_mod.coerce_basis_functions(basis_funcs))
-    if basis_mod.has_generic(monomials):
+    # The kernels' route, from shapes alone, before anything is simulated.
+    if lsmc_engine.design_in_memory(monomials, sims.num_factors):
+        generic = [str(m) for m in monomials if isinstance(m, basis_mod.GenericBasisFunction)]
         logger.info(
-            "Generic basis function(s) present (%s): the design is built in memory (kernel D "
-            "backward, kernel C's design mode forward).",
-            ", ".join(str(m) for m in monomials if isinstance(m, basis_mod.GenericBasisFunction)),
+            "%s: the design is built in memory (kernel D backward, kernel C's design mode "
+            "forward).",
+            f"Generic basis function(s) present ({', '.join(generic)})" if generic else
+            f"{len(monomials)} basis functions on {sims.num_factors} factors",
         )
-    if device.type == "cuda":
-        _build.require_caps("storage_tpu_torch", len(monomials), sims.num_factors)
     stopwatches = Stopwatches()
     with stopwatches.time("prepare_inputs"):
         inputs = prepare_valuation(

@@ -1,5 +1,6 @@
-// The caps of common.cuh, exported for the wrappers: they check a basis and a
-// factor count against them before any launch (ops/_build.py require_caps).
+// The caps of common.cuh, exported so that the wrappers' copy of them
+// (ops/_build.py MAX_BASIS, MAX_FACTORS: the shape route and require_caps
+// read it) can be held to the built library (chip_smoke.py).
 #include "common.cuh"
 
 // out[0] the most basis functions, out[1] the most factors a kernel takes.

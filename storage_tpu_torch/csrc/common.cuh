@@ -8,6 +8,9 @@
 
 namespace stt {
 
+// The most basis functions and Markov factors of a monomial design built on
+// the card (kernels B and E, kernel C's monomial mode); a larger shape takes
+// the design read from memory (engines/lsmc.py design_in_memory).
 constexpr int kMaxB = 16;  // basis functions
 constexpr int kMaxF = 8;   // Markov factors
 

@@ -27,11 +27,16 @@
 //     decision one 16-byte entry {a, b, w_hi, idx_lo}, then for d > 0 its
 //     centred coefficients (dci, zero-padded to whole float4s), all read at
 //     warp-uniform addresses.
-//   * The kernel is compiled per basis size padded to a multiple of 4, so
-//     the design entries and the dot products are unrolled over registers
-//     (one kernel for every B, at 16 terms or with a loop over B, was 32–41%
-//     slower at B=4); the padded terms add 0·0 to a regressed value, which
-//     moves no argmax.
+//   * The kernel is compiled per basis size padded to a multiple of 4, up
+//     to kMaxRegisterBasis, so the design entries and the dot products are
+//     unrolled over registers (one kernel for every B, at 16 terms or with
+//     a loop over B, was 32–41% slower at B=4); the padded terms add 0·0 to
+//     a regressed value, which moves no argmax.  A larger basis takes the
+//     wide route, one kernel for any B: each thread's design row sits in
+//     shared memory after the tables, one column a thread (no bank
+//     conflict), and each gap is summed 4 terms at a time over it, the same
+//     products and sums in the same order.  The route is the basis size's
+//     alone (update_kernel).
 //   * The arithmetic is stt::decide's (decision_step.cuh), every product and
 //     sum rounded on its own: strict >, decision 0 first, centred gaps, the
 //     winner's actual value v[lo]·(1 − w) + v[lo + 1]·w plus its immediate
@@ -48,6 +53,9 @@ namespace {
 
 constexpr int kThreads = 256;  // sims per block, one a thread
 constexpr int kGroup = 4;      // grid points decided together
+// The largest padded basis whose design row and coefficients are unrolled
+// over registers; beyond it the wide route (decision_update_kernel<0>).
+constexpr int kMaxRegisterBasis = 32;
 
 __host__ __device__ inline int padded_basis(int B) { return (B + 3) & ~3; }
 // Floats of one grid point's table record: {a, b, w_hi, idx_lo} per decision,
@@ -56,15 +64,64 @@ __host__ __device__ inline int record_words(int D, int Bp) { return 4 + (D - 1) 
 __host__ __device__ inline int record_offset(int d, int Bp) {
   return d == 0 ? 0 : 4 + (d - 1) * (4 + Bp);
 }
+// Floats of a block's dynamic shared memory besides the tables: the wide
+// route's design rows [Bp][kThreads].
+__host__ __device__ inline int row_words(int Bp) {
+  return Bp > kMaxRegisterBasis ? Bp * kThreads : 0;
+}
+
+// A sim's standardised design row, Bp entries (zero beyond B), in registers.
+template <int Bp>
+struct RegisterRow {
+  float dm[Bp];
+  // The regressed gap cf·dm of padded coefficients cf (16-byte aligned):
+  // each product and sum rounded on its own, term 0 first.
+  __device__ __forceinline__ float gap(const float* p) const {
+    float cf[Bp];
+#pragma unroll
+    for (int k = 0; k < Bp; k += 4) {
+      const float4 q4 = *reinterpret_cast<const float4*>(p + k);
+      cf[k] = q4.x;
+      cf[k + 1] = q4.y;
+      cf[k + 2] = q4.z;
+      cf[k + 3] = q4.w;
+    }
+    float q = __fmul_rn(cf[0], dm[0]);
+#pragma unroll
+    for (int k = 1; k < Bp; ++k) q = __fadd_rn(q, __fmul_rn(cf[k], dm[k]));
+    return q;
+  }
+};
+
+// The same row in shared memory, entry k at row[k * kThreads], of a padded
+// size bp known at run time: the same products and sums in the same order,
+// 4 terms at a time.
+struct SharedRow {
+  const float* row;
+  int bp;
+  __device__ __forceinline__ float gap(const float* p) const {
+    float q = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < bp; k += 4) {
+      const float4 c = *reinterpret_cast<const float4*>(p + k);
+      const float* x = row + k * kThreads;
+      q = k == 0 ? __fmul_rn(c.x, x[0]) : __fadd_rn(q, __fmul_rn(c.x, x[0]));
+      q = __fadd_rn(q, __fmul_rn(c.y, x[kThreads]));
+      q = __fadd_rn(q, __fmul_rn(c.z, x[2 * kThreads]));
+      q = __fadd_rn(q, __fmul_rn(c.w, x[3 * kThreads]));
+    }
+    return q;
+  }
+};
 
 // best_act of grid points [c·kGroup, c·kGroup + kGroup) for sim s, whose
-// spot is sp and design row dm (Bp entries, zero beyond B).
-template <int Bp>
-__device__ __forceinline__ void decide_group(int c, int G, int S, int D, const float* tab,
+// spot is sp and design row dm (bp entries, zero beyond B).
+template <typename Row>
+__device__ __forceinline__ void decide_group(int c, int G, int S, int D, int bp, const float* tab,
                                              const float* __restrict__ v, int s, bool valid,
-                                             float sp, const float (&dm)[Bp],
+                                             float sp, const Row& dm,
                                              float* __restrict__ best_out) {
-  const int rec = record_words(D, Bp);
+  const int rec = record_words(D, bp);
   const float* r[kGroup];
 #pragma unroll
   for (int i = 0; i < kGroup; ++i) r[i] = tab + min(c * kGroup + i, G - 1) * rec;
@@ -79,23 +136,12 @@ __device__ __forceinline__ void decide_group(int c, int G, int S, int D, const f
   }
 #pragma unroll 1
   for (int d = 1; d < D; ++d) {
-    const int off = record_offset(d, Bp);
+    const int off = record_offset(d, bp);
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) {
       const float* p = r[i] + off;
       const float4 e = *reinterpret_cast<const float4*>(p);
-      float cf[Bp];
-#pragma unroll
-      for (int k = 0; k < Bp; k += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(p + 4 + k);
-        cf[k] = q4.x;
-        cf[k + 1] = q4.y;
-        cf[k + 2] = q4.z;
-        cf[k + 3] = q4.w;
-      }
-      float q = __fmul_rn(cf[0], dm[0]);
-#pragma unroll
-      for (int k = 1; k < Bp; ++k) q = __fadd_rn(q, __fmul_rn(cf[k], dm[k]));
+      const float q = dm.gap(p + 4);
       const float imm = __fadd_rn(__fmul_rn(e.x, sp), e.y);
       const float vr = __fadd_rn(q, imm);
       if (vr > best_reg[i]) {
@@ -117,6 +163,8 @@ __device__ __forceinline__ void decide_group(int c, int G, int S, int D, const f
   }
 }
 
+// Bp > 0: the design row in registers, padded to Bp; Bp == 0: the wide
+// route, the row in shared memory, padded to a multiple of 4 at run time.
 template <int Bp>
 __global__ void __launch_bounds__(kThreads) decision_update_kernel(
     int G, int S, int D, int B, const float* __restrict__ v,
@@ -125,17 +173,18 @@ __global__ void __launch_bounds__(kThreads) decision_update_kernel(
     const float* __restrict__ dci_g, const float* __restrict__ a_g,
     const float* __restrict__ b_g, float* __restrict__ best_out) {
   extern __shared__ __align__(16) float tab[];
-  const int rec = record_words(D, Bp);
+  const int bp = Bp > 0 ? Bp : padded_basis(B);
+  const int rec = record_words(D, bp);
   for (int i = threadIdx.x; i < G * D; i += kThreads) {
     const int d = i / G;
     const int g = i - d * G;
-    float* out = tab + g * rec + record_offset(d, Bp);
+    float* out = tab + g * rec + record_offset(d, bp);
     out[0] = a_g[i];
     out[1] = b_g[i];
     out[2] = w_hi_g[g * D + d];
     out[3] = __int_as_float(idx_lo_g[g * D + d]);
     if (d > 0)
-      for (int k = 0; k < Bp; ++k)
+      for (int k = 0; k < bp; ++k)
         out[4 + k] = k < B ? dci_g[static_cast<size_t>(i) * B + k] : 0.0f;
   }
   // Past the end a thread decides for sim S − 1 and stores nothing.
@@ -143,27 +192,42 @@ __global__ void __launch_bounds__(kThreads) decision_update_kernel(
   const bool valid = col < S;
   const int s = min(col, S - 1);
   const float sp = spot[s];
-  float dm[Bp];
-#pragma unroll
-  for (int k = 0; k < Bp; ++k) dm[k] = k < B ? dm_std_t[static_cast<size_t>(k) * S + s] : 0.0f;
-  __syncthreads();
-
   const int ngroups = (G + kGroup - 1) / kGroup;
-  for (int c = 0; c < ngroups; ++c)
-    decide_group<Bp>(c, G, S, D, tab, v, s, valid, sp, dm, best_out);
+  if constexpr (Bp > 0) {
+    RegisterRow<Bp> dm;
+#pragma unroll
+    for (int k = 0; k < Bp; ++k)
+      dm.dm[k] = k < B ? dm_std_t[static_cast<size_t>(k) * S + s] : 0.0f;
+    __syncthreads();
+    for (int c = 0; c < ngroups; ++c)
+      decide_group(c, G, S, D, Bp, tab, v, s, valid, sp, dm, best_out);
+  } else {
+    float* row = tab + G * rec + threadIdx.x;  // this thread's column of [bp][kThreads]
+    for (int k = 0; k < bp; ++k)
+      row[k * kThreads] = k < B ? dm_std_t[static_cast<size_t>(k) * S + s] : 0.0f;
+    const SharedRow dm{row, bp};
+    __syncthreads();
+    for (int c = 0; c < ngroups; ++c)
+      decide_group(c, G, S, D, bp, tab, v, s, valid, sp, dm, best_out);
+  }
 }
 
 using UpdateKernel = decltype(&decision_update_kernel<4>);
 
-// The kernel compiled for basis size B, or NULL beyond stt::kMaxB.
+// The kernel for basis size B: compiled for its padded size up to
+// kMaxRegisterBasis, the wide route beyond.
 UpdateKernel update_kernel(int B) {
-  static_assert(stt::kMaxB == 16, "one case per padded basis size");
+  static_assert(kMaxRegisterBasis == 32, "one case per padded basis size");
   switch (padded_basis(B)) {
     case 4: return decision_update_kernel<4>;
     case 8: return decision_update_kernel<8>;
     case 12: return decision_update_kernel<12>;
     case 16: return decision_update_kernel<16>;
-    default: return nullptr;
+    case 20: return decision_update_kernel<20>;
+    case 24: return decision_update_kernel<24>;
+    case 28: return decision_update_kernel<28>;
+    case 32: return decision_update_kernel<32>;
+    default: return decision_update_kernel<0>;
   }
 }
 
@@ -173,10 +237,11 @@ extern "C" int stt_decision_update(
     int G, int S, int D, int B, const void* v, const void* dm_std_t,
     const void* spot, const void* idx_lo, const void* w_hi, const void* dci,
     const void* a, const void* b, void* best_out, void* stream) {
-  if (G < 2 || D < 1 || S < 1 || B < 1 || B > stt::kMaxB)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 2 || D < 1 || S < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const UpdateKernel kernel = update_kernel(B);
-  const size_t smem = sizeof(float) * static_cast<size_t>(G) * record_words(D, padded_basis(B));
+  const int bp = padded_basis(B);
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(G) * record_words(D, bp) + row_words(bp));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -193,7 +258,8 @@ extern "C" int stt_decision_update(
 // Kernel D's launch report at (G, D, B) on the current device (common.cuh:
 // kernel_info).
 extern "C" int stt_decision_update_info(int G, int D, int B, int* out) {
-  if (G < 0 || D < 1 || B < 1 || B > stt::kMaxB) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(stt::kernel_info(update_kernel(B), kThreads, 0,
-                                           record_words(D, padded_basis(B)), G, out));
+  if (G < 0 || D < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int bp = padded_basis(B);
+  return static_cast<int>(stt::kernel_info(update_kernel(B), kThreads, row_words(bp),
+                                           record_words(D, bp), G, out));
 }

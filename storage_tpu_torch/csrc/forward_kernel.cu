@@ -46,7 +46,13 @@
 //     flight, no registers held for them.
 //   * The kernel is compiled for each basis size B (1 to stt::kMaxB), so the
 //     design row and the B-term dot products are unrolled loops over
-//     registers with no guards for unused terms.  Each entry of the design
+//     registers with no guards for unused terms.  The design mode also takes
+//     a larger basis, on its wide route (B = 0 below, the size known at run
+//     time): each sim's entries are standardised in place in its slots of
+//     the ring, the dot products read them from there, the same products
+//     and sums in the same order, and the warps' sums of a step go to
+//     dynamic shared memory.  The staged values grow with B, so fewer
+//     blocks fit an SM (kernel_info).  Each entry of the design
 //     row is stt::design_row's arithmetic (the spot power, then the factor
 //     powers by index, each product rounded on its own) over the term's
 //     nonzero powers only, from a per-block term table: small code.
@@ -101,11 +107,18 @@ __host__ __device__ inline int table_words(int B, int R, int G, bool general) {
 // factors, or the B design values in design mode) of the block's sims, as
 // [1 + V][kSims][kThreads].
 __host__ __device__ inline int slot_words(int V) { return (1 + V) * kSims * kThreads; }
+// Floats of the warps' sums of two steps, [2][kSims][kWarps][6 + B], that the
+// design mode's wide route (B beyond stt::kMaxB) keeps in dynamic shared
+// memory (the compiled sizes keep them in static shared memory).
+__host__ __device__ inline int red_words(int B) {
+  return B > stt::kMaxB ? 2 * kSims * kWarps * (kUsedSums + B) : 0;
+}
 // Dynamic shared memory, in floats: kStages tables (their padding counted at
-// its most) and slots, then the decision fractions [2, D] (D = 2E + 3).
+// its most) and slots, then the decision fractions [2, D] (D = 2E + 3), then
+// the wide route's sums.
 __host__ __device__ inline size_t smem_fixed_words(int B, int R, int V, int E) {
   return static_cast<size_t>(kStages) * (NUM_PARAMS + 2 * B + 3 * R + 3 + slot_words(V)) +
-         2 * (2 * static_cast<size_t>(E) + 3);
+         2 * (2 * static_cast<size_t>(E) + 3) + red_words(B);
 }
 __host__ __device__ inline size_t smem_words_per_grid_point(int B, bool general) {
   return static_cast<size_t>(kStages) * (B + (general ? 1 : 0));
@@ -184,8 +197,23 @@ __device__ __forceinline__ float design_entry(const int* term, const float* vals
   return __fdiv_rn(__fsub_rn(x, mean), stdv);
 }
 
+// A sim's standardised design row of B entries in registers (B > 0), or of
+// nb entries in shared memory at `stride` floats apart (the wide route).
+template <int B>
+struct RegisterRow {
+  float v[B];
+  __device__ __forceinline__ float at(int b) const { return v[b]; }
+  __device__ __forceinline__ int size() const { return B; }
+};
+struct SharedRow {
+  const float* p;
+  int nb, stride;
+  __device__ __forceinline__ float at(int b) const { return p[b * stride]; }
+  __device__ __forceinline__ int size() const { return nb; }
+};
+
 // One step of one sim from inventory `inv` and spot `sp`, with its design row
-// `dm` (B entries), the step's table at `par` and the
+// `dm` (nb entries), the step's table at `par` and the
 // decision fractions `frac` [2, D]: those the one-step kernel computed in
 // double for every decision of every sim, computed once per block and rounded
 // to f32 the same way.
@@ -193,10 +221,11 @@ struct StepResult {
   float inv, dec, cons, imm, loss;
 };
 
-template <int B, bool kGeneral>
+template <bool kGeneral, typename Row>
 __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, int E,
                                                int is_step, float sp, float inv,
-                                               const float (&dm)[B], const float* frac) {
+                                               const Row& dm, const float* frac) {
+  const int B = dm.size();
   const float* rinv = par + NUM_PARAMS + 2 * B;
   const float* rmin = rinv + R;
   const float* rmax = rmin + R;
@@ -266,12 +295,12 @@ __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, i
       lo = min(max(static_cast<int>(floorf(pos)), 0), G - 2);
       w = clampf(__fsub_rn(pos, static_cast<float>(lo)), 0.0f, 1.0f);
     }
-    float p_lo = __fmul_rn(coeffs[lo], dm[0]);
-    float p_hi = __fmul_rn(coeffs[lo + 1], dm[0]);
+    float p_lo = __fmul_rn(coeffs[lo], dm.at(0));
+    float p_hi = __fmul_rn(coeffs[lo + 1], dm.at(0));
 #pragma unroll
     for (int b = 1; b < B; ++b) {
-      p_lo = __fadd_rn(p_lo, __fmul_rn(coeffs[b * G + lo], dm[b]));
-      p_hi = __fadd_rn(p_hi, __fmul_rn(coeffs[b * G + lo + 1], dm[b]));
+      p_lo = __fadd_rn(p_lo, __fmul_rn(coeffs[b * G + lo], dm.at(b)));
+      p_hi = __fadd_rn(p_hi, __fmul_rn(coeffs[b * G + lo + 1], dm.at(b)));
     }
     const float cont = lerp(p_lo, p_hi, w);
     const bool is_inject = dec > 0.0f;
@@ -295,7 +324,8 @@ __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, i
 }
 
 // `values` is [N, V, S]: the factors (V = F) or, in design mode, the raw
-// design values (V = B).
+// design values (V = B).  B = 0 is the design mode's wide route, its basis
+// size basis.nb known at run time.
 template <int B, bool kDesign, bool kGeneral>
 __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     int N, int S, int G, int R, int E, int is_step, stt::Basis basis,
@@ -304,18 +334,25 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     const float* __restrict__ pv0, float* __restrict__ inv_out, float* __restrict__ pv_out,
     float* __restrict__ inv_rows, float* __restrict__ dec_rows, float* __restrict__ cons_rows,
     float* __restrict__ imm_rows, float* __restrict__ partials) {
-  const int V = kDesign ? B : basis.nf;
-  const int W = table_words(B, R, G, kGeneral);
+  static_assert(B > 0 || kDesign, "the wide route is the design mode's");
+  constexpr bool kWide = B == 0;
+  const int nb = kWide ? basis.nb : B;
+  const int V = kDesign ? nb : basis.nf;
+  const int W = table_words(nb, R, G, kGeneral);
   const int nslot = slot_words(V);
-  const int nout = kNumSums + B;
+  const int nout = kNumSums + nb;
   const int ngroups = (S + kThreads - 1) / kThreads;
+  const int pitch = kUsedSums + nb;  // of the warps' sums of a step
   __shared__ uint64_t bars[kStages];
-  __shared__ float red[2][kSims][kWarps][kUsedSums + B];  // by parity of the step
-  __shared__ int terms[B][kTermWords];
+  // The warps' sums by parity of the step, [2][kSims][kWarps][pitch]; the
+  // wide route's in dynamic shared memory.
+  __shared__ float red_fixed[kWide ? 1 : 2 * kSims * kWarps * (kUsedSums + B)];
+  __shared__ int terms[kWide ? 1 : B][kTermWords];
   extern __shared__ __align__(128) float smem[];
   float* ring = smem;                                  // [kStages][W]
   float* slots = ring + kStages * W;                   // [kStages][nslot]
   float* frac = slots + kStages * nslot;               // [2, D]
+  float* red = kWide ? frac + 2 * (2 * E + 3) : red_fixed;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -379,7 +416,7 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     const int k = t % kStages;
     const float* par = ring + k * W;
     const float* mean = par + NUM_PARAMS;
-    const float* stdv = mean + B;
+    const float* stdv = mean + nb;
     // This thread's values of step t have landed (step t + 1's may be in
     // flight), and so has the table.
     asm volatile("cp.async.wait_group 1;" ::: "memory");
@@ -387,49 +424,64 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     const size_t row = static_cast<size_t>(t) * S;
 #pragma unroll
     for (int j = 0; j < kSims; ++j) {
-      const float* vals = slots + k * nslot + j * kThreads + tid;
+      float* vals = slots + k * nslot + j * kThreads + tid;
       const float sp = vals[0];
-      float dm[B];
+      // The step of sim j on its standardised design row dm, and its sums.
+      auto step = [&](const auto& dm) {
+        const StepResult r = step_sim<kGeneral>(par, R, G, E, is_step, sp, inv[j], dm, frac);
+        float acc[kUsedSums] = {inv[j], r.dec, r.cons, r.loss, r.imm,
+                                __fmul_rn(-__fadd_rn(r.dec, r.cons), sp)};
+        inv[j] = r.inv;
+        pv[j] = __fadd_rn(pv[j], r.imm);
+        if (valid[j]) {
+          const size_t at = row + sim[j];
+          if (inv_rows) inv_rows[at] = r.inv;
+          if (dec_rows) dec_rows[at] = r.dec;
+          if (cons_rows) cons_rows[at] = r.cons;
+          if (imm_rows) imm_rows[at] = r.imm;
+        }
+        float* red_w = red + (((t & 1) * kSims + j) * kWarps + warp) * pitch;
 #pragma unroll
-      for (int b = 0; b < B; ++b)
-        dm[b] = kDesign ? __fdiv_rn(__fsub_rn(vals[(1 + b) * kSims * kThreads], mean[b]), stdv[b])
-                        : design_entry(terms[b], vals, kSims * kThreads, mean[b], stdv[b]);
-
-      const StepResult r = step_sim<B, kGeneral>(par, R, G, E, is_step, sp, inv[j], dm, frac);
-      float acc[kUsedSums] = {inv[j], r.dec, r.cons, r.loss, r.imm,
-                              __fmul_rn(-__fadd_rn(r.dec, r.cons), sp)};
-      inv[j] = r.inv;
-      pv[j] = __fadd_rn(pv[j], r.imm);
-      if (valid[j]) {
-        const size_t at = row + sim[j];
-        if (inv_rows) inv_rows[at] = r.inv;
-        if (dec_rows) dec_rows[at] = r.dec;
-        if (cons_rows) cons_rows[at] = r.cons;
-        if (imm_rows) imm_rows[at] = r.imm;
-      }
-      float* red_w = red[t & 1][j][warp];
+        for (int c = 0; c < kUsedSums; ++c) {
+          const float x = warp_sum(valid[j] ? acc[c] : 0.0f);
+          if (lane == 0) red_w[c] = x;
+        }
 #pragma unroll
-      for (int c = 0; c < kUsedSums; ++c) {
-        const float x = warp_sum(valid[j] ? acc[c] : 0.0f);
-        if (lane == 0) red_w[c] = x;
-      }
+        for (int b = 0; b < dm.size(); ++b) {
+          const float x = warp_sum(valid[j] ? dm.at(b) : 0.0f);
+          if (lane == 0) red_w[kUsedSums + b] = x;
+        }
+      };
+      if constexpr (kWide) {
+        // Standardised in place: only this thread reads its slots until the
+        // stage is refilled, after the step's barrier.
+        for (int b = 0; b < nb; ++b) {
+          float* x = vals + (1 + b) * kSims * kThreads;
+          *x = __fdiv_rn(__fsub_rn(*x, mean[b]), stdv[b]);
+        }
+        step(SharedRow{vals + kSims * kThreads, nb, kSims * kThreads});
+      } else {
+        RegisterRow<B> dm;
 #pragma unroll
-      for (int b = 0; b < B; ++b) {
-        const float x = warp_sum(valid[j] ? dm[b] : 0.0f);
-        if (lane == 0) red_w[kUsedSums + b] = x;
+        for (int b = 0; b < B; ++b)
+          dm.v[b] = kDesign
+              ? __fdiv_rn(__fsub_rn(vals[(1 + b) * kSims * kThreads], mean[b]), stdv[b])
+              : design_entry(terms[b], vals, kSims * kThreads, mean[b], stdv[b]);
+        step(dm);
       }
     }
     __syncthreads();
     // Every thread is past step t: its stage takes step t + kStages.
     stage(t + kStages);
     // The step's partials row of each group: the warps in order.
-    if (tid < kSims * nout) {
-      const int j = tid / nout;
-      const int c = tid % nout;
+    for (int i = tid; i < kSims * nout; i += kThreads) {
+      const int j = i / nout;
+      const int c = i % nout;
       float x = 0.0f;
       if (c < kUsedSums || c >= kNumSums) {
         const int col = c < kUsedSums ? c : c - (kNumSums - kUsedSums);
-        for (int w = 0; w < kWarps; ++w) x += red[t & 1][j][w][col];
+        for (int w = 0; w < kWarps; ++w)
+          x += red[(((t & 1) * kSims + j) * kWarps + w) * pitch + col];
       }
       const int group = blockIdx.x * kSims + j;
       if (group < ngroups)
@@ -448,7 +500,8 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
 using SweepKernel = decltype(&forward_sweep_kernel<1, false, false>);
 
 // The sweep compiled for basis size B in either mode, on uniform or general
-// grid rows, or NULL beyond stt::kMaxB.
+// grid rows; beyond stt::kMaxB the design mode's wide route, and NULL for the
+// monomial mode.
 template <bool kDesign, bool kGeneral>
 SweepKernel sweep_kernel(int B) {
   static_assert(stt::kMaxB == 16, "one case per basis size");
@@ -469,7 +522,10 @@ SweepKernel sweep_kernel(int B) {
     case 14: return forward_sweep_kernel<14, kDesign, kGeneral>;
     case 15: return forward_sweep_kernel<15, kDesign, kGeneral>;
     case 16: return forward_sweep_kernel<16, kDesign, kGeneral>;
-    default: return nullptr;
+    default:
+      if constexpr (kDesign)
+        return B > stt::kMaxB ? forward_sweep_kernel<0, true, kGeneral> : nullptr;
+      return nullptr;
   }
 }
 
@@ -535,13 +591,13 @@ extern "C" int stt_forward_sweep(
 }
 
 // The sweep in design mode: as stt_forward_sweep, with the raw design
-// values [N, B, S] of B basis functions in place of the factors.
+// values [N, B, S] of B basis functions in place of the factors; any B.
 extern "C" int stt_forward_sweep_design(
     int N, int S, int B, int G, int R, int E, int is_step, int general, const void* table,
     const void* spot, const void* design, const void* inv0, const void* pv0, void* inv_out,
     void* pv_out, void* inv_rows, void* dec_rows, void* cons_rows, void* imm_rows,
     void* partials, void* totals, void* stream) {
-  if (B < 1 || B > stt::kMaxB || N < 1 || S < 1 || G < 2 || R < 1 || E < 0)
+  if (B < 1 || N < 1 || S < 1 || G < 2 || R < 1 || E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   stt::Basis basis{};
   basis.nb = B;
@@ -557,8 +613,8 @@ extern "C" int stt_forward_sweep_design(
 // general-grid mode's.
 extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int design, int general,
                                       int* out) {
-  if (G < 0 || B < 1 || B > stt::kMaxB || R < 1 || E < 0 ||
-      (!design && (F < 0 || F > stt::kMaxF)))
+  if (G < 0 || B < 1 || R < 1 || E < 0 ||
+      (!design && (B > stt::kMaxB || F < 0 || F > stt::kMaxF)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int V = design ? B : F;
   const cudaError_t err = stt::kernel_info(

@@ -27,16 +27,17 @@ fused and streamed paths of ``storage_tpu.engines.lsmc``).
   Between kernels, tensor code solves the [B, B] system and interpolates the
   coefficients to each (grid point, decision) target; ``fullstep=True`` runs
   kernel E instead, which does that solve on the card too, so a step is E's
-  launches alone.  Spot-only panels (no factor, ``value_from_sims``) and bases
-  with a user callable (``basis.generic``) take the JAX package's plain body:
-  each step regresses v on its standardised design (``fit_continuation``)
-  and runs kernel D on it.
+  launches alone.  Spot-only panels (no factor, ``value_from_sims``) and the
+  shapes of ``design_in_memory`` (a basis with a user callable,
+  ``basis.generic``, or beyond the monomial kernels' 16 terms or 8 factors)
+  take the JAX package's plain body: each step regresses v on its
+  standardised design (``fit_continuation``) and runs kernel D on it.
 * The forward pass runs one forward sweep over all steps of materialised
   panels (kernel C, ``ops.forward_kernel``; a launch a segment on another
   source) on an independent valuation-sim set, re-using the
   saved regression (the dual-simulation lower-bound estimator,
-  LsmcStorageValuation.cs:352-415); a basis with a user callable runs the
-  sweep's design mode on the design built a chunk of steps at a time
+  LsmcStorageValuation.cs:352-415); the shapes of ``design_in_memory`` run
+  the sweep's design mode on the design built a chunk of steps at a time
   (``forward_kernel.forward_sweep_generic``).  The forward pass produces NPV,
   standard error,
   pathwise deltas (:513-518), expected profiles and trigger prices
@@ -81,7 +82,7 @@ from .. import grid as gridmod
 from ..basis import design_columns, design_matrix, has_generic
 from ..facility import CompiledStorage
 from ..models import spot_sim
-from ..ops import decision_kernel, forward_kernel, interp
+from ..ops import _build, decision_kernel, forward_kernel, interp
 from ..ops.regression import column_stats, fit_continuation, fit_from_moments
 from ..parallel import reduce as preduce
 
@@ -95,6 +96,21 @@ _SCALARS = (
     "df_settle", "df_flow", "inj_cost", "wdr_cost", "inj_pcnt", "wdr_pcnt",
     "loss_pcnt", "inv_cost_rate",
 )
+
+
+def design_in_memory(monomials, num_factors: int) -> bool:
+    """The shape route, decided from the basis and the factor count alone,
+    before any allocation, simulation or launch, on every device: True where
+    the design is built in memory, a chunk of steps at a time (the backward
+    runs kernel D on each step's design, the forward kernel C's design mode),
+    False where the kernels build a monomial design on the card (kernel B or
+    E backward, C's monomial mode forward).  True for a basis with a user
+    callable, and for a basis or a factor count beyond what those kernels
+    take (``_build.MAX_BASIS``, ``_build.MAX_FACTORS``).  Not a fallback:
+    nothing is tried first.  (Spot-only panels also take kernel D backward,
+    the JAX package's plain body, and keep C's monomial mode forward.)"""
+    return (has_generic(monomials) or len(monomials) > _build.MAX_BASIS
+            or num_factors > _build.MAX_FACTORS)
 
 
 @contextlib.contextmanager
@@ -462,9 +478,10 @@ def lsmc_backward_rows(
     ``snap_interp`` rounds the interpolation weights to the 1/256 grid, the
     quadrature of the TPU run.  Factor panels run kernel B with the tensor
     glue between steps, or kernel E alone with ``fullstep``; spot-only panels
-    ([N+1, 0, S] factors) and bases with a user callable run the plain body
-    with kernel D on the design read from memory, and refuse ``fullstep``
-    (kernels B and E build monomial designs of factor panels on the card).
+    ([N+1, 0, S] factors) and the shapes of ``design_in_memory`` run the
+    plain body with kernel D on the design read from memory, and refuse
+    ``fullstep`` (kernels B and E build monomial designs of factor panels on
+    the card, within 16 terms and 8 factors: E's solve is sized by them).
     ``uniform_grids=False`` places target inventories on the grid rows by
     search (``_backward_prep_all``).
 
@@ -477,10 +494,13 @@ def lsmc_backward_rows(
     n = grids.shape[0] - 1
     num_grid = grids.shape[1]
     dtype = grids.dtype
-    design_in_memory = src.num_factors == 0 or has_generic(monomials)
-    if fullstep and design_in_memory:
-        raise ValueError("fullstep needs factor panels and a monomial basis: spot-only panels "
-                         "and generic bases run kernel D")
+    on_design = src.num_factors == 0 or design_in_memory(monomials, src.num_factors)
+    if fullstep and on_design:
+        raise ValueError(
+            f"fullstep needs factor panels and a monomial basis of at most {_build.MAX_BASIS} "
+            f"terms on at most {_build.MAX_FACTORS} factors (kernel E solves a system sized by "
+            f"those caps, csrc/fullstep_kernel.cu): spot-only panels, generic bases and larger "
+            f"shapes run kernel D")
     if fullstep and preduce.active(group) is not None:
         raise ValueError("fullstep runs on one device: kernel E solves each step from its own "
                          "moments, which a path-parallel group sums between steps")
@@ -492,7 +512,7 @@ def lsmc_backward_rows(
     spare = torch.empty_like(v)
     step_args = lambda t: (prep["idx_lo"][t], prep["w_hi"][t])  # noqa: E731
     tick = _ticker(segment_cb, "backward", n)
-    if not design_in_memory:
+    if not on_design:
         xtx, xty = _fused_bootstrap(monomials, spot_last, factors_last, v, mean[n - 1],
                                     std[n - 1])
     if fullstep:
@@ -504,7 +524,7 @@ def lsmc_backward_rows(
         for t in range(t1 - 1, t0 - 1, -1):
             tq = max(t - 1, 0)  # the previous step; at t = 0 step 0 itself
             i, prev = t - r0, tq - r0  # their rows in the segment's
-            if design_in_memory:
+            if on_design:
                 # Regression of the next period's values on this period's
                 # standardised design (the JAX plain body, engines/lsmc.py:306-327).
                 dm_t = _standardised_design_t(monomials, spot[i], factors[i], mean[t], std[t])
@@ -680,8 +700,9 @@ def lsmc_forward_rows(
     launch a ``SEG_LEN``-step segment on that segment's rows, the inventory
     and PV carried between launches (the same bits:
     ``forward_kernel.sweep_in_chunks``); a generic basis builds its design a
-    chunk of steps at a time (``forward_kernel.forward_sweep_generic``).  The
-    per-step reductions stay on the device until the result dict is read.
+    chunk of steps at a time (``forward_kernel.forward_sweep_generic``), as
+    does every other shape of ``design_in_memory``.  The per-step reductions
+    stay on the device until the result dict is read.
 
     ``return_sim_data`` (materialised panels only) adds the per-sim panels of
     the JAX package's ``_forward_finalise``: inventory and PV [N+1, S] (the
@@ -734,6 +755,7 @@ def lsmc_forward_rows(
     ranges = [(t0, t1 + (t1 == n)) for t0, t1 in _segments(n, chunk)]
     each_rows = _each_rows(src, ranges)
     ends = {}
+    on_design = design_in_memory(monomials, src.num_factors)
 
     def sweep_chunk(t0, t1, inventory, pv):
         spot, factors = next(each_rows)
@@ -745,7 +767,7 @@ def lsmc_forward_rows(
             panels[1], panels[2] = panel(t1 - t0), panel(t1 - t0)  # the volume and fuel the VJP reads
         grid = None if grid_rows is None else grid_rows[t0:t1]
         coeffs = regression["coeffs"][t0:t1]
-        if has_generic(monomials):
+        if on_design:
             out = forward_kernel.forward_sweep_generic(
                 *(x[t0:t1] for x in tables), spot, factors, inventory, coeffs, monomials,
                 num_extra_decisions, ratchet_is_step, panels=panels, grid=grid, pv=pv)

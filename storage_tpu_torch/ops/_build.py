@@ -221,10 +221,20 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {rc}")
 
 
+# kMaxB and kMaxF of csrc/common.cuh: the most basis functions and factors
+# that the kernels building a monomial design on the card take (B, E and C's
+# monomial mode).  The shape route (engines/lsmc.py design_in_memory) reads
+# this copy, so it needs no build and works on the CPU; chip_smoke.py holds
+# it to the built library's ``limits``.
+MAX_BASIS = 16
+MAX_FACTORS = 8
+
+
 @functools.lru_cache(maxsize=1)
 def limits() -> dict:
-    """The most basis functions and factors the kernels take (``kMaxB`` and
-    ``kMaxF`` of ``csrc/common.cuh``, read from the built library)."""
+    """The most basis functions and factors the monomial kernels take
+    (``kMaxB`` and ``kMaxF`` of ``csrc/common.cuh``, read from the built
+    library)."""
     out = (ctypes.c_int * 2)()
     check(library().stt_limits(out), "stt_limits")
     return {"max_basis": out[0], "max_factors": out[1]}
@@ -232,13 +242,15 @@ def limits() -> dict:
 
 def require_caps(name: str, num_basis: int, num_factors: int) -> None:
     """Raises ``ValueError`` before any launch where a basis or a factor
-    count exceeds the kernels' caps (``limits``)."""
-    caps = limits()
-    if num_basis > caps["max_basis"] or num_factors > caps["max_factors"]:
+    count exceeds the caps of the kernels that build a monomial design on
+    the card (``MAX_BASIS``, ``MAX_FACTORS``).  No valuation reaches it: the
+    engine routes such shapes to the design read from memory."""
+    if num_basis > MAX_BASIS or num_factors > MAX_FACTORS:
         raise ValueError(
-            f"{name}: {num_basis} basis functions and {num_factors} factors; the CUDA kernels "
-            f"take at most {caps['max_basis']} basis functions and {caps['max_factors']} factors "
-            f"(csrc/common.cuh kMaxB, kMaxF); device='cpu' takes any size")
+            f"{name}: {num_basis} basis functions and {num_factors} factors; this kernel builds "
+            f"a monomial design on the card and takes at most {MAX_BASIS} basis functions and "
+            f"{MAX_FACTORS} factors (csrc/common.cuh kMaxB, kMaxF); the design-in-memory route "
+            f"(kernel D, kernel C's design mode) takes any size")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> torch.device:

@@ -34,11 +34,13 @@ The kernels are ``csrc/decision_kernel.cu`` (B), ``csrc/decision_update_kernel.c
 (D) and ``csrc/fullstep_kernel.cu`` (E, which launches B's kernel after its
 solve); each ``*_plain`` function is the same function in tensor code, used
 for CPU tensors.  B's kernel keeps only the step tables and two fixed tiles
-in shared memory, D's only the step tables.  Each takes any grid whose tables
-fit the card (``kernel_info`` gives the largest) and raises ``ValueError``
-beyond it, and any basis and factor count within the kernels' caps
-(``_build.limits``: 16 basis functions, 8 factors), raising ``ValueError``
-beyond them.
+in shared memory, D's only the step tables (and, past 32 terms, each sim's
+design row).  Each takes any grid whose tables fit the card (``kernel_info``
+gives the largest) and raises ``ValueError`` beyond it.  B and E build the
+monomial design on the card and take a basis and a factor count within the
+caps ``_build.MAX_BASIS`` and ``_build.MAX_FACTORS`` (16 and 8), raising
+``ValueError`` beyond them; D reads the design and takes any basis, compiled
+per padded size up to 32 terms and on its wide route beyond.
 """
 from __future__ import annotations
 
@@ -134,7 +136,8 @@ def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device) ->
     functions on a CUDA device: sims per block, shared memory bytes per block
     (static and dynamic), the device's limit per block, the largest G within
     it at this D and B, blocks per SM (0 where G does not fit) and registers
-    per thread.  B must be within the basis cap (``_build.limits``)."""
+    per thread.  Kernel B takes B within its basis cap (``_build.MAX_BASIS``),
+    kernel D any B."""
     entry = {"moments": "stt_decision_update_moments_info",
              "update": "stt_decision_update_info"}[kernel]
     return _kernel_info(entry, g, d, bdim, torch.device(device).index or 0)
@@ -257,9 +260,10 @@ def decision_update(
 ):
     """Returns best_act [G, S] (kernel D).
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel and
-    must be f32 and contiguous; ``out`` is the [G, S] buffer for best_act and
-    must not be ``v``.  ``idx_lo`` must lie in [0, G-2], as for kernel B, in
+    CPU tensors take the plain version.  CUDA tensors launch the kernel, at
+    any basis size, and must be f32 and contiguous; ``out`` is the [G, S]
+    buffer for best_act and must not be ``v``.  ``idx_lo`` must lie in
+    [0, G-2], as for kernel B, in
     any order.  Beyond the largest G of ``kernel_info("update", ...)`` it
     raises ``ValueError``."""
     if v.device.type == "cpu":
@@ -276,7 +280,6 @@ def decision_update(
         raise ValueError("decision_update: idx_lo on another device")
     if out.data_ptr() == v.data_ptr():
         raise ValueError("decision_update: out must not alias v")
-    _build.require_caps("decision_update", bdim, 0)
     _check_shapes("decision_update", {
         "dm_std_t": (dm_std_t, (bdim, s)), "spot": (spot, (s,)),
         "idx_lo": (idx_lo, (g, d)), "w_hi": (w_hi, (g, d)), "ci": (ci, (d, g, bdim)),

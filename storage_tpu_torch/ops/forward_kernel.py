@@ -310,10 +310,12 @@ def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device, design: bool 
     two-stage ring of step tables and per-sim values, and the decision
     fractions), the device's limit per block, the largest G
     within it, blocks per SM (0 where G does not fit) and registers per
-    thread.  B and F must be within the kernels' caps (``_build.limits``).
-    ``design`` reports the design mode, which stages B design values a sim
-    in place of the F factors (F is not read); ``general`` the general-grid
-    mode, whose tables hold one more row of G a step."""
+    thread.  The monomial mode takes B and F within the caps
+    ``_build.MAX_BASIS`` and ``_build.MAX_FACTORS``.  ``design`` reports the
+    design mode, which stages B design values a sim in place of the F
+    factors (F is not read) and takes any B (beyond ``_build.MAX_BASIS`` on
+    its wide route); ``general`` the general-grid mode, whose tables hold one
+    more row of G a step."""
     return _kernel_info(g, bdim, r, f, e, bool(design), bool(general),
                         torch.device(device).index or 0)
 
@@ -362,7 +364,8 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
             raise ValueError(f"{name}: {key} is {tuple(t.shape)}, want {shape}")
     if not design and len(monomials) != bdim:
         raise ValueError(f"{name}: coeffs rows must match the basis")
-    _build.require_caps(name, bdim, f)
+    if not design:
+        _build.require_caps(name, bdim, f)
     info = kernel_info(g, bdim, r, f, num_extra_decisions, device, design=design,
                        general=general)
     if info["smem_bytes"] > info["smem_limit"]:
@@ -465,9 +468,10 @@ def forward_sweep_design(
     [B, S], read from memory and standardised by ``mean`` and ``std``, in
     place of the design that monomials build on the card.  Results,
     ``panels``, ``out`` and ``grid`` as ``forward_sweep``'s.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel once for all N steps
-    (B up to the kernels' cap; no factor is read, so the factor cap does not
-    apply)."""
+    the plain version; CUDA tensors launch the kernel once for all N steps,
+    at any B: compiled per B up to ``_build.MAX_BASIS``, the wide route
+    beyond (the same arithmetic; no factor is read, so no factor count
+    applies)."""
     if spot.device.type == "cpu":
         return forward_sweep_plain(
             params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, None, inventory,

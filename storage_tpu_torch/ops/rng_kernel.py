@@ -283,8 +283,10 @@ def simulate_sweep(key: tp.Tuple[int, int], ids, sign, decay, chol, vols, c, sta
     the bit; the state it leaves is its last factor row.
 
     CPU tensors take the plain version; CUDA tensors launch the sweep kernel
-    once (ids int32 holding the uint32 identities, everything else f32, F
-    within the kernels' cap ``_build.limits``)."""
+    once (ids int32 holding the uint32 identities, everything else f32): at
+    any F that the card's shared memory takes (``sweep_info``'s
+    ``max_factors``, over a hundred on an H100), compiled per F up to 12
+    factors and on its wide route beyond."""
     if decay.device.type == "cpu":
         return simulate_sweep_plain(key, ids, sign, decay, chol, vols, c, start, x0)
     if decay.dim() != 2:
@@ -308,7 +310,12 @@ def simulate_sweep(key: tp.Tuple[int, int], ids, sign, decay, chol, vols, c, sta
         _build.require_cuda("simulate_sweep", x0)
         if x0.shape != (f, s):
             raise ValueError(f"simulate_sweep: x0 must be f32 [F, S] = [{f}, {s}]")
-    _build.require_caps("simulate_sweep", 0, f)
+    info = sweep_info(f, device)
+    if f > info["max_factors"]:
+        raise ValueError(
+            f"simulate_sweep: F={f} factors need {info['smem_bytes']} bytes of shared memory per "
+            f"block (the state and draws of 256 paths, 2 KB a factor); this card allows "
+            f"{info['smem_limit']}, so at most F={info['max_factors']}")
     factors = torch.empty((p, f, s), dtype=torch.float32, device=device)
     spot = torch.empty((p, s), dtype=torch.float32, device=device)
     rc = _build.library().stt_simulate_sweep(
@@ -324,7 +331,7 @@ def simulate_sweep(key: tp.Tuple[int, int], ids, sign, decay, chol, vols, c, sta
 
 simulate_sweep.launches = 0
 
-_INFO_FIELDS = ("paths_per_block", "smem_bytes", "smem_limit", "max_grid", "blocks_per_sm",
+_INFO_FIELDS = ("paths_per_block", "smem_bytes", "smem_limit", "max_factors", "blocks_per_sm",
                 "registers")
 
 
@@ -333,20 +340,21 @@ def _sweep_info(f: int, device_index: int) -> dict:
     out = (ctypes.c_int * len(_INFO_FIELDS))()
     with torch.cuda.device(device_index):
         _build.check(_build.library().stt_simulate_sweep_info(f, out), "stt_simulate_sweep_info")
-    info = dict(zip(_INFO_FIELDS, out))
-    del info["max_grid"], info["smem_limit"]  # the sweep takes no dynamic shared memory
-    return info
+    return dict(zip(_INFO_FIELDS, out))
 
 
 def sweep_info(f: int, device) -> dict:
     """Launch report of the sweep kernel at F factors on a CUDA device: paths
-    per block, shared memory bytes per block, blocks per SM and registers per
-    thread."""
-    _build.require_caps("sweep_info", 0, f)
+    per block, shared memory bytes per block (none up to 12 factors; the
+    wide route's state and draws beyond), the device's limit per block, the
+    largest F of the route that F takes, blocks per SM (0 where F does not
+    fit) and registers per thread."""
+    if f < 1:
+        raise ValueError(f"sweep_info: F={f}; the sweep takes F >= 1")
     return _sweep_info(int(f), torch.device(device).index or 0)
 
 
 def sweep_sass_name(f: int) -> str:
     """What the mangled name of the sweep kernel at F factors holds (for
-    ``_build.sass_instructions``)."""
-    return f"sim_sweep_kernelILi{f}EE"
+    ``_build.sass_instructions``; the wide route's beyond 12)."""
+    return f"sim_sweep_kernelILi{f if f <= 12 else 0}EE"

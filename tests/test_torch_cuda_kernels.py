@@ -78,9 +78,11 @@ def _ulp(a, b) -> int:
 
 
 @pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
-@pytest.mark.parametrize("f,p", [(1, 9), (2, 9), (3, 366), (3, 7), (8, 9)])
+@pytest.mark.parametrize("f,p", [(1, 9), (2, 9), (3, 366), (3, 7), (8, 9), (9, 7), (10, 9),
+                                 (12, 9), (13, 7), (20, 9)])
 def test_simulate_sweep(device, f, p, antithetic):
-    """The simulation sweep against its plain version at F = 1, 2, 3 and 8
+    """The simulation sweep against its plain version at F = 1, 2, 3, 8, 9,
+    10 and 12 (compiled per F) and 13 and 20 (the wide route, F at run time)
     over odd and even step counts (the word parity changes across steps when F
     is odd), with and without antithetic signs, on paths that fill no whole
     block: the factors to the bit, the spot to the bit (the same expf)."""
@@ -99,7 +101,7 @@ def test_simulate_sweep(device, f, p, antithetic):
 
 
 @pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
-@pytest.mark.parametrize("f", [1, 2, 3, 8])
+@pytest.mark.parametrize("f", [1, 2, 3, 8, 9, 10, 12, 13])
 @pytest.mark.parametrize("start", [5, 6], ids=["odd", "even"])
 def test_resumed_sweep(device, f, start, antithetic):
     """The sweep resumed at a start step from the state entering it (the
@@ -124,12 +126,15 @@ def test_resumed_sweep(device, f, start, antithetic):
 
 
 def test_simulate_sweep_raises(device):
-    """Past the kernels' 8 factors the sweep raises ValueError naming the cap,
-    before any launch; a wrong dtype or shape raises too."""
+    """Past the factors whose state and draws the wide route's shared memory
+    holds the sweep raises ValueError naming that limit, before any launch;
+    a wrong dtype or shape raises too."""
     ids = torch.arange(64, dtype=torch.int32, device=device)
     before = rng_kernel.simulate_sweep.launches
-    with pytest.raises(ValueError, match="at most 16 basis functions and 8 factors"):
-        rng_kernel.simulate_sweep((3, 11), ids, None, *_sweep_tables(device, 5, 9))
+    most = rng_kernel.sweep_info(20, device)["max_factors"]
+    assert most >= 100
+    with pytest.raises(ValueError, match=f"at most F={most}"):
+        rng_kernel.simulate_sweep((3, 11), ids, None, *_sweep_tables(device, 2, most + 1))
     with pytest.raises(TypeError):
         rng_kernel.simulate_sweep((3, 11), ids.long(), None, *_sweep_tables(device, 5, 3))
     decay, chol, vols, c = _sweep_tables(device, 5, 3)
@@ -139,11 +144,13 @@ def test_simulate_sweep_raises(device):
 
 
 def test_simulate_sweep_launch_report(device):
-    """The sweep's launch report: 256 paths a block, no shared memory, and
-    whole blocks resident on an SM at every F."""
-    for f in (1, 3, 8):
+    """The sweep's launch report: 256 paths a block, no shared memory up to 12
+    factors and 2 KB a factor on the wide route beyond, and whole blocks
+    resident on an SM at every F."""
+    for f in (1, 3, 8, 10, 12, 13, 20):
         info = rng_kernel.sweep_info(f, device)
-        assert info["paths_per_block"] == 256 and info["smem_bytes"] == 0
+        assert info["paths_per_block"] == 256
+        assert info["smem_bytes"] == (0 if f <= 12 else 2 * f * 256 * 4)
         assert info["blocks_per_sm"] >= 1 and 0 < info["registers"] <= 255
 
 
@@ -256,14 +263,31 @@ def test_decision_update_grid_beyond_shared_memory_raises(device):
 BASIS_17 = BASIS_9 + " + s**3 + s**4 + s*x0 + s*x1 + s*x2 + x0*x1 + x0*x2 + x1*x2"
 
 
+@pytest.mark.parametrize("b", [17, 20, 36])
+@pytest.mark.parametrize("kind", ["random", "monotone"])
+def test_decision_update_beyond_16_terms(device, b, kind):
+    """Kernel D at B = 17 and 20 (compiled per padded size) and 36 (the wide
+    route, past the last compiled size, 32) against its plain version: the
+    same bits."""
+    basis = " + ".join(["1"] + [f"s**{k}" for k in range(1, b)])
+    args = _update_args(device, 100, 1001, 3, kind, basis=basis)
+    assert args[1].shape[0] == b
+    before = decision_kernel.decision_update.launches
+    got = decision_kernel.decision_update(*args)
+    assert decision_kernel.decision_update.launches == before + 1
+    assert torch.equal(got, decision_kernel.decision_update_plain(*args))
+    info = decision_kernel.kernel_info("update", 100, 3, b, device)
+    assert info["max_grid"] >= 100 and info["blocks_per_sm"] >= 1
+
+
 @pytest.mark.parametrize("wrapper,case", [
-    ("moments", "17-terms"), ("moments", "9-factors"), ("update", "17-terms"),
-    ("fullstep", "17-terms"), ("fullstep", "9-factors"), ("sweep", "17-terms"),
-    ("sweep", "9-factors")])
+    ("moments", "17-terms"), ("moments", "9-factors"), ("fullstep", "17-terms"),
+    ("fullstep", "9-factors"), ("sweep", "17-terms"), ("sweep", "9-factors")])
 def test_caps_raise_value_error(device, wrapper, case):
-    """Past the kernels' 16 basis functions or 8 factors each wrapper raises
-    ValueError naming both caps before it launches (kernel D reads a design
-    [B, S] and has no factor count)."""
+    """Past 16 basis functions or 8 factors each wrapper of a kernel that
+    builds the monomial design on the card (B, E, C's monomial mode) raises
+    ValueError naming both caps before it launches; the engine never routes
+    such shapes to them (kernel D and C's design mode take any basis)."""
     basis, f = (BASIS_17, 3) if case == "17-terms" else ("1 + s + x8", 9)
     g, s, d = 11, 64, 3
     v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, ci, a, b, \
@@ -277,8 +301,6 @@ def test_caps_raise_value_error(device, wrapper, case):
         "moments": lambda: decision_kernel.decision_update_moments(
             v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi,
             ci, a, b, mono),
-        "update": lambda: decision_kernel.decision_update(
-            v, torch.ones((bdim, s), device=device), spot, idx_lo, w_hi, ci, a, b),
         "fullstep": lambda: decision_kernel.decision_update_fullstep(
             v, spot, factors, spot_prev, factors_prev, torch.eye(bdim, device=device),
             torch.ones((bdim, g), device=device), mean, std, idx_lo, w_hi, a, b, mono),
@@ -454,6 +476,43 @@ def test_forward_sweep_general_grid(device, design, g):
     # Another valuation than the evenly spaced placement on the same tables.
     uniform = forward_kernel.forward_sweep(*args)
     assert not torch.equal(uniform[1], got[1])
+
+
+BASIS_20 = ("1 + s + x0 + x1 + x2 + s**2 + x0**2 + x1**2 + x2**2 + s*x0 + s*x1 + s*x2 + x0*x1 "
+            "+ x0*x2 + x1*x2 + s**3 + x0**3 + x1**3 + x2**3 + s**4")
+
+
+@pytest.mark.parametrize("general", [False, True], ids=["uniform", "general"])
+@pytest.mark.parametrize("g", [13, 100])
+def test_forward_sweep_design_beyond_16_terms(device, general, g):
+    """Kernel C's design mode at B = 20 (its wide route) on evenly spaced and
+    on custom rows against its plain version, with the per-sim panels: the
+    plain version's arithmetic, so per-sim values to f32 rounding; and over
+    two launches the same bits."""
+    s, n = 300, 9
+    args = _sweep_args(device, n, s, g, 3, basis=BASIS_20)
+    grid = _bunched_rows(args[0], g) if general else None
+    raw = torch.stack(tbasis.design_columns(args[11], args[6], args[7]), dim=1)
+    assert raw.shape == (n, 20, s)
+    dargs = (*args[:7], raw, *args[8:11], *args[12:])
+    panels = [torch.empty((n, s), device=device) for _ in range(4)]
+    want_panels = [torch.empty((n, s), device=device) for _ in range(4)]
+    before = forward_kernel.forward_sweep_design.launches
+    got = forward_kernel.forward_sweep_design(*dargs, panels=panels, grid=grid)
+    assert forward_kernel.forward_sweep_design.launches == before + 1
+    want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, design=raw, grid=grid)
+    for k in range(2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-3)
+    for row, want_row in zip(panels, want_panels):
+        torch.testing.assert_close(row, want_row, rtol=1e-6, atol=1e-3)
+    for k in (2, 3):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                   atol=1e-5 * float(want[k].abs().max()))
+    again = forward_kernel.forward_sweep_design(*dargs, grid=grid)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    info = forward_kernel.kernel_info(g, 20, 3, 0, 1, device, design=True, general=general)
+    assert info["blocks_per_sm"] >= 1 and info["max_grid"] >= g
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])

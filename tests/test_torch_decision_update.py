@@ -1,7 +1,8 @@
 """Kernel D's plain version (``decision_update_plain``) against the Pallas TPU
 kernel it replaces (``decision_update_pallas``), run in interpret mode with
-``pred_passes=1`` (the exact-f32 regressed gap), and against the exact
-formula of the JAX engine's plain backward body in f64.
+``pred_passes=1`` (the exact-f32 regressed gap), also at 17 and 20 basis
+functions (past the 16 of the monomial kernels: D takes any basis), and
+against the exact formula of the JAX engine's plain backward body in f64.
 
 Tolerance against the Pallas kernel: the TPU kernel interpolates ``v`` as two
 bf16 matmuls over a hi/lo split of ``v``, which keeps about 16 bits — 2⁻¹⁵
@@ -43,7 +44,8 @@ def _torch_args(c):
             t["a"], t["b"])
 
 
-@pytest.mark.parametrize("g,s,d,b_dim", [(10, 256, 3, 4), (12, 384, 5, 6)])
+@pytest.mark.parametrize("g,s,d,b_dim", [(10, 256, 3, 4), (12, 384, 5, 6), (10, 256, 3, 17),
+                                         (12, 256, 3, 20)])
 def test_plain_matches_pallas_kernel(g, s, d, b_dim):
     c = _case(g + d, g, s, d, b_dim)
     w_mat = jdk.interp_weight_matrix(jnp.asarray(c["idx_lo"]), jnp.asarray(c["w_hi"]), g,

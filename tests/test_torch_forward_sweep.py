@@ -4,7 +4,9 @@ Python loop of the Pallas TPU kernel it replaces (``forward_step_pallas`` in
 interpret mode, ``pred_passes=1``), over per-step tables that differ from
 step to step: linear and step ratchets, 0 to 2 extra decisions, spot-only
 (F = 0) and factor panels, a degenerate next-period grid, the per-sim panels
-on and off.  Also: the sweep is its loop of ``forward_step_plain`` to the
+on and off; and its design mode on the raw design of 20 monomials (past the
+16 of the monomial mode on the card).  Also: the sweep is its loop of
+``forward_step_plain`` to the
 bit, in f32 and f64, and the packed step table holds each part where the
 kernel reads it.
 
@@ -25,7 +27,7 @@ import torch
 
 from storage_tpu.basis import parse_basis_functions as jax_parse
 from storage_tpu.ops import forward_kernel as jfk
-from storage_tpu_torch.basis import parse_basis_functions
+from storage_tpu_torch.basis import design_columns, parse_basis_functions
 from storage_tpu_torch.ops import forward_kernel as tfk
 
 torch.set_num_threads(1)
@@ -36,10 +38,11 @@ CSRC = Path(tfk.__file__).resolve().parent.parent / "csrc" / "forward_kernel.cu"
 
 
 def _case(seed, *, n=5, s=256, g=16, f=2, e=1, is_step=False, r=4, loss=0.02,
-          degenerate_step=None):
+          degenerate_step=None, basis=None):
     """N steps of tables that change from step to step, and the paths."""
     rng = np.random.default_rng(seed)
-    b_dim = len(jax_parse(BASIS if f else SPOT_BASIS))
+    basis = basis or (BASIS if f else SPOT_BASIS)
+    b_dim = len(jax_parse(basis))
     f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
     t = np.arange(n)
     scalars = dict(
@@ -62,8 +65,7 @@ def _case(seed, *, n=5, s=256, g=16, f=2, e=1, is_step=False, r=4, loss=0.02,
         ratchet_max=f32(np.linspace(150.0, 40.0, r)[None, :] + shift / 3),
         spot=f32(rng.uniform(20.0, 60.0, (n, s))), factors=f32(rng.normal(0.0, 0.5, (n, f, s))),
         inventory=f32(rng.uniform(0.0, 1000.0, s)),
-        coeffs=f32(rng.normal(0.0, 20.0, (n, b_dim, g))), e=e, is_step=is_step,
-        basis=BASIS if f else SPOT_BASIS,
+        coeffs=f32(rng.normal(0.0, 20.0, (n, b_dim, g))), e=e, is_step=is_step, basis=basis,
     )
 
 
@@ -139,6 +141,40 @@ def test_sweep_plain_matches_pallas_loop(kwargs, with_panels):
             pv_prev = want[t - 1][1] if t else 0.0
             np.testing.assert_allclose(panels[3][t].numpy(), w[1] - pv_prev, rtol=1e-5,
                                        atol=1e-5 * float(np.abs(w[1]).max()) + 1e-3)
+
+
+# 20 terms on 3 factors: the full quadratic in the spot and the factors, the
+# cubes and s**4, beyond the 16 terms of the monomial mode on the card.
+BASIS_20 = ("1 + s + x0 + x1 + x2 + s**2 + x0**2 + x1**2 + x2**2 + s*x0 + s*x1 + s*x2 + x0*x1 "
+            "+ x0*x2 + x1*x2 + s**3 + x0**3 + x1**3 + x2**3 + s**4")
+
+
+def test_design_mode_plain_matches_pallas_loop_at_20_terms():
+    """Kernel C's design mode (``forward_sweep_design``, on the card the wide
+    route beyond 16 terms) through its plain version, on the 20 monomials'
+    raw design, against the TPU kernel looped over the steps with those
+    monomials: the tolerances of ``test_sweep_plain_matches_pallas_loop``."""
+    c = _case(41, f=3, basis=BASIS_20, s=256, g=16)
+    want = _jax_loop(c)
+    n, s = c["spot"].shape
+    args = _torch_args(c)
+    monomials = tuple(parse_basis_functions(BASIS_20))
+    design = torch.stack(design_columns(monomials, args[6], args[7]), dim=1)  # [N, 20, S] raw
+    assert design.shape == (n, 20, s)
+    panels = [torch.full((n, s), np.nan) for _ in range(4)]
+    inv, pv, sums, xbar = tfk.forward_sweep_design(
+        *args[:7], design, args[8], None, torch.tensor(c["coeffs"]), c["e"], c["is_step"],
+        panels=panels)
+    assert tfk.forward_sweep_design.launches == 0  # CPU tensors take the plain version
+    close = lambda got, w, name: np.testing.assert_allclose(  # noqa: E731
+        got, w, rtol=1e-5, atol=1e-3, err_msg=name)
+    close(inv.numpy(), want[-1][0], "final inventory")
+    close(pv.numpy(), want[-1][1], "final pv")
+    for t, w in enumerate(want):
+        np.testing.assert_allclose(sums[t].numpy(), w[4], rtol=1e-5, atol=1e-4 * s)
+        np.testing.assert_allclose(xbar[t].numpy(), w[5], rtol=1e-5, atol=1e-5 * s)
+        close(panels[0][t].numpy(), w[0], f"inventory row {t}")
+        close(panels[1][t].numpy(), w[2], f"volume row {t}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])

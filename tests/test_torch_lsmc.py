@@ -365,63 +365,12 @@ def test_device_is_required():
 
 
 BASIS_17 = ("1 + s + s**2 + s**3 + s**4 + x0 + x1 + x2 + x0**2 + x1**2 + x2**2 + s*x0 + s*x1 "
-            "+ s*x2 + x0*x1 + x0*x2 + x1*x2")  # one term past the card's cap
-
-
-def _launch_counts():
-    from storage_tpu_torch.ops import decision_kernel, forward_kernel, rng_kernel
-
-    return [fn.launches for fn in (
-        rng_kernel.normal_halves, rng_kernel.simulate_sweep, decision_kernel.decision_update_moments,
-        decision_kernel.decision_update, decision_kernel.decision_update_fullstep,
-        forward_kernel.forward_sweep)]
-
-
-@pytest.mark.parametrize("entry", ["three-factor-17-terms", "multi-factor-9-factors",
-                                   "value-from-sims-17-terms", "value-from-sims-9-factors"])
-def test_basis_and_factor_caps_raise_before_any_launch(monkeypatch, entry):
-    """On CUDA a basis of more than 16 terms or a model of more than 8
-    factors fails at once with a ValueError that names both caps, before
-    any simulation, panel copy or launch (no card here: the device check and
-    the caps, which the built library reports, are stood in for)."""
-    from storage_tpu_torch.ops import _build
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(_build, "limits", lambda: {"max_basis": 16, "max_factors": 8})
-
-    def no_sims(*args, **kwargs):
-        raise AssertionError("simulated before the caps were checked")
-
-    monkeypatch.setattr(tpkg.api_lsmc.spot_sim, "simulate_ou_paths", no_sims)
-    monkeypatch.setattr(tpkg.api_lsmc, "_frames_to_sims", no_sims)
-    storage, start, fwd = _case(tpkg)
-    frame = pd.DataFrame(np.full((21, 8), 30.0), index=pd.period_range(start, storage.end))
-    nine = [(0.5 + i, pd.Series(0.2, index=fwd.index)) for i in range(9)]
-    calls = {
-        "three-factor-17-terms": lambda: tpkg.three_factor_seasonal_value(
-            storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, 64, BASIS_17, False,
-            device="cuda"),
-        "multi-factor-9-factors": lambda: tpkg.multi_factor_value(
-            storage, start, 100.0, fwd, 0.02, None, nine, np.eye(9), 64, "1 + s + x8", False,
-            device="cuda"),
-        "value-from-sims-17-terms": lambda: tpkg.value_from_sims(
-            storage, start, 100.0, fwd, 0.02, None, frame, frame, BASIS_17, False,
-            sim_factors_regress=[frame] * 5, sim_factors_valuation=[frame] * 5, device="cuda"),
-        "value-from-sims-9-factors": lambda: tpkg.value_from_sims(
-            storage, start, 100.0, fwd, 0.02, None, frame, frame, "1 + s", False,
-            sim_factors_regress=iter([frame] * 9), sim_factors_valuation=[frame] * 9,
-            device="cuda"),
-    }
-    before = _launch_counts()
-    with pytest.raises(ValueError, match=r"at most 16 basis functions and 8 factors.*"
-                                         r"device='cpu' takes any size"):
-        calls[entry]()
-    assert _launch_counts() == before == [0] * 6
+            "+ s*x2 + x0*x1 + x0*x2 + x1*x2")  # one term past the monomial kernels' cap
 
 
 def test_cpu_takes_any_basis():
-    """The CPU path values a basis beyond the card's 16 terms, and a model
-    of 9 factors."""
+    """The CPU path values a basis beyond the monomial kernels' 16 terms, and
+    a model of 9 factors."""
     storage, start, fwd = _case(tpkg, num_steps=6)
     res = tpkg.three_factor_seasonal_value(
         storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, 64, BASIS_17, False,

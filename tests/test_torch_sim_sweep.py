@@ -1,6 +1,7 @@
 """The simulation sweep's plain version against the JAX package's
-``simulate_ou_paths``, on step tables made with numpy from a seed, for 1 to 4
-factors, with and without antithetic draws, over odd and even numbers of
+``simulate_ou_paths``, on step tables made with numpy from a seed, for 1 to 4,
+9 and 10 factors (past the 8 of the monomial kernels: the sweep takes any
+F), with and without antithetic draws, over odd and even numbers of
 steps: f32 through ``ops.rng_kernel.simulate_sweep_plain`` (the kernel's plain
 version), f64 through ``simulate_ou_paths`` (the f64 draws, then the sweep's
 step loop ``ou_sweep_plain``).
@@ -63,7 +64,7 @@ def _simulate_both(p, f, antithetic, jdt, tdt, seed=11):
 
 @pytest.mark.parametrize("p", [7, 8], ids=["odd-P", "even-P"])
 @pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
-@pytest.mark.parametrize("f", [1, 2, 3, 4])
+@pytest.mark.parametrize("f", [1, 2, 3, 4, 9, 10])
 @pytest.mark.parametrize("jdt,tdt,rtol,atol", [
     (jnp.float64, torch.float64, 1e-12, 1e-14), (jnp.float32, torch.float32, 2e-6, 2e-6)],
     ids=["f64", "f32"])
@@ -94,7 +95,7 @@ def test_simulate_ou_paths_is_the_sweep(antithetic):
     assert trk.simulate_sweep.launches == before == 0
 
 
-@pytest.mark.parametrize("f", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("f", [1, 2, 3, 4, 5, 8, 9, 12])
 def test_sweep_word_addressing(f):
     """The sweep's f32 draws for step k and factor i are the normals that
     ``multi_step_normals`` gives word k·F + i (the kernel walks the blocks two

@@ -66,7 +66,7 @@ _CPASYNC = """      for (int i = 4 * tid; i < W; i += 4 * kThreads)
                         "l"(table + static_cast<size_t>(t) * W + i) : "memory");"""
 _WAIT = "    wait_parity(&bars[k], (t / kStages) & 1);"
 _SUM_ACC = "const float x = warp_sum(valid[j] ? acc[c] : 0.0f);"
-_SUM_DM = "const float x = warp_sum(valid[j] ? dm[b] : 0.0f);"
+_SUM_DM = "const float x = warp_sum(valid[j] ? dm.at(b) : 0.0f);"
 _FRAC = """    const float dec = has_zero ? __fmul_rn(k <= mid ? yw : yi, frac[k])
                                : __fadd_rn(yw, __fmul_rn(__fsub_rn(yi, yw), frac[D + k]));"""
 _DPFRAC = """    float dec;
@@ -90,40 +90,41 @@ _POWLOOP = """[&] {
         }()"""
 _BOUNDS = "__global__ void __launch_bounds__(kThreads) forward_sweep_kernel("
 _BUTTERFLIES = """#pragma unroll
-      for (int c = 0; c < kUsedSums; ++c) {
-        const float x = warp_sum(valid[j] ? acc[c] : 0.0f);
-        if (lane == 0) red_w[c] = x;
-      }
+        for (int c = 0; c < kUsedSums; ++c) {
+          const float x = warp_sum(valid[j] ? acc[c] : 0.0f);
+          if (lane == 0) red_w[c] = x;
+        }
 #pragma unroll
-      for (int b = 0; b < B; ++b) {
-        const float x = warp_sum(valid[j] ? dm[b] : 0.0f);
-        if (lane == 0) red_w[kUsedSums + b] = x;
-      }"""
-_SMEMSUMS = """      float* xw = xs[warp];
+        for (int b = 0; b < dm.size(); ++b) {
+          const float x = warp_sum(valid[j] ? dm.at(b) : 0.0f);
+          if (lane == 0) red_w[kUsedSums + b] = x;
+        }"""
+_SMEMSUMS = """        float* xw = xs[warp];
 #pragma unroll
-      for (int c = 0; c < kUsedSums; ++c) xw[lane * kXsPitch + c] = valid[j] ? acc[c] : 0.0f;
+        for (int c = 0; c < kUsedSums; ++c) xw[lane * kXsPitch + c] = valid[j] ? acc[c] : 0.0f;
 #pragma unroll
-      for (int b = 0; b < B; ++b) xw[lane * kXsPitch + kUsedSums + b] = valid[j] ? dm[b] : 0.0f;
-      __syncwarp();
-      if (lane < kUsedSums + B) {
-        float a[16];
+        for (int b = 0; b < dm.size(); ++b)
+          xw[lane * kXsPitch + kUsedSums + b] = valid[j] ? dm.at(b) : 0.0f;
+        __syncwarp();
+        if (lane < kUsedSums + dm.size()) {
+          float a[16];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) a[i] = xw[i * kXsPitch + lane] + xw[(i + 16) * kXsPitch + lane];
+          for (int i = 0; i < 16; ++i) a[i] = xw[i * kXsPitch + lane] + xw[(i + 16) * kXsPitch + lane];
 #pragma unroll
-        for (int h = 8; h > 0; h >>= 1)
+          for (int h = 8; h > 0; h >>= 1)
 #pragma unroll
-          for (int i = 0; i < h; ++i) a[i] = a[i] + a[i + h];
-        red_w[lane] = a[0];
-      }
-      __syncwarp();"""
-_XS_DECL = "  __shared__ int terms[B][kTermWords];"
+            for (int i = 0; i < h; ++i) a[i] = a[i] + a[i + h];
+          red_w[lane] = a[0];
+        }
+        __syncwarp();"""
+_XS_DECL = "  __shared__ int terms[kWide ? 1 : B][kTermWords];"
 _DLOOP = "  for (int k = 0; k < D; ++k) {\n    const float dec"
-_GATHER = """    float p_lo = __fmul_rn(coeffs[lo], dm[0]);
-    float p_hi = __fmul_rn(coeffs[lo + 1], dm[0]);
+_GATHER = """    float p_lo = __fmul_rn(coeffs[lo], dm.at(0));
+    float p_hi = __fmul_rn(coeffs[lo + 1], dm.at(0));
 #pragma unroll
     for (int b = 1; b < B; ++b) {
-      p_lo = __fadd_rn(p_lo, __fmul_rn(coeffs[b * G + lo], dm[b]));
-      p_hi = __fadd_rn(p_hi, __fmul_rn(coeffs[b * G + lo + 1], dm[b]));
+      p_lo = __fadd_rn(p_lo, __fmul_rn(coeffs[b * G + lo], dm.at(b)));
+      p_hi = __fadd_rn(p_hi, __fmul_rn(coeffs[b * G + lo + 1], dm.at(b)));
     }"""
 _DIV = "  return __fdiv_rn(__fsub_rn(x, mean), stdv);"
 # The monomial mode's design entry (the expression after the design mode's).
@@ -136,7 +137,7 @@ VARIANTS = {
     "sweep_4sims": [(_SIMS, "constexpr int kSims = 4;")],
     "sweep_cpasync": [(_TMA, _CPASYNC), (_WAIT, "    __syncthreads();")],
     "sweep_nosums": [(_SUM_ACC, "const float x = valid[j] ? acc[c] : 0.0f;"),
-                     (_SUM_DM, "const float x = valid[j] ? dm[b] : 0.0f;")],
+                     (_SUM_DM, "const float x = valid[j] ? dm.at(b) : 0.0f;")],
     "sweep_dpfrac": [(_FRAC, _DPFRAC)],
     "sweep_powloop": [(_DENTRY, _POWLOOP)],
     "sweep_6blocks": [(_BOUNDS, _BOUNDS.replace("(kThreads)", "(kThreads, 6)"))],

@@ -50,7 +50,7 @@ _C_READ = "__ldg(c + k)"
 _HEAD = """  const int s = blockIdx.x * kThreads + threadIdx.x;
   if (s >= S) return;"""
 _STAGE = """  extern __shared__ float tab[];
-  constexpr int kRec = 2 * F + F * F + 1;
+  const int kRec = 2 * F + F * F + 1;
   for (int i = threadIdx.x; i < P * kRec; i += kThreads) {
     const int k = i / kRec;
     const int r = i - k * kRec;
@@ -64,19 +64,23 @@ _STAGE = """  extern __shared__ float tab[];
 # Shared memory is read directly, not through the read-only data cache.
 _SMEM_READS = [("__ldg(lk + i * F)", "lk[i * F]"), ("__ldg(lk + i * F + j)", "lk[i * F + j]"),
                ("__ldg(dk + i)", "dk[i]"), ("__ldg(vk + i)", "vk[i]")]
-_LAUNCH = "kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0,"
+_LAUNCH = "kernel<<<(S + kThreads - 1) / kThreads, kThreads, smem,"
 _LAUNCH_SMEM = ("kernel<<<(S + kThreads - 1) / kThreads, kThreads, "
                 "sizeof(float) * P * (2 * F + F * F + 1),")
 
-# Two paths a thread: the kernel's body with every per-path value doubled.
-_KERNEL_START = "template <int F>\n__global__ void __launch_bounds__(kThreads) sim_sweep_kernel("
+# Two paths a thread: the kernel's body with every per-path value doubled (the
+# compiled sizes only: the wide route is patched out).
+_KERNEL_START = "template <int kF>\n__global__ void __launch_bounds__(kThreads) sim_sweep_kernel("
 _KERNEL_END = "using SweepKernel ="
-_PATHS2 = """template <int F>
+_WIDE_CASE = "default: return F > kMaxRegisterF ? sim_sweep_kernel<0> : nullptr;"
+_PATHS2 = """template <int kF>
 __global__ void __launch_bounds__(kThreads / 2) sim_sweep_kernel(
-    uint32_t k0, uint32_t k1, uint32_t start, int P, int S, const uint32_t* __restrict__ ids,
-    const float* __restrict__ sign, const float* __restrict__ x_in, const float* __restrict__ decay,
+    int num_factors, uint32_t k0, uint32_t k1, uint32_t start, int P, int S,
+    const uint32_t* __restrict__ ids, const float* __restrict__ sign,
+    const float* __restrict__ x_in, const float* __restrict__ decay,
     const float* __restrict__ chol, const float* __restrict__ vols,
     const float* __restrict__ c, float* __restrict__ factors, float* __restrict__ spot) {
+  constexpr int F = kF;
   constexpr int kHalf = kThreads / 2;
   const int s0 = blockIdx.x * kThreads + threadIdx.x;
   bool live[2];
@@ -156,8 +160,8 @@ __global__ void __launch_bounds__(kThreads / 2) sim_sweep_kernel(
 }
 
 """
-_PATHS2_LAUNCH = "kernel<<<(S + kThreads - 1) / kThreads, kThreads / 2, 0,"
-_INFO = "stt::kernel_info(kernel, kThreads, 0, 1, 0, out)"
+_PATHS2_LAUNCH = "kernel<<<(S + kThreads - 1) / kThreads, kThreads / 2, smem,"
+_INFO = "stt::kernel_info(kernel, kThreads, 0,"
 
 _POLY = "p = __fadd_rn("
 _FMA_ERFINV = [
@@ -173,8 +177,9 @@ VARIANTS = {
     "as_is": ([], []),
     "tables_smem": ([(_HEAD, _STAGE), (_TABLES, _TABLES_SMEM), *_SMEM_READS,
                      (_C_READ, "tab[k * kRec + kRec - 1]"), (_LAUNCH, _LAUNCH_SMEM)], []),
-    "paths2": ([("KERNEL", _PATHS2), (_LAUNCH, _PATHS2_LAUNCH),
-                (_INFO, "stt::kernel_info(kernel, kThreads / 2, 0, 1, 0, out)")], []),
+    "paths2": ([("KERNEL", _PATHS2), (_WIDE_CASE, "default: return nullptr;"),
+                (_LAUNCH, _PATHS2_LAUNCH), (_INFO, "stt::kernel_info(kernel, kThreads / 2, 0,")],
+               []),
     "fma_erfinv": ([], _FMA_ERFINV),
 }
 TIMING_ONLY = {"fma_erfinv"}

@@ -22,8 +22,9 @@ Each variant is a text patch of the kernel's source, built for B=4 alone into
                     kernel and read through L1, none in shared memory;
   one_kernel        one kernel for every basis size: compiled at 16 terms,
                     the records and the design row zero-padded to 16;
-  rolled            one kernel for every basis size with a rolled loop over
-                    the runtime B: the design row in a shared [16, 256] tile;
+  rolled            the wide route (one kernel for every basis size, a loop
+                    over the runtime padded B, the design row in a shared
+                    [Bp, 256] tile), which the kernel takes past 32 terms;
   abl_uniform       v read at the grid point's decision-0 row, one row for the
                     whole warp (timing only: not the kernel's answer).
 
@@ -60,10 +61,13 @@ def _const(name: str, value: str, new: str):
 
 # Every variant of the repository's source is compiled for B=4 alone.
 _SWITCH = ("  switch (padded_basis(B)) {\n"
-           + "".join(f"    case {b}: return decision_update_kernel<{b}>;\n" for b in (4, 8, 12, 16))
-           + "    default: return nullptr;\n  }")
+           + "".join(f"    case {b}: return decision_update_kernel<{b}>;\n"
+                     for b in (4, 8, 12, 16, 20, 24, 28, 32))
+           + "    default: return decision_update_kernel<0>;\n  }")
 _B4_ONLY = "  return B == 4 ? decision_update_kernel<4> : nullptr;"
 _B16 = "  return B <= 16 ? decision_update_kernel<16> : nullptr;"
+_WIDE = "  return decision_update_kernel<0>;"
+_ROW_WORDS = "  return Bp > kMaxRegisterBasis ? Bp * kThreads : 0;"
 _PAD = "__host__ __device__ inline int padded_basis(int B) { return (B + 3) & ~3; }"
 _PAD16 = "__host__ __device__ inline int padded_basis(int B) { return B > 0 ? 16 : 0; }"
 
@@ -76,32 +80,14 @@ def _blocks(n: int):
 
 
 _P128 = _const("kThreads", "256", "128")
-_LAUNCH_SMEM = ("  const size_t smem = sizeof(float) * static_cast<size_t>(G) * "
-                "record_words(D, padded_basis(B));")
-_INFO_WORDS = "record_words(D, padded_basis(B)), G, out));"
+_LAUNCH_SMEM = ("      sizeof(float) * (static_cast<size_t>(G) * record_words(D, bp) + "
+                "row_words(bp));")
+_INFO_WORDS = "record_words(D, bp), G, out));"
 _DM_LOAD = ("#pragma unroll\n"
-            "  for (int k = 0; k < Bp; ++k) dm[k] = k < B ? dm_std_t[static_cast<size_t>(k) * S + s]"
-            " : 0.0f;")
+            "    for (int k = 0; k < Bp; ++k)\n"
+            "      dm.dm[k] = k < B ? dm_std_t[static_cast<size_t>(k) * S + s] : 0.0f;")
 _ROW_READ = "    const float* x = v + static_cast<size_t>(best_lo[i]) * S + s;"
 _CONT = "__fadd_rn(__fmul_rn(__ldg(x), __fsub_rn(1.0f, w)), __fmul_rn(__ldg(x + S), w));"
-_SIG = "float sp, const float (&dm)[Bp],"
-_CALL = "decide_group<Bp>(c, G, S, D, tab, v, s, valid, sp, dm, best_out);"
-_DOT = """      float cf[Bp];
-#pragma unroll
-      for (int k = 0; k < Bp; k += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(p + 4 + k);
-        cf[k] = q4.x;
-        cf[k + 1] = q4.y;
-        cf[k + 2] = q4.z;
-        cf[k + 3] = q4.w;
-      }
-      float q = __fmul_rn(cf[0], dm[0]);
-#pragma unroll
-      for (int k = 1; k < Bp; ++k) q = __fadd_rn(q, __fmul_rn(cf[k], dm[k]));"""
-_DOT_ROLLED = """      float q = __fmul_rn(p[4], dms[0]);
-#pragma unroll 1
-      for (int k = 1; k < B; ++k) q = __fadd_rn(q, __fmul_rn(p[4 + k], dms[k * kThreads]));"""
-
 # The block's whole [G, kThreads] slice of v into shared memory after the
 # tables, by 16-byte cp.async of all threads (S a multiple of 4).
 _STAGE = _DM_LOAD + """
@@ -124,7 +110,7 @@ _STAGE_PATCHES = [
     (_ROW_READ, "    const float* x = tab + G * rec + best_lo[i] * kThreads + threadIdx.x;"),
     (_CONT, "__fadd_rn(__fmul_rn(x[0], __fsub_rn(1.0f, w)), __fmul_rn(x[kThreads], w));"),
     (_LAUNCH_SMEM, _LAUNCH_SMEM[:-1] + " + sizeof(float) * static_cast<size_t>(G) * kThreads;"),
-    (_INFO_WORDS, "record_words(D, padded_basis(B)) + kThreads, G, out));"),
+    (_INFO_WORDS, "record_words(D, bp) + kThreads, G, out));"),
 ]
 
 _TAB_SMEM = "  extern __shared__ __align__(16) float tab[];"
@@ -177,22 +163,13 @@ VARIANTS = {
                   "      static_cast<const float*>(dci));\n" + _LAUNCH),
     ]),
     "one_kernel": ("new", [(_PAD, _PAD16)]),
-    "rolled": ("new", [
-        (_PAD, _PAD16),
-        (_SIG, _SIG + " int B, const float* dms,"),
-        (_DOT, _DOT_ROLLED),
-        (_DM_LOAD, "  __shared__ float probe_dm[16 * kThreads];\n"
-                   "  for (int k = 0; k < B; ++k)\n"
-                   "    probe_dm[k * kThreads + threadIdx.x] = dm_std_t[static_cast<size_t>(k) * S + s];"),
-        (_CALL, "decide_group<Bp>(c, G, S, D, tab, v, s, valid, sp, dm, B, probe_dm + threadIdx.x, "
-                "best_out);"),
-    ]),
+    "rolled": ("new", [(_ROW_WORDS, "  return Bp * kThreads;")]),
     "abl_uniform": ("new", [
         (_ROW_READ, "    const float* x = v + static_cast<size_t>(__float_as_int(r[i][3])) * S + s;")]),
 }
 TIMING_ONLY = {"abl_uniform"}
 # The single-kernel variants keep their own switch (every B to the 16-term kernel).
-_OWN_SWITCH = {"one_kernel": _B16, "rolled": _B16}
+_OWN_SWITCH = {"one_kernel": _B16, "rolled": _WIDE}
 
 # Registers and local bytes of the variant's kernel at B=4, appended to its source.
 _ATTRS = """
