@@ -86,6 +86,23 @@
 6. ``value_from_sims`` on the headline's spot panels alone (basis
    1 + s + s² + s³): kernel D once per backward step, the NPV within 0.1 SE
    of the same valuation in f64, and the NPV and SE the bits pinned below.
+6b. The grids phase ("grids phase: N s", right after the spot-only path, on
+   its frames): inventory grids past every LSMC kernel's shared-memory
+   route.  The Python route sizing equals each kernel's launch report
+   (``kernel_info``'s max_grid) at 19 shapes; each large route (B, E, D at
+   B=4 and 9, C monomial, general-grid and design mode) forced at G=100 (D
+   at G=1,000) gives its shared route's bits; at G=4,096 on random inputs
+   (S=65,536) each gives its plain version's bits or flips only on
+   near-ties, and is timed with its plain version at S=262,144 beside its
+   bound (the kernels line's ``*_large`` rows).  Then, counters reset
+   before each: the headline with every large route forced at G=100 (the
+   pinned ``MAIN_NPV``/``MAIN_SE`` bits); at G=4,096 and 262,144 paths the
+   headline (B and C large, 365 + 1 launches), ``fullstep`` (E, within 0.05
+   SE of it), the generic replica (D at B=9 and C's design mode, within 0.1
+   SE), ``value_from_sims`` on the spot panels (D at B=4) and a custom grid
+   of 4,096 bunched rows (C's general-grid mode), each with its launches,
+   wall (median of 3) and peak memory; the headline and the custom grid at
+   16,384 paths within 0.1 SE of their f64 answers on the same draws.
 7. The full-step backward (``lsmc_core(fullstep=True)``): kernel E once per
    backward step and no kernel B, the NPV within 0.05 SE of the main path's;
    its backward seconds beside the kernel-B-plus-glue backward.
@@ -293,6 +310,21 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                               "storage_tpu/engines/lsmc.py:990"),
     "forward_sweep_design_general": ("storage_tpu_torch/csrc/forward_kernel.cu",
                                      "storage_tpu/engines/lsmc.py:990"),
+    # The large grid routes (the grids phase): B, D and E with their step
+    # tables a tile of grid points at a time, C's three modes with the
+    # coefficients and grid rows in device memory.
+    "decision_update_moments_large": ("storage_tpu_torch/csrc/decision_kernel.cu",
+                                      "storage_tpu/ops/decision_kernel.py:381"),
+    "decision_update_large": ("storage_tpu_torch/csrc/decision_update_kernel.cu",
+                              "storage_tpu/ops/decision_kernel.py:308"),
+    "decision_update_fullstep_large": ("storage_tpu_torch/csrc/fullstep_kernel.cu",
+                                       "storage_tpu/ops/decision_kernel.py:712"),
+    "forward_sweep_large": ("storage_tpu_torch/csrc/forward_kernel_large.cu",
+                            "storage_tpu/ops/forward_kernel.py:372"),
+    "forward_sweep_design_large": ("storage_tpu_torch/csrc/forward_kernel_large.cu",
+                                   "storage_tpu/ops/forward_kernel.py:372"),
+    "forward_sweep_general_large": ("storage_tpu_torch/csrc/forward_kernel_large.cu",
+                                    "storage_tpu/engines/lsmc.py:990"),
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bandwidth, and float32 outside the tensor cores, which counts a
@@ -570,7 +602,7 @@ def launches_ms(targets, run, repeats: int) -> dict:
         for module, name in targets:
             inner, timed = inners[name], wrappers[name]
             setattr(module, name, inner)
-            for counter in ("launches", "general_launches"):
+            for counter in ("launches", "general_launches", "large_launches"):
                 if hasattr(inner, counter):
                     setattr(inner, counter, getattr(timed, counter))
     torch.cuda.synchronize()
@@ -4075,6 +4107,471 @@ def check_tree(pkg, device, counts) -> dict:
                 steps=steps_row)
 
 
+# ---- the grids phase: inventory grids past the kernels' shared-memory
+# routes.  Kernels B, E, D and C each take a large route there (the step
+# tables a tile of grid points at a time; E's solve spread over blocks; C's
+# coefficients and grid rows read from device memory), chosen from shapes.
+GRID_BIG = 4_096
+GRID_CHECK_SIMS = 65_536
+GRID_F64_SIMS = 16_384
+GRID_REPEATS = 3
+
+
+def big_bunched_grid(lower, upper):
+    """``bunched_grid``'s rows at ``GRID_BIG`` points."""
+    import numpy as np
+
+    return lower + (upper - lower) * np.linspace(0.0, 1.0, GRID_BIG) ** 1.3
+
+
+@contextlib.contextmanager
+def forced_routes(route: str):
+    """Every grid-routed wrapper (B, D, E, C's two modes) forced onto
+    ``route`` inside the block.  A wrapper counts its launches on the name
+    its module binds, the forcing wrapper inside the block: the counters are
+    handed back to the wrapper on leaving it."""
+    import functools
+
+    from storage_tpu_torch.ops import decision_kernel, forward_kernel
+
+    targets = [(decision_kernel, name) for name in
+               ("decision_update_moments", "decision_update", "decision_update_fullstep")]
+    targets += [(forward_kernel, name) for name in ("forward_sweep", "forward_sweep_design")]
+    inners = {name: getattr(module, name) for module, name in targets}
+
+    def forcing(inner):
+        @functools.wraps(inner)
+        def forced(*a, **k):
+            return inner(*a, route=route, **k)
+        return forced
+
+    wrappers = {name: forcing(inner) for name, inner in inners.items()}
+    for module, name in targets:
+        setattr(module, name, wrappers[name])
+    try:
+        yield
+    finally:
+        for module, name in targets:
+            setattr(module, name, inners[name])
+            for counter in ("launches", "general_launches", "large_launches"):
+                if hasattr(inners[name], counter):
+                    setattr(inners[name], counter, getattr(wrappers[name], counter))
+
+
+def check_grid_routes(device) -> dict:
+    """The Python copies of the kernels' sizing (the route functions, which
+    run on any device) against each built kernel's launch report, at shapes
+    around the headline's: the same largest G of every shared route."""
+    from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel
+
+    limit = _build.smem_limit(device)
+    rows = []
+    for d, b in ((3, 9), (3, 4), (3, 16), (5, 9), (7, 12), (3, 1)):
+        rows.append((f"B D={d} B={b}", decision_kernel.moments_max_grid(d, b, limit),
+                     decision_kernel.kernel_info("moments", 100, d, b, device)["max_grid"]))
+    for d, b in ((3, 4), (3, 9), (5, 4), (3, 20), (3, 36)):
+        rows.append((f"D D={d} B={b}", decision_kernel.update_max_grid(d, b, limit),
+                     decision_kernel.kernel_info("update", 100, d, b, device)["max_grid"]))
+    for b, r, f, e, design, general in ((9, 3, 3, 0, False, False), (9, 3, 3, 0, False, True),
+                                        (9, 3, 0, 0, True, True), (9, 3, 0, 0, True, False),
+                                        (4, 3, 0, 0, False, False), (16, 3, 8, 1, False, False),
+                                        (1, 2, 1, 2, False, True), (20, 3, 0, 0, True, True)):
+        v = b if design else f
+        rows.append((f"C B={b} R={r} V={v} E={e} design={design} general={general}",
+                     forward_kernel.sweep_max_grid(b, r, v, e, limit, design, general),
+                     forward_kernel.kernel_info(100, b, r, f, e, device, design=design,
+                                                general=general)["max_grid"]))
+    bad = [row for row in rows if row[1] != row[2]]
+    log(f"grid routes: the shared routes' largest G from the Python sizing equal the kernels' "
+        f"launch reports at {len(rows) - len(bad)} of {len(rows)} shapes (smem limit {limit} B); "
+        + "; ".join(f"{name}: {mine}" for name, mine, _ in rows[:1] + rows[6:7] + rows[11:14]))
+    if bad:
+        raise AssertionError(f"route sizing disagrees with kernel_info: {bad}")
+    return dict(smem_limit=limit, shapes={name: mine for name, mine, _ in rows})
+
+
+def random_design_update(device, g, s, seed, b):
+    """Kernel D's arguments at G grid points, S sims and D=3 on a random
+    standardised design of B terms, the rows following g in a band of ±5."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    idx_lo = (torch.arange(g, device=device)[:, None]
+              + torch.tensor([-5, 0, 5], device=device)[None, :]).clamp(0, g - 2)
+    return (100.0 + 30.0 * rnd(g, s), rnd(b, s), 30.0 + 5.0 * rnd(s),
+            idx_lo.to(torch.int32).contiguous(), torch.rand((g, 3), generator=gen, device=device),
+            20.0 * rnd(3, g, b), 2.0 * rnd(3, g), 20.0 * rnd(3, g))
+
+
+def fullstep_args(args_b):
+    """Kernel E's arguments from kernel B's: the moments of the step's design
+    against 0.9·v, and the next moments' stats."""
+    from storage_tpu_torch.ops import decision_kernel
+
+    v, spot, fac, spot_p, fac_p, mean, std, mean_p, std_p, idx_lo, w_hi, _, a, b, mono = args_b
+    dm = decision_kernel._standardised_design(mono, spot, fac, mean, std)
+    return ((v, spot, fac, spot_p, fac_p, dm.T @ dm, dm.T @ (0.9 * v.T), mean, std, idx_lo,
+             w_hi, a, b, mono), dict(mean_prev=mean_p, std_prev=std_p))
+
+
+def same_outputs(x, y) -> bool:
+    """Every output of two calls the same bits (tuples or tensors)."""
+    import torch
+
+    xs = x if isinstance(x, tuple) else (x,)
+    ys = y if isinstance(y, tuple) else (y,)
+    return all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+def forced_bits(fn, args, kwargs=None) -> bool:
+    """``fn`` forced onto its large route gives its shared route's bits."""
+    kwargs = kwargs or {}
+    shared = fn(*args, route="shared", **kwargs)
+    shared = tuple(t.clone() for t in shared) if isinstance(shared, tuple) else shared.clone()
+    return same_outputs(shared, fn(*args, route="large", **kwargs))
+
+
+def check_large_kernels(pkg, device) -> dict:
+    """Each large route against its plain version at G = 4,096 on random
+    inputs at S = 65,536 (B and E: argmax flips only on near-ties; D: the
+    same bits; C in each mode: paths parting only on a near-tie), forced at
+    smaller G to its shared route's bits, then timed with its plain version
+    at the main path's S = 262,144 beside its bound and launch report."""
+    import torch
+
+    from storage_tpu_torch.basis import design_columns, parse_basis_functions
+    from storage_tpu_torch.ops import decision_kernel, forward_kernel
+
+    g, s, big_s = GRID_BIG, GRID_CHECK_SIMS, NUM_SIMS
+    results = {}
+
+    def row(name, check, ms, plain_ms, work, **extra):
+        bnd = bound(*work)
+        log(f"{name} large route [G={g}]: {check['text']}; {ms:.4f} ms vs plain {plain_ms:.3f} ms "
+            f"at S={big_s}, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        if not check["ok"]:
+            raise AssertionError(f"{name}'s large route disagrees with its plain version: "
+                                 f"{check['text']}")
+        results[name] = dict(max_abs_err=check["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                             checks={k: v for k, v in check.items() if k != "text"}, **extra,
+                             **bnd)
+
+    # Forced at small G: every route's large launch gives the shared bits.
+    forced = {}
+    small_b = random_step(device, NUM_GRID, s, seed=21)
+    forced["B"] = forced_bits(decision_kernel.decision_update_moments, small_b)
+    forced["E"] = forced_bits(decision_kernel.decision_update_fullstep, *fullstep_args(small_b))
+    del small_b
+    for b_dim in (4, 9):  # D's tiles (TILE_D) split a grid of 1,000
+        forced[f"D B={b_dim}"] = forced_bits(decision_kernel.decision_update,
+                                             random_design_update(device, BIG_GRID, s, 22, b_dim))
+    sweep = random_sweep(device, 32, s, NUM_GRID, 3, seed=23)
+    raw = torch.stack(design_columns(sweep[11], sweep[6], sweep[7]), dim=1)
+    forced["C monomial"] = forced_bits(forward_kernel.forward_sweep, sweep)
+    forced["C general"] = forced_bits(forward_kernel.forward_sweep, sweep,
+                                      dict(grid=bunched_rows(sweep[0], NUM_GRID, NUM_GRID - 3)))
+    forced["C design"] = forced_bits(forward_kernel.forward_sweep_design, design_args(sweep, raw))
+    del sweep, raw
+    log(f"large routes forced at G={NUM_GRID} (D at G={BIG_GRID}), S={s}: the shared route's "
+        f"bits: {forced}")
+    if not all(forced.values()):
+        raise AssertionError(f"a large route parts from its shared route's bits: {forced}")
+
+    # B and E.
+    args = random_step(device, g, s, seed=24)
+    cmp_b = compare_b(args)
+    cmp_e = compare_e(*fullstep_args(args))
+    del args
+    args = random_step(device, g, big_s, seed=25)
+    out = torch.empty_like(args[0])
+    ms = cuda_ms(lambda: decision_kernel.decision_update_moments(*args, out=out), 5)
+    plain_ms = cuda_ms(lambda: decision_kernel.decision_update_moments_plain(*args), 2)
+    launch = decision_kernel.kernel_info("moments", decision_kernel.TILE_B, 3, 9, device)
+    row("decision_update_moments_large", cmp_b, ms, plain_ms,
+        decision_work(g, big_s, 3, 9, 3, moments=True), tile=decision_kernel.TILE_B,
+        smem_bytes=launch["smem_bytes"], blocks_per_sm=launch["blocks_per_sm"],
+        registers=launch["registers"])
+    e_args, prev = fullstep_args(args)
+    ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep(*e_args, **prev, out=out), 5)
+    plain_ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep_plain(*e_args, **prev), 2)
+    row("decision_update_fullstep_large", cmp_e, ms, plain_ms,
+        decision_work(g, big_s, 3, 9, 3, moments=True), tile=decision_kernel.TILE_B,
+        blocks_per_sm=launch["blocks_per_sm"])
+    del args, e_args, out
+    torch.cuda.empty_cache()
+
+    # D at B = 4 (spot-only panels) and B = 9 (the generic replica).
+    d_rows = {}
+    for b_dim in (4, 9):
+        checks = [compare_d(random_update(device, g, s, seed=26, monotone=True) if b_dim == 4
+                            else random_design_update(device, g, s, 26, b_dim))]
+        if b_dim == 4:
+            checks.append(compare_d(random_update(device, g, s, seed=27, monotone=False)))
+        check = dict(checks[0], ok=all(c["ok"] for c in checks),
+                     text="; ".join(c["text"] for c in checks),
+                     max_abs_err=max(c["max_abs_err"] for c in checks))
+        args = random_design_update(device, g, big_s, 28, b_dim)
+        out = torch.empty_like(args[0])
+        ms = cuda_ms(lambda: decision_kernel.decision_update(*args, out=out), 5)
+        plain_ms = cuda_ms(lambda: decision_kernel.decision_update_plain(*args), 2)
+        launch = decision_kernel.kernel_info("update", decision_kernel.TILE_D, 3, b_dim, device)
+        d_rows[b_dim] = (check, ms, plain_ms, launch)
+        del args, out
+        torch.cuda.empty_cache()
+    check, ms, plain_ms, launch = d_rows[4]
+    c9, ms9, plain9, launch9 = d_rows[9]
+    bnd9 = bound(*decision_work(g, big_s, 3, 9, 0, moments=False, design_in_memory=True))
+    row("decision_update_large", check, ms, plain_ms,
+        decision_work(g, big_s, 3, 4, 0, moments=False, design_in_memory=True),
+        tile=decision_kernel.TILE_D, smem_bytes=launch["smem_bytes"],
+        blocks_per_sm=launch["blocks_per_sm"], registers=launch["registers"],
+        b9_ms=ms9, b9_plain_ms=plain9, b9_bound_ms=bnd9["bound_ms"],
+        b9_max_abs_err=c9["max_abs_err"], b9_blocks_per_sm=launch9["blocks_per_sm"])
+    log(f"decision_update_large at B=9 [G={g}]: {c9['text']}; {ms9:.4f} ms vs plain "
+        f"{plain9:.3f} ms at S={big_s}, bound {bnd9['bound_ms']:.4f} ms")
+    if not c9["ok"]:
+        raise AssertionError(f"kernel D's large route at B=9 disagrees: {c9['text']}")
+
+    # C in each mode: checked over 32 steps at S = 65,536, timed over the
+    # main path's launches at S = 262,144 (365 steps; the design mode one
+    # 32-step chunk, as the generic path launches it).
+    mono = tuple(parse_basis_functions(BASIS))
+    for mode in ("monomial", "general", "design"):
+        args = random_sweep(device, 32, s, g, 3, seed=29)
+        grid = bunched_rows(args[0], g, g - 3) if mode == "general" else None
+        raw = (torch.stack(design_columns(mono, args[6], args[7]), dim=1)
+               if mode == "design" else None)
+        check = compare_sweep(args, design=raw, grid=grid)
+        del args, raw
+        n = forward_kernel.DESIGN_CHUNK if mode == "design" else NUM_STEPS
+        args = random_sweep(device, n, big_s, g, 3, seed=30)
+        grid = bunched_rows(args[0], g, g - 3) if mode == "general" else None
+        if mode == "design":
+            raw = torch.stack(design_columns(mono, args[6], args[7]), dim=1)
+            dargs = design_args(args, raw)
+            ms = cuda_ms(lambda: forward_kernel.forward_sweep_design(*dargs), 3)
+            plain_ms = cuda_ms(lambda: forward_kernel.forward_sweep_plain(*args, design=raw), 1)
+            del raw, dargs
+        else:
+            ms = cuda_ms(lambda: forward_kernel.forward_sweep(*args, grid=grid), 3)
+            plain_ms = cuda_ms(lambda: forward_kernel.forward_sweep_plain(*args, grid=grid), 1)
+        launch = forward_kernel.kernel_info(g, 9, 3, 0 if mode == "design" else 3, 0, device,
+                                            design=mode == "design", general=mode == "general",
+                                            large=True)
+        name = {"monomial": "forward_sweep_large", "general": "forward_sweep_general_large",
+                "design": "forward_sweep_design_large"}[mode]
+        row(name, check, ms, plain_ms,
+            forward_work(n, big_s, 3, 9, g, 3, 3, panels=False, design=mode == "design",
+                         general=mode == "general"),
+            steps=n, smem_bytes=launch["smem_bytes"], blocks_per_sm=launch["blocks_per_sm"],
+            registers=launch["registers"])
+        del args, grid
+        torch.cuda.empty_cache()
+    return results
+
+
+def grid_value(pkg, device, basis=BASIS, num_sims=None, **kwargs):
+    """The headline through the public API at ``GRID_BIG`` grid points
+    (``NUM_SIMS`` paths a set unless ``num_sims``)."""
+    import torch
+
+    storage, start, fwd = bench_case(pkg)
+    return pkg.three_factor_seasonal_value(
+        storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, num_sims or NUM_SIMS,
+        basis, False, seed=11, fwd_sim_seed=13, num_inventory_grid_points=GRID_BIG,
+        dtype=torch.float32, device=device, snap_interp=True, **kwargs)
+
+
+def grid_engine_inputs(pkg, device, num_sims, dtype, grid_calc=None):
+    """The headline's engine arrays at ``GRID_BIG`` points (on ``grid_calc``'s
+    rows, where given) in ``dtype``, and its f32 paths of seeds 11 and 13
+    (the API's draws): (arrays, monomials, terminal function, reg, val)."""
+    import torch
+
+    from storage_tpu_torch import grid as gridmod
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+
+    inputs, sim_in, _, monomials = engine_inputs(pkg, device)
+    grids = None if grid_calc is None else gridmod.inventory_grids_custom(
+        inputs.inventory_lower, inputs.inventory_upper, grid_calc)
+    arrays = engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow, inputs.inventory_lower,
+        inputs.inventory_upper, GRID_BIG, dtype, device, grids)
+    ids = torch.arange(num_sims, device=device)
+    reg, val = (spot_sim.simulate_ou_paths(spot_sim.key_from_seed(k), ids, *sim_in)
+                for k in (11, 13))
+    return arrays, monomials, inputs.compiled.terminal_value, reg, val
+
+
+def grid_f64_npv(pkg, device, grid_calc=None) -> float:
+    """The headline at ``GRID_BIG`` points (on ``grid_calc``'s rows) in f64:
+    the kernels' plain versions on the f32 draws of ``GRID_F64_SIMS`` paths
+    cast to f64 (``measure_f64``'s route at a path count whose [G, S] f64
+    panels the plain versions sweep in seconds)."""
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+
+    arrays, monomials, tfn, reg, val = grid_engine_inputs(pkg, device, GRID_F64_SIMS,
+                                                          torch.float64, grid_calc)
+    f64 = lambda x: x.to(torch.float64)  # noqa: E731
+    with plain_versions():
+        out = engine.lsmc_core(arrays, f64(reg.spot), f64(reg.factors), f64(val.spot),
+                               f64(val.factors), 100.0, monomials, 0, False, tfn, False,
+                               snap_interp=True, uniform_grids=grid_calc is None)
+    return float(out["npv"])
+
+
+def timed_valuation(counts, run) -> dict:
+    """``run()`` with the counters reset before it: its result, launches,
+    wall (the median of ``GRID_REPEATS`` runs) and peak device memory."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(GRID_REPEATS):
+        if i == 0:
+            counts.reset()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = counts.read()
+    return dict(result=res, launches=launches, wall_s=float(np.median(walls)), walls_s=walls,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def grid_valuations(pkg, device, counts, src, main) -> dict:
+    """The headline with every large route forced at G = 100 (its pinned
+    bits), then at G = 4,096 through each entry a user calls, each with its
+    routes' launches, wall and peak memory: the headline, ``fullstep``
+    (kernel E), the generic replica (kernel D at B = 9, C's design mode),
+    ``value_from_sims`` on the spot panels (kernel D at B = 4) and the
+    custom grid of 4,096 bunched rows (C's general-grid mode); the headline
+    and the custom grid also at 16,384 paths against their f64 answers."""
+    import math as _m
+    import types
+
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+
+    report = {}
+    counts.reset()
+    with forced_routes("large"):
+        res = value(pkg, device, snap_interp=True)
+    launches = counts.read()
+    expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                             decision_update_moments_large=NUM_STEPS, forward_sweep=1,
+                             forward_sweep_large=1, intrinsic_dp=1)
+    log(f"headline at G={NUM_GRID} with every large route forced: NPV {res.npv!r} SE "
+        f"{res.val_sim_standard_error!r} (the pinned bits {MAIN_NPV!r} {MAIN_SE!r}); launches "
+        f"{launches}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    if (res.npv, res.val_sim_standard_error) != (MAIN_NPV, MAIN_SE):
+        raise AssertionError("the large routes forced at G=100 part from the headline's bits")
+    report["forced_g100"] = dict(npv=res.npv, se=res.val_sim_standard_error, launches=launches)
+
+    def fullstep_run():
+        out = engine.lsmc_core(arrays, reg.spot, reg.factors, val.spot, val.factors, 100.0,
+                               monomials, 0, False, tfn, False, snap_interp=True, fullstep=True)
+        return types.SimpleNamespace(npv=float(out["npv"]),
+                                     val_sim_standard_error=float(out["standard_error"]))
+
+    storage, start, fwd = bench_case(pkg)
+    cases = {
+        "headline": (lambda: grid_value(pkg, device),
+                     dict(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                          decision_update_moments_large=NUM_STEPS, forward_sweep=1,
+                          forward_sweep_large=1, intrinsic_dp=1)),
+        "fullstep": (fullstep_run,
+                     dict(decision_update_fullstep=NUM_STEPS,
+                          decision_update_fullstep_large=NUM_STEPS, forward_sweep=1,
+                          forward_sweep_large=1)),
+        "generic": (lambda: grid_value(pkg, device, basis=replica_basis(pkg)),
+                    dict(simulate_sweep=2, decision_update=NUM_STEPS,
+                         decision_update_large=NUM_STEPS, forward_sweep_design=12,
+                         forward_sweep_design_large=12, intrinsic_dp=1)),
+        "spot_only": (lambda: pkg.value_from_sims(
+            storage, start, 100.0, fwd, 0.02, None, src.sim_spot_regress, src.sim_spot_valuation,
+            SPOT_BASIS, False, num_inventory_grid_points=GRID_BIG, dtype=torch.float32,
+            device=device, snap_interp=True),
+                      dict(decision_update=NUM_STEPS, decision_update_large=NUM_STEPS,
+                           forward_sweep=1, intrinsic_dp=1)),
+        "custom_grid": (lambda: grid_value(pkg, device, grid_calc=big_bunched_grid),
+                        dict(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                             decision_update_moments_large=NUM_STEPS, forward_sweep=1,
+                             forward_sweep_general=1, forward_sweep_large=1, intrinsic_dp=1)),
+    }
+    for name, (run, counts_expected) in cases.items():
+        if name == "fullstep":
+            arrays, monomials, tfn, reg, val = grid_engine_inputs(pkg, device, NUM_SIMS,
+                                                                  torch.float32)
+        with engine.full_f32_matmul() if name == "fullstep" else contextlib.nullcontext():
+            row = timed_valuation(counts, run)
+        if name == "fullstep":
+            del arrays, reg, val
+        res = row.pop("result")
+        npv, se = res.npv, res.val_sim_standard_error
+        expected = counts.expect(**counts_expected)
+        log(f"G={GRID_BIG} {name}: NPV {npv!r} SE {se!r}; wall median {row['wall_s']:.3f} s of "
+            f"{[round(w, 3) for w in row['walls_s']]}, peak device memory {row['peak_gb']:.2f} GB; "
+            f"launches {row['launches']}")
+        if row["launches"] != expected:
+            raise AssertionError(f"{name}: launch counts {row['launches']}, expected {expected}")
+        if not (_m.isfinite(npv) and _m.isfinite(se) and se > 0):
+            raise AssertionError(f"{name}: NPV {npv} SE {se} not finite")
+        report[name] = dict(npv=npv, se=se, **row)
+        torch.cuda.empty_cache()
+    head = report["headline"]
+    for name, tol in (("fullstep", 0.05), ("generic", 0.1)):
+        off = (report[name]["npv"] - head["npv"]) / head["se"]
+        report[name]["off_headline_se"] = off
+        log(f"G={GRID_BIG} {name}: {off:+.4f} SE from the G={GRID_BIG} headline (tolerance {tol})")
+        if not abs(off) <= tol:
+            raise AssertionError(f"{name} at G={GRID_BIG} is {off} SE from the headline")
+    report["headline"]["off_g100_se"] = (head["npv"] - main.npv) / main.val_sim_standard_error
+
+    # The headline and the custom grid against their f64 answers on the
+    # same draws, at 16,384 paths.
+    for name, grid_calc in (("headline", None), ("custom_grid", big_bunched_grid)):
+        f64 = grid_f64_npv(pkg, device, grid_calc)
+        kwargs = {} if grid_calc is None else dict(grid_calc=grid_calc)
+        res = grid_value(pkg, device, num_sims=GRID_F64_SIMS, **kwargs)
+        off = (res.npv - f64) / res.val_sim_standard_error
+        log(f"G={GRID_BIG} {name} at {GRID_F64_SIMS} paths: NPV {res.npv!r} SE "
+            f"{res.val_sim_standard_error!r}, {off:+.4f} SE from its f64 answer {f64!r} "
+            f"(tolerance 0.1)")
+        if not abs(off) <= 0.1:
+            raise AssertionError(f"{name} at G={GRID_BIG}: {off} SE from its f64 answer")
+        report[name]["f64"] = dict(sims=GRID_F64_SIMS, npv=res.npv, se=res.val_sim_standard_error,
+                                   f64_npv=f64, off_se=off)
+        torch.cuda.empty_cache()
+    return report
+
+
+def grids_phase(pkg, device, counts, src, main) -> tuple:
+    """The grids phase: the route sizing, the large routes' kernels, the
+    valuations at G = 4,096.  Returns (kernel rows, report)."""
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+
+    torch.cuda.empty_cache()
+    report = {"routes": check_grid_routes(device)}
+    with engine.full_f32_matmul():
+        kernels = check_large_kernels(pkg, device)
+    torch.cuda.empty_cache()
+    report.update(grid_valuations(pkg, device, counts, src, main))
+    return kernels, report
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Kernels B, D and C (both modes) replaced by their plain versions
@@ -4243,7 +4740,13 @@ def launch_counts():
                          ("forward_sweep_general", forward_kernel.forward_sweep,
                           "general_launches"),
                          ("forward_sweep_design_general", forward_kernel.forward_sweep_design,
-                          "general_launches")))
+                          "general_launches"),
+                         # The large grid routes' launches, counted in the wrappers' too.
+                         *((f"{fn.__name__}_large", fn, "large_launches") for fn in (
+                             decision_kernel.decision_update_moments,
+                             decision_kernel.decision_update,
+                             decision_kernel.decision_update_fullstep,
+                             forward_kernel.forward_sweep, forward_kernel.forward_sweep_design))))
 
 
 def free_port() -> int:
@@ -4785,6 +5288,25 @@ def main(argv) -> int:
     report["spot_only"] = spot_only_valuation(stt, device, counts, src, res)
     launches.update(decision_update=report["spot_only"]["launches"]["decision_update"])
 
+    # ---- the grids phase: G = 4,096, past every kernel's shared-memory
+    # route (the round trip's spot panels feed its value_from_sims).
+    t0 = time.perf_counter()
+    grid_kernels, report["grids"] = grids_phase(stt, device, counts, src, res)
+    report["grids_phase_s"] = time.perf_counter() - t0
+    log(f"grids phase: {report['grids_phase_s']:.1f} s")
+    kernels.update(grid_kernels)
+    grids = report["grids"]
+    launches.update(
+        decision_update_moments_large=grids["headline"]["launches"]["decision_update_moments_large"],
+        decision_update_large=grids["spot_only"]["launches"]["decision_update_large"],
+        decision_update_fullstep_large=grids["fullstep"]["launches"][
+            "decision_update_fullstep_large"],
+        forward_sweep_large=grids["headline"]["launches"]["forward_sweep_large"],
+        forward_sweep_design_large=grids["generic"]["launches"]["forward_sweep_design_large"],
+        forward_sweep_general_large=grids["custom_grid"]["launches"]["forward_sweep_large"])
+    kernels["decision_update_large"]["b9_launches"] = grids["generic"]["launches"][
+        "decision_update_large"]
+
     # ---- the streamed engine (the round trip's frames feed its host-fed check).
     t0 = time.perf_counter()
     report["streaming"] = streaming_phase(stt, device, counts, res, src, from_sims, card)
@@ -4864,7 +5386,11 @@ def main(argv) -> int:
                  intrinsic_dp="main", tree_dp="tree_T3", tree_dp_steps="tree_T5",
                  forward_sweep_design="generic",
                  forward_sweep_vjp="adjoint", forward_sweep_general="custom_grid",
-                 forward_sweep_design_general="custom_grid_generic")
+                 forward_sweep_design_general="custom_grid_generic",
+                 decision_update_moments_large="grid_4096", decision_update_large="grid_4096_spot",
+                 decision_update_fullstep_large="grid_4096_fullstep",
+                 forward_sweep_large="grid_4096", forward_sweep_design_large="grid_4096_generic",
+                 forward_sweep_general_large="grid_4096_custom")
 
     phases = phase_breakdown(stt, device)
     log(f"phases: host prep {phases['host_prep_s']:.4f} s, simulate {phases['simulate_s']:.4f} s, "
@@ -4905,7 +5431,16 @@ def main(argv) -> int:
              "forward_sweep_vjp": ("streamed_launches",),
              "forward_sweep_general": ("uniform_ms", "smem_bytes", "blocks_per_sm", "registers"),
              "forward_sweep_design_general": ("uniform_ms", "smem_bytes", "blocks_per_sm",
-                                              "registers")}
+                                              "registers"),
+             "decision_update_moments_large": ("tile", "smem_bytes", "blocks_per_sm",
+                                               "registers"),
+             "decision_update_large": ("tile", "smem_bytes", "blocks_per_sm", "registers",
+                                       "b9_ms", "b9_plain_ms", "b9_bound_ms", "b9_max_abs_err",
+                                       "b9_blocks_per_sm", "b9_launches"),
+             "decision_update_fullstep_large": ("tile", "blocks_per_sm"),
+             **{name: ("steps", "smem_bytes", "blocks_per_sm", "registers") for name in (
+                 "forward_sweep_large", "forward_sweep_design_large",
+                 "forward_sweep_general_large")}}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src_file, "replaces": rep,
          "launches": launches[name], "path": paths[name], **{k: kernels[name][k] for k in keys},

@@ -51,7 +51,11 @@ anything runs (``engines.lsmc.design_in_memory``): a basis with a user
 callable, or of more than 16 terms, or on more than 8 factors, builds its
 design in memory (kernel D backward, kernel C's design mode forward); any
 other runs kernels B and C's monomial mode, which build it on the card.
-Seeds keep
+Every entry point takes an inventory grid of any size that the card's
+memory holds: on CUDA each kernel's grid route, "shared" while a step's
+tables fit a block's shared memory, else "large", is decided from the
+shapes before anything is simulated (``engines.lsmc.grid_routes``) and
+logged.  Seeds keep
 the JAX key semantics: ``key(seed)`` for the regression sims,
 ``fold_in(key, 0x5EED)`` for the valuation sims when ``fwd_sim_seed`` is
 None, one shared set when the two seeds are equal.
@@ -83,6 +87,7 @@ from .facility import CmdtyStorage
 from .jobs import JobCancelledError
 from .models import multi_factor as mf
 from .models import spot_sim
+from .ops import _build
 from .parallel import distributed as pdist
 from .parallel import mesh as pmesh
 from .parallel import reduce as preduce
@@ -594,6 +599,20 @@ def _lsmc_calc(
         inputs = prepare_valuation(
             cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule
         )
+    grids = None if grid_calc is None else gridmod.inventory_grids_custom(
+        inputs.inventory_lower, inputs.inventory_upper, grid_calc)
+    # Custom rows that are all evenly spaced keep the arithmetic placement;
+    # others are placed by search (the JAX package's rule, api_lsmc.py:572).
+    uniform_grids = grids is None or gridmod.rows_uniform(grids)
+    if device.type == "cuda":
+        # The kernels' grid routes, from shapes alone, before anything is
+        # simulated.
+        num_grid = num_grid_points if grids is None else grids.shape[1]
+        routes = lsmc_engine.grid_routes(
+            num_grid, int(extra_decisions or 0), monomials, sims.num_factors,
+            inputs.compiled.ratchet_inv.shape[1], not uniform_grids, _build.smem_limit(device))
+        logger.info("Kernel routes at G=%d: backward %s, forward %s.", num_grid,
+                    *(f"{name} ({route})" for name, route in routes.values()))
 
     stream = _route(sims, len(inputs.periods) - 1, num_grid_points, sim_data_returned,
                     grid_calc, dtype, device, group)
@@ -614,15 +633,10 @@ def _lsmc_calc(
             f"but only {reg.num_factors} factors are simulated."
         )
     progress(0.2)
-    grids = None if grid_calc is None else gridmod.inventory_grids_custom(
-        inputs.inventory_lower, inputs.inventory_upper, grid_calc)
     arrays = lsmc_engine.build_engine_arrays(
         inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow,
         inputs.inventory_lower, inputs.inventory_upper, num_grid_points, dtype, device, grids,
     )
-    # Custom rows that are all evenly spaced keep the arithmetic placement;
-    # others are placed by search (the JAX package's rule, api_lsmc.py:572).
-    uniform_grids = grids is None or gridmod.rows_uniform(grids)
     terminal_fn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
     logger.info("Calculating intrinsic value.")
     with stopwatches.time("intrinsic_valuation"):

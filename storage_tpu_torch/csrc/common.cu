@@ -1,6 +1,7 @@
 // The caps of common.cuh, exported so that the wrappers' copy of them
 // (ops/_build.py MAX_BASIS, MAX_FACTORS: the shape route and require_caps
-// read it) can be held to the built library (chip_smoke.py).
+// read it) can be held to the built library (chip_smoke.py); and the
+// device's shared memory a block, which the grid routes read.
 #include "common.cuh"
 
 // out[0] the most basis functions, out[1] the most factors a kernel takes.
@@ -8,4 +9,14 @@ extern "C" int stt_limits(int* out) {
   out[0] = stt::kMaxB;
   out[1] = stt::kMaxF;
   return 0;
+}
+
+// out[0] the shared memory, in bytes, a block can opt in to on the current
+// device (the grid routes' limit, ops/_build.py smem_limit).
+extern "C" int stt_smem_limit(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
 }

@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
 
 namespace stt {
@@ -97,8 +98,8 @@ static inline void launch_reduce(const float* partials, int nblk, int nout, floa
 // fixed_words + words_per_grid_point·G floats, on the current device, into
 // out[6]: sims (threads) per block, the shared memory bytes of a block at G
 // (static and dynamic), the device's limit per block, the largest G within
-// that limit, blocks per SM at G (0 where G does not fit), registers per
-// thread.
+// that limit (INT_MAX where nothing grows with G), blocks per SM at G (0
+// where G does not fit), registers per thread.
 template <typename Kernel>
 static inline cudaError_t kernel_info(Kernel kernel, int threads, size_t fixed_words,
                                       size_t words_per_grid_point, int G, int* out) {
@@ -124,8 +125,9 @@ static inline cudaError_t kernel_info(Kernel kernel, int threads, size_t fixed_w
   out[0] = threads;
   out[1] = static_cast<int>(total);
   out[2] = limit;
-  out[3] = room / sizeof(float) < fixed_words
-               ? 0 : static_cast<int>((room / sizeof(float) - fixed_words) / words_per_grid_point);
+  out[3] = room / sizeof(float) < fixed_words ? 0
+           : words_per_grid_point == 0 ? INT_MAX
+           : static_cast<int>((room / sizeof(float) - fixed_words) / words_per_grid_point);
   out[4] = blocks;
   out[5] = attr.numRegs;
   return cudaSuccess;

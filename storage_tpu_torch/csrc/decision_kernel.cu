@@ -39,7 +39,13 @@
 //     (coalesced) and no [G, D, S] intermediate touches device memory;
 //   * the step tables (dci, a, b, idx_lo, w_hi) go to shared memory once per
 //     block (decision_step.cuh, as kernel D); they are the only part of
-//     shared memory that grows with G;
+//     shared memory that grows with G.  Past the grid whose tables fit
+//     (1,434 points at D=3, B=9 on an H100) the large route brings them a
+//     tile of grid points at a time into the same buffer, a barrier before
+//     and after each tile, and runs the same chunk loop over each tile: the
+//     same arithmetic in the same order, so the same bits, and any G.  The
+//     wrapper picks the route and the tile from the shape
+//     (ops/decision_kernel.py moments_route);
 //   * the design rows are built entry by entry with rolled loops, in
 //     stt::design_row's arithmetic: step t's through the thread's column of
 //     the design tile into registers, then step t−1's into that column;
@@ -204,6 +210,89 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_kernel(
   }
 }
 
+// The large route: decision_moments_kernel with the step tables `tile`
+// (< G) grid points at a time in the same buffer, the same chunk loop over
+// each tile's grid points (its arithmetic, so its bits).  A kernel of its
+// own, so that the shared route's launch keeps its compiled code: one body
+// for both (a template, or `tile` read at run time) compiled the shared
+// route to other spills and slowed it at the headline (PERF.md, PR 17).
+__global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_tiled_kernel(
+    int G, int tile, int S, int D, stt::Basis basis,
+    const float* __restrict__ v, const float* __restrict__ spot,
+    const float* __restrict__ factors, const float* __restrict__ spot_prev,
+    const float* __restrict__ factors_prev, const float* __restrict__ mean,
+    const float* __restrict__ stdv, const float* __restrict__ mean_prev,
+    const float* __restrict__ std_prev, const int* __restrict__ idx_lo_g,
+    const float* __restrict__ w_hi_g, const float* __restrict__ dci_g,
+    const float* __restrict__ a_g, const float* __restrict__ b_g,
+    float* __restrict__ best_out, float* __restrict__ partials) {
+  const int B = basis.nb;
+  // The best_act tile is an array of its own, so that the compiler knows
+  // its stores do not touch the step tables and can keep the next decisions'
+  // loads in flight across them.
+  __shared__ __align__(16) float best_tile[kChunk * kThreads];
+  extern __shared__ __align__(16) float smem[];
+  float* dmp_tile = smem;                       // [B, kThreads]
+  // The first tile's tables (min(tile, G) = tile here, but this form
+  // compiles with fewer spills: 32 bytes against 80 in ptxas's report).
+  stt::DecisionTables tab = stt::load_decision_tile(smem + smem_fixed_words(B), G, 0,
+                                                    min(tile, G), D, B, dci_g, a_g, b_g, w_hi_g,
+                                                    idx_lo_g);
+
+  const int tid = threadIdx.x;
+  const int col = static_cast<int>(blockIdx.x) * kThreads + tid;
+  const bool valid = col < S;
+  // The columns past S compute on column S − 1 and count as zeros: no
+  // branch around the decisions.
+  const int s = min(col, S - 1);
+  // Step t's design row goes through this thread's column of the design tile
+  // into registers, for the decisions; then step t−1's, standardised by
+  // (mean_prev, std_prev), takes the column (each thread touches its own
+  // column only, so no barrier between).
+#pragma unroll 1
+  for (int k = 0; k < B; ++k)
+    dmp_tile[k * kThreads + tid] = design_entry(basis, k, spot[s], factors, S, s, mean, stdv);
+  float dm[stt::kMaxB];
+#pragma unroll
+  for (int k = 0; k < stt::kMaxB; ++k) dm[k] = k < B ? dmp_tile[k * kThreads + tid] : 0.0f;
+  const float sp = spot[s];
+#pragma unroll 1
+  for (int k = 0; k < B; ++k) {
+    const float x = design_entry(basis, k, spot_prev[s], factors_prev, S, s, mean_prev, std_prev);
+    dmp_tile[k * kThreads + tid] = valid ? x : 0.0f;
+  }
+  __syncthreads();
+
+  // This block's row of partials: XᵀX, then (Xᵀ·best_act)ᵀ as [G, B].
+  float* row = partials + static_cast<size_t>(blockIdx.x) * (B * B + G * B);
+  for (int r0 = 0; r0 < B; r0 += kChunk)
+    tile_product(dmp_tile + r0 * kThreads, min(kChunk, B - r0), dmp_tile, B, row + r0 * B);
+  row += B * B;
+
+  for (int t0 = 0; t0 < G; t0 += tile) {
+    const int nt = min(tile, G - t0);
+    if (t0 > 0) {
+      // Every thread is past the last tile's tables (the chunk loop ends
+      // on a barrier): the next tile takes their place.
+      tab = stt::load_decision_tile(smem + smem_fixed_words(B), G, t0, nt, D, B, dci_g, a_g,
+                                    b_g, w_hi_g, idx_lo_g);
+      __syncthreads();
+    }
+    for (int c0 = 0; c0 < nt; c0 += kChunk) {
+      const int rows = min(kChunk, nt - c0);
+      const size_t g0 = static_cast<size_t>(t0) + c0;
+      for (int i = 0; i < rows; ++i) {
+        const float best = stt::decide(tab, nt, D, B, c0 + i, v, S, s, sp, dm);
+        if (valid) best_out[(g0 + i) * S + s] = best;
+        best_tile[i * kThreads + tid] = valid ? best : 0.0f;
+      }
+      __syncthreads();
+      tile_product(best_tile, rows, dmp_tile, B, row + g0 * B);
+      __syncthreads();  // the tile is rewritten by the next chunk
+    }
+  }
+}
+
 // moments[k] = Σ over blocks of partials[blk, k]: thread (x, y) of a
 // 32 × kReduceRows block sums rows y, y + kReduceRows, … of column
 // 32·blockIdx.x + x in order, and the column's kReduceRows sums are added in
@@ -232,23 +321,34 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partials, int nrows
 namespace stt {
 
 cudaError_t launch_decision_moments(
-    int G, int S, int D, const Basis& basis, const float* v, const float* spot,
+    int G, int tile, int S, int D, const Basis& basis, const float* v, const float* spot,
     const float* factors, const float* spot_prev, const float* factors_prev,
     const float* mean, const float* stdv, const float* mean_prev,
     const float* std_prev, const int* idx_lo, const float* w_hi,
     const float* dci, const float* a, const float* b, float* best_out,
     float* partials, float* moments, cudaStream_t stream) {
   const int B = basis.nb;
+  if (tile < 1) return cudaErrorInvalidValue;
+  tile = min(tile, G);
   const int nblk = (S + kThreads - 1) / kThreads;
   const size_t smem =
-      sizeof(float) * (smem_fixed_words(B) + smem_words_per_grid_point(D, B) * G);
-  cudaError_t err = cudaFuncSetAttribute(
-      decision_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  decision_moments_kernel<<<nblk, kThreads, smem, stream>>>(
-      G, S, D, basis, v, spot, factors, spot_prev, factors_prev, mean, stdv,
-      mean_prev, std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
+      sizeof(float) * (smem_fixed_words(B) + smem_words_per_grid_point(D, B) * tile);
+  cudaError_t err;
+  if (tile < G) {
+    err = cudaFuncSetAttribute(decision_moments_tiled_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    decision_moments_tiled_kernel<<<nblk, kThreads, smem, stream>>>(
+        G, tile, S, D, basis, v, spot, factors, spot_prev, factors_prev, mean, stdv,
+        mean_prev, std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
+  } else {
+    err = cudaFuncSetAttribute(decision_moments_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    decision_moments_kernel<<<nblk, kThreads, smem, stream>>>(
+        G, S, D, basis, v, spot, factors, spot_prev, factors_prev, mean, stdv, mean_prev,
+        std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int ncols = B * B + G * B;
@@ -259,8 +359,10 @@ cudaError_t launch_decision_moments(
 
 }  // namespace stt
 
+// Kernel B on the tables of `tile` grid points at a time (tile >= G: the
+// shared route, all at once).
 extern "C" int stt_decision_update_moments(
-    int G, int S, int F, int D, const int* basis_table, const void* v,
+    int G, int tile, int S, int F, int D, const int* basis_table, const void* v,
     const void* spot, const void* factors, const void* spot_prev,
     const void* factors_prev, const void* mean, const void* stdv,
     const void* mean_prev, const void* std_prev, const void* idx_lo,
@@ -270,7 +372,7 @@ extern "C" int stt_decision_update_moments(
   if (!stt::make_basis(basis_table, F, &basis) || G < 2 || D < 1 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(stt::launch_decision_moments(
-      G, S, D, basis, static_cast<const float*>(v),
+      G, tile, S, D, basis, static_cast<const float*>(v),
       static_cast<const float*>(spot), static_cast<const float*>(factors),
       static_cast<const float*>(spot_prev),
       static_cast<const float*>(factors_prev), static_cast<const float*>(mean),
@@ -283,7 +385,9 @@ extern "C" int stt_decision_update_moments(
 }
 
 // Kernel B's launch report at (G, D, B) on the current device (common.cuh:
-// kernel_info); the wrappers size the partials by its sims per block.
+// kernel_info), for the shared route (all G grid points' tables at once: its
+// max_grid is the largest G that route takes); the wrappers size the
+// partials by its sims per block.
 extern "C" int stt_decision_update_moments_info(int G, int D, int B, int* out) {
   if (G < 0 || D < 1 || B < 1 || B > stt::kMaxB) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(stt::kernel_info(decision_moments_kernel, kThreads, smem_fixed_words(B),

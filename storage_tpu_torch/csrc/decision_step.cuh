@@ -20,7 +20,9 @@
 
 namespace stt {
 
-// The per-step tables, staged in shared memory by every block.
+// The per-step tables, staged in shared memory by every block.  On kernel
+// B's large route, a tile of nt grid points at a time: grid point g0 + i of
+// the step is entry i of the tile, and nt stands in for G below.
 struct DecisionTables {
   float* dci;   // [D, G, B]
   float* a;     // [D, G]
@@ -56,8 +58,36 @@ __device__ __forceinline__ DecisionTables load_decision_tables(
   return t;
 }
 
-// best_act of sim s at grid point g; `dm` is the sim's standardised design
-// row (kMaxB entries, zero beyond B), `sp` its spot.
+// The same for grid points [g0, g0 + nt) of a step of G (the large route's
+// tile): the tables of a step of nt grid points.
+__device__ __forceinline__ DecisionTables load_decision_tile(
+    float* smem, int G, int g0, int nt, int D, int B, const float* __restrict__ dci_g,
+    const float* __restrict__ a_g, const float* __restrict__ b_g,
+    const float* __restrict__ w_hi_g, const int* __restrict__ idx_lo_g) {
+  DecisionTables t;
+  t.dci = smem;
+  t.a = t.dci + D * nt * B;
+  t.b = t.a + D * nt;
+  t.w_hi = t.b + D * nt;
+  t.idx_lo = reinterpret_cast<int*>(t.w_hi + nt * D);
+  for (int i = threadIdx.x; i < D * nt * B; i += blockDim.x) {
+    const int d = i / (nt * B);
+    t.dci[i] = dci_g[(static_cast<size_t>(d) * G + g0) * B + (i - d * nt * B)];
+  }
+  for (int i = threadIdx.x; i < D * nt; i += blockDim.x) {
+    const int d = i / nt;
+    const int g = g0 + i - d * nt;
+    t.a[i] = a_g[d * G + g];
+    t.b[i] = b_g[d * G + g];
+    t.w_hi[i] = w_hi_g[g0 * D + i];
+    t.idx_lo[i] = idx_lo_g[g0 * D + i];
+  }
+  return t;
+}
+
+// best_act of sim s at grid point g (entry g of a tile of G); `dm` is the
+// sim's standardised design row (kMaxB entries, zero beyond B), `sp` its
+// spot.
 __device__ __forceinline__ float decide(const DecisionTables& t, int G, int D,
                                         int B, int g, const float* __restrict__ v,
                                         int S, int s, float sp, const float* dm) {
@@ -93,10 +123,12 @@ __device__ __forceinline__ float decide(const DecisionTables& t, int G, int D,
 // Kernel B's launch (decision_kernel.cu): the decision update of every sim
 // column plus the per-block partial moments of the step-(t−1) design, then
 // the fixed-order reduce into `moments` ([B·B] XᵀX, then [G, B] (Xᵀ·best)ᵀ).
-// Every pointer is a device pointer; kernel E launches it on the buffers its
-// solve kernel filled.
+// The step tables go to shared memory all at once (tile >= G: the shared
+// route) or `tile` grid points at a time (the large route).  Every pointer
+// is a device pointer; kernel E launches it on the buffers its solve
+// kernels filled.
 cudaError_t launch_decision_moments(
-    int G, int S, int D, const Basis& basis, const float* v, const float* spot,
+    int G, int tile, int S, int D, const Basis& basis, const float* v, const float* spot,
     const float* factors, const float* spot_prev, const float* factors_prev,
     const float* mean, const float* stdv, const float* mean_prev,
     const float* std_prev, const int* idx_lo, const float* w_hi,

@@ -26,7 +26,13 @@
 //   * The step tables are repacked per grid point in shared memory: per
 //     decision one 16-byte entry {a, b, w_hi, idx_lo}, then for d > 0 its
 //     centred coefficients (dci, zero-padded to whole float4s), all read at
-//     warp-uniform addresses.
+//     warp-uniform addresses.  Past the grid whose records fit (2,905
+//     points at D=3, B=4 on an H100) the large route repacks them a tile of
+//     grid points at a time into the same buffer, a barrier before and
+//     after each tile, and decides each tile's grid points as above: the
+//     same arithmetic, so the same bits, at any G.  The wrapper picks the
+//     route and the tile from the shape (ops/decision_kernel.py
+//     update_route).
 //   * The kernel is compiled per basis size padded to a multiple of 4, up
 //     to kMaxRegisterBasis, so the design entries and the dot products are
 //     unrolled over registers (one kernel for every B, at 16 terms or with
@@ -114,17 +120,42 @@ struct SharedRow {
   }
 };
 
-// best_act of grid points [c·kGroup, c·kGroup + kGroup) for sim s, whose
-// spot is sp and design row dm (bp entries, zero beyond B).
+// Repacks the records of grid points [g0, g0 + nt) of a step of G into
+// tab (block-strided); the caller synchronises before reading them.
+__device__ __forceinline__ void load_records(float* tab, int G, int g0, int nt, int D, int B,
+                                             int bp, const int* __restrict__ idx_lo_g,
+                                             const float* __restrict__ w_hi_g,
+                                             const float* __restrict__ dci_g,
+                                             const float* __restrict__ a_g,
+                                             const float* __restrict__ b_g) {
+  const int rec = record_words(D, bp);
+  for (int i = threadIdx.x; i < nt * D; i += kThreads) {
+    const int d = i / nt;
+    const int gl = i - d * nt;
+    const int g = g0 + gl;
+    float* out = tab + gl * rec + record_offset(d, bp);
+    out[0] = a_g[d * G + g];
+    out[1] = b_g[d * G + g];
+    out[2] = w_hi_g[g * D + d];
+    out[3] = __int_as_float(idx_lo_g[g * D + d]);
+    if (d > 0)
+      for (int k = 0; k < bp; ++k)
+        out[4 + k] = k < B ? dci_g[(static_cast<size_t>(d) * G + g) * B + k] : 0.0f;
+  }
+}
+
+// best_act of entries [c·kGroup, c·kGroup + kGroup) of a tile of nt grid
+// points from g0 for sim s, whose spot is sp and design row dm (bp entries,
+// zero beyond B).
 template <typename Row>
-__device__ __forceinline__ void decide_group(int c, int G, int S, int D, int bp, const float* tab,
-                                             const float* __restrict__ v, int s, bool valid,
-                                             float sp, const Row& dm,
+__device__ __forceinline__ void decide_group(int c, int g0, int nt, int S, int D, int bp,
+                                             const float* tab, const float* __restrict__ v, int s,
+                                             bool valid, float sp, const Row& dm,
                                              float* __restrict__ best_out) {
   const int rec = record_words(D, bp);
   const float* r[kGroup];
 #pragma unroll
-  for (int i = 0; i < kGroup; ++i) r[i] = tab + min(c * kGroup + i, G - 1) * rec;
+  for (int i = 0; i < kGroup; ++i) r[i] = tab + min(c * kGroup + i, nt - 1) * rec;
   float best_reg[kGroup], best_imm[kGroup], best_w[kGroup];
   int best_lo[kGroup];
 #pragma unroll
@@ -154,20 +185,23 @@ __device__ __forceinline__ void decide_group(int c, int G, int S, int D, int bp,
   }
 #pragma unroll
   for (int i = 0; i < kGroup; ++i) {
-    const int g = c * kGroup + i;
+    const int gl = c * kGroup + i;
     const float* x = v + static_cast<size_t>(best_lo[i]) * S + s;
     const float w = best_w[i];
     const float cont =
         __fadd_rn(__fmul_rn(__ldg(x), __fsub_rn(1.0f, w)), __fmul_rn(__ldg(x + S), w));
-    if (g < G && valid) best_out[static_cast<size_t>(g) * S + s] = __fadd_rn(cont, best_imm[i]);
+    if (gl < nt && valid)
+      best_out[static_cast<size_t>(g0 + gl) * S + s] = __fadd_rn(cont, best_imm[i]);
   }
 }
 
 // Bp > 0: the design row in registers, padded to Bp; Bp == 0: the wide
 // route, the row in shared memory, padded to a multiple of 4 at run time.
+// The records go to shared memory `tile` grid points at a time (tile = G:
+// all at once).
 template <int Bp>
 __global__ void __launch_bounds__(kThreads) decision_update_kernel(
-    int G, int S, int D, int B, const float* __restrict__ v,
+    int G, int tile, int S, int D, int B, const float* __restrict__ v,
     const float* __restrict__ dm_std_t, const float* __restrict__ spot,
     const int* __restrict__ idx_lo_g, const float* __restrict__ w_hi_g,
     const float* __restrict__ dci_g, const float* __restrict__ a_g,
@@ -175,40 +209,41 @@ __global__ void __launch_bounds__(kThreads) decision_update_kernel(
   extern __shared__ __align__(16) float tab[];
   const int bp = Bp > 0 ? Bp : padded_basis(B);
   const int rec = record_words(D, bp);
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int d = i / G;
-    const int g = i - d * G;
-    float* out = tab + g * rec + record_offset(d, bp);
-    out[0] = a_g[i];
-    out[1] = b_g[i];
-    out[2] = w_hi_g[g * D + d];
-    out[3] = __int_as_float(idx_lo_g[g * D + d]);
-    if (d > 0)
-      for (int k = 0; k < bp; ++k)
-        out[4 + k] = k < B ? dci_g[static_cast<size_t>(i) * B + k] : 0.0f;
-  }
+  load_records(tab, G, 0, min(tile, G), D, B, bp, idx_lo_g, w_hi_g, dci_g, a_g, b_g);
   // Past the end a thread decides for sim S − 1 and stores nothing.
   const int col = blockIdx.x * kThreads + threadIdx.x;
   const bool valid = col < S;
   const int s = min(col, S - 1);
   const float sp = spot[s];
-  const int ngroups = (G + kGroup - 1) / kGroup;
+  // Every tile's grid points, the first tile's records already loading.
+  auto sweep = [&](const auto& dm) {
+    for (int g0 = 0; g0 < G; g0 += tile) {
+      const int nt = min(tile, G - g0);
+      if (g0 > 0) {
+        __syncthreads();  // every thread is past the last tile's records
+        load_records(tab, G, g0, nt, D, B, bp, idx_lo_g, w_hi_g, dci_g, a_g, b_g);
+        __syncthreads();
+      }
+      const int ngroups = (nt + kGroup - 1) / kGroup;
+      for (int c = 0; c < ngroups; ++c)
+        decide_group(c, g0, nt, S, D, bp, tab, v, s, valid, sp, dm, best_out);
+    }
+  };
   if constexpr (Bp > 0) {
     RegisterRow<Bp> dm;
 #pragma unroll
     for (int k = 0; k < Bp; ++k)
       dm.dm[k] = k < B ? dm_std_t[static_cast<size_t>(k) * S + s] : 0.0f;
     __syncthreads();
-    for (int c = 0; c < ngroups; ++c)
-      decide_group(c, G, S, D, Bp, tab, v, s, valid, sp, dm, best_out);
+    sweep(dm);
   } else {
-    float* row = tab + G * rec + threadIdx.x;  // this thread's column of [bp][kThreads]
+    // This thread's column of [bp][kThreads], after the tables.
+    float* row = tab + min(tile, G) * rec + threadIdx.x;
     for (int k = 0; k < bp; ++k)
       row[k * kThreads] = k < B ? dm_std_t[static_cast<size_t>(k) * S + s] : 0.0f;
     const SharedRow dm{row, bp};
     __syncthreads();
-    for (int c = 0; c < ngroups; ++c)
-      decide_group(c, G, S, D, bp, tab, v, s, valid, sp, dm, best_out);
+    sweep(dm);
   }
 }
 
@@ -233,21 +268,25 @@ UpdateKernel update_kernel(int B) {
 
 }  // namespace
 
+// Kernel D on the records of `tile` grid points at a time (tile >= G: the
+// shared route, all at once).
 extern "C" int stt_decision_update(
-    int G, int S, int D, int B, const void* v, const void* dm_std_t,
+    int G, int tile, int S, int D, int B, const void* v, const void* dm_std_t,
     const void* spot, const void* idx_lo, const void* w_hi, const void* dci,
     const void* a, const void* b, void* best_out, void* stream) {
-  if (G < 2 || D < 1 || S < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 2 || tile < 1 || D < 1 || S < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tile = tile < G ? tile : G;
   const UpdateKernel kernel = update_kernel(B);
   const int bp = padded_basis(B);
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(G) * record_words(D, bp) + row_words(bp));
+      sizeof(float) * (static_cast<size_t>(tile) * record_words(D, bp) + row_words(bp));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nblk = (S + kThreads - 1) / kThreads;
   kernel<<<nblk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      G, S, D, B, static_cast<const float*>(v), static_cast<const float*>(dm_std_t),
+      G, tile, S, D, B, static_cast<const float*>(v), static_cast<const float*>(dm_std_t),
       static_cast<const float*>(spot), static_cast<const int*>(idx_lo),
       static_cast<const float*>(w_hi), static_cast<const float*>(dci),
       static_cast<const float*>(a), static_cast<const float*>(b),
@@ -256,7 +295,8 @@ extern "C" int stt_decision_update(
 }
 
 // Kernel D's launch report at (G, D, B) on the current device (common.cuh:
-// kernel_info).
+// kernel_info), for the shared route (all G grid points' records at once: its
+// max_grid is the largest G that route takes).
 extern "C" int stt_decision_update_info(int G, int D, int B, int* out) {
   if (G < 0 || D < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int bp = padded_basis(B);

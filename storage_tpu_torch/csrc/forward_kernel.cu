@@ -59,6 +59,16 @@
 //   * The decision arithmetic is the one-step kernel's of the JAX package,
 //     every product and sum rounded on its own, so a sim's path is the plain
 //     version's (ops/forward_kernel.py forward_step_plain) to the bit.
+//   * Large route (forward_kernel_large.cu, the same body with kLarge): past
+//     the grid whose two rows fit a block (3,090 points at B=9, R=3, F=3 on
+//     an H100; 2,781 in general-grid mode, 2,632 in design mode there) the
+//     coefficients are packed [G, B] (ops/forward_kernel.py pack_tables) and
+//     stay in device memory with the grid rows; the ring stages each row's
+//     fixed part alone, and each decision reads the 2B adjacent floats of its
+//     rows lo and lo + 1 (and, in general-grid mode, searches the grid row)
+//     through L1.  The same products and sums in the same order, so the same
+//     paths, at any G.  The wrapper picks the route from the shape
+//     (sweep_route).
 //   * General-grid mode (kGeneral, for custom inventory grids whose rows are
 //     not evenly spaced; in both modes above): the JAX package takes its XLA
 //     forward step with interp_per_sim_general there
@@ -75,499 +85,7 @@
 //     order — and one stt::launch_reduce after the sweep sums the N·(8 + B)
 //     rows over the groups in a fixed order: no float atomics, the same bits
 //     on every run and for every kSims.
-#include <cstdint>
-#include <cuda_runtime.h>
-
-#include "common.cuh"
-#include "dp_common.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;  // threads per block: one partials group
-constexpr int kSims = 1;       // sims per thread (kSims groups per block)
-constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 2;     // ring stages: the tables of two steps
-// Parameter slots (ops/forward_kernel.py pack_params).
-enum {
-  P_DF_SETTLE, P_DF_FLOW, P_INJ_COST, P_WDR_COST, P_INJ_PCNT, P_WDR_PCNT,
-  P_LOSS_PCNT, P_INV_COST, P_NEXT_MIN, P_NEXT_MAX, P_GRID_LO, P_GRID_HI,
-  P_GRID_INVDELTA, NUM_PARAMS
-};
-constexpr int kNumSums = 8;   // 6 used, 2 kept zero (the JAX layout)
-constexpr int kUsedSums = 6;
-
-// Floats of one step's packed table (ops/forward_kernel.py table_layout):
-// parameters, mean [B], std [B], ratchet inventories, min and max rates [R]
-// each, coefficients [B, G], in general-grid mode the next step's grid row
-// [G]; padded to whole 16-byte words for the bulk copy.
-__host__ __device__ inline int table_words(int B, int R, int G, bool general) {
-  return (NUM_PARAMS + 2 * B + 3 * R + (B + (general ? 1 : 0)) * G + 3) / 4 * 4;
-}
-// Floats of one stage's per-sim slots: spot and V staged values (the F
-// factors, or the B design values in design mode) of the block's sims, as
-// [1 + V][kSims][kThreads].
-__host__ __device__ inline int slot_words(int V) { return (1 + V) * kSims * kThreads; }
-// Floats of the warps' sums of two steps, [2][kSims][kWarps][6 + B], that the
-// design mode's wide route (B beyond stt::kMaxB) keeps in dynamic shared
-// memory (the compiled sizes keep them in static shared memory).
-__host__ __device__ inline int red_words(int B) {
-  return B > stt::kMaxB ? 2 * kSims * kWarps * (kUsedSums + B) : 0;
-}
-// Dynamic shared memory, in floats: kStages tables (their padding counted at
-// its most) and slots, then the decision fractions [2, D] (D = 2E + 3), then
-// the wide route's sums.
-__host__ __device__ inline size_t smem_fixed_words(int B, int R, int V, int E) {
-  return static_cast<size_t>(kStages) * (NUM_PARAMS + 2 * B + 3 * R + 3 + slot_words(V)) +
-         2 * (2 * static_cast<size_t>(E) + 3) + red_words(B);
-}
-__host__ __device__ inline size_t smem_words_per_grid_point(int B, bool general) {
-  return static_cast<size_t>(kStages) * (B + (general ? 1 : 0));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// TMA: `bytes` (a multiple of 16) from global to shared memory, completing
-// on `bar`, which is told first how many bytes to expect.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// 4 bytes from global to shared memory, in this thread's open cp.async group.
-__device__ __forceinline__ void copy4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ float lerp(float x0, float x1, float w) {
-  return __fadd_rn(__fmul_rn(x0, __fsub_rn(1.0f, w)), __fmul_rn(x1, w));
-}
-
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// A basis term as the design row reads it: its count of nonzero powers, then
-// each as (source << 8) | power, the spot (source 0) first and then the
-// factors by index (source 1 + f).
-constexpr int kTermWords = stt::kMaxF + 2;
-
-__device__ __forceinline__ void make_term(const stt::Basis& basis, int b, int* term) {
-  int n = 0;
-  for (int src = 0; src <= basis.nf; ++src)
-    if (basis.pows[b][src]) term[1 + n++] = (src << 8) | basis.pows[b][src];
-  term[0] = n;
-}
-
-// Entry b of a sim's standardised design row, stt::design_row's arithmetic
-// (each power's product rounded on its own, the spot first, then the
-// factors by index) over the term's nonzero powers only; source i's value
-// at vals[i * stride].
-__device__ __forceinline__ float design_entry(const int* term, const float* vals, int stride,
-                                              float mean, float stdv) {
-  float x = 1.0f;
-#pragma unroll 1
-  for (int i = 0; i < term[0]; ++i) {
-    const int e = term[1 + i];
-    x = __fmul_rn(x, stt::ipow(vals[(e >> 8) * stride], e & 0xff));
-  }
-  return __fdiv_rn(__fsub_rn(x, mean), stdv);
-}
-
-// A sim's standardised design row of B entries in registers (B > 0), or of
-// nb entries in shared memory at `stride` floats apart (the wide route).
-template <int B>
-struct RegisterRow {
-  float v[B];
-  __device__ __forceinline__ float at(int b) const { return v[b]; }
-  __device__ __forceinline__ int size() const { return B; }
-};
-struct SharedRow {
-  const float* p;
-  int nb, stride;
-  __device__ __forceinline__ float at(int b) const { return p[b * stride]; }
-  __device__ __forceinline__ int size() const { return nb; }
-};
-
-// One step of one sim from inventory `inv` and spot `sp`, with its design row
-// `dm` (nb entries), the step's table at `par` and the
-// decision fractions `frac` [2, D]: those the one-step kernel computed in
-// double for every decision of every sim, computed once per block and rounded
-// to f32 the same way.
-struct StepResult {
-  float inv, dec, cons, imm, loss;
-};
-
-template <bool kGeneral, typename Row>
-__device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, int E,
-                                               int is_step, float sp, float inv,
-                                               const Row& dm, const float* frac) {
-  const int B = dm.size();
-  const float* rinv = par + NUM_PARAMS + 2 * B;
-  const float* rmin = rinv + R;
-  const float* rmax = rmin + R;
-  const float* coeffs = rmax + R;        // [B, G]
-  const float* grid_next = coeffs + B * G;  // [G], general-grid mode
-
-  // Ratchet rates at the inventory (_ratchet_rates_smem).
-  const float inv_c = clampf(inv, rinv[0], rinv[R - 1]);
-  float min_rate = rmin[0];
-  float max_rate = rmax[0];
-  if (is_step) {
-    for (int r = 1; r < R; ++r) {
-      if (inv_c >= rinv[r]) {
-        min_rate = rmin[r];
-        max_rate = rmax[r];
-      }
-    }
-  } else {
-    for (int r = 0; r + 1 < R; ++r) {
-      const float x0 = rinv[r];
-      const float span = __fsub_rn(rinv[r + 1], x0);
-      const float safe = span > 0.0f ? span : 1.0f;
-      const float w = clampf(__fdiv_rn(__fsub_rn(inv_c, x0), safe), 0.0f, 1.0f);
-      if (r == 0 || inv_c >= x0) {
-        min_rate = lerp(rmin[r], rmin[r + 1], w);
-        max_rate = lerp(rmax[r], rmax[r + 1], w);
-      }
-    }
-  }
-
-  // Bang-bang decision set (_bang_bang).
-  const float loss_pcnt = par[P_LOSS_PCNT];
-  const float next_min = par[P_NEXT_MIN];
-  const float next_max = par[P_NEXT_MAX];
-  const float inv_after_loss = __fsub_rn(inv, __fmul_rn(loss_pcnt, inv));
-  const float w_target = __fadd_rn(min_rate, inv_after_loss);
-  const float yw = w_target > next_max ? __fsub_rn(next_max, inv_after_loss)
-                 : (w_target > next_min ? min_rate : __fsub_rn(next_min, inv_after_loss));
-  const float i_target = __fadd_rn(max_rate, inv_after_loss);
-  const float yi = i_target < next_min ? __fsub_rn(next_min, inv_after_loss)
-                 : (i_target < next_max ? max_rate : __fsub_rn(next_max, inv_after_loss));
-  const bool has_zero = (yw < 0.0f) && (yi > 0.0f);
-  const int D = 2 * E + 3;
-  const int mid = E + 1;
-
-  const float loss = __fmul_rn(loss_pcnt, inv);
-  const float grid_lo = par[P_GRID_LO];
-  const float grid_hi = par[P_GRID_HI];
-  const float inv_delta = par[P_GRID_INVDELTA];
-  const float df_settle = par[P_DF_SETTLE];
-  const float df_flow = par[P_DF_FLOW];
-  const float inv_cost_npv = __fmul_rn(__fmul_rn(par[P_INV_COST], inv), df_flow);
-
-  float best_total = 0.0f;
-  StepResult best{0.0f, 0.0f, 0.0f, 0.0f, loss};
-  for (int k = 0; k < D; ++k) {
-    const float dec = has_zero ? __fmul_rn(k <= mid ? yw : yi, frac[k])
-                               : __fadd_rn(yw, __fmul_rn(__fsub_rn(yi, yw), frac[D + k]));
-    const float inv_after = __fsub_rn(__fadd_rn(inv, dec), loss);
-    int lo;
-    float w;
-    if (kGeneral) {
-      stt_dp::general_weights(grid_next, G, inv_after, &lo, &w);
-    } else {
-      const float pos = __fmul_rn(
-          __fsub_rn(clampf(inv_after, grid_lo, grid_hi), grid_lo), inv_delta);
-      lo = min(max(static_cast<int>(floorf(pos)), 0), G - 2);
-      w = clampf(__fsub_rn(pos, static_cast<float>(lo)), 0.0f, 1.0f);
-    }
-    float p_lo = __fmul_rn(coeffs[lo], dm.at(0));
-    float p_hi = __fmul_rn(coeffs[lo + 1], dm.at(0));
-#pragma unroll
-    for (int b = 1; b < B; ++b) {
-      p_lo = __fadd_rn(p_lo, __fmul_rn(coeffs[b * G + lo], dm.at(b)));
-      p_hi = __fadd_rn(p_hi, __fmul_rn(coeffs[b * G + lo + 1], dm.at(b)));
-    }
-    const float cont = lerp(p_lo, p_hi, w);
-    const bool is_inject = dec > 0.0f;
-    const float abs_d = fabsf(dec);
-    const float consumed = __fmul_rn(is_inject ? par[P_INJ_PCNT] : par[P_WDR_PCNT], abs_d);
-    const float cost_npv = __fmul_rn(
-        __fmul_rn(is_inject ? par[P_INJ_COST] : par[P_WDR_COST], abs_d), df_flow);
-    const float imm = __fsub_rn(
-        __fsub_rn(__fmul_rn(__fmul_rn(-__fadd_rn(dec, consumed), df_settle), sp), cost_npv),
-        inv_cost_npv);
-    const float total = __fadd_rn(imm, cont);
-    if (k == 0 || total > best_total) {
-      best_total = total;
-      best.dec = dec;
-      best.cons = consumed;
-      best.imm = imm;
-      best.inv = inv_after;
-    }
-  }
-  return best;
-}
-
-// `values` is [N, V, S]: the factors (V = F) or, in design mode, the raw
-// design values (V = B).  B = 0 is the design mode's wide route, its basis
-// size basis.nb known at run time.
-template <int B, bool kDesign, bool kGeneral>
-__global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
-    int N, int S, int G, int R, int E, int is_step, stt::Basis basis,
-    const float* __restrict__ table, const float* __restrict__ spot,
-    const float* __restrict__ values, const float* __restrict__ inv0,
-    const float* __restrict__ pv0, float* __restrict__ inv_out, float* __restrict__ pv_out,
-    float* __restrict__ inv_rows, float* __restrict__ dec_rows, float* __restrict__ cons_rows,
-    float* __restrict__ imm_rows, float* __restrict__ partials) {
-  static_assert(B > 0 || kDesign, "the wide route is the design mode's");
-  constexpr bool kWide = B == 0;
-  const int nb = kWide ? basis.nb : B;
-  const int V = kDesign ? nb : basis.nf;
-  const int W = table_words(nb, R, G, kGeneral);
-  const int nslot = slot_words(V);
-  const int nout = kNumSums + nb;
-  const int ngroups = (S + kThreads - 1) / kThreads;
-  const int pitch = kUsedSums + nb;  // of the warps' sums of a step
-  __shared__ uint64_t bars[kStages];
-  // The warps' sums by parity of the step, [2][kSims][kWarps][pitch]; the
-  // wide route's in dynamic shared memory.
-  __shared__ float red_fixed[kWide ? 1 : 2 * kSims * kWarps * (kUsedSums + B)];
-  __shared__ int terms[kWide ? 1 : B][kTermWords];
-  extern __shared__ __align__(128) float smem[];
-  float* ring = smem;                                  // [kStages][W]
-  float* slots = ring + kStages * W;                   // [kStages][nslot]
-  float* frac = slots + kStages * nslot;               // [2, D]
-  float* red = kWide ? frac + 2 * (2 * E + 3) : red_fixed;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  int sim[kSims];
-  bool valid[kSims];
-#pragma unroll
-  for (int j = 0; j < kSims; ++j) {
-    const int col = (blockIdx.x * kSims + j) * kThreads + tid;
-    valid[j] = col < S;
-    sim[j] = min(col, S - 1);  // the sims past S compute on sim S − 1 and count as zeros
-  }
-
-  // Starts the copies of step t's table and this thread's values into stage
-  // t % kStages, and closes the thread's cp.async group (empty past N).
-  auto stage = [&](int t) {
-    if (t < N) {
-      const int k = t % kStages;
-      if (tid == 0)
-        bulk_copy(ring + k * W, table + static_cast<size_t>(t) * W,
-                  static_cast<uint32_t>(W * sizeof(float)), &bars[k]);
-      float* slot = slots + k * nslot + tid;
-#pragma unroll
-      for (int j = 0; j < kSims; ++j) {
-        copy4(slot + j * kThreads, spot + static_cast<size_t>(t) * S + sim[j]);
-        for (int f = 0; f < V; ++f)
-          copy4(slot + ((1 + f) * kSims + j) * kThreads,
-                values + (static_cast<size_t>(t) * V + f) * S + sim[j]);
-      }
-    }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-  };
-
-  if (tid == 0) {
-    for (int k = 0; k < kStages; ++k)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&bars[k])));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  if (!kDesign && tid < B) make_term(basis, tid, terms[tid]);
-  // The decision fractions of _bang_bang: with a zero decision, decision k of
-  // D = 2E + 3 scales the withdrawal (k <= E + 1) or the injection by frac[k];
-  // without, it lies frac[D + k] of the way from one to the other.
-  const int D = 2 * E + 3;
-  const int mid = E + 1;
-  for (int k = tid; k < D; k += kThreads) {
-    frac[k] = k <= mid ? static_cast<float>(1.0 - static_cast<double>(k) / mid)
-                       : static_cast<float>(static_cast<double>(k - mid) / mid);
-    frac[D + k] = static_cast<float>((k > 1 ? k - 1.0 : 0.0) / (D - 2));
-  }
-  __syncthreads();
-  for (int t = 0; t < kStages; ++t) stage(t);
-
-  float inv[kSims], pv[kSims];
-#pragma unroll
-  for (int j = 0; j < kSims; ++j) {
-    inv[j] = inv0[sim[j]];
-    pv[j] = pv0 ? pv0[sim[j]] : 0.0f;
-  }
-
-  for (int t = 0; t < N; ++t) {
-    const int k = t % kStages;
-    const float* par = ring + k * W;
-    const float* mean = par + NUM_PARAMS;
-    const float* stdv = mean + nb;
-    // This thread's values of step t have landed (step t + 1's may be in
-    // flight), and so has the table.
-    asm volatile("cp.async.wait_group 1;" ::: "memory");
-    wait_parity(&bars[k], (t / kStages) & 1);
-    const size_t row = static_cast<size_t>(t) * S;
-#pragma unroll
-    for (int j = 0; j < kSims; ++j) {
-      float* vals = slots + k * nslot + j * kThreads + tid;
-      const float sp = vals[0];
-      // The step of sim j on its standardised design row dm, and its sums.
-      auto step = [&](const auto& dm) {
-        const StepResult r = step_sim<kGeneral>(par, R, G, E, is_step, sp, inv[j], dm, frac);
-        float acc[kUsedSums] = {inv[j], r.dec, r.cons, r.loss, r.imm,
-                                __fmul_rn(-__fadd_rn(r.dec, r.cons), sp)};
-        inv[j] = r.inv;
-        pv[j] = __fadd_rn(pv[j], r.imm);
-        if (valid[j]) {
-          const size_t at = row + sim[j];
-          if (inv_rows) inv_rows[at] = r.inv;
-          if (dec_rows) dec_rows[at] = r.dec;
-          if (cons_rows) cons_rows[at] = r.cons;
-          if (imm_rows) imm_rows[at] = r.imm;
-        }
-        float* red_w = red + (((t & 1) * kSims + j) * kWarps + warp) * pitch;
-#pragma unroll
-        for (int c = 0; c < kUsedSums; ++c) {
-          const float x = warp_sum(valid[j] ? acc[c] : 0.0f);
-          if (lane == 0) red_w[c] = x;
-        }
-#pragma unroll
-        for (int b = 0; b < dm.size(); ++b) {
-          const float x = warp_sum(valid[j] ? dm.at(b) : 0.0f);
-          if (lane == 0) red_w[kUsedSums + b] = x;
-        }
-      };
-      if constexpr (kWide) {
-        // Standardised in place: only this thread reads its slots until the
-        // stage is refilled, after the step's barrier.
-        for (int b = 0; b < nb; ++b) {
-          float* x = vals + (1 + b) * kSims * kThreads;
-          *x = __fdiv_rn(__fsub_rn(*x, mean[b]), stdv[b]);
-        }
-        step(SharedRow{vals + kSims * kThreads, nb, kSims * kThreads});
-      } else {
-        RegisterRow<B> dm;
-#pragma unroll
-        for (int b = 0; b < B; ++b)
-          dm.v[b] = kDesign
-              ? __fdiv_rn(__fsub_rn(vals[(1 + b) * kSims * kThreads], mean[b]), stdv[b])
-              : design_entry(terms[b], vals, kSims * kThreads, mean[b], stdv[b]);
-        step(dm);
-      }
-    }
-    __syncthreads();
-    // Every thread is past step t: its stage takes step t + kStages.
-    stage(t + kStages);
-    // The step's partials row of each group: the warps in order.
-    for (int i = tid; i < kSims * nout; i += kThreads) {
-      const int j = i / nout;
-      const int c = i % nout;
-      float x = 0.0f;
-      if (c < kUsedSums || c >= kNumSums) {
-        const int col = c < kUsedSums ? c : c - (kNumSums - kUsedSums);
-        for (int w = 0; w < kWarps; ++w)
-          x += red[(((t & 1) * kSims + j) * kWarps + w) * pitch + col];
-      }
-      const int group = blockIdx.x * kSims + j;
-      if (group < ngroups)
-        partials[(static_cast<size_t>(t) * nout + c) * ngroups + group] = x;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kSims; ++j) {
-    if (valid[j]) {
-      inv_out[sim[j]] = inv[j];
-      pv_out[sim[j]] = pv[j];
-    }
-  }
-}
-
-using SweepKernel = decltype(&forward_sweep_kernel<1, false, false>);
-
-// The sweep compiled for basis size B in either mode, on uniform or general
-// grid rows; beyond stt::kMaxB the design mode's wide route, and NULL for the
-// monomial mode.
-template <bool kDesign, bool kGeneral>
-SweepKernel sweep_kernel(int B) {
-  static_assert(stt::kMaxB == 16, "one case per basis size");
-  switch (B) {
-    case 1: return forward_sweep_kernel<1, kDesign, kGeneral>;
-    case 2: return forward_sweep_kernel<2, kDesign, kGeneral>;
-    case 3: return forward_sweep_kernel<3, kDesign, kGeneral>;
-    case 4: return forward_sweep_kernel<4, kDesign, kGeneral>;
-    case 5: return forward_sweep_kernel<5, kDesign, kGeneral>;
-    case 6: return forward_sweep_kernel<6, kDesign, kGeneral>;
-    case 7: return forward_sweep_kernel<7, kDesign, kGeneral>;
-    case 8: return forward_sweep_kernel<8, kDesign, kGeneral>;
-    case 9: return forward_sweep_kernel<9, kDesign, kGeneral>;
-    case 10: return forward_sweep_kernel<10, kDesign, kGeneral>;
-    case 11: return forward_sweep_kernel<11, kDesign, kGeneral>;
-    case 12: return forward_sweep_kernel<12, kDesign, kGeneral>;
-    case 13: return forward_sweep_kernel<13, kDesign, kGeneral>;
-    case 14: return forward_sweep_kernel<14, kDesign, kGeneral>;
-    case 15: return forward_sweep_kernel<15, kDesign, kGeneral>;
-    case 16: return forward_sweep_kernel<16, kDesign, kGeneral>;
-    default:
-      if constexpr (kDesign)
-        return B > stt::kMaxB ? forward_sweep_kernel<0, true, kGeneral> : nullptr;
-      return nullptr;
-  }
-}
-
-// The sweep of either grid mode, chosen at run time.
-template <bool kDesign>
-SweepKernel pick_sweep(int B, bool general) {
-  return general ? sweep_kernel<kDesign, true>(B) : sweep_kernel<kDesign, false>(B);
-}
-
-// Launches the sweep of either mode (V staged values a sim and step), then
-// the reduce of its partials.
-cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, int E,
-                         int is_step, bool general, const stt::Basis& basis, const void* table,
-                         const void* spot, const void* values, const void* inv0,
-                         const void* pv0, void* inv_out, void* pv_out, void* inv_rows,
-                         void* dec_rows, void* cons_rows, void* imm_rows, void* partials,
-                         void* totals, void* stream) {
-  if (reinterpret_cast<uintptr_t>(table) % 16 != 0) return cudaErrorMisalignedAddress;
-  const int B = basis.nb;
-  const size_t smem = sizeof(float) *
-      (smem_fixed_words(B, R, V, E) + smem_words_per_grid_point(B, general) * G);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblk = (S + kSims * kThreads - 1) / (kSims * kThreads);
-  kernel<<<nblk, kThreads, smem, st>>>(
-      N, S, G, R, E, is_step, basis, static_cast<const float*>(table),
-      static_cast<const float*>(spot), static_cast<const float*>(values),
-      static_cast<const float*>(inv0), static_cast<const float*>(pv0),
-      static_cast<float*>(inv_out), static_cast<float*>(pv_out),
-      static_cast<float*>(inv_rows), static_cast<float*>(dec_rows),
-      static_cast<float*>(cons_rows), static_cast<float*>(imm_rows),
-      static_cast<float*>(partials));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  stt::launch_reduce(static_cast<const float*>(partials), (S + kThreads - 1) / kThreads,
-                     N * (kNumSums + B), static_cast<float*>(totals), st);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "forward_sweep.cuh"
 
 // The sweep: N steps of S sims from inventory inv0 (and PV pv0, or 0 where
 // NULL) on the packed tables [N, W] (16-byte aligned; with `general`, each
@@ -585,9 +103,9 @@ extern "C" int stt_forward_sweep(
   if (!stt::make_basis(basis_table, F, &basis) || N < 1 || S < 1 || G < 2 || R < 1 || E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_sweep(
-      pick_sweep<false>(basis.nb, general), N, S, F, G, R, E, is_step, general, basis, table,
-      spot, factors, inv0, pv0, inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows,
-      partials, totals, stream));
+      pick_sweep<false, false>(basis.nb, general), N, S, F, G, R, E, is_step, general, false,
+      basis, table, nullptr, nullptr, spot, factors, inv0, pv0, inv_out, pv_out, inv_rows,
+      dec_rows, cons_rows, imm_rows, partials, totals, stream));
 }
 
 // The sweep in design mode: as stt_forward_sweep, with the raw design
@@ -602,15 +120,16 @@ extern "C" int stt_forward_sweep_design(
   stt::Basis basis{};
   basis.nb = B;
   return static_cast<int>(launch_sweep(
-      pick_sweep<true>(B, general), N, S, B, G, R, E, is_step, general, basis, table, spot,
-      design, inv0, pv0, inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows, partials,
-      totals, stream));
+      pick_sweep<true, false>(B, general), N, S, B, G, R, E, is_step, general, false, basis,
+      table, nullptr, nullptr, spot, design, inv0, pv0, inv_out, pv_out, inv_rows, dec_rows,
+      cons_rows, imm_rows, partials, totals, stream));
 }
 
 // The sweep's launch report at (G, B, R, F, E) on the current device
 // (common.cuh kernel_info), with out[0] the sims of a block; with `design`
 // set, the design mode's (F is then not read); with `general`, the
-// general-grid mode's.
+// general-grid mode's.  The shared route's: its max_grid is the largest G
+// that route takes.
 extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int design, int general,
                                       int* out) {
   if (G < 0 || B < 1 || R < 1 || E < 0 ||
@@ -618,7 +137,8 @@ extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int des
     return static_cast<int>(cudaErrorInvalidValue);
   const int V = design ? B : F;
   const cudaError_t err = stt::kernel_info(
-      design ? pick_sweep<true>(B, general) : pick_sweep<false>(B, general), kThreads,
+      design ? pick_sweep<true, false>(B, general) : pick_sweep<false, false>(B, general),
+      kThreads,
       smem_fixed_words(B, R, V, E), smem_words_per_grid_point(B, general), G, out);
   out[0] = kSims * kThreads;
   return static_cast<int>(err);

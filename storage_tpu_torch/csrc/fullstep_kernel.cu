@@ -19,6 +19,19 @@
 //      (decision_kernel.cu, launch_decision_moments);
 //   3. B's fixed-order reduce of the moment partials.
 //
+// The one block holds the standardised right-hand sides and the
+// coefficients [B, G] in shared memory (72 B a grid point at B=9: up to
+// G = 3,213 on an H100).  Past that, the large route spreads the G
+// right-hand sides over blocks of kSolveThreads columns: every block
+// standardises the moments and factors the [B, B] system itself, with the
+// same code in the same order, so every block holds the same factor; each
+// solves its own columns into a scratch [B, G] and flags a non-finite
+// coefficient; then fullstep_interp_kernel applies the fallback where any
+// block flagged one (or the factor failed), writes the coefficients and
+// interpolates dci.  Every column's arithmetic is the one block's, so the
+// two routes give the same bits; kernel B runs on its large route beside it
+// (ops/decision_kernel.py fullstep_route).
+//
 // The factorisation and the substitutions run in double on the f32 system
 // and round the coefficients to f32 once: the [B, B] work is a few hundred
 // operations.  The plain version factors in double too (torch.linalg), so
@@ -41,21 +54,28 @@ namespace {
 
 constexpr int kSolveThreads = 256;
 
+// The solve of right-hand sides [c0, c0 + nc) of the G: one block, c0 = 0
+// and nc = G (kSpread false: then also the fallback and dci), or block
+// blockIdx.x's columns of the large route (kSpread: the coefficients before
+// the fallback and the block's flag into `scratch`).
+template <bool kSpread>
 __global__ void fullstep_solve_kernel(
     int G, int D, int B, float ridge, const float* __restrict__ xtx_g,
     const float* __restrict__ xty_t_g, const float* __restrict__ cmean_g,
     const float* __restrict__ cstd_g, const int* __restrict__ idx_lo_g,
     const float* __restrict__ w_hi_g, float* __restrict__ mean_out,
     float* __restrict__ std_out, float* __restrict__ coeffs_out,
-    float* __restrict__ dci_out) {
+    float* __restrict__ dci_out, float* __restrict__ scratch) {
+  const int c0 = kSpread ? static_cast<int>(blockIdx.x) * kSolveThreads : 0;
+  const int nc = kSpread ? min(kSolveThreads, G - c0) : G;
   extern __shared__ double dsmem[];
   double* chol = dsmem;                                  // [B, B] lower factor
   float* m = reinterpret_cast<float*>(chol + B * B);     // [B, B]
   float* mean_u = m + B * B;                             // [B]
   float* std_u = mean_u + B;                             // [B]
-  float* xs = std_u + B;                                 // [B, G] standardised Xᵀy
-  float* coef = xs + B * G;                              // [B, G]
-  int* failed = reinterpret_cast<int*>(coef + B * G);    // [1]
+  float* xs = std_u + B;                                 // [B, nc] standardised Xᵀy
+  float* coef = xs + B * nc;                             // [B, nc]
+  int* failed = reinterpret_cast<int*>(coef + B * nc);   // [1]
 
   const int tid = threadIdx.x;
   const float n = xtx_g[0];
@@ -81,8 +101,8 @@ __global__ void fullstep_solve_kernel(
                   : __fdiv_rn(__fsub_rn(xtx_g[p], __fmul_rn(__fmul_rn(n, mu_i), mu_j)),
                               __fmul_rn(std_u[i], std_u[j]));
   }
-  for (int p = tid; p < B * G; p += blockDim.x) {
-    const int b = p / G, g = p % G;
+  for (int p = tid; p < B * nc; p += blockDim.x) {
+    const int b = p / nc, g = c0 + p % nc;
     xs[p] = __fdiv_rn(__fsub_rn(xty_t_g[g * B + b], __fmul_rn(mean_u[b], xty_t_g[g * B])),
                       std_u[b]);
   }
@@ -117,10 +137,10 @@ __global__ void fullstep_solve_kernel(
   // Forward then back substitution, one thread per right-hand side.
   int nonfinite = 0;
   if (!*failed) {
-    for (int g = tid; g < G; g += blockDim.x) {
+    for (int g = tid; g < nc; g += blockDim.x) {
       double y[stt::kMaxB];
       for (int i = 0; i < B; ++i) {
-        double acc = xs[i * G + g];
+        double acc = xs[i * nc + g];
         for (int k = 0; k < i; ++k) acc -= chol[i * B + k] * y[k];
         y[i] = acc / chol[i * B + i];
       }
@@ -129,12 +149,26 @@ __global__ void fullstep_solve_kernel(
         for (int k = i + 1; k < B; ++k) acc -= chol[k * B + i] * y[k];
         y[i] = acc / chol[i * B + i];
         const float c = static_cast<float>(y[i]);
-        coef[i * G + g] = c;
+        coef[i * nc + g] = c;
         nonfinite |= !isfinite(c);
       }
     }
   }
   const bool fallback = __syncthreads_or(nonfinite) || *failed;
+  if constexpr (kSpread) {
+    for (int p = tid; p < B * nc; p += blockDim.x)
+      scratch[static_cast<size_t>(p / nc) * G + c0 + p % nc] = coef[p];
+    float* flags = scratch + static_cast<size_t>(B) * G + 1;
+    if (tid == 0) flags[blockIdx.x] = fallback ? 1.0f : 0.0f;
+    if (blockIdx.x == 0) {
+      if (tid == 0) scratch[static_cast<size_t>(B) * G] = m[0];
+      for (int j = tid; j < B; j += blockDim.x) {
+        mean_out[j] = __fadd_rn(cmean_g[j], __fmul_rn(cstd_g[j], mean_u[j]));
+        std_out[j] = __fmul_rn(cstd_g[j], std_u[j]);
+      }
+    }
+    return;
+  }
 
   // The constant-column projection (the cross-sim mean) on a failed solve.
   for (int p = tid; p < B * G; p += blockDim.x) {
@@ -167,37 +201,95 @@ __global__ void fullstep_solve_kernel(
   }
 }
 
+// The large route's second launch: the fallback where any block flagged
+// one (the one block's `fallback`), the coefficients, and dci as the one
+// block interpolates them, from the scratch of the spread solve.
+__global__ void fullstep_interp_kernel(int G, int D, int B, const float* __restrict__ xty_t_g,
+                                       const int* __restrict__ idx_lo_g,
+                                       const float* __restrict__ w_hi_g,
+                                       const float* __restrict__ scratch,
+                                       float* __restrict__ coeffs_out,
+                                       float* __restrict__ dci_out) {
+  const float* flags = scratch + static_cast<size_t>(B) * G + 1;
+  bool fallback = false;
+  for (int k = 0; k < (G + kSolveThreads - 1) / kSolveThreads; ++k) fallback |= flags[k] != 0.0f;
+  const float m0 = scratch[static_cast<size_t>(B) * G];
+  // Coefficient (b, g) after the fallback: the constant-column projection
+  // xs[0, g] / m[0, 0], with xs[0, g] standardised as the solve does it (by
+  // mean_u[0] = 0 and std_u[0] = 1).
+  auto coef = [&](int b, int g) {
+    if (!fallback) return scratch[static_cast<size_t>(b) * G + g];
+    if (b > 0) return 0.0f;
+    const float x = xty_t_g[g * B];
+    return __fdiv_rn(__fdiv_rn(__fsub_rn(x, __fmul_rn(0.0f, x)), 1.0f), m0);
+  };
+  const size_t n = static_cast<size_t>(D) * G * B;
+  for (size_t p = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; p < n;
+       p += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int d = static_cast<int>(p / (static_cast<size_t>(G) * B));
+    const int g = static_cast<int>((p / B) % G);
+    const int b = static_cast<int>(p % B);
+    if (d == 0) coeffs_out[static_cast<size_t>(b) * G + g] = coef(b, g);
+    const int lo0 = idx_lo_g[g * D];
+    const float w0 = w_hi_g[g * D];
+    const float ci0 = __fadd_rn(__fmul_rn(coef(b, lo0), __fsub_rn(1.0f, w0)),
+                                __fmul_rn(coef(b, lo0 + 1), w0));
+    const int lo = idx_lo_g[g * D + d];
+    const float w = w_hi_g[g * D + d];
+    const float ci = __fadd_rn(__fmul_rn(coef(b, lo), __fsub_rn(1.0f, w)),
+                               __fmul_rn(coef(b, lo + 1), w));
+    dci_out[p] = __fsub_rn(ci, ci0);
+  }
+}
+
 }  // namespace
 
+// Kernel E.  `tile` is kernel B's (decision_kernel.cu); with `spread` the
+// solve takes the large route, whose scratch holds B·G + 1 + ⌈G/256⌉ floats
+// (the coefficients before the fallback, the ridged m[0, 0], a flag a
+// block of 256 columns).
 extern "C" int stt_decision_update_fullstep(
-    int G, int S, int F, int D, const int* basis_table, float ridge,
+    int G, int tile, int spread, int S, int F, int D, const int* basis_table, float ridge,
     const void* v, const void* spot, const void* factors, const void* spot_prev,
     const void* factors_prev, const void* xtx, const void* xty_t,
     const void* cmean, const void* cstd, const void* mean_prev,
     const void* std_prev, const void* idx_lo, const void* w_hi, const void* a,
     const void* b, void* best_out, void* mean_out, void* std_out,
-    void* coeffs_out, void* dci, void* partials, void* moments, void* stream) {
+    void* coeffs_out, void* dci, void* scratch, void* partials, void* moments, void* stream) {
   stt::Basis basis;
-  if (!stt::make_basis(basis_table, F, &basis) || G < 2 || D < 1 || S < 1)
+  if (!stt::make_basis(basis_table, F, &basis) || G < 2 || D < 1 || S < 1 ||
+      (spread && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   const int B = basis.nb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nc = spread ? kSolveThreads : G;  // right-hand sides a block
   const size_t smem = sizeof(double) * B * B +
-      sizeof(float) * (static_cast<size_t>(B) * B + 2 * B + 2 * static_cast<size_t>(B) * G) +
+      sizeof(float) * (static_cast<size_t>(B) * B + 2 * B + 2 * static_cast<size_t>(B) * nc) +
       sizeof(int);
+  const decltype(&fullstep_solve_kernel<false>) solve =
+      spread ? &fullstep_solve_kernel<true> : &fullstep_solve_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fullstep_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      solve, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fullstep_solve_kernel<<<1, kSolveThreads, smem, st>>>(
+  solve<<<(G + nc - 1) / nc, kSolveThreads, smem, st>>>(
       G, D, B, ridge, static_cast<const float*>(xtx),
       static_cast<const float*>(xty_t), static_cast<const float*>(cmean),
       static_cast<const float*>(cstd), static_cast<const int*>(idx_lo),
       static_cast<const float*>(w_hi), static_cast<float*>(mean_out),
       static_cast<float*>(std_out), static_cast<float*>(coeffs_out),
-      static_cast<float*>(dci));
+      static_cast<float*>(dci), static_cast<float*>(scratch));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (spread) {
+    const int threads = 256;
+    const size_t blocks = (static_cast<size_t>(D) * G * B + threads - 1) / threads;
+    fullstep_interp_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), threads, 0, st>>>(
+        G, D, B, static_cast<const float*>(xty_t), static_cast<const int*>(idx_lo),
+        static_cast<const float*>(w_hi), static_cast<const float*>(scratch),
+        static_cast<float*>(coeffs_out), static_cast<float*>(dci));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   // Without mean_prev/std_prev the step-(t−1) moments are standardised by
   // the composed stats: the TPU kernel's u-coordinates.
   const float* mp = mean_prev ? static_cast<const float*>(mean_prev)
@@ -205,7 +297,7 @@ extern "C" int stt_decision_update_fullstep(
   const float* sp = std_prev ? static_cast<const float*>(std_prev)
                              : static_cast<const float*>(std_out);
   return static_cast<int>(stt::launch_decision_moments(
-      G, S, D, basis, static_cast<const float*>(v),
+      G, tile, S, D, basis, static_cast<const float*>(v),
       static_cast<const float*>(spot), static_cast<const float*>(factors),
       static_cast<const float*>(spot_prev),
       static_cast<const float*>(factors_prev),

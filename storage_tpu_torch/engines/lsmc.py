@@ -113,6 +113,35 @@ def design_in_memory(monomials, num_factors: int) -> bool:
             or num_factors > _build.MAX_FACTORS)
 
 
+def grid_routes(num_grid: int, num_extra_decisions: int, monomials, num_factors: int,
+                num_ratchet_nodes: int, general: bool, smem_limit: int) -> dict:
+    """The grid routes of a valuation's kernels on a CUDA device, decided from
+    shapes alone before any allocation, simulation or launch: {"backward":
+    (wrapper, route), "forward": (wrapper, route)}, each route "shared" (a
+    step's tables in a block's shared memory) or "large" (past the grid
+    those fit; any G).  The backward runs kernel B, or kernel D on the
+    design in memory (``design_in_memory``, spot-only panels); the forward
+    kernel C's monomial or design mode, on general rows with ``general``.
+    The wrappers take the same routes from the same shapes
+    (``decision_kernel.moments_route``, ``update_route``,
+    ``forward_kernel.sweep_route``); ``smem_limit`` is the card's shared
+    memory a block (``_build.smem_limit``).  Not a fallback: nothing is tried
+    first."""
+    d = 2 * num_extra_decisions + 3
+    b = len(monomials)
+    on_design = design_in_memory(monomials, num_factors)
+    if on_design or num_factors == 0:
+        backward = ("decision_update", decision_kernel.update_route(num_grid, d, b, smem_limit))
+    else:
+        backward = ("decision_update_moments",
+                    decision_kernel.moments_route(num_grid, d, b, smem_limit))
+    forward = ("forward_sweep_design" if on_design else "forward_sweep",
+               forward_kernel.sweep_route(num_grid, b, num_ratchet_nodes,
+                                          b if on_design else num_factors, num_extra_decisions,
+                                          smem_limit, on_design, general))
+    return {"backward": (backward[0], backward[1].name), "forward": forward}
+
+
 @contextlib.contextmanager
 def full_f32_matmul():
     """Float32 matrix products in full float32 on the card (no TF32) inside

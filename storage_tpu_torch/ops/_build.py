@@ -53,11 +53,11 @@ SIGNATURES = {
     "stt_simulate_sweep": (_U, _U, _U, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # F, out int[6] (the sweep's launch report)
     "stt_simulate_sweep_info": (_I, _P),
-    # G, S, F, D, basis table (host int[B*(1+F)+1]), v, spot, factors,
+    # G, tile, S, F, D, basis table (host int[B*(1+F)+1]), v, spot, factors,
     # spot_prev, factors_prev, mean, std, mean_prev, std_prev, idx_lo, w_hi,
     # dci, a, b, best_out, partials, moments, stream
     "stt_decision_update_moments": (
-        _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P,
     ),
     # G, D, B, out int[6] (kernel B's launch report) or int[9] (kernel D's)
@@ -65,15 +65,18 @@ SIGNATURES = {
     "stt_decision_update_info": (_I, _I, _I, _P),
     # out int[2]: the most basis functions and factors a kernel takes
     "stt_limits": (_P,),
-    # G, S, D, B, v, dm_std_t, spot, idx_lo, w_hi, dci, a, b, best_out, stream
-    "stt_decision_update": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # G, S, F, D, basis table, ridge, v, spot, factors, spot_prev,
-    # factors_prev, xtx, xty_t, cmean, cstd, mean_prev (or NULL), std_prev (or
-    # NULL), idx_lo, w_hi, a, b, best_out, mean_out, std_out, coeffs_out, dci,
-    # partials, moments, stream
+    # out int[1]: the current device's shared memory a block can opt in to
+    "stt_smem_limit": (_P,),
+    # G, tile, S, D, B, v, dm_std_t, spot, idx_lo, w_hi, dci, a, b, best_out,
+    # stream
+    "stt_decision_update": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # G, tile, spread solve, S, F, D, basis table, ridge, v, spot, factors,
+    # spot_prev, factors_prev, xtx, xty_t, cmean, cstd, mean_prev (or NULL),
+    # std_prev (or NULL), idx_lo, w_hi, a, b, best_out, mean_out, std_out,
+    # coeffs_out, dci, solve scratch (or NULL), partials, moments, stream
     "stt_decision_update_fullstep": (
-        _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     # N, S, F, G, R, E, is_step, general grids, basis table, packed tables,
     # spot, factors, inv0, pv0 (or NULL), inv_out, pv_out, then (each or
@@ -92,6 +95,18 @@ SIGNATURES = {
     # G, B, R, F, E, design mode, general grids, out int[6] (the sweep's
     # launch report)
     "stt_forward_sweep_info": (_I, _I, _I, _I, _I, _I, _I, _P),
+    # The large route: as stt_forward_sweep and stt_forward_sweep_design, the
+    # coefficients [N, G, B] and the grid rows [N, G] (or NULL) after the
+    # packed tables; its launch report without G
+    "stt_forward_sweep_large": (
+        _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P,
+    ),
+    "stt_forward_sweep_design_large": (
+        _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P,
+    ),
+    "stt_forward_sweep_large_info": (_I, _I, _I, _I, _I, _I, _P),
     # N, S, is_double, dec, cons, spot, g, fwd, df_settle, partials, grad, stream
     "stt_forward_sweep_vjp": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # out int[1]: the sims one block of the VJP's first pass sums
@@ -238,6 +253,22 @@ def limits() -> dict:
     out = (ctypes.c_int * 2)()
     check(library().stt_limits(out), "stt_limits")
     return {"max_basis": out[0], "max_factors": out[1]}
+
+
+@functools.lru_cache(maxsize=16)
+def _smem_limit(device_index: int) -> int:
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(device_index):
+        check(library().stt_smem_limit(out), "stt_smem_limit")
+    return out[0]
+
+
+def smem_limit(device) -> int:
+    """The shared memory a block of the kernels can opt in to on a CUDA
+    device, in bytes (232,448 on an H100): what the grid routes of kernels
+    B, C, D and E are decided by (``ops.decision_kernel.moments_route`` and
+    the others)."""
+    return _smem_limit(torch.device(device).index or 0)
 
 
 def require_caps(name: str, num_basis: int, num_factors: int) -> None:

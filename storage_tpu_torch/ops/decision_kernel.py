@@ -35,8 +35,12 @@ The kernels are ``csrc/decision_kernel.cu`` (B), ``csrc/decision_update_kernel.c
 solve); each ``*_plain`` function is the same function in tensor code, used
 for CPU tensors.  B's kernel keeps only the step tables and two fixed tiles
 in shared memory, D's only the step tables (and, past 32 terms, each sim's
-design row).  Each takes any grid whose tables fit the card (``kernel_info``
-gives the largest) and raises ``ValueError`` beyond it.  B and E build the
+design row).  Each takes any grid, on one of two routes decided from the
+shape before anything is allocated (``moments_route``, ``update_route``,
+``fullstep_route``): the shared route, all of a step's tables in a block's
+shared memory at once, while they fit (``kernel_info`` gives the largest
+grid), else the large route, the tables a tile of grid points at a time
+(and E's solve spread over blocks).  Both give the same bits.  B and E build the
 monomial design on the card and take a basis and a factor count within the
 caps ``_build.MAX_BASIS`` and ``_build.MAX_FACTORS`` (16 and 8), raising
 ``ValueError`` beyond them; D reads the design and takes any basis, compiled
@@ -111,6 +115,110 @@ def decision_update_moments_plain(v, spot, factors, spot_prev, factors_prev,
     return best_act, dmp.T @ dmp, dmp.T @ best_act.T
 
 
+class Route(tp.NamedTuple):
+    """A launch's route: "shared" (a step's tables in shared memory at
+    once) or "large" (a tile of grid points at a time), and the grid points
+    a tile takes (G on the shared route)."""
+    name: str
+    tile: int
+
+
+ROUTES = ("shared", "large")
+# Grid points a tile of the large routes of kernels B and D (and E, which
+# launches B): tools/torch_grid_probe.py times tiles at G = 4,096.
+TILE_B = 32
+TILE_D = 256
+
+# The kernels' sizing, copied from csrc/decision_kernel.cu (with
+# decision_step.cuh) and csrc/decision_update_kernel.cu so that the route is
+# decided from shapes on any device; chip_smoke.py holds each copy to
+# ``kernel_info``'s max_grid.  Kernel B: 128 sims a block, a static
+# [kChunk = 8, 128] best_act tile, a [B, 128] design tile, then D·B + 4·D
+# words of tables a grid point.  Kernel D: 256 sims a block, a record of
+# 4 + (D − 1)·(4 + Bp) words a grid point (Bp = B padded to 4), past 32
+# padded terms also each sim's design row [Bp, 256].  Kernel E's one-block
+# solve: B·B doubles and B·B + 2·B + 2·B·G floats and an int; its large
+# route spreads the right-hand sides over blocks of 256.
+_B_SIMS = 128
+_B_CHUNK = 8
+_D_SIMS = 256
+_D_GROUP = 4
+_SOLVE_COLUMNS = 256
+
+
+def _fit(limit: int, static_bytes: int, fixed_words: int, words_per_point: int) -> int:
+    """The most grid points whose words fit a block's shared memory."""
+    room = (limit - static_bytes) // 4 - fixed_words
+    return room // words_per_point if room >= 0 else 0
+
+
+def _choose(name: str, g: int, max_grid: int, want: int, quantum: int,
+            route: tp.Optional[str]) -> Route:
+    """The shared route where G fits it (``route`` forces one), else the
+    large route with tiles of ``want`` grid points, fewer (a multiple of
+    ``quantum`` where one fits) where those do not fit."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"{name}: route must be one of {ROUTES}, got {route!r}")
+    route = route or ("shared" if g <= max_grid else "large")
+    if route == "shared":
+        if g > max_grid:
+            raise ValueError(f"{name}: the shared route holds at most G={max_grid} grid points "
+                             f"at this shape, got G={g}")
+        return Route("shared", g)
+    tile = min(want, g, max_grid)
+    if tile >= quantum:
+        tile -= tile % quantum
+    if tile < 1:
+        raise ValueError(f"{name}: not even one grid point's tables fit a block's shared "
+                         f"memory at this shape")
+    return Route("large", tile)
+
+
+def moments_max_grid(d: int, bdim: int, smem_limit: int) -> int:
+    """The largest G of kernel B's shared route at D decisions and B basis
+    functions, under ``smem_limit`` bytes of shared memory a block."""
+    return _fit(smem_limit, 4 * _B_CHUNK * _B_SIMS, bdim * _B_SIMS, d * bdim + 4 * d)
+
+
+def moments_route(g: int, d: int, bdim: int, smem_limit: int,
+                  route: tp.Optional[str] = None) -> Route:
+    """Kernel B's route at (G, D, B), from the shape and the card's shared
+    memory a block (``_build.smem_limit``): shared up to
+    ``moments_max_grid``, else large, ``TILE_B`` grid points a tile."""
+    return _choose("decision_update_moments", g, moments_max_grid(d, bdim, smem_limit), TILE_B,
+                   _B_CHUNK, route)
+
+
+def update_max_grid(d: int, bdim: int, smem_limit: int) -> int:
+    """The largest G of kernel D's shared route."""
+    bp = -(-bdim // 4) * 4
+    row = bp * _D_SIMS if bp > 32 else 0
+    return _fit(smem_limit, 0, row, 4 + (d - 1) * (4 + bp))
+
+
+def update_route(g: int, d: int, bdim: int, smem_limit: int,
+                 route: tp.Optional[str] = None) -> Route:
+    """Kernel D's route, as ``moments_route``; ``TILE_D`` grid points a tile."""
+    return _choose("decision_update", g, update_max_grid(d, bdim, smem_limit), TILE_D, _D_GROUP,
+                   route)
+
+
+def solve_max_grid(bdim: int, smem_limit: int) -> int:
+    """The largest G of kernel E's one-block solve."""
+    return (smem_limit - 8 * bdim * bdim - 4 * (bdim * bdim + 2 * bdim) - 4) // (8 * bdim)
+
+
+def fullstep_route(g: int, d: int, bdim: int, smem_limit: int,
+                   route: tp.Optional[str] = None) -> Route:
+    """Kernel E's route: shared where both kernel B's tables and the
+    one-block solve fit, else large (B's large route and the solve spread
+    over blocks)."""
+    fits = min(moments_max_grid(d, bdim, smem_limit), solve_max_grid(bdim, smem_limit))
+    if route == "large" or (route is None and g > fits):
+        return Route("large", moments_route(g, d, bdim, smem_limit, "large").tile)
+    return _choose("decision_update_fullstep", g, fits, TILE_B, _B_CHUNK, route)
+
+
 def _check_shapes(name: str, shapes) -> None:
     for arg, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
@@ -131,31 +239,26 @@ def _kernel_info(entry: str, g: int, d: int, bdim: int, device_index: int) -> di
 
 
 def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device) -> dict:
-    """Launch report of kernel B (``"moments"``, also run by kernel E) or
-    kernel D (``"update"``) at G grid points, D decisions and B basis
-    functions on a CUDA device: sims per block, shared memory bytes per block
-    (static and dynamic), the device's limit per block, the largest G within
-    it at this D and B, blocks per SM (0 where G does not fit) and registers
-    per thread.  Kernel B takes B within its basis cap (``_build.MAX_BASIS``),
-    kernel D any B."""
+    """Launch report of the shared route of kernel B (``"moments"``, also
+    run by kernel E) or kernel D (``"update"``) at G grid points, D
+    decisions and B basis functions on a CUDA device: sims per block, shared
+    memory bytes per block (static and dynamic), the device's limit per
+    block, the largest G that route takes at this D and B, blocks per SM (0
+    where G does not fit) and registers per thread.  A large route's tile of
+    T grid points takes the shared memory, and so the blocks per SM, of the
+    shared route at G = T.  Kernel B takes B within its basis cap
+    (``_build.MAX_BASIS``), kernel D any B."""
     entry = {"moments": "stt_decision_update_moments_info",
              "update": "stt_decision_update_info"}[kernel]
     return _kernel_info(entry, g, d, bdim, torch.device(device).index or 0)
 
 
-def moments_scratch(name: str, g: int, d: int, bdim: int, s: int, device: torch.device):
+def moments_scratch(g: int, bdim: int, s: int, device: torch.device):
     """The scratch of kernel B's moments, for B and for E, which launches
     B's kernel: the per-block partials [nblk, B·B + G·B], one contiguous row
     per block of sims, and the reduced moments [B·B + G·B]: XᵀX, then
-    (Xᵀ·best_act)ᵀ as [G, B].  Raises ``ValueError`` where the step tables
-    of G grid points do not fit the card's shared memory."""
-    info = kernel_info("moments", g, d, bdim, device)
-    if info["smem_bytes"] > info["smem_limit"]:
-        raise ValueError(
-            f"{name}: G={g} grid points at D={d} decisions and B={bdim} basis functions need "
-            f"{info['smem_bytes']} bytes of shared memory per block (the step tables grow with "
-            f"G); this card allows {info['smem_limit']}, so at most G={info['max_grid']}")
-    nblk = -(-s // info["sims_per_block"])
+    (Xᵀ·best_act)ᵀ as [G, B]."""
+    nblk = -(-s // _B_SIMS)
     npairs = bdim * bdim + g * bdim
     return (torch.empty((nblk, npairs), dtype=torch.float32, device=device),
             torch.empty((npairs,), dtype=torch.float32, device=device))
@@ -183,6 +286,7 @@ def decision_update_moments(
     b: torch.Tensor,             # [D, G] immediate-pv constant
     monomials: tp.Sequence[Monomial],
     out: tp.Optional[torch.Tensor] = None,
+    route: tp.Optional[str] = None,
 ):
     """Returns (best_act [G, S], xtx [B, B], xty [B, G]).
 
@@ -191,7 +295,9 @@ def decision_update_moments(
     must not be ``v`` (the kernel reads every v row until the step ends).
     ``idx_lo`` must lie in [0, G-2], as ``ops.interp.interp_weights`` makes
     it: the kernel does not check it, and checking on the host would wait
-    for the device every step."""
+    for the device every step.  The route is ``moments_route``'s (``route``
+    forces one); ``launches`` counts every launch, ``large_launches`` those
+    of the large route."""
     if v.device.type == "cpu":
         return decision_update_moments_plain(
             v, spot, factors, spot_prev, factors_prev, mean, std, mean_prev,
@@ -201,6 +307,8 @@ def decision_update_moments(
     f = factors.shape[0]
     d = ci.shape[0]
     bdim = len(monomials)
+    _build.require_caps("decision_update_moments", bdim, f)
+    plan = moments_route(g, d, bdim, _build.smem_limit(v.device), route)
     dci = (ci - ci[0:1]).contiguous()
     if out is None:
         out = torch.empty_like(v)
@@ -213,7 +321,6 @@ def decision_update_moments(
         raise ValueError("decision_update_moments: idx_lo on another device")
     if out.data_ptr() == v.data_ptr():
         raise ValueError("decision_update_moments: out must not alias v")
-    _build.require_caps("decision_update_moments", bdim, f)
     _check_shapes("decision_update_moments", {
         "spot": (spot, (s,)), "factors": (factors, (f, s)),
         "spot_prev": (spot_prev, (s,)), "factors_prev": (factors_prev, (f, s)),
@@ -223,9 +330,9 @@ def decision_update_moments(
         "ci": (ci, (d, g, bdim)), "a": (a, (d, g)), "b": (b, (d, g)),
         "out": (out, (g, s)),
     })
-    partials, moments = moments_scratch("decision_update_moments", g, d, bdim, s, device)
+    partials, moments = moments_scratch(g, bdim, s, device)
     rc = _build.library().stt_decision_update_moments(
-        g, s, f, d, _build.basis_table(tuple(monomials), f), v.data_ptr(),
+        g, plan.tile, s, f, d, _build.basis_table(tuple(monomials), f), v.data_ptr(),
         spot.data_ptr(), factors.data_ptr(), spot_prev.data_ptr(),
         factors_prev.data_ptr(), mean.data_ptr(), std.data_ptr(),
         mean_prev.data_ptr(), std_prev.data_ptr(), idx_lo.data_ptr(),
@@ -234,11 +341,13 @@ def decision_update_moments(
         _build.stream_handle(device),
     )
     decision_update_moments.launches += 1
+    decision_update_moments.large_launches += plan.name == "large"
     _build.check(rc, "decision_update_moments")
     return (out, *_split_moments(moments, g, bdim))
 
 
 decision_update_moments.launches = 0
+decision_update_moments.large_launches = 0  # those of the large route, counted in launches too
 
 
 def decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b):
@@ -257,20 +366,22 @@ def decision_update(
     a: torch.Tensor,         # [D, G] immediate-pv spot coefficient
     b: torch.Tensor,         # [D, G] immediate-pv constant
     out: tp.Optional[torch.Tensor] = None,
+    route: tp.Optional[str] = None,
 ):
     """Returns best_act [G, S] (kernel D).
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel, at
-    any basis size, and must be f32 and contiguous; ``out`` is the [G, S]
-    buffer for best_act and must not be ``v``.  ``idx_lo`` must lie in
-    [0, G-2], as for kernel B, in
-    any order.  Beyond the largest G of ``kernel_info("update", ...)`` it
-    raises ``ValueError``."""
+    any basis size and grid, and must be f32 and contiguous; ``out`` is the
+    [G, S] buffer for best_act and must not be ``v``.  ``idx_lo`` must lie
+    in [0, G-2], as for kernel B, in any order.  The route is
+    ``update_route``'s (``route`` forces one); ``large_launches`` counts the
+    large route's launches, as kernel B's wrapper does."""
     if v.device.type == "cpu":
         return decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b)
     g, s = v.shape
     bdim = dm_std_t.shape[0]
     d = ci.shape[0]
+    plan = update_route(g, d, bdim, _build.smem_limit(v.device), route)
     dci = (ci - ci[0:1]).contiguous()
     if out is None:
         out = torch.empty_like(v)
@@ -285,23 +396,19 @@ def decision_update(
         "idx_lo": (idx_lo, (g, d)), "w_hi": (w_hi, (g, d)), "ci": (ci, (d, g, bdim)),
         "a": (a, (d, g)), "b": (b, (d, g)), "out": (out, (g, s)),
     })
-    info = kernel_info("update", g, d, bdim, device)
-    if g > info["max_grid"]:
-        raise ValueError(
-            f"decision_update: G={g} grid points at D={d} decisions and B={bdim} basis functions "
-            f"need {info['smem_bytes']} bytes of shared memory per block (the step tables grow "
-            f"with G); this card allows {info['smem_limit']}, so at most G={info['max_grid']}")
     rc = _build.library().stt_decision_update(
-        g, s, d, bdim, v.data_ptr(), dm_std_t.data_ptr(), spot.data_ptr(),
+        g, plan.tile, s, d, bdim, v.data_ptr(), dm_std_t.data_ptr(), spot.data_ptr(),
         idx_lo.data_ptr(), w_hi.data_ptr(), dci.data_ptr(), a.data_ptr(), b.data_ptr(),
         out.data_ptr(), _build.stream_handle(device),
     )
     decision_update.launches += 1
+    decision_update.large_launches += plan.name == "large"
     _build.check(rc, "decision_update")
     return out
 
 
 decision_update.launches = 0
+decision_update.large_launches = 0
 
 
 def decision_update_fullstep_plain(v, spot, factors, spot_prev, factors_prev, xtx, xty,
@@ -342,6 +449,7 @@ def decision_update_fullstep(
     std_prev: tp.Optional[torch.Tensor] = None,   # [B] scale of the step-(t-1) moments
     out: tp.Optional[torch.Tensor] = None,
     regression_out: tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    route: tp.Optional[str] = None,
 ):
     """Returns (best_act [G, S], xtx_next [B, B], xty_next [B, G], mean [B],
     std [B], coeffs [B, G]) of one whole backward step (kernel E).
@@ -354,7 +462,9 @@ def decision_update_fullstep(
     kernels and must be f32 and contiguous, except ``xty``, which may also be
     the transposed view of a contiguous [G, B] (as the kernel returns it);
     ``out`` must not be ``v``; ``regression_out`` are optional buffers for
-    (mean, std, coeffs)."""
+    (mean, std, coeffs).  The route is ``fullstep_route``'s (``route`` forces
+    one); ``large_launches`` counts the large route's launches, as kernel B's
+    wrapper does."""
     if v.device.type == "cpu":
         result = decision_update_fullstep_plain(
             v, spot, factors, spot_prev, factors_prev, xtx, xty, cmean, cstd, idx_lo,
@@ -374,6 +484,8 @@ def decision_update_fullstep(
     bdim = len(monomials)
     if (mean_prev is None) != (std_prev is None):
         raise ValueError("decision_update_fullstep: pass both mean_prev and std_prev, or neither")
+    _build.require_caps("decision_update_fullstep", bdim, f)
+    plan = fullstep_route(g, d, bdim, _build.smem_limit(v.device), route)
     xty_t = xty.T if xty.T.is_contiguous() else xty.T.contiguous()  # [G, B]
     if out is None:
         out = torch.empty_like(v)
@@ -392,7 +504,6 @@ def decision_update_fullstep(
         raise ValueError("decision_update_fullstep: idx_lo on another device")
     if out.data_ptr() == v.data_ptr():
         raise ValueError("decision_update_fullstep: out must not alias v")
-    _build.require_caps("decision_update_fullstep", bdim, f)
     shapes = {
         "spot": (spot, (s,)), "factors": (factors, (f, s)), "spot_prev": (spot_prev, (s,)),
         "factors_prev": (factors_prev, (f, s)), "xtx": (xtx, (bdim, bdim)),
@@ -404,21 +515,28 @@ def decision_update_fullstep(
     if prev:
         shapes.update(mean_prev=(mean_prev, (bdim,)), std_prev=(std_prev, (bdim,)))
     _check_shapes("decision_update_fullstep", shapes)
-    partials, moments = moments_scratch("decision_update_fullstep", g, d, bdim, s, device)
+    partials, moments = moments_scratch(g, bdim, s, device)
     dci = torch.empty((d, g, bdim), dtype=torch.float32, device=device)
+    large = plan.name == "large"
+    # The large route's solve scratch: coefficients [B, G], the ridged
+    # m[0, 0], a flag a block of columns (csrc/fullstep_kernel.cu).
+    scratch = torch.empty((bdim * g + 1 + -(-g // _SOLVE_COLUMNS),), dtype=torch.float32,
+                          device=device) if large else None
     rc = _build.library().stt_decision_update_fullstep(
-        g, s, f, d, _build.basis_table(tuple(monomials), f), ridge_for(torch.float32),
+        g, plan.tile, int(large), s, f, d, _build.basis_table(tuple(monomials), f), ridge_for(torch.float32),
         v.data_ptr(), spot.data_ptr(), factors.data_ptr(), spot_prev.data_ptr(),
         factors_prev.data_ptr(), xtx.data_ptr(), xty_t.data_ptr(), cmean.data_ptr(),
         cstd.data_ptr(), mean_prev.data_ptr() if prev else None,
         std_prev.data_ptr() if prev else None, idx_lo.data_ptr(), w_hi.data_ptr(),
         a.data_ptr(), b.data_ptr(), out.data_ptr(), mean.data_ptr(), std.data_ptr(),
-        coeffs.data_ptr(), dci.data_ptr(), partials.data_ptr(), moments.data_ptr(),
-        _build.stream_handle(device),
+        coeffs.data_ptr(), dci.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        partials.data_ptr(), moments.data_ptr(), _build.stream_handle(device),
     )
     decision_update_fullstep.launches += 1
+    decision_update_fullstep.large_launches += large
     _build.check(rc, "decision_update_fullstep")
     return (out, *_split_moments(moments, g, bdim), mean, std, coeffs)
 
 
 decision_update_fullstep.launches = 0
+decision_update_fullstep.large_launches = 0

@@ -16,7 +16,14 @@ instead of building it from monomials: ``forward_sweep_generic`` runs it for
 a basis with user callables, building the design ``DESIGN_CHUNK`` steps at a
 time and launching once per chunk.  Either mode places target inventories
 on evenly spaced grid rows by arithmetic or, given the rows (``grid``), on
-custom rows by search: the general-grid mode.  ``forward_step_plain`` is one
+custom rows by search: the general-grid mode.  Every mode takes any grid,
+on one of two routes decided from the shape before anything is allocated
+(``sweep_route``): the shared route stages each step's whole packed row,
+coefficients included, in the kernel's ring while two rows fit a block's
+shared memory (``kernel_info`` gives the largest grid); the large route
+(``csrc/forward_kernel_large.cu``) stages the row's fixed part alone and
+reads the coefficients, packed [G, B], and the grid rows from device
+memory.  Both give the same bits.  ``forward_step_plain`` is one
 step in tensor code and ``forward_sweep_plain`` its loop over the steps, used
 for CPU tensors.  The ratchet lookup and the decision fractions follow the
 TPU kernel (``_ratchet_rates_smem``, ``_bang_bang``), so the plain version
@@ -261,12 +268,14 @@ _TABLE_PARTS = ("params", "mean", "std", "ratchet_inv", "ratchet_min", "ratchet_
                 "grid")
 
 
-def table_layout(bdim: int, r: int, g: int, general: bool = False):
+def table_layout(bdim: int, r: int, g: int, general: bool = False, large: bool = False):
     """Offsets (in floats) of each part of one step's packed table, and its
     width W: the parameters, mean [B], std [B], ratchet inventories, min and
     max rates [R] each, coefficients [B, G] row by row, in general-grid mode
     the next step's grid row [G], padded with zeros to a multiple of 4 floats
-    (whole 16-byte words for the kernel's bulk copy)."""
+    (whole 16-byte words for the kernel's bulk copy).  On the large route
+    (``large``) the row holds the parts before the coefficients alone."""
+    g = 0 if large else g
     sizes = (NUM_PARAMS, bdim, bdim, r, r, r, bdim * g, g if general else 0)
     offsets, pos = {}, 0
     for name, n in zip(_TABLE_PARTS, sizes):
@@ -275,16 +284,85 @@ def table_layout(bdim: int, r: int, g: int, general: bool = False):
     return offsets, -(-pos // 4) * 4
 
 
-def pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs, grid=None):
+def pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs, grid=None,
+                large: bool = False):
     """Every step's tables as the kernel reads them, one row of W floats a
     step: [N, W] f32 (``table_layout``; ``grid`` [N, G] in general-grid
-    mode)."""
+    mode).  On the large route (``large``) the rows hold the fixed parts
+    alone, and the coefficients go beside them as [N, G, B] f32, each grid
+    row's B terms adjacent (one read of 2B floats for a decision's rows lo
+    and lo + 1): returns (table, coefficients)."""
     n, bdim, g = coeffs.shape
-    _, width = table_layout(bdim, ratchet_inv.shape[1], g, grid is not None)
-    parts = [params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs.reshape(n, bdim * g),
-             *([] if grid is None else [grid])]
+    _, width = table_layout(bdim, ratchet_inv.shape[1], g, grid is not None, large)
+    parts = [params, mean, std, ratchet_inv, ratchet_min, ratchet_max]
+    if not large:
+        parts += [coeffs.reshape(n, bdim * g), *([] if grid is None else [grid])]
     table = torch.cat([p.to(torch.float32) for p in parts], dim=1)
-    return torch.nn.functional.pad(table, (0, width - table.shape[1])).contiguous()
+    table = torch.nn.functional.pad(table, (0, width - table.shape[1])).contiguous()
+    if large:
+        return table, coeffs.transpose(1, 2).to(torch.float32).contiguous()
+    return table
+
+
+ROUTES = ("shared", "large")
+# The sweep's sizing, copied from csrc/forward_kernel.cu and
+# forward_sweep.cuh so that the route is decided from shapes on any device;
+# chip_smoke.py holds it to ``kernel_info``'s max_grid.  A block of 256
+# sims; dynamic shared memory of two ring stages of a row (its padding
+# counted at its most) and of the sims' spot and V staged values, the
+# decision fractions [2, D], past 16 terms the warps' sums; on the shared
+# route also the two rows' coefficients (and grid rows), (B + general) words
+# a grid point a stage.  Static: two mbarriers, the warps' sums of two steps
+# [2][8 warps][6 + B] (one float past 16 terms) and, in the monomial mode,
+# the basis terms [B][10] ints, laid out in 128-byte units.
+_SWEEP_SIMS = 256
+_SWEEP_WARPS = _SWEEP_SIMS // 32
+_STAGES = 2
+_USED_SUMS = 6
+
+
+def _sweep_fixed_words(bdim: int, r: int, v: int, e: int) -> int:
+    wide = 2 * _SWEEP_WARPS * (_USED_SUMS + bdim) if bdim > _build.MAX_BASIS else 0
+    return (_STAGES * (NUM_PARAMS + 2 * bdim + 3 * r + 3 + (1 + v) * _SWEEP_SIMS)
+            + 2 * (2 * e + 3) + wide)
+
+
+def _sweep_static_bytes(bdim: int, design: bool) -> int:
+    if bdim > _build.MAX_BASIS:
+        raw = 16 + 4
+    else:
+        raw = 16 + 4 * 2 * _SWEEP_WARPS * (_USED_SUMS + bdim) + (
+            0 if design else 4 * bdim * (_build.MAX_FACTORS + 2))
+    return -(-raw // 128) * 128
+
+
+def sweep_max_grid(bdim: int, r: int, v: int, e: int, smem_limit: int, design: bool = False,
+                   general: bool = False) -> int:
+    """The largest G of the sweep's shared route at B basis functions, R
+    ratchet nodes, V staged values a sim (the F factors, or B in design
+    mode) and E extra decisions, under ``smem_limit`` bytes a block."""
+    room = ((smem_limit - _sweep_static_bytes(bdim, design)) // 4
+            - _sweep_fixed_words(bdim, r, v, e))
+    return room // (_STAGES * (bdim + int(general))) if room >= 0 else 0
+
+
+def sweep_route(g: int, bdim: int, r: int, v: int, e: int, smem_limit: int,
+                design: bool = False, general: bool = False,
+                route: tp.Optional[str] = None) -> str:
+    """The sweep's route, "shared" up to ``sweep_max_grid`` (``route``
+    forces one), else "large", from the shape and the card's shared memory a
+    block (``_build.smem_limit``)."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"forward_sweep: route must be one of {ROUTES}, got {route!r}")
+    max_grid = sweep_max_grid(bdim, r, v, e, smem_limit, design, general)
+    route = route or ("shared" if g <= max_grid else "large")
+    fixed = _sweep_static_bytes(bdim, design) + 4 * _sweep_fixed_words(bdim, r, v, e)
+    if (route == "shared" and g > max_grid) or fixed > smem_limit:
+        raise ValueError(
+            f"forward_sweep: the {route} route at B={bdim}, R={r}, V={v} staged values a sim "
+            f"and E={e} takes at most G={max_grid if route == 'shared' else 0} grid points in "
+            f"{smem_limit} bytes of shared memory a block, got G={g}")
+    return route
 
 
 _INFO_FIELDS = ("sims_per_block", "smem_bytes", "smem_limit", "max_grid", "blocks_per_sm",
@@ -293,17 +371,20 @@ _INFO_FIELDS = ("sims_per_block", "smem_bytes", "smem_limit", "max_grid", "block
 
 @functools.lru_cache(maxsize=64)
 def _kernel_info(g: int, bdim: int, r: int, f: int, e: int, design: bool, general: bool,
-                 device_index: int) -> dict:
+                 large: bool, device_index: int) -> dict:
     out = (ctypes.c_int * len(_INFO_FIELDS))()
+    lib = _build.library()
     with torch.cuda.device(device_index):
-        _build.check(_build.library().stt_forward_sweep_info(g, bdim, r, f, e, int(design),
-                                                              int(general), out),
-                     "stt_forward_sweep_info")
+        if large:
+            rc = lib.stt_forward_sweep_large_info(bdim, r, f, e, int(design), int(general), out)
+        else:
+            rc = lib.stt_forward_sweep_info(g, bdim, r, f, e, int(design), int(general), out)
+        _build.check(rc, "stt_forward_sweep_info")
     return dict(zip(_INFO_FIELDS, out))
 
 
 def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device, design: bool = False,
-                general: bool = False) -> dict:
+                general: bool = False, large: bool = False) -> dict:
     """Launch report of the sweep kernel at G grid points, B basis functions,
     R ratchet nodes, F factors and E extra decisions on a CUDA device: sims
     per block, shared memory bytes per block (static and dynamic: the
@@ -315,9 +396,11 @@ def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device, design: bool 
     design mode, which stages B design values a sim in place of the F
     factors (F is not read) and takes any B (beyond ``_build.MAX_BASIS`` on
     its wide route); ``general`` the general-grid mode, whose tables hold one
-    more row of G a step."""
-    return _kernel_info(g, bdim, r, f, e, bool(design), bool(general),
-                        torch.device(device).index or 0)
+    more row of G a step.  This is the shared route's report, whose max_grid
+    is the largest G that route takes; ``large`` gives the large route's,
+    whose shared memory does not grow with G (max_grid 2**31 − 1)."""
+    return _kernel_info(0 if large else g, bdim, r, f, e, bool(design), bool(general),
+                        bool(large), torch.device(device).index or 0)
 
 
 def sass_name(bdim: int, design: bool = False, general: bool = False) -> str:
@@ -329,12 +412,13 @@ def sass_name(bdim: int, design: bool = False, general: bool = False) -> str:
 
 def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, values,
                   inventory, pv, coeffs, monomials, num_extra_decisions, ratchet_is_step, panels,
-                  out, grid):
+                  out, grid, route):
     """Checks and launches the sweep in either mode: ``values`` [N, V, S] are
     the factors (``monomials`` given) or the raw design (``monomials`` None,
     V = B); ``grid`` [N, G] the next steps' grid rows of the general-grid
-    mode, or None.  Returns (inventory, pv, sums, xbar_sum) and the C call's
-    code."""
+    mode, or None; on ``sweep_route``'s route (``route`` forces one).
+    Returns (inventory, pv, sums, xbar_sum), the C call's code and the
+    route."""
     design = monomials is None
     general = grid is not None
     n, s = spot.shape
@@ -342,6 +426,11 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
     bdim, g = coeffs.shape[1:]
     f = 0 if design else v
     r = ratchet_inv.shape[1]
+    if not design:
+        _build.require_caps(name, bdim, f)
+    route = sweep_route(g, bdim, r, v, num_extra_decisions, _build.smem_limit(spot.device),
+                        design, general, route)
+    large = route == "large"
     rows = list(panels) if panels is not None else [None] * 4
     outs = list(out) if out is not None else [
         torch.empty(s, dtype=torch.float32, device=spot.device) for _ in range(2)]
@@ -364,34 +453,35 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
             raise ValueError(f"{name}: {key} is {tuple(t.shape)}, want {shape}")
     if not design and len(monomials) != bdim:
         raise ValueError(f"{name}: coeffs rows must match the basis")
-    if not design:
-        _build.require_caps(name, bdim, f)
-    info = kernel_info(g, bdim, r, f, num_extra_decisions, device, design=design,
-                       general=general)
-    if info["smem_bytes"] > info["smem_limit"]:
-        staged = f"B={bdim} design values" if design else f"F={f} factors"
-        rows = " and the grid rows" if general else ""
-        raise ValueError(
-            f"{name}: G={g} grid points at B={bdim} basis functions, R={r} ratchet nodes, "
-            f"{staged} and E={num_extra_decisions} extra decisions need {info['smem_bytes']} bytes "
-            f"of shared memory per block (two steps' tables{rows} grow with G); this card allows "
-            f"{info['smem_limit']}, so at most G={info['max_grid']}")
-    table = pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs, grid)
+    table = pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs, grid,
+                        large)
+    if large:
+        table, coeffs_gb = table
+        tables = (table.data_ptr(), coeffs_gb.data_ptr(), _ptr_or_none(grid))
+    else:
+        tables = (table.data_ptr(),)
     nout = NUM_SUMS + bdim
     partials = torch.empty((n * nout * -(-s // _GROUP),), dtype=torch.float32, device=device)
     totals = torch.empty((n, nout), dtype=torch.float32, device=device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.library()
-    common = (table.data_ptr(), spot.data_ptr(), values.data_ptr(), inventory.data_ptr(),
-              ptr(pv), outs[0].data_ptr(), outs[1].data_ptr(), *(ptr(p) for p in rows),
-              partials.data_ptr(), totals.data_ptr(), _build.stream_handle(device))
+    common = (*tables, spot.data_ptr(), values.data_ptr(), inventory.data_ptr(),
+              _ptr_or_none(pv), outs[0].data_ptr(), outs[1].data_ptr(),
+              *(_ptr_or_none(p) for p in rows), partials.data_ptr(), totals.data_ptr(),
+              _build.stream_handle(device))
+    suffix = "_large" if large else ""
     if design:
-        rc = lib.stt_forward_sweep_design(n, s, bdim, g, r, num_extra_decisions,
-                                          int(ratchet_is_step), int(general), *common)
+        rc = getattr(lib, f"stt_forward_sweep_design{suffix}")(
+            n, s, bdim, g, r, num_extra_decisions, int(ratchet_is_step), int(general), *common)
     else:
-        rc = lib.stt_forward_sweep(n, s, f, g, r, num_extra_decisions, int(ratchet_is_step),
-                                   int(general), _build.basis_table(tuple(monomials), f), *common)
-    return (outs[0], outs[1], totals[:, :NUM_SUMS], totals[:, NUM_SUMS:]), rc
+        rc = getattr(lib, f"stt_forward_sweep{suffix}")(
+            n, s, f, g, r, num_extra_decisions, int(ratchet_is_step), int(general),
+            _build.basis_table(tuple(monomials), f), *common)
+    return (outs[0], outs[1], totals[:, :NUM_SUMS], totals[:, NUM_SUMS:]), rc, route
+
+
+def _ptr_or_none(t: tp.Optional[torch.Tensor]):
+    """A tensor's data pointer, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def forward_sweep(
@@ -412,6 +502,7 @@ def forward_sweep(
     panels: tp.Optional[tp.Sequence[tp.Optional[torch.Tensor]]] = None,
     out: tp.Optional[tp.Sequence[torch.Tensor]] = None,
     grid: tp.Optional[torch.Tensor] = None,  # [N, G] next grid rows: general-grid mode
+    route: tp.Optional[str] = None,
 ):
     """The forward pass over N steps: returns (inventory [S], pv [S], sums
     [N, 8], xbar_sum [N, B]), the final inventory and PV and each step's
@@ -425,25 +516,29 @@ def forward_sweep(
     placed on it by search (``decision_candidates``).  CPU tensors take the
     plain version.  CUDA tensors launch the sweep kernel, once for all N
     steps, and must be f32 and contiguous (``factors`` may be [N, 0, S]: the
-    kernel reads no factor then); beyond the grid the card's shared memory
-    takes (``kernel_info``) it raises ``ValueError``."""
+    kernel reads no factor then), at any G, on ``sweep_route``'s route
+    (``route`` forces one): ``launches`` counts every launch,
+    ``general_launches`` those of the general-grid mode and
+    ``large_launches`` those of the large route."""
     if spot.device.type == "cpu":
         return forward_sweep_plain(
             params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, factors, inventory,
             pv, coeffs, monomials, num_extra_decisions, ratchet_is_step, panels, out, grid=grid,
         )
-    result, rc = _launch_sweep(
+    result, rc, taken = _launch_sweep(
         "forward_sweep", params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
         factors, inventory, pv, coeffs, monomials, num_extra_decisions, ratchet_is_step,
-        panels, out, grid)
+        panels, out, grid, route)
     forward_sweep.launches += 1
     forward_sweep.general_launches += grid is not None
+    forward_sweep.large_launches += taken == "large"
     _build.check(rc, "forward_sweep")
     return result
 
 
 forward_sweep.launches = 0
 forward_sweep.general_launches = 0  # those of the general-grid mode, counted in launches too
+forward_sweep.large_launches = 0  # those of the large route, counted in launches too
 
 
 def forward_sweep_design(
@@ -463,11 +558,13 @@ def forward_sweep_design(
     panels: tp.Optional[tp.Sequence[tp.Optional[torch.Tensor]]] = None,
     out: tp.Optional[tp.Sequence[torch.Tensor]] = None,
     grid: tp.Optional[torch.Tensor] = None,  # [N, G] next grid rows: general-grid mode
+    route: tp.Optional[str] = None,
 ):
     """Kernel C's design mode: ``forward_sweep`` on each step's raw design
     [B, S], read from memory and standardised by ``mean`` and ``std``, in
     place of the design that monomials build on the card.  Results,
-    ``panels``, ``out`` and ``grid`` as ``forward_sweep``'s.  CPU tensors take
+    ``panels``, ``out``, ``grid``, ``route`` and the counters as
+    ``forward_sweep``'s.  CPU tensors take
     the plain version; CUDA tensors launch the kernel once for all N steps,
     at any B: compiled per B up to ``_build.MAX_BASIS``, the wide route
     beyond (the same arithmetic; no factor is read, so no factor count
@@ -478,18 +575,20 @@ def forward_sweep_design(
             pv, coeffs, None, num_extra_decisions, ratchet_is_step, panels, out, design=design,
             grid=grid,
         )
-    result, rc = _launch_sweep(
+    result, rc, taken = _launch_sweep(
         "forward_sweep_design", params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
         design, inventory, pv, coeffs, None, num_extra_decisions, ratchet_is_step, panels, out,
-        grid)
+        grid, route)
     forward_sweep_design.launches += 1
     forward_sweep_design.general_launches += grid is not None
+    forward_sweep_design.large_launches += taken == "large"
     _build.check(rc, "forward_sweep_design")
     return result
 
 
 forward_sweep_design.launches = 0
 forward_sweep_design.general_launches = 0
+forward_sweep_design.large_launches = 0
 
 # Steps of raw design a launch of the design mode reads: at S = 262,144 and
 # B = 9 a chunk of 32 steps is 302 MB, where the whole 365-step year would be

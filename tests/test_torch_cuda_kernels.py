@@ -31,8 +31,8 @@ from storage_tpu_torch.engines import intrinsic as intrinsic_engine
 from storage_tpu_torch.engines import lsmc as lsmc_engine
 from storage_tpu_torch.engines import tree as tree_engine
 from storage_tpu_torch.models import trinomial_tree
-from storage_tpu_torch.ops import (decision_kernel, forward_kernel, interp, intrinsic_kernel,
-                                   rng_kernel, tree_kernel)
+from storage_tpu_torch.ops import (_build, decision_kernel, forward_kernel, interp,
+                                   intrinsic_kernel, rng_kernel, tree_kernel)
 from storage_tpu_torch.valuation_inputs import prepare_valuation
 
 from _torch_intrinsic_case import START, curve, facility, snapped_steps
@@ -193,18 +193,35 @@ def test_decision_update_moments_deterministic(device):
 
 
 def test_grid_beyond_shared_memory_raises(device):
-    """Where even the step tables exceed the card's shared memory, kernels B
-    and E refuse with the limit in the message."""
+    """Where the step tables exceed the card's shared memory, kernels B and E
+    take their large route (the tables a tile at a time) in place of the
+    refusal they once gave: B to its plain version, E's step to kernel B on
+    its own regression, to the bit."""
     info = decision_kernel.kernel_info("moments", 100, 3, 9, device)
     g = info["max_grid"] + 1
+    limit = _build.smem_limit(device)
+    assert info["max_grid"] == decision_kernel.moments_max_grid(3, 9, limit)
+    assert decision_kernel.moments_route(g - 1, 3, 9, limit).name == "shared"
+    assert decision_kernel.moments_route(g, 3, 9, limit).name == "large"
     args = _decision_args(device, g, 64, 3, 3, basis=BASIS_9)
-    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
-        decision_kernel.decision_update_moments(*args)
+    before = decision_kernel.decision_update_moments.large_launches
+    got = decision_kernel.decision_update_moments(*args)
+    assert decision_kernel.decision_update_moments.large_launches == before + 1
+    want = decision_kernel.decision_update_moments_plain(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-4)
+    for k in (1, 2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5 * float(want[k].abs().max()))
     v, spot, factors, spot_prev, factors_prev, mean, std, _, _, idx_lo, w_hi, _, a, b, mono = args
-    xtx, xty = torch.eye(9, device=device), torch.ones((9, g), device=device)
-    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
-        decision_kernel.decision_update_fullstep(v, spot, factors, spot_prev, factors_prev, xtx,
-                                                 xty, mean, std, idx_lo, w_hi, a, b, mono)
+    dm = decision_kernel._standardised_design(mono, spot, factors, mean, std)
+    xtx, xty = dm.T @ dm, dm.T @ (v.T * 0.9)
+    got = decision_kernel.decision_update_fullstep(v, spot, factors, spot_prev, factors_prev, xtx,
+                                                   xty, mean, std, idx_lo, w_hi, a, b, mono)
+    assert decision_kernel.decision_update_fullstep.large_launches >= 1
+    step = decision_kernel.decision_update_moments(
+        v, spot, factors, spot_prev, factors_prev, got[3], got[4], got[3], got[4], idx_lo, w_hi,
+        interp.interp_coeffs(got[5], idx_lo, w_hi), a, b, mono)
+    for k in range(3):
+        assert torch.equal(got[k], step[k])
 
 
 def _update_args(device, g, s, d, kind, basis="1 + s + s**2 + s**3", seed=3):
@@ -249,15 +266,20 @@ def test_decision_update_deterministic(device):
 
 def test_decision_update_grid_beyond_shared_memory_raises(device):
     """Kernel D takes every grid its first design took at D=3, B=4 (2,421
-    points on an H100) and refuses beyond its own limit, naming it."""
+    points on an H100) on its shared route, and beyond that route's limit
+    its large route (the records a tile at a time) in place of the refusal
+    it once gave: both to the plain version's bits."""
     info = decision_kernel.kernel_info("update", 100, 3, 4, device)
     assert info["max_grid"] >= info["smem_limit"] // 96  # the first design: 96 B a grid point
+    assert info["max_grid"] == decision_kernel.update_max_grid(3, 4, _build.smem_limit(device))
     args = _update_args(device, info["max_grid"], 64, 3, "monotone")
     got = decision_kernel.decision_update(*args)
     assert torch.equal(got, decision_kernel.decision_update_plain(*args))
     args = _update_args(device, info["max_grid"] + 1, 64, 3, "monotone")
-    with pytest.raises(ValueError, match=f"at most G={info['max_grid']}"):
-        decision_kernel.decision_update(*args)
+    before = decision_kernel.decision_update.large_launches
+    got = decision_kernel.decision_update(*args)
+    assert decision_kernel.decision_update.large_launches == before + 1
+    assert torch.equal(got, decision_kernel.decision_update_plain(*args))
 
 
 BASIS_17 = BASIS_9 + " + s**3 + s**4 + s*x0 + s*x1 + s*x2 + x0*x1 + x0*x2 + x1*x2"
@@ -429,11 +451,104 @@ def test_forward_sweep(device, is_step, f, g, n):
 
 def test_forward_sweep_grid_beyond_shared_memory_raises(device):
     """Where two steps' tables exceed the card's shared memory, the sweep
-    refuses with the limit in the message."""
+    takes its large route (the coefficients read from device memory) in
+    place of the refusal it once gave: its plain version's paths."""
     info = forward_kernel.kernel_info(100, 9, 3, 3, 1, device)
     g = info["max_grid"] + 1
-    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
-        forward_kernel.forward_sweep(*_sweep_args(device, 2, 64, g, 3))
+    assert info["max_grid"] == forward_kernel.sweep_max_grid(9, 3, 3, 1,
+                                                             _build.smem_limit(device))
+    args = _sweep_args(device, 2, 64, g, 3)
+    before = forward_kernel.forward_sweep.large_launches
+    got = forward_kernel.forward_sweep(*args)
+    assert forward_kernel.forward_sweep.large_launches == before + 1
+    want = forward_kernel.forward_sweep_plain(*args)
+    for k in range(2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-3)
+
+
+def _sweep_mode_call(args, mode, route=None):
+    """Kernel C in ``mode`` ("monomial", "design", "general") on ``args``
+    (``_sweep_args``), with the per-sim panels, and its plain version:
+    (got, want, got panels, want panels)."""
+    n, s = args[6].shape
+    g = args[10].shape[2]
+    grid = _bunched_rows(args[0], g) if mode == "general" else None
+    panels = [torch.empty((n, s), device=args[6].device) for _ in range(4)]
+    want_panels = [torch.empty_like(p) for p in panels]
+    if mode == "design":
+        raw = torch.stack(tbasis.design_columns(args[11], args[6], args[7]), dim=1)
+        dargs = (*args[:7], raw, *args[8:11], *args[12:])
+        got = forward_kernel.forward_sweep_design(*dargs, panels=panels, route=route)
+        want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, design=raw)
+    else:
+        got = forward_kernel.forward_sweep(*args, panels=panels, grid=grid, route=route)
+        want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, grid=grid)
+    return got, want, panels, want_panels
+
+
+@pytest.mark.parametrize("mode", ["monomial", "design", "general"])
+def test_forward_sweep_large_route(device, mode):
+    """Kernel C's large route in each mode at G = 4,096, past every mode's
+    shared route, against its plain version (per-sim values to f32 rounding),
+    and forced at G = 100 to the shared route's bits."""
+    args = _sweep_args(device, 3, 300, 4_096, 3)
+    counter = forward_kernel.forward_sweep_design if mode == "design" else \
+        forward_kernel.forward_sweep
+    before = counter.large_launches
+    got, want, panels, want_panels = _sweep_mode_call(args, mode)
+    assert counter.large_launches == before + 1
+    for k in range(2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-3)
+    for row, want_row in zip(panels, want_panels):
+        torch.testing.assert_close(row, want_row, rtol=1e-6, atol=1e-3)
+    for k in (2, 3):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                   atol=1e-5 * float(want[k].abs().max()))
+    args = _sweep_args(device, 9, 300, 100, 3)
+    shared = _sweep_mode_call(args, mode, route="shared")
+    large = _sweep_mode_call(args, mode, route="large")
+    for x, y in zip((*shared[0], *shared[2]), (*large[0], *large[2])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("g", [100, 1_000, 4_096])
+def test_decision_large_routes(device, g):
+    """Kernels B, D (B = 4 and 9) and E on their large routes: at G = 4,096
+    against their plain versions, forced at smaller G to their shared
+    route's bits (B and E at G = 100 and 1,000; D at 1,000, where its tiles
+    split the grid)."""
+    args = _decision_args(device, g, 300, 3, 3, basis=BASIS_9)
+    v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, _, a, b, \
+        mono = args
+    dm = decision_kernel._standardised_design(mono, spot, factors, mean, std)
+    fargs = (v, spot, factors, spot_prev, factors_prev, dm.T @ dm, dm.T @ (v.T * 0.9), mean, std,
+             idx_lo, w_hi, a, b, mono)
+    prev = dict(mean_prev=mean_p, std_prev=std_p)
+    kinds = {"B": (decision_kernel.decision_update_moments, args, {}),
+             "E": (decision_kernel.decision_update_fullstep, fargs, prev)}
+    for basis in ("1 + s + s**2 + s**3", BASIS_9):
+        kinds[f"D{basis}"] = (decision_kernel.decision_update,
+                              _update_args(device, g, 300, 3, "random", basis=basis), {})
+    for name, (fn, fn_args, kw) in kinds.items():
+        if g == 4_096:
+            got = fn(*fn_args, **kw)
+            if name == "B":
+                want = decision_kernel.decision_update_moments_plain(*fn_args)
+                torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-4)
+            elif name == "E":
+                want = decision_kernel.decision_update_fullstep_plain(*fn_args, **kw)
+                for k in (3, 4, 5):
+                    torch.testing.assert_close(got[k], want[k], rtol=1e-4,
+                                               atol=1e-4 * float(want[k].abs().max()))
+            else:
+                assert torch.equal(got, decision_kernel.decision_update_plain(*fn_args))
+        elif not (name.startswith("D") and g == 100):  # one of D's tiles holds G = 100
+            shared = fn(*fn_args, route="shared", **kw)
+            shared = [t.clone() for t in shared] if isinstance(shared, tuple) else [shared.clone()]
+            large = fn(*fn_args, route="large", **kw)
+            large = list(large) if isinstance(large, tuple) else [large]
+            for x, y in zip(shared, large):
+                assert torch.equal(x, y), name
 
 
 def _bunched_rows(params, g):

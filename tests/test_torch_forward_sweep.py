@@ -34,7 +34,8 @@ torch.set_num_threads(1)
 
 BASIS = "1 + s + x0 + x0**2 + x1"
 SPOT_BASIS = "1 + s + s**2"
-CSRC = Path(tfk.__file__).resolve().parent.parent / "csrc" / "forward_kernel.cu"
+# The sweep body both of kernel C's translation units compile.
+CSRC = Path(tfk.__file__).resolve().parent.parent / "csrc" / "forward_sweep.cuh"
 
 
 def _case(seed, *, n=5, s=256, g=16, f=2, e=1, is_step=False, r=4, loss=0.02,
@@ -230,7 +231,7 @@ def test_packed_table_layout(b_dim, r, g):
         used = tfk.NUM_PARAMS + 2 * b_dim + 3 * r + (b_dim + general) * g
         assert table.shape == (n, width) and table.dtype == torch.float32 and table.is_contiguous()
         assert width % 4 == 0 and used <= width < used + 4
-        assert width == (used + 3) // 4 * 4  # csrc/forward_kernel.cu table_words
+        assert width == (used + 3) // 4 * 4  # csrc/forward_sweep.cuh table_words
         for name, x in tabs.items():
             size = x[0].numel()
             assert torch.equal(table[:, offsets[name]:offsets[name] + size], x.reshape(n, size))
