@@ -103,6 +103,26 @@
    of 4,096 bunched rows (C's general-grid mode), each with its launches,
    wall (median of 3) and peak memory; the headline and the custom grid at
    16,384 paths within 0.1 SE of their f64 answers on the same draws.
+6c. The DP grids phase ("dp_grids phase: N s", right after the grids
+   phase): the intrinsic DP and the tree past their shared routes.  The
+   Python route sizing of each DP equals its launch report at 14 shapes
+   (and an H100's limits: 29,034 / 14,506 intrinsic linear, 14,517 / 7,253
+   general, 11,613 / 5,802 cubic; the tree's step block 58,112 / 29,056,
+   19,371 / 9,686 cubic); each DP forced onto its large route gives its own
+   route's bits (the intrinsic DP on the headline's tables in three modes,
+   f32 and f64; the tree at T3 and T5); past the limits each large route
+   holds to its plain version (``compare_intrinsic``, ``compare_tree``: the
+   intrinsic DP at G=32,768 f32 and f64 on the headline's tables, on 10,001
+   rows of a fixed 0.5-unit step in f64 and cubic at G=6,144 in f64; the
+   tree at G=65,536 on T1's lattice in f32 and f64 and cubic at G=10,240 in
+   f64 on a random 8-row lattice) and is timed beside its plain version,
+   bound and launch report (the kernels line's ``intrinsic_dp_large`` and
+   ``tree_dp_large``).  Then, counters reset before each,
+   ``intrinsic_value`` at G=32,768 (f32) and on the 10,001 rows (f64),
+   ``trinomial_value`` at G=65,536 on T1 and ``three_factor_seasonal_value``
+   at G=32,768 on 16,384 paths, each with its wall, the DP kernel's own
+   time, its launches by route and peak memory; the last one's route line
+   names the intrinsic DP's large route.
 7. The full-step backward (``lsmc_core(fullstep=True)``): kernel E once per
    backward step and no kernel B, the NPV within 0.05 SE of the main path's;
    its backward seconds beside the kernel-B-plus-glue backward.
@@ -325,6 +345,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                                    "storage_tpu/ops/forward_kernel.py:372"),
     "forward_sweep_general_large": ("storage_tpu_torch/csrc/forward_kernel_large.cu",
                                     "storage_tpu/engines/lsmc.py:990"),
+    # The DPs' large routes (the DP grids phase): their rows in device memory.
+    "intrinsic_dp_large": ("storage_tpu_torch/csrc/intrinsic_kernel.cu",
+                           "storage_tpu/engines/intrinsic.py:193"),
+    "tree_dp_large": ("storage_tpu_torch/csrc/tree_kernel.cu", "storage_tpu/engines/tree.py:165"),
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bandwidth, and float32 outside the tensor cores, which counts a
@@ -568,9 +592,12 @@ def launch_ms(module, name: str, run, repeats: int):
     return launches_ms([(module, name)], run, repeats)[name]
 
 
-def launches_ms(targets, run, repeats: int) -> dict:
-    """``launch_ms`` of several wrappers, (module, name) each, timed in the
-    same runs: {name: (ms summed over a run, calls a run)}."""
+@contextlib.contextmanager
+def call_spans(targets):
+    """CUDA events around every call of the wrappers ``targets``, (module,
+    name) each, inside the block: yields {name: [(start, end), ...]}.  A
+    wrapper counts its launches on the name its module binds, the timing
+    wrapper inside the block: the counters are handed back on leaving it."""
     import functools
 
     import torch
@@ -591,23 +618,38 @@ def launches_ms(targets, run, repeats: int) -> dict:
             return result
         return timed
 
-    run()
     wrappers = {name: timing(name) for _, name in targets}
     for module, name in targets:
-        setattr(module, name, wrappers[name])  # the wrapper counts its launches on ``timed``
+        setattr(module, name, wrappers[name])
     try:
-        for _ in range(repeats):
-            run()
+        yield spans
     finally:
         for module, name in targets:
             inner, timed = inners[name], wrappers[name]
             setattr(module, name, inner)
-            for counter in ("launches", "general_launches", "large_launches"):
+            for counter in ("launches", "step_launches", "general_launches", "large_launches"):
                 if hasattr(inner, counter):
                     setattr(inner, counter, getattr(timed, counter))
+
+
+def spans_ms(spans) -> float:
+    """Milliseconds of a list of (start, end) CUDA events, summed (the device
+    synchronised first)."""
+    import torch
+
     torch.cuda.synchronize()
-    return {name: (sum(a.elapsed_time(b) for a, b in spans[name]) / repeats,
-                   len(spans[name]) // repeats) for name in spans}
+    return sum(a.elapsed_time(b) for a, b in spans)
+
+
+def launches_ms(targets, run, repeats: int) -> dict:
+    """``launch_ms`` of several wrappers, (module, name) each, timed in the
+    same runs: {name: (ms summed over a run, calls a run)}."""
+    run()
+    with call_spans(targets) as spans:
+        for _ in range(repeats):
+            run()
+    return {name: (spans_ms(spans[name]) / repeats, len(spans[name]) // repeats)
+            for name in spans}
 
 
 def backward_step_inputs(pkg, device):
@@ -3388,11 +3430,11 @@ def custom_grid(lower, upper):
     return lower + (upper - lower) * np.linspace(0.0, 1.0, 60 + int((upper - lower) // 250.0)) ** 1.3
 
 
-def intrinsic_case(pkg, device, case: str, scheme: str, g: int):
+def intrinsic_case(pkg, device, case: str, scheme: str, g: int, grid_calc=None):
     """The DP's tables of the headline facility, the 2F pin facility or the
     40-day facility that must end empty (``case``) on ``device`` in f64 and
-    f32, on linspace, fixed-spacing or custom rows: (valuation inputs,
-    {dtype: arrays})."""
+    f32, on linspace, fixed-spacing or custom rows (``grid_calc``'s, else
+    ``custom_grid``'s): (valuation inputs, {dtype: arrays})."""
     import numpy as np
     import torch
 
@@ -3416,7 +3458,7 @@ def intrinsic_case(pkg, device, case: str, scheme: str, g: int):
         grids = gridmod.inventory_grids_fixed_spacing(
             lo, hi, float(np.min(inputs.compiled.min_inv)), float(np.max(inputs.compiled.max_inv)), g)
     else:
-        grids = gridmod.inventory_grids_custom(lo, hi, custom_grid)
+        grids = gridmod.inventory_grids_custom(lo, hi, grid_calc or custom_grid)
     arrays = {dt: engine.build_engine_arrays(inputs.compiled, inputs.fwd, inputs.df_settle,
                                              inputs.df_flow, lo, hi, g, dt, device, grids)
               for dt in (torch.float64, torch.float32)}
@@ -3424,14 +3466,15 @@ def intrinsic_case(pkg, device, case: str, scheme: str, g: int):
 
 
 def compare_intrinsic(inputs, arrays, e: int, interpolation: str, uniform: bool,
-                      must_snap: bool = False) -> dict:
+                      must_snap: bool = False, f32: bool = True) -> dict:
     """The DP kernel in f64 and f32 against ``intrinsic_plain`` in f64 on the
     card.  f64: the NPV within 1e-10 relative and every profile column
     within 1e-6 absolute; a decision may differ only where the plain
     version's two best totals at that step lie within 1e-9 relative (at the
-    first step where the paths part).  f32: the NPV within 1e-5 relative of
-    the f64 answer.  ``must_snap``: the kernel's walk, f64 and f32, must
-    snap to the band at least once (``snapped_steps``)."""
+    first step where the paths part).  f32 (unless ``f32`` is False): the
+    NPV within 1e-5 relative of the f64 answer.  ``must_snap``: the
+    kernel's walk, f64 and f32, must snap to the band at least once
+    (``snapped_steps``)."""
     import torch
 
     from storage_tpu_torch.engines import intrinsic as ie
@@ -3442,10 +3485,10 @@ def compare_intrinsic(inputs, arrays, e: int, interpolation: str, uniform: bool,
             uniform)
     want = ie.intrinsic_plain(f64, *args)
     got = ie.intrinsic_core(f64, *args)
-    got32 = ie.intrinsic_core(arrays[torch.float32], *args)
+    got32 = ie.intrinsic_core(arrays[torch.float32], *args) if f32 else got
     npv = float(want.npv)
     rel64 = abs(float(got.npv) - npv) / abs(npv)
-    rel32 = abs(float(got32.npv) - npv) / abs(npv)
+    rel32 = abs(float(got32.npv) - npv) / abs(npv) if f32 else 0.0
     prof_err = max(float((getattr(got, k) - getattr(want, k)).abs().max())
                    for k in ie.IntrinsicEngineResult._fields[1:])
     dec_g, dec_w = got.inject_withdraw, want.inject_withdraw
@@ -3775,9 +3818,10 @@ def tree_tables(pkg, device, case: dict, grid_calc=None):
     return inputs, tables, gridmod.rows_uniform(grids)
 
 
-def compare_tree(inputs, tables, e: int, interpolation: str, uniform: bool) -> dict:
-    """The tree DP kernel in f64 and f32 against ``tree_plain`` in f64 on the
-    card.  f64: the NPV within 1e-10 relative and every value within 1e-9
+def compare_tree(inputs, tables, e: int, interpolation: str, uniform: bool,
+                 f32: bool = True) -> dict:
+    """The tree DP kernel in f64 and f32 (unless ``f32`` is False) against
+    ``tree_plain`` in f64 on the card.  f64: the NPV within 1e-10 relative and every value within 1e-9
     of its row's scale (the largest magnitude of its (t, node) row, at least
     1); along the centre, up and down branch paths the decisions read from
     the kernel's values may differ from those read from the plain version's
@@ -3796,7 +3840,7 @@ def compare_tree(inputs, tables, e: int, interpolation: str, uniform: bool) -> d
     args = (e, tfn, inputs.compiled.ratchet_is_step, interpolation, uniform)
     want = te.tree_plain(arrays, lattice, *args)
     got = te.tree_core(arrays, lattice, *args)
-    got32 = te.tree_core(*tables[torch.float32], *args)
+    got32 = te.tree_core(*tables[torch.float32], *args) if f32 else got
     m, w = lattice["band"].shape[1:]
     g, r = arrays["grids"].shape[1], arrays["ratchet_inv"].shape[1]
     mode = "cubic" if interpolation == "cubic" else "linear" if uniform else "general"
@@ -3808,7 +3852,7 @@ def compare_tree(inputs, tables, e: int, interpolation: str, uniform: bool) -> d
             for dt, res in ((torch.float64, got), (torch.float32, got32)))
     npv = float(want.npv)
     rel64 = abs(float(got.npv) - npv) / abs(npv)
-    rel32 = abs(float(got32.npv) - npv) / abs(npv)
+    rel32 = abs(float(got32.npv) - npv) / abs(npv) if f32 else 0.0
     scale = want.values.abs().amax(dim=-1).clamp(min=1.0)
     values_err = float(((got.values - want.values).abs().amax(dim=-1) / scale).max())
     n = inputs.num_steps
@@ -4572,6 +4616,398 @@ def grids_phase(pkg, device, counts, src, main) -> tuple:
     return kernels, report
 
 
+# ---- the DP grids phase: the intrinsic DP and the tree past their shared
+# routes.  Each DP takes a large route there (its rows in device memory),
+# chosen from shapes: ``intrinsic_kernel.intrinsic_route``,
+# ``tree_kernel.tree_route``.
+DP_GRID = 32_768          # the intrinsic DP in f32 on linear rows: past 29,034
+DP_STEP = 0.5             # the headline facility's 5,000 units on a fixed step: 10,001 rows
+DP_CUBIC_GRID = 6_144     # the intrinsic DP in f64, cubic: past 5,802
+DP_TREE_GRID = 65_536     # the tree in f32 on linear rows: past 58,112
+DP_TREE_CUBIC_GRID = 10_240  # the tree in f64, cubic: past 9,686
+DP_SIMS = 16_384
+H100_SMEM = 232_448
+# The shared routes' largest G on an H100 (R = 3, E = 0), {mode: (f32, f64)}:
+# the intrinsic DP's one block, the tree's large-slab block.
+INTRINSIC_LIMITS = {"linear": (29_034, 14_506), "general": (14_517, 7_253),
+                    "cubic": (11_613, 5_802)}
+STEPS_LIMITS = {"linear": (58_112, 29_056), "general": (58_112, 29_056),
+                "cubic": (19_371, 9_686)}
+DP_MODES = ("linear", "general", "cubic")
+
+
+def step_rows(step: float):
+    """A ``grid_calc`` of a fixed volume step from each band's lower bound,
+    capped at its upper (``IDoubleStateSpaceGridCalc``'s fixed spacing)."""
+    import numpy as np
+
+    def calc(lower, upper):
+        if upper <= lower:
+            return np.array([lower])
+        k = int(np.ceil((upper - lower) / step - 1e-9))
+        return np.minimum(lower + step * np.arange(k + 1), upper)
+    return calc
+
+
+def check_dp_routes(device) -> dict:
+    """The route rules' copies of the DPs' sizing against the built kernels'
+    launch reports, in the three modes and both dtypes (the intrinsic DP
+    also at two more (R, E)): the same largest G of each shared route, and
+    on an H100 the documented limits."""
+    import torch
+
+    from storage_tpu_torch.ops import _build, intrinsic_kernel, tree_kernel
+
+    limit = _build.smem_limit(device)
+    rows = []
+    for dt, label, itemsize in ((torch.float32, "f32", 4), (torch.float64, "f64", 8)):
+        for mode in DP_MODES:
+            documented = (INTRINSIC_LIMITS[mode][itemsize // 8], STEPS_LIMITS[mode][itemsize // 8])
+            rows.append((f"intrinsic {label} {mode} R=3 E=0",
+                         intrinsic_kernel.max_grid(3, 0, mode, itemsize, limit),
+                         intrinsic_kernel.intrinsic_info(dt, device, 100, 3, 0, mode)["max_grid"],
+                         documented[0]))
+            rows.append((f"tree {label} {mode}", tree_kernel.steps_max_grid(itemsize, mode, limit),
+                         tree_kernel.kernel_info(100, dt, mode, device)["max_grid"],
+                         documented[1]))
+    for dt, label, itemsize, r, e, mode in ((torch.float64, "f64", 8, 6, 2, "general"),
+                                            (torch.float32, "f32", 4, 2, 1, "cubic")):
+        rows.append((f"intrinsic {label} {mode} R={r} E={e}",
+                     intrinsic_kernel.max_grid(r, e, mode, itemsize, limit),
+                     intrinsic_kernel.intrinsic_info(dt, device, 100, r, e, mode)["max_grid"],
+                     None))
+    bad = [row for row in rows if row[1] != row[2]
+           or (limit == H100_SMEM and row[3] is not None and row[1] != row[3])]
+    log(f"DP routes: the shared routes' largest G from the Python sizing equal the kernels' "
+        f"launch reports at {len(rows) - len(bad)} of {len(rows)} shapes (smem limit {limit} B): "
+        + "; ".join(f"{name}: {mine}" for name, mine, _, _ in rows))
+    if bad:
+        raise AssertionError(f"DP route sizing disagrees with the launch reports or the H100's "
+                             f"limits: {bad}")
+    return dict(smem_limit=limit, shapes={name: mine for name, mine, _, _ in rows})
+
+
+def forced_dp_bits(pkg, device) -> dict:
+    """Each DP forced onto its large route at the headline's shapes gives
+    its own route's bits: the intrinsic DP on the headline's tables at G=100
+    (linear, fixed-spacing rows, cubic; f32 and f64), the tree at T3 (its
+    cluster route) and T5 (its large-slab route)."""
+    import torch
+
+    from storage_tpu_torch.engines import intrinsic as ie
+    from storage_tpu_torch.engines import tree as te
+
+    same = {}
+    for mode, scheme in (("linear", "linspace"), ("general", "fixed_spacing"),
+                         ("cubic", "linspace")):
+        inputs, arrays = intrinsic_case(pkg, device, "headline", scheme, NUM_GRID)
+        args = (inputs.starting_inventory, 0, inputs.compiled.terminal_value, False,
+                "cubic" if mode == "cubic" else "linear", scheme == "linspace")
+        for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+            own = ie.intrinsic_core(arrays[dt], *args)
+            large = ie.intrinsic_core(arrays[dt], *args, route="large")
+            same[f"intrinsic {mode} {label}"] = all(
+                torch.equal(getattr(own, k), getattr(large, k))
+                for k in ie.IntrinsicEngineResult._fields)
+    for name, case in (("T3", headline_tree_case(pkg, 5.5)), ("T5", wide_tree_case(pkg))):
+        inputs, tables, _ = tree_tables(pkg, device, case)
+        for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+            run = lambda route=None: te.tree_core(*tables[dt], 0, inputs.compiled.terminal_value,  # noqa: E731
+                                                  False, route=route).values
+            same[f"tree {name} {label}"] = torch.equal(run(), run("large"))
+        del tables
+    log(f"DP large routes forced at the headline's shapes, the same bits as their own routes: "
+        f"{same}")
+    if not all(same.values()):
+        raise AssertionError(f"a DP's large route parts from its own route's bits: {same}")
+    return same
+
+
+def random_lattice_tables(pkg, device, m: int, g: int, n: int, w: int = 3, seed: int = 5):
+    """A small random lattice (m node rows, each row's band of w columns
+    summing to 1; tests/test_torch_cuda_kernels.py _wide_lattice) on the 2F
+    facility's tables over its last n steps at g linspace points, in f64:
+    (valuation inputs, {f64: (arrays, lattice)})."""
+    import numpy as np
+    import torch
+
+    from storage_tpu_torch import grid as gridmod
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.valuation_inputs import prepare_valuation
+
+    storage, _, fwd, rates, settle = reg_case(pkg)
+    inputs = prepare_valuation(storage, storage.end - n, 100.0 * n, fwd, rates, settle)
+    lo, hi = inputs.inventory_lower, inputs.inventory_upper
+    arrays = engine.build_engine_arrays(inputs.compiled, inputs.fwd, inputs.df_settle,
+                                        inputs.df_flow, lo, hi, g, torch.float64, device,
+                                        gridmod.inventory_grids(lo, hi, g))
+    rng = np.random.default_rng(seed)
+    band = rng.uniform(0.1, 1.0, (n, m, w))
+    band /= band.sum(axis=-1, keepdims=True)
+    start = np.clip(np.arange(m) - w // 2, 0, m - w)
+    as_t = lambda a, dt=torch.float64: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+    lattice = {"spot": as_t(20.0 + 10.0 * rng.uniform(size=(n + 1, m))), "band": as_t(band),
+               "band_start": as_t(np.broadcast_to(start, (n, m)).copy(), torch.int64),
+               "q0": as_t(np.full(m, 1.0 / m)),
+               "dest_centre": as_t(np.arange(m), torch.int64)}
+    return inputs, {torch.float64: (arrays, lattice)}
+
+
+def check_large_dps(pkg, device) -> tuple:
+    """Past the shared routes' limits, each large route against its plain
+    version (``compare_intrinsic``, ``compare_tree``: f64 NPV within 1e-10
+    relative, profile within 1e-6, flips only on a near-tie; f32 within
+    1e-5 of the f64 answer), its route asserted from the shape: the
+    intrinsic DP in f32 (and f64) on the headline's tables at G=32,768, in
+    f64 on its 10,001 fixed-step rows and in f64 cubic on the 2F facility at
+    G=6,144; the tree in f32 (and f64) on T1's lattice at G=65,536 and in f64
+    cubic on a random 8-row lattice at G=10,240.  Then the two kernel rows:
+    each large route timed (CUDA events around its wrapper's launches, and
+    through the engine's core) at the first case of each DP with its plain
+    version, its bound and its launch report.  Returns (kernel rows,
+    checks)."""
+    import torch
+
+    from storage_tpu_torch.engines import intrinsic as ie
+    from storage_tpu_torch.engines import tree as te
+    from storage_tpu_torch.ops import _build, intrinsic_kernel, tree_kernel
+
+    limit = _build.smem_limit(device)
+    checks, rows = {}, {}
+    cases = {  # name: (facility, scheme, G, grid_calc, interpolation, f32 checked)
+        "intrinsic_f32_linear_32768": ("headline", "linspace", DP_GRID, None, "linear", True),
+        "intrinsic_f64_general_10001": ("headline", "custom", NUM_GRID, step_rows(DP_STEP),
+                                        "linear", False),
+        "intrinsic_f64_cubic_6144": ("2F", "linspace", DP_CUBIC_GRID, None, "cubic", False),
+    }
+    for name, (case, scheme, g, grid_calc, interpolation, f32) in cases.items():
+        inputs, arrays = intrinsic_case(pkg, device, case, scheme, g, grid_calc)
+        width = arrays[torch.float64]["grids"].shape[1]
+        mode = ie.kernel_mode(interpolation, scheme == "linspace")
+        dtypes = (torch.float32, torch.float64) if f32 else (torch.float64,)
+        routes = {str(dt)[6:]: intrinsic_kernel.intrinsic_route(
+            width, arrays[dt]["ratchet_inv"].shape[1], 0, mode, dt.itemsize, limit,
+            inputs.num_steps) for dt in dtypes}
+        t0 = time.perf_counter()
+        checks[name] = c = compare_intrinsic(inputs, arrays, 0, interpolation,
+                                             scheme == "linspace", f32=f32)
+        c.update(routes=routes, grid=width, s=time.perf_counter() - t0)
+        log(f"intrinsic DP [{name}: N={inputs.num_steps}, G={width}, {mode}; routes {routes}]: "
+            f"f64 NPV {c['npv_f64']!r} vs plain {c['npv_f64_plain']!r} (rel "
+            f"{c['npv_rel_err_f64']:.2e}, tolerance 1e-10), profile max abs err "
+            f"{c['profile_max_abs_err_f64']:.2e} (tolerance 1e-6), {c['decision_flips_f64']} "
+            f"decision flips (first on a near-tie: {c['first_flip_on_near_tie']})"
+            + (f"; f32 NPV {c['npv_f32']!r} (rel {c['npv_rel_err_f32']:.2e}, tolerance 1e-5)"
+               if f32 else "") + f"; {c['s']:.1f} s")
+        if not c["ok"] or set(routes.values()) != {"large"}:
+            raise AssertionError(f"intrinsic DP {name}: {c}")
+        if name == "intrinsic_f32_linear_32768":
+            tfn, n = inputs.compiled.terminal_value, inputs.num_steps
+            r = arrays[torch.float32]["ratchet_inv"].shape[1]
+            row = dict(max_abs_err=c["profile_max_abs_err_f64"], grid=width)
+            for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+                run = lambda: ie.intrinsic_core(arrays[dt], 100.0, 0, tfn, False)  # noqa: E731
+                row[f"core_ms_{label}"] = cuda_ms(run, 5)
+                # The wrapper's launch alone, by CUDA events around it (the
+                # profiler drops events this late in the run).
+                row[f"ms_{label}"] = launch_ms(intrinsic_kernel, "intrinsic_dp", run, 5)[0]
+            row["ms"] = row["ms_f32"]
+            row["plain_ms"] = cuda_ms(lambda: ie.intrinsic_plain(arrays[torch.float32], 100.0, 0,
+                                                                 tfn, False), 1)
+            num_bytes, ops = intrinsic_work(n, width, r, 3, 4)
+            row.update(bound(num_bytes, 0.0, ops))
+            row["launch"] = {label: intrinsic_kernel.intrinsic_info(dt, device, width, r, 0,
+                                                                    "linear")
+                             for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
+            row["chain_step_ns"] = tree_kernel.chain_step_ns("block", device)
+            row["chain_floor_ms"] = (2 * n - 1) * row["chain_step_ns"] / 1e6
+            # The link of a grid that spans the card: what a design spreading
+            # each step's grid points over every SM would pay a step.
+            row["grid_link_ns"] = tree_kernel.chain_step_ns("grid", device)
+            rows["intrinsic_dp_large"] = row
+            f32r = row["launch"]["f32"]
+            log(f"intrinsic DP large route at N={n}, G={width}: {row['ms_f32']:.4f} ms f32, "
+                f"{row['ms_f64']:.4f} ms f64 a launch (CUDA events around intrinsic_dp), "
+                f"{row['core_ms_f32']:.4f} / {row['core_ms_f64']:.4f} ms through intrinsic_core; "
+                f"plain "
+                f"{row['plain_ms']:.1f} ms (f32); bound {row['bound_ms']:.6f} ms "
+                f"({row['bound_by']}); chain floor {row['chain_floor_ms']:.4f} ms ({2 * n - 1} x "
+                f"{row['chain_step_ns']:.1f} ns; a grid-wide link {row['grid_link_ns']:.1f} ns); "
+                f"one block of {f32r['large_threads']} threads, "
+                f"{f32r['large_registers']} registers f32 / "
+                f"{row['launch']['f64']['large_registers']} f64, "
+                f"{f32r['large_local_bytes']} / {row['launch']['f64']['large_local_bytes']} "
+                f"bytes local (spills), {f32r['large_smem_bytes']} bytes shared f32, "
+                f"{f32r['large_blocks_per_sm']} blocks/SM, {f32r['large_chunk']} steps staged a "
+                f"chunk")
+        del arrays
+        torch.cuda.empty_cache()
+    t1 = csharp_tree_case(pkg)
+    for name, f32 in (("tree_f32_linear_65536", True), ("tree_f64_cubic_10240", False)):
+        t0 = time.perf_counter()
+        if f32:
+            inputs, tables, uniform = tree_tables(pkg, device, dict(t1, g=DP_TREE_GRID))
+            interpolation = "linear"
+        else:
+            inputs, tables = random_lattice_tables(pkg, device, 8, DP_TREE_CUBIC_GRID, 4)
+            uniform, interpolation = True, "cubic"
+        arrays, lattice = tables[torch.float64]
+        (m, w), g = lattice["band"].shape[1:], arrays["grids"].shape[1]
+        mode = ie.kernel_mode(interpolation, uniform)
+        routes = {str(dt)[6:]: tree_kernel.tree_route(m, g, w, 0, mode, dt, device)
+                  for dt in tables}
+        checks[name] = c = compare_tree(inputs, tables, 0, interpolation, uniform, f32=f32)
+        c.update(routes=routes, grid=g, s=time.perf_counter() - t0)
+        log(f"tree DP [{name}: N={inputs.num_steps}, M={m}, W={w}, G={g}, {mode}; routes "
+            f"{routes}]: f64 NPV {c['npv_f64']!r} vs plain {c['npv_f64_plain']!r} (rel "
+            f"{c['npv_rel_err_f64']:.2e}, tolerance 1e-10), values {c['values_rel_err_f64']:.2e} "
+            f"of their rows' scale (tolerance 1e-9), {c['paths_parted']} of 3 branch paths "
+            f"parted (first on a near-tie: {c['first_parting_on_near_tie']})"
+            + (f"; f32 NPV {c['npv_f32']!r} (rel {c['npv_rel_err_f32']:.2e}, tolerance 1e-5)"
+               if f32 else "") + f"; {c['s']:.1f} s")
+        if not c["ok"] or set(routes.values()) != {"large"}:
+            raise AssertionError(f"tree DP {name}: {c}")
+        if f32:
+            tfn, n, r = inputs.compiled.terminal_value, inputs.num_steps, arrays[
+                "ratchet_inv"].shape[1]
+            row = dict(max_abs_err=c["values_max_abs_err_f64"], grid=g)
+            for dt, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+                run = lambda: te.tree_core(*tables[dt], 0, tfn, False)  # noqa: E731
+                # tree_core also values the facility's terminal function on
+                # [M, G]; the wrapper's launches alone by CUDA events.
+                row[f"core_ms_{label}"] = cuda_ms(run, 5)
+                row[f"ms_{label}"] = launch_ms(tree_kernel, "tree_dp", run, 5)[0]
+            row["ms"] = row["ms_f32"]
+            row["plain_ms"] = cuda_ms(lambda: te.tree_plain(*tables[torch.float32], 0, tfn,
+                                                            False), 1)
+            num_bytes, ops = tree_work(n, m, g, w, r, 3, 4)
+            row.update(bound(num_bytes, 0.0, ops))
+            row["launch"] = {label: tree_kernel.kernel_info(g, dt, "linear", device, m, w)
+                             for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
+            rows["tree_dp_large"] = row
+            f32r = row["launch"]["f32"]
+            log(f"tree DP large route at N={n}, M={m}, G={g}: {row['ms_f32']:.4f} ms f32, "
+                f"{row['ms_f64']:.4f} ms f64 a valuation's {n} steps (CUDA events around "
+                f"tree_dp), {row['core_ms_f32']:.4f} / {row['core_ms_f64']:.4f} ms through "
+                f"tree_core; plain "
+                f"{row['plain_ms']:.1f} ms (f32); bound {row['bound_ms']:.6f} ms "
+                f"({row['bound_by']}); blocks of {f32r['large_threads']} threads, "
+                f"{f32r['large_registers']} registers (decide) and {f32r['large_ev_registers']} "
+                f"(ev) f32 / {row['launch']['f64']['large_registers']} and "
+                f"{row['launch']['f64']['large_ev_registers']} f64, "
+                f"{f32r['large_local_bytes']} bytes local (spills), "
+                f"{f32r['large_blocks_per_sm']} decide blocks/SM, "
+                f"{f32r['large_launches_per_step']} launches a step")
+        del tables, arrays, lattice
+        torch.cuda.empty_cache()
+    return rows, checks
+
+
+def dp_api_runs(pkg, device, counts) -> dict:
+    """The DPs' large routes through the API, each with the launch counters
+    reset just before it: ``intrinsic_value`` at G=32,768 in f32 and on the
+    10,001 fixed-step rows in f64, ``trinomial_value`` at G=65,536 in f32
+    on T1, and ``three_factor_seasonal_value`` at G=32,768 on 16,384 paths
+    (seeds 11/13), whose log line shows the intrinsic DP's route beside B's
+    and C's.  Each: its answer, wall (host clock, synchronised), the DP
+    kernel's own time (CUDA events around its wrapper), launches by route
+    and peak device memory."""
+    import logging
+    import math as _m
+
+    import torch
+
+    from storage_tpu_torch.ops import intrinsic_kernel, tree_kernel
+
+    storage, start, fwd = bench_case(pkg)
+    t1 = csharp_tree_case(pkg)
+    routes_logged = []
+
+    class Routes(logging.Handler):
+        def emit(self, record):
+            if "Kernel routes" in record.getMessage():
+                routes_logged.append(record.getMessage())
+
+    paths = {
+        "intrinsic_value_f32_32768": (lambda: pkg.intrinsic_value(
+            storage, start, 100.0, fwd, 0.02, None, num_inventory_grid_points=DP_GRID,
+            dtype=torch.float32, device=device).npv, dict(intrinsic_dp=1, intrinsic_dp_large=1)),
+        "intrinsic_value_f64_step_rows": (lambda: pkg.intrinsic_value(
+            storage, start, 100.0, fwd, 0.02, None, grid_calc=step_rows(DP_STEP),
+            dtype=torch.float64, device=device).npv, dict(intrinsic_dp=1, intrinsic_dp_large=1)),
+        "trinomial_value_f32_65536": (lambda: tree_value(pkg, dict(t1, g=DP_TREE_GRID), device,
+                                                         torch.float32),
+                                      dict(tree_dp_large=2 * tree_steps(t1))),
+        "three_factor_f32_32768": (lambda: pkg.three_factor_seasonal_value(
+            storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, DP_SIMS, BASIS, False,
+            seed=11, fwd_sim_seed=13, num_inventory_grid_points=DP_GRID, dtype=torch.float32,
+            device=device, snap_interp=True),
+                                   dict(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                                        decision_update_moments_large=NUM_STEPS, forward_sweep=1,
+                                        forward_sweep_large=1, intrinsic_dp=1,
+                                        intrinsic_dp_large=1)),
+    }
+    report = {}
+    handler = Routes()
+    logger = logging.getLogger("storage_tpu_torch.multi_factor")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        for name, (run, expected) in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            counts.reset()
+            with call_spans([(intrinsic_kernel, "intrinsic_dp"), (tree_kernel, "tree_dp")]) as sp:
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = counts.read()
+            kernel_ms = {k: spans_ms(v) for k, v in sp.items() if v}
+            row = dict(wall_s=wall, kernel_ms=kernel_ms, launches=launches,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if name.startswith("three_factor"):
+                row.update(npv=out.npv, se=out.val_sim_standard_error,
+                           intrinsic_npv=out.intrinsic_npv, routes_logged=list(routes_logged))
+                finite = _m.isfinite(out.npv) and out.val_sim_standard_error > 0
+            else:
+                row["npv"] = float(out)
+                finite = _m.isfinite(row["npv"])
+            report[name] = row
+            log(f"DP grids API {name}: NPV {row['npv']!r}; wall {wall:.3f} s, the DP kernel's "
+                f"own {kernel_ms} ms (CUDA events around its wrapper), peak device memory "
+                f"{row['peak_gb']:.2f} GB; launches {launches}"
+                + (f"; {routes_logged[-1] if routes_logged else 'no route line logged'}"
+                   if name.startswith("three_factor") else ""))
+            if launches != counts.expect(**expected):
+                raise AssertionError(f"{name}: launch counts {launches}, expected {expected}")
+            if not finite:
+                raise AssertionError(f"{name}: the answer {out} is not finite")
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    if not any("intrinsic intrinsic_dp (large)" in line for line in routes_logged):
+        raise AssertionError(f"the valuation's route line lacks the intrinsic DP's large route: "
+                             f"{routes_logged}")
+    return report
+
+
+def dp_grids_phase(pkg, device, counts) -> tuple:
+    """The DP grids phase: the route sizing, each large route forced at the
+    headline's shapes, each past its limits against its plain version and
+    timed, the API runs.  Returns (kernel rows, report)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    report = {"routes": check_dp_routes(device), "forced": forced_dp_bits(pkg, device)}
+    kernels, report["checks"] = check_large_dps(pkg, device)
+    report["api"] = dp_api_runs(pkg, device, counts)
+    torch.cuda.empty_cache()
+    return kernels, report
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Kernels B, D and C (both modes) replaced by their plain versions
@@ -4735,6 +5171,9 @@ def launch_counts():
                          decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp,
                          tree_kernel.tree_dp,
                          ("tree_dp_steps", tree_kernel.tree_dp, "step_launches"),
+                         # The DPs' large routes, counted in intrinsic_dp's launches too.
+                         ("intrinsic_dp_large", intrinsic_kernel.intrinsic_dp, "large_launches"),
+                         ("tree_dp_large", tree_kernel.tree_dp, "large_launches"),
                          forward_kernel.forward_sweep_design,
                          forward_kernel.forward_sweep_vjp,
                          ("forward_sweep_general", forward_kernel.forward_sweep,
@@ -5307,6 +5746,18 @@ def main(argv) -> int:
     kernels["decision_update_large"]["b9_launches"] = grids["generic"]["launches"][
         "decision_update_large"]
 
+    # ---- the DP grids phase: the intrinsic DP and the tree past their
+    # shared routes.
+    t0 = time.perf_counter()
+    dp_kernels, report["dp_grids"] = dp_grids_phase(stt, device, counts)
+    report["dp_grids_phase_s"] = time.perf_counter() - t0
+    log(f"dp_grids phase: {report['dp_grids_phase_s']:.1f} s")
+    kernels.update(dp_kernels)
+    dp_api = report["dp_grids"]["api"]
+    launches.update(
+        intrinsic_dp_large=dp_api["intrinsic_value_f32_32768"]["launches"]["intrinsic_dp_large"],
+        tree_dp_large=dp_api["trinomial_value_f32_65536"]["launches"]["tree_dp_large"])
+
     # ---- the streamed engine (the round trip's frames feed its host-fed check).
     t0 = time.perf_counter()
     report["streaming"] = streaming_phase(stt, device, counts, res, src, from_sims, card)
@@ -5390,7 +5841,9 @@ def main(argv) -> int:
                  decision_update_moments_large="grid_4096", decision_update_large="grid_4096_spot",
                  decision_update_fullstep_large="grid_4096_fullstep",
                  forward_sweep_large="grid_4096", forward_sweep_design_large="grid_4096_generic",
-                 forward_sweep_general_large="grid_4096_custom")
+                 forward_sweep_general_large="grid_4096_custom",
+                 intrinsic_dp_large="intrinsic_value_32768",
+                 tree_dp_large="trinomial_value_t1_65536")
 
     phases = phase_breakdown(stt, device)
     log(f"phases: host prep {phases['host_prep_s']:.4f} s, simulate {phases['simulate_s']:.4f} s, "
@@ -5438,6 +5891,9 @@ def main(argv) -> int:
                                        "b9_ms", "b9_plain_ms", "b9_bound_ms", "b9_max_abs_err",
                                        "b9_blocks_per_sm", "b9_launches"),
              "decision_update_fullstep_large": ("tile", "blocks_per_sm"),
+             "intrinsic_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64",
+                                    "chain_floor_ms", "grid_link_ns", "launch"),
+             "tree_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64", "launch"),
              **{name: ("steps", "smem_bytes", "blocks_per_sm", "registers") for name in (
                  "forward_sweep_large", "forward_sweep_design_large",
                  "forward_sweep_general_large")}}

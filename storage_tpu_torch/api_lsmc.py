@@ -610,8 +610,9 @@ def _lsmc_calc(
         num_grid = num_grid_points if grids is None else grids.shape[1]
         routes = lsmc_engine.grid_routes(
             num_grid, int(extra_decisions or 0), monomials, sims.num_factors,
-            inputs.compiled.ratchet_inv.shape[1], not uniform_grids, _build.smem_limit(device))
-        logger.info("Kernel routes at G=%d: backward %s, forward %s.", num_grid,
+            inputs.compiled.ratchet_inv.shape[1], not uniform_grids, _build.smem_limit(device),
+            inputs.num_steps, dtype.itemsize)
+        logger.info("Kernel routes at G=%d: intrinsic %s, backward %s, forward %s.", num_grid,
                     *(f"{name} ({route})" for name, route in routes.values()))
 
     stream = _route(sims, len(inputs.periods) - 1, num_grid_points, sim_data_returned,

@@ -36,8 +36,24 @@
 //     ratchets and vs rows (the moments and grid rows where the mode reads
 //     them) into shared memory by cp.async, two chunks in flight, while warp
 //     0 walks the chunk before from there.
-// Shared memory bounds G: intrinsic_info reports the largest G in each mode,
-// and the wrapper raises beyond it.
+// Shared memory bounds G on this route: intrinsic_info reports the largest G
+// in each mode (max_grid).
+//
+// The large route (intrinsic_dp_large_kernel), for a G beyond max_grid, or
+// whose decision tables' scratch would pass the wrapper's cap: the same one
+// block and the same chain, with no row in shared memory and no table.
+//   - backward: each grid point of step t is a whole decide() against the
+//     forward, as the tree's step kernels do (decide() and the table's
+//     entry_total give the same bits, tree_kernel.cu), v_{t+1} read from vs
+//     in device memory through L1 and L2, v_t written there; in cubic mode
+//     the moments go to moments [N+1, G] and block_moments' rhs to a [G-2]
+//     device scratch.
+//   - forward: as above, but the chunks stage only the steps' scalars and
+//     ratchets: the walk reads a few entries of the vs, moments and grid
+//     rows a step, from device memory.
+// Its bound is the same chain, with (N-1)·G decide()s spread over 1,024
+// threads of one SM: at G in the tens of thousands the work, not the
+// chain, bounds it.
 #include <algorithm>
 #include <initializer_list>
 #include <cstdint>
@@ -231,8 +247,9 @@ __device__ void backward(const Problem<T>& p, const Plan& l, T* base) {
   }
 }
 
-// Steps [c·K, c·K + K) of the forward walk into chunk buffer c & 1.
-template <typename T>
+// Steps [c·K, c·K + K) of the forward walk into chunk buffer c & 1: their
+// scalars and ratchets, and unless kLarge their next rows.
+template <bool kLarge, typename T>
 __device__ void stage_chunk(const Problem<T>& p, const Plan& l, int c, T* base) {
   const int t0 = c * l.chunk, t1 = min(p.N, t0 + l.chunk);
   T* buf = base + (c & 1) * static_cast<size_t>(l.chunk) * l.f_step;
@@ -240,33 +257,39 @@ __device__ void stage_chunk(const Problem<T>& p, const Plan& l, int c, T* base) 
     T* dst = buf + static_cast<size_t>(t - t0) * l.f_step;
     const size_t next = static_cast<size_t>(t + 1) * p.G;
     stage_tables(p, t, dst);
-    stage_copy(dst + l.f_v, p.vs + next, p.G);
-    if (l.f_mom >= 0) stage_copy(dst + l.f_mom, p.moments + next, p.G);
-    if (l.f_grid >= 0) stage_copy(dst + l.f_grid, p.grids + next, p.G);
+    if constexpr (!kLarge) {
+      stage_copy(dst + l.f_v, p.vs + next, p.G);
+      if (l.f_mom >= 0) stage_copy(dst + l.f_mom, p.moments + next, p.G);
+      if (l.f_grid >= 0) stage_copy(dst + l.f_grid, p.grids + next, p.G);
+    }
   }
 }
 
 // The forward walk of the inventory from inv0: warp 0 walks each staged
-// chunk while the block stages the next.
-template <int kMode, typename T>
+// chunk while the block stages the next.  kLarge: the next rows are read
+// from device memory.
+template <int kMode, bool kLarge, typename T>
 __device__ void forward_walk(const Problem<T>& p, const Plan& l, T* base) {
   const int N = p.N, chunks = (N + l.chunk - 1) / l.chunk;
   // 16 units in the last place (engines/intrinsic.py snap_to_band).
   const T snap_ulps = ldexp(T(1), sizeof(T) == 4 ? -19 : -48);
   T inv = p.inv0;
-  stage_chunk(p, l, 0, base);
+  stage_chunk<kLarge>(p, l, 0, base);
   for (int c = 0; c < chunks; ++c) {
     // Chunk c has landed, and warp 0 is done with chunk c - 1's buffer.
     cp_async_wait_all();
     __syncthreads();
-    if (c + 1 < chunks) stage_chunk(p, l, c + 1, base);
+    if (c + 1 < chunks) stage_chunk<kLarge>(p, l, c + 1, base);
     if (threadIdx.x >= 32) continue;
     const T* buf = base + (c & 1) * static_cast<size_t>(l.chunk) * l.f_step;
     for (int t = c * l.chunk; t < min(N, (c + 1) * l.chunk); ++t) {
       const T* s = buf + static_cast<size_t>(t - c * l.chunk) * l.f_step;
-      const StepView<T> st = view<kMode>(p, s, l.f_grid >= 0 ? s + l.f_grid
-                                                      : p.grids + static_cast<size_t>(t + 1) * p.G,
-                                  s + l.f_v, l.f_mom >= 0 ? s + l.f_mom : nullptr);
+      const size_t row = static_cast<size_t>(t + 1) * p.G;  // the next step's rows
+      const StepView<T> st =
+          kLarge ? view<kMode>(p, s, p.grids + row, p.vs + row,
+                               kMode == MODE_CUBIC ? p.moments + row : nullptr)
+                 : view<kMode>(p, s, l.f_grid >= 0 ? s + l.f_grid : p.grids + row, s + l.f_v,
+                               l.f_mom >= 0 ? s + l.f_mom : nullptr);
       const Choice<T> ch = decide_lanes(st, s[S_FWD], inv, l.walk_lanes);
       const T loss = mul(s[S_LOSS_PCNT], inv);
       T next = sub(add(inv, ch.decision), loss);
@@ -296,7 +319,74 @@ __global__ void __launch_bounds__(kThreads, 1) intrinsic_dp_kernel(Problem<T> p,
   backward<kMode>(p, l, base);
   __syncthreads();
   // Forward walk of the inventory.
-  forward_walk<kMode>(p, l, base);
+  forward_walk<kMode, false>(p, l, base);
+}
+
+// ---- the large route: no row in shared memory.
+
+// The large route's plan: the block, and the forward walk's two chunks of K
+// steps' scalars and ratchets in shared memory (at least one step, at most
+// kMaxChunk, within kForwardBudget where one step fits it).
+template <typename T>
+Plan large_plan(int N, int R, int E) {
+  Plan p = {};
+  p.threads = kThreads;
+  p.walk_lanes = pow2_at_least(2 * E + 3);
+  p.tab = kScalarSlots + 3 * R;
+  p.tab += p.tab & 1;
+  p.f_step = p.tab;
+  p.f_v = p.f_grid = p.f_mom = -1;
+  const size_t budget = kForwardBudget / sizeof(T);
+  p.chunk = static_cast<int>(std::min<size_t>(
+      {static_cast<size_t>(kMaxChunk), static_cast<size_t>(N),
+       std::max<size_t>(1, budget / (2 * static_cast<size_t>(p.f_step)))}));
+  p.bytes = sizeof(T) * 2 * static_cast<size_t>(p.chunk) * p.f_step;
+  return p;
+}
+
+// The backward over t = N-1 .. 1 on rows in device memory: each grid point
+// of step t decided whole against the forward, v_{t+1} read from vs and v_t
+// written to it (in cubic mode the moments to moments, block_moments' rhs to
+// the [G-2] scratch rhs).  Every row is written by some threads of this one
+// block and read by others only after a __syncthreads(), which makes the
+// block's device-memory stores before it visible to its loads after it: the
+// loads are plain ones through L1 (no pointer here is __restrict__, so none
+// is a non-coherent ld.global.nc), and L1 is the one SM's own.
+template <int kMode, typename T>
+__device__ void backward_large(const Problem<T>& p, T* rhs) {
+  const int N = p.N, G = p.G;
+  constexpr bool cubic = kMode == MODE_CUBIC;
+  const size_t g_ = static_cast<size_t>(G);
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    p.vs[N * g_ + g] = p.v_end[g];
+    p.vs[g] = T(0);  // grid[0] is the known inventory: valued by the forward walk
+  }
+  __syncthreads();  // v_N before its moments and step N-1 read it
+  if (cubic) block_moments(p.grids + N * g_, p.vs + N * g_, p.solver, rhs, p.moments + N * g_, G);
+  for (int t = N - 1; t >= 1; --t) {
+    const size_t row = static_cast<size_t>(t) * p.R, next = (t + 1) * g_;
+    const StepView<T> st{p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS, p.r_inv + row,
+                         p.r_min + row, p.r_max + row, p.R, p.is_step, p.E, G, kMode,
+                         p.grids + next, p.vs + next, cubic ? p.moments + next : nullptr};
+    const T* grid = p.grids + t * g_;
+    T* v = p.vs + t * g_;
+    for (int g = threadIdx.x; g < G; g += blockDim.x) v[g] = decide(st, st.s[S_FWD], grid[g]).total;
+    // v_t, written by every thread, before its moments and step t-1 read
+    // it (block_moments ends with a barrier of its own: the moments before
+    // step t-1).
+    __syncthreads();
+    if (cubic) block_moments(grid, v, p.solver, rhs, p.moments + t * g_, G);
+  }
+}
+
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+    intrinsic_dp_large_kernel(Problem<T> p, Plan l, T* rhs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* base = reinterpret_cast<T*>(smem_raw);
+  backward_large<kMode>(p, rhs);
+  __syncthreads();  // every row of vs (and moments) before the walk reads it
+  forward_walk<kMode, true>(p, l, base);
 }
 
 // The kernel compiled for a continuation mode.
@@ -305,6 +395,13 @@ auto kernel_for(int mode) {
   return mode == MODE_GENERAL ? intrinsic_dp_kernel<T, MODE_GENERAL>
          : mode == MODE_CUBIC ? intrinsic_dp_kernel<T, MODE_CUBIC>
                               : intrinsic_dp_kernel<T, MODE_UNIFORM>;
+}
+
+template <typename T>
+auto large_kernel_for(int mode) {
+  return mode == MODE_GENERAL ? intrinsic_dp_large_kernel<T, MODE_GENERAL>
+         : mode == MODE_CUBIC ? intrinsic_dp_large_kernel<T, MODE_CUBIC>
+                              : intrinsic_dp_large_kernel<T, MODE_UNIFORM>;
 }
 
 int smem_optin(int* bytes) {
@@ -350,6 +447,58 @@ int launch(int N, int G, int R, int E, int is_step, int mode, const T* steps, co
                mode == MODE_CUBIC ? moments : nullptr, table, out};
   kernel<<<1, l.threads, l.bytes, static_cast<cudaStream_t>(stream)>>>(p, l);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_large(int N, int G, int R, int E, int is_step, int mode, const T* steps,
+                 const T* r_inv, const T* r_min, const T* r_max, const T* grids, const T* v_end,
+                 const T* solver, double inv0, T* vs, T* moments, T* rhs, T* out, void* stream) {
+  if (N < 1 || G < 2 || R < 1 || E < 0 || mode < MODE_UNIFORM || mode > MODE_CUBIC ||
+      (mode == MODE_CUBIC && ((G > 2 && (!solver || !rhs)) || !moments)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int optin = 0;
+  if (int err = smem_optin(&optin)) return err;
+  const Plan l = large_plan<T>(N, R, E);
+  if (l.bytes > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = large_kernel_for<T>(mode);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool cubic = mode == MODE_CUBIC;
+  Problem<T> p{N, G, R, E, is_step, mode, steps, r_inv, r_min, r_max, grids, v_end,
+               cubic ? solver : nullptr, static_cast<T>(inv0), vs, cubic ? moments : nullptr,
+               nullptr, out};
+  kernel<<<1, l.threads, l.bytes, static_cast<cudaStream_t>(stream)>>>(p, l,
+                                                                        cubic ? rhs : nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The large route's report at R ratchet nodes, E extra decisions in a mode
+// into out[7] (see stt_intrinsic_dp_large_info).
+template <typename T>
+int large_info(int R, int E, int mode, int* out) {
+  const auto kernel = large_kernel_for<T>(mode);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int optin = 0;
+  if (err == cudaSuccess) err = static_cast<cudaError_t>(smem_optin(&optin));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Plan l = large_plan<T>(kMaxChunk, R, E);
+  int blocks = 0;
+  if (l.bytes <= static_cast<size_t>(optin)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, l.threads, l.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  out[0] = l.threads;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(l.bytes);
+  out[4] = blocks;
+  out[5] = l.walk_lanes;
+  out[6] = l.chunk;
+  return 0;
 }
 
 // Launch report at G grid points, R ratchet nodes, E extra decisions in a
@@ -421,4 +570,38 @@ extern "C" int stt_intrinsic_dp_info(int is_double, int G, int R, int E, int mod
   if (G < 2 || R < 1 || E < 0 || mode < MODE_UNIFORM || mode > MODE_CUBIC)
     return static_cast<int>(cudaErrorInvalidValue);
   return is_double ? info<double>(G, R, E, mode, out) : info<float>(G, R, E, mode, out);
+}
+
+// The large route, the same arguments but, in place of the tables' scratch,
+// block_moments' rhs scratch [G-2] (cubic, else NULL): any G.
+extern "C" int stt_intrinsic_dp_large_f32(int N, int G, int R, int E, int is_step, int mode,
+                                          const float* steps, const float* r_inv,
+                                          const float* r_min, const float* r_max,
+                                          const float* grids, const float* v_end,
+                                          const float* solver, double inv0, float* vs,
+                                          float* moments, float* rhs, float* out, void* stream) {
+  return launch_large<float>(N, G, R, E, is_step, mode, steps, r_inv, r_min, r_max, grids, v_end,
+                             solver, inv0, vs, moments, rhs, out, stream);
+}
+
+extern "C" int stt_intrinsic_dp_large_f64(int N, int G, int R, int E, int is_step, int mode,
+                                          const double* steps, const double* r_inv,
+                                          const double* r_min, const double* r_max,
+                                          const double* grids, const double* v_end,
+                                          const double* solver, double inv0, double* vs,
+                                          double* moments, double* rhs, double* out,
+                                          void* stream) {
+  return launch_large<double>(N, G, R, E, is_step, mode, steps, r_inv, r_min, r_max, grids, v_end,
+                              solver, inv0, vs, moments, rhs, out, stream);
+}
+
+// Launch report of the large route in f32 (is_double 0) or f64 (1) at R
+// ratchet nodes and E extra decisions in a mode into out[7]: threads of its
+// one block, registers per thread, local memory bytes per thread (spills),
+// dynamic shared memory bytes (at N >= 32), blocks per SM at that size, lanes
+// a step in the forward walk, and forward steps staged a chunk.  Any G.
+extern "C" int stt_intrinsic_dp_large_info(int is_double, int R, int E, int mode, int* out) {
+  if (R < 1 || E < 0 || mode < MODE_UNIFORM || mode > MODE_CUBIC)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return is_double ? large_info<double>(R, E, mode, out) : large_info<float>(R, E, mode, out);
 }

@@ -1,7 +1,9 @@
 // The trinomial tree's backward induction on the inventory grid: one launch
 // a valuation of one thread-block cluster (the cluster route), or, for a
 // slab too large for the cluster's shared memory, one launch a step with one
-// block a node row (the large-slab route).
+// block a node row (the large-slab route), or, for rows too long for a
+// block's shared memory, a few launches a step on rows in device memory (the
+// large route).
 //
 // No TPU kernel stands behind it: it replaces the lax.scan of
 // storage_tpu/engines/tree.py:_tree_core, whose step is a dense
@@ -19,7 +21,7 @@
 //      against the node's spot plus the interpolated continuation at every
 //      grid point g (dp_common.cuh decide()'s arithmetic, every operation
 //      rounded on its own).
-// Both routes do this arithmetic, so they give the same bits.  The values
+// Every route does this arithmetic, so they give the same bits.  The values
 // [N+1, M, G] go to device memory for the caller; the transition never
 // reaches the card as [N, M, M].  Each kernel is compiled once for each
 // continuation mode.
@@ -55,6 +57,18 @@
 // of 256 threads, block m forming its row's ev in shared memory and deciding
 // its grid points with decide(), the step's hand-over in device memory and
 // L2.
+//
+// The large route, where not even a row's ev (and in cubic mode its moments
+// and rhs) fits a block's shared memory: each step two launches over
+// (ceil(G/256), M) blocks of 256 threads (three in cubic mode), every row in
+// device memory.  tree_ev_kernel forms ev [M, G] into a scratch, summed as
+// the step kernel sums it (and in cubic mode block_moments' rhs [M, G-2]
+// from it); tree_moments_kernel forms the moments [M, G] (the dense inverse
+// times the rhs, a thread a moment, summed in ascending j as block_moments
+// does); tree_decide_kernel decides every grid point with decide() on ev and
+// the moments and writes values[t].  The ev scratch is never values[t]
+// itself: a grid point's decision reads ev at other points of its row.  The
+// same arithmetic in the same order: the same bits as the other routes.
 #include <algorithm>
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -130,6 +144,80 @@ __global__ void __launch_bounds__(kStepThreads) tree_step_kernel(TreeDP<T> p, in
   const T* grid = p.grids + static_cast<size_t>(t) * G;
   T* out = p.values + t * mg + static_cast<size_t>(m) * G;
   for (int g = threadIdx.x; g < G; g += blockDim.x) out[g] = decide(st, price, grid[g]).total;
+}
+
+// ---- the large route: a step's ev, rhs and moments in device memory.
+
+// ev[m, g] of step t into ev [M, G], the band summed in ascending w; in cubic
+// mode (rhs not null) also block_moments' rhs[m, g] for g < G-2, from ev at
+// g, g+1 and g+2, each formed by the same sum.
+template <typename T>
+__global__ void __launch_bounds__(kStepThreads) tree_ev_kernel(TreeDP<T> p, int t, T* ev, T* rhs) {
+  const int G = p.G, M = p.M, m = blockIdx.y;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const size_t mg = static_cast<size_t>(M) * G;
+  const T* band = p.band + (static_cast<size_t>(t) * M + m) * p.W;
+  const int64_t first = p.start[static_cast<size_t>(t) * M + m];
+  const T* rows = p.values + (t + 1) * mg + static_cast<size_t>(first) * G;
+  const auto ev_at = [&](int x) {
+    T acc = T(0);
+    for (int w = 0; w < p.W; ++w) acc = add(acc, mul(band[w], rows[static_cast<size_t>(w) * G + x]));
+    return acc;
+  };
+  const T e0 = ev_at(g);
+  ev[static_cast<size_t>(m) * G + g] = e0;
+  if (rhs && g < G - 2) {
+    const T* grid = p.grids + static_cast<size_t>(t + 1) * G;
+    const T h = dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
+    const T safe_h = h > T(0) ? h : T(1);
+    rhs[static_cast<size_t>(m) * (G - 2) + g] =
+        dvd(mul(T(6), add(sub(ev_at(g + 2), mul(T(2), ev_at(g + 1))), e0)), mul(safe_h, safe_h));
+  }
+}
+
+// The moments [M, G] of step t's ev rows: block_moments' matvec, a thread an
+// interior moment i of row m, summed in ascending j; zero ends, and zero
+// moments on a degenerate row.
+template <typename T>
+__global__ void __launch_bounds__(kStepThreads)
+    tree_moments_kernel(TreeDP<T> p, int t, const T* rhs, T* mom) {
+  const int G = p.G, n = G - 2, m = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const T* grid = p.grids + static_cast<size_t>(t + 1) * G;
+  const T h = dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
+  T* out = mom + static_cast<size_t>(m) * G;
+  if (i < n) {
+    T acc = T(0);
+    if (h > T(0)) {
+      const T* row = p.solver + static_cast<size_t>(i) * n;
+      const T* r = rhs + static_cast<size_t>(m) * n;
+      for (int j = 0; j < n; ++j) acc = add(acc, mul(row[j], r[j]));
+    }
+    out[i + 1] = acc;
+  }
+  if (i == 0) {
+    out[0] = T(0);
+    out[G - 1] = T(0);
+  }
+}
+
+// values[t][m, g] = decide() at grid point g against node m's spot on the
+// row's ev (and moments) in device memory.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kStepThreads)
+    tree_decide_kernel(TreeDP<T> p, int t, const T* ev, const T* mom) {
+  const int G = p.G, M = p.M, m = blockIdx.y;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const size_t row = static_cast<size_t>(t) * p.R, mrow = static_cast<size_t>(m) * G;
+  const StepView<T> st{p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS, p.r_inv + row,
+                       p.r_min + row, p.r_max + row, p.R, p.is_step, p.E, G, kMode,
+                       p.grids + static_cast<size_t>(t + 1) * G, ev + mrow,
+                       kMode == MODE_CUBIC ? mom + mrow : nullptr};
+  const T price = p.spot[static_cast<size_t>(t) * M + m];
+  const T inv = p.grids[static_cast<size_t>(t) * G + g];
+  p.values[static_cast<size_t>(t) * M * G + mrow + g] = decide(st, price, inv).total;
 }
 
 // ---- the cluster route: one launch a valuation.
@@ -301,6 +389,13 @@ auto step_kernel(int mode) {
 }
 
 template <typename T>
+auto decide_kernel(int mode) {
+  return mode == MODE_GENERAL ? tree_decide_kernel<T, MODE_GENERAL>
+         : mode == MODE_CUBIC ? tree_decide_kernel<T, MODE_CUBIC>
+                              : tree_decide_kernel<T, MODE_UNIFORM>;
+}
+
+template <typename T>
 auto cluster_kernel(int mode) {
   return mode == MODE_GENERAL ? tree_cluster_kernel<T, MODE_GENERAL>
          : mode == MODE_CUBIC ? tree_cluster_kernel<T, MODE_CUBIC>
@@ -427,6 +522,28 @@ int launch_steps(TreeDP<T> p, void* stream) {
   return 0;
 }
 
+// The large route: for t = N-1 .. 0, ev (and rhs) into the scratch, the
+// moments (cubic), the decisions into values[t]; each launch after the one
+// before on the stream, which orders their device-memory writes and reads.
+template <typename T>
+int launch_large(TreeDP<T> p, T* ev, T* mom, T* rhs, void* stream) {
+  const bool cubic = p.mode == MODE_CUBIC;
+  if (!valid(p) || !ev || (cubic && (!mom || (p.G > 2 && !rhs))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto decide_k = decide_kernel<T>(p.mode);
+  const dim3 rows((p.G + kStepThreads - 1) / kStepThreads, p.M);
+  const dim3 moments(std::max(1, (p.G - 2 + kStepThreads - 1) / kStepThreads), p.M);
+  for (int t = p.N - 1; t >= 0; --t) {
+    tree_ev_kernel<T><<<rows, kStepThreads, 0, s>>>(p, t, ev, cubic ? rhs : nullptr);
+    if (cubic) tree_moments_kernel<T><<<moments, kStepThreads, 0, s>>>(p, t, rhs, mom);
+    decide_k<<<rows, kStepThreads, 0, s>>>(p, t, ev, cubic ? mom : nullptr);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 template <typename T>
 TreeDP<T> problem(int N, int M, int G, int W, int R, int E, int is_step, int mode, const T* steps,
                   const T* r_inv, const T* r_min, const T* r_max, const T* grids, const T* spot,
@@ -461,6 +578,30 @@ int step_info(int G, int mode, int* out) {
   out[3] = static_cast<int>(smem);
   out[4] = blocks;
   out[5] = mode == MODE_CUBIC ? (optin / per + 2) / 3 : optin / per;  // the largest G
+  return 0;
+}
+
+// The large route's report in a mode into out[7] (see stt_tree_dp_large_info).
+template <typename T>
+int large_info(int mode, int* out) {
+  cudaFuncAttributes ev, moments, decide;
+  cudaError_t err = cudaFuncGetAttributes(&ev, tree_ev_kernel<T>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&moments, tree_moments_kernel<T>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&decide, decide_kernel<T>(mode));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, decide_kernel<T>(mode),
+                                                        kStepThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool cubic = mode == MODE_CUBIC;
+  out[0] = kStepThreads;
+  out[1] = decide.numRegs;
+  out[2] = ev.numRegs;
+  out[3] = cubic ? moments.numRegs : 0;
+  out[4] = static_cast<int>(std::max({ev.localSizeBytes, decide.localSizeBytes,
+                                      cubic ? moments.localSizeBytes : size_t(0)}));
+  out[5] = blocks;
+  out[6] = cubic ? 3 : 2;
   return 0;
 }
 
@@ -555,6 +696,40 @@ extern "C" int stt_tree_dp_steps_f64(int N, int M, int G, int W, int R, int E, i
                                      void* stream) {
   return launch_steps(problem<double>(N, M, G, W, R, E, is_step, mode, steps, r_inv, r_min, r_max,
                                       grids, spot, band, start, solver, values, nullptr), stream);
+}
+
+// The large route, the same arguments but the tables' scratch, then the
+// scratch of a step's ev [M, G], and in cubic mode of its moments [M, G] and
+// rhs [M, G-2] (else NULL): launches a step, t = N-1 .. 0, any G.
+extern "C" int stt_tree_dp_large_f32(int N, int M, int G, int W, int R, int E, int is_step,
+                                     int mode, const float* steps, const float* r_inv,
+                                     const float* r_min, const float* r_max, const float* grids,
+                                     const float* spot, const float* band, const int64_t* start,
+                                     const float* solver, float* values, float* ev,
+                                     float* moments, float* rhs, void* stream) {
+  return launch_large(problem<float>(N, M, G, W, R, E, is_step, mode, steps, r_inv, r_min, r_max,
+                                     grids, spot, band, start, solver, values, nullptr),
+                      ev, moments, rhs, stream);
+}
+
+extern "C" int stt_tree_dp_large_f64(int N, int M, int G, int W, int R, int E, int is_step,
+                                     int mode, const double* steps, const double* r_inv,
+                                     const double* r_min, const double* r_max,
+                                     const double* grids, const double* spot, const double* band,
+                                     const int64_t* start, const double* solver, double* values,
+                                     double* ev, double* moments, double* rhs, void* stream) {
+  return launch_large(problem<double>(N, M, G, W, R, E, is_step, mode, steps, r_inv, r_min, r_max,
+                                      grids, spot, band, start, solver, values, nullptr),
+                      ev, moments, rhs, stream);
+}
+
+// Launch report of the large route in f32 (is_double 0) or f64 (1) in a
+// mode into out[7]: threads a block, registers a thread of the decide, ev
+// and (cubic, else 0) moments kernels, local memory bytes a thread (spills,
+// the most of the three), decide blocks per SM, and launches a step.  Any G.
+extern "C" int stt_tree_dp_large_info(int is_double, int mode, int* out) {
+  if (mode < MODE_UNIFORM || mode > MODE_CUBIC) return static_cast<int>(cudaErrorInvalidValue);
+  return is_double ? large_info<double>(mode, out) : large_info<float>(mode, out);
 }
 
 // Launch report of the large-slab route's step kernel in f32 (is_double 0) or

@@ -11,11 +11,13 @@ count on fixed-spacing and custom grids, or a natural cubic spline.
 
 ``intrinsic_plain`` is the DP in tensor code.  ``intrinsic_core`` runs it on
 CPU tensors and, on CUDA tensors, launches the DP kernel
-(``ops.intrinsic_kernel``: the whole DP in one launch).
+(``ops.intrinsic_kernel``: the whole DP in one launch, on the route the
+shape picks, at any grid size).
 """
 from __future__ import annotations
 
 import functools
+import logging
 import typing as tp
 
 import numpy as np
@@ -23,10 +25,11 @@ import torch
 
 from .. import grid as gridmod
 from ..facility import CompiledStorage
-from ..ops import interp, intrinsic_kernel
+from ..ops import _build, interp, intrinsic_kernel
 from . import lsmc
 
 INTERPOLATIONS = ("linear", "cubic")
+logger = logging.getLogger(__name__)
 
 
 class IntrinsicEngineResult(tp.NamedTuple):
@@ -218,6 +221,25 @@ def intrinsic_plain(
     return _result(inv_path, decisions, consumed, losses, pvs, inventory, end_pv)
 
 
+def kernel_mode(interpolation: str, uniform_grids: bool) -> str:
+    """The DP kernels' continuation mode: "cubic", "linear" on uniform rows,
+    "general" on any other."""
+    return "cubic" if interpolation == "cubic" else "linear" if uniform_grids else "general"
+
+
+def log_route(num_steps: int, grids: np.ndarray, num_ratchet_nodes: int, num_extra_decisions: int,
+              mode: str, dtype, device) -> None:
+    """Logs the DP kernel's route on a CUDA ``device`` (nothing elsewhere),
+    decided from the host grids' shape before anything is built on the
+    card: the one ``intrinsic_core`` then takes."""
+    if torch.device(device).type != "cuda":
+        return
+    route = intrinsic_kernel.intrinsic_route(
+        grids.shape[1], num_ratchet_nodes, num_extra_decisions, mode, dtype.itemsize,
+        _build.smem_limit(device), num_steps)
+    logger.info("Intrinsic DP route at G=%d (%s, %s): %s.", grids.shape[1], mode, dtype, route)
+
+
 @functools.lru_cache(maxsize=16)
 def cubic_solver(num_points: int, dtype, device) -> torch.Tensor:
     """``interp.natural_cubic_solver`` cached per grid size, dtype and device."""
@@ -232,22 +254,26 @@ def intrinsic_core(
     ratchet_is_step: bool,
     interpolation: str = "linear",
     uniform_grids: bool = True,
+    route: tp.Optional[str] = None,
 ) -> IntrinsicEngineResult:
     """The intrinsic DP on the device of ``arrays`` (the dict of
     ``engines.lsmc.build_engine_arrays``): CPU tensors run ``intrinsic_plain``,
     CUDA tensors one launch of the DP kernel (f32 or f64), which reads the
-    terminal values on the last grid and leaves the NPV on the card."""
+    terminal values on the last grid and leaves the NPV on the card.
+    ``route`` names the kernel's route instead of the one the shape picks
+    (``ops.intrinsic_kernel.intrinsic_route``)."""
     if arrays["grids"].device.type == "cpu":
         return intrinsic_plain(arrays, starting_inventory, num_extra_decisions, terminal_fn,
                                ratchet_is_step, interpolation, uniform_grids)
     check_interpolation(interpolation, uniform_grids)
     grids = arrays["grids"]
     n = grids.shape[0] - 1
-    mode = "cubic" if interpolation == "cubic" else "linear" if uniform_grids else "general"
+    mode = kernel_mode(interpolation, uniform_grids)
     solver = cubic_solver(grids.shape[1], grids.dtype, grids.device) if mode == "cubic" else None
     v_end = terminal_values(terminal_fn, arrays["fwd"][n], grids[n]).contiguous()
     inv_path, decisions, consumed, losses, pvs, final_inv = intrinsic_kernel.intrinsic_dp(
-        arrays, v_end, starting_inventory, num_extra_decisions, ratchet_is_step, mode, solver)
+        arrays, v_end, starting_inventory, num_extra_decisions, ratchet_is_step, mode, solver,
+        route)
     end_pv = terminal_values(terminal_fn, arrays["fwd"][n], final_inv)[0]
     return _result(inv_path, decisions, consumed, losses, pvs, final_inv, end_pv)
 
@@ -290,9 +316,11 @@ def intrinsic_valuation(
             float(np.max(compiled.max_inv)), num_grid_points)
     else:
         raise ValueError("grid_scheme must be 'linspace' or 'fixed_spacing'.")
+    uniform_grids = grid_scheme == "linspace"
+    log_route(compiled.num_steps, grids, compiled.ratchet_inv.shape[1], num_extra_decisions,
+              kernel_mode(interpolation, uniform_grids), dtype, device)
     arrays = lsmc.build_engine_arrays(compiled, fwd, df_settle, df_flow, inventory_lower,
                                       inventory_upper, num_grid_points, dtype, device, grids)
     terminal_fn = None if compiled.must_be_empty_at_end else compiled.terminal_value
     return intrinsic_core(arrays, starting_inventory, num_extra_decisions, terminal_fn,
-                          compiled.ratchet_is_step, interpolation,
-                          uniform_grids=(grid_scheme == "linspace"))
+                          compiled.ratchet_is_step, interpolation, uniform_grids=uniform_grids)

@@ -82,7 +82,7 @@ from .. import grid as gridmod
 from ..basis import design_columns, design_matrix, has_generic
 from ..facility import CompiledStorage
 from ..models import spot_sim
-from ..ops import _build, decision_kernel, forward_kernel, interp
+from ..ops import _build, decision_kernel, forward_kernel, interp, intrinsic_kernel
 from ..ops.regression import column_stats, fit_continuation, fit_from_moments
 from ..parallel import reduce as preduce
 
@@ -114,19 +114,23 @@ def design_in_memory(monomials, num_factors: int) -> bool:
 
 
 def grid_routes(num_grid: int, num_extra_decisions: int, monomials, num_factors: int,
-                num_ratchet_nodes: int, general: bool, smem_limit: int) -> dict:
+                num_ratchet_nodes: int, general: bool, smem_limit: int, num_steps: int,
+                itemsize: int) -> dict:
     """The grid routes of a valuation's kernels on a CUDA device, decided from
-    shapes alone before any allocation, simulation or launch: {"backward":
-    (wrapper, route), "forward": (wrapper, route)}, each route "shared" (a
-    step's tables in a block's shared memory) or "large" (past the grid
-    those fit; any G).  The backward runs kernel B, or kernel D on the
-    design in memory (``design_in_memory``, spot-only panels); the forward
-    kernel C's monomial or design mode, on general rows with ``general``.
-    The wrappers take the same routes from the same shapes
-    (``decision_kernel.moments_route``, ``update_route``,
-    ``forward_kernel.sweep_route``); ``smem_limit`` is the card's shared
-    memory a block (``_build.smem_limit``).  Not a fallback: nothing is tried
-    first."""
+    shapes alone before any allocation, simulation or launch: {"intrinsic":
+    (wrapper, route), "backward": (wrapper, route), "forward": (wrapper,
+    route)}, each route "shared" (a step's tables, or the intrinsic DP's
+    rows, in a block's shared memory) or "large" (past the grid those fit;
+    any G).  The intrinsic phase runs the intrinsic DP at no extra decision
+    over the N steps in the valuation's dtype (``itemsize`` bytes); the
+    backward kernel B, or kernel D on the design in memory
+    (``design_in_memory``, spot-only panels); the forward kernel C's
+    monomial or design mode, on general rows with ``general``.  The
+    wrappers take the same routes from the same shapes
+    (``intrinsic_kernel.intrinsic_route``, ``decision_kernel.moments_route``,
+    ``update_route``, ``forward_kernel.sweep_route``); ``smem_limit`` is the
+    card's shared memory a block (``_build.smem_limit``).  Not a fallback:
+    nothing is tried first."""
     d = 2 * num_extra_decisions + 3
     b = len(monomials)
     on_design = design_in_memory(monomials, num_factors)
@@ -139,7 +143,11 @@ def grid_routes(num_grid: int, num_extra_decisions: int, monomials, num_factors:
                forward_kernel.sweep_route(num_grid, b, num_ratchet_nodes,
                                           b if on_design else num_factors, num_extra_decisions,
                                           smem_limit, on_design, general))
-    return {"backward": (backward[0], backward[1].name), "forward": forward}
+    intrinsic = intrinsic_kernel.intrinsic_route(
+        num_grid, num_ratchet_nodes, 0, "general" if general else "linear", itemsize, smem_limit,
+        num_steps)
+    return {"intrinsic": ("intrinsic_dp", intrinsic), "backward": (backward[0], backward[1].name),
+            "forward": forward}
 
 
 @contextlib.contextmanager

@@ -15,11 +15,13 @@ m of period t has its non-zeros in W ≤ 2·num_substeps + 1 columns from
 ``tree_plain`` rebuilds each step's dense [M, M] matrix and multiplies in
 tensor code; ``tree_core`` runs it on CPU tensors and, on CUDA tensors,
 launches the DP kernel (``ops.tree_kernel.tree_dp``: one launch a valuation
-of one thread-block cluster, or one launch a step for a slab beyond the
-cluster's shared memory).
+of one thread-block cluster; one launch a step for a slab beyond the
+cluster's shared memory; a few a step, on rows in device memory, for rows
+beyond a block's: any grid size).
 """
 from __future__ import annotations
 
+import logging
 import typing as tp
 
 import numpy as np
@@ -30,6 +32,8 @@ from ..facility import CompiledStorage
 from ..models.trinomial_tree import TrinomialTree
 from ..ops import interp, tree_kernel
 from . import intrinsic, lsmc
+
+logger = logging.getLogger(__name__)
 
 
 class TreeEngineResult(tp.NamedTuple):
@@ -113,16 +117,17 @@ def tree_core(
     ``engines.lsmc.build_engine_arrays``) and ``tree`` (``tree_valuation``'s
     lattice tensors): CPU tensors run ``tree_plain``, CUDA tensors the DP
     kernel (f32 or f64; one launch on the cluster route, N on the large-slab
-    route), which reads the terminal values and leaves the values and the
-    NPV on the card.  ``route`` names the kernel's route instead of the one
-    the slab's shape picks (``ops.tree_kernel.choose_route``)."""
+    route, 2N or 3N on the large route), which reads the terminal values and
+    leaves the values and the NPV on the card.  ``route`` names the kernel's
+    route instead of the one the slab's shape picks
+    (``ops.tree_kernel.tree_route``)."""
     if arrays["grids"].device.type == "cpu":
         return tree_plain(arrays, tree, num_extra_decisions, terminal_fn, ratchet_is_step,
                           interpolation, uniform_grids)
     intrinsic.check_interpolation(interpolation, uniform_grids)
     grids = arrays["grids"]
     n = grids.shape[0] - 1
-    mode = "cubic" if interpolation == "cubic" else "linear" if uniform_grids else "general"
+    mode = intrinsic.kernel_mode(interpolation, uniform_grids)
     v_end = _terminal(terminal_fn, tree, grids).contiguous()
     values = tree_kernel.tree_dp(arrays, tree, v_end, num_extra_decisions, ratchet_is_step, mode,
                                  _solver(grids, interpolation), route)
@@ -130,13 +135,15 @@ def tree_core(
 
 
 def tree_arrays(tree: TrinomialTree, tree_offset: int, num_steps: int, dtype,
-                device) -> tp.Dict[str, torch.Tensor]:
+                device, banded=None) -> tp.Dict[str, torch.Tensor]:
     """The lattice over the storage window on ``device``: spot [N+1, M], the
-    transition's band [N, M, W] and first columns [N, M], q0 [M] and
-    dest_centre [M] (the tree starts at the valuation period, the window
-    ``tree_offset`` periods later)."""
+    transition's band [N, M, W] and first columns [N, M] (``banded``, where
+    the caller has them: ``tree_kernel.band``'s), q0 [M] and dest_centre [M]
+    (the tree starts at the valuation period, the window ``tree_offset``
+    periods later)."""
     o = tree_offset
-    band, start = tree_kernel.band(tree.transition[o : o + num_steps])
+    band, start = (banded if banded is not None
+                   else tree_kernel.band(tree.transition[o : o + num_steps]))
     return {
         "spot": torch.tensor(tree.spot[o : o + num_steps + 1], dtype=dtype, device=device),
         "band": torch.tensor(band, dtype=dtype, device=device),
@@ -185,9 +192,19 @@ def tree_valuation(
     else:
         grids = gridmod.inventory_grids(inventory_lower, inventory_upper, num_grid_points)
         uniform_grids = True
+    banded = tree_kernel.band(tree.transition[tree_offset : tree_offset + compiled.num_steps])
+    if torch.device(device).type == "cuda":
+        # The kernel's route, from the shapes alone, before anything is built
+        # on the card: the one tree_core then takes.
+        mode = intrinsic.kernel_mode(interpolation, uniform_grids)
+        m, w = banded[0].shape[1:]
+        route = tree_kernel.tree_route(m, grids.shape[1], w, num_extra_decisions, mode, dtype,
+                                       device)
+        logger.info("Tree DP route at M=%d, G=%d (%s, %s): %s.", m, grids.shape[1], mode, dtype,
+                    route)
     arrays = lsmc.build_engine_arrays(compiled, fwd, df_settle, df_flow, inventory_lower,
                                       inventory_upper, num_grid_points, dtype, device, grids)
-    lattice = tree_arrays(tree, tree_offset, compiled.num_steps, dtype, device)
+    lattice = tree_arrays(tree, tree_offset, compiled.num_steps, dtype, device, banded)
     terminal_fn = None if compiled.must_be_empty_at_end else compiled.terminal_value
     result = tree_core(arrays, lattice, num_extra_decisions, terminal_fn,
                        compiled.ratchet_is_step, interpolation, uniform_grids)

@@ -2,13 +2,16 @@
 
 No TPU kernel stands behind it: it replaces the backward and forward
 ``lax.scan`` of ``storage_tpu.engines.intrinsic._intrinsic_core``.  One block
-runs the whole DP: it fills every backward step's decision table first (a
-device-memory scratch the wrapper allocates), then values the grid points
+runs the whole DP, on one of two routes (``intrinsic_route``, from the
+shape).  The shared route fills every backward step's decision table first
+(a device-memory scratch the wrapper allocates), then values the grid points
 of each backward step from its table on value rows kept in shared memory, a
 barrier between steps, then warp 0 walks the forward from the starting
-inventory through staged chunks of steps.  Shared memory bounds G
-(``intrinsic_info``'s ``max_grid``; the JAX package has no such limit), and
-the wrapper raises ``ValueError`` beyond it.  The plain version is ``engines.intrinsic.intrinsic_plain``, which
+inventory through staged chunks of steps.  The large route, for a G beyond
+what the block's shared memory holds (``max_grid``) or a table scratch past
+``TABLE_SCRATCH_CAP``, decides each grid point whole on value rows in device
+memory and needs no scratch: any G.  Both give the same bits.  The plain
+version is ``engines.intrinsic.intrinsic_plain``, which
 ``engines.intrinsic.intrinsic_core`` runs for CPU tensors; this wrapper
 takes CUDA tensors only, f32 or f64.
 """
@@ -26,7 +29,27 @@ from . import _build
 STEP_KEYS = ("fwd", "df_settle", "df_flow", "inj_cost", "wdr_cost", "inj_pcnt", "wdr_pcnt",
              "loss_pcnt", "inv_cost_rate", "next_min", "next_max")
 MODES = {"linear": 0, "general": 1, "cubic": 2}
-_ENTRY = {torch.float32: "stt_intrinsic_dp_f32", torch.float64: "stt_intrinsic_dp_f64"}
+_ENTRY = {"shared": {torch.float32: "stt_intrinsic_dp_f32", torch.float64: "stt_intrinsic_dp_f64"},
+          "large": {torch.float32: "stt_intrinsic_dp_large_f32",
+                    torch.float64: "stt_intrinsic_dp_large_f64"}}
+ROUTES = tuple(_ENTRY)
+# The shared route's decision tables' scratch in bytes, N·G·(1 + 5D)
+# elements, past which a shape takes the large route (which needs none):
+# 2.3 MB at the headline, 16.3 GB for an hourly year at G = 29,034 in f32.
+TABLE_SCRATCH_CAP = 2 << 30
+
+# The kernel's sizing, copied from csrc/intrinsic_kernel.cu (plan<T> and
+# max_grid<T>) so that the route is decided from shapes on any device;
+# chip_smoke.py holds the copy to ``intrinsic_info``'s max_grid.  The block's
+# shared memory holds, in elements: backward, the value rows [2][G] (cubic
+# also the moments [2][G] and the rhs [G]), two stages of a step's scalars
+# and ratchets and, where they fit, two of its decision table; forward, two
+# chunks of K steps' scalars, ratchets and next rows (vs, the moments in
+# cubic mode, the grid row on general rows or where it fits).
+_SCALAR_SLOTS = 12
+_MAX_CHUNK = 32
+_FORWARD_BUDGET = 48 * 1024
+_MAX_SEARCH = 1 << 20
 
 
 def table_len(g: int, e: int) -> int:
@@ -35,6 +58,64 @@ def table_len(g: int, e: int) -> int:
     the D = 2E + 3 decisions its volume, fuel, cost's PV and the
     continuation's node and weight."""
     return g * (1 + 5 * (2 * e + 3))
+
+
+def _plan_bytes(n: int, g: int, r: int, e: int, mode: str, itemsize: int, smem_limit: int) -> int:
+    """The shared route's shared memory in bytes at this shape (plan<T>)."""
+    general, cubic = mode == "general", mode == "cubic"
+    tab = _SCALAR_SLOTS + 3 * r
+    tab += tab & 1
+    stage = 2 * g + (3 * g if cubic else 0)
+    table = stage + 2 * tab
+    with_table = table + 2 * table_len(g, e)
+    backward = with_table if itemsize * with_table <= smem_limit else table
+    budget = max(backward, _FORWARD_BUDGET // itemsize)
+    rows = 2 if cubic else 1
+    with_grid, without = tab + (rows + 1) * g, tab + (rows + general) * g
+    f_step = with_grid if general or 2 * with_grid <= budget else without
+    f_step += f_step & 1
+    chunk = min(_MAX_CHUNK, n, max(1, budget // (2 * f_step)))
+    return itemsize * max(backward, 2 * chunk * f_step)
+
+
+@functools.lru_cache(maxsize=64)
+def max_grid(r: int, e: int, mode: str, itemsize: int, smem_limit: int) -> int:
+    """The largest G of the shared route at R ratchet nodes, E extra
+    decisions, in ``mode`` and a dtype of ``itemsize`` bytes, under
+    ``smem_limit`` bytes of shared memory a block (max_grid<T>'s search)."""
+    def fits(g):
+        return _plan_bytes(_MAX_CHUNK, g, r, e, mode, itemsize, smem_limit) <= smem_limit
+
+    lo, hi = 2, _MAX_SEARCH
+    if not fits(lo):
+        return 0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def intrinsic_route(g: int, r: int, e: int, mode: str, itemsize: int, smem_limit: int, n: int,
+                    route: tp.Optional[str] = None) -> str:
+    """The DP's route for N steps on G grid points, R ratchet nodes, E extra
+    decisions in ``mode`` and a dtype of ``itemsize`` bytes, from the shape
+    and the card's shared memory a block (``_build.smem_limit``): "shared"
+    up to ``max_grid`` while the decision tables' scratch stays within
+    ``TABLE_SCRATCH_CAP``, else "large".  Not a fallback: nothing is tried
+    first.  ``route`` names one instead; "shared" beyond ``max_grid``
+    raises ``ValueError``, as does an unknown name."""
+    if mode not in MODES:
+        raise ValueError(f"intrinsic_dp: mode must be one of {sorted(MODES)}, got {mode!r}")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"intrinsic_dp: route must be one of {ROUTES}, got {route!r}")
+    limit = max_grid(r, e, mode, itemsize, smem_limit)
+    if route is None:
+        scratch = n * table_len(g, e) * itemsize
+        return "shared" if g <= limit and scratch <= TABLE_SCRATCH_CAP else "large"
+    if route == "shared" and g > limit:
+        raise ValueError(f"intrinsic_dp: G={g} grid points; the shared route holds at most "
+                         f"G={limit} in {mode} mode in its block's shared memory")
+    return route
 
 
 def pack_steps(arrays: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -55,21 +136,23 @@ def intrinsic_dp(
     ratchet_is_step: bool,
     mode: str,
     solver: tp.Optional[torch.Tensor] = None,
+    route: tp.Optional[str] = None,
 ):
     """One launch of the DP over the tables of ``arrays`` (grids [N+1, G],
     curve, bands, costs, ratchets [N, R]; ``engines.lsmc.build_engine_arrays``)
     with the terminal values ``v_end`` [G] on the last grid.  ``mode`` is
     "linear" (uniform rows), "general" (any non-decreasing rows) or "cubic"
     (uniform rows, with ``solver`` [G-2, G-2] from
-    ``interp.natural_cubic_solver``).  Returns the forward path (inventory
-    after each decision, volume, fuel, loss and immediate PV, each [N]) and
-    the final inventory [1], all on the card: nothing is read back.  Raises
-    ``ValueError`` where G is beyond the block's shared memory
-    (``intrinsic_info``)."""
+    ``interp.natural_cubic_solver``).  The route is ``intrinsic_route``'s,
+    chosen before anything is allocated (``route`` forces one):
+    ``intrinsic_dp.launches`` counts every launch, ``large_launches`` those
+    of the large route.  Returns the forward path (inventory after each
+    decision, volume, fuel, loss and immediate PV, each [N]) and the final
+    inventory [1], all on the card: nothing is read back."""
     grids = arrays["grids"]
     n, g = grids.shape[0] - 1, grids.shape[1]
     dtype = grids.dtype
-    if dtype not in _ENTRY:
+    if dtype not in _ENTRY["shared"]:
         raise TypeError(f"intrinsic_dp: the kernel takes float32 or float64, got {dtype}")
     if mode not in MODES:
         raise ValueError(f"intrinsic_dp: mode must be one of {sorted(MODES)}, got {mode!r}")
@@ -88,40 +171,49 @@ def intrinsic_dp(
             raise ValueError(f"intrinsic_dp: {name} is {tuple(t.shape)}, want {(n, r)}")
     if tuple(v_end.shape) != (g,):
         raise ValueError(f"intrinsic_dp: v_end is {tuple(v_end.shape)}, want {(g,)}")
-    limit = intrinsic_info(dtype, device, g, r, num_extra_decisions, mode)["max_grid"]
-    if g > limit:
-        raise ValueError(f"intrinsic_dp: G={g} grid points; the kernel holds at most G={limit} "
-                         f"in {dtype} {mode} mode in its block's shared memory")
+    route = intrinsic_route(g, r, num_extra_decisions, mode, dtype.itemsize,
+                            _build.smem_limit(device), n, route)
     empty = lambda *shape: torch.empty(shape, dtype=dtype, device=device)  # noqa: E731
     vs = empty(n + 1, g)
     moments = empty(n + 1, g) if cubic else None
-    table = empty(n * table_len(g, num_extra_decisions))
+    # The shared route's decision tables, or the large route's rhs row for
+    # the moments (cubic).
+    scratch = (empty(n * table_len(g, num_extra_decisions)) if route == "shared"
+               else empty(g - 2) if cubic and g > 2 else None)
     out = empty(5 * n + 1)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = getattr(_build.library(), _ENTRY[dtype])(
+    rc = getattr(_build.library(), _ENTRY[route][dtype])(
         n, g, r, num_extra_decisions, int(ratchet_is_step), MODES[mode], steps.data_ptr(),
         *(t.data_ptr() for t in ratchets), grids.data_ptr(), v_end.data_ptr(),
         ptr(given[0] if cubic else None), float(starting_inventory), vs.data_ptr(), ptr(moments),
-        table.data_ptr(), out.data_ptr(), _build.stream_handle(device),
+        ptr(scratch), out.data_ptr(), _build.stream_handle(device),
     )
     intrinsic_dp.launches += 1
-    _build.check(rc, "intrinsic_dp")
+    intrinsic_dp.large_launches += route == "large"
+    _build.check(rc, f"intrinsic_dp ({route} route)")
     return (*out[:5 * n].view(5, n), out[5 * n:])
 
 
 intrinsic_dp.launches = 0
+intrinsic_dp.large_launches = 0  # those of the large route, counted in launches too
 
 _INFO_FIELDS = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm",
                 "stage_table", "walk_lanes", "chunk", "max_grid")
+_LARGE_FIELDS = ("large_threads", "large_registers", "large_local_bytes", "large_smem_bytes",
+                 "large_blocks_per_sm", "large_walk_lanes", "large_chunk")
 
 
 @functools.lru_cache(maxsize=32)
 def _info(is_double: bool, g: int, r: int, e: int, mode: int, device_index: int) -> dict:
+    lib = _build.library()
     out = (ctypes.c_int * len(_INFO_FIELDS))()
+    large = (ctypes.c_int * len(_LARGE_FIELDS))()
     with torch.cuda.device(device_index):
-        _build.check(_build.library().stt_intrinsic_dp_info(int(is_double), g, r, e, mode, out),
+        _build.check(lib.stt_intrinsic_dp_info(int(is_double), g, r, e, mode, out),
                      "stt_intrinsic_dp_info")
-    return dict(zip(_INFO_FIELDS, out))
+        _build.check(lib.stt_intrinsic_dp_large_info(int(is_double), r, e, mode, large),
+                     "stt_intrinsic_dp_large_info")
+    return {**dict(zip(_INFO_FIELDS, out)), **dict(zip(_LARGE_FIELDS, large))}
 
 
 def intrinsic_info(dtype, device, g: int = 100, r: int = 3, e: int = 0,
@@ -133,6 +225,8 @@ def intrinsic_info(dtype, device, g: int = 100, r: int = 3, e: int = 0,
     the backward stages each step's decision table in shared memory (1) or
     reads it from device memory (0), lanes a step in the forward walk,
     forward steps staged a chunk (at N >= 32) and the largest G the block's
-    shared memory holds (``max_grid``)."""
+    shared memory holds (``max_grid``); then the large route's (any G; the
+    ``large_*`` fields): threads, registers, local bytes, shared memory,
+    blocks per SM, lanes a forward step and steps staged a chunk."""
     return _info(dtype == torch.float64, int(g), int(r), int(e), MODES[mode],
                  torch.device(device).index or 0)

@@ -1,9 +1,11 @@
 """The trinomial tree's backward induction as CUDA launches
-(``csrc/tree_kernel.cu``) on one of two routes: the cluster route, one
+(``csrc/tree_kernel.cu``) on one of three routes: the cluster route, one
 launch a valuation of one thread-block cluster that keeps the node rows in
-its shared memory and decides from step tables it fills first, or, for a
-slab the cluster cannot hold, the large-slab route, one launch a step of one
-block a node row.  Both give the same bits.
+its shared memory and decides from step tables it fills first; for a slab
+the cluster cannot hold, the large-slab route, one launch a step of one
+block a node row; for rows too long for a block's shared memory, the large
+route, two launches a step (three in cubic mode) on rows in device memory.
+All give the same bits.
 
 No TPU kernel stands behind it: it replaces the ``lax.scan`` of
 ``storage_tpu.engines.tree._tree_core``.  The transition reaches the card as
@@ -26,8 +28,19 @@ from . import _build
 from .intrinsic_kernel import MODES, pack_steps, table_len
 
 _ENTRY = {"cluster": {torch.float32: "stt_tree_dp_f32", torch.float64: "stt_tree_dp_f64"},
-          "steps": {torch.float32: "stt_tree_dp_steps_f32", torch.float64: "stt_tree_dp_steps_f64"}}
+          "steps": {torch.float32: "stt_tree_dp_steps_f32", torch.float64: "stt_tree_dp_steps_f64"},
+          "large": {torch.float32: "stt_tree_dp_large_f32", torch.float64: "stt_tree_dp_large_f64"}}
 ROUTES = tuple(_ENTRY)
+
+
+def steps_max_grid(itemsize: int, mode: str, smem_limit: int) -> int:
+    """The largest G of the large-slab route's block, a dtype of
+    ``itemsize`` bytes in ``mode``, under ``smem_limit`` bytes of shared
+    memory a block: a row's ev [G], and in cubic mode its moments [G] and
+    rhs [G-2] (a copy of csrc/tree_kernel.cu step_smem_bytes, which
+    chip_smoke.py holds to ``kernel_info``'s max_grid)."""
+    per = smem_limit // itemsize
+    return (per + 2) // 3 if mode == "cubic" else per
 
 
 def band(transition: np.ndarray) -> tp.Tuple[np.ndarray, np.ndarray]:
@@ -68,19 +81,30 @@ def choose_route(m: int, g: int, info: dict, route: tp.Optional[str] = None) -> 
     """The route for an [M, G] slab, from ``kernel_info``'s report at that
     shape: the cluster route where its CTAs hold the M node rows
     (``max_rows``), else the large-slab route where a block holds a row's G
-    points (``max_grid``).  ``route`` names one instead.  Raises
-    ``ValueError`` where the chosen route cannot take the slab."""
+    points (``max_grid``), else the large route (any slab).  Not a
+    fallback: nothing is tried first.  ``route`` names one instead, and
+    raises ``ValueError`` where that route cannot take the slab, as does an
+    unknown name."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"tree_dp: route must be one of {ROUTES}, got {route!r}")
-    fits = {"cluster": m <= info["max_rows"], "steps": g <= info["max_grid"]}
+    fits = {"cluster": m <= info["max_rows"], "steps": g <= info["max_grid"], "large": True}
     if route is None:
-        route = "cluster" if fits["cluster"] else "steps"
+        route = next(r for r in ROUTES if fits[r])
     if not fits[route]:
         raise ValueError(
             f"tree_dp: an [M={m}, G={g}] slab; the cluster route holds at most M="
             f"{info['max_rows']} node rows at this G, and the large-slab route at most "
             f"G={info['max_grid']} grid points in a block's shared memory")
     return route
+
+
+def tree_route(m: int, g: int, w: int, e: int, mode: str, dtype, device,
+               route: tp.Optional[str] = None) -> str:
+    """The route ``tree_dp`` takes for an [M, G] slab of band width W and E
+    extra decisions in ``dtype`` and ``mode`` on a CUDA device
+    (``choose_route`` on ``kernel_info``'s report), from shapes alone,
+    before anything is allocated or launched."""
+    return choose_route(m, g, kernel_info(g, dtype, mode, device, m, w, e), route)
 
 
 def tree_dp(
@@ -99,12 +123,12 @@ def tree_dp(
     from the terminal values ``v_end`` [M, G], t = N−1 .. 0.  ``mode`` is
     "linear" (uniform rows), "general" (any non-decreasing rows) or "cubic"
     (uniform rows, with ``solver`` [G-2, G-2] from
-    ``interp.natural_cubic_solver``).  The route is ``choose_route``'s
+    ``interp.natural_cubic_solver``).  The route is ``tree_route``'s
     (``route`` forces one): the cluster route counts one launch in
     ``tree_dp.launches``, the large-slab route N in
-    ``tree_dp.step_launches``.  Returns the values [N+1, M, G] on the card.
-    Raises ``ValueError`` where neither route holds the slab
-    (``kernel_info``)."""
+    ``tree_dp.step_launches``, the large route 2N (3N in cubic mode) in
+    ``tree_dp.large_launches``.  Returns the values [N+1, M, G] on the
+    card."""
     grids = arrays["grids"].contiguous()
     n, g = grids.shape[0] - 1, grids.shape[1]
     dtype = grids.dtype
@@ -125,8 +149,7 @@ def tree_dp(
     _build.require_cuda("tree_dp", grids, start, dtype=None)
     if start.dtype != torch.int64:
         raise TypeError(f"tree_dp: band_start must be int64, got {start.dtype}")
-    route = choose_route(m, g, kernel_info(g, dtype, mode, device, m, w, num_extra_decisions),
-                         route)
+    route = tree_route(m, g, w, num_extra_decisions, mode, dtype, device, route)
     if cubic and (not given or tuple(solver.shape) != (g - 2, g - 2)):
         raise ValueError(f"tree_dp: cubic needs the [{g - 2}, {g - 2}] spline solver")
     want = {"spot": (n + 1, m), "band": (n, m, w), "band_start": (n, m), "v_end": (m, g)}
@@ -136,30 +159,45 @@ def tree_dp(
             raise ValueError(f"tree_dp: {name} is {tuple(t.shape)}, want {want[name]}")
     values = torch.empty((n + 1, m, g), dtype=dtype, device=device)
     values[n].copy_(v_end)
-    # The cluster route's scratch, every step's decision table, held until
-    # the launch is queued.
-    table = ([torch.empty(n * table_len(g, num_extra_decisions), dtype=dtype, device=device)]
-             if route == "cluster" else [])
+    # The routes' scratch, held until the launches are queued: the cluster
+    # route's every step's decision table; the large route's a step's ev
+    # [M, G] and in cubic mode its moments [M, G] and rhs [M, G-2] (never
+    # values[t] itself: a grid point's decision reads ev at other points).
+    empty = lambda size: torch.empty(size, dtype=dtype, device=device)  # noqa: E731
+    if route == "cluster":
+        scratch = [empty(n * table_len(g, num_extra_decisions))]
+    elif route == "large":
+        scratch = [empty(m * g), *((empty(m * g), empty(m * (g - 2))) if cubic else (None, None))]
+    else:
+        scratch = []
     rc = getattr(_build.library(), _ENTRY[route][dtype])(
         n, m, g, w, r, num_extra_decisions, int(ratchet_is_step), MODES[mode], steps.data_ptr(),
         *(t.data_ptr() for t in ratchets), grids.data_ptr(), spot.data_ptr(),
         values_band.data_ptr(), start.data_ptr(), given[0].data_ptr() if cubic else None,
-        values.data_ptr(), *(t.data_ptr() for t in table), _build.stream_handle(device),
+        values.data_ptr(), *(None if t is None else t.data_ptr() for t in scratch),
+        _build.stream_handle(device),
     )
+    # The C entries of the step-wise routes launch their kernels for each step.
     if route == "cluster":
         tree_dp.launches += 1
+    elif route == "steps":
+        tree_dp.step_launches += n
     else:
-        tree_dp.step_launches += n  # the C entry launches the step kernel once for each step
+        tree_dp.large_launches += n * (3 if cubic else 2)
     _build.check(rc, f"tree_dp ({route} route)")
     return values
 
 
 tree_dp.launches = 0
 tree_dp.step_launches = 0
+tree_dp.large_launches = 0
 
 _STEP_FIELDS = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm", "max_grid")
 _CLUSTER_FIELDS = ("cluster_size", "cluster_threads", "cluster_registers", "cluster_local_bytes",
                    "cluster_smem_bytes", "cluster_blocks_per_sm", "rows_per_cta", "max_rows")
+_LARGE_FIELDS = ("large_threads", "large_registers", "large_ev_registers",
+                 "large_moments_registers", "large_local_bytes", "large_blocks_per_sm",
+                 "large_launches_per_step")
 
 
 @functools.lru_cache(maxsize=64)
@@ -167,11 +205,15 @@ def _info(is_double: bool, m: int, g: int, w: int, e: int, mode: int, device_ind
     lib = _build.library()
     step = (ctypes.c_int * len(_STEP_FIELDS))()
     cluster = (ctypes.c_int * len(_CLUSTER_FIELDS))()
+    large = (ctypes.c_int * len(_LARGE_FIELDS))()
     with torch.cuda.device(device_index):
         _build.check(lib.stt_tree_dp_info(int(is_double), g, mode, step), "stt_tree_dp_info")
         _build.check(lib.stt_tree_cluster_info(int(is_double), m, g, w, e, mode, cluster),
                      "stt_tree_cluster_info")
-    return {**dict(zip(_STEP_FIELDS, step)), **dict(zip(_CLUSTER_FIELDS, cluster))}
+        _build.check(lib.stt_tree_dp_large_info(int(is_double), mode, large),
+                     "stt_tree_dp_large_info")
+    return {**dict(zip(_STEP_FIELDS, step)), **dict(zip(_CLUSTER_FIELDS, cluster)),
+            **dict(zip(_LARGE_FIELDS, large))}
 
 
 def kernel_info(g: int, dtype, mode: str, device, m: int = 1, w: int = 1, e: int = 0) -> dict:
@@ -184,14 +226,13 @@ def kernel_info(g: int, dtype, mode: str, device, m: int = 1, w: int = 1, e: int
     card co-schedules them, else 8; 0 where the slab does not fit), threads,
     registers and local bytes a thread, shared memory a CTA, CTAs per SM,
     node rows a CTA and the most node rows the cluster holds at this G
-    (``max_rows``).  ``route`` is the one ``tree_dp`` takes for the slab, or
-    None where neither holds it."""
+    (``max_rows``).  The large route (any slab; the ``large_*`` fields):
+    threads a block, registers a thread of its decide, ev and (cubic)
+    moments kernels, local bytes, decide blocks per SM and launches a step.
+    ``route`` is the one ``tree_dp`` takes for the slab."""
     info = dict(_info(dtype == torch.float64, int(m), int(g), int(w), int(e), MODES[mode],
                       torch.device(device).index or 0))
-    try:
-        info["route"] = choose_route(m, g, info)
-    except ValueError:
-        info["route"] = None
+    info["route"] = choose_route(m, g, info)
     return info
 
 

@@ -765,23 +765,46 @@ def test_intrinsic_dp_snaps_must_end_empty(device, dtype, extra):
             torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-6)
 
 
-def test_intrinsic_dp_grid_beyond_shared_memory_raises(device):
-    """The block's shared memory bounds G: at least 8,192 points in f64 on
-    linear rows; one point beyond the report's largest G raises before any
-    launch."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["linear", "general", "cubic"])
+def test_intrinsic_dp_large_route_gives_the_shared_bits(device, dtype, mode):
+    """Forced onto the large route at G=100 (one extra decision), the DP
+    gives the shared route's bits, one launch counted on each."""
+    inputs, arrays = _intrinsic_case(device, dtype, mode, 100, None)
+    args = (inputs.starting_inventory, 1, None, False, "cubic" if mode == "cubic" else "linear",
+            mode != "general")
+    shared = intrinsic_engine.intrinsic_core(arrays, *args)
+    before = intrinsic_kernel.intrinsic_dp.launches, intrinsic_kernel.intrinsic_dp.large_launches
+    large = intrinsic_engine.intrinsic_core(arrays, *args, route="large")
+    assert (intrinsic_kernel.intrinsic_dp.launches,
+            intrinsic_kernel.intrinsic_dp.large_launches) == (before[0] + 1, before[1] + 1)
+    for name in intrinsic_engine.IntrinsicEngineResult._fields:
+        assert torch.equal(getattr(large, name), getattr(shared, name)), name
+
+
+def test_intrinsic_dp_grid_beyond_shared_memory_takes_the_large_route(device):
+    """The block's shared memory bounds the shared route's G, as the route
+    rule's copy of its sizing says; one point beyond it the DP takes the
+    large route, one launch, and gives its plain version's answer (f64:
+    NPV within 1e-10 relative, profile within 1e-6)."""
     _, arrays = _intrinsic_case(device, torch.float64, "linear", 15, 1)
     r = arrays["ratchet_inv"].shape[1]
     info = intrinsic_kernel.intrinsic_info(torch.float64, device, 100, r, 0, "linear")
+    assert info["max_grid"] == intrinsic_kernel.max_grid(r, 0, "linear", 8,
+                                                         _build.smem_limit(device))
     assert info["max_grid"] >= 8_192 and info["blocks_per_sm"] >= 1
+    assert info["large_blocks_per_sm"] >= 1
     g = info["max_grid"] + 1
-    assert intrinsic_kernel.intrinsic_info(torch.float64, device, g, r, 0, "linear")[
-        "blocks_per_sm"] == 0
-    _, arrays = _intrinsic_case(device, torch.float64, "linear", g, 1)
-    v_end = torch.zeros(g, dtype=torch.float64, device=device)
-    before = intrinsic_kernel.intrinsic_dp.launches
-    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
-        intrinsic_kernel.intrinsic_dp(arrays, v_end, 100.0, 0, False, "linear")
-    assert intrinsic_kernel.intrinsic_dp.launches == before
+    inputs, arrays = _intrinsic_case(device, torch.float64, "linear", g, 1)
+    args = (inputs.starting_inventory, 0, None, False)
+    before = intrinsic_kernel.intrinsic_dp.launches, intrinsic_kernel.intrinsic_dp.large_launches
+    got = intrinsic_engine.intrinsic_core(arrays, *args)
+    assert (intrinsic_kernel.intrinsic_dp.launches,
+            intrinsic_kernel.intrinsic_dp.large_launches) == (before[0] + 1, before[1] + 1)
+    want = intrinsic_engine.intrinsic_plain(arrays, *args)
+    assert float(got.npv) == pytest.approx(float(want.npv), rel=1e-10)
+    for name in intrinsic_engine.IntrinsicEngineResult._fields[1:]:
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-6)
 
 
 def test_intrinsic_dp_refuses_cpu_tensors_and_other_dtypes(device):
@@ -847,22 +870,28 @@ def _tree_f64(d):
     return {k: v.to(torch.float64) if v.is_floating_point() else v for k, v in d.items()}
 
 
-@pytest.mark.parametrize("route", ["cluster", "steps"])
+def _tree_launches():
+    return (tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches,
+            tree_kernel.tree_dp.large_launches)
+
+
+@pytest.mark.parametrize("route", ["cluster", "steps", "large"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("mode", ["linear", "general", "cubic"])
 @pytest.mark.parametrize("g,n,e", [(37, 20, 1), (300, 3, 0), (15, 1, 1), (100, 20, 0)],
                          ids=["G=37", "G=300", "N=1", "T3-sized"])
 def test_tree_dp(device, dtype, mode, g, n, e, route):
-    """The tree kernel against tree_plain in f64 on the card, on both routes
+    """The tree kernel against tree_plain in f64 on the card, on every route
     (M = 99 node rows, T3's lattice width): the cluster route one launch a
-    valuation, the large-slab route one a step, the same bits."""
+    valuation, the large-slab route one a step, the large route two a step
+    (three in cubic mode), the same bits."""
     inputs, arrays, lattice = _tree_case(device, dtype, mode, g, n)
     args = (e, None, False, "cubic" if mode == "cubic" else "linear", mode != "general")
-    before = tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches
+    before = _tree_launches()
     got = tree_engine.tree_core(arrays, lattice, *args, route=route)
-    after = tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches
-    assert (after[0] - before[0], after[1] - before[1]) == (
-        (1, 0) if route == "cluster" else (0, n))
+    counted = tuple(a - b for a, b in zip(_tree_launches(), before))
+    assert counted == {"cluster": (1, 0, 0), "steps": (0, n, 0),
+                       "large": (0, 0, n * (3 if mode == "cubic" else 2))}[route]
     other = tree_engine.tree_core(arrays, lattice, *args,
                                   route="steps" if route == "cluster" else "cluster")
     assert torch.equal(got.values, other.values)
@@ -875,25 +904,32 @@ def test_tree_dp(device, dtype, mode, g, n, e, route):
         torch.testing.assert_close(got.values, want.values, rtol=0, atol=1e-9 * scale)
 
 
-def test_tree_dp_grid_beyond_shared_memory_raises(device):
-    """Both routes' reports: at G=100 the cluster route takes the slab; one
-    grid point beyond the step block's capacity, a row fits neither route's
-    shared memory and tree_dp raises before any launch."""
+def test_tree_dp_grid_beyond_shared_memory_takes_the_large_route(device):
+    """The routes' reports: at G=100 the cluster route takes the slab; one
+    grid point beyond the step block's capacity (the route rule's copy of
+    its sizing), a row fits neither route's shared memory and tree_dp takes
+    the large route, two launches a step, and gives tree_plain's values
+    (within 1e-9 of their scale, the NPV within 1e-10)."""
     _, arrays, lattice = _tree_case(device, torch.float64, "linear", 100, 1)
     m, w = lattice["band"].shape[1:]
     info = tree_kernel.kernel_info(100, torch.float64, "linear", device, m, w)
     assert info["route"] == "cluster" and info["cluster_size"] in (8, 16)
     assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
     assert info["rows_per_cta"] * info["cluster_size"] >= m and info["max_rows"] >= m
+    assert info["max_grid"] == tree_kernel.steps_max_grid(8, "linear", _build.smem_limit(device))
+    assert info["large_blocks_per_sm"] >= 1
     g = info["max_grid"] + 1
     beyond = tree_kernel.kernel_info(g, torch.float64, "linear", device, m, w)
-    assert beyond["blocks_per_sm"] == 0 and beyond["max_rows"] == 0 and beyond["route"] is None
+    assert beyond["blocks_per_sm"] == 0 and beyond["max_rows"] == 0
+    assert beyond["route"] == "large"
     _, arrays, lattice = _tree_case(device, torch.float64, "linear", g, 1)
-    v_end = torch.zeros(lattice["spot"].shape[1], g, dtype=torch.float64, device=device)
-    launches = tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches
-    with pytest.raises(ValueError, match=f"at most G={g - 1}"):
-        tree_kernel.tree_dp(arrays, lattice, v_end, 0, False, "linear")
-    assert (tree_kernel.tree_dp.launches, tree_kernel.tree_dp.step_launches) == launches
+    before = _tree_launches()
+    got = tree_engine.tree_core(arrays, lattice, 0, None, False)
+    assert tuple(a - b for a, b in zip(_tree_launches(), before)) == (0, 0, 2)
+    want = tree_engine.tree_plain(arrays, lattice, 0, None, False)
+    assert float(got.npv) == pytest.approx(float(want.npv), rel=1e-10)
+    scale = float(want.values.abs().max())
+    torch.testing.assert_close(got.values, want.values, rtol=0, atol=1e-9 * scale)
 
 
 def _wide_lattice(device, dtype, m, g, n=2, w=3, seed=5):

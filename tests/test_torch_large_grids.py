@@ -293,8 +293,11 @@ _ENTRIES = {
 
 @pytest.mark.parametrize("entry", list(_ENTRIES))
 def test_large_routes_chosen_before_anything_runs(monkeypatch, entry):
+    """The intrinsic DP keeps its shared route at G = 4,096 (it holds 29,034
+    grid points in f32, 14,517 on general rows)."""
     call, backward, forward = _ENTRIES[entry]
-    assert _routes_on_cuda(monkeypatch, call) == [{"backward": backward, "forward": forward}]
+    assert _routes_on_cuda(monkeypatch, call) == [
+        {"intrinsic": ("intrinsic_dp", "shared"), "backward": backward, "forward": forward}]
 
 
 def test_headline_grid_keeps_the_shared_routes(monkeypatch):
@@ -302,7 +305,8 @@ def test_headline_grid_keeps_the_shared_routes(monkeypatch):
     routes = _routes_on_cuda(monkeypatch, lambda **kw: tpkg.three_factor_seasonal_value(
         *_case(tpkg)[:2], fwd_curve=_case(tpkg)[2], dtype=torch.float32,
         **{**_API_KWARGS, "num_inventory_grid_points": 100}, **kw))
-    assert routes == [{"backward": ("decision_update_moments", "shared"),
+    assert routes == [{"intrinsic": ("intrinsic_dp", "shared"),
+                       "backward": ("decision_update_moments", "shared"),
                        "forward": ("forward_sweep", "shared")}]
 
 

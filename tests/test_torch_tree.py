@@ -15,8 +15,8 @@
 * ``simulate_tree_decisions`` on the centre, up and down branch paths.
 * The DP kernel's route by slab (``ops.tree_kernel.choose_route``): the
   cluster route while its CTAs hold the node rows, the large-slab route
-  beyond, and a ``ValueError`` where the route asked for, or both, cannot
-  hold it.
+  beyond while a block holds a row, the large route beyond both, and a
+  ``ValueError`` where the route asked for cannot hold it.
 * ``trinomial_value`` and ``trinomial_deltas`` against the JAX API, their
   early returns and errors, the C# example's 24,799.09, and the intrinsic
   tree against ``intrinsic_value``.
@@ -237,22 +237,24 @@ _INFO = {"max_rows": 2_976, "max_grid": 58_112}
     (2_977, 58_112, None, "steps"),          # the step block's capacity
     (99, 100, "steps", "steps"),             # forced, within both
     (2_976, 100, "cluster", "cluster"),
-], ids=["T3", "cluster-full", "just-over", "step-block-full", "forced-steps", "forced-cluster"])
+    (2_977, 58_113, None, "large"),          # beyond both shared-memory routes
+], ids=["T3", "cluster-full", "just-over", "step-block-full", "forced-steps", "forced-cluster",
+        "beyond-both"])
 def test_tree_route_chosen_by_slab(m, g, route, want):
     """The cluster route where its CTAs hold the M node rows, else the
-    large-slab route where a block holds a row's G points."""
+    large-slab route where a block holds a row's G points, else the large
+    route, whose rows stay in device memory."""
     assert tree_kernel.choose_route(m, g, _INFO, route) == want
 
 
 @pytest.mark.parametrize("m,g,route,match", [
-    (2_977, 58_113, None, "at most G=58112"),     # beyond both routes
     (2_977, 100, "cluster", "at most M=2976"),    # the cluster route forced beyond it
     (99, 58_113, "steps", "at most G=58112"),
     (99, 100, "one_block", "route must be one of"),
-], ids=["beyond-both", "forced-cluster-over", "forced-steps-over", "unknown-route"])
+], ids=["forced-cluster-over", "forced-steps-over", "unknown-route"])
 def test_tree_route_refuses_what_no_route_holds(m, g, route, match):
-    """Nothing falls back quietly: a slab beyond the route asked for, or
-    beyond both, raises before any launch."""
+    """Nothing falls back quietly: a slab beyond the route asked for raises
+    before any launch."""
     with pytest.raises(ValueError, match=match):
         tree_kernel.choose_route(m, g, _INFO, route)
 

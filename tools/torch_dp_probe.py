@@ -258,10 +258,10 @@ _START = ("  const long long k0 = clock64();\n  unsigned long long g0;\n  " + _G
 STAMPS = {
     "intrinsic_kernel.cu": [
         ("  backward<kMode>(p, l, base);\n  __syncthreads();\n  // Forward walk of the inventory.\n"
-         "  forward_walk<kMode>(p, l, base);\n",
+         "  forward_walk<kMode, false>(p, l, base);\n",
          _START + "  if (threadIdx.x == 0) stt_dp::probe_phase = 0;\n  backward<kMode>(p, l, base);\n"
          "  __syncthreads();\n  if (threadIdx.x == 0) stt_dp::probe_phase = 16;\n"
-         "  forward_walk<kMode>(p, l, base);\n" + _TOTAL),
+         "  forward_walk<kMode, false>(p, l, base);\n" + _TOTAL),
         ("  __syncthreads();  // the tables, written by every thread, are read below\n",
          "  __syncthreads();  // the tables, written by every thread, are read below\n"
          "  stt_dp::probe_add(3, clock64() - k_start);\n"),
