@@ -11,11 +11,15 @@
    bound (the least time the card could take for the same bytes and
    operations).  Kernels B and E are also held against their plain versions
    at G=1,000 (S=65,536, random inputs), B's outputs must be the same bits
-   over two launches, and B's launch report (shared memory, blocks per SM,
-   registers) is printed beside kernel D's.  The simulation sweep (kernel A
-   fused with the OU steps and the spot) must give its plain version's
-   factors and spot to the bit on the headline's tables (P=366, F=3) at seeds
-   11 and 13, and at S=1,000 over F = 1, 2, 3, 8, odd and even P, with and
+   over two launches, B and E are also timed on random rows spanning the
+   grid (the headline's follow g), and B's launch report (shared memory,
+   blocks per SM, registers, spilled bytes, SASS instructions of the kernel
+   for its padded basis size) is printed beside kernel D's.  B–E's bounds
+   price the decision loop by issue slot (unfused f32, integer addresses,
+   compares and selects) over the winner's interpolation alone.  The
+   simulation sweep (kernel A fused with the OU steps and the spot) must
+   give its plain version's factors and spot to the bit on the headline's
+   tables (P=366, F=3) at seeds 11 and 13, and at S=1,000 over F = 1, 2, 3, 8, odd and even P, with and
    without antithetic signs; kernel A's draw-only entry keeps its threefry
    words bit-identical and its normals within 4 ULP.  Kernel D must give its plain
    version's bits (no error, no flipped argmax), also at G=1,000 (S=65,536)
@@ -94,8 +98,9 @@
    at G=1,000) gives its shared route's bits; at G=4,096 on random inputs
    (S=65,536) each gives its plain version's bits or flips only on
    near-ties, and is timed with its plain version at S=262,144 beside its
-   bound (the kernels line's ``*_large`` rows).  Then, counters reset
-   before each: the headline with every large route forced at G=100 (the
+   bound (the kernels line's ``*_large`` rows; B and E also on rows
+   following g, ``band_rows_ms``, with B's launch report).  Then, counters
+   reset before each: the headline with every large route forced at G=100 (the
    pinned ``MAIN_NPV``/``MAIN_SE`` bits); at G=4,096 and 262,144 paths the
    headline (B and C large, 365 + 1 launches), ``fullstep`` (E, within 0.05
    SE of it), the generic replica (D at B=9 and C's design mode, within 0.1
@@ -471,6 +476,7 @@ def bound(num_bytes: float, ops: float, unfused_ops: float = 0.0, int_ops: float
                 int_ops / INT32_OPS_PER_S)
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops,
                 bytes=num_bytes, ops=ops, unfused_ops=unfused_ops, int_ops=int_ops)
 
 
@@ -496,19 +502,42 @@ def sweep_work(p: int, f: int, s: int, antithetic: bool) -> tuple:
     return num_bytes, unfused, ints
 
 
-def decision_work(g, s, d, b, f, moments: bool, design_in_memory: bool = False):
-    """(bytes, f32 operations) of one backward decision step, each input read
-    once and each output written once: v [G, S] in and best_act [G, S] out,
-    the step's spot (and, with moments, both steps' spot and factors or,
-    for kernel D, the design [B, S]), the small tables.  Operations per sim:
-    per grid point 7 for decision 0 and 2B + 7 for each other; with moments
-    the design rows of two steps (~5B each) and 2(B² + GB) for XᵀX and Xᵀv."""
+# The decision loop's issue slots a sim and grid point, counted from
+# csrc/decision_step.cuh: decision 0's immediate value (2 unfused f32); per
+# further decision its regressed gap over the B real terms (2B − 1), its
+# immediate value (2) and their sum (1), then the strict > and the four
+# selects of the running argmax (5, counted with the integer work); the
+# winner's interpolation (1 − w, two products, their sum) and its immediate
+# value (5 unfused); the addresses of the winner's two rows of v and of the
+# two stores, 64-bit (7 integer).
+DECIDE_F32_OPS = 7
+DECIDE_F32_OPS_PER_DECISION = 3
+DECIDE_INT_OPS = 7
+DECIDE_INT_OPS_PER_DECISION = 5
+
+
+def decision_work(g, s, d, b, f, moments: bool, design_in_memory: bool = False,
+                  solve: bool = False):
+    """(bytes, fused f32 operations, unfused f32 operations, integer
+    operations) of one backward decision step, each input read once and
+    each output written once: v [G, S] in and best_act [G, S] out, the step's
+    spot (and, with moments, both steps' spot and factors or, for kernel D,
+    the design [B, S]), the small tables (with ``solve``, kernel E's carried
+    moments in and its regression out).  The decision loop is unfused
+    (``DECIDE_*``: the argmax over D decisions, then the winner's
+    interpolation alone); with moments, the design rows of two steps (~5B
+    unfused each) and XᵀX and Xᵀv, fused, 2(B² + GB) a sim."""
     rows = 2 * g + 1 + (b if design_in_memory else 0) + ((2 + 2 * f - 1) if moments else 0)
     tables = d * g * b + 4 * d * g + 4 * b + (b * b + g * b if moments else 0)
-    per_sim = g * (7 + (d - 1) * (2 * b + 7))
+    if solve:
+        tables += b * b + 2 * b * g + 2 * b
+    unfused = g * (DECIDE_F32_OPS + (d - 1) * (2 * b - 1 + DECIDE_F32_OPS_PER_DECISION))
+    ints = g * (DECIDE_INT_OPS + (d - 1) * DECIDE_INT_OPS_PER_DECISION)
+    fused = 0
     if moments:
-        per_sim += 10 * b + 2 * (b * b + g * b)
-    return 4.0 * (rows * s + tables), float(per_sim) * s
+        unfused += 10 * b
+        fused += 2 * (b * b + g * b)
+    return 4.0 * (rows * s + tables), float(fused) * s, float(unfused) * s, float(ints) * s
 
 
 def near_tie_flips(got, want, regressed_sets):
@@ -716,6 +745,18 @@ def random_step(device, g, s, seed):
             torch.randint(0, g - 1, (g, d), generator=gen, device=device, dtype=torch.int32),
             torch.rand((g, d), generator=gen, device=device), 20.0 * rnd(d, g, b),
             2.0 * rnd(d, g), 20.0 * rnd(d, g), monomials)
+
+
+def band_rows(args_b):
+    """Kernel B's arguments with the interpolation rows following g in a band
+    of ±5 (as a valuation's interpolated targets give) in place of theirs."""
+    import torch
+
+    idx_lo = args_b[9]
+    g, d = idx_lo.shape
+    offsets = 5 * torch.arange(d, device=idx_lo.device) - 5 * (d // 2)
+    band = (torch.arange(g, device=idx_lo.device)[:, None] + offsets[None, :]).clamp(0, g - 2)
+    return (*args_b[:9], band.to(torch.int32).contiguous(), *args_b[10:])
 
 
 def random_update(device, g, s, seed, monotone: bool):
@@ -1012,6 +1053,14 @@ def check_kernels(pkg, device):
     bnd = bound(*decision_work(NUM_GRID, s, 3, b_dim, f, moments=True))
     log(f"kernel B decision_update_moments [G={NUM_GRID}, S={s}, D=3, B={b_dim}]: {cmp_b['text']}; "
         f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    # The same launch on random rows spanning the grid (the headline's
+    # follow g), and the launch report of the kernel for B's padded size.
+    rnd = random_step(device, NUM_GRID, s, seed=8)
+    ms_random = cuda_ms(lambda: decision_kernel.decision_update_moments(*rnd, out=out), 20)
+    report_b = moments_launch_report(device, NUM_GRID, b_dim)
+    log(f"kernel B on random rows [G={NUM_GRID}, S={s}]: {ms_random:.4f} ms; its launch: "
+        f"{launch_text(report_b)}; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; bytes "
+        f"{bnd['bytes_ms']:.4f}, issue {bnd['ops_ms']:.4f})")
     big = random_step(device, BIG_GRID, BIG_SIMS, seed=7)
     cmp_big = compare_b(big)
     log(f"kernel B decision_update_moments [G={BIG_GRID}, S={BIG_SIMS}, D=3, B={b_dim}, random "
@@ -1031,7 +1080,7 @@ def check_kernels(pkg, device):
         max_abs_err=cmp_b["max_abs_err"], ms=ms, plain_ms=plain_ms,
         **{k: v_ for k, v_ in cmp_b.items() if k not in ("text", "max_abs_err")},
         big_grid=dict(G=BIG_GRID, S=BIG_SIMS, **{k: v_ for k, v_ in cmp_big.items() if k != "text"}),
-        launch=launch, **bnd)
+        launch=launch, random_rows_ms=ms_random, launch_report=report_b, **bnd)
 
     # ---- D: the same step on spot-only panels (basis 1 + s + s² + s³): the
     # design [B, S] standardised by the step's exact stats, as the engine's
@@ -1078,11 +1127,14 @@ def check_kernels(pkg, device):
     cmp_e = compare_e(args_e, prev)
     ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep(*args_e, **prev, out=out), 20)
     plain_ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep_plain(*args_e, **prev), 5)
-    bnd = bound(*decision_work(NUM_GRID, s, 3, b_dim, f, moments=True))
+    bnd = bound(*decision_work(NUM_GRID, s, 3, b_dim, f, moments=True, solve=True))
+    e_rnd, e_prev = fullstep_args(rnd)
+    ms_random = cuda_ms(lambda: decision_kernel.decision_update_fullstep(*e_rnd, **e_prev, out=out),
+                        20)
     log(f"kernel E decision_update_fullstep [G={NUM_GRID}, S={s}, D=3, B={b_dim}, F={f}]: "
-        f"{cmp_e['text']}; {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    del args_e
+        f"{cmp_e['text']}; {ms:.3f} ms ({ms_random:.4f} on random rows) vs plain "
+        f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    del args_e, e_rnd, rnd
     v_b, spot_b, fac_b, spot_pb, fac_pb, mean_b, std_b, mean_pb, std_pb, idx_b, w_b, _, a_b, b_b, \
         _ = big
     dm = decision_kernel._standardised_design(monomials, spot_b, fac_b, mean_b, std_b)
@@ -1099,7 +1151,7 @@ def check_kernels(pkg, device):
         max_abs_err=cmp_e["max_abs_err"], ms=ms, plain_ms=plain_ms,
         **{k: v_ for k, v_ in cmp_e.items() if k not in ("text", "max_abs_err")},
         big_grid=dict(G=BIG_GRID, S=BIG_SIMS, **{k: v_ for k, v_ in cmp_e_big.items() if k != "text"}),
-        **bnd)
+        random_rows_ms=ms_random, **bnd)
     del big, args_big
     del v, out
 
@@ -2072,6 +2124,28 @@ def ptxas_report(fragment: str) -> dict:
         if m:
             out["registers"] = int(m.group(1))
     return out
+
+
+def moments_launch_report(device, g: int, b_dim: int, large: bool = False) -> dict:
+    """Kernel B's launch report at D = 3 and G grid points (the large route's
+    at a tile of G): blocks per SM and shared memory a block
+    (``kernel_info``), registers and spilled bytes (``ptxas.log``) and SASS
+    instructions of the kernel compiled for B's padded basis size."""
+    from storage_tpu_torch.ops import _build, decision_kernel
+
+    info = decision_kernel.kernel_info("moments", g, 3, b_dim, device)
+    name = ("decision_moments_tiled_kernel" if large else "decision_moments_kernel") \
+        + f"ILi{decision_kernel.padded_basis(b_dim)}E"
+    ptx = ptxas_report(name)
+    return dict(blocks_per_sm=info["blocks_per_sm"], smem_bytes=info["smem_bytes"],
+                registers=ptx["registers"], spill_bytes=ptx.get("spill_store_bytes", 0),
+                sass_instructions=_build.sass_instructions(_build.library_path(), name))
+
+
+def launch_text(r: dict) -> str:
+    return (f"{r['blocks_per_sm']} blocks/SM, {r['smem_bytes']} B of shared memory a block, "
+            f"{r['registers']} registers, {r['spill_bytes']} B spilled, "
+            f"{r['sass_instructions']} SASS instructions")
 
 
 def check_caps(pkg, device) -> dict:
@@ -4327,22 +4401,30 @@ def check_large_kernels(pkg, device) -> dict:
     cmp_b = compare_b(args)
     cmp_e = compare_e(*fullstep_args(args))
     del args
+    # Timed on random rows spanning the grid and on rows following g (a
+    # valuation's).
     args = random_step(device, g, big_s, seed=25)
+    band = band_rows(args)
     out = torch.empty_like(args[0])
     ms = cuda_ms(lambda: decision_kernel.decision_update_moments(*args, out=out), 5)
+    ms_band = cuda_ms(lambda: decision_kernel.decision_update_moments(*band, out=out), 5)
     plain_ms = cuda_ms(lambda: decision_kernel.decision_update_moments_plain(*args), 2)
-    launch = decision_kernel.kernel_info("moments", decision_kernel.TILE_B, 3, 9, device)
+    launch = moments_launch_report(device, decision_kernel.TILE_B, 9, large=True)
+    log(f"decision_update_moments_large: {ms_band:.4f} ms on rows following g; its launch "
+        f"(tiles of {decision_kernel.TILE_B}): {launch_text(launch)}")
     row("decision_update_moments_large", cmp_b, ms, plain_ms,
         decision_work(g, big_s, 3, 9, 3, moments=True), tile=decision_kernel.TILE_B,
-        smem_bytes=launch["smem_bytes"], blocks_per_sm=launch["blocks_per_sm"],
-        registers=launch["registers"])
+        band_rows_ms=ms_band, **launch)
     e_args, prev = fullstep_args(args)
+    e_band, _ = fullstep_args(band)
     ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep(*e_args, **prev, out=out), 5)
+    ms_band = cuda_ms(lambda: decision_kernel.decision_update_fullstep(*e_band, **prev, out=out), 5)
     plain_ms = cuda_ms(lambda: decision_kernel.decision_update_fullstep_plain(*e_args, **prev), 2)
+    log(f"decision_update_fullstep_large: {ms_band:.4f} ms on rows following g")
     row("decision_update_fullstep_large", cmp_e, ms, plain_ms,
-        decision_work(g, big_s, 3, 9, 3, moments=True), tile=decision_kernel.TILE_B,
-        blocks_per_sm=launch["blocks_per_sm"])
-    del args, e_args, out
+        decision_work(g, big_s, 3, 9, 3, moments=True, solve=True), tile=decision_kernel.TILE_B,
+        band_rows_ms=ms_band, blocks_per_sm=launch["blocks_per_sm"])
+    del args, band, e_args, e_band, out
     torch.cuda.empty_cache()
 
     # D at B = 4 (spot-only panels) and B = 9 (the generic replica).
@@ -5885,12 +5967,15 @@ def main(argv) -> int:
              "forward_sweep_general": ("uniform_ms", "smem_bytes", "blocks_per_sm", "registers"),
              "forward_sweep_design_general": ("uniform_ms", "smem_bytes", "blocks_per_sm",
                                               "registers"),
-             "decision_update_moments_large": ("tile", "smem_bytes", "blocks_per_sm",
-                                               "registers"),
+             "decision_update_moments": ("random_rows_ms", "launch_report"),
+             "decision_update_fullstep": ("random_rows_ms",),
+             "decision_update_moments_large": ("tile", "band_rows_ms", "smem_bytes",
+                                               "blocks_per_sm", "registers", "spill_bytes",
+                                               "sass_instructions"),
              "decision_update_large": ("tile", "smem_bytes", "blocks_per_sm", "registers",
                                        "b9_ms", "b9_plain_ms", "b9_bound_ms", "b9_max_abs_err",
                                        "b9_blocks_per_sm", "b9_launches"),
-             "decision_update_fullstep_large": ("tile", "blocks_per_sm"),
+             "decision_update_fullstep_large": ("tile", "band_rows_ms", "blocks_per_sm"),
              "intrinsic_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64",
                                     "chain_floor_ms", "grid_link_ns", "launch"),
              "tree_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64", "launch"),

@@ -16,8 +16,9 @@
 // Bound on the H100: device memory.  Per step it must read the value panel v
 // [G, S] and write best_act [G, S] (210 MB at G=100, S=262,144, D=3, B=9,
 // F=3, with two steps' spot and factors: 0.0651 ms at 3.35 TB/s); the
-// arithmetic (~G·(2D + (D−1)·B + B) flops per sim) is far below the card's
-// rate.
+// decision loop is unfused, and its issue slots (the argmax's products,
+// sums, compares and selects, the winner's interpolation, the addresses)
+// with the moments' FMAs come to 0.0585 ms (chip_smoke.decision_work).
 //
 // What held the first design back (tools/torch_decision_probe.py at those
 // shapes on an NVIDIA H100 80GB HBM3, 700.00 W): not its moments epilogue —
@@ -33,33 +34,46 @@
 //   * a best_act store into shared memory at every g, which the compiler
 //     cannot move past the next g's table reads (both shared memory).
 //
+// The moments' redesign kept that design's decision loop: 2D = 6 dependent
+// gathers of v per sim and grid point, one grid point at a time — 0.379 of
+// its 0.438 ms a step, the rest the moment products
+// (tools/torch_decision_probe.py, PERF.md).
+//
 // Design:
-//   * one thread per sim column, 128 sims per block; every (g, d) reads the two
-//     v rows it interpolates, so neighbouring threads read neighbouring words
+//   * one thread per sim column, 128 sims per block; the decision loop is
+//     decision_step.cuh's, kernel D's (which keeps its own copy): per group
+//     of kGroup grid points the argmax first, on the regressed values from
+//     the step's records alone, then only the winner's two rows of v,
+//     through L1 — 2 reads per sim and grid point, not 2D, and kGroup
+//     chains in flight.  Neighbouring threads read neighbouring words
 //     (coalesced) and no [G, D, S] intermediate touches device memory;
-//   * the step tables (dci, a, b, idx_lo, w_hi) go to shared memory once per
-//     block (decision_step.cuh, as kernel D); they are the only part of
-//     shared memory that grows with G.  Past the grid whose tables fit
-//     (1,434 points at D=3, B=9 on an H100) the large route brings them a
-//     tile of grid points at a time into the same buffer, a barrier before
-//     and after each tile, and runs the same chunk loop over each tile: the
-//     same arithmetic in the same order, so the same bits, and any G.  The
-//     wrapper picks the route and the tile from the shape
-//     (ops/decision_kernel.py moments_route);
+//   * the step's records ({a, b, w_hi, idx_lo} per decision, the centred
+//     coefficients padded to whole float4s) go to shared memory once per
+//     block; they are the only part of shared memory that grows with G.
+//     Past the grid whose records fit (1,553 points at D=3, B=9 on an H100)
+//     the large route repacks them a tile of grid points at a time into the
+//     same buffer, a barrier before and after each tile, and runs the same
+//     chunk loop over each tile: the same arithmetic in the same order, so
+//     the same bits, and any G.  The wrapper picks the route and the tile
+//     from the shape (ops/decision_kernel.py moments_route);
+//   * each kernel is compiled per basis size padded to a multiple of 4 (4,
+//     8, 12, 16), so that the design row and the coefficients are unrolled
+//     over registers; the padded terms add 0·0 to a regressed value, which
+//     moves no argmax;
 //   * the design rows are built entry by entry with rolled loops, in
 //     stt::design_row's arithmetic: step t's through the thread's column of
 //     the design tile into registers, then step t−1's into that column;
-//   * the grid loop is kernel D's, in chunks of kChunk grid points; each
-//     decision goes to best_out and to a static [kChunk, 128] tile, which the
-//     compiler knows is not the tables.  After a chunk the block reduces the
-//     tile against step t−1's design tile [B, 128]: thread (row r, slice q)
-//     sums 8 of the block's sims of row r against all B columns from float4
+//   * the grid loop runs in chunks of kChunk grid points; each decision goes
+//     to best_out and to a static [kChunk, 128] tile, which the compiler
+//     knows is not the records.  After a chunk the block reduces the tile
+//     against step t−1's design tile [B, 128]: thread (row r, slice q) sums
+//     8 of the block's sims of row r against all B columns from float4
 //     reads, and the 16 slices of a row combine by a fixed butterfly.  XᵀX
-//     comes from the design tile the same way.  Shared memory is
-//     4·(B·128 + kChunk·128 + 39·G) bytes at D=3: 24,304 at G=100, B=9;
-//   * registers are capped for 9 blocks (36 warps) per SM, more than kernel
-//     D's 7: more warps keep more v gathers in flight than the few spilled
-//     registers cost;
+//     comes from the design tile the same way;
+//   * registers are capped for kMinBlocks = 9 blocks (36 warps) per SM: more
+//     warps keep more reads of v in flight than the few spilled registers
+//     cost (7 blocks was slower, and so were groups of 2 or 8 grid points
+//     and one 16-term kernel for every B: tools/torch_decision_probe.py);
 //   * each block writes its partial moments as one contiguous row of
 //     partials [nblk, B·B + G·B]; a second kernel sums the rows in a fixed
 //     order — no float atomics, the same bits on every run;
@@ -76,17 +90,17 @@ namespace {
 
 constexpr int kThreads = 128;                 // sims per block, one thread each
 constexpr int kChunk = 8;                     // grid points per staged chunk
+constexpr int kGroup = 4;                     // grid points decided together
 constexpr int kSlices = kThreads / kChunk;    // threads that share one tile row
 constexpr int kMinBlocks = 9;                 // blocks per SM the registers must allow
 constexpr int kReduceRows = 32;               // partial rows summed per column thread
+static_assert(kChunk % kGroup == 0, "a chunk holds whole groups");
 
 // Dynamic shared memory of the kernel in floats: the design tile, then the
-// step tables (the best_act tile is static).
+// step's records, record_words(D, Bp) a grid point (the best_act tile is
+// static).
 __host__ __device__ inline size_t smem_fixed_words(int B) {
   return static_cast<size_t>(B) * kThreads;
-}
-__host__ __device__ inline size_t smem_words_per_grid_point(int D, int B) {
-  return stt::decision_tables_words(1, D, B);
 }
 
 // Entry b of sim s's standardised design row: stt::design_row's arithmetic
@@ -147,6 +161,59 @@ __device__ __forceinline__ void tile_product(const float* x, int nrows, const fl
   if (r < nrows && q < B) out[r * B + q] = mine;
 }
 
+// Step t's design row, in registers, for the decisions, and step t−1's,
+// standardised by (mean_prev, std_prev), in this thread's column of the
+// design tile (each thread touches its own column only, so no barrier
+// between).  The columns past S compute on column S − 1 and count as zeros.
+template <int Bp>
+__device__ __forceinline__ stt::RegisterRow<Bp> design_rows(
+    const stt::Basis& basis, float* dmp_tile, int s, bool valid, int S,
+    const float* __restrict__ spot, const float* __restrict__ factors,
+    const float* __restrict__ spot_prev, const float* __restrict__ factors_prev,
+    const float* __restrict__ mean, const float* __restrict__ stdv,
+    const float* __restrict__ mean_prev, const float* __restrict__ std_prev) {
+  const int B = basis.nb;
+  const int tid = threadIdx.x;
+#pragma unroll 1
+  for (int k = 0; k < B; ++k)
+    dmp_tile[k * kThreads + tid] = design_entry(basis, k, spot[s], factors, S, s, mean, stdv);
+  stt::RegisterRow<Bp> dm;
+#pragma unroll
+  for (int k = 0; k < Bp; ++k) dm.dm[k] = k < B ? dmp_tile[k * kThreads + tid] : 0.0f;
+#pragma unroll 1
+  for (int k = 0; k < B; ++k) {
+    const float x = design_entry(basis, k, spot_prev[s], factors_prev, S, s, mean_prev, std_prev);
+    dmp_tile[k * kThreads + tid] = valid ? x : 0.0f;
+  }
+  return dm;
+}
+
+// The rows grid points of a chunk whose records are entries first.. of tab
+// (of a tile whose last entry is `last`): each decision to best_out, from
+// grid point g0 of the step, and to the best_act tile.
+template <int Bp>
+__device__ __forceinline__ void decide_chunk(const float* tab, int first, int rows, int last,
+                                             size_t g0, int D, const float* __restrict__ v,
+                                             int S, int s, bool valid, float sp,
+                                             const stt::RegisterRow<Bp>& dm,
+                                             float* __restrict__ best_out, float* best_tile) {
+#pragma unroll
+  for (int c = 0; c < kChunk; c += kGroup) {
+    if (c < rows) {
+      float best[kGroup];
+      stt::decide_group<kGroup>(tab, first + c, last, D, v, S, s, sp, dm, best);
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (c + i < rows) {
+          if (valid) best_out[(g0 + c + i) * S + s] = best[i];
+          best_tile[(c + i) * kThreads + threadIdx.x] = valid ? best[i] : 0.0f;
+        }
+      }
+    }
+  }
+}
+
+template <int Bp>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_kernel(
     int G, int S, int D, stt::Basis basis,
     const float* __restrict__ v, const float* __restrict__ spot,
@@ -159,36 +226,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_kernel(
     float* __restrict__ best_out, float* __restrict__ partials) {
   const int B = basis.nb;
   // The best_act tile is an array of its own, so that the compiler knows
-  // its stores do not touch the step tables and can keep the next decisions'
+  // its stores do not touch the records and can keep the next decisions'
   // loads in flight across them.
   __shared__ __align__(16) float best_tile[kChunk * kThreads];
   extern __shared__ __align__(16) float smem[];
   float* dmp_tile = smem;                       // [B, kThreads]
-  const stt::DecisionTables tab = stt::load_decision_tables(
-      smem + smem_fixed_words(B), G, D, B, dci_g, a_g, b_g, w_hi_g, idx_lo_g);
+  float* tab = smem + smem_fixed_words(B);      // [G] records
+  stt::load_records(tab, G, 0, G, D, B, Bp, idx_lo_g, w_hi_g, dci_g, a_g, b_g);
 
-  const int tid = threadIdx.x;
-  const int col = static_cast<int>(blockIdx.x) * kThreads + tid;
+  const int col = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
   const bool valid = col < S;
-  // The columns past S compute on column S − 1 and count as zeros: no
-  // branch around the decisions.
   const int s = min(col, S - 1);
-  // Step t's design row goes through this thread's column of the design tile
-  // into registers, for the decisions; then step t−1's, standardised by
-  // (mean_prev, std_prev), takes the column (each thread touches its own
-  // column only, so no barrier between).
-#pragma unroll 1
-  for (int k = 0; k < B; ++k)
-    dmp_tile[k * kThreads + tid] = design_entry(basis, k, spot[s], factors, S, s, mean, stdv);
-  float dm[stt::kMaxB];
-#pragma unroll
-  for (int k = 0; k < stt::kMaxB; ++k) dm[k] = k < B ? dmp_tile[k * kThreads + tid] : 0.0f;
+  const stt::RegisterRow<Bp> dm = design_rows<Bp>(basis, dmp_tile, s, valid, S, spot, factors,
+                                                  spot_prev, factors_prev, mean, stdv,
+                                                  mean_prev, std_prev);
   const float sp = spot[s];
-#pragma unroll 1
-  for (int k = 0; k < B; ++k) {
-    const float x = design_entry(basis, k, spot_prev[s], factors_prev, S, s, mean_prev, std_prev);
-    dmp_tile[k * kThreads + tid] = valid ? x : 0.0f;
-  }
   __syncthreads();
 
   // This block's row of partials: XᵀX, then (Xᵀ·best_act)ᵀ as [G, B].
@@ -199,23 +251,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_kernel(
 
   for (int g0 = 0; g0 < G; g0 += kChunk) {
     const int rows = min(kChunk, G - g0);
-    for (int i = 0; i < rows; ++i) {
-      const float best = stt::decide(tab, G, D, B, g0 + i, v, S, s, sp, dm);
-      if (valid) best_out[static_cast<size_t>(g0 + i) * S + s] = best;
-      best_tile[i * kThreads + tid] = valid ? best : 0.0f;
-    }
+    decide_chunk<Bp>(tab, g0, rows, G - 1, g0, D, v, S, s, valid, sp, dm, best_out, best_tile);
     __syncthreads();
     tile_product(best_tile, rows, dmp_tile, B, row + g0 * B);
     __syncthreads();  // the tile is rewritten by the next chunk
   }
 }
 
-// The large route: decision_moments_kernel with the step tables `tile`
-// (< G) grid points at a time in the same buffer, the same chunk loop over
-// each tile's grid points (its arithmetic, so its bits).  A kernel of its
-// own, so that the shared route's launch keeps its compiled code: one body
-// for both (a template, or `tile` read at run time) compiled the shared
-// route to other spills and slowed it at the headline (PERF.md, PR 17).
+// The large route: decision_moments_kernel with the records `tile` (< G)
+// grid points at a time in the same buffer, the same chunk loop over each
+// tile's grid points (its arithmetic, so its bits).  A kernel of its own,
+// so that the shared route's launch keeps its compiled code: one body for
+// both (a template, or `tile` read at run time) compiled the shared route
+// to other spills and slowed it at the headline (PERF.md).
+template <int Bp>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_tiled_kernel(
     int G, int tile, int S, int D, stt::Basis basis,
     const float* __restrict__ v, const float* __restrict__ spot,
@@ -227,40 +276,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_tiled_k
     const float* __restrict__ a_g, const float* __restrict__ b_g,
     float* __restrict__ best_out, float* __restrict__ partials) {
   const int B = basis.nb;
-  // The best_act tile is an array of its own, so that the compiler knows
-  // its stores do not touch the step tables and can keep the next decisions'
-  // loads in flight across them.
   __shared__ __align__(16) float best_tile[kChunk * kThreads];
   extern __shared__ __align__(16) float smem[];
   float* dmp_tile = smem;                       // [B, kThreads]
-  // The first tile's tables (min(tile, G) = tile here, but this form
-  // compiles with fewer spills: 32 bytes against 80 in ptxas's report).
-  stt::DecisionTables tab = stt::load_decision_tile(smem + smem_fixed_words(B), G, 0,
-                                                    min(tile, G), D, B, dci_g, a_g, b_g, w_hi_g,
-                                                    idx_lo_g);
+  float* tab = smem + smem_fixed_words(B);      // [tile] records
+  stt::load_records(tab, G, 0, min(tile, G), D, B, Bp, idx_lo_g, w_hi_g, dci_g, a_g, b_g);
 
-  const int tid = threadIdx.x;
-  const int col = static_cast<int>(blockIdx.x) * kThreads + tid;
+  const int col = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
   const bool valid = col < S;
-  // The columns past S compute on column S − 1 and count as zeros: no
-  // branch around the decisions.
   const int s = min(col, S - 1);
-  // Step t's design row goes through this thread's column of the design tile
-  // into registers, for the decisions; then step t−1's, standardised by
-  // (mean_prev, std_prev), takes the column (each thread touches its own
-  // column only, so no barrier between).
-#pragma unroll 1
-  for (int k = 0; k < B; ++k)
-    dmp_tile[k * kThreads + tid] = design_entry(basis, k, spot[s], factors, S, s, mean, stdv);
-  float dm[stt::kMaxB];
-#pragma unroll
-  for (int k = 0; k < stt::kMaxB; ++k) dm[k] = k < B ? dmp_tile[k * kThreads + tid] : 0.0f;
+  const stt::RegisterRow<Bp> dm = design_rows<Bp>(basis, dmp_tile, s, valid, S, spot, factors,
+                                                  spot_prev, factors_prev, mean, stdv,
+                                                  mean_prev, std_prev);
   const float sp = spot[s];
-#pragma unroll 1
-  for (int k = 0; k < B; ++k) {
-    const float x = design_entry(basis, k, spot_prev[s], factors_prev, S, s, mean_prev, std_prev);
-    dmp_tile[k * kThreads + tid] = valid ? x : 0.0f;
-  }
   __syncthreads();
 
   // This block's row of partials: XᵀX, then (Xᵀ·best_act)ᵀ as [G, B].
@@ -272,20 +300,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_tiled_k
   for (int t0 = 0; t0 < G; t0 += tile) {
     const int nt = min(tile, G - t0);
     if (t0 > 0) {
-      // Every thread is past the last tile's tables (the chunk loop ends
+      // Every thread is past the last tile's records (the chunk loop ends
       // on a barrier): the next tile takes their place.
-      tab = stt::load_decision_tile(smem + smem_fixed_words(B), G, t0, nt, D, B, dci_g, a_g,
-                                    b_g, w_hi_g, idx_lo_g);
+      stt::load_records(tab, G, t0, nt, D, B, Bp, idx_lo_g, w_hi_g, dci_g, a_g, b_g);
       __syncthreads();
     }
     for (int c0 = 0; c0 < nt; c0 += kChunk) {
       const int rows = min(kChunk, nt - c0);
       const size_t g0 = static_cast<size_t>(t0) + c0;
-      for (int i = 0; i < rows; ++i) {
-        const float best = stt::decide(tab, nt, D, B, c0 + i, v, S, s, sp, dm);
-        if (valid) best_out[(g0 + i) * S + s] = best;
-        best_tile[i * kThreads + tid] = valid ? best : 0.0f;
-      }
+      decide_chunk<Bp>(tab, c0, rows, nt - 1, g0, D, v, S, s, valid, sp, dm, best_out,
+                       best_tile);
       __syncthreads();
       tile_product(best_tile, rows, dmp_tile, B, row + g0 * B);
       __syncthreads();  // the tile is rewritten by the next chunk
@@ -316,6 +340,24 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partials, int nrows
   }
 }
 
+// The two routes' kernels for basis size B (at most kMaxB = 16), compiled for
+// its padded size Bp, whose records they read.
+struct MomentsKernels {
+  decltype(&decision_moments_kernel<4>) shared;
+  decltype(&decision_moments_tiled_kernel<4>) tiled;
+  int bp;
+};
+
+MomentsKernels moments_kernels(int B) {
+  static_assert(stt::kMaxB == 16, "one case per padded basis size");
+  switch (stt::padded_basis(B)) {
+    case 4: return {decision_moments_kernel<4>, decision_moments_tiled_kernel<4>, 4};
+    case 8: return {decision_moments_kernel<8>, decision_moments_tiled_kernel<8>, 8};
+    case 12: return {decision_moments_kernel<12>, decision_moments_tiled_kernel<12>, 12};
+    default: return {decision_moments_kernel<16>, decision_moments_tiled_kernel<16>, 16};
+  }
+}
+
 }  // namespace
 
 namespace stt {
@@ -331,21 +373,22 @@ cudaError_t launch_decision_moments(
   if (tile < 1) return cudaErrorInvalidValue;
   tile = min(tile, G);
   const int nblk = (S + kThreads - 1) / kThreads;
-  const size_t smem =
-      sizeof(float) * (smem_fixed_words(B) + smem_words_per_grid_point(D, B) * tile);
+  const MomentsKernels k = moments_kernels(B);
+  const size_t smem = sizeof(float) * (smem_fixed_words(B) +
+                                       static_cast<size_t>(stt::record_words(D, k.bp)) * tile);
   cudaError_t err;
   if (tile < G) {
-    err = cudaFuncSetAttribute(decision_moments_tiled_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(k.tiled, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    decision_moments_tiled_kernel<<<nblk, kThreads, smem, stream>>>(
+    k.tiled<<<nblk, kThreads, smem, stream>>>(
         G, tile, S, D, basis, v, spot, factors, spot_prev, factors_prev, mean, stdv,
         mean_prev, std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
   } else {
-    err = cudaFuncSetAttribute(decision_moments_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(k.shared, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    decision_moments_kernel<<<nblk, kThreads, smem, stream>>>(
+    k.shared<<<nblk, kThreads, smem, stream>>>(
         G, S, D, basis, v, spot, factors, spot_prev, factors_prev, mean, stdv, mean_prev,
         std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
   }
@@ -385,11 +428,12 @@ extern "C" int stt_decision_update_moments(
 }
 
 // Kernel B's launch report at (G, D, B) on the current device (common.cuh:
-// kernel_info), for the shared route (all G grid points' tables at once: its
+// kernel_info), for the shared route (all G grid points' records at once: its
 // max_grid is the largest G that route takes); the wrappers size the
 // partials by its sims per block.
 extern "C" int stt_decision_update_moments_info(int G, int D, int B, int* out) {
   if (G < 0 || D < 1 || B < 1 || B > stt::kMaxB) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(stt::kernel_info(decision_moments_kernel, kThreads, smem_fixed_words(B),
-                                           smem_words_per_grid_point(D, B), G, out));
+  const MomentsKernels k = moments_kernels(B);
+  return static_cast<int>(stt::kernel_info(k.shared, kThreads, smem_fixed_words(B),
+                                           stt::record_words(D, k.bp), G, out));
 }

@@ -1,16 +1,25 @@
-// The backward step's decision update for one sim column, run by kernel B
-// (decision_kernel.cu) and, through B's kernel, kernel E (fullstep_kernel.cu);
-// kernel D (decision_update_kernel.cu) does the same arithmetic in its own
-// loop.
+// The backward step's decision loop of kernel B (decision_kernel.cu) and so
+// of kernel E (fullstep_kernel.cu), which launches B's kernel after its
+// solve.  It is kernel D's loop (decision_update_kernel.cu keeps its own
+// copy: on this one D compiled 8% slower at B = 9, PERF.md).
 //
 // For inventory grid point g of sim s it takes the decision whose REGRESSED
 // value is largest (strict >, decision 0 first, so ties keep the earlier
 // decision) and returns its ACTUAL value:
-//   actual continuation   v[lo, s]·(1 − w) + v[lo + 1, s]·w   (lo, w per (g, d))
 //   regressed gap         Σ_b dci[d, g, b]·dm[b]               (dci = ci − ci[0])
 //   immediate value       a[d, g]·spot + b[d, g]
+//   actual continuation   v[lo, s]·(1 − w) + v[lo + 1, s]·w   (lo, w of the winner)
 // in the plain versions' order, every product and sum rounded on its own (no
 // fused multiply-adds), so a kernel matches its plain version to the bit.
+//
+// The argmax runs first, on the regressed values, which need no v; only the
+// winner's two rows of v are then read, through L1 (2 reads per sim and grid
+// point, not 2D).  The grid points go in groups, decided together: a group's
+// independent chains keep several reads of v in flight.  The step tables are
+// repacked per grid point in shared memory: per decision one 16-byte entry
+// {a, b, w_hi, idx_lo}, then for d > 0 its centred coefficients zero-padded
+// to whole float4s, all read at warp-uniform addresses.  The padded terms add
+// 0·0 to a regressed value, which moves no argmax.
 #pragma once
 
 #include <cstddef>
@@ -20,110 +29,117 @@
 
 namespace stt {
 
-// The per-step tables, staged in shared memory by every block.  On kernel
-// B's large route, a tile of nt grid points at a time: grid point g0 + i of
-// the step is entry i of the tile, and nt stands in for G below.
-struct DecisionTables {
-  float* dci;   // [D, G, B]
-  float* a;     // [D, G]
-  float* b;     // [D, G]
-  float* w_hi;  // [G, D]
-  int* idx_lo;  // [G, D]
+__host__ __device__ inline int padded_basis(int B) { return (B + 3) & ~3; }
+// Floats of one grid point's record: {a, b, w_hi, idx_lo} per decision, and
+// after each of decisions 1..D−1 its Bp padded centred coefficients.
+__host__ __device__ inline int record_words(int D, int Bp) { return 4 + (D - 1) * (4 + Bp); }
+__host__ __device__ inline int record_offset(int d, int Bp) {
+  return d == 0 ? 0 : 4 + (d - 1) * (4 + Bp);
+}
+
+// A sim's standardised design row, Bp entries (zero beyond B), in registers.
+template <int Bp>
+struct RegisterRow {
+  float dm[Bp];
+  // The regressed gap cf·dm of padded coefficients cf (16-byte aligned):
+  // each product and sum rounded on its own, term 0 first.
+  __device__ __forceinline__ float gap(const float* p) const {
+    float cf[Bp];
+#pragma unroll
+    for (int k = 0; k < Bp; k += 4) {
+      const float4 q4 = *reinterpret_cast<const float4*>(p + k);
+      cf[k] = q4.x;
+      cf[k + 1] = q4.y;
+      cf[k + 2] = q4.z;
+      cf[k + 3] = q4.w;
+    }
+    float q = __fmul_rn(cf[0], dm[0]);
+#pragma unroll
+    for (int k = 1; k < Bp; ++k) q = __fadd_rn(q, __fmul_rn(cf[k], dm[k]));
+    return q;
+  }
 };
 
-// Floats of shared memory the tables take (idx_lo counted as 4-byte words).
-__host__ __device__ inline size_t decision_tables_words(int G, int D, int B) {
-  return static_cast<size_t>(D) * G * B + 4 * static_cast<size_t>(D) * G;
-}
-
-// Carves the tables out of `smem` and copies them in (block-strided); the
-// caller synchronises before reading them.
-__device__ __forceinline__ DecisionTables load_decision_tables(
-    float* smem, int G, int D, int B, const float* __restrict__ dci_g,
-    const float* __restrict__ a_g, const float* __restrict__ b_g,
-    const float* __restrict__ w_hi_g, const int* __restrict__ idx_lo_g) {
-  DecisionTables t;
-  t.dci = smem;
-  t.a = t.dci + D * G * B;
-  t.b = t.a + D * G;
-  t.w_hi = t.b + D * G;
-  t.idx_lo = reinterpret_cast<int*>(t.w_hi + G * D);
-  for (int i = threadIdx.x; i < D * G * B; i += blockDim.x) t.dci[i] = dci_g[i];
-  for (int i = threadIdx.x; i < D * G; i += blockDim.x) {
-    t.a[i] = a_g[i];
-    t.b[i] = b_g[i];
-    t.w_hi[i] = w_hi_g[i];
-    t.idx_lo[i] = idx_lo_g[i];
-  }
-  return t;
-}
-
-// The same for grid points [g0, g0 + nt) of a step of G (the large route's
-// tile): the tables of a step of nt grid points.
-__device__ __forceinline__ DecisionTables load_decision_tile(
-    float* smem, int G, int g0, int nt, int D, int B, const float* __restrict__ dci_g,
-    const float* __restrict__ a_g, const float* __restrict__ b_g,
-    const float* __restrict__ w_hi_g, const int* __restrict__ idx_lo_g) {
-  DecisionTables t;
-  t.dci = smem;
-  t.a = t.dci + D * nt * B;
-  t.b = t.a + D * nt;
-  t.w_hi = t.b + D * nt;
-  t.idx_lo = reinterpret_cast<int*>(t.w_hi + nt * D);
-  for (int i = threadIdx.x; i < D * nt * B; i += blockDim.x) {
-    const int d = i / (nt * B);
-    t.dci[i] = dci_g[(static_cast<size_t>(d) * G + g0) * B + (i - d * nt * B)];
-  }
-  for (int i = threadIdx.x; i < D * nt; i += blockDim.x) {
+// Repacks the records of grid points [g0, g0 + nt) of a step of G into tab
+// (block-strided); the caller synchronises before reading them.  The tables
+// are the wrappers' dci [D, G, B], a and b [D, G], w_hi and idx_lo [G, D].
+__device__ __forceinline__ void load_records(float* tab, int G, int g0, int nt, int D, int B,
+                                             int bp, const int* __restrict__ idx_lo_g,
+                                             const float* __restrict__ w_hi_g,
+                                             const float* __restrict__ dci_g,
+                                             const float* __restrict__ a_g,
+                                             const float* __restrict__ b_g) {
+  const int rec = record_words(D, bp);
+  for (int i = threadIdx.x; i < nt * D; i += blockDim.x) {
     const int d = i / nt;
-    const int g = g0 + i - d * nt;
-    t.a[i] = a_g[d * G + g];
-    t.b[i] = b_g[d * G + g];
-    t.w_hi[i] = w_hi_g[g0 * D + i];
-    t.idx_lo[i] = idx_lo_g[g0 * D + i];
+    const int gl = i - d * nt;
+    const int g = g0 + gl;
+    float* out = tab + gl * rec + record_offset(d, bp);
+    out[0] = a_g[d * G + g];
+    out[1] = b_g[d * G + g];
+    out[2] = w_hi_g[g * D + d];
+    out[3] = __int_as_float(idx_lo_g[g * D + d]);
+    if (d > 0)
+      for (int k = 0; k < bp; ++k)
+        out[4 + k] = k < B ? dci_g[(static_cast<size_t>(d) * G + g) * B + k] : 0.0f;
   }
-  return t;
 }
 
-// best_act of sim s at grid point g (entry g of a tile of G); `dm` is the
-// sim's standardised design row (kMaxB entries, zero beyond B), `sp` its
-// spot.
-__device__ __forceinline__ float decide(const DecisionTables& t, int G, int D,
-                                        int B, int g, const float* __restrict__ v,
-                                        int S, int s, float sp, const float* dm) {
-  const int lo0 = t.idx_lo[g * D];
-  const float w0 = t.w_hi[g * D];
-  const float imm0 = __fadd_rn(__fmul_rn(t.a[g], sp), t.b[g]);
-  const float c0 = __fadd_rn(
-      __fmul_rn(v[static_cast<size_t>(lo0) * S + s], __fsub_rn(1.0f, w0)),
-      __fmul_rn(v[static_cast<size_t>(lo0 + 1) * S + s], w0));
-  float best_reg = imm0;
-  float best_act = __fadd_rn(c0, imm0);
-  for (int d = 1; d < D; ++d) {
-    const float* c = t.dci + (d * G + g) * B;
-    float q = __fmul_rn(c[0], dm[0]);
+// best_act of sim s at the kGroup grid points whose records are entries
+// first .. first + kGroup − 1 of tab, into best[i] for entry first + i
+// (those past entry `last` repeat it: the caller stores nothing for them);
+// `sp` is the sim's spot, `dm` its design row (Bp entries, zero beyond B).
+// All kGroup results are formed before any is stored: handing each to a
+// store as it is formed compiled kernel B 5–8% slower (PERF.md).
+template <int kGroup, int Bp>
+__device__ __forceinline__ void decide_group(const float* tab, int first, int last, int D,
+                                             const float* __restrict__ v, int S, int s, float sp,
+                                             const RegisterRow<Bp>& dm, float (&best)[kGroup]) {
+  const int rec = record_words(D, Bp);
+  const float* r[kGroup];
 #pragma unroll
-    for (int k = 1; k < kMaxB; ++k)
-      if (k < B) q = __fadd_rn(q, __fmul_rn(c[k], dm[k]));
-    const float imm = __fadd_rn(__fmul_rn(t.a[d * G + g], sp), t.b[d * G + g]);
-    const int lo = t.idx_lo[g * D + d];
-    const float w = t.w_hi[g * D + d];
-    const float cont = __fadd_rn(
-        __fmul_rn(v[static_cast<size_t>(lo) * S + s], __fsub_rn(1.0f, w)),
-        __fmul_rn(v[static_cast<size_t>(lo + 1) * S + s], w));
-    const float vr = __fadd_rn(q, imm);
-    if (vr > best_reg) {
-      best_reg = vr;
-      best_act = __fadd_rn(cont, imm);
+  for (int i = 0; i < kGroup; ++i) r[i] = tab + min(first + i, last) * rec;
+  float best_reg[kGroup], best_imm[kGroup], best_w[kGroup];
+  int best_lo[kGroup];
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const float4 e = *reinterpret_cast<const float4*>(r[i]);
+    best_reg[i] = best_imm[i] = __fadd_rn(__fmul_rn(e.x, sp), e.y);
+    best_w[i] = e.z;
+    best_lo[i] = __float_as_int(e.w);
+  }
+#pragma unroll 1
+  for (int d = 1; d < D; ++d) {
+    const int off = record_offset(d, Bp);
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const float* p = r[i] + off;
+      const float4 e = *reinterpret_cast<const float4*>(p);
+      const float q = dm.gap(p + 4);
+      const float imm = __fadd_rn(__fmul_rn(e.x, sp), e.y);
+      const float vr = __fadd_rn(q, imm);
+      if (vr > best_reg[i]) {
+        best_reg[i] = vr;
+        best_imm[i] = imm;
+        best_w[i] = e.z;
+        best_lo[i] = __float_as_int(e.w);
+      }
     }
   }
-  return best_act;
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const float* x = v + static_cast<size_t>(best_lo[i]) * S + s;
+    const float w = best_w[i];
+    const float cont =
+        __fadd_rn(__fmul_rn(__ldg(x), __fsub_rn(1.0f, w)), __fmul_rn(__ldg(x + S), w));
+    best[i] = __fadd_rn(cont, best_imm[i]);
+  }
 }
 
 // Kernel B's launch (decision_kernel.cu): the decision update of every sim
 // column plus the per-block partial moments of the step-(t−1) design, then
 // the fixed-order reduce into `moments` ([B·B] XᵀX, then [G, B] (Xᵀ·best)ᵀ).
-// The step tables go to shared memory all at once (tile >= G: the shared
+// The step's records go to shared memory all at once (tile >= G: the shared
 // route) or `tile` grid points at a time (the large route).  Every pointer
 // is a device pointer; kernel E launches it on the buffers its solve
 // kernels filled.

@@ -43,7 +43,8 @@
 //     conflict), and each gap is summed 4 terms at a time over it, the same
 //     products and sums in the same order.  The route is the basis size's
 //     alone (update_kernel).
-//   * The arithmetic is stt::decide's (decision_step.cuh), every product and
+//   * The loop is kernel B's (decision_step.cuh decide_group; D keeps this
+//     copy, which runs 8% faster at B=9 than D on B's), every product and
 //     sum rounded on its own: strict >, decision 0 first, centred gaps, the
 //     winner's actual value v[lo]·(1 − w) + v[lo + 1]·w plus its immediate
 //     value.  So best_act is the plain version's to the bit.

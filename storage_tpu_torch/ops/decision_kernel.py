@@ -33,14 +33,19 @@ column fallback, interpolate the coefficients — then B's update.
 The kernels are ``csrc/decision_kernel.cu`` (B), ``csrc/decision_update_kernel.cu``
 (D) and ``csrc/fullstep_kernel.cu`` (E, which launches B's kernel after its
 solve); each ``*_plain`` function is the same function in tensor code, used
-for CPU tensors.  B's kernel keeps only the step tables and two fixed tiles
-in shared memory, D's only the step tables (and, past 32 terms, each sim's
-design row).  Each takes any grid, on one of two routes decided from the
-shape before anything is allocated (``moments_route``, ``update_route``,
-``fullstep_route``): the shared route, all of a step's tables in a block's
-shared memory at once, while they fit (``kernel_info`` gives the largest
-grid), else the large route, the tables a tile of grid points at a time
-(and E's solve spread over blocks).  Both give the same bits.  B and E build the
+for CPU tensors.  All three run the same decision loop (B and E from
+``csrc/decision_step.cuh``, D from its own copy): the argmax first, on the
+regressed values, then only the winner's two rows of ``v``, a group of grid
+points at a time, on the step's tables repacked into per-grid-point records
+(``record_words``) in shared memory.  B's kernel keeps
+only the records and two fixed tiles in shared memory, D's only the records
+(and, past 32 terms, each sim's design row).  Each takes any grid, on one of
+two routes decided from the shape before anything is allocated
+(``moments_route``, ``update_route``, ``fullstep_route``): the shared route,
+all of a step's records in a block's shared memory at once, while they fit
+(``kernel_info`` gives the largest grid), else the large route, the records
+a tile of grid points at a time (and E's solve spread over blocks).  Both
+give the same bits.  B and E build the
 monomial design on the card and take a basis and a factor count within the
 caps ``_build.MAX_BASIS`` and ``_build.MAX_FACTORS`` (16 and 8), raising
 ``ValueError`` beyond them; D reads the design and takes any basis, compiled
@@ -129,13 +134,13 @@ ROUTES = ("shared", "large")
 TILE_B = 32
 TILE_D = 256
 
-# The kernels' sizing, copied from csrc/decision_kernel.cu (with
-# decision_step.cuh) and csrc/decision_update_kernel.cu so that the route is
-# decided from shapes on any device; chip_smoke.py holds each copy to
-# ``kernel_info``'s max_grid.  Kernel B: 128 sims a block, a static
-# [kChunk = 8, 128] best_act tile, a [B, 128] design tile, then D·B + 4·D
-# words of tables a grid point.  Kernel D: 256 sims a block, a record of
-# 4 + (D − 1)·(4 + Bp) words a grid point (Bp = B padded to 4), past 32
+# The kernels' sizing, copied from csrc/decision_kernel.cu,
+# csrc/decision_update_kernel.cu and their records (csrc/decision_step.cuh)
+# so that the route is decided from shapes on any device; chip_smoke.py holds
+# each copy to ``kernel_info``'s max_grid.  Both kernels keep a record of
+# ``record_words(D, B)`` words a grid point in shared memory.  Kernel B: 128
+# sims a block, a static [kChunk = 8, 128] best_act tile, a [B, 128] design
+# tile, then the records.  Kernel D: 256 sims a block, the records, past 32
 # padded terms also each sim's design row [Bp, 256].  Kernel E's one-block
 # solve: B·B doubles and B·B + 2·B + 2·B·G floats and an int; its large
 # route spreads the right-hand sides over blocks of 256.
@@ -144,6 +149,18 @@ _B_CHUNK = 8
 _D_SIMS = 256
 _D_GROUP = 4
 _SOLVE_COLUMNS = 256
+
+
+def padded_basis(bdim: int) -> int:
+    """B rounded up to whole float4s, as the records and the kernels pad it."""
+    return -(-bdim // 4) * 4
+
+
+def record_words(d: int, bdim: int) -> int:
+    """Words of one grid point's record: {a, b, w_hi, idx_lo} per decision,
+    and after each of decisions 1..D−1 its centred coefficients padded to
+    whole float4s."""
+    return 4 + (d - 1) * (4 + padded_basis(bdim))
 
 
 def _fit(limit: int, static_bytes: int, fixed_words: int, words_per_point: int) -> int:
@@ -177,7 +194,7 @@ def _choose(name: str, g: int, max_grid: int, want: int, quantum: int,
 def moments_max_grid(d: int, bdim: int, smem_limit: int) -> int:
     """The largest G of kernel B's shared route at D decisions and B basis
     functions, under ``smem_limit`` bytes of shared memory a block."""
-    return _fit(smem_limit, 4 * _B_CHUNK * _B_SIMS, bdim * _B_SIMS, d * bdim + 4 * d)
+    return _fit(smem_limit, 4 * _B_CHUNK * _B_SIMS, bdim * _B_SIMS, record_words(d, bdim))
 
 
 def moments_route(g: int, d: int, bdim: int, smem_limit: int,
@@ -191,9 +208,9 @@ def moments_route(g: int, d: int, bdim: int, smem_limit: int,
 
 def update_max_grid(d: int, bdim: int, smem_limit: int) -> int:
     """The largest G of kernel D's shared route."""
-    bp = -(-bdim // 4) * 4
+    bp = padded_basis(bdim)
     row = bp * _D_SIMS if bp > 32 else 0
-    return _fit(smem_limit, 0, row, 4 + (d - 1) * (4 + bp))
+    return _fit(smem_limit, 0, row, record_words(d, bdim))
 
 
 def update_route(g: int, d: int, bdim: int, smem_limit: int,

@@ -224,6 +224,72 @@ def test_grid_beyond_shared_memory_raises(device):
         assert torch.equal(got[k], step[k])
 
 
+# Sixteen terms on three factors: the first B make a basis of B terms.
+TERMS_16 = ("1", "s", "x0", "x1", "x2", "s**2", "x0**2", "x1**2", "x2**2", "s*x0", "s*x1",
+            "x0*x1", "s**3", "x1*x2", "x0*x2", "s*x2")
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 5, 8, 9, 12, 13, 16])
+def test_decision_update_moments_every_padded_basis(device, b):
+    """Kernel B is compiled per basis size padded to 4 (4, 8, 12, 16): at
+    each, against its plain version, its large route forced at G = 100
+    (tiles that split the grid) to the shared route's bits, and each route
+    over two launches to the same bits."""
+    args = _decision_args(device, 100, 1000, 3, 3, basis=" + ".join(TERMS_16[:b]))
+    got = [t.clone() for t in decision_kernel.decision_update_moments(*args)]
+    want = decision_kernel.decision_update_moments_plain(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-4)
+    for k in (1, 2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                   atol=1e-5 * float(want[k].abs().max()))
+    again = decision_kernel.decision_update_moments(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    large = [t.clone() for t in decision_kernel.decision_update_moments(*args, route="large")]
+    assert all(torch.equal(x, y) for x, y in zip(got, large))
+    again = decision_kernel.decision_update_moments(*args, route="large")
+    assert all(torch.equal(x, y) for x, y in zip(large, again))
+
+
+def _tie_args(device, g, s=1000):
+    """Kernel B's arguments at D = 2 with the two decisions' regressed values
+    equal to the bit (the same coefficients and immediate value: a zero
+    centred gap) and their interpolation rows apart at every grid point."""
+    args = list(_decision_args(device, g, s, 2, 3, basis=BASIS_9))
+    idx_lo, ci, a, b = (args[k].clone() for k in (9, 11, 12, 13))
+    ci[1], a[1], b[1] = ci[0], a[0], b[0]
+    idx_lo[:, 1] = (idx_lo[:, 0] + g // 2) % (g - 1)
+    args[9], args[11], args[12], args[13] = idx_lo.contiguous(), ci, a, b
+    return tuple(args)
+
+
+@pytest.mark.parametrize("route", ["shared", "large"])
+@pytest.mark.parametrize("g", [100, 1000])
+def test_exact_tie_keeps_decision_zero(device, g, route):
+    """On an exact tie of the regressed values kernels B and E keep decision
+    0 (strict >), as their plain versions do: best_act is decision 0's
+    actual value to the bit on either route, 0 flips.  E's tie: zero values
+    carry zero moments, which solve to zero coefficients."""
+    args = _tie_args(device, g)
+    v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, _, a, b, \
+        mono = args
+    lo, w = idx_lo[:, 0].long(), w_hi[:, 0:1]
+    act0 = v[lo] * (1 - w) + v[lo + 1] * w + (a[0][:, None] * spot[None, :] + b[0][:, None])
+    lo1, w1 = idx_lo[:, 1].long(), w_hi[:, 1:2]
+    act1 = v[lo1] * (1 - w1) + v[lo1 + 1] * w1 + (a[0][:, None] * spot[None, :] + b[0][:, None])
+    assert float((act1 - act0).abs().gt(1.0).float().mean()) > 0.9  # the tie decides
+    got = decision_kernel.decision_update_moments(*args, route=route)
+    assert torch.equal(got[0], decision_kernel.decision_update_moments_plain(*args)[0])
+    assert torch.equal(got[0], act0)
+    dm = decision_kernel._standardised_design(mono, spot, factors, mean, std)
+    fargs = (v, spot, factors, spot_prev, factors_prev, dm.T @ dm,
+             torch.zeros((len(mono), g), device=device), mean, std, idx_lo, w_hi, a, b, mono)
+    prev = dict(mean_prev=mean_p, std_prev=std_p)
+    got = decision_kernel.decision_update_fullstep(*fargs, **prev, route=route)
+    assert not torch.any(got[5])
+    assert torch.equal(got[0], act0)
+    assert torch.equal(got[0], decision_kernel.decision_update_fullstep_plain(*fargs, **prev)[0])
+
+
 def _update_args(device, g, s, d, kind, basis="1 + s + s**2 + s**3", seed=3):
     """Kernel D's arguments on a standardised design [B, S] read from memory,
     with interpolation rows of the given kind: random in [0, G−2] (spans as

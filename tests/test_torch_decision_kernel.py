@@ -106,3 +106,81 @@ def test_plain_matches_exact_xla_formula_f64():
             .numpy() - mean_prev.numpy()) / std_prev.numpy())
     np.testing.assert_allclose(got[1].numpy(), dmp.T @ dmp, rtol=1e-12)
     np.testing.assert_allclose(got[2].numpy(), dmp.T @ best_act.T, rtol=1e-12)
+
+
+def _tie_case(seed, g, s, f, dtype=np.float32):
+    """Two decisions whose regressed values are equal to the bit (the same
+    coefficients and immediate value, so a zero centred gap) but whose
+    interpolation rows differ at every grid point."""
+    c = _case(seed, g, s, 2, f, dtype)
+    for k in ("ci", "a", "b"):
+        c[k][1] = c[k][0]
+    c["idx_lo"] = np.array(c["idx_lo"])
+    c["idx_lo"][:, 1] = (c["idx_lo"][:, 0] + g // 2) % (g - 1)
+    return c
+
+
+def _decision_zero_actual(c):
+    """Decision 0's actual value in the plain versions' f32 arithmetic."""
+    t = {k: torch.tensor(v) for k, v in c.items()}
+    lo, w = t["idx_lo"][:, 0].long(), t["w_hi"][:, 0][:, None]
+    imm = t["a"][0][:, None] * t["spot"][None, :] + t["b"][0][:, None]
+    act = [t["v"][lo] * (1 - w) + t["v"][lo + 1] * w + imm]
+    lo, w = t["idx_lo"][:, 1].long(), t["w_hi"][:, 1][:, None]
+    act.append(t["v"][lo] * (1 - w) + t["v"][lo + 1] * w + imm)
+    assert float((act[1] - act[0]).abs().gt(1.0).float().mean()) > 0.9  # the tie decides
+    return act[0]
+
+
+@pytest.mark.parametrize("g,s,f", [(10, 256, 2), (40, 384, 3)])
+def test_exact_tie_keeps_decision_zero(g, s, f):
+    """Kernel B's plain version keeps decision 0 on an exact tie of the
+    regressed values (strict >), as the Pallas kernel does in interpret
+    mode: best_act is decision 0's actual value, not decision 1's."""
+    c = _tie_case(g + 11, g, s, f)
+    got = tdk.decision_update_moments_plain(*_torch_args(c))
+    act0 = _decision_zero_actual(c)
+    assert torch.equal(got[0], act0)
+    w_mat = jdk.interp_weight_matrix(jnp.asarray(c["idx_lo"]), jnp.asarray(c["w_hi"]), g,
+                                     jnp.float32)
+    j = {k: jnp.asarray(v) for k, v in c.items()}
+    want = jdk.decision_update_moments_pallas(
+        j["v"], j["spot"], j["factors"], j["spot_prev"], j["factors_prev"], j["mean"], j["std"],
+        w_mat, j["ci"], j["a"], j["b"], tuple(jax_parse(BASIS)), sim_tile=128,
+        interpret=True, pred_passes=1,
+    )
+    scale = float(np.abs(c["v"]).max())
+    np.testing.assert_allclose(np.asarray(want[0]), act0.numpy(), rtol=0, atol=2.0**-15 * scale)
+
+
+def test_exact_tie_keeps_decision_zero_fullstep():
+    """Kernel E's plain version likewise, against the Pallas full-step
+    kernel: carried moments against zero values solve to zero coefficients,
+    so two decisions with the same immediate value tie exactly."""
+    g, s, f = 12, 256, 2
+    c = _tie_case(29, g, s, f)
+    rng = np.random.default_rng(30)
+    b_dim = len(jax_parse(BASIS))
+    u = np.c_[np.ones(s), rng.normal(0.0, 1.0, (s, b_dim - 1))]
+    # v rounded to bf16 values: the Pallas kernel's hi/lo split of v is exact.
+    c["v"] = np.asarray(jnp.asarray(c["v"]).astype(jnp.bfloat16).astype(jnp.float32))
+    extra = dict(xtx=(u.T @ u).astype(np.float32), xty=np.zeros((b_dim, g), np.float32),
+                 cmean=np.r_[0.0, rng.normal(0.0, 0.2, b_dim - 1)].astype(np.float32),
+                 cstd=np.r_[1.0, rng.uniform(0.5, 2.0, b_dim - 1)].astype(np.float32))
+    order = ("v", "spot", "factors", "spot_prev", "factors_prev")
+    t = [torch.tensor(c[k]) for k in order] + [torch.tensor(extra[k]) for k in extra]
+    got = tdk.decision_update_fullstep_plain(
+        *t, torch.tensor(c["idx_lo"]).to(torch.int32), torch.tensor(c["w_hi"]),
+        torch.tensor(c["a"]), torch.tensor(c["b"]), tuple(parse_basis_functions(BASIS)))
+    assert not torch.any(got[5])  # zero coefficients: every regressed gap is 0
+    act0 = _decision_zero_actual(c)
+    assert torch.equal(got[0], act0)
+    w_mat = jdk.interp_weight_matrix(jnp.asarray(c["idx_lo"]), jnp.asarray(c["w_hi"]), g,
+                                     jnp.float32)
+    j = [jnp.asarray(c[k]) for k in order] + [jnp.asarray(extra[k]) for k in extra]
+    want = jdk.decision_update_fullstep_pallas(
+        *j, w_mat, jnp.asarray(c["a"]), jnp.asarray(c["b"]), tuple(jax_parse(BASIS)),
+        sim_tile=128, interpret=True, pred_passes=1,
+    )
+    assert not np.any(np.asarray(want[5]))
+    np.testing.assert_allclose(np.asarray(want[0]), act0.numpy(), rtol=2e-4, atol=1.0)

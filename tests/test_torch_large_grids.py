@@ -11,8 +11,9 @@
 * ``three_factor_seasonal_value(num_inventory_grid_points=4096)`` against
   the JAX API.
 * The route functions against the limits of an H100 (232,448 bytes of
-  shared memory a block): kernel B's shared route up to 1,434 grid points at
-  D = 3, B = 9; D's up to 2,905 at B = 4; C's up to 3,090 (monomial),
+  shared memory a block): kernel B's shared route up to 1,553 grid points at
+  D = 3, B = 9 (its records of 36 words a grid point); D's up to 2,905 at
+  B = 4; C's up to 3,090 (monomial),
   2,781 (general rows) and 2,632 (design mode on general rows) at B = 9,
   R = 3, F = 3.
 * With CUDA stood in (no card here), each entry point at G = 4,096 chooses
@@ -172,7 +173,7 @@ def test_three_factor_seasonal_value_matches_jax_at_4096_grid_points():
 # ---- the routes, from shapes alone.
 
 @pytest.mark.parametrize("name,max_grid,want", [
-    ("B", lambda: decision_kernel.moments_max_grid(3, 9, H100_SMEM), 1_434),
+    ("B", lambda: decision_kernel.moments_max_grid(3, 9, H100_SMEM), 1_553),
     ("D", lambda: decision_kernel.update_max_grid(3, 4, H100_SMEM), 2_905),
     ("C-monomial", lambda: forward_kernel.sweep_max_grid(9, 3, 3, 0, H100_SMEM), 3_090),
     ("C-general", lambda: forward_kernel.sweep_max_grid(9, 3, 3, 0, H100_SMEM, general=True),
@@ -189,30 +190,46 @@ def test_routes_switch_at_the_limits():
     whole grid); one grid point past it, the large route, whose tiles fit."""
     mk, up, sweep = (decision_kernel.moments_route, decision_kernel.update_route,
                      forward_kernel.sweep_route)
-    assert mk(1_434, 3, 9, H100_SMEM) == ("shared", 1_434)
-    assert mk(1_435, 3, 9, H100_SMEM) == ("large", decision_kernel.TILE_B)
+    assert mk(1_553, 3, 9, H100_SMEM) == ("shared", 1_553)
+    assert mk(1_554, 3, 9, H100_SMEM) == ("large", decision_kernel.TILE_B)
     assert up(2_905, 3, 4, H100_SMEM) == ("shared", 2_905)
     assert up(2_906, 3, 4, H100_SMEM) == ("large", decision_kernel.TILE_D)
     assert sweep(3_090, 9, 3, 3, 0, H100_SMEM) == "shared"
     assert sweep(3_091, 9, 3, 3, 0, H100_SMEM) == "large"
     assert sweep(1_000_000, 9, 3, 9, 0, H100_SMEM, design=True, general=True) == "large"
     # Kernel E: shared while B's tables and its one-block solve both fit.
-    assert decision_kernel.fullstep_route(1_434, 3, 9, H100_SMEM).name == "shared"
-    assert decision_kernel.fullstep_route(1_435, 3, 9, H100_SMEM).name == "large"
+    assert decision_kernel.fullstep_route(1_553, 3, 9, H100_SMEM).name == "shared"
+    assert decision_kernel.fullstep_route(1_554, 3, 9, H100_SMEM).name == "large"
     assert decision_kernel.solve_max_grid(9, H100_SMEM) == 3_213
     # A forced route: the large one at any G, the shared one only where it fits.
     assert mk(100, 3, 9, H100_SMEM, route="large") == ("large", decision_kernel.TILE_B)
     assert up(100, 3, 4, H100_SMEM, route="large") == ("large", 100)
-    with pytest.raises(ValueError, match="at most G=1434"):
+    with pytest.raises(ValueError, match="at most G=1553"):
         mk(4_096, 3, 9, H100_SMEM, route="shared")
     with pytest.raises(ValueError, match="route must be one of"):
         sweep(100, 9, 3, 3, 0, H100_SMEM, route="tiled")
 
 
+@pytest.mark.parametrize("d", [2, 3, 5])
+@pytest.mark.parametrize("b", [1, 4, 9, 16])
+def test_shared_route_sizing_follows_the_records(d, b):
+    """Kernel B's shared route holds a step's records (csrc/decision_step.cuh):
+    {a, b, w_hi, idx_lo} per decision and, after each decision past the
+    first, its coefficients padded to whole float4s; beside them the static
+    [8, 128] best_act tile and the [B, 128] design tile.  Kernel D's holds
+    the same records alone."""
+    bp = 4 * -(-b // 4)
+    record = 4 + (d - 1) * (4 + bp)
+    assert decision_kernel.record_words(d, b) == record
+    words = H100_SMEM // 4
+    assert decision_kernel.moments_max_grid(d, b, H100_SMEM) == (words - 8 * 128 - b * 128) // record
+    assert decision_kernel.update_max_grid(d, b, H100_SMEM) == words // record
+
+
 def test_large_tiles_shrink_to_fit():
     """A shape whose TILE_B grid points of tables do not fit takes fewer a
     tile (a multiple of kernel B's chunk of 8 where one fits)."""
-    d, b = 91, 16  # 1,820 words of tables a grid point
+    d, b = 91, 16  # a record of 1,804 words a grid point
     fits = decision_kernel.moments_max_grid(d, b, H100_SMEM)
     assert 8 <= fits < decision_kernel.TILE_B
     route = decision_kernel.moments_route(4_096, d, b, H100_SMEM)

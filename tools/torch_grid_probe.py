@@ -7,20 +7,24 @@ B = 9), over the tile sizes of B's and D's large routes.
 For each tile T it prints the ms of one launch (CUDA events, the mean of
 ``--repeats`` launches after a warm-up), the blocks per SM (those of the
 shared route at G = T, ``kernel_info``) and the least time the card could
-take for the launch's bytes (v read and best_act written, at 3.35 TB/s).
-E runs on its large route at the default tile, C in each mode over
+take for the launch's bytes (v read and best_act written, at 3.35 TB/s),
+on interpolation rows that follow g (a band of ±5 around each grid point,
+as a valuation's targets give).  B and E also run at the default tile on
+random rows spanning the grid; E on its large route, C in each mode over
 ``--steps`` steps.  The report lands in ``build/grid_probe/grid_probe.json``.
 
-``--shared-b`` times instead kernel B's shared route at G = 100 and 1,000
-(the headline's launch, and the largest G the kernel checks) in the
-checkout ``--repo`` names, with digests of its outputs: run it on two
-checkouts in turns in one call (parent, change, change, parent) to compare
-them on one card.
+``--shared-b`` times instead kernels B, E and D (at B = 4 and 9) in the
+checkout ``--repo`` names, at G = 100 (the headline's launch), 1,000 (B
+also forced onto its large route) and 4,096 (the large routes), on rows
+that follow g and on random rows, and prints SHA-256 digests of every
+output: run it on two checkouts in turns in one call (parent, change,
+change, parent) to compare their times and bits on one card.
 
     python3 tools/torch_grid_probe.py [--grid 4096] [--sims 262144]
     python3 tools/torch_grid_probe.py --shared-b --repo build/parent
 """
 import argparse
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -51,15 +55,19 @@ def cuda_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def step_args(device, g, s, basis, seed=3):
+def step_args(device, g, s, basis, seed=3, rows="band"):
     """Kernel B's arguments: random values and paths, interpolation rows in
-    a band of ±5 around each grid point (as interpolated targets give)."""
+    a band of ±5 around each grid point (``rows="band"``, as interpolated
+    targets give) or random in [0, G−2] (``"random"``, spanning the grid)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     monomials = tuple(parse_basis_functions(basis))
     b, d, f = len(monomials), 3, 3
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
-    idx_lo = (torch.arange(g, device=device)[:, None]
-              + torch.tensor([-5, 0, 5], device=device)[None, :]).clamp(0, g - 2)
+    if rows == "band":
+        idx_lo = (torch.arange(g, device=device)[:, None]
+                  + torch.tensor([-5, 0, 5], device=device)[None, :]).clamp(0, g - 2)
+    else:
+        idx_lo = torch.randint(0, g - 1, (g, d), generator=gen, device=device)
     return (100.0 + 30.0 * rnd(g, s), 30.0 + 5.0 * rnd(s), rnd(f, s), 30.0 + 5.0 * rnd(s),
             rnd(f, s), 0.3 * rnd(b), 1.0 + 0.2 * rnd(b).abs(), 0.3 * rnd(b),
             1.0 + 0.2 * rnd(b).abs(), idx_lo.to(torch.int32).contiguous(),
@@ -71,17 +79,55 @@ def bytes_bound_ms(g, s) -> float:
     return 1e3 * 8.0 * g * s / HBM_BYTES_PER_S
 
 
+def fullstep_args(args):
+    """Kernel E's arguments from kernel B's: the moments of the step's
+    design against 0.9·v, and the next moments' stats."""
+    v, spot, factors, spot_p, fac_p, mean, std, mean_p, std_p, idx_lo, w_hi, _, a, b, mono = args
+    dm = decision_kernel._standardised_design(mono, spot, factors, mean, std)
+    return ((v, spot, factors, spot_p, fac_p, dm.T @ dm, dm.T @ (0.9 * v.T), mean, std, idx_lo,
+             w_hi, a, b, mono), dict(mean_prev=mean_p, std_prev=std_p))
+
+
+def digest(outputs) -> str:
+    """SHA-256 of the bytes of every output, in order."""
+    h = hashlib.sha256()
+    for t in outputs if isinstance(outputs, tuple) else (outputs,):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def shared_b(device, sims: int) -> dict:
-    """Kernel B's shared route at G = 100 and 1,000: ms a launch (20
-    launches after a warm-up) and f64 sums of best_act and of Xᵀv."""
-    report = {"repo": str(REPO)}
-    for g in (100, 1_000):
-        args = step_args(device, g, sims, BASIS_9)
-        out = torch.empty_like(args[0])
-        report[f"ms_g{g}"] = cuda_ms(
-            lambda: decision_kernel.decision_update_moments(*args, out=out), 20)
-        best, _, xty = decision_kernel.decision_update_moments(*args, out=out)
-        report[f"digest_g{g}"] = [float(best.double().sum()), float(xty.double().sum())]
+    """Kernels B, E and D (B = 4 and 9) at G = 100, 1,000 and 4,096 on both
+    kinds of rows: ms a launch (20 launches after a warm-up, 5 at G = 4,096)
+    and the digest of every output."""
+    report = {"repo": str(REPO), "card": torch.cuda.get_device_name(0)}
+    for g in (100, 1_000, 4_096):
+        repeats = 5 if g > 1_000 else 20
+        for rows in ("band", "random"):
+            args = step_args(device, g, sims, BASIS_9, rows=rows)
+            out = torch.empty_like(args[0])
+            e_args, prev = fullstep_args(args)
+            calls = {
+                "B": lambda: decision_kernel.decision_update_moments(*args, out=out),
+                "E": lambda: decision_kernel.decision_update_fullstep(*e_args, **prev, out=out)}
+            for nb in ((4, 9) if rows == "band" else ()):
+                gen = torch.Generator(device=device).manual_seed(5)
+                d_args = (args[0], torch.randn((nb, sims), generator=gen, device=device), args[1],
+                          args[9], args[10], 20.0 * torch.randn((3, g, nb), generator=gen,
+                                                                device=device),
+                          args[12], args[13])
+                calls[f"D{nb}"] = (lambda a_=d_args: decision_kernel.decision_update(*a_, out=out))
+            if g == 1_000:  # the shared route at 1 block/SM against the large one
+                calls["B_large"] = lambda: decision_kernel.decision_update_moments(
+                    *args, out=out, route="large")
+            for name, fn in calls.items():
+                key = f"{name}_g{g}_{rows}"
+                report[f"ms_{key}"] = cuda_ms(fn, repeats)
+                report[f"digest_{key}"] = digest(fn())
+                print(f"{key}: {report[f'ms_{key}']:.4f} ms, digest {report[f'digest_{key}']}",
+                      flush=True)
+            del args, out, e_args, calls
+            torch.cuda.empty_cache()
     return report
 
 
@@ -93,7 +139,8 @@ def main() -> int:
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument("--repo", default=str(REPO), help="the checkout to import")
     parser.add_argument("--shared-b", action="store_true",
-                        help="time kernel B's shared route at G = 100 and 1,000 only")
+                        help="time kernels B, E and D at G = 100, 1,000 and 4,096 only, "
+                             "with digests of their outputs")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_grid_probe: no CUDA device", file=sys.stderr)
@@ -121,6 +168,15 @@ def main() -> int:
         print(f"B tile {tile}: {ms:.4f} ms, {info['blocks_per_sm']} blocks/SM, "
               f"{info['smem_bytes']} B", flush=True)
     decision_kernel.TILE_B = default_b
+    rnd_args = step_args(device, g, s, BASIS_9, rows="random")
+    report["B_random_ms"] = cuda_ms(
+        lambda: decision_kernel.decision_update_moments(*rnd_args, out=out), opts.repeats)
+    e_args, prev = fullstep_args(rnd_args)
+    report["E_random_ms"] = cuda_ms(
+        lambda: decision_kernel.decision_update_fullstep(*e_args, **prev, out=out), opts.repeats)
+    print(f"random rows, tile {default_b}: B {report['B_random_ms']:.4f} ms, "
+          f"E {report['E_random_ms']:.4f} ms", flush=True)
+    del rnd_args, e_args
     v, spot, factors = args[0], args[1], args[2]
     for label, basis in (("D4", "1 + s + s**2 + s**3"), ("D9", BASIS_9)):
         mono = tuple(parse_basis_functions(basis))
@@ -140,14 +196,11 @@ def main() -> int:
                   f"{info['smem_bytes']} B", flush=True)
     decision_kernel.TILE_D = default_d
     mono = args[14]
-    dm = decision_kernel._standardised_design(mono, spot, factors, args[5], args[6])
-    xtx, xty = dm.T @ dm, dm.T @ (v.T * 0.9)
-    fargs = (v, spot, factors, args[3], args[4], xtx, xty, args[5], args[6], args[9], args[10],
-             args[12], args[13], mono)
-    report["E_ms"] = cuda_ms(lambda: decision_kernel.decision_update_fullstep(*fargs, out=out),
-                             opts.repeats)
+    fargs, prev = fullstep_args(args)
+    report["E_ms"] = cuda_ms(
+        lambda: decision_kernel.decision_update_fullstep(*fargs, **prev, out=out), opts.repeats)
     print(f"E (large route, tile {default_b}): {report['E_ms']:.4f} ms", flush=True)
-    del args, v, out, dm, fargs
+    del args, v, out, fargs
     # Kernel C in each mode over N steps, at the main path's sims.
     n = opts.steps
     gen = torch.Generator(device=device).manual_seed(6)
