@@ -93,15 +93,22 @@
 6b. The grids phase ("grids phase: N s", right after the spot-only path, on
    its frames): inventory grids past every LSMC kernel's shared-memory
    route.  The Python route sizing equals each kernel's launch report
-   (``kernel_info``'s max_grid) at 19 shapes; each large route (B, E, D at
+   (``kernel_info``'s max_grid) at 19 shapes, and the blocks per SM the
+   route rule counts (B's two routes, D's kernel at 13 basis sizes) equal
+   the launch reports' at 45; each large route (B, E, D at
    B=4 and 9, C monomial, general-grid and design mode) forced at G=100 (D
    at G=1,000) gives its shared route's bits; at G=4,096 on random inputs
    (S=65,536) each gives its plain version's bits or flips only on
    near-ties, and is timed with its plain version at S=262,144 beside its
    bound (the kernels line's ``*_large`` rows; B and E also on rows
-   following g, ``band_rows_ms``, with B's launch report).  Then, counters
-   reset before each: the headline with every large route forced at G=100 (the
-   pinned ``MAIN_NPV``/``MAIN_SE`` bits); at G=4,096 and 262,144 paths the
+   following g, ``band_rows_ms``, with B's launch report; D's with its
+   registers, spills and blocks per SM at B=4 and 9, after
+   ``pack_records`` held to its plain version's bits and timed).  Then,
+   counters reset before each: the headline with every large route forced
+   at G=100 (the pinned ``MAIN_NPV``/``MAIN_SE`` bits); the headline at
+   G=1,000 (B on its large route by the rule: its routes, NPV,
+   SE, wall, and the same bits with every route forced shared); at G=4,096
+   and 262,144 paths the
    headline (B and C large, 365 + 1 launches), ``fullstep`` (E, within 0.05
    SE of it), the generic replica (D at B=9 and C's design mode, within 0.1
    SE), ``value_from_sims`` on the spot panels (D at B=4) and a custom grid
@@ -342,6 +349,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                                       "storage_tpu/ops/decision_kernel.py:381"),
     "decision_update_large": ("storage_tpu_torch/csrc/decision_update_kernel.cu",
                               "storage_tpu/ops/decision_kernel.py:308"),
+    # Kernel D packs the step's records once before each launch (part of
+    # kernel D's step; the TPU kernel took the tables as they are).
+    "pack_records": ("storage_tpu_torch/csrc/decision_update_kernel.cu",
+                     "storage_tpu/ops/decision_kernel.py:308"),
     "decision_update_fullstep_large": ("storage_tpu_torch/csrc/fullstep_kernel.cu",
                                        "storage_tpu/ops/decision_kernel.py:712"),
     "forward_sweep_large": ("storage_tpu_torch/csrc/forward_kernel_large.cu",
@@ -1698,7 +1709,8 @@ def spot_only_valuation(pkg, device, counts, src, main):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
-    expected = counts.expect(decision_update=NUM_STEPS, forward_sweep=1, intrinsic_dp=1)
+    expected = counts.expect(decision_update=NUM_STEPS, pack_records=NUM_STEPS, forward_sweep=1,
+                             intrinsic_dp=1)
     se = res.val_sim_standard_error
     off = (res.npv - F64_SPOT_NPV) / se
     gap = (res.npv - main.npv) / main.val_sim_standard_error
@@ -1920,7 +1932,7 @@ def host_layer_phase(pkg, device, counts, main, main_default) -> dict:
     report = {}
     chunks = -(-NUM_STEPS // forward_kernel.DESIGN_CHUNK)
     generic_launches = dict(simulate_sweep=2, decision_update=NUM_STEPS,
-                            forward_sweep_design=chunks, intrinsic_dp=1)
+                            pack_records=NUM_STEPS, forward_sweep_design=chunks, intrinsic_dp=1)
     for name, basis in (("replica", replica_basis(pkg)), ("exp_indicator", exp_indicator_basis(pkg))):
         counts.reset()
         t0 = time.perf_counter()
@@ -2133,13 +2145,38 @@ def moments_launch_report(device, g: int, b_dim: int, large: bool = False) -> di
     instructions of the kernel compiled for B's padded basis size."""
     from storage_tpu_torch.ops import _build, decision_kernel
 
-    info = decision_kernel.kernel_info("moments", g, 3, b_dim, device)
+    info = decision_kernel.kernel_info("moments", g, 3, b_dim, device, large=large)
     name = ("decision_moments_tiled_kernel" if large else "decision_moments_kernel") \
         + f"ILi{decision_kernel.padded_basis(b_dim)}E"
     ptx = ptxas_report(name)
     return dict(blocks_per_sm=info["blocks_per_sm"], smem_bytes=info["smem_bytes"],
                 registers=ptx["registers"], spill_bytes=ptx.get("spill_store_bytes", 0),
                 sass_instructions=_build.sass_instructions(_build.library_path(), name))
+
+
+def update_launch_report(device, g: int, b_dim: int) -> dict:
+    """Kernel D's launch report at D = 3 and a tile of G grid points, as
+    ``moments_launch_report``."""
+    from storage_tpu_torch.ops import _build, decision_kernel
+
+    info = decision_kernel.kernel_info("update", g, 3, b_dim, device)
+    # Compiled per basis size, the wide route past 32 terms.
+    name = f"decision_update_kernelILi{b_dim if b_dim <= 32 else 0}E"
+    ptx = ptxas_report(name)
+    return dict(blocks_per_sm=info["blocks_per_sm"], smem_bytes=info["smem_bytes"],
+                registers=ptx["registers"], spill_bytes=ptx.get("spill_store_bytes", 0),
+                sass_instructions=_build.sass_instructions(_build.library_path(), name))
+
+
+def pack_work(g: int, d: int, b: int) -> tuple:
+    """(bytes, fused and unfused f32 operations, integer operations) of the
+    record pack: idx_lo and w_hi [G, D], ci [D, G, B], a and b [D, G] in,
+    the records [G, record_words] out; one subtraction a centred
+    coefficient."""
+    from storage_tpu_torch.ops import decision_kernel
+
+    words = 2 * g * d + d * g * b + 2 * d * g + g * decision_kernel.record_words(d, b)
+    return 4.0 * words, 0.0, float((d - 1) * g * b), 0.0
 
 
 def launch_text(r: dict) -> str:
@@ -2152,7 +2189,7 @@ def check_caps(pkg, device) -> dict:
     """The kernels at the sizes beyond the monomial kernels' caps, on the
     main path's shapes (S=262,144, G=100, D=3), each against its plain
     version with the tolerances of its own check: kernel D at B=20 (compiled
-    per padded size) and B=36 (the wide route), the same bits; kernel C's
+    per basis size) and B=36 (the wide route), the same bits; kernel C's
     design mode at B=20 (its wide route) on the 20 terms' own backward
     tables and the valuation paths, over all 365 steps on evenly spaced rows
     and over 64 steps on bunched rows (the general-grid mode), argmax flips
@@ -2194,7 +2231,7 @@ def check_caps(pkg, device) -> dict:
         plain_ms = cuda_ms(lambda: decision_kernel.decision_update_plain(*args), 3)
         bnd = bound(*decision_work(g, s, 3, b, 0, moments=False, design_in_memory=True))
         info = decision_kernel.kernel_info("update", g, 3, b, device)
-        ptx = ptxas_report(f"decision_update_kernelILi{(b + 3) // 4 * 4 if b <= 32 else 0}EE")
+        ptx = ptxas_report(f"decision_update_kernelILi{b if b <= 32 else 0}EE")
         log(f"caps: kernel D decision_update [G={g}, S={s}, D=3, B={b}, "
             f"{'compiled' if b <= 32 else 'wide route'}]: {cmp['text']}; {ms:.4f} ms vs plain "
             f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
@@ -2344,6 +2381,7 @@ def caps_valuations(pkg, device, counts, main) -> dict:
         launches = counts.read()
         peak = torch.cuda.max_memory_allocated() / 1e9
         expected = counts.expect(simulate_sweep=2, decision_update=NUM_STEPS,
+                                 pack_records=NUM_STEPS,
                                  forward_sweep_design=-(-NUM_STEPS // 32), intrinsic_dp=1)
         npv, se = res.npv, res.val_sim_standard_error
         pin = F64_CAPS_NPV[case]
@@ -2637,8 +2675,8 @@ def adjoint_grid_phase(pkg, device, counts, main) -> dict:
         custom.npv, custom.val_sim_standard_error)
     chunks = -(-NUM_STEPS // forward_kernel.DESIGN_CHUNK)
     replica, replica_launches = run(
-        dict(simulate_sweep=2, decision_update=NUM_STEPS, forward_sweep_design=chunks,
-             forward_sweep_design_general=chunks, intrinsic_dp=1),
+        dict(simulate_sweep=2, decision_update=NUM_STEPS, pack_records=NUM_STEPS,
+             forward_sweep_design=chunks, forward_sweep_design_general=chunks, intrinsic_dp=1),
         basis=replica_basis(pkg), grid_calc=bunched_grid)
     replica_gap = (replica.npv - custom.npv) / custom.val_sim_standard_error
     log(f"custom grid (bunched_grid, {NUM_GRID} points) at the headline: NPV {custom.npv!r} SE "
@@ -4279,7 +4317,10 @@ def forced_routes(route: str):
 def check_grid_routes(device) -> dict:
     """The Python copies of the kernels' sizing (the route functions, which
     run on any device) against each built kernel's launch report, at shapes
-    around the headline's: the same largest G of every shared route."""
+    around the headline's: the same largest G of every shared route, and the
+    same blocks per SM of each route the rule compares."""
+    import types
+
     from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel
 
     limit = _build.smem_limit(device)
@@ -4305,7 +4346,39 @@ def check_grid_routes(device) -> dict:
         + "; ".join(f"{name}: {mine}" for name, mine, _ in rows[:1] + rows[6:7] + rows[11:14]))
     if bad:
         raise AssertionError(f"route sizing disagrees with kernel_info: {bad}")
-    return dict(smem_limit=limit, shapes={name: mine for name, mine, _ in rows})
+    # The blocks per SM that the route rule of B, E and D counts from shapes
+    # (the copied sizes, the SM's limits and each kernel's register limit),
+    # against the launch reports: B's routes around its crossing, D's kernel
+    # on both sides of each step of its register cap and on the wide route.
+    occupancy = []
+    for g, large in ((100, False), (112, False), (113, False), (400, False), (1_000, False),
+                     (decision_kernel.TILE_B, True)):
+        occupancy.append((f"B G={g}{' large' if large else ''}",
+                          decision_kernel.moments_blocks_per_sm(g, 3, 9, limit),
+                          decision_kernel.kernel_info("moments", g, 3, 9, device,
+                                                      large=large)["blocks_per_sm"]))
+    for b in (1, 4, 5, 8, 9, 16, 17, 20, 24, 28, 29, 32, 36):
+        for g in (100, 400, decision_kernel.TILE_D):
+            occupancy.append((f"D B={b} G={g}", decision_kernel.update_blocks_per_sm(g, 3, b, limit),
+                              decision_kernel.kernel_info("update", g, 3, b,
+                                                          device)["blocks_per_sm"]))
+    off = [row for row in occupancy if row[1] != row[2]]
+    log(f"grid routes: blocks per SM from the Python copies equal the launch reports at "
+        f"{len(occupancy) - len(off)} of {len(occupancy)} shapes; "
+        + "; ".join(f"{name}: {mine}" for name, mine, _ in occupancy[:6] + occupancy[6:9]))
+    if off:
+        raise AssertionError(f"blocks per SM disagree with kernel_info: {off}")
+    crossings = {name: max(g for g in range(2, 4_000) if fn(g).name == "shared")
+                 for name, fn in (
+                     ("B D=3 B=9", lambda g: decision_kernel.moments_route(g, 3, 9, limit)),
+                     ("E D=3 B=9", lambda g: decision_kernel.fullstep_route(g, 3, 9, limit)),
+                     ("D D=3 B=4", lambda g: decision_kernel.update_route(g, 3, 4, limit)),
+                     ("D D=3 B=9", lambda g: decision_kernel.update_route(g, 3, 9, limit)),
+                     ("C B=9 R=3 F=3", lambda g: types.SimpleNamespace(
+                         name=forward_kernel.sweep_route(g, 9, 3, 3, 0, limit))))}
+    log(f"grid routes: the largest G of each shared route under the rule: {crossings}")
+    return dict(smem_limit=limit, shapes={name: mine for name, mine, _ in rows},
+                blocks_per_sm={name: mine for name, mine, _ in occupancy}, crossings=crossings)
 
 
 def random_design_update(device, g, s, seed, b):
@@ -4427,8 +4500,30 @@ def check_large_kernels(pkg, device) -> dict:
     del args, band, e_args, e_band, out
     torch.cuda.empty_cache()
 
-    # D at B = 4 (spot-only panels) and B = 9 (the generic replica).
+    # D at B = 4 (spot-only panels) and B = 9 (the generic replica): its
+    # large route, after the record pack (checked and timed alone too).
     d_rows = {}
+    pack = {}
+    for b_dim in (4, 9):
+        args = random_design_update(device, g, s, 26, b_dim)
+        packed = decision_kernel.pack_records(*args[3:])
+        same = torch.equal(packed.view(torch.int32),
+                           decision_kernel.pack_records_plain(*args[3:]).view(torch.int32))
+        pack[b_dim] = dict(same=same, ms=cuda_ms(lambda: decision_kernel.pack_records(*args[3:]),
+                                                  20),
+                           plain_ms=cuda_ms(
+                               lambda: decision_kernel.pack_records_plain(*args[3:]), 5),
+                           bound=bound(*pack_work(g, 3, b_dim)))
+        del args, packed
+    log(f"pack_records [G={g}, D=3, B=4 / 9]: the plain version's bits: "
+        f"{pack[4]['same']} / {pack[9]['same']}; {pack[4]['ms']:.4f} / {pack[9]['ms']:.4f} ms vs "
+        f"plain {pack[4]['plain_ms']:.4f} / {pack[9]['plain_ms']:.4f} ms, bound "
+        f"{pack[4]['bound']['bound_ms']:.4f} / {pack[9]['bound']['bound_ms']:.4f} ms")
+    if not (pack[4]["same"] and pack[9]["same"]):
+        raise AssertionError("pack_records parts from its plain version's bits")
+    results["pack_records"] = dict(max_abs_err=0.0, ms=pack[4]["ms"],
+                                   plain_ms=pack[4]["plain_ms"], b9_ms=pack[9]["ms"],
+                                   **pack[4]["bound"])
     for b_dim in (4, 9):
         checks = [compare_d(random_update(device, g, s, seed=26, monotone=True) if b_dim == 4
                             else random_design_update(device, g, s, 26, b_dim))]
@@ -4441,7 +4536,7 @@ def check_large_kernels(pkg, device) -> dict:
         out = torch.empty_like(args[0])
         ms = cuda_ms(lambda: decision_kernel.decision_update(*args, out=out), 5)
         plain_ms = cuda_ms(lambda: decision_kernel.decision_update_plain(*args), 2)
-        launch = decision_kernel.kernel_info("update", decision_kernel.TILE_D, 3, b_dim, device)
+        launch = update_launch_report(device, decision_kernel.TILE_D, b_dim)
         d_rows[b_dim] = (check, ms, plain_ms, launch)
         del args, out
         torch.cuda.empty_cache()
@@ -4452,10 +4547,15 @@ def check_large_kernels(pkg, device) -> dict:
         decision_work(g, big_s, 3, 4, 0, moments=False, design_in_memory=True),
         tile=decision_kernel.TILE_D, smem_bytes=launch["smem_bytes"],
         blocks_per_sm=launch["blocks_per_sm"], registers=launch["registers"],
-        b9_ms=ms9, b9_plain_ms=plain9, b9_bound_ms=bnd9["bound_ms"],
-        b9_max_abs_err=c9["max_abs_err"], b9_blocks_per_sm=launch9["blocks_per_sm"])
+        spill_bytes=launch["spill_bytes"], b9_ms=ms9, b9_plain_ms=plain9,
+        b9_bound_ms=bnd9["bound_ms"], b9_max_abs_err=c9["max_abs_err"],
+        b9_blocks_per_sm=launch9["blocks_per_sm"], b9_smem_bytes=launch9["smem_bytes"],
+        b9_registers=launch9["registers"], b9_spill_bytes=launch9["spill_bytes"])
+    log(f"decision_update_large at B=4: its launch (tiles of {decision_kernel.TILE_D}): "
+        f"{launch_text(launch)}")
     log(f"decision_update_large at B=9 [G={g}]: {c9['text']}; {ms9:.4f} ms vs plain "
-        f"{plain9:.3f} ms at S={big_s}, bound {bnd9['bound_ms']:.4f} ms")
+        f"{plain9:.3f} ms at S={big_s}, bound {bnd9['bound_ms']:.4f} ms; its launch: "
+        f"{launch_text(launch9)}")
     if not c9["ok"]:
         raise AssertionError(f"kernel D's large route at B=9 disagrees: {c9['text']}")
 
@@ -4497,16 +4597,55 @@ def check_large_kernels(pkg, device) -> dict:
     return results
 
 
-def grid_value(pkg, device, basis=BASIS, num_sims=None, **kwargs):
-    """The headline through the public API at ``GRID_BIG`` grid points
+def grid_value(pkg, device, basis=BASIS, num_sims=None, num_grid=GRID_BIG, **kwargs):
+    """The headline through the public API at ``num_grid`` grid points
     (``NUM_SIMS`` paths a set unless ``num_sims``)."""
     import torch
 
     storage, start, fwd = bench_case(pkg)
     return pkg.three_factor_seasonal_value(
         storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, num_sims or NUM_SIMS,
-        basis, False, seed=11, fwd_sim_seed=13, num_inventory_grid_points=GRID_BIG,
+        basis, False, seed=11, fwd_sim_seed=13, num_inventory_grid_points=num_grid,
         dtype=torch.float32, device=device, snap_interp=True, **kwargs)
+
+
+def grid_1000_valuation(pkg, device, counts) -> dict:
+    """The headline at ``BIG_GRID`` = 1,000 grid points (262,144 paths x 365
+    steps), where the route rule sends kernel B to its large route (its
+    shared route would hold the step's records at 1 block per SM): its
+    routes, NPV, SE, launches and wall (median of ``GRID_REPEATS``), and the
+    same NPV and SE bits with every grid-routed kernel forced onto its
+    shared route (one run, its wall beside)."""
+    import math as _m
+
+    import torch
+
+    from storage_tpu_torch.basis import parse_basis_functions
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.ops import _build
+
+    routes = engine.grid_routes(BIG_GRID, 0, tuple(parse_basis_functions(BASIS)), 3, 3, False,
+                                _build.smem_limit(device), NUM_STEPS, 4)
+    row = timed_valuation(counts, lambda: grid_value(pkg, device, num_grid=BIG_GRID))
+    res = row.pop("result")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with forced_routes("shared"):
+        shared = grid_value(pkg, device, num_grid=BIG_GRID)
+    torch.cuda.synchronize()
+    shared_wall = time.perf_counter() - t0
+    same = (res.npv, res.val_sim_standard_error) == (shared.npv, shared.val_sim_standard_error)
+    log(f"G={BIG_GRID} headline [{NUM_SIMS} x {NUM_STEPS}]: routes {routes}; NPV {res.npv!r} SE "
+        f"{res.val_sim_standard_error!r}; wall median {row['wall_s']:.3f} s of "
+        f"{[round(w, 3) for w in row['walls_s']]}, launches {row['launches']}; every route "
+        f"forced shared: NPV {shared.npv!r} SE {shared.val_sim_standard_error!r} (the same bits: "
+        f"{same}), wall {shared_wall:.3f} s")
+    if row["launches"]["decision_update_moments_large"] != NUM_STEPS:
+        raise AssertionError(f"G={BIG_GRID}: kernel B took its shared route: {row['launches']}")
+    if not (same and _m.isfinite(res.npv) and res.val_sim_standard_error > 0):
+        raise AssertionError(f"G={BIG_GRID}: the rule's routes part from the shared route's bits")
+    return dict(npv=res.npv, se=res.val_sim_standard_error, routes=routes,
+                shared_wall_s=shared_wall, **row)
 
 
 def grid_engine_inputs(pkg, device, num_sims, dtype, grid_calc=None):
@@ -4603,6 +4742,8 @@ def grid_valuations(pkg, device, counts, src, main) -> dict:
     if (res.npv, res.val_sim_standard_error) != (MAIN_NPV, MAIN_SE):
         raise AssertionError("the large routes forced at G=100 part from the headline's bits")
     report["forced_g100"] = dict(npv=res.npv, se=res.val_sim_standard_error, launches=launches)
+    report["g1000"] = grid_1000_valuation(pkg, device, counts)
+    torch.cuda.empty_cache()
 
     def fullstep_run():
         out = engine.lsmc_core(arrays, reg.spot, reg.factors, val.spot, val.factors, 100.0,
@@ -4622,14 +4763,15 @@ def grid_valuations(pkg, device, counts, src, main) -> dict:
                           forward_sweep_large=1)),
         "generic": (lambda: grid_value(pkg, device, basis=replica_basis(pkg)),
                     dict(simulate_sweep=2, decision_update=NUM_STEPS,
-                         decision_update_large=NUM_STEPS, forward_sweep_design=12,
+                         decision_update_large=NUM_STEPS, pack_records=NUM_STEPS,
+                         forward_sweep_design=12,
                          forward_sweep_design_large=12, intrinsic_dp=1)),
         "spot_only": (lambda: pkg.value_from_sims(
             storage, start, 100.0, fwd, 0.02, None, src.sim_spot_regress, src.sim_spot_valuation,
             SPOT_BASIS, False, num_inventory_grid_points=GRID_BIG, dtype=torch.float32,
             device=device, snap_interp=True),
                       dict(decision_update=NUM_STEPS, decision_update_large=NUM_STEPS,
-                           forward_sweep=1, intrinsic_dp=1)),
+                           pack_records=NUM_STEPS, forward_sweep=1, intrinsic_dp=1)),
         "custom_grid": (lambda: grid_value(pkg, device, grid_calc=big_bunched_grid),
                         dict(simulate_sweep=2, decision_update_moments=NUM_STEPS,
                              decision_update_moments_large=NUM_STEPS, forward_sweep=1,
@@ -5250,7 +5392,8 @@ def launch_counts():
     return LaunchCounts((rng_kernel.simulate_sweep, rng_kernel.normal_halves,
                          decision_kernel.decision_update_moments,
                          forward_kernel.forward_sweep, decision_kernel.decision_update,
-                         decision_kernel.decision_update_fullstep, intrinsic_kernel.intrinsic_dp,
+                         decision_kernel.decision_update_fullstep, decision_kernel.pack_records,
+                         intrinsic_kernel.intrinsic_dp,
                          tree_kernel.tree_dp,
                          ("tree_dp_steps", tree_kernel.tree_dp, "step_launches"),
                          # The DPs' large routes, counted in intrinsic_dp's launches too.
@@ -5632,7 +5775,8 @@ def multi_gpu_phase(pkg, device, counts, main, src, from_sims, spot_only, card) 
                                        forward_sweep=segments(NUM_STEPS), intrinsic_dp=1),
                 host_local=counts.expect(decision_update_moments=NUM_STEPS, forward_sweep=1,
                                          intrinsic_dp=1),
-                host_local_spot=counts.expect(decision_update=NUM_STEPS, forward_sweep=1,
+                host_local_spot=counts.expect(decision_update=NUM_STEPS,
+                                              pack_records=NUM_STEPS, forward_sweep=1,
                                               intrinsic_dp=1))
     ok_all = cross_ok
     for r, rep in enumerate(reports):
@@ -5820,6 +5964,7 @@ def main(argv) -> int:
     launches.update(
         decision_update_moments_large=grids["headline"]["launches"]["decision_update_moments_large"],
         decision_update_large=grids["spot_only"]["launches"]["decision_update_large"],
+        pack_records=grids["spot_only"]["launches"]["pack_records"],
         decision_update_fullstep_large=grids["fullstep"]["launches"][
             "decision_update_fullstep_large"],
         forward_sweep_large=grids["headline"]["launches"]["forward_sweep_large"],
@@ -5921,6 +6066,7 @@ def main(argv) -> int:
                  forward_sweep_vjp="adjoint", forward_sweep_general="custom_grid",
                  forward_sweep_design_general="custom_grid_generic",
                  decision_update_moments_large="grid_4096", decision_update_large="grid_4096_spot",
+                 pack_records="grid_4096_spot",
                  decision_update_fullstep_large="grid_4096_fullstep",
                  forward_sweep_large="grid_4096", forward_sweep_design_large="grid_4096_generic",
                  forward_sweep_general_large="grid_4096_custom",
@@ -5973,8 +6119,10 @@ def main(argv) -> int:
                                                "blocks_per_sm", "registers", "spill_bytes",
                                                "sass_instructions"),
              "decision_update_large": ("tile", "smem_bytes", "blocks_per_sm", "registers",
-                                       "b9_ms", "b9_plain_ms", "b9_bound_ms", "b9_max_abs_err",
-                                       "b9_blocks_per_sm", "b9_launches"),
+                                       "spill_bytes", "b9_ms", "b9_plain_ms", "b9_bound_ms",
+                                       "b9_max_abs_err", "b9_blocks_per_sm", "b9_smem_bytes",
+                                       "b9_registers", "b9_spill_bytes", "b9_launches"),
+             "pack_records": ("b9_ms",),
              "decision_update_fullstep_large": ("tile", "band_rows_ms", "blocks_per_sm"),
              "intrinsic_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64",
                                     "chain_floor_ms", "grid_link_ns", "launch"),

@@ -428,12 +428,15 @@ extern "C" int stt_decision_update_moments(
 }
 
 // Kernel B's launch report at (G, D, B) on the current device (common.cuh:
-// kernel_info), for the shared route (all G grid points' records at once: its
-// max_grid is the largest G that route takes); the wrappers size the
-// partials by its sims per block.
-extern "C" int stt_decision_update_moments_info(int G, int D, int B, int* out) {
+// kernel_info): the shared route's with all G grid points' records (its
+// max_grid is the largest G that route takes), or with `large` the large
+// route's at a tile of G grid points; the wrappers size the partials by its
+// sims per block.
+extern "C" int stt_decision_update_moments_info(int G, int D, int B, int large, int* out) {
   if (G < 0 || D < 1 || B < 1 || B > stt::kMaxB) return static_cast<int>(cudaErrorInvalidValue);
   const MomentsKernels k = moments_kernels(B);
-  return static_cast<int>(stt::kernel_info(k.shared, kThreads, smem_fixed_words(B),
-                                           stt::record_words(D, k.bp), G, out));
+  const size_t fixed = smem_fixed_words(B);
+  const size_t rec = stt::record_words(D, k.bp);
+  return static_cast<int>(large ? stt::kernel_info(k.tiled, kThreads, fixed, rec, G, out)
+                                : stt::kernel_info(k.shared, kThreads, fixed, rec, G, out));
 }

@@ -60,16 +60,18 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P,
     ),
-    # G, D, B, out int[6] (kernel B's launch report) or int[9] (kernel D's)
-    "stt_decision_update_moments_info": (_I, _I, _I, _P),
+    # G, D, B, large route, out int[6] (kernel B's launch report)
+    "stt_decision_update_moments_info": (_I, _I, _I, _I, _P),
+    # G (a tile), D, B, out int[6] (kernel D's launch report)
     "stt_decision_update_info": (_I, _I, _I, _P),
     # out int[2]: the most basis functions and factors a kernel takes
     "stt_limits": (_P,),
     # out int[1]: the current device's shared memory a block can opt in to
     "stt_smem_limit": (_P,),
-    # G, tile, S, D, B, v, dm_std_t, spot, idx_lo, w_hi, dci, a, b, best_out,
-    # stream
-    "stt_decision_update": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # G, D, B, idx_lo, w_hi, ci, a, b, records, stream
+    "stt_pack_records": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # G, tile, S, D, B, v, dm_std_t, spot, records, best_out, stream
+    "stt_decision_update": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     # G, tile, spread solve, S, F, D, basis table, ridge, v, spot, factors,
     # spot_prev, factors_prev, xtx, xty_t, cmean, cstd, mean_prev (or NULL),
     # std_prev (or NULL), idx_lo, w_hi, a, b, best_out, mean_out, std_out,
@@ -280,6 +282,30 @@ def smem_limit(device) -> int:
     B, C, D and E are decided by (``ops.decision_kernel.moments_route`` and
     the others)."""
     return _smem_limit(torch.device(device).index or 0)
+
+
+# What sets a launch's blocks per SM on an H100 (sm_90; every SM the same)
+# besides its registers: the SM's threads and blocks, and the shared memory
+# reserved for each block beside its own (the SM's shared memory is a
+# block's limit, ``smem_limit``, plus this).
+SM_THREADS = 2_048
+SM_BLOCKS = 32
+SMEM_RESERVED = 1_024
+SMEM_UNIT = 128  # a block's shared memory is allocated in these
+
+
+def blocks_per_sm(smem_bytes: int, threads: int, reg_blocks: int, smem_limit: int) -> int:
+    """Blocks of a launch resident on one SM, as the card's occupancy counts
+    them: none where its shared memory passes a block's limit, else the
+    fewest that its shared memory (each block's rounded up to 128 bytes,
+    with 1 KB reserved, of ``smem_limit`` + 1 KB an SM), its threads (2,048
+    an SM), the SM's 32 blocks and its registers (``reg_blocks``) allow.
+    The grid routes compare their kernels' routes by it."""
+    if smem_bytes > smem_limit:
+        return 0
+    block = -(-smem_bytes // SMEM_UNIT) * SMEM_UNIT + SMEM_RESERVED
+    by_smem = (smem_limit + SMEM_RESERVED) // block
+    return min(by_smem, SM_THREADS // threads, SM_BLOCKS, reg_blocks)
 
 
 def require_caps(name: str, num_basis: int, num_factors: int) -> None:

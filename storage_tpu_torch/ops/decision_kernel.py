@@ -43,13 +43,17 @@ only the records and two fixed tiles in shared memory, D's only the records
 two routes decided from the shape before anything is allocated
 (``moments_route``, ``update_route``, ``fullstep_route``): the shared route,
 all of a step's records in a block's shared memory at once, while they fit
-(``kernel_info`` gives the largest grid), else the large route, the records
-a tile of grid points at a time (and E's solve spread over blocks).  Both
-give the same bits.  B and E build the
+(``kernel_info`` gives the largest grid) and leave at least as many blocks
+per SM as the large route (``moments_blocks_per_sm``,
+``update_blocks_per_sm``), else the large route, a tile of grid points at a
+time (and E's solve spread over blocks).  Both give the same bits.  B
+repacks its records in each block; D packs them once a step
+(``pack_records``) and runs one kernel on both routes, a tile a block (the
+shared route's tile is the whole grid).  B and E build the
 monomial design on the card and take a basis and a factor count within the
 caps ``_build.MAX_BASIS`` and ``_build.MAX_FACTORS`` (16 and 8), raising
 ``ValueError`` beyond them; D reads the design and takes any basis, compiled
-per padded size up to 32 terms and on its wide route beyond.
+per basis size up to 32 terms and on its wide route beyond.
 """
 from __future__ import annotations
 
@@ -137,7 +141,7 @@ TILE_D = 256
 # The kernels' sizing, copied from csrc/decision_kernel.cu,
 # csrc/decision_update_kernel.cu and their records (csrc/decision_step.cuh)
 # so that the route is decided from shapes on any device; chip_smoke.py holds
-# each copy to ``kernel_info``'s max_grid.  Both kernels keep a record of
+# each copy to ``kernel_info``.  Both kernels keep a record of
 # ``record_words(D, B)`` words a grid point in shared memory.  Kernel B: 128
 # sims a block, a static [kChunk = 8, 128] best_act tile, a [B, 128] design
 # tile, then the records.  Kernel D: 256 sims a block, the records, past 32
@@ -149,6 +153,12 @@ _B_CHUNK = 8
 _D_SIMS = 256
 _D_GROUP = 4
 _SOLVE_COLUMNS = 256
+
+# The blocks per SM kernel B's registers allow (the rest of a route's
+# blocks per SM is ``_build.blocks_per_sm``'s): capped for kMinBlocks = 9
+# blocks (csrc/decision_kernel.cu), on both routes; kernel D's are
+# ``update_reg_blocks``.
+_B_REG_BLOCKS = 9
 
 
 def padded_basis(bdim: int) -> int:
@@ -169,22 +179,53 @@ def _fit(limit: int, static_bytes: int, fixed_words: int, words_per_point: int) 
     return room // words_per_point if room >= 0 else 0
 
 
+def moments_blocks_per_sm(g: int, d: int, bdim: int, smem_limit: int) -> int:
+    """Blocks per SM of kernel B holding G grid points' records: its shared
+    route at G, its large route at a tile of G."""
+    smem = 4 * _B_CHUNK * _B_SIMS + 4 * (bdim * _B_SIMS + g * record_words(d, bdim))
+    return _build.blocks_per_sm(smem, _B_SIMS, _B_REG_BLOCKS, smem_limit)
+
+
+def _row_words(bdim: int) -> int:
+    bp = padded_basis(bdim)
+    return bp * _D_SIMS if bp > 32 else 0
+
+
+def update_reg_blocks(bdim: int) -> int:
+    """The blocks per SM kernel D's registers are capped for
+    (``__launch_bounds__``, ``min_blocks`` in csrc/decision_update_kernel.cu),
+    by padded basis size: 5 up to 4 terms, 4 up to 16, 3 up to 28, 2 up to
+    32, and 4 on the wide route beyond."""
+    bp = padded_basis(bdim)
+    return 4 if bp > 32 else 5 if bp <= 4 else 4 if bp <= 16 else 3 if bp <= 28 else 2
+
+
+def update_blocks_per_sm(g: int, d: int, bdim: int, smem_limit: int) -> int:
+    """Blocks per SM of kernel D at a tile of G grid points."""
+    smem = 4 * (g * record_words(d, bdim) + _row_words(bdim))
+    return _build.blocks_per_sm(smem, _D_SIMS, update_reg_blocks(bdim), smem_limit)
+
+
 def _choose(name: str, g: int, max_grid: int, want: int, quantum: int,
-            route: tp.Optional[str]) -> Route:
-    """The shared route where G fits it (``route`` forces one), else the
-    large route with tiles of ``want`` grid points, fewer (a multiple of
-    ``quantum`` where one fits) where those do not fit."""
+            route: tp.Optional[str], shared_blocks, large_blocks) -> Route:
+    """The shared route while G fits it and its blocks per SM
+    (``shared_blocks(G)``) are at least the large route's
+    (``large_blocks(tile)``), else the large route with tiles of ``want``
+    grid points, fewer (a multiple of ``quantum`` where one fits) where
+    those do not fit; ``route`` forces one."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"{name}: route must be one of {ROUTES}, got {route!r}")
-    route = route or ("shared" if g <= max_grid else "large")
+    tile = min(want, g, max_grid)
+    if tile >= quantum:
+        tile -= tile % quantum
+    if route is None:
+        fits = g <= max_grid and shared_blocks(g) >= large_blocks(max(tile, 1))
+        route = "shared" if fits else "large"
     if route == "shared":
         if g > max_grid:
             raise ValueError(f"{name}: the shared route holds at most G={max_grid} grid points "
                              f"at this shape, got G={g}")
         return Route("shared", g)
-    tile = min(want, g, max_grid)
-    if tile >= quantum:
-        tile -= tile % quantum
     if tile < 1:
         raise ValueError(f"{name}: not even one grid point's tables fit a block's shared "
                          f"memory at this shape")
@@ -200,24 +241,28 @@ def moments_max_grid(d: int, bdim: int, smem_limit: int) -> int:
 def moments_route(g: int, d: int, bdim: int, smem_limit: int,
                   route: tp.Optional[str] = None) -> Route:
     """Kernel B's route at (G, D, B), from the shape and the card's shared
-    memory a block (``_build.smem_limit``): shared up to
-    ``moments_max_grid``, else large, ``TILE_B`` grid points a tile."""
+    memory a block (``_build.smem_limit``): shared while G fits it
+    (``moments_max_grid``) and its blocks per SM are at least the large
+    route's, else large, ``TILE_B`` grid points a tile."""
+    def blocks(n):
+        return moments_blocks_per_sm(n, d, bdim, smem_limit)
     return _choose("decision_update_moments", g, moments_max_grid(d, bdim, smem_limit), TILE_B,
-                   _B_CHUNK, route)
+                   _B_CHUNK, route, blocks, blocks)
 
 
 def update_max_grid(d: int, bdim: int, smem_limit: int) -> int:
-    """The largest G of kernel D's shared route."""
-    bp = padded_basis(bdim)
-    row = bp * _D_SIMS if bp > 32 else 0
-    return _fit(smem_limit, 0, row, record_words(d, bdim))
+    """The largest G of kernel D's shared route (its largest tile)."""
+    return _fit(smem_limit, 0, _row_words(bdim), record_words(d, bdim))
 
 
 def update_route(g: int, d: int, bdim: int, smem_limit: int,
                  route: tp.Optional[str] = None) -> Route:
-    """Kernel D's route, as ``moments_route``; ``TILE_D`` grid points a tile."""
+    """Kernel D's route, as ``moments_route``: one tile of all G grid points
+    (shared) or ``TILE_D`` a tile (large), for the same kernel."""
+    def blocks(n):
+        return update_blocks_per_sm(n, d, bdim, smem_limit)
     return _choose("decision_update", g, update_max_grid(d, bdim, smem_limit), TILE_D, _D_GROUP,
-                   route)
+                   route, blocks, blocks)
 
 
 def solve_max_grid(bdim: int, smem_limit: int) -> int:
@@ -227,13 +272,17 @@ def solve_max_grid(bdim: int, smem_limit: int) -> int:
 
 def fullstep_route(g: int, d: int, bdim: int, smem_limit: int,
                    route: tp.Optional[str] = None) -> Route:
-    """Kernel E's route: shared where both kernel B's tables and the
-    one-block solve fit, else large (B's large route and the solve spread
-    over blocks)."""
-    fits = min(moments_max_grid(d, bdim, smem_limit), solve_max_grid(bdim, smem_limit))
-    if route == "large" or (route is None and g > fits):
+    """Kernel E's route: shared where kernel B's rule takes its shared route
+    and the one-block solve fits, else large (B's large route and the solve
+    spread over blocks)."""
+    if route is None:
+        shared = (g <= solve_max_grid(bdim, smem_limit)
+                  and moments_route(g, d, bdim, smem_limit).name == "shared")
+        route = "shared" if shared else "large"
+    if route == "large":
         return Route("large", moments_route(g, d, bdim, smem_limit, "large").tile)
-    return _choose("decision_update_fullstep", g, fits, TILE_B, _B_CHUNK, route)
+    fits = min(moments_max_grid(d, bdim, smem_limit), solve_max_grid(bdim, smem_limit))
+    return _choose("decision_update_fullstep", g, fits, TILE_B, _B_CHUNK, route, None, None)
 
 
 def _check_shapes(name: str, shapes) -> None:
@@ -247,27 +296,31 @@ _INFO_FIELDS = ("sims_per_block", "smem_bytes", "smem_limit", "max_grid", "block
 
 
 @functools.lru_cache(maxsize=64)
-def _kernel_info(entry: str, g: int, d: int, bdim: int, device_index: int) -> dict:
+def _kernel_info(entry: str, g: int, d: int, bdim: int, large: tp.Optional[bool],
+                 device_index: int) -> dict:
     out = (ctypes.c_int * len(_INFO_FIELDS))()
     lib = _build.library()
+    route = () if large is None else (int(large),)
     with torch.cuda.device(device_index):
-        _build.check(getattr(lib, entry)(g, d, bdim, out), entry)
+        _build.check(getattr(lib, entry)(g, d, bdim, *route, out), entry)
     return dict(zip(_INFO_FIELDS, out))
 
 
-def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device) -> dict:
-    """Launch report of the shared route of kernel B (``"moments"``, also
-    run by kernel E) or kernel D (``"update"``) at G grid points, D
-    decisions and B basis functions on a CUDA device: sims per block, shared
-    memory bytes per block (static and dynamic), the device's limit per
-    block, the largest G that route takes at this D and B, blocks per SM (0
-    where G does not fit) and registers per thread.  A large route's tile of
-    T grid points takes the shared memory, and so the blocks per SM, of the
-    shared route at G = T.  Kernel B takes B within its basis cap
-    (``_build.MAX_BASIS``), kernel D any B."""
+def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device,
+                large: bool = False) -> dict:
+    """Launch report of kernel B (``"moments"``, also run by kernel E) or
+    kernel D (``"update"``) at D decisions and B basis functions on a CUDA
+    device: B's shared route holding G grid points' records, or with
+    ``large`` its large route at a tile of G; D's one kernel at a tile of G
+    (``large`` is B's alone): sims per block, shared memory bytes per block
+    (static and dynamic), the device's limit per block, the largest G (or
+    tile) that route takes at this D and B, blocks per SM (0 where G does
+    not fit) and registers per thread.  Kernel B takes B within its basis
+    cap (``_build.MAX_BASIS``), kernel D any B."""
     entry = {"moments": "stt_decision_update_moments_info",
              "update": "stt_decision_update_info"}[kernel]
-    return _kernel_info(entry, g, d, bdim, torch.device(device).index or 0)
+    return _kernel_info(entry, g, d, bdim, bool(large) if kernel == "moments" else None,
+                        torch.device(device).index or 0)
 
 
 def moments_scratch(g: int, bdim: int, s: int, device: torch.device):
@@ -373,6 +426,50 @@ def decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b):
         decision_values_on_design(v, dm_std_t.T, spot, idx_lo, w_hi, ci, a, b))
 
 
+def pack_records_plain(idx_lo, w_hi, ci, a, b):
+    """Tensor-code version of kernel D's record pack: [G,
+    record_words(D, B)] f32, per grid point {a, b, w_hi, idx_lo} (its bits)
+    of decision 0, then for each later decision d its entry and its centred
+    coefficients ci[d] − ci[0] zero-padded to whole float4s."""
+    d, g, bdim = ci.shape
+    bp = padded_basis(bdim)
+    entries = torch.stack([a.T, b.T, w_hi, idx_lo.to(torch.int32).view(torch.float32)],
+                          dim=2)  # [G, D, 4]
+    parts = [entries[:, 0]]
+    dci = torch.zeros((g, bp), dtype=ci.dtype, device=ci.device)
+    for k in range(1, d):
+        dci[:, :bdim] = ci[k] - ci[0]
+        parts += [entries[:, k], dci.clone()]
+    return torch.cat(parts, dim=1)
+
+
+def pack_records(idx_lo: torch.Tensor, w_hi: torch.Tensor, ci: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """The records of a step for kernel D, as ``pack_records_plain``.
+    CPU tensors take the plain version; CUDA tensors launch the pack kernel
+    (``csrc/decision_update_kernel.cu``), f32 and contiguous, with ``idx_lo``
+    int32; ``launches`` counts its launches."""
+    if ci.device.type == "cpu":
+        return pack_records_plain(idx_lo, w_hi, ci, a, b)
+    d, g, bdim = ci.shape
+    records = torch.empty((g, record_words(d, bdim)), dtype=torch.float32, device=ci.device)
+    device = _build.require_cuda("pack_records", w_hi, ci, a, b, records)
+    _build.require_cuda("pack_records", idx_lo, dtype=torch.int32)
+    if idx_lo.device != device:
+        raise ValueError("pack_records: idx_lo on another device")
+    _check_shapes("pack_records", {"idx_lo": (idx_lo, (g, d)), "w_hi": (w_hi, (g, d)),
+                                   "a": (a, (d, g)), "b": (b, (d, g))})
+    rc = _build.library().stt_pack_records(
+        g, d, bdim, idx_lo.data_ptr(), w_hi.data_ptr(), ci.data_ptr(), a.data_ptr(),
+        b.data_ptr(), records.data_ptr(), _build.stream_handle(device))
+    pack_records.launches += 1
+    _build.check(rc, "pack_records")
+    return records
+
+
+pack_records.launches = 0
+
+
 def decision_update(
     v: torch.Tensor,         # [G, S] next-period actual values
     dm_std_t: torch.Tensor,  # [B, S] standardised design of step t, transposed
@@ -390,19 +487,19 @@ def decision_update(
     CPU tensors take the plain version.  CUDA tensors launch the kernel, at
     any basis size and grid, and must be f32 and contiguous; ``out`` is the
     [G, S] buffer for best_act and must not be ``v``.  ``idx_lo`` must lie
-    in [0, G-2], as for kernel B, in any order.  The route is
-    ``update_route``'s (``route`` forces one); ``large_launches`` counts the
-    large route's launches, as kernel B's wrapper does."""
+    in [0, G-2], as for kernel B, in any order.  Each call launches
+    ``pack_records``, then the kernel with ``update_route``'s tile (``route``
+    forces one); ``large_launches`` counts the large route's launches, as
+    kernel B's wrapper does."""
     if v.device.type == "cpu":
         return decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b)
     g, s = v.shape
     bdim = dm_std_t.shape[0]
     d = ci.shape[0]
     plan = update_route(g, d, bdim, _build.smem_limit(v.device), route)
-    dci = (ci - ci[0:1]).contiguous()
     if out is None:
         out = torch.empty_like(v)
-    device = _build.require_cuda("decision_update", v, dm_std_t, spot, w_hi, dci, a, b, out)
+    device = _build.require_cuda("decision_update", v, dm_std_t, spot, w_hi, ci, a, b, out)
     _build.require_cuda("decision_update", idx_lo, dtype=torch.int32)
     if idx_lo.device != device:
         raise ValueError("decision_update: idx_lo on another device")
@@ -413,11 +510,10 @@ def decision_update(
         "idx_lo": (idx_lo, (g, d)), "w_hi": (w_hi, (g, d)), "ci": (ci, (d, g, bdim)),
         "a": (a, (d, g)), "b": (b, (d, g)), "out": (out, (g, s)),
     })
+    records = pack_records(idx_lo, w_hi, ci, a, b)
     rc = _build.library().stt_decision_update(
         g, plan.tile, s, d, bdim, v.data_ptr(), dm_std_t.data_ptr(), spot.data_ptr(),
-        idx_lo.data_ptr(), w_hi.data_ptr(), dci.data_ptr(), a.data_ptr(), b.data_ptr(),
-        out.data_ptr(), _build.stream_handle(device),
-    )
+        records.data_ptr(), out.data_ptr(), _build.stream_handle(device))
     decision_update.launches += 1
     decision_update.large_launches += plan.name == "large"
     _build.check(rc, "decision_update")

@@ -201,8 +201,10 @@ def test_grid_beyond_shared_memory_raises(device):
     g = info["max_grid"] + 1
     limit = _build.smem_limit(device)
     assert info["max_grid"] == decision_kernel.moments_max_grid(3, 9, limit)
-    assert decision_kernel.moments_route(g - 1, 3, 9, limit).name == "shared"
+    assert decision_kernel.moments_route(g - 1, 3, 9, limit, route="shared").name == "shared"
     assert decision_kernel.moments_route(g, 3, 9, limit).name == "large"
+    with pytest.raises(ValueError, match="at most"):
+        decision_kernel.moments_route(g, 3, 9, limit, route="shared")
     args = _decision_args(device, g, 64, 3, 3, basis=BASIS_9)
     before = decision_kernel.decision_update_moments.large_launches
     got = decision_kernel.decision_update_moments(*args)
@@ -339,7 +341,7 @@ def test_decision_update_grid_beyond_shared_memory_raises(device):
     assert info["max_grid"] >= info["smem_limit"] // 96  # the first design: 96 B a grid point
     assert info["max_grid"] == decision_kernel.update_max_grid(3, 4, _build.smem_limit(device))
     args = _update_args(device, info["max_grid"], 64, 3, "monotone")
-    got = decision_kernel.decision_update(*args)
+    got = decision_kernel.decision_update(*args, route="shared")
     assert torch.equal(got, decision_kernel.decision_update_plain(*args))
     args = _update_args(device, info["max_grid"] + 1, 64, 3, "monotone")
     before = decision_kernel.decision_update.large_launches
@@ -348,13 +350,111 @@ def test_decision_update_grid_beyond_shared_memory_raises(device):
     assert torch.equal(got, decision_kernel.decision_update_plain(*args))
 
 
+def _spot_basis(b: int) -> str:
+    return " + ".join(["1"] + [f"s**{k}" for k in range(1, b)])
+
+
+@pytest.mark.parametrize("kind", ["random", "monotone"])
+@pytest.mark.parametrize("d", [3, 5])
+@pytest.mark.parametrize("b", [4, 9, 20, 36])
+def test_decision_update_large_route(device, b, d, kind):
+    """Kernel D's large route (tiles of ``TILE_D`` grid points a block) at
+    padded sizes 4, 12, 20 and the wide route (36 terms), on grids the tile
+    does not divide (250: one partial tile; 1,001:
+    three whole tiles and a partial one, not whole groups of 4) and S not a
+    whole number of blocks: its plain version's bits, and the shared route's
+    wherever that holds the grid."""
+    limit = _build.smem_limit(device)
+    for g in (250, 1_001):
+        args = _update_args(device, g, 1_037, d, kind, basis=_spot_basis(b))
+        before = decision_kernel.decision_update.large_launches
+        large = decision_kernel.decision_update(*args, route="large").clone()
+        assert decision_kernel.decision_update.large_launches == before + 1
+        assert torch.equal(large, decision_kernel.decision_update_plain(*args))
+        if g <= decision_kernel.update_max_grid(d, b, limit):
+            assert torch.equal(large, decision_kernel.decision_update(*args, route="shared"))
+
+
+@pytest.mark.parametrize("route", ["shared", "large"])
+@pytest.mark.parametrize("b", [4, 9, 36])
+def test_decision_update_exact_tie_keeps_decision_zero(device, b, route):
+    """Kernel D on an exact tie of the regressed values (D = 2, the two
+    decisions' coefficients and immediate values equal, their rows apart):
+    decision 0 on either route, its actual value to the bit, 0 flips."""
+    g = 301
+    v, dm_std_t, spot, idx_lo, w_hi, ci, a, b_ = _update_args(device, g, 1_037, 2, "random",
+                                                              basis=_spot_basis(b))
+    ci[1], a[1], b_[1] = ci[0], a[0], b_[0]
+    idx_lo[:, 1] = (idx_lo[:, 0] + g // 2) % (g - 1)
+    args = (v, dm_std_t, spot, idx_lo.contiguous(), w_hi, ci, a, b_)
+    lo, w = idx_lo[:, 0].long(), w_hi[:, 0:1]
+    act0 = v[lo] * (1 - w) + v[lo + 1] * w + (a[0][:, None] * spot[None, :] + b_[0][:, None])
+    got = decision_kernel.decision_update(*args, route=route)
+    assert torch.equal(got, act0)
+    assert torch.equal(got, decision_kernel.decision_update_plain(*args))
+
+
+@pytest.mark.parametrize("d,b", [(2, 4), (3, 9), (5, 36), (3, 1)])
+def test_pack_records(device, d, b):
+    """Kernel D's record pack against its plain version, to the bit (the
+    centred coefficients one f32 subtraction each)."""
+    args = _update_args(device, 1_001, 64, d, "random", basis=_spot_basis(b))
+    idx_lo, w_hi, ci, a, b_ = args[3:]
+    before = decision_kernel.pack_records.launches
+    got = decision_kernel.pack_records(idx_lo, w_hi, ci, a, b_)
+    assert decision_kernel.pack_records.launches == before + 1
+    want = decision_kernel.pack_records_plain(idx_lo, w_hi, ci, a, b_)
+    assert got.shape == (1_001, decision_kernel.record_words(d, b))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_routes_at_1000_grid_points_keep_the_shared_bits(device):
+    """At G = 1,000 (D = 3, B = 9) the rule sends kernels B and E to their
+    large route, whose outputs are the shared route's bits."""
+    limit = _build.smem_limit(device)
+    assert decision_kernel.moments_route(1_000, 3, 9, limit).name == "large"
+    assert decision_kernel.fullstep_route(1_000, 3, 9, limit).name == "large"
+    args = _decision_args(device, 1_000, 1_037, 3, 3, basis=BASIS_9)
+    v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, _, a, b, \
+        mono = args
+    dm = decision_kernel._standardised_design(mono, spot, factors, mean, std)
+    fargs = (v, spot, factors, spot_prev, factors_prev, dm.T @ dm, dm.T @ (v.T * 0.9), mean, std,
+             idx_lo, w_hi, a, b, mono)
+    prev = dict(mean_prev=mean_p, std_prev=std_p)
+    for fn, fn_args, kw in ((decision_kernel.decision_update_moments, args, {}),
+                            (decision_kernel.decision_update_fullstep, fargs, prev)):
+        before = fn.large_launches
+        got = [t.clone() for t in fn(*fn_args, **kw)]
+        assert fn.large_launches == before + 1
+        shared = fn(*fn_args, route="shared", **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, shared))
+
+
+def test_route_occupancy_copies_match_kernel_info(device):
+    """The blocks per SM the route rule counts from shapes (the Python
+    copies of each kernel's sizes and register limits) are the launch
+    reports' on this card: B's two routes, D's kernel at basis sizes on both
+    sides of each step of its register cap and on the wide route."""
+    limit = _build.smem_limit(device)
+    for g in (32, 100, 112, 113, 400, 1_000):
+        assert decision_kernel.kernel_info("moments", g, 3, 9, device)["blocks_per_sm"] == \
+            decision_kernel.moments_blocks_per_sm(g, 3, 9, limit)
+    assert decision_kernel.kernel_info("moments", 32, 3, 9, device, large=True)[
+        "blocks_per_sm"] == decision_kernel.moments_blocks_per_sm(32, 3, 9, limit)
+    for b in (1, 4, 5, 8, 9, 16, 17, 20, 24, 28, 29, 32, 36):
+        for g in (100, 400, decision_kernel.TILE_D):
+            info = decision_kernel.kernel_info("update", g, 3, b, device)
+            assert info["blocks_per_sm"] == decision_kernel.update_blocks_per_sm(
+                g, 3, b, limit), (b, g)
+
+
 BASIS_17 = BASIS_9 + " + s**3 + s**4 + s*x0 + s*x1 + s*x2 + x0*x1 + x0*x2 + x1*x2"
 
 
 @pytest.mark.parametrize("b", [17, 20, 36])
 @pytest.mark.parametrize("kind", ["random", "monotone"])
 def test_decision_update_beyond_16_terms(device, b, kind):
-    """Kernel D at B = 17 and 20 (compiled per padded size) and 36 (the wide
+    """Kernel D at B = 17 and 20 (compiled per basis size) and 36 (the wide
     route, past the last compiled size, 32) against its plain version: the
     same bits."""
     basis = " + ".join(["1"] + [f"s**{k}" for k in range(1, b)])

@@ -186,28 +186,130 @@ def test_shared_routes_hold_the_documented_limits(name, max_grid, want):
 
 
 def test_routes_switch_at_the_limits():
-    """Up to each shared route's limit its launch is today's (the tile is the
-    whole grid); one grid point past it, the large route, whose tiles fit."""
+    """Kernels B, E and D take their shared route (the tile is the whole
+    grid) while its blocks per SM are at least the large route's, and the
+    large route one grid point past that; C's sweep up to its shared route's
+    limit in every mode.  A forced route still takes any shape it holds."""
     mk, up, sweep = (decision_kernel.moments_route, decision_kernel.update_route,
                      forward_kernel.sweep_route)
-    assert mk(1_553, 3, 9, H100_SMEM) == ("shared", 1_553)
-    assert mk(1_554, 3, 9, H100_SMEM) == ("large", decision_kernel.TILE_B)
-    assert up(2_905, 3, 4, H100_SMEM) == ("shared", 2_905)
-    assert up(2_906, 3, 4, H100_SMEM) == ("large", decision_kernel.TILE_D)
+    assert mk(112, 3, 9, H100_SMEM) == ("shared", 112)
+    assert mk(113, 3, 9, H100_SMEM) == ("large", decision_kernel.TILE_B)
+    assert up(569, 3, 4, H100_SMEM) == ("shared", 569)
+    assert up(570, 3, 4, H100_SMEM) == ("large", decision_kernel.TILE_D)
     assert sweep(3_090, 9, 3, 3, 0, H100_SMEM) == "shared"
     assert sweep(3_091, 9, 3, 3, 0, H100_SMEM) == "large"
+    assert sweep(2_781, 9, 3, 3, 0, H100_SMEM, general=True) == "shared"
+    assert sweep(2_782, 9, 3, 3, 0, H100_SMEM, general=True) == "large"
+    assert sweep(2_632, 9, 3, 9, 0, H100_SMEM, design=True, general=True) == "shared"
     assert sweep(1_000_000, 9, 3, 9, 0, H100_SMEM, design=True, general=True) == "large"
-    # Kernel E: shared while B's tables and its one-block solve both fit.
-    assert decision_kernel.fullstep_route(1_553, 3, 9, H100_SMEM).name == "shared"
-    assert decision_kernel.fullstep_route(1_554, 3, 9, H100_SMEM).name == "large"
+    # Kernel E: shared where kernel B's rule is and its one-block solve fits.
+    assert decision_kernel.fullstep_route(112, 3, 9, H100_SMEM).name == "shared"
+    assert decision_kernel.fullstep_route(113, 3, 9, H100_SMEM).name == "large"
     assert decision_kernel.solve_max_grid(9, H100_SMEM) == 3_213
-    # A forced route: the large one at any G, the shared one only where it fits.
+    # A forced route: the large one at any G, the shared one wherever it fits.
     assert mk(100, 3, 9, H100_SMEM, route="large") == ("large", decision_kernel.TILE_B)
     assert up(100, 3, 4, H100_SMEM, route="large") == ("large", 100)
+    assert mk(1_553, 3, 9, H100_SMEM, route="shared") == ("shared", 1_553)
+    assert up(2_905, 3, 4, H100_SMEM, route="shared") == ("shared", 2_905)
+    assert decision_kernel.fullstep_route(1_553, 3, 9, H100_SMEM, route="shared").name == "shared"
     with pytest.raises(ValueError, match="at most G=1553"):
         mk(4_096, 3, 9, H100_SMEM, route="shared")
+    with pytest.raises(ValueError, match="at most G=2905"):
+        up(2_906, 3, 4, H100_SMEM, route="shared")
+    with pytest.raises(ValueError, match="at most G=3090"):
+        sweep(3_091, 9, 3, 3, 0, H100_SMEM, route="shared")
     with pytest.raises(ValueError, match="route must be one of"):
         sweep(100, 9, 3, 3, 0, H100_SMEM, route="tiled")
+    with pytest.raises(ValueError, match="route must be one of"):
+        decision_kernel.fullstep_route(100, 3, 9, H100_SMEM, route="tiled")
+
+
+# An H100's SM (sm_90): 233,472 B of shared memory (a block's 232,448 and
+# the 1 KB reserved for each block), allocated to a block in 128-byte
+# units; 2,048 threads, 32 blocks.
+H100_SM_SMEM = 232_448 + 1_024
+
+
+# Kernel D's registers, capped by ``__launch_bounds__`` for these blocks per
+# SM by padded basis size (36: the wide route).
+D_REG_BLOCKS = {4: 5, 8: 4, 12: 4, 16: 4, 20: 3, 24: 3, 28: 3, 32: 2, 36: 4}
+
+
+@pytest.mark.parametrize("b,want", [(1, 5), (4, 5), (5, 4), (9, 4), (16, 4), (17, 3), (28, 3),
+                                    (29, 2), (32, 2), (33, 4), (100, 4)])
+def test_update_register_blocks_follow_the_launch_bounds(b, want):
+    assert decision_kernel.update_reg_blocks(b) == want
+
+
+def _blocks_per_sm(smem: int, threads: int, reg_blocks: int) -> int:
+    return min(H100_SM_SMEM // (128 * -(-smem // 128) + 1_024), 2_048 // threads, 32,
+               reg_blocks)
+
+
+@pytest.mark.parametrize("d", [3, 5])
+@pytest.mark.parametrize("b", [4, 9, 16])
+def test_routes_cross_where_the_blocks_per_sm_do(d, b):
+    """The route rule from shapes alone: B, E and D leave their shared route
+    at the first G whose blocks per SM fall below their large route's, as an
+    H100 counts them from each launch's shared memory in 128-byte units (B:
+    the static [8, 128] tile, the [B, 128] design tile and the records; D:
+    the records), its threads a block (128, 256) and the blocks its
+    registers allow (B's kMinBlocks = 9; D's ``__launch_bounds__`` minimum
+    by padded basis size).  The headline (G = 100, D = 3, B = 9) keeps B's
+    shared route, and G = 1,000 takes B's and E's large."""
+    bp = 4 * -(-b // 4)
+    record = 4 * (4 + (d - 1) * (4 + bp))
+
+    def b_blocks(g):
+        return _blocks_per_sm(4 * 8 * 128 + 4 * b * 128 + g * record, 128, 9)
+
+    def d_blocks(g):
+        return _blocks_per_sm(g * record, 256, D_REG_BLOCKS[bp])
+
+    cross_b = max(g for g in range(1, 4_000) if b_blocks(g) >= b_blocks(min(g, 32)))
+    cross_d = max(g for g in range(1, 4_000) if d_blocks(g) >= d_blocks(min(g, 256)))
+    assert 32 <= cross_b < 1_000 and cross_d < 1_000
+    for g, want in ((cross_b, "shared"), (cross_b + 1, "large"), (1_000, "large")):
+        assert decision_kernel.moments_route(g, d, b, H100_SMEM).name == want
+        assert decision_kernel.fullstep_route(g, d, b, H100_SMEM).name == want
+    assert decision_kernel.update_route(cross_d, d, b, H100_SMEM).name == "shared"
+    assert decision_kernel.update_route(cross_d + 1, d, b, H100_SMEM).name == "large"
+    for g in (cross_b, 32, 100, 1_000):
+        assert decision_kernel.moments_blocks_per_sm(g, d, b, H100_SMEM) == b_blocks(g)
+    for g in (cross_d, 100, 256):
+        assert decision_kernel.update_blocks_per_sm(g, d, b, H100_SMEM) == d_blocks(g)
+    if (d, b) == (3, 9):
+        assert decision_kernel.moments_route(100, d, b, H100_SMEM).name == "shared"
+        assert cross_b == 112
+
+
+def test_record_pack_follows_the_layout():
+    """The large route's records (``pack_records``, its plain version on the
+    CPU): per grid point {a, b, w_hi, idx_lo's bits} of decision 0, then for
+    each later decision its entry and ci[d] − ci[0], zero-padded to whole
+    float4s, as kernel D reads them."""
+    rng = np.random.default_rng(4)
+    for d, g, b in ((3, 7, 9), (2, 5, 4), (5, 3, 1), (3, 4, 36)):
+        idx_lo = rng.integers(0, g - 1, (g, d)).astype(np.int32)
+        w_hi, a, bb = rng.random((g, d)), rng.normal(size=(d, g)), rng.normal(size=(d, g))
+        ci = rng.normal(size=(d, g, b))
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+        got = decision_kernel.pack_records(torch.tensor(idx_lo), f32(w_hi), f32(ci), f32(a),
+                                           f32(bb)).numpy()
+        bp = 4 * -(-b // 4)
+        want = np.zeros((g, 4 + (d - 1) * (4 + bp)), dtype=np.float32)
+        for gi in range(g):
+            col = 0
+            for k in range(d):
+                want[gi, col:col + 4] = (a[k, gi], bb[k, gi], w_hi[gi, k],
+                                         idx_lo[gi, k:k + 1].view(np.float32)[0])
+                col += 4
+                if k:
+                    want[gi, col:col + b] = (ci[k, gi].astype(np.float32)
+                                             - ci[0, gi].astype(np.float32))
+                    col += bp
+            assert col == want.shape[1] == decision_kernel.record_words(d, b)
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 @pytest.mark.parametrize("d", [2, 3, 5])

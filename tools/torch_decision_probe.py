@@ -169,7 +169,7 @@ def main(argv) -> int:
             raise AssertionError(f"{name} parts from the unpatched kernel's bits")
         ms = chip_smoke.cuda_ms(call, args.repeats)
         info = (ctypes.c_int * 6)()
-        _build.check(lib.stt_decision_update_moments_info(g, d, b_dim, info), name)
+        _build.check(lib.stt_decision_update_moments_info(g, d, b_dim, 0, info), name)
         # The shared route's kernel at this basis size (every instantiation
         # shares the name; the b16 variant runs the 16-term one).
         size = 16 if name == "Bnew_b16" else bp

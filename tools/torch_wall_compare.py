@@ -10,13 +10,17 @@ steps x 100 grid points, seeds 11/13, ``snap_interp=True``), then ``--runs``
 timed valuations (host clock, each ended by ``torch.cuda.synchronize()``)
 and one phase breakdown (``chip_smoke.phase_breakdown``).  The checkouts
 run in the order given, then in reverse, ``--rounds`` times (A, B, B, A for
-two checkouts and two rounds).  It prints each turn, then each checkout's
+two checkouts and two rounds).  ``--grid G`` values the headline at G
+inventory grid points instead of 100 (each checkout's own route rule
+picks its kernels' routes).  It prints each turn, then each checkout's
 median wall over all its turns, its NPV and SE (equal bits expected across
 checkouts that keep the main path's arithmetic) and the card's name and
-power limit; the report goes to ``build/wall_compare/wall_compare.json``.
+power limit; the report goes to
+``build/wall_compare/wall_compare_g<G>.json``.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
     python3 tools/torch_wall_compare.py --repo build/parent --repo .
+    python3 tools/torch_wall_compare.py --grid 1000 --runs 3 --repo build/parent --repo .
 """
 from __future__ import annotations
 
@@ -31,13 +35,15 @@ from pathlib import Path
 OUT = Path(__file__).resolve().parents[1] / "build" / "wall_compare"
 
 
-def child(repo: Path, runs: int) -> dict:
+def child(repo: Path, runs: int, grid: int) -> dict:
     sys.path.insert(0, str(repo))
     import torch
 
     import chip_smoke
     import storage_tpu_torch as stt
     from storage_tpu_torch.ops import _build
+
+    chip_smoke.NUM_GRID = grid  # read by chip_smoke.value at each call
 
     device = torch.device("cuda", 0)
     _build.library()
@@ -59,10 +65,11 @@ def main(argv) -> int:
     ap.add_argument("--repo", action="append", default=[], help="a checkout (repeat)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--grid", type=int, default=100, help="inventory grid points")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv[1:])
     if args.child:
-        print(json.dumps(child(Path(args.child).resolve(), args.runs)))
+        print(json.dumps(child(Path(args.child).resolve(), args.runs, args.grid)))
         return 0
     import torch
 
@@ -79,8 +86,8 @@ def main(argv) -> int:
         order += repos if k % 2 == 0 else repos[::-1]
     turns = []
     for repo in order:
-        out = subprocess.run([sys.executable, __file__, "--child", repo, "--runs", str(args.runs)],
-                             capture_output=True, text=True, cwd=repo)
+        out = subprocess.run([sys.executable, __file__, "--child", repo, "--runs", str(args.runs),
+                              "--grid", str(args.grid)], capture_output=True, text=True, cwd=repo)
         if out.returncode != 0:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
             return 1
@@ -98,8 +105,8 @@ def main(argv) -> int:
         print(f"{repo}: median {summary[repo]['median_s']:.4f} s of {len(walls)} runs, NPV "
               f"{mine[0]['npv']!r} SE {mine[0]['se']!r} [{card}]")
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "wall_compare.json").write_text(json.dumps(dict(card=card, turns=turns,
-                                                           summary=summary), indent=1))
+    (OUT / f"wall_compare_g{args.grid}.json").write_text(
+        json.dumps(dict(card=card, grid=args.grid, turns=turns, summary=summary), indent=1))
     print(card)
     return 0
 
