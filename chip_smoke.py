@@ -117,10 +117,10 @@
    16,384 paths within 0.1 SE of their f64 answers on the same draws.
 6c. The DP grids phase ("dp_grids phase: N s", right after the grids
    phase): the intrinsic DP and the tree past their shared routes.  The
-   Python route sizing of each DP equals its launch report at 14 shapes
-   (and an H100's limits: 29,034 / 14,506 intrinsic linear, 14,517 / 7,253
-   general, 11,613 / 5,802 cubic; the tree's step block 58,112 / 29,056,
-   19,371 / 9,686 cubic); each DP forced onto its large route gives its own
+   Python route sizing of each DP equals its launch report at 14 shapes,
+   the intrinsic DP's large grid at 6 (and an H100's limits: 29,034 /
+   14,506 intrinsic linear, 14,517 / 7,253 general, 11,613 / 5,802 cubic;
+   the tree's step block 58,112 / 29,056, 19,371 / 9,686 cubic); each DP forced onto its large route gives its own
    route's bits (the intrinsic DP on the headline's tables in three modes,
    f32 and f64; the tree at T3 and T5); past the limits each large route
    holds to its plain version (``compare_intrinsic``, ``compare_tree``: the
@@ -128,8 +128,11 @@
    rows of a fixed 0.5-unit step in f64 and cubic at G=6,144 in f64; the
    tree at G=65,536 on T1's lattice in f32 and f64 and cubic at G=10,240 in
    f64 on a random 8-row lattice) and is timed beside its plain version,
-   bound and launch report (the kernels line's ``intrinsic_dp_large`` and
-   ``tree_dp_large``).  Then, counters reset before each,
+   bound (the tree's twice: a whole decide a cell, and the table form),
+   chain floor (grid links, launch links) and launch report (the kernels
+   line's ``intrinsic_dp_large``, its cooperative grid's blocks held to
+   ``intrinsic_kernel.large_grid_blocks``, and ``tree_dp_large``).  Then,
+   counters reset before each,
    ``intrinsic_value`` at G=32,768 (f32) and on the 10,001 rows (f64),
    ``trinomial_value`` at G=65,536 on T1 and ``three_factor_seasonal_value``
    at G=32,768 on 16,384 paths, each with its wall, the DP kernel's own
@@ -398,6 +401,9 @@ EXP_F32_OPS = 8
 # (~12).
 DP_OPS_PER_DECISION = 31
 DP_OPS_PER_INVENTORY = 22
+# A decision from its table entry (dp_common.cuh entry_total): the PV at the
+# price (7), the lerp on the next row (3), the total (1) and the argmax (2).
+DP_OPS_PER_ENTRY = 13
 
 
 def log(*args):
@@ -4006,6 +4012,18 @@ def tree_work(n: int, m: int, g: int, w: int, r: int, d: int, itemsize: int) -> 
     return num_bytes, ops
 
 
+def tree_table_work(n: int, m: int, g: int, w: int, r: int, d: int, itemsize: int) -> tuple:
+    """(bytes, unfused operations) of one tree DP in the table form, the
+    work any design must do: ``tree_work``'s bytes; one table column a step
+    and grid point (``intrinsic_work``'s count a grid point), then each of
+    the N·M·G cells sums its band once (2·W) and values D decisions from
+    their table entries (``DP_OPS_PER_ENTRY``)."""
+    num_bytes = tree_work(n, m, g, w, r, d, itemsize)[0]
+    ops = (float(n * g) * (DP_OPS_PER_INVENTORY + r + d * DP_OPS_PER_DECISION)
+           + float(n * m * g) * (2 * w + d * DP_OPS_PER_ENTRY))
+    return num_bytes, ops
+
+
 def kernel_busy_ms(fn, name: str) -> tuple:
     """(device ms, launches) of the kernels whose name holds ``name`` in one
     call of ``fn`` under torch.profiler: the kernels' own time, without the
@@ -4900,15 +4918,29 @@ def check_dp_routes(device) -> dict:
                      intrinsic_kernel.max_grid(r, e, mode, itemsize, limit),
                      intrinsic_kernel.intrinsic_info(dt, device, 100, r, e, mode)["max_grid"],
                      None))
+    # The large route's cooperative grid, from the card's SMs and the launch
+    # report's blocks per SM, against the grid the launch report sizes.
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for dt, label, g, mode in ((torch.float32, "f32", DP_GRID, "linear"),
+                               (torch.float64, "f64", DP_GRID, "linear"),
+                               (torch.float64, "f64", 10_001, "general"),
+                               (torch.float64, "f64", DP_CUBIC_GRID, "cubic"),
+                               (torch.float32, "f32", NUM_GRID, "linear"),
+                               (torch.float64, "f64", NUM_GRID, "cubic")):
+        info = intrinsic_kernel.intrinsic_info(dt, device, g, 3, 0, mode)
+        rows.append((f"intrinsic large grid {label} {mode} G={g}",
+                     intrinsic_kernel.large_grid_blocks(g, mode, sms, info["large_blocks_per_sm"]),
+                     info["large_grid_blocks"], None))
     bad = [row for row in rows if row[1] != row[2]
            or (limit == H100_SMEM and row[3] is not None and row[1] != row[3])]
-    log(f"DP routes: the shared routes' largest G from the Python sizing equal the kernels' "
-        f"launch reports at {len(rows) - len(bad)} of {len(rows)} shapes (smem limit {limit} B): "
+    log(f"DP routes: the shared routes' largest G and the intrinsic large route's grid "
+        f"blocks from the Python sizing equal the kernels' launch reports at "
+        f"{len(rows) - len(bad)} of {len(rows)} shapes (smem limit {limit} B, {sms} SMs): "
         + "; ".join(f"{name}: {mine}" for name, mine, _, _ in rows))
     if bad:
         raise AssertionError(f"DP route sizing disagrees with the launch reports or the H100's "
                              f"limits: {bad}")
-    return dict(smem_limit=limit, shapes={name: mine for name, mine, _, _ in rows})
+    return dict(smem_limit=limit, sms=sms, shapes={name: mine for name, mine, _, _ in rows})
 
 
 def forced_dp_bits(pkg, device) -> dict:
@@ -5043,27 +5075,34 @@ def check_large_dps(pkg, device) -> tuple:
             row["launch"] = {label: intrinsic_kernel.intrinsic_info(dt, device, width, r, 0,
                                                                     "linear")
                              for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
-            row["chain_step_ns"] = tree_kernel.chain_step_ns("block", device)
-            row["chain_floor_ms"] = (2 * n - 1) * row["chain_step_ns"] / 1e6
-            # The link of a grid that spans the card: what a design spreading
-            # each step's grid points over every SM would pay a step.
-            row["grid_link_ns"] = tree_kernel.chain_step_ns("grid", device)
+            f32r, f64r = row["launch"]["f32"], row["launch"]["f64"]
+            if not (f32r["large_cooperative"] and f32r["large_grid_blocks"] > 1
+                    and f64r["large_grid_blocks"] > 1):
+                raise AssertionError(f"the intrinsic DP's large route does not spread a step "
+                                     f"over blocks at G={width}: {row['launch']}")
+            # The chain floor: N - 1 grid links (a grid sync over the launch's
+            # blocks and a read of another block's word) and the walk's N
+            # links (a block barrier and a read each).
+            row["block_link_ns"] = tree_kernel.chain_step_ns("block", device)
+            row["grid_link_ns"] = tree_kernel.chain_step_ns(
+                "grid", device, f32r["large_threads"], f32r["large_grid_blocks"])
+            row["chain_step_ns"] = row["grid_link_ns"]
+            row["chain_floor_ms"] = ((n - 1) * row["grid_link_ns"] + n * row["block_link_ns"]) / 1e6
             rows["intrinsic_dp_large"] = row
-            f32r = row["launch"]["f32"]
             log(f"intrinsic DP large route at N={n}, G={width}: {row['ms_f32']:.4f} ms f32, "
                 f"{row['ms_f64']:.4f} ms f64 a launch (CUDA events around intrinsic_dp), "
                 f"{row['core_ms_f32']:.4f} / {row['core_ms_f64']:.4f} ms through intrinsic_core; "
-                f"plain "
-                f"{row['plain_ms']:.1f} ms (f32); bound {row['bound_ms']:.6f} ms "
-                f"({row['bound_by']}); chain floor {row['chain_floor_ms']:.4f} ms ({2 * n - 1} x "
-                f"{row['chain_step_ns']:.1f} ns; a grid-wide link {row['grid_link_ns']:.1f} ns); "
-                f"one block of {f32r['large_threads']} threads, "
-                f"{f32r['large_registers']} registers f32 / "
-                f"{row['launch']['f64']['large_registers']} f64, "
-                f"{f32r['large_local_bytes']} / {row['launch']['f64']['large_local_bytes']} "
-                f"bytes local (spills), {f32r['large_smem_bytes']} bytes shared f32, "
-                f"{f32r['large_blocks_per_sm']} blocks/SM, {f32r['large_chunk']} steps staged a "
-                f"chunk")
+                f"plain {row['plain_ms']:.1f} ms (f32); bound {row['bound_ms']:.6f} ms "
+                f"({row['bound_by']}); chain floor {row['chain_floor_ms']:.4f} ms ({n - 1} x "
+                f"{row['grid_link_ns']:.1f} ns grid links + {n} x {row['block_link_ns']:.1f} ns); "
+                f"a cooperative launch of {f32r['large_grid_blocks']} / "
+                f"{f64r['large_grid_blocks']} blocks (f32 / f64) of {f32r['large_threads']} "
+                f"threads, {f32r['large_blocks_per_sm']} / {f64r['large_blocks_per_sm']} "
+                f"blocks/SM, "
+                f"{f32r['large_registers']} / {f64r['large_registers']} registers, "
+                f"{f32r['large_local_bytes']} / {f64r['large_local_bytes']} bytes local (spills), "
+                f"{f32r['large_smem_bytes']} bytes shared f32, {f32r['large_chunk']} steps "
+                f"staged a chunk of the walk")
         del arrays
         torch.cuda.empty_cache()
     t1 = csharp_tree_case(pkg)
@@ -5106,22 +5145,40 @@ def check_large_dps(pkg, device) -> tuple:
                                                             False), 1)
             num_bytes, ops = tree_work(n, m, g, w, r, 3, 4)
             row.update(bound(num_bytes, 0.0, ops))
+            # The bound again in the table form: the work any design must do.
+            table_bytes, table_ops = tree_table_work(n, m, g, w, r, 3, 4)
+            row["table_form"] = bound(table_bytes, 0.0, table_ops)
+            row["table_bound_ms"] = row["table_form"]["bound_ms"]
             row["launch"] = {label: tree_kernel.kernel_info(g, dt, "linear", device, m, w)
                              for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
+            row["table_steps"] = tree_kernel.large_table_steps(n, g, 0, 4)
+            row["table_bytes"] = {label: tree_kernel.large_table_steps(n, g, 0, dt.itemsize)
+                                  * intrinsic_kernel.table_len(g, 0) * dt.itemsize
+                                  for dt, label in ((torch.float32, "f32"), (torch.float64, "f64"))}
+            row["launches_per_valuation"] = tree_kernel.large_launches(n, g, 0, "linear", 4)
+            # The chain floor: one link a launch, a launch of the decide's
+            # blocks reading what the launch before wrote.
+            decide_blocks = -(-g // 256) * -(-m // tree_kernel.LARGE_DECIDE_ROWS)
+            row["launch_link_ns"] = tree_kernel.chain_step_ns("launch", device, 256,
+                                                              min(decide_blocks, 4096))
+            row["chain_floor_ms"] = row["launches_per_valuation"] * row["launch_link_ns"] / 1e6
             rows["tree_dp_large"] = row
-            f32r = row["launch"]["f32"]
+            f32r, f64r = row["launch"]["f32"], row["launch"]["f64"]
             log(f"tree DP large route at N={n}, M={m}, G={g}: {row['ms_f32']:.4f} ms f32, "
                 f"{row['ms_f64']:.4f} ms f64 a valuation's {n} steps (CUDA events around "
                 f"tree_dp), {row['core_ms_f32']:.4f} / {row['core_ms_f64']:.4f} ms through "
-                f"tree_core; plain "
-                f"{row['plain_ms']:.1f} ms (f32); bound {row['bound_ms']:.6f} ms "
-                f"({row['bound_by']}); blocks of {f32r['large_threads']} threads, "
-                f"{f32r['large_registers']} registers (decide) and {f32r['large_ev_registers']} "
-                f"(ev) f32 / {row['launch']['f64']['large_registers']} and "
-                f"{row['launch']['f64']['large_ev_registers']} f64, "
-                f"{f32r['large_local_bytes']} bytes local (spills), "
-                f"{f32r['large_blocks_per_sm']} decide blocks/SM, "
-                f"{f32r['large_launches_per_step']} launches a step")
+                f"tree_core; plain {row['plain_ms']:.1f} ms (f32); bound {row['bound_ms']:.6f} "
+                f"ms ({row['bound_by']}; a whole decide a cell), {row['table_bound_ms']:.6f} ms "
+                f"({row['table_form']['bound_by']}; the table form); chain floor "
+                f"{row['chain_floor_ms']:.4f} ms ({row['launches_per_valuation']} launches x "
+                f"{row['launch_link_ns']:.1f} ns); step tables {row['table_steps']} steps a fill "
+                f"launch, {row['table_bytes']['f32']} / {row['table_bytes']['f64']} bytes f32 / "
+                f"f64; blocks of {f32r['large_threads']} threads, {decide_blocks} decide blocks a "
+                f"step ({f32r['large_blocks_per_sm']} / {f64r['large_blocks_per_sm']} a SM), "
+                f"{f32r['large_registers']} / {f64r['large_registers']} registers (decide), "
+                f"{f32r['large_table_registers']} / {f64r['large_table_registers']} (table), "
+                f"{f32r['large_local_bytes']} / {f64r['large_local_bytes']} bytes local (spills), "
+                f"{f32r['large_launches_per_step']} launches a step, not cooperative")
         del tables, arrays, lattice
         torch.cuda.empty_cache()
     return rows, checks
@@ -5161,7 +5218,8 @@ def dp_api_runs(pkg, device, counts) -> dict:
             dtype=torch.float64, device=device).npv, dict(intrinsic_dp=1, intrinsic_dp_large=1)),
         "trinomial_value_f32_65536": (lambda: tree_value(pkg, dict(t1, g=DP_TREE_GRID), device,
                                                          torch.float32),
-                                      dict(tree_dp_large=2 * tree_steps(t1))),
+                                      dict(tree_dp_large=tree_kernel.large_launches(
+                                          tree_steps(t1), DP_TREE_GRID, 0, "linear", 4))),
         "three_factor_f32_32768": (lambda: pkg.three_factor_seasonal_value(
             storage, start, 100.0, fwd, 0.02, None, 14.5, 1.1, 0.19, 0.23, DP_SIMS, BASIS, False,
             seed=11, fwd_sim_seed=13, num_inventory_grid_points=DP_GRID, dtype=torch.float32,
@@ -6125,8 +6183,10 @@ def main(argv) -> int:
              "pack_records": ("b9_ms",),
              "decision_update_fullstep_large": ("tile", "band_rows_ms", "blocks_per_sm"),
              "intrinsic_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64",
-                                    "chain_floor_ms", "grid_link_ns", "launch"),
-             "tree_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64", "launch"),
+                                    "chain_floor_ms", "grid_link_ns", "block_link_ns", "launch"),
+             "tree_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64", "table_bound_ms",
+                               "chain_floor_ms", "launch_link_ns", "table_steps", "table_bytes",
+                               "launch"),
              **{name: ("steps", "smem_bytes", "blocks_per_sm", "registers") for name in (
                  "forward_sweep_large", "forward_sweep_design_large",
                  "forward_sweep_general_large")}}

@@ -4,11 +4,12 @@
 // the iteration before, writes its own for the next, and ends with one
 // barrier: __syncthreads, or the cluster barrier (release/acquire).  Two
 // buffers alternate, as the DP kernels' value rows do, so one barrier a step
-// suffices.  Grid mode hands a step counter between two CTAs through device
-// memory, as a persistent grid over the whole card would between
-// neighbours: wait for the other CTA's count (acquire at GPU scope), a block
-// barrier, a fence, a block barrier, then publish the next count (release).
-// The intrinsic DP pays one block link a step, the tree's cluster route one
+// suffices.  Grid mode is a cooperative launch of `size` blocks, each link a
+// read of the next block's word in device memory and cg's grid sync, the
+// intrinsic DP's large route's link at its grid.  Launch mode is a launch a
+// link, each of `size` blocks reading the word the launch before wrote: the
+// tree's large route's link between its step launches.  The intrinsic DP's
+// shared route pays one block link a step, the tree's cluster route one
 // cluster link; ops/tree_kernel.py chain_step_ns times them.  No TPU kernel
 // stands behind them and no path launches them.
 #include <cooperative_groups.h>
@@ -19,8 +20,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxGridBlocks = 4096;
 
-__device__ int grid_counter;
+__device__ float grid_words[2][kMaxGridBlocks];
 
 template <bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads) chain_kernel(int iters, float* sink) {
@@ -49,33 +51,35 @@ __global__ void __launch_bounds__(kMaxThreads) chain_kernel(int iters, float* si
   if (x < 0.0f) *sink = x;  // never: keeps the chain
 }
 
-__global__ void __launch_bounds__(kMaxThreads) grid_chain_kernel(int iters) {
-  for (int i = blockIdx.x; i < iters; i += 2) {
+__global__ void __launch_bounds__(kMaxThreads) grid_chain_kernel(int iters, float* sink) {
+  cg::grid_group grid = cg::this_grid();
+  const unsigned nb = gridDim.x, next = (blockIdx.x + 1) % nb;
+  float x = 0.0f;
+  for (int i = 0; i < iters; ++i) {
     if (threadIdx.x == 0) {
-      int seen;
-      do {
-        asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-                     : "=r"(seen) : "l"(&grid_counter) : "memory");
-      } while (seen < i);
+      x = grid_words[i & 1][next];
+      grid_words[(i + 1) & 1][blockIdx.x] = x + 1.0f;
     }
-    __syncthreads();
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0)
-      asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(&grid_counter), "r"(i + 1)
-                   : "memory");
+    grid.sync();
   }
+  if (x < 0.0f) *sink = x;  // never: keeps the chain
+}
+
+__global__ void __launch_bounds__(kMaxThreads) launch_chain_kernel(int i) {
+  if (threadIdx.x == 0)
+    grid_words[(i + 1) & 1][blockIdx.x] = grid_words[i & 1][(blockIdx.x + 1) % gridDim.x] + 1.0f;
 }
 
 }  // namespace
 
-// One launch of `iters` links on `stream`: kind 0, one block of `threads`
-// threads; kind 1, one cluster of `size` CTAs of `threads` threads; kind 2,
-// two CTAs of `threads` threads (a cooperative launch) handing a counter
-// back and forth.
+// `iters` links on `stream`: kind 0, one launch of one block of `threads`
+// threads; kind 1, one launch of one cluster of `size` CTAs of `threads`
+// threads; kind 2, one cooperative launch of `size` blocks of `threads`
+// threads (at most kMaxGridBlocks, all co-resident), a grid sync a link;
+// kind 3, `iters` launches of `size` blocks of `threads` threads.
 extern "C" int stt_chain_steps(int kind, int size, int threads, int iters, void* stream) {
-  if (threads < 32 || threads > kMaxThreads || iters < 0 || kind < 0 || kind > 2 ||
-      (kind == 1 && size < 1))
+  if (threads < 32 || threads > kMaxThreads || iters < 0 || kind < 0 || kind > 3 ||
+      (kind >= 1 && (size < 1 || (kind != 1 && size > kMaxGridBlocks))))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == 0) {
@@ -84,14 +88,18 @@ extern "C" int stt_chain_steps(int kind, int size, int threads, int iters, void*
   }
   cudaError_t err;
   if (kind == 2) {
-    void* counter = nullptr;
-    err = cudaGetSymbolAddress(&counter, grid_counter);
-    if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, sizeof(int), s);
-    void* args[] = {&iters};
-    if (err == cudaSuccess)
-      err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(grid_chain_kernel),
-                                        dim3(2), dim3(threads), args, 0, s);
+    float* sink = nullptr;
+    void* args[] = {&iters, &sink};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(grid_chain_kernel),
+                                      dim3(size), dim3(threads), args, 0, s);
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  }
+  if (kind == 3) {
+    for (int i = 0; i < iters; ++i) {
+      launch_chain_kernel<<<size, threads, 0, s>>>(i);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
   }
   err = cudaFuncSetAttribute(chain_kernel<true>, cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);

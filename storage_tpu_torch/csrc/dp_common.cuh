@@ -355,6 +355,40 @@ __device__ __forceinline__ T cubic_factor(const T* grid_next, int G, bool* degen
   return dvd(mul(h, h), T(6));
 }
 
+// Decision k's immediate PV from its grid point's table column against the
+// price (candidate()'s pv, bit for bit).
+template <typename T>
+__device__ __forceinline__ T entry_pv(const T* col, int stride, int k, const T* s, T price) {
+  const T* e = col + static_cast<size_t>(1 + NUM_ENTRY_FIELDS * k) * stride;
+  const T iw = mul(mul(-e[E_DEC * stride], price), s[S_DF_SETTLE]);
+  const T fuel = mul(mul(-e[E_FUEL * stride], price), s[S_DF_SETTLE]);
+  return sub(add(sub(iw, e[E_COST * stride]), fuel), col[0]);
+}
+
+// Decision k's continuation node (lower index) and weight on the next row.
+template <typename T>
+__device__ __forceinline__ void entry_node(const T* col, int stride, int k, int* idx, T* w) {
+  const T* e = col + static_cast<size_t>(1 + NUM_ENTRY_FIELDS * k) * stride;
+  *idx = static_cast<int>(e[E_IDX * stride]);
+  *w = e[E_W * stride];
+}
+
+// The continuation at weight w between the next row's values v_lo, v_hi at
+// a decision's two nodes (and, cubic, their moments m_lo, m_hi):
+// continuation()'s arithmetic on them.
+template <typename T>
+__device__ __forceinline__ T node_continuation(int mode, T w, T v_lo, T v_hi, T m_lo, T m_hi,
+                                               T curvature, bool degenerate) {
+  if (mode == MODE_GENERAL) return add(mul(v_lo, sub(T(1), w)), mul(v_hi, w));
+  if (mode == MODE_UNIFORM) return add(v_lo, mul(sub(v_hi, v_lo), w));
+  const T u = sub(T(1), w);
+  const T linear = add(mul(v_lo, u), mul(v_hi, w));
+  if (degenerate) return linear;
+  const T cu = sub(mul(mul(u, u), u), u);
+  const T cw = sub(mul(mul(w, w), w), w);
+  return add(linear, mul(curvature, add(mul(cu, m_lo), mul(cw, m_hi))));
+}
+
 // Decision k's total from its grid point's table column against the price
 // on the continuation values v (and cubic moments m) of the next row:
 // decide()'s candidate total, bit for bit.
@@ -362,29 +396,13 @@ template <typename T>
 __device__ __forceinline__ T entry_total(const T* col, int stride, int k, const T* s, int mode,
                                          T price, const T* v, const T* m, T curvature,
                                          bool degenerate) {
-  const T* e = col + static_cast<size_t>(1 + NUM_ENTRY_FIELDS * k) * stride;
-  const T iw = mul(mul(-e[E_DEC * stride], price), s[S_DF_SETTLE]);
-  const T fuel = mul(mul(-e[E_FUEL * stride], price), s[S_DF_SETTLE]);
-  const T pv = sub(add(sub(iw, e[E_COST * stride]), fuel), col[0]);
-  const int idx = static_cast<int>(e[E_IDX * stride]);
-  const T w = e[E_W * stride];
-  T cont;
-  if (mode == MODE_GENERAL) {
-    cont = add(mul(v[idx], sub(T(1), w)), mul(v[idx + 1], w));
-  } else if (mode == MODE_UNIFORM) {
-    cont = add(v[idx], mul(sub(v[idx + 1], v[idx]), w));
-  } else {
-    const T u = sub(T(1), w);
-    const T linear = add(mul(v[idx], u), mul(v[idx + 1], w));
-    if (degenerate) {
-      cont = linear;
-    } else {
-      const T cu = sub(mul(mul(u, u), u), u);
-      const T cw = sub(mul(mul(w, w), w), w);
-      cont = add(linear, mul(curvature, add(mul(cu, m[idx]), mul(cw, m[idx + 1]))));
-    }
-  }
-  return add(pv, cont);
+  int idx;
+  T w;
+  entry_node(col, stride, k, &idx, &w);
+  const bool moments = mode == MODE_CUBIC && !degenerate;
+  return add(entry_pv(col, stride, k, s, price),
+             node_continuation(mode, w, v[idx], v[idx + 1], moments ? m[idx] : T(0),
+                               moments ? m[idx + 1] : T(0), curvature, degenerate));
 }
 
 // One element (4 or 8 bytes) from device to shared memory by cp.async, in
@@ -409,26 +427,43 @@ __device__ __forceinline__ void stage_copy(T* dst, const T* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async(dst + i, src + i);
 }
 
+// The natural-cubic spline's spacing h on a uniform row (0 where degenerate).
+template <typename T>
+__device__ __forceinline__ T spline_h(const T* grid, int G) {
+  return dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
+}
+
+// An entry of the moments' right-hand side from a row's values v0, v1, v2 at
+// three neighbouring grid points, at spacing h.
+template <typename T>
+__device__ __forceinline__ T moments_rhs(T v0, T v1, T v2, T h) {
+  const T safe_h = h > T(0) ? h : T(1);
+  return dvd(mul(T(6), add(sub(v2, mul(T(2), v1)), v0)), mul(safe_h, safe_h));
+}
+
+// Interior moment i + 1 (i < n = G-2): row i of the dense inverse times the
+// rhs, summed in ascending j; 0 on a degenerate row.
+template <typename T>
+__device__ __forceinline__ T moment_at(const T* solver, const T* rhs, int i, int n, T h) {
+  T acc = T(0);
+  if (h > T(0)) {
+    const T* row = solver + static_cast<size_t>(i) * n;
+    for (int j = 0; j < n; ++j) acc = add(acc, mul(row[j], rhs[j]));
+  }
+  return acc;
+}
+
 // Natural-cubic moments m [G] of the row v [G] on a uniform grid: rhs [G-2]
 // into scratch, then the matvec with the dense inverse, rows strided over the
 // block, summed in ascending j.  Ends with a barrier.
 template <typename T>
 __device__ void block_moments(const T* grid, const T* v, const T* solver, T* rhs, T* m, int G) {
   const int n = G - 2;
-  const T h = dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
-  const T safe_h = h > T(0) ? h : T(1);
-  const T hh = mul(safe_h, safe_h);
+  const T h = spline_h(grid, G);
   for (int i = threadIdx.x; i < n; i += blockDim.x)
-    rhs[i] = dvd(mul(T(6), add(sub(v[i + 2], mul(T(2), v[i + 1])), v[i])), hh);
+    rhs[i] = moments_rhs(v[i], v[i + 1], v[i + 2], h);
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    T acc = T(0);
-    if (h > T(0)) {
-      const T* row = solver + static_cast<size_t>(i) * n;
-      for (int j = 0; j < n; ++j) acc = add(acc, mul(row[j], rhs[j]));
-    }
-    m[i + 1] = acc;
-  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) m[i + 1] = moment_at(solver, rhs, i, n, h);
   if (threadIdx.x == 0) {
     m[0] = T(0);
     m[G - 1] = T(0);

@@ -1,5 +1,6 @@
 // The intrinsic DP (the deterministic storage valuation on the forward curve)
-// as one launch of one block.
+// as one launch: of one block (the shared route), or of a cooperative grid
+// over the card (the large route).
 //
 // No TPU kernel stands behind it: it replaces the lax.scan pair of
 // storage_tpu/engines/intrinsic.py:_intrinsic_core (backward over t = N-1..1,
@@ -40,32 +41,48 @@
 // in each mode (max_grid).
 //
 // The large route (intrinsic_dp_large_kernel), for a G beyond max_grid, or
-// whose decision tables' scratch would pass the wrapper's cap: the same one
-// block and the same chain, with no row in shared memory and no table.
-//   - backward: each grid point of step t is a whole decide() against the
-//     forward, as the tree's step kernels do (decide() and the table's
-//     entry_total give the same bits, tree_kernel.cu), v_{t+1} read from vs
-//     in device memory through L1 and L2, v_t written there; in cubic mode
-//     the moments go to moments [N+1, G] and block_moments' rhs to a [G-2]
-//     device scratch.
-//   - forward: as above, but the chunks stage only the steps' scalars and
-//     ratchets: the walk reads a few entries of the vs, moments and grid
-//     rows a step, from device memory.
-// Its bound is the same chain, with (N-1)·G decide()s spread over 1,024
-// threads of one SM: at G in the tens of thousands the work, not the
-// chain, bounds it.
+// whose decision tables' scratch would pass the wrapper's cap: no row in
+// shared memory and no table, and each backward step spread over the whole
+// card, since a step's G decide()s are independent and a decide() is a
+// chain of ~1 us on one thread.
+//   - backward: one cooperative launch of blocks of 256 threads, one grid
+//     point a thread up to every block the card holds at once
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor; in cubic mode always
+//     that many: large_grid_blocks); each grid point of step t a whole
+//     decide() against the forward (decide() and the table's entry_total
+//     give the same bits), v_{t+1} read from vs in device memory and v_t
+//     written there; a grid barrier (cg's grid sync) ends the step.  In
+//     cubic mode block_moments' two halves follow, each across the card and
+//     ended by a grid barrier: the rhs [G-2] into a device scratch, then the
+//     moments [N+1, G], each summed by one thread in ascending j (its
+//     bits), the rows spread over every block.  (One launch a step in place
+//     of the barriers, or the step tables filled first as on the shared
+//     route, ran slower.)
+//   - forward: after the last barrier block 0 walks as above, but the chunks
+//     stage only the steps' scalars and ratchets: the walk reads a few
+//     entries of the vs, moments and grid rows a step, from device memory.
+// Memory model: a row written on one SM is read on others only after a
+// grid barrier, which fences at GPU scope on both sides; every such read is
+// a plain (coherent) load, never ld.global.nc (no pointer here is
+// __restrict__, nothing goes through __ldg).  Its bound is the chain: N-1
+// grid barriers (three a step in cubic mode, whose moments also read the
+// [G-2, G-2] inverse every step) and the N steps of the walk.
 #include <algorithm>
+#include <cooperative_groups.h>
 #include <initializer_list>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "dp_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 using namespace stt_dp;
 
 constexpr int kThreads = 1024;
+constexpr int kGridThreads = 256;  // the large route's blocks
 constexpr int kScalarSlots = 12;  // NUM_STEP_SCALARS, padded
 constexpr int kMaxChunk = 32;     // forward steps staged a chunk
 constexpr size_t kForwardBudget = 48 * 1024;  // bytes the forward may stage, at least
@@ -322,15 +339,15 @@ __global__ void __launch_bounds__(kThreads, 1) intrinsic_dp_kernel(Problem<T> p,
   forward_walk<kMode, false>(p, l, base);
 }
 
-// ---- the large route: no row in shared memory.
+// ---- the large route: each backward step spread over the card.
 
-// The large route's plan: the block, and the forward walk's two chunks of K
-// steps' scalars and ratchets in shared memory (at least one step, at most
-// kMaxChunk, within kForwardBudget where one step fits it).
+// The large route's plan: blocks of kGridThreads, and block 0's forward walk
+// in two chunks of K steps' scalars and ratchets in shared memory (at least
+// one step, at most kMaxChunk, within kForwardBudget where one step fits it).
 template <typename T>
 Plan large_plan(int N, int R, int E) {
   Plan p = {};
-  p.threads = kThreads;
+  p.threads = kGridThreads;
   p.walk_lanes = pow2_at_least(2 * E + 3);
   p.tab = kScalarSlots + 3 * R;
   p.tab += p.tab & 1;
@@ -344,49 +361,92 @@ Plan large_plan(int N, int R, int E) {
   return p;
 }
 
-// The backward over t = N-1 .. 1 on rows in device memory: each grid point
-// of step t decided whole against the forward, v_{t+1} read from vs and v_t
-// written to it (in cubic mode the moments to moments, block_moments' rhs to
-// the [G-2] scratch rhs).  Every row is written by some threads of this one
-// block and read by others only after a __syncthreads(), which makes the
-// block's device-memory stores before it visible to its loads after it: the
-// loads are plain ones through L1 (no pointer here is __restrict__, so none
-// is a non-coherent ld.global.nc), and L1 is the one SM's own.
+// Step t's values: each grid point decided whole against the forward (as the
+// tree's step kernels do: decide() and the table's entry_total give the same
+// bits), v_{t+1} (and its moments) read from vs, v_t written there; grid
+// points g = first, first + stride, ...
 template <int kMode, typename T>
-__device__ void backward_large(const Problem<T>& p, T* rhs) {
-  const int N = p.N, G = p.G;
-  constexpr bool cubic = kMode == MODE_CUBIC;
-  const size_t g_ = static_cast<size_t>(G);
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    p.vs[N * g_ + g] = p.v_end[g];
-    p.vs[g] = T(0);  // grid[0] is the known inventory: valued by the forward walk
-  }
-  __syncthreads();  // v_N before its moments and step N-1 read it
-  if (cubic) block_moments(p.grids + N * g_, p.vs + N * g_, p.solver, rhs, p.moments + N * g_, G);
-  for (int t = N - 1; t >= 1; --t) {
-    const size_t row = static_cast<size_t>(t) * p.R, next = (t + 1) * g_;
-    const StepView<T> st{p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS, p.r_inv + row,
-                         p.r_min + row, p.r_max + row, p.R, p.is_step, p.E, G, kMode,
-                         p.grids + next, p.vs + next, cubic ? p.moments + next : nullptr};
-    const T* grid = p.grids + t * g_;
-    T* v = p.vs + t * g_;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) v[g] = decide(st, st.s[S_FWD], grid[g]).total;
-    // v_t, written by every thread, before its moments and step t-1 read
-    // it (block_moments ends with a barrier of its own: the moments before
-    // step t-1).
-    __syncthreads();
-    if (cubic) block_moments(grid, v, p.solver, rhs, p.moments + t * g_, G);
+__device__ void decide_row(const Problem<T>& p, int t, size_t first, size_t stride) {
+  const size_t g_ = static_cast<size_t>(p.G), row = static_cast<size_t>(t) * p.R,
+               next = (t + 1) * g_;
+  const StepView<T> st{p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS, p.r_inv + row,
+                       p.r_min + row, p.r_max + row, p.R, p.is_step, p.E, p.G, kMode,
+                       p.grids + next, p.vs + next,
+                       kMode == MODE_CUBIC ? p.moments + next : nullptr};
+  const T* grid = p.grids + t * g_;
+  T* v = p.vs + t * g_;
+  for (size_t g = first; g < g_; g += stride) v[g] = decide(st, st.s[S_FWD], grid[g]).total;
+}
+
+// block_moments' two halves on row t across the card: the rhs [G-2] of v_t
+// (entries first, first + stride, ...), and, after a barrier, the moments
+// (rows `first`, `first + stride`, ..., each summed by one thread in
+// ascending j, so the bits are block_moments') with zero ends.
+template <typename T>
+__device__ void rhs_row(const Problem<T>& p, int t, T* rhs, size_t first, size_t stride) {
+  const size_t g_ = static_cast<size_t>(p.G);
+  const T h = spline_h(p.grids + t * g_, p.G);
+  const T* v = p.vs + t * g_;
+  for (size_t i = first; i + 2 < g_; i += stride) rhs[i] = moments_rhs(v[i], v[i + 1], v[i + 2], h);
+}
+
+template <typename T>
+__device__ void moments_row(const Problem<T>& p, int t, const T* rhs, size_t first,
+                            size_t stride) {
+  const size_t g_ = static_cast<size_t>(p.G);
+  const int n = p.G - 2;
+  const T h = spline_h(p.grids + t * g_, p.G);
+  T* m = p.moments + t * g_;
+  for (size_t i = first; i < static_cast<size_t>(n); i += stride)
+    m[i + 1] = moment_at(p.solver, rhs, static_cast<int>(i), n, h);
+  if (first == 0) {
+    m[0] = T(0);
+    m[p.G - 1] = T(0);
   }
 }
 
+// The large route: one cooperative launch of blocks co-resident on the card.
+// Each backward step decides the row's grid points across the grid and ends
+// with a grid barrier (cubic mode: then the rhs, a barrier, the moments, a
+// barrier); after the last, block 0 walks the forward as the shared route
+// does, its next rows read from device memory.  The barrier is the only
+// ordering between SMs: cg's grid sync fences at GPU scope before its arrive
+// and after its wait, so the rows one SM wrote before it are what another
+// reads after it.  Those reads are plain loads, never ld.global.nc: no
+// pointer of Problem is __restrict__ and nothing reads vs, moments or rhs
+// through __ldg, since the non-coherent path may hold a line from before the
+// barrier.
 template <typename T, int kMode>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kGridThreads)
     intrinsic_dp_large_kernel(Problem<T> p, Plan l, T* rhs) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* base = reinterpret_cast<T*>(smem_raw);
-  backward_large<kMode>(p, rhs);
-  __syncthreads();  // every row of vs (and moments) before the walk reads it
-  forward_walk<kMode, true>(p, l, base);
+  cg::grid_group grid = cg::this_grid();
+  constexpr bool cubic = kMode == MODE_CUBIC;
+  const int N = p.N;
+  const size_t g_ = static_cast<size_t>(p.G);
+  const size_t threads = static_cast<size_t>(gridDim.x) * blockDim.x;
+  // Grid points block-major (one a thread where the grid holds them), the
+  // moment rows spread over every block (row i on block i % blocks).
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t spread = static_cast<size_t>(threadIdx.x) * gridDim.x + blockIdx.x;
+  const auto moments = [&](int t) {
+    rhs_row(p, t, rhs, first, threads);
+    grid.sync();  // the rhs, written across the grid, before every row reads all of it
+    moments_row(p, t, rhs, spread, threads);
+    grid.sync();  // the moments before step t-1 reads them (and the rhs is free again)
+  };
+  for (size_t g = first; g < g_; g += threads) {
+    p.vs[N * g_ + g] = p.v_end[g];
+    p.vs[g] = T(0);  // grid[0] is the known inventory: valued by the forward walk
+  }
+  grid.sync();  // v_N before its moments and step N-1 read it
+  if (cubic) moments(N);
+  for (int t = N - 1; t >= 1; --t) {
+    decide_row<kMode>(p, t, first, threads);
+    grid.sync();  // v_t before its moments and step t-1 read it
+    if (cubic) moments(t);
+  }
+  if (blockIdx.x == 0) forward_walk<kMode, true>(p, l, reinterpret_cast<T*>(smem_raw));
 }
 
 // The kernel compiled for a continuation mode.
@@ -449,6 +509,51 @@ int launch(int N, int G, int R, int E, int is_step, int mode, const T* steps, co
   return static_cast<int>(cudaGetLastError());
 }
 
+int device_attribute(cudaDeviceAttr attr, int* value) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(value, attr, device);
+  return static_cast<int>(err);
+}
+
+// The large route's grid on a card of `sms` SMs holding `per_sm` of its
+// blocks: in linear and general modes one grid point a thread, up to every
+// block the card holds (fewer blocks, a cheaper barrier: 2.15 against 2.34
+// ms at G = 32,768 in f32), and every block it holds in cubic mode, whose
+// moment rows read the dense inverse across every SM (2.27x faster than
+// over the blocks G needs; tools/torch_dp_probe.py --large-variants).  The
+// copy in ops/intrinsic_kernel.py large_grid_blocks.
+int large_grid_blocks(int G, int mode, int sms, int per_sm) {
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  if (mode == MODE_CUBIC) return static_cast<int>(resident);
+  return static_cast<int>(std::min<long long>(resident, (G + kGridThreads - 1) / kGridThreads));
+}
+
+// The large route's launch at N steps, G grid points, R ratchet nodes and E
+// extra decisions in a mode: its plan, the kernel's blocks per SM at the
+// plan's shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
+// the cooperative grid's blocks (large_grid_blocks).
+template <typename T>
+int large_launch_plan(int N, int G, int R, int E, int mode, Plan* l, int* per_sm,
+                      int* blocks) {
+  int optin = 0, sms = 0;
+  if (int err = smem_optin(&optin)) return err;
+  if (int err = device_attribute(cudaDevAttrMultiProcessorCount, &sms)) return err;
+  *l = large_plan<T>(N, R, E);
+  *per_sm = *blocks = 0;
+  if (l->bytes > static_cast<size_t>(optin)) return 0;
+  const auto kernel = large_kernel_for<T>(mode);
+  // The card's largest: the attribute is the kernel's, shared by every host
+  // thread that launches it, whatever N each launch takes.
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, l->threads, l->bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = large_grid_blocks(G, mode, sms, *per_sm);
+  return 0;
+}
+
 template <typename T>
 int launch_large(int N, int G, int R, int E, int is_step, int mode, const T* steps,
                  const T* r_inv, const T* r_min, const T* r_max, const T* grids, const T* v_end,
@@ -456,48 +561,44 @@ int launch_large(int N, int G, int R, int E, int is_step, int mode, const T* ste
   if (N < 1 || G < 2 || R < 1 || E < 0 || mode < MODE_UNIFORM || mode > MODE_CUBIC ||
       (mode == MODE_CUBIC && ((G > 2 && (!solver || !rhs)) || !moments)))
     return static_cast<int>(cudaErrorInvalidValue);
-  int optin = 0;
-  if (int err = smem_optin(&optin)) return err;
-  const Plan l = large_plan<T>(N, R, E);
-  if (l.bytes > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = large_kernel_for<T>(mode);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  Plan l;
+  int per_sm = 0, blocks = 0;
+  if (int err = large_launch_plan<T>(N, G, R, E, mode, &l, &per_sm, &blocks)) return err;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool cubic = mode == MODE_CUBIC;
   Problem<T> p{N, G, R, E, is_step, mode, steps, r_inv, r_min, r_max, grids, v_end,
                cubic ? solver : nullptr, static_cast<T>(inv0), vs, cubic ? moments : nullptr,
                nullptr, out};
-  kernel<<<1, l.threads, l.bytes, static_cast<cudaStream_t>(stream)>>>(p, l,
-                                                                        cubic ? rhs : nullptr);
-  return static_cast<int>(cudaGetLastError());
+  T* rhs_arg = cubic ? rhs : nullptr;
+  void* args[] = {&p, &l, &rhs_arg};
+  // Every block co-resident (the grid is sized from the occupancy report),
+  // or the launch fails with cudaErrorCooperativeLaunchTooLarge, returned.
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(large_kernel_for<T>(mode)), dim3(blocks), dim3(l.threads),
+      args, l.bytes, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The large route's report at R ratchet nodes, E extra decisions in a mode
-// into out[7] (see stt_intrinsic_dp_large_info).
+// The large route's report at G grid points, R ratchet nodes, E extra
+// decisions in a mode into out[9] (see stt_intrinsic_dp_large_info).
 template <typename T>
-int large_info(int R, int E, int mode, int* out) {
+int large_info(int G, int R, int E, int mode, int* out) {
   const auto kernel = large_kernel_for<T>(mode);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  int optin = 0;
-  if (err == cudaSuccess) err = static_cast<cudaError_t>(smem_optin(&optin));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Plan l = large_plan<T>(kMaxChunk, R, E);
-  int blocks = 0;
-  if (l.bytes <= static_cast<size_t>(optin)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, l.threads, l.bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  Plan l;
+  int per_sm = 0, blocks = 0;
+  if (int e = large_launch_plan<T>(kMaxChunk, G, R, E, mode, &l, &per_sm, &blocks)) return e;
   out[0] = l.threads;
   out[1] = attr.numRegs;
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = static_cast<int>(l.bytes);
-  out[4] = blocks;
+  out[4] = per_sm;
   out[5] = l.walk_lanes;
   out[6] = l.chunk;
+  out[7] = blocks;
+  out[8] = 1;  // a cooperative launch
   return 0;
 }
 
@@ -595,13 +696,17 @@ extern "C" int stt_intrinsic_dp_large_f64(int N, int G, int R, int E, int is_ste
                               solver, inv0, vs, moments, rhs, out, stream);
 }
 
-// Launch report of the large route in f32 (is_double 0) or f64 (1) at R
-// ratchet nodes and E extra decisions in a mode into out[7]: threads of its
-// one block, registers per thread, local memory bytes per thread (spills),
-// dynamic shared memory bytes (at N >= 32), blocks per SM at that size, lanes
-// a step in the forward walk, and forward steps staged a chunk.  Any G.
-extern "C" int stt_intrinsic_dp_large_info(int is_double, int R, int E, int mode, int* out) {
-  if (R < 1 || E < 0 || mode < MODE_UNIFORM || mode > MODE_CUBIC)
+// Launch report of the large route in f32 (is_double 0) or f64 (1) at G grid
+// points, R ratchet nodes and E extra decisions in a mode into out[9]:
+// threads a block, registers per thread, local memory bytes per thread
+// (spills), dynamic shared memory bytes a block (at N >= 32), blocks per SM
+// at that size, lanes a step in the forward walk, forward steps staged a
+// chunk, the cooperative grid's blocks at G, and 1 (the launch is
+// cooperative).
+extern "C" int stt_intrinsic_dp_large_info(int is_double, int G, int R, int E, int mode,
+                                           int* out) {
+  if (G < 2 || R < 1 || E < 0 || mode < MODE_UNIFORM || mode > MODE_CUBIC)
     return static_cast<int>(cudaErrorInvalidValue);
-  return is_double ? large_info<double>(R, E, mode, out) : large_info<float>(R, E, mode, out);
+  return is_double ? large_info<double>(G, R, E, mode, out)
+                   : large_info<float>(G, R, E, mode, out);
 }

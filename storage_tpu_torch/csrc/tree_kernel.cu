@@ -2,8 +2,8 @@
 // a valuation of one thread-block cluster (the cluster route), or, for a
 // slab too large for the cluster's shared memory, one launch a step with one
 // block a node row (the large-slab route), or, for rows too long for a
-// block's shared memory, a few launches a step on rows in device memory (the
-// large route).
+// block's shared memory, two launches a step (three in cubic mode) on rows
+// in device memory, deciding from step tables (the large route).
 //
 // No TPU kernel stands behind it: it replaces the lax.scan of
 // storage_tpu/engines/tree.py:_tree_core, whose step is a dense
@@ -59,16 +59,29 @@
 // L2.
 //
 // The large route, where not even a row's ev (and in cubic mode its moments
-// and rhs) fits a block's shared memory: each step two launches over
-// (ceil(G/256), M) blocks of 256 threads (three in cubic mode), every row in
-// device memory.  tree_ev_kernel forms ev [M, G] into a scratch, summed as
-// the step kernel sums it (and in cubic mode block_moments' rhs [M, G-2]
-// from it); tree_moments_kernel forms the moments [M, G] (the dense inverse
-// times the rhs, a thread a moment, summed in ascending j as block_moments
-// does); tree_decide_kernel decides every grid point with decide() on ev and
-// the moments and writes values[t].  The ev scratch is never values[t]
-// itself: a grid point's decision reads ev at other points of its row.  The
-// same arithmetic in the same order: the same bits as the other routes.
+// and rhs) fits a block's shared memory: every row in device memory, and the
+// step's decisions from a table that all node rows share.
+//   - tree_table_kernel fills the decision tables of a chunk of steps (as
+//     many as the wrapper's table scratch holds: all 16 of T1 at G = 65,536),
+//     a thread a (step, grid point) column, work without a chain: what a
+//     whole decide() a cell would do M times over a step (the ratchet rates,
+//     the bang-bang set, each decision's fuel, costs and continuation node
+//     and weight, a binary search on general rows) is done once a column.
+//   - each step then tree_ev_kernel forms ev [M, G] into a scratch, the
+//     band's W rows of V_{t+1} summed in ascending w as the other routes
+//     sum them (in cubic mode also block_moments' rhs, and
+//     tree_moments_kernel the moments: the dense inverse times the rhs, a
+//     thread a moment, summed in ascending j as block_moments does), and
+//     tree_table_decide_kernel decides, a thread a grid point for 4 node
+//     rows (each decision's table entry read once for all four, the rows'
+//     ev gathers issued together): for each decision the PV at the node's
+//     spot and the continuation on ev at its two nodes, then the first
+//     best: two launches a step, three in cubic mode; tree_ev_kernel takes
+//     8 node rows a block, whose bands overlap in L1.  (Summing ev at a
+//     decision's two nodes inside the decide, with no ev launch, ran 2.1x
+//     slower at T1, G = 65,536: 2D·W band terms a cell in place of W, W = 9
+//     there; tools/torch_dp_probe.py --large-variants.)
+// The same arithmetic in the same order: the same bits as the other routes.
 #include <algorithm>
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -84,6 +97,8 @@ namespace {
 using namespace stt_dp;
 
 constexpr int kStepThreads = 256;
+constexpr int kDecideRows = 4;  // node rows a large-route decide block takes at its grid points
+constexpr int kEvRows = 8;      // node rows a large-route ev block takes at its grid points
 constexpr int kClusterThreads = 1024;
 constexpr int kMaxCluster = 16;
 constexpr int kPortableCluster = 8;
@@ -105,6 +120,18 @@ struct TreeDP {
   T* values;                  // [N + 1, M, G]; values[N] given
   T* table;                   // [N, table_row(D), G] decision tables (cluster route)
 };
+
+// Grid point g's column of step t's decision table (dp_common.cuh
+// table_column_fill; no value row enters it) at `table`, a [table_row(D), G]
+// table value-major.
+template <int kMode, typename T>
+__device__ void fill_column(const TreeDP<T>& p, int t, int g, T* table) {
+  const size_t row = static_cast<size_t>(t) * p.R;
+  const StepView<T> st{p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS, p.r_inv + row,
+                       p.r_min + row, p.r_max + row, p.R, p.is_step, p.E, p.G, kMode,
+                       p.grids + static_cast<size_t>(t + 1) * p.G, nullptr, nullptr};
+  table_column_fill(st, p.grids[static_cast<size_t>(t) * p.G + g], table + g, p.G);
+}
 
 // ---- the large-slab route: one launch a step, one block a node row.
 
@@ -148,31 +175,33 @@ __global__ void __launch_bounds__(kStepThreads) tree_step_kernel(TreeDP<T> p, in
 
 // ---- the large route: a step's ev, rhs and moments in device memory.
 
-// ev[m, g] of step t into ev [M, G], the band summed in ascending w; in cubic
-// mode (rhs not null) also block_moments' rhs[m, g] for g < G-2, from ev at
-// g, g+1 and g+2, each formed by the same sum.
+// ev[m, g] of step t into ev [M, G] for node rows [blockIdx.y·kEvRows,
+// +kEvRows), the band summed in ascending w (neighbouring rows' bands
+// overlap, so a row's loads mostly hit the lines the row before brought
+// into L1); in cubic mode (rhs not null) also block_moments' rhs[m, g] for
+// g < G-2, from ev at g, g+1 and g+2, each formed by the same sum.
 template <typename T>
 __global__ void __launch_bounds__(kStepThreads) tree_ev_kernel(TreeDP<T> p, int t, T* ev, T* rhs) {
-  const int G = p.G, M = p.M, m = blockIdx.y;
+  const int G = p.G, M = p.M;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
   const size_t mg = static_cast<size_t>(M) * G;
-  const T* band = p.band + (static_cast<size_t>(t) * M + m) * p.W;
-  const int64_t first = p.start[static_cast<size_t>(t) * M + m];
-  const T* rows = p.values + (t + 1) * mg + static_cast<size_t>(first) * G;
-  const auto ev_at = [&](int x) {
-    T acc = T(0);
-    for (int w = 0; w < p.W; ++w) acc = add(acc, mul(band[w], rows[static_cast<size_t>(w) * G + x]));
-    return acc;
-  };
-  const T e0 = ev_at(g);
-  ev[static_cast<size_t>(m) * G + g] = e0;
-  if (rhs && g < G - 2) {
-    const T* grid = p.grids + static_cast<size_t>(t + 1) * G;
-    const T h = dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
-    const T safe_h = h > T(0) ? h : T(1);
-    rhs[static_cast<size_t>(m) * (G - 2) + g] =
-        dvd(mul(T(6), add(sub(ev_at(g + 2), mul(T(2), ev_at(g + 1))), e0)), mul(safe_h, safe_h));
+  const int m1 = min(M, static_cast<int>(blockIdx.y + 1) * kEvRows);
+  for (int m = blockIdx.y * kEvRows; m < m1; ++m) {
+    const T* band = p.band + (static_cast<size_t>(t) * M + m) * p.W;
+    const int64_t first = p.start[static_cast<size_t>(t) * M + m];
+    const T* rows = p.values + (t + 1) * mg + static_cast<size_t>(first) * G;
+    const auto ev_at = [&](int x) {
+      T acc = T(0);
+      for (int w = 0; w < p.W; ++w)
+        acc = add(acc, mul(band[w], rows[static_cast<size_t>(w) * G + x]));
+      return acc;
+    };
+    const T e0 = ev_at(g);
+    ev[static_cast<size_t>(m) * G + g] = e0;
+    if (rhs && g < G - 2)
+      rhs[static_cast<size_t>(m) * (G - 2) + g] = moments_rhs(
+          e0, ev_at(g + 1), ev_at(g + 2), spline_h(p.grids + static_cast<size_t>(t + 1) * G, G));
   }
 }
 
@@ -184,40 +213,75 @@ __global__ void __launch_bounds__(kStepThreads)
     tree_moments_kernel(TreeDP<T> p, int t, const T* rhs, T* mom) {
   const int G = p.G, n = G - 2, m = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const T* grid = p.grids + static_cast<size_t>(t + 1) * G;
-  const T h = dvd(sub(grid[G - 1], grid[0]), static_cast<T>(G - 1));
   T* out = mom + static_cast<size_t>(m) * G;
-  if (i < n) {
-    T acc = T(0);
-    if (h > T(0)) {
-      const T* row = p.solver + static_cast<size_t>(i) * n;
-      const T* r = rhs + static_cast<size_t>(m) * n;
-      for (int j = 0; j < n; ++j) acc = add(acc, mul(row[j], r[j]));
-    }
-    out[i + 1] = acc;
-  }
+  if (i < n)
+    out[i + 1] = moment_at(p.solver, rhs + static_cast<size_t>(m) * n, i, n,
+                           spline_h(p.grids + static_cast<size_t>(t + 1) * G, G));
   if (i == 0) {
     out[0] = T(0);
     out[G - 1] = T(0);
   }
 }
 
-// values[t][m, g] = decide() at grid point g against node m's spot on the
-// row's ev (and moments) in device memory.
+// The decision tables of steps [t0, t1) into table [t1 - t0, table_row(D), G],
+// a thread a (step, grid point) column: work without a chain.
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kStepThreads)
-    tree_decide_kernel(TreeDP<T> p, int t, const T* ev, const T* mom) {
-  const int G = p.G, M = p.M, m = blockIdx.y;
+    tree_table_kernel(TreeDP<T> p, int t0, int t1, T* table) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t g_ = static_cast<size_t>(p.G);
+  if (i >= static_cast<size_t>(t1 - t0) * g_) return;
+  const int dt = static_cast<int>(i / g_), g = static_cast<int>(i - dt * g_);
+  fill_column<kMode>(p, t0 + dt, g, table + dt * g_ * table_row(2 * p.E + 3));
+}
+
+// values[t][m, g] for node rows [blockIdx.y·kDecideRows, +kDecideRows) at
+// grid point g, from step t's table and the step's ev (and cubic moments)
+// [M, G]: each decision's PV at each row's spot, its continuation on the
+// row's ev at the decision's two nodes, each row's first best in ascending
+// k (the cluster route's entry_total arithmetic, so decide()'s bits).  A
+// decision's table entry is the same for every row, so it is read once and
+// the rows' ev gathers go out together (the rows unrolled), not one row's
+// decisions after another's.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kStepThreads)
+    tree_table_decide_kernel(TreeDP<T> p, int t, const T* table, const T* ev, const T* mom) {
+  const int G = p.G, M = p.M, D = 2 * p.E + 3;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
-  const size_t row = static_cast<size_t>(t) * p.R, mrow = static_cast<size_t>(m) * G;
-  const StepView<T> st{p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS, p.r_inv + row,
-                       p.r_min + row, p.r_max + row, p.R, p.is_step, p.E, G, kMode,
-                       p.grids + static_cast<size_t>(t + 1) * G, ev + mrow,
-                       kMode == MODE_CUBIC ? mom + mrow : nullptr};
-  const T price = p.spot[static_cast<size_t>(t) * M + m];
-  const T inv = p.grids[static_cast<size_t>(t) * G + g];
-  p.values[static_cast<size_t>(t) * M * G + mrow + g] = decide(st, price, inv).total;
+  const size_t mg = static_cast<size_t>(M) * G;
+  const T* s = p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS;
+  const T* col = table + g;
+  bool degenerate = false;
+  T curvature = T(0);
+  if (kMode == MODE_CUBIC)
+    curvature = cubic_factor(p.grids + static_cast<size_t>(t + 1) * G, G, &degenerate);
+  const bool moments = kMode == MODE_CUBIC && !degenerate;
+  const int m0 = blockIdx.y * kDecideRows, rows = min(kDecideRows, M - m0);
+  T price[kDecideRows];
+  FirstBest<T> best[kDecideRows];
+#pragma unroll
+  for (int r = 0; r < kDecideRows; ++r) {
+    price[r] = r < rows ? p.spot[static_cast<size_t>(t) * M + m0 + r] : T(0);
+    best[r] = FirstBest<T>{T(0), -1, false};
+  }
+  for (int k = 0; k < D; ++k) {
+    int idx;
+    T w;
+    entry_node(col, G, k, &idx, &w);
+#pragma unroll
+    for (int r = 0; r < kDecideRows; ++r) {
+      if (r >= rows) break;
+      const size_t at = static_cast<size_t>(m0 + r) * G + idx;
+      const T cont = node_continuation(kMode, w, ev[at], ev[at + 1], moments ? mom[at] : T(0),
+                                       moments ? mom[at + 1] : T(0), curvature, degenerate);
+      best[r].offer(add(entry_pv(col, G, k, s, price[r]), cont), k);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kDecideRows; ++r)
+    if (r < rows) p.values[static_cast<size_t>(t) * mg + static_cast<size_t>(m0 + r) * G + g] =
+        best[r].total;
 }
 
 // ---- the cluster route: one launch a valuation.
@@ -298,12 +362,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) tree_cluster_kernel(TreeDP
   for (int tg = rank * blockDim.x + threadIdx.x; tg < p.N * G;
        tg += static_cast<int>(cluster.num_blocks()) * blockDim.x) {
     const int t = tg / G, g = tg - t * G;
-    const size_t row = static_cast<size_t>(t) * p.R;
-    const StepView<T> st{p.steps + static_cast<size_t>(t) * NUM_STEP_SCALARS, p.r_inv + row,
-                         p.r_min + row, p.r_max + row, p.R, p.is_step, p.E, G, kMode,
-                         p.grids + static_cast<size_t>(t + 1) * G, nullptr, nullptr};
-    table_column_fill(st, p.grids[static_cast<size_t>(t) * G + g],
-                      p.table + static_cast<size_t>(t) * table_len + g, G);
+    fill_column<kMode>(p, t, g, p.table + static_cast<size_t>(t) * table_len);
   }
   // Where each node row of either value buffer lies in the cluster: row k is
   // row k - owner·rows of CTA owner.
@@ -390,9 +449,16 @@ auto step_kernel(int mode) {
 
 template <typename T>
 auto decide_kernel(int mode) {
-  return mode == MODE_GENERAL ? tree_decide_kernel<T, MODE_GENERAL>
-         : mode == MODE_CUBIC ? tree_decide_kernel<T, MODE_CUBIC>
-                              : tree_decide_kernel<T, MODE_UNIFORM>;
+  return mode == MODE_GENERAL ? tree_table_decide_kernel<T, MODE_GENERAL>
+         : mode == MODE_CUBIC ? tree_table_decide_kernel<T, MODE_CUBIC>
+                              : tree_table_decide_kernel<T, MODE_UNIFORM>;
+}
+
+template <typename T>
+auto table_kernel(int mode) {
+  return mode == MODE_GENERAL ? tree_table_kernel<T, MODE_GENERAL>
+         : mode == MODE_CUBIC ? tree_table_kernel<T, MODE_CUBIC>
+                              : tree_table_kernel<T, MODE_UNIFORM>;
 }
 
 template <typename T>
@@ -522,24 +588,37 @@ int launch_steps(TreeDP<T> p, void* stream) {
   return 0;
 }
 
-// The large route: for t = N-1 .. 0, ev (and rhs) into the scratch, the
-// moments (cubic), the decisions into values[t]; each launch after the one
-// before on the stream, which orders their device-memory writes and reads.
+// The large route: the steps' decision tables table_steps at a time into
+// the table scratch [table_steps, table_row(D), G] (one launch a chunk of
+// steps, from the last), and for each step t = N-1 .. 0 of the chunk ev
+// (and in cubic mode rhs) into their scratch, in cubic mode the moments,
+// then the decisions into values[t]; each launch after the one before on
+// the stream, which orders their device-memory writes and reads.
 template <typename T>
-int launch_large(TreeDP<T> p, T* ev, T* mom, T* rhs, void* stream) {
+int launch_large(TreeDP<T> p, T* table, int table_steps, T* ev, T* mom, T* rhs, void* stream) {
   const bool cubic = p.mode == MODE_CUBIC;
-  if (!valid(p) || !ev || (cubic && (!mom || (p.G > 2 && !rhs))))
+  if (!valid(p) || !table || table_steps < 1 || !ev || (cubic && (!mom || (p.G > 2 && !rhs))))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto decide_k = decide_kernel<T>(p.mode);
-  const dim3 rows((p.G + kStepThreads - 1) / kStepThreads, p.M);
+  const auto table_k = table_kernel<T>(p.mode);
+  const size_t table_len = static_cast<size_t>(p.G) * table_row(2 * p.E + 3);
+  const dim3 cells((p.G + kStepThreads - 1) / kStepThreads,
+                   (p.M + kDecideRows - 1) / kDecideRows);
+  const dim3 rows((p.G + kStepThreads - 1) / kStepThreads, (p.M + kEvRows - 1) / kEvRows);
   const dim3 moments(std::max(1, (p.G - 2 + kStepThreads - 1) / kStepThreads), p.M);
-  for (int t = p.N - 1; t >= 0; --t) {
-    tree_ev_kernel<T><<<rows, kStepThreads, 0, s>>>(p, t, ev, cubic ? rhs : nullptr);
-    if (cubic) tree_moments_kernel<T><<<moments, kStepThreads, 0, s>>>(p, t, rhs, mom);
-    decide_k<<<rows, kStepThreads, 0, s>>>(p, t, ev, cubic ? mom : nullptr);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  for (int hi = p.N; hi > 0; hi -= table_steps) {
+    const int lo = std::max(0, hi - table_steps);
+    const size_t columns = static_cast<size_t>(hi - lo) * p.G;
+    table_k<<<static_cast<unsigned>((columns + kStepThreads - 1) / kStepThreads), kStepThreads, 0,
+              s>>>(p, lo, hi, table);
+    for (int t = hi - 1; t >= lo; --t) {
+      tree_ev_kernel<T><<<rows, kStepThreads, 0, s>>>(p, t, ev, cubic ? rhs : nullptr);
+      if (cubic) tree_moments_kernel<T><<<moments, kStepThreads, 0, s>>>(p, t, rhs, mom);
+      decide_k<<<cells, kStepThreads, 0, s>>>(p, t, table + (t - lo) * table_len, ev, mom);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   return 0;
 }
@@ -581,13 +660,14 @@ int step_info(int G, int mode, int* out) {
   return 0;
 }
 
-// The large route's report in a mode into out[7] (see stt_tree_dp_large_info).
+// The large route's report in a mode into out[8] (see stt_tree_dp_large_info).
 template <typename T>
 int large_info(int mode, int* out) {
-  cudaFuncAttributes ev, moments, decide;
+  cudaFuncAttributes ev, moments, decide, table;
   cudaError_t err = cudaFuncGetAttributes(&ev, tree_ev_kernel<T>);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&moments, tree_moments_kernel<T>);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&decide, decide_kernel<T>(mode));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&table, table_kernel<T>(mode));
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, decide_kernel<T>(mode),
@@ -598,10 +678,12 @@ int large_info(int mode, int* out) {
   out[1] = decide.numRegs;
   out[2] = ev.numRegs;
   out[3] = cubic ? moments.numRegs : 0;
-  out[4] = static_cast<int>(std::max({ev.localSizeBytes, decide.localSizeBytes,
+  out[4] = static_cast<int>(std::max({table.localSizeBytes, decide.localSizeBytes,
+                                      ev.localSizeBytes,
                                       cubic ? moments.localSizeBytes : size_t(0)}));
   out[5] = blocks;
   out[6] = cubic ? 3 : 2;
+  out[7] = table.numRegs;
   return 0;
 }
 
@@ -698,18 +780,21 @@ extern "C" int stt_tree_dp_steps_f64(int N, int M, int G, int W, int R, int E, i
                                       grids, spot, band, start, solver, values, nullptr), stream);
 }
 
-// The large route, the same arguments but the tables' scratch, then the
+// The large route, the same arguments as the cluster route, then the steps
+// the table scratch holds (table: [table_steps, 1 + 5(2E+3), G]), then the
 // scratch of a step's ev [M, G], and in cubic mode of its moments [M, G] and
-// rhs [M, G-2] (else NULL): launches a step, t = N-1 .. 0, any G.
+// rhs [M, G-2] (else NULL): per chunk of table_steps steps one table launch,
+// then per step t = N-1 .. 0 two launches (three in cubic mode); any G.
 extern "C" int stt_tree_dp_large_f32(int N, int M, int G, int W, int R, int E, int is_step,
                                      int mode, const float* steps, const float* r_inv,
                                      const float* r_min, const float* r_max, const float* grids,
                                      const float* spot, const float* band, const int64_t* start,
-                                     const float* solver, float* values, float* ev,
-                                     float* moments, float* rhs, void* stream) {
+                                     const float* solver, float* values, float* table,
+                                     int table_steps, float* ev, float* moments, float* rhs,
+                                     void* stream) {
   return launch_large(problem<float>(N, M, G, W, R, E, is_step, mode, steps, r_inv, r_min, r_max,
                                      grids, spot, band, start, solver, values, nullptr),
-                      ev, moments, rhs, stream);
+                      table, table_steps, ev, moments, rhs, stream);
 }
 
 extern "C" int stt_tree_dp_large_f64(int N, int M, int G, int W, int R, int E, int is_step,
@@ -717,16 +802,19 @@ extern "C" int stt_tree_dp_large_f64(int N, int M, int G, int W, int R, int E, i
                                      const double* r_min, const double* r_max,
                                      const double* grids, const double* spot, const double* band,
                                      const int64_t* start, const double* solver, double* values,
-                                     double* ev, double* moments, double* rhs, void* stream) {
+                                     double* table, int table_steps, double* ev, double* moments,
+                                     double* rhs, void* stream) {
   return launch_large(problem<double>(N, M, G, W, R, E, is_step, mode, steps, r_inv, r_min, r_max,
                                       grids, spot, band, start, solver, values, nullptr),
-                      ev, moments, rhs, stream);
+                      table, table_steps, ev, moments, rhs, stream);
 }
 
 // Launch report of the large route in f32 (is_double 0) or f64 (1) in a
-// mode into out[7]: threads a block, registers a thread of the decide, ev
-// and (cubic, else 0) moments kernels, local memory bytes a thread (spills,
-// the most of the three), decide blocks per SM, and launches a step.  Any G.
+// mode into out[8]: threads a block, registers a thread of the decide, ev
+// and moments kernels (the last 0 outside cubic mode, which alone launches
+// it), local memory bytes a thread (spills, the most of its kernels),
+// decide blocks per SM, launches a step (ev and decide, and moments in
+// cubic mode), and the table kernel's registers.  Any G.
 extern "C" int stt_tree_dp_large_info(int is_double, int mode, int* out) {
   if (mode < MODE_UNIFORM || mode > MODE_CUBIC) return static_cast<int>(cudaErrorInvalidValue);
   return is_double ? large_info<double>(mode, out) : large_info<float>(mode, out);

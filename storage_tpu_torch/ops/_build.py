@@ -124,25 +124,27 @@ SIGNATURES = {
        for bits in ("f32", "f64")},
     # is_double, G, R, E, mode, out int[9] (the DP kernel's launch report)
     "stt_intrinsic_dp_info": (_I, _I, _I, _I, _I, _P),
-    # is_double, R, E, mode, out int[7] (the large route's launch report)
-    "stt_intrinsic_dp_large_info": (_I, _I, _I, _I, _P),
+    # is_double, G, R, E, mode, out int[9] (the large route's launch report)
+    "stt_intrinsic_dp_large_info": (_I, _I, _I, _I, _I, _P),
     # N, M, G, W, R, E, is_step, mode, steps, ratchet inv/min/max, grids, spot,
     # band, band start, solver (or NULL), values, then the cluster route's
     # decision tables' scratch, stream: the cluster route (one launch) and the
     # large-slab route (a launch a step, no scratch)
     **{f"stt_tree_dp_{bits}": (_I,) * 8 + (_P,) * 12 for bits in ("f32", "f64")},
     **{f"stt_tree_dp_steps_{bits}": (_I,) * 8 + (_P,) * 11 for bits in ("f32", "f64")},
-    # the large route: as the large-slab route, then the scratch of a step's
-    # ev, and its moments and rhs (or NULL), stream
-    **{f"stt_tree_dp_large_{bits}": (_I,) * 8 + (_P,) * 14 for bits in ("f32", "f64")},
+    # the large route: as the large-slab route, then the tables' scratch, the
+    # steps it holds, the scratch of a step's ev, moments and rhs (or NULL),
+    # stream
+    **{f"stt_tree_dp_large_{bits}": (_I,) * 8 + (_P,) * 11 + (_I,) + (_P,) * 4
+       for bits in ("f32", "f64")},
     # is_double, G, mode, out int[6] (the large-slab route's launch report)
     "stt_tree_dp_info": (_I, _I, _I, _P),
-    # is_double, mode, out int[7] (the large route's launch report)
+    # is_double, mode, out int[8] (the large route's launch report)
     "stt_tree_dp_large_info": (_I, _I, _P),
     # is_double, M, G, W, E, mode, out int[8] (the cluster route's report)
     "stt_tree_cluster_info": (_I, _I, _I, _I, _I, _I, _P),
-    # kind (0 block, 1 cluster, 2 grid), cluster size, threads, iterations,
-    # stream (the chain floor's timing kernels)
+    # kind (0 block, 1 cluster, 2 grid, 3 launch), cluster or grid size,
+    # threads, iterations, stream (the chain floor's timing kernels)
     "stt_chain_steps": (_I, _I, _I, _I, _P),
 }
 

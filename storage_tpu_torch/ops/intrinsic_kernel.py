@@ -1,16 +1,19 @@
 """The intrinsic DP as one CUDA launch (``csrc/intrinsic_kernel.cu``).
 
 No TPU kernel stands behind it: it replaces the backward and forward
-``lax.scan`` of ``storage_tpu.engines.intrinsic._intrinsic_core``.  One block
+``lax.scan`` of ``storage_tpu.engines.intrinsic._intrinsic_core``.  One launch
 runs the whole DP, on one of two routes (``intrinsic_route``, from the
-shape).  The shared route fills every backward step's decision table first
-(a device-memory scratch the wrapper allocates), then values the grid points
-of each backward step from its table on value rows kept in shared memory, a
-barrier between steps, then warp 0 walks the forward from the starting
-inventory through staged chunks of steps.  The large route, for a G beyond
-what the block's shared memory holds (``max_grid``) or a table scratch past
-``TABLE_SCRATCH_CAP``, decides each grid point whole on value rows in device
-memory and needs no scratch: any G.  Both give the same bits.  The plain
+shape).  The shared route, one block, fills every backward step's decision
+table first (a device-memory scratch the wrapper allocates), then values the
+grid points of each backward step from its table on value rows kept in
+shared memory, a barrier between steps, then warp 0 walks the forward from
+the starting inventory through staged chunks of steps.  The large route, for
+a G beyond what the block's shared memory holds (``max_grid``) or a table
+scratch past ``TABLE_SCRATCH_CAP``, is one cooperative launch over the card
+(``large_grid_blocks``): each backward step's grid points decided whole
+across every SM on value rows in device memory, a grid barrier between
+steps, then block 0's warp 0 walks; it needs no table scratch: any G.  Both
+give the same bits.  The plain
 version is ``engines.intrinsic.intrinsic_plain``, which
 ``engines.intrinsic.intrinsic_core`` runs for CPU tensors; this wrapper
 takes CUDA tensors only, f32 or f64.
@@ -118,6 +121,24 @@ def intrinsic_route(g: int, r: int, e: int, mode: str, itemsize: int, smem_limit
     return route
 
 
+# The large route's blocks (csrc/intrinsic_kernel.cu kGridThreads).
+GRID_THREADS = 256
+
+
+def large_grid_blocks(g: int, mode: str, sms: int, blocks_per_sm: int) -> int:
+    """The large route's cooperative grid on a card of ``sms`` SMs holding
+    ``blocks_per_sm`` of its blocks (``intrinsic_info``'s
+    large_blocks_per_sm): one grid point a thread up to every block the card
+    holds, and every block it holds in cubic mode, whose moment rows read
+    the dense inverse across every SM (a copy of csrc/intrinsic_kernel.cu
+    large_grid_blocks, which chip_smoke.py holds to ``intrinsic_info``'s
+    large_grid_blocks)."""
+    if mode not in MODES:
+        raise ValueError(f"intrinsic_dp: mode must be one of {sorted(MODES)}, got {mode!r}")
+    resident = sms * blocks_per_sm
+    return resident if mode == "cubic" else min(resident, -(-g // GRID_THREADS))
+
+
 def pack_steps(arrays: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
     """Each step's scalars as one row of the kernel's table [N, 11]: the
     forward price, discount factors, costs, fuel, loss and inventory cost,
@@ -200,7 +221,8 @@ intrinsic_dp.large_launches = 0  # those of the large route, counted in launches
 _INFO_FIELDS = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm",
                 "stage_table", "walk_lanes", "chunk", "max_grid")
 _LARGE_FIELDS = ("large_threads", "large_registers", "large_local_bytes", "large_smem_bytes",
-                 "large_blocks_per_sm", "large_walk_lanes", "large_chunk")
+                 "large_blocks_per_sm", "large_walk_lanes", "large_chunk", "large_grid_blocks",
+                 "large_cooperative")
 
 
 @functools.lru_cache(maxsize=32)
@@ -211,7 +233,7 @@ def _info(is_double: bool, g: int, r: int, e: int, mode: int, device_index: int)
     with torch.cuda.device(device_index):
         _build.check(lib.stt_intrinsic_dp_info(int(is_double), g, r, e, mode, out),
                      "stt_intrinsic_dp_info")
-        _build.check(lib.stt_intrinsic_dp_large_info(int(is_double), r, e, mode, large),
+        _build.check(lib.stt_intrinsic_dp_large_info(int(is_double), g, r, e, mode, large),
                      "stt_intrinsic_dp_large_info")
     return {**dict(zip(_INFO_FIELDS, out)), **dict(zip(_LARGE_FIELDS, large))}
 
@@ -226,7 +248,9 @@ def intrinsic_info(dtype, device, g: int = 100, r: int = 3, e: int = 0,
     reads it from device memory (0), lanes a step in the forward walk,
     forward steps staged a chunk (at N >= 32) and the largest G the block's
     shared memory holds (``max_grid``); then the large route's (any G; the
-    ``large_*`` fields): threads, registers, local bytes, shared memory,
-    blocks per SM, lanes a forward step and steps staged a chunk."""
+    ``large_*`` fields): threads a block, registers, local bytes, shared
+    memory a block, blocks per SM, lanes a forward step, steps staged a
+    chunk, the cooperative grid's blocks at G (``large_grid_blocks``) and 1
+    for a cooperative launch."""
     return _info(dtype == torch.float64, int(g), int(r), int(e), MODES[mode],
                  torch.device(device).index or 0)

@@ -4,8 +4,11 @@ launch a valuation of one thread-block cluster that keeps the node rows in
 its shared memory and decides from step tables it fills first; for a slab
 the cluster cannot hold, the large-slab route, one launch a step of one
 block a node row; for rows too long for a block's shared memory, the large
-route, two launches a step (three in cubic mode) on rows in device memory.
-All give the same bits.
+route on rows in device memory: a launch fills a chunk of steps' decision
+tables (``large_table_steps``), then each step an ev launch and a decide
+launch (with a moments launch between them in cubic mode) decide every node
+row from its step's table.  All give the same
+bits.
 
 No TPU kernel stands behind it: it replaces the ``lax.scan`` of
 ``storage_tpu.engines.tree._tree_core``.  The transition reaches the card as
@@ -31,6 +34,27 @@ _ENTRY = {"cluster": {torch.float32: "stt_tree_dp_f32", torch.float64: "stt_tree
           "steps": {torch.float32: "stt_tree_dp_steps_f32", torch.float64: "stt_tree_dp_steps_f64"},
           "large": {torch.float32: "stt_tree_dp_large_f32", torch.float64: "stt_tree_dp_large_f64"}}
 ROUTES = tuple(_ENTRY)
+# The large route's decision tables' scratch in bytes: the steps it holds
+# are filled by one launch (all 16 of T1 at G = 65,536, 64 MiB in f32).
+TABLE_SCRATCH_CAP = 1 << 28
+# Node rows a block of the large route's decide takes at its grid points
+# (csrc/tree_kernel.cu kDecideRows).
+LARGE_DECIDE_ROWS = 4
+
+
+def large_table_steps(n: int, g: int, e: int, itemsize: int) -> int:
+    """Steps whose decision tables one launch of the large route fills into
+    its scratch: as many as ``TABLE_SCRATCH_CAP`` holds, at least one, at
+    most N."""
+    return max(1, min(n, TABLE_SCRATCH_CAP // (table_len(g, e) * itemsize)))
+
+
+def large_launches(n: int, g: int, e: int, mode: str, itemsize: int) -> int:
+    """Launches of the large route for N steps: a table launch for each
+    chunk of ``large_table_steps`` steps, and an ev and a decide launch a
+    step (with a moments launch between them in cubic mode)."""
+    chunk = large_table_steps(n, g, e, itemsize)
+    return -(-n // chunk) + n * (3 if mode == "cubic" else 2)
 
 
 def steps_max_grid(itemsize: int, mode: str, smem_limit: int) -> int:
@@ -126,9 +150,9 @@ def tree_dp(
     ``interp.natural_cubic_solver``).  The route is ``tree_route``'s
     (``route`` forces one): the cluster route counts one launch in
     ``tree_dp.launches``, the large-slab route N in
-    ``tree_dp.step_launches``, the large route 2N (3N in cubic mode) in
-    ``tree_dp.large_launches``.  Returns the values [N+1, M, G] on the
-    card."""
+    ``tree_dp.step_launches``, the large route ``large_launches`` (2N + 1 at
+    T1's 16 steps, 3N + 1 in cubic mode) in ``tree_dp.large_launches``.
+    Returns the values [N+1, M, G] on the card."""
     grids = arrays["grids"].contiguous()
     n, g = grids.shape[0] - 1, grids.shape[1]
     dtype = grids.dtype
@@ -160,21 +184,25 @@ def tree_dp(
     values = torch.empty((n + 1, m, g), dtype=dtype, device=device)
     values[n].copy_(v_end)
     # The routes' scratch, held until the launches are queued: the cluster
-    # route's every step's decision table; the large route's a step's ev
-    # [M, G] and in cubic mode its moments [M, G] and rhs [M, G-2] (never
-    # values[t] itself: a grid point's decision reads ev at other points).
+    # route's every step's decision table; the large route's decision tables
+    # of a chunk of steps and the steps it holds, a step's ev [M, G] (never
+    # values[t] itself: a grid point's decision reads ev at other points)
+    # and in cubic mode its moments [M, G] and rhs [M, G-2].
     empty = lambda size: torch.empty(size, dtype=dtype, device=device)  # noqa: E731
     if route == "cluster":
         scratch = [empty(n * table_len(g, num_extra_decisions))]
     elif route == "large":
-        scratch = [empty(m * g), *((empty(m * g), empty(m * (g - 2))) if cubic else (None, None))]
+        chunk = large_table_steps(n, g, num_extra_decisions, dtype.itemsize)
+        scratch = [empty(chunk * table_len(g, num_extra_decisions)), chunk, empty(m * g),
+                   *((empty(m * g), empty(m * (g - 2))) if cubic else (None, None))]
     else:
         scratch = []
     rc = getattr(_build.library(), _ENTRY[route][dtype])(
         n, m, g, w, r, num_extra_decisions, int(ratchet_is_step), MODES[mode], steps.data_ptr(),
         *(t.data_ptr() for t in ratchets), grids.data_ptr(), spot.data_ptr(),
         values_band.data_ptr(), start.data_ptr(), given[0].data_ptr() if cubic else None,
-        values.data_ptr(), *(None if t is None else t.data_ptr() for t in scratch),
+        values.data_ptr(),
+        *(t if t is None or isinstance(t, int) else t.data_ptr() for t in scratch),
         _build.stream_handle(device),
     )
     # The C entries of the step-wise routes launch their kernels for each step.
@@ -183,7 +211,7 @@ def tree_dp(
     elif route == "steps":
         tree_dp.step_launches += n
     else:
-        tree_dp.large_launches += n * (3 if cubic else 2)
+        tree_dp.large_launches += large_launches(n, g, num_extra_decisions, mode, dtype.itemsize)
     _build.check(rc, f"tree_dp ({route} route)")
     return values
 
@@ -197,7 +225,7 @@ _CLUSTER_FIELDS = ("cluster_size", "cluster_threads", "cluster_registers", "clus
                    "cluster_smem_bytes", "cluster_blocks_per_sm", "rows_per_cta", "max_rows")
 _LARGE_FIELDS = ("large_threads", "large_registers", "large_ev_registers",
                  "large_moments_registers", "large_local_bytes", "large_blocks_per_sm",
-                 "large_launches_per_step")
+                 "large_launches_per_step", "large_table_registers")
 
 
 @functools.lru_cache(maxsize=64)
@@ -227,29 +255,33 @@ def kernel_info(g: int, dtype, mode: str, device, m: int = 1, w: int = 1, e: int
     registers and local bytes a thread, shared memory a CTA, CTAs per SM,
     node rows a CTA and the most node rows the cluster holds at this G
     (``max_rows``).  The large route (any slab; the ``large_*`` fields):
-    threads a block, registers a thread of its decide, ev and (cubic)
-    moments kernels, local bytes, decide blocks per SM and launches a step.
-    ``route`` is the one ``tree_dp`` takes for the slab."""
+    threads a block, registers a thread of its decide, ev and moments
+    kernels (the last cubic only, else 0), local bytes, decide blocks per
+    SM, launches a step (ev and decide, and moments in cubic mode) and its
+    table kernel's registers.  ``route`` is the one ``tree_dp`` takes
+    for the slab."""
     info = dict(_info(dtype == torch.float64, int(m), int(g), int(w), int(e), MODES[mode],
                       torch.device(device).index or 0))
     info["route"] = choose_route(m, g, info)
     return info
 
 
-def chain_step_ns(kind: str, device, threads: int = 1024, cluster: int = 16,
+def chain_step_ns(kind: str, device, threads: int = 1024, size: int = 16,
                   iters: int = 20_000) -> float:
     """Nanoseconds of one link of a DP's chain on the card
     (``csrc/chain_floor.cu``).  ``kind`` "block": one block of ``threads``
     threads, each step ended by ``__syncthreads`` and reading a value
-    another thread wrote before it (the intrinsic DP's link); "cluster": one
-    cluster of ``cluster`` CTAs, each step ended by the cluster barrier and
-    reading the next CTA's shared memory (the tree's link); "grid": two CTAs
-    handing a step counter back and forth through device memory, release
-    and acquire at GPU scope, with the block barriers and fence around it
-    (the link of a grid that spans the card).  CUDA events around a launch of ``iters``
-    links less one of none, the median of three.  A timing kernel only: no
-    path launches it."""
-    kinds = {"block": 0, "cluster": 1, "grid": 2}
+    another thread wrote before it (the intrinsic DP's shared route's link);
+    "cluster": one cluster of ``size`` CTAs, each step ended by the cluster
+    barrier and reading the next CTA's shared memory (the tree's cluster
+    route's link); "grid": a cooperative launch of ``size`` blocks of
+    ``threads``, each step a read of the next block's word in device memory
+    and a grid sync (the intrinsic DP's large route's link at a grid of that
+    many blocks); "launch": a launch a step of ``size`` blocks, each reading
+    a word the launch before wrote (the tree's large route's link).  CUDA
+    events around ``iters`` links less none, the median of three.  A timing
+    kernel only: no path launches it."""
+    kinds = {"block": 0, "cluster": 1, "grid": 2, "launch": 3}
     if kind not in kinds:
         raise ValueError(f"chain_step_ns: kind must be one of {sorted(kinds)}, got {kind!r}")
     device = torch.device(device)
@@ -260,7 +292,7 @@ def chain_step_ns(kind: str, device, threads: int = 1024, cluster: int = 16,
         for count in (0, iters):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            rc = lib.stt_chain_steps(kinds[kind], cluster, threads, count, stream)
+            rc = lib.stt_chain_steps(kinds[kind], size, threads, count, stream)
             end.record()
             _build.check(rc, "stt_chain_steps")
             torch.cuda.synchronize(device)

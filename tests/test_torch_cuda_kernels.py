@@ -973,6 +973,38 @@ def test_intrinsic_dp_grid_beyond_shared_memory_takes_the_large_route(device):
         torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["linear", "general", "cubic"])
+def test_intrinsic_dp_large_route_spreads_over_the_card(device, dtype, mode):
+    """The large route is one cooperative launch of the grid its launch
+    report sizes (``large_grid_blocks`` from the card's SMs and its blocks per
+    SM, more than one block at G = 32,768), and gives its plain version's
+    answer (f64 NPV within 1e-10 relative, profile within 1e-6; f32 within
+    1e-5 of the f64 answer) over 40 steps at G = 32,768 (cubic: 2,048, its
+    dense inverse read every step)."""
+    g = 2_048 if mode == "cubic" else 32_768
+    inputs, arrays = _intrinsic_case(device, dtype, mode, g, 40)
+    r = arrays["ratchet_inv"].shape[1]
+    info = intrinsic_kernel.intrinsic_info(dtype, device, g, r, 0, mode)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert info["large_cooperative"] == 1 and info["large_grid_blocks"] > 1
+    assert info["large_grid_blocks"] == intrinsic_kernel.large_grid_blocks(
+        g, mode, sms, info["large_blocks_per_sm"])
+    args = (inputs.starting_inventory, 0, None, False, "cubic" if mode == "cubic" else "linear",
+            mode != "general")
+    before = intrinsic_kernel.intrinsic_dp.launches, intrinsic_kernel.intrinsic_dp.large_launches
+    got = intrinsic_engine.intrinsic_core(arrays, *args, route="large")
+    assert (intrinsic_kernel.intrinsic_dp.launches,
+            intrinsic_kernel.intrinsic_dp.large_launches) == (before[0] + 1, before[1] + 1)
+    want = intrinsic_engine.intrinsic_plain(
+        {k: v.to(torch.float64) for k, v in arrays.items()}, *args)
+    rel = 1e-10 if dtype == torch.float64 else 1e-5
+    assert float(got.npv) == pytest.approx(float(want.npv), rel=rel)
+    if dtype == torch.float64:
+        for name in intrinsic_engine.IntrinsicEngineResult._fields[1:]:
+            torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-6)
+
+
 def test_intrinsic_dp_refuses_cpu_tensors_and_other_dtypes(device):
     _, arrays = _intrinsic_case("cpu", torch.float64, "linear", 11, 1)
     v_end = torch.zeros(11, dtype=torch.float64)
@@ -1049,15 +1081,17 @@ def _tree_launches():
 def test_tree_dp(device, dtype, mode, g, n, e, route):
     """The tree kernel against tree_plain in f64 on the card, on every route
     (M = 99 node rows, T3's lattice width): the cluster route one launch a
-    valuation, the large-slab route one a step, the large route two a step
-    (three in cubic mode), the same bits."""
+    valuation, the large-slab route one a step, the large route a table
+    launch and an ev and a decide launch a step (and a moments launch in
+    cubic mode), the same bits."""
     inputs, arrays, lattice = _tree_case(device, dtype, mode, g, n)
     args = (e, None, False, "cubic" if mode == "cubic" else "linear", mode != "general")
     before = _tree_launches()
     got = tree_engine.tree_core(arrays, lattice, *args, route=route)
     counted = tuple(a - b for a, b in zip(_tree_launches(), before))
-    assert counted == {"cluster": (1, 0, 0), "steps": (0, n, 0),
-                       "large": (0, 0, n * (3 if mode == "cubic" else 2))}[route]
+    large = tree_kernel.large_launches(n, g, e, mode, dtype.itemsize)
+    assert large == 1 + n * (3 if mode == "cubic" else 2)
+    assert counted == {"cluster": (1, 0, 0), "steps": (0, n, 0), "large": (0, 0, large)}[route]
     other = tree_engine.tree_core(arrays, lattice, *args,
                                   route="steps" if route == "cluster" else "cluster")
     assert torch.equal(got.values, other.values)
@@ -1074,8 +1108,9 @@ def test_tree_dp_grid_beyond_shared_memory_takes_the_large_route(device):
     """The routes' reports: at G=100 the cluster route takes the slab; one
     grid point beyond the step block's capacity (the route rule's copy of
     its sizing), a row fits neither route's shared memory and tree_dp takes
-    the large route, two launches a step, and gives tree_plain's values
-    (within 1e-9 of their scale, the NPV within 1e-10)."""
+    the large route, a table launch and an ev and a decide launch for its
+    one step, and gives tree_plain's values (within 1e-9 of their scale, the NPV
+    within 1e-10)."""
     _, arrays, lattice = _tree_case(device, torch.float64, "linear", 100, 1)
     m, w = lattice["band"].shape[1:]
     info = tree_kernel.kernel_info(100, torch.float64, "linear", device, m, w)
@@ -1091,11 +1126,41 @@ def test_tree_dp_grid_beyond_shared_memory_takes_the_large_route(device):
     _, arrays, lattice = _tree_case(device, torch.float64, "linear", g, 1)
     before = _tree_launches()
     got = tree_engine.tree_core(arrays, lattice, 0, None, False)
-    assert tuple(a - b for a, b in zip(_tree_launches(), before)) == (0, 0, 2)
+    assert tuple(a - b for a, b in zip(_tree_launches(), before)) == (
+        0, 0, tree_kernel.large_launches(1, g, 0, "linear", 8))
     want = tree_engine.tree_plain(arrays, lattice, 0, None, False)
     assert float(got.npv) == pytest.approx(float(want.npv), rel=1e-10)
     scale = float(want.values.abs().max())
     torch.testing.assert_close(got.values, want.values, rtol=0, atol=1e-9 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["linear", "general"])
+def test_tree_dp_large_route_decides_from_step_tables(device, dtype, mode, monkeypatch):
+    """At G = 65,536 (M = 99 node rows over 3 steps) the large route decides
+    every node row from its step's table: with the table scratch cut to two
+    steps' tables, two table launches and an ev and a decide launch a step;
+    tree_plain's values (f64 within 1e-9 of their scale, the NPV within
+    1e-10; f32 within 1e-5 of the f64 NPV) and the bits of the scratch
+    holding all three."""
+    n = 3
+    inputs, arrays, lattice = _tree_case(device, dtype, mode, 65_536, n)
+    g = arrays["grids"].shape[1]  # fixed-spacing rows hold fewer points
+    args = (0, None, False, "linear", mode != "general")
+    whole = tree_engine.tree_core(arrays, lattice, *args, route="large").values
+    one_step = intrinsic_kernel.table_len(g, 0) * dtype.itemsize
+    monkeypatch.setattr(tree_kernel, "TABLE_SCRATCH_CAP", 2 * one_step)
+    assert tree_kernel.large_table_steps(n, g, 0, dtype.itemsize) == 2
+    before = _tree_launches()
+    got = tree_engine.tree_core(arrays, lattice, *args, route="large")
+    assert tuple(a - b for a, b in zip(_tree_launches(), before)) == (0, 0, 2 + 2 * n)
+    assert torch.equal(got.values, whole)
+    want = tree_engine.tree_plain(_tree_f64(arrays), _tree_f64(lattice), *args)
+    rel = 1e-10 if dtype == torch.float64 else 1e-5
+    assert float(got.npv) == pytest.approx(float(want.npv), rel=rel)
+    if dtype == torch.float64:
+        scale = float(want.values.abs().max())
+        torch.testing.assert_close(got.values, want.values, rtol=0, atol=1e-9 * scale)
 
 
 def _wide_lattice(device, dtype, m, g, n=2, w=3, seed=5):

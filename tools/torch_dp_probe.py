@@ -143,12 +143,19 @@ def apply_patches(name: str, file: str, text: str, patches) -> str:
 
 def build_variants(csrc: Path, signatures: dict, nvcc: str, flags, variants: dict) -> dict:
     """Libraries of patched sources, one a variant, compiled together:
-    ``variants`` maps a name to (source file, a function of its text)."""
+    ``variants`` maps a name to (source file, a function of its text), and
+    a variant whose file name is "dp_common.cuh/<file>" patches that header
+    (found beside the source before ``csrc``) and compiles ``<file>``."""
     procs = {}
     for name, (file, patch) in variants.items():
         d = OUT / "variants" / name.replace("/", "_")
         d.mkdir(parents=True, exist_ok=True)
-        (d / file).write_text(patch((csrc / file).read_text()))
+        header, _, file = file.rpartition("/")
+        if header:
+            (d / header).write_text(patch((csrc / header).read_text()))
+            (d / file).write_text((csrc / file).read_text())
+        else:
+            (d / file).write_text(patch((csrc / file).read_text()))
         procs[name] = subprocess.Popen(
             [nvcc, *flags, "-shared", "-I", str(csrc), "-o", str(d / "lib.so"), str(d / file)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -392,12 +399,405 @@ def stamp_run(cs, pkg, device, card) -> dict:
     return out
 
 
+# ---- the large routes (``--large``, ``--large-variants``).
+
+# The intrinsic DP's design (b), timing only: one launch a backward phase
+# (the decisions of a step; in cubic mode the rhs, then the moments) with
+# the large route's grid, then the walk in one block; the cooperative
+# launch's place in launch_large taken by it.
+_STEP_LAUNCHES = r"""
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kGridThreads) probe_step_kernel(Problem<T> p, int t, int phase,
+                                                                  T* rhs) {
+  const size_t threads = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t spread = static_cast<size_t>(threadIdx.x) * gridDim.x + blockIdx.x;
+  const size_t g_ = static_cast<size_t>(p.G);
+  if (phase == 0) {
+    for (size_t g = first; g < g_; g += threads) {
+      p.vs[p.N * g_ + g] = p.v_end[g];
+      p.vs[g] = T(0);
+    }
+  } else if (phase == 1) {
+    decide_row<kMode>(p, t, first, threads);
+  } else if (phase == 2) {
+    rhs_row(p, t, rhs, first, threads);
+  } else {
+    moments_row(p, t, rhs, spread, threads);
+  }
+}
+
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kGridThreads) probe_walk_kernel(Problem<T> p, Plan l) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  forward_walk<kMode, true>(p, l, reinterpret_cast<T*>(smem_raw));
+}
+
+template <typename T, int kMode>
+int probe_steps(const Problem<T>& p, const Plan& l, int blocks, T* rhs, cudaStream_t s) {
+  const auto step = probe_step_kernel<T, kMode>;
+  step<<<blocks, l.threads, 0, s>>>(p, 0, 0, rhs);
+  for (int t = p.N; t >= 1; --t) {
+    if (t < p.N) step<<<blocks, l.threads, 0, s>>>(p, t, 1, rhs);
+    if (kMode == MODE_CUBIC) {
+      step<<<blocks, l.threads, 0, s>>>(p, t, 2, rhs);
+      step<<<blocks, l.threads, 0, s>>>(p, t, 3, rhs);
+    }
+  }
+  const auto walk = probe_walk_kernel<T, kMode>;
+  if (l.bytes > 48 * 1024)
+    cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(l.bytes));
+  walk<<<1, l.threads, l.bytes, s>>>(p, l);
+  return static_cast<int>(cudaGetLastError());
+}
+
+"""
+_PROBE_DISPATCH = ("  T* rhs_arg = cubic ? rhs : nullptr;\n", """  T* rhs_arg = cubic ? rhs : nullptr;
+  {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return mode == MODE_GENERAL ? probe_steps<T, MODE_GENERAL>(p, l, blocks, rhs_arg, s)
+           : mode == MODE_CUBIC ? probe_steps<T, MODE_CUBIC>(p, l, blocks, rhs_arg, s)
+                                : probe_steps<T, MODE_UNIFORM>(p, l, blocks, rhs_arg, s);
+  }
+""")
+_WALK = "  if (blockIdx.x == 0) forward_walk<kMode, true>(p, l, reinterpret_cast<T*>(smem_raw));"
+_TREE_LOOP = "  for (int hi = p.N; hi > 0; hi -= table_steps) {\n"
+_TREE_CUBIC = """      if (cubic) {
+        tree_ev_kernel<T><<<rows, kStepThreads, 0, s>>>(p, t, ev, rhs);
+        tree_moments_kernel<T><<<moments, kStepThreads, 0, s>>>(p, t, rhs, mom);
+      }
+"""
+_TREE_DECIDE = """      decide_k<<<cells, kStepThreads, 0, s>>>(p, t, table + (t - lo) * table_len, ev, mom);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+"""
+_DECIDE_ANCHOR = "// values[t][m, g] for node rows [blockIdx.y·kDecideRows, +kDecideRows) at\n"
+_BAND_EV = """template <typename T>
+__device__ __forceinline__ T band_ev(const T* band, const T* rows, int W, int G, int x) {
+  T acc = T(0);
+  for (int w = 0; w < W; ++w) acc = add(acc, mul(band[w], rows[static_cast<size_t>(w) * G + x]));
+  return acc;
+}
+
+"""
+_DECIDE_CONT = """      const T cont = node_continuation(kMode, w, ev[at], ev[at + 1], moments ? mom[at] : T(0),
+                                       moments ? mom[at + 1] : T(0), curvature, degenerate);
+"""
+_BAND_EV_CONT = """      T v_lo = kMode == MODE_CUBIC ? ev[at] : T(0), v_hi = kMode == MODE_CUBIC ? ev[at + 1] : T(0);
+      if (kMode != MODE_CUBIC) {
+        const size_t tm = static_cast<size_t>(t) * M + m0 + r;
+        const T* band = p.band + tm * p.W;
+        const T* next = p.values + (t + 1) * mg + static_cast<size_t>(p.start[tm]) * G;
+        v_lo = band_ev(band, next, p.W, G, idx);
+        v_hi = band_ev(band, next, p.W, G, idx + 1);
+      }
+      const T cont = node_continuation(kMode, w, v_lo, v_hi, moments ? mom[at] : T(0),
+                                       moments ? mom[at + 1] : T(0), curvature, degenerate);
+"""
+_EV_LAUNCH = ("      tree_ev_kernel<T><<<rows, kStepThreads, 0, s>>>(p, t, ev, cubic ? rhs : nullptr);\n")
+_STEP_SYNC = "    grid.sync();  // v_t before its moments and step t-1 read it\n"
+_WALK_STAGE = """      if (l.f_grid >= 0) stage_copy(dst + l.f_grid, p.grids + next, p.G);
+    }
+"""
+_WALK_STAGE_PREFETCH = """      if (l.f_grid >= 0) stage_copy(dst + l.f_grid, p.grids + next, p.G);
+    } else {
+      constexpr int kLine = 128 / sizeof(T);
+      for (int i = threadIdx.x * kLine; i < p.G; i += blockDim.x * kLine)
+        for (const T* row : std::initializer_list<const T*>{p.vs, p.grids, p.moments})
+          if (row) asm volatile("prefetch.global.L2 [%0];" ::"l"(row + next + i));
+    }
+"""
+_NOW = "probe_now()"
+_STAMP_PATCHES = [
+    ("namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n__device__ unsigned long long probe_ns[8];\n"
+     "__device__ __forceinline__ unsigned long long probe_now() {\n  unsigned long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n  return t;\n}\n"),
+    ("    decide_row<kMode>(p, t, first, threads);\n" + _STEP_SYNC,
+     "    const unsigned long long q0 = probe_now();\n"
+     "    decide_row<kMode>(p, t, first, threads);\n"
+     "    const unsigned long long q1 = probe_now();\n" + _STEP_SYNC +
+     "    if (blockIdx.x == 0 && threadIdx.x == 0) {\n      probe_ns[0] += q1 - q0;\n"
+     "      probe_ns[1] += probe_now() - q1;\n    }\n"),
+    ("      const Choice<T> ch = decide_lanes(st, s[S_FWD], inv, l.walk_lanes);\n",
+     "      const unsigned long long w0 = probe_now();\n"
+     "      const Choice<T> ch = decide_lanes(st, s[S_FWD], inv, l.walk_lanes);\n"
+     "      if (kLarge && threadIdx.x == 0) probe_ns[2] += probe_now() - w0;\n"),
+    ("    cp_async_wait_all();\n    __syncthreads();\n    if (c + 1 < chunks) stage_chunk",
+     "    const unsigned long long c0 = probe_now();\n    cp_async_wait_all();\n"
+     "    __syncthreads();\n    if (kLarge && threadIdx.x == 0) probe_ns[3] += probe_now() - c0;\n"
+     "    if (c + 1 < chunks) stage_chunk"),
+    (_WALK, "  const unsigned long long k0 = probe_now();\n" + _WALK +
+     "\n  if (blockIdx.x == 0 && threadIdx.x == 0) probe_ns[4] += probe_now() - k0;"),
+    ("}  // namespace\n",
+     "}  // namespace\n\nextern \"C\" int probe_read(unsigned long long* out) {\n"
+     "  return static_cast<int>(cudaMemcpyFromSymbol(out, probe_ns, sizeof(probe_ns)));\n}\n"
+     "extern \"C\" int probe_reset() {\n  unsigned long long z[8] = {0};\n"
+     "  return static_cast<int>(cudaMemcpyToSymbol(probe_ns, z, sizeof(z)));\n}\n"),
+]
+# The large routes' variants, each a text patch of one source (timing_only:
+# the answer may differ).
+LARGE_VARIANTS = {
+    "intrinsic/as_is": ("intrinsic_kernel.cu", [], False),
+    # Design (b): a launch a backward phase, the walk a launch of its own.
+    "intrinsic/step_launches": ("intrinsic_kernel.cu", [
+        ("int device_attribute(cudaDeviceAttr attr, int* value) {",
+         _STEP_LAUNCHES + "int device_attribute(cudaDeviceAttr attr, int* value) {"),
+        _PROBE_DISPATCH], False),
+    # The walk skipped: the backward's share.
+    "intrinsic/no_walk": ("intrinsic_kernel.cu", [
+        (_WALK, _WALK.replace("blockIdx.x == 0", "blockIdx.x == 0 && p.N < 0"))], True),
+    # decide()'s loop over the decisions unrolled four ways, so that their
+    # continuation loads go out together (dp_common.cuh).
+    "intrinsic/unroll_decide": ("dp_common.cuh/intrinsic_kernel.cu", [(
+        "  Choice<T> best{T(0), T(0), T(0), T(0)};\n  for (int k = 0; k < c.bb.nd; ++k) {",
+        "  Choice<T> best{T(0), T(0), T(0), T(0)};\n#pragma unroll 4\n"
+        "  for (int k = 0; k < c.bb.nd; ++k) {")], False),
+    # The walk's next rows prefetched into L2 a chunk ahead.
+    "intrinsic/walk_prefetch": ("intrinsic_kernel.cu", [(_WALK_STAGE, _WALK_STAGE_PREFETCH)],
+                                False),
+    # Every block the card holds in linear and general modes too.
+    "intrinsic/full_grid": ("intrinsic_kernel.cu", [(
+        "  return static_cast<int>(std::min<long long>(resident, (G + kGridThreads - 1) / "
+        "kGridThreads));", "  return static_cast<int>(resident);")], False),
+    # The cubic moments' rows on the blocks G needs, not every block.
+    "intrinsic/cubic_min_grid": ("intrinsic_kernel.cu", [
+        ("  if (mode == MODE_CUBIC) return static_cast<int>(resident);\n", "")], False),
+    "tree/as_is": ("tree_kernel.cu", [], False),
+    **{f"tree/rows_{k}": ("tree_kernel.cu", [("constexpr int kDecideRows = 4;",
+                                              f"constexpr int kDecideRows = {k};")], False)
+       for k in (2, 8)},
+    **{f"tree/ev_rows_{k}": ("tree_kernel.cu", [("constexpr int kEvRows = 8;",
+                                                 f"constexpr int kEvRows = {k};")], False)
+       for k in (1, 4, 16)},
+    # The ev launches, or the decide launches, left out (timing only): each
+    # one's share of a step.
+    "tree/no_ev": ("tree_kernel.cu", [(_EV_LAUNCH, "")], True),
+    "tree/no_decide": ("tree_kernel.cu", [(
+        "      decide_k<<<cells, kStepThreads, 0, s>>>(p, t, table + (t - lo) * table_len, ev, mom);\n",
+        "")], True),
+    # One table launch a step (a table of one step in L2).
+    "tree/step_tables": ("tree_kernel.cu", [(_TREE_LOOP, "  table_steps = 1;\n" + _TREE_LOOP)],
+                         False),
+    # Summing ev at each decision's two nodes from the band inside the
+    # decide (linear and general modes), with no ev launch.
+    "tree/band_ev": ("tree_kernel.cu", [
+        (_DECIDE_ANCHOR, _BAND_EV + _DECIDE_ANCHOR),
+        (_DECIDE_CONT, _BAND_EV_CONT),
+        (_EV_LAUNCH, "      if (cubic) tree_ev_kernel<T><<<rows, kStepThreads, 0, s>>>(p, t, ev, rhs);\n")],
+        False),
+    # Clock stamps (globaltimer) of block 0's thread 0: a backward step's
+    # decisions and its grid barrier, the walk's decide_lanes, its chunk
+    # waits, and the whole walk.
+    "intrinsic/stamps": ("intrinsic_kernel.cu", _STAMP_PATCHES, False),
+    # The grid barrier a step removed (timing only: the answer may differ).
+    "intrinsic/no_sync": ("intrinsic_kernel.cu", [
+        (_STEP_SYNC, "")], True),
+    # The decisions a step replaced by a store (timing only).
+    "intrinsic/no_decide": ("intrinsic_kernel.cu", [
+        ("    decide_row<kMode>(p, t, first, threads);\n",
+         "    if (first < g_) p.vs[t * g_ + first] = p.grids[t * g_ + first];\n")], True),
+}
+
+
+def hourly_intrinsic_case(cs, pkg, device, g: int):
+    """The hourly year (``chip_smoke.hourly_fwd``, 8,760 steps) at g
+    linspace points in f32: (valuation inputs, arrays)."""
+    import torch
+
+    from storage_tpu_torch import grid as gridmod
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.valuation_inputs import prepare_valuation
+
+    storage, hour, fwd = cs.hourly_fwd(pkg)
+    inputs = prepare_valuation(storage, hour, 100.0, fwd, 0.02, None)
+    lo, hi = inputs.inventory_lower, inputs.inventory_upper
+    arrays = engine.build_engine_arrays(inputs.compiled, inputs.fwd, inputs.df_settle,
+                                        inputs.df_flow, lo, hi, g, torch.float32, device,
+                                        gridmod.inventory_grids(lo, hi, g))
+    return inputs, arrays
+
+
+def large_cases(cs, pkg, device):
+    """The large routes' cases, each (kind, name, run, repeats): ``run(route)``
+    returns the outputs (a tuple of tensors) of the engine's core forced onto
+    ``route``.  The intrinsic DP at G = 32,768 on linspace and on
+    fixed-spacing rows (f32, f64), on 10,001 fixed-step rows (f64), cubic at
+    G = 6,144 (f64; a cubic grid of 32,768 points needs a [32,766]² host
+    inverse), and the hourly year at G = 3,840 (f32: just past the shared
+    route's table cap at 3,830); the tree on T1 at G = 65,536 (f32, f64), on
+    a random 8-row lattice cubic at G = 10,240 (f64), and at T3 and T5."""
+    import torch
+
+    from storage_tpu_torch.engines import intrinsic as ie
+    from storage_tpu_torch.engines import tree as te
+
+    dtypes = ((torch.float32, "f32"), (torch.float64, "f64"))
+
+    def intrinsic_run(arrays, inputs, e, interpolation, uniform):
+        tfn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
+        args = (inputs.starting_inventory, e, tfn, inputs.compiled.ratchet_is_step, interpolation,
+                uniform)
+        return lambda route: tuple(ie.intrinsic_core(arrays, *args, route=route))
+
+    def tree_run(tables, inputs, interpolation, uniform):
+        tfn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
+        return lambda route: (te.tree_core(*tables, 0, tfn, inputs.compiled.ratchet_is_step,
+                                           interpolation, uniform, route=route).values,)
+
+    for name, (case, scheme, g, grid_calc, interpolation, dts) in {
+        "linear_32768": ("headline", "linspace", cs.DP_GRID, None, "linear", dtypes),
+        "general_32768": ("headline", "fixed_spacing", cs.DP_GRID, None, "linear", dtypes),
+        "general_10001": ("headline", "custom", cs.NUM_GRID, cs.step_rows(cs.DP_STEP), "linear",
+                          dtypes[1:]),
+        "cubic_6144": ("2F", "linspace", cs.DP_CUBIC_GRID, None, "cubic", dtypes[1:]),
+    }.items():
+        inputs, arrays = cs.intrinsic_case(pkg, device, case, scheme, g, grid_calc)
+        for dt, label in dts:
+            yield ("intrinsic", f"{name}_{label}",
+                   intrinsic_run(arrays[dt], inputs, 0, interpolation, scheme == "linspace"), 3)
+        del arrays
+    for g in (3_830, 3_840):
+        inputs, arrays = hourly_intrinsic_case(cs, pkg, device, g)
+        yield "intrinsic", f"hourly_{g}_f32", intrinsic_run(arrays, inputs, 0, "linear", True), 3
+        del arrays
+    t1 = cs.csharp_tree_case(pkg)
+    inputs, tables, uniform = cs.tree_tables(pkg, device, dict(t1, g=cs.DP_TREE_GRID))
+    for dt, label in dtypes:
+        yield "tree", f"T1_65536_{label}", tree_run(tables[dt], inputs, "linear", uniform), 5
+    del tables
+    inputs, tables = cs.random_lattice_tables(pkg, device, 8, cs.DP_TREE_CUBIC_GRID, 4)
+    yield "tree", "cubic_10240_f64", tree_run(tables[torch.float64], inputs, "cubic", True), 3
+    del tables
+    for name, case in (("T3", cs.headline_tree_case(pkg, 5.5)), ("T5", cs.wide_tree_case(pkg))):
+        inputs, tables, uniform = cs.tree_tables(pkg, device, case)
+        for dt, label in dtypes:
+            yield "tree", f"{name}_{label}", tree_run(tables[dt], inputs, "linear", uniform), 5
+        del tables
+
+
+def wrapper_ms(cs, kind: str, run, repeats: int) -> float:
+    """Device ms of the DP wrapper's calls in ``run`` (``intrinsic_dp`` or
+    ``tree_dp``: CUDA events around each call, ``chip_smoke.launch_ms``), the
+    mean of ``repeats`` runs after half a second of warm-up calls: the
+    kernels alone, not the engine's host work around them."""
+    import time
+
+    import torch
+
+    from storage_tpu_torch.ops import intrinsic_kernel, tree_kernel
+
+    # Calls until half a second has passed first: the card's clocks rise
+    # under load, and a single warm-up call of a short kernel after idle
+    # host work leaves them low.
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.5:
+        run()
+        torch.cuda.synchronize()
+    module = intrinsic_kernel if kind == "intrinsic" else tree_kernel
+    return cs.launch_ms(module, f"{kind}_dp", run, repeats)[0]
+
+
+def large_run(cs, pkg, device, card, report) -> None:
+    """Each large-route case (``large_cases``) forced onto the large route:
+    its digests, its ms (``wrapper_ms``) and, where the shape also fits the shared or
+    cluster route, whether that route gives the same bits; the hourly year
+    at G = 3,830 also timed on the shared route (the crossing)."""
+    import torch
+
+    report["digests"]["large"], report["large_ms"], report["large_same_as_own"] = {}, {}, {}
+    for kind, name, run, repeats in large_cases(cs, pkg, device):
+        out = run("large")
+        torch.cuda.synchronize()
+        report["digests"]["large"][f"{kind}_{name}"] = digest(*out)
+        ms = wrapper_ms(cs, kind, lambda: run("large"), repeats)
+        report["large_ms"][f"{kind}_{name}"] = ms
+        line = f"large {kind} {name}: {ms:.4f} ms (CUDA events around the DP's wrapper)"
+        own = {"T3": "cluster", "T5": "steps", "hourly_3830": "shared"}.get(name.rsplit("_", 1)[0])
+        if own:
+            other = run(own)
+            same = all(torch.equal(a, b) for a, b in zip(out, other))
+            report["large_same_as_own"][f"{kind}_{name}"] = same
+            line += f"; the {own} route's bits: {same}"
+            if own == "shared":
+                shared_ms = wrapper_ms(cs, kind, lambda: run("shared"), repeats)
+                report["large_ms"][f"{kind}_{name}_shared"] = shared_ms
+                line += f", the shared route {shared_ms:.4f} ms"
+        print(f"{line} [{card}]", flush=True)
+        del run
+        torch.cuda.empty_cache()
+
+
+def stamps_ns(lib, run, n: int) -> dict:
+    """One call of ``run`` on the stamps variant's library: ns a step of
+    the backward's decisions and grid barrier (block 0's thread 0, N-1
+    steps), the walk's decide_lanes and chunk waits (N steps), and the whole
+    walk in ms."""
+    import torch
+
+    cdll = ctypes.CDLL(str(lib.path))
+    cdll.probe_reset()
+    run()
+    torch.cuda.synchronize()
+    acc = (ctypes.c_ulonglong * 8)()
+    cdll.probe_read(acc)
+    return {"decide": acc[0] / (n - 1), "barrier": acc[1] / (n - 1), "walk_decide": acc[2] / n,
+            "walk_chunk_wait": acc[3] / n, "walk_ms": acc[4] / 1e6}
+
+
+def large_variants(cs, pkg, device, card) -> list:
+    """The large routes' variants (``LARGE_VARIANTS``, built together): each
+    one's ms on the intrinsic DP's (or the tree's) large cases and whether
+    its outputs are the as-is kernel's bits."""
+    import torch
+
+    from storage_tpu_torch.ops import _build
+
+    libs = build_variants(_build.CSRC, _build.SIGNATURES, _build.find_nvcc(),
+                          _build.COMPILE_FLAGS,
+                          {k: (f, lambda text, k=k, f=f, p=p: apply_patches(k, f, text, p))
+                           for k, (f, p, _) in LARGE_VARIANTS.items()})
+    keep = {"linear_32768_f32", "linear_32768_f64", "cubic_6144_f64", "hourly_3840_f32",
+            "T1_65536_f32", "T1_65536_f64", "cubic_10240_f64"}
+    rows = []
+    real_library = _build.library
+    try:
+        for kind, name, run, repeats in large_cases(cs, pkg, device):
+            if name not in keep:
+                continue
+            want = run("large")
+            for variant, lib in libs.items():
+                if not variant.startswith(kind):
+                    continue
+                _build.library = lambda lib=lib: lib  # noqa: E731
+                got = run("large")
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                ms = wrapper_ms(cs, kind, lambda: run("large"), repeats)
+                row = dict(variant=variant, case=name, ms=ms, same_bits=same,
+                           timing_only=LARGE_VARIANTS[variant][2])
+                if variant.endswith("stamps"):
+                    row["stamps_ns"] = stamps_ns(lib, lambda: run("large"), got[1].numel() - 1)
+                _build.library = real_library
+                rows.append(row)
+                print(f"{variant:26s} {name:18s} {ms:.4f} ms, the as-is bits: {same}"
+                      + (f"; ns a step: {row['stamps_ns']}" if "stamps_ns" in row else "")
+                      + f" [{card}]", flush=True)
+            del run, want
+            torch.cuda.empty_cache()
+    finally:
+        _build.library = real_library
+    return rows
+
+
 def compare(a: Path, b: Path) -> int:
     ra, rb = json.loads(a.read_text()), json.loads(b.read_text())
     differ = 0
-    for kind in ("tree", "intrinsic"):
+    for kind in ra["digests"]:
         for case, want in ra["digests"][kind].items():
-            got = rb["digests"][kind].get(case)
+            got = rb["digests"].get(kind, {}).get(case)
             same = got == want
             differ += not same
             print(f"{kind} {case}: {'same bits' if same else 'DIFFER'}", flush=True)
@@ -416,6 +816,10 @@ def main(argv) -> int:
                     help="time the design's variants (DESIGN_VARIANTS) instead")
     ap.add_argument("--stamps", action="store_true",
                     help="time the DP kernels' phases by clock stamps (STAMPS) instead")
+    ap.add_argument("--large", action="store_true",
+                    help="only the large routes' cases: digests and times (large_run)")
+    ap.add_argument("--large-variants", action="store_true",
+                    help="time the large routes' variants (LARGE_VARIANTS) instead")
     args = ap.parse_args(argv[1:])
     if args.compare:
         return compare(*args.compare)
@@ -442,6 +846,12 @@ def main(argv) -> int:
                                                                   indent=1))
         print(card)
         return 0
+    if args.large_variants:
+        rows = large_variants(cs, pkg, device, card)
+        (OUT / f"{args.label}_large_variants.json").write_text(
+            json.dumps(dict(card=card, variants=rows), indent=1))
+        print(card)
+        return 0
     if args.variants:
         rows = design_variants(cs, pkg, device, card)
         (OUT / f"{args.label}_variants.json").write_text(json.dumps(dict(card=card, variants=rows),
@@ -450,6 +860,13 @@ def main(argv) -> int:
         return 0
     report = dict(card=card, label=args.label, package=str(Path(pkg.__file__).parent),
                   digests={"tree": {}, "intrinsic": {}}, npv={})
+    if args.large:
+        large_run(cs, pkg, device, card, report)
+        out = OUT / f"{args.label}.json"
+        out.write_text(json.dumps(report, indent=1))
+        print(f"report: {out.relative_to(REPO)}")
+        print(card)
+        return 0
     dtypes = ((torch.float32, "f32"), (torch.float64, "f64"))
 
     # ---- the tree.
