@@ -95,7 +95,8 @@
    route.  The Python route sizing equals each kernel's launch report
    (``kernel_info``'s max_grid) at 19 shapes, and the blocks per SM the
    route rule counts (B's two routes, D's kernel at 13 basis sizes) equal
-   the launch reports' at 45; each large route (B, E, D at
+   the launch reports' at 57 (C's on both sides of each crossing of its
+   blocks rule); each large route (B, E, D at
    B=4 and 9, C monomial, general-grid and design mode) forced at G=100 (D
    at G=1,000) gives its shared route's bits; at G=4,096 on random inputs
    (S=65,536) each gives its plain version's bits or flips only on
@@ -103,7 +104,14 @@
    bound (the kernels line's ``*_large`` rows; B and E also on rows
    following g, ``band_rows_ms``, with B's launch report; D's with its
    registers, spills and blocks per SM at B=4 and 9, after
-   ``pack_records`` held to its plain version's bits and timed).  Then,
+   ``pack_records`` held to its plain version's bits and timed by its own
+   device time under torch.profiler at G=4,096 and 100).  Kernel C's
+   digests: in every mode (monomial, general-grid on bunched, padded,
+   custom and ascending rows, design, design on padded rows) on each route
+   at G=100, 1,000 and 4,096 (``c_digest_cases``), the SHA-256 digests of
+   its outputs equal the parent commit's (``C_DIGESTS``) and its plain
+   version's values with no error and no flip; the log prints the bucket
+   index's largest bracket on the padded rows.  Then,
    counters reset before each: the headline with every large route forced
    at G=100 (the pinned ``MAIN_NPV``/``MAIN_SE`` bits); the headline at
    G=1,000 (B on its large route by the rule: its routes, NPV,
@@ -345,6 +353,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                               "storage_tpu/engines/lsmc.py:990"),
     "forward_sweep_design_general": ("storage_tpu_torch/csrc/forward_kernel.cu",
                                      "storage_tpu/engines/lsmc.py:990"),
+    # Its bucket index over each next grid row, built before each launch of
+    # the general-grid mode (the JAX forward step counts nodes instead).
+    "general_tail": ("storage_tpu_torch/csrc/forward_kernel.cu",
+                     "storage_tpu/engines/lsmc.py:990"),
     # The large grid routes (the grids phase): B, D and E with their step
     # tables a tile of grid points at a time, C's three modes with the
     # coefficients and grid rows in device memory.
@@ -401,6 +413,10 @@ EXP_F32_OPS = 8
 # (~12).
 DP_OPS_PER_DECISION = 31
 DP_OPS_PER_INVENTORY = 22
+# A probe of the binary search of a general row (dp_common.cuh
+# general_weights): the midpoint (an add and a shift), the load, the compare
+# and the select.
+DP_SEARCH_OPS_PER_PROBE = 4
 # A decision from its table entry (dp_common.cuh entry_total): the PV at the
 # price (7), the lerp on the next row (3), the total (1) and the argmax (2).
 DP_OPS_PER_ENTRY = 13
@@ -1177,25 +1193,100 @@ def check_kernels(pkg, device):
     return results
 
 
+# Kernel C's instructions a sim and step, priced by issue slot from
+# csrc/forward_sweep.cuh: every product and sum is rounded on its own (no
+# FMA), and each instruction, whatever its class (loads, shuffles, selects,
+# compares), takes one slot; an IEEE division __fdiv_rn takes about seven
+# (MUFU.RCP, four FFMAs, FCHK and its branch).
+DIV_SLOTS = 7
+# A monomial design entry (design_entry): its term words and values loaded
+# from shared memory, ~one power's product and one ipow multiply, the
+# subtraction and the division; ~6 integer operations (shift, mask,
+# addresses) a term.
+DESIGN_TERM_SLOTS = 3 + 2 + 1 + DIV_SLOTS
+DESIGN_TERM_INT_OPS = 6
+# A ratchet segment (linear): two subtractions, a select, a division, a
+# clamp, two lerps of four and the selects; 3R loads and 2 for the clamp.
+RATCHET_SEGMENT_SLOTS = 10 + DIV_SLOTS
+# The bang-bang set: ~14 f32 operations and selects.
+BANG_BANG_SLOTS = 14
+# A decision, besides its continuation's 4B − 2 products and sums and its
+# loads: the volume (3), the target (2), the lerp (4), the immediate value
+# (12) and the argmax (6).
+DECISION_SLOTS = 3 + 2 + 4 + 12 + 6
+# Placing a target: on an evenly spaced row, the position arithmetic (9 and
+# 3 integer); on a general row from the bucket index (indexed_weights), the
+# clamp and bucket (7), two count and four node loads, ~8 compares and
+# selects, and the weight (4 and a division), with ~6 integer operations.
+UNIFORM_PLACE = (9, 3)
+INDEXED_PLACE = (7 + 6 + 8 + 4 + DIV_SLOTS, 6)
+# A cross-sim sum (inventory, volume, fuel, loss, immediate value, delta
+# numerator, the design row's B terms): what the function needs is one add
+# a sim, and a block of 256 sims stores its partial, which the reduce reads
+# and adds (CROSS_SUM_BLOCK_SLOTS a block).  The kernel's own way, a warp
+# butterfly in every lane (five shuffles and five adds, the select of a
+# valid sim and lane 0's store: WARP_SUM_SLOTS), is its design, not the
+# function's: its cost beyond the add is reported beside the bound
+# (butterfly_ms), not in it.
+CROSS_SUM_SLOTS = 1
+CROSS_SUM_BLOCK_SLOTS = 2
+WARP_SUM_SLOTS = 12
+
+
+def forward_issue(b, d, r, design: bool, general: bool, large: bool) -> tuple:
+    """(issue slots that are not integer arithmetic, integer operations) of
+    kernel C a sim and step: the staged values' cp.async, the design row,
+    the ratchet rates, the bang-bang set, D decisions (placing each target,
+    its continuation's two rows: 2B loads from shared memory, or on the large
+    route 2·ceil(B/4) 16-byte loads) and an add a sim for each of the 6 + B
+    cross-sim sums."""
+    staged = b if design else 3
+    slots = 1 + staged + BANG_BANG_SLOTS + 3 * r + 2 + (r - 1) * RATCHET_SEGMENT_SLOTS
+    ints = 2 * (1 + staged)
+    if design:
+        slots += b * (2 + DIV_SLOTS)
+    else:
+        slots += b * DESIGN_TERM_SLOTS
+        ints += b * DESIGN_TERM_INT_OPS
+    place = INDEXED_PLACE if general else UNIFORM_PLACE
+    loads = 2 * math.ceil(b / 4) if large else 2 * b
+    slots += d * (DECISION_SLOTS + 4 * b - 2 + place[0] + loads)
+    ints += d * (place[1] + (4 if large else 2 * b))
+    slots += (6 + b) * CROSS_SUM_SLOTS
+    return float(slots), float(ints)
+
+
+def butterfly_ms(n, s, b) -> float:
+    """The time at the unfused rate of what kernel C's warp butterflies
+    issue beyond the one add a sim of its 6 + B cross-sim sums, over N steps
+    of S sims: the design's cost above ``forward_work``'s bound, not part
+    of it."""
+    return 1e3 * n * s * (6 + b) * (WARP_SUM_SLOTS - CROSS_SUM_SLOTS) / F32_UNFUSED_OPS_PER_S
+
+
 def forward_work(n, s, f, b, g, r, d, panels: bool, design: bool = False,
-                 general: bool = False):
-    """(bytes, f32 operations) of a forward sweep of N steps over S sims, each
-    input read once and each output written once: per step and sim its spot
-    and F factor values in (with ``design``, its B raw design values in their
-    place); once each sim's starting inventory in and final inventory and PV
-    out; every step's packed tables in and sums and summed design row out;
-    with the panels, four [N, S] rows out.  Operations per sim and step: the
-    design row (~5B; standardising a read design, 2B) and, per decision, the
-    continuation at two rows (4B) and ~25 more; in the general-grid mode
-    (its tables one grid row longer) the search, ~4·log2(G) more."""
+                 general: bool = False, large: bool = False):
+    """(bytes, fused f32 operations, other issue slots, integer operations)
+    of a forward sweep of N steps over S sims, ``bound``'s arguments.  Bytes:
+    each input read once and each output written once: per step and sim its
+    spot and F factor values in (with ``design``, its B raw design values in
+    their place); once each sim's starting inventory in and final inventory
+    and PV out; every step's tables in (coefficients and, in the
+    general-grid mode, the next grid row: the bucket index is the wrapper's,
+    ``general_tail_work``) and sums and summed design row out; with the
+    panels, four [N, S] rows out.  Operations: none fused;
+    ``forward_issue`` a sim and step, and each block of 256 sims' partials
+    of the 6 + B sums a step."""
     from storage_tpu_torch.ops import forward_kernel
 
-    width = forward_kernel.table_layout(b, r, g, general)[1]
+    width = forward_kernel.table_layout(b, r, g)[1] + (g if general else 0)
     staged = b if design else f
     num_bytes = 4.0 * ((1 + staged) * n * s + 3 * s + n * width
                        + n * (forward_kernel.NUM_SUMS + b) + (4 * n * s if panels else 0))
-    search = 4 * math.ceil(math.log2(max(g - 2, 2))) if general else 0
-    return num_bytes, float(n) * s * ((2 if design else 5) * b + d * (4 * b + 25 + search))
+    slots, ints = forward_issue(b, d, r, design, general, large)
+    blocks = -(-s // 256)
+    slots = float(n) * (s * slots + blocks * (6 + b) * CROSS_SUM_BLOCK_SLOTS)
+    return num_bytes, 0.0, slots, float(n) * s * ints
 
 
 def forward_sweep_inputs(pkg, device, st, monomials=None):
@@ -1460,7 +1551,7 @@ def check_forward(pkg, device, st) -> dict:
         bit_identical_with_panels=same_panels, smem_bytes=info["smem_bytes"],
         blocks_per_sm=info["blocks_per_sm"], registers=info["registers"],
         sims_per_block=info["sims_per_block"], max_grid=info["max_grid"],
-        sass_instructions=sass,
+        sass_instructions=sass, butterfly_ms=butterfly_ms(n, s, b_dim),
         step=dict(max_abs_err=err_c, flips=flips_c, sums_max_rel_err=sums_err),
         **{name: {k: v_ for k, v_ in c.items() if k != "text"} for name, c in checks.items()},
         **bnd)
@@ -1913,6 +2004,7 @@ def check_design_mode(pkg, device) -> dict:
         big_grid={k: v_ for k, v_ in cmp_big.items() if k != "text"},
         smem_bytes=info["smem_bytes"], blocks_per_sm=info["blocks_per_sm"],
         registers=info["registers"], sass_instructions=sass,
+        butterfly_ms=butterfly_ms(n, s, b_dim),
         decision_update_b9=dict(ms=d9_ms, plain_ms=d9_plain_ms, bound_ms=d9_bnd["bound_ms"],
                                 bound_by=d9_bnd["bound_by"],
                                 **{k: v_ for k, v_ in cmp_d9.items() if k != "text"}),
@@ -2272,11 +2364,14 @@ def check_caps(pkg, device) -> dict:
                            1)
         bnd = bound(*forward_work(steps, s, 0, 20, g, r_, 3, panels=False, design=True,
                                   general=grid is not None))
+        route = forward_kernel.sweep_route(g, 20, r_, 20, 0, _build.smem_limit(device), True,
+                                           grid is not None)
         info = forward_kernel.kernel_info(g, 20, r_, 0, 0, device, design=True,
-                                          general=grid is not None)
-        ptx = ptxas_report(forward_kernel.sass_name(0, design=True, general=grid is not None))
+                                          general=grid is not None, large=route == "large")
+        ptx = ptxas_report(forward_kernel.sass_name(0, design=True, general=grid is not None,
+                                                    large=route == "large"))
         log(f"caps: kernel C forward_sweep_design [N={steps}, S={s}, G={g}, D=3, B=20, {mode} "
-            f"rows, wide route], the 20 terms' backward tables and the valuation paths: "
+            f"rows, wide route, {route}], the 20 terms' backward tables and the valuation paths: "
             f"{cmp['text']}; {ms:.4f} ms a launch over all {steps} steps, plain {plain_ms:.1f} ms, "
             f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); {info['smem_bytes']} bytes of "
             f"shared memory (G <= {info['max_grid']}), {info['blocks_per_sm']} blocks per SM, "
@@ -2285,7 +2380,7 @@ def check_caps(pkg, device) -> dict:
             raise AssertionError(f"kernel C's design mode at B=20 ({mode} rows) disagrees with its "
                                  f"plain version: {cmp['text']}")
         out["forward_sweep_design"][f"b20_{mode}"] = dict(
-            N=steps, max_abs_err=cmp["max_abs_err"], flips=cmp["flips"],
+            N=steps, route=route, max_abs_err=cmp["max_abs_err"], flips=cmp["flips"],
             unexplained_flips=cmp["unexplained_flips"], ms=ms, plain_ms=plain_ms,
             bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None,
             smem_bytes=info["smem_bytes"], max_grid=info["max_grid"],
@@ -2441,6 +2536,226 @@ def bunched_rows(params, g: int, real: int):
     return torch.cat([rows, rows[:, -1:].expand(-1, g - real)], dim=1).contiguous()
 
 
+def ascending_rows(params, g: int):
+    """Bunched rows [N, G] over each step's band taken in ascending order,
+    the last three points repeated: ``random_sweep``'s bands invert after
+    step 100, where ``bunched_rows`` would descend; these ascend at every
+    step, as a custom grid's rows do."""
+    import torch
+
+    from storage_tpu_torch.ops import forward_kernel
+
+    lo = params[:, forward_kernel._P_GRID_LO]
+    hi = params[:, forward_kernel._P_GRID_HI]
+    a, b = torch.minimum(lo, hi), torch.maximum(lo, hi)
+    u = torch.linspace(0.0, 1.0, g, device=params.device) ** 1.3
+    rows = a[:, None] + (b - a)[:, None] * u
+    rows[:, g - 3:] = rows[:, g - 4:g - 3]
+    return rows.contiguous()
+
+
+def custom_rows(params, g: int, seed: int):
+    """Rows [N, G] over each step's next band of sorted random nodes with
+    exact interior repeats (every fifth node the one before it): a custom
+    grid that is neither evenly spaced nor bunched."""
+    import torch
+
+    from storage_tpu_torch.ops import forward_kernel
+
+    gen = torch.Generator(device=params.device).manual_seed(seed)
+    lo = params[:, forward_kernel._P_GRID_LO]
+    hi = params[:, forward_kernel._P_GRID_HI]
+    u = torch.sort(torch.rand((params.shape[0], g), generator=gen, device=params.device),
+                   dim=1).values
+    u[:, 0], u[:, -1] = 0.0, 1.0
+    rep = u[:, 2:g - 1:5]
+    u[:, 2:g - 1:5] = u[:, 1:g - 1:5][:, :rep.shape[1]]
+    return (lo[:, None] + (hi - lo)[:, None] * u).contiguous()
+
+
+# SHA-256 of kernel C's outputs on each digest case (c_digest_cases), from
+# the kernels of the commit before the bucket-index search and the 16-byte
+# coefficient loads (tools/torch_forward_probe.py --smoke-digests on an
+# NVIDIA H100 80GB HBM3): every redesign of C keeps these bits.
+C_DIGESTS = {
+    "monomial_G100_shared":
+        "9b255d429938d639b5c92bb366344021b8d4338b7ba41fc14124ae9b2d3bec1b",
+    "general_bunched_G100_shared":
+        "aee1af93c1759fbc6d0e047a443a8ae52b7f23b4687834dd86c9bdc9fa8cd44e",
+    "general_padded_G100_shared":
+        "c7a8afceb80728cf1c164f9259bfec77a7eb5546ef3b0a3e59a718517a5117a1",
+    "general_custom_G100_shared":
+        "3d3559d8531bb9a74411d9071ea6a74bf596d676299c7e5310a884ac5abf25d3",
+    "design_G100_shared":
+        "9b255d429938d639b5c92bb366344021b8d4338b7ba41fc14124ae9b2d3bec1b",
+    "design_general_padded_G100_shared":
+        "c7a8afceb80728cf1c164f9259bfec77a7eb5546ef3b0a3e59a718517a5117a1",
+    "monomial_G100_large":
+        "9b255d429938d639b5c92bb366344021b8d4338b7ba41fc14124ae9b2d3bec1b",
+    "general_bunched_G100_large":
+        "aee1af93c1759fbc6d0e047a443a8ae52b7f23b4687834dd86c9bdc9fa8cd44e",
+    "general_padded_G100_large":
+        "c7a8afceb80728cf1c164f9259bfec77a7eb5546ef3b0a3e59a718517a5117a1",
+    "general_custom_G100_large":
+        "3d3559d8531bb9a74411d9071ea6a74bf596d676299c7e5310a884ac5abf25d3",
+    "design_G100_large":
+        "9b255d429938d639b5c92bb366344021b8d4338b7ba41fc14124ae9b2d3bec1b",
+    "design_general_padded_G100_large":
+        "c7a8afceb80728cf1c164f9259bfec77a7eb5546ef3b0a3e59a718517a5117a1",
+    "monomial_G1000_shared":
+        "382b1ca1a1ef6f5d02d52f909df467bdd85587765415ceaa5525998d0fbd21de",
+    "general_bunched_G1000_shared":
+        "fab2e9bbf61a5c6b58dea6ec4051d9abea50dc87819b9a095e847f01e025f293",
+    "general_padded_G1000_shared":
+        "816b883e39b411b73e53db1f0e5d3b4f53196260a6df4c0fc56b89326bc68f81",
+    "general_custom_G1000_shared":
+        "7f2445f964b4534320cf88d42a87f8e74a1be1ecd157bca25af986dede9f20cc",
+    "design_G1000_shared":
+        "382b1ca1a1ef6f5d02d52f909df467bdd85587765415ceaa5525998d0fbd21de",
+    "design_general_padded_G1000_shared":
+        "816b883e39b411b73e53db1f0e5d3b4f53196260a6df4c0fc56b89326bc68f81",
+    "monomial_G1000_large":
+        "382b1ca1a1ef6f5d02d52f909df467bdd85587765415ceaa5525998d0fbd21de",
+    "general_bunched_G1000_large":
+        "fab2e9bbf61a5c6b58dea6ec4051d9abea50dc87819b9a095e847f01e025f293",
+    "general_padded_G1000_large":
+        "816b883e39b411b73e53db1f0e5d3b4f53196260a6df4c0fc56b89326bc68f81",
+    "general_custom_G1000_large":
+        "7f2445f964b4534320cf88d42a87f8e74a1be1ecd157bca25af986dede9f20cc",
+    "design_G1000_large":
+        "382b1ca1a1ef6f5d02d52f909df467bdd85587765415ceaa5525998d0fbd21de",
+    "design_general_padded_G1000_large":
+        "816b883e39b411b73e53db1f0e5d3b4f53196260a6df4c0fc56b89326bc68f81",
+    "monomial_G4096_large":
+        "690c52d3d508afb5c92f01f8fdc2bd9526f0ab0c597859ff569273c9af41e3f7",
+    "general_bunched_G4096_large":
+        "8cdb874d81209e1057d9c3c40ade215c8c946046e3f8369658e4b59e1ef11087",
+    "general_padded_G4096_large":
+        "95f087d6f3a73953c3abb722dfb2e48ff8f67d010cf632c448c71e867ac31b5a",
+    "general_custom_G4096_large":
+        "570722b9d84766f39bdd0d7e39b0ebf9b78e0958c2c71dba00b4f81b768a451c",
+    "design_G4096_large":
+        "690c52d3d508afb5c92f01f8fdc2bd9526f0ab0c597859ff569273c9af41e3f7",
+    "design_general_padded_G4096_large":
+        "95f087d6f3a73953c3abb722dfb2e48ff8f67d010cf632c448c71e867ac31b5a",
+    "general_ascending_G1000_shared":
+        "59822f8397cbff037a005dbb7b4ba46a163697112b2287125bcff06812891079",
+    "general_ascending_G1000_large":
+        "59822f8397cbff037a005dbb7b4ba46a163697112b2287125bcff06812891079",
+}
+
+# Kernel C's digest cases (c_digest_cases): N = 32 steps (160 on the
+# ascending rows) at S = GRID_CHECK_SIMS, B = 9, F = 3.
+C_DIGEST_STEPS = 32
+C_LONG_STEPS = 160
+
+
+def c_digest_cases(device) -> dict:
+    """Kernel C's fixed inputs for its SHA-256 digests, {name: (mode, args,
+    design, grid, route)}: ``random_sweep``'s tables (seed 41) at G = 100,
+    1,000 and 4,096, on each route that takes them (the shared route up to
+    1,000), in the monomial mode on evenly spaced rows, in the general-grid
+    mode on bunched, padded (G/8 repeats of the last node) and custom rows,
+    in the design mode, and in the design mode on padded rows; and 160 steps
+    at G = 1,000 on ``ascending_rows``.  Every row is non-decreasing, as a
+    valuation's are."""
+    import torch
+
+    from storage_tpu_torch.basis import design_columns
+
+    cases = {}
+    for g in (NUM_GRID, BIG_GRID, GRID_BIG):
+        args = random_sweep(device, C_DIGEST_STEPS, GRID_CHECK_SIMS, g, 3, seed=41)
+        design = torch.stack(design_columns(args[11], args[6], args[7]), dim=1)
+        rows = dict(bunched=bunched_rows(args[0], g, g),
+                    padded=bunched_rows(args[0], g, g - g // 8),
+                    custom=custom_rows(args[0], g, seed=43))
+        for route in ("shared", "large") if g <= BIG_GRID else ("large",):
+            tag = f"G{g}_{route}"
+            cases[f"monomial_{tag}"] = ("monomial", args, None, None, route)
+            for kind, grid in rows.items():
+                cases[f"general_{kind}_{tag}"] = ("monomial", args, None, grid, route)
+            cases[f"design_{tag}"] = ("design", args, design, None, route)
+            cases[f"design_general_padded_{tag}"] = ("design", args, design, rows["padded"], route)
+    args = random_sweep(device, C_LONG_STEPS, GRID_CHECK_SIMS, BIG_GRID, 3, seed=41)
+    grid = ascending_rows(args[0], BIG_GRID)
+    for route in ("shared", "large"):
+        cases[f"general_ascending_G{BIG_GRID}_{route}"] = ("monomial", args, None, grid, route)
+    return cases
+
+
+def c_outputs(fk, case) -> list:
+    """Kernel C's outputs on a digest case through the forward_kernel module
+    ``fk``: final inventory and PV, sums, summed design rows, and the four
+    per-sim panels."""
+    import torch
+
+    mode, args, design, grid, route = case
+    n, s = args[6].shape
+    panels = [torch.empty((n, s), device=args[6].device) for _ in range(4)]
+    if mode == "design":
+        out = fk.forward_sweep_design(*design_args(args, design), panels=panels, grid=grid,
+                                      route=route)
+    else:
+        out = fk.forward_sweep(*args, panels=panels, grid=grid, route=route)
+    return [*out, *panels]
+
+
+def sha256_of(tensors) -> str:
+    """SHA-256 of tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_c_digests(device) -> dict:
+    """Kernel C on every digest case: its outputs' SHA-256 digests against
+    the parent commit's (``C_DIGESTS``, from ``tools/torch_forward_probe.py
+    --smoke-digests``), and each case against its plain version with no
+    error and no flipped path; the widest bracket of the bucket index on the
+    padded rows (the in-bucket search's largest)."""
+    from storage_tpu_torch.ops import forward_kernel
+
+    t0 = time.perf_counter()
+    cases = c_digest_cases(device)
+    got, bad, widest = {}, [], {}
+    for name, case in cases.items():
+        mode, args, design, grid, route = case
+        outs = c_outputs(forward_kernel, case)
+        got[name] = sha256_of(outs)
+        cmp = compare_sweep(args, tuple(outs[:4]), outs[4:], design=design, grid=grid)
+        exact = cmp["max_abs_err"] == 0.0 and cmp["flips"] == 0 and cmp["ok"]
+        if not exact or got[name] != C_DIGESTS.get(name):
+            bad.append((name, got[name][:16], cmp["text"]))
+        if grid is not None and "padded" in name:
+            widest[name] = int(forward_kernel.general_brackets(
+                forward_kernel.general_tail(grid)).max())
+        del outs
+    log(f"kernel C digests: {len(cases) - len(bad)} of {len(cases)} cases (every mode, both "
+        f"routes, G = {NUM_GRID}, {BIG_GRID}, {GRID_BIG}; evenly spaced, bunched, padded, custom "
+        f"and ascending rows) have the parent's SHA-256 digests and their plain version's values "
+        f"(0 error, 0 flips); the in-bucket search's largest bracket on the padded rows: "
+        f"{max(widest.values())} nodes ({widest}); {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"kernel C's outputs part from the parent's digests or from their "
+                             f"plain version: {bad}")
+    return dict(cases=len(cases), digests=got, largest_bracket_padded=max(widest.values()),
+                brackets=widest)
+
+
+def general_tail_work(n: int, g: int) -> tuple:
+    """(bytes, fused, other issue slots, integer operations) of the bucket
+    index over N rows of G nodes (``forward_kernel.general_tail``): each row
+    read once, its 2G + 1 words written once; a node's copy, order check
+    and bucket (~8 slots: the load, the store, the compare, the
+    subtraction, product, floor and minimum) and a count's store and loop
+    (~3 integer operations)."""
+    return 4.0 * n * (g + 2 * g + 1), 0.0, 8.0 * n * g, 3.0 * n * g
+
+
 def vjp_work(n: int, s: int) -> tuple:
     """(bytes, unfused f32 operations) of the forward sweep's VJP: three
     [N, S] panels and g [S] in, fwd and df_settle in and grad out [N]; per
@@ -2530,6 +2845,29 @@ def check_adjoint_kernels(pkg, device) -> dict:
     big = random_sweep(device, 8, BIG_SIMS, BIG_GRID, 3, seed=17)
     cmp_big = compare_sweep(big, grid=bunched_rows(big[0], BIG_GRID, BIG_GRID - 10))
     del big
+    tails = {}
+    big_rows = bunched_rows(params, GRID_BIG, GRID_BIG - GRID_BIG // 8)
+    for name, rows_t in (("main", rows), ("padded", padded), ("big", big_rows)):
+        got_t = forward_kernel.general_tail(rows_t)
+        want_t = forward_kernel.general_tail_plain(rows_t)
+        tails[name] = dict(
+            same=torch.equal(got_t.view(torch.int32), want_t.view(torch.int32)),
+            ms=cuda_ms(lambda rows_t=rows_t: forward_kernel.general_tail(rows_t), 50),
+            plain_ms=cuda_ms(lambda rows_t=rows_t: forward_kernel.general_tail_plain(rows_t), 5),
+            bound=bound(*general_tail_work(*rows_t.shape)),
+            largest_bracket=int(forward_kernel.general_brackets(got_t).max()),
+            grid=rows_t.shape[1])
+        del got_t, want_t
+    log(f"general_tail (the general-grid mode's bucket index) [N={n}; G={g_}, padded, "
+        f"{GRID_BIG}]: its plain version's bits: "
+        f"{[t_['same'] for t_ in tails.values()]}; {tails['main']['ms']:.4f} / "
+        f"{tails['big']['ms']:.4f} ms a launch (G={g_} / {GRID_BIG}) vs plain "
+        f"{tails['main']['plain_ms']:.3f} / {tails['big']['plain_ms']:.3f} ms, bound "
+        f"{tails['main']['bound']['bound_ms']:.5f} / {tails['big']['bound']['bound_ms']:.5f} "
+        f"ms; largest bracket {tails['padded']['largest_bracket']} nodes on the padded rows, "
+        f"{tails['big']['largest_bracket']} at G={GRID_BIG}")
+    if not all(t_["same"] for t_ in tails.values()):
+        raise AssertionError("general_tail parts from its plain version's bits")
     info = forward_kernel.kernel_info(g_, b_dim, r_, 3, 0, device, general=True)
     info_d = forward_kernel.kernel_info(g_, b_dim, r_, 0, 0, device, design=True, general=True)
     bnd_g = bound(*forward_work(n, s, 3, b_dim, g_, r_, 3, panels=False, general=True))
@@ -2558,15 +2896,21 @@ def check_adjoint_kernels(pkg, device) -> dict:
         uniform_ms=ms_uniform, big_grid={k: v_ for k, v_ in cmp_big.items() if k != "text"},
         smem_bytes=info["smem_bytes"], blocks_per_sm=info["blocks_per_sm"],
         registers=info["registers"], max_grid=info["max_grid"],
+        butterfly_ms=butterfly_ms(n, s, b_dim),
         **{k: v_ for k, v_ in cmp_mono.items() if k not in ("text", "max_abs_err", "ok")}, **bnd_g)
     design_general = dict(
         max_abs_err=cmp_design["max_abs_err"], ms=ms_design, plain_ms=plain_design_ms,
         uniform_ms=ms_design_uniform, smem_bytes=info_d["smem_bytes"],
         blocks_per_sm=info_d["blocks_per_sm"], registers=info_d["registers"],
+        butterfly_ms=butterfly_ms(n, s, b_dim),
         **{k: v_ for k, v_ in cmp_design.items() if k not in ("text", "max_abs_err", "ok")},
         **bnd_d)
+    tail_row = dict(max_abs_err=0.0, ms=tails["main"]["ms"], plain_ms=tails["main"]["plain_ms"],
+                    grid=g_, big_grid_ms=tails["big"]["ms"],
+                    big_grid_bound_ms=tails["big"]["bound"]["bound_ms"],
+                    largest_bracket=tails["padded"]["largest_bracket"], **tails["main"]["bound"])
     return {"forward_sweep_vjp": vjp, "forward_sweep_general": general,
-            "forward_sweep_design_general": design_general}
+            "forward_sweep_design_general": design_general, "general_tail": tail_row}
 
 
 def interleaved_walls(fns: dict, rounds: int) -> dict:
@@ -2666,7 +3010,7 @@ def adjoint_grid_phase(pkg, device, counts, main) -> dict:
                              peak_memory_gb=peak_gb, launches=adj_launches)
 
     # ---- the headline on a custom grid.
-    general = {**main_launches, "forward_sweep_general": 1}
+    general = {**main_launches, "forward_sweep_general": 1, "general_tail": 1}
     custom, custom_launches = run(general, grid_calc=bunched_grid)
     walls_c = api_walls(lambda: value(pkg, device, True, grid_calc=bunched_grid), 3)
     custom_wall = float(np.median(walls_c))
@@ -2682,7 +3026,8 @@ def adjoint_grid_phase(pkg, device, counts, main) -> dict:
     chunks = -(-NUM_STEPS // forward_kernel.DESIGN_CHUNK)
     replica, replica_launches = run(
         dict(simulate_sweep=2, decision_update=NUM_STEPS, pack_records=NUM_STEPS,
-             forward_sweep_design=chunks, forward_sweep_design_general=chunks, intrinsic_dp=1),
+             forward_sweep_design=chunks, forward_sweep_design_general=chunks,
+             general_tail=chunks, intrinsic_dp=1),
         basis=replica_basis(pkg), grid_calc=bunched_grid)
     replica_gap = (replica.npv - custom.npv) / custom.val_sim_standard_error
     log(f"custom grid (bunched_grid, {NUM_GRID} points) at the headline: NPV {custom.npv!r} SE "
@@ -2713,8 +3058,8 @@ def adjoint_grid_phase(pkg, device, counts, main) -> dict:
     reval_launches = counts.read()
     log(f"custom-grid checkpoint revaluation on the same valuation paths: NPV {reval_npv!r}, the "
         f"custom-grid run's bits: {reval_npv == custom.npv}; launches {reval_launches}")
-    if reval_npv != custom.npv or reval_launches != counts.expect(forward_sweep=1,
-                                                                  forward_sweep_general=1):
+    if reval_npv != custom.npv or reval_launches != counts.expect(
+            forward_sweep=1, forward_sweep_general=1, general_tail=1):
         raise AssertionError(f"custom-grid revaluation: NPV {reval_npv!r}, launches "
                              f"{reval_launches}")
     report["custom_grid"] = dict(
@@ -4380,6 +4725,22 @@ def check_grid_routes(device) -> dict:
             occupancy.append((f"D B={b} G={g}", decision_kernel.update_blocks_per_sm(g, 3, b, limit),
                               decision_kernel.kernel_info("update", g, 3, b,
                                                           device)["blocks_per_sm"]))
+    # Kernel C's shared route on both sides of each crossing of its blocks
+    # rule (SHARED_MIN_BLOCKS), where its shared memory limits the blocks.
+    for b, v, design, general in ((9, 3, False, False), (9, 3, False, True),
+                                  (9, 9, True, False), (9, 9, True, True),
+                                  (4, 0, False, False), (4, 0, False, True)):
+        last = max(g for g in range(2, 4_000)
+                   if forward_kernel.sweep_route(g, b, 3, v, 0, limit, design, general)
+                   == "shared")
+        for g in (last, last + 1):
+            occupancy.append((f"C B={b}{' design' if design else ''}"
+                              f"{' general' if general else ''} G={g}",
+                              forward_kernel.sweep_blocks_per_sm(g, b, 3, v, 0, limit, design,
+                                                                 general),
+                              forward_kernel.kernel_info(g, b, 3, 0 if design else v, 0, device,
+                                                         design=design,
+                                                         general=general)["blocks_per_sm"]))
     off = [row for row in occupancy if row[1] != row[2]]
     log(f"grid routes: blocks per SM from the Python copies equal the launch reports at "
         f"{len(occupancy) - len(off)} of {len(occupancy)} shapes; "
@@ -4522,26 +4883,46 @@ def check_large_kernels(pkg, device) -> dict:
     # large route, after the record pack (checked and timed alone too).
     d_rows = {}
     pack = {}
-    for b_dim in (4, 9):
-        args = random_design_update(device, g, s, 26, b_dim)
+    for g_p, b_dim in ((g, 4), (g, 9), (NUM_GRID, 4), (NUM_GRID, 9)):
+        args = random_design_update(device, g_p, s, 26, b_dim)
         packed = decision_kernel.pack_records(*args[3:])
         same = torch.equal(packed.view(torch.int32),
                            decision_kernel.pack_records_plain(*args[3:]).view(torch.int32))
-        pack[b_dim] = dict(same=same, ms=cuda_ms(lambda: decision_kernel.pack_records(*args[3:]),
-                                                  20),
-                           plain_ms=cuda_ms(
-                               lambda: decision_kernel.pack_records_plain(*args[3:]), 5),
-                           bound=bound(*pack_work(g, 3, b_dim)))
+        # The kernel's own device time (torch.profiler, 20 launches), apart
+        # from the wrapper's host rate that events around back-to-back calls
+        # measure.
+        own, launches = kernel_busy_ms(
+            lambda: [decision_kernel.pack_records(*args[3:]) for _ in range(20)], "pack_records")
+        if not launches:
+            raise AssertionError(f"torch.profiler recorded no pack_records launch at G={g_p}, "
+                                 f"B={b_dim}: its own device time is not measured")
+        wrapper_ms = cuda_ms(lambda: decision_kernel.pack_records(*args[3:]), 20)
+        pack[g_p, b_dim] = dict(
+            same=same, ms=own / launches, ms_source="profiler", launches_profiled=launches,
+            wrapper_ms=wrapper_ms,
+            plain_ms=cuda_ms(lambda: decision_kernel.pack_records_plain(*args[3:]), 5),
+            bound=bound(*pack_work(g_p, 3, b_dim)))
         del args, packed
-    log(f"pack_records [G={g}, D=3, B=4 / 9]: the plain version's bits: "
-        f"{pack[4]['same']} / {pack[9]['same']}; {pack[4]['ms']:.4f} / {pack[9]['ms']:.4f} ms vs "
-        f"plain {pack[4]['plain_ms']:.4f} / {pack[9]['plain_ms']:.4f} ms, bound "
-        f"{pack[4]['bound']['bound_ms']:.4f} / {pack[9]['bound']['bound_ms']:.4f} ms")
-    if not (pack[4]["same"] and pack[9]["same"]):
+    for g_p in (g, NUM_GRID):
+        p4, p9 = pack[g_p, 4], pack[g_p, 9]
+        log(f"pack_records [G={g_p}, D=3, B=4 / 9]: the plain version's bits: "
+            f"{p4['same']} / {p9['same']}; its own device time {p4['ms']:.5f} / {p9['ms']:.5f} "
+            f"ms a launch ({p4['ms_source']}: torch.profiler saw {p4['launches_profiled']} of 20 "
+            f"launches), the wrapper "
+            f"back to back {p4['wrapper_ms']:.4f} / {p9['wrapper_ms']:.4f} ms (CUDA events) vs "
+            f"plain {p4['plain_ms']:.4f} / {p9['plain_ms']:.4f} ms, bound "
+            f"{p4['bound']['bound_ms']:.5f} / {p9['bound']['bound_ms']:.5f} ms")
+    if not all(p_["same"] for p_ in pack.values()):
         raise AssertionError("pack_records parts from its plain version's bits")
-    results["pack_records"] = dict(max_abs_err=0.0, ms=pack[4]["ms"],
-                                   plain_ms=pack[4]["plain_ms"], b9_ms=pack[9]["ms"],
-                                   **pack[4]["bound"])
+    results["pack_records"] = dict(
+        max_abs_err=0.0, ms=pack[g, 4]["ms"], ms_source=pack[g, 4]["ms_source"],
+        plain_ms=pack[g, 4]["plain_ms"],
+        b9_ms=pack[g, 9]["ms"], wrapper_ms=pack[g, 4]["wrapper_ms"],
+        b9_wrapper_ms=pack[g, 9]["wrapper_ms"],
+        **{f"g{NUM_GRID}_b{b_}_ms": pack[NUM_GRID, b_]["ms"] for b_ in (4, 9)},
+        **{f"g{NUM_GRID}_b{b_}_bound_ms": pack[NUM_GRID, b_]["bound"]["bound_ms"]
+           for b_ in (4, 9)},
+        **pack[g, 4]["bound"])
     for b_dim in (4, 9):
         checks = [compare_d(random_update(device, g, s, seed=26, monotone=True) if b_dim == 4
                             else random_design_update(device, g, s, 26, b_dim))]
@@ -4590,7 +4971,9 @@ def check_large_kernels(pkg, device) -> dict:
         del args, raw
         n = forward_kernel.DESIGN_CHUNK if mode == "design" else NUM_STEPS
         args = random_sweep(device, n, big_s, g, 3, seed=30)
-        grid = bunched_rows(args[0], g, g - 3) if mode == "general" else None
+        # Rows that ascend at every step, as a custom grid's do (the bands
+        # of random_sweep invert after step 100).
+        grid = ascending_rows(args[0], g) if mode == "general" else None
         if mode == "design":
             raw = torch.stack(design_columns(mono, args[6], args[7]), dim=1)
             dargs = design_args(args, raw)
@@ -4607,9 +4990,9 @@ def check_large_kernels(pkg, device) -> dict:
                 "design": "forward_sweep_design_large"}[mode]
         row(name, check, ms, plain_ms,
             forward_work(n, big_s, 3, 9, g, 3, 3, panels=False, design=mode == "design",
-                         general=mode == "general"),
+                         general=mode == "general", large=True),
             steps=n, smem_bytes=launch["smem_bytes"], blocks_per_sm=launch["blocks_per_sm"],
-            registers=launch["registers"])
+            registers=launch["registers"], butterfly_ms=butterfly_ms(n, big_s, 9))
         del args, grid
         torch.cuda.empty_cache()
     return results
@@ -4789,11 +5172,13 @@ def grid_valuations(pkg, device, counts, src, main) -> dict:
             SPOT_BASIS, False, num_inventory_grid_points=GRID_BIG, dtype=torch.float32,
             device=device, snap_interp=True),
                       dict(decision_update=NUM_STEPS, decision_update_large=NUM_STEPS,
-                           pack_records=NUM_STEPS, forward_sweep=1, intrinsic_dp=1)),
+                           pack_records=NUM_STEPS, forward_sweep=1, forward_sweep_large=1,
+                           intrinsic_dp=1)),
         "custom_grid": (lambda: grid_value(pkg, device, grid_calc=big_bunched_grid),
                         dict(simulate_sweep=2, decision_update_moments=NUM_STEPS,
                              decision_update_moments_large=NUM_STEPS, forward_sweep=1,
-                             forward_sweep_general=1, forward_sweep_large=1, intrinsic_dp=1)),
+                             forward_sweep_general=1, forward_sweep_large=1, general_tail=1,
+                             intrinsic_dp=1)),
     }
     for name, (run, counts_expected) in cases.items():
         if name == "fullstep":
@@ -4853,6 +5238,8 @@ def grids_phase(pkg, device, counts, src, main) -> tuple:
     report = {"routes": check_grid_routes(device)}
     with engine.full_f32_matmul():
         kernels = check_large_kernels(pkg, device)
+    torch.cuda.empty_cache()
+    report["c_digests"] = check_c_digests(device)
     torch.cuda.empty_cache()
     report.update(grid_valuations(pkg, device, counts, src, main))
     return kernels, report
@@ -5057,6 +5444,20 @@ def check_large_dps(pkg, device) -> tuple:
                if f32 else "") + f"; {c['s']:.1f} s")
         if not c["ok"] or set(routes.values()) != {"large"}:
             raise AssertionError(f"intrinsic DP {name}: {c}")
+        if name == "intrinsic_f64_general_10001":
+            # Its bound: the DP's bytes and operations in f64, each decision
+            # also a binary search of its next row (DP_SEARCH_OPS_PER_PROBE a
+            # probe), at the f64 rate: half the f32 one (NVIDIA's data sheet,
+            # 34 TFLOP/s FP64 against 67 f32).
+            n, r = inputs.num_steps, arrays[torch.float64]["ratchet_inv"].shape[1]
+            num_bytes, ops = intrinsic_work(n, width, r, 3, 8)
+            probes = math.ceil(math.log2(max(width - 2, 2)))
+            ops += float((n - 1) * width + n) * 3 * DP_SEARCH_OPS_PER_PROBE * probes
+            c["bound"] = bound(num_bytes, 0.0, 2.0 * ops)
+            rows["intrinsic_dp_large"]["general_10001_f64_bound_ms"] = c["bound"]["bound_ms"]
+            log(f"intrinsic DP [{name}]: bound {c['bound']['bound_ms']:.4f} ms "
+                f"({c['bound']['bound_by']}; f64 operations at half the f32 rate, {probes} "
+                f"probes a decision's search)")
         if name == "intrinsic_f32_linear_32768":
             tfn, n = inputs.compiled.terminal_value, inputs.num_steps
             r = arrays[torch.float32]["ratchet_inv"].shape[1]
@@ -5458,7 +5859,7 @@ def launch_counts():
                          ("intrinsic_dp_large", intrinsic_kernel.intrinsic_dp, "large_launches"),
                          ("tree_dp_large", tree_kernel.tree_dp, "large_launches"),
                          forward_kernel.forward_sweep_design,
-                         forward_kernel.forward_sweep_vjp,
+                         forward_kernel.forward_sweep_vjp, forward_kernel.general_tail,
                          ("forward_sweep_general", forward_kernel.forward_sweep,
                           "general_launches"),
                          ("forward_sweep_design_general", forward_kernel.forward_sweep_design,
@@ -6103,7 +6504,8 @@ def main(argv) -> int:
         forward_sweep_vjp=phase["adjoint"]["launches"]["forward_sweep_vjp"],
         forward_sweep_general=phase["custom_grid"]["launches"]["forward_sweep_general"],
         forward_sweep_design_general=phase["custom_grid"]["replica_launches"][
-            "forward_sweep_design_general"])
+            "forward_sweep_design_general"],
+        general_tail=phase["custom_grid"]["launches"]["general_tail"])
 
     # ---- the native host runtime, interactive runs, checkpoints, the service.
     t0 = time.perf_counter()
@@ -6122,7 +6524,7 @@ def main(argv) -> int:
                  intrinsic_dp="main", tree_dp="tree_T3", tree_dp_steps="tree_T5",
                  forward_sweep_design="generic",
                  forward_sweep_vjp="adjoint", forward_sweep_general="custom_grid",
-                 forward_sweep_design_general="custom_grid_generic",
+                 forward_sweep_design_general="custom_grid_generic", general_tail="custom_grid",
                  decision_update_moments_large="grid_4096", decision_update_large="grid_4096_spot",
                  pack_records="grid_4096_spot",
                  decision_update_fullstep_large="grid_4096_fullstep",
@@ -6171,6 +6573,7 @@ def main(argv) -> int:
              "forward_sweep_general": ("uniform_ms", "smem_bytes", "blocks_per_sm", "registers"),
              "forward_sweep_design_general": ("uniform_ms", "smem_bytes", "blocks_per_sm",
                                               "registers"),
+             "general_tail": ("grid", "big_grid_ms", "big_grid_bound_ms", "largest_bracket"),
              "decision_update_moments": ("random_rows_ms", "launch_report"),
              "decision_update_fullstep": ("random_rows_ms",),
              "decision_update_moments_large": ("tile", "band_rows_ms", "smem_bytes",
@@ -6180,10 +6583,13 @@ def main(argv) -> int:
                                        "spill_bytes", "b9_ms", "b9_plain_ms", "b9_bound_ms",
                                        "b9_max_abs_err", "b9_blocks_per_sm", "b9_smem_bytes",
                                        "b9_registers", "b9_spill_bytes", "b9_launches"),
-             "pack_records": ("b9_ms",),
+             "pack_records": ("b9_ms", "ms_source", "wrapper_ms", "b9_wrapper_ms",
+                              "g100_b4_ms", "g100_b9_ms", "g100_b4_bound_ms",
+                              "g100_b9_bound_ms"),
              "decision_update_fullstep_large": ("tile", "band_rows_ms", "blocks_per_sm"),
              "intrinsic_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64",
-                                    "chain_floor_ms", "grid_link_ns", "block_link_ns", "launch"),
+                                    "chain_floor_ms", "grid_link_ns", "block_link_ns", "launch",
+                                    "general_10001_f64_bound_ms"),
              "tree_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64", "table_bound_ms",
                                "chain_floor_ms", "launch_link_ns", "table_steps", "table_bytes",
                                "launch"),

@@ -37,7 +37,8 @@
 //     is the same code, so a design equal to the monomials' gives the
 //     monomial mode's bits.
 //   * The wrapper packs each step's tables — parameters, design mean and
-//     std, ratchets, coefficients [B, G] — into one row of an [N, W] table.
+//     std, ratchets, coefficients [B, G] (and the general tail) — into one
+//     row of an [N, W] table.
 //     One thread copies row t + 2 into a two-stage ring in shared memory with
 //     a TMA bulk copy that completes on the stage's mbarrier, while the block
 //     computes steps t and t + 1.
@@ -60,25 +61,33 @@
 //     every product and sum rounded on its own, so a sim's path is the plain
 //     version's (ops/forward_kernel.py forward_step_plain) to the bit.
 //   * Large route (forward_kernel_large.cu, the same body with kLarge): past
-//     the grid whose two rows fit a block (3,090 points at B=9, R=3, F=3 on
-//     an H100; 2,781 in general-grid mode, 2,632 in design mode there) the
-//     coefficients are packed [G, B] (ops/forward_kernel.py pack_tables) and
-//     stay in device memory with the grid rows; the ring stages each row's
-//     fixed part alone, and each decision reads the 2B adjacent floats of its
-//     rows lo and lo + 1 (and, in general-grid mode, searches the grid row)
-//     through L1.  The same products and sums in the same order, so the same
-//     paths, at any G.  The wrapper picks the route from the shape
-//     (sweep_route).
+//     the grid whose two rows leave a block's shared route 4 blocks an SM
+//     (ops/forward_kernel.py sweep_route: 658 points at B=9, R=3, F=3 on an
+//     H100, 538 in general-grid mode; they fit up to 3,090 and 2,528) the
+//     coefficients are packed [G, Bp], each row's B terms padded to whole
+//     16-byte words (ops/forward_kernel.py pack_tables), and stay in device
+//     memory with the general tails; the ring stages each row's fixed part
+//     alone, and each decision reads its rows lo and lo + 1 in ceil(B / 4)
+//     loads each (three at B=9, where 2B scalar loads took eighteen; a warp's
+//     sims sit at scattered rows, so each load touches its own lines) and,
+//     in general-grid mode, its bucket and nodes, through L1.  The same
+//     products and sums in the same order, so the same paths, at any G.  The
+//     wrapper picks the route from the shape (sweep_route).
 //   * General-grid mode (kGeneral, for custom inventory grids whose rows are
 //     not evenly spaced; in both modes above): the JAX package takes its XLA
 //     forward step with interp_per_sim_general there
 //     (storage_tpu/engines/lsmc.py:990-994).  The packed table row carries
-//     the next step's grid row [G] after the coefficients, so the ring
-//     stages it beside them, and each decision's lower row and weight come
-//     from dp_common.cuh's general_weights (the count of interior nodes <=
-//     the clamped inventory by binary search, weight 0 on a zero-span
-//     segment of a padded row) in place of the position arithmetic; the two
-//     predicted values and their lerp are unchanged.
+//     the next step's general tail after the coefficients — the grid row
+//     [G] and a bucket index over it that the wrapper builds before the
+//     sweep (forward_sweep.cuh GeneralRow; ops/forward_kernel.py
+//     general_tail) — so the ring stages it beside them, and each decision's
+//     lower row and weight are dp_common.cuh's general_weights' (the count of
+//     interior nodes <= the clamped inventory, weight 0 on a zero-span
+//     segment of a padded row), found from the nodes of the inventory's
+//     bucket alone (indexed_weights): a bucket's count pair and at most four
+//     nodes, where the binary search of the whole row made about log2(G)
+//     dependent probes a decision.  The two predicted values and their lerp
+//     are unchanged.
 //   * The step's cross-sim sums (inventory, volume, fuel, loss, immediate
 //     value, delta numerator; the design row) go out as one partials row per
 //     step and group of kThreads sims — warp butterflies, then the warps in
@@ -87,9 +96,50 @@
 //     on every run and for every kSims.
 #include "forward_sweep.cuh"
 
+// The general-grid mode's index (forward_sweep.cuh GeneralRow), one block a
+// row: the row copied, its scale K / (row[G-1] - row[0]) over K = G - 1
+// buckets (0 on a zero span), and the counts cnt[i] of interior nodes whose
+// bucket is below i: interior node j sets cnt over (bucket(j - 1),
+// bucket(j)] to j - 1 (bucket(0) taken as -1), and the end sets it up to K
+// to G - 2, so the ranges of a non-decreasing row tile [0, K].  The counts
+// are zeroed first: on a row that is not non-decreasing (which no valuation
+// builds, and whose answer is not defined) every count stays in [0, G - 2],
+// so the search reads inside the row.
+__global__ void __launch_bounds__(kThreads) general_tail_kernel(
+    int G, const float* __restrict__ grid, float* __restrict__ out, int stride) {
+  const float* row = grid + static_cast<size_t>(blockIdx.x) * G;
+  float* tail = out + static_cast<size_t>(blockIdx.x) * stride;
+  int* cnt = reinterpret_cast<int*>(tail + G + 1);
+  for (int j = threadIdx.x; j < G; j += kThreads) {
+    tail[j] = row[j];
+    cnt[j] = 0;
+  }
+  const float a = row[0];
+  const float span = __fsub_rn(row[G - 1], a);
+  const float scale = span > 0.0f ? __fdiv_rn(static_cast<float>(G - 1), span) : 0.0f;
+  if (threadIdx.x == 0) tail[G] = scale;
+  __syncthreads();
+  for (int j = threadIdx.x + 1; j < G; j += kThreads) {
+    const int lo = j > 1 ? bucket_of(row[j - 1], a, scale, G) : -1;
+    const int hi = j < G - 1 ? bucket_of(row[j], a, scale, G) : G - 1;
+    for (int i = lo + 1; i <= hi; ++i) cnt[i] = j - 1;
+  }
+}
+
+// The general tails of N next grid rows [N, G] (f32) into out, one row of
+// 2G + 1 floats every `stride` floats: the packed table's tails on the
+// shared route, or [N, 2G + 1] on the large route.
+extern "C" int stt_general_tail(int N, int G, const void* grid, void* out, int stride,
+                                void* stream) {
+  if (N < 1 || G < 2 || stride < general_words(G)) return static_cast<int>(cudaErrorInvalidValue);
+  general_tail_kernel<<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      G, static_cast<const float*>(grid), static_cast<float*>(out), stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The sweep: N steps of S sims from inventory inv0 (and PV pv0, or 0 where
 // NULL) on the packed tables [N, W] (16-byte aligned; with `general`, each
-// row ends with the next step's grid row); spot [N, S], factors [N, F, S].
+// row ends with the next step's general tail); spot [N, S], factors [N, F, S].
 // Writes the final inventory and PV, and, where given (else NULL), the rows
 // [N, S] of inventory after each step, volume, fuel and immediate PV;
 // partials [N, 8 + B, ceil(S / 256)] are scratch, and totals [N, 8 + B]
@@ -139,7 +189,7 @@ extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int des
   const cudaError_t err = stt::kernel_info(
       design ? pick_sweep<true, false>(B, general) : pick_sweep<false, false>(B, general),
       kThreads,
-      smem_fixed_words(B, R, V, E), smem_words_per_grid_point(B, general), G, out);
+      smem_fixed_words(B, R, V, E, general), smem_words_per_grid_point(B, general), G, out);
   out[0] = kSims * kThreads;
   return static_cast<int>(err);
 }

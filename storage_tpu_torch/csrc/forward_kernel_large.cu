@@ -2,15 +2,17 @@
 // grids whose two packed rows do not fit a block's shared memory
 // (forward_kernel.cu describes the kernel, this route among its modes).
 // The ring stages each step's fixed part alone (parameters, design stats,
-// ratchets); the coefficients [N, G, B] and, in general-grid mode, the grid
-// rows [N, G] stay in device memory and are read through L1.  Its own
+// ratchets); the coefficients [N, G, Bp] and, in general-grid mode, the
+// general tails [N, 2G + 1] (each next grid row and its bucket index) stay
+// in device memory and are read through L1.  Its own
 // translation unit, so that its 66 kernels compile beside the shared
 // route's.
 #include "forward_sweep.cuh"
 
 // The sweep as stt_forward_sweep, on packed rows of the fixed parts alone
 // (ops/forward_kernel.py table_layout(..., large=True)) and the coefficients
-// coef [N, G, B] (and, with `general`, the next grid rows [N, G]).
+// coef [N, G, Bp] (16-byte aligned; and, with `general`, the general tails
+// [N, 2G + 1] at grid).
 extern "C" int stt_forward_sweep_large(
     int N, int S, int F, int G, int R, int E, int is_step, int general, const int* basis_table,
     const void* table, const void* coef, const void* grid, const void* spot,

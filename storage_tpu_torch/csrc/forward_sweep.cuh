@@ -1,11 +1,12 @@
 // Kernel C's sweep (csrc/forward_kernel.cu describes it), shared by its two
 // translation units: forward_kernel.cu compiles the shared route, whose
 // ring stages each step's whole packed row, coefficients [B, G] (and in
-// general-grid mode the next grid row) included; forward_kernel_large.cu
-// the large route, for grids whose two rows do not fit a block's shared
-// memory: the ring stages only each row's fixed part, and each decision
-// reads its two coefficient rows of [G, B] (and searches the grid row) in
-// device memory, through L1.  The two compile in parallel.
+// general-grid mode the next grid row and its bucket index) included;
+// forward_kernel_large.cu the large route, for grids whose two rows do not
+// fit a block's shared memory: the ring stages only each row's fixed part,
+// and each decision reads its two coefficient rows of [G, Bp] in 16-byte
+// loads (and its grid nodes and buckets) in device memory, through L1.  The
+// two compile in parallel.
 #pragma once
 
 #include <cstdint>
@@ -29,13 +30,20 @@ enum {
 constexpr int kNumSums = 8;   // 6 used, 2 kept zero (the JAX layout)
 constexpr int kUsedSums = 6;
 
+// Floats of the general-grid mode's tail of a step (ops/forward_kernel.py
+// general_tail): the next step's grid row [G], its bucket scale, and the
+// bucket index [G] (K = G - 1 buckets, K + 1 counts).
+__host__ __device__ inline int general_words(int G) { return 2 * G + 1; }
 // Floats of one step's packed table (ops/forward_kernel.py table_layout):
 // parameters, mean [B], std [B], ratchet inventories, min and max rates [R]
-// each, coefficients [B, G], in general-grid mode the next step's grid row
-// [G]; padded to whole 16-byte words for the bulk copy.
+// each, coefficients [B, G], in general-grid mode the general tail; padded
+// to whole 16-byte words for the bulk copy.
 __host__ __device__ inline int table_words(int B, int R, int G, bool general) {
-  return (NUM_PARAMS + 2 * B + 3 * R + (B + (general ? 1 : 0)) * G + 3) / 4 * 4;
+  return (NUM_PARAMS + 2 * B + 3 * R + B * G + (general ? general_words(G) : 0) + 3) / 4 * 4;
 }
+// The large route's coefficients [N, G, Bp]: each grid row's B terms padded
+// to a whole number of 16-byte words.
+__host__ __device__ inline int padded_basis(int B) { return (B + 3) / 4 * 4; }
 // The large route's row: the same parts without the coefficients and the
 // grid row, which stay in device memory.
 __host__ __device__ inline int fixed_table_words(int B, int R) {
@@ -52,14 +60,19 @@ __host__ __device__ inline int red_words(int B) {
   return B > stt::kMaxB ? 2 * kSims * kWarps * (kUsedSums + B) : 0;
 }
 // Dynamic shared memory, in floats: kStages tables (their padding counted at
-// its most) and slots, then the decision fractions [2, D] (D = 2E + 3), then
-// the wide route's sums.
-__host__ __device__ inline size_t smem_fixed_words(int B, int R, int V, int E) {
-  return static_cast<size_t>(kStages) * (NUM_PARAMS + 2 * B + 3 * R + 3 + slot_words(V)) +
+// its most; on the shared route in general-grid mode also the tail's scale)
+// and slots, then the decision fractions [2, D] (D = 2E + 3), then the wide
+// route's sums.
+__host__ __device__ inline size_t smem_fixed_words(int B, int R, int V, int E,
+                                                   bool staged_tail = false) {
+  return static_cast<size_t>(kStages) *
+             (NUM_PARAMS + 2 * B + 3 * R + 3 + (staged_tail ? 1 : 0) + slot_words(V)) +
          2 * (2 * static_cast<size_t>(E) + 3) + red_words(B);
 }
+// The shared route's words a grid point: coefficients, and in general-grid
+// mode the grid row's node and bucket count.
 __host__ __device__ inline size_t smem_words_per_grid_point(int B, bool general) {
-  return static_cast<size_t>(kStages) * (B + (general ? 1 : 0));
+  return static_cast<size_t>(kStages) * (B + (general ? 2 : 0));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -102,6 +115,115 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
+// A load from shared memory, or on the large route (kGlobal) from device
+// memory through the read-only path.
+template <bool kGlobal, typename T>
+__device__ __forceinline__ T read_at(const T* p) {
+  if constexpr (kGlobal) return __ldg(p); else return *p;
+}
+
+// The general-grid mode's next grid row with its bucket index
+// (ops/forward_kernel.py general_tail): K = G - 1 uniform buckets over
+// [a, b] = [grid[0], grid[G - 1]], the bucket of x floor((x - a) * scale)
+// (within [0, K - 1]: bucket_of), and cnt[i] the count of interior nodes
+// whose bucket is below i.  The row is non-decreasing (a custom grid's rows
+// are sorted, interp.interp_weights_general's contract) and the bucket is
+// non-decreasing in x, so every interior node of a lower bucket lies below
+// x and every one of a higher bucket above it: the count of interior nodes
+// <= x, general_weights' lower node, lies in [cnt[i], cnt[i + 1]], found
+// from the nodes of bucket i alone.  The index kernel computes the nodes'
+// buckets with the same function, so the bracket holds by the same
+// comparisons the search makes.
+struct GeneralRow {
+  const float* grid;  // [G]
+  const int* cnt;     // [G]
+  float a, b, scale;
+  int G;
+};
+
+// The bucket of x on a row of G nodes: floor((x - a) * scale) within
+// [0, K - 1], each operation rounded on its own; the index kernel
+// (forward_kernel.cu general_tail_kernel) and the search share it, so a
+// node and a target meet the same comparisons.
+__device__ __forceinline__ int bucket_of(float x, float a, float scale, int G) {
+  return static_cast<int>(fminf(fmaxf(floorf(__fmul_rn(__fsub_rn(x, a), scale)), 0.0f),
+                                static_cast<float>(G - 2)));
+}
+
+template <bool kGlobal>
+__device__ __forceinline__ GeneralRow general_row(const float* tail, int G) {
+  return GeneralRow{tail, reinterpret_cast<const int*>(tail + G + 1), read_at<kGlobal>(tail),
+                    read_at<kGlobal>(tail + G - 1), read_at<kGlobal>(tail + G), G};
+}
+
+// The lower node and weight of x on the row: general_weights' answer, from
+// the bucket's nodes alone.  A bucket of at most two nodes is decided from
+// the four nodes from cnt[i] on, read together; a wider one (the padding's
+// repeats of the last node) by binary search within it, at most
+// log2(width) probes.
+template <bool kGlobal>
+__device__ __forceinline__ void indexed_weights(const GeneralRow& row, float x, int* idx,
+                                                float* w) {
+  const float* grid = row.grid;
+  const int G = row.G;
+  const float xc = stt_dp::clamp_to(x, row.a, row.b);
+  const int i = bucket_of(xc, row.a, row.scale, G);
+  int c = read_at<kGlobal>(row.cnt + i);
+  const int c1 = read_at<kGlobal>(row.cnt + i + 1);
+  float x0, x1;
+  if (c1 - c <= 2) {
+    const float g0 = read_at<kGlobal>(grid + c);
+    const float g1 = read_at<kGlobal>(grid + c + 1);
+    const float g2 = read_at<kGlobal>(grid + min(c + 2, G - 1));
+    const float g3 = read_at<kGlobal>(grid + min(c + 3, G - 1));
+    const bool n1 = c1 > c && g1 <= xc;
+    const bool n2 = c1 > c + 1 && g2 <= xc;  // implies n1: the row is sorted
+    x0 = n2 ? g2 : (n1 ? g1 : g0);
+    x1 = n2 ? g3 : (n1 ? g2 : g1);
+    c += static_cast<int>(n1) + static_cast<int>(n2);
+  } else {
+    int lo = c + 1, hi = c1 + 1;  // first r in [c + 1, c1 + 1) with grid[r] > xc
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (read_at<kGlobal>(grid + mid) <= xc) lo = mid + 1; else hi = mid;
+    }
+    c = lo - 1;
+    x0 = read_at<kGlobal>(grid + c);
+    x1 = read_at<kGlobal>(grid + c + 1);
+  }
+  *idx = c;
+  const float span = __fsub_rn(x1, x0);
+  *w = span > 0.0f ? __fdiv_rn(__fsub_rn(xc, x0), span) : 0.0f;
+}
+
+// A row of the large route's coefficients [G, Bp] (16-byte aligned) into
+// registers: B / 4 16-byte loads, then the rest in one load.
+template <int B>
+__device__ __forceinline__ void load_coef_row(const float* __restrict__ p, float (&r)[B]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int i = 0; i < B / 4; ++i) {
+    const float4 v = __ldg(q + i);
+    r[4 * i] = v.x;
+    r[4 * i + 1] = v.y;
+    r[4 * i + 2] = v.z;
+    r[4 * i + 3] = v.w;
+  }
+  constexpr int t = B / 4 * 4;
+  if constexpr (B % 4 == 1) {
+    r[t] = __ldg(p + t);
+  } else if constexpr (B % 4 == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p + t));
+    r[t] = v.x;
+    r[t + 1] = v.y;
+  } else if constexpr (B % 4 == 3) {
+    const float4 v = __ldg(q + B / 4);
+    r[t] = v.x;
+    r[t + 1] = v.y;
+    r[t + 2] = v.z;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -139,11 +261,13 @@ __device__ __forceinline__ float design_entry(const int* term, const float* vals
 // nb entries in shared memory at `stride` floats apart (the wide route).
 template <int B>
 struct RegisterRow {
+  static constexpr int kSize = B;
   float v[B];
   __device__ __forceinline__ float at(int b) const { return v[b]; }
   __device__ __forceinline__ int size() const { return B; }
 };
 struct SharedRow {
+  static constexpr int kSize = 0;
   const float* p;
   int nb, stride;
   __device__ __forceinline__ float at(int b) const { return p[b * stride]; }
@@ -159,21 +283,68 @@ struct StepResult {
   float inv, dec, cons, imm, loss;
 };
 
-// On the large route (kLarge) the step's coefficients [G, B] and, in
-// general-grid mode, its next grid row [G] are read from device memory
-// (coef_t, grid_t) through L1; else from the staged row.
+// Rows lo and lo + 1 of the large route's coefficients [G, Bp] at c, each
+// dotted with the design row: each term's product rounded on its own and
+// summed from b = 0 up, the shared route's order.
+template <typename Row>
+__device__ __forceinline__ void dot_rows_large(const float* __restrict__ c, const Row& dm,
+                                               float* p_lo, float* p_hi) {
+  constexpr int B = Row::kSize;
+  if constexpr (B > 0) {
+    float lo[B], hi[B];
+    load_coef_row<B>(c, lo);
+    load_coef_row<B>(c + padded_basis(B), hi);
+    float a = __fmul_rn(lo[0], dm.at(0));
+    float b = __fmul_rn(hi[0], dm.at(0));
+#pragma unroll
+    for (int k = 1; k < B; ++k) {
+      a = __fadd_rn(a, __fmul_rn(lo[k], dm.at(k)));
+      b = __fadd_rn(b, __fmul_rn(hi[k], dm.at(k)));
+    }
+    *p_lo = a;
+    *p_hi = b;
+  } else {
+    // The wide route: the basis size known at run time.
+    const int nb = dm.size();
+    const int bp = padded_basis(nb);
+    float a = 0.0f, b = 0.0f;
+    for (int q = 0; q < nb; q += 4) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(c + q));
+      const float4 v = __ldg(reinterpret_cast<const float4*>(c + bp + q));
+      const float us[4] = {u.x, u.y, u.z, u.w};
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = q + j;
+        if (k < nb) {
+          const float x = dm.at(k);
+          a = k == 0 ? __fmul_rn(us[j], x) : __fadd_rn(a, __fmul_rn(us[j], x));
+          b = k == 0 ? __fmul_rn(vs[j], x) : __fadd_rn(b, __fmul_rn(vs[j], x));
+        }
+      }
+    }
+    *p_lo = a;
+    *p_hi = b;
+  }
+}
+
+// On the large route (kLarge) the step's coefficients [G, Bp] and, in
+// general-grid mode, its general tail (the next grid row and its bucket
+// index) are read from device memory (coef_t, tail_t) through L1; else from
+// the staged row.
 template <bool kGeneral, bool kLarge, typename Row>
 __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, int E,
                                                int is_step, float sp, float inv,
                                                const Row& dm, const float* frac,
                                                const float* __restrict__ coef_t,
-                                               const float* __restrict__ grid_t) {
+                                               const float* __restrict__ tail_t) {
   const int B = dm.size();
   const float* rinv = par + NUM_PARAMS + 2 * B;
   const float* rmin = rinv + R;
   const float* rmax = rmin + R;
   const float* coeffs = rmax + R;        // [B, G]
-  const float* grid_next = kLarge ? grid_t : coeffs + B * G;  // [G], general-grid mode
+  GeneralRow row{};
+  if constexpr (kGeneral) row = general_row<kLarge>(kLarge ? tail_t : coeffs + B * G, G);
 
   // Ratchet rates at the inventory (_ratchet_rates_smem).
   const float inv_c = clampf(inv, rinv[0], rinv[R - 1]);
@@ -230,8 +401,8 @@ __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, i
     const float inv_after = __fsub_rn(__fadd_rn(inv, dec), loss);
     int lo;
     float w;
-    if (kGeneral) {
-      stt_dp::general_weights(grid_next, G, inv_after, &lo, &w);
+    if constexpr (kGeneral) {
+      indexed_weights<kLarge>(row, inv_after, &lo, &w);
     } else {
       const float pos = __fmul_rn(
           __fsub_rn(clampf(inv_after, grid_lo, grid_hi), grid_lo), inv_delta);
@@ -240,15 +411,7 @@ __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, i
     }
     float p_lo, p_hi;
     if constexpr (kLarge) {
-      // Rows lo and lo + 1 of [G, B]: 2B adjacent floats.
-      const float* c = coef_t + static_cast<size_t>(lo) * B;
-      p_lo = __fmul_rn(__ldg(c), dm.at(0));
-      p_hi = __fmul_rn(__ldg(c + B), dm.at(0));
-#pragma unroll
-      for (int b = 1; b < B; ++b) {
-        p_lo = __fadd_rn(p_lo, __fmul_rn(__ldg(c + b), dm.at(b)));
-        p_hi = __fadd_rn(p_hi, __fmul_rn(__ldg(c + B + b), dm.at(b)));
-      }
+      dot_rows_large(coef_t + static_cast<size_t>(lo) * padded_basis(B), dm, &p_lo, &p_hi);
     } else {
       p_lo = __fmul_rn(coeffs[lo], dm.at(0));
       p_hi = __fmul_rn(coeffs[lo + 1], dm.at(0));
@@ -282,8 +445,9 @@ __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, i
 // `values` is [N, V, S]: the factors (V = F) or, in design mode, the raw
 // design values (V = B).  B = 0 is the design mode's wide route, its basis
 // size basis.nb known at run time.  kLarge: the large route, whose `table`
-// rows hold the fixed parts alone, the coefficients [N, G, B] and the grid
-// rows [N, G] at coef_g and grid_g (NULL on the shared route).
+// rows hold the fixed parts alone, the coefficients [N, G, Bp] and the
+// general tails [N, 2G + 1] at coef_g and grid_g (NULL on the shared
+// route).
 template <int B, bool kDesign, bool kGeneral, bool kLarge>
 __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     int N, int S, int G, int R, int E, int is_step, stt::Basis basis,
@@ -389,8 +553,8 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
       auto step = [&](const auto& dm) {
         const StepResult r = step_sim<kGeneral, kLarge>(
             par, R, G, E, is_step, sp, inv[j], dm, frac,
-            kLarge ? coef_g + static_cast<size_t>(t) * G * nb : nullptr,
-            kLarge && kGeneral ? grid_g + static_cast<size_t>(t) * G : nullptr);
+            kLarge ? coef_g + static_cast<size_t>(t) * G * padded_basis(nb) : nullptr,
+            kLarge && kGeneral ? grid_g + static_cast<size_t>(t) * general_words(G) : nullptr);
         float acc[kUsedSums] = {inv[j], r.dec, r.cons, r.loss, r.imm,
                                 __fmul_rn(-__fadd_rn(r.dec, r.cons), sp)};
         inv[j] = r.inv;
@@ -500,8 +664,8 @@ SweepKernel pick_sweep(int B, bool general) {
 
 // Launches the sweep of either mode (V staged values a sim and step), then
 // the reduce of its partials.  With `large` (the large route) the ring
-// stages only the fixed part of each row: coef and grid stay in device
-// memory.
+// stages only the fixed part of each row: coef [N, G, Bp] (16-byte aligned)
+// and the general tails stay in device memory.
 cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, int E,
                          int is_step, bool general, bool large, const stt::Basis& basis,
                          const void* table, const void* coef, const void* grid,
@@ -511,9 +675,11 @@ cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, 
                          void* totals, void* stream) {
   if (reinterpret_cast<uintptr_t>(table) % 16 != 0) return cudaErrorMisalignedAddress;
   if (!kernel || (large && (!coef || (general && !grid)))) return cudaErrorInvalidValue;
+  if (large && reinterpret_cast<uintptr_t>(coef) % 16 != 0) return cudaErrorMisalignedAddress;
   const int B = basis.nb;
   const size_t smem = sizeof(float) *
-      (smem_fixed_words(B, R, V, E) + (large ? 0 : smem_words_per_grid_point(B, general) * G));
+      (smem_fixed_words(B, R, V, E, general && !large) +
+       (large ? 0 : smem_words_per_grid_point(B, general) * G));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;

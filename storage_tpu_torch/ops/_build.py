@@ -97,6 +97,9 @@ SIGNATURES = {
     # G, B, R, F, E, design mode, general grids, out int[6] (the sweep's
     # launch report)
     "stt_forward_sweep_info": (_I, _I, _I, _I, _I, _I, _I, _P),
+    # N, G, grid rows [N, G], out (rows of 2G + 1 floats), out's row stride
+    # in floats, stream: the general-grid mode's index (general_tail)
+    "stt_general_tail": (_I, _I, _P, _P, _I, _P),
     # The large route: as stt_forward_sweep and stt_forward_sweep_design, the
     # coefficients [N, G, B] and the grid rows [N, G] (or NULL) after the
     # packed tables; its launch report without G

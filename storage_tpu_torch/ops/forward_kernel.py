@@ -20,12 +20,16 @@ custom rows by search: the general-grid mode.  Every mode takes any grid,
 on one of two routes decided from the shape before anything is allocated
 (``sweep_route``): the shared route stages each step's whole packed row,
 coefficients included, in the kernel's ring while two rows fit a block's
-shared memory (``kernel_info`` gives the largest grid); the large route
+shared memory (``kernel_info`` gives the largest grid) and leave it
+``SHARED_MIN_BLOCKS`` blocks an SM; the large route
 (``csrc/forward_kernel_large.cu``) stages the row's fixed part alone and
-reads the coefficients, packed [G, B], and the grid rows from device
-memory.  Both give the same bits.  ``forward_step_plain`` is one
-step in tensor code and ``forward_sweep_plain`` its loop over the steps, used
-for CPU tensors.  The ratchet lookup and the decision fractions follow the
+reads the coefficients, packed [G, Bp] in 16-byte words, and the grid rows
+from device memory.  Both give the same bits.  The general-grid mode finds
+a target's lower node from a bucket index over each next grid row that a
+small kernel builds before the sweep (``general_tail``), not by a binary
+search of the whole row; ``indexed_weights_plain`` is that search in tensor
+code.  ``forward_step_plain`` is one step in tensor code and
+``forward_sweep_plain`` its loop over the steps, used for CPU tensors.  The ratchet lookup and the decision fractions follow the
 TPU kernel (``_ratchet_rates_smem``, ``_bang_bang``), so the plain version
 agrees with it term for term.
 
@@ -268,15 +272,131 @@ _TABLE_PARTS = ("params", "mean", "std", "ratchet_inv", "ratchet_min", "ratchet_
                 "grid")
 
 
+def general_words(g: int) -> int:
+    """Floats of a step's general tail (``general_tail``): the grid row [G],
+    its bucket scale, its bucket index [G] (csrc/forward_sweep.cuh
+    general_words)."""
+    return 2 * g + 1
+
+
+def _count_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The integer type whose bits a general tail of ``dtype`` holds its
+    counts in."""
+    return torch.int32 if dtype == torch.float32 else torch.int64
+
+
+def general_tail_plain(grid: torch.Tensor) -> torch.Tensor:
+    """Each next grid row [N, G] with its bucket index, as the kernel's
+    general-grid mode reads it (f32; f64 rows give the same layout in f64
+    for the plain search): [N, 2G + 1], the row, then its scale
+    K / (row[G-1] − row[0]) over K = G − 1 uniform buckets, then the counts
+    cnt [G] (the bits of int32, int64 in f64): cnt[i] the interior nodes
+    whose bucket, floor((node − row[0])·scale) within [0, K − 1] with each
+    operation rounded on its own (the kernel's arithmetic), is below i.  The
+    rows are non-decreasing, as ``interp.interp_weights_general`` takes them
+    (a custom grid's rows are sorted); on others the index is not defined."""
+    rows = grid.contiguous()
+    ints = _count_dtype(rows.dtype)
+    n, g = rows.shape
+    a, b = rows[:, :1], rows[:, g - 1:]
+    span = b - a
+    # A tensor division (a scalar over a tensor multiplies by its reciprocal).
+    scale = torch.where(span > 0, torch.full_like(span, g - 1) / torch.where(
+        span > 0, span, torch.ones_like(span)), torch.zeros_like(span))
+    pos = torch.floor((rows[:, 1:g - 1] - a) * scale).clamp(min=0, max=g - 2)
+    buckets = pos.to(ints).contiguous()
+    edges = torch.arange(g, dtype=ints, device=rows.device).expand(n, g).contiguous()
+    counts = torch.searchsorted(buckets, edges).to(ints).contiguous()
+    return torch.cat([rows, scale, counts.view(rows.dtype)], dim=1)
+
+
+def general_tail(grid: torch.Tensor, out: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``general_tail_plain``'s tails of the rows ``grid`` [N, G] into ``out``
+    ([N, 2G + 1], rows at any stride: the packed table's tail columns), or a
+    new [N, 2G + 1].  CPU tensors take the plain version; CUDA tensors (f32,
+    ``grid`` contiguous) launch the index kernel (``csrc/forward_kernel.cu``
+    general_tail_kernel, one block a row), and ``launches`` counts it."""
+    if grid.device.type == "cpu":
+        tail = general_tail_plain(grid)
+        return tail if out is None else out.copy_(tail)
+    n, g = grid.shape
+    width = general_words(g)
+    if out is None:
+        out = torch.empty((n, width), dtype=torch.float32, device=grid.device)
+    device = _build.require_cuda("general_tail", grid)
+    if (out.device != device or out.dtype != torch.float32
+            or tuple(out.shape) != (n, width) or out.stride(1) != 1):
+        raise ValueError(f"general_tail: out is {out.dtype} {tuple(out.shape)} at strides "
+                         f"{out.stride()} on {out.device}, want float32 ({n}, {width}) "
+                         f"with contiguous rows on {device}")
+    rc = _build.library().stt_general_tail(n, g, grid.data_ptr(), out.data_ptr(), out.stride(0),
+                                           _build.stream_handle(device))
+    general_tail.launches += 1
+    _build.check(rc, "general_tail")
+    return out
+
+
+general_tail.launches = 0
+
+
+def general_brackets(tail: torch.Tensor) -> torch.Tensor:
+    """The nodes each bucket of ``general_tail``'s rows brackets, [N, K]:
+    the widths that the kernel's in-bucket search covers."""
+    g = (tail.shape[-1] - 1) // 2
+    counts = tail[..., g + 1:].contiguous().view(_count_dtype(tail.dtype))
+    return counts[..., 1:] - counts[..., :-1]
+
+
+def indexed_weights_plain(tail: torch.Tensor, x: torch.Tensor):
+    """The kernel's search of the general-grid mode in tensor code: (idx_lo,
+    w_hi) for ``x`` [N, *q] on the rows of ``tail`` [N, 2G + 1]
+    (``general_tail``; one row [2G + 1] with any ``x`` too): the bucket of
+    the clamped x, then a binary search within its bracket [cnt[i],
+    cnt[i + 1]], and the weight as ``interp.interp_weights_general`` takes
+    it: that function's answer on the non-decreasing rows it takes."""
+    if tail.dim() == 1:
+        idx, w = indexed_weights_plain(tail[None], x.reshape(1, -1))
+        return idx.reshape(x.shape), w.reshape(x.shape)
+    n = tail.shape[0]
+    g = (tail.shape[-1] - 1) // 2
+    grid, scale = tail[:, :g], tail[:, g:g + 1]
+    counts = tail[:, g + 1:].contiguous().view(_count_dtype(tail.dtype)).to(torch.int64)
+    flat = x.reshape(n, -1)
+    xc = torch.minimum(torch.maximum(flat, grid[:, :1]), grid[:, g - 1:])
+    bucket = torch.floor((xc - grid[:, :1]) * scale).clamp(min=0, max=g - 2).to(torch.int64)
+    lo = torch.gather(counts, 1, bucket) + 1
+    hi = torch.gather(counts, 1, bucket + 1) + 1
+    for _ in range(max(g, 2).bit_length()):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        below = torch.gather(grid, 1, torch.clamp(mid, max=g - 1)) <= xc
+        lo = torch.where(active & below, mid + 1, lo)
+        hi = torch.where(active & ~below, mid, hi)
+    idx = lo - 1
+    x0 = torch.gather(grid, 1, idx)
+    x1 = torch.gather(grid, 1, idx + 1)
+    span = x1 - x0
+    w = torch.where(span > 0, (xc - x0) / torch.where(span > 0, span, torch.ones_like(span)),
+                    torch.zeros_like(span))
+    return idx.reshape(x.shape), w.reshape(x.shape)
+
+
+def padded_basis(bdim: int) -> int:
+    """The large route's coefficient row width: B padded to whole 16-byte
+    words (csrc/forward_sweep.cuh padded_basis)."""
+    return -(-bdim // 4) * 4
+
+
 def table_layout(bdim: int, r: int, g: int, general: bool = False, large: bool = False):
     """Offsets (in floats) of each part of one step's packed table, and its
     width W: the parameters, mean [B], std [B], ratchet inventories, min and
     max rates [R] each, coefficients [B, G] row by row, in general-grid mode
-    the next step's grid row [G], padded with zeros to a multiple of 4 floats
-    (whole 16-byte words for the kernel's bulk copy).  On the large route
-    (``large``) the row holds the parts before the coefficients alone."""
+    the general tail [2G + 1] (``general_tail``, at "grid"), padded with
+    zeros to a multiple of 4 floats (whole 16-byte words for the kernel's
+    bulk copy).  On the large route (``large``) the row holds the parts
+    before the coefficients alone."""
     g = 0 if large else g
-    sizes = (NUM_PARAMS, bdim, bdim, r, r, r, bdim * g, g if general else 0)
+    sizes = (NUM_PARAMS, bdim, bdim, r, r, r, bdim * g, general_words(g) if general and g else 0)
     offsets, pos = {}, 0
     for name, n in zip(_TABLE_PARTS, sizes):
         offsets[name] = pos
@@ -287,20 +407,30 @@ def table_layout(bdim: int, r: int, g: int, general: bool = False, large: bool =
 def pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs, grid=None,
                 large: bool = False):
     """Every step's tables as the kernel reads them, one row of W floats a
-    step: [N, W] f32 (``table_layout``; ``grid`` [N, G] in general-grid
-    mode).  On the large route (``large``) the rows hold the fixed parts
-    alone, and the coefficients go beside them as [N, G, B] f32, each grid
-    row's B terms adjacent (one read of 2B floats for a decision's rows lo
-    and lo + 1): returns (table, coefficients)."""
+    step: [N, W] f32 (``table_layout``; with ``grid`` [N, G], the
+    general-grid mode, each row ends with its ``general_tail``).  On the
+    large route (``large``) the rows hold the fixed parts alone, and the
+    coefficients go beside them as [N, G, Bp] f32, each grid row's B terms
+    adjacent and zero-padded to ``padded_basis`` (16-byte loads of a
+    decision's rows lo and lo + 1), with the general tails [N, 2G + 1] (None
+    without ``grid``): returns (table, coefficients, tails)."""
     n, bdim, g = coeffs.shape
-    _, width = table_layout(bdim, ratchet_inv.shape[1], g, grid is not None, large)
+    offsets, width = table_layout(bdim, ratchet_inv.shape[1], g, grid is not None, large)
     parts = [params, mean, std, ratchet_inv, ratchet_min, ratchet_max]
     if not large:
-        parts += [coeffs.reshape(n, bdim * g), *([] if grid is None else [grid])]
+        parts.append(coeffs.reshape(n, bdim * g))
     table = torch.cat([p.to(torch.float32) for p in parts], dim=1)
     table = torch.nn.functional.pad(table, (0, width - table.shape[1])).contiguous()
+    rows = None if grid is None else grid.to(torch.float32).contiguous()
+    tail = None
+    if rows is not None and large:
+        tail = general_tail(rows)
+    elif rows is not None:
+        general_tail(rows, out=table[:, offsets["grid"]:offsets["grid"] + general_words(g)])
     if large:
-        return table, coeffs.transpose(1, 2).to(torch.float32).contiguous()
+        coef = torch.nn.functional.pad(coeffs.transpose(1, 2).to(torch.float32),
+                                       (0, padded_basis(bdim) - bdim))
+        return table, coef.contiguous(), tail
     return table
 
 
@@ -311,8 +441,9 @@ ROUTES = ("shared", "large")
 # sims; dynamic shared memory of two ring stages of a row (its padding
 # counted at its most) and of the sims' spot and V staged values, the
 # decision fractions [2, D], past 16 terms the warps' sums; on the shared
-# route also the two rows' coefficients (and grid rows), (B + general) words
-# a grid point a stage.  Static: two mbarriers, the warps' sums of two steps
+# route also the two rows' coefficients (and general tails: a grid node and
+# a bucket count a grid point, and the scale), B + 2·general words a grid
+# point a stage.  Static: two mbarriers, the warps' sums of two steps
 # [2][8 warps][6 + B] (one float past 16 terms) and, in the monomial mode,
 # the basis terms [B][10] ints, laid out in 128-byte units.
 _SWEEP_SIMS = 256
@@ -342,20 +473,48 @@ def sweep_max_grid(bdim: int, r: int, v: int, e: int, smem_limit: int, design: b
     ratchet nodes, V staged values a sim (the F factors, or B in design
     mode) and E extra decisions, under ``smem_limit`` bytes a block."""
     room = ((smem_limit - _sweep_static_bytes(bdim, design)) // 4
-            - _sweep_fixed_words(bdim, r, v, e))
-    return room // (_STAGES * (bdim + int(general))) if room >= 0 else 0
+            - _sweep_fixed_words(bdim, r, v, e) - _STAGES * int(general))
+    return room // (_STAGES * (bdim + 2 * int(general))) if room >= 0 else 0
+
+
+# The sweep keeps its shared route while that route's shared memory leaves
+# at least this many blocks of 256 sims an SM: its large route runs at 4–5
+# (registers), and in turns at B = 4 and 9, G = 400 to 3,000 on an H100 the
+# shared route won at 4 or more and lost at 3 or fewer in every mode but
+# the design mode at B = 4, within 3–10% there (PERF.md §6).  The design
+# mode's wide route (B past 16) keeps its shared route while it fits: its
+# large route reads the coefficients in a loop of run-time length, and in
+# turns at B = 20 (G = 50 to 400) and 32 (G = 50 to 400) it lost at 1 to 4
+# blocks an SM alike.
+SHARED_MIN_BLOCKS = 4
+
+
+def sweep_blocks_per_sm(g: int, bdim: int, r: int, v: int, e: int, smem_limit: int,
+                        design: bool = False, general: bool = False) -> int:
+    """Blocks of the sweep's shared route an SM at G grid points, as its
+    shared memory allows them (the copied sizing; its registers, which the
+    compiler chooses, not counted)."""
+    words = (_sweep_fixed_words(bdim, r, v, e) + _STAGES * int(general)
+             + _STAGES * (bdim + 2 * int(general)) * g)
+    return _build.blocks_per_sm(_sweep_static_bytes(bdim, design) + 4 * words, _SWEEP_SIMS,
+                                _build.SM_BLOCKS, smem_limit)
 
 
 def sweep_route(g: int, bdim: int, r: int, v: int, e: int, smem_limit: int,
                 design: bool = False, general: bool = False,
                 route: tp.Optional[str] = None) -> str:
-    """The sweep's route, "shared" up to ``sweep_max_grid`` (``route``
-    forces one), else "large", from the shape and the card's shared memory a
-    block (``_build.smem_limit``)."""
+    """The sweep's route (``route`` forces one), from the shape and the
+    card's shared memory a block (``_build.smem_limit``): "shared" while G
+    fits it (``sweep_max_grid``) and, up to ``_build.MAX_BASIS`` terms, it
+    leaves ``SHARED_MIN_BLOCKS`` blocks an SM (``sweep_blocks_per_sm``),
+    else "large"."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"forward_sweep: route must be one of {ROUTES}, got {route!r}")
     max_grid = sweep_max_grid(bdim, r, v, e, smem_limit, design, general)
-    route = route or ("shared" if g <= max_grid else "large")
+    route = route or ("shared" if g <= max_grid and (
+        bdim > _build.MAX_BASIS
+        or sweep_blocks_per_sm(g, bdim, r, v, e, smem_limit, design, general)
+        >= SHARED_MIN_BLOCKS) else "large")
     fixed = _sweep_static_bytes(bdim, design) + 4 * _sweep_fixed_words(bdim, r, v, e)
     if (route == "shared" and g > max_grid) or fixed > smem_limit:
         raise ValueError(
@@ -403,11 +562,13 @@ def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device, design: bool 
                         bool(large), torch.device(device).index or 0)
 
 
-def sass_name(bdim: int, design: bool = False, general: bool = False) -> str:
+def sass_name(bdim: int, design: bool = False, general: bool = False,
+              large: bool = False) -> str:
     """What the mangled name of the sweep kernel compiled for B basis
     functions (in design mode with ``design``, general-grid mode with
-    ``general``) holds (for ``_build.sass_instructions``)."""
-    return f"forward_sweep_kernelILi{bdim}ELb{int(design)}ELb{int(general)}EE"
+    ``general``, on the large route with ``large``) holds (for
+    ``_build.sass_instructions``)."""
+    return f"forward_sweep_kernelILi{bdim}ELb{int(design)}ELb{int(general)}ELb{int(large)}EE"
 
 
 def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, values,
@@ -456,8 +617,8 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
     table = pack_tables(params, mean, std, ratchet_inv, ratchet_min, ratchet_max, coeffs, grid,
                         large)
     if large:
-        table, coeffs_gb = table
-        tables = (table.data_ptr(), coeffs_gb.data_ptr(), _ptr_or_none(grid))
+        table, coeffs_gb, tails = table
+        tables = (table.data_ptr(), coeffs_gb.data_ptr(), _ptr_or_none(tails))
     else:
         tables = (table.data_ptr(),)
     nout = NUM_SUMS + bdim

@@ -759,6 +759,115 @@ def test_forward_sweep_general_grid(device, design, g):
     assert not torch.equal(uniform[1], got[1])
 
 
+def _general_rows(params, g, kind):
+    """Next grid rows [N, G] of one kind over each step's band: "padded" (a
+    quarter of the row repeats of its last node, one bucket of hundreds at
+    G = 1,000), "custom" (sorted random nodes, every fifth one repeated),
+    "bunched" (nodes bunched toward the lower bound) and "degenerate" (every
+    node the band's lower bound): non-decreasing rows, as a valuation's
+    are."""
+    lo = params[:, forward_kernel._P_GRID_LO][:, None]
+    hi = params[:, forward_kernel._P_GRID_HI][:, None]
+    u = torch.linspace(0.0, 1.0, g, device=params.device) ** 1.3
+    if kind == "padded":
+        real = g - g // 4
+        u = torch.cat([torch.linspace(0.0, 1.0, real, device=params.device),
+                       torch.ones(g - real, device=params.device)])
+    elif kind == "custom":
+        gen = torch.Generator(device=params.device).manual_seed(8)
+        u = torch.sort(torch.rand(g, generator=gen, device=params.device)).values
+        u[0], u[-1] = 0.0, 1.0
+        u[2:g - 1:5] = u[1:g - 1:5][:u[2:g - 1:5].shape[0]]
+    rows = lo + (hi - lo) * u[None, :]
+    if kind == "degenerate":
+        rows = lo.expand(-1, g)
+    return rows.contiguous()
+
+
+@pytest.mark.parametrize("kind,g", [("padded", 1_000), ("custom", 100), ("bunched", 100),
+                                    ("degenerate", 13), ("custom", 2), ("custom", 3),
+                                    ("custom", 4_096)])
+def test_general_tail_kernel_gives_its_plain_bits(device, kind, g):
+    """The index kernel (``general_tail``: one block a row) writes its plain
+    version's words, bit for bit, alone and into a packed table's columns."""
+    args = _sweep_args(device, 5, 8, g, 3)
+    grid = _general_rows(args[0], g, kind)
+    before = forward_kernel.general_tail.launches
+    got = forward_kernel.general_tail(grid)
+    assert forward_kernel.general_tail.launches == before + 1
+    want = forward_kernel.general_tail_plain(grid)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    table = torch.zeros((5, got.shape[1] + 7), device=device)
+    forward_kernel.general_tail(grid, out=table[:, 3:3 + got.shape[1]])
+    assert torch.equal(table[:, 3:3 + got.shape[1]].view(torch.int32), got.view(torch.int32))
+    assert not bool(table[:, :3].any()) and not bool(table[:, 3 + got.shape[1]:].any())
+
+
+@pytest.mark.parametrize("route", ["shared", "large"])
+@pytest.mark.parametrize("kind,g", [("padded", 1_000), ("custom", 100), ("bunched", 100),
+                                    ("degenerate", 13), ("custom", 2), ("custom", 3)])
+def test_forward_sweep_bucket_index_on_every_row_kind(device, kind, g, route):
+    """Kernel C's general-grid mode, whose lower node comes from the bucket
+    index (``forward_kernel.general_tail``), on rows of every kind and on
+    both routes: its plain version's bits (the same node count and weight as
+    ``interp.interp_weights_general``, the rest the same arithmetic), in the
+    monomial and the design mode."""
+    s, n = 300, 5
+    args = _sweep_args(device, n, s, g, 3)
+    grid = _general_rows(args[0], g, kind)
+    raw = torch.stack(tbasis.design_columns(args[11], args[6], args[7]), dim=1)
+    dargs = (*args[:7], raw, *args[8:11], *args[12:])
+    for design in (False, True):
+        panels = [torch.empty((n, s), device=device) for _ in range(4)]
+        want_panels = [torch.empty((n, s), device=device) for _ in range(4)]
+        if design:
+            got = forward_kernel.forward_sweep_design(*dargs, panels=panels, grid=grid,
+                                                      route=route)
+            want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, design=raw,
+                                                      grid=grid)
+        else:
+            got = forward_kernel.forward_sweep(*args, panels=panels, grid=grid, route=route)
+            want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, grid=grid)
+        for x, y in zip((*got[:2], *panels), (*want[:2], *want_panels)):
+            assert torch.equal(x, y), (kind, g, route, design)
+        for k in (2, 3):
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                       atol=1e-5 * float(want[k].abs().max()))
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 6, 7, 9, 16, 20])
+def test_forward_sweep_large_route_coefficients_in_16_byte_words(device, b):
+    """The large route reads each coefficient row of [N, G, Bp] (B padded to
+    whole 16-byte words: ``pack_tables(..., large=True)``) in ceil(B / 4)
+    loads, at every remainder of B by 4 and on the wide route past 16
+    terms: the packed rows are [N, G, B]'s (the layout before the padding)
+    with zeros after, and the sweep gives the shared route's bits on the
+    same tables and its plain version's per-sim values."""
+    s, n, g = 300, 4, 100
+    basis = " + ".join(["1", "s", "x0", "x1", "x2", "s**2", "x0**2", "x1**2", "x2**2", "s*x0",
+                        "s*x1", "s*x2", "x0*x1", "x0*x2", "x1*x2", "s**3", "x0**3", "x1**3",
+                        "x2**3", "s**4"][:b])
+    args = _sweep_args(device, n, s, g, 3, basis=basis)
+    table, coef, tails = forward_kernel.pack_tables(*args[:6], args[10], large=True)
+    bp = forward_kernel.padded_basis(b)
+    assert coef.shape == (n, g, bp) and coef.data_ptr() % 16 == 0 and tails is None
+    assert torch.equal(coef[..., :b], args[10].transpose(1, 2).contiguous())
+    assert not bool(coef[..., b:].any())
+    raw = torch.stack(tbasis.design_columns(args[11], args[6], args[7]), dim=1)
+    dargs = (*args[:7], raw, *args[8:11], *args[12:])
+    outs = {}
+    for route in ("shared", "large"):
+        panels = [torch.empty((n, s), device=device) for _ in range(4)]
+        outs[route] = (*forward_kernel.forward_sweep_design(*dargs, panels=panels, route=route),
+                       *panels)
+    for x, y in zip(outs["shared"], outs["large"]):
+        assert torch.equal(x, y), b
+    want_panels = [torch.empty((n, s), device=device) for _ in range(4)]
+    want = forward_kernel.forward_sweep_plain(*args, panels=want_panels, design=raw)
+    for x, y in zip((*outs["large"][:2], *outs["large"][4:]), (*want[:2], *want_panels)):
+        assert torch.equal(x, y), b
+
+
 BASIS_20 = ("1 + s + x0 + x1 + x2 + s**2 + x0**2 + x1**2 + x2**2 + s*x0 + s*x1 + s*x2 + x0*x1 "
             "+ x0*x2 + x1*x2 + s**3 + x0**3 + x1**3 + x2**3 + s**4")
 

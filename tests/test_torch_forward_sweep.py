@@ -225,17 +225,21 @@ def test_packed_table_layout(b_dim, r, g):
     tabs = {k: torch.randn(shape, generator=gen) for k, shape in parts.items()}
     for general in (False, True):
         if general:
-            tabs["grid"] = torch.randn((n, g), generator=gen)
+            tabs["grid"] = torch.sort(torch.randn((n, g), generator=gen), dim=1).values
         table = tfk.pack_tables(*tabs.values())
         offsets, width = tfk.table_layout(b_dim, r, g, general)
-        used = tfk.NUM_PARAMS + 2 * b_dim + 3 * r + (b_dim + general) * g
+        used = tfk.NUM_PARAMS + 2 * b_dim + 3 * r + b_dim * g + general * (2 * g + 1)
         assert table.shape == (n, width) and table.dtype == torch.float32 and table.is_contiguous()
         assert width % 4 == 0 and used <= width < used + 4
         assert width == (used + 3) // 4 * 4  # csrc/forward_sweep.cuh table_words
         for name, x in tabs.items():
-            size = x[0].numel()
-            assert torch.equal(table[:, offsets[name]:offsets[name] + size], x.reshape(n, size))
+            part = tfk.general_tail(x) if name == "grid" else x  # the row and its index
+            size = part[0].numel()
+            assert torch.equal(table[:, offsets[name]:offsets[name] + size],
+                               part.reshape(n, size))
         assert torch.equal(table[:, used:], torch.zeros((n, width - used)))
     src = CSRC.read_text()
     assert int(re.search(r"constexpr int kThreads = (\d+);", src).group(1)) == tfk._GROUP
-    assert "(NUM_PARAMS + 2 * B + 3 * R + (B + (general ? 1 : 0)) * G + 3) / 4 * 4" in src
+    assert ("(NUM_PARAMS + 2 * B + 3 * R + B * G + (general ? general_words(G) : 0) + 3) / 4 * 4"
+            in src)
+    assert "inline int general_words(int G) { return 2 * G + 1; }" in src

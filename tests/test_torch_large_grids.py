@@ -14,7 +14,7 @@
   shared memory a block): kernel B's shared route up to 1,553 grid points at
   D = 3, B = 9 (its records of 36 words a grid point); D's up to 2,905 at
   B = 4; C's up to 3,090 (monomial),
-  2,781 (general rows) and 2,632 (design mode on general rows) at B = 9,
+  2,528 (general rows) and 2,392 (design mode on general rows) at B = 9,
   R = 3, F = 3.
 * With CUDA stood in (no card here), each entry point at G = 4,096 chooses
   the large routes (kernel C's shared one on spot-only panels, which stage
@@ -177,9 +177,9 @@ def test_three_factor_seasonal_value_matches_jax_at_4096_grid_points():
     ("D", lambda: decision_kernel.update_max_grid(3, 4, H100_SMEM), 2_905),
     ("C-monomial", lambda: forward_kernel.sweep_max_grid(9, 3, 3, 0, H100_SMEM), 3_090),
     ("C-general", lambda: forward_kernel.sweep_max_grid(9, 3, 3, 0, H100_SMEM, general=True),
-     2_781),
+     2_528),
     ("C-design", lambda: forward_kernel.sweep_max_grid(9, 3, 9, 0, H100_SMEM, design=True,
-                                                       general=True), 2_632)],
+                                                       general=True), 2_392)],
     ids=lambda x: x if isinstance(x, str) else None)
 def test_shared_routes_hold_the_documented_limits(name, max_grid, want):
     assert max_grid() == want
@@ -188,20 +188,28 @@ def test_shared_routes_hold_the_documented_limits(name, max_grid, want):
 def test_routes_switch_at_the_limits():
     """Kernels B, E and D take their shared route (the tile is the whole
     grid) while its blocks per SM are at least the large route's, and the
-    large route one grid point past that; C's sweep up to its shared route's
-    limit in every mode.  A forced route still takes any shape it holds."""
+    large route one grid point past that; C's sweep while its shared route
+    fits and leaves 4 blocks an SM (``SHARED_MIN_BLOCKS``) in every mode, the
+    design mode's wide route while it fits.  A forced route still takes any
+    shape it holds."""
     mk, up, sweep = (decision_kernel.moments_route, decision_kernel.update_route,
                      forward_kernel.sweep_route)
     assert mk(112, 3, 9, H100_SMEM) == ("shared", 112)
     assert mk(113, 3, 9, H100_SMEM) == ("large", decision_kernel.TILE_B)
     assert up(569, 3, 4, H100_SMEM) == ("shared", 569)
     assert up(570, 3, 4, H100_SMEM) == ("large", decision_kernel.TILE_D)
-    assert sweep(3_090, 9, 3, 3, 0, H100_SMEM) == "shared"
-    assert sweep(3_091, 9, 3, 3, 0, H100_SMEM) == "large"
-    assert sweep(2_781, 9, 3, 3, 0, H100_SMEM, general=True) == "shared"
-    assert sweep(2_782, 9, 3, 3, 0, H100_SMEM, general=True) == "large"
-    assert sweep(2_632, 9, 3, 9, 0, H100_SMEM, design=True, general=True) == "shared"
+    for (b, v, design, general), last in {(9, 3, False, False): 658, (9, 3, False, True): 538,
+                                          (9, 9, True, False): 492, (9, 9, True, True): 403,
+                                          (4, 0, False, False): 1_691,
+                                          (4, 0, False, True): 1_127}.items():
+        assert sweep(last, b, 3, v, 0, H100_SMEM, design, general) == "shared"
+        assert forward_kernel.sweep_blocks_per_sm(last, b, 3, v, 0, H100_SMEM, design,
+                                                  general) == forward_kernel.SHARED_MIN_BLOCKS
+        assert sweep(last + 1, b, 3, v, 0, H100_SMEM, design, general) == "large"
+    assert sweep(1_169, 20, 3, 20, 0, H100_SMEM, design=True) == "shared"
+    assert sweep(1_170, 20, 3, 20, 0, H100_SMEM, design=True) == "large"
     assert sweep(1_000_000, 9, 3, 9, 0, H100_SMEM, design=True, general=True) == "large"
+    assert sweep(3_090, 9, 3, 3, 0, H100_SMEM, route="shared") == "shared"
     # Kernel E: shared where kernel B's rule is and its one-block solve fits.
     assert decision_kernel.fullstep_route(112, 3, 9, H100_SMEM).name == "shared"
     assert decision_kernel.fullstep_route(113, 3, 9, H100_SMEM).name == "large"
@@ -405,8 +413,9 @@ _ENTRIES = {
         _spot_frames()[0], _spot_frames()[1], 100.0, _spot_frames()[2], 0.02, None,
         _spot_frames()[3], _spot_frames()[3], "1 + s + s**2 + s**3", False,
         num_inventory_grid_points=GRID, dtype=torch.float32, **kw),
-        # C stages no factor here: its shared route holds 7,163 grid points.
-        ("decision_update", "large"), ("forward_sweep", "shared")),
+        # C stages no factor here: its shared route holds 7,163 grid points,
+        # at 1 block an SM past 1,691.
+        ("decision_update", "large"), ("forward_sweep", "large")),
 }
 
 
@@ -429,22 +438,33 @@ def test_headline_grid_keeps_the_shared_routes(monkeypatch):
                        "forward": ("forward_sweep", "shared")}]
 
 
-def test_large_route_tables():
+@pytest.mark.parametrize("b_dim", [9, 4, 1, 20])
+def test_large_route_tables(b_dim):
     """The large route's packed rows hold the parts before the coefficients
     alone (``forward_sweep.cuh`` fixed_table_words), and its coefficients go
-    beside them as [N, G, B]: each grid row's terms adjacent."""
-    n, b_dim, r, g = 3, 9, 3, 50
+    beside them as [N, G, Bp]: each grid row's terms adjacent, zero-padded to
+    whole 16-byte words (``padded_basis``, the kernel's vector loads); in
+    general-grid mode the general tails [N, 2G + 1] go beside them too."""
+    n, r, g = 3, 3, 50
     gen = torch.Generator().manual_seed(2)
     parts = [torch.randn(shape, generator=gen) for shape in (
         (n, forward_kernel.NUM_PARAMS), (n, b_dim), (n, b_dim), (n, r), (n, r), (n, r),
         (n, b_dim, g))]
-    table, coeffs = forward_kernel.pack_tables(*parts, large=True)
+    table, coeffs, tails = forward_kernel.pack_tables(*parts, large=True)
     _, width = forward_kernel.table_layout(b_dim, r, g, large=True)
     used = forward_kernel.NUM_PARAMS + 2 * b_dim + 3 * r
     assert table.shape == (n, width) and width == (used + 3) // 4 * 4
     assert torch.equal(table[:, :used], torch.cat(parts[:6], dim=1))
-    assert coeffs.shape == (n, g, b_dim) and coeffs.is_contiguous()
-    assert torch.equal(coeffs, parts[6].transpose(1, 2))
+    bp = forward_kernel.padded_basis(b_dim)
+    assert bp % 4 == 0 and b_dim <= bp < b_dim + 4 and tails is None
+    assert coeffs.shape == (n, g, bp) and coeffs.is_contiguous()
+    assert torch.equal(coeffs[..., :b_dim], parts[6].transpose(1, 2))
+    assert torch.equal(coeffs[..., b_dim:], torch.zeros((n, g, bp - b_dim)))
+    grid = torch.sort(torch.randn((n, g), generator=gen), dim=1).values
+    table_g, coeffs_g, tails = forward_kernel.pack_tables(*parts, grid, large=True)
+    assert torch.equal(table_g, table) and torch.equal(coeffs_g, coeffs)
+    assert torch.equal(tails, forward_kernel.general_tail(grid))
     src = (Path(forward_kernel.__file__).resolve().parent.parent / "csrc"
            / "forward_sweep.cuh").read_text()
     assert "return table_words(B, R, 0, false);" in src
+    assert "inline int padded_basis(int B) { return (B + 3) / 4 * 4; }" in src
