@@ -148,7 +148,9 @@
    names the intrinsic DP's large route.
 7. The full-step backward (``lsmc_core(fullstep=True)``): kernel E once per
    backward step and no kernel B, the NPV within 0.05 SE of the main path's;
-   its backward seconds beside the kernel-B-plus-glue backward.
+   the same valuation with E forced onto its wide route (every output the
+   register route's bits, E's wide launches 365); its backward seconds
+   beside the kernel-B-plus-glue backward.
 8. The public host layer: kernel C's design mode (the forward step of a
    basis with a user callable, reading each step's raw design from memory)
    on the main path's tables with its nine monomials written out as the
@@ -173,14 +175,27 @@
    sweep the same bits, C flips only on near-ties), timed beside its bound
    with its launch report and the compiler's registers and spills (the
    kernels line's ``b20_*``, ``b36_*``, ``b20_uniform_*``,
-   ``b20_general_*``, ``f10_*`` and ``f13_*`` keys); then, counters reset
-   before each, the headline facility at its full width with a 20-term
-   basis (``three_factor_seasonal_value``) and with a 10-factor model
-   (``multi_factor_value``, pairwise correlation 0.3, 13 terms): each takes
-   the design in memory on materialised paths (the sweep 2, D 365, C's
-   design mode 12, the intrinsic DP 1) and lands within 0.1 SE of its f64
-   answer on the same draws (``F64_CAPS_NPV``), its wall and peak memory
-   printed.  The headline keeps its route and its NPV bits (``MAIN_NPV``).
+   ``b20_general_*``, ``f10_*`` and ``f13_*`` keys); kernel E's wide route
+   (past the caps) at 20 terms on the headline's 3-factor paths and 13 on
+   the 10-factor model's, at G=100 (the rule's grid route, the other forced
+   to its bits) and G=1,000, against its plain version (flips counted, only
+   on near-ties), timed beside its bound with B's wide body's launch report
+   (the kernels line's ``decision_update_fullstep_wide`` row, its
+   ``b13f10_*`` and ``*_g1000_*`` keys), its Python sizing held to the launch
+   report on both sides of the route's crossing, and at the headline's B=9
+   forced onto the wide route: the register route's bits; then, counters
+   reset before each, the headline facility at its full width with a
+   20-term basis (``three_factor_seasonal_value``) and with a 10-factor
+   model (``multi_factor_value``, pairwise correlation 0.3, 13 terms): each
+   takes the design in memory on materialised paths (the sweep 2, D 365,
+   C's design mode 12, the intrinsic DP 1) and lands within 0.1 SE of its
+   f64 answer on the same draws (``F64_CAPS_NPV``), its wall and peak memory
+   printed; beside each the same valuation with the engine's full step
+   (``fullstep_engine``: the sweep 2, E 365 on its wide route, C's design
+   mode 12, the intrinsic DP 1), within 0.05 SE of it on the same paths,
+   the two timed in turns (full step, design in memory, design in memory,
+   full step).  The headline keeps its route and its NPV bits
+   (``MAIN_NPV``).
 9. The service phase: the C++ band reducer against the Python band on the
    headline and an 8,760-step hourly year (the same f64 bits; medians of
    5, the hourly Python band timed once) and host prep with each, in turns; an interactive headline valuation
@@ -204,7 +219,10 @@
    S=1,000 in f32 and f64, timed beside its bound and one einsum; kernel
    C's general-grid mode against its plain version on the main path's
    tables on bunched rows (monomial mode), padded rows (design mode) and
-   at G=1,000, timed beside the evenly spaced mode.  Then, each path with
+   at G=1,000, timed beside the evenly spaced mode; its bucket index
+   (``general_tail``) its plain version's bits, timed beside one batched
+   ``torch.searchsorted`` of the rows' interior nodes against the bucket
+   edges (its library time) at G=100 and 4,096.  Then, each path with
    the counters reset: the headline with ``deltas_method="adjoint"`` (the
    main path's NPV, SE, intrinsic value and profile bits, deltas for t < N
    within 1e-5 of the pathwise ones, the last the terminal value's gradient
@@ -370,6 +388,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                      "storage_tpu/ops/decision_kernel.py:308"),
     "decision_update_fullstep_large": ("storage_tpu_torch/csrc/fullstep_kernel.cu",
                                        "storage_tpu/ops/decision_kernel.py:712"),
+    # Kernel E's wide route past kernel B's register caps (the caps phase):
+    # its solve, then B's wide body (decision_kernel.cu).
+    "decision_update_fullstep_wide": ("storage_tpu_torch/csrc/fullstep_kernel.cu",
+                                      "storage_tpu/ops/decision_kernel.py:712"),
     "forward_sweep_large": ("storage_tpu_torch/csrc/forward_kernel_large.cu",
                             "storage_tpu/ops/forward_kernel.py:372"),
     "forward_sweep_design_large": ("storage_tpu_torch/csrc/forward_kernel_large.cu",
@@ -867,14 +889,16 @@ def compare_b(args_b) -> dict:
                 moments_max_rel_err=mom_err, bit_identical_over_two_launches=repeat_same)
 
 
-def compare_e(args_e, prev) -> dict:
+def compare_e(args_e, prev, wide: bool = False) -> dict:
     """Kernel E against its plain version on ``args_e`` (with ``prev``, the
     stats of the next moments): the regression within 1e-4 relative (both
     factor the f32 system in double, the kernel by its own loop, the plain
     version with torch.linalg),
     the step bit-identical to kernel B run on E's own regression, argmax
     flips only on near-ties of either regression's values, the moments
-    within 1e-4 relative."""
+    within 1e-4 relative.  With ``wide`` (E's wide route, past kernel B's
+    caps, where B's register kernels do not run) the step is held to the
+    plain version alone."""
     import torch
 
     from storage_tpu_torch.ops import decision_kernel, interp
@@ -885,11 +909,14 @@ def compare_e(args_e, prev) -> dict:
     reg_err = max(rel_err(got[i], want[i]) for i in (3, 4, 5))
     mom_err = max(rel_err(got[i], want[i]) for i in (1, 2))
     ci_k = interp.interp_coeffs(got[5], idx_lo, w_hi)
-    same = decision_kernel.decision_update_moments(
-        v, spot, factors, spot_prev, factors_prev, got[3], got[4], prev["mean_prev"],
-        prev["std_prev"], idx_lo, w_hi, ci_k, a, b, monomials)
-    bit_identical = all(torch.equal(got[i], same[i]) for i in range(3))
-    del same
+    if wide:
+        bit_identical = None
+    else:
+        same = decision_kernel.decision_update_moments(
+            v, spot, factors, spot_prev, factors_prev, got[3], got[4], prev["mean_prev"],
+            prev["std_prev"], idx_lo, w_hi, ci_k, a, b, monomials)
+        bit_identical = all(torch.equal(got[i], same[i]) for i in range(3))
+        del same
     ci_p = interp.interp_coeffs(want[5], idx_lo, w_hi)
     regressed = [torch.stack([r for r, _ in decision_kernel.decision_values(
         v, spot, factors, m_, s_, idx_lo, w_hi, c_, a, b, monomials)])
@@ -897,11 +924,12 @@ def compare_e(args_e, prev) -> dict:
     flips, unexplained, err = near_tie_flips(got[0], want[0], regressed)
     del regressed
     n = got[0].numel()
-    ok = (reg_err <= 1e-4 and mom_err <= 1e-4 and bit_identical and not unexplained
-          and flips <= 1e-5 * n)
+    ok = (reg_err <= 1e-4 and mom_err <= 1e-4 and bit_identical is not False
+          and not unexplained and flips <= 1e-5 * n)
     text = (f"mean/std/coeffs max rel err {reg_err:.3e} (tolerance 1e-4: the kernel's double "
             f"Cholesky rounds otherwise than torch.linalg's); step bit-identical to kernel B on its own "
-            f"regression: {bit_identical}; best_act max abs err {err:.3e}, {flips} argmax flips, "
+            f"regression: {'not run (past its caps)' if wide else bit_identical}; best_act max "
+            f"abs err {err:.3e}, {flips} argmax flips, "
             f"{unexplained} off a near-tie (tolerance 0); moments max rel err {mom_err:.3e} "
             f"(tolerance 1e-4)")
     return dict(ok=ok, text=text, max_abs_err=err, flips=flips, unexplained_flips=unexplained,
@@ -1850,6 +1878,23 @@ def fullstep_valuation(pkg, device, counts, main):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
     z = check_npv(npv, se, snap_interp=True)
     off = (npv - main.npv) / main.val_sim_standard_error
+    # The same valuation with kernel E forced onto its wide route: the
+    # register route's bits in every output.
+    counts.reset()
+    with forced_routes("wide-shared", names=("decision_update_fullstep",)):
+        wide = engine.lsmc_core(arrays, reg.spot, reg.factors, val.spot, val.factors, 100.0,
+                                monomials, 0, False, tfn, False, snap_interp=True, fullstep=True)
+    wide_launches = counts.read()
+    wide_same = all(torch.equal(out[k], wide[k]) for k in out)
+    log(f"fullstep forced onto kernel E's wide route: launches {wide_launches}; every output the "
+        f"register route's bits: {wide_same}")
+    if wide_launches != counts.expect(decision_update_fullstep=NUM_STEPS,
+                                      decision_update_fullstep_wide=NUM_STEPS, forward_sweep=1):
+        raise AssertionError(f"fullstep forced wide: launch counts {wide_launches}")
+    if not wide_same:
+        raise AssertionError("kernel E's wide route parts from its register route at the "
+                             "headline")
+    del wide
     backward = {False: [], True: []}
     with engine.full_f32_matmul():
         for fullstep in (False, True, True, False):
@@ -1865,7 +1910,8 @@ def fullstep_valuation(pkg, device, counts, main):
     if not abs(off) <= 0.05:
         raise AssertionError(f"fullstep NPV {npv} is not within 0.05 SE of {main.npv}")
     return dict(npv=npv, se=se, off_main_se=off, launches=launches,
-                backward_fullstep_s=backward[True], backward_b_glue_s=backward[False])
+                backward_fullstep_s=backward[True], backward_b_glue_s=backward[False],
+                forced_wide_launches=wide_launches, forced_wide_same_bits=wide_same)
 
 
 def replica_basis(pkg):
@@ -2283,6 +2329,154 @@ def launch_text(r: dict) -> str:
             f"{r['sass_instructions']} SASS instructions")
 
 
+def wide_step_args(device, monomials, sims, arrays, t: int, s: int, seed: int):
+    """Kernel E's arguments at step t of a valuation's paths (the first S
+    of ``sims``) and of its facility's step tables (``arrays``, at their G):
+    v about the next grid's value, the moments of step t's design
+    standardised by its exact stats against v, and step t−1's exact stats
+    for the next moments, as the engine hands them over."""
+    import torch
+
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.ops import decision_kernel
+
+    spot = sims.spot[t - 1:t + 2, :s].contiguous()
+    factors = sims.factors[t - 1:t + 1, :, :s].contiguous()
+    prep = engine._backward_prep_all(arrays, 0, False, snap_interp=True)
+    grid_next = arrays["grids"][t + 1]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v = (grid_next[:, None] * spot[2][None, :]
+         + 40.0 * torch.randn((grid_next.shape[0], s), generator=gen, device=device)).contiguous()
+    mean, std = engine._design_stats(monomials, spot[:2], factors)
+    dm = decision_kernel._standardised_design(monomials, spot[1], factors[1], mean[1], std[1])
+    args = (v, spot[1], factors[1], spot[0], factors[0], dm.T @ dm, dm.T @ v.T, mean[1], std[1],
+            prep["idx_lo"][t], prep["w_hi"][t], prep["a"][t], prep["b"][t], monomials)
+    return args, dict(mean_prev=mean[0], std_prev=std[0])
+
+
+def check_fullstep_wide(pkg, device, st) -> dict:
+    """Kernel E's wide route (past 16 terms or 8 factors) on the paths of
+    the caps phase's two valuations at step t = 180: ``BASIS_20`` on the
+    headline's 3-factor paths and ``BASIS_10F`` on the 10-factor model's,
+    each at G=100 (S=262,144; the rule's grid route, and the other forced to
+    its bits) and G=1,000 (S=65,536, the large route), against its plain
+    version (``compare_e``: the regression within 1e-4 relative, argmax
+    flips counted and only on near-ties), timed beside its bound, with the
+    launch report of B's wide body and the compiler's registers and spills;
+    the route's Python sizing held to the
+    launch report on both sides of the wide route's shared/large crossing;
+    and at the headline's B=9, F=3 the wide route forced on each grid route
+    (``route="wide-shared"``, ``"wide-large"``) against the register route:
+    every output the same bits."""
+    import torch
+
+    from storage_tpu_torch.basis import parse_basis_functions
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import _build, decision_kernel
+
+    limit = _build.smem_limit(device)
+    inputs = st.inputs
+    arrays = {NUM_GRID: st.arrays, BIG_GRID: engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow, inputs.inventory_lower,
+        inputs.inventory_upper, BIG_GRID, torch.float32, device)}
+    out, crossings = {}, {}
+    fe = decision_kernel.decision_update_fullstep
+    for label, basis, f in (("b20f3", BASIS_20, 3), ("b13f10", BASIS_10F, TEN_FACTORS)):
+        mono = tuple(parse_basis_functions(basis))
+        b = len(mono)
+        if f == 3:
+            sims = st.sims
+        else:
+            _, sim_in = ten_factor_inputs(pkg, device)
+            sims = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11),
+                                              torch.arange(NUM_SIMS, device=device), *sim_in)
+        for g, s in ((NUM_GRID, NUM_SIMS), (BIG_GRID, BIG_SIMS)):
+            args, prev = wide_step_args(device, mono, sims, arrays[g], st.t, s, seed=5 + g)
+            plan = decision_kernel.fullstep_route(g, 3, b, limit, num_factors=f)
+            before = (fe.launches, fe.wide_launches, fe.large_launches)
+            cmp = compare_e(args, prev, wide=True)
+            counted = (fe.launches - before[0], fe.wide_launches - before[1],
+                       fe.large_launches - before[2])
+            buf = torch.empty_like(args[0])
+            # Both grid routes at the main path's G: the other one's bits.
+            other = {"shared": "large", "large": "shared"}[plan.name]
+            routes_same = g > NUM_GRID or forced_bits(fe, args, prev)
+            ms = cuda_ms(lambda: fe(*args, **prev, out=buf), 20 if g == NUM_GRID else 5)
+            plain_ms = cuda_ms(
+                lambda: decision_kernel.decision_update_fullstep_plain(*args, **prev), 2)
+            bnd = bound(*decision_work(g, s, 3, b, f, moments=True, solve=True))
+            info = decision_kernel.kernel_info("wide", plan.tile, 3, b, device, num_factors=f)
+            log(f"caps: kernel E decision_update_fullstep [G={g}, S={s}, D=3, B={b}, F={f}, wide "
+                f"route, {plan.name} (tile {plan.tile})]: {cmp['text']}; launches counted "
+                f"(all, wide, large) {counted}; "
+                + (f"forced onto its {other} route, the same bits: {routes_same}; "
+                   if g == NUM_GRID else "")
+                + f"{ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); B's wide body "
+                f"{info['smem_bytes']} bytes of shared memory (G <= {info['max_grid']}), "
+                f"{info['blocks_per_sm']} blocks per SM, {info['registers']} registers")
+            if not cmp["ok"]:
+                raise AssertionError(f"kernel E's wide route at B={b}, F={f}, G={g} disagrees "
+                                     f"with its plain version: {cmp['text']}")
+            if not plan.wide or counted != (1, 1, int(plan.name == "large")) or (
+                    g > NUM_GRID and plan.name != "large"):
+                raise AssertionError(f"kernel E at B={b}, F={f}, G={g} took {plan} (launches "
+                                     f"{counted}), not its wide route")
+            if not routes_same:
+                raise AssertionError(f"kernel E's wide route at B={b}, F={f}, G={g} gives other "
+                                     f"bits on its {other} route")
+            out[label if g == NUM_GRID else f"{label}_g{g}"] = dict(
+                B=b, F=f, G=g, S=s, grid_route=plan.name, tile=plan.tile,
+                max_abs_err=cmp["max_abs_err"], flips=cmp["flips"],
+                unexplained_flips=cmp["unexplained_flips"],
+                regression_max_rel_err=cmp["regression_max_rel_err"],
+                moments_max_rel_err=cmp["moments_max_rel_err"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None,
+                smem_bytes=info["smem_bytes"], max_grid=info["max_grid"],
+                blocks_per_sm=info["blocks_per_sm"], registers=info["registers"])
+            del args, prev, buf
+        del sims
+        # The Python sizing of the wide body against its launch report: the
+        # largest G, and the blocks per SM on both sides of the crossing and
+        # at the large route's tile.
+        last = max(g for g in range(2, 2_000)
+                   if decision_kernel.fullstep_route(g, 3, b, limit, num_factors=f).name
+                   == "shared")
+        sizing = [("max_grid", decision_kernel.wide_max_grid(3, b, f, limit),
+                   decision_kernel.kernel_info("wide", 100, 3, b, device,
+                                               num_factors=f)["max_grid"])]
+        for g in (last, last + 1, decision_kernel.TILE_B):
+            sizing.append((f"blocks_per_sm G={g}",
+                           decision_kernel.wide_blocks_per_sm(g, 3, b, f, limit),
+                           decision_kernel.kernel_info("wide", g, 3, b, device,
+                                                       num_factors=f)["blocks_per_sm"]))
+        crossings[label] = dict(last_shared=last, sizing=sizing)
+        log(f"caps: kernel E's wide route at B={b}, F={f}: shared up to G={last} under the rule; "
+            f"the Python sizing (mine, the launch report's): {sizing}")
+        if any(mine != theirs for _, mine, theirs in sizing):
+            raise AssertionError(f"the wide route's sizing at B={b}, F={f} disagrees with "
+                                 f"kernel_info: {sizing}")
+    ptx = {"body": ptxas_report("decision_moments_wide_kernel"),
+           "solve": ptxas_report(f"fullstep_solve_kernelILb0ELi{_build.MAX_WIDE_BASIS}E"),
+           "solve_spread": ptxas_report(f"fullstep_solve_kernelILb1ELi{_build.MAX_WIDE_BASIS}E")}
+    log(f"caps: kernel E's wide route, ptxas: {ptx}")
+    # The headline's shape forced onto the wide route: the register route's
+    # bits on each grid route.
+    args_e, prev = fullstep_args(st.args_b)
+    forced = {}
+    for grid_route in ("shared", "large"):
+        reg = tuple(t.clone() for t in fe(*args_e, **prev, route=grid_route))
+        forced[grid_route] = same_outputs(reg, fe(*args_e, **prev, route=f"wide-{grid_route}"))
+    log(f"caps: kernel E at the headline's B=9, F=3 forced onto the wide route: every output the "
+        f"register route's bits on the shared and the large route: {forced}")
+    if not all(forced.values()):
+        raise AssertionError(f"kernel E's wide route at B=9 parts from its register route: "
+                             f"{forced}")
+    del args_e
+    return out, dict(crossings=crossings, ptxas=ptx, forced_b9_same_bits=forced)
+
+
 def check_caps(pkg, device) -> dict:
     """The kernels at the sizes beyond the monomial kernels' caps, on the
     main path's shapes (S=262,144, G=100, D=3), each against its plain
@@ -2304,9 +2498,11 @@ def check_caps(pkg, device) -> dict:
     from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel, interp, rng_kernel
 
     limits = _build.limits()
-    if (limits["max_basis"], limits["max_factors"]) != (_build.MAX_BASIS, _build.MAX_FACTORS):
+    if (limits["max_basis"], limits["max_factors"], limits["max_wide_basis"]) != (
+            _build.MAX_BASIS, _build.MAX_FACTORS, _build.MAX_WIDE_BASIS):
         raise AssertionError(f"the route's copy of the caps ({_build.MAX_BASIS}, "
-                             f"{_build.MAX_FACTORS}) is not the library's {limits}")
+                             f"{_build.MAX_FACTORS}, {_build.MAX_WIDE_BASIS}) is not the "
+                             f"library's {limits}")
     s, g = NUM_SIMS, NUM_GRID
     st = backward_step_inputs(pkg, device)
     t, sims, step = st.t, st.sims, st.step
@@ -2344,6 +2540,10 @@ def check_caps(pkg, device) -> dict:
             smem_bytes=info["smem_bytes"], max_grid=info["max_grid"],
             blocks_per_sm=info["blocks_per_sm"], registers=info["registers"], ptxas=ptx)
         del args, buf, dm_t
+
+    # ---- kernel E's wide route at (B, F) = (20, 3) and (13, 10).
+    out["decision_update_fullstep_wide"], out["fullstep_wide_checks"] = check_fullstep_wide(
+        pkg, device, st)
 
     # ---- kernel C's design mode at B = 20 on the 20 terms' own backward.
     mono20 = tuple(parse_basis_functions(BASIS_20))
@@ -2444,6 +2644,25 @@ def check_caps(pkg, device) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def fullstep_engine(on: bool = True):
+    """The public API's valuations inside the block run the engine's full
+    step, ``lsmc_core_rows(..., fullstep=True)``: the engine keyword that
+    takes the place of the JAX package's ``STORAGE_TPU_FULLSTEP=1``, which
+    no API argument reaches.  With ``on`` False the block changes nothing."""
+    import functools
+
+    from storage_tpu_torch.engines import lsmc as engine
+
+    inner = engine.lsmc_core_rows
+    if on:
+        engine.lsmc_core_rows = functools.partial(inner, fullstep=True)
+    try:
+        yield
+    finally:
+        engine.lsmc_core_rows = inner
+
+
 def caps_valuations(pkg, device, counts, main) -> dict:
     """The two full-width valuations beyond the caps through the public API,
     each with the launch counters reset just before it: the route chosen
@@ -2451,13 +2670,19 @@ def caps_valuations(pkg, device, counts, main) -> dict:
     path set), kernel D 365, C's design mode 12, the intrinsic DP 1, no
     other), its NPV within 0.1 SE of the f64 answer on the same draws
     (``F64_CAPS_NPV``), finite deltas and profile, its wall and peak device
-    memory.  The headline's route is printed beside them: it keeps kernel
-    B and C's monomial mode."""
+    memory.  Beside each, the same valuation with the engine's full step
+    (``fullstep_engine``): the sweep 2, kernel E 365 on its wide route, C's
+    design mode 12, the intrinsic DP 1 and no other, its NPV within 0.05 SE
+    of the design-in-memory valuation's on the same paths; the two timed in
+    turns (full step, design in memory, design in memory, full step).  The
+    headline's route is printed beside them: it keeps kernel B and C's
+    monomial mode."""
     import numpy as np
     import torch
 
     from storage_tpu_torch.basis import parse_basis_functions
     from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.ops import _build, decision_kernel
 
     out = {}
     head = engine.design_in_memory(tuple(parse_basis_functions(BASIS)), 3)
@@ -2468,19 +2693,26 @@ def caps_valuations(pkg, device, counts, main) -> dict:
     for case, terms, factors in (("basis_20", 20, 3), ("factors_10", 13, TEN_FACTORS)):
         basis = BASIS_20 if case == "basis_20" else BASIS_10F
         on_design = engine.design_in_memory(tuple(parse_basis_functions(basis)), factors)
-        # The route reads the driver's free memory: hand back the caching
-        # allocator's blocks, so that the valuation is routed (materialised:
-        # its panels fit the card) as it would be in a fresh process.
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        counts.reset()
-        t0 = time.perf_counter()
-        res = caps_value(pkg, device, case)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = counts.read()
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        body = engine.fullstep_body(tuple(parse_basis_functions(basis)), factors)
+        runs, walls = {}, {True: [], False: []}
+        for fullstep in (True, False, False, True):
+            # The route reads the card's free memory: hand back the caching
+            # allocator's blocks, so that the valuation is routed
+            # (materialised: its panels fit the card) as it would be in a
+            # fresh process.
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            counts.reset()
+            t0 = time.perf_counter()
+            with fullstep_engine(fullstep):
+                res = caps_value(pkg, device, case)
+            torch.cuda.synchronize()
+            walls[fullstep].append(time.perf_counter() - t0)
+            if fullstep not in runs:
+                runs[fullstep] = (res, counts.read(), torch.cuda.max_memory_allocated() / 1e9)
+        res, launches, peak = runs[False]
+        wall = walls[False][0]
         expected = counts.expect(simulate_sweep=2, decision_update=NUM_STEPS,
                                  pack_records=NUM_STEPS,
                                  forward_sweep_design=-(-NUM_STEPS // 32), intrinsic_dp=1)
@@ -2501,8 +2733,40 @@ def caps_valuations(pkg, device, counts, main) -> dict:
         if not (math.isfinite(npv) and abs(off) <= 0.1 and finite):
             raise AssertionError(f"{case}: NPV {npv} (SE {se}) is {off:+.4f} SE from {pin}, or "
                                  f"its deltas or profile are not finite")
+        res_e, launches_e, peak_e = runs[True]
+        grid_route = decision_kernel.fullstep_route(NUM_GRID, 3, terms, _build.smem_limit(device),
+                                                    num_factors=factors).name
+        expected_e = counts.expect(simulate_sweep=2, decision_update_fullstep=NUM_STEPS,
+                                   decision_update_fullstep_wide=NUM_STEPS,
+                                   decision_update_fullstep_large=NUM_STEPS * (
+                                       grid_route == "large"),
+                                   forward_sweep_design=-(-NUM_STEPS // 32), intrinsic_dp=1)
+        npv_e, se_e = res_e.npv, res_e.val_sim_standard_error
+        off_e = (npv_e - npv) / se
+        finite_e = bool(np.isfinite(res_e.deltas.to_numpy()).all()
+                        and np.isfinite(res_e.expected_profile.to_numpy()).all())
+        log(f"caps: {case} with the full step (kernel E's {body} route, {grid_route}): NPV "
+            f"{npv_e!r} SE {se_e!r} "
+            f"({off_e:+.4f} SE from the design-in-memory valuation's NPV on the same paths, "
+            f"tolerance 0.05); launches {launches_e}; walls in turns (full step, design in "
+            f"memory, design in memory, full step): {walls[True][0]:.4f}, {walls[False][0]:.4f}, "
+            f"{walls[False][1]:.4f}, {walls[True][1]:.4f} s; peak device memory {peak_e:.2f} GB; "
+            f"finite deltas and profile {finite_e}")
+        if body != "wide":
+            raise AssertionError(f"{case}: the full step chose kernel E's {body} route")
+        if launches_e != expected_e:
+            raise AssertionError(f"{case} with the full step: launch counts {launches_e}, "
+                                 f"expected {expected_e}")
+        if not (math.isfinite(npv_e) and abs(off_e) <= 0.05 and finite_e):
+            raise AssertionError(f"{case} with the full step: NPV {npv_e} is {off_e:+.4f} SE from "
+                                 f"{npv}, or its deltas or profile are not finite")
         out[case] = dict(terms=terms, factors=factors, route="design_in_memory", npv=npv, se=se,
-                         se_from_f64=off, launches=dict(launches), wall_s=wall, peak_memory_gb=peak)
+                         se_from_f64=off, launches=dict(launches), wall_s=wall,
+                         walls_s=walls[False], peak_memory_gb=peak,
+                         fullstep=dict(route=f"fullstep_{body}_{grid_route}", npv=npv_e, se=se_e,
+                                       se_from_design_in_memory=off_e,
+                                       launches=dict(launches_e), walls_s=walls[True],
+                                       peak_memory_gb=peak_e))
     return out
 
 
@@ -2756,6 +3020,20 @@ def general_tail_work(n: int, g: int) -> tuple:
     return 4.0 * n * (g + 2 * g + 1), 0.0, 8.0 * n * g, 3.0 * n * g
 
 
+def bucket_edges(rows):
+    """The library form of ``general_tail``'s counts: each row's interior
+    nodes [N, G − 2] and its K + 1 = G bucket edges row[0] + i·span/K [N, G],
+    so that one batched ``torch.searchsorted(nodes, edges)`` counts the
+    interior nodes below each edge (the kernel's counts up to the rounding
+    of a node on an edge; the edges are made here, outside its timing)."""
+    import torch
+
+    n, g = rows.shape
+    a, b = rows[:, :1], rows[:, g - 1:]
+    steps = torch.arange(g, device=rows.device, dtype=rows.dtype) / (g - 1)
+    return rows[:, 1:g - 1].contiguous(), (a + (b - a) * steps).contiguous()
+
+
 def vjp_work(n: int, s: int) -> tuple:
     """(bytes, unfused f32 operations) of the forward sweep's VJP: three
     [N, S] panels and g [S] in, fwd and df_settle in and grad out [N]; per
@@ -2850,19 +3128,23 @@ def check_adjoint_kernels(pkg, device) -> dict:
     for name, rows_t in (("main", rows), ("padded", padded), ("big", big_rows)):
         got_t = forward_kernel.general_tail(rows_t)
         want_t = forward_kernel.general_tail_plain(rows_t)
+        nodes, edges = bucket_edges(rows_t)
         tails[name] = dict(
             same=torch.equal(got_t.view(torch.int32), want_t.view(torch.int32)),
             ms=cuda_ms(lambda rows_t=rows_t: forward_kernel.general_tail(rows_t), 50),
             plain_ms=cuda_ms(lambda rows_t=rows_t: forward_kernel.general_tail_plain(rows_t), 5),
+            library_ms=cuda_ms(lambda: torch.searchsorted(nodes, edges), 50),
             bound=bound(*general_tail_work(*rows_t.shape)),
             largest_bracket=int(forward_kernel.general_brackets(got_t).max()),
             grid=rows_t.shape[1])
-        del got_t, want_t
+        del got_t, want_t, nodes, edges
     log(f"general_tail (the general-grid mode's bucket index) [N={n}; G={g_}, padded, "
         f"{GRID_BIG}]: its plain version's bits: "
         f"{[t_['same'] for t_ in tails.values()]}; {tails['main']['ms']:.4f} / "
         f"{tails['big']['ms']:.4f} ms a launch (G={g_} / {GRID_BIG}) vs plain "
-        f"{tails['main']['plain_ms']:.3f} / {tails['big']['plain_ms']:.3f} ms, bound "
+        f"{tails['main']['plain_ms']:.3f} / {tails['big']['plain_ms']:.3f} ms, one batched "
+        f"torch.searchsorted of the interior nodes against the bucket edges "
+        f"{tails['main']['library_ms']:.4f} / {tails['big']['library_ms']:.4f} ms, bound "
         f"{tails['main']['bound']['bound_ms']:.5f} / {tails['big']['bound']['bound_ms']:.5f} "
         f"ms; largest bracket {tails['padded']['largest_bracket']} nodes on the padded rows, "
         f"{tails['big']['largest_bracket']} at G={GRID_BIG}")
@@ -2906,7 +3188,9 @@ def check_adjoint_kernels(pkg, device) -> dict:
         **{k: v_ for k, v_ in cmp_design.items() if k not in ("text", "max_abs_err", "ok")},
         **bnd_d)
     tail_row = dict(max_abs_err=0.0, ms=tails["main"]["ms"], plain_ms=tails["main"]["plain_ms"],
+                    library_ms=tails["main"]["library_ms"],
                     grid=g_, big_grid_ms=tails["big"]["ms"],
+                    big_grid_library_ms=tails["big"]["library_ms"],
                     big_grid_bound_ms=tails["big"]["bound"]["bound_ms"],
                     largest_bracket=tails["padded"]["largest_bracket"], **tails["main"]["bound"])
     return {"forward_sweep_vjp": vjp, "forward_sweep_general": general,
@@ -4644,11 +4928,12 @@ def big_bunched_grid(lower, upper):
 
 
 @contextlib.contextmanager
-def forced_routes(route: str):
-    """Every grid-routed wrapper (B, D, E, C's two modes) forced onto
-    ``route`` inside the block.  A wrapper counts its launches on the name
-    its module binds, the forcing wrapper inside the block: the counters are
-    handed back to the wrapper on leaving it."""
+def forced_routes(route: str, names=None):
+    """Every grid-routed wrapper (B, D, E, C's two modes), or those
+    ``names``, forced onto ``route`` inside the block.  A wrapper counts its
+    launches on the name its module binds, the forcing wrapper inside the
+    block: the counters are handed back to the wrapper on leaving it (read
+    them after the block)."""
     import functools
 
     from storage_tpu_torch.ops import decision_kernel, forward_kernel
@@ -4656,6 +4941,8 @@ def forced_routes(route: str):
     targets = [(decision_kernel, name) for name in
                ("decision_update_moments", "decision_update", "decision_update_fullstep")]
     targets += [(forward_kernel, name) for name in ("forward_sweep", "forward_sweep_design")]
+    if names is not None:
+        targets = [(module, name) for module, name in targets if name in names]
     inners = {name: getattr(module, name) for module, name in targets}
 
     def forcing(inner):
@@ -4672,7 +4959,7 @@ def forced_routes(route: str):
     finally:
         for module, name in targets:
             setattr(module, name, inners[name])
-            for counter in ("launches", "general_launches", "large_launches"):
+            for counter in ("launches", "general_launches", "large_launches", "wide_launches"):
                 if hasattr(inners[name], counter):
                     setattr(inners[name], counter, getattr(wrappers[name], counter))
 
@@ -5869,7 +6156,10 @@ def launch_counts():
                              decision_kernel.decision_update_moments,
                              decision_kernel.decision_update,
                              decision_kernel.decision_update_fullstep,
-                             forward_kernel.forward_sweep, forward_kernel.forward_sweep_design))))
+                             forward_kernel.forward_sweep, forward_kernel.forward_sweep_design)),
+                         # Kernel E's wide route, counted in its launches too.
+                         ("decision_update_fullstep_wide", decision_kernel.decision_update_fullstep,
+                          "wide_launches")))
 
 
 def free_port() -> int:
@@ -6481,13 +6771,22 @@ def main(argv) -> int:
     report["caps"] = caps_valuations(stt, device, counts, report["main_path"])
     report["caps_phase_s"] = time.perf_counter() - t0
     log(f"caps phase: {report['caps_phase_s']:.1f} s")
+    report["caps"]["fullstep_wide_checks"] = caps.pop("fullstep_wide_checks")
     caps_launches = {("decision_update", "b20"): ("basis_20", "decision_update"),
                      ("forward_sweep_design", "b20_uniform"): ("basis_20", "forward_sweep_design"),
                      ("simulate_sweep", "f10"): ("factors_10", "simulate_sweep")}
+    # Kernel E's wide route: its launches in the full-step valuation of each.
+    fullstep_launches = {"b20f3": "basis_20", "b13f10": "factors_10"}
     for name, sizes in caps.items():
         for label, row in sizes.items():
             case = caps_launches.get((name, label))
             row["launches"] = report["caps"][case[0]]["launches"][case[1]] if case else 0
+            if name == "decision_update_fullstep_wide" and label in fullstep_launches:
+                row["launches"] = report["caps"][fullstep_launches[label]]["fullstep"][
+                    "launches"]["decision_update_fullstep_wide"]
+    kernels["decision_update_fullstep_wide"] = dict(caps["decision_update_fullstep_wide"]["b20f3"])
+    launches.update(decision_update_fullstep_wide=kernels["decision_update_fullstep_wide"][
+        "launches"])
     report["caps"]["kernels"] = caps
 
     # ---- adjoint deltas and custom inventory grids.
@@ -6528,6 +6827,7 @@ def main(argv) -> int:
                  decision_update_moments_large="grid_4096", decision_update_large="grid_4096_spot",
                  pack_records="grid_4096_spot",
                  decision_update_fullstep_large="grid_4096_fullstep",
+                 decision_update_fullstep_wide="caps_basis_20_fullstep",
                  forward_sweep_large="grid_4096", forward_sweep_design_large="grid_4096_generic",
                  forward_sweep_general_large="grid_4096_custom",
                  intrinsic_dp_large="intrinsic_value_32768",
@@ -6573,7 +6873,8 @@ def main(argv) -> int:
              "forward_sweep_general": ("uniform_ms", "smem_bytes", "blocks_per_sm", "registers"),
              "forward_sweep_design_general": ("uniform_ms", "smem_bytes", "blocks_per_sm",
                                               "registers"),
-             "general_tail": ("grid", "big_grid_ms", "big_grid_bound_ms", "largest_bracket"),
+             "general_tail": ("grid", "big_grid_ms", "big_grid_library_ms", "big_grid_bound_ms",
+                              "largest_bracket"),
              "decision_update_moments": ("random_rows_ms", "launch_report"),
              "decision_update_fullstep": ("random_rows_ms",),
              "decision_update_moments_large": ("tile", "band_rows_ms", "smem_bytes",
@@ -6587,6 +6888,8 @@ def main(argv) -> int:
                               "g100_b4_ms", "g100_b9_ms", "g100_b4_bound_ms",
                               "g100_b9_bound_ms"),
              "decision_update_fullstep_large": ("tile", "band_rows_ms", "blocks_per_sm"),
+             "decision_update_fullstep_wide": ("B", "F", "grid_route", "tile", "flips",
+                                               "smem_bytes", "blocks_per_sm", "registers"),
              "intrinsic_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64",
                                     "chain_floor_ms", "grid_link_ns", "block_link_ns", "launch",
                                     "general_10001_f64_bound_ms"),

@@ -4,10 +4,12 @@
 // device's shared memory a block, which the grid routes read.
 #include "common.cuh"
 
-// out[0] the most basis functions, out[1] the most factors a kernel takes.
+// out[0] the most basis functions, out[1] the most factors a kernel takes,
+// out[2] the most basis functions of kernel E's wide route.
 extern "C" int stt_limits(int* out) {
   out[0] = stt::kMaxB;
   out[1] = stt::kMaxF;
+  out[2] = stt::kMaxWideB;
   return 0;
 }
 

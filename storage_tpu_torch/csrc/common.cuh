@@ -10,10 +10,13 @@
 namespace stt {
 
 // The most basis functions and Markov factors of a monomial design built on
-// the card (kernels B and E, kernel C's monomial mode); a larger shape takes
-// the design read from memory (engines/lsmc.py design_in_memory).
+// the card in registers (kernels B and E, kernel C's monomial mode); a larger
+// shape takes the design read from memory (engines/lsmc.py design_in_memory),
+// or, for kernel E, its wide route (WideBasis), up to kMaxWideB terms: the
+// length of its solve's per-thread substitution vector.
 constexpr int kMaxB = 16;  // basis functions
 constexpr int kMaxF = 8;   // Markov factors
+constexpr int kMaxWideB = 64;
 
 // Monomial powers, passed to kernels by value.  pows[b][0] is the spot power,
 // pows[b][1 + f] the power of factor f.
@@ -22,6 +25,25 @@ struct Basis {
   int nf;
   int8_t pows[kMaxB][kMaxF + 1];
 };
+
+// The same powers for any B and F, past the caps (kernel E's wide route):
+// pows[b·(nf + 1)] is the spot power of term b, pows[b·(nf + 1) + 1 + f] the
+// power of factor f.  The table reaches the kernel in device memory, the
+// wrapper's [B, F + 1] int8 tensor, and each block stages it in shared
+// memory; kernels read it at warp-uniform addresses.  (Growing Basis would
+// cost every register route parameter space and registers.)
+struct WideBasis {
+  const int8_t* pows;
+  int nb;
+  int nf;
+};
+
+__host__ __device__ __forceinline__ int power_of(const Basis& basis, int b, int j) {
+  return basis.pows[b][j];
+}
+__host__ __device__ __forceinline__ int power_of(const WideBasis& basis, int b, int j) {
+  return basis.pows[b * (basis.nf + 1) + j];
+}
 
 // Host: unpack the wrapper's int table [B, (spot, F factor powers) * B].
 static inline bool make_basis(const int* table, int num_factors, Basis* out) {

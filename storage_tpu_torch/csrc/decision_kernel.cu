@@ -79,7 +79,18 @@
 //     order — no float atomics, the same bits on every run;
 //   * best_act goes to a separate buffer (the caller ping-pongs two), never
 //     over v: a later g of the same column still reads rows an in-place write
-//     would already have replaced.
+//     would already have replaced;
+//   * the wide route, which kernel E launches past the caps (16 terms, 8
+//     factors), takes any B and F in one kernel for both grid routes
+//     (decision_moments_wide_kernel): the powers staged from a device table
+//     (stt::WideBasis), step t's design rows [Bp, 128] in shared memory beside
+//     step t−1's tile, the gaps read from them 4 terms at a time, the moments
+//     summed 16 columns at a time.  The same arithmetic in the same order, so
+//     the register route's bits wherever both run (B = 9 forced wide).  Its
+//     registers are capped for kWideMinBlocks = 8 blocks per SM (64
+//     registers, 32 B spilled): of caps for 2 to 8 blocks, 6 and 8 were
+//     fastest at 20 terms on 3 factors and 13 on 10 (G = 100 and 1,000),
+//     8 by 6% at 13 terms (tools/torch_decision_probe.py --wide, PERF.md).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -93,6 +104,7 @@ constexpr int kChunk = 8;                     // grid points per staged chunk
 constexpr int kGroup = 4;                     // grid points decided together
 constexpr int kSlices = kThreads / kChunk;    // threads that share one tile row
 constexpr int kMinBlocks = 9;                 // blocks per SM the registers must allow
+constexpr int kWideMinBlocks = 8;             // the same, on the wide route
 constexpr int kReduceRows = 32;               // partial rows summed per column thread
 static_assert(kChunk % kGroup == 0, "a chunk holds whole groups");
 
@@ -106,16 +118,18 @@ __host__ __device__ inline size_t smem_fixed_words(int B) {
 // Entry b of sim s's standardised design row: stt::design_row's arithmetic
 // (common.cuh) — the spot power, then the factor powers by index, each
 // product rounded on its own — with its loops rolled, so that the kernel's
-// code stays small.
-__device__ __forceinline__ float design_entry(const stt::Basis& basis, int b, float spot,
+// code stays small.  On the register routes' stt::Basis or the wide route's
+// stt::WideBasis: the same arithmetic, so the same entries.
+template <typename BasisT>
+__device__ __forceinline__ float design_entry(const BasisT& basis, int b, float spot,
                                               const float* __restrict__ factors, int S, int s,
                                               const float* mean, const float* stdv) {
   float x = 1.0f;
-  const int sp = basis.pows[b][0];
+  const int sp = stt::power_of(basis, b, 0);
   if (sp) x = __fmul_rn(x, stt::ipow(spot, sp));
 #pragma unroll 1
   for (int f = 0; f < basis.nf; ++f) {
-    const int fp = basis.pows[b][1 + f];
+    const int fp = stt::power_of(basis, b, 1 + f);
     if (fp) x = __fmul_rn(x, stt::ipow(factors[static_cast<size_t>(f) * S + s], fp));
   }
   return __fdiv_rn(__fsub_rn(x, mean[b]), stdv[b]);
@@ -161,6 +175,52 @@ __device__ __forceinline__ void tile_product(const float* x, int nrows, const fl
   if (r < nrows && q < B) out[r * B + q] = mine;
 }
 
+// tile_product for any B (the wide route): the columns in groups of kSlices,
+// the group's sums in order of the column groups, each column's sum formed as
+// tile_product forms it (the same products in the same order and the same
+// butterfly, so the same bits), and thread q of a row writes the group's
+// column q.
+__device__ __forceinline__ void tile_product_wide(const float* x, int nrows, const float* dmp,
+                                                  int B, float* __restrict__ out) {
+  const int r = threadIdx.x / kSlices;
+  const int q = threadIdx.x % kSlices;
+  // (Rows past nrows repeat the last one: their sums are not written.)
+  const float* xr = x + min(r, nrows - 1) * kThreads;
+#pragma unroll 1
+  for (int b0 = 0; b0 < B; b0 += kSlices) {
+    const int nb = min(kSlices, B - b0);
+    float acc[kSlices];
+#pragma unroll
+    for (int b = 0; b < kSlices; ++b) acc[b] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kThreads / (4 * kSlices); ++j) {
+      const int k = 4 * q + 4 * kSlices * j;
+      const float4 xv = *reinterpret_cast<const float4*>(xr + k);
+#pragma unroll
+      for (int b = 0; b < kSlices; ++b) {
+        if (b < nb) {
+          const float4 dv = *reinterpret_cast<const float4*>(dmp + (b0 + b) * kThreads + k);
+          acc[b] = fmaf(xv.x, dv.x, acc[b]);
+          acc[b] = fmaf(xv.y, dv.y, acc[b]);
+          acc[b] = fmaf(xv.z, dv.z, acc[b]);
+          acc[b] = fmaf(xv.w, dv.w, acc[b]);
+        }
+      }
+    }
+    float mine = 0.0f;
+#pragma unroll
+    for (int b = 0; b < kSlices; ++b) {
+      if (b < nb) {
+#pragma unroll
+        for (int off = kSlices / 2; off > 0; off >>= 1)
+          acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
+        if (b == q) mine = acc[b];
+      }
+    }
+    if (r < nrows && q < nb) out[r * B + b0 + q] = mine;
+  }
+}
+
 // Step t's design row, in registers, for the decisions, and step t−1's,
 // standardised by (mean_prev, std_prev), in this thread's column of the
 // design tile (each thread touches its own column only, so no barrier
@@ -191,17 +251,18 @@ __device__ __forceinline__ stt::RegisterRow<Bp> design_rows(
 // The rows grid points of a chunk whose records are entries first.. of tab
 // (of a tile whose last entry is `last`): each decision to best_out, from
 // grid point g0 of the step, and to the best_act tile.
-template <int Bp>
+// `dm` is the sim's design row of padded size bp (decision_step.cuh: a
+// RegisterRow, or the wide route's SharedRow).
+template <typename Row>
 __device__ __forceinline__ void decide_chunk(const float* tab, int first, int rows, int last,
-                                             size_t g0, int D, const float* __restrict__ v,
-                                             int S, int s, bool valid, float sp,
-                                             const stt::RegisterRow<Bp>& dm,
+                                             size_t g0, int D, int bp, const float* __restrict__ v,
+                                             int S, int s, bool valid, float sp, const Row& dm,
                                              float* __restrict__ best_out, float* best_tile) {
 #pragma unroll
   for (int c = 0; c < kChunk; c += kGroup) {
     if (c < rows) {
       float best[kGroup];
-      stt::decide_group<kGroup>(tab, first + c, last, D, v, S, s, sp, dm, best);
+      stt::decide_group<kGroup>(tab, first + c, last, D, bp, v, S, s, sp, dm, best);
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) {
         if (c + i < rows) {
@@ -251,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_kernel(
 
   for (int g0 = 0; g0 < G; g0 += kChunk) {
     const int rows = min(kChunk, G - g0);
-    decide_chunk<Bp>(tab, g0, rows, G - 1, g0, D, v, S, s, valid, sp, dm, best_out, best_tile);
+    decide_chunk(tab, g0, rows, G - 1, g0, D, Bp, v, S, s, valid, sp, dm, best_out, best_tile);
     __syncthreads();
     tile_product(best_tile, rows, dmp_tile, B, row + g0 * B);
     __syncthreads();  // the tile is rewritten by the next chunk
@@ -308,10 +369,98 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_tiled_k
     for (int c0 = 0; c0 < nt; c0 += kChunk) {
       const int rows = min(kChunk, nt - c0);
       const size_t g0 = static_cast<size_t>(t0) + c0;
-      decide_chunk<Bp>(tab, c0, rows, nt - 1, g0, D, v, S, s, valid, sp, dm, best_out,
-                       best_tile);
+      decide_chunk(tab, c0, rows, nt - 1, g0, D, Bp, v, S, s, valid, sp, dm, best_out,
+                   best_tile);
       __syncthreads();
       tile_product(best_tile, rows, dmp_tile, B, row + g0 * B);
+      __syncthreads();  // the tile is rewritten by the next chunk
+    }
+  }
+}
+
+// Dynamic shared memory of the wide route besides its records, in floats:
+// step t−1's design tile [B, kThreads], step t's design rows [Bp, kThreads]
+// (the decisions' SharedRow), and, after the records, the basis powers
+// [B, F + 1] int8 in whole words.
+__host__ __device__ inline size_t wide_fixed_words(int B, int F) {
+  return static_cast<size_t>(B + stt::padded_basis(B)) * kThreads +
+         (static_cast<size_t>(B) * (F + 1) + 3) / 4;
+}
+
+// The wide route: kernel B's body for any basis size B and factor count F,
+// one kernel for both grid routes (tile >= G: all of a step's records at
+// once; else `tile` grid points at a time, as the tiled kernel).  The powers
+// come from device memory and are staged in shared memory; step t's design
+// rows go to shared memory beside step t−1's tile, one column a thread, in
+// place of RegisterRow; the gaps are read from them 4 terms at a time
+// (SharedRow), and the moments are summed a group of kSlices columns at a
+// time (tile_product_wide).  Every entry, gap, decision and sum is the
+// register route's arithmetic in its order: the same bits at any shape
+// both take.
+__global__ void __launch_bounds__(kThreads, kWideMinBlocks) decision_moments_wide_kernel(
+    int G, int tile, int S, int D, int B, int F, const int8_t* __restrict__ pows_g,
+    const float* __restrict__ v, const float* __restrict__ spot,
+    const float* __restrict__ factors, const float* __restrict__ spot_prev,
+    const float* __restrict__ factors_prev, const float* __restrict__ mean,
+    const float* __restrict__ stdv, const float* __restrict__ mean_prev,
+    const float* __restrict__ std_prev, const int* __restrict__ idx_lo_g,
+    const float* __restrict__ w_hi_g, const float* __restrict__ dci_g,
+    const float* __restrict__ a_g, const float* __restrict__ b_g,
+    float* __restrict__ best_out, float* __restrict__ partials) {
+  const int Bp = stt::padded_basis(B);
+  const int rec = stt::record_words(D, Bp);
+  const int tid = threadIdx.x;
+  __shared__ __align__(16) float best_tile[kChunk * kThreads];
+  extern __shared__ __align__(16) float smem[];
+  float* dmp_tile = smem;                         // [B, kThreads]: step t−1
+  float* dm_tile = dmp_tile + B * kThreads;       // [Bp, kThreads]: step t
+  float* tab = dm_tile + Bp * kThreads;           // [tile] records
+  int8_t* pows = reinterpret_cast<int8_t*>(tab + static_cast<size_t>(tile) * rec);
+  for (int i = tid; i < B * (F + 1); i += kThreads) pows[i] = pows_g[i];
+  stt::load_records(tab, G, 0, min(tile, G), D, B, Bp, idx_lo_g, w_hi_g, dci_g, a_g, b_g);
+  __syncthreads();  // the powers, before any design entry
+
+  // The two steps' design rows, as design_rows builds them, into this
+  // thread's column of the two tiles (no barrier between: its own column);
+  // the columns past S compute on column S − 1 and count as zeros.
+  const stt::WideBasis basis{pows, B, F};
+  const int col = static_cast<int>(blockIdx.x) * kThreads + tid;
+  const bool valid = col < S;
+  const int s = min(col, S - 1);
+#pragma unroll 1
+  for (int k = 0; k < Bp; ++k)
+    dm_tile[k * kThreads + tid] =
+        k < B ? design_entry(basis, k, spot[s], factors, S, s, mean, stdv) : 0.0f;
+#pragma unroll 1
+  for (int k = 0; k < B; ++k) {
+    const float x = design_entry(basis, k, spot_prev[s], factors_prev, S, s, mean_prev, std_prev);
+    dmp_tile[k * kThreads + tid] = valid ? x : 0.0f;
+  }
+  const stt::SharedRow<kThreads> dm{dm_tile + tid, Bp};
+  const float sp = spot[s];
+  __syncthreads();
+
+  // This block's row of partials: XᵀX, then (Xᵀ·best_act)ᵀ as [G, B].
+  float* row = partials + static_cast<size_t>(blockIdx.x) * (B * B + G * B);
+  for (int r0 = 0; r0 < B; r0 += kChunk)
+    tile_product_wide(dmp_tile + r0 * kThreads, min(kChunk, B - r0), dmp_tile, B, row + r0 * B);
+  row += B * B;
+
+  for (int t0 = 0; t0 < G; t0 += tile) {
+    const int nt = min(tile, G - t0);
+    if (t0 > 0) {
+      // Every thread is past the last tile's records (the chunk loop ends
+      // on a barrier): the next tile takes their place.
+      stt::load_records(tab, G, t0, nt, D, B, Bp, idx_lo_g, w_hi_g, dci_g, a_g, b_g);
+      __syncthreads();
+    }
+    for (int c0 = 0; c0 < nt; c0 += kChunk) {
+      const int rows = min(kChunk, nt - c0);
+      const size_t g0 = static_cast<size_t>(t0) + c0;
+      decide_chunk(tab, c0, rows, nt - 1, g0, D, Bp, v, S, s, valid, sp, dm, best_out,
+                   best_tile);
+      __syncthreads();
+      tile_product_wide(best_tile, rows, dmp_tile, B, row + g0 * B);
       __syncthreads();  // the tile is rewritten by the next chunk
     }
   }
@@ -400,6 +549,32 @@ cudaError_t launch_decision_moments(
   return cudaGetLastError();
 }
 
+cudaError_t launch_decision_moments_wide(
+    int G, int tile, int S, int D, int B, int F, const int8_t* pows, const float* v,
+    const float* spot, const float* factors, const float* spot_prev, const float* factors_prev,
+    const float* mean, const float* stdv, const float* mean_prev, const float* std_prev,
+    const int* idx_lo, const float* w_hi, const float* dci, const float* a, const float* b,
+    float* best_out, float* partials, float* moments, cudaStream_t stream) {
+  if (tile < 1 || B < 1 || F < 0) return cudaErrorInvalidValue;
+  tile = min(tile, G);
+  const int nblk = (S + kThreads - 1) / kThreads;
+  const size_t rec = stt::record_words(D, stt::padded_basis(B));
+  const size_t smem = sizeof(float) * (wide_fixed_words(B, F) + rec * tile);
+  cudaError_t err = cudaFuncSetAttribute(decision_moments_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  decision_moments_wide_kernel<<<nblk, kThreads, smem, stream>>>(
+      G, tile, S, D, B, F, pows, v, spot, factors, spot_prev, factors_prev, mean, stdv,
+      mean_prev, std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int ncols = B * B + G * B;
+  reduce_rows_kernel<<<(ncols + 31) / 32, dim3(32, kReduceRows), 0, stream>>>(
+      partials, nblk, ncols, moments);
+  return cudaGetLastError();
+}
+
 }  // namespace stt
 
 // Kernel B on the tables of `tile` grid points at a time (tile >= G: the
@@ -439,4 +614,15 @@ extern "C" int stt_decision_update_moments_info(int G, int D, int B, int large, 
   const size_t rec = stt::record_words(D, k.bp);
   return static_cast<int>(large ? stt::kernel_info(k.tiled, kThreads, fixed, rec, G, out)
                                 : stt::kernel_info(k.shared, kThreads, fixed, rec, G, out));
+}
+
+// The wide route's launch report at (G, D, B, F) on the current device: with
+// all G grid points' records (its max_grid is the largest G, or tile, that
+// fits), the shared route at G or the large route at a tile of G (one
+// kernel).
+extern "C" int stt_decision_update_moments_wide_info(int G, int D, int B, int F, int* out) {
+  if (G < 0 || D < 1 || B < 1 || F < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(stt::kernel_info(decision_moments_wide_kernel, kThreads,
+                                           wide_fixed_words(B, F),
+                                           stt::record_words(D, stt::padded_basis(B)), G, out));
 }

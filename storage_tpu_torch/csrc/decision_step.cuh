@@ -60,6 +60,29 @@ struct RegisterRow {
   }
 };
 
+// The same row in shared memory, of a padded size bp known at run time
+// (kernel E's wide route): entry k at row[k·kStride], this thread's column
+// of a [bp, kStride] tile, zero beyond B.  The same products and sums in the
+// same order, 4 terms at a time, so the same gap to the bit.
+template <int kStride>
+struct SharedRow {
+  const float* row;
+  int bp;
+  __device__ __forceinline__ float gap(const float* p) const {
+    float q = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < bp; k += 4) {
+      const float4 c = *reinterpret_cast<const float4*>(p + k);
+      const float* x = row + k * kStride;
+      q = k == 0 ? __fmul_rn(c.x, x[0]) : __fadd_rn(q, __fmul_rn(c.x, x[0]));
+      q = __fadd_rn(q, __fmul_rn(c.y, x[kStride]));
+      q = __fadd_rn(q, __fmul_rn(c.z, x[2 * kStride]));
+      q = __fadd_rn(q, __fmul_rn(c.w, x[3 * kStride]));
+    }
+    return q;
+  }
+};
+
 // Repacks the records of grid points [g0, g0 + nt) of a step of G into tab
 // (block-strided); the caller synchronises before reading them.  The tables
 // are the wrappers' dci [D, G, B], a and b [D, G], w_hi and idx_lo [G, D].
@@ -88,14 +111,15 @@ __device__ __forceinline__ void load_records(float* tab, int G, int g0, int nt, 
 // best_act of sim s at the kGroup grid points whose records are entries
 // first .. first + kGroup − 1 of tab, into best[i] for entry first + i
 // (those past entry `last` repeat it: the caller stores nothing for them);
-// `sp` is the sim's spot, `dm` its design row (Bp entries, zero beyond B).
-// All kGroup results are formed before any is stored: handing each to a
-// store as it is formed compiled kernel B 5–8% slower (PERF.md).
-template <int kGroup, int Bp>
+// `sp` is the sim's spot, `dm` its design row (bp entries, zero beyond B: a
+// RegisterRow, or a SharedRow on the wide route).  All kGroup results are
+// formed before any is stored: handing each to a store as it is formed
+// compiled kernel B 5–8% slower (PERF.md).
+template <int kGroup, typename Row>
 __device__ __forceinline__ void decide_group(const float* tab, int first, int last, int D,
-                                             const float* __restrict__ v, int S, int s, float sp,
-                                             const RegisterRow<Bp>& dm, float (&best)[kGroup]) {
-  const int rec = record_words(D, Bp);
+                                             int bp, const float* __restrict__ v, int S, int s,
+                                             float sp, const Row& dm, float (&best)[kGroup]) {
+  const int rec = record_words(D, bp);
   const float* r[kGroup];
 #pragma unroll
   for (int i = 0; i < kGroup; ++i) r[i] = tab + min(first + i, last) * rec;
@@ -110,7 +134,7 @@ __device__ __forceinline__ void decide_group(const float* tab, int first, int la
   }
 #pragma unroll 1
   for (int d = 1; d < D; ++d) {
-    const int off = record_offset(d, Bp);
+    const int off = record_offset(d, bp);
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) {
       const float* p = r[i] + off;
@@ -150,5 +174,15 @@ cudaError_t launch_decision_moments(
     const float* std_prev, const int* idx_lo, const float* w_hi,
     const float* dci, const float* a, const float* b, float* best_out,
     float* partials, float* moments, cudaStream_t stream);
+
+// The same for any basis size and factor count (kernel E's wide route): the
+// powers `pows` [B, F + 1] int8 in device memory, staged in each block's
+// shared memory, step t's design rows in shared memory beside step t−1's.
+cudaError_t launch_decision_moments_wide(
+    int G, int tile, int S, int D, int B, int F, const int8_t* pows, const float* v,
+    const float* spot, const float* factors, const float* spot_prev, const float* factors_prev,
+    const float* mean, const float* stdv, const float* mean_prev, const float* std_prev,
+    const int* idx_lo, const float* w_hi, const float* dci, const float* a, const float* b,
+    float* best_out, float* partials, float* moments, cudaStream_t stream);
 
 }  // namespace stt

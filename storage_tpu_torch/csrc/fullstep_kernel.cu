@@ -9,7 +9,7 @@
 //   1. fullstep_solve_kernel, one block: standardise the carried moments
 //      (ops/regression.standardise_moments), compose the stats
 //      mean = cmean + cstd·μ_u and std = cstd·σ_u, add the trace-scaled ridge,
-//      factor the [B, B] system (Cholesky, B ≤ 16) and solve it for the G
+//      factor the [B, B] system (Cholesky) and solve it for the G
 //      right-hand sides, fall back to the constant-column projection when a
 //      pivot is not positive or a coefficient is not finite (the plain
 //      version's cholesky_ex info ≠ 0 or non-finite test), and interpolate the
@@ -31,6 +31,14 @@
 // interpolates dci.  Every column's arithmetic is the one block's, so the
 // two routes give the same bits; kernel B runs on its large route beside it
 // (ops/decision_kernel.py fullstep_route).
+//
+// Past kernel B's register caps (16 terms, 8 factors: stt::kMaxB, kMaxF) the
+// wide route (stt_decision_update_fullstep_wide) runs the same solve with a
+// substitution vector of stt::kMaxWideB = 64 doubles a thread, on either grid
+// route, then kernel B's wide body (decision_moments_wide_kernel: the powers
+// staged from a device table, step t's design rows in shared memory); the
+// wrapper chooses it from B and F alone (ops/decision_kernel.py
+// fullstep_route).  Inside the caps the register route is unchanged.
 //
 // The factorisation and the substitutions run in double on the f32 system
 // and round the coefficients to f32 once: the [B, B] work is a few hundred
@@ -57,8 +65,10 @@ constexpr int kSolveThreads = 256;
 // The solve of right-hand sides [c0, c0 + nc) of the G: one block, c0 = 0
 // and nc = G (kSpread false: then also the fallback and dci), or block
 // blockIdx.x's columns of the large route (kSpread: the coefficients before
-// the fallback and the block's flag into `scratch`).
-template <bool kSpread>
+// the fallback and the block's flag into `scratch`).  Each thread's
+// substitution vector holds kMaxY doubles: stt::kMaxB on the register route,
+// stt::kMaxWideB on the wide route (the most terms that route takes).
+template <bool kSpread, int kMaxY>
 __global__ void fullstep_solve_kernel(
     int G, int D, int B, float ridge, const float* __restrict__ xtx_g,
     const float* __restrict__ xty_t_g, const float* __restrict__ cmean_g,
@@ -138,7 +148,7 @@ __global__ void fullstep_solve_kernel(
   int nonfinite = 0;
   if (!*failed) {
     for (int g = tid; g < nc; g += blockDim.x) {
-      double y[stt::kMaxB];
+      double y[kMaxY];
       for (int i = 0; i < B; ++i) {
         double acc = xs[i * nc + g];
         for (int k = 0; k < i; ++k) acc -= chol[i * B + k] * y[k];
@@ -242,12 +252,42 @@ __global__ void fullstep_interp_kernel(int G, int D, int B, const float* __restr
   }
 }
 
+// The regression of kernel E on the caller's stream: the one-block solve,
+// or the solve spread over blocks of kSolveThreads columns and the
+// interpolation launch (`spread`, whose scratch holds B·G + 1 + ⌈G/256⌉
+// floats: the coefficients before the fallback, the ridged m[0, 0], a flag
+// a block of 256 columns).  mean_out, std_out, coeffs_out and dci are filled
+// for the decision kernel that follows.
+template <int kMaxY>
+cudaError_t launch_solve(int G, int D, int B, bool spread, float ridge, const float* xtx,
+                         const float* xty_t, const float* cmean, const float* cstd,
+                         const int* idx_lo, const float* w_hi, float* mean_out, float* std_out,
+                         float* coeffs_out, float* dci, float* scratch, cudaStream_t st) {
+  const int nc = spread ? kSolveThreads : G;  // right-hand sides a block
+  const size_t smem = sizeof(double) * B * B +
+      sizeof(float) * (static_cast<size_t>(B) * B + 2 * B + 2 * static_cast<size_t>(B) * nc) +
+      sizeof(int);
+  const decltype(&fullstep_solve_kernel<false, kMaxY>) solve =
+      spread ? &fullstep_solve_kernel<true, kMaxY> : &fullstep_solve_kernel<false, kMaxY>;
+  cudaError_t err = cudaFuncSetAttribute(
+      solve, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  solve<<<(G + nc - 1) / nc, kSolveThreads, smem, st>>>(
+      G, D, B, ridge, xtx, xty_t, cmean, cstd, idx_lo, w_hi, mean_out, std_out, coeffs_out, dci,
+      scratch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !spread) return err;
+  const int threads = 256;
+  const size_t blocks = (static_cast<size_t>(D) * G * B + threads - 1) / threads;
+  fullstep_interp_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), threads, 0, st>>>(
+      G, D, B, xty_t, idx_lo, w_hi, scratch, coeffs_out, dci);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Kernel E.  `tile` is kernel B's (decision_kernel.cu); with `spread` the
-// solve takes the large route, whose scratch holds B·G + 1 + ⌈G/256⌉ floats
-// (the coefficients before the fallback, the ridged m[0, 0], a flag a
-// block of 256 columns).
+// solve takes the large route (launch_solve).
 extern "C" int stt_decision_update_fullstep(
     int G, int tile, int spread, int S, int F, int D, const int* basis_table, float ridge,
     const void* v, const void* spot, const void* factors, const void* spot_prev,
@@ -260,36 +300,15 @@ extern "C" int stt_decision_update_fullstep(
   if (!stt::make_basis(basis_table, F, &basis) || G < 2 || D < 1 || S < 1 ||
       (spread && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int B = basis.nb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nc = spread ? kSolveThreads : G;  // right-hand sides a block
-  const size_t smem = sizeof(double) * B * B +
-      sizeof(float) * (static_cast<size_t>(B) * B + 2 * B + 2 * static_cast<size_t>(B) * nc) +
-      sizeof(int);
-  const decltype(&fullstep_solve_kernel<false>) solve =
-      spread ? &fullstep_solve_kernel<true> : &fullstep_solve_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      solve, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  solve<<<(G + nc - 1) / nc, kSolveThreads, smem, st>>>(
-      G, D, B, ridge, static_cast<const float*>(xtx),
+  cudaError_t err = launch_solve<stt::kMaxB>(
+      G, D, basis.nb, spread, ridge, static_cast<const float*>(xtx),
       static_cast<const float*>(xty_t), static_cast<const float*>(cmean),
       static_cast<const float*>(cstd), static_cast<const int*>(idx_lo),
       static_cast<const float*>(w_hi), static_cast<float*>(mean_out),
-      static_cast<float*>(std_out), static_cast<float*>(coeffs_out),
-      static_cast<float*>(dci), static_cast<float*>(scratch));
-  err = cudaGetLastError();
+      static_cast<float*>(std_out), static_cast<float*>(coeffs_out), static_cast<float*>(dci),
+      static_cast<float*>(scratch), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (spread) {
-    const int threads = 256;
-    const size_t blocks = (static_cast<size_t>(D) * G * B + threads - 1) / threads;
-    fullstep_interp_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), threads, 0, st>>>(
-        G, D, B, static_cast<const float*>(xty_t), static_cast<const int*>(idx_lo),
-        static_cast<const float*>(w_hi), static_cast<const float*>(scratch),
-        static_cast<float*>(coeffs_out), static_cast<float*>(dci));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   // Without mean_prev/std_prev the step-(t−1) moments are standardised by
   // the composed stats: the TPU kernel's u-coordinates.
   const float* mp = mean_prev ? static_cast<const float*>(mean_prev)
@@ -303,6 +322,45 @@ extern "C" int stt_decision_update_fullstep(
       static_cast<const float*>(factors_prev),
       static_cast<const float*>(mean_out), static_cast<const float*>(std_out),
       mp, sp, static_cast<const int*>(idx_lo), static_cast<const float*>(w_hi),
+      static_cast<const float*>(dci), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<float*>(best_out),
+      static_cast<float*>(partials), static_cast<float*>(moments), st));
+}
+
+// Kernel E's wide route: any B up to stt::kMaxWideB and any F, the powers
+// `pows` [B, F + 1] int8 in device memory; the same regression (its solve
+// with a substitution vector of kMaxWideB doubles), then kernel B's wide
+// body (launch_decision_moments_wide) at `tile`.
+extern "C" int stt_decision_update_fullstep_wide(
+    int G, int tile, int spread, int S, int F, int D, int B, const void* pows, float ridge,
+    const void* v, const void* spot, const void* factors, const void* spot_prev,
+    const void* factors_prev, const void* xtx, const void* xty_t,
+    const void* cmean, const void* cstd, const void* mean_prev,
+    const void* std_prev, const void* idx_lo, const void* w_hi, const void* a,
+    const void* b, void* best_out, void* mean_out, void* std_out,
+    void* coeffs_out, void* dci, void* scratch, void* partials, void* moments, void* stream) {
+  if (B < 1 || B > stt::kMaxWideB || F < 0 || !pows || G < 2 || D < 1 || S < 1 ||
+      (spread && !scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_solve<stt::kMaxWideB>(
+      G, D, B, spread, ridge, static_cast<const float*>(xtx),
+      static_cast<const float*>(xty_t), static_cast<const float*>(cmean),
+      static_cast<const float*>(cstd), static_cast<const int*>(idx_lo),
+      static_cast<const float*>(w_hi), static_cast<float*>(mean_out),
+      static_cast<float*>(std_out), static_cast<float*>(coeffs_out), static_cast<float*>(dci),
+      static_cast<float*>(scratch), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* mp = mean_prev ? static_cast<const float*>(mean_prev)
+                              : static_cast<const float*>(mean_out);
+  const float* sp = std_prev ? static_cast<const float*>(std_prev)
+                             : static_cast<const float*>(std_out);
+  return static_cast<int>(stt::launch_decision_moments_wide(
+      G, tile, S, D, B, F, static_cast<const int8_t*>(pows), static_cast<const float*>(v),
+      static_cast<const float*>(spot), static_cast<const float*>(factors),
+      static_cast<const float*>(spot_prev), static_cast<const float*>(factors_prev),
+      static_cast<const float*>(mean_out), static_cast<const float*>(std_out), mp, sp,
+      static_cast<const int*>(idx_lo), static_cast<const float*>(w_hi),
       static_cast<const float*>(dci), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<float*>(best_out),
       static_cast<float*>(partials), static_cast<float*>(moments), st));

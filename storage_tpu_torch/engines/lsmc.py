@@ -27,11 +27,14 @@ fused and streamed paths of ``storage_tpu.engines.lsmc``).
   Between kernels, tensor code solves the [B, B] system and interpolates the
   coefficients to each (grid point, decision) target; ``fullstep=True`` runs
   kernel E instead, which does that solve on the card too, so a step is E's
-  launches alone.  Spot-only panels (no factor, ``value_from_sims``) and the
-  shapes of ``design_in_memory`` (a basis with a user callable,
+  launches alone: for any monomial basis on factor panels, on E's register
+  route within 16 terms and 8 factors and its wide route past them
+  (``fullstep_body``).  Spot-only panels (no factor, ``value_from_sims``)
+  and the shapes of ``design_in_memory`` (a basis with a user callable,
   ``basis.generic``, or beyond the monomial kernels' 16 terms or 8 factors)
-  take the JAX package's plain body: each step regresses v on its
-  standardised design (``fit_continuation``) and runs kernel D on it.
+  take the JAX package's plain body without ``fullstep``: each step
+  regresses v on its standardised design (``fit_continuation``) and runs
+  kernel D on it.
 * The forward pass runs one forward sweep over all steps of materialised
   panels (kernel C, ``ops.forward_kernel``; a launch a segment on another
   source) on an independent valuation-sim set, re-using the
@@ -111,6 +114,32 @@ def design_in_memory(monomials, num_factors: int) -> bool:
     the JAX package's plain body, and keep C's monomial mode forward.)"""
     return (has_generic(monomials) or len(monomials) > _build.MAX_BASIS
             or num_factors > _build.MAX_FACTORS)
+
+
+def fullstep_body(monomials, num_factors: int, group=None) -> str:
+    """Kernel E's body for ``fullstep=True``, decided from the basis, the
+    factor count and the group alone, before any allocation, simulation or
+    launch, on every device: "register" within the monomial kernels' 16
+    terms and 8 factors, "wide" past either (up to
+    ``_build.MAX_WIDE_BASIS`` terms; ``decision_kernel.fullstep_wide``).
+    Raises ``ValueError`` where the full step does not run, as the JAX
+    package's ``resolve_fullstep`` has it: spot-only panels and bases with a
+    user callable (E builds a monomial design of factor panels on the
+    card), and a group of more than one rank (E solves each step from its
+    own moments).  Not a fallback: nothing is tried first."""
+    if num_factors == 0 or has_generic(monomials):
+        raise ValueError(
+            "fullstep needs factor panels and a monomial basis (kernel E builds a monomial design "
+            "of factor panels on the card, csrc/fullstep_kernel.cu): spot-only panels and "
+            "generic bases run kernel D")
+    if len(monomials) > _build.MAX_WIDE_BASIS:
+        raise ValueError(f"fullstep takes at most {_build.MAX_WIDE_BASIS} basis functions "
+                         f"(kernel E's wide route, csrc/common.cuh kMaxWideB), got "
+                         f"{len(monomials)}")
+    if preduce.active(group) is not None:
+        raise ValueError("fullstep runs on one device: kernel E solves each step from its own "
+                         "moments, which a path-parallel group sums between steps")
+    return "wide" if decision_kernel.fullstep_wide(len(monomials), num_factors) else "register"
 
 
 def grid_routes(num_grid: int, num_extra_decisions: int, monomials, num_factors: int,
@@ -514,13 +543,14 @@ def lsmc_backward_rows(
 
     ``snap_interp`` rounds the interpolation weights to the 1/256 grid, the
     quadrature of the TPU run.  Factor panels run kernel B with the tensor
-    glue between steps, or kernel E alone with ``fullstep``; spot-only panels
-    ([N+1, 0, S] factors) and the shapes of ``design_in_memory`` run the
-    plain body with kernel D on the design read from memory, and refuse
-    ``fullstep`` (kernels B and E build monomial designs of factor panels on
-    the card, within 16 terms and 8 factors: E's solve is sized by them).
-    ``uniform_grids=False`` places target inventories on the grid rows by
-    search (``_backward_prep_all``).
+    glue between steps, or kernel E alone with ``fullstep`` (any monomial
+    basis: E's register route within 16 terms and 8 factors, its wide route
+    past them, ``fullstep_body``); spot-only panels ([N+1, 0, S] factors)
+    and the shapes of ``design_in_memory`` run the plain body with kernel D
+    on the design read from memory, and spot-only panels and generic bases
+    refuse ``fullstep`` (kernel E builds a monomial design of factor panels
+    on the card).  ``uniform_grids=False`` places target inventories on the
+    grid rows by search (``_backward_prep_all``).
 
     ``group`` (a process group, ``parallel.reduce``) splits the sims over
     its ranks: the stats, and each step's two moments in one all-reduce,
@@ -532,15 +562,8 @@ def lsmc_backward_rows(
     num_grid = grids.shape[1]
     dtype = grids.dtype
     on_design = src.num_factors == 0 or design_in_memory(monomials, src.num_factors)
-    if fullstep and on_design:
-        raise ValueError(
-            f"fullstep needs factor panels and a monomial basis of at most {_build.MAX_BASIS} "
-            f"terms on at most {_build.MAX_FACTORS} factors (kernel E solves a system sized by "
-            f"those caps, csrc/fullstep_kernel.cu): spot-only panels, generic bases and larger "
-            f"shapes run kernel D")
-    if fullstep and preduce.active(group) is not None:
-        raise ValueError("fullstep runs on one device: kernel E solves each step from its own "
-                         "moments, which a path-parallel group sums between steps")
+    if fullstep:
+        fullstep_body(monomials, src.num_factors, group)  # raises where E does not run
     mean, std, (spot_last, factors_last, spot_end) = _stream_warmup(src, monomials, n, group)
     v = _terminal_values(terminal_fn, spot_end, grids[n], num_grid, src.num_sims, dtype)
     prep = _backward_prep_all(arrays, num_extra_decisions, ratchet_is_step, snap_interp,
@@ -549,7 +572,7 @@ def lsmc_backward_rows(
     spare = torch.empty_like(v)
     step_args = lambda t: (prep["idx_lo"][t], prep["w_hi"][t])  # noqa: E731
     tick = _ticker(segment_cb, "backward", n)
-    if not on_design:
+    if fullstep or not on_design:
         xtx, xty = _fused_bootstrap(monomials, spot_last, factors_last, v, mean[n - 1],
                                     std[n - 1])
     if fullstep:
@@ -561,17 +584,7 @@ def lsmc_backward_rows(
         for t in range(t1 - 1, t0 - 1, -1):
             tq = max(t - 1, 0)  # the previous step; at t = 0 step 0 itself
             i, prev = t - r0, tq - r0  # their rows in the segment's
-            if on_design:
-                # Regression of the next period's values on this period's
-                # standardised design (the JAX plain body, engines/lsmc.py:306-327).
-                dm_t = _standardised_design_t(monomials, spot[i], factors[i], mean[t], std[t])
-                coeffs = fit_continuation(dm_t.T, v.T, group)  # [B, G]
-                ci = interp.interp_coeffs(coeffs, *step_args(t))
-                best_act = decision_kernel.decision_update(
-                    v, dm_t, spot[i], *step_args(t), ci, prep["a"][t], prep["b"][t], out=spare,
-                )
-                coeffs_all[t] = coeffs
-            elif fullstep:
+            if fullstep:
                 # Kernel E solves each step's regression from the carried
                 # moments (centred by the step's exact stats, so it recovers
                 # them to rounding).
@@ -581,6 +594,16 @@ def lsmc_backward_rows(
                     std_prev=std[tq], out=spare,
                     regression_out=(mean_out[t], std_out[t], coeffs_all[t]),
                 )
+            elif on_design:
+                # Regression of the next period's values on this period's
+                # standardised design (the JAX plain body, engines/lsmc.py:306-327).
+                dm_t = _standardised_design_t(monomials, spot[i], factors[i], mean[t], std[t])
+                coeffs = fit_continuation(dm_t.T, v.T, group)  # [B, G]
+                ci = interp.interp_coeffs(coeffs, *step_args(t))
+                best_act = decision_kernel.decision_update(
+                    v, dm_t, spot[i], *step_args(t), ci, prep["a"][t], prep["b"][t], out=spare,
+                )
+                coeffs_all[t] = coeffs
             else:
                 # Step t's moments arrive standardised by its exact stats: the
                 # normal equations of the JAX XLA path, without a second pass
@@ -966,7 +989,7 @@ def lsmc_core_rows(
     Results stay on the device.  ``return_sim_data`` adds the per-sim panels
     (materialised panels only, ``lsmc_forward_rows``); ``fullstep`` runs
     each backward step as kernel E alone (factor panels and monomial bases
-    only).  ``uniform_grids=False`` takes grid rows that are not evenly
+    only, on one device: ``fullstep_body``).  ``uniform_grids=False`` takes grid rows that are not evenly
     spaced (the search placement of both passes); ``adjoint`` adds the
     forward sweep's ``"adjoint_tape"`` for ``adjoint_deltas``.
 

@@ -62,9 +62,12 @@ SIGNATURES = {
     ),
     # G, D, B, large route, out int[6] (kernel B's launch report)
     "stt_decision_update_moments_info": (_I, _I, _I, _I, _P),
+    # G (or a tile), D, B, F, out int[6] (kernel B's wide body's launch report)
+    "stt_decision_update_moments_wide_info": (_I, _I, _I, _I, _P),
     # G (a tile), D, B, out int[6] (kernel D's launch report)
     "stt_decision_update_info": (_I, _I, _I, _P),
-    # out int[2]: the most basis functions and factors a kernel takes
+    # out int[3]: the most basis functions and factors a kernel takes, and
+    # the most basis functions of kernel E's wide route
     "stt_limits": (_P,),
     # out int[1]: the current device's shared memory a block can opt in to
     "stt_smem_limit": (_P,),
@@ -79,6 +82,13 @@ SIGNATURES = {
     "stt_decision_update_fullstep": (
         _I, _I, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
+    # Kernel E's wide route: G, tile, spread solve, S, F, D, B, powers (a
+    # device int8 [B, F + 1]), ridge, then as stt_decision_update_fullstep
+    # from v
+    "stt_decision_update_fullstep_wide": (
+        _I, _I, _I, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     # N, S, F, G, R, E, is_step, general grids, basis table, packed tables,
     # spot, factors, inv0, pv0 (or NULL), inv_out, pv_out, then (each or
@@ -255,22 +265,26 @@ def check(rc: int, name: str) -> None:
 
 
 # kMaxB and kMaxF of csrc/common.cuh: the most basis functions and factors
-# that the kernels building a monomial design on the card take (B, E and C's
-# monomial mode).  The shape route (engines/lsmc.py design_in_memory) reads
-# this copy, so it needs no build and works on the CPU; chip_smoke.py holds
-# it to the built library's ``limits``.
+# that the kernels building a monomial design on the card in registers take
+# (B, E and C's monomial mode); kMaxWideB, the most basis functions of kernel
+# E's wide route, which takes any factor count past them.  The shape routes
+# (engines/lsmc.py design_in_memory, ops/decision_kernel.py fullstep_route)
+# read this copy, so they need no build and work on the CPU; chip_smoke.py
+# holds it to the built library's ``limits``.
 MAX_BASIS = 16
 MAX_FACTORS = 8
+MAX_WIDE_BASIS = 64
 
 
 @functools.lru_cache(maxsize=1)
 def limits() -> dict:
     """The most basis functions and factors the monomial kernels take
-    (``kMaxB`` and ``kMaxF`` of ``csrc/common.cuh``, read from the built
-    library)."""
-    out = (ctypes.c_int * 2)()
+    (``kMaxB`` and ``kMaxF`` of ``csrc/common.cuh``) and the most basis
+    functions of kernel E's wide route (``kMaxWideB``), read from the built
+    library."""
+    out = (ctypes.c_int * 3)()
     check(library().stt_limits(out), "stt_limits")
-    return {"max_basis": out[0], "max_factors": out[1]}
+    return {"max_basis": out[0], "max_factors": out[1], "max_wide_basis": out[2]}
 
 
 @functools.lru_cache(maxsize=16)
@@ -315,9 +329,10 @@ def blocks_per_sm(smem_bytes: int, threads: int, reg_blocks: int, smem_limit: in
 
 def require_caps(name: str, num_basis: int, num_factors: int) -> None:
     """Raises ``ValueError`` before any launch where a basis or a factor
-    count exceeds the caps of the kernels that build a monomial design on
-    the card (``MAX_BASIS``, ``MAX_FACTORS``).  No valuation reaches it: the
-    engine routes such shapes to the design read from memory."""
+    count exceeds the caps of the register routes that build a monomial
+    design on the card (``MAX_BASIS``, ``MAX_FACTORS``: kernel B and C's
+    monomial mode).  No valuation reaches it: the engine routes such shapes
+    to the design read from memory, and kernel E to its wide route."""
     if num_basis > MAX_BASIS or num_factors > MAX_FACTORS:
         raise ValueError(
             f"{name}: {num_basis} basis functions and {num_factors} factors; this kernel builds "
@@ -349,7 +364,22 @@ def basis_table(monomials, num_factors: int):
     basis (the kernels only read it)."""
     vals = [len(monomials)]
     for m in monomials:
-        powers = dict(m.factor_powers)
-        vals.append(m.spot_power)
-        vals.extend(powers.get(f, 0) for f in range(num_factors))
+        vals.extend(_powers(m, num_factors))
     return (ctypes.c_int * len(vals))(*vals)
+
+
+def _powers(monomial, num_factors: int) -> list:
+    powers = dict(monomial.factor_powers)
+    return [monomial.spot_power, *(powers.get(f, 0) for f in range(num_factors))]
+
+
+@functools.lru_cache(maxsize=64)
+def wide_basis_table(monomials, num_factors: int, device: torch.device) -> torch.Tensor:
+    """Monomial powers as kernel E's wide route reads them: an int8 tensor
+    [B, F + 1] on ``device`` (per monomial its spot power, then its F factor
+    powers), which each block stages in shared memory; cached per basis,
+    factor count and device (the kernels only read it)."""
+    rows = [_powers(m, num_factors) for m in monomials]
+    if any(not 0 <= p <= 127 for row in rows for p in row):
+        raise ValueError("a monomial power beyond 127 does not fit the kernels' int8 table")
+    return torch.tensor(rows, dtype=torch.int8, device=device)

@@ -50,10 +50,14 @@ time (and E's solve spread over blocks).  Both give the same bits.  B
 repacks its records in each block; D packs them once a step
 (``pack_records``) and runs one kernel on both routes, a tile a block (the
 shared route's tile is the whole grid).  B and E build the
-monomial design on the card and take a basis and a factor count within the
+monomial design on the card.  B takes a basis and a factor count within the
 caps ``_build.MAX_BASIS`` and ``_build.MAX_FACTORS`` (16 and 8), raising
-``ValueError`` beyond them; D reads the design and takes any basis, compiled
-per basis size up to 32 terms and on its wide route beyond.
+``ValueError`` beyond them.  E takes them on its register route and, past
+either cap, on its wide route (``fullstep_wide``: B's body with the powers
+staged from a device table and step t's design rows in shared memory, one
+kernel for both grid routes; up to ``_build.MAX_WIDE_BASIS`` terms on any
+factor count), chosen from B and F alone.  D reads the design and takes any
+basis, compiled per basis size up to 32 terms and on its wide route beyond.
 """
 from __future__ import annotations
 
@@ -132,7 +136,18 @@ class Route(tp.NamedTuple):
     tile: int
 
 
+class FullstepRoute(tp.NamedTuple):
+    """Kernel E's route: its grid route and tile as ``Route``, and its body:
+    the register route (``wide`` False) or the wide route."""
+    name: str
+    tile: int
+    wide: bool
+
+
 ROUTES = ("shared", "large")
+# Kernel E's grid routes on its wide body, which ``route=`` may force at any
+# shape.
+WIDE_ROUTES = ("wide-shared", "wide-large")
 # Grid points a tile of the large routes of kernels B and D (and E, which
 # launches B): tools/torch_grid_probe.py times tiles at G = 4,096.
 TILE_B = 32
@@ -156,9 +171,10 @@ _SOLVE_COLUMNS = 256
 
 # The blocks per SM kernel B's registers allow (the rest of a route's
 # blocks per SM is ``_build.blocks_per_sm``'s): capped for kMinBlocks = 9
-# blocks (csrc/decision_kernel.cu), on both routes; kernel D's are
-# ``update_reg_blocks``.
+# blocks (csrc/decision_kernel.cu), on both routes, and for kWideMinBlocks
+# on the wide body; kernel D's are ``update_reg_blocks``.
 _B_REG_BLOCKS = 9
+_WIDE_REG_BLOCKS = 8
 
 
 def padded_basis(bdim: int) -> int:
@@ -266,23 +282,85 @@ def update_route(g: int, d: int, bdim: int, smem_limit: int,
 
 
 def solve_max_grid(bdim: int, smem_limit: int) -> int:
-    """The largest G of kernel E's one-block solve."""
+    """The largest G of kernel E's one-block solve (the same on both of its
+    bodies: the wide route's substitution vector is not in shared memory)."""
     return (smem_limit - 8 * bdim * bdim - 4 * (bdim * bdim + 2 * bdim) - 4) // (8 * bdim)
 
 
-def fullstep_route(g: int, d: int, bdim: int, smem_limit: int,
-                   route: tp.Optional[str] = None) -> Route:
-    """Kernel E's route: shared where kernel B's rule takes its shared route
-    and the one-block solve fits, else large (B's large route and the solve
-    spread over blocks)."""
+def fullstep_wide(bdim: int, num_factors: int) -> bool:
+    """Kernel E's body, from the basis size and the factor count alone:
+    True (the wide route) past ``_build.MAX_BASIS`` terms or
+    ``_build.MAX_FACTORS`` factors, False (the register route) within
+    both.  Not a fallback: nothing is tried first."""
+    return bdim > _build.MAX_BASIS or num_factors > _build.MAX_FACTORS
+
+
+def wide_fixed_words(bdim: int, num_factors: int) -> int:
+    """The wide body's shared words besides its records and its static
+    best_act tile: step t−1's design tile [B, 128], step t's design rows
+    [Bp, 128] and the powers [B, F + 1] int8 in whole words
+    (csrc/decision_kernel.cu wide_fixed_words)."""
+    return (bdim + padded_basis(bdim)) * _B_SIMS + -(-bdim * (num_factors + 1) // 4)
+
+
+def wide_blocks_per_sm(g: int, d: int, bdim: int, num_factors: int, smem_limit: int) -> int:
+    """Blocks per SM of the wide body holding G grid points' records: its
+    shared route at G, its large route at a tile of G (one kernel)."""
+    smem = 4 * _B_CHUNK * _B_SIMS + 4 * (wide_fixed_words(bdim, num_factors)
+                                         + g * record_words(d, bdim))
+    return _build.blocks_per_sm(smem, _B_SIMS, _WIDE_REG_BLOCKS, smem_limit)
+
+
+def wide_max_grid(d: int, bdim: int, num_factors: int, smem_limit: int) -> int:
+    """The largest G (or tile) of the wide body under ``smem_limit`` bytes
+    of shared memory a block."""
+    return _fit(smem_limit, 4 * _B_CHUNK * _B_SIMS, wide_fixed_words(bdim, num_factors),
+                record_words(d, bdim))
+
+
+def wide_route(g: int, d: int, bdim: int, num_factors: int, smem_limit: int,
+               route: tp.Optional[str] = None) -> Route:
+    """The wide body's grid route, as ``moments_route``: shared while G fits
+    (``wide_max_grid``) and its blocks per SM are at least the large
+    route's, else large, ``TILE_B`` grid points a tile."""
+    def blocks(n):
+        return wide_blocks_per_sm(n, d, bdim, num_factors, smem_limit)
+    return _choose("decision_update_fullstep", g, wide_max_grid(d, bdim, num_factors, smem_limit),
+                   TILE_B, _B_CHUNK, route, blocks, blocks)
+
+
+def fullstep_route(g: int, d: int, bdim: int, smem_limit: int, route: tp.Optional[str] = None,
+                   num_factors: int = 0) -> FullstepRoute:
+    """Kernel E's route: its body from B and F (``fullstep_wide``; a route
+    of ``WIDE_ROUTES`` forces the wide one at any shape), then its grid
+    route: shared where its body's rule (``moments_route`` or ``wide_route``)
+    takes its shared route and the one-block solve fits, else large (the
+    body's large route and the solve spread over blocks).  The wide route
+    takes at most ``_build.MAX_WIDE_BASIS`` terms (``ValueError`` beyond)."""
+    if route is not None and route not in ROUTES + WIDE_ROUTES:
+        raise ValueError(f"decision_update_fullstep: route must be one of "
+                         f"{ROUTES + WIDE_ROUTES}, got {route!r}")
+    wide = route in WIDE_ROUTES or fullstep_wide(bdim, num_factors)
+    if route in WIDE_ROUTES:
+        route = route[len("wide-"):]
+    if wide and bdim > _build.MAX_WIDE_BASIS:
+        raise ValueError(f"decision_update_fullstep: {bdim} basis functions; kernel E's wide "
+                         f"route takes at most {_build.MAX_WIDE_BASIS} (csrc/common.cuh "
+                         f"kMaxWideB, its solve's substitution vector)")
+    if wide:
+        body = functools.partial(wide_route, g, d, bdim, num_factors, smem_limit)
+        max_grid = wide_max_grid(d, bdim, num_factors, smem_limit)
+    else:
+        body = functools.partial(moments_route, g, d, bdim, smem_limit)
+        max_grid = moments_max_grid(d, bdim, smem_limit)
     if route is None:
-        shared = (g <= solve_max_grid(bdim, smem_limit)
-                  and moments_route(g, d, bdim, smem_limit).name == "shared")
+        shared = g <= solve_max_grid(bdim, smem_limit) and body().name == "shared"
         route = "shared" if shared else "large"
     if route == "large":
-        return Route("large", moments_route(g, d, bdim, smem_limit, "large").tile)
-    fits = min(moments_max_grid(d, bdim, smem_limit), solve_max_grid(bdim, smem_limit))
-    return _choose("decision_update_fullstep", g, fits, TILE_B, _B_CHUNK, route, None, None)
+        return FullstepRoute("large", body("large").tile, wide)
+    fits = min(max_grid, solve_max_grid(bdim, smem_limit))
+    return FullstepRoute(*_choose("decision_update_fullstep", g, fits, TILE_B, _B_CHUNK, route,
+                                  None, None), wide)
 
 
 def _check_shapes(name: str, shapes) -> None:
@@ -296,31 +374,30 @@ _INFO_FIELDS = ("sims_per_block", "smem_bytes", "smem_limit", "max_grid", "block
 
 
 @functools.lru_cache(maxsize=64)
-def _kernel_info(entry: str, g: int, d: int, bdim: int, large: tp.Optional[bool],
-                 device_index: int) -> dict:
+def _kernel_info(entry: str, g: int, d: int, bdim: int, extra: tuple, device_index: int) -> dict:
     out = (ctypes.c_int * len(_INFO_FIELDS))()
     lib = _build.library()
-    route = () if large is None else (int(large),)
     with torch.cuda.device(device_index):
-        _build.check(getattr(lib, entry)(g, d, bdim, *route, out), entry)
+        _build.check(getattr(lib, entry)(g, d, bdim, *extra, out), entry)
     return dict(zip(_INFO_FIELDS, out))
 
 
 def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device,
-                large: bool = False) -> dict:
-    """Launch report of kernel B (``"moments"``, also run by kernel E) or
-    kernel D (``"update"``) at D decisions and B basis functions on a CUDA
-    device: B's shared route holding G grid points' records, or with
-    ``large`` its large route at a tile of G; D's one kernel at a tile of G
-    (``large`` is B's alone): sims per block, shared memory bytes per block
-    (static and dynamic), the device's limit per block, the largest G (or
-    tile) that route takes at this D and B, blocks per SM (0 where G does
-    not fit) and registers per thread.  Kernel B takes B within its basis
-    cap (``_build.MAX_BASIS``), kernel D any B."""
-    entry = {"moments": "stt_decision_update_moments_info",
-             "update": "stt_decision_update_info"}[kernel]
-    return _kernel_info(entry, g, d, bdim, bool(large) if kernel == "moments" else None,
-                        torch.device(device).index or 0)
+                large: bool = False, num_factors: int = 0) -> dict:
+    """Launch report of kernel B (``"moments"``, also run by kernel E),
+    its wide body (``"wide"``, kernel E's wide route, at ``num_factors``
+    factors) or kernel D (``"update"``) at D decisions and B basis functions
+    on a CUDA device: B's shared route holding G grid points' records, or
+    with ``large`` its large route at a tile of G; the wide body's one kernel
+    and D's at a tile of G (``large`` is B's alone): sims per block, shared
+    memory bytes per block (static and dynamic), the device's limit per
+    block, the largest G (or tile) that route takes at this D and B, blocks
+    per SM (0 where G does not fit) and registers per thread.  Kernel B takes
+    B within its basis cap (``_build.MAX_BASIS``), the others any B."""
+    entry, extra = {"moments": ("stt_decision_update_moments_info", (int(bool(large)),)),
+                    "wide": ("stt_decision_update_moments_wide_info", (int(num_factors),)),
+                    "update": ("stt_decision_update_info", ())}[kernel]
+    return _kernel_info(entry, g, d, bdim, extra, torch.device(device).index or 0)
 
 
 def moments_scratch(g: int, bdim: int, s: int, device: torch.device):
@@ -575,9 +652,13 @@ def decision_update_fullstep(
     kernels and must be f32 and contiguous, except ``xty``, which may also be
     the transposed view of a contiguous [G, B] (as the kernel returns it);
     ``out`` must not be ``v``; ``regression_out`` are optional buffers for
-    (mean, std, coeffs).  The route is ``fullstep_route``'s (``route`` forces
-    one); ``large_launches`` counts the large route's launches, as kernel B's
-    wrapper does."""
+    (mean, std, coeffs).  The route is ``fullstep_route``'s, its body from B
+    and F (the register route within 16 terms and 8 factors, the wide route
+    past either, up to ``_build.MAX_WIDE_BASIS`` terms) and its grid route
+    from G (``route`` forces one, ``WIDE_ROUTES`` the wide body at any
+    shape); ``large_launches`` counts the large grid route's launches, as
+    kernel B's wrapper does, and ``wide_launches`` the wide route's (each
+    counted in ``launches`` too)."""
     if v.device.type == "cpu":
         result = decision_update_fullstep_plain(
             v, spot, factors, spot_prev, factors_prev, xtx, xty, cmean, cstd, idx_lo,
@@ -597,8 +678,7 @@ def decision_update_fullstep(
     bdim = len(monomials)
     if (mean_prev is None) != (std_prev is None):
         raise ValueError("decision_update_fullstep: pass both mean_prev and std_prev, or neither")
-    _build.require_caps("decision_update_fullstep", bdim, f)
-    plan = fullstep_route(g, d, bdim, _build.smem_limit(v.device), route)
+    plan = fullstep_route(g, d, bdim, _build.smem_limit(v.device), route, num_factors=f)
     xty_t = xty.T if xty.T.is_contiguous() else xty.T.contiguous()  # [G, B]
     if out is None:
         out = torch.empty_like(v)
@@ -635,9 +715,14 @@ def decision_update_fullstep(
     # m[0, 0], a flag a block of columns (csrc/fullstep_kernel.cu).
     scratch = torch.empty((bdim * g + 1 + -(-g // _SOLVE_COLUMNS),), dtype=torch.float32,
                           device=device) if large else None
-    rc = _build.library().stt_decision_update_fullstep(
-        g, plan.tile, int(large), s, f, d, _build.basis_table(tuple(monomials), f), ridge_for(torch.float32),
-        v.data_ptr(), spot.data_ptr(), factors.data_ptr(), spot_prev.data_ptr(),
+    if plan.wide:
+        entry = _build.library().stt_decision_update_fullstep_wide
+        basis = (bdim, _build.wide_basis_table(tuple(monomials), f, device).data_ptr())
+    else:
+        entry = _build.library().stt_decision_update_fullstep
+        basis = (_build.basis_table(tuple(monomials), f),)
+    rc = entry(
+        g, plan.tile, int(large), s, f, d, *basis, ridge_for(torch.float32), v.data_ptr(), spot.data_ptr(), factors.data_ptr(), spot_prev.data_ptr(),
         factors_prev.data_ptr(), xtx.data_ptr(), xty_t.data_ptr(), cmean.data_ptr(),
         cstd.data_ptr(), mean_prev.data_ptr() if prev else None,
         std_prev.data_ptr() if prev else None, idx_lo.data_ptr(), w_hi.data_ptr(),
@@ -647,9 +732,11 @@ def decision_update_fullstep(
     )
     decision_update_fullstep.launches += 1
     decision_update_fullstep.large_launches += large
+    decision_update_fullstep.wide_launches += plan.wide
     _build.check(rc, "decision_update_fullstep")
     return (out, *_split_moments(moments, g, bdim), mean, std, coeffs)
 
 
 decision_update_fullstep.launches = 0
 decision_update_fullstep.large_launches = 0
+decision_update_fullstep.wide_launches = 0  # those of the wide route, counted in launches too

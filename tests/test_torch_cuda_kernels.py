@@ -473,9 +473,10 @@ def test_decision_update_beyond_16_terms(device, b, kind):
     ("fullstep", "9-factors"), ("sweep", "17-terms"), ("sweep", "9-factors")])
 def test_caps_raise_value_error(device, wrapper, case):
     """Past 16 basis functions or 8 factors each wrapper of a kernel that
-    builds the monomial design on the card (B, E, C's monomial mode) raises
-    ValueError naming both caps before it launches; the engine never routes
-    such shapes to them (kernel D and C's design mode take any basis)."""
+    builds the monomial design on the card in registers (B, C's monomial
+    mode) raises ValueError naming both caps before it launches; the engine
+    never routes such shapes to them (kernel D and C's design mode take any
+    basis).  Kernel E takes them on its wide route: one launch, no error."""
     basis, f = (BASIS_17, 3) if case == "17-terms" else ("1 + s + x8", 9)
     g, s, d = 11, 64, 3
     v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, ci, a, b, \
@@ -494,12 +495,133 @@ def test_caps_raise_value_error(device, wrapper, case):
             torch.ones((bdim, g), device=device), mean, std, idx_lo, w_hi, a, b, mono),
         "sweep": lambda: forward_kernel.forward_sweep(*_sweep_args(device, 2, s, g, f, basis=basis)),
     }
-    with pytest.raises(ValueError, match="at most 16 basis functions and 8 factors"):
+    if wrapper == "fullstep":
+        wide = decision_kernel.decision_update_fullstep.wide_launches
         calls[wrapper]()
+        assert decision_kernel.decision_update_fullstep.wide_launches == wide + 1
+        before[2] += 1
+    else:
+        with pytest.raises(ValueError, match="at most 16 basis functions and 8 factors"):
+            calls[wrapper]()
     assert before == [fn.launches for fn in (decision_kernel.decision_update_moments,
                                              decision_kernel.decision_update,
                                              decision_kernel.decision_update_fullstep,
                                              forward_kernel.forward_sweep)]
+
+
+def _monomials(b: int, f: int):
+    """The first B monomials of total degree up to 4 in the spot and F
+    factors, by degree: 1, s, the factors, then products and powers."""
+    import itertools
+
+    names = ["s", *(f"x{i}" for i in range(f))]
+    terms = ["1"]
+    for degree in (1, 2, 3, 4):
+        for combo in itertools.combinations_with_replacement(range(len(names)), degree):
+            terms.append("*".join(names[i] + (f"**{combo.count(i)}" if combo.count(i) > 1 else "")
+                                  for i in sorted(set(combo))))
+    monomials = tuple(parse_basis_functions(" + ".join(terms[:b])))
+    assert len(monomials) == b
+    return monomials
+
+
+def _wide_fullstep_args(device, g, s, d, b, f, seed=3):
+    """Kernel E's arguments at B terms on F factors: random paths, values and
+    step tables, the step's design standardised by its exact stats (the
+    engine's), its moments against 0.9·v, and step t−1's exact stats."""
+    from storage_tpu_torch.basis import design_matrix
+    from storage_tpu_torch.ops.regression import column_stats
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    monomials = _monomials(b, f)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    v = 100.0 + 30.0 * rnd(g, s)
+    spot, spot_prev = 30.0 + 5.0 * rnd(s), 30.0 + 5.0 * rnd(s)
+    factors, factors_prev = rnd(f, s), rnd(f, s)
+    stats = []
+    for sp, fac in ((spot, factors), (spot_prev, factors_prev)):
+        stats.append(column_stats(design_matrix(monomials, sp, fac)))
+    (mean, std), (mean_p, std_p) = stats
+    dm = decision_kernel._standardised_design(monomials, spot, factors, mean, std)
+    idx_lo = torch.randint(0, g - 1, (g, d), generator=gen, device=device, dtype=torch.int32)
+    fargs = (v, spot, factors, spot_prev, factors_prev, dm.T @ dm, dm.T @ (0.9 * v.T), mean,
+             std, idx_lo, torch.rand((g, d), generator=gen, device=device), 2.0 * rnd(d, g),
+             20.0 * rnd(d, g), monomials)
+    return fargs, dict(mean_prev=mean_p, std_prev=std_p)
+
+
+@pytest.mark.parametrize("g", [100, 1000])
+@pytest.mark.parametrize("b,f", [(17, 3), (17, 9), (17, 12), (20, 3), (20, 9), (20, 12),
+                                 (32, 3), (32, 9), (32, 12), (64, 3)])
+def test_decision_update_fullstep_wide(device, b, f, g):
+    """Kernel E's wide route (past 16 terms or 8 factors, up to 64 terms)
+    against its plain version: the regression to 1e-4 relative (as
+    ``test_decision_update_fullstep``), the step to kernel B's plain version
+    on E's own regression (per-path values to f32 rounding, the moments in
+    another order), both grid routes forced (the shared one where G fits it)
+    to the same bits, the rule's route counted."""
+    fe = decision_kernel.decision_update_fullstep
+    fargs, prev = _wide_fullstep_args(device, g, 1000, 3, b, f)
+    v, spot, factors, spot_prev, factors_prev, _, _, _, _, idx_lo, w_hi, a, b_, mono = fargs
+    plan = decision_kernel.fullstep_route(g, 3, b, _build.smem_limit(device), num_factors=f)
+    assert plan.wide
+    before = (fe.launches, fe.wide_launches, fe.large_launches)
+    got = [t.clone() for t in fe(*fargs, **prev)]
+    assert (fe.launches, fe.wide_launches, fe.large_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (plan.name == "large"))
+    limit = _build.smem_limit(device)
+    fits = min(decision_kernel.wide_max_grid(3, b, f, limit), decision_kernel.solve_max_grid(b, limit))
+    for route in ("shared", "large") if g <= fits else ("large",):
+        assert all(torch.equal(x, y) for x, y in zip(got, fe(*fargs, **prev, route=route)))
+    want = decision_kernel.decision_update_fullstep_plain(*fargs, **prev)
+    for k in (3, 4, 5):  # mean, std, coeffs
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4 * float(want[k].abs().max()))
+    ci = interp.interp_coeffs(got[5], idx_lo, w_hi)
+    step = decision_kernel.decision_update_moments_plain(
+        v, spot, factors, spot_prev, factors_prev, got[3], got[4], prev["mean_prev"],
+        prev["std_prev"], idx_lo, w_hi, ci, a, b_, mono)
+    torch.testing.assert_close(got[0], step[0], rtol=1e-6, atol=1e-4)
+    for k in (1, 2):
+        torch.testing.assert_close(got[k], step[k], rtol=1e-5,
+                                   atol=1e-5 * float(step[k].abs().max()))
+
+
+@pytest.mark.parametrize("g", [100, 1000])
+def test_fullstep_forced_wide_keeps_the_register_bits(device, g):
+    """At the headline's B = 9, F = 3 kernel E forced onto its wide route
+    (``route="wide-shared"``, ``"wide-large"``) gives its register route's
+    bits on each grid route: the same entries, gaps, decisions and sums in
+    the same order."""
+    fe = decision_kernel.decision_update_fullstep
+    args = _decision_args(device, g, 1_037, 3, 3, basis=BASIS_9)
+    v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, _, a, b, \
+        mono = args
+    dm = decision_kernel._standardised_design(mono, spot, factors, mean, std)
+    fargs = (v, spot, factors, spot_prev, factors_prev, dm.T @ dm, dm.T @ (v.T * 0.9), mean, std,
+             idx_lo, w_hi, a, b, mono)
+    prev = dict(mean_prev=mean_p, std_prev=std_p)
+    for route in ("shared", "large"):
+        register = [t.clone() for t in fe(*fargs, **prev, route=route)]
+        wide = fe.wide_launches
+        forced = fe(*fargs, **prev, route=f"wide-{route}")
+        assert fe.wide_launches == wide + 1
+        assert all(torch.equal(x, y) for x, y in zip(register, forced)), route
+
+
+def test_wide_route_sizing_matches_kernel_info(device):
+    """The wide body's Python sizing (``wide_max_grid``,
+    ``wide_blocks_per_sm``: its shared words and its register cap) is its
+    launch report's on this card, on both sides of the rule's crossing."""
+    limit = _build.smem_limit(device)
+    for b, f in ((17, 3), (20, 3), (13, 10), (32, 12), (64, 3)):
+        info = decision_kernel.kernel_info("wide", 100, 3, b, device, num_factors=f)
+        assert info["max_grid"] == decision_kernel.wide_max_grid(3, b, f, limit), (b, f)
+        last = max(g for g in range(2, 2_000) if decision_kernel.fullstep_route(
+            g, 3, b, limit, num_factors=f).name == "shared")
+        for g in (decision_kernel.TILE_B, 100, last, last + 1, 400):
+            info = decision_kernel.kernel_info("wide", g, 3, b, device, num_factors=f)
+            assert info["blocks_per_sm"] == decision_kernel.wide_blocks_per_sm(
+                g, 3, b, f, limit), (b, f, g)
 
 
 @pytest.mark.parametrize("g", [11, 400, 1000])

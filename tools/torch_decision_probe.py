@@ -26,7 +26,18 @@ milliseconds a launch, and holds every output to the unpatched kernel's
 bits (timing-only variants excepted).  The report goes to
 ``build/decision_probe/decision_probe.json``.
 
-    python3 tools/torch_decision_probe.py [--repeats 20]
+With ``--wide`` it times kernel E's wide route instead (past kernel B's
+register caps: B's wide body after E's solve), built with its registers
+capped for each of ``WIDE_MIN_BLOCKS`` blocks per SM (``kWideMinBlocks``
+patched in ``decision_kernel.cu``, compiled with ``fullstep_kernel.cu`` and
+``common.cu``), at S=262,144 and step t = 180 of the caps phase's two
+valuations (``chip_smoke.wide_step_args``: 20 terms on the headline's 3
+factors, 13 terms on the 10-factor model) at G = 100 (the shared route) and
+G = 1,000 (the large route), each also forced onto the other grid route
+where G fits it: registers, spills, blocks per SM, ms, every output held to
+the first variant's bits (``build/decision_probe/wide_probe.json``).
+
+    python3 tools/torch_decision_probe.py [--repeats 20] [--wide]
 """
 from __future__ import annotations
 
@@ -116,11 +127,129 @@ def build_all():
     return libs, ptxas, skipped
 
 
+# Kernel E's wide route: its body's register cap, in blocks per SM.
+_N_WIDE_BLOCKS = r"constexpr int kWideMinBlocks = \d+;"
+WIDE_MIN_BLOCKS = (2, 3, 4, 5, 6, 8)
+WIDE_SOURCES = ("decision_kernel.cu", "fullstep_kernel.cu", "common.cu")
+
+
+def build_wide():
+    """One library a register cap of the wide body (``WIDE_MIN_BLOCKS``),
+    all built at once: {blocks: (library, ptxas report)}."""
+    from storage_tpu_torch.ops import _build
+
+    text = (CSRC / SOURCE).read_text()
+    if len(re.findall(_N_WIDE_BLOCKS, text)) != 1:
+        raise RuntimeError(f"{SOURCE} lacks the anchor {_N_WIDE_BLOCKS!r}")
+    nvcc = _build.find_nvcc()
+    procs = {}
+    for blocks in WIDE_MIN_BLOCKS:
+        d = OUT / f"wide_{blocks}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / SOURCE).write_text(re.sub(_N_WIDE_BLOCKS,
+                                       f"constexpr int kWideMinBlocks = {blocks};", text))
+        srcs = [d / SOURCE] + [CSRC / name for name in WIDE_SOURCES[1:]]
+        procs[blocks] = subprocess.Popen(
+            [nvcc, *_build.COMPILE_FLAGS, "-shared", "-I", str(CSRC), "-o", str(d / "lib.so"),
+             *map(str, srcs)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for blocks, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on kWideMinBlocks = {blocks}:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(OUT / f"wide_{blocks}" / "lib.so"))
+        for fn in ("stt_decision_update_fullstep_wide", "stt_decision_update_moments_wide_info",
+                   "stt_smem_limit"):
+            getattr(lib, fn).argtypes = list(_build.SIGNATURES[fn])
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[blocks] = (lib, ptxas_kernels(log))
+    return libs
+
+
+def wide_main(repeats: int) -> int:
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    import storage_tpu_torch as pkg
+    from storage_tpu_torch.basis import parse_basis_functions
+    from storage_tpu_torch.engines import lsmc as engine
+    from storage_tpu_torch.models import spot_sim
+    from storage_tpu_torch.ops import _build, decision_kernel
+
+    device = torch.device("cuda", 0)
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    libs = build_wide()
+    with engine.full_f32_matmul():
+        st = chip_smoke.backward_step_inputs(pkg, device)
+    inputs = st.inputs
+    arrays = {g: engine.build_engine_arrays(
+        inputs.compiled, inputs.fwd, inputs.df_settle, inputs.df_flow, inputs.inventory_lower,
+        inputs.inventory_upper, g, torch.float32, device) for g in (100, 1_000)}
+    _, sim10 = chip_smoke.ten_factor_inputs(pkg, device)
+    sims = {3: st.sims, chip_smoke.TEN_FACTORS: spot_sim.simulate_ou_paths(
+        spot_sim.key_from_seed(11), torch.arange(chip_smoke.NUM_SIMS, device=device), *sim10)}
+    fe = decision_kernel.decision_update_fullstep
+    library = _build.library
+    rows = []
+    try:
+        for basis, f in ((chip_smoke.BASIS_20, 3), (chip_smoke.BASIS_10F, chip_smoke.TEN_FACTORS)):
+            mono = tuple(parse_basis_functions(basis))
+            for g in (100, 1_000):
+                with engine.full_f32_matmul():
+                    args, prev = chip_smoke.wide_step_args(device, mono, sims[f], arrays[g],
+                                                           st.t, chip_smoke.NUM_SIMS, seed=5)
+                smem = _build.smem_limit(device)
+                fits = min(decision_kernel.wide_max_grid(3, len(mono), f, smem),
+                           decision_kernel.solve_max_grid(len(mono), smem))
+                out, ref = torch.empty_like(args[0]), None
+                for route in ("shared", "large") if g <= fits else ("large",):
+                    plan = decision_kernel.fullstep_route(g, 3, len(mono), smem, route=route,
+                                                          num_factors=f)
+                    for blocks, (lib, ptxas) in libs.items():
+                        _build.library = lambda lib=lib: lib
+                        got = [t.clone() for t in fe(*args, **prev, out=out, route=route)]
+                        ref = ref or got
+                        same = all(torch.equal(x, y) for x, y in zip(got, ref))
+                        ms = chip_smoke.cuda_ms(lambda: fe(*args, **prev, out=out, route=route),
+                                                repeats)
+                        info = (ctypes.c_int * 6)()
+                        _build.check(lib.stt_decision_update_moments_wide_info(
+                            plan.tile, 3, len(mono), f, info), "wide info")
+                        regs, spill = next(r for k, r in ptxas.items()
+                                           if "decision_moments_wide_kernel" in k)
+                        row = dict(B=len(mono), F=f, G=g, route=plan.name, tile=plan.tile,
+                                   min_blocks=blocks, blocks_per_sm=info[4], smem_bytes=info[1],
+                                   registers=regs, ptxas_spill_bytes=spill, ms=ms,
+                                   outputs_equal_to_first=same)
+                        rows.append(row)
+                        print(f"B={len(mono):2d} F={f:2d} G={g:5d} {plan.name:6s} kWideMinBlocks "
+                              f"{blocks}: blocks/SM {info[4]:2d}  smem {info[1]:6d} B  regs "
+                              f"{regs:3d}  spill {spill:3d} B  {ms:.4f} ms  outputs as the "
+                              f"first: {same}", flush=True)
+                        if not same:
+                            raise AssertionError(f"kWideMinBlocks = {blocks} on the {route} route "
+                                                 f"parts from the bits")
+                del args, prev, out, ref
+    finally:
+        _build.library = library
+    report = dict(card=card, kind=torch.cuda.get_device_name(0), rows=rows)
+    (OUT / "wide_probe.json").write_text(json.dumps(report, indent=1))
+    print(card)
+    return 0
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=20)
+    ap.add_argument("--wide", action="store_true",
+                    help="time kernel E's wide route over its register caps")
     args = ap.parse_args(argv[1:])
     import torch
+
+    if args.wide and torch.cuda.is_available():
+        return wide_main(args.repeats)
 
     if not torch.cuda.is_available():
         print("decision probe: no CUDA device", file=sys.stderr)
