@@ -177,25 +177,27 @@
    kernels line's ``b20_*``, ``b36_*``, ``b20_uniform_*``,
    ``b20_general_*``, ``f10_*`` and ``f13_*`` keys); kernel E's wide route
    (past the caps) at 20 terms on the headline's 3-factor paths and 13 on
-   the 10-factor model's, at G=100 (the rule's grid route, the other forced
-   to its bits) and G=1,000, against its plain version (flips counted, only
-   on near-ties), timed beside its bound with B's wide body's launch report
-   (the kernels line's ``decision_update_fullstep_wide`` row, its
-   ``b13f10_*`` and ``*_g1000_*`` keys), its Python sizing held to the launch
-   report on both sides of the route's crossing, and at the headline's B=9
-   forced onto the wide route: the register route's bits; then, counters
-   reset before each, the headline facility at its full width with a
-   20-term basis (``three_factor_seasonal_value``) and with a 10-factor
-   model (``multi_factor_value``, pairwise correlation 0.3, 13 terms): each
+   the 10-factor model's, on its register row, at G=100 (the rule's grid
+   route, the other forced to its bits) and G=1,000, against its plain
+   version (flips counted, only on near-ties), the shared row forced to its
+   bits, timed beside its bound and the shared row with B's wide body's
+   launch report (the kernels line's ``decision_update_fullstep_wide`` row,
+   its ``b13f10_*`` and ``*_g1000_*`` keys), each wide body's Python sizing
+   held to the launch report on both sides of the route's crossing, and at
+   the headline's B=9 forced onto each wide body: the register route's
+   bits; then, counters reset before each, the headline facility at its
+   full width with a 20-term basis (``three_factor_seasonal_value``) and
+   with a 10-factor model (``multi_factor_value``, pairwise correlation
+   0.3, 13 terms): each
    takes the design in memory on materialised paths (the sweep 2, D 365,
    C's design mode 12, the intrinsic DP 1) and lands within 0.1 SE of its
    f64 answer on the same draws (``F64_CAPS_NPV``), its wall and peak memory
    printed; beside each the same valuation with the engine's full step
    (``fullstep_engine``: the sweep 2, E 365 on its wide route, C's design
-   mode 12, the intrinsic DP 1), within 0.05 SE of it on the same paths,
-   the two timed in turns (full step, design in memory, design in memory,
-   full step).  The headline keeps its route and its NPV bits
-   (``MAIN_NPV``).
+   mode 12, the intrinsic DP 1), within 0.05 SE of it on the same paths and
+   its NPV the pinned bits ``CAPS_FULLSTEP_NPV``, the two timed in turns
+   (full step, design in memory, design in memory, full step).  The
+   headline keeps its route and its NPV bits (``MAIN_NPV``).
 9. The service phase: the C++ band reducer against the Python band on the
    headline and an 8,760-step hourly year (the same f64 bits; medians of
    5, the hourly Python band timed once) and host prep with each, in turns; an interactive headline valuation
@@ -220,9 +222,11 @@
    C's general-grid mode against its plain version on the main path's
    tables on bunched rows (monomial mode), padded rows (design mode) and
    at G=1,000, timed beside the evenly spaced mode; its bucket index
-   (``general_tail``) its plain version's bits, timed beside one batched
-   ``torch.searchsorted`` of the rows' interior nodes against the bucket
-   edges (its library time) at G=100 and 4,096.  Then, each path with
+   (``general_tail``) its plain version's bits, each one's own device time
+   (torch.profiler over 50 calls) beside one batched ``torch.searchsorted``
+   of the rows' interior nodes against the bucket edges (its library
+   time), and both host rates (CUDA events around back-to-back calls), at
+   G=100 and 4,096.  Then, each path with
    the counters reset: the headline with ``deltas_method="adjoint"`` (the
    main path's NPV, SE, intrinsic value and profile bits, deltas for t < N
    within 1e-5 of the pathwise ones, the last the terminal value's gradient
@@ -711,7 +715,8 @@ def call_spans(targets):
         for module, name in targets:
             inner, timed = inners[name], wrappers[name]
             setattr(module, name, inner)
-            for counter in ("launches", "step_launches", "general_launches", "large_launches"):
+            for counter in ("launches", "step_launches", "general_launches", "large_launches",
+                            "wide_launches", "wide_smem_launches"):
                 if hasattr(inner, counter):
                     setattr(inner, counter, getattr(timed, counter))
 
@@ -2204,6 +2209,10 @@ BASIS_10F = "1 + s + s**2 + " + " + ".join(f"x{i}" for i in range(TEN_FACTORS))
 # plain versions in f64 on the card, NVIDIA H100 80GB HBM3): each f32 NPV
 # lands within 0.1 SE of its answer.
 F64_CAPS_NPV = {"basis_20": 115_291.41648232081, "factors_10": 145_000.0596373356}
+# The two valuations' f32 NPVs with the full step (kernel E's wide route), the
+# bits of its first design on an NVIDIA H100 80GB HBM3: every redesign of the
+# wide route keeps them.
+CAPS_FULLSTEP_NPV = {"basis_20": 115_289.2890625, "factors_10": 145_000.125}
 
 
 def ten_factor_model(fwd):
@@ -2394,82 +2403,106 @@ def check_fullstep_wide(pkg, device, st) -> dict:
         for g, s in ((NUM_GRID, NUM_SIMS), (BIG_GRID, BIG_SIMS)):
             args, prev = wide_step_args(device, mono, sims, arrays[g], st.t, s, seed=5 + g)
             plan = decision_kernel.fullstep_route(g, 3, b, limit, num_factors=f)
-            before = (fe.launches, fe.wide_launches, fe.large_launches)
+            before = (fe.launches, fe.wide_launches, fe.wide_smem_launches, fe.large_launches)
             cmp = compare_e(args, prev, wide=True)
             counted = (fe.launches - before[0], fe.wide_launches - before[1],
-                       fe.large_launches - before[2])
+                       fe.wide_smem_launches - before[2], fe.large_launches - before[3])
             buf = torch.empty_like(args[0])
-            # Both grid routes at the main path's G: the other one's bits.
+            # Both grid routes at the main path's G: the other one's bits;
+            # the shared row on the rule's grid route: the register row's.
             other = {"shared": "large", "large": "shared"}[plan.name]
             routes_same = g > NUM_GRID or forced_bits(fe, args, prev)
+            smem_route = f"wide-smem-{plan.name}"
+            rule_out = tuple(x.clone() for x in fe(*args, **prev))
+            smem_same = same_outputs(rule_out, fe(*args, **prev, route=smem_route))
+            del rule_out
             ms = cuda_ms(lambda: fe(*args, **prev, out=buf), 20 if g == NUM_GRID else 5)
+            smem_ms = cuda_ms(lambda: fe(*args, **prev, out=buf, route=smem_route),
+                              20 if g == NUM_GRID else 5)
             plain_ms = cuda_ms(
                 lambda: decision_kernel.decision_update_fullstep_plain(*args, **prev), 2)
             bnd = bound(*decision_work(g, s, 3, b, f, moments=True, solve=True))
             info = decision_kernel.kernel_info("wide", plan.tile, 3, b, device, num_factors=f)
             log(f"caps: kernel E decision_update_fullstep [G={g}, S={s}, D=3, B={b}, F={f}, wide "
-                f"route, {plan.name} (tile {plan.tile})]: {cmp['text']}; launches counted "
-                f"(all, wide, large) {counted}; "
+                f"route, body {plan.body}, {plan.name} (tile {plan.tile})]: {cmp['text']}; "
+                f"launches counted (all, wide, shared row, large) {counted}; "
                 + (f"forced onto its {other} route, the same bits: {routes_same}; "
                    if g == NUM_GRID else "")
-                + f"{ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
+                + f"the shared row ({smem_route}) the same bits: {smem_same}; "
+                f"{ms:.4f} ms (the shared row {smem_ms:.4f}) vs plain {plain_ms:.3f} ms, bound "
                 f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); B's wide body "
-                f"{info['smem_bytes']} bytes of shared memory (G <= {info['max_grid']}), "
-                f"{info['blocks_per_sm']} blocks per SM, {info['registers']} registers")
+                f"{info['smem_bytes']} bytes of shared memory (G <= "
+                f"{info['max_grid']}), {info['blocks_per_sm']} blocks per SM, "
+                f"{info['registers']} registers")
             if not cmp["ok"]:
                 raise AssertionError(f"kernel E's wide route at B={b}, F={f}, G={g} disagrees "
                                      f"with its plain version: {cmp['text']}")
-            if not plan.wide or counted != (1, 1, int(plan.name == "large")) or (
+            if plan.body != "wide" or counted != (1, 1, 0, int(plan.name == "large")) or (
                     g > NUM_GRID and plan.name != "large"):
                 raise AssertionError(f"kernel E at B={b}, F={f}, G={g} took {plan} (launches "
-                                     f"{counted}), not its wide route")
-            if not routes_same:
+                                     f"{counted}), not its wide route's register row")
+            if not (routes_same and smem_same):
                 raise AssertionError(f"kernel E's wide route at B={b}, F={f}, G={g} gives other "
-                                     f"bits on its {other} route")
+                                     f"bits on its {other} route ({routes_same}) or its shared "
+                                     f"row ({smem_same})")
             out[label if g == NUM_GRID else f"{label}_g{g}"] = dict(
                 B=b, F=f, G=g, S=s, grid_route=plan.name, tile=plan.tile,
                 max_abs_err=cmp["max_abs_err"], flips=cmp["flips"],
                 unexplained_flips=cmp["unexplained_flips"],
                 regression_max_rel_err=cmp["regression_max_rel_err"],
                 moments_max_rel_err=cmp["moments_max_rel_err"], ms=ms, plain_ms=plain_ms,
+                body=plan.body, smem_row_ms=smem_ms,
                 bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None,
                 smem_bytes=info["smem_bytes"], max_grid=info["max_grid"],
                 blocks_per_sm=info["blocks_per_sm"], registers=info["registers"])
             del args, prev, buf
         del sims
-        # The Python sizing of the wide body against its launch report: the
+        # The Python sizing of each wide body against its launch report: the
         # largest G, and the blocks per SM on both sides of the crossing and
         # at the large route's tile.
         last = max(g for g in range(2, 2_000)
                    if decision_kernel.fullstep_route(g, 3, b, limit, num_factors=f).name
                    == "shared")
-        sizing = [("max_grid", decision_kernel.wide_max_grid(3, b, f, limit),
-                   decision_kernel.kernel_info("wide", 100, 3, b, device,
-                                               num_factors=f)["max_grid"])]
-        for g in (last, last + 1, decision_kernel.TILE_B):
-            sizing.append((f"blocks_per_sm G={g}",
-                           decision_kernel.wide_blocks_per_sm(g, 3, b, f, limit),
-                           decision_kernel.kernel_info("wide", g, 3, b, device,
-                                                       num_factors=f)["blocks_per_sm"]))
+        sizing = []
+        for body in ("wide", "wide-smem"):
+            cross = max(g for g in range(2, 2_000)
+                        if decision_kernel.wide_route(g, 3, b, f, limit, body=body).name
+                        == "shared")
+            sizing.append((f"{body} max_grid", decision_kernel.wide_max_grid(3, b, f, limit, body),
+                           decision_kernel.kernel_info("wide", 100, 3, b, device, num_factors=f,
+                                                       body=body)["max_grid"]))
+            for g in sorted({last, last + 1, cross, cross + 1, decision_kernel.TILE_B}):
+                sizing.append((f"{body} blocks_per_sm G={g}",
+                               decision_kernel.wide_blocks_per_sm(g, 3, b, f, limit, body),
+                               decision_kernel.kernel_info("wide", g, 3, b, device,
+                                                           num_factors=f,
+                                                           body=body)["blocks_per_sm"]))
         crossings[label] = dict(last_shared=last, sizing=sizing)
         log(f"caps: kernel E's wide route at B={b}, F={f}: shared up to G={last} under the rule; "
             f"the Python sizing (mine, the launch report's): {sizing}")
         if any(mine != theirs for _, mine, theirs in sizing):
             raise AssertionError(f"the wide route's sizing at B={b}, F={f} disagrees with "
                                  f"kernel_info: {sizing}")
-    ptx = {"body": ptxas_report("decision_moments_wide_kernel"),
-           "solve": ptxas_report(f"fullstep_solve_kernelILb0ELi{_build.MAX_WIDE_BASIS}E"),
-           "solve_spread": ptxas_report(f"fullstep_solve_kernelILb1ELi{_build.MAX_WIDE_BASIS}E")}
+    ptx = {"body_b20": ptxas_report("decision_moments_tiled_kernelILi20EN3stt9WideBasisE"),
+           "body_b13": ptxas_report("decision_moments_tiled_kernelILi16EN3stt9WideBasisE"),
+           "body_smem_row": ptxas_report("decision_moments_wide_kernel"),
+           **{f"solve{'_spread' * spread}_{n}": ptxas_report(
+               f"fullstep_solve_kernelILb{spread}ELi{n}E")
+              for spread in (0, 1) for n in (_build.MAX_BASIS, _build.MAX_WIDE_REGISTER_BASIS,
+                                            _build.MAX_WIDE_BASIS)}}
     log(f"caps: kernel E's wide route, ptxas: {ptx}")
-    # The headline's shape forced onto the wide route: the register route's
+    # The headline's shape forced onto each wide body: the register route's
     # bits on each grid route.
     args_e, prev = fullstep_args(st.args_b)
     forced = {}
     for grid_route in ("shared", "large"):
         reg = tuple(t.clone() for t in fe(*args_e, **prev, route=grid_route))
-        forced[grid_route] = same_outputs(reg, fe(*args_e, **prev, route=f"wide-{grid_route}"))
-    log(f"caps: kernel E at the headline's B=9, F=3 forced onto the wide route: every output the "
-        f"register route's bits on the shared and the large route: {forced}")
+        for body in ("wide", "wide-smem"):
+            forced[f"{body}-{grid_route}"] = same_outputs(
+                reg, fe(*args_e, **prev, route=f"{body}-{grid_route}"))
+    log(f"caps: kernel E at the headline's B=9, F=3 forced onto each wide body (the register "
+        f"row, the shared row): every output the register route's bits on the shared and the "
+        f"large route: {forced}")
     if not all(forced.values()):
         raise AssertionError(f"kernel E's wide route at B=9 parts from its register route: "
                              f"{forced}")
@@ -2498,11 +2531,10 @@ def check_caps(pkg, device) -> dict:
     from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel, interp, rng_kernel
 
     limits = _build.limits()
-    if (limits["max_basis"], limits["max_factors"], limits["max_wide_basis"]) != (
-            _build.MAX_BASIS, _build.MAX_FACTORS, _build.MAX_WIDE_BASIS):
-        raise AssertionError(f"the route's copy of the caps ({_build.MAX_BASIS}, "
-                             f"{_build.MAX_FACTORS}, {_build.MAX_WIDE_BASIS}) is not the "
-                             f"library's {limits}")
+    caps = (_build.MAX_BASIS, _build.MAX_FACTORS, _build.MAX_WIDE_BASIS,
+            _build.MAX_WIDE_REGISTER_BASIS)
+    if tuple(limits.values()) != caps:
+        raise AssertionError(f"the route's copy of the caps {caps} is not the library's {limits}")
     s, g = NUM_SIMS, NUM_GRID
     st = backward_step_inputs(pkg, device)
     t, sims, step = st.t, st.sims, st.step
@@ -2746,7 +2778,8 @@ def caps_valuations(pkg, device, counts, main) -> dict:
         finite_e = bool(np.isfinite(res_e.deltas.to_numpy()).all()
                         and np.isfinite(res_e.expected_profile.to_numpy()).all())
         log(f"caps: {case} with the full step (kernel E's {body} route, {grid_route}): NPV "
-            f"{npv_e!r} SE {se_e!r} "
+            f"{npv_e!r} SE {se_e!r} (the pinned bits {CAPS_FULLSTEP_NPV[case]!r}: "
+            f"{npv_e == CAPS_FULLSTEP_NPV[case]}) "
             f"({off_e:+.4f} SE from the design-in-memory valuation's NPV on the same paths, "
             f"tolerance 0.05); launches {launches_e}; walls in turns (full step, design in "
             f"memory, design in memory, full step): {walls[True][0]:.4f}, {walls[False][0]:.4f}, "
@@ -2760,6 +2793,9 @@ def caps_valuations(pkg, device, counts, main) -> dict:
         if not (math.isfinite(npv_e) and abs(off_e) <= 0.05 and finite_e):
             raise AssertionError(f"{case} with the full step: NPV {npv_e} is {off_e:+.4f} SE from "
                                  f"{npv}, or its deltas or profile are not finite")
+        if npv_e != CAPS_FULLSTEP_NPV[case]:
+            raise AssertionError(f"{case} with the full step: NPV {npv_e!r}, not the pinned bits "
+                                 f"{CAPS_FULLSTEP_NPV[case]!r}")
         out[case] = dict(terms=terms, factors=factors, route="design_in_memory", npv=npv, se=se,
                          se_from_f64=off, launches=dict(launches), wall_s=wall,
                          walls_s=walls[False], peak_memory_gb=peak,
@@ -3129,22 +3165,34 @@ def check_adjoint_kernels(pkg, device) -> dict:
         got_t = forward_kernel.general_tail(rows_t)
         want_t = forward_kernel.general_tail_plain(rows_t)
         nodes, edges = bucket_edges(rows_t)
+        kernel = lambda rows_t=rows_t: forward_kernel.general_tail(rows_t)  # noqa: E731
+        library = lambda: torch.searchsorted(nodes, edges)  # noqa: E731,B023
+        # Each one's own device time (torch.profiler, 50 calls), beside the
+        # host's rate that CUDA events around back-to-back calls measure.
+        own, n_own = kernel_busy_ms(lambda: [kernel() for _ in range(50)], "general_tail")
+        lib_own, n_lib = kernel_busy_ms(lambda: [library() for _ in range(50)], "searchsorted")
+        if not (n_own and n_lib):
+            raise AssertionError(f"torch.profiler recorded {n_own} general_tail and {n_lib} "
+                                 f"searchsorted launches at G={rows_t.shape[1]}")
         tails[name] = dict(
             same=torch.equal(got_t.view(torch.int32), want_t.view(torch.int32)),
-            ms=cuda_ms(lambda rows_t=rows_t: forward_kernel.general_tail(rows_t), 50),
+            ms=own / n_own, library_ms=lib_own / n_lib, wrapper_ms=cuda_ms(kernel, 50),
+            library_wrapper_ms=cuda_ms(library, 50),
             plain_ms=cuda_ms(lambda rows_t=rows_t: forward_kernel.general_tail_plain(rows_t), 5),
-            library_ms=cuda_ms(lambda: torch.searchsorted(nodes, edges), 50),
             bound=bound(*general_tail_work(*rows_t.shape)),
             largest_bracket=int(forward_kernel.general_brackets(got_t).max()),
             grid=rows_t.shape[1])
         del got_t, want_t, nodes, edges
     log(f"general_tail (the general-grid mode's bucket index) [N={n}; G={g_}, padded, "
         f"{GRID_BIG}]: its plain version's bits: "
-        f"{[t_['same'] for t_ in tails.values()]}; {tails['main']['ms']:.4f} / "
-        f"{tails['big']['ms']:.4f} ms a launch (G={g_} / {GRID_BIG}) vs plain "
-        f"{tails['main']['plain_ms']:.3f} / {tails['big']['plain_ms']:.3f} ms, one batched "
-        f"torch.searchsorted of the interior nodes against the bucket edges "
-        f"{tails['main']['library_ms']:.4f} / {tails['big']['library_ms']:.4f} ms, bound "
+        f"{[t_['same'] for t_ in tails.values()]}; its own device time {tails['main']['ms']:.5f} / "
+        f"{tails['big']['ms']:.5f} ms a launch (G={g_} / {GRID_BIG}; torch.profiler over 50 "
+        f"launches) against one batched torch.searchsorted of the interior nodes against the "
+        f"bucket edges, its own {tails['main']['library_ms']:.5f} / "
+        f"{tails['big']['library_ms']:.5f} ms; the host's rate back to back (CUDA events) "
+        f"{tails['main']['wrapper_ms']:.4f} / {tails['big']['wrapper_ms']:.4f} ms against "
+        f"{tails['main']['library_wrapper_ms']:.4f} / {tails['big']['library_wrapper_ms']:.4f} "
+        f"ms; plain {tails['main']['plain_ms']:.3f} / {tails['big']['plain_ms']:.3f} ms, bound "
         f"{tails['main']['bound']['bound_ms']:.5f} / {tails['big']['bound']['bound_ms']:.5f} "
         f"ms; largest bracket {tails['padded']['largest_bracket']} nodes on the padded rows, "
         f"{tails['big']['largest_bracket']} at G={GRID_BIG}")
@@ -3188,10 +3236,14 @@ def check_adjoint_kernels(pkg, device) -> dict:
         **{k: v_ for k, v_ in cmp_design.items() if k not in ("text", "max_abs_err", "ok")},
         **bnd_d)
     tail_row = dict(max_abs_err=0.0, ms=tails["main"]["ms"], plain_ms=tails["main"]["plain_ms"],
-                    library_ms=tails["main"]["library_ms"],
+                    library_ms=tails["main"]["library_ms"], ms_source="profiler",
+                    wrapper_ms=tails["main"]["wrapper_ms"],
+                    library_wrapper_ms=tails["main"]["library_wrapper_ms"],
                     grid=g_, big_grid_ms=tails["big"]["ms"],
                     big_grid_library_ms=tails["big"]["library_ms"],
                     big_grid_bound_ms=tails["big"]["bound"]["bound_ms"],
+                    big_grid_wrapper_ms=tails["big"]["wrapper_ms"],
+                    big_grid_library_wrapper_ms=tails["big"]["library_wrapper_ms"],
                     largest_bracket=tails["padded"]["largest_bracket"], **tails["main"]["bound"])
     return {"forward_sweep_vjp": vjp, "forward_sweep_general": general,
             "forward_sweep_design_general": design_general, "general_tail": tail_row}
@@ -4959,7 +5011,8 @@ def forced_routes(route: str, names=None):
     finally:
         for module, name in targets:
             setattr(module, name, inners[name])
-            for counter in ("launches", "general_launches", "large_launches", "wide_launches"):
+            for counter in ("launches", "general_launches", "large_launches", "wide_launches",
+                            "wide_smem_launches"):
                 if hasattr(inners[name], counter):
                     setattr(inners[name], counter, getattr(wrappers[name], counter))
 
@@ -6157,9 +6210,12 @@ def launch_counts():
                              decision_kernel.decision_update,
                              decision_kernel.decision_update_fullstep,
                              forward_kernel.forward_sweep, forward_kernel.forward_sweep_design)),
-                         # Kernel E's wide route, counted in its launches too.
+                         # Kernel E's wide route, counted in its launches too, and
+                         # the wide route's shared row, counted in those too.
                          ("decision_update_fullstep_wide", decision_kernel.decision_update_fullstep,
-                          "wide_launches")))
+                          "wide_launches"),
+                         ("decision_update_fullstep_wide_smem",
+                          decision_kernel.decision_update_fullstep, "wide_smem_launches")))
 
 
 def free_port() -> int:
@@ -6873,7 +6929,9 @@ def main(argv) -> int:
              "forward_sweep_general": ("uniform_ms", "smem_bytes", "blocks_per_sm", "registers"),
              "forward_sweep_design_general": ("uniform_ms", "smem_bytes", "blocks_per_sm",
                                               "registers"),
-             "general_tail": ("grid", "big_grid_ms", "big_grid_library_ms", "big_grid_bound_ms",
+             "general_tail": ("grid", "ms_source", "wrapper_ms", "library_wrapper_ms",
+                              "big_grid_ms", "big_grid_library_ms", "big_grid_bound_ms",
+                              "big_grid_wrapper_ms", "big_grid_library_wrapper_ms",
                               "largest_bracket"),
              "decision_update_moments": ("random_rows_ms", "launch_report"),
              "decision_update_fullstep": ("random_rows_ms",),
@@ -6888,8 +6946,9 @@ def main(argv) -> int:
                               "g100_b4_ms", "g100_b9_ms", "g100_b4_bound_ms",
                               "g100_b9_bound_ms"),
              "decision_update_fullstep_large": ("tile", "band_rows_ms", "blocks_per_sm"),
-             "decision_update_fullstep_wide": ("B", "F", "grid_route", "tile", "flips",
-                                               "smem_bytes", "blocks_per_sm", "registers"),
+             "decision_update_fullstep_wide": ("B", "F", "body", "grid_route", "tile", "flips",
+                                               "smem_bytes", "blocks_per_sm", "registers",
+                                               "smem_row_ms"),
              "intrinsic_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64",
                                     "chain_floor_ms", "grid_link_ns", "block_link_ns", "launch",
                                     "general_10001_f64_bound_ms"),

@@ -5,11 +5,13 @@
 #include "common.cuh"
 
 // out[0] the most basis functions, out[1] the most factors a kernel takes,
-// out[2] the most basis functions of kernel E's wide route.
+// out[2] the most basis functions of kernel E's wide route, out[3] the most
+// (padded) of its register row.
 extern "C" int stt_limits(int* out) {
   out[0] = stt::kMaxB;
   out[1] = stt::kMaxF;
   out[2] = stt::kMaxWideB;
+  out[3] = stt::kMaxWideRegB;
   return 0;
 }
 

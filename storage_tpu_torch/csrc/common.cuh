@@ -13,10 +13,13 @@ namespace stt {
 // the card in registers (kernels B and E, kernel C's monomial mode); a larger
 // shape takes the design read from memory (engines/lsmc.py design_in_memory),
 // or, for kernel E, its wide route (WideBasis), up to kMaxWideB terms: the
-// length of its solve's per-thread substitution vector.
+// length of its solve's per-thread substitution vector.  The wide route
+// holds a sim's design row in registers up to kMaxWideRegB terms (compiled
+// per padded size), in shared memory beyond.
 constexpr int kMaxB = 16;  // basis functions
 constexpr int kMaxF = 8;   // Markov factors
 constexpr int kMaxWideB = 64;
+constexpr int kMaxWideRegB = 32;
 
 // Monomial powers, passed to kernels by value.  pows[b][0] is the spot power,
 // pows[b][1 + f] the power of factor f.

@@ -81,17 +81,23 @@
 //     over v: a later g of the same column still reads rows an in-place write
 //     would already have replaced;
 //   * the wide route, which kernel E launches past the caps (16 terms, 8
-//     factors), takes any B and F in one kernel for both grid routes
-//     (decision_moments_wide_kernel): the powers staged from a device table
-//     (stt::WideBasis), step t's design rows [Bp, 128] in shared memory beside
-//     step t−1's tile, the gaps read from them 4 terms at a time, the moments
-//     summed 16 columns at a time.  The same arithmetic in the same order, so
-//     the register route's bits wherever both run (B = 9 forced wide).  Its
-//     registers are capped for kWideMinBlocks = 8 blocks per SM (64
-//     registers, 32 B spilled): of caps for 2 to 8 blocks, 6 and 8 were
-//     fastest at 20 terms on 3 factors and 13 on 10 (G = 100 and 1,000),
-//     8 by 6% at 13 terms (tools/torch_decision_probe.py --wide, PERF.md).
+//     factors), takes any F, one kernel for both grid routes: the tiled
+//     kernel on a stt::WideBasis (the powers staged from a device table
+//     into shared memory after the records), so the sim's design row is a
+//     RegisterRow and the moments run at compile-time width, compiled per
+//     padded basis size up to stt::kMaxWideRegB = 32 terms; past that its
+//     shared row (decision_moments_wide_kernel: step t's design rows [Bp,
+//     128] in shared memory, the gaps read from them 4 terms at a time, the
+//     moments at run-time width), up to 64.  The same arithmetic in the same
+//     order, so the register route's bits wherever two run (B = 9 forced
+//     onto either).  The register row's registers are capped by padded size
+//     (kWideRegMinBlocks: 8 blocks per SM up to 16 terms, 64 registers; 6
+//     past them, 80), the shared row's for kWideMinBlocks = 8; of caps for
+//     5 to 9 blocks, 8 was fastest at 13 terms on 10 factors and 6 at 20
+//     and 32 terms on 3 (G = 100 and 1,000: tools/torch_decision_probe.py
+//     --wide --variants regcap5 ..., PERF.md).
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -104,9 +110,32 @@ constexpr int kChunk = 8;                     // grid points per staged chunk
 constexpr int kGroup = 4;                     // grid points decided together
 constexpr int kSlices = kThreads / kChunk;    // threads that share one tile row
 constexpr int kMinBlocks = 9;                 // blocks per SM the registers must allow
-constexpr int kWideMinBlocks = 8;             // the same, on the wide route
+constexpr int kWideMinBlocks = 8;             // the same, on the wide route's shared row
+// The same on the wide route's register row, by padded basis size: up to
+// 16 terms, and past 16 (to stt::kMaxWideRegB).
+constexpr int kWideRegMinBlocks[2] = {8, 6};
 constexpr int kReduceRows = 32;               // partial rows summed per column thread
 static_assert(kChunk % kGroup == 0, "a chunk holds whole groups");
+
+// Blocks per SM a register-row kernel's registers are capped for: the
+// register route's kMinBlocks, the wide route's kWideRegMinBlocks.
+template <typename BasisT>
+constexpr int min_blocks(int Bp) {
+  if constexpr (std::is_same_v<BasisT, stt::Basis>)
+    return kMinBlocks;
+  else
+    return kWideRegMinBlocks[Bp <= 16 ? 0 : 1];
+}
+
+// The powers of a wide basis staged from device memory into `smem`, at
+// warp-uniform addresses for every design entry (the caller synchronises
+// before reading them).
+__device__ __forceinline__ stt::WideBasis staged(const stt::WideBasis& basis, void* smem) {
+  int8_t* pows = static_cast<int8_t*>(smem);
+  for (int i = threadIdx.x; i < basis.nb * (basis.nf + 1); i += blockDim.x)
+    pows[i] = basis.pows[i];
+  return {pows, basis.nb, basis.nf};
+}
 
 // Dynamic shared memory of the kernel in floats: the design tile, then the
 // step's records, record_words(D, Bp) a grid point (the best_act tile is
@@ -175,20 +204,24 @@ __device__ __forceinline__ void tile_product(const float* x, int nrows, const fl
   if (r < nrows && q < B) out[r * B + q] = mine;
 }
 
-// tile_product for any B (the wide route): the columns in groups of kSlices,
-// the group's sums in order of the column groups, each column's sum formed as
-// tile_product forms it (the same products in the same order and the same
-// butterfly, so the same bits), and thread q of a row writes the group's
-// column q.
+// tile_product past kMaxB columns (the wide route): the columns in groups of
+// kSlices, each column's sum formed as tile_product forms it (the same
+// products in the same order and the same butterfly, so the same bits), and
+// thread q of a row writes the group's column q.  kCols is the most columns
+// compiled for (the groups unrolled, the last cut to the columns left), 0
+// for B at run time.  (tile_product folded in as its one-group case gave
+// kernel B's shared kernel 4% more SASS instructions and 3% more time,
+// PERF.md.)
+template <int kCols>
 __device__ __forceinline__ void tile_product_wide(const float* x, int nrows, const float* dmp,
                                                   int B, float* __restrict__ out) {
   const int r = threadIdx.x / kSlices;
   const int q = threadIdx.x % kSlices;
   // (Rows past nrows repeat the last one: their sums are not written.)
   const float* xr = x + min(r, nrows - 1) * kThreads;
-#pragma unroll 1
-  for (int b0 = 0; b0 < B; b0 += kSlices) {
-    const int nb = min(kSlices, B - b0);
+#pragma unroll
+  for (int b0 = 0; b0 < (kCols ? kCols : B); b0 += kSlices) {
+    const int nb = min(kCols ? min(kSlices, kCols - b0) : kSlices, B - b0);
     float acc[kSlices];
 #pragma unroll
     for (int b = 0; b < kSlices; ++b) acc[b] = 0.0f;
@@ -221,13 +254,25 @@ __device__ __forceinline__ void tile_product_wide(const float* x, int nrows, con
   }
 }
 
+// The moments of a register-row kernel compiled for Bp terms: tile_product
+// within kMaxB, tile_product_wide<Bp> past it.
+template <int Bp>
+__device__ __forceinline__ void tile_moments(const float* x, int nrows, const float* dmp, int B,
+                                             float* __restrict__ out) {
+  if constexpr (Bp <= stt::kMaxB)
+    tile_product(x, nrows, dmp, B, out);
+  else
+    tile_product_wide<Bp>(x, nrows, dmp, B, out);
+}
+
 // Step t's design row, in registers, for the decisions, and step t−1's,
 // standardised by (mean_prev, std_prev), in this thread's column of the
 // design tile (each thread touches its own column only, so no barrier
 // between).  The columns past S compute on column S − 1 and count as zeros.
-template <int Bp>
+// On the register route's stt::Basis or a staged stt::WideBasis.
+template <int Bp, typename BasisT>
 __device__ __forceinline__ stt::RegisterRow<Bp> design_rows(
-    const stt::Basis& basis, float* dmp_tile, int s, bool valid, int S,
+    const BasisT& basis, float* dmp_tile, int s, bool valid, int S,
     const float* __restrict__ spot, const float* __restrict__ factors,
     const float* __restrict__ spot_prev, const float* __restrict__ factors_prev,
     const float* __restrict__ mean, const float* __restrict__ stdv,
@@ -307,27 +352,30 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_kernel(
   // This block's row of partials: XᵀX, then (Xᵀ·best_act)ᵀ as [G, B].
   float* row = partials + static_cast<size_t>(blockIdx.x) * (B * B + G * B);
   for (int r0 = 0; r0 < B; r0 += kChunk)
-    tile_product(dmp_tile + r0 * kThreads, min(kChunk, B - r0), dmp_tile, B, row + r0 * B);
+    tile_moments<Bp>(dmp_tile + r0 * kThreads, min(kChunk, B - r0), dmp_tile, B, row + r0 * B);
   row += B * B;
 
   for (int g0 = 0; g0 < G; g0 += kChunk) {
     const int rows = min(kChunk, G - g0);
     decide_chunk(tab, g0, rows, G - 1, g0, D, Bp, v, S, s, valid, sp, dm, best_out, best_tile);
     __syncthreads();
-    tile_product(best_tile, rows, dmp_tile, B, row + g0 * B);
+    tile_moments<Bp>(best_tile, rows, dmp_tile, B, row + g0 * B);
     __syncthreads();  // the tile is rewritten by the next chunk
   }
 }
 
-// The large route: decision_moments_kernel with the records `tile` (< G)
-// grid points at a time in the same buffer, the same chunk loop over each
-// tile's grid points (its arithmetic, so its bits).  A kernel of its own,
+// The register row's kernel at `tile` grid points a tile: kernel B's large
+// route (tile < G: decision_moments_kernel with the records `tile` grid
+// points at a time in the same buffer, the same chunk loop over each tile's
+// grid points, its arithmetic, so its bits) on the register route's
+// stt::Basis, and kernel E's wide body (any tile) on a stt::WideBasis, its
+// powers staged in shared memory after the records.  A kernel of its own,
 // so that the shared route's launch keeps its compiled code: one body for
 // both (a template, or `tile` read at run time) compiled the shared route
 // to other spills and slowed it at the headline (PERF.md).
-template <int Bp>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_tiled_kernel(
-    int G, int tile, int S, int D, stt::Basis basis,
+template <int Bp, typename BasisT>
+__global__ void __launch_bounds__(kThreads, min_blocks<BasisT>(Bp)) decision_moments_tiled_kernel(
+    int G, int tile, int S, int D, BasisT basis,
     const float* __restrict__ v, const float* __restrict__ spot,
     const float* __restrict__ factors, const float* __restrict__ spot_prev,
     const float* __restrict__ factors_prev, const float* __restrict__ mean,
@@ -342,6 +390,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_tiled_k
   float* dmp_tile = smem;                       // [B, kThreads]
   float* tab = smem + smem_fixed_words(B);      // [tile] records
   stt::load_records(tab, G, 0, min(tile, G), D, B, Bp, idx_lo_g, w_hi_g, dci_g, a_g, b_g);
+  if constexpr (std::is_same_v<BasisT, stt::WideBasis>) {
+    basis = staged(basis, tab + static_cast<size_t>(tile) * stt::record_words(D, Bp));
+    __syncthreads();  // the powers, before any design entry
+  }
 
   const int col = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
   const bool valid = col < S;
@@ -355,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_tiled_k
   // This block's row of partials: XᵀX, then (Xᵀ·best_act)ᵀ as [G, B].
   float* row = partials + static_cast<size_t>(blockIdx.x) * (B * B + G * B);
   for (int r0 = 0; r0 < B; r0 += kChunk)
-    tile_product(dmp_tile + r0 * kThreads, min(kChunk, B - r0), dmp_tile, B, row + r0 * B);
+    tile_moments<Bp>(dmp_tile + r0 * kThreads, min(kChunk, B - r0), dmp_tile, B, row + r0 * B);
   row += B * B;
 
   for (int t0 = 0; t0 < G; t0 += tile) {
@@ -372,31 +424,32 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decision_moments_tiled_k
       decide_chunk(tab, c0, rows, nt - 1, g0, D, Bp, v, S, s, valid, sp, dm, best_out,
                    best_tile);
       __syncthreads();
-      tile_product(best_tile, rows, dmp_tile, B, row + g0 * B);
+      tile_moments<Bp>(best_tile, rows, dmp_tile, B, row + g0 * B);
       __syncthreads();  // the tile is rewritten by the next chunk
     }
   }
 }
 
-// Dynamic shared memory of the wide route besides its records, in floats:
-// step t−1's design tile [B, kThreads], step t's design rows [Bp, kThreads]
-// (the decisions' SharedRow), and, after the records, the basis powers
-// [B, F + 1] int8 in whole words.
-__host__ __device__ inline size_t wide_fixed_words(int B, int F) {
-  return static_cast<size_t>(B + stt::padded_basis(B)) * kThreads +
+// Dynamic shared memory of kernel E's wide bodies besides their records, in
+// floats: step t−1's design tile [B, kThreads], on the shared row
+// (`smem_row`) step t's design rows [Bp, kThreads] too, and, after the
+// records, the basis powers [B, F + 1] int8 in whole words.
+__host__ __device__ inline size_t wide_fixed_words(int B, int F, bool smem_row) {
+  return static_cast<size_t>(B + (smem_row ? stt::padded_basis(B) : 0)) * kThreads +
          (static_cast<size_t>(B) * (F + 1) + 3) / 4;
 }
 
-// The wide route: kernel B's body for any basis size B and factor count F,
-// one kernel for both grid routes (tile >= G: all of a step's records at
+// The wide route's shared row: kernel B's body for any basis size B and
+// factor count F (past the register row's stt::kMaxWideRegB terms), one
+// kernel for both grid routes (tile >= G: all of a step's records at
 // once; else `tile` grid points at a time, as the tiled kernel).  The powers
 // come from device memory and are staged in shared memory; step t's design
 // rows go to shared memory beside step t−1's tile, one column a thread, in
 // place of RegisterRow; the gaps are read from them 4 terms at a time
 // (SharedRow), and the moments are summed a group of kSlices columns at a
-// time (tile_product_wide).  Every entry, gap, decision and sum is the
-// register route's arithmetic in its order: the same bits at any shape
-// both take.
+// time (tile_product_wide at run-time width).  Every entry, gap, decision and
+// sum is the register route's arithmetic in its order: the same bits at any
+// shape both take.
 __global__ void __launch_bounds__(kThreads, kWideMinBlocks) decision_moments_wide_kernel(
     int G, int tile, int S, int D, int B, int F, const int8_t* __restrict__ pows_g,
     const float* __restrict__ v, const float* __restrict__ spot,
@@ -415,15 +468,13 @@ __global__ void __launch_bounds__(kThreads, kWideMinBlocks) decision_moments_wid
   float* dmp_tile = smem;                         // [B, kThreads]: step t−1
   float* dm_tile = dmp_tile + B * kThreads;       // [Bp, kThreads]: step t
   float* tab = dm_tile + Bp * kThreads;           // [tile] records
-  int8_t* pows = reinterpret_cast<int8_t*>(tab + static_cast<size_t>(tile) * rec);
-  for (int i = tid; i < B * (F + 1); i += kThreads) pows[i] = pows_g[i];
+  const stt::WideBasis basis = staged({pows_g, B, F}, tab + static_cast<size_t>(tile) * rec);
   stt::load_records(tab, G, 0, min(tile, G), D, B, Bp, idx_lo_g, w_hi_g, dci_g, a_g, b_g);
   __syncthreads();  // the powers, before any design entry
 
   // The two steps' design rows, as design_rows builds them, into this
   // thread's column of the two tiles (no barrier between: its own column);
   // the columns past S compute on column S − 1 and count as zeros.
-  const stt::WideBasis basis{pows, B, F};
   const int col = static_cast<int>(blockIdx.x) * kThreads + tid;
   const bool valid = col < S;
   const int s = min(col, S - 1);
@@ -443,7 +494,8 @@ __global__ void __launch_bounds__(kThreads, kWideMinBlocks) decision_moments_wid
   // This block's row of partials: XᵀX, then (Xᵀ·best_act)ᵀ as [G, B].
   float* row = partials + static_cast<size_t>(blockIdx.x) * (B * B + G * B);
   for (int r0 = 0; r0 < B; r0 += kChunk)
-    tile_product_wide(dmp_tile + r0 * kThreads, min(kChunk, B - r0), dmp_tile, B, row + r0 * B);
+    tile_product_wide<0>(dmp_tile + r0 * kThreads, min(kChunk, B - r0), dmp_tile, B,
+                         row + r0 * B);
   row += B * B;
 
   for (int t0 = 0; t0 < G; t0 += tile) {
@@ -460,7 +512,7 @@ __global__ void __launch_bounds__(kThreads, kWideMinBlocks) decision_moments_wid
       decide_chunk(tab, c0, rows, nt - 1, g0, D, Bp, v, S, s, valid, sp, dm, best_out,
                    best_tile);
       __syncthreads();
-      tile_product_wide(best_tile, rows, dmp_tile, B, row + g0 * B);
+      tile_product_wide<0>(best_tile, rows, dmp_tile, B, row + g0 * B);
       __syncthreads();  // the tile is rewritten by the next chunk
     }
   }
@@ -493,17 +545,36 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partials, int nrows
 // its padded size Bp, whose records they read.
 struct MomentsKernels {
   decltype(&decision_moments_kernel<4>) shared;
-  decltype(&decision_moments_tiled_kernel<4>) tiled;
+  decltype(&decision_moments_tiled_kernel<4, stt::Basis>) tiled;
   int bp;
 };
 
 MomentsKernels moments_kernels(int B) {
   static_assert(stt::kMaxB == 16, "one case per padded basis size");
   switch (stt::padded_basis(B)) {
-    case 4: return {decision_moments_kernel<4>, decision_moments_tiled_kernel<4>, 4};
-    case 8: return {decision_moments_kernel<8>, decision_moments_tiled_kernel<8>, 8};
-    case 12: return {decision_moments_kernel<12>, decision_moments_tiled_kernel<12>, 12};
-    default: return {decision_moments_kernel<16>, decision_moments_tiled_kernel<16>, 16};
+    case 4: return {decision_moments_kernel<4>, decision_moments_tiled_kernel<4, stt::Basis>, 4};
+    case 8: return {decision_moments_kernel<8>, decision_moments_tiled_kernel<8, stt::Basis>, 8};
+    case 12: return {decision_moments_kernel<12>, decision_moments_tiled_kernel<12, stt::Basis>, 12};
+    default: return {decision_moments_kernel<16>, decision_moments_tiled_kernel<16, stt::Basis>, 16};
+  }
+}
+
+// Kernel E's wide route on the register row, compiled per padded basis size
+// up to stt::kMaxWideRegB (none beyond: the shared row's).
+using WideRegisterKernel = decltype(&decision_moments_tiled_kernel<4, stt::WideBasis>);
+
+WideRegisterKernel wide_register_kernel(int B) {
+  static_assert(stt::kMaxWideRegB == 32, "one case per padded basis size");
+  switch (stt::padded_basis(B)) {
+    case 4: return decision_moments_tiled_kernel<4, stt::WideBasis>;
+    case 8: return decision_moments_tiled_kernel<8, stt::WideBasis>;
+    case 12: return decision_moments_tiled_kernel<12, stt::WideBasis>;
+    case 16: return decision_moments_tiled_kernel<16, stt::WideBasis>;
+    case 20: return decision_moments_tiled_kernel<20, stt::WideBasis>;
+    case 24: return decision_moments_tiled_kernel<24, stt::WideBasis>;
+    case 28: return decision_moments_tiled_kernel<28, stt::WideBasis>;
+    case 32: return decision_moments_tiled_kernel<32, stt::WideBasis>;
+    default: return nullptr;
   }
 }
 
@@ -550,23 +621,35 @@ cudaError_t launch_decision_moments(
 }
 
 cudaError_t launch_decision_moments_wide(
-    int G, int tile, int S, int D, int B, int F, const int8_t* pows, const float* v,
-    const float* spot, const float* factors, const float* spot_prev, const float* factors_prev,
-    const float* mean, const float* stdv, const float* mean_prev, const float* std_prev,
-    const int* idx_lo, const float* w_hi, const float* dci, const float* a, const float* b,
-    float* best_out, float* partials, float* moments, cudaStream_t stream) {
-  if (tile < 1 || B < 1 || F < 0) return cudaErrorInvalidValue;
+    int G, int tile, int S, int D, int B, int F, bool smem_row, const int8_t* pows,
+    const float* v, const float* spot, const float* factors, const float* spot_prev,
+    const float* factors_prev, const float* mean, const float* stdv, const float* mean_prev,
+    const float* std_prev, const int* idx_lo, const float* w_hi, const float* dci,
+    const float* a, const float* b, float* best_out, float* partials, float* moments,
+    cudaStream_t stream) {
+  const WideRegisterKernel reg = smem_row ? nullptr : wide_register_kernel(B);
+  if (tile < 1 || B < 1 || F < 0 || (!smem_row && !reg)) return cudaErrorInvalidValue;
   tile = min(tile, G);
   const int nblk = (S + kThreads - 1) / kThreads;
   const size_t rec = stt::record_words(D, stt::padded_basis(B));
-  const size_t smem = sizeof(float) * (wide_fixed_words(B, F) + rec * tile);
-  cudaError_t err = cudaFuncSetAttribute(decision_moments_wide_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  decision_moments_wide_kernel<<<nblk, kThreads, smem, stream>>>(
-      G, tile, S, D, B, F, pows, v, spot, factors, spot_prev, factors_prev, mean, stdv,
-      mean_prev, std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
+  const size_t smem = sizeof(float) * (wide_fixed_words(B, F, smem_row) + rec * tile);
+  cudaError_t err;
+  if (smem_row) {
+    err = cudaFuncSetAttribute(decision_moments_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    decision_moments_wide_kernel<<<nblk, kThreads, smem, stream>>>(
+        G, tile, S, D, B, F, pows, v, spot, factors, spot_prev, factors_prev, mean, stdv,
+        mean_prev, std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
+  } else {
+    err = cudaFuncSetAttribute(reg, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    reg<<<nblk, kThreads, smem, stream>>>(
+        G, tile, S, D, WideBasis{pows, B, F}, v, spot, factors, spot_prev, factors_prev, mean,
+        stdv, mean_prev, std_prev, idx_lo, w_hi, dci, a, b, best_out, partials);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int ncols = B * B + G * B;
@@ -616,13 +699,20 @@ extern "C" int stt_decision_update_moments_info(int G, int D, int B, int large, 
                                 : stt::kernel_info(k.shared, kThreads, fixed, rec, G, out));
 }
 
-// The wide route's launch report at (G, D, B, F) on the current device: with
-// all G grid points' records (its max_grid is the largest G, or tile, that
-// fits), the shared route at G or the large route at a tile of G (one
-// kernel).
-extern "C" int stt_decision_update_moments_wide_info(int G, int D, int B, int F, int* out) {
-  if (G < 0 || D < 1 || B < 1 || F < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(stt::kernel_info(decision_moments_wide_kernel, kThreads,
-                                           wide_fixed_words(B, F),
-                                           stt::record_words(D, stt::padded_basis(B)), G, out));
+// The wide route's launch report at (G, D, B, F) on the current device, of
+// its register row (smem_row 0, up to stt::kMaxWideRegB terms) or its shared
+// row: with all G grid points' records (its max_grid is the largest G, or
+// tile, that fits), the shared route at G or the large route at a tile of G
+// (one kernel).
+extern "C" int stt_decision_update_moments_wide_info(int G, int D, int B, int F, int smem_row,
+                                                     int* out) {
+  const WideRegisterKernel reg = smem_row ? nullptr : wide_register_kernel(B);
+  if (G < 0 || D < 1 || B < 1 || F < 0 || (!smem_row && !reg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t fixed = wide_fixed_words(B, F, smem_row);
+  const size_t rec = stt::record_words(D, stt::padded_basis(B));
+  return static_cast<int>(smem_row
+                              ? stt::kernel_info(decision_moments_wide_kernel, kThreads, fixed,
+                                                 rec, G, out)
+                              : stt::kernel_info(reg, kThreads, fixed, rec, G, out));
 }

@@ -61,9 +61,10 @@ struct RegisterRow {
 };
 
 // The same row in shared memory, of a padded size bp known at run time
-// (kernel E's wide route): entry k at row[k·kStride], this thread's column
-// of a [bp, kStride] tile, zero beyond B.  The same products and sums in the
-// same order, 4 terms at a time, so the same gap to the bit.
+// (kernel E's wide route past its register row's kMaxWideRegB terms): entry
+// k at row[k·kStride], this thread's column of a [bp, kStride] tile, zero
+// beyond B.  The same products and sums in the same order, 4 terms at a
+// time, so the same gap to the bit.
 template <int kStride>
 struct SharedRow {
   const float* row;
@@ -177,12 +178,15 @@ cudaError_t launch_decision_moments(
 
 // The same for any basis size and factor count (kernel E's wide route): the
 // powers `pows` [B, F + 1] int8 in device memory, staged in each block's
-// shared memory, step t's design rows in shared memory beside step t−1's.
+// shared memory; step t's design row in registers (the register row, up to
+// kMaxWideRegB terms) or, with `smem_row`, in shared memory beside step
+// t−1's design tile (any B).
 cudaError_t launch_decision_moments_wide(
-    int G, int tile, int S, int D, int B, int F, const int8_t* pows, const float* v,
-    const float* spot, const float* factors, const float* spot_prev, const float* factors_prev,
-    const float* mean, const float* stdv, const float* mean_prev, const float* std_prev,
-    const int* idx_lo, const float* w_hi, const float* dci, const float* a, const float* b,
-    float* best_out, float* partials, float* moments, cudaStream_t stream);
+    int G, int tile, int S, int D, int B, int F, bool smem_row, const int8_t* pows,
+    const float* v, const float* spot, const float* factors, const float* spot_prev,
+    const float* factors_prev, const float* mean, const float* stdv, const float* mean_prev,
+    const float* std_prev, const int* idx_lo, const float* w_hi, const float* dci,
+    const float* a, const float* b, float* best_out, float* partials, float* moments,
+    cudaStream_t stream);
 
 }  // namespace stt

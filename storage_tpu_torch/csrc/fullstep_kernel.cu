@@ -33,12 +33,22 @@
 // (ops/decision_kernel.py fullstep_route).
 //
 // Past kernel B's register caps (16 terms, 8 factors: stt::kMaxB, kMaxF) the
-// wide route (stt_decision_update_fullstep_wide) runs the same solve with a
-// substitution vector of stt::kMaxWideB = 64 doubles a thread, on either grid
-// route, then kernel B's wide body (decision_moments_wide_kernel: the powers
-// staged from a device table, step t's design rows in shared memory); the
-// wrapper chooses it from B and F alone (ops/decision_kernel.py
-// fullstep_route).  Inside the caps the register route is unchanged.
+// wide route (stt_decision_update_fullstep_wide) runs the same solve, its
+// substitution vector sized to the basis (16, 32 or 64 doubles), on either
+// grid route, then one of kernel B's wide bodies (decision_kernel.cu): the
+// register row (the tiled kernel on the powers staged from a device table,
+// compiled per padded size up to stt::kMaxWideRegB = 32 terms) or, past it,
+// the shared row (decision_moments_wide_kernel, step t's design rows in
+// shared memory); the wrapper chooses from B and F alone
+// (ops/decision_kernel.py fullstep_route).  Inside the caps the register
+// route runs B's own kernels.
+//
+// The factor is formed a column at a time: thread 0 the pivot, then one
+// thread a row below it, each entry's sum over k in the serial order, two
+// barriers a column.  Up to 32 terms the substitutions are unrolled to the
+// compiled size, so that the vector stays in registers.  At 20 terms the
+// solve took 0.071 ms a step with one thread factoring and the vector in
+// local memory, 0.044 after (PERF.md).
 //
 // The factorisation and the substitutions run in double on the f32 system
 // and round the coefficients to f32 once: the [B, B] work is a few hundred
@@ -49,8 +59,8 @@
 //
 // Bound on the H100: device memory, as kernel B — v [G, S] read and best_act
 // written (210 MB at G=100, S=262,144) plus two steps' spot and factors, ~63 us
-// at 3.35 TB/s; the solve kernel adds one block's latency (a few us) and
-// replaces the ~25 small tensor launches of the glue.
+// at 3.35 TB/s; the solve kernel adds one block's latency (0.016–0.044 ms
+// at 13–20 terms) and replaces the ~25 small tensor launches of the glue.
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,12 +72,65 @@ namespace {
 
 constexpr int kSolveThreads = 256;
 
+// Forward then back substitution of one right-hand side x (entry i at
+// x[i·stride]) on the lower factor chol [B, B], the coefficients rounded to
+// f32 into c (entry i at c[i·stride]); returns whether one is not finite.
+// Up to 32 terms the loops are unrolled to kMaxY, so that the vector y stays
+// in registers; beyond, it is kMaxY doubles of local memory.  The same sums
+// in the same order either way.
+template <int kMaxY>
+__device__ __forceinline__ int substitute(int B, const double* chol, const float* x, int stride,
+                                          float* c) {
+  double y[kMaxY];
+  int nonfinite = 0;
+  if constexpr (kMaxY <= 32) {
+#pragma unroll
+    for (int i = 0; i < kMaxY; ++i) {
+      if (i < B) {
+        double acc = x[i * stride];
+#pragma unroll
+        for (int k = 0; k < i; ++k) acc -= chol[i * B + k] * y[k];
+        y[i] = acc / chol[i * B + i];
+      }
+    }
+#pragma unroll
+    for (int i = kMaxY - 1; i >= 0; --i) {
+      if (i < B) {
+        double acc = y[i];
+#pragma unroll
+        for (int k = i + 1; k < kMaxY; ++k)
+          if (k < B) acc -= chol[k * B + i] * y[k];
+        y[i] = acc / chol[i * B + i];
+        const float ci = static_cast<float>(y[i]);
+        c[i * stride] = ci;
+        nonfinite |= !isfinite(ci);
+      }
+    }
+  } else {
+    for (int i = 0; i < B; ++i) {
+      double acc = x[i * stride];
+      for (int k = 0; k < i; ++k) acc -= chol[i * B + k] * y[k];
+      y[i] = acc / chol[i * B + i];
+    }
+    for (int i = B - 1; i >= 0; --i) {
+      double acc = y[i];
+      for (int k = i + 1; k < B; ++k) acc -= chol[k * B + i] * y[k];
+      y[i] = acc / chol[i * B + i];
+      const float ci = static_cast<float>(y[i]);
+      c[i * stride] = ci;
+      nonfinite |= !isfinite(ci);
+    }
+  }
+  return nonfinite;
+}
+
 // The solve of right-hand sides [c0, c0 + nc) of the G: one block, c0 = 0
 // and nc = G (kSpread false: then also the fallback and dci), or block
 // blockIdx.x's columns of the large route (kSpread: the coefficients before
 // the fallback and the block's flag into `scratch`).  Each thread's
-// substitution vector holds kMaxY doubles: stt::kMaxB on the register route,
-// stt::kMaxWideB on the wide route (the most terms that route takes).
+// substitution vector holds kMaxY doubles (substitute): stt::kMaxB on the
+// register route, on the wide route stt::kMaxB, stt::kMaxWideRegB or
+// stt::kMaxWideB, the least that holds B.
 template <bool kSpread, int kMaxY>
 __global__ void fullstep_solve_kernel(
     int G, int D, int B, float ridge, const float* __restrict__ xtx_g,
@@ -118,51 +181,43 @@ __global__ void fullstep_solve_kernel(
   }
   __syncthreads();
 
-  // Trace-scaled ridge (f32, as fit_from_moments), then the Cholesky factor.
+  // Trace-scaled ridge (f32, as fit_from_moments).
   if (tid == 0) {
     float trace = m[0];
     for (int i = 1; i < B; ++i) trace = __fadd_rn(trace, m[i * B + i]);
     const float jitter = __fdiv_rn(__fmul_rn(trace, ridge), static_cast<float>(B));
     for (int i = 0; i < B; ++i) m[i * B + i] = __fadd_rn(m[i * B + i], jitter);
-    int bad = 0;
-    for (int j = 0; j < B && !bad; ++j) {
-      double ajj = m[j * B + j];
-      for (int k = 0; k < j; ++k) ajj -= chol[j * B + k] * chol[j * B + k];
-      if (!(ajj > 0.0)) {
-        bad = 1;  // not positive definite, or NaN
-        break;
-      }
-      const double ljj = sqrt(ajj);
-      chol[j * B + j] = ljj;
-      for (int i = j + 1; i < B; ++i) {
-        double aij = m[i * B + j];
-        for (int k = 0; k < j; ++k) aij -= chol[i * B + k] * chol[j * B + k];
-        chol[i * B + j] = aij / ljj;
-      }
-    }
-    *failed = bad;
   }
   __syncthreads();
+  // The Cholesky factor a column j at a time: its pivot by thread 0, then
+  // row j + 1 + tid of the column by thread tid, each entry's sum over k in
+  // order, as one thread forms it column by column.  A pivot that is not
+  // positive (or NaN) stops the factor: the fallback follows.
+  for (int j = 0; j < B; ++j) {
+    if (tid == 0) {
+      double ajj = m[j * B + j];
+      for (int k = 0; k < j; ++k) ajj -= chol[j * B + k] * chol[j * B + k];
+      if (ajj > 0.0)
+        chol[j * B + j] = sqrt(ajj);
+      else
+        *failed = 1;
+    }
+    __syncthreads();
+    if (*failed) break;
+    const int i = j + 1 + tid;
+    if (i < B) {
+      double aij = m[i * B + j];
+      for (int k = 0; k < j; ++k) aij -= chol[i * B + k] * chol[j * B + k];
+      chol[i * B + j] = aij / chol[j * B + j];
+    }
+    __syncthreads();
+  }
 
   // Forward then back substitution, one thread per right-hand side.
   int nonfinite = 0;
   if (!*failed) {
-    for (int g = tid; g < nc; g += blockDim.x) {
-      double y[kMaxY];
-      for (int i = 0; i < B; ++i) {
-        double acc = xs[i * nc + g];
-        for (int k = 0; k < i; ++k) acc -= chol[i * B + k] * y[k];
-        y[i] = acc / chol[i * B + i];
-      }
-      for (int i = B - 1; i >= 0; --i) {
-        double acc = y[i];
-        for (int k = i + 1; k < B; ++k) acc -= chol[k * B + i] * y[k];
-        y[i] = acc / chol[i * B + i];
-        const float c = static_cast<float>(y[i]);
-        coef[i * nc + g] = c;
-        nonfinite |= !isfinite(c);
-      }
-    }
+    for (int g = tid; g < nc; g += blockDim.x)
+      nonfinite |= substitute<kMaxY>(B, chol, xs + g, nc, coef + g);
   }
   const bool fallback = __syncthreads_or(nonfinite) || *failed;
   if constexpr (kSpread) {
@@ -329,21 +384,26 @@ extern "C" int stt_decision_update_fullstep(
 
 // Kernel E's wide route: any B up to stt::kMaxWideB and any F, the powers
 // `pows` [B, F + 1] int8 in device memory; the same regression (its solve
-// with a substitution vector of kMaxWideB doubles), then kernel B's wide
-// body (launch_decision_moments_wide) at `tile`.
+// with a substitution vector of the least of kMaxB, kMaxWideRegB and
+// kMaxWideB doubles that holds B), then kernel B's wide body
+// (launch_decision_moments_wide) at `tile`: the register row up to
+// stt::kMaxWideRegB terms, or with `smem_row` the shared row.
 extern "C" int stt_decision_update_fullstep_wide(
-    int G, int tile, int spread, int S, int F, int D, int B, const void* pows, float ridge,
-    const void* v, const void* spot, const void* factors, const void* spot_prev,
+    int G, int tile, int spread, int S, int F, int D, int B, int smem_row, const void* pows,
+    float ridge, const void* v, const void* spot, const void* factors, const void* spot_prev,
     const void* factors_prev, const void* xtx, const void* xty_t,
     const void* cmean, const void* cstd, const void* mean_prev,
     const void* std_prev, const void* idx_lo, const void* w_hi, const void* a,
     const void* b, void* best_out, void* mean_out, void* std_out,
     void* coeffs_out, void* dci, void* scratch, void* partials, void* moments, void* stream) {
   if (B < 1 || B > stt::kMaxWideB || F < 0 || !pows || G < 2 || D < 1 || S < 1 ||
-      (spread && !scratch))
+      (spread && !scratch) || (!smem_row && stt::padded_basis(B) > stt::kMaxWideRegB))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_solve<stt::kMaxWideB>(
+  const auto solve = B <= stt::kMaxB         ? launch_solve<stt::kMaxB>
+                     : B <= stt::kMaxWideRegB ? launch_solve<stt::kMaxWideRegB>
+                                              : launch_solve<stt::kMaxWideB>;
+  cudaError_t err = solve(
       G, D, B, spread, ridge, static_cast<const float*>(xtx),
       static_cast<const float*>(xty_t), static_cast<const float*>(cmean),
       static_cast<const float*>(cstd), static_cast<const int*>(idx_lo),
@@ -356,12 +416,12 @@ extern "C" int stt_decision_update_fullstep_wide(
   const float* sp = std_prev ? static_cast<const float*>(std_prev)
                              : static_cast<const float*>(std_out);
   return static_cast<int>(stt::launch_decision_moments_wide(
-      G, tile, S, D, B, F, static_cast<const int8_t*>(pows), static_cast<const float*>(v),
-      static_cast<const float*>(spot), static_cast<const float*>(factors),
-      static_cast<const float*>(spot_prev), static_cast<const float*>(factors_prev),
-      static_cast<const float*>(mean_out), static_cast<const float*>(std_out), mp, sp,
-      static_cast<const int*>(idx_lo), static_cast<const float*>(w_hi),
-      static_cast<const float*>(dci), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<float*>(best_out),
+      G, tile, S, D, B, F, smem_row != 0, static_cast<const int8_t*>(pows),
+      static_cast<const float*>(v), static_cast<const float*>(spot),
+      static_cast<const float*>(factors), static_cast<const float*>(spot_prev),
+      static_cast<const float*>(factors_prev), static_cast<const float*>(mean_out),
+      static_cast<const float*>(std_out), mp, sp, static_cast<const int*>(idx_lo),
+      static_cast<const float*>(w_hi), static_cast<const float*>(dci),
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(best_out),
       static_cast<float*>(partials), static_cast<float*>(moments), st));
 }

@@ -120,8 +120,10 @@ def fullstep_body(monomials, num_factors: int, group=None) -> str:
     """Kernel E's body for ``fullstep=True``, decided from the basis, the
     factor count and the group alone, before any allocation, simulation or
     launch, on every device: "register" within the monomial kernels' 16
-    terms and 8 factors, "wide" past either (up to
-    ``_build.MAX_WIDE_BASIS`` terms; ``decision_kernel.fullstep_wide``).
+    terms and 8 factors, past either "wide" (the design row in registers,
+    up to ``_build.MAX_WIDE_REGISTER_BASIS`` padded terms) or "wide-smem"
+    (in shared memory, up to ``_build.MAX_WIDE_BASIS`` terms;
+    ``decision_kernel.fullstep_body``).
     Raises ``ValueError`` where the full step does not run, as the JAX
     package's ``resolve_fullstep`` has it: spot-only panels and bases with a
     user callable (E builds a monomial design of factor panels on the
@@ -139,7 +141,7 @@ def fullstep_body(monomials, num_factors: int, group=None) -> str:
     if preduce.active(group) is not None:
         raise ValueError("fullstep runs on one device: kernel E solves each step from its own "
                          "moments, which a path-parallel group sums between steps")
-    return "wide" if decision_kernel.fullstep_wide(len(monomials), num_factors) else "register"
+    return decision_kernel.fullstep_body(len(monomials), num_factors)
 
 
 def grid_routes(num_grid: int, num_extra_decisions: int, monomials, num_factors: int,

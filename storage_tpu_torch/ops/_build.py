@@ -62,12 +62,13 @@ SIGNATURES = {
     ),
     # G, D, B, large route, out int[6] (kernel B's launch report)
     "stt_decision_update_moments_info": (_I, _I, _I, _I, _P),
-    # G (or a tile), D, B, F, out int[6] (kernel B's wide body's launch report)
-    "stt_decision_update_moments_wide_info": (_I, _I, _I, _I, _P),
+    # G (or a tile), D, B, F, shared row (else the register row), out int[6]
+    # (kernel B's wide body's launch report)
+    "stt_decision_update_moments_wide_info": (_I, _I, _I, _I, _I, _P),
     # G (a tile), D, B, out int[6] (kernel D's launch report)
     "stt_decision_update_info": (_I, _I, _I, _P),
-    # out int[3]: the most basis functions and factors a kernel takes, and
-    # the most basis functions of kernel E's wide route
+    # out int[4]: the most basis functions and factors a kernel takes, the
+    # most basis functions of kernel E's wide route and of its register row
     "stt_limits": (_P,),
     # out int[1]: the current device's shared memory a block can opt in to
     "stt_smem_limit": (_P,),
@@ -83,11 +84,11 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
-    # Kernel E's wide route: G, tile, spread solve, S, F, D, B, powers (a
-    # device int8 [B, F + 1]), ridge, then as stt_decision_update_fullstep
-    # from v
+    # Kernel E's wide route: G, tile, spread solve, S, F, D, B, shared row
+    # (else the register row), powers (a device int8 [B, F + 1]), ridge, then
+    # as stt_decision_update_fullstep from v
     "stt_decision_update_fullstep_wide": (
-        _I, _I, _I, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     # N, S, F, G, R, E, is_step, general grids, basis table, packed tables,
@@ -267,24 +268,27 @@ def check(rc: int, name: str) -> None:
 # kMaxB and kMaxF of csrc/common.cuh: the most basis functions and factors
 # that the kernels building a monomial design on the card in registers take
 # (B, E and C's monomial mode); kMaxWideB, the most basis functions of kernel
-# E's wide route, which takes any factor count past them.  The shape routes
+# E's wide route, which takes any factor count past them, and kMaxWideRegB,
+# the most (padded) that its register row takes.  The shape routes
 # (engines/lsmc.py design_in_memory, ops/decision_kernel.py fullstep_route)
 # read this copy, so they need no build and work on the CPU; chip_smoke.py
 # holds it to the built library's ``limits``.
 MAX_BASIS = 16
 MAX_FACTORS = 8
 MAX_WIDE_BASIS = 64
+MAX_WIDE_REGISTER_BASIS = 32
 
 
 @functools.lru_cache(maxsize=1)
 def limits() -> dict:
     """The most basis functions and factors the monomial kernels take
     (``kMaxB`` and ``kMaxF`` of ``csrc/common.cuh``) and the most basis
-    functions of kernel E's wide route (``kMaxWideB``), read from the built
-    library."""
-    out = (ctypes.c_int * 3)()
+    functions of kernel E's wide route (``kMaxWideB``) and of its register
+    row (``kMaxWideRegB``), read from the built library."""
+    out = (ctypes.c_int * 4)()
     check(library().stt_limits(out), "stt_limits")
-    return {"max_basis": out[0], "max_factors": out[1], "max_wide_basis": out[2]}
+    return {"max_basis": out[0], "max_factors": out[1], "max_wide_basis": out[2],
+            "max_wide_register_basis": out[3]}
 
 
 @functools.lru_cache(maxsize=16)

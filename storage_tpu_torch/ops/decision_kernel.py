@@ -53,11 +53,14 @@ shared route's tile is the whole grid).  B and E build the
 monomial design on the card.  B takes a basis and a factor count within the
 caps ``_build.MAX_BASIS`` and ``_build.MAX_FACTORS`` (16 and 8), raising
 ``ValueError`` beyond them.  E takes them on its register route and, past
-either cap, on its wide route (``fullstep_wide``: B's body with the powers
-staged from a device table and step t's design rows in shared memory, one
-kernel for both grid routes; up to ``_build.MAX_WIDE_BASIS`` terms on any
-factor count), chosen from B and F alone.  D reads the design and takes any
-basis, compiled per basis size up to 32 terms and on its wide route beyond.
+either cap, on its wide route (``fullstep_body``: B's body with the powers
+staged from a device table, one kernel for both grid routes, on any factor
+count: each sim's design row in registers up to
+``_build.MAX_WIDE_REGISTER_BASIS`` padded terms, the "wide" body, compiled
+per padded size; in shared memory beyond, up to ``_build.MAX_WIDE_BASIS``
+terms, the "wide-smem" body), chosen from B and F alone.  D reads the design
+and takes any basis, compiled per basis size up to 32 terms and on its wide
+route beyond.
 """
 from __future__ import annotations
 
@@ -138,16 +141,24 @@ class Route(tp.NamedTuple):
 
 class FullstepRoute(tp.NamedTuple):
     """Kernel E's route: its grid route and tile as ``Route``, and its body:
-    the register route (``wide`` False) or the wide route."""
+    kernel B's register kernels ("register", within 16 terms and 8 factors)
+    or, past either, the wide route's, its powers from a device table, each
+    sim's design row in registers ("wide", compiled per padded size up to
+    ``_build.MAX_WIDE_REGISTER_BASIS``) or in shared memory ("wide-smem")."""
     name: str
     tile: int
-    wide: bool
+    body: str
+
+    @property
+    def wide(self) -> bool:
+        """Whether the body is one of the wide route's."""
+        return self.body != "register"
 
 
 ROUTES = ("shared", "large")
-# Kernel E's grid routes on its wide body, which ``route=`` may force at any
-# shape.
-WIDE_ROUTES = ("wide-shared", "wide-large")
+# Kernel E's grid routes on a wide body, which ``route=`` may force at any
+# shape the body takes.
+WIDE_ROUTES = ("wide-shared", "wide-large", "wide-smem-shared", "wide-smem-large")
 # Grid points a tile of the large routes of kernels B and D (and E, which
 # launches B): tools/torch_grid_probe.py times tiles at G = 4,096.
 TILE_B = 32
@@ -171,10 +182,12 @@ _SOLVE_COLUMNS = 256
 
 # The blocks per SM kernel B's registers allow (the rest of a route's
 # blocks per SM is ``_build.blocks_per_sm``'s): capped for kMinBlocks = 9
-# blocks (csrc/decision_kernel.cu), on both routes, and for kWideMinBlocks
-# on the wide body; kernel D's are ``update_reg_blocks``.
+# blocks (csrc/decision_kernel.cu), on both routes, for kWideRegMinBlocks on
+# the wide register row (by padded B: up to 16, past 16) and for
+# kWideMinBlocks on the shared row; kernel D's are ``update_reg_blocks``.
 _B_REG_BLOCKS = 9
-_WIDE_REG_BLOCKS = 8
+_WIDE_REG_BLOCKS = (8, 6)
+_WIDE_SMEM_REG_BLOCKS = 8
 
 
 def padded_basis(bdim: int) -> int:
@@ -287,80 +300,111 @@ def solve_max_grid(bdim: int, smem_limit: int) -> int:
     return (smem_limit - 8 * bdim * bdim - 4 * (bdim * bdim + 2 * bdim) - 4) // (8 * bdim)
 
 
-def fullstep_wide(bdim: int, num_factors: int) -> bool:
-    """Kernel E's body, from the basis size and the factor count alone:
-    True (the wide route) past ``_build.MAX_BASIS`` terms or
-    ``_build.MAX_FACTORS`` factors, False (the register route) within
-    both.  Not a fallback: nothing is tried first."""
-    return bdim > _build.MAX_BASIS or num_factors > _build.MAX_FACTORS
+def wide_body(bdim: int) -> str:
+    """The wide route's body for B terms: "wide" (the design row in
+    registers) while B padded to whole float4s is at most
+    ``_build.MAX_WIDE_REGISTER_BASIS``, else "wide-smem"."""
+    return "wide" if padded_basis(bdim) <= _build.MAX_WIDE_REGISTER_BASIS else "wide-smem"
 
 
-def wide_fixed_words(bdim: int, num_factors: int) -> int:
-    """The wide body's shared words besides its records and its static
-    best_act tile: step t−1's design tile [B, 128], step t's design rows
-    [Bp, 128] and the powers [B, F + 1] int8 in whole words
-    (csrc/decision_kernel.cu wide_fixed_words)."""
-    return (bdim + padded_basis(bdim)) * _B_SIMS + -(-bdim * (num_factors + 1) // 4)
+def fullstep_body(bdim: int, num_factors: int) -> str:
+    """Kernel E's body from the basis size and the factor count alone:
+    "register" within ``_build.MAX_BASIS`` terms and ``_build.MAX_FACTORS``
+    factors, else the wide route's (``wide_body``).  Not a fallback:
+    nothing is tried first."""
+    if bdim <= _build.MAX_BASIS and num_factors <= _build.MAX_FACTORS:
+        return "register"
+    return wide_body(bdim)
 
 
-def wide_blocks_per_sm(g: int, d: int, bdim: int, num_factors: int, smem_limit: int) -> int:
-    """Blocks per SM of the wide body holding G grid points' records: its
-    shared route at G, its large route at a tile of G (one kernel)."""
-    smem = 4 * _B_CHUNK * _B_SIMS + 4 * (wide_fixed_words(bdim, num_factors)
+def wide_reg_blocks(bdim: int, body: str) -> int:
+    """The blocks per SM a wide body's registers are capped for
+    (``__launch_bounds__``): kWideRegMinBlocks by padded B on the register
+    row, kWideMinBlocks on the shared row (csrc/decision_kernel.cu)."""
+    if body == "wide-smem":
+        return _WIDE_SMEM_REG_BLOCKS
+    return _WIDE_REG_BLOCKS[0 if padded_basis(bdim) <= 16 else 1]
+
+
+def wide_fixed_words(bdim: int, num_factors: int, body: str) -> int:
+    """A wide body's shared words besides its records and its static
+    best_act tile: step t−1's design tile [B, 128], on the shared row also
+    step t's design rows [Bp, 128], and the powers [B, F + 1] int8 in whole
+    words (csrc/decision_kernel.cu wide_fixed_words)."""
+    rows = bdim + (padded_basis(bdim) if body == "wide-smem" else 0)
+    return rows * _B_SIMS + -(-bdim * (num_factors + 1) // 4)
+
+
+def wide_blocks_per_sm(g: int, d: int, bdim: int, num_factors: int, smem_limit: int,
+                       body: tp.Optional[str] = None) -> int:
+    """Blocks per SM of a wide body (``wide_body``'s by default) holding G
+    grid points' records: its shared route at G, its large route at a tile
+    of G (one kernel)."""
+    body = body or wide_body(bdim)
+    smem = 4 * _B_CHUNK * _B_SIMS + 4 * (wide_fixed_words(bdim, num_factors, body)
                                          + g * record_words(d, bdim))
-    return _build.blocks_per_sm(smem, _B_SIMS, _WIDE_REG_BLOCKS, smem_limit)
+    return _build.blocks_per_sm(smem, _B_SIMS, wide_reg_blocks(bdim, body), smem_limit)
 
 
-def wide_max_grid(d: int, bdim: int, num_factors: int, smem_limit: int) -> int:
-    """The largest G (or tile) of the wide body under ``smem_limit`` bytes
-    of shared memory a block."""
-    return _fit(smem_limit, 4 * _B_CHUNK * _B_SIMS, wide_fixed_words(bdim, num_factors),
+def wide_max_grid(d: int, bdim: int, num_factors: int, smem_limit: int,
+                  body: tp.Optional[str] = None) -> int:
+    """The largest G (or tile) of a wide body (``wide_body``'s by default)
+    under ``smem_limit`` bytes of shared memory a block."""
+    return _fit(smem_limit, 4 * _B_CHUNK * _B_SIMS,
+                wide_fixed_words(bdim, num_factors, body or wide_body(bdim)),
                 record_words(d, bdim))
 
 
 def wide_route(g: int, d: int, bdim: int, num_factors: int, smem_limit: int,
-               route: tp.Optional[str] = None) -> Route:
-    """The wide body's grid route, as ``moments_route``: shared while G fits
+               route: tp.Optional[str] = None, body: tp.Optional[str] = None) -> Route:
+    """A wide body's grid route, as ``moments_route``: shared while G fits
     (``wide_max_grid``) and its blocks per SM are at least the large
     route's, else large, ``TILE_B`` grid points a tile."""
     def blocks(n):
-        return wide_blocks_per_sm(n, d, bdim, num_factors, smem_limit)
-    return _choose("decision_update_fullstep", g, wide_max_grid(d, bdim, num_factors, smem_limit),
-                   TILE_B, _B_CHUNK, route, blocks, blocks)
+        return wide_blocks_per_sm(n, d, bdim, num_factors, smem_limit, body)
+    return _choose("decision_update_fullstep", g,
+                   wide_max_grid(d, bdim, num_factors, smem_limit, body), TILE_B, _B_CHUNK,
+                   route, blocks, blocks)
 
 
 def fullstep_route(g: int, d: int, bdim: int, smem_limit: int, route: tp.Optional[str] = None,
                    num_factors: int = 0) -> FullstepRoute:
-    """Kernel E's route: its body from B and F (``fullstep_wide``; a route
-    of ``WIDE_ROUTES`` forces the wide one at any shape), then its grid
-    route: shared where its body's rule (``moments_route`` or ``wide_route``)
-    takes its shared route and the one-block solve fits, else large (the
-    body's large route and the solve spread over blocks).  The wide route
-    takes at most ``_build.MAX_WIDE_BASIS`` terms (``ValueError`` beyond)."""
+    """Kernel E's route: its body from B and F (``fullstep_body``; a route
+    of ``WIDE_ROUTES`` forces a wide one at any shape it takes), then its
+    grid route: shared where its body's rule (``moments_route`` or
+    ``wide_route``) takes its shared route and the one-block solve fits,
+    else large (the body's large route and the solve spread over blocks).
+    The wide route takes at most ``_build.MAX_WIDE_BASIS`` terms, its
+    register row ``_build.MAX_WIDE_REGISTER_BASIS`` padded (``ValueError``
+    beyond)."""
     if route is not None and route not in ROUTES + WIDE_ROUTES:
         raise ValueError(f"decision_update_fullstep: route must be one of "
                          f"{ROUTES + WIDE_ROUTES}, got {route!r}")
-    wide = route in WIDE_ROUTES or fullstep_wide(bdim, num_factors)
+    body = fullstep_body(bdim, num_factors)
     if route in WIDE_ROUTES:
-        route = route[len("wide-"):]
-    if wide and bdim > _build.MAX_WIDE_BASIS:
+        body, route = route.rsplit("-", 1)
+    if body != "register" and bdim > _build.MAX_WIDE_BASIS:
         raise ValueError(f"decision_update_fullstep: {bdim} basis functions; kernel E's wide "
                          f"route takes at most {_build.MAX_WIDE_BASIS} (csrc/common.cuh "
                          f"kMaxWideB, its solve's substitution vector)")
-    if wide:
-        body = functools.partial(wide_route, g, d, bdim, num_factors, smem_limit)
-        max_grid = wide_max_grid(d, bdim, num_factors, smem_limit)
-    else:
-        body = functools.partial(moments_route, g, d, bdim, smem_limit)
+    if body == "wide" and padded_basis(bdim) > _build.MAX_WIDE_REGISTER_BASIS:
+        raise ValueError(f"decision_update_fullstep: {bdim} basis functions; kernel E's wide "
+                         f"register row is compiled for at most "
+                         f"{_build.MAX_WIDE_REGISTER_BASIS} (csrc/common.cuh kMaxWideRegB)")
+    if body == "register":
+        grid = functools.partial(moments_route, g, d, bdim, smem_limit)
         max_grid = moments_max_grid(d, bdim, smem_limit)
+    else:
+        grid = functools.partial(wide_route, g, d, bdim, num_factors, smem_limit, body=body)
+        max_grid = wide_max_grid(d, bdim, num_factors, smem_limit, body)
     if route is None:
-        shared = g <= solve_max_grid(bdim, smem_limit) and body().name == "shared"
+        shared = g <= solve_max_grid(bdim, smem_limit) and grid().name == "shared"
         route = "shared" if shared else "large"
     if route == "large":
-        return FullstepRoute("large", body("large").tile, wide)
+        return FullstepRoute("large", grid(route="large").tile, body)
     fits = min(max_grid, solve_max_grid(bdim, smem_limit))
     return FullstepRoute(*_choose("decision_update_fullstep", g, fits, TILE_B, _B_CHUNK, route,
-                                  None, None), wide)
+                                  None, None), body)
 
 
 def _check_shapes(name: str, shapes) -> None:
@@ -383,10 +427,11 @@ def _kernel_info(entry: str, g: int, d: int, bdim: int, extra: tuple, device_ind
 
 
 def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device,
-                large: bool = False, num_factors: int = 0) -> dict:
+                large: bool = False, num_factors: int = 0, body: tp.Optional[str] = None) -> dict:
     """Launch report of kernel B (``"moments"``, also run by kernel E),
-    its wide body (``"wide"``, kernel E's wide route, at ``num_factors``
-    factors) or kernel D (``"update"``) at D decisions and B basis functions
+    a wide body (``"wide"``, kernel E's wide route, at ``num_factors``
+    factors: ``body``, ``wide_body``'s by default) or kernel D
+    (``"update"``) at D decisions and B basis functions
     on a CUDA device: B's shared route holding G grid points' records, or
     with ``large`` its large route at a tile of G; the wide body's one kernel
     and D's at a tile of G (``large`` is B's alone): sims per block, shared
@@ -395,7 +440,8 @@ def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device,
     per SM (0 where G does not fit) and registers per thread.  Kernel B takes
     B within its basis cap (``_build.MAX_BASIS``), the others any B."""
     entry, extra = {"moments": ("stt_decision_update_moments_info", (int(bool(large)),)),
-                    "wide": ("stt_decision_update_moments_wide_info", (int(num_factors),)),
+                    "wide": ("stt_decision_update_moments_wide_info",
+                             (int(num_factors), int((body or wide_body(bdim)) == "wide-smem"))),
                     "update": ("stt_decision_update_info", ())}[kernel]
     return _kernel_info(entry, g, d, bdim, extra, torch.device(device).index or 0)
 
@@ -655,10 +701,11 @@ def decision_update_fullstep(
     (mean, std, coeffs).  The route is ``fullstep_route``'s, its body from B
     and F (the register route within 16 terms and 8 factors, the wide route
     past either, up to ``_build.MAX_WIDE_BASIS`` terms) and its grid route
-    from G (``route`` forces one, ``WIDE_ROUTES`` the wide body at any
-    shape); ``large_launches`` counts the large grid route's launches, as
-    kernel B's wrapper does, and ``wide_launches`` the wide route's (each
-    counted in ``launches`` too)."""
+    from G (``route`` forces one, ``WIDE_ROUTES`` a wide body at any shape
+    it takes); ``large_launches`` counts the large grid route's launches, as
+    kernel B's wrapper does, ``wide_launches`` the wide route's and
+    ``wide_smem_launches`` those of its shared row (each counted in
+    ``launches`` too)."""
     if v.device.type == "cpu":
         result = decision_update_fullstep_plain(
             v, spot, factors, spot_prev, factors_prev, xtx, xty, cmean, cstd, idx_lo,
@@ -717,7 +764,8 @@ def decision_update_fullstep(
                           device=device) if large else None
     if plan.wide:
         entry = _build.library().stt_decision_update_fullstep_wide
-        basis = (bdim, _build.wide_basis_table(tuple(monomials), f, device).data_ptr())
+        basis = (bdim, int(plan.body == "wide-smem"),
+                 _build.wide_basis_table(tuple(monomials), f, device).data_ptr())
     else:
         entry = _build.library().stt_decision_update_fullstep
         basis = (_build.basis_table(tuple(monomials), f),)
@@ -733,6 +781,7 @@ def decision_update_fullstep(
     decision_update_fullstep.launches += 1
     decision_update_fullstep.large_launches += large
     decision_update_fullstep.wide_launches += plan.wide
+    decision_update_fullstep.wide_smem_launches += plan.body == "wide-smem"
     _build.check(rc, "decision_update_fullstep")
     return (out, *_split_moments(moments, g, bdim), mean, std, coeffs)
 
@@ -740,3 +789,4 @@ def decision_update_fullstep(
 decision_update_fullstep.launches = 0
 decision_update_fullstep.large_launches = 0
 decision_update_fullstep.wide_launches = 0  # those of the wide route, counted in launches too
+decision_update_fullstep.wide_smem_launches = 0  # those of its shared row, also in wide_launches

@@ -558,21 +558,27 @@ def test_decision_update_fullstep_wide(device, b, f, g):
     against its plain version: the regression to 1e-4 relative (as
     ``test_decision_update_fullstep``), the step to kernel B's plain version
     on E's own regression (per-path values to f32 rounding, the moments in
-    another order), both grid routes forced (the shared one where G fits it)
-    to the same bits, the rule's route counted."""
+    another order), both grid routes of each wide body that takes the shape
+    forced (the shared one where G fits it) to the same bits: the register
+    row up to 32 padded terms and the shared row; the rule's body and route
+    counted."""
     fe = decision_kernel.decision_update_fullstep
     fargs, prev = _wide_fullstep_args(device, g, 1000, 3, b, f)
     v, spot, factors, spot_prev, factors_prev, _, _, _, _, idx_lo, w_hi, a, b_, mono = fargs
-    plan = decision_kernel.fullstep_route(g, 3, b, _build.smem_limit(device), num_factors=f)
-    assert plan.wide
-    before = (fe.launches, fe.wide_launches, fe.large_launches)
-    got = [t.clone() for t in fe(*fargs, **prev)]
-    assert (fe.launches, fe.wide_launches, fe.large_launches) == (
-        before[0] + 1, before[1] + 1, before[2] + (plan.name == "large"))
     limit = _build.smem_limit(device)
-    fits = min(decision_kernel.wide_max_grid(3, b, f, limit), decision_kernel.solve_max_grid(b, limit))
-    for route in ("shared", "large") if g <= fits else ("large",):
-        assert all(torch.equal(x, y) for x, y in zip(got, fe(*fargs, **prev, route=route)))
+    plan = decision_kernel.fullstep_route(g, 3, b, limit, num_factors=f)
+    assert plan.body == ("wide" if b <= 32 else "wide-smem")
+    before = (fe.launches, fe.wide_launches, fe.wide_smem_launches, fe.large_launches)
+    got = [t.clone() for t in fe(*fargs, **prev)]
+    assert (fe.launches, fe.wide_launches, fe.wide_smem_launches, fe.large_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (plan.body == "wide-smem"),
+        before[3] + (plan.name == "large"))
+    for body in ("wide", "wide-smem") if b <= 32 else ("wide-smem",):
+        fits = min(decision_kernel.wide_max_grid(3, b, f, limit, body),
+                   decision_kernel.solve_max_grid(b, limit))
+        for route in ("shared", "large") if g <= fits else ("large",):
+            forced = fe(*fargs, **prev, route=f"{body}-{route}")
+            assert all(torch.equal(x, y) for x, y in zip(got, forced)), (body, route)
     want = decision_kernel.decision_update_fullstep_plain(*fargs, **prev)
     for k in (3, 4, 5):  # mean, std, coeffs
         torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4 * float(want[k].abs().max()))
@@ -588,10 +594,11 @@ def test_decision_update_fullstep_wide(device, b, f, g):
 
 @pytest.mark.parametrize("g", [100, 1000])
 def test_fullstep_forced_wide_keeps_the_register_bits(device, g):
-    """At the headline's B = 9, F = 3 kernel E forced onto its wide route
-    (``route="wide-shared"``, ``"wide-large"``) gives its register route's
-    bits on each grid route: the same entries, gaps, decisions and sums in
-    the same order."""
+    """At the headline's B = 9, F = 3 kernel E forced onto each wide body
+    (the register row, ``route="wide-shared"``, ``"wide-large"``, and the
+    shared row, ``"wide-smem-shared"``, ``"wide-smem-large"``) gives its
+    register route's bits on each grid route: the same entries, gaps,
+    decisions and sums in the same order."""
     fe = decision_kernel.decision_update_fullstep
     args = _decision_args(device, g, 1_037, 3, 3, basis=BASIS_9)
     v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, _, a, b, \
@@ -602,26 +609,33 @@ def test_fullstep_forced_wide_keeps_the_register_bits(device, g):
     prev = dict(mean_prev=mean_p, std_prev=std_p)
     for route in ("shared", "large"):
         register = [t.clone() for t in fe(*fargs, **prev, route=route)]
-        wide = fe.wide_launches
-        forced = fe(*fargs, **prev, route=f"wide-{route}")
-        assert fe.wide_launches == wide + 1
-        assert all(torch.equal(x, y) for x, y in zip(register, forced)), route
+        for body in ("wide", "wide-smem"):
+            wide, smem = fe.wide_launches, fe.wide_smem_launches
+            forced = fe(*fargs, **prev, route=f"{body}-{route}")
+            assert (fe.wide_launches, fe.wide_smem_launches) == (
+                wide + 1, smem + (body == "wide-smem"))
+            assert all(torch.equal(x, y) for x, y in zip(register, forced)), (body, route)
 
 
 def test_wide_route_sizing_matches_kernel_info(device):
-    """The wide body's Python sizing (``wide_max_grid``,
+    """Each wide body's Python sizing (``wide_max_grid``,
     ``wide_blocks_per_sm``: its shared words and its register cap) is its
-    launch report's on this card, on both sides of the rule's crossing."""
+    launch report's on this card, on both sides of the rule's crossing and
+    of each register cap's padded sizes."""
     limit = _build.smem_limit(device)
-    for b, f in ((17, 3), (20, 3), (13, 10), (32, 12), (64, 3)):
-        info = decision_kernel.kernel_info("wide", 100, 3, b, device, num_factors=f)
-        assert info["max_grid"] == decision_kernel.wide_max_grid(3, b, f, limit), (b, f)
-        last = max(g for g in range(2, 2_000) if decision_kernel.fullstep_route(
-            g, 3, b, limit, num_factors=f).name == "shared")
-        for g in (decision_kernel.TILE_B, 100, last, last + 1, 400):
-            info = decision_kernel.kernel_info("wide", g, 3, b, device, num_factors=f)
-            assert info["blocks_per_sm"] == decision_kernel.wide_blocks_per_sm(
-                g, 3, b, f, limit), (b, f, g)
+    for b, f in ((17, 3), (20, 3), (24, 3), (25, 3), (13, 10), (16, 9), (32, 12), (64, 3)):
+        for body in ("wide", "wide-smem") if b <= 32 else ("wide-smem",):
+            info = decision_kernel.kernel_info("wide", 100, 3, b, device, num_factors=f,
+                                               body=body)
+            assert info["max_grid"] == decision_kernel.wide_max_grid(3, b, f, limit, body), (
+                b, f, body)
+            last = max(g for g in range(2, 2_000) if decision_kernel.wide_route(
+                g, 3, b, f, limit, body=body).name == "shared")
+            for g in (decision_kernel.TILE_B, 100, last, last + 1, 400):
+                info = decision_kernel.kernel_info("wide", g, 3, b, device, num_factors=f,
+                                                   body=body)
+                assert info["blocks_per_sm"] == decision_kernel.wide_blocks_per_sm(
+                    g, 3, b, f, limit, body), (b, f, g, body)
 
 
 @pytest.mark.parametrize("g", [11, 400, 1000])
@@ -908,17 +922,30 @@ def _general_rows(params, g, kind):
 
 @pytest.mark.parametrize("kind,g", [("padded", 1_000), ("custom", 100), ("bunched", 100),
                                     ("degenerate", 13), ("custom", 2), ("custom", 3),
-                                    ("custom", 4_096)])
+                                    ("custom", 4_096), ("non-monotone", 100)])
 def test_general_tail_kernel_gives_its_plain_bits(device, kind, g):
     """The index kernel (``general_tail``: one block a row) writes its plain
-    version's words, bit for bit, alone and into a packed table's columns."""
+    version's words, bit for bit, alone and into a packed table's columns.
+    On rows that are not non-decreasing (a descending row, a row with one
+    step back: no valuation builds them, and their counts are not defined)
+    it keeps the row and its scale and every count within [0, G − 2], so
+    that a search reads inside the row; the non-decreasing rows beside them
+    keep their plain bits."""
     args = _sweep_args(device, 5, 8, g, 3)
-    grid = _general_rows(args[0], g, kind)
+    grid = _general_rows(args[0], g, "custom" if kind == "non-monotone" else kind)
+    bad = 0
+    if kind == "non-monotone":
+        grid[0] = grid[0].flip(0)
+        grid[1, 7] = grid[1, 6] - 1.0
+        bad = 2
     before = forward_kernel.general_tail.launches
     got = forward_kernel.general_tail(grid)
     assert forward_kernel.general_tail.launches == before + 1
     want = forward_kernel.general_tail_plain(grid)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[bad:].view(torch.int32), want[bad:].view(torch.int32))
+    assert torch.equal(got[:, :g + 1].view(torch.int32), want[:, :g + 1].view(torch.int32))
+    counts = got[:, g + 1:].contiguous().view(torch.int32)
+    assert int(counts.min()) >= 0 and int(counts.max()) <= g - 2
     table = torch.zeros((5, got.shape[1] + 7), device=device)
     forward_kernel.general_tail(grid, out=table[:, 3:3 + got.shape[1]])
     assert torch.equal(table[:, 3:3 + got.shape[1]].view(torch.int32), got.view(torch.int32))

@@ -11,8 +11,11 @@
   two-pass stats from its carried moments, so the two valuations agree to
   f64 rounding (``RTOL``, the tolerance of tests/test_torch_lsmc.py).
 * The route, from shapes alone, before any simulation or launch: E's wide
-  route past either cap, its register route within both; spot-only panels,
-  generic bases and a group of two still raise ``ValueError``.
+  route past either cap (its register row up to 32 padded terms, its shared
+  row beyond), its register route within both; spot-only panels, generic
+  bases and a group of two still raise ``ValueError``; the wide bodies'
+  sizing (``wide_reg_blocks``, ``wide_fixed_words``, ``wide_blocks_per_sm``)
+  against its formula on both sides of each crossing.
 
 The wide route itself runs on the card (tests/test_torch_cuda_kernels.py,
 ``chip_smoke.py``); on the CPU the wrapper takes the plain version.
@@ -222,19 +225,69 @@ def _streamed_fullstep(monkeypatch, monomials, factors, group=None):
     return bodies
 
 
+H100_SMEM = 232_448  # an H100's shared memory a block (opt-in)
+
+
 @pytest.mark.parametrize("terms,factors,body", [
-    (20, 3, "wide"), (17, 8, "wide"), (16, 9, "wide"), (13, 10, "wide"), (16, 8, "register")])
+    (20, 3, "wide"), (17, 8, "wide"), (16, 9, "wide"), (13, 10, "wide"), (16, 8, "register"),
+    (14, 12, "wide"), (29, 3, "wide"), (32, 12, "wide"), (33, 3, "wide-smem"),
+    (64, 10, "wide-smem")])
 def test_fullstep_route_by_shape(monkeypatch, terms, factors, body):
     """Kernel E's body from the basis size and the factor count alone: the
-    wide route past 16 terms or 8 factors, the register route within both,
-    chosen before anything is simulated or launched; the wrapper's rule
-    (``fullstep_route``) takes the same body at any grid."""
+    wide route past 16 terms or 8 factors, on its register row while the
+    basis padded to whole float4s is at most 32 terms and its shared row
+    beyond, the register route within both, chosen before anything is
+    simulated or launched; the wrapper's rule (``fullstep_route``) takes the
+    same body at any grid."""
     monomials = _basis(terms, factors)
     assert _streamed_fullstep(monkeypatch, monomials, factors) == [body]
-    assert decision_kernel.fullstep_wide(terms, factors) is (body == "wide")
+    assert decision_kernel.fullstep_body(terms, factors) == body
     for g in (100, 1_000):
-        plan = decision_kernel.fullstep_route(g, 3, terms, 232_448, num_factors=factors)
-        assert plan.wide is (body == "wide")
+        plan = decision_kernel.fullstep_route(g, 3, terms, H100_SMEM, num_factors=factors)
+        assert (plan.body, plan.wide) == (body, body != "register")
+
+
+@pytest.mark.parametrize("terms,route,body", [
+    (9, "wide-large", "wide"), (9, "wide-smem-shared", "wide-smem"), (32, "wide-shared", "wide"),
+    (33, "wide-large", None), (64, "wide-smem-large", "wide-smem"), (65, "wide-smem-large", None)])
+def test_fullstep_forced_body(terms, route, body):
+    """A route of ``WIDE_ROUTES`` forces its wide body at any shape the body
+    takes, and its grid route; past the register row's 32 padded terms, or
+    the shared row's 64, forcing raises ``ValueError``: no body stands in
+    for another."""
+    if body is None:
+        with pytest.raises(ValueError, match="at most"):
+            decision_kernel.fullstep_route(100, 3, terms, H100_SMEM, route=route, num_factors=3)
+        return
+    plan = decision_kernel.fullstep_route(100, 3, terms, H100_SMEM, route=route, num_factors=3)
+    assert (plan.body, plan.name) == (body, route.rsplit("-", 1)[1])
+
+
+@pytest.mark.parametrize("terms,factors", [(13, 10), (16, 9), (17, 3), (20, 3), (24, 12), (25, 3),
+                                           (28, 3), (32, 12), (33, 3), (36, 12)])
+def test_wide_sizing_matches_its_formula(terms, factors):
+    """The wide bodies' Python sizing (the copy of csrc/decision_kernel.cu
+    that the route reads) against its formula on both sides of each
+    crossing: registers capped for 8 blocks per SM up to 16 padded terms and
+    6 past them on the register row, 8 on the shared row; shared
+    words of step t−1's design tile [B, 128] (the shared row also step t's
+    rows [Bp, 128]) and the powers in whole words; blocks per SM the least
+    of those the registers, the shared memory (each block's rounded up to
+    128 bytes, 1 KB reserved a block) and the threads allow."""
+    bp = -(-terms // 4) * 4
+    body = decision_kernel.wide_body(terms)
+    assert body == ("wide" if bp <= 32 else "wide-smem")
+    regs = {"wide-smem": 8}.get(body, 8 if bp <= 16 else 6)
+    assert decision_kernel.wide_reg_blocks(terms, body) == regs
+    words = (terms + (bp if body == "wide-smem" else 0)) * 128 + -(-terms * (factors + 1) // 4)
+    assert decision_kernel.wide_fixed_words(terms, factors, body) == words
+    record = 4 + 2 * (4 + bp)  # D = 3
+    for g in (decision_kernel.TILE_B, 100):
+        smem = 4 * 8 * 128 + 4 * (words + g * record)
+        want = min(regs, (H100_SMEM + 1024) // (-(-smem // 128) * 128 + 1024), 2048 // 128)
+        assert decision_kernel.wide_blocks_per_sm(g, 3, terms, factors, H100_SMEM) == want
+    fits = (H100_SMEM - 4 * 8 * 128) // 4 - words
+    assert decision_kernel.wide_max_grid(3, terms, factors, H100_SMEM) == fits // record
 
 
 @pytest.mark.parametrize("case", ["spot-only", "generic", "group-of-two", "65-terms"])

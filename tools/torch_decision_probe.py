@@ -27,17 +27,33 @@ bits (timing-only variants excepted).  The report goes to
 ``build/decision_probe/decision_probe.json``.
 
 With ``--wide`` it times kernel E's wide route instead (past kernel B's
-register caps: B's wide body after E's solve), built with its registers
-capped for each of ``WIDE_MIN_BLOCKS`` blocks per SM (``kWideMinBlocks``
-patched in ``decision_kernel.cu``, compiled with ``fullstep_kernel.cu`` and
-``common.cu``), at S=262,144 and step t = 180 of the caps phase's two
-valuations (``chip_smoke.wide_step_args``: 20 terms on the headline's 3
-factors, 13 terms on the 10-factor model) at G = 100 (the shared route) and
-G = 1,000 (the large route), each also forced onto the other grid route
-where G fits it: registers, spills, blocks per SM, ms, every output held to
-the first variant's bits (``build/decision_probe/wide_probe.json``).
+register caps: E's solve, then a wide body) at step t = 180 of the caps
+phase's two valuations (``chip_smoke.wide_step_args``: 20 terms on the
+headline's 3 factors and 13 terms on the 10-factor model, at G = 100 with
+S = 262,144 and G = 1,000 with S = 65,536) and at 32 terms on the first
+one's paths (G = 100): on the rule's route, each grid route forced where G
+fits it and, where the checkout has it, the shared row forced
+(``"wide-smem-large"``), with CUDA events (the mean of ``--repeats`` calls
+after a warm-up), each of E's kernels' own device time a call on the
+rule's route (solve, interpolation, body, reduce; torch.profiler), blocks
+per SM, shared memory and registers (``kernel_info``) and a SHA-256 digest
+of every output, held to the first run's digest at each case.
+``--repo`` names the checkout to import (the tool's own by default): run
+it on a parent checkout and this one in turns (parent, change, change,
+parent) in one call to compare times and digests.  ``--variants`` builds
+text-patched variants of the checkout's ``decision_kernel.cu`` (with its
+``fullstep_kernel.cu`` and ``common.cu``) into
+``build/decision_probe/<variant>/`` and times each in place of the
+checkout's library (``WIDE_VARIANTS``; a variant whose anchor the checkout
+lacks is skipped): the shared row's register cap (``wide_cap<n>``) and,
+on that body, the moments compiled out (``wide_noprod``, timing only) or
+step t's row copied into registers (``wide_regrow``, ``wide_regrow16``,
+at 20 and 13 terms: the same bits); the register row's caps
+(``regcap<n>``, every padded size).  The report goes to
+``build/decision_probe/wide_probe_<checkout>.json``.
 
-    python3 tools/torch_decision_probe.py [--repeats 20] [--wide]
+    python3 tools/torch_decision_probe.py [--repeats 20]
+    python3 tools/torch_decision_probe.py --wide [--repo build/parent] [--variants regcap6 regcap8]
 """
 from __future__ import annotations
 
@@ -50,6 +66,8 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
+if "--repo" in sys.argv:  # the checkout whose package the probe imports and patches
+    REPO = Path(sys.argv[sys.argv.index("--repo") + 1]).resolve()
 CSRC = REPO / "storage_tpu_torch" / "csrc"
 OUT = REPO / "build" / "decision_probe"
 SOURCE = "decision_kernel.cu"
@@ -127,60 +145,136 @@ def build_all():
     return libs, ptxas, skipped
 
 
-# Kernel E's wide route: its body's register cap, in blocks per SM.
+# Kernel E's wide route.  Variants of decision_kernel.cu for it: (patches,
+# the bases (terms) whose cases the variant runs, whether its outputs must
+# keep the checkout's bits).  A patch is (regex, replacement), the regex
+# found exactly once.
 _N_WIDE_BLOCKS = r"constexpr int kWideMinBlocks = \d+;"
-WIDE_MIN_BLOCKS = (2, 3, 4, 5, 6, 8)
+_N_WIDE_PROD = r"\n      tile_product_wide\(best_tile, rows, dmp_tile, B, row \+ g0 \* B\);\n"
+_N_WIDE_ROW = r"  const stt::SharedRow<kThreads> dm\{dm_tile \+ tid, Bp\};\n"
+_N_WIDE_REG_BLOCKS = r"constexpr int kWideRegMinBlocks\[2\] = \{[\d, ]+\};"
+
+
+def _register_row(bp: int) -> str:
+    """The shared row's entries copied into a register row of bp terms (the
+    probed case's padded size: the same gaps, so the same bits)."""
+    return (f"  stt::RegisterRow<{bp}> dm;\n#pragma unroll\n  for (int k = 0; k < {bp}; ++k) "
+            f"dm.dm[k] = dm_tile[k * kThreads + tid];\n")
+
+
+WIDE_VARIANTS = {
+    "wide": ([], None, True),
+    # The shared-row body: the moments' products compiled out (timing
+    # only), or the row of step t in registers.
+    "wide_noprod": ([(_N_WIDE_PROD, "\n")], None, False),
+    "wide_regrow": ([(_N_WIDE_ROW, _register_row(20))], (20,), True),
+    "wide_regrow16": ([(_N_WIDE_ROW, _register_row(16))], (13,), True),
+    **{f"wide_cap{n}": ([(_N_WIDE_BLOCKS, f"constexpr int kWideMinBlocks = {n};")], None, True)
+       for n in (4, 5, 6, 7, 8)},
+    # The register row's cap (kWideRegMinBlocks, every padded size at once).
+    **{f"regcap{n}": ([(_N_WIDE_REG_BLOCKS, f"constexpr int kWideRegMinBlocks[2] = {{{n}, {n}}};")],
+                      None, True) for n in (4, 5, 6, 7, 8, 9)},
+}
 WIDE_SOURCES = ("decision_kernel.cu", "fullstep_kernel.cu", "common.cu")
+# Kernel E's wide kernels, by the fragment of their mangled names.
+WIDE_KERNELS = ("fullstep_solve_kernel", "fullstep_interp_kernel", "decision_moments_wide",
+                "decision_moments_tiled_kernel", "reduce_rows_kernel")
 
 
-def build_wide():
-    """One library a register cap of the wide body (``WIDE_MIN_BLOCKS``),
-    all built at once: {blocks: (library, ptxas report)}."""
+def wide_patched(name: str) -> str | None:
+    text = (CSRC / SOURCE).read_text()
+    for anchor, repl in WIDE_VARIANTS[name][0]:
+        if len(re.findall(anchor, text)) != 1:
+            return None
+        text = re.sub(anchor, lambda _m, r=repl: r, text)
+    return text
+
+
+def build_wide(names):
+    """One library a variant of ``WIDE_VARIANTS`` (a variant whose anchor
+    the checkout lacks is skipped), all built at once: ({name: (library,
+    ptxas report)}, [skipped])."""
     from storage_tpu_torch.ops import _build
 
-    text = (CSRC / SOURCE).read_text()
-    if len(re.findall(_N_WIDE_BLOCKS, text)) != 1:
-        raise RuntimeError(f"{SOURCE} lacks the anchor {_N_WIDE_BLOCKS!r}")
     nvcc = _build.find_nvcc()
-    procs = {}
-    for blocks in WIDE_MIN_BLOCKS:
-        d = OUT / f"wide_{blocks}"
+    procs, skipped = {}, []
+    for name in names:
+        text = wide_patched(name)
+        if text is None:
+            skipped.append(name)
+            continue
+        d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / SOURCE).write_text(re.sub(_N_WIDE_BLOCKS,
-                                       f"constexpr int kWideMinBlocks = {blocks};", text))
-        srcs = [d / SOURCE] + [CSRC / name for name in WIDE_SOURCES[1:]]
-        procs[blocks] = subprocess.Popen(
+        (d / SOURCE).write_text(text)
+        srcs = [d / SOURCE] + [CSRC / n for n in WIDE_SOURCES[1:]]
+        procs[name] = subprocess.Popen(
             [nvcc, *_build.COMPILE_FLAGS, "-shared", "-I", str(CSRC), "-o", str(d / "lib.so"),
              *map(str, srcs)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    for blocks, proc in procs.items():
+    for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on kWideMinBlocks = {blocks}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(OUT / f"wide_{blocks}" / "lib.so"))
+            raise RuntimeError(f"nvcc failed on {name}:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         for fn in ("stt_decision_update_fullstep_wide", "stt_decision_update_moments_wide_info",
                    "stt_smem_limit"):
             getattr(lib, fn).argtypes = list(_build.SIGNATURES[fn])
             getattr(lib, fn).restype = ctypes.c_int
-        libs[blocks] = (lib, ptxas_kernels(log))
-    return libs
+        libs[name] = (lib, ptxas_kernels(log))
+    return libs, skipped
 
 
-def wide_main(repeats: int) -> int:
+def device_split(fn, calls: int) -> dict:
+    """Own device ms a call of each of kernel E's kernels in ``calls`` calls
+    of ``fn`` under torch.profiler (``WIDE_KERNELS``), and the launches the
+    profiler saw a call: below 1 where it dropped events, and the ms with
+    them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for frag in WIDE_KERNELS:
+            if frag in e.key:
+                ms, n = out.get(frag, (0.0, 0))
+                out[frag] = (ms + e.self_device_time_total / 1e3 / calls, n + e.count / calls)
+    return {k: dict(ms=ms, launches=n) for k, (ms, n) in out.items()}
+
+
+def digest(outputs) -> str:
+    """SHA-256 of the bytes of every output, in order (16 hex digits)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in outputs:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+WIDE_CASES = ((20, 3, 100), (20, 3, 1_000), (13, 10, 100), (13, 10, 1_000), (32, 3, 100))
+
+
+def wide_cases(device):
+    """{(B, F, G): (args, prev)} of kernel E at step t = 180 of the caps
+    phase's two valuations (``chip_smoke.wide_step_args``), and at 32 terms
+    on the first one's paths: S=262,144 at G=100, 65,536 at G=1,000."""
     import torch
 
-    sys.path.insert(0, str(REPO))
     import chip_smoke
     import storage_tpu_torch as pkg
     from storage_tpu_torch.basis import parse_basis_functions
     from storage_tpu_torch.engines import lsmc as engine
     from storage_tpu_torch.models import spot_sim
-    from storage_tpu_torch.ops import _build, decision_kernel
 
-    device = torch.device("cuda", 0)
-    card = chip_smoke.card_line()
-    print(card, flush=True)
-    libs = build_wide()
     with engine.full_f32_matmul():
         st = chip_smoke.backward_step_inputs(pkg, device)
     inputs = st.inputs
@@ -190,52 +284,97 @@ def wide_main(repeats: int) -> int:
     _, sim10 = chip_smoke.ten_factor_inputs(pkg, device)
     sims = {3: st.sims, chip_smoke.TEN_FACTORS: spot_sim.simulate_ou_paths(
         spot_sim.key_from_seed(11), torch.arange(chip_smoke.NUM_SIMS, device=device), *sim10)}
+    # 32 terms: the first of the full cubic in the spot and the 3 factors.
+    bases = {20: chip_smoke.BASIS_20, 13: chip_smoke.BASIS_10F,
+             32: " + ".join(chip_smoke.full_cubic_basis().split(" + ")[:32])}
+    cases = {}
+    for b, f, g in WIDE_CASES:
+        mono = tuple(parse_basis_functions(bases[b]))
+        s = chip_smoke.NUM_SIMS if g == 100 else chip_smoke.BIG_SIMS
+        with engine.full_f32_matmul():
+            cases[b, f, g] = chip_smoke.wide_step_args(device, mono, sims[f], arrays[g], st.t, s,
+                                                       seed=5 + g)
+    return cases
+
+
+def wide_main(repeats: int, names) -> int:
+    """Kernel E's wide route at ``WIDE_CASES``: the checkout's own library
+    (``names`` empty), or text-patched variants of its decision_kernel.cu."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from storage_tpu_torch.ops import _build, decision_kernel
+
+    device = torch.device("cuda", 0)
+    card = chip_smoke.card_line()
+    print(f"{card}\ncheckout {REPO}", flush=True)
+    if names:
+        libs, skipped = build_wide(names)
+        for name in skipped:
+            print(f"{name}: skipped (its anchor is not in {SOURCE})", flush=True)
+    else:
+        libs = {"checkout": (_build.library(), None)}
+    cases = wide_cases(device)
     fe = decision_kernel.decision_update_fullstep
     library = _build.library
-    rows = []
+    smem = _build.smem_limit(device)
+    rows, ref = [], {}
     try:
-        for basis, f in ((chip_smoke.BASIS_20, 3), (chip_smoke.BASIS_10F, chip_smoke.TEN_FACTORS)):
-            mono = tuple(parse_basis_functions(basis))
-            for g in (100, 1_000):
-                with engine.full_f32_matmul():
-                    args, prev = chip_smoke.wide_step_args(device, mono, sims[f], arrays[g],
-                                                           st.t, chip_smoke.NUM_SIMS, seed=5)
-                smem = _build.smem_limit(device)
-                fits = min(decision_kernel.wide_max_grid(3, len(mono), f, smem),
-                           decision_kernel.solve_max_grid(len(mono), smem))
-                out, ref = torch.empty_like(args[0]), None
-                for route in ("shared", "large") if g <= fits else ("large",):
-                    plan = decision_kernel.fullstep_route(g, 3, len(mono), smem, route=route,
-                                                          num_factors=f)
-                    for blocks, (lib, ptxas) in libs.items():
-                        _build.library = lambda lib=lib: lib
-                        got = [t.clone() for t in fe(*args, **prev, out=out, route=route)]
-                        ref = ref or got
-                        same = all(torch.equal(x, y) for x, y in zip(got, ref))
-                        ms = chip_smoke.cuda_ms(lambda: fe(*args, **prev, out=out, route=route),
-                                                repeats)
-                        info = (ctypes.c_int * 6)()
-                        _build.check(lib.stt_decision_update_moments_wide_info(
-                            plan.tile, 3, len(mono), f, info), "wide info")
-                        regs, spill = next(r for k, r in ptxas.items()
-                                           if "decision_moments_wide_kernel" in k)
-                        row = dict(B=len(mono), F=f, G=g, route=plan.name, tile=plan.tile,
-                                   min_blocks=blocks, blocks_per_sm=info[4], smem_bytes=info[1],
-                                   registers=regs, ptxas_spill_bytes=spill, ms=ms,
-                                   outputs_equal_to_first=same)
-                        rows.append(row)
-                        print(f"B={len(mono):2d} F={f:2d} G={g:5d} {plan.name:6s} kWideMinBlocks "
-                              f"{blocks}: blocks/SM {info[4]:2d}  smem {info[1]:6d} B  regs "
-                              f"{regs:3d}  spill {spill:3d} B  {ms:.4f} ms  outputs as the "
-                              f"first: {same}", flush=True)
-                        if not same:
-                            raise AssertionError(f"kWideMinBlocks = {blocks} on the {route} route "
-                                                 f"parts from the bits")
-                del args, prev, out, ref
+        for (b, f, g), (args, prev) in cases.items():
+            fits = min(decision_kernel.wide_max_grid(3, b, f, smem),
+                       decision_kernel.solve_max_grid(b, smem))
+            out = torch.empty_like(args[0])
+            routes = (None, "shared", "large") if g <= fits else (None,)
+            # The shared row forced, where the checkout has it beside the
+            # register row.
+            if "wide-smem-large" in getattr(decision_kernel, "WIDE_ROUTES", ()):
+                routes += ("wide-smem-large",)
+            for route in routes:
+                plan = decision_kernel.fullstep_route(g, 3, b, smem, route=route, num_factors=f)
+                for name, (lib, ptxas) in libs.items():
+                    cases_of = WIDE_VARIANTS[name][1] if name in WIDE_VARIANTS else None
+                    if cases_of is not None and b not in cases_of:
+                        continue
+                    _build.library = lambda lib=lib: lib
+                    decision_kernel._kernel_info.cache_clear()
+                    call = (lambda r_=route: fe(*args, **prev, out=out, route=r_))
+                    got = digest(call())
+                    same = ref.setdefault((b, f, g), got) == got
+                    ms = chip_smoke.cuda_ms(call, repeats)
+                    split = device_split(call, repeats) if route is None else {}
+                    row = dict(variant=name, B=b, F=f, G=g, S=args[0].shape[1],
+                               route=route or "rule", grid_route=plan.name, tile=plan.tile,
+                               body=getattr(plan, "body", "wide" if plan.wide else "register"),
+                               ms=ms, split=split, digest=got, same_bits_as_first=same)
+                    if ptxas is not None:
+                        regs = {k: r for k, r in ptxas.items() if "decision_moments" in k}
+                        row["ptxas_body"] = regs
+                    body = {"body": row["body"]} if hasattr(plan, "body") else {}
+                    info = decision_kernel.kernel_info("wide", plan.tile, 3, b, device,
+                                                       num_factors=f, **body)
+                    row.update(blocks_per_sm=info["blocks_per_sm"],
+                               smem_bytes=info["smem_bytes"], registers=info["registers"])
+                    rows.append(row)
+                    parts = "  ".join(f"{k} {v['ms']:.4f} ms x{v['launches']:.2f}"
+                                      for k, v in split.items())
+                    print(f"{name:14s} B={b:2d} F={f:2d} G={g:5d} {row['route']:6s} "
+                          f"{plan.name:6s} body {row['body']:10s} blocks/SM "
+                          f"{row.get('blocks_per_sm', '-')}  regs {row.get('registers', '-')}  "
+                          f"{ms:.4f} ms  digest {got}  same bits: {same}"
+                          + (f"\n    own device time a call: {parts}" if parts else ""),
+                          flush=True)
+                    keep = WIDE_VARIANTS[name][2] if name in WIDE_VARIANTS else True
+                    if keep and not same:
+                        raise AssertionError(f"{name} at B={b}, F={f}, G={g}, route {route} "
+                                             f"parts from the bits")
+            del out
     finally:
         _build.library = library
-    report = dict(card=card, kind=torch.cuda.get_device_name(0), rows=rows)
-    (OUT / "wide_probe.json").write_text(json.dumps(report, indent=1))
+        decision_kernel._kernel_info.cache_clear()
+    report = dict(card=card, kind=torch.cuda.get_device_name(0), checkout=str(REPO), rows=rows)
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / f"wide_probe_{REPO.name or 'repo'}.json").write_text(json.dumps(report, indent=1))
     print(card)
     return 0
 
@@ -244,12 +383,15 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=20)
     ap.add_argument("--wide", action="store_true",
-                    help="time kernel E's wide route over its register caps")
+                    help="time kernel E's wide route (WIDE_CASES)")
+    ap.add_argument("--variants", nargs="*", default=(), choices=list(WIDE_VARIANTS),
+                    help="with --wide, variants of decision_kernel.cu to build and time")
+    ap.add_argument("--repo", default=str(REPO), help="the checkout to import and patch")
     args = ap.parse_args(argv[1:])
     import torch
 
     if args.wide and torch.cuda.is_available():
-        return wide_main(args.repeats)
+        return wide_main(args.repeats, args.variants)
 
     if not torch.cuda.is_available():
         print("decision probe: no CUDA device", file=sys.stderr)

@@ -70,7 +70,8 @@ rows, the four per-sim panels), and whether they are the unpatched
 kernel's.  ``--repo`` (repeatable) names the checkouts, this one by
 default; with ``--turns`` and two checkouts A B the unpatched sweeps run A,
 B, B, A.  ``--general-index`` also times ``general_tail`` (the wrapper's
-bucket index) alone; ``--smoke-digests`` prints each checkout's SHA-256
+bucket index) alone, by events and by its own device time under
+torch.profiler, beside one batched ``torch.searchsorted`` timed both ways; ``--smoke-digests`` prints each checkout's SHA-256
 digests of ``chip_smoke.c_digest_cases`` (the parent's go into
 ``chip_smoke.C_DIGESTS``).  The report goes to
 ``build/forward_probe/forward_probe.json``.
@@ -464,11 +465,36 @@ def sweep_call(fk, case, panels=None):
 
 
 def general_index_ms(fk, cases, repeats):
-    """The wrapper's bucket index (``general_tail``) alone on each general case's rows."""
+    """The wrapper's bucket index (``general_tail``) alone on each general
+    case's rows, beside one batched ``torch.searchsorted`` of the rows'
+    interior nodes against their bucket edges (``chip_smoke.bucket_edges``):
+    {case: ms by CUDA events around each call (the host's rate where a
+    call's Python outlasts its kernel), and each one's own device time a
+    call (``chip_smoke.kernel_busy_ms`` over ``repeats`` calls)}."""
+    import torch
+
+    import chip_smoke
+
     if not hasattr(fk, "general_tail"):
         return {}
-    return {name: event_ms(lambda grid=case[3]: fk.general_tail(grid), repeats)
-            for name, case in cases.items() if case[3] is not None}
+    out = {}
+    for name, case in cases.items():
+        grid = case[3]
+        if grid is None:
+            continue
+        nodes, edges = chip_smoke.bucket_edges(grid)
+        kernel = lambda grid=grid: fk.general_tail(grid)  # noqa: E731
+        library = lambda: torch.searchsorted(nodes, edges)  # noqa: E731
+        own, n = chip_smoke.kernel_busy_ms(lambda: [kernel() for _ in range(repeats)],
+                                           "general_tail")
+        lib_own, lib_n = chip_smoke.kernel_busy_ms(lambda: [library() for _ in range(repeats)],
+                                                   "searchsorted")
+        out[name] = dict(ms=event_ms(kernel, repeats), own_ms=own / max(n, 1), launches=n,
+                         library_ms=event_ms(library, repeats),
+                         library_own_ms=lib_own / max(lib_n, 1), library_launches=lib_n,
+                         rows=tuple(grid.shape))
+        del nodes, edges
+    return out
 
 
 def main(argv) -> int:
@@ -574,10 +600,13 @@ def main(argv) -> int:
                       f"{ms:9.4f} ms  {got[:16]}  as unpatched: {same}", flush=True)
                 torch.cuda.empty_cache()
             if args.general_index and name == "sweep":
-                for case_name, ms in general_index_ms(fk, cases, args.repeats).items():
+                for case_name, r in general_index_ms(fk, cases, args.repeats).items():
                     rows.append(dict(turn=turn, checkout=tag, variant="general_tail",
-                                     case=case_name, ms=ms))
-                    print(f"{tag:16s} general_tail       {case_name:19s} {ms:9.4f} ms",
+                                     case=case_name, **r))
+                    print(f"{tag:16s} general_tail       {case_name:19s} {r['rows']}: events "
+                          f"{r['ms']:.4f} ms, own {r['own_ms']:.5f} ms ({r['launches']} "
+                          f"launches); torch.searchsorted events {r['library_ms']:.4f} ms, own "
+                          f"{r['library_own_ms']:.5f} ms ({r['library_launches']} launches)",
                           flush=True)
     smoke = {}
     if args.smoke_digests:
