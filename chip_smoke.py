@@ -396,6 +396,13 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
     # its solve, then B's wide body (decision_kernel.cu).
     "decision_update_fullstep_wide": ("storage_tpu_torch/csrc/fullstep_kernel.cu",
                                       "storage_tpu/ops/decision_kernel.py:712"),
+    # Kernel B and kernel C's monomial mode past their register caps (16
+    # terms, 8 factors): B's wide body without E's solve, C's wide route (the
+    # caps phase's valuations).
+    "decision_update_moments_wide": ("storage_tpu_torch/csrc/decision_kernel.cu",
+                                     "storage_tpu/ops/decision_kernel.py:381"),
+    "forward_sweep_wide": ("storage_tpu_torch/csrc/forward_kernel.cu",
+                           "storage_tpu/ops/forward_kernel.py:372"),
     "forward_sweep_large": ("storage_tpu_torch/csrc/forward_kernel_large.cu",
                             "storage_tpu/ops/forward_kernel.py:372"),
     "forward_sweep_design_large": ("storage_tpu_torch/csrc/forward_kernel_large.cu",
@@ -1266,14 +1273,14 @@ CROSS_SUM_BLOCK_SLOTS = 2
 WARP_SUM_SLOTS = 12
 
 
-def forward_issue(b, d, r, design: bool, general: bool, large: bool) -> tuple:
+def forward_issue(b, d, r, design: bool, general: bool, large: bool, f: int = 3) -> tuple:
     """(issue slots that are not integer arithmetic, integer operations) of
-    kernel C a sim and step: the staged values' cp.async, the design row,
-    the ratchet rates, the bang-bang set, D decisions (placing each target,
-    its continuation's two rows: 2B loads from shared memory, or on the large
-    route 2·ceil(B/4) 16-byte loads) and an add a sim for each of the 6 + B
-    cross-sim sums."""
-    staged = b if design else 3
+    kernel C a sim and step: the staged values' cp.async (B in design mode,
+    else the F factors), the design row, the ratchet rates, the bang-bang
+    set, D decisions (placing each target, its continuation's two rows: 2B
+    loads from shared memory, or on the large route 2·ceil(B/4) 16-byte
+    loads) and an add a sim for each of the 6 + B cross-sim sums."""
+    staged = b if design else f
     slots = 1 + staged + BANG_BANG_SLOTS + 3 * r + 2 + (r - 1) * RATCHET_SEGMENT_SLOTS
     ints = 2 * (1 + staged)
     if design:
@@ -1316,17 +1323,19 @@ def forward_work(n, s, f, b, g, r, d, panels: bool, design: bool = False,
     staged = b if design else f
     num_bytes = 4.0 * ((1 + staged) * n * s + 3 * s + n * width
                        + n * (forward_kernel.NUM_SUMS + b) + (4 * n * s if panels else 0))
-    slots, ints = forward_issue(b, d, r, design, general, large)
+    slots, ints = forward_issue(b, d, r, design, general, large, f)
     blocks = -(-s // 256)
     slots = float(n) * (s * slots + blocks * (6 + b) * CROSS_SUM_BLOCK_SLOTS)
     return num_bytes, 0.0, slots, float(n) * s * ints
 
 
-def forward_sweep_inputs(pkg, device, st, monomials=None):
+def forward_sweep_inputs(pkg, device, st, monomials=None, sims=None, sim_in=None):
     """The main path's forward sweep: the headline facility's tables, the
     regression of a backward pass over the regression paths of ``st`` and the
     valuation paths (seed 13); ``forward_sweep``'s arguments.  ``monomials``
-    in place of the headline's basis, where given."""
+    in place of the headline's basis, and ``sims`` (regression paths) and
+    ``sim_in`` (the OU tables of the valuation paths) in place of the
+    headline model's, where given."""
     import torch
 
     from storage_tpu_torch.engines import lsmc as engine
@@ -1334,10 +1343,12 @@ def forward_sweep_inputs(pkg, device, st, monomials=None):
     from storage_tpu_torch.ops import forward_kernel
 
     arrays, monomials, n = st.arrays, monomials or st.monomials, NUM_STEPS
+    sims = sims or st.sims
     tfn = st.inputs.compiled.terminal_value
-    _, regression = engine.lsmc_backward(arrays, st.sims.spot, st.sims.factors, monomials, 0, tfn,
+    _, regression = engine.lsmc_backward(arrays, sims.spot, sims.factors, monomials, 0, tfn,
                                          False, snap_interp=True)
-    _, sim_in, _, _ = engine_inputs(pkg, device)
+    if sim_in is None:
+        _, sim_in, _, _ = engine_inputs(pkg, device)
     val = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(13),
                                      torch.arange(NUM_SIMS, device=device), *sim_in)
     step = {k: arrays[k] for k in engine._SCALARS}
@@ -2363,10 +2374,11 @@ def wide_step_args(device, monomials, sims, arrays, t: int, s: int, seed: int):
     return args, dict(mean_prev=mean[0], std_prev=std[0])
 
 
-def check_fullstep_wide(pkg, device, st) -> dict:
+def check_fullstep_wide(pkg, device, st, ten) -> dict:
     """Kernel E's wide route (past 16 terms or 8 factors) on the paths of
     the caps phase's two valuations at step t = 180: ``BASIS_20`` on the
-    headline's 3-factor paths and ``BASIS_10F`` on the 10-factor model's,
+    headline's 3-factor paths and ``BASIS_10F`` on the 10-factor model's
+    (``ten``, its regression paths),
     each at G=100 (S=262,144; the rule's grid route, and the other forced to
     its bits) and G=1,000 (S=65,536, the large route), against its plain
     version (``compare_e``: the regression within 1e-4 relative, argmax
@@ -2381,7 +2393,6 @@ def check_fullstep_wide(pkg, device, st) -> dict:
 
     from storage_tpu_torch.basis import parse_basis_functions
     from storage_tpu_torch.engines import lsmc as engine
-    from storage_tpu_torch.models import spot_sim
     from storage_tpu_torch.ops import _build, decision_kernel
 
     limit = _build.smem_limit(device)
@@ -2394,12 +2405,7 @@ def check_fullstep_wide(pkg, device, st) -> dict:
     for label, basis, f in (("b20f3", BASIS_20, 3), ("b13f10", BASIS_10F, TEN_FACTORS)):
         mono = tuple(parse_basis_functions(basis))
         b = len(mono)
-        if f == 3:
-            sims = st.sims
-        else:
-            _, sim_in = ten_factor_inputs(pkg, device)
-            sims = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11),
-                                              torch.arange(NUM_SIMS, device=device), *sim_in)
+        sims = st.sims if f == 3 else ten
         for g, s in ((NUM_GRID, NUM_SIMS), (BIG_GRID, BIG_SIMS)):
             args, prev = wide_step_args(device, mono, sims, arrays[g], st.t, s, seed=5 + g)
             plan = decision_kernel.fullstep_route(g, 3, b, limit, num_factors=f)
@@ -2510,15 +2516,187 @@ def check_fullstep_wide(pkg, device, st) -> dict:
     return out, dict(crossings=crossings, ptxas=ptx, forced_b9_same_bits=forced)
 
 
+def check_moments_wide(device, st, ten) -> dict:
+    """Kernel B's wide body without E's solve (``decision_update_moments``
+    past 16 terms or 8 factors) at step t = 180 of the caps phase's two
+    valuations' paths, G=100, S=262,144, D=3: ``BASIS_20`` on the headline's
+    3-factor paths and ``BASIS_10F`` on the 10-factor model's (``ten``), on
+    the moments of the step's design standardised by its exact stats
+    against random values, the coefficients their regression's
+    (``fit_from_moments``), as the engine hands them over.  Each against its
+    plain version (``compare_b``: best_act beyond f32 rounding only on
+    argmax flips at near-ties, the moments within 1e-4 relative, the same
+    bits over two launches), its launches counted (all, wide, shared row,
+    large), the other grid route and the other row forced to its bits,
+    timed beside its bound (``decision_work(..., moments=True)``) with the
+    launch report of the wide body."""
+    import torch
+
+    from storage_tpu_torch.basis import parse_basis_functions
+    from storage_tpu_torch.ops import _build, decision_kernel, interp
+    from storage_tpu_torch.ops.regression import fit_from_moments
+
+    limit = _build.smem_limit(device)
+    fm = decision_kernel.decision_update_moments
+    out = {}
+    for label, basis, f in (("b20f3", BASIS_20, 3), ("b13f10", BASIS_10F, TEN_FACTORS)):
+        mono = tuple(parse_basis_functions(basis))
+        b, g, s = len(mono), NUM_GRID, NUM_SIMS
+        args_e, prev = wide_step_args(device, mono, st.sims if f == 3 else ten, st.arrays, st.t,
+                                      s, seed=5 + f)
+        v, spot, factors, spot_p, factors_p, xtx, xty, mean, std, idx_lo, w_hi, a, b_, _ = args_e
+        ci = interp.interp_coeffs(fit_from_moments(xtx, xty), idx_lo, w_hi)
+        args = (v, spot, factors, spot_p, factors_p, mean, std, prev["mean_prev"],
+                prev["std_prev"], idx_lo, w_hi, ci, a, b_, mono)
+        del args_e, xtx, xty
+        plan = decision_kernel.moments_plan(g, 3, b, f, limit)
+        before = (fm.launches, fm.wide_launches, fm.wide_smem_launches, fm.large_launches)
+        rule_out = tuple(x.clone() for x in fm(*args))
+        counted = tuple(x - y for x, y in zip(
+            (fm.launches, fm.wide_launches, fm.wide_smem_launches, fm.large_launches), before))
+        cmp = compare_b(args)
+        other = {"shared": "large", "large": "shared"}[plan.name]
+        forced = {route: same_outputs(rule_out, fm(*args, route=route))
+                  for route in (other, f"wide-smem-{plan.name}")}
+        del rule_out
+        buf = torch.empty_like(v)
+        ms = cuda_ms(lambda: fm(*args, out=buf), 20)
+        plain_ms = cuda_ms(lambda: decision_kernel.decision_update_moments_plain(*args), 3)
+        bnd = bound(*decision_work(g, s, 3, b, f, moments=True))
+        info = decision_kernel.kernel_info("wide", plan.tile, 3, b, device, num_factors=f,
+                                           body=plan.body)
+        log(f"caps: kernel B decision_update_moments [G={g}, S={s}, D=3, B={b}, F={f}, wide "
+            f"body {plan.body}, {plan.name} (tile {plan.tile})]: {cmp['text']}; launches counted "
+            f"(all, wide, shared row, large) {counted}; forced onto {other} and onto the shared "
+            f"row, the same bits: {forced}; {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); {info['smem_bytes']} bytes of shared "
+            f"memory (G <= {info['max_grid']}), {info['blocks_per_sm']} blocks per SM, "
+            f"{info['registers']} registers")
+        if not cmp["ok"]:
+            raise AssertionError(f"kernel B's wide body at B={b}, F={f} disagrees with its plain "
+                                 f"version: {cmp['text']}")
+        if plan.body != "wide" or counted != (1, 1, 0, int(plan.name == "large")):
+            raise AssertionError(f"kernel B at B={b}, F={f} took {plan} (launches {counted}), not "
+                                 f"its wide register row")
+        if not all(forced.values()):
+            raise AssertionError(f"kernel B's wide body at B={b}, F={f} parts on a forced route: "
+                                 f"{forced}")
+        out[label] = dict(
+            B=b, F=f, G=g, S=s, body=plan.body, grid_route=plan.name, tile=plan.tile,
+            max_abs_err=cmp["max_abs_err"], flips=cmp["flips"],
+            unexplained_flips=cmp["unexplained_flips"],
+            moments_max_rel_err=cmp["moments_max_rel_err"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None,
+            smem_bytes=info["smem_bytes"], max_grid=info["max_grid"],
+            blocks_per_sm=info["blocks_per_sm"], registers=info["registers"])
+        del args, buf
+    return out
+
+
+def check_sweep_wide(device, label: str, args, f: int) -> dict:
+    """Kernel C's monomial mode on its wide route (past 16 terms or 8
+    factors) on a caps valuation's own backward tables and valuation paths
+    (``forward_sweep_inputs``; ``f`` factors), S=262,144, G=100: over all
+    365 steps on evenly spaced rows and over 64 steps on bunched rows (the
+    general-grid mode), each against its plain version (``compare_sweep``:
+    paths part only on near-ties) and forced onto its other grid route (the
+    same bits), timed beside its bound (``forward_work``), with its launch
+    report and the compiler's registers and spills; then against C's design
+    mode on the same paths and coefficients (``forward_sweep_generic``: the
+    design built on the card in 32-step chunks, 12 launches) to the bit,
+    and that pass's time, the design's build included."""
+    import torch
+
+    from storage_tpu_torch.ops import _build, forward_kernel
+
+    limit = _build.smem_limit(device)
+    fs = forward_kernel.forward_sweep
+    mono = args[11]
+    b, (n, s), g, r_ = len(mono), args[6].shape, args[10].shape[2], args[3].shape[1]
+    ng = min(64, n)
+    sub = (*(x[:ng] for x in args[:8]), args[8], args[9], args[10][:ng], *args[11:])
+    rows = bunched_rows(sub[0], g, g - 10)
+    out = {}
+    for mode, a_, grid, steps in (("uniform", args, None, n), ("general", sub, rows, ng)):
+        general = grid is not None
+        route = forward_kernel.sweep_route(g, b, r_, f, 0, limit, general=general)
+        panels = [torch.empty((steps, s), device=device) for _ in range(4)]
+        before = (fs.launches, fs.wide_launches, fs.large_launches)
+        got = fs(*a_, panels=panels, grid=grid)
+        counted = tuple(x - y for x, y in zip((fs.launches, fs.wide_launches, fs.large_launches),
+                                             before))
+        cmp = compare_sweep(a_, got=got, got_panels=panels, grid=grid)
+        other = {"shared": "large", "large": "shared"}[route]
+        panels_o = [torch.empty_like(p_) for p_ in panels]
+        forced = same_outputs((*got, *panels), (*fs(*a_, panels=panels_o, grid=grid, route=other),
+                                                *panels_o))
+        del panels_o
+        ms = cuda_ms(lambda: fs(*a_, grid=grid), 5)
+        plain_ms = cuda_ms(lambda: forward_kernel.forward_sweep_plain(*a_, grid=grid), 1)
+        bnd = bound(*forward_work(steps, s, f, b, g, r_, 3, panels=False, general=general,
+                                  large=route == "large"))
+        info = forward_kernel.kernel_info(g, b, r_, f, 0, device, general=general,
+                                          large=route == "large")
+        ptx = ptxas_report(forward_kernel.sass_name(0, general=general, large=route == "large"))
+        row = dict(B=b, F=f, N=steps, route=route, max_abs_err=cmp["max_abs_err"],
+                   flips=cmp["flips"], unexplained_flips=cmp["unexplained_flips"], ms=ms,
+                   plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                   library_ms=None, smem_bytes=info["smem_bytes"], max_grid=info["max_grid"],
+                   blocks_per_sm=info["blocks_per_sm"], registers=info["registers"], ptxas=ptx)
+        text = ""
+        if mode == "uniform":
+            # C's design mode on the same paths and coefficients: the design
+            # of the monomials built on the card a chunk of steps at a time.
+            def generic_sweep(panels=None):
+                return forward_kernel.forward_sweep_generic(*args[:9], args[10], mono, *args[12:],
+                                                            panels=panels)
+
+            panels_d = [torch.empty_like(p_) for p_ in panels]
+            design_launches = forward_kernel.forward_sweep_design.launches
+            design_same = same_outputs((*got, *panels), (*generic_sweep(panels_d), *panels_d))
+            design_launches = forward_kernel.forward_sweep_design.launches - design_launches
+            del panels_d
+            design_ms = cuda_ms(generic_sweep, 3)
+            row.update(design_mode_same_bits=design_same, design_mode_launches=design_launches,
+                       design_mode_ms=design_ms)
+            text = (f"; C's design mode on the same paths and coefficients ({design_launches} "
+                    f"launches, the design built on the card) the same bits: {design_same}, "
+                    f"{design_ms:.3f} ms a pass")
+        log(f"caps: kernel C forward_sweep [N={steps}, S={s}, G={g}, D=3, B={b}, F={f}, {mode} "
+            f"rows, monomial mode's wide route, {route}], {label}'s backward tables and valuation "
+            f"paths: {cmp['text']}; launches counted (all, wide, large) {counted}; forced onto "
+            f"{other}, the same bits: {forced}; {ms:.4f} ms a launch over all {steps} steps, plain "
+            f"{plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
+            f"{info['smem_bytes']} bytes of shared memory (G <= {info['max_grid']}), "
+            f"{info['blocks_per_sm']} blocks per SM, {info['registers']} registers, ptxas {ptx}"
+            + text)
+        if not cmp["ok"]:
+            raise AssertionError(f"kernel C's monomial wide route at B={b}, F={f} ({mode} rows) "
+                                 f"disagrees with its plain version: {cmp['text']}")
+        if counted != (1, 1, int(route == "large")) or not forced:
+            raise AssertionError(f"kernel C at B={b}, F={f} ({mode} rows): launches {counted} on "
+                                 f"{route}, or the forced {other} route parts: {forced}")
+        if mode == "uniform" and not design_same:
+            raise AssertionError(f"kernel C's monomial wide route at B={b}, F={f} parts from its "
+                                 f"design mode on the same paths and coefficients")
+        out[f"{label}_{mode}"] = row
+        del got, panels
+    return out
+
+
 def check_caps(pkg, device) -> dict:
-    """The kernels at the sizes beyond the monomial kernels' caps, on the
-    main path's shapes (S=262,144, G=100, D=3), each against its plain
-    version with the tolerances of its own check: kernel D at B=20 (compiled
-    per basis size) and B=36 (the wide route), the same bits; kernel C's
-    design mode at B=20 (its wide route) on the 20 terms' own backward
+    """The kernels at the sizes beyond the monomial kernels' register caps,
+    on the main path's shapes (S=262,144, G=100, D=3), each against its
+    plain version with the tolerances of its own check: kernel D at B=20
+    (compiled per basis size) and B=36 (the wide route), the same bits;
+    kernel E's wide route and kernel B's wide body at 20 terms on 3 factors
+    and 13 on 10 (``check_fullstep_wide``, ``check_moments_wide``); kernel
+    C's design mode at B=20 (its wide route) on the 20 terms' own backward
     tables and the valuation paths, over all 365 steps on evenly spaced rows
     and over 64 steps on bunched rows (the general-grid mode), argmax flips
-    only on near-ties (``compare_sweep``); the simulation sweep at F=10 on
+    only on near-ties (``compare_sweep``), and C's monomial mode's wide route
+    the same way at both shapes (``check_sweep_wide``); the simulation sweep
+    at F=10 on
     the 10-factor model's tables (P=366, seeds 11 and 13) and at F=13 (the
     wide route; S=65,536), then resumed at F = 10 and 13 (S=1,000, odd and
     even starts, antithetic on and off): the same bits.  Times, bounds,
@@ -2573,14 +2751,18 @@ def check_caps(pkg, device) -> dict:
             blocks_per_sm=info["blocks_per_sm"], registers=info["registers"], ptxas=ptx)
         del args, buf, dm_t
 
-    # ---- kernel E's wide route at (B, F) = (20, 3) and (13, 10).
+    # ---- kernel E's wide route and kernel B's wide body at (B, F) = (20, 3)
+    # and (13, 10), the latter on the 10-factor model's regression paths.
+    _, ten_in = ten_factor_inputs(pkg, device)
+    ten = spot_sim.simulate_ou_paths(spot_sim.key_from_seed(11),
+                                     torch.arange(NUM_SIMS, device=device), *ten_in)
     out["decision_update_fullstep_wide"], out["fullstep_wide_checks"] = check_fullstep_wide(
-        pkg, device, st)
+        pkg, device, st, ten)
+    out["decision_update_moments_wide"] = check_moments_wide(device, st, ten)
 
     # ---- kernel C's design mode at B = 20 on the 20 terms' own backward.
     mono20 = tuple(parse_basis_functions(BASIS_20))
     args = forward_sweep_inputs(pkg, device, st, mono20)
-    del st, sims
     n = args[6].shape[0]
     r_ = args[3].shape[1]
     design = torch.stack(design_columns(mono20, args[6], args[7]), dim=1)  # [N, 20, S]
@@ -2617,7 +2799,17 @@ def check_caps(pkg, device) -> dict:
             bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None,
             smem_bytes=info["smem_bytes"], max_grid=info["max_grid"],
             blocks_per_sm=info["blocks_per_sm"], registers=info["registers"], ptxas=ptx)
-    del args, sub, design, rows
+    del sub, design, rows
+
+    # ---- kernel C's monomial mode past the caps (its wide route) on each
+    # caps valuation's own backward tables and valuation paths.
+    out["forward_sweep_wide"] = check_sweep_wide(device, "b20f3", args, 3)
+    del args
+    args = forward_sweep_inputs(pkg, device, st, tuple(parse_basis_functions(BASIS_10F)),
+                                sims=ten, sim_in=ten_in)
+    del st, sims, ten
+    out["forward_sweep_wide"].update(check_sweep_wide(device, "b13f10", args, TEN_FACTORS))
+    del args
 
     # ---- the simulation sweep at F = 10 (compiled) and 13 (the wide route).
     _, sim_in = ten_factor_inputs(pkg, device)
@@ -2696,25 +2888,26 @@ def fullstep_engine(on: bool = True):
 
 
 def caps_valuations(pkg, device, counts, main) -> dict:
-    """The two full-width valuations beyond the caps through the public API,
-    each with the launch counters reset just before it: the route chosen
-    from shapes (the design in memory), its launches (the sweep 2 (one a
-    path set), kernel D 365, C's design mode 12, the intrinsic DP 1, no
-    other), its NPV within 0.1 SE of the f64 answer on the same draws
-    (``F64_CAPS_NPV``), finite deltas and profile, its wall and peak device
-    memory.  Beside each, the same valuation with the engine's full step
-    (``fullstep_engine``): the sweep 2, kernel E 365 on its wide route, C's
-    design mode 12, the intrinsic DP 1 and no other, its NPV within 0.05 SE
-    of the design-in-memory valuation's on the same paths; the two timed in
-    turns (full step, design in memory, design in memory, full step).  The
-    headline's route is printed beside them: it keeps kernel B and C's
-    monomial mode."""
+    """The two full-width valuations beyond the register caps through the
+    public API, each with the launch counters reset just before it: the
+    route chosen from shapes (kernel B and C's monomial mode, not the design
+    in memory), its launches (the sweep 2 (one a path set), kernel B 365 on
+    its wide body, C 1 on its monomial mode's wide route, the intrinsic DP
+    1, no other: no kernel D, no record pack, no design mode), its NPV
+    within 0.1 SE of the f64 answer on the same draws (``F64_CAPS_NPV``),
+    finite deltas and profile, its wall and peak device memory.  Beside
+    each, the same valuation with the engine's full step
+    (``fullstep_engine``): the sweep 2, kernel E 365 on its wide route, C 1
+    on its wide route, the intrinsic DP 1 and no other, its NPV within 0.05
+    SE of the default route's on the same paths and the bits pinned in
+    ``CAPS_FULLSTEP_NPV``; the two timed in turns (full step, default,
+    default, full step).  The headline's route is printed beside them."""
     import numpy as np
     import torch
 
     from storage_tpu_torch.basis import parse_basis_functions
     from storage_tpu_torch.engines import lsmc as engine
-    from storage_tpu_torch.ops import _build, decision_kernel
+    from storage_tpu_torch.ops import _build, decision_kernel, forward_kernel
 
     out = {}
     head = engine.design_in_memory(tuple(parse_basis_functions(BASIS)), 3)
@@ -2745,9 +2938,16 @@ def caps_valuations(pkg, device, counts, main) -> dict:
                 runs[fullstep] = (res, counts.read(), torch.cuda.max_memory_allocated() / 1e9)
         res, launches, peak = runs[False]
         wall = walls[False][0]
-        expected = counts.expect(simulate_sweep=2, decision_update=NUM_STEPS,
-                                 pack_records=NUM_STEPS,
-                                 forward_sweep_design=-(-NUM_STEPS // 32), intrinsic_dp=1)
+        limit = _build.smem_limit(device)
+        plan = decision_kernel.moments_plan(NUM_GRID, 3, terms, factors, limit)
+        sweep_large = forward_kernel.sweep_route(NUM_GRID, terms, 3, factors, 0, limit) == "large"
+        forward = dict(forward_sweep=1, forward_sweep_wide=1, forward_sweep_large=int(sweep_large))
+        expected = counts.expect(simulate_sweep=2, decision_update_moments=NUM_STEPS,
+                                 decision_update_moments_wide=NUM_STEPS,
+                                 decision_update_moments_wide_smem=NUM_STEPS * (
+                                     plan.body == "wide-smem"),
+                                 decision_update_moments_large=NUM_STEPS * (plan.name == "large"),
+                                 intrinsic_dp=1, **forward)
         npv, se = res.npv, res.val_sim_standard_error
         pin = F64_CAPS_NPV[case]
         off = (npv - pin) / se
@@ -2755,11 +2955,13 @@ def caps_valuations(pkg, device, counts, main) -> dict:
                       and np.isfinite(res.expected_profile.to_numpy()).all())
         paths = "materialised" if launches["simulate_sweep"] == 2 else "streamed"
         log(f"caps: {case} ({terms} terms on {factors} factors) route: design in memory "
-            f"{on_design}, paths {paths}; NPV {npv!r} SE {se!r} ({off:+.4f} SE from the f64 "
-            f"answer {pin!r}, tolerance 0.1); launches {launches}; wall {wall:.4f} s, peak device "
-            f"memory {peak:.2f} GB; finite deltas and profile {finite}")
-        if not on_design:
-            raise AssertionError(f"{case} did not take the design-in-memory route")
+            f"{on_design}, kernel B's {plan.body} body ({plan.name}), paths {paths}; NPV {npv!r} "
+            f"SE {se!r} ({off:+.4f} SE from the f64 answer {pin!r}, tolerance 0.1); launches "
+            f"{launches}; wall {wall:.4f} s, peak device memory {peak:.2f} GB; finite deltas and "
+            f"profile {finite}")
+        if on_design or plan.body != "wide":
+            raise AssertionError(f"{case} took the design in memory ({on_design}) or kernel B's "
+                                 f"{plan.body} body, not B's wide register row")
         if launches != expected:
             raise AssertionError(f"{case}: launch counts {launches}, expected {expected}")
         if not (math.isfinite(npv) and abs(off) <= 0.1 and finite):
@@ -2772,7 +2974,7 @@ def caps_valuations(pkg, device, counts, main) -> dict:
                                    decision_update_fullstep_wide=NUM_STEPS,
                                    decision_update_fullstep_large=NUM_STEPS * (
                                        grid_route == "large"),
-                                   forward_sweep_design=-(-NUM_STEPS // 32), intrinsic_dp=1)
+                                   intrinsic_dp=1, **forward)
         npv_e, se_e = res_e.npv, res_e.val_sim_standard_error
         off_e = (npv_e - npv) / se
         finite_e = bool(np.isfinite(res_e.deltas.to_numpy()).all()
@@ -2780,9 +2982,9 @@ def caps_valuations(pkg, device, counts, main) -> dict:
         log(f"caps: {case} with the full step (kernel E's {body} route, {grid_route}): NPV "
             f"{npv_e!r} SE {se_e!r} (the pinned bits {CAPS_FULLSTEP_NPV[case]!r}: "
             f"{npv_e == CAPS_FULLSTEP_NPV[case]}) "
-            f"({off_e:+.4f} SE from the design-in-memory valuation's NPV on the same paths, "
-            f"tolerance 0.05); launches {launches_e}; walls in turns (full step, design in "
-            f"memory, design in memory, full step): {walls[True][0]:.4f}, {walls[False][0]:.4f}, "
+            f"({off_e:+.4f} SE from the default route's NPV on the same paths, tolerance 0.05); "
+            f"launches {launches_e}; walls in turns (full step, default, default, full step): "
+            f"{walls[True][0]:.4f}, {walls[False][0]:.4f}, "
             f"{walls[False][1]:.4f}, {walls[True][1]:.4f} s; peak device memory {peak_e:.2f} GB; "
             f"finite deltas and profile {finite_e}")
         if body != "wide":
@@ -2796,11 +2998,12 @@ def caps_valuations(pkg, device, counts, main) -> dict:
         if npv_e != CAPS_FULLSTEP_NPV[case]:
             raise AssertionError(f"{case} with the full step: NPV {npv_e!r}, not the pinned bits "
                                  f"{CAPS_FULLSTEP_NPV[case]!r}")
-        out[case] = dict(terms=terms, factors=factors, route="design_in_memory", npv=npv, se=se,
+        out[case] = dict(terms=terms, factors=factors,
+                         route=f"moments_{plan.body}_{plan.name}", npv=npv, se=se,
                          se_from_f64=off, launches=dict(launches), wall_s=wall,
                          walls_s=walls[False], peak_memory_gb=peak,
                          fullstep=dict(route=f"fullstep_{body}_{grid_route}", npv=npv_e, se=se_e,
-                                       se_from_design_in_memory=off_e,
+                                       se_from_default=off_e,
                                        launches=dict(launches_e), walls_s=walls[True],
                                        peak_memory_gb=peak_e))
     return out
@@ -6293,11 +6496,17 @@ def launch_counts():
                              decision_kernel.decision_update_fullstep,
                              forward_kernel.forward_sweep, forward_kernel.forward_sweep_design)),
                          # Kernel E's wide route, counted in its launches too, and
-                         # the wide route's shared row, counted in those too.
+                         # the wide route's shared row, counted in those too; the
+                         # same of kernel B, and C's monomial mode's wide route.
                          ("decision_update_fullstep_wide", decision_kernel.decision_update_fullstep,
                           "wide_launches"),
                          ("decision_update_fullstep_wide_smem",
-                          decision_kernel.decision_update_fullstep, "wide_smem_launches")))
+                          decision_kernel.decision_update_fullstep, "wide_smem_launches"),
+                         ("decision_update_moments_wide", decision_kernel.decision_update_moments,
+                          "wide_launches"),
+                         ("decision_update_moments_wide_smem",
+                          decision_kernel.decision_update_moments, "wide_smem_launches"),
+                         ("forward_sweep_wide", forward_kernel.forward_sweep, "wide_launches")))
 
 
 def free_port() -> int:
@@ -6901,8 +7110,9 @@ def main(argv) -> int:
     launches.update(
         forward_sweep_design=report["host_layer"]["replica"]["launches"]["forward_sweep_design"])
 
-    # ---- the caps phase: a 20-term basis and a 10-factor model on the
-    # design-in-memory route, the kernels at those sizes.
+    # ---- the caps phase: a 20-term basis and a 10-factor model on kernel B
+    # and C's monomial mode past their register caps, the kernels at those
+    # sizes.
     t0 = time.perf_counter()
     with engine.full_f32_matmul():
         caps = check_caps(stt, device)
@@ -6910,8 +7120,13 @@ def main(argv) -> int:
     report["caps_phase_s"] = time.perf_counter() - t0
     log(f"caps phase: {report['caps_phase_s']:.1f} s")
     report["caps"]["fullstep_wide_checks"] = caps.pop("fullstep_wide_checks")
-    caps_launches = {("decision_update", "b20"): ("basis_20", "decision_update"),
-                     ("forward_sweep_design", "b20_uniform"): ("basis_20", "forward_sweep_design"),
+    caps_launches = {("decision_update_moments_wide", "b20f3"): ("basis_20",
+                                                                 "decision_update_moments_wide"),
+                     ("decision_update_moments_wide", "b13f10"): ("factors_10",
+                                                                  "decision_update_moments_wide"),
+                     ("forward_sweep_wide", "b20f3_uniform"): ("basis_20", "forward_sweep_wide"),
+                     ("forward_sweep_wide", "b13f10_uniform"): ("factors_10",
+                                                                "forward_sweep_wide"),
                      ("simulate_sweep", "f10"): ("factors_10", "simulate_sweep")}
     # Kernel E's wide route: its launches in the full-step valuation of each.
     fullstep_launches = {"b20f3": "basis_20", "b13f10": "factors_10"}
@@ -6922,9 +7137,11 @@ def main(argv) -> int:
             if name == "decision_update_fullstep_wide" and label in fullstep_launches:
                 row["launches"] = report["caps"][fullstep_launches[label]]["fullstep"][
                     "launches"]["decision_update_fullstep_wide"]
-    kernels["decision_update_fullstep_wide"] = dict(caps["decision_update_fullstep_wide"]["b20f3"])
-    launches.update(decision_update_fullstep_wide=kernels["decision_update_fullstep_wide"][
-        "launches"])
+    for name, label in (("decision_update_fullstep_wide", "b20f3"),
+                        ("decision_update_moments_wide", "b20f3"),
+                        ("forward_sweep_wide", "b20f3_uniform")):
+        kernels[name] = dict(caps[name][label])
+        launches[name] = kernels[name]["launches"]
     report["caps"]["kernels"] = caps
 
     # ---- adjoint deltas and custom inventory grids.
@@ -6966,6 +7183,7 @@ def main(argv) -> int:
                  pack_records="grid_4096_spot",
                  decision_update_fullstep_large="grid_4096_fullstep",
                  decision_update_fullstep_wide="caps_basis_20_fullstep",
+                 decision_update_moments_wide="caps_basis_20", forward_sweep_wide="caps_basis_20",
                  forward_sweep_large="grid_4096", forward_sweep_design_large="grid_4096_generic",
                  forward_sweep_general_large="grid_4096_custom",
                  intrinsic_dp_large="intrinsic_value_32768",
@@ -7031,6 +7249,11 @@ def main(argv) -> int:
              "decision_update_fullstep_wide": ("B", "F", "body", "grid_route", "tile", "flips",
                                                "smem_bytes", "blocks_per_sm", "registers",
                                                "smem_row_ms"),
+             "decision_update_moments_wide": ("B", "F", "body", "grid_route", "tile", "flips",
+                                              "smem_bytes", "blocks_per_sm", "registers"),
+             "forward_sweep_wide": ("B", "F", "N", "route", "flips", "smem_bytes",
+                                    "blocks_per_sm", "registers", "design_mode_same_bits",
+                                    "design_mode_launches", "design_mode_ms"),
              "intrinsic_dp_large": ("grid", "ms_f64", "core_ms_f32", "core_ms_f64",
                                     "chain_floor_ms", "grid_link_ns", "block_link_ns", "launch",
                                     "general_10001_f64_bound_ms"),

@@ -48,9 +48,10 @@ the single-device run, bit for bit.
 Every entry point takes a basis of any size on a model of any factor count,
 on either device.  The kernels' route is chosen from those shapes before
 anything runs (``engines.lsmc.design_in_memory``): a basis with a user
-callable, or of more than 16 terms, or on more than 8 factors, builds its
-design in memory (kernel D backward, kernel C's design mode forward); any
-other runs kernels B and C's monomial mode, which build it on the card.
+callable, or of more than 64 terms, builds its design in memory (kernel D
+backward, kernel C's design mode forward); any other runs kernels B and C's
+monomial mode, which build it on the card (past 16 terms or 8 factors on
+their wide routes), as the JAX package's fused kernels do.
 Every entry point takes an inventory grid of any size that the card's
 memory holds: on CUDA each kernel's grid route, "shared" while a step's
 tables fit a block's shared memory, else "large", is decided from the
@@ -592,7 +593,8 @@ def _lsmc_calc(
             "%s: the design is built in memory (kernel D backward, kernel C's design mode "
             "forward).",
             f"Generic basis function(s) present ({', '.join(generic)})" if generic else
-            f"{len(monomials)} basis functions on {sims.num_factors} factors",
+            f"{len(monomials)} basis functions, past the monomial kernels' "
+            f"{_build.MAX_WIDE_BASIS}",
         )
     stopwatches = Stopwatches()
     with stopwatches.time("prepare_inputs"):

@@ -1,12 +1,13 @@
 // The caps of common.cuh, exported so that the wrappers' copy of them
-// (ops/_build.py MAX_BASIS, MAX_FACTORS: the shape route and require_caps
-// read it) can be held to the built library (chip_smoke.py); and the
-// device's shared memory a block, which the grid routes read.
+// (ops/_build.py MAX_BASIS, MAX_FACTORS, MAX_WIDE_BASIS,
+// MAX_WIDE_REGISTER_BASIS: the shape routes and require_wide_basis read
+// it) can be held to the built library (chip_smoke.py); and the device's
+// shared memory a block, which the grid routes read.
 #include "common.cuh"
 
-// out[0] the most basis functions, out[1] the most factors a kernel takes,
-// out[2] the most basis functions of kernel E's wide route, out[3] the most
-// (padded) of its register row.
+// out[0] the most basis functions, out[1] the most factors a register route
+// takes, out[2] the most basis functions of the wide routes of kernels B, C
+// and E, out[3] the most (padded) of B's and E's register row.
 extern "C" int stt_limits(int* out) {
   out[0] = stt::kMaxB;
   out[1] = stt::kMaxF;

@@ -11,11 +11,12 @@ namespace stt {
 
 // The most basis functions and Markov factors of a monomial design built on
 // the card in registers (kernels B and E, kernel C's monomial mode); a larger
-// shape takes the design read from memory (engines/lsmc.py design_in_memory),
-// or, for kernel E, its wide route (WideBasis), up to kMaxWideB terms: the
-// length of its solve's per-thread substitution vector.  The wide route
-// holds a sim's design row in registers up to kMaxWideRegB terms (compiled
-// per padded size), in shared memory beyond.
+// shape takes their wide routes (WideBasis; C's forward_sweep.cuh is_wide),
+// on any factor count, up to kMaxWideB terms (the length of E's solve's
+// per-thread substitution vector); past that, the design read from memory
+// (engines/lsmc.py design_in_memory).  B's and E's wide route holds a sim's
+// design row in registers up to kMaxWideRegB terms (compiled per padded
+// size), in shared memory beyond; C's in shared memory.
 constexpr int kMaxB = 16;  // basis functions
 constexpr int kMaxF = 8;   // Markov factors
 constexpr int kMaxWideB = 64;
@@ -29,7 +30,7 @@ struct Basis {
   int8_t pows[kMaxB][kMaxF + 1];
 };
 
-// The same powers for any B and F, past the caps (kernel E's wide route):
+// The same powers for any B and F, past the caps (the wide routes):
 // pows[b·(nf + 1)] is the spot power of term b, pows[b·(nf + 1) + 1 + f] the
 // power of factor f.  The table reaches the kernel in device memory, the
 // wrapper's [B, F + 1] int8 tensor, and each block stages it in shared

@@ -80,8 +80,10 @@
 //   * best_act goes to a separate buffer (the caller ping-pongs two), never
 //     over v: a later g of the same column still reads rows an in-place write
 //     would already have replaced;
-//   * the wide route, which kernel E launches past the caps (16 terms, 8
-//     factors), takes any F, one kernel for both grid routes: the tiled
+//   * the wide route, which kernel B (stt_decision_update_moments_wide) and
+//     kernel E launch past the caps (16 terms, 8 factors), as the JAX
+//     package's kernel takes any monomial basis, takes any F, one kernel
+//     for both grid routes: the tiled
 //     kernel on a stt::WideBasis (the powers staged from a device table
 //     into shared memory after the records), so the sim's design row is a
 //     RegisterRow and the moments run at compile-time width, compiled per
@@ -715,4 +717,32 @@ extern "C" int stt_decision_update_moments_wide_info(int G, int D, int B, int F,
                               ? stt::kernel_info(decision_moments_wide_kernel, kThreads, fixed,
                                                  rec, G, out)
                               : stt::kernel_info(reg, kThreads, fixed, rec, G, out));
+}
+
+// Kernel B past the register caps (stt::kMaxB terms, stt::kMaxF factors):
+// its wide body (launch_decision_moments_wide), the one that kernel E's wide
+// route launches after its solve, on the caller's centred coefficients dci
+// = ci − ci[0].  Any B up to stt::kMaxWideB and any F, the powers `pows`
+// [B, F + 1] int8 in device memory; the register row up to
+// stt::kMaxWideRegB padded terms, or with `smem_row` the shared row; `tile`
+// as stt_decision_update_moments's.
+extern "C" int stt_decision_update_moments_wide(
+    int G, int tile, int S, int F, int D, int B, int smem_row, const void* pows, const void* v,
+    const void* spot, const void* factors, const void* spot_prev, const void* factors_prev,
+    const void* mean, const void* stdv, const void* mean_prev, const void* std_prev,
+    const void* idx_lo, const void* w_hi, const void* dci, const void* a, const void* b,
+    void* best_out, void* partials, void* moments, void* stream) {
+  if (B < 1 || B > stt::kMaxWideB || F < 0 || !pows || G < 2 || D < 1 || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(stt::launch_decision_moments_wide(
+      G, tile, S, D, B, F, smem_row != 0, static_cast<const int8_t*>(pows),
+      static_cast<const float*>(v), static_cast<const float*>(spot),
+      static_cast<const float*>(factors), static_cast<const float*>(spot_prev),
+      static_cast<const float*>(factors_prev), static_cast<const float*>(mean),
+      static_cast<const float*>(stdv), static_cast<const float*>(mean_prev),
+      static_cast<const float*>(std_prev), static_cast<const int*>(idx_lo),
+      static_cast<const float*>(w_hi), static_cast<const float*>(dci),
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(best_out),
+      static_cast<float*>(partials), static_cast<float*>(moments),
+      static_cast<cudaStream_t>(stream)));
 }

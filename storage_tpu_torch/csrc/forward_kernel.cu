@@ -47,13 +47,19 @@
 //     flight, no registers held for them.
 //   * The kernel is compiled for each basis size B (1 to stt::kMaxB), so the
 //     design row and the B-term dot products are unrolled loops over
-//     registers with no guards for unused terms.  The design mode also takes
-//     a larger basis, on its wide route (B = 0 below, the size known at run
-//     time): each sim's entries are standardised in place in its slots of
-//     the ring, the dot products read them from there, the same products
-//     and sums in the same order, and the warps' sums of a step go to
-//     dynamic shared memory.  The staged values grow with B, so fewer
-//     blocks fit an SM (kernel_info).  Each entry of the design
+//     registers with no guards for unused terms.  Both modes also take a
+//     larger shape on their wide route (B = 0 below, the size known at run
+//     time; forward_sweep.cuh is_wide: past kMaxB terms, and in the
+//     monomial mode past kMaxF factors, up to kMaxWideB terms on any F, as
+//     the JAX package's kernel takes any monomial basis): in design mode
+//     each sim's entries are standardised in place in its slots of the
+//     ring; in the monomial mode each sim's B entries are built from the
+//     staged factor values and a per-block copy of the powers [B, F + 1]
+//     (the wrapper's device table) into the sim's column of a [B, 256]
+//     tile of shared memory.  The dot products read them from there, the
+//     same products and sums in the same order, and the warps' sums of a
+//     step go to dynamic shared memory.  The staged values grow with B (and
+//     F), so fewer blocks fit an SM (kernel_info).  Each entry of the design
 //     row is stt::design_row's arithmetic (the spot power, then the factor
 //     powers by index, each product rounded on its own) over the term's
 //     nonzero powers only, from a per-block term table: small code.
@@ -153,9 +159,30 @@ extern "C" int stt_forward_sweep(
   if (!stt::make_basis(basis_table, F, &basis) || N < 1 || S < 1 || G < 2 || R < 1 || E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_sweep(
-      pick_sweep<false, false>(basis.nb, general), N, S, F, G, R, E, is_step, general, false,
-      basis, table, nullptr, nullptr, spot, factors, inv0, pv0, inv_out, pv_out, inv_rows,
-      dec_rows, cons_rows, imm_rows, partials, totals, stream));
+      pick_sweep<false, false>(basis.nb, F, general), false, N, S, G, R, E, is_step, general,
+      false, basis, nullptr, table, nullptr, nullptr, spot, factors, inv0, pv0, inv_out, pv_out,
+      inv_rows, dec_rows, cons_rows, imm_rows, partials, totals, stream));
+}
+
+// The monomial mode past stt::kMaxB terms or stt::kMaxF factors, on its wide
+// route: as stt_forward_sweep, with the B terms' powers `pows` [B, F + 1]
+// int8 in device memory in place of the host's basis table; B up to
+// stt::kMaxWideB, any F.
+extern "C" int stt_forward_sweep_wide(
+    int N, int S, int F, int B, int G, int R, int E, int is_step, int general, const void* pows,
+    const void* table, const void* spot, const void* factors, const void* inv0,
+    const void* pv0, void* inv_out, void* pv_out, void* inv_rows, void* dec_rows,
+    void* cons_rows, void* imm_rows, void* partials, void* totals, void* stream) {
+  if (B < 1 || B > stt::kMaxWideB || F < 0 || !is_wide(B, F, false) || !pows || N < 1 ||
+      S < 1 || G < 2 || R < 1 || E < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  stt::Basis basis{};
+  basis.nb = B;
+  basis.nf = F;
+  return static_cast<int>(launch_sweep(
+      pick_sweep<false, false>(B, F, general), false, N, S, G, R, E, is_step, general, false,
+      basis, static_cast<const int8_t*>(pows), table, nullptr, nullptr, spot, factors, inv0, pv0,
+      inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows, partials, totals, stream));
 }
 
 // The sweep in design mode: as stt_forward_sweep, with the raw design
@@ -170,26 +197,26 @@ extern "C" int stt_forward_sweep_design(
   stt::Basis basis{};
   basis.nb = B;
   return static_cast<int>(launch_sweep(
-      pick_sweep<true, false>(B, general), N, S, B, G, R, E, is_step, general, false, basis,
-      table, nullptr, nullptr, spot, design, inv0, pv0, inv_out, pv_out, inv_rows, dec_rows,
-      cons_rows, imm_rows, partials, totals, stream));
+      pick_sweep<true, false>(B, 0, general), true, N, S, G, R, E, is_step, general, false,
+      basis, nullptr, table, nullptr, nullptr, spot, design, inv0, pv0, inv_out, pv_out,
+      inv_rows, dec_rows, cons_rows, imm_rows, partials, totals, stream));
 }
 
 // The sweep's launch report at (G, B, R, F, E) on the current device
 // (common.cuh kernel_info), with out[0] the sims of a block; with `design`
 // set, the design mode's (F is then not read); with `general`, the
-// general-grid mode's.  The shared route's: its max_grid is the largest G
-// that route takes.
+// general-grid mode's; past the caps, the wide route's (in the monomial mode
+// up to stt::kMaxWideB terms).  The shared route's: its max_grid is the
+// largest G that route takes.
 extern "C" int stt_forward_sweep_info(int G, int B, int R, int F, int E, int design, int general,
                                       int* out) {
-  if (G < 0 || B < 1 || R < 1 || E < 0 ||
-      (!design && (B > stt::kMaxB || F < 0 || F > stt::kMaxF)))
+  if (G < 0 || B < 1 || R < 1 || E < 0 || (!design && (B > stt::kMaxWideB || F < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int V = design ? B : F;
+  if (design) F = 0;
   const cudaError_t err = stt::kernel_info(
-      design ? pick_sweep<true, false>(B, general) : pick_sweep<false, false>(B, general),
-      kThreads,
-      smem_fixed_words(B, R, V, E, general), smem_words_per_grid_point(B, general), G, out);
+      design ? pick_sweep<true, false>(B, F, general) : pick_sweep<false, false>(B, F, general),
+      kThreads, smem_fixed_words(B, R, F, E, design, general),
+      smem_words_per_grid_point(B, general), G, out);
   out[0] = kSims * kThreads;
   return static_cast<int>(err);
 }

@@ -23,9 +23,29 @@ extern "C" int stt_forward_sweep_large(
   if (!stt::make_basis(basis_table, F, &basis) || N < 1 || S < 1 || G < 2 || R < 1 || E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_sweep(
-      pick_sweep<false, true>(basis.nb, general), N, S, F, G, R, E, is_step, general, true,
-      basis, table, coef, grid, spot, factors, inv0, pv0, inv_out, pv_out, inv_rows, dec_rows,
-      cons_rows, imm_rows, partials, totals, stream));
+      pick_sweep<false, true>(basis.nb, F, general), false, N, S, G, R, E, is_step, general,
+      true, basis, nullptr, table, coef, grid, spot, factors, inv0, pv0, inv_out, pv_out,
+      inv_rows, dec_rows, cons_rows, imm_rows, partials, totals, stream));
+}
+
+// The monomial mode's wide route on the large route: as
+// stt_forward_sweep_wide, with the tables as stt_forward_sweep_large's.
+extern "C" int stt_forward_sweep_wide_large(
+    int N, int S, int F, int B, int G, int R, int E, int is_step, int general, const void* pows,
+    const void* table, const void* coef, const void* grid, const void* spot,
+    const void* factors, const void* inv0, const void* pv0, void* inv_out, void* pv_out,
+    void* inv_rows, void* dec_rows, void* cons_rows, void* imm_rows, void* partials,
+    void* totals, void* stream) {
+  if (B < 1 || B > stt::kMaxWideB || F < 0 || !is_wide(B, F, false) || !pows || N < 1 ||
+      S < 1 || G < 2 || R < 1 || E < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  stt::Basis basis{};
+  basis.nb = B;
+  basis.nf = F;
+  return static_cast<int>(launch_sweep(
+      pick_sweep<false, true>(B, F, general), false, N, S, G, R, E, is_step, general, true,
+      basis, static_cast<const int8_t*>(pows), table, coef, grid, spot, factors, inv0, pv0,
+      inv_out, pv_out, inv_rows, dec_rows, cons_rows, imm_rows, partials, totals, stream));
 }
 
 // The design mode on the large route: as stt_forward_sweep_design, with the
@@ -40,21 +60,22 @@ extern "C" int stt_forward_sweep_design_large(
   stt::Basis basis{};
   basis.nb = B;
   return static_cast<int>(launch_sweep(
-      pick_sweep<true, true>(B, general), N, S, B, G, R, E, is_step, general, true, basis, table,
-      coef, grid, spot, design, inv0, pv0, inv_out, pv_out, inv_rows, dec_rows, cons_rows,
-      imm_rows, partials, totals, stream));
+      pick_sweep<true, true>(B, 0, general), true, N, S, G, R, E, is_step, general, true, basis,
+      nullptr, table, coef, grid, spot, design, inv0, pv0, inv_out, pv_out, inv_rows, dec_rows,
+      cons_rows, imm_rows, partials, totals, stream));
 }
 
 // The large route's launch report (common.cuh kernel_info; no part of its
-// shared memory grows with G, so its max_grid is INT_MAX).
+// shared memory grows with G, so its max_grid is INT_MAX); past the caps,
+// the wide route's, as stt_forward_sweep_info.
 extern "C" int stt_forward_sweep_large_info(int B, int R, int F, int E, int design, int general,
                                             int* out) {
-  if (B < 1 || R < 1 || E < 0 || (!design && (B > stt::kMaxB || F < 0 || F > stt::kMaxF)))
+  if (B < 1 || R < 1 || E < 0 || (!design && (B > stt::kMaxWideB || F < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int V = design ? B : F;
+  if (design) F = 0;
   const cudaError_t err = stt::kernel_info(
-      design ? pick_sweep<true, true>(B, general) : pick_sweep<false, true>(B, general),
-      kThreads, smem_fixed_words(B, R, V, E), 0, 0, out);
+      design ? pick_sweep<true, true>(B, F, general) : pick_sweep<false, true>(B, F, general),
+      kThreads, smem_fixed_words(B, R, F, E, design), 0, 0, out);
   out[0] = kSims * kThreads;
   return static_cast<int>(err);
 }

@@ -53,21 +53,32 @@ __host__ __device__ inline int fixed_table_words(int B, int R) {
 // factors, or the B design values in design mode) of the block's sims, as
 // [1 + V][kSims][kThreads].
 __host__ __device__ inline int slot_words(int V) { return (1 + V) * kSims * kThreads; }
-// Floats of the warps' sums of two steps, [2][kSims][kWarps][6 + B], that the
-// design mode's wide route (B beyond stt::kMaxB) keeps in dynamic shared
-// memory (the compiled sizes keep them in static shared memory).
-__host__ __device__ inline int red_words(int B) {
-  return B > stt::kMaxB ? 2 * kSims * kWarps * (kUsedSums + B) : 0;
+// Whether the sweep takes its wide route (B = 0 below, the basis size known
+// at run time): past stt::kMaxB terms in either mode, and in the monomial
+// mode also past stt::kMaxF factors.
+__host__ __device__ inline bool is_wide(int B, int F, bool design) {
+  return B > stt::kMaxB || (!design && F > stt::kMaxF);
+}
+// Floats of the wide route's own dynamic shared memory (none on the compiled
+// sizes, which keep their sums in static shared memory): the warps' sums of
+// two steps, [2][kSims][kWarps][6 + B]; in the monomial mode also each sim's
+// standardised design row [B][kSims][kThreads] and the powers [B, F + 1]
+// int8 in whole words.
+__host__ __device__ inline int wide_words(int B, int F, bool design) {
+  return 2 * kSims * kWarps * (kUsedSums + B) +
+         (design ? 0 : B * kSims * kThreads + (B * (F + 1) + 3) / 4);
 }
 // Dynamic shared memory, in floats: kStages tables (their padding counted at
 // its most; on the shared route in general-grid mode also the tail's scale)
-// and slots, then the decision fractions [2, D] (D = 2E + 3), then the wide
-// route's sums.
-__host__ __device__ inline size_t smem_fixed_words(int B, int R, int V, int E,
+// and slots of V staged values a sim (the F factors, or B in design mode),
+// then the decision fractions [2, D] (D = 2E + 3), then the wide route's own.
+__host__ __device__ inline size_t smem_fixed_words(int B, int R, int F, int E, bool design,
                                                    bool staged_tail = false) {
+  const int V = design ? B : F;
   return static_cast<size_t>(kStages) *
              (NUM_PARAMS + 2 * B + 3 * R + 3 + (staged_tail ? 1 : 0) + slot_words(V)) +
-         2 * (2 * static_cast<size_t>(E) + 3) + red_words(B);
+         2 * (2 * static_cast<size_t>(E) + 3) +
+         (is_wide(B, F, design) ? wide_words(B, F, design) : 0);
 }
 // The shared route's words a grid point: coefficients, and in general-grid
 // mode the grid row's node and bucket count.
@@ -253,6 +264,21 @@ __device__ __forceinline__ float design_entry(const int* term, const float* vals
   for (int i = 0; i < term[0]; ++i) {
     const int e = term[1 + i];
     x = __fmul_rn(x, stt::ipow(vals[(e >> 8) * stride], e & 0xff));
+  }
+  return __fdiv_rn(__fsub_rn(x, mean), stdv);
+}
+
+// The same entry on the monomial mode's wide route, from the term's row of
+// the staged powers [B, F + 1] (the spot's power, then the factors' by
+// index; read at warp-uniform addresses): the same products in the same
+// order, so the same bits.
+__device__ __forceinline__ float design_entry(const int8_t* pows, int nf, const float* vals,
+                                              int stride, float mean, float stdv) {
+  float x = 1.0f;
+#pragma unroll 1
+  for (int i = 0; i <= nf; ++i) {
+    const int p = pows[i];
+    if (p) x = __fmul_rn(x, stt::ipow(vals[i * stride], p));
   }
   return __fdiv_rn(__fsub_rn(x, mean), stdv);
 }
@@ -443,24 +469,27 @@ __device__ __forceinline__ StepResult step_sim(const float* par, int R, int G, i
 }
 
 // `values` is [N, V, S]: the factors (V = F) or, in design mode, the raw
-// design values (V = B).  B = 0 is the design mode's wide route, its basis
-// size basis.nb known at run time.  kLarge: the large route, whose `table`
-// rows hold the fixed parts alone, the coefficients [N, G, Bp] and the
-// general tails [N, 2G + 1] at coef_g and grid_g (NULL on the shared
+// design values (V = B).  B = 0 is the wide route, its basis size basis.nb
+// (and factor count basis.nf) known at run time; in the monomial mode its
+// powers are pows_g [B, F + 1] int8 in device memory (NULL elsewhere), which
+// each block stages in shared memory.  kLarge: the large route, whose
+// `table` rows hold the fixed parts alone, the coefficients [N, G, Bp] and
+// the general tails [N, 2G + 1] at coef_g and grid_g (NULL on the shared
 // route).
 template <int B, bool kDesign, bool kGeneral, bool kLarge>
 __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     int N, int S, int G, int R, int E, int is_step, stt::Basis basis,
+    const int8_t* __restrict__ pows_g,
     const float* __restrict__ table, const float* __restrict__ coef_g,
     const float* __restrict__ grid_g, const float* __restrict__ spot,
     const float* __restrict__ values, const float* __restrict__ inv0,
     const float* __restrict__ pv0, float* __restrict__ inv_out, float* __restrict__ pv_out,
     float* __restrict__ inv_rows, float* __restrict__ dec_rows, float* __restrict__ cons_rows,
     float* __restrict__ imm_rows, float* __restrict__ partials) {
-  static_assert(B > 0 || kDesign, "the wide route is the design mode's");
   constexpr bool kWide = B == 0;
   const int nb = kWide ? basis.nb : B;
-  const int V = kDesign ? nb : basis.nf;
+  const int nf = basis.nf;
+  const int V = kDesign ? nb : nf;
   const int W = kLarge ? fixed_table_words(nb, R) : table_words(nb, R, G, kGeneral);
   const int nslot = slot_words(V);
   const int nout = kNumSums + nb;
@@ -476,6 +505,10 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
   float* slots = ring + kStages * W;                   // [kStages][nslot]
   float* frac = slots + kStages * nslot;               // [2, D]
   float* red = kWide ? frac + 2 * (2 * E + 3) : red_fixed;
+  // The monomial mode's wide route: each sim's design row [nb][kSims]
+  // [kThreads] after the sums, then the staged powers [nb, nf + 1].
+  float* dm_rows = kWide ? red + 2 * kSims * kWarps * (kUsedSums + nb) : nullptr;
+  int8_t* pows = kWide ? reinterpret_cast<int8_t*>(dm_rows + nb * kSims * kThreads) : nullptr;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -515,6 +548,9 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if (!kDesign && tid < B) make_term(basis, tid, terms[tid]);
+  if constexpr (kWide && !kDesign) {
+    for (int i = tid; i < nb * (nf + 1); i += kThreads) pows[i] = pows_g[i];
+  }
   // The decision fractions of _bang_bang: with a zero decision, decision k of
   // D = 2E + 3 scales the withdrawal (k <= E + 1) or the injection by frac[k];
   // without, it lies frac[D + k] of the way from one to the other.
@@ -578,7 +614,7 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
           if (lane == 0) red_w[kUsedSums + b] = x;
         }
       };
-      if constexpr (kWide) {
+      if constexpr (kWide && kDesign) {
         // Standardised in place: only this thread reads its slots until the
         // stage is refilled, after the step's barrier.
         for (int b = 0; b < nb; ++b) {
@@ -586,6 +622,14 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
           *x = __fdiv_rn(__fsub_rn(*x, mean[b]), stdv[b]);
         }
         step(SharedRow{vals + kSims * kThreads, nb, kSims * kThreads});
+      } else if constexpr (kWide) {
+        // Built into this thread's own column of the design rows, which
+        // only it reads, from the spot and the F factors in its slots.
+        float* row = dm_rows + j * kThreads + tid;
+        for (int b = 0; b < nb; ++b)
+          row[b * kSims * kThreads] = design_entry(pows + b * (nf + 1), nf, vals,
+                                                   kSims * kThreads, mean[b], stdv[b]);
+        step(SharedRow{row, nb, kSims * kThreads});
       } else {
         RegisterRow<B> dm;
 #pragma unroll
@@ -626,11 +670,12 @@ __global__ void __launch_bounds__(kThreads) forward_sweep_kernel(
 using SweepKernel = decltype(&forward_sweep_kernel<1, false, false, false>);
 
 // The sweep compiled for basis size B in either mode, on uniform or general
-// grid rows, on the shared or the large route; beyond stt::kMaxB the design
-// mode's wide route, and NULL for the monomial mode.
+// grid rows, on the shared or the large route; past stt::kMaxB terms (in the
+// monomial mode also past stt::kMaxF factors, F) the wide route.
 template <bool kDesign, bool kGeneral, bool kLarge>
-SweepKernel sweep_kernel(int B) {
+SweepKernel sweep_kernel(int B, int F) {
   static_assert(stt::kMaxB == 16, "one case per basis size");
+  if (is_wide(B, F, kDesign)) return forward_sweep_kernel<0, kDesign, kGeneral, kLarge>;
   switch (B) {
     case 1: return forward_sweep_kernel<1, kDesign, kGeneral, kLarge>;
     case 2: return forward_sweep_kernel<2, kDesign, kGeneral, kLarge>;
@@ -648,27 +693,28 @@ SweepKernel sweep_kernel(int B) {
     case 14: return forward_sweep_kernel<14, kDesign, kGeneral, kLarge>;
     case 15: return forward_sweep_kernel<15, kDesign, kGeneral, kLarge>;
     case 16: return forward_sweep_kernel<16, kDesign, kGeneral, kLarge>;
-    default:
-      if constexpr (kDesign)
-        return B > stt::kMaxB ? forward_sweep_kernel<0, true, kGeneral, kLarge> : nullptr;
-      return nullptr;
+    default: return nullptr;
   }
 }
 
 // The sweep of either grid mode, chosen at run time.
 template <bool kDesign, bool kLarge>
-SweepKernel pick_sweep(int B, bool general) {
-  return general ? sweep_kernel<kDesign, true, kLarge>(B)
-                 : sweep_kernel<kDesign, false, kLarge>(B);
+SweepKernel pick_sweep(int B, int F, bool general) {
+  return general ? sweep_kernel<kDesign, true, kLarge>(B, F)
+                 : sweep_kernel<kDesign, false, kLarge>(B, F);
 }
 
-// Launches the sweep of either mode (V staged values a sim and step), then
-// the reduce of its partials.  With `large` (the large route) the ring
-// stages only the fixed part of each row: coef [N, G, Bp] (16-byte aligned)
-// and the general tails stay in device memory.
-cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, int E,
+// Launches the sweep of either mode (basis.nb terms; the monomial mode's
+// basis.nf factors, or in design mode B raw design values, staged a sim and
+// step), then the reduce of its partials.  `pows` [B, F + 1] int8 in device
+// memory are the monomial mode's powers on its wide route (else NULL).  With
+// `large` (the large route) the ring stages only the fixed part of each row:
+// coef [N, G, Bp] (16-byte aligned) and the general tails stay in device
+// memory.
+cudaError_t launch_sweep(SweepKernel kernel, bool design, int N, int S, int G, int R, int E,
                          int is_step, bool general, bool large, const stt::Basis& basis,
-                         const void* table, const void* coef, const void* grid,
+                         const int8_t* pows, const void* table, const void* coef,
+                         const void* grid,
                          const void* spot, const void* values, const void* inv0,
                          const void* pv0, void* inv_out, void* pv_out, void* inv_rows,
                          void* dec_rows, void* cons_rows, void* imm_rows, void* partials,
@@ -677,8 +723,9 @@ cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, 
   if (!kernel || (large && (!coef || (general && !grid)))) return cudaErrorInvalidValue;
   if (large && reinterpret_cast<uintptr_t>(coef) % 16 != 0) return cudaErrorMisalignedAddress;
   const int B = basis.nb;
+  if (!design && is_wide(B, basis.nf, false) != (pows != nullptr)) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) *
-      (smem_fixed_words(B, R, V, E, general && !large) +
+      (smem_fixed_words(B, R, basis.nf, E, design, general && !large) +
        (large ? 0 : smem_words_per_grid_point(B, general) * G));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -686,7 +733,7 @@ cudaError_t launch_sweep(SweepKernel kernel, int N, int S, int V, int G, int R, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nblk = (S + kSims * kThreads - 1) / (kSims * kThreads);
   kernel<<<nblk, kThreads, smem, st>>>(
-      N, S, G, R, E, is_step, basis, static_cast<const float*>(table),
+      N, S, G, R, E, is_step, basis, pows, static_cast<const float*>(table),
       static_cast<const float*>(coef), static_cast<const float*>(grid),
       static_cast<const float*>(spot), static_cast<const float*>(values),
       static_cast<const float*>(inv0), static_cast<const float*>(pv0),

@@ -29,18 +29,23 @@ fused and streamed paths of ``storage_tpu.engines.lsmc``).
   kernel E instead, which does that solve on the card too, so a step is E's
   launches alone: for any monomial basis on factor panels, on E's register
   route within 16 terms and 8 factors and its wide route past them
-  (``fullstep_body``).  Spot-only panels (no factor, ``value_from_sims``)
-  and the shapes of ``design_in_memory`` (a basis with a user callable,
-  ``basis.generic``, or beyond the monomial kernels' 16 terms or 8 factors)
-  take the JAX package's plain body without ``fullstep``: each step
+  (``fullstep_body``).  Kernel B likewise takes its register kernels within
+  the caps and the same wide body past them, up to 64 terms on any factor
+  count (``decision_kernel.moments_plan``), as the JAX package's fused
+  kernel takes any monomial basis.  Spot-only panels (no factor,
+  ``value_from_sims``) and the shapes of ``design_in_memory`` (a basis with
+  a user callable, ``basis.generic``, or of more than the wide route's 64
+  terms) take the JAX package's plain body without ``fullstep``: each step
   regresses v on its standardised design (``fit_continuation``) and runs
   kernel D on it.
 * The forward pass runs one forward sweep over all steps of materialised
   panels (kernel C, ``ops.forward_kernel``; a launch a segment on another
   source) on an independent valuation-sim set, re-using the
   saved regression (the dual-simulation lower-bound estimator,
-  LsmcStorageValuation.cs:352-415); the shapes of ``design_in_memory`` run
-  the sweep's design mode on the design built a chunk of steps at a time
+  LsmcStorageValuation.cs:352-415), in its monomial mode at any basis of up
+  to 64 terms on any factor count (its wide route past 16 terms or 8
+  factors); the shapes of ``design_in_memory`` run the sweep's design mode
+  on the design built a chunk of steps at a time
   (``forward_kernel.forward_sweep_generic``).  The forward pass produces NPV,
   standard error,
   pathwise deltas (:513-518), expected profiles and trigger prices
@@ -102,18 +107,19 @@ _SCALARS = (
 
 
 def design_in_memory(monomials, num_factors: int) -> bool:
-    """The shape route, decided from the basis and the factor count alone,
-    before any allocation, simulation or launch, on every device: True where
-    the design is built in memory, a chunk of steps at a time (the backward
-    runs kernel D on each step's design, the forward kernel C's design mode),
-    False where the kernels build a monomial design on the card (kernel B or
-    E backward, C's monomial mode forward).  True for a basis with a user
-    callable, and for a basis or a factor count beyond what those kernels
-    take (``_build.MAX_BASIS``, ``_build.MAX_FACTORS``).  Not a fallback:
+    """The shape route, decided from the basis alone, before any
+    allocation, simulation or launch, on every device and at any factor
+    count (``num_factors`` does not enter): True where the design is built
+    in memory, a chunk of steps at a time (the backward runs kernel D on
+    each step's design, the forward kernel C's design mode), False where the
+    kernels build a monomial design on the card (kernel B or E backward, C's
+    monomial mode forward; past 16 terms or 8 factors on their wide routes),
+    as the JAX package's fused kernels take any monomial basis.  True for a
+    basis with a user callable, and for one of more terms than those
+    kernels' wide routes take (``_build.MAX_WIDE_BASIS``).  Not a fallback:
     nothing is tried first.  (Spot-only panels also take kernel D backward,
     the JAX package's plain body, and keep C's monomial mode forward.)"""
-    return (has_generic(monomials) or len(monomials) > _build.MAX_BASIS
-            or num_factors > _build.MAX_FACTORS)
+    return has_generic(monomials) or len(monomials) > _build.MAX_WIDE_BASIS
 
 
 def fullstep_body(monomials, num_factors: int, group=None) -> str:
@@ -154,11 +160,12 @@ def grid_routes(num_grid: int, num_extra_decisions: int, monomials, num_factors:
     rows, in a block's shared memory) or "large" (past the grid those fit;
     any G).  The intrinsic phase runs the intrinsic DP at no extra decision
     over the N steps in the valuation's dtype (``itemsize`` bytes); the
-    backward kernel B, or kernel D on the design in memory
+    backward kernel B (its register kernels or its wide body,
+    ``decision_kernel.moments_plan``), or kernel D on the design in memory
     (``design_in_memory``, spot-only panels); the forward kernel C's
     monomial or design mode, on general rows with ``general``.  The
     wrappers take the same routes from the same shapes
-    (``intrinsic_kernel.intrinsic_route``, ``decision_kernel.moments_route``,
+    (``intrinsic_kernel.intrinsic_route``, ``decision_kernel.moments_plan``,
     ``update_route``, ``forward_kernel.sweep_route``); ``smem_limit`` is the
     card's shared memory a block (``_build.smem_limit``).  Not a fallback:
     nothing is tried first."""
@@ -169,7 +176,7 @@ def grid_routes(num_grid: int, num_extra_decisions: int, monomials, num_factors:
         backward = ("decision_update", decision_kernel.update_route(num_grid, d, b, smem_limit))
     else:
         backward = ("decision_update_moments",
-                    decision_kernel.moments_route(num_grid, d, b, smem_limit))
+                    decision_kernel.moments_plan(num_grid, d, b, num_factors, smem_limit))
     forward = ("forward_sweep_design" if on_design else "forward_sweep",
                forward_kernel.sweep_route(num_grid, b, num_ratchet_nodes,
                                           b if on_design else num_factors, num_extra_decisions,
@@ -546,8 +553,9 @@ def lsmc_backward_rows(
     ``snap_interp`` rounds the interpolation weights to the 1/256 grid, the
     quadrature of the TPU run.  Factor panels run kernel B with the tensor
     glue between steps, or kernel E alone with ``fullstep`` (any monomial
-    basis: E's register route within 16 terms and 8 factors, its wide route
-    past them, ``fullstep_body``); spot-only panels ([N+1, 0, S] factors)
+    basis of up to 64 terms: B's and E's register routes within 16 terms
+    and 8 factors, their wide routes past them, ``moments_plan``,
+    ``fullstep_body``); spot-only panels ([N+1, 0, S] factors)
     and the shapes of ``design_in_memory`` run the plain body with kernel D
     on the design read from memory, and spot-only panels and generic bases
     refuse ``fullstep`` (kernel E builds a monomial design of factor panels
@@ -763,7 +771,9 @@ def lsmc_forward_rows(
     and PV carried between launches (the same bits:
     ``forward_kernel.sweep_in_chunks``); a generic basis builds its design a
     chunk of steps at a time (``forward_kernel.forward_sweep_generic``), as
-    does every other shape of ``design_in_memory``.  The per-step reductions
+    does a basis past 64 terms (``design_in_memory``); every other basis
+    runs the sweep's monomial mode, on its wide route past 16 terms or 8
+    factors.  The per-step reductions
     stay on the device until the result dict is read.
 
     ``return_sim_data`` (materialised panels only) adds the per-sim panels of

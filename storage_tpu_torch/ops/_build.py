@@ -60,6 +60,10 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P,
     ),
+    # Kernel B's wide body: G, tile, S, F, D, B, shared row (else the register
+    # row), powers (a device int8 [B, F + 1]), then as
+    # stt_decision_update_moments from v
+    "stt_decision_update_moments_wide": (_I,) * 7 + (_P,) * 19,
     # G, D, B, large route, out int[6] (kernel B's launch report)
     "stt_decision_update_moments_info": (_I, _I, _I, _I, _P),
     # G (or a tile), D, B, F, shared row (else the register row), out int[6]
@@ -99,6 +103,10 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P,
     ),
+    # The monomial mode's wide route: N, S, F, B, G, R, E, is_step, general
+    # grids, powers (a device int8 [B, F + 1]), then as stt_forward_sweep
+    # from the packed tables
+    "stt_forward_sweep_wide": (_I,) * 9 + (_P,) * 15,
     # N, S, B, G, R, E, is_step, general grids, packed tables, spot, design
     # [N, B, S], then as stt_forward_sweep from inv0
     "stt_forward_sweep_design": (
@@ -122,6 +130,7 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P,
     ),
+    "stt_forward_sweep_wide_large": (_I,) * 9 + (_P,) * 17,
     "stt_forward_sweep_large_info": (_I, _I, _I, _I, _I, _I, _P),
     # N, S, is_double, dec, cons, spot, g, fwd, df_settle, partials, grad, stream
     "stt_forward_sweep_vjp": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
@@ -266,13 +275,14 @@ def check(rc: int, name: str) -> None:
 
 
 # kMaxB and kMaxF of csrc/common.cuh: the most basis functions and factors
-# that the kernels building a monomial design on the card in registers take
-# (B, E and C's monomial mode); kMaxWideB, the most basis functions of kernel
-# E's wide route, which takes any factor count past them, and kMaxWideRegB,
-# the most (padded) that its register row takes.  The shape routes
-# (engines/lsmc.py design_in_memory, ops/decision_kernel.py fullstep_route)
-# read this copy, so they need no build and work on the CPU; chip_smoke.py
-# holds it to the built library's ``limits``.
+# of the register routes of the kernels that build a monomial design on the
+# card (B, E and C's monomial mode); kMaxWideB, the most basis functions of
+# their wide routes, which take any factor count past them, and
+# kMaxWideRegB, the most (padded) that B's and E's register row takes.  The
+# shape routes (engines/lsmc.py design_in_memory, ops/decision_kernel.py
+# moments_plan and fullstep_route, ops/forward_kernel.py sweep_route) read
+# this copy, so they need no build and work on the CPU; chip_smoke.py holds
+# it to the built library's ``limits``.
 MAX_BASIS = 16
 MAX_FACTORS = 8
 MAX_WIDE_BASIS = 64
@@ -331,18 +341,17 @@ def blocks_per_sm(smem_bytes: int, threads: int, reg_blocks: int, smem_limit: in
     return min(by_smem, SM_THREADS // threads, SM_BLOCKS, reg_blocks)
 
 
-def require_caps(name: str, num_basis: int, num_factors: int) -> None:
-    """Raises ``ValueError`` before any launch where a basis or a factor
-    count exceeds the caps of the register routes that build a monomial
-    design on the card (``MAX_BASIS``, ``MAX_FACTORS``: kernel B and C's
-    monomial mode).  No valuation reaches it: the engine routes such shapes
-    to the design read from memory, and kernel E to its wide route."""
-    if num_basis > MAX_BASIS or num_factors > MAX_FACTORS:
+def require_wide_basis(name: str, num_basis: int) -> None:
+    """Raises ``ValueError`` before any launch past ``MAX_WIDE_BASIS`` terms,
+    the most that the kernels building a monomial design on the card take
+    (kernel B and C's monomial mode, on their wide routes, on any factor
+    count).  No valuation reaches it: the engine routes such a basis to the
+    design read from memory."""
+    if num_basis > MAX_WIDE_BASIS:
         raise ValueError(
-            f"{name}: {num_basis} basis functions and {num_factors} factors; this kernel builds "
-            f"a monomial design on the card and takes at most {MAX_BASIS} basis functions and "
-            f"{MAX_FACTORS} factors (csrc/common.cuh kMaxB, kMaxF); the design-in-memory route "
-            f"(kernel D, kernel C's design mode) takes any size")
+            f"{name}: {num_basis} basis functions; this kernel builds a monomial design on the "
+            f"card and takes at most {MAX_WIDE_BASIS} (csrc/common.cuh kMaxWideB); the "
+            f"design-in-memory route (kernel D, kernel C's design mode) takes any size")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> torch.device:
@@ -379,10 +388,10 @@ def _powers(monomial, num_factors: int) -> list:
 
 @functools.lru_cache(maxsize=64)
 def wide_basis_table(monomials, num_factors: int, device: torch.device) -> torch.Tensor:
-    """Monomial powers as kernel E's wide route reads them: an int8 tensor
-    [B, F + 1] on ``device`` (per monomial its spot power, then its F factor
-    powers), which each block stages in shared memory; cached per basis,
-    factor count and device (the kernels only read it)."""
+    """Monomial powers as the wide routes of kernels B, C and E read them: an
+    int8 tensor [B, F + 1] on ``device`` (per monomial its spot power, then
+    its F factor powers), which each block stages in shared memory; cached
+    per basis, factor count and device (the kernels only read it)."""
     rows = [_powers(m, num_factors) for m in monomials]
     if any(not 0 <= p <= 127 for row in rows for p in row):
         raise ValueError("a monomial power beyond 127 does not fit the kernels' int8 table")

@@ -50,17 +50,17 @@ time (and E's solve spread over blocks).  Both give the same bits.  B
 repacks its records in each block; D packs them once a step
 (``pack_records``) and runs one kernel on both routes, a tile a block (the
 shared route's tile is the whole grid).  B and E build the
-monomial design on the card.  B takes a basis and a factor count within the
-caps ``_build.MAX_BASIS`` and ``_build.MAX_FACTORS`` (16 and 8), raising
-``ValueError`` beyond them.  E takes them on its register route and, past
-either cap, on its wide route (``fullstep_body``: B's body with the powers
-staged from a device table, one kernel for both grid routes, on any factor
-count: each sim's design row in registers up to
-``_build.MAX_WIDE_REGISTER_BASIS`` padded terms, the "wide" body, compiled
-per padded size; in shared memory beyond, up to ``_build.MAX_WIDE_BASIS``
-terms, the "wide-smem" body), chosen from B and F alone.  D reads the design
-and takes any basis, compiled per basis size up to 32 terms and on its wide
-route beyond.
+monomial design on the card: on their register kernels within the caps
+``_build.MAX_BASIS`` and ``_build.MAX_FACTORS`` (16 and 8) and, past either
+cap, on the wide body (``fullstep_body``, ``moments_plan``,
+``fullstep_route``: B's body with the powers staged from a device table, one
+kernel for both grid routes, on any factor count: each sim's design row in
+registers up to ``_build.MAX_WIDE_REGISTER_BASIS`` padded terms, the "wide"
+body, compiled per padded size; in shared memory beyond, up to
+``_build.MAX_WIDE_BASIS`` terms, the "wide-smem" body), chosen from B and F
+alone; past ``_build.MAX_WIDE_BASIS`` terms both raise ``ValueError``.  D
+reads the design and takes any basis, compiled per basis size up to 32
+terms and on its wide route beyond.
 """
 from __future__ import annotations
 
@@ -140,7 +140,8 @@ class Route(tp.NamedTuple):
 
 
 class FullstepRoute(tp.NamedTuple):
-    """Kernel E's route: its grid route and tile as ``Route``, and its body:
+    """The route of kernel B (``moments_plan``) or kernel E
+    (``fullstep_route``): its grid route and tile as ``Route``, and its body:
     kernel B's register kernels ("register", within 16 terms and 8 factors)
     or, past either, the wide route's, its powers from a device table, each
     sim's design row in registers ("wide", compiled per padded size up to
@@ -156,8 +157,8 @@ class FullstepRoute(tp.NamedTuple):
 
 
 ROUTES = ("shared", "large")
-# Kernel E's grid routes on a wide body, which ``route=`` may force at any
-# shape the body takes.
+# The grid routes of kernels B and E on a wide body, which ``route=`` may
+# force at any shape the body takes.
 WIDE_ROUTES = ("wide-shared", "wide-large", "wide-smem-shared", "wide-smem-large")
 # Grid points a tile of the large routes of kernels B and D (and E, which
 # launches B): tools/torch_grid_probe.py times tiles at G = 4,096.
@@ -308,7 +309,8 @@ def wide_body(bdim: int) -> str:
 
 
 def fullstep_body(bdim: int, num_factors: int) -> str:
-    """Kernel E's body from the basis size and the factor count alone:
+    """The body of kernel B and kernel E from the basis size and the factor
+    count alone:
     "register" within ``_build.MAX_BASIS`` terms and ``_build.MAX_FACTORS``
     factors, else the wide route's (``wide_body``).  Not a fallback:
     nothing is tried first."""
@@ -367,6 +369,41 @@ def wide_route(g: int, d: int, bdim: int, num_factors: int, smem_limit: int,
                    route, blocks, blocks)
 
 
+def _forced_body(name: str, bdim: int, num_factors: int, route: tp.Optional[str]):
+    """The body from B and F (``fullstep_body``), or the wide one that a
+    route of ``WIDE_ROUTES`` forces, and the grid route left to force (or
+    None); ``ValueError`` where the body does not take B terms."""
+    if route is not None and route not in ROUTES + WIDE_ROUTES:
+        raise ValueError(f"{name}: route must be one of {ROUTES + WIDE_ROUTES}, got {route!r}")
+    body = fullstep_body(bdim, num_factors)
+    if route in WIDE_ROUTES:
+        body, route = route.rsplit("-", 1)
+    if body != "register":
+        _build.require_wide_basis(name, bdim)
+    if body == "wide" and padded_basis(bdim) > _build.MAX_WIDE_REGISTER_BASIS:
+        raise ValueError(f"{name}: {bdim} basis functions; the wide register row is compiled "
+                         f"for at most {_build.MAX_WIDE_REGISTER_BASIS} (csrc/common.cuh "
+                         f"kMaxWideRegB)")
+    return body, route
+
+
+def moments_plan(g: int, d: int, bdim: int, num_factors: int, smem_limit: int,
+                 route: tp.Optional[str] = None) -> FullstepRoute:
+    """Kernel B's route from the shape alone: its body from B and F
+    (``fullstep_body``: its register kernels within ``_build.MAX_BASIS``
+    terms and ``_build.MAX_FACTORS`` factors, else the wide body that kernel
+    E's wide route runs, ``wide_body``; a route of ``WIDE_ROUTES`` forces a
+    wide one at any shape it takes), then its grid route (``moments_route``,
+    or ``wide_route`` on a wide body: one kernel for both).  A wide body
+    takes at most ``_build.MAX_WIDE_BASIS`` terms, its register row
+    ``_build.MAX_WIDE_REGISTER_BASIS`` padded (``ValueError`` beyond).  Not a
+    fallback: nothing is tried first."""
+    body, route = _forced_body("decision_update_moments", bdim, num_factors, route)
+    if body == "register":
+        return FullstepRoute(*moments_route(g, d, bdim, smem_limit, route), body)
+    return FullstepRoute(*wide_route(g, d, bdim, num_factors, smem_limit, route, body), body)
+
+
 def fullstep_route(g: int, d: int, bdim: int, smem_limit: int, route: tp.Optional[str] = None,
                    num_factors: int = 0) -> FullstepRoute:
     """Kernel E's route: its body from B and F (``fullstep_body``; a route
@@ -377,20 +414,7 @@ def fullstep_route(g: int, d: int, bdim: int, smem_limit: int, route: tp.Optiona
     The wide route takes at most ``_build.MAX_WIDE_BASIS`` terms, its
     register row ``_build.MAX_WIDE_REGISTER_BASIS`` padded (``ValueError``
     beyond)."""
-    if route is not None and route not in ROUTES + WIDE_ROUTES:
-        raise ValueError(f"decision_update_fullstep: route must be one of "
-                         f"{ROUTES + WIDE_ROUTES}, got {route!r}")
-    body = fullstep_body(bdim, num_factors)
-    if route in WIDE_ROUTES:
-        body, route = route.rsplit("-", 1)
-    if body != "register" and bdim > _build.MAX_WIDE_BASIS:
-        raise ValueError(f"decision_update_fullstep: {bdim} basis functions; kernel E's wide "
-                         f"route takes at most {_build.MAX_WIDE_BASIS} (csrc/common.cuh "
-                         f"kMaxWideB, its solve's substitution vector)")
-    if body == "wide" and padded_basis(bdim) > _build.MAX_WIDE_REGISTER_BASIS:
-        raise ValueError(f"decision_update_fullstep: {bdim} basis functions; kernel E's wide "
-                         f"register row is compiled for at most "
-                         f"{_build.MAX_WIDE_REGISTER_BASIS} (csrc/common.cuh kMaxWideRegB)")
+    body, route = _forced_body("decision_update_fullstep", bdim, num_factors, route)
     if body == "register":
         grid = functools.partial(moments_route, g, d, bdim, smem_limit)
         max_grid = moments_max_grid(d, bdim, smem_limit)
@@ -429,16 +453,17 @@ def _kernel_info(entry: str, g: int, d: int, bdim: int, extra: tuple, device_ind
 def kernel_info(kernel: str, g: int, d: int, bdim: int, device: torch.device,
                 large: bool = False, num_factors: int = 0, body: tp.Optional[str] = None) -> dict:
     """Launch report of kernel B (``"moments"``, also run by kernel E),
-    a wide body (``"wide"``, kernel E's wide route, at ``num_factors``
-    factors: ``body``, ``wide_body``'s by default) or kernel D
+    the wide body (``"wide"``, the wide route of kernels B and E, at
+    ``num_factors`` factors: ``body``, ``wide_body``'s by default) or kernel D
     (``"update"``) at D decisions and B basis functions
     on a CUDA device: B's shared route holding G grid points' records, or
     with ``large`` its large route at a tile of G; the wide body's one kernel
     and D's at a tile of G (``large`` is B's alone): sims per block, shared
     memory bytes per block (static and dynamic), the device's limit per
     block, the largest G (or tile) that route takes at this D and B, blocks
-    per SM (0 where G does not fit) and registers per thread.  Kernel B takes
-    B within its basis cap (``_build.MAX_BASIS``), the others any B."""
+    per SM (0 where G does not fit) and registers per thread.  ``"moments"``
+    takes B within its basis cap (``_build.MAX_BASIS``), ``"wide"`` up to
+    ``_build.MAX_WIDE_BASIS``, ``"update"`` any B."""
     entry, extra = {"moments": ("stt_decision_update_moments_info", (int(bool(large)),)),
                     "wide": ("stt_decision_update_moments_wide_info",
                              (int(num_factors), int((body or wide_body(bdim)) == "wide-smem"))),
@@ -488,9 +513,14 @@ def decision_update_moments(
     must not be ``v`` (the kernel reads every v row until the step ends).
     ``idx_lo`` must lie in [0, G-2], as ``ops.interp.interp_weights`` makes
     it: the kernel does not check it, and checking on the host would wait
-    for the device every step.  The route is ``moments_route``'s (``route``
-    forces one); ``launches`` counts every launch, ``large_launches`` those
-    of the large route."""
+    for the device every step.  The route is ``moments_plan``'s, from B, F
+    and G: the register kernels within 16 terms and 8 factors, past either
+    the wide body up to ``_build.MAX_WIDE_BASIS`` terms (``ValueError``
+    beyond, before any launch); ``route`` forces a grid route, or with
+    ``WIDE_ROUTES`` a wide body.  ``launches`` counts every launch,
+    ``large_launches`` those of the large grid route, ``wide_launches``
+    those of the wide body and ``wide_smem_launches`` those of its shared
+    row (each counted in ``launches`` too)."""
     if v.device.type == "cpu":
         return decision_update_moments_plain(
             v, spot, factors, spot_prev, factors_prev, mean, std, mean_prev,
@@ -500,8 +530,7 @@ def decision_update_moments(
     f = factors.shape[0]
     d = ci.shape[0]
     bdim = len(monomials)
-    _build.require_caps("decision_update_moments", bdim, f)
-    plan = moments_route(g, d, bdim, _build.smem_limit(v.device), route)
+    plan = moments_plan(g, d, bdim, f, _build.smem_limit(v.device), route)
     dci = (ci - ci[0:1]).contiguous()
     if out is None:
         out = torch.empty_like(v)
@@ -524,9 +553,15 @@ def decision_update_moments(
         "out": (out, (g, s)),
     })
     partials, moments = moments_scratch(g, bdim, s, device)
-    rc = _build.library().stt_decision_update_moments(
-        g, plan.tile, s, f, d, _build.basis_table(tuple(monomials), f), v.data_ptr(),
-        spot.data_ptr(), factors.data_ptr(), spot_prev.data_ptr(),
+    if plan.wide:
+        entry = _build.library().stt_decision_update_moments_wide
+        head = (g, plan.tile, s, f, d, bdim, int(plan.body == "wide-smem"),
+                _build.wide_basis_table(tuple(monomials), f, device).data_ptr())
+    else:
+        entry = _build.library().stt_decision_update_moments
+        head = (g, plan.tile, s, f, d, _build.basis_table(tuple(monomials), f))
+    rc = entry(
+        *head, v.data_ptr(), spot.data_ptr(), factors.data_ptr(), spot_prev.data_ptr(),
         factors_prev.data_ptr(), mean.data_ptr(), std.data_ptr(),
         mean_prev.data_ptr(), std_prev.data_ptr(), idx_lo.data_ptr(),
         w_hi.data_ptr(), dci.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -535,12 +570,16 @@ def decision_update_moments(
     )
     decision_update_moments.launches += 1
     decision_update_moments.large_launches += plan.name == "large"
+    decision_update_moments.wide_launches += plan.wide
+    decision_update_moments.wide_smem_launches += plan.body == "wide-smem"
     _build.check(rc, "decision_update_moments")
     return (out, *_split_moments(moments, g, bdim))
 
 
 decision_update_moments.launches = 0
 decision_update_moments.large_launches = 0  # those of the large route, counted in launches too
+decision_update_moments.wide_launches = 0  # those of the wide body, counted in launches too
+decision_update_moments.wide_smem_launches = 0  # those of its shared row, also in wide_launches
 
 
 def decision_update_plain(v, dm_std_t, spot, idx_lo, w_hi, ci, a, b):

@@ -10,7 +10,9 @@ rows each decision touches (``coeffs[:, row]·dm`` at lo and lo + 1), in plain
 f32 — the JAX kernel's ``pred_passes=1`` arithmetic.
 
 ``csrc/forward_kernel.cu`` is the kernel: ``forward_sweep`` launches it once
-for all N steps (``forward_step`` is the sweep at N = 1).  Its design mode,
+for all N steps (``forward_step`` is the sweep at N = 1), at any monomial
+basis of up to 64 terms on any factor count (compiled per B within 16 terms
+and 8 factors, past either on its wide route, ``sweep_wide``).  Its design mode,
 ``forward_sweep_design``, reads each step's raw design [B, S] from memory
 instead of building it from monomials: ``forward_sweep_generic`` runs it for
 a basis with user callables, building the design ``DESIGN_CHUNK`` steps at a
@@ -440,26 +442,40 @@ ROUTES = ("shared", "large")
 # chip_smoke.py holds it to ``kernel_info``'s max_grid.  A block of 256
 # sims; dynamic shared memory of two ring stages of a row (its padding
 # counted at its most) and of the sims' spot and V staged values, the
-# decision fractions [2, D], past 16 terms the warps' sums; on the shared
-# route also the two rows' coefficients (and general tails: a grid node and
-# a bucket count a grid point, and the scale), B + 2·general words a grid
-# point a stage.  Static: two mbarriers, the warps' sums of two steps
-# [2][8 warps][6 + B] (one float past 16 terms) and, in the monomial mode,
-# the basis terms [B][10] ints, laid out in 128-byte units.
+# decision fractions [2, D], on the wide route (``sweep_wide``) the warps'
+# sums and, in the monomial mode, each sim's design row [B, 256] and the
+# powers [B, F + 1] int8 in whole words; on the shared route also the two
+# rows' coefficients (and general tails: a grid node and a bucket count a
+# grid point, and the scale), B + 2·general words a grid point a stage.
+# Static: two mbarriers, the warps' sums of two steps [2][8 warps][6 + B]
+# (one float on the wide route) and, in the monomial mode, the basis terms
+# [B][10] ints (none on the wide route), laid out in 128-byte units.
 _SWEEP_SIMS = 256
 _SWEEP_WARPS = _SWEEP_SIMS // 32
 _STAGES = 2
 _USED_SUMS = 6
 
 
-def _sweep_fixed_words(bdim: int, r: int, v: int, e: int) -> int:
-    wide = 2 * _SWEEP_WARPS * (_USED_SUMS + bdim) if bdim > _build.MAX_BASIS else 0
+def sweep_wide(bdim: int, v: int, design: bool = False) -> bool:
+    """Whether the sweep takes its wide route (the basis size known at run
+    time, csrc/forward_sweep.cuh is_wide) at B terms and V staged values a
+    sim (the F factors, or B in design mode): past ``_build.MAX_BASIS``
+    terms, and in the monomial mode also past ``_build.MAX_FACTORS``
+    factors.  Not a fallback: the route is the shape's."""
+    return bdim > _build.MAX_BASIS or (not design and v > _build.MAX_FACTORS)
+
+
+def _sweep_fixed_words(bdim: int, r: int, v: int, e: int, design: bool) -> int:
+    wide = 0
+    if sweep_wide(bdim, v, design):
+        wide = 2 * _SWEEP_WARPS * (_USED_SUMS + bdim) + (
+            0 if design else bdim * _SWEEP_SIMS + -(-bdim * (v + 1) // 4))
     return (_STAGES * (NUM_PARAMS + 2 * bdim + 3 * r + 3 + (1 + v) * _SWEEP_SIMS)
             + 2 * (2 * e + 3) + wide)
 
 
-def _sweep_static_bytes(bdim: int, design: bool) -> int:
-    if bdim > _build.MAX_BASIS:
+def _sweep_static_bytes(bdim: int, v: int, design: bool) -> int:
+    if sweep_wide(bdim, v, design):
         raw = 16 + 4
     else:
         raw = 16 + 4 * 2 * _SWEEP_WARPS * (_USED_SUMS + bdim) + (
@@ -472,8 +488,8 @@ def sweep_max_grid(bdim: int, r: int, v: int, e: int, smem_limit: int, design: b
     """The largest G of the sweep's shared route at B basis functions, R
     ratchet nodes, V staged values a sim (the F factors, or B in design
     mode) and E extra decisions, under ``smem_limit`` bytes a block."""
-    room = ((smem_limit - _sweep_static_bytes(bdim, design)) // 4
-            - _sweep_fixed_words(bdim, r, v, e) - _STAGES * int(general))
+    room = ((smem_limit - _sweep_static_bytes(bdim, v, design)) // 4
+            - _sweep_fixed_words(bdim, r, v, e, design) - _STAGES * int(general))
     return room // (_STAGES * (bdim + 2 * int(general))) if room >= 0 else 0
 
 
@@ -481,11 +497,12 @@ def sweep_max_grid(bdim: int, r: int, v: int, e: int, smem_limit: int, design: b
 # at least this many blocks of 256 sims an SM: its large route runs at 4–5
 # (registers), and in turns at B = 4 and 9, G = 400 to 3,000 on an H100 the
 # shared route won at 4 or more and lost at 3 or fewer in every mode but
-# the design mode at B = 4, within 3–10% there (PERF.md §6).  The design
-# mode's wide route (B past 16) keeps its shared route while it fits: its
-# large route reads the coefficients in a loop of run-time length, and in
-# turns at B = 20 (G = 50 to 400) and 32 (G = 50 to 400) it lost at 1 to 4
-# blocks an SM alike.
+# the design mode at B = 4, within 3–10% there (PERF.md §6).  The wide
+# route (``sweep_wide``) keeps its shared route while it fits: its large
+# route reads the coefficients in a loop of run-time length, and in the
+# design mode in turns at B = 20 (G = 50 to 400) and 32 (G = 50 to 400) it
+# lost at 1 to 4 blocks an SM alike; the monomial mode's wide route runs the
+# same loop.
 SHARED_MIN_BLOCKS = 4
 
 
@@ -494,9 +511,9 @@ def sweep_blocks_per_sm(g: int, bdim: int, r: int, v: int, e: int, smem_limit: i
     """Blocks of the sweep's shared route an SM at G grid points, as its
     shared memory allows them (the copied sizing; its registers, which the
     compiler chooses, not counted)."""
-    words = (_sweep_fixed_words(bdim, r, v, e) + _STAGES * int(general)
+    words = (_sweep_fixed_words(bdim, r, v, e, design) + _STAGES * int(general)
              + _STAGES * (bdim + 2 * int(general)) * g)
-    return _build.blocks_per_sm(_sweep_static_bytes(bdim, design) + 4 * words, _SWEEP_SIMS,
+    return _build.blocks_per_sm(_sweep_static_bytes(bdim, v, design) + 4 * words, _SWEEP_SIMS,
                                 _build.SM_BLOCKS, smem_limit)
 
 
@@ -505,17 +522,18 @@ def sweep_route(g: int, bdim: int, r: int, v: int, e: int, smem_limit: int,
                 route: tp.Optional[str] = None) -> str:
     """The sweep's route (``route`` forces one), from the shape and the
     card's shared memory a block (``_build.smem_limit``): "shared" while G
-    fits it (``sweep_max_grid``) and, up to ``_build.MAX_BASIS`` terms, it
-    leaves ``SHARED_MIN_BLOCKS`` blocks an SM (``sweep_blocks_per_sm``),
+    fits it (``sweep_max_grid``) and, off the wide route (``sweep_wide``),
+    it leaves ``SHARED_MIN_BLOCKS`` blocks an SM (``sweep_blocks_per_sm``),
     else "large"."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"forward_sweep: route must be one of {ROUTES}, got {route!r}")
     max_grid = sweep_max_grid(bdim, r, v, e, smem_limit, design, general)
     route = route or ("shared" if g <= max_grid and (
-        bdim > _build.MAX_BASIS
+        sweep_wide(bdim, v, design)
         or sweep_blocks_per_sm(g, bdim, r, v, e, smem_limit, design, general)
         >= SHARED_MIN_BLOCKS) else "large")
-    fixed = _sweep_static_bytes(bdim, design) + 4 * _sweep_fixed_words(bdim, r, v, e)
+    fixed = (_sweep_static_bytes(bdim, v, design)
+             + 4 * _sweep_fixed_words(bdim, r, v, e, design))
     if (route == "shared" and g > max_grid) or fixed > smem_limit:
         raise ValueError(
             f"forward_sweep: the {route} route at B={bdim}, R={r}, V={v} staged values a sim "
@@ -550,11 +568,12 @@ def kernel_info(g: int, bdim: int, r: int, f: int, e: int, device, design: bool 
     two-stage ring of step tables and per-sim values, and the decision
     fractions), the device's limit per block, the largest G
     within it, blocks per SM (0 where G does not fit) and registers per
-    thread.  The monomial mode takes B and F within the caps
-    ``_build.MAX_BASIS`` and ``_build.MAX_FACTORS``.  ``design`` reports the
-    design mode, which stages B design values a sim in place of the F
-    factors (F is not read) and takes any B (beyond ``_build.MAX_BASIS`` on
-    its wide route); ``general`` the general-grid mode, whose tables hold one
+    thread.  The monomial mode takes B up to ``_build.MAX_WIDE_BASIS`` and
+    any F (past ``_build.MAX_BASIS`` or ``_build.MAX_FACTORS`` on its wide
+    route, ``sweep_wide``).  ``design`` reports the design mode, which
+    stages B design values a sim in place of the F factors (F is not read)
+    and takes any B (beyond ``_build.MAX_BASIS`` on its wide route);
+    ``general`` the general-grid mode, whose tables hold one
     more row of G a step.  This is the shared route's report, whose max_grid
     is the largest G that route takes; ``large`` gives the large route's,
     whose shared memory does not grow with G (max_grid 2**31 − 1)."""
@@ -578,8 +597,8 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
     the factors (``monomials`` given) or the raw design (``monomials`` None,
     V = B); ``grid`` [N, G] the next steps' grid rows of the general-grid
     mode, or None; on ``sweep_route``'s route (``route`` forces one).
-    Returns (inventory, pv, sums, xbar_sum), the C call's code and the
-    route."""
+    Returns (inventory, pv, sums, xbar_sum), the C call's code, the route
+    and whether it took the wide route (``sweep_wide``)."""
     design = monomials is None
     general = grid is not None
     n, s = spot.shape
@@ -588,7 +607,8 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
     f = 0 if design else v
     r = ratchet_inv.shape[1]
     if not design:
-        _build.require_caps(name, bdim, f)
+        _build.require_wide_basis(name, bdim)
+    wide = sweep_wide(bdim, v, design)
     route = sweep_route(g, bdim, r, v, num_extra_decisions, _build.smem_limit(spot.device),
                         design, general, route)
     large = route == "large"
@@ -633,11 +653,15 @@ def _launch_sweep(name, params, mean, std, ratchet_inv, ratchet_min, ratchet_max
     if design:
         rc = getattr(lib, f"stt_forward_sweep_design{suffix}")(
             n, s, bdim, g, r, num_extra_decisions, int(ratchet_is_step), int(general), *common)
+    elif wide:
+        rc = getattr(lib, f"stt_forward_sweep_wide{suffix}")(
+            n, s, f, bdim, g, r, num_extra_decisions, int(ratchet_is_step), int(general),
+            _build.wide_basis_table(tuple(monomials), f, device).data_ptr(), *common)
     else:
         rc = getattr(lib, f"stt_forward_sweep{suffix}")(
             n, s, f, g, r, num_extra_decisions, int(ratchet_is_step), int(general),
             _build.basis_table(tuple(monomials), f), *common)
-    return (outs[0], outs[1], totals[:, :NUM_SUMS], totals[:, NUM_SUMS:]), rc, route
+    return (outs[0], outs[1], totals[:, :NUM_SUMS], totals[:, NUM_SUMS:]), rc, route, wide
 
 
 def _ptr_or_none(t: tp.Optional[torch.Tensor]):
@@ -678,21 +702,27 @@ def forward_sweep(
     plain version.  CUDA tensors launch the sweep kernel, once for all N
     steps, and must be f32 and contiguous (``factors`` may be [N, 0, S]: the
     kernel reads no factor then), at any G, on ``sweep_route``'s route
-    (``route`` forces one): ``launches`` counts every launch,
-    ``general_launches`` those of the general-grid mode and
-    ``large_launches`` those of the large route."""
+    (``route`` forces one), at any basis of up to ``_build.MAX_WIDE_BASIS``
+    terms (``ValueError`` beyond, before any launch) on any F: compiled per
+    B within 16 terms and 8 factors, past either on the wide route
+    (``sweep_wide``: the powers from a device table, each sim's design row
+    in shared memory; the same arithmetic).  ``launches`` counts every
+    launch, ``general_launches`` those of the general-grid mode,
+    ``large_launches`` those of the large route and ``wide_launches`` those
+    of the wide route."""
     if spot.device.type == "cpu":
         return forward_sweep_plain(
             params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot, factors, inventory,
             pv, coeffs, monomials, num_extra_decisions, ratchet_is_step, panels, out, grid=grid,
         )
-    result, rc, taken = _launch_sweep(
+    result, rc, taken, wide = _launch_sweep(
         "forward_sweep", params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
         factors, inventory, pv, coeffs, monomials, num_extra_decisions, ratchet_is_step,
         panels, out, grid, route)
     forward_sweep.launches += 1
     forward_sweep.general_launches += grid is not None
     forward_sweep.large_launches += taken == "large"
+    forward_sweep.wide_launches += wide
     _build.check(rc, "forward_sweep")
     return result
 
@@ -700,6 +730,7 @@ def forward_sweep(
 forward_sweep.launches = 0
 forward_sweep.general_launches = 0  # those of the general-grid mode, counted in launches too
 forward_sweep.large_launches = 0  # those of the large route, counted in launches too
+forward_sweep.wide_launches = 0  # those of the wide route, counted in launches too
 
 
 def forward_sweep_design(
@@ -736,7 +767,7 @@ def forward_sweep_design(
             pv, coeffs, None, num_extra_decisions, ratchet_is_step, panels, out, design=design,
             grid=grid,
         )
-    result, rc, taken = _launch_sweep(
+    result, rc, taken, _ = _launch_sweep(
         "forward_sweep_design", params, mean, std, ratchet_inv, ratchet_min, ratchet_max, spot,
         design, inventory, pv, coeffs, None, num_extra_decisions, ratchet_is_step, panels, out,
         grid, route)

@@ -111,11 +111,20 @@ def _results_out(res) -> dict:
 
 # ---- the engine's cases (tests/test_torch_sharding.py)
 
+# The full cubic in the spot and the case's two factors: 20 terms, past the
+# register kernels' 16 (kernel B's and C's wide routes on the card).
+BASIS_20 = ("1 + s + x0 + x1 + s**2 + x0**2 + x1**2 + s*x0 + s*x1 + x0*x1 + s**3 + x0**3 + x1**3 "
+            "+ s**2*x0 + s**2*x1 + s*x0**2 + x0**2*x1 + s*x1**2 + x0*x1**2 + s*x0*x1")
+
+
 def _sharded(**kwargs):
+    from storage_tpu_torch.basis import parse_basis_functions
     from storage_tpu_torch.models import spot_sim
     from storage_tpu_torch.parallel import mesh as pmesh
 
     inputs, arrays, sim_inputs, monomials = sharding_case()
+    if "basis" in kwargs:
+        monomials = tuple(parse_basis_functions(kwargs.pop("basis")))
     num_sims = kwargs.pop("num_sims", SHARDED_SIMS)
     return pmesh.sharded_lsmc_core(
         pmesh.make_mesh(), arrays, sim_inputs, spot_sim.key_from_seed(7),
@@ -129,6 +138,10 @@ def case_sharded(rank, out_dir):
 
 def case_streamed(rank, out_dir):
     return _engine_out(_sharded(stream=True))
+
+
+def case_sharded_20_terms(rank, out_dir):
+    return _engine_out(_sharded(basis=BASIS_20))
 
 
 def case_routed(rank, out_dir):
@@ -370,9 +383,9 @@ def case_helpers(rank, out_dir):
 
 
 SUITES = {
-    "sharding": (case_sharded, case_streamed, case_routed, case_per_sim, case_antithetic,
-                 case_adjoint, case_from_sims, case_ad_from_sims, case_indivisible,
-                 case_fullstep),
+    "sharding": (case_sharded, case_streamed, case_sharded_20_terms, case_routed, case_per_sim,
+                 case_antithetic, case_adjoint, case_from_sims, case_ad_from_sims,
+                 case_indivisible, case_fullstep),
     "distributed": (case_host_local, case_host_local_adjoint, case_value_from_sims,
                     case_shape_mismatch, case_multi_factor, case_multi_factor_adjoint,
                     case_multi_factor_streamed, case_interactive, case_cancel, case_checkpoint,

@@ -2,15 +2,18 @@
 against the JAX package, which has no such cap.
 
 The kernels that build a monomial design on the card (B, E and C's monomial
-mode) take at most 16 terms on 8 factors (``csrc/common.cuh``).  Larger
-shapes take the design-in-memory route (kernel D backward, kernel C's design
-mode forward), chosen from the shapes alone before anything is simulated
-(``engines.lsmc.design_in_memory``), on either device.  Each entry point is
-valued here on the CPU in f64 beside the JAX package on the same inputs
-(NPV, SE, deltas and profiles at the ``RTOL`` of ``test_torch_lsmc.py``:
-both regress each step on exactly standardised columns and run the same
-argmax), and called with CUDA stood in, where the route must be chosen
-before any simulation, panel copy or launch.
+mode) take their register routes within 16 terms on 8 factors
+(``csrc/common.cuh``) and their wide routes past either, up to 64 terms on
+any factor count, as the JAX package's fused kernels take any monomial
+basis.  Only a basis with a user callable, or of more than 64 terms, takes
+the design-in-memory route (kernel D backward, kernel C's design mode
+forward); the route is chosen from the shapes alone before anything is
+simulated (``engines.lsmc.design_in_memory``), on either device.  Each entry
+point is valued here on the CPU in f64 beside the JAX package on the same
+inputs (NPV, SE, deltas and profiles at the ``RTOL`` of
+``test_torch_lsmc.py``: both regress each step on exactly standardised
+columns and run the same argmax), and called with CUDA stood in, where the
+route must be chosen before any simulation, panel copy or launch.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -169,7 +172,8 @@ def _route_on_cuda(monkeypatch, call) -> list:
 @pytest.mark.parametrize("entry", list(CASES))
 def test_beyond_the_monomial_caps_matches_jax(jax_runs, monkeypatch, entry):
     """The entry point values the shape on the CPU as the JAX package does,
-    and on CUDA routes it to the design in memory before anything runs."""
+    and on CUDA routes it to kernels B and C's monomial mode (their wide
+    routes) before anything runs."""
     source, call, terms, factors = CASES[entry]
     want = jax_runs[source]
     if entry.startswith("value-from-sims"):
@@ -177,7 +181,7 @@ def test_beyond_the_monomial_caps_matches_jax(jax_runs, monkeypatch, entry):
     got = call(jax_runs[source], dtype=torch.float64, device="cpu")
     _assert_valuations_close(got, want)
     assert _route_on_cuda(monkeypatch, lambda **kw: call(jax_runs[source], **kw)) == [
-        (terms, factors, True)]
+        (terms, factors, False)]
 
 
 def test_headline_basis_keeps_the_monomial_route(monkeypatch):
@@ -190,17 +194,26 @@ def test_headline_basis_keeps_the_monomial_route(monkeypatch):
 BASIS_16 = BASIS_9 + " + s**3 + s**4 + s*x0 + s*x1 + s*x2 + x0*x1 + x0*x2"
 
 
+def _spot_powers(terms: int) -> str:
+    """A monomial basis of ``terms`` terms: 1, s, then the spot's powers."""
+    return " + ".join(["1", "s", *(f"s**{k}" for k in range(2, terms))])
+
+
 @pytest.mark.parametrize("basis,factors,expected", [
-    ("1 + s", 0, False), (BASIS_9, 3, False), (BASIS_16, 3, False), (BASIS_20, 3, True),
-    (BASIS_10F, 8, False), (BASIS_10F, 9, True), ("generic", 3, True)],
-    ids=["spot-2", "headline", "16-terms", "20-terms", "8-factors", "9-factors", "generic"])
+    ("1 + s", 0, False), (BASIS_9, 3, False), (BASIS_16, 3, False), (BASIS_20, 3, False),
+    (BASIS_10F, 8, False), (BASIS_10F, 9, False), (BASIS_10F, TEN, False),
+    (_spot_powers(64), 3, False), (_spot_powers(65), 3, True), ("generic", 3, True)],
+    ids=["spot-2", "headline", "16-terms", "20-terms", "8-factors", "9-factors", "10-factors",
+         "64-terms", "65-terms", "generic"])
 def test_route_by_shape(basis, factors, expected):
-    """The route is the shape's alone: a basis with a user callable, more
-    than 16 terms or more than 8 factors builds the design in memory."""
+    """The route is the basis's alone, at any factor count: a basis with a
+    user callable, or of more than the wide routes' 64 terms, builds the
+    design in memory; every other monomial basis runs kernels B and C's
+    monomial mode."""
     if basis == "generic":
         monomials = (*parse_basis_functions("1 + s"),
                      generic(lambda s, x: torch.exp(-x[0] ** 2), num_factors=1))
     else:
         monomials = tuple(parse_basis_functions(basis))
-    assert _build.MAX_BASIS == 16 and _build.MAX_FACTORS == 8
+    assert _build.MAX_BASIS == 16 and _build.MAX_FACTORS == 8 and _build.MAX_WIDE_BASIS == 64
     assert torch_lsmc.design_in_memory(monomials, factors) is expected

@@ -469,15 +469,18 @@ def test_decision_update_beyond_16_terms(device, b, kind):
 
 
 @pytest.mark.parametrize("wrapper,case", [
-    ("moments", "17-terms"), ("moments", "9-factors"), ("fullstep", "17-terms"),
-    ("fullstep", "9-factors"), ("sweep", "17-terms"), ("sweep", "9-factors")])
+    ("moments", "17-terms"), ("moments", "9-factors"), ("moments", "65-terms"),
+    ("fullstep", "17-terms"), ("fullstep", "9-factors"), ("fullstep", "65-terms"),
+    ("sweep", "17-terms"), ("sweep", "9-factors"), ("sweep", "65-terms")])
 def test_caps_raise_value_error(device, wrapper, case):
     """Past 16 basis functions or 8 factors each wrapper of a kernel that
-    builds the monomial design on the card in registers (B, C's monomial
-    mode) raises ValueError naming both caps before it launches; the engine
-    never routes such shapes to them (kernel D and C's design mode take any
-    basis).  Kernel E takes them on its wide route: one launch, no error."""
-    basis, f = (BASIS_17, 3) if case == "17-terms" else ("1 + s + x8", 9)
+    builds the monomial design on the card (B, E, C's monomial mode) takes
+    its wide route: one launch, no error, counted in ``wide_launches``.
+    Past the wide routes' 64 terms each raises ValueError before it
+    launches; the engine never routes such a basis to them (kernel D and C's
+    design mode take any basis)."""
+    basis, f = {"17-terms": (BASIS_17, 3), "9-factors": ("1 + s + x8", 9),
+                "65-terms": (_spot_basis(65), 3)}[case]
     g, s, d = 11, 64, 3
     v, spot, factors, spot_prev, factors_prev, mean, std, mean_p, std_p, idx_lo, w_hi, ci, a, b, \
         mono = _decision_args(device, g, s, d, f, basis=basis)
@@ -495,21 +498,24 @@ def test_caps_raise_value_error(device, wrapper, case):
             torch.ones((bdim, g), device=device), mean, std, idx_lo, w_hi, a, b, mono),
         "sweep": lambda: forward_kernel.forward_sweep(*_sweep_args(device, 2, s, g, f, basis=basis)),
     }
-    if wrapper == "fullstep":
-        wide = decision_kernel.decision_update_fullstep.wide_launches
-        calls[wrapper]()
-        assert decision_kernel.decision_update_fullstep.wide_launches == wide + 1
-        before[2] += 1
-    else:
-        with pytest.raises(ValueError, match="at most 16 basis functions and 8 factors"):
+    counter = {"moments": decision_kernel.decision_update_moments,
+               "fullstep": decision_kernel.decision_update_fullstep,
+               "sweep": forward_kernel.forward_sweep}[wrapper]
+    if case == "65-terms":
+        with pytest.raises(ValueError, match="at most 64"):
             calls[wrapper]()
+    else:
+        wide = counter.wide_launches
+        calls[wrapper]()
+        assert counter.wide_launches == wide + 1
+        before[{"moments": 0, "fullstep": 2, "sweep": 3}[wrapper]] += 1
     assert before == [fn.launches for fn in (decision_kernel.decision_update_moments,
                                              decision_kernel.decision_update,
                                              decision_kernel.decision_update_fullstep,
                                              forward_kernel.forward_sweep)]
 
 
-def _monomials(b: int, f: int):
+def _basis_text(b: int, f: int) -> str:
     """The first B monomials of total degree up to 4 in the spot and F
     factors, by degree: 1, s, the factors, then products and powers."""
     import itertools
@@ -520,7 +526,12 @@ def _monomials(b: int, f: int):
         for combo in itertools.combinations_with_replacement(range(len(names)), degree):
             terms.append("*".join(names[i] + (f"**{combo.count(i)}" if combo.count(i) > 1 else "")
                                   for i in sorted(set(combo))))
-    monomials = tuple(parse_basis_functions(" + ".join(terms[:b])))
+    return " + ".join(terms[:b])
+
+
+def _monomials(b: int, f: int):
+    """``_basis_text``'s monomials."""
+    monomials = tuple(parse_basis_functions(_basis_text(b, f)))
     assert len(monomials) == b
     return monomials
 
@@ -1052,6 +1063,117 @@ def test_forward_sweep_design_beyond_16_terms(device, general, g):
         assert torch.equal(x, y)
     info = forward_kernel.kernel_info(g, 20, 3, 0, 1, device, design=True, general=general)
     assert info["blocks_per_sm"] >= 1 and info["max_grid"] >= g
+
+
+WIDE_SHAPES = [(17, 3), (20, 3), (13, 10), (16, 9), (17, 8), (32, 12), (33, 3), (64, 3)]
+
+
+@pytest.mark.parametrize("g", [100, 1000])
+@pytest.mark.parametrize("b,f", WIDE_SHAPES)
+def test_decision_update_moments_wide(device, b, f, g):
+    """Kernel B past 16 terms or 8 factors (its wide body, kernel E's after
+    the solve) against its plain version: per-path values to f32 rounding,
+    the moments in another order; the rule's body and grid route counted;
+    each grid route of each wide body that takes the shape forced (the
+    shared one where G fits it) to the same bits."""
+    fm = decision_kernel.decision_update_moments
+    fargs, prev = _wide_fullstep_args(device, g, 1000, 3, b, f)
+    v, spot, factors, spot_prev, factors_prev, _, _, mean, std, idx_lo, w_hi, a, b_, mono = fargs
+    ci = 20.0 * torch.randn((3, g, b), generator=torch.Generator(device=device).manual_seed(b),
+                            device=device)
+    args = (v, spot, factors, spot_prev, factors_prev, mean, std, prev["mean_prev"],
+            prev["std_prev"], idx_lo, w_hi, ci, a, b_, mono)
+    limit = _build.smem_limit(device)
+    plan = decision_kernel.moments_plan(g, 3, b, f, limit)
+    assert plan.body == ("wide" if b <= 32 else "wide-smem")
+    before = (fm.launches, fm.wide_launches, fm.wide_smem_launches, fm.large_launches)
+    got = [t.clone() for t in fm(*args)]
+    assert (fm.launches, fm.wide_launches, fm.wide_smem_launches, fm.large_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (plan.body == "wide-smem"),
+        before[3] + (plan.name == "large"))
+    want = decision_kernel.decision_update_moments_plain(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-4)
+    for k in (1, 2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                   atol=1e-5 * float(want[k].abs().max()))
+    for body in ("wide", "wide-smem") if b <= 32 else ("wide-smem",):
+        fits = decision_kernel.wide_max_grid(3, b, f, limit, body)
+        for route in ("shared", "large") if g <= fits else ("large",):
+            forced = fm(*args, route=f"{body}-{route}")
+            assert all(torch.equal(x, y) for x, y in zip(got, forced)), (body, route)
+
+
+@pytest.mark.parametrize("g", [100, 1000])
+def test_moments_forced_wide_keeps_the_register_bits(device, g):
+    """At the headline's B = 9, F = 3 kernel B forced onto each wide body
+    gives its register kernels' bits on each grid route."""
+    fm = decision_kernel.decision_update_moments
+    args = _decision_args(device, g, 1_037, 3, 3, basis=BASIS_9)
+    for route in ("shared", "large"):
+        register = [t.clone() for t in fm(*args, route=route)]
+        for body in ("wide", "wide-smem"):
+            forced = fm(*args, route=f"{body}-{route}")
+            assert all(torch.equal(x, y) for x, y in zip(register, forced)), (body, route)
+
+
+def _standardised_sweep_args(device, n, s, g, b, f):
+    """``_sweep_args`` at ``_basis_text(b, f)``, each step's design stats
+    taken on its own paths (the engine's), so that every entry is of order
+    one."""
+    from storage_tpu_torch.basis import design_matrix
+    from storage_tpu_torch.ops.regression import column_stats
+
+    args = list(_sweep_args(device, n, s, g, f, basis=_basis_text(b, f)))
+    stats = [column_stats(design_matrix(args[11], args[6][t], args[7][t])) for t in range(n)]
+    args[1] = torch.stack([m for m, _ in stats]).contiguous()
+    args[2] = torch.stack([sd for _, sd in stats]).contiguous()
+    return tuple(args)
+
+
+@pytest.mark.parametrize("general", [False, True], ids=["uniform", "general"])
+@pytest.mark.parametrize("b,f", WIDE_SHAPES)
+def test_forward_sweep_monomial_beyond_the_caps(device, b, f, general):
+    """Kernel C's monomial mode past 16 terms or 8 factors (its wide route:
+    the powers from a device table, each sim's design row in shared memory)
+    on evenly spaced and custom rows against its plain version, with the
+    per-sim panels, on the rule's grid route (shared at G = 100) and forced
+    onto the large one: the same bits on both; counted in
+    ``wide_launches``."""
+    s, n, g = 300, 9, 100
+    args = _standardised_sweep_args(device, n, s, g, b, f)
+    assert forward_kernel.sweep_wide(b, f)
+    fs = forward_kernel.forward_sweep
+    before = (fs.launches, fs.wide_launches, fs.large_launches)
+    got, want, panels, want_panels = _sweep_mode_call(args, "general" if general else "monomial")
+    assert (fs.launches, fs.wide_launches, fs.large_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    for k in range(2):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-3)
+    for row, want_row in zip(panels, want_panels):
+        torch.testing.assert_close(row, want_row, rtol=1e-6, atol=1e-3)
+    for k in (2, 3):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                   atol=1e-5 * float(want[k].abs().max()))
+    large = _sweep_mode_call(args, "general" if general else "monomial", route="large")
+    assert fs.large_launches == before[2] + 1
+    for x, y in zip((*got, *panels), (*large[0], *large[2])):
+        assert torch.equal(x, y)
+
+
+def test_forward_sweep_wide_sizing_matches_kernel_info(device):
+    """The monomial sweep's Python sizing (``sweep_max_grid``, the wide
+    route's shared words) is its launch report's on this card, on both
+    sides of the wide route's crossing, in both grid modes and on the large
+    route."""
+    limit = _build.smem_limit(device)
+    for b, f in ((16, 8), *WIDE_SHAPES, (64, 10)):
+        for general in (False, True):
+            info = forward_kernel.kernel_info(100, b, 3, f, 1, device, general=general)
+            assert info["max_grid"] == forward_kernel.sweep_max_grid(
+                b, 3, f, 1, limit, general=general), (b, f, general)
+            large = forward_kernel.kernel_info(100, b, 3, f, 1, device, general=general,
+                                               large=True)
+            assert large["smem_bytes"] <= limit and large["blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])

@@ -6,7 +6,9 @@ sims, f64).
 
 * World 2 against JAX ``make_mesh(2)``: NPV and SE within 1e-9 relative,
   deltas, profiles and triggers within rtol 1e-8; every reduced output the
-  same bits on both ranks.  The same for ``lsmc_core_from_sims`` and both
+  same bits on both ranks; also at a 20-term basis, past the register
+  kernels' 16 (kernel B's and C's wide routes on the card), whose moments
+  the group sums as it does within the caps.  The same for ``lsmc_core_from_sims`` and both
   sharded adjoints (``sharded_ad_deltas``, ``sharded_ad_deltas_from_sims``).
 * Streamed against materialised in world 2: the same bits; the route
   agreed when only one rank's threshold is below its share.
@@ -30,6 +32,7 @@ sys.path.insert(0, __file__.rsplit("/", 1)[0])
 import _torch_distributed_worker as worker  # noqa: E402
 from test_sharding import build_case as jax_case  # noqa: E402
 
+from storage_tpu.basis import parse_basis_functions as jax_parse  # noqa: E402
 from storage_tpu.models.spot_sim import simulate_ou_paths as jax_simulate  # noqa: E402
 from storage_tpu.parallel import mesh as jax_mesh  # noqa: E402
 from storage_tpu_torch.models import spot_sim  # noqa: E402
@@ -90,7 +93,16 @@ def test_world2_matches_jax_sharded(ranks, jax_inputs):
     _assert_close(ranks["sharded"][0], _jax_sharded(jax_inputs))
 
 
-@pytest.mark.parametrize("case", ["sharded", "streamed", "routed", "antithetic", "from_sims"])
+def test_world2_20_terms_matches_jax_sharded(ranks, jax_inputs):
+    inputs, arrays, sim_inputs, _ = jax_inputs
+    monomials = tuple(jax_parse(worker.BASIS_20))
+    assert len(monomials) == 20
+    _assert_close(ranks["sharded_20_terms"][0],
+                  _jax_sharded((inputs, arrays, sim_inputs, monomials)))
+
+
+@pytest.mark.parametrize("case", ["sharded", "streamed", "sharded_20_terms", "routed", "antithetic",
+                                  "from_sims"])
 def test_ranks_hold_the_same_bits(ranks, case):
     _same_bits(*ranks[case])
 

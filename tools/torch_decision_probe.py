@@ -50,10 +50,15 @@ on that body, the moments compiled out (``wide_noprod``, timing only) or
 step t's row copied into registers (``wide_regrow``, ``wide_regrow16``,
 at 20 and 13 terms: the same bits); the register row's caps
 (``regcap<n>``, every padded size).  The report goes to
-``build/decision_probe/wide_probe_<checkout>.json``.
+``build/decision_probe/wide_probe_<checkout>.json``.  With ``--moments``
+as well it times kernel B's wide body without E's solve
+(``decision_update_moments`` past the caps, ``moments_plan``'s route) on
+the same cases, its coefficients the regression of the case's moments
+(``fit_from_moments``), into ``wide_moments_probe_<checkout>.json``.
 
     python3 tools/torch_decision_probe.py [--repeats 20]
     python3 tools/torch_decision_probe.py --wide [--repo build/parent] [--variants regcap6 regcap8]
+    python3 tools/torch_decision_probe.py --wide --moments
 """
 from __future__ import annotations
 
@@ -297,9 +302,22 @@ def wide_cases(device):
     return cases
 
 
-def wide_main(repeats: int, names) -> int:
-    """Kernel E's wide route at ``WIDE_CASES``: the checkout's own library
-    (``names`` empty), or text-patched variants of its decision_kernel.cu."""
+def moments_case(args, prev):
+    """Kernel B's arguments from kernel E's (``wide_step_args``): the same
+    step, its coefficients the regression of E's carried moments."""
+    from storage_tpu_torch.ops import interp
+    from storage_tpu_torch.ops.regression import fit_from_moments
+
+    v, spot, factors, spot_p, factors_p, xtx, xty, mean, std, idx_lo, w_hi, a, b, mono = args
+    ci = interp.interp_coeffs(fit_from_moments(xtx, xty), idx_lo, w_hi)
+    return (v, spot, factors, spot_p, factors_p, mean, std, prev["mean_prev"], prev["std_prev"],
+            idx_lo, w_hi, ci, a, b, mono), {}
+
+
+def wide_main(repeats: int, names, moments: bool = False) -> int:
+    """Kernel E's wide route at ``WIDE_CASES`` (with ``moments``, kernel B's
+    wide body without the solve): the checkout's own library (``names``
+    empty), or text-patched variants of its decision_kernel.cu."""
     import torch
 
     sys.path.insert(0, str(REPO))
@@ -317,13 +335,17 @@ def wide_main(repeats: int, names) -> int:
         libs = {"checkout": (_build.library(), None)}
     cases = wide_cases(device)
     fe = decision_kernel.decision_update_fullstep
+    if moments:
+        cases = {k: moments_case(*v) for k, v in cases.items()}
+        fe = decision_kernel.decision_update_moments
     library = _build.library
     smem = _build.smem_limit(device)
     rows, ref = [], {}
     try:
         for (b, f, g), (args, prev) in cases.items():
-            fits = min(decision_kernel.wide_max_grid(3, b, f, smem),
-                       decision_kernel.solve_max_grid(b, smem))
+            fits = decision_kernel.wide_max_grid(3, b, f, smem)
+            if not moments:
+                fits = min(fits, decision_kernel.solve_max_grid(b, smem))
             out = torch.empty_like(args[0])
             routes = (None, "shared", "large") if g <= fits else (None,)
             # The shared row forced, where the checkout has it beside the
@@ -331,7 +353,9 @@ def wide_main(repeats: int, names) -> int:
             if "wide-smem-large" in getattr(decision_kernel, "WIDE_ROUTES", ()):
                 routes += ("wide-smem-large",)
             for route in routes:
-                plan = decision_kernel.fullstep_route(g, 3, b, smem, route=route, num_factors=f)
+                plan = (decision_kernel.moments_plan(g, 3, b, f, smem, route=route) if moments
+                        else decision_kernel.fullstep_route(g, 3, b, smem, route=route,
+                                                            num_factors=f))
                 for name, (lib, ptxas) in libs.items():
                     cases_of = WIDE_VARIANTS[name][1] if name in WIDE_VARIANTS else None
                     if cases_of is not None and b not in cases_of:
@@ -374,7 +398,8 @@ def wide_main(repeats: int, names) -> int:
         decision_kernel._kernel_info.cache_clear()
     report = dict(card=card, kind=torch.cuda.get_device_name(0), checkout=str(REPO), rows=rows)
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / f"wide_probe_{REPO.name or 'repo'}.json").write_text(json.dumps(report, indent=1))
+    kind = "wide_moments" if moments else "wide"
+    (OUT / f"{kind}_probe_{REPO.name or 'repo'}.json").write_text(json.dumps(report, indent=1))
     print(card)
     return 0
 
@@ -384,6 +409,8 @@ def main(argv) -> int:
     ap.add_argument("--repeats", type=int, default=20)
     ap.add_argument("--wide", action="store_true",
                     help="time kernel E's wide route (WIDE_CASES)")
+    ap.add_argument("--moments", action="store_true",
+                    help="with --wide, kernel B's wide body without E's solve")
     ap.add_argument("--variants", nargs="*", default=(), choices=list(WIDE_VARIANTS),
                     help="with --wide, variants of decision_kernel.cu to build and time")
     ap.add_argument("--repo", default=str(REPO), help="the checkout to import and patch")
@@ -391,7 +418,7 @@ def main(argv) -> int:
     import torch
 
     if args.wide and torch.cuda.is_available():
-        return wide_main(args.repeats, args.variants)
+        return wide_main(args.repeats, args.variants, args.moments)
 
     if not torch.cuda.is_available():
         print("decision probe: no CUDA device", file=sys.stderr)

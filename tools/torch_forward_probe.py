@@ -285,12 +285,14 @@ VARIANT_CASES = {"cap_general5": ("general", "design_general"), "cap_large6": _L
                  "search_binary": _GENERAL, "coef_scalar": _LARGE,
                  "abl_uniform_search": _GENERAL, "abl_fixed_row": _LARGE}
 
-# Appended to each unit: the sweep's local (spill) bytes per thread.
+# Appended to each unit: the sweep's local (spill) bytes per thread (the
+# kernel compiled for B; ``pick_sweep`` takes the factor count too in a
+# checkout with the monomial mode's wide route, given as 0 here).
 _QUERY = """
 extern "C" int probe_local_bytes{suffix}(int B, int design, int general, int* out) {{
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(
-      &attr, design ? pick_sweep<true, {large}>(B, general) : pick_sweep<false, {large}>(B, general));
+      &attr, design ? pick_sweep<true, {large}>({args}) : pick_sweep<false, {large}>({args}));
   out[0] = static_cast<int>(attr.localSizeBytes);
   return static_cast<int>(err);
 }}
@@ -336,7 +338,10 @@ def build_all(checkouts, names, bdims):
                 body = (csrc / unit).read_text()
                 if unit != "common.cu":
                     large = "true" if unit == "forward_kernel_large.cu" else "false"
-                    body += _QUERY.format(suffix="_large" if large == "true" else "", large=large)
+                    args = ("B, 0, general" if "pick_sweep(int B, int F, bool general)" in text
+                            else "B, general")
+                    body += _QUERY.format(suffix="_large" if large == "true" else "", large=large,
+                                          args=args)
                 (d / unit).write_text(body)
                 units.append(str(d / unit))
             procs[(tag, name)] = (d, subprocess.Popen(

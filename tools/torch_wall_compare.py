@@ -12,15 +12,20 @@ and one phase breakdown (``chip_smoke.phase_breakdown``).  The checkouts
 run in the order given, then in reverse, ``--rounds`` times (A, B, B, A for
 two checkouts and two rounds).  ``--grid G`` values the headline at G
 inventory grid points instead of 100 (each checkout's own route rule
-picks its kernels' routes).  It prints each turn, then each checkout's
-median wall over all its turns, its NPV and SE (equal bits expected across
-checkouts that keep the main path's arithmetic) and the card's name and
-power limit; the report goes to
-``build/wall_compare/wall_compare_g<G>.json``.
+picks its kernels' routes).  ``--case basis_20`` or ``--case factors_10``
+values one of the caps cells instead (``chip_smoke.caps_value``: a 20-term
+basis on the headline's 3-factor model, or 13 terms on the 10-factor model,
+at the headline's width), with no phase breakdown; ``--fullstep`` runs
+each valuation with the engine's full step (``chip_smoke.fullstep_engine``).
+It prints each turn, then each checkout's median wall over all its turns,
+its NPV and SE (equal bits expected across checkouts that keep the main
+path's arithmetic) and the card's name and power limit; the report goes to
+``build/wall_compare/wall_compare_<case>[_fullstep]_g<G>.json``.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
     python3 tools/torch_wall_compare.py --repo build/parent --repo .
     python3 tools/torch_wall_compare.py --grid 1000 --runs 3 --repo build/parent --repo .
+    python3 tools/torch_wall_compare.py --case basis_20 --fullstep --repo build/parent --repo .
 """
 from __future__ import annotations
 
@@ -35,7 +40,10 @@ from pathlib import Path
 OUT = Path(__file__).resolve().parents[1] / "build" / "wall_compare"
 
 
-def child(repo: Path, runs: int, grid: int) -> dict:
+CASES = ("headline", "basis_20", "factors_10")
+
+
+def child(repo: Path, runs: int, grid: int, case: str, fullstep: bool) -> dict:
     sys.path.insert(0, str(repo))
     import torch
 
@@ -47,15 +55,22 @@ def child(repo: Path, runs: int, grid: int) -> dict:
 
     device = torch.device("cuda", 0)
     _build.library()
-    chip_smoke.value(stt, device, snap_interp=True)
+
+    def run():
+        with chip_smoke.fullstep_engine(fullstep):
+            if case == "headline":
+                return chip_smoke.value(stt, device, snap_interp=True)
+            return chip_smoke.caps_value(stt, device, case)
+
+    run()
     torch.cuda.synchronize()
     walls = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        res = chip_smoke.value(stt, device, snap_interp=True)
+        res = run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    phases = chip_smoke.phase_breakdown(stt, device)
+    phases = chip_smoke.phase_breakdown(stt, device) if case == "headline" else {}
     return dict(repo=str(repo), walls_s=walls, npv=res.npv, se=res.val_sim_standard_error,
                 phases={k: v for k, v in phases.items() if k.endswith("_s")})
 
@@ -66,10 +81,13 @@ def main(argv) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--grid", type=int, default=100, help="inventory grid points")
+    ap.add_argument("--case", choices=CASES, default="headline")
+    ap.add_argument("--fullstep", action="store_true", help="the engine's full step")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv[1:])
     if args.child:
-        print(json.dumps(child(Path(args.child).resolve(), args.runs, args.grid)))
+        print(json.dumps(child(Path(args.child).resolve(), args.runs, args.grid, args.case,
+                               args.fullstep)))
         return 0
     import torch
 
@@ -87,7 +105,9 @@ def main(argv) -> int:
     turns = []
     for repo in order:
         out = subprocess.run([sys.executable, __file__, "--child", repo, "--runs", str(args.runs),
-                              "--grid", str(args.grid)], capture_output=True, text=True, cwd=repo)
+                              "--grid", str(args.grid), "--case", args.case,
+                              *(["--fullstep"] if args.fullstep else [])],
+                             capture_output=True, text=True, cwd=repo)
         if out.returncode != 0:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
             return 1
@@ -105,8 +125,10 @@ def main(argv) -> int:
         print(f"{repo}: median {summary[repo]['median_s']:.4f} s of {len(walls)} runs, NPV "
               f"{mine[0]['npv']!r} SE {mine[0]['se']!r} [{card}]")
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / f"wall_compare_g{args.grid}.json").write_text(
-        json.dumps(dict(card=card, grid=args.grid, turns=turns, summary=summary), indent=1))
+    name = f"{args.case}{'_fullstep' * args.fullstep}_g{args.grid}"
+    (OUT / f"wall_compare_{name}.json").write_text(json.dumps(
+        dict(card=card, grid=args.grid, case=args.case, fullstep=args.fullstep, turns=turns,
+             summary=summary), indent=1))
     print(card)
     return 0
 
